@@ -1,0 +1,66 @@
+"""Reference-Oriented Storage (ROS) — the paper's core contribution.
+
+Public API:
+
+    from repro_torch.core import ReferenceServer, TensorHubClient
+
+    server = ReferenceServer()
+    hub = TensorHubClient(server)              # weights on the card
+    handle = hub.open("actor", "trainer-0", num_shards=W, shard_idx=R,
+                      retain="latest")
+    handle.register(named_tensors)             # CUDA tensors, held in place
+    handle.publish(version=0)
+    ...
+
+Controller crash recovery (``failover``) is not ported yet.
+"""
+
+from repro_torch.core.client import ShardHandle, TensorHubClient
+from repro_torch.core.errors import (
+    ChecksumError,
+    ConsistencyError,
+    MutabilityViolationError,
+    NotRegisteredError,
+    ServerUnavailableError,
+    ShardLayoutError,
+    StaleHandleError,
+    TensorHubError,
+    VersionUnavailableError,
+)
+from repro_torch.core.meta import ShardManifest, TensorMeta, TransferUnit, WorkerInfo
+from repro_torch.core.oplog import OpLog, OpRecord, Snapshot
+from repro_torch.core.server import (
+    Assignment,
+    Event,
+    ReferenceServer,
+    UpdateDecision,
+    UnpublishResult,
+    offload_name,
+)
+
+__all__ = [
+    "Assignment",
+    "ChecksumError",
+    "ConsistencyError",
+    "Event",
+    "MutabilityViolationError",
+    "NotRegisteredError",
+    "OpLog",
+    "OpRecord",
+    "ReferenceServer",
+    "ServerUnavailableError",
+    "ShardHandle",
+    "ShardLayoutError",
+    "ShardManifest",
+    "Snapshot",
+    "StaleHandleError",
+    "TensorHubClient",
+    "TensorHubError",
+    "TensorMeta",
+    "TransferUnit",
+    "UnpublishResult",
+    "UpdateDecision",
+    "VersionUnavailableError",
+    "WorkerInfo",
+    "offload_name",
+]
