@@ -24,16 +24,27 @@ lines, any failure exiting non-zero:
    (rollout-1 over delta:int8). rollout-0 must equal the trainer and
    rollout-1 the plain-version codec applied to the same bytes; both
    kernels' launch counters must rise on this path.
-4. A ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+4. Resharded transfer at full width: the same model, published by a
+   trainer group at TP-4 (dc0) and pulled by two rollout groups at TP-2,
+   ``roll-int8`` (dc1, int8 wire frames decoded by the fused dequant+gather
+   kernel) and ``roll-raw`` (dc0, staged, repacked by the gather kernel);
+   then the trainer perturbs 1/8 of its rows and publishes v1 and both
+   groups update. roll-raw must equal the trainer's bytes resharded to
+   TP-2, roll-int8 the plain-version int8 codec's round trip of the
+   trainer's TP-4 units resharded to TP-2; all four kernels' launch
+   counters must rise on this path.
+5. A ``kernels`` JSON line (launches over phases 3 and 4), then the last
+   line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -42,6 +53,8 @@ SEED = 0
 NUM_LAYERS = 10  # of llama3-8b's 32: three replicas and their delta bases fit one 80 GB card
 GIB = 1 << 30
 MASK32 = 0xFFFFFFFF
+SRC_TP, DST_TP = 4, 2  # phase 4: trainer and rollout tensor-parallel degrees
+W_GATE = "layers/ffn/w_gate"
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +207,217 @@ def kernel_checks(torch, dev, bw: float) -> dict:
     }
 
 
+def shape_manifest(torch, glob, shard: int, tp: int):
+    """The manifest a TP-``tp`` shard of ``glob`` registers, built from
+    shapes alone (meta tensors), and the shard's layout."""
+    from repro_torch.core.meta import ShardManifest, build_units
+    from repro_torch.resharding import tp_shard
+    from repro_torch.transfer.engine import tensor_meta
+
+    local, lay = tp_shard(glob, shard, tp)
+    metas = [tensor_meta(n, a, lay[n]) for n, a in local.items()]
+    units = build_units(metas)
+    return ShardManifest(tensors=tuple(metas), units=tuple(units), checksums=(0,) * len(units)), local, lay
+
+
+def w_gate_executor(torch, dev, codec: str):
+    """The TP-2 destination unit of ``layers/ffn/w_gate`` (the largest
+    unit of phase 4, tied with w_up and w_down) as phase 4 plans it from
+    the TP-4 source. Planned from shapes alone: the plan of a plain unit
+    does not depend on the other tensors."""
+    from repro_torch.resharding import ReshardExecutor, layout_from_manifests, plan_shard
+
+    glob = {W_GATE: torch.empty((NUM_LAYERS, 4096, 14336), dtype=torch.bfloat16, device="meta")}
+    src = {i: shape_manifest(torch, glob, i, SRC_TP)[0] for i in range(SRC_TP)}
+    dst = shape_manifest(torch, glob, 0, DST_TP)[0]
+    plan = plan_shard(
+        layout_from_manifests(src, SRC_TP), layout_from_manifests({0: dst}, DST_TP), 0,
+        num_dest_units=dst.num_units, codec=codec,
+    )
+    return ReshardExecutor(plan, dst, device=dev)
+
+
+def byte_err(torch, got, want) -> int:
+    """Largest difference between two byte tensors, byte by byte (0 when
+    they are bit-equal): the outputs mix dtypes, so bytes are the common
+    unit."""
+    return int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) if got.numel() else 0
+
+
+def gather_map(torch, runs, out_nbytes: int, staging_nbytes: int, dev):
+    """The per-byte int32 index map the TPU kernel gathers through
+    (``build_gather_map``): uncovered bytes point at an appended zero."""
+    idx = torch.full((out_nbytes,), staging_nbytes, dtype=torch.int32, device=dev)
+    for s_off, d_off, n in runs:
+        idx[d_off : d_off + n] = torch.arange(s_off, s_off + n, dtype=torch.int32, device=dev)
+    return idx
+
+
+def reshard_kernel_checks(torch, dev, bw: float) -> dict:
+    """Phase 2 for the resharding kernels: the gather and the fused
+    dequant+gather held bit-equal to their plain versions, then timed at
+    the main path's shape (the TP-2 shard of w_gate with its real runs)."""
+    from repro_torch.kernels import repack as rk
+    from repro_torch.kernels.quant import fused as fk
+    from repro_torch.kernels.quant import quantize_rows_plain
+    from repro_torch.transfer.codec import Int8Codec, as_bytes, parse_int8_frame
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g, device=dev)
+
+    # -- gather_bytes --------------------------------------------------------
+    ex = w_gate_executor(torch, dev, "raw")
+    unit = ex.manifest.units[0]
+    real_runs = ex.instructions(unit.index)
+    check(len(real_runs) == SRC_TP * NUM_LAYERS // DST_TP, f"w_gate runs: {len(real_runs)}")
+    staging = rand_bytes(ex.staging_bytes(unit.index))
+    g_cases = {f"w_gate TP-2 unit, {len(real_runs)} real runs": (staging, real_runs, unit.nbytes)}
+    for seed in range(4):
+        n = (1 << 20) * (seed + 1) + 7 * seed + 1
+        runs = rk.random_runs(seed, n)
+        buf = rand_bytes(n + 16)
+        g_cases[f"random tiling {seed}, {len(runs)} runs, {n} B"] = (buf, runs, n)
+        g_cases[f"random tiling {seed} with gaps"] = (buf, runs[::2], n)
+    buf = rand_bytes((1 << 20) + 64)
+    for mod in (1, 2, 3):
+        for smod, dmod in ((mod, mod), (mod, 0), (0, mod), (mod, 16 - mod)):
+            n = (1 << 19) + 5
+            runs = [(smod, 64 + dmod, n), (smod + n, dmod, 48)]
+            g_cases[f"offsets src {smod} / dst {dmod} mod 16"] = (buf, runs, 64 + dmod + n + 3)
+    g_cases["gaps: two runs, 3 B between, 9 B after"] = (buf, [(5, 0, 1000), (1005, 1003, 4000)], 5012)
+    g_worst = 0  # largest byte difference, kernel against plain version
+    for label, (src, runs, n) in g_cases.items():
+        covered = rk.covers([(d, k) for _, d, k in runs], n)
+        got = rk.gather_bytes(src, runs, n)
+        want = rk.repack_plain(src, runs, n)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        g_worst = max(g_worst, byte_err(torch, got, want))
+        emit("gather_check", case=label, nbytes=n, runs=len(runs), covered=covered, equal=equal)
+        check(equal, f"gather kernel != plain version on {label}")
+    g_ms = time_ms(torch, lambda: rk.gather_bytes(staging, real_runs, unit.nbytes), reps=20)
+    g_plain_ms = time_ms(torch, lambda: rk.repack_plain(staging, real_runs, unit.nbytes), reps=10)
+    padded = torch.cat([staging, torch.zeros(1, dtype=torch.uint8, device=dev)])
+    idx = gather_map(torch, real_runs, unit.nbytes, staging.numel(), dev)
+    check(torch.equal(torch.index_select(padded, 0, idx), rk.gather_bytes(staging, real_runs, unit.nbytes)),
+          "index_select yardstick != gather kernel")
+    g_lib_ms = time_ms(torch, lambda: torch.index_select(padded, 0, idx), reps=10)
+    gdst = torch.empty_like(staging)
+    g_copy_ms = time_ms(torch, lambda: gdst.copy_(staging), reps=20)
+    g_bound_ms = 2 * unit.nbytes / bw * 1e3  # every byte read once and written once
+    del g_cases, staging, padded, idx, gdst, buf
+    torch.cuda.empty_cache()
+
+    # -- dequant_gather ------------------------------------------------------
+    plain_codec = Int8Codec(quantize=quantize_rows_plain)
+
+    def frame(dtype, n, poison=False):
+        x = torch.randn(n, generator=g, device=dev, dtype=torch.float32).mul_(2).to(dtype)
+        if poison:
+            x[n // 2] = float("inf")  # ships as a passthrough frame
+        name = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.float64: "float64"}[dtype]
+        return parse_int8_frame(plain_codec.encode(x.view(torch.uint8), name))
+
+    def pack(specs):
+        """(frame, lead, nbytes, gap) -> placements, 24 bytes uncovered at the end."""
+        pos, out = 0, []
+        for f, lead, nbytes, gap in specs:
+            pos += gap
+            out.append((f, lead, nbytes, pos))
+            pos += nbytes
+        return out, pos + 24
+
+    f_cases = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64):
+        isz = torch.empty((), dtype=dtype).element_size()
+        ragged = frame(dtype, (1 << 20) + 77)
+        f_cases[f"{dtype}: lead/tail trim, ragged last row, passthrough, gap"] = pack([
+            (ragged, 256 * isz, ((1 << 20) + 77 - 256 - 100) * isz, 0),
+            (frame(dtype, 513), 3 * isz, 510 * isz, 2 * isz),
+            (frame(dtype, 300, poison=True), 4 * isz, 200 * isz, 0),
+            (ragged, ((1 << 20) + 77 - 90) * isz, 90 * isz, 0),  # the ragged row's tail
+        ])
+    f_cases["mixed dtypes in one unit, byte-misaligned"] = pack([
+        (frame(torch.float64, 600), 8 * 7, 8 * 500, 0),
+        (frame(torch.bfloat16, 513), 3, 2 * 400 + 1, 1),
+        (frame(torch.float32, 256), 0, 4 * 256, 3),
+        (frame(torch.float16, 300, poison=True), 1, 97, 0),
+        (frame(torch.float16, 900), 2 * 256, 2 * 644, 0),
+    ])
+    # the main path's shape: w_gate's TP-2 unit from its TP-4 source's
+    # int8 interval frames
+    ex8 = w_gate_executor(torch, dev, "int8")
+    unit8, placed = next(ex8.unit_batches())
+    src_data = [
+        torch.randn((NUM_LAYERS, 4096 // SRC_TP, 14336), generator=g, device=dev,
+                    dtype=torch.float32).mul_(0.02).to(torch.bfloat16)
+        for _ in range(SRC_TP)
+    ]
+    codec = Int8Codec()
+    real = []
+    for p in placed:
+        iv = p.interval
+        view = as_bytes(src_data[iv.source_shard])[iv.read_offset : iv.read_offset + iv.read_nbytes]
+        real.append((parse_int8_frame(codec.encode(view, "bfloat16")), iv.lead, iv.nbytes, p.unit_offset))
+    del src_data
+    main_label = f"w_gate TP-2 unit, {len(real)} real int8 placements"
+    f_cases[main_label] = (real, unit8.nbytes)
+    f_worst = 0
+    for label, (placements, n) in f_cases.items():
+        got = fk.fused_repack(placements, n)
+        want = fk.fused_repack_plain(placements, n)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        f_worst = max(f_worst, byte_err(torch, got, want))
+        emit("dequant_gather_check", case=label, nbytes=n, placements=len(placements), equal=equal)
+        check(equal, f"fused dequant+gather kernel != plain version on {label}")
+    f_ms = time_ms(torch, lambda: fk.fused_repack(real, unit8.nbytes), reps=20)
+    f_plain_ms = time_ms(torch, lambda: fk.fused_repack_plain(real, unit8.nbytes), reps=5, warmup=1)
+    fout = fk.fused_repack(real, unit8.nbytes)
+    fdst = torch.empty_like(fout)
+    f_copy_ms = time_ms(torch, lambda: fdst.copy_(fout), reps=20)
+    elems = unit8.nbytes // 2
+    f_bytes = elems + 4 * -(-elems // 256) + unit8.nbytes  # q, scales, bf16 output
+    f_bound_ms = f_bytes / bw * 1e3
+    del f_cases, real, fout, fdst
+    torch.cuda.empty_cache()
+
+    emit(
+        "reshard_kernel_times",
+        gather_bytes={"shape": f"uint8[{unit.nbytes}], {len(real_runs)} runs", "ms": g_ms,
+                      "plain_ms": g_plain_ms, "index_select_ms": g_lib_ms, "copy_ms": g_copy_ms,
+                      "bound_ms": g_bound_ms,
+                      "achieved_GBps": 2 * unit.nbytes / (g_ms * 1e-3) / 1e9},
+        dequant_gather={"shape": f"bf16[{elems}] from int8, {len(placed)} placements",
+                        "bytes_moved": f_bytes, "ms": f_ms, "plain_ms": f_plain_ms,
+                        "copy_ms": f_copy_ms, "bound_ms": f_bound_ms,
+                        "achieved_GBps": f_bytes / (f_ms * 1e-3) / 1e9},
+    )
+    return {
+        "gather_bytes": dict(
+            name="gather_bytes", route="cuda",
+            source="src/repro_torch/kernels/csrc/repack.cu",
+            replaces="src/repro/kernels/repack/kernel.py:35",
+            max_abs_err=g_worst, ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound_ms,
+            bound_by="bytes", library_ms=g_lib_ms, copy_ms=g_copy_ms,
+            timed_shape=f"uint8[{unit.nbytes}] ({W_GATE} TP-2 unit, {len(real_runs)} runs)",
+            matched=True, counter=rk.LAUNCHES,
+        ),
+        "dequant_gather": dict(
+            name="dequant_gather", route="cuda",
+            source="src/repro_torch/kernels/csrc/fused.cu",
+            replaces="src/repro/kernels/quant/fused.py:159",
+            max_abs_err=f_worst, ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound_ms,
+            bound_by="bytes", library_ms=None, copy_ms=f_copy_ms,
+            timed_shape=f"int8 -> bfloat16[{elems}] ({W_GATE} TP-2 unit, {len(placed)} placements)",
+            matched=True, counter=fk.LAUNCHES,
+        ),
+    }
+
+
 # -- phase 3: the transfer path at full width ----------------------------------
 
 
@@ -201,6 +425,28 @@ def max_rel_err(torch, got, want) -> float:
     g = got.to(torch.float32)
     w = want.to(torch.float32)
     return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+
+
+def timed_step(torch, dev, hub, counters, total, steps, label, fn, **tags) -> None:
+    """Run one step of a transfer path, ended by a device synchronize;
+    record and print its seconds, payload GB/s, bytes per link class and
+    kernel launches."""
+    torch.cuda.synchronize(dev)
+    before = {k: c.value for k, c in counters.items()}
+    wire0 = dict(hub.transport.wire_bytes)
+    dec0 = dict(hub.transport.decoded_bytes)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    wire = {k: v - wire0.get(k, 0) for k, v in hub.transport.wire_bytes.items() if v - wire0.get(k, 0)}
+    dec = {k: v - dec0.get(k, 0) for k, v in hub.transport.decoded_bytes.items() if v - dec0.get(k, 0)}
+    launches = {k: c.value - before[k] for k, c in counters.items()}
+    rec = dict(seconds=dt, payload_bytes=total, GBps=total / dt / 1e9, wire_bytes=wire,
+               decoded_bytes=dec, launches=launches,
+               wire_ratio={k: wire[k] / dec[k] for k in wire if dec.get(k)})
+    steps[label] = rec
+    emit("step", **tags, step=label, **rec)
 
 
 def transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
@@ -234,22 +480,7 @@ def transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
     steps = {}
 
     def step(label, fn):
-        torch.cuda.synchronize(dev)
-        before = {k: c.value for k, c in counters.items()}
-        wire0 = dict(hub.transport.wire_bytes)
-        dec0 = dict(hub.transport.decoded_bytes)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        wire = {k: v - wire0.get(k, 0) for k, v in hub.transport.wire_bytes.items() if v - wire0.get(k, 0)}
-        dec = {k: v - dec0.get(k, 0) for k, v in hub.transport.decoded_bytes.items() if v - dec0.get(k, 0)}
-        launches = {k: c.value - before[k] for k, c in counters.items()}
-        rec = dict(seconds=dt, payload_bytes=total, GBps=total / dt / 1e9, wire_bytes=wire,
-                   decoded_bytes=dec, launches=launches,
-                   wire_ratio={k: wire[k] / dec[k] for k in wire if dec.get(k)})
-        steps[label] = rec
-        emit("step", step=label, **rec)
+        timed_step(torch, dev, hub, counters, total, steps, label, fn)
 
     def r0_equals_trainer():
         for n, w in trainer.store.tensors().items():
@@ -309,6 +540,178 @@ def transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
     return launches
 
 
+# -- phase 4: resharded transfer at full width --------------------------------
+
+
+def run_group(handles, fn, timeout: float = 600.0) -> None:
+    """One thread per shard, joined with a timeout; the first failure
+    re-raised here."""
+    errs = []
+
+    def wrap(h):
+        try:
+            fn(h)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    ts = [threading.Thread(target=wrap, args=(h,), daemon=True) for h in handles]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in ts), "a shard thread did not finish in time")
+    if errs:
+        raise errs[0]
+
+
+def meta_globals(torch, layouts):
+    """The trainer's global tensors as meta tensors (shapes only), from
+    its per-tensor ``(global_shape, offset)`` layout."""
+    return {n: torch.empty(gshape, dtype=torch.bfloat16, device="meta") for n, (gshape, _) in layouts.items()}
+
+
+def reshard_transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
+    """Drive publish (TP-4) -> resharded replicate (TP-2, raw and int8) ->
+    update through the client; return the kernels' launch counts on that
+    path."""
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.kernels.quant import quantize_rows_plain
+    from repro_torch.resharding import layout_from_manifests, plan_shard, tp_shard
+    from repro_torch.transfer.codec import Int8Codec
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    server = ReferenceServer()
+    hub = TensorHubClient(server, device=dev, chunk_bytes=chunk_bytes)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = [hub.open("m", "trainer", SRC_TP, i, datacenter="dc0") for i in range(SRC_TP)]
+    local = [{} for _ in range(SRC_TP)]
+    lay = [{} for _ in range(SRC_TP)]
+    for name, shape in shapes:  # one global tensor at a time, cut into owned shards
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).mul_(0.02)
+        for i in range(SRC_TP):
+            part, lay_i = tp_shard({name: w}, i, SRC_TP)
+            local[i][name] = part[name].clone()
+            lay[i].update(lay_i)
+        del w
+    for h in trainer:
+        h.register(local[h.shard_idx], layout=lay[h.shard_idx])
+    del local
+    total = sum(t.nbytes for h in trainer for t in h.store.tensors().values())
+    emit("model", config="llama3-8b", layers=NUM_LAYERS, dtype="bfloat16", bytes=total,
+         trainer_tp=SRC_TP, rollout_tp=DST_TP)
+    # host time of the planning each destination shard's pull starts with
+    # (layouts from the manifests, then plan_shard), at this layout
+    src_manifests = {h.shard_idx: h.store.build_manifest(with_checksums=False) for h in trainer}
+    plan_s = {}
+    for codec in ("raw", "int8"):
+        t0 = time.perf_counter()
+        plan = plan_shard(
+            layout_from_manifests(src_manifests, SRC_TP),
+            layout_from_manifests({0: shape_manifest(torch, meta_globals(torch, lay[0]), 0, DST_TP)[0]}, DST_TP),
+            0, codec=codec,
+        )
+        plan_s[codec] = time.perf_counter() - t0
+    emit("plan", seconds_per_dest_shard=plan_s, intervals_per_dest_shard=len(plan.intervals))
+
+    def rollout(name, dc):
+        hs = [hub.open("m", name, DST_TP, i, datacenter=dc) for i in range(DST_TP)]
+        for h in hs:
+            _, metas, lay_i = shape_manifest(torch, meta_globals(torch, lay[0]), h.shard_idx, DST_TP)
+            h.register({n: torch.zeros_like(m, device=dev) for n, m in metas.items()}, layout=lay_i)
+        return hs
+
+    # roll-int8 pulls first in each step: while the trainer alone holds a
+    # version it is the only source, so roll-int8 reshards from it (the
+    # server prefers a same-layout source, and a finished roll-raw would be one)
+    roll_i8 = rollout("roll-int8", "dc1")
+    roll_raw = rollout("roll-raw", "dc0")
+    names = [n for n, _ in shapes]
+    steps = {}
+
+    def step(label, fn):
+        timed_step(torch, dev, hub, counters, total, steps, label, fn, path="phase 4, resharded")
+
+    def trainer_global(name, roundtrip=None):
+        """The trainer's tensor assembled from its TP-4 shards; with
+        ``roundtrip``, each shard's carrying unit goes through it first."""
+        gshape, _ = lay[0][name]
+        out = torch.empty(gshape, dtype=torch.bfloat16, device=dev)
+        for h in trainer:
+            st = h.store
+            part = st.get(name)
+            if roundtrip is not None:
+                u = st.units[st._unit_of[name]]
+                dec = roundtrip(st._gather_unit(u), st.unit_dtype(u))
+                off = 0 if not u.is_compact else next(o for n, o, _ in u.layout if n == name)
+                part = dec[off : off + part.nbytes].view(torch.bfloat16).view(part.shape)
+            _, offset = st.layouts[name]
+            out[tuple(slice(o, o + d) for o, d in zip(offset, part.shape))] = part
+        return out
+
+    plain_int8 = Int8Codec(quantize=quantize_rows_plain)
+
+    def int8_roundtrip(payload, dtype):
+        return plain_int8.decode(plain_int8.encode(payload, dtype))
+
+    def check_rollouts(version):
+        worst = 0.0
+        for name in names:
+            want = trainer_global(name)
+            want8 = trainer_global(name, int8_roundtrip)
+            for i in range(DST_TP):
+                ref = tp_shard({name: want}, i, DST_TP)[0][name]
+                ref8 = tp_shard({name: want8}, i, DST_TP)[0][name]
+                check(torch.equal(roll_raw[i].store.get(name), ref), f"v{version} roll-raw {i} {name} != trainer")
+                got8 = roll_i8[i].store.get(name)
+                check(torch.equal(got8, ref8), f"v{version} roll-int8 {i} {name} != plain int8 round trip")
+                worst = max(worst, max_rel_err(torch, got8, ref))
+            del want, want8
+        check(worst < 0.01, f"v{version} roll-int8 max relative error {worst} >= 1%")
+        for h in roll_raw + roll_i8:
+            check(h.intervals_pulled > 0, f"{h.replica}/{h.shard_idx} pulled no interval (not resharded)")
+        return worst
+
+    for c in counters.values():
+        c.reset()
+    step("publish v0 (trainer TP-4)", lambda: run_group(trainer, lambda h: h.publish(0)))
+    step("replicate roll-int8 (TP-4 -> TP-2, int8, dc1)",
+         lambda: run_group(roll_i8, lambda h: h.replicate(0, timeout=600)))
+    step("replicate roll-raw (TP-4 -> TP-2, raw, dc0)",
+         lambda: run_group(roll_raw, lambda h: h.replicate(0, timeout=600)))
+    launches_v0 = {k: c.value for k, c in counters.items()}
+    err_v0 = check_rollouts(0)
+    check(launches_v0 == {k: c.value for k, c in counters.items()}, "the checks launched a kernel")
+
+    def perturb_and_publish():
+        run_group(trainer, lambda h: h.unpublish())
+        gp = torch.Generator(device=dev).manual_seed(SEED + 4)
+        for h in trainer:
+            for w in h.store.tensors().values():
+                flat = w.view(-1)
+                full = flat.numel() // 256 * 256
+                rows = flat[:full].view(-1, 256)[::8]  # 1/8 of the 256-element rows, in place
+                rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+        run_group(trainer, lambda h: h.publish(1))
+
+    step("unpublish, perturb 1/8 rows, publish v1", perturb_and_publish)
+    step("update roll-int8 (int8: delta collapses on a reshard)",
+         lambda: run_group(roll_i8, lambda h: check(h.update("latest"), "roll-int8 not updated")))
+    step("update roll-raw", lambda: run_group(roll_raw, lambda h: check(h.update("latest"), "roll-raw not updated")))
+    launches = {k: c.value for k, c in counters.items()}  # the main path's launches, read now
+    peak = torch.cuda.max_memory_allocated(dev)
+    err_v1 = check_rollouts(1)
+    ratios = {label: rec["wire_ratio"].get("vpc_up") for label, rec in steps.items() if "roll-int8" in label}
+    for label, r in ratios.items():
+        check(r is not None and r < 0.52, f"{label}: WAN wire ratio {r}")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the resharded path")
+    emit("reshard_result", launches=launches, max_memory_allocated=peak,
+         roll_int8_max_rel_err={"v0": err_v0, "v1": err_v1}, int8_wire_ratio=ratios,
+         intervals_pulled={f"{h.replica}/{h.shard_idx}": h.intervals_pulled for h in roll_i8 + roll_raw},
+         server_stats={k: v for k, v in server.stats.items() if v})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -346,10 +749,17 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, library=str(so.relative_to(ROOT)), ptxas=ptxas)
 
     kernels = kernel_checks(torch, dev, bw)
+    kernels.update(reshard_kernel_checks(torch, dev, bw))
     counters = {k: v.pop("counter") for k, v in kernels.items()}
-    launches = transfer(
-        torch, dev, counters, llama3_8b_shapes(num_layers=NUM_LAYERS), DEFAULT_CHUNK_BYTES
+    shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
+    phase3 = transfer(
+        torch, dev, {k: counters[k] for k in ("checksum", "quantize_rows")}, shapes, DEFAULT_CHUNK_BYTES
     )
+    gc.collect()  # phase 3's replicas and snapshots go before phase 4 allocates
+    torch.cuda.empty_cache()
+    phase4 = reshard_transfer(torch, dev, counters, shapes, DEFAULT_CHUNK_BYTES)
+    launches = {k: phase3.get(k, 0) + phase4[k] for k in counters}
+    emit("launches", phase3=phase3, phase4=phase4)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -365,8 +365,10 @@ class ShardHandle:
         #: pulls, and the sub-unit chunk threshold (None = off)
         self.window = window
         self.chunk_bytes = chunk_bytes
-        #: repack staged reshard bytes through the gather kernel (kept for
-        #: API parity; resharding is not ported yet and raises)
+        #: kept for API parity with the JAX package only: a resharded pull
+        #: repacks on its destination store's device, through the gather
+        #: and fused dequant+gather kernels on the card (the plain versions
+        #: run only on the CPU), whatever this flag says
         self.device_repack = device_repack
         self.store = WorkerStore(worker.worker_id, device=client.device)
         self.current_version: Optional[int] = None
@@ -1730,15 +1732,193 @@ class ShardHandle:
         done: int,
         rejects: Optional[Dict[int, int]] = None,
     ) -> int:
-        """Cross-layout pull (source and destination TP layouts differ).
-        The reshard planner, executor and their repack kernels are not
-        ported to this package yet, so such a pull fails loudly instead of
-        falling back to a host path."""
-        raise TensorHubError(
-            f"{self.worker.worker_id}: resharding pull (source "
-            f"{assignment.source} has {assignment.source_shards} shards, "
-            f"destination {self.num_shards}) is not yet ported to repro_torch"
+        """Cross-layout pull: plan row-grid-aligned interval reads
+        against the source layout, fetch them window-parallel, assemble
+        each destination unit, publish unit progress. Starts at
+        destination unit ``done`` (resume).
+
+        The negotiated wire codec flows through the plan:
+        ``reshard_wire_codec`` resolves the assignment's codec to one an
+        interval read can carry (delta falls back to its int8 base — no
+        held prior version exists at interval granularity), the planner
+        widens every read to that codec's quantization row grid, and a
+        lossy codec takes the fused path — intervals arrive as undecoded
+        wire frames (``decode=False``) and ``ReshardExecutor.
+        fused_repack`` dequantizes them straight into the unit payload,
+        overlapped against the next unit's in-flight reads. A raw
+        negotiation keeps the staged decode+repack path and stays
+        bit-exact with the pre-codec planner (zero widening).
+        """
+        from repro_torch.resharding import ReshardExecutor, layout_from_manifests, plan_shard
+
+        codec = codec_lib.reshard_wire_codec(assignment.codec)
+        fused = codec != "raw"
+        version = assignment.version
+        # our own layout family: checksums are disabled because they would
+        # be computed over the *pre-pull* buffer contents; same-layout
+        # readers chaining off us skip per-unit verification (zeros).
+        local_manifest = dest_store.build_manifest(with_checksums=False)
+        with self._cv:
+            self._scall(
+                "put_manifest",
+                self.model, dest_name, self.shard_idx, version, local_manifest
+            )
+        src_n = assignment.source_shards or self.num_shards
+        src_manifests = {
+            s: self._wait_src_manifest(version, assignment.source, shard_idx=s)
+            for s in range(src_n)
+        }
+        src_layout = layout_from_manifests(src_manifests, src_n)
+        dst_layout = layout_from_manifests(
+            {self.shard_idx: local_manifest}, self.num_shards
         )
+        plan = plan_shard(
+            src_layout,
+            dst_layout,
+            self.shard_idx,
+            num_dest_units=local_manifest.num_units,
+            codec=codec,
+        )
+        # staging and the repack live on the destination store's device: on
+        # the card the gather and fused dequant+gather kernels run (or
+        # raise); the host-RAM seed/offload twin stores are on the CPU by
+        # design and reshard there through the plain versions
+        executor = ReshardExecutor(
+            plan, local_manifest, device=dest_store.device,
+            use_kernel=self.device_repack,
+        )
+        source = assignment.source
+        rec = self.client.recorder
+        track = self.worker.worker_id
+        lc = _link_class(source, assignment.transport)
+        policy = self.client.retry_policy
+        if rejects is None:
+            rejects = {}
+        count_lock = threading.Lock()
+
+        def fetch_one(p):
+            iv = p.interval
+            self._await_source_progress(
+                source, version, iv.source_shard, iv.source_unit
+            )
+            src_unit = src_manifests[iv.source_shard].units[iv.source_unit]
+            t0 = rec.clock() if rec.enabled else 0.0
+            try:
+                payload = self._retry_transient(
+                    lambda: self.client.transport.read_unit_range(
+                        source, iv.source_shard, src_unit, iv.read_offset,
+                        iv.read_nbytes, codec=codec, link_class=lc,
+                        decode=not fused, device=dest_store.device,
+                    ),
+                    source,
+                    unit=iv.tensor,
+                )
+            finally:
+                if rec.enabled:
+                    rec.counter_add(obs.CTR_WIRE, rec.clock() - t0)
+            with count_lock:
+                self.intervals_pulled += 1
+            return payload
+
+        def start_fetch(placed):
+            """Kick off window-parallel interval reads for one
+            destination unit; returns a ``join()`` that blocks and
+            yields payloads in plan order (or re-raises the first
+            worker failure)."""
+            results: List[Optional[torch.Tensor]] = [None] * len(placed)
+            errors: List[BaseException] = []
+            cursor = [0]
+
+            def work():
+                while True:
+                    with count_lock:
+                        if errors or cursor[0] >= len(placed):
+                            return
+                        i = cursor[0]
+                        cursor[0] += 1
+                    try:
+                        results[i] = fetch_one(placed[i])
+                    except BaseException as e:  # carried to join()
+                        with count_lock:
+                            errors.append(e)
+                        return
+
+            n = max(1, min(self.window, len(placed)))
+            threads = [
+                threading.Thread(
+                    target=work, daemon=True,
+                    name=f"{track}-reshard-fetch-{k}",
+                )
+                for k in range(n)
+            ]
+            for t in threads:
+                t.start()
+
+            def join():
+                for t in threads:
+                    t.join()
+                if errors:
+                    raise errors[0]
+                return results
+
+            return join
+
+        batches = list(executor.unit_batches(start_unit=done))
+        join = None
+        for j, (unit, placed) in enumerate(batches):
+            if join is None:
+                join = start_fetch(placed)
+            try:
+                payloads = join()
+            except TransportError as e:
+                raise _SourceLost(
+                    source,
+                    evidence="transient"
+                    if getattr(e, "transient", False)
+                    else "fatal",
+                )
+            except (ChecksumError, codec_lib.CodecError):
+                # corrupt interval from this source: same healing as the
+                # unit pipe — report the evidence, bounded per dest unit
+                rejects[unit.index] = rejects.get(unit.index, 0) + 1
+                if rejects[unit.index] > policy.retry_limit:
+                    raise
+                if rec.enabled:
+                    rec.counter_add(obs.CTR_CORRUPT_REJECTS, 1)
+                    rec.event(
+                        "corrupt_reject", track=track, source=source,
+                        unit=unit.name,
+                    )
+                raise _SourceLost(source, evidence="corrupt")
+            join = None
+            if j + 1 < len(batches):
+                # overlap: the next unit's reads fly while this unit
+                # decodes + repacks (the windowed-flow analogue for the
+                # interval plane)
+                join = start_fetch(batches[j + 1][1])
+            t0 = rec.clock() if rec.enabled else 0.0
+            if fused:
+                payload = executor.fused_repack(unit.index, payloads)
+            else:
+                # one device copy per interval into the unit's staging
+                staging = executor.make_staging(unit.index)
+                for p, pay in zip(placed, payloads):
+                    iv = p.interval
+                    staging[
+                        p.staging_offset : p.staging_offset + iv.nbytes
+                    ].copy_(pay[iv.lead : iv.lead + iv.nbytes])
+                payload = executor.repack(unit.index, staging)
+            if rec.enabled:
+                rec.counter_add(obs.CTR_DECODE, rec.clock() - t0)
+            dest_store.write_unit(unit, payload)
+            done += 1
+            dest_store.serving_prefix = done  # before the server learns
+            with self._cv:
+                self._scall(
+                    "update_progress",
+                    self.model, dest_name, self.shard_idx, version, done,
+                )
+        return done
 
     def _await_source_progress(
         self, source: str, version: int, src_shard: int, needed: int

@@ -2,7 +2,10 @@
 
 * ``checksum`` — end-to-end transfer integrity (paper 4.6).
 * ``quant``    — int8 row quantization for the ``int8`` and ``delta:int8``
-  wire codecs.
+  wire codecs; ``quant.fused``, the fused int8 dequantize + gather of a
+  resharded int8 pull.
+* ``repack``   — the byte gather of a resharded raw pull (staging runs
+  into the destination unit).
 
 Each module holds the wrapper (launches the CUDA kernel on a CUDA tensor,
 runs the plain PyTorch version on a CPU tensor), the plain version, and a

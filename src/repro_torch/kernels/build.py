@@ -8,8 +8,10 @@ source started together, into ``_build/`` beside this file (listed in
 checkout builds its own kernels and a rebuilt tree never loads a stale
 library.
 
-No ``--use_fast_math``: the int8 quantizer needs IEEE division to match
-the NumPy reference bit for bit (nvcc's default ``-prec-div=true``).
+No ``--use_fast_math``: the int8 quantizer needs IEEE division, and the
+fused dequantizer an IEEE multiply and round-to-nearest-even downcasts,
+to match the NumPy reference bit for bit (nvcc's default
+``-prec-div=true``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ SIGNATURES = {
     "th_checksum": (_P, _U64, _P, _INT, _P),
     # (x, dtype code, n elements, q int8[rows*256], scales f32[rows], rows, stream)
     "th_quantize_rows": (_P, _INT, _U64, _P, _P, _U64, _P),
+    # (staging, out, runs int64[R,3], R, blocks_x, blocks_y, stream)
+    "th_gather_bytes": (_P, _P, _P, _INT, _INT, _INT, _P),
+    # (descriptors int64[P,8], P, out, blocks_x, blocks_y, stream)
+    "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
 }
 
 

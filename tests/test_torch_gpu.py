@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import checksum as ck  # noqa: E402
 from repro_torch.kernels import quant as qk  # noqa: E402
+from repro_torch.kernels import repack as rk  # noqa: E402
+from repro_torch.kernels.quant import fused as fk  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -70,3 +72,156 @@ def test_transfer_on_the_card(dev):
     want = w["w"].float().cpu().numpy()
     assert r.store.get("w").device == dev
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 0.01
+
+
+# -- the resharding kernels ----------------------------------------------------
+
+
+def _staging(dev, nbytes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (nbytes,), dtype=torch.uint8, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("src_mod", [0, 1, 2, 3, 8])
+@pytest.mark.parametrize("dst_mod", [0, 1, 2, 3, 6])
+def test_gather_kernel_alignment_sweep(dev, src_mod, dst_mod):
+    """Runs at every offset pair modulo 16: the vector body where they
+    agree, narrower words or bytes where not, and byte head and tail."""
+    n = 4096 + 13
+    raw = _staging(dev, n + 64, src_mod * 16 + dst_mod)
+    runs = [(src_mod, 32 + dst_mod, n - 64), (src_mod + n - 64, dst_mod, 32)]
+    out_nbytes = 32 + dst_mod + n - 64 + 5
+    before = rk.LAUNCHES.value
+    got = rk.gather_bytes(raw, runs, out_nbytes)
+    assert rk.LAUNCHES.value == before + 1
+    assert torch.equal(got, rk.repack_plain(raw, runs, out_nbytes))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("gaps", [False, True])
+def test_gather_kernel_random_tilings(dev, seed, gaps):
+    out_nbytes = 1 + seed * 100_003
+    full = rk.random_runs(seed, out_nbytes)
+    runs = full[::2] if gaps else full
+    staging = _staging(dev, out_nbytes + 16, seed)
+    got = rk.gather_bytes(staging, runs, out_nbytes)
+    want = rk.repack_plain(staging, runs, out_nbytes)
+    assert torch.equal(got, want)
+    if gaps and len(full) > 1:
+        assert not rk.covers([(d, k) for _, d, k in runs], out_nbytes)
+
+
+def _frame(dev, dtype, n, seed, poison=False):
+    from repro_torch.transfer.codec import Int8Codec, parse_int8_frame
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=dev, dtype=torch.float32).mul_(2).to(dtype)
+    if poison:
+        x[n // 2] = float("inf")  # ships as a passthrough frame
+    wire = Int8Codec(quantize=qk.quantize_rows_plain).encode(x.view(torch.uint8), _NAME[dtype])
+    return parse_int8_frame(wire)
+
+
+_NAME = {
+    torch.float32: "float32", torch.bfloat16: "bfloat16",
+    torch.float16: "float16", torch.float64: "float64",
+}
+
+
+def _pack(frames, specs):
+    """(frame index, lead, nbytes, gap) -> placements packed into a unit
+    with 24 uncovered bytes at its end."""
+    pos, out = 0, []
+    for k, lead, nbytes, gap in specs:
+        pos += gap
+        out.append((frames[k], lead, nbytes, pos))
+        pos += nbytes
+    return out, pos + 24
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.float64])
+def test_fused_kernel_equals_plain(dev, dtype):
+    isz = torch.empty((), dtype=dtype).element_size()
+    frames = [_frame(dev, dtype, 100_000, 1), _frame(dev, dtype, 513, 2),
+              _frame(dev, dtype, 300, 3, poison=True)]
+    assert frames[2].is_passthrough
+    placements, out_nbytes = _pack(frames, [
+        (0, 256 * isz, (100_000 - 256 - 77) * isz, 0),  # lead row and tail trimmed
+        (1, 3 * isz, 510 * isz, 2 * isz),  # to the ragged last row, after a gap
+        (2, 4 * isz, 200 * isz, 0),  # passthrough overlay
+    ])
+    before = fk.LAUNCHES.value
+    got = fk.fused_repack(placements, out_nbytes)
+    assert fk.LAUNCHES.value == before + 1
+    assert torch.equal(got, fk.fused_repack_plain(placements, out_nbytes))
+
+
+def test_fused_kernel_mixed_dtypes_and_bytes(dev):
+    frames = [_frame(dev, torch.float64, 600, 5), _frame(dev, torch.bfloat16, 513, 6),
+              _frame(dev, torch.float32, 256, 7), _frame(dev, torch.float16, 900, 8)]
+    placements, out_nbytes = _pack(frames, [
+        (0, 8 * 7, 8 * 500, 0),
+        (1, 3, 2 * 400 + 1, 1),  # byte-misaligned lead, length and output offset
+        (2, 0, 4 * 256, 3),
+        (3, 2 * 256, 2 * 644, 0),
+    ])
+    got = fk.fused_repack(placements, out_nbytes)
+    assert torch.equal(got, fk.fused_repack_plain(placements, out_nbytes))
+
+
+@pytest.mark.parametrize("codec", ["raw", "int8"])
+def test_reshard_pull_on_the_card(dev, codec):
+    """TP-4 -> TP-2 on the card, cross-axis: raw bit-equal to the source,
+    int8 within 1%, through the gather or the fused kernel."""
+    import threading
+
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.resharding import tp_shard
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    glob = {
+        "layers/w": torch.randn(6, 256, 512, generator=g, device=dev).to(torch.bfloat16),
+        "embed": torch.randn(1024, 256, generator=g, device=dev).to(torch.bfloat16),
+    }
+    hub = TensorHubClient(ReferenceServer(wan_codec=codec), chunk_bytes=1 << 20)
+
+    def group(name, tp, dc, fill):
+        hs = [hub.open("m", name, tp, i, datacenter=dc) for i in range(tp)]
+        for h in hs:
+            local, lay = tp_shard(glob, h.shard_idx, tp)
+            h.register({n: fill(a) for n, a in local.items()}, layout=lay)
+        return hs
+
+    def run(hs, fn):
+        errs = []
+        ts = [threading.Thread(target=lambda h=h: _collect(errs, fn, h)) for h in hs]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not errs, errs
+
+    run(group("pub", 4, "dc0", torch.clone), lambda h: h.publish(0))
+    subs = group("sub", 2, "dc1", torch.zeros_like)
+    counter = rk.LAUNCHES if codec == "raw" else fk.LAUNCHES
+    before = counter.value
+    run(subs, lambda h: h.replicate(0, timeout=120))
+    assert counter.value > before
+    for h in subs:
+        want, _ = tp_shard(glob, h.shard_idx, 2)
+        assert h.intervals_pulled > 0
+        for n, w in want.items():
+            got = h.store.get(n)
+            assert got.device == dev
+            if codec == "raw":
+                assert torch.equal(got, w), n
+            else:
+                err = (got.float() - w.float()).abs().max() / w.float().abs().max()
+                assert float(err) < 0.01, n
+
+
+def _collect(errs, fn, h):
+    try:
+        fn(h)
+    except BaseException as e:  # noqa: BLE001 — asserted empty by the caller
+        errs.append(e)

@@ -27,9 +27,31 @@ _FORBIDDEN = [
 ]
 
 
+#: every module of the port, each imported by the fresh-process probe
+_MODULES = [
+    "repro_torch.core.client",
+    "repro_torch.core.server",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.checksum",
+    "repro_torch.kernels.quant",
+    "repro_torch.kernels.quant.fused",
+    "repro_torch.kernels.repack",
+    "repro_torch.models.params",
+    "repro_torch.resharding.executor",
+    "repro_torch.resharding.layout",
+    "repro_torch.resharding.planner",
+    "repro_torch.resharding.rowgrid",
+    "repro_torch.transfer.codec",
+    "repro_torch.transfer.engine",
+]
+
+
 def test_static_scan_of_port_sources():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
+    names = {".".join(f.relative_to(PORT.parent).with_suffix("").parts) for f in files}
+    names = {n[: -len(".__init__")] if n.endswith(".__init__") else n for n in names}
+    assert set(_MODULES) <= names
     bad = [
         f"{f.relative_to(ROOT)}: {why}"
         for f in files
@@ -40,11 +62,16 @@ def test_static_scan_of_port_sources():
 
 
 _PROBE = r"""
+import importlib
 import sys
 import torch
 import repro_torch
 from repro_torch.core import ReferenceServer, TensorHubClient
 from repro_torch.models.params import llama3_8b_shapes
+from repro_torch.resharding import tp_shard
+
+for m in MODULES:
+    importlib.import_module(m)
 
 hub = TensorHubClient(ReferenceServer(), device="cpu", chunk_bytes=1 << 16)
 g = torch.Generator().manual_seed(0)
@@ -59,6 +86,16 @@ for dc in ("dc0", "dc1"):
 assert torch.equal(hub.registry.get("r-dc0", 0).get("w"), w["w"])
 assert set(hub.transport.wire_bytes) == {"rdma", "vpc_up"}
 llama3_8b_shapes(2)
+# a resharded pull (TP-1 -> TP-2): planner, executor and plain repack
+g2 = {"m": torch.randn(64, 64, generator=g)}
+pub2 = hub.open("m2", "pub", 1, 0)
+pub2.register(g2, layout=tp_shard(g2, 0, 1)[1])
+pub2.publish(0)
+r2 = hub.open("m2", "r", 2, 0)
+local, lay = tp_shard(g2, 0, 2)
+r2.register({"m": torch.zeros_like(local["m"])}, layout=lay)
+r2.replicate(0, timeout=30)
+assert torch.equal(r2.store.get("m"), local["m"]) and r2.intervals_pulled > 0
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro.")
@@ -72,7 +109,7 @@ def test_runtime_imports_in_a_fresh_process():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE], env=env, cwd=ROOT, capture_output=True,
+        [sys.executable, "-c", f"MODULES = {_MODULES!r}\n" + _PROBE], env=env, cwd=ROOT, capture_output=True,
         text=True, timeout=240,
     )
     assert out.returncode == 0, out.stderr
