@@ -33,8 +33,20 @@ lines, any failure exiting non-zero:
    TP-2, roll-int8 the plain-version int8 codec's round trip of the
    trainer's TP-4 units resharded to TP-2; all four kernels' launch
    counters must rise on this path.
-5. A ``kernels`` JSON line (launches over phases 3 and 4), then the last
-   line ``{"ok": true, "device": {...}}``.
+5. Serving at full width: the flash-attention kernel held against its
+   plain version (phase 2 above also times it, at the serving path's
+   prefill and decode shapes, beside ``scaled_dot_product_attention``);
+   then llama3-8b at all 32 layers in bf16 served from a TensorHub
+   replica: a trainer publishes v0, a ``RolloutWorker`` replicates and
+   answers 16 requests of 512 prompt tokens with 64 new tokens each; the
+   trainer perturbs 1/8 of its rows and publishes v1, the worker updates
+   in place and answers again. The rollout must equal the trainer bit for
+   bit, its logprobs and every step's logits must match a teacher-forced
+   ``forward`` with the plain attention on the trainer's weights, round
+   1 must differ from round 0, and the flash kernel must launch exactly
+   32 x (1 + 64) times a round.
+6. A ``kernels`` JSON line (launches over phases 3, 4 and 5), then the
+   last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -712,6 +724,308 @@ def reshard_transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
     return launches
 
 
+# -- phase 5: flash attention and llama3-8b serving at full width -------------
+
+#: tolerances of the flash kernel against its plain version, as
+#: tests/test_kernels.py: |got - want| <= tol + tol * |want|
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: tests/test_kernels.py's shapes (b, hq, hkv, sq, sk, d, causal, softcap)
+KERNEL_SHAPES = [
+    (2, 4, 2, 128, 128, 64, True, 0.0),
+    (1, 8, 8, 256, 256, 128, True, 50.0),
+    (2, 4, 1, 96, 160, 64, False, 0.0),
+    (1, 2, 2, 384, 384, 256, True, 0.0),
+    (1, 16, 4, 64, 64, 128, True, 0.0),
+    (1, 2, 2, 200, 200, 64, True, 0.0),
+]
+SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
+BF16_TFLOPS = 989e12  # H100 SXM dense bf16 (the tensor cores' peak)
+
+
+def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs a call must score: what this run's data needs."""
+    if not causal:
+        return sq * kv_len
+    return sum(min(kv_len, q_offset + i + 1) for i in range(sq))
+
+
+def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float):
+    """The larger of the FLOP time (4 D flops a live pair a query head, at
+    the bf16 tensor-core peak) and the byte time (q and o once, the live
+    keys of k and v once, at the memory rate)."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    flops = 4 * b * hq * d * live_pairs(sq, kv_len, causal, q_offset)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * b * hkv * kv_len * d * k.element_size()
+    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, nbytes / bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+
+
+def flash_checks(torch, dev, bw: float) -> dict:
+    """The flash kernel against its plain version at the serving path's
+    prefill and decode shapes, a long prefill and tests/test_kernels.py's
+    shapes in f32 and bf16; then timed at the prefill and decode shapes
+    beside the plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return [torch.randn(s, generator=g, device=dev, dtype=torch.float32).to(dtype)
+                for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+    bf16 = torch.bfloat16
+    max_len = PROMPT_LEN + GEN_LEN
+    prefill = qkv(SERVE_BATCH, 32, 8, PROMPT_LEN, PROMPT_LEN, 128, bf16)
+    decode = qkv(SERVE_BATCH, 32, 8, 1, max_len, 128, bf16)
+    cases = {"prefill [16,32/8,512,128] bf16 causal": (prefill, dict(causal=True), "bfloat16")}
+    for kv_len in (1, 17, 128, 129, 513, 576):
+        cases[f"decode [16,32/8,1,128] vs cache 576, kv_len {kv_len}"] = (
+            decode, dict(causal=True, q_offset=kv_len - 1, kv_len=kv_len), "bfloat16")
+    cases["long [1,32/8,4096,128] bf16 causal"] = (qkv(1, 32, 8, 4096, 4096, 128, bf16), dict(causal=True), "bfloat16")
+    cases["offset prefill [2,32/8,64,128] at 300 vs cache 576"] = (
+        qkv(2, 32, 8, 64, max_len, 128, bf16), dict(causal=True, q_offset=300, kv_len=364), "bfloat16")
+    for dtype, name in ((torch.float32, "float32"), (bf16, "bfloat16")):
+        for b, hq, hkv, sq, sk, d, causal, cap in KERNEL_SHAPES:
+            cases[f"test_kernels [{b},{hq}/{hkv},{sq}x{sk},{d}] causal={causal} softcap={cap} {name}"] = (
+                qkv(b, hq, hkv, sq, sk, d, dtype), dict(causal=causal, softcap=cap), name)
+    worst_abs, worst_ratio = 0.0, 0.0
+    for label, ((q, k, v), kw, dname) in cases.items():
+        before = fa.LAUNCHES.value
+        got = fa.flash_attention(q, k, v, **kw).float()
+        check(fa.LAUNCHES.value == before + 1, f"flash kernel not launched on {label}")
+        want = fa.attention_plain(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dname]
+        diff = (got - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())  # <= 1 passes
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_ratio = max(worst_ratio, ratio)
+        emit("flash_check", case=label, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio)
+        check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"flash kernel != plain version on {label}")
+    del cases, got, want, diff
+    torch.cuda.empty_cache()
+
+    # timings at the serving path's shapes (the decode step at a full cache)
+    times = {}
+    for label, (q, k, v), kw, sdpa in (
+        ("prefill", prefill, dict(causal=True), lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        ("decode", decode, dict(causal=True, q_offset=max_len - 1, kv_len=max_len),
+         lambda q, k, v: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)),
+    ):
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), reps=20)
+        plain_ms = time_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), reps=10)
+        lib_ms = time_ms(torch, lambda: sdpa(q, k, v), reps=20)
+        lib_err = float((sdpa(q, k, v).float() - fa.flash_attention(q, k, v, **kw).float()).abs().max())
+        bound, by, flops, nbytes = flash_bound_ms(q, k, kw.get("kv_len", k.shape[2]), True, kw.get("q_offset", 0), bw)
+        times[label] = dict(shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16", ms=ms, plain_ms=plain_ms,
+                            sdpa_ms=lib_ms, sdpa_max_abs_diff=lib_err, bound_ms=bound, bound_by=by,
+                            flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (ms * 1e-3) / 1e12,
+                            achieved_GBps=nbytes / (ms * 1e-3) / 1e9)
+    emit("flash_times", **times)
+    pre, dec = times["prefill"], times["decode"]
+    del prefill, decode
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention": dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:96",
+            max_abs_err=worst_abs, err_over_tol=worst_ratio,
+            ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
+            library_ms=pre["sdpa_ms"], timed_shape=pre["shape"] + " (prefill, causal)",
+            decode=dict(dec, timed_shape=dec["shape"] + " (decode step, kv_len 576)"),
+            counter=fa.LAUNCHES,
+        ),
+    }
+
+
+#: bound on |port - reference| for logits and logprobs at full width in
+#: bf16 (see PERF.md): the rollout's prefill/decode (flash kernel, decode
+#: matmuls of one token a row) against a teacher-forced forward (plain
+#: attention, whole-sequence matmuls) on the same bf16 weights
+LOGIT_MAX_ABS, LOGIT_MEAN_ABS = 0.5, 0.05
+
+
+def device_profile(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and sum the device time
+    of its kernels by name: busy seconds (kernels of one stream do not
+    overlap), the wall seconds ended by a synchronize, the idle share, and
+    the kernels that took the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    flash = sum(t for n, t in by_name.items() if "flash_kernel" in n)
+    return dict(wall_seconds=wall, device_busy_seconds=busy,
+                idle_share=(1 - busy / wall) if busy else None, flash_seconds=flash,
+                flash_share_of_busy=flash / busy if busy else None,
+                kernels=len(by_name), top=[dict(name=n[:90], seconds=t, share=t / busy) for n, t in top])
+
+
+def serving(torch, dev, counters, smi: str) -> dict:
+    """llama3-8b at its published widths and all 32 layers in bf16,
+    served from a TensorHub replica: a trainer (dc0) publishes v0, a
+    RolloutWorker (dc0, raw) replicates and answers round 0; the trainer
+    perturbs 1/8 of its rows and publishes v1, the worker updates and
+    answers round 1 on the same prompts. Returns the kernels' launches on
+    that path."""
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import PromptSet
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.params import init_params
+    from repro_torch.rl.loop import RLConfig, RolloutWorker
+
+    cfg = CONFIG
+    flash = counters["flash_attention"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    trainer = hub.open("actor", "trainer", 1, 0, datacenter="dc0")
+    t0 = time.perf_counter()
+    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 30), torch.bfloat16, dev))
+    weights = trainer.store.tensors()
+    nparams = sum(w.numel() for w in weights.values())
+    emit("model", config="llama3-8b", layers=cfg.num_layers, dtype="bfloat16", params=nparams,
+         bytes=2 * nparams, init_seconds=time.perf_counter() - t0)
+    trainer.publish(0)
+    rl = RLConfig(model_name="actor", prompt_len=PROMPT_LEN, response_len=GEN_LEN,
+                  num_prompts=SERVE_BATCH, group_size=1, seed=SEED)
+    served = []  # the worker's out_queue, emptied after each round's checks
+    worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), served,
+                           threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
+    reference = DecoderLM(cfg, attention=attention_plain)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    def equal_to_trainer(when):
+        for n, w in trainer.store.tensors().items():
+            check(torch.equal(worker.params[n], w), f"{when}: rollout {n} != trainer")
+
+    def check_round(rec, version):
+        """Logprobs and every step's logits against a teacher-forced
+        forward of the whole sequence on the trainer's tensors with the
+        plain attention, four sequences at a time."""
+        seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
+        lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
+        for c in range(0, SERVE_BATCH, 4):
+            with torch.no_grad():
+                ref = reference.forward(trainer.store.tensors(), {"tokens": seqs[c : c + 4]})
+            ref = ref[:, PROMPT_LEN - 1 : -1]  # the logits each generated token was drawn from
+            lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + 4, PROMPT_LEN:, None])[..., 0]
+            lp_err = max(lp_err, float((lps[c : c + 4] - lp_ref).abs().max()))
+            d = (steps[c : c + 4] - ref).abs()
+            logit_max = max(logit_max, float(d.max()))
+            logit_sum += float(d.double().sum())
+            del ref, lp_ref, d
+        logit_mean = logit_sum / steps.numel()
+        res = dict(version=version, logprob_max_abs_err=lp_err, logit_max_abs_err=logit_max,
+                   logit_mean_abs_err=logit_mean, logit_abs_max=float(steps.abs().max()),
+                   all_finite=bool(torch.isfinite(steps).all()), mean_logprob=float(lps.mean()))
+        emit("serve_check", **res)
+        check(res["all_finite"], f"v{version}: non-finite logits")
+        check(lp_err <= LOGIT_MAX_ABS, f"v{version}: logprob error {lp_err} > {LOGIT_MAX_ABS}")
+        check(logit_max <= LOGIT_MAX_ABS, f"v{version}: logit error {logit_max} > {LOGIT_MAX_ABS}")
+        check(logit_mean <= LOGIT_MEAN_ABS, f"v{version}: mean logit error {logit_mean} > {LOGIT_MEAN_ABS}")
+        return res
+
+    _, replicate_s = timed(lambda: worker.connect(timeout=600))
+    equal_to_trainer("after replicate")
+    rounds, checks = [], []
+    for step in range(2):
+        if step:
+            def perturb_and_publish():
+                trainer.unpublish()
+                gp = torch.Generator(device=dev).manual_seed(SEED + 31)
+                for w in trainer.store.tensors().values():
+                    flat = w.view(-1)
+                    full = flat.numel() // 256 * 256
+                    rows = flat[:full].view(-1, 256)[::8]  # 1/8 of the 256-element rows, in place
+                    rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+                trainer.publish(1)
+
+            _, publish_s = timed(perturb_and_publish)
+            updated, update_s = timed(worker.pull_latest)
+            check(updated and worker.weights_version == 1, "the rollout did not update to v1")
+            equal_to_trainer("after update")
+        before = {k: c.value for k, c in counters.items()}
+        rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
+        n = flash.value - before["flash_attention"]
+        check(n == cfg.num_layers * (1 + GEN_LEN), f"round {step}: {n} flash launches, want {cfg.num_layers * (1 + GEN_LEN)}")
+        check(rec["version"] == step, f"round {step} served v{rec['version']}")
+        rounds.append(dict(round=step, version=rec["version"], seconds=round_s, flash_launches=n,
+                           generated_tokens=SERVE_BATCH * GEN_LEN))
+        mid = {k: c.value for k, c in counters.items()}
+        checks.append(check_round(rec, step))
+        check(mid == {k: c.value for k, c in counters.items()}, "the checks launched a kernel")
+        if step == 0:
+            first0 = rec["step_logits"][:, 0].clone()  # the prompts' next-token logits under v0
+        else:
+            delta = float((rec["step_logits"][:, 0] - first0).abs().mean())
+            emit("serve_v1_vs_v0", prompt_logits_mean_abs_diff=delta)
+            check(delta > 10 * LOGIT_MEAN_ABS, f"round 1 logits barely differ from round 0's ({delta})")
+        del rec
+        served.clear()
+    launches = {k: c.value for k, c in counters.items()}  # the main path's launches, read now
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the prefill alone at the same shapes (launches after the read above)
+    prompts = torch.from_numpy(worker.prompts.sample(SERVE_BATCH, 1)).to(dev, torch.int64)
+    prefill_s = statistics.median(
+        timed(lambda: worker.model.prefill(worker.params, {"tokens": prompts}, max_len=PROMPT_LEN + GEN_LEN))[1]
+        for _ in range(3)
+    )
+    r1 = rounds[1]["seconds"]
+
+    # where a round's time goes: the prefill, then a few decode steps, profiled
+    n_dec = min(8, GEN_LEN)
+    cache = {}
+
+    def prefill():
+        cache["state"] = worker.model.prefill(worker.params, {"tokens": prompts}, max_len=PROMPT_LEN + GEN_LEN)
+
+    def decode_steps():
+        logits, kv, n = cache["state"]
+        for _ in range(n_dec):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            logits, kv = worker.model.decode(worker.params, kv, nxt, n)
+            n += 1
+
+    emit("serve_profile", card=smi, prefill=device_profile(torch, prefill),
+         decode_steps=n_dec, decode=device_profile(torch, decode_steps))
+    del cache
+    emit("serve_result", card=smi, replicate_seconds=replicate_s, publish_v1_seconds=publish_s,
+         update_seconds=update_s, rounds=rounds,
+         prefill_seconds=prefill_s, prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN / prefill_s,
+         decode_tokens_per_s=SERVE_BATCH * GEN_LEN / (r1 - prefill_s),
+         round_tokens_per_s=SERVE_BATCH * GEN_LEN / r1,
+         max_memory_allocated=peak, launches=launches, checks=checks)
+    check(launches["flash_attention"] == 2 * cfg.num_layers * (1 + GEN_LEN), "flash launches over the two rounds")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -748,18 +1062,36 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln] if log.exists() else []
     emit("build", seconds=time.perf_counter() - t0, library=str(so.relative_to(ROOT)), ptxas=ptxas)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    phase_s = {}
+    t0 = time.perf_counter()
     kernels = kernel_checks(torch, dev, bw)
     kernels.update(reshard_kernel_checks(torch, dev, bw))
+    kernels.update(flash_checks(torch, dev, bw))
+    phase_s["2 kernels"] = time.perf_counter() - t0
     counters = {k: v.pop("counter") for k, v in kernels.items()}
     shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
+    transfer_counters = {k: c for k, c in counters.items() if k != "flash_attention"}
+    t0 = time.perf_counter()
     phase3 = transfer(
         torch, dev, {k: counters[k] for k in ("checksum", "quantize_rows")}, shapes, DEFAULT_CHUNK_BYTES
     )
     gc.collect()  # phase 3's replicas and snapshots go before phase 4 allocates
     torch.cuda.empty_cache()
-    phase4 = reshard_transfer(torch, dev, counters, shapes, DEFAULT_CHUNK_BYTES)
-    launches = {k: phase3.get(k, 0) + phase4[k] for k in counters}
-    emit("launches", phase3=phase3, phase4=phase4)
+    phase_s["3 transfer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase4 = reshard_transfer(torch, dev, transfer_counters, shapes, DEFAULT_CHUNK_BYTES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["4 reshard"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase5 = serving(torch, dev, counters, smi)
+    phase_s["5 serving"] = time.perf_counter() - t0
+    launches = {k: phase3.get(k, 0) + phase4.get(k, 0) + phase5[k] for k in counters}
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was launched on no main path")
+    emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,10 @@
 A package of its own beside the JAX package ``repro``, which stays the
 reference: the wire format, manifests, unit schedule and checksums are
 byte-compatible with it. Weight bytes stay on the CUDA device through
-publish, replicate and update; the end-to-end checksum and the int8 row
-quantizer run as hand-written CUDA kernels (``repro_torch.kernels``).
+publish, replicate and update, and a rollout worker serves llama3-8b
+straight from its replica's buffers (``repro_torch.rl.loop``); the
+checksum, int8 quantizer, reshard gathers and flash attention run as
+hand-written CUDA kernels (``repro_torch.kernels``).
 
     from repro_torch.core import ReferenceServer, TensorHubClient
 

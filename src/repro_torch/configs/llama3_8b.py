@@ -1,8 +1,9 @@
 """llama3-8b — dense GQA, 128k vocab [arXiv:2407.21783].
 
 The port's own copy of the published widths the JAX package's
-``configs/llama3_8b.py`` holds; the weight-transfer path needs only the
-parameter shapes (``repro_torch.models.params``).
+``configs/llama3_8b.py`` holds: the weight-transfer path needs the
+parameter shapes (``repro_torch.models.params``), the serving path
+(``repro_torch.models.lm``) the rotary base as well.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class DecoderConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    rope_theta: float = 10000.0  # the JAX ModelConfig's default
     tie_embeddings: bool = False
     source: str = ""
 
@@ -39,5 +41,6 @@ CONFIG = DecoderConfig(
     num_kv_heads=8,
     d_ff=14_336,
     vocab=128_256,
+    rope_theta=500_000.0,
     source="arXiv:2407.21783",
 )

@@ -11,7 +11,8 @@ library.
 No ``--use_fast_math``: the int8 quantizer needs IEEE division, and the
 fused dequantizer an IEEE multiply and round-to-nearest-even downcasts,
 to match the NumPy reference bit for bit (nvcc's default
-``-prec-div=true``).
+``-prec-div=true``); flash attention keeps full-precision ``expf`` and
+``tanhf``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _U64 = ctypes.c_uint64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 #: C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
@@ -46,6 +48,10 @@ SIGNATURES = {
     "th_gather_bytes": (_P, _P, _P, _INT, _INT, _INT, _P),
     # (descriptors int64[P,8], P, out, blocks_x, blocks_y, stream)
     "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
+    # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv,
+    #  Sq, D, causal, softcap, q_offset, kv_len, stream)
+    "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                           _F32, _INT, _INT, _P),
 }
 
 

@@ -1,0 +1,105 @@
+"""Serving entry point: llama3-8b answered from a TensorHub replica (Fig. 4b).
+
+A publisher registers llama3-8b at its published widths (bf16, random
+weights from ``--seed``) and publishes v0; a :class:`RolloutWorker`
+replicates it into its own buffers on the same device and answers
+``--rounds`` batches of ``--requests`` prompts (prefill, then
+``--gen-len`` decode steps through the flash-attention kernel), calling
+``update("latest")`` between batches. ``--layers`` cuts the depth (two
+replicas of all 32 layers take 32 GB); the widths are never cut.
+
+    python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
+
+It runs on the card by default and raises without one; ``--device cpu``
+runs the plain attention on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import threading
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
+from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.core import ReferenceServer, TensorHubClient
+from repro_torch.data.synthetic import PromptSet
+from repro_torch.models.params import init_params
+from repro_torch.rl.loop import RLConfig, RolloutWorker
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(
+    model_cfg: DecoderConfig,
+    *,
+    requests: int,
+    prompt_len: int,
+    gen_len: int,
+    rounds: int,
+    seed: int = 0,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> List[Dict]:
+    """Publish random weights, replicate them into a rollout worker and
+    serve ``rounds`` batches; one dict of timings a round."""
+    hub = TensorHubClient(ReferenceServer(), device=device)
+    dev = hub.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    trainer = hub.open("actor", "trainer", 1, 0, datacenter="dc0")
+    trainer.register(init_params(model_cfg, gen, dtype, dev))
+    trainer.publish(0)
+    cfg = RLConfig(
+        prompt_len=prompt_len, response_len=gen_len, num_prompts=requests, group_size=1, seed=seed
+    )
+    worker = RolloutWorker(
+        "rollout-0", hub, cfg, model_cfg, PromptSet(model_cfg.vocab, prompt_len, seed=seed),
+        [], threading.Event(), dtype=dtype,
+    )
+    t0 = time.perf_counter()
+    worker.connect(timeout=600)
+    _sync(dev)
+    print(f"replicate: {time.perf_counter() - t0:.3f}s for {trainer.store.total_bytes / 1e9:.2f} GB", flush=True)
+    out = []
+    for rnd in range(rounds):
+        _sync(dev)
+        t0 = time.perf_counter()
+        rec = worker.serve_batch(rnd)
+        dt = time.perf_counter() - t0  # ends in the rewards' host copy of the tokens
+        toks = requests * gen_len
+        row = dict(round=rnd, seconds=dt, tokens=toks, tokens_per_s=toks / dt,
+                   mean_logprob=float(rec["behavior_logprobs"].mean()), version=rec["version"])
+        out.append(row)
+        print(
+            f"round {rnd}: {requests} requests x {gen_len} new tokens in {dt:.2f}s "
+            f"({toks / dt:.1f} tok/s), mean logprob {row['mean_logprob']:.3f}, v{rec['version']}",
+            flush=True,
+        )
+        worker.pull_latest()
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--requests", type=int, default=8, help="batch of requests")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=LLAMA3_8B.num_layers, help="depth (widths stay published)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=args.layers)
+    serve(cfg, requests=args.requests, prompt_len=args.prompt_len, gen_len=args.gen_len,
+          rounds=args.rounds, seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,44 @@
+"""Transformer building blocks of the dense decoder (plain PyTorch).
+
+The port's copy of the JAX package's ``models/layers.py``: ``rms_norm``
+(its f32 path), the split-half rotary embedding and the SwiGLU MLP. The
+attention itself is :func:`repro_torch.kernels.flash_attention.flash_attention`,
+which keeps the semantics of the JAX package's jnp ``chunked_attention``
+(``q_offset`` places the queries, ``kv_len`` counts the valid cache
+slots); the sliding window waits for the gemma2 slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32 with a ``1 + gamma`` scale (zero-initialised
+    gamma is the identity scale), cast back to x's dtype. The JAX
+    package's ``lowp_norm`` variant is off on its default path and is not
+    ported."""
+    xf = x.float()
+    scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, D] (D even); positions: broadcastable to [..., S]. The
+    split-half convention: the first and second halves of D rotate as
+    the two coordinates of each pair."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # [D/2]
+    angles = positions[..., None].float() * freqs  # [..., S, D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

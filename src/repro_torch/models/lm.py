@@ -1,0 +1,124 @@
+"""The dense decoder LM: forward, prefill and one-token decode.
+
+The port's copy of the dense branch of the JAX package's ``DecoderLM``
+(``models/lm.py``). Parameters are the flat dict a TensorHub replica
+registers: the names of :func:`repro_torch.models.params.decoder_shapes`,
+with the layer axis stacked first. Layer ``i`` reads the views
+``params["layers/attn/wq"][i]`` and so on, so a replica's registered
+tensors *are* the model and serving makes no copy of them; an ``update``
+that writes the buffers in place is seen by the next batch.
+
+The MoE, MLA and VLM branches, the gemma2 extras (window, softcaps, tied embeddings) and
+the encoder, hybrid and xLSTM models wait for later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import blocks
+from repro_torch.models.layers import rms_norm
+
+Params = Mapping[str, torch.Tensor]
+Cache = Dict[str, Dict[str, torch.Tensor]]
+
+_ATTN = ("ln", "wq", "wk", "wv", "wo")
+_FFN = ("ln", "w_gate", "w_up", "w_down")
+
+
+class DecoderLM:
+    """Causal decoder: dense GQA attention x SwiGLU FFN.
+
+    ``attention`` is the attention function every layer calls, the flash
+    kernel's wrapper by default; a reference computation passes
+    :func:`repro_torch.kernels.flash_attention.attention_plain`."""
+
+    def __init__(self, cfg: DecoderConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
+        if cfg.tie_embeddings:
+            raise NotImplementedError("tied embeddings (gemma2) wait for the gemma2 slice")
+        self.cfg = cfg
+        self.attention = attention
+
+    # -- embedding / head ------------------------------------------------------
+
+    @staticmethod
+    def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens]
+
+    @staticmethod
+    def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
+        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+
+    @staticmethod
+    def _layer(params: Params, i: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        attn = {n: params[f"layers/attn/{n}"][i] for n in _ATTN}
+        ffn = {n: params[f"layers/ffn/{n}"][i] for n in _FFN}
+        return attn, ffn
+
+    def _block(self, params, i, x, positions, cache=None, cache_len=None):
+        attn, ffn = self._layer(params, i)
+        x, kv = blocks.attn_apply(
+            self.cfg, attn, x, positions=positions, attention=self.attention,
+            cache=cache, cache_len=cache_len,
+        )
+        return blocks.mlp_apply(ffn, x), kv
+
+    # -- forward (teacher-forced) ----------------------------------------------
+
+    def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Logits ``[B, S, vocab]`` (f32) of a token batch ``{"tokens": [B, S]}``."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(self.cfg.num_layers):
+            x, _ = self._block(params, i, x, positions)
+        return self._head(params, x)
+
+    # -- caches ------------------------------------------------------------------
+
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
+        """Zeroed K/V caches ``[layers, B, Hkv, max_len, hd]``, keyed as the
+        JAX package's (``{"layers": {"k", "v"}}``)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        return {"layers": {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}}
+
+    # -- prefill -------------------------------------------------------------------
+
+    def prefill(
+        self, params: Params, batch: Mapping[str, torch.Tensor], *, max_len: Optional[int] = None
+    ) -> Tuple[torch.Tensor, Cache, int]:
+        """Forward over the prompt that also fills a KV cache of ``max_len``
+        slots (default: the prompt length); returns the logits of the last
+        position only (``[B, 1, vocab]``: at vocab 128256 a 16 x 512
+        batch's full logits would take 4.2 GB), the cache and its length."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)
+        cache = self.init_cache(b, max_len or s, x.dtype, x.device)
+        for i in range(self.cfg.num_layers):
+            x, kv = self._block(params, i, x, positions)
+            cache["layers"]["k"][i, :, :, :s] = kv["k"]
+            cache["layers"]["v"][i, :, :, :s] = kv["v"]
+        return self._head(params, x[:, -1:]), cache, s
+
+    # -- decode ------------------------------------------------------------------------
+
+    def decode(
+        self, params: Params, cache: Cache, tokens: torch.Tensor, cache_len: int
+    ) -> Tuple[torch.Tensor, Cache]:
+        """One step: ``tokens [B, 1]`` at position ``cache_len``. Writes
+        the step's K/V into ``cache`` in place and returns it with the
+        logits ``[B, 1, vocab]``."""
+        x = self._embed(params, tokens)
+        positions = cache_len + torch.arange(x.shape[1], device=x.device)
+        layers = cache["layers"]
+        for i in range(self.cfg.num_layers):
+            c = {"k": layers["k"][i], "v": layers["v"][i]}
+            x, _ = self._block(params, i, x, positions, cache=c, cache_len=cache_len)
+        return self._head(params, x), cache

@@ -7,6 +7,10 @@ in JAX's pytree order (dict keys sorted at every level). The transfer-unit
 schedule (``build_units``) follows registration order, so a replica
 registered in this order has the same units, and the same manifest, as
 the JAX package's.
+
+``init_params`` makes random weights by the JAX package's ``init_tree``
+rule, from a ``torch.Generator``: the numbers differ from ``jax.random``'s,
+so parity tests carry JAX weights across with ``from_numpy`` instead.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import torch
 
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 from repro_torch.configs.llama3_8b import DecoderConfig
+
+# through the core package: transfer.engine and core.client import each
+# other, and only core-first resolves (engine-first is circular)
+from repro_torch.core.client import resolve_device
 
 Shape = Tuple[int, ...]
 
@@ -68,6 +76,33 @@ def decoder_shapes(cfg: DecoderConfig) -> List[Tuple[str, Shape]]:
 def llama3_8b_shapes(num_layers: int = 32) -> List[Tuple[str, Shape]]:
     """llama3-8b at its published widths, with ``num_layers`` layers."""
     return decoder_shapes(dataclasses.replace(LLAMA3_8B, num_layers=num_layers))
+
+
+def init_params(
+    cfg: DecoderConfig,
+    generator: torch.Generator,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """Random parameters of ``cfg``, in registration order, on ``device``
+    (the card unless the caller asks for the CPU; ``generator`` must live
+    on the same device). As ``init_tree``: norms (``.../ln``,
+    ``final_ln``) are zeros, every other tensor normal with std
+    ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
+    tensor is drawn one layer at a time, so the f32 temporary is one
+    layer's, not the whole stack's."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in decoder_shapes(cfg):
+        t = torch.zeros(shape, dtype=dtype, device=dev)
+        if not name.endswith("ln"):
+            std = 1.0 / np.sqrt(shape[-2])
+            for part in t if t.dim() == 3 else (t,):
+                part.copy_(
+                    torch.randn(part.shape, generator=generator, dtype=torch.float32, device=dev).mul_(std)
+                )
+        out[name] = t
+    return out
 
 
 def from_numpy(named: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,158 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+``attention_plain`` (the plain version the CUDA kernel is held against on
+the card) must equal the JAX oracle ``attention_ref`` and the Pallas
+kernel ``flash_attention`` in interpret mode at every shape of
+``tests/test_kernels.py``, and the jnp ``chunked_attention`` of the JAX
+models with ``q_offset``/``kv_len`` at decode and offset-prefill shapes.
+Inputs come from numpy with a seed. Tolerances are ``test_kernels.py``'s:
+2e-5 in f32, 2e-2 in bf16 (relative and absolute, as ``assert_allclose``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+ml_dtypes = pytest.importorskip("ml_dtypes")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.models.layers import chunked_attention  # noqa: E402
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+#: (b, hq, hkv, sq, sk, d, causal, softcap): tests/test_kernels.py's sweep
+KERNEL_SHAPES = [
+    (2, 4, 2, 128, 128, 64, True, 0.0),
+    (1, 8, 8, 256, 256, 128, True, 50.0),  # gemma2-style softcap
+    (2, 4, 1, 96, 160, 64, False, 0.0),  # ragged, cross-length, MQA
+    (1, 2, 2, 384, 384, 256, True, 0.0),  # gemma2 head_dim 256
+    (1, 16, 4, 64, 64, 128, True, 0.0),  # GQA 4:1
+    (1, 2, 2, 128, 128, 64, True, 0.0),  # test_dtypes
+    (1, 2, 2, 200, 200, 64, True, 0.0),  # test_block_shape_sweep
+]
+
+
+def _inputs(seed, b, hq, hkv, sq, sk, d, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    arrs = [
+        rng.standard_normal(s).astype(np.float32)
+        for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+    ]
+    if dtype == "bfloat16":
+        arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    return arrs
+
+
+def _torch(a):
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _close(got, want, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_equals_jax_oracle(shape, dtype):
+    b, hq, hkv, sq, sk, d, causal, cap = shape
+    q, k, v = _inputs(sq + d, b, hq, hkv, sq, sk, d, dtype)
+    got = fa.attention_plain(_torch(q), _torch(k), _torch(v), causal=causal, softcap=cap)
+    assert got.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
+    want = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, softcap=cap)
+    _close(_np(got), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_equals_pallas_interpret(shape, dtype):
+    b, hq, hkv, sq, sk, d, causal, cap = shape
+    q, k, v = _inputs(sq * 3 + d, b, hq, hkv, sq, sk, d, dtype)
+    got = fa.attention_plain(_torch(q), _torch(k), _torch(v), causal=causal, softcap=cap)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, softcap=cap, interpret=True)
+    _close(_np(got), want, dtype)
+
+
+#: (b, hq, hkv, sq, sk, d, q_offset, kv_len): a decode step against a
+#: cache of sk slots, and offset prefills of a chunk behind a prefix
+OFFSET_SHAPES = [
+    (2, 8, 2, 1, 40, 16, 0, 1),
+    (2, 8, 2, 1, 40, 16, 16, 17),
+    (2, 8, 2, 1, 40, 16, 39, 40),
+    (1, 32, 8, 1, 72, 128, 63, 64),
+    (1, 4, 1, 1, 130, 64, 128, 129),
+    (2, 4, 2, 8, 48, 64, 20, 28),
+    (1, 16, 4, 5, 64, 32, 0, 5),
+    (1, 8, 8, 16, 33, 64, 17, 33),
+]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("shape", OFFSET_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_equals_chunked_attention_with_offsets(shape, softcap):
+    b, hq, hkv, sq, sk, d, q_offset, kv_len = shape
+    q, k, v = _inputs(q_offset * 7 + kv_len, b, hq, hkv, sq, sk, d)
+    got = fa.flash_attention(
+        _torch(q), _torch(k), _torch(v), causal=True, softcap=softcap, q_offset=q_offset, kv_len=kv_len
+    )
+    want = chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, q_offset=q_offset,
+        kv_len=jnp.asarray(kv_len), attn_softcap=softcap, block_k=16,
+    )
+    _close(_np(got), want, "float32")
+
+
+def test_keys_past_kv_len_do_not_matter():
+    q, k, v = (_torch(a) for a in _inputs(5, 1, 4, 2, 1, 32, 64))
+    out = fa.attention_plain(q, k, v, q_offset=9, kv_len=10)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 10:] = 1e4
+    v2[:, :, 10:] = -1e4
+    assert torch.equal(fa.attention_plain(q, k2, v2, q_offset=9, kv_len=10), out)
+
+
+def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
+    q, k, v = (_torch(a) for a in _inputs(1, 2, 8, 2, 24, 24, 64, "bfloat16"))
+    before = fa.LAUNCHES.value
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, fa.attention_plain(q, k, v, causal=True))
+    assert fa.LAUNCHES.value == before
+
+
+@pytest.mark.parametrize(
+    "why,kwargs,match",
+    [
+        ("kv_len past the keys", dict(kv_len=25), "kv_len"),
+        ("kv_len 0", dict(kv_len=0), "kv_len"),
+        ("negative offset", dict(q_offset=-1), "q_offset"),
+        ("negative softcap", dict(softcap=-1.0), "softcap"),
+    ],
+)
+def test_wrapper_refuses_bad_arguments(why, kwargs, match):
+    q, k, v = (_torch(a) for a in _inputs(2, 1, 4, 2, 3, 24, 64))
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(q, k, v, **kwargs)
+
+
+def test_wrapper_refuses_bad_shapes_and_dtypes():
+    q, k, v = (_torch(a) for a in _inputs(3, 1, 6, 4, 3, 8, 64))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, k, v)
+    q, k, v = (_torch(a) for a in _inputs(3, 1, 4, 2, 3, 8, 64))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k = v"):
+        fa.flash_attention(q, k, v[:, :, :4])
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))

@@ -225,3 +225,120 @@ def _collect(errs, fn, h):
         fn(h)
     except BaseException as e:  # noqa: BLE001 — asserted empty by the caller
         errs.append(e)
+
+
+# -- flash attention and the serving path -----------------------------------------
+
+#: tests/test_kernels.py's shapes (b, hq, hkv, sq, sk, d, causal, softcap)
+_FLASH_SHAPES = [
+    (2, 4, 2, 128, 128, 64, True, 0.0),
+    (1, 8, 8, 256, 256, 128, True, 50.0),
+    (2, 4, 1, 96, 160, 64, False, 0.0),
+    (1, 2, 2, 384, 384, 256, True, 0.0),
+    (1, 16, 4, 64, 64, 128, True, 0.0),
+    (1, 2, 2, 200, 200, 64, True, 0.0),
+    (2, 32, 8, 130, 130, 128, True, 0.0),
+]
+#: test_kernels.py's tolerances, as assert_allclose (relative and absolute)
+_FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def _flash_close(got, want, dtype):
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernel_equals_plain(dev, shape, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal, cap = shape
+    q, k, v = _qkv(dev, sq + d, b, hq, hkv, sq, sk, d, dtype)
+    before = fa.LAUNCHES.value
+    got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+    assert fa.LAUNCHES.value == before + 1 and got.dtype == dtype and got.device == dev
+    _flash_close(got, fa.attention_plain(q, k, v, causal=causal, softcap=cap), dtype)
+
+
+@pytest.mark.parametrize("kv_len", [1, 17, 64, 65, 128, 129, 513, 576])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_decode_step(dev, kv_len, dtype):
+    """One query a head at position kv_len - 1 against a 576-slot cache;
+    garbage past kv_len must not leak in."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, kv_len, 2, 32, 8, 1, 576, 128, dtype)
+    k[:, :, kv_len:] = 1e4
+    v[:, :, kv_len:] = float("nan")
+    kw = dict(causal=True, q_offset=kv_len - 1, kv_len=kv_len)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    _flash_close(got, fa.attention_plain(q, k[:, :, :kv_len], v[:, :, :kv_len], **kw), dtype)
+
+
+@pytest.mark.parametrize("q_offset,sq,kv_len,causal", [(20, 8, 28, True), (0, 5, 5, True), (300, 64, 364, True),
+                                                       (7, 33, 40, False), (100, 1, 57, False)])
+def test_flash_kernel_offset_prefill(dev, q_offset, sq, kv_len, causal):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, q_offset + sq, 2, 16, 4, sq, 400, 64, torch.float32)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    _flash_close(fa.flash_attention(q, k, v, **kw), fa.attention_plain(q, k, v, **kw), torch.float32)
+
+
+def test_flash_kernel_strided_views(dev):
+    """q, k, v as the model hands them over: [B, S, H, D] projections
+    viewed as [B, H, S, D], and a layer's slice of a stacked cache."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(3, 70, 8 * 64, generator=g, device=dev).to(torch.bfloat16)
+    q = x.view(3, 70, 8, 64).transpose(1, 2)
+    cache = torch.randn(2, 3, 2, 96, 64, generator=g, device=dev).to(torch.bfloat16)
+    k, v = cache[1], cache[0]
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=10, kv_len=80)
+    want = fa.attention_plain(q.contiguous(), k, v, causal=True, q_offset=10, kv_len=80)
+    _flash_close(got, want, torch.bfloat16)
+    merged = got.transpose(1, 2).reshape(3, 70, 8 * 64)  # the kernel's layout makes this a view
+    assert merged.data_ptr() == got.data_ptr()
+
+
+def test_flash_wrapper_refuses_shapes_the_kernel_lacks(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 32, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v)
+
+
+def test_decoder_prefill_and_decode_on_the_card(dev):
+    """A small GQA decoder (head_dim 64) on the card in f32: prefill and
+    decode through the flash kernel against a forward with the plain
+    attention. 1e-4: prefill and decode multiply other shapes than the
+    whole-sequence forward, so cuBLAS sums in other orders."""
+    import dataclasses
+
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.params import init_params
+    from repro_torch.rl.loop import sample_responses
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2, d_model=512, num_heads=8, num_kv_heads=2, d_ff=1024, vocab=1024)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    assert all(t.device == dev for t in params.values())
+    prompts = torch.randint(0, cfg.vocab, (3, 20), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = fa.LAUNCHES.value
+    seqs, lps, kept = sample_responses(DecoderLM(cfg), params, prompts, 6, torch.Generator(device=dev).manual_seed(2),
+                                       return_logits=True)
+    assert fa.LAUNCHES.value - before == cfg.num_layers * (1 + 6)
+    ref = DecoderLM(cfg, attention=fa.attention_plain).forward(params, {"tokens": seqs})[:, 19:-1]
+    torch.testing.assert_close(kept, ref, rtol=1e-4, atol=1e-4)
+    lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[:, 20:, None])[..., 0]
+    torch.testing.assert_close(lps, lp_ref, rtol=1e-4, atol=1e-4)

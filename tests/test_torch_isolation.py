@@ -31,16 +31,23 @@ _FORBIDDEN = [
 _MODULES = [
     "repro_torch.core.client",
     "repro_torch.core.server",
+    "repro_torch.data.synthetic",
     "repro_torch.kernels.build",
     "repro_torch.kernels.checksum",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.quant",
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
+    "repro_torch.launch.serve",
+    "repro_torch.models.blocks",
+    "repro_torch.models.layers",
+    "repro_torch.models.lm",
     "repro_torch.models.params",
     "repro_torch.resharding.executor",
     "repro_torch.resharding.layout",
     "repro_torch.resharding.planner",
     "repro_torch.resharding.rowgrid",
+    "repro_torch.rl.loop",
     "repro_torch.transfer.codec",
     "repro_torch.transfer.engine",
 ]
@@ -96,6 +103,12 @@ local, lay = tp_shard(g2, 0, 2)
 r2.register({"m": torch.zeros_like(local["m"])}, layout=lay)
 r2.replicate(0, timeout=30)
 assert torch.equal(r2.store.get("m"), local["m"]) and r2.intervals_pulled > 0
+# the serving path: a tiny llama3-style decoder served from a replica
+import dataclasses
+from repro_torch.configs.llama3_8b import CONFIG
+from repro_torch.launch.serve import serve
+tiny = dataclasses.replace(CONFIG, num_layers=1, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, vocab=256)
+assert len(serve(tiny, requests=2, prompt_len=3, gen_len=2, rounds=1, device="cpu")) == 1
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro.")
@@ -114,6 +127,20 @@ def test_runtime_imports_in_a_fresh_process():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.data.synthetic", "repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
+    "repro_torch.models.blocks", "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.models.params", "repro_torch.rl.loop",
+])
+def test_serving_modules_import_first(module):
+    """Each module of the serving path imports as the first one of a
+    process (the transfer engine and the client import each other)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", f"import {module}"], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
