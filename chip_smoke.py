@@ -33,20 +33,23 @@ lines, any failure exiting non-zero:
    TP-2, roll-int8 the plain-version int8 codec's round trip of the
    trainer's TP-4 units resharded to TP-2; all four kernels' launch
    counters must rise on this path.
-5. Serving at full width: the flash-attention kernel held against its
-   plain version (phase 2 above also times it, at the serving path's
-   prefill and decode shapes, beside ``scaled_dot_product_attention``);
-   then llama3-8b at all 32 layers in bf16 served from a TensorHub
-   replica: a trainer publishes v0, a ``RolloutWorker`` replicates and
-   answers 16 requests of 512 prompt tokens with 64 new tokens each; the
-   trainer perturbs 1/8 of its rows and publishes v1, the worker updates
-   in place and answers again. The rollout must equal the trainer bit for
-   bit, its logprobs and every step's logits must match a teacher-forced
-   ``forward`` with the plain attention on the trainer's weights, round
-   1 must differ from round 0, and the flash kernel must launch exactly
-   32 x (1 + 64) times a round.
-6. A ``kernels`` JSON line (launches over phases 3, 4 and 5), then the
-   last line ``{"ok": true, "device": {...}}``.
+5. Serving at full width: flash attention held against its plain version
+   on each of its three routes (phase 2 above also times each route's
+   kernel at the serving path's prefill and decode shapes beside the f32 route's
+   kernel, the plain version and ``scaled_dot_product_attention``); then
+   llama3-8b at all 32 layers in bf16 served from a TensorHub replica: a
+   trainer publishes v0, a ``RolloutWorker`` replicates and answers 16
+   requests of 512 prompt tokens with 64 new tokens each; the trainer
+   perturbs 1/8 of its rows and publishes v1, the worker updates in place
+   and answers again. The rollout must equal the trainer bit for bit, its
+   logprobs and every step's logits must match a teacher-forced
+   ``forward`` with the plain attention on the trainer's weights, round 1
+   must differ from round 0, and flash attention must launch exactly 32 x
+   (1 + 64) times a round: 32 on the tensor-core route (prefill), 32 x 64
+   on the decode route and none on the f32 route.
+6. A ``kernels`` JSON line (launches over phases 3, 4 and 5; flash
+   attention's entry carries a ``routes`` field with each route's times,
+   bound and launches), then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -97,6 +100,47 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         fn()
     times = []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the summed duration of the
+    kernels it launches, traced by ``torch.profiler`` over ``reps`` calls.
+    For calls shorter than their host launch, where a CUDA-event pair
+    around one call measures the host's enqueue as well."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / reps * 1e-3
+
+
+def cold_ms(torch, fn, flush, reps: int = 20, warmup: int = 2) -> float:
+    """Median CUDA-event time of one call of ``fn`` with the L2 cache
+    evicted before it, as a layer's attention finds it after the other
+    layers' weights have streamed through: ``flush`` (a buffer larger than
+    the 50 MB L2) is filled first, and the fill outlasts the host's
+    enqueue of ``fn``, so the events time the device alone."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -762,10 +806,14 @@ def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float):
 
 
 def flash_checks(torch, dev, bw: float) -> dict:
-    """The flash kernel against its plain version at the serving path's
-    prefill and decode shapes, a long prefill and tests/test_kernels.py's
-    shapes in f32 and bf16; then timed at the prefill and decode shapes
-    beside the plain version and scaled_dot_product_attention."""
+    """Flash attention against its plain version on every route: the
+    serving path's prefill (tensor-core route) and decode step at the split
+    edges (decode route), a long and an offset prefill, decode at a
+    4096-slot cache and tests/test_kernels.py's shapes in f32 and bf16; each
+    call must bump its route's counter. Then, at the prefill and decode
+    shapes, the route's kernel timed beside the f32 route's kernel on the same
+    inputs (the f32 route, called directly), the plain version and
+    scaled_dot_product_attention, each with the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -781,9 +829,18 @@ def flash_checks(torch, dev, bw: float) -> dict:
     prefill = qkv(SERVE_BATCH, 32, 8, PROMPT_LEN, PROMPT_LEN, 128, bf16)
     decode = qkv(SERVE_BATCH, 32, 8, 1, max_len, 128, bf16)
     cases = {"prefill [16,32/8,512,128] bf16 causal": (prefill, dict(causal=True), "bfloat16")}
-    for kv_len in (1, 17, 128, 129, 513, 576):
+    for kv_len in (1, 17, 63, 64, 65, 128, 129, 513, 576):
         cases[f"decode [16,32/8,1,128] vs cache 576, kv_len {kv_len}"] = (
             decode, dict(causal=True, q_offset=kv_len - 1, kv_len=kv_len), "bfloat16")
+    decode32 = [t.float() for t in decode]
+    for kv_len in (1, 65, 576):
+        cases[f"decode [16,32/8,1,128] f32 vs cache 576, kv_len {kv_len}"] = (
+            decode32, dict(causal=True, q_offset=kv_len - 1, kv_len=kv_len), "float32")
+    long_cache = qkv(2, 32, 8, 1, 4096, 128, bf16)
+    cases["decode [2,32/8,1,128] vs cache 4096, kv_len 4096"] = (
+        long_cache, dict(causal=True, q_offset=4095, kv_len=4096), "bfloat16")
+    cases["decode chunk [2,32/8,16,128] at 500 vs cache 576"] = (
+        qkv(2, 32, 8, 16, max_len, 128, bf16), dict(causal=True, q_offset=500, kv_len=516), "bfloat16")
     cases["long [1,32/8,4096,128] bf16 causal"] = (qkv(1, 32, 8, 4096, 4096, 128, bf16), dict(causal=True), "bfloat16")
     cases["offset prefill [2,32/8,64,128] at 300 vs cache 576"] = (
         qkv(2, 32, 8, 64, max_len, 128, bf16), dict(causal=True, q_offset=300, kv_len=364), "bfloat16")
@@ -792,10 +849,13 @@ def flash_checks(torch, dev, bw: float) -> dict:
             cases[f"test_kernels [{b},{hq}/{hkv},{sq}x{sk},{d}] causal={causal} softcap={cap} {name}"] = (
                 qkv(b, hq, hkv, sq, sk, d, dtype), dict(causal=causal, softcap=cap), name)
     worst_abs, worst_ratio = 0.0, 0.0
+    worst_route = {r: 0.0 for r in fa.ROUTES}
     for label, ((q, k, v), kw, dname) in cases.items():
-        before = fa.LAUNCHES.value
+        route = fa._route(q, k)
+        before = fa.LAUNCHES.value, fa.ROUTE_LAUNCHES[route].value
         got = fa.flash_attention(q, k, v, **kw).float()
-        check(fa.LAUNCHES.value == before + 1, f"flash kernel not launched on {label}")
+        check((fa.LAUNCHES.value, fa.ROUTE_LAUNCHES[route].value) == (before[0] + 1, before[1] + 1),
+              f"flash kernel not launched on its route ({route}) on {label}")
         want = fa.attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
         tol = FLASH_TOL[dname]
@@ -803,42 +863,77 @@ def flash_checks(torch, dev, bw: float) -> dict:
         ratio = float((diff / (tol + tol * want.abs())).max())  # <= 1 passes
         worst_abs = max(worst_abs, float(diff.max()))
         worst_ratio = max(worst_ratio, ratio)
-        emit("flash_check", case=label, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio)
-        check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"flash kernel != plain version on {label}")
-    del cases, got, want, diff
+        worst_route[route] = max(worst_route[route], ratio)
+        emit("flash_check", case=label, route=route, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio)
+        check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"flash kernel != plain version on {label} ({route})")
+    del cases, got, want, diff, decode32, long_cache
     torch.cuda.empty_cache()
 
-    # timings at the serving path's shapes (the decode step at a full cache)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    # timings at the serving path's shapes (the decode step at a full cache):
+    # the route's kernel, the f32 route's kernel on the same inputs,
+    # the plain version and SDPA
     times = {}
-    for label, (q, k, v), kw, sdpa in (
-        ("prefill", prefill, dict(causal=True), lambda q, k, v: F.scaled_dot_product_attention(
+    for label, route, (q, k, v), kw, sdpa in (
+        ("prefill", "tensor_core", prefill, dict(causal=True), lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
-        ("decode", decode, dict(causal=True, q_offset=max_len - 1, kv_len=max_len),
+        ("decode", "decode", decode, dict(causal=True, q_offset=max_len - 1, kv_len=max_len),
          lambda q, k, v: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)),
     ):
-        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), reps=20)
-        plain_ms = time_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), reps=10)
-        lib_ms = time_ms(torch, lambda: sdpa(q, k, v), reps=20)
-        lib_err = float((sdpa(q, k, v).float() - fa.flash_attention(q, k, v, **kw).float()).abs().max())
+        check(fa._route(q, k) == route, f"{label} shape routed to {fa._route(q, k)}")
+        calls = {
+            "kernel": lambda: fa.flash_attention(q, k, v, **kw),
+            "f32_route": lambda: fa.launch_route("f32", q, k, v, **kw),
+            "plain": lambda: fa.attention_plain(q, k, v, **kw),
+            "sdpa": lambda: sdpa(q, k, v),
+        }
+        # the device's time a call with the L2 cache cold (the serving path's
+        # case), in turns kernel, f32 route, plain, SDPA, kernel; beside it the
+        # kernels' device time with the inputs warm in L2 (profiler) and the
+        # CUDA-event time of one eager call, host launch included
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        again = cold_ms(torch, calls["kernel"], flush)
+        warm = {n: device_ms(torch, f, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        call_ms = {n: time_ms(torch, f, reps=10 if n == "plain" else 30) for n, f in calls.items()}
+        out = calls["kernel"]().float()
+        lib_err = float((calls["sdpa"]().float() - out).abs().max())
+        f32_err = float((calls["f32_route"]().float() - out).abs().max())
         bound, by, flops, nbytes = flash_bound_ms(q, k, kw.get("kv_len", k.shape[2]), True, kw.get("q_offset", 0), bw)
-        times[label] = dict(shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16", ms=ms, plain_ms=plain_ms,
-                            sdpa_ms=lib_ms, sdpa_max_abs_diff=lib_err, bound_ms=bound, bound_by=by,
+        ms = cold["kernel"]
+        times[label] = dict(route=route, shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16", ms=ms, ms_again=again,
+                            f32_route_ms=cold["f32_route"], plain_ms=cold["plain"], sdpa_ms=cold["sdpa"],
+                            warm_device_ms=warm, call_ms=call_ms, speedup_over_f32_route=cold["f32_route"] / ms,
+                            sdpa_over_kernel=cold["sdpa"] / ms,
+                            sdpa_max_abs_diff=lib_err, f32_route_max_abs_diff=f32_err, bound_ms=bound, bound_by=by,
                             flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (ms * 1e-3) / 1e12,
                             achieved_GBps=nbytes / (ms * 1e-3) / 1e9)
     emit("flash_times", **times)
     pre, dec = times["prefill"], times["decode"]
-    del prefill, decode
+    del prefill, decode, flush
     torch.cuda.empty_cache()
+    csrc = "src/repro_torch/kernels/csrc/"
+    routes = {
+        "tensor_core": dict(source=csrc + "flash_attention_tc.cu", timed_shape=pre["shape"] + " (prefill, causal)",
+                            ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+                            bound_by=pre["bound_by"], library_ms=pre["sdpa_ms"], err_over_tol=worst_route["tensor_core"]),
+        "decode": dict(source=csrc + "flash_decode.cu", timed_shape=dec["shape"] + " (decode step, kv_len 576)",
+                       ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+                       library_ms=dec["sdpa_ms"], err_over_tol=worst_route["decode"]),
+        "f32": dict(source=csrc + "flash_attention.cu",
+                    timed_shape="the prefill and decode inputs above",
+                    ms=pre["f32_route_ms"], decode_ms=dec["f32_route_ms"], plain_ms=pre["plain_ms"],
+                    bound_ms=pre["bound_ms"], bound_by=pre["bound_by"], library_ms=pre["sdpa_ms"],
+                    err_over_tol=worst_route["f32"]),
+    }
     return {
         "flash_attention": dict(
             name="flash_attention", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            source=csrc + "flash_attention_tc.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:96",
             max_abs_err=worst_abs, err_over_tol=worst_ratio,
             ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
-            library_ms=pre["sdpa_ms"], timed_shape=pre["shape"] + " (prefill, causal)",
-            decode=dict(dec, timed_shape=dec["shape"] + " (decode step, kv_len 576)"),
-            counter=fa.LAUNCHES,
+            library_ms=pre["sdpa_ms"], timed_shape=pre["shape"] + " (prefill, causal, tensor_core route)",
+            routes=routes, counter=fa.LAUNCHES,
         ),
     }
 
@@ -870,10 +965,11 @@ def device_profile(torch, fn) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    flash = sum(t for n, t in by_name.items() if "flash_kernel" in n)
+    flash_by_name = {n[:60]: t for n, t in by_name.items() if "flash" in n}  # every route's kernels
+    flash = sum(flash_by_name.values())
     return dict(wall_seconds=wall, device_busy_seconds=busy,
                 idle_share=(1 - busy / wall) if busy else None, flash_seconds=flash,
-                flash_share_of_busy=flash / busy if busy else None,
+                flash_share_of_busy=flash / busy if busy else None, flash_kernels=flash_by_name,
                 kernels=len(by_name), top=[dict(name=n[:90], seconds=t, share=t / busy) for n, t in top])
 
 
@@ -887,7 +983,7 @@ def serving(torch, dev, counters, smi: str) -> dict:
     from repro_torch.configs.llama3_8b import CONFIG
     from repro_torch.core import ReferenceServer, TensorHubClient
     from repro_torch.data.synthetic import PromptSet
-    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, _route, attention_plain, launch_route
     from repro_torch.models.lm import DecoderLM
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker
@@ -895,7 +991,7 @@ def serving(torch, dev, counters, smi: str) -> dict:
     cfg = CONFIG
     flash = counters["flash_attention"]
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters.values():
+    for c in [*counters.values(), *ROUTE_LAUNCHES.values()]:
         c.reset()
     hub = TensorHubClient(ReferenceServer(), device=dev)
     trainer = hub.open("actor", "trainer", 1, 0, datacenter="dc0")
@@ -971,11 +1067,16 @@ def serving(torch, dev, counters, smi: str) -> dict:
             check(updated and worker.weights_version == 1, "the rollout did not update to v1")
             equal_to_trainer("after update")
         before = {k: c.value for k, c in counters.items()}
+        before_route = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
         rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
         n = flash.value - before["flash_attention"]
+        by_route = {r: c.value - before_route[r] for r, c in ROUTE_LAUNCHES.items()}
+        want_route = {"decode": cfg.num_layers * GEN_LEN, "tensor_core": cfg.num_layers, "f32": 0}
         check(n == cfg.num_layers * (1 + GEN_LEN), f"round {step}: {n} flash launches, want {cfg.num_layers * (1 + GEN_LEN)}")
+        check(by_route == want_route, f"round {step}: flash launches by route {by_route}, want {want_route}")
         check(rec["version"] == step, f"round {step} served v{rec['version']}")
         rounds.append(dict(round=step, version=rec["version"], seconds=round_s, flash_launches=n,
+                           flash_launches_by_route=by_route,
                            generated_tokens=SERVE_BATCH * GEN_LEN))
         mid = {k: c.value for k, c in counters.items()}
         checks.append(check_round(rec, step))
@@ -989,6 +1090,7 @@ def serving(torch, dev, counters, smi: str) -> dict:
         del rec
         served.clear()
     launches = {k: c.value for k, c in counters.items()}  # the main path's launches, read now
+    launches["flash_attention_routes"] = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated(dev)
 
     # the prefill alone at the same shapes (launches after the read above)
@@ -1015,6 +1117,27 @@ def serving(torch, dev, counters, smi: str) -> dict:
 
     emit("serve_profile", card=smi, prefill=device_profile(torch, prefill),
          decode_steps=n_dec, decode=device_profile(torch, decode_steps))
+
+    # a decode step's wall time with its attention on the decode route and
+    # on the f32 route's kernel, in turns on this host: the step is
+    # host-bound and hosts differ between runs, so routes compare here only
+    def f32_route_attention(q, k, v, **kw):
+        return launch_route("f32" if q.shape[2] == 1 else _route(q, k), q, k, v, **kw)
+
+    def step_ms(model):
+        logits, kv, n = model.prefill(worker.params, {"tokens": prompts}, max_len=PROMPT_LEN + GEN_LEN)
+        times = []
+        for _ in range(n_dec):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            (logits, kv), t = timed(lambda: model.decode(worker.params, kv, nxt, n))
+            times.append(t * 1e3)
+            n += 1
+        return statistics.median(times)
+
+    f32_model = DecoderLM(cfg, attention=f32_route_attention)
+    steps_ms = {"decode route": step_ms(worker.model), "f32 route": step_ms(f32_model),
+                "decode route again": step_ms(worker.model)}
+    emit("serve_decode_step", card=smi, layers=cfg.num_layers, median_ms=steps_ms)
     del cache
     emit("serve_result", card=smi, replicate_seconds=replicate_s, publish_v1_seconds=publish_s,
          update_seconds=update_s, rounds=rounds,
@@ -1091,6 +1214,8 @@ def main() -> int:
     launches = {k: phase3.get(k, 0) + phase4.get(k, 0) + phase5[k] for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
+    for r, n in phase5["flash_attention_routes"].items():  # the serving path is the only one with attention
+        kernels["flash_attention"]["routes"][r]["launches"] = n
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

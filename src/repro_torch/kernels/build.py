@@ -52,6 +52,14 @@ SIGNATURES = {
     #  Sq, D, causal, softcap, q_offset, kv_len, stream)
     "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                            _F32, _INT, _INT, _P),
+    # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, causal,
+    #  softcap, q_offset, kv_len, stream); bf16, D in {64, 128}
+    "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _P),
+    # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
+    #  D, causal, softcap, q_offset, kv_len, keys_per_split, nsplit,
+    #  f32 scratch, int32 split counters, stream)
+    "th_flash_decode": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
+                        _INT, _INT, _P, _P, _P),
 }
 
 
@@ -162,7 +170,10 @@ def library() -> ctypes.CDLL:
 
 def check(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error (a refused launch
-    never runs, and a later synchronize would not report it)."""
+    never runs, and a later synchronize would not report it); a negative
+    code is a driver error (``CUresult``) from building a TMA tensor map."""
+    if err < 0:
+        raise RuntimeError(f"{name}: driver error {-err} encoding a tensor map")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -1,0 +1,617 @@
+// Flash attention (online softmax) for Hopper on the tensor cores: bf16
+// q, k, v at head_dim 64 or 128, the prefill route of the serving path.
+//
+// Replaces the Pallas TPU kernel flash_attention_bh
+// (src/repro/kernels/flash_attention/kernel.py, _flash_kernel). For query
+// head h of batch b against KV head h / G (GQA, G = Hq / Hkv):
+//   s   = (q . k) * (1 / sqrt(D))          f32 accumulation, scale after it
+//   s   = c * tanh(s / c)                  when softcap c > 0
+//   s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i
+//   out = softmax(s) v                     online: m, l, acc in f32
+// with the TPU kernel's numerics: -1e30 (not -inf) masks, alpha =
+// exp(m_prev - m_cur), l = l * alpha + sum(p), acc / max(l, 1e-30) rounded
+// once to bf16; the scale is computed in double as the TPU's Python scalar.
+// Sources of error that the TPU kernel (f32 throughout) does not have: P
+// is rounded to bf16 before the P.V product (relative error 2^-9 a term,
+// the same rounding the tensor cores need for their operands); exp is
+// ex2.approx of a prescaled argument (relative error ~2^-22, far below
+// that rounding); each row's sum l is added up by four threads apart and
+// joined at the end; the output is acc times the reciprocal of max(l,
+// 1e-30) in f32 (within an ulp of the quotient) before its one rounding to
+// bf16. All sit well inside the bf16 tolerance (2e-2).
+//
+// Bound: at the serving path's prefill shape (16 x 32 heads x 512 x 128,
+// causal) the work is 34.4 GFLOP of live q.k pairs against 168 MB of q, k,
+// v and o: 0.035 ms at the tensor cores' 989 TFLOP/s, 0.050 ms for the
+// bytes at 3.35 TB/s. Both products run as wgmma on the tensor cores, so
+// the CUDA cores keep only the softmax.
+//
+// Design (the "usual shape" of a Hopper kernel). A work item is 192 query
+// rows of one query head; one persistent block an SM walks the items, the
+// causal ones with the most key tiles first, so one item's loads and
+// epilogue overlap the next one's math. A block is three consumer
+// warpgroups of 64 rows and one producer warp (three, not two: while one
+// warpgroup runs its softmax on the CUDA cores the others keep the tensor
+// cores busy). GQA keeps one head an
+// item: the G items of a KV group read the same K/V tiles, which the 50 MB
+// L2 serves after the first (packing the group into one tile would cut the
+// query positions a tile covers, not the bytes a FLOP). The producer's
+// lane 0 issues TMA loads: an item's Q tile into one of two Q buffers,
+// then K and V tiles of 64 keys into a ring of kStages stages that runs on
+// across items, each completing on its own mbarrier (K and V apart, so
+// Q.K^T starts while V is still in flight); the consumers release a stage
+// and a Q buffer on "empty" mbarriers. Tiles land with the 128-byte
+// swizzle that wgmma reads: a 128-wide bf16 row is two 64-element boxes.
+// Each consumer warpgroup runs S = Q.K^T as wgmma.m64n64k16 with both
+// operands K-major in shared memory, the online softmax in registers on
+// the accumulator's layout (row max and sum over the 4 threads that share
+// a row; exp(x - m) as ex2.approx of x log2 e - m log2 e, one FFMA and
+// one MUFU a score), rounds P to bf16 in registers, where the
+// accumulator's layout is already the A fragment's, and runs O += P.V as
+// wgmma.m64nDk16 with A from registers and V as a transposed (MN-major) B
+// operand. Key tiles past an item's last live key are not loaded at all
+// (causal skipping); a warpgroup whose own rows end earlier skips the
+// tile's math; only the diagonal tiles and the kv_len edge are masked.
+// The tensor maps are built per call from each tensor's own strides (the
+// serving path's v is a view with sequence stride Hkv * D), with the
+// sequence extent of K and V set to kv_len, so TMA fills keys past kv_len
+// with zeros (a cache's stale slots never reach the math). The output
+// goes out through shared memory: each warpgroup writes its normalised
+// tile into its own rows of the item's Q buffer (its Q.K^T are done) in
+// the 128-byte swizzle and one thread stores it by TMA, which clips the
+// rows past Sq; the Q buffer is released once the store has read it.
+//
+// Head_dim 256 is left to the f32 route (flash_attention.cu): its
+// 64 x 256 f32 accumulator alone is 128 registers a thread, beside the
+// 32 of S and the 16 of P, which leaves the consumer warpgroups without
+// room at one block of 416 threads; and two Q buffers and three K/V
+// stages of 32 KB tiles would not fit the 227 KB of shared memory.
+//
+// cuTensorMapEncodeTiled is a driver function and the library is not
+// linked against libcuda: it is fetched once through
+// cudaGetDriverEntryPoint(ByVersion).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kBQ = 192;                    // query rows a work item (three warpgroups)
+constexpr int kBK = 64;                     // keys a tile
+constexpr int kStages = 3;                  // K/V ring depth
+constexpr int kConsumers = 384;             // three warpgroups
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kBox = 64;                    // bf16 elements in a 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr float kNegInf = -1e30f;
+
+struct TcParams {
+  __nv_bfloat16* o;
+  long long os[3];  // element strides of o: batch, head, sequence
+  int batch, hq, group, sq, num_q_tiles, causal, q_offset, kv_len;
+  float scale, softcap;
+};
+
+// where the sequence, head and batch coordinates go among a map's
+// dimensions 1..3 (the host sorts those dimensions by stride)
+struct MapDims {
+  int q[3], k[3], v[3], o[3];
+};
+
+template <int D>
+struct Layout {
+  static constexpr uint32_t kQBytes = kBQ * D * 2;
+  static constexpr uint32_t kTileBytes = kBK * D * 2;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + 2 * kQBytes;  // two Q buffers: the next item's loads early
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kBar = kV + kStages * kTileBytes;
+  static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, const int (&dims)[3],
+                                         int d, int s, int h, int b) {
+  int c[4] = {d, 0, 0, 0};
+  // dims[] holds 1..3; written out so c stays in registers
+  c[1] = dims[0] == 1 ? s : dims[1] == 1 ? h : b;
+  c[2] = dims[0] == 2 ? s : dims[1] == 2 ? h : b;
+  c[3] = dims[0] == 3 ? s : dims[1] == 3 ? h : b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(bar)
+      : "memory");
+}
+
+// one box from shared memory into a 4-d tensor map (bulk group)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, const int (&dims)[3], int d, int s,
+                                          int h, int b) {
+  int c[4] = {d, 0, 0, 0};
+  c[1] = dims[0] == 1 ? s : dims[1] == 1 ? h : b;
+  c[2] = dims[0] == 2 ? s : dims[1] == 2 ? h : b;
+  c[3] = dims[0] == 3 ? s : dims[1] == 3 ? h : b;
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from moving reads of an accumulator above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D = A.B (+ D): A and B bf16 K-major in shared memory (descriptors), D f32
+// m64n64 in registers
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n128(o, a, db);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                    const TcParams p, const MapDims dims) {
+  using L = Layout<D>;
+  constexpr int NB = D / kBox;  // 64-element boxes a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  auto bar = [&](int i) { return base + L::kBar + 8 * i; };
+  auto q_full = [&](int i) { return bar(i); };
+  auto q_empty = [&](int i) { return bar(2 + i); };
+  auto k_full = [&](int s) { return bar(4 + s); };
+  auto v_full = [&](int s) { return bar(4 + kStages + s); };
+  auto empty = [&](int s) { return bar(4 + 2 * kStages + s); };
+  auto q_buf = [&](int i) { return base + L::kQ + i * L::kQBytes; };
+  auto k_tile = [&](int s) { return base + L::kK + s * L::kTileBytes; };
+  auto v_tile = [&](int s) { return base + L::kV + s * L::kTileBytes; };
+
+  const int tid = threadIdx.x;
+  const int nbh = p.batch * p.hq;
+  const int nwork = p.num_q_tiles * nbh;
+  // work item w: query tile num_q_tiles - 1 - w / nbh (the causal tiles with
+  // the most keys first) of head row w % nbh; block i takes i, i + grid, ...
+  struct Work {
+    int q0, b, h, ntiles;
+  };
+  auto work = [&](int w) {
+    Work x;
+    const int bh = w % nbh;
+    x.q0 = (p.num_q_tiles - 1 - w / nbh) * kBQ;
+    x.b = bh / p.hq;
+    x.h = bh % p.hq;
+    const int last = min(p.sq, x.q0 + kBQ) - 1;  // live keys [0, kv_end); tiles past it are not loaded
+    const int kv_end = p.causal ? min(p.kv_len, p.q_offset + last + 1) : p.kv_len;
+    x.ntiles = (kv_end + kBK - 1) / kBK;
+    return x;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp: lane 0 issues every load
+    if (tid == kConsumers) {
+      int it = 0;  // tiles loaded so far: the ring's position
+      for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
+        const Work x = work(w);
+        const int qb = n & 1;
+        mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);  // passes at once on a fresh buffer
+        mbar_expect_tx(q_full(qb), L::kQBytes);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load(q_buf(qb) + nb * kBQ * kRowBytes, &qmap, q_full(qb), dims.q, nb * kBox, x.q0, x.h, x.b);
+        const int hk = x.h / p.group;
+        for (int t = 0; t < x.ntiles; ++t, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(k_full(s), L::kTileBytes);
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            tma_load(k_tile(s) + nb * kBK * kRowBytes, &kmap, k_full(s), dims.k, nb * kBox, t * kBK, hk, x.b);
+          mbar_expect_tx(v_full(s), L::kTileBytes);
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            tma_load(v_tile(s) + nb * kBK * kRowBytes, &vmap, v_full(s), dims.v, nb * kBox, t * kBK, hk, x.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [row0, row0 + 64) of a tile; this
+  // thread holds rows ra and ra + 8 of them, columns 8j + 2 (lane % 4) + {0, 1}
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  const bool capped = p.softcap > 0.f;
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
+    const Work x = work(w);
+    const int qb = n & 1;
+    const int row0 = x.q0 + wg * 64;
+    const int pos_a = p.q_offset + row0 + ra, pos_b = pos_a + 8;
+    const int wg_end = p.causal ? min(p.kv_len, p.q_offset + min(p.sq, row0 + 64)) : p.kv_len;
+    const int wg_kv_end = row0 < p.sq ? wg_end : 0;  // a warpgroup past Sq does no math
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    const uint32_t q_base = q_buf(qb) + wg * 64 * kRowBytes;
+    mbar_wait(q_full(qb), (n >> 1) & 1);
+
+    for (int t = 0; t < x.ntiles; ++t, ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int k0 = t * kBK;
+      mbar_wait(k_full(s), ph);
+      if (k0 < wg_kv_end) {
+        float sc[kBK / 2];
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the swizzled row
+          const uint64_t da = sw128_desc(q_base + (kk / 4) * kBQ * kRowBytes + off, 16, 1024);
+          const uint64_t db = sw128_desc(k_tile(s) + (kk / 4) * kBK * kRowBytes + off, 16, 1024);
+          wgmma_ss_n64(sc, da, db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // s = dot * scale (then softcap); masks only on the diagonal and
+        // kv_len edge tiles
+        const bool edge = k0 + kBK > p.kv_len || (p.causal && k0 + kBK - 1 > p.q_offset + row0);
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) sc[i] *= p.scale;
+        if (capped) {
+#pragma unroll
+          for (int i = 0; i < kBK / 2; ++i) sc[i] = p.softcap * tanhf(sc[i] / p.softcap);
+        }
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kpos = k0 + 8 * j + col + c;
+              const bool in = kpos < p.kv_len;
+              if (!(in && (!p.causal || kpos <= pos_a))) sc[4 * j + c] = kNegInf;
+              if (!(in && (!p.causal || kpos <= pos_b))) sc[4 * j + 2 + c] = kNegInf;
+            }
+          }
+        }
+        float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xFFFFFFFFu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xFFFFFFFFu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 2));
+        const float mc_a = fmaxf(m_a, mx_a), mc_b = fmaxf(m_b, mx_b);
+        // exp(x - m) as 2^(x log2 e - m log2 e): one FFMA and one MUFU a score
+        const float ml_a = mc_a * kLog2e, ml_b = mc_b * kLog2e;
+        const float al_a = ex2(m_a * kLog2e - ml_a), al_b = ex2(m_b * kLog2e - ml_b);
+        m_a = mc_a;
+        m_b = mc_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            sc[4 * j + c] = ex2(fmaf(sc[4 * j + c], kLog2e, -ml_a));
+            sc[4 * j + 2 + c] = ex2(fmaf(sc[4 * j + 2 + c], kLog2e, -ml_b));
+            sum_a += sc[4 * j + c];
+            sum_b += sc[4 * j + 2 + c];
+          }
+        }
+        l_a = l_a * al_a + sum_a;  // this thread's share of the row sums
+        l_b = l_b * al_b + sum_b;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 0] *= al_a;
+          o[4 * j + 1] *= al_a;
+          o[4 * j + 2] *= al_b;
+          o[4 * j + 3] *= al_b;
+        }
+        // P in bf16: the accumulator's (row, column) layout is the A fragment's
+        uint32_t pa[kBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        mbar_wait(v_full(s), ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // V [keys][D] is the MN-major B operand: 16 keys a step (2 KB of
+          // 128-byte rows), 64-element column blocks kBK rows apart
+          wgmma_pv<D>(o, pa[kk], sw128_desc(v_tile(s) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    l_a += __shfl_xor_sync(0xFFFFFFFFu, l_a, 1);
+    l_a += __shfl_xor_sync(0xFFFFFFFFu, l_a, 2);
+    l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 1);
+    l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 2);
+    const float den_a = 1.f / fmaxf(l_a, 1e-30f), den_b = 1.f / fmaxf(l_b, 1e-30f);  // reciprocals
+    // the tile, normalised and rounded, into this warpgroup's rows of the
+    // Q buffer (its Q.K^T are done) in the 128-byte swizzle, then one TMA
+    // store a 64-column box; rows past Sq are clipped by the map
+    const uint32_t stage = q_buf(qb) + wg * 64 * kRowBytes;
+    uint8_t* stage_p = smem + (stage - base);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int nb = j / 8, jj = j % 8;
+      uint8_t* box = stage_p + nb * kBQ * kRowBytes;
+      const int rb = ra + 8;
+      *reinterpret_cast<uint32_t*>(box + ra * kRowBytes + ((jj ^ (ra & 7)) << 4) + col * 2) =
+          pack_bf16(o[4 * j] * den_a, o[4 * j + 1] * den_a);
+      *reinterpret_cast<uint32_t*>(box + rb * kRowBytes + ((jj ^ (rb & 7)) << 4) + col * 2) =
+          pack_bf16(o[4 * j + 2] * den_b, o[4 * j + 3] * den_b);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid % 128 == 0) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) tma_store(&omap, stage + nb * kBQ * kRowBytes, dims.o, nb * kBox, row0, x.h, x.b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    mbar_arrive(q_empty(qb));  // Q.K^T and the store's reads of the buffer are done
+  }
+  if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d map of a bf16 [B, H, S, D] view (unit stride in D; `strides`
+// holds the batch, head and sequence strides in elements, in that order):
+// dimension 0 is D in boxes of 64, and the sequence,
+// head and batch dimensions follow sorted by stride, a dimension of extent
+// 1 last; `where` receives each one's place. The box is 64 x `rows` rows of
+// the sequence. Returns 0 or the driver's error, negated.
+int make_map(CUtensorMap* map, const void* ptr, int d, long long seq, long long heads, long long batch,
+             const long long* strides, int rows, int (&where)[3]) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidResourceHandle);
+  const long long ext[3] = {seq, heads, batch};
+  const long long est[3] = {strides[2], strides[1], strides[0]};
+  int order[3] = {0, 1, 2};
+  auto key = [&](int i) { return ext[i] == 1 ? (1ll << 62) : est[i]; };
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (key(order[j]) < key(order[i])) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  cuuint64_t dim[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
+  cuuint64_t stride[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  long long span = static_cast<long long>(d) * 2;  // bytes the dimensions so far cover
+  for (int i = 0; i < 3; ++i) {
+    const int a = order[i];
+    where[a] = i + 1;
+    dim[i + 1] = static_cast<cuuint64_t>(ext[a]);
+    const long long st = ext[a] == 1 ? span : est[a] * 2;
+    stride[i] = static_cast<cuuint64_t>(st);
+    span = st * ext[a] > span ? st * ext[a] : span;
+    if (a == 0) box[i + 1] = static_cast<cuuint32_t>(rows);
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dim, stride, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+template <int D>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const CUtensorMap& om, const TcParams& p,
+           const MapDims& dims, int blocks, cudaStream_t stream) {
+  constexpr int bytes = Layout<D>::kBytes;
+  static bool sized = false;  // the attribute is set once a kernel
+  if (!sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  flash_tc_kernel<D><<<blocks, kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by
+// its pointer and its (batch, head, sequence) element strides in `strides`
+// (a host array of 12: q, k, v, o); D in {64, 128}; pointers and strides of
+// q, k and v 16-byte aligned; 1 <= kv_len <= Sk. Returns cudaGetLastError()
+// after the launch, or a tensor-map encoding failure negated.
+extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
+                                     int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
+                                     int q_offset, int kv_len, void* stream) {
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm, om;
+  MapDims dims;
+  int err = make_map(&qm, q, d, sq, hq, batch, strides + 0, kBQ, dims.q);
+  if (err == 0) err = make_map(&km, k, d, kv_len, hkv, batch, strides + 3, kBK, dims.k);
+  if (err == 0) err = make_map(&vm, v, d, kv_len, hkv, batch, strides + 6, kBK, dims.v);
+  if (err == 0) err = make_map(&om, o, d, sq, hq, batch, strides + 9, 64, dims.o);
+  if (err != 0) return err;
+  TcParams p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.batch = batch;
+  p.hq = hq;
+  p.group = hq / hkv;
+  p.sq = sq;
+  p.num_q_tiles = (sq + kBQ - 1) / kBQ;
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.kv_len = kv_len;
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
+  p.softcap = softcap;
+  static int sms = 0;  // one persistent block an SM
+  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
+  const int work = p.num_q_tiles * batch * hq;
+  const int blocks = work < sms ? work : sms;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch<64>(qm, km, vm, om, p, dims, blocks, s) : launch<128>(qm, km, vm, om, p, dims, blocks, s);
+}

@@ -18,16 +18,30 @@ length and a cache of ``max_len`` slots. With the defaults it computes what
 the Pallas kernel ``flash_attention_bh``
 (``repro/kernels/flash_attention/kernel.py``) computes.
 
-On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs
-:func:`attention_plain`, the plain PyTorch version (naive f32 softmax, as
-the JAX package's ``ref.py:attention_ref`` and
-``layers.py:reference_attention``) that the kernel is held against. Both
-take f32 or bf16; the kernel takes head_dim 64, 128 or 256 and
-``Hq / Hkv <= 64``, and the wrapper raises on a CUDA tensor outside
-those.
+On a CUDA tensor it launches one of three hand-written kernels or raises;
+the route follows from dtype and shape alone (:func:`_route`), never from
+a failure:
 
-The kernel's output lies in memory as ``[B, Sq, Hq, D]`` under the
+* ``"decode"`` (``csrc/flash_decode.cu``): every call whose packed query
+  rows fit one tile, ``Sq * G <= 64`` (``G = Hq / Hkv``), f32 or bf16 at
+  head_dim 64/128/256. The key range is cut into splits
+  (:func:`split_plan`), one block a (batch, KV head, split), and the
+  block that finishes a (batch, KV head)'s last split merges the splits'
+  partial softmax states (what :func:`split_kv_plain` computes in plain
+  PyTorch).
+* ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
+  head_dim 64 or 128 (the prefill): TMA loads and ``wgmma`` on the tensor
+  cores.
+* ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32 or bf16 at
+  head_dim 256, in f32 FMAs on the CUDA cores, ``Hq / Hkv <= 64``.
+
+On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
+(naive f32 softmax, as the JAX package's ``ref.py:attention_ref`` and
+``layers.py:reference_attention``) that the kernels are held against, and
+launches nothing. ``LAUNCHES`` counts every launch of a route,
+``ROUTE_LAUNCHES[route]`` each route's.
+
+Every route's output lies in memory as ``[B, Sq, Hq, D]`` under the
 ``[B, Hq, Sq, D]`` view it returns, so merging the heads afterwards is a
 view, not a copy.
 """
@@ -36,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,13 +58,21 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: kernel dtype codes (csrc/flash_attention.cu)
+#: kernel dtype codes (csrc/flash_attention.cu, csrc/flash_decode.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 64  # query heads packed into one 64-row tile
+TC_HEAD_DIMS = (64, 128)  # the tensor-core route's
+MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
+DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
+ROUTES = ("decode", "tensor_core", "f32")
+TILE_KEYS = 64  # keys a tile of the decode kernel, and the unit of a split
+MAX_SPLIT_BLOCKS = 640  # decode grid: about one wave of the kernel (5 blocks an SM of 132)
+MAX_SPLITS = 64
 
-#: launches of the CUDA kernel (bumped only where it is launched)
+#: launches of any route's kernel, and of each route's (bumped only where
+#: the kernel is launched)
 LAUNCHES = build.LaunchCount()
+ROUTE_LAUNCHES = {r: build.LaunchCount() for r in ROUTES}
 
 
 def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int:
@@ -112,16 +134,88 @@ def attention_plain(
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel's 4-element vector loads can read its rows in
-    place (unit stride in D, 4-element aligned rows), else a contiguous
-    copy."""
-    isz = t.element_size()
-    ok = (
-        t.stride(3) == 1
-        and t.data_ptr() % (4 * isz) == 0
-        and all(t.stride(i) % 4 == 0 or t.size(i) == 1 for i in range(3))
-    )
-    return t if ok else t.contiguous()
+    """``t`` if every route can read its rows in place, else a contiguous
+    copy: unit stride in D, and a 16-byte aligned base and batch, head and
+    sequence strides (TMA's rule for its tensor maps, and the 16-byte
+    vector loads and ``cp.async`` of the other kernels); a dimension of
+    extent 1 may have any stride. A copy, not ``contiguous()``: a
+    contiguous view at a misaligned offset needs new storage too."""
+    unit = 16 // t.element_size()
+    st, n = t.stride(), t.shape
+    ok = st[3] == 1 and t.data_ptr() % 16 == 0 and all(st[i] % unit == 0 or n[i] == 1 for i in range(3))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel a call goes to, from dtype and shape alone."""
+    _, hq, sq, d = q.shape
+    if sq * (hq // k.shape[1]) <= DECODE_ROWS:
+        return "decode"
+    if q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "f32"
+
+
+def live_end(sq: int, causal: bool, q_offset: int, kv_len: int) -> int:
+    """One past the last key any query row may see."""
+    return min(kv_len, int(q_offset) + sq) if causal else kv_len
+
+
+def split_plan(kv_end: int, batch_kv_heads: int) -> Tuple[int, int]:
+    """The decode route's ``(keys_per_split, nsplit)``: ``[0, kv_end)`` in
+    splits of whole 64-key tiles, one block a (batch x KV head, split), as
+    many as fit ``MAX_SPLIT_BLOCKS`` blocks and ``MAX_SPLITS`` splits; the
+    last split may be short, none is empty."""
+    tiles = -(-kv_end // TILE_KEYS)
+    per = min(tiles, max(-(-tiles * batch_kv_heads // MAX_SPLIT_BLOCKS), -(-tiles // MAX_SPLITS)))
+    return per * TILE_KEYS, -(-tiles // per)
+
+
+def split_kv_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    keys_per_split: Optional[int] = None,
+) -> torch.Tensor:
+    """The decode kernel's algorithm in plain PyTorch, f32: per split of
+    the live keys a partial ``(m, l, acc)`` over -1e30-masked scores, then
+    the log-sum-exp merge ``sum exp(m_i - M) acc_i / max(sum exp(m_i - M)
+    l_i, 1e-30)``. Splits follow :func:`split_plan` unless
+    ``keys_per_split`` is given."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    end = live_end(sq, causal, q_offset, kv_len)
+    if keys_per_split is None:
+        keys_per_split, _ = split_plan(end, b * hkv)
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    qpos = int(q_offset) + torch.arange(sq, device=q.device)
+    ms, ls, accs = [], [], []
+    for k0 in range(0, end, keys_per_split):
+        k1 = min(k0 + keys_per_split, end)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, k0:k1].float()) * (1.0 / math.sqrt(d))
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(k0, k1, device=q.device)
+        mask = (kpos < kv_len)[None, :]
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        s = s.masked_fill(~mask, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, k0:k1].float()))
+    m_all = torch.stack(ms)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    den = (w * torch.stack(ls)).sum(dim=0).clamp_min(1e-30)
+    out = (w * torch.stack(accs)).sum(dim=0) / den
+    return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def flash_attention(
@@ -136,29 +230,82 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of q ``[B, Hq, Sq, D]`` over k, v ``[B, Hkv, Sk, D]``
     (see the module docstring); asynchronous on CUDA."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise TypeError(f"flash_attention: unsupported device {q.device}")
+    return launch_route(_route(q, k), q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+
+
+def launch_route(
+    route: str,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``route``'s kernel on CUDA tensors, or raise where it does
+    not take the call. :func:`flash_attention` picks the route; naming one
+    here is for measurements that hold two routes side by side."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    if d not in HEAD_DIMS or hq // hkv > MAX_GROUP:
-        raise ValueError(
-            f"flash_attention: the kernel takes head_dim in {HEAD_DIMS} and Hq/Hkv <= {MAX_GROUP}, "
-            f"got head_dim {d}, Hq/Hkv {hq // hkv}"
-        )
+    g = hq // hkv
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention: unknown route {route!r}")
+    if d not in (TC_HEAD_DIMS if route == "tensor_core" else HEAD_DIMS):
+        raise ValueError(f"flash_attention: the {route} route takes head_dim in "
+                         f"{TC_HEAD_DIMS if route == 'tensor_core' else HEAD_DIMS}, got head_dim {d}")
+    if route == "tensor_core" and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: the tensor_core route takes bfloat16, got {q.dtype}")
+    if route == "decode" and sq * g > DECODE_ROWS:
+        raise ValueError(f"flash_attention: the decode route takes Sq * Hq/Hkv <= {DECODE_ROWS}, got {sq * g}")
+    if route == "f32" and g > MAX_GROUP:
+        raise ValueError(f"flash_attention: the f32 route takes Hq/Hkv <= {MAX_GROUP}, got {g}")
+    if q.device.type != "cuda":
+        raise TypeError(f"flash_attention: unsupported device {q.device}")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides))
+    flags = (int(bool(causal)), float(softcap), int(q_offset), kv_len)
     lib = build.library()
+    stream = build.stream_ptr(q.device)
+    if route == "decode":
+        keys, nsplit = split_plan(live_end(sq, causal, q_offset, kv_len), b * hkv)
+        part = torch.empty(b * hkv * nsplit * sq * g * (d + 2), dtype=torch.float32, device=q.device)
+        counters = _split_counters(q.device, b * hkv)
     LAUNCHES.add()
-    err = lib.th_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-        _CODES[q.dtype], b, hq, hkv, sq, d, int(bool(causal)), float(softcap),
-        int(q_offset), kv_len, build.stream_ptr(q.device),
-    )
-    build.check("th_flash_attention", err)
+    ROUTE_LAUNCHES[route].add()
+    if route == "decode":
+        name = "th_flash_decode"
+        err = lib.th_flash_decode(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, keys, nsplit,
+                                  part.data_ptr(), counters.data_ptr(), stream)
+    elif route == "tensor_core":
+        name = "th_flash_attention_tc"
+        err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, *flags, stream)
+    else:
+        name = "th_flash_attention"
+        err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, stream)
+    build.check(name, err)
     return out
+
+
+_COUNTERS: dict = {}
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's per-(batch, KV head) split counters on
+    ``device``: zeros, kept between calls (the block that merges a row's
+    splits resets its counter), so a step launches one kernel and no
+    memset. Calls on one device share them; they run in stream order on
+    the serving path."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf

@@ -342,3 +342,135 @@ def test_decoder_prefill_and_decode_on_the_card(dev):
     torch.testing.assert_close(kept, ref, rtol=1e-4, atol=1e-4)
     lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[:, 20:, None])[..., 0]
     torch.testing.assert_close(lps, lp_ref, rtol=1e-4, atol=1e-4)
+
+
+# -- flash attention's three routes ------------------------------------------------
+
+
+def _routed(fa, route, fn):
+    """Run ``fn`` and check it launched ``route``'s kernel once and no other."""
+    before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    out = fn()
+    after = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    assert {r: after[r] - before[r] for r in after} == {r: int(r == route) for r in after}
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,cap", [(200, 200, True, 0.0), (130, 130, True, 0.0), (77, 300, False, 0.0),
+                                              (256, 256, True, 50.0), (128, 128, False, 30.0), (600, 600, True, 0.0)])
+def test_tensor_core_route_equals_plain(dev, d, sq, sk, causal, cap):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, sq * 7 + d, 2, 8, 2, sq, sk, d, torch.bfloat16)
+    assert fa._route(q, k) == "tensor_core"
+    got = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v, causal=causal, softcap=cap))
+    _flash_close(got, fa.attention_plain(q, k, v, causal=causal, softcap=cap), torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_offset,sq,kv_len", [(300, 64, 364), (20, 100, 120), (0, 65, 65), (500, 40, 540)])
+def test_tensor_core_route_offset_prefill(dev, q_offset, sq, kv_len):
+    """A chunk behind a cache of 576 slots; slots past kv_len hold garbage
+    that TMA must not bring in (the maps end at kv_len)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, q_offset + sq, 2, 32, 8, sq, 576, 128, torch.bfloat16)
+    k[:, :, kv_len:] = 1e4
+    v[:, :, kv_len:] = float("nan")
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len)
+    got = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v, **kw))
+    assert torch.isfinite(got).all()
+    _flash_close(got, fa.attention_plain(q, k[:, :, :kv_len], v[:, :, :kv_len], **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len,cache", [(1, 576), (63, 576), (64, 576), (65, 576), (576, 576), (4096, 4096)])
+def test_decode_route_split_edges(dev, kv_len, cache, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, kv_len, 2, 32, 8, 1, cache, 128, dtype)
+    k[:, :, kv_len:] = 1e4
+    v[:, :, kv_len:] = float("nan")
+    kw = dict(causal=True, q_offset=kv_len - 1, kv_len=kv_len)
+    got = _routed(fa, "decode", lambda: fa.flash_attention(q, k, v, **kw))
+    assert torch.isfinite(got).all()
+    want = fa.attention_plain(q, k[:, :, :kv_len], v[:, :, :kv_len], **kw)
+    _flash_close(got, want, dtype)
+    _flash_close(got, fa.split_kv_plain(q, k[:, :, :kv_len], v[:, :, :kv_len], **kw), dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("shape", [(1, 16, 4, 4, 300, 100, 104, True, 0.0), (2, 8, 2, 8, 160, 60, 68, True, 50.0),
+                                   (1, 8, 8, 64, 130, 66, 130, True, 0.0), (2, 4, 1, 16, 90, 0, 90, False, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_route_chunks(dev, d, shape, dtype):
+    """Several query rows a block (Sq * G <= 64), rows that see no key of
+    a split, softcap, non-causal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, q_offset, kv_len, causal, cap = shape
+    q, k, v = _qkv(dev, d + sq, b, hq, hkv, sq, sk, d, dtype)
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    got = _routed(fa, "decode", lambda: fa.flash_attention(q, k, v, **kw))
+    _flash_close(got, fa.attention_plain(q, k, v, **kw), dtype)
+
+
+def test_f32_route_still_takes_head_dim_256_in_bf16(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 5, 1, 4, 2, 200, 200, 256, torch.bfloat16)
+    got = _routed(fa, "f32", lambda: fa.flash_attention(q, k, v))
+    _flash_close(got, fa.attention_plain(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("route", ["tensor_core", "decode"])
+def test_routes_take_the_models_strided_views(dev, route):
+    """q and k as apply_rope leaves them (contiguous [B, H, S, D]), v as
+    _split_heads makes it ([B, S, Hkv * D] viewed as [B, Hkv, S, D]: a
+    sequence stride of Hkv * D); in decode, a layer's slice of a stacked
+    cache."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.blocks import _split_heads
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    sq = 150 if route == "tensor_core" else 1
+    q = torch.randn(2, 32, sq, 128, generator=g, device=dev).to(torch.bfloat16)
+    if route == "tensor_core":
+        k = torch.randn(2, 8, sq, 128, generator=g, device=dev).to(torch.bfloat16)
+        v = _split_heads(torch.randn(2, sq, 8 * 128, generator=g, device=dev).to(torch.bfloat16), 8)
+        assert v.stride(2) == 8 * 128 and not v.is_contiguous()
+        kw = dict(causal=True)
+    else:
+        cache = torch.randn(3, 2, 8, 576, 128, generator=g, device=dev).to(torch.bfloat16)
+        k, v = cache[1], cache[2]
+        kw = dict(causal=True, q_offset=99, kv_len=100)
+    assert fa._aligned(v).data_ptr() == v.data_ptr()  # no copy
+    got = _routed(fa, route, lambda: fa.flash_attention(q, k, v, **kw))
+    _flash_close(got, fa.attention_plain(q, k.contiguous(), v.contiguous(), **kw), torch.bfloat16)
+
+
+def test_tensor_core_route_copies_a_misaligned_view(dev):
+    """Rows of 132 bf16 (264 bytes) cut to 128: TMA wants 16-byte strides,
+    so the wrapper copies; a view 2 bytes past an aligned base too."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    wide = torch.randn(2, 8, 140, 132, generator=g, device=dev).to(torch.bfloat16)
+    q = wide[..., 4:]
+    flat = torch.randn(2 * 2 * 140 * 128 + 1, generator=g, device=dev).to(torch.bfloat16)
+    k = flat[1:].view(2, 2, 140, 128)
+    v = torch.randn(2, 2, 140, 128, generator=g, device=dev).to(torch.bfloat16)
+    assert fa._aligned(q).data_ptr() != q.data_ptr() and fa._aligned(k).data_ptr() != k.data_ptr()
+    got = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v))
+    _flash_close(got, fa.attention_plain(q, k, v), torch.bfloat16)
+
+
+def test_launch_route_runs_the_f32_kernel_on_bf16(dev):
+    """The f32 route's kernel, named directly at the prefill shape's
+    small cousin, agrees with the tensor-core route."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 9, 2, 32, 8, 256, 256, 128, torch.bfloat16)
+    a = _routed(fa, "f32", lambda: fa.launch_route("f32", q, k, v))
+    b = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v))
+    _flash_close(a, b, torch.bfloat16)
