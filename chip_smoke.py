@@ -15,7 +15,16 @@ lines, any failure exiting non-zero:
    with nvcc for sm_90a, then holds each kernel bit-equal to its plain
    PyTorch version on the card at the transfer path's shapes, and times
    kernel, plain version and a device-to-device ``copy_`` of the same bytes
-   (median of CUDA-event timings) beside the bytes bound.
+   (median of CUDA-event timings) beside the bytes bound. Flash
+   attention's backward: dQ, dK, dV of the autograd Function (the forward
+   route writing the rows' log-sum-exp, then the two kernels of
+   ``flash_attention_bwd.cu``) against autograd through the plain
+   attention at the GRPO step's shape in bf16 and f32 and at its edges
+   (S = 77, G 1/4/8, kv_len < Sk, q_offset > 0, softcap, head_dim 64),
+   each within tests/test_kernels.py's tolerance of the gradient's max
+   |value|; the log-sum-exp against logsumexp of the plain scores; the
+   backward timed beside the plain backward and SDPA's at the training
+   shape.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -47,9 +56,25 @@ lines, any failure exiting non-zero:
    must differ from round 0, and flash attention must launch exactly 32 x
    (1 + 64) times a round: 32 on the tensor-core route (prefill), 32 x 64
    on the decode route and none on the f32 route.
-6. A ``kernels`` JSON line (launches over phases 3, 4 and 5; flash
+6. The RL loop at full width (paper Fig. 4): llama3-8b at its published
+   widths, 4 layers, bf16. A ``TrainerWorker`` publishes v0 (dc0); a
+   ``RolloutWorker`` (dc0, raw) replicates it and serves 4 prompts x 4
+   responses of 512 + 64 tokens; their rewards are replaced by seeded
+   draws (a random-weight model scores 0, which would zero the step); the
+   trainer runs one GRPO step (flash forward on the tensor-core route, the
+   backward kernels, AdamW in place) and publishes v1; the worker updates
+   in place and serves again. The replica must equal the trainer bit for
+   bit at v0 and v1, every tensor must get a finite nonzero gradient
+   within a bf16 bound of a reference step with the plain attention (and
+   within phase 2's tolerance of a step with the same kernel forward and
+   the plain backward) and change from v0 to v1, round 1's logits must match a teacher-forced
+   forward on v1, and a step must launch 4 tensor-core forwards and 4 of
+   each backward kernel (none on the decode or f32 routes). A profiled
+   second step gives the step's device time by kernel.
+7. A ``kernels`` JSON line (launches over phases 3 to 6; flash
    attention's entry carries a ``routes`` field with each route's times,
-   bound and launches), then the last line ``{"ok": true, "device": {...}}``.
+   bound and launches, the backward's entry its two kernels' launches),
+   then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,24 +135,59 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+PROFILE_ATTEMPTS = 3  # profiler sessions tried before a trace counts as empty
+
+
+def traced(torch, run, activities):
+    """``torch.profiler`` over ``run()``, ended by a synchronize: the
+    trace's events and the wall seconds of ``run``. Now and then a
+    session records no device activity at all; such a session is retried
+    in a fresh one (a line says so), up to ``PROFILE_ATTEMPTS``, and an
+    empty trace is returned only when every attempt was empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events, wall
+        emit("profiler_retry", attempt=attempt, why="the trace holds no device activity")
+    return [], wall
+
+
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: the summed duration of the
     kernels it launches, traced by ``torch.profiler`` over ``reps`` calls.
     For calls shorter than their host launch, where a CUDA-event pair
-    around one call measures the host's enqueue as well."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    around one call measures the host's enqueue as well. Where the
+    profiler records nothing in every attempt, the time of the ``reps``
+    calls back to back between two CUDA events, over ``reps`` (a line
+    says so)."""
+    from torch.profiler import ProfilerActivity
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / reps * 1e-3
+
+    events, _ = traced(torch, run, [ProfilerActivity.CUDA])
+    if events:
+        return sum(e.time_range.elapsed_us() for e in events) / reps * 1e-3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    b.synchronize()
+    emit("device_ms_by_events", why="the profiler recorded no device activity", reps=reps)
+    return a.elapsed_time(b) / reps
 
 
 def cold_ms(torch, fn, flush, reps: int = 20, warmup: int = 2) -> float:
@@ -793,15 +853,15 @@ def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
     return sum(min(kv_len, q_offset + i + 1) for i in range(sq))
 
 
-def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float):
+def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float = BF16_TFLOPS):
     """The larger of the FLOP time (4 D flops a live pair a query head, at
-    the bf16 tensor-core peak) and the byte time (q and o once, the live
-    keys of k and v once, at the memory rate)."""
+    ``peak``: the bf16 tensor-core peak unless given) and the byte time (q
+    and o once, the live keys of k and v once, at the memory rate)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     flops = 4 * b * hq * d * live_pairs(sq, kv_len, causal, q_offset)
     nbytes = 2 * q.numel() * q.element_size() + 2 * b * hkv * kv_len * d * k.element_size()
-    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, nbytes / bw * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
 
@@ -938,6 +998,177 @@ def flash_checks(torch, dev, bw: float) -> dict:
     }
 
 
+# -- phase 2: flash attention's backward --------------------------------------
+
+#: the GRPO step's attention at phase 6's batch: 4 prompts x 4 responses of
+#: 512 + 64 tokens, llama3-8b's 32/8 heads of 128
+TRAIN_B, TRAIN_S = 16, 576
+F32_TFLOPS = 67e12  # H100 SXM f32 on the CUDA cores
+
+
+def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float):
+    """The larger of the FLOP time (five products of 2 D flops a live pair
+    a query head: S, dP, dV, dK, dQ) and the byte time (q, o, dO, dQ, k,
+    v, dK, dV once each and the lse)."""
+    b, hq, sq, d = q.shape
+    flops = 5 * 2 * d * b * hq * live_pairs(sq, kv_len, causal, q_offset)
+    nbytes = 4 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size() + 4 * b * hq * sq
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+
+
+def grad_err(torch, got, want) -> float:
+    """max |got - want| over max |want|: the norm the backward's gradients
+    are held to, tests/test_kernels.py's tolerance taken relative to each
+    gradient's largest value (a gradient has no scale of its own)."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+def rel_l2(torch, got, want) -> float:
+    """|got - want| over |want| in the L2 norm."""
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def flash_backward_checks(torch, dev, bw: float) -> dict:
+    """The backward kernels (csrc/flash_attention_bwd.cu) through the
+    autograd Function against autograd through the plain attention, on the
+    GRPO step's shape (bf16 and f32) and at the edges (S = 77, G 1/4/8,
+    kv_len < Sk, q_offset > 0, softcap, head_dim 64); the log-sum-exp of
+    the tensor_core and f32 forwards against logsumexp of the plain
+    scores; then, at the training shape, the backward timed beside the
+    plain backward and SDPA's, and the f32 route's forward beside its
+    plain version and SDPA (row 5c)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return [rand(s, dtype) for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        cases[f"train [16,32/8,576,128] causal {name}"] = (TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, dtype, {})
+        cases[f"S 77 [2,32/8,77,128] causal {name}"] = (2, 32, 8, 77, 77, 128, dtype, {})
+        for hq, hkv in ((8, 8), (16, 4), (32, 4)):
+            cases[f"G {hq // hkv} [2,{hq}/{hkv},200,128] causal {name}"] = (2, hq, hkv, 200, 200, 128, dtype, {})
+        cases[f"kv_len 300 of 400 [2,32/8,256x400,128] not causal {name}"] = (
+            2, 32, 8, 256, 400, 128, dtype, dict(causal=False, kv_len=300))
+        cases[f"q_offset 200 [2,32/8,64x320,128] kv_len 264 {name}"] = (
+            2, 32, 8, 64, 320, 128, dtype, dict(q_offset=200, kv_len=264))
+        cases[f"softcap 50 [2,16/8,256,128] causal {name}"] = (2, 16, 8, 256, 256, 128, dtype, dict(softcap=50.0))
+        cases[f"head_dim 64 [2,32/8,300,64] causal {name}"] = (2, 32, 8, 300, 300, 64, dtype, {})
+    worst, worst_abs = 0.0, 0.0
+    for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
+        kw = dict(dict(causal=True), **kw)
+        q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
+        dout = rand(q.shape, dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+        route = fa._route(q, k, grad=True)
+        r_before = fa.ROUTE_LAUNCHES[route].value
+        got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, dout)
+        check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {"dkdv": 1, "dq": 1}
+              and fa.ROUTE_LAUNCHES[route].value == r_before + 1, f"backward kernels not launched on {label}")
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        worst = max(worst, max(errs.values()) / tol)
+        worst_abs = max(worst_abs, max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
+        emit("flash_bwd_check", case=label, forward_route=route, rel_err=errs, tol=tol, finite=finite)
+        check(finite and max(errs.values()) <= tol, f"backward kernels != autograd of the plain version on {label}")
+        del q, k, v, dout, leaves, got, ref, want
+    torch.cuda.empty_cache()
+
+    # the log-sum-exp the forwards write for the backward
+    lse_worst = 0.0
+    for route, dtype in (("tensor_core", bf16), ("f32", f32), ("f32", bf16)):
+        for b, hq, hkv, sq, sk, d, kw in ((TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, dict(causal=True)),
+                                          (2, 32, 8, 77, 300, 64, dict(causal=True, q_offset=200, kv_len=277)),
+                                          (2, 16, 8, 256, 256, 128, dict(causal=False, softcap=50.0, kv_len=200))):
+            q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
+            out, lse = fa.launch_route(route, q, k, v, with_lse=True, **kw)
+            want = fa.attention_lse_plain(q, k, **kw)
+            err = float(((lse - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+            lse_worst = max(lse_worst, err)
+            emit("flash_lse_check", route=route, dtype=str(dtype), shape=[b, hq, hkv, sq, sk, d], kw=kw,
+                 max_abs_err=float((lse - want).abs().max()), err_over_tol=err)
+            check(err <= 1.0 and torch.equal(out, fa.launch_route(route, q, k, v, **kw)),
+                  f"lse of the {route} forward != logsumexp of the plain scores")
+    del q, k, v, out, lse, want
+    torch.cuda.empty_cache()
+
+    # timings at the training shape (bf16): the backward kernels, the plain
+    # backward and SDPA's backward (autograd through
+    # scaled_dot_product_attention, its forward kept out of the timing)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, bf16)
+    dout = rand(q.shape, bf16)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, causal=True)
+    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True, enable_gqa=True)
+    calls = {
+        "kernel": lambda: fa.launch_backward(q, k, v, out, lse, dout, causal=True),
+        "plain": lambda: fa.attention_backward_plain(q, k, v, out, lse, dout, causal=True),
+        "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True),
+    }
+    cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+    again = cold_ms(torch, calls["kernel"], flush)
+    warm = {n: device_ms(torch, f, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+    mine = calls["kernel"]()
+    sdpa_err = max(grad_err(torch, a, w) for a, w in zip(mine, calls["sdpa"]()))
+    bound, by, flops, nbytes = bwd_bound_ms(q, k, TRAIN_S, True, 0, bw, BF16_TFLOPS)
+    ms = cold["kernel"]
+    bwd_times = dict(shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal", ms=ms, ms_again=again,
+                     plain_ms=cold["plain"], sdpa_ms=cold["sdpa"], warm_device_ms=warm, bound_ms=bound,
+                     bound_by=by, flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (ms * 1e-3) / 1e12,
+                     sdpa_over_kernel=cold["sdpa"] / ms, sdpa_rel_diff=sdpa_err)
+    emit("flash_bwd_times", **bwd_times)
+    del q, k, v, dout, out, lse, sq_, sk_, sv_, sdpa_out, mine, calls
+    torch.cuda.empty_cache()
+
+    # row 5c: the f32 route's forward at the training shape in f32
+    q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, f32)
+    calls = {
+        "kernel": lambda: fa.launch_route("f32", q, k, v, causal=True),
+        "plain": lambda: fa.attention_plain(q, k, v, causal=True),
+        "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+    }
+    cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+    warm = {n: device_ms(torch, f, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+    sdpa_diff = float((calls["sdpa"]() - calls["kernel"]()).abs().max())
+    b32, by32, flops32, bytes32 = flash_bound_ms(q, k, TRAIN_S, True, 0, bw, peak=F32_TFLOPS)
+    f32_times = dict(shape=f"q {list(q.shape)}, k/v {list(k.shape)} f32 causal", ms=cold["kernel"],
+                     plain_ms=cold["plain"], library_ms=cold["sdpa"], warm_device_ms=warm, bound_ms=b32,
+                     bound_by=by32, flops=flops32, bytes=bytes32, sdpa_max_abs_diff=sdpa_diff)
+    emit("flash_f32_route_times", **f32_times)
+    del q, k, v, calls, flush
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_bwd": dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:96",
+            replaces_note="the backward of row 5's kernel: the JAX package has no Pallas backward and "
+                          "differentiates its jnp chunked_attention (src/repro/models/layers.py:81)",
+            max_abs_err=worst_abs, err_over_tol=worst, lse_err_over_tol=lse_worst,
+            ms=bwd_times["ms"], plain_ms=bwd_times["plain_ms"], bound_ms=bound, bound_by=by,
+            library_ms=bwd_times["sdpa_ms"], warm_device_ms=bwd_times["warm_device_ms"]["kernel"],
+            timed_shape=bwd_times["shape"],
+            counter=fa.BWD_LAUNCHES["dkdv"],
+        ),
+        "f32_route_training_shape": f32_times,
+    }
+
+
 #: bound on |port - reference| for logits and logprobs at full width in
 #: bf16 (see PERF.md): the rollout's prefill/decode (flash kernel, decode
 #: matmuls of one token a row) against a teacher-forced forward (plain
@@ -945,32 +1176,81 @@ def flash_checks(torch, dev, bw: float) -> dict:
 LOGIT_MAX_ABS, LOGIT_MEAN_ABS = 0.5, 0.05
 
 
+def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check") -> dict:
+    """A served round's logprobs and every step's logits against a
+    teacher-forced forward of the whole sequence on ``weights`` with the
+    plain attention (``reference``), four sequences at a time."""
+    seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
+    plen = seqs.shape[1] - steps.shape[1]
+    lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
+    for c in range(0, seqs.shape[0], 4):
+        with torch.no_grad():
+            ref = reference.forward(weights, {"tokens": seqs[c : c + 4]})
+        ref = ref[:, plen - 1 : -1]  # the logits each generated token was drawn from
+        lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + 4, plen:, None])[..., 0]
+        lp_err = max(lp_err, float((lps[c : c + 4] - lp_ref).abs().max()))
+        d = (steps[c : c + 4] - ref).abs()
+        logit_max = max(logit_max, float(d.max()))
+        logit_sum += float(d.double().sum())
+        del ref, lp_ref, d
+    logit_mean = logit_sum / steps.numel()
+    res = dict(version=version, logprob_max_abs_err=lp_err, logit_max_abs_err=logit_max,
+               logit_mean_abs_err=logit_mean, logit_abs_max=float(steps.abs().max()),
+               all_finite=bool(torch.isfinite(steps).all()), mean_logprob=float(lps.mean()))
+    emit(tag, **res)
+    check(res["all_finite"], f"v{version}: non-finite logits")
+    check(lp_err <= LOGIT_MAX_ABS, f"v{version}: logprob error {lp_err} > {LOGIT_MAX_ABS}")
+    check(logit_max <= LOGIT_MAX_ABS, f"v{version}: logit error {logit_max} > {LOGIT_MAX_ABS}")
+    check(logit_mean <= LOGIT_MEAN_ABS, f"v{version}: mean logit error {logit_mean} > {LOGIT_MEAN_ABS}")
+    return res
+
+
 def device_profile(torch, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device time
     of its kernels by name: busy seconds (kernels of one stream do not
     overlap), the wall seconds ended by a synchronize, the idle share, and
-    the kernels that took the most time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the kernels that took the most time. A session that records no device
+    activity is retried (``traced``), so ``fn`` may run more than once."""
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    events, wall = traced(torch, fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash_by_name = {n[:60]: t for n, t in by_name.items() if "flash" in n}  # every route's kernels
     flash = sum(flash_by_name.values())
+    by_class = {}
+    for n, t in by_name.items():
+        c = kernel_class(n)
+        by_class[c] = by_class.get(c, 0.0) + t
     return dict(wall_seconds=wall, device_busy_seconds=busy,
                 idle_share=(1 - busy / wall) if busy else None, flash_seconds=flash,
                 flash_share_of_busy=flash / busy if busy else None, flash_kernels=flash_by_name,
+                by_class={c: dict(seconds=t, share=t / busy) for c, t in by_class.items()} if busy else {},
                 kernels=len(by_name), top=[dict(name=n[:90], seconds=t, share=t / busy) for n, t in top])
+
+
+def kernel_class(name: str) -> str:
+    """A kernel's class by its name: the port's kernels by theirs
+    (csrc/*.cu),
+    cuBLAS's GEMMs (``nvjet``, ``gemm``, ``sm90_xmma``), PyTorch's
+    elementwise and copy kernels, its reductions (softmax, sums, norms)."""
+    n = name.lower()
+    if "flash_bwd" in n:
+        return "flash backward"
+    if "flash" in n:
+        return "flash forward"
+    if any(k in n for k in ("checksum_kernel", "quant_kernel", "gather_runs_kernel", "dequant_gather_kernel")):
+        return "transfer kernels"
+    if "nvjet" in n or "gemm" in n or "xmma" in n or "cutlass" in n:
+        return "gemm"
+    if "softmax" in n or "reduce" in n or "norm" in n:
+        return "reduction"
+    if "elementwise" in n or "copy" in n or "fill" in n or "index" in n or "scatter" in n or "gather" in n:
+        return "elementwise"
+    return "other"
 
 
 def serving(torch, dev, counters, smi: str) -> dict:
@@ -1020,33 +1300,6 @@ def serving(torch, dev, counters, smi: str) -> dict:
         for n, w in trainer.store.tensors().items():
             check(torch.equal(worker.params[n], w), f"{when}: rollout {n} != trainer")
 
-    def check_round(rec, version):
-        """Logprobs and every step's logits against a teacher-forced
-        forward of the whole sequence on the trainer's tensors with the
-        plain attention, four sequences at a time."""
-        seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
-        lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
-        for c in range(0, SERVE_BATCH, 4):
-            with torch.no_grad():
-                ref = reference.forward(trainer.store.tensors(), {"tokens": seqs[c : c + 4]})
-            ref = ref[:, PROMPT_LEN - 1 : -1]  # the logits each generated token was drawn from
-            lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + 4, PROMPT_LEN:, None])[..., 0]
-            lp_err = max(lp_err, float((lps[c : c + 4] - lp_ref).abs().max()))
-            d = (steps[c : c + 4] - ref).abs()
-            logit_max = max(logit_max, float(d.max()))
-            logit_sum += float(d.double().sum())
-            del ref, lp_ref, d
-        logit_mean = logit_sum / steps.numel()
-        res = dict(version=version, logprob_max_abs_err=lp_err, logit_max_abs_err=logit_max,
-                   logit_mean_abs_err=logit_mean, logit_abs_max=float(steps.abs().max()),
-                   all_finite=bool(torch.isfinite(steps).all()), mean_logprob=float(lps.mean()))
-        emit("serve_check", **res)
-        check(res["all_finite"], f"v{version}: non-finite logits")
-        check(lp_err <= LOGIT_MAX_ABS, f"v{version}: logprob error {lp_err} > {LOGIT_MAX_ABS}")
-        check(logit_max <= LOGIT_MAX_ABS, f"v{version}: logit error {logit_max} > {LOGIT_MAX_ABS}")
-        check(logit_mean <= LOGIT_MEAN_ABS, f"v{version}: mean logit error {logit_mean} > {LOGIT_MEAN_ABS}")
-        return res
-
     _, replicate_s = timed(lambda: worker.connect(timeout=600))
     equal_to_trainer("after replicate")
     rounds, checks = [], []
@@ -1079,7 +1332,7 @@ def serving(torch, dev, counters, smi: str) -> dict:
                            flash_launches_by_route=by_route,
                            generated_tokens=SERVE_BATCH * GEN_LEN))
         mid = {k: c.value for k, c in counters.items()}
-        checks.append(check_round(rec, step))
+        checks.append(check_served_round(torch, reference, trainer.store.tensors(), rec, step))
         check(mid == {k: c.value for k, c in counters.items()}, "the checks launched a kernel")
         if step == 0:
             first0 = rec["step_logits"][:, 0].clone()  # the prompts' next-token logits under v0
@@ -1149,6 +1402,214 @@ def serving(torch, dev, counters, smi: str) -> dict:
     return launches
 
 
+# -- phase 6: the RL loop at full width (train -> publish -> update) --------------
+
+TRAIN_LAYERS = 4  # of llama3-8b's 32: a trainer with f32 moments beside a replica and the step's logits
+#: bound on each tensor's gradient against the reference step's (plain
+#: attention, forward and backward by autograd), as the relative L2 error
+#: |kernel step - reference| / |reference|. The two forwards differ at
+#: bf16's rounding (the tensor-core kernel rounds P to bf16; phase 5
+#: bounds the logits they give), and the logits are themselves bf16 matmul
+#: outputs (an ulp is 2^-8 of |logit|, 0.016-0.03 at the |logit| of 4-6 a
+#: random llama3-8b gives), so the log-softmax's gradient, which every
+#: tensor's gradient carries, moves by a few percent where a logit rounds
+#: the other way: 5e-2 is about three such ulps. The gradients of ``head``
+#: and ``final_ln``, which no attention backward reaches, show that floor.
+GRAD_TOL_PLAIN = 5e-2
+#: bound on each tensor's gradient against a step with the same kernel
+#: forward and the plain backward (``attention_backward_plain``), which
+#: isolates the backward kernels: phase 2's norm (max |difference| over
+#: max |value|) and bf16 tolerance (tests/test_kernels.py)
+GRAD_TOL_BWD = 2e-2
+
+
+def rl_loop(torch, dev, counters, smi: str) -> dict:
+    """Paper Fig. 4 at llama3-8b's published widths, 4 layers, bf16: a
+    TrainerWorker publishes v0 (dc0); a RolloutWorker (dc0, raw)
+    replicates it and serves round 0 (16 responses: 4 prompts x 4, 512
+    prompt tokens, 64 new); the trainer runs one GRPO step on the card
+    (forward on the tensor-core flash route, the hand-written backward
+    kernels, AdamW in place) and publishes v1; the worker updates in place
+    and serves round 1. Returns the kernels' launches on that path."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import PromptSet
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.rl.loop import RLConfig, RolloutWorker, TrainerWorker
+    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+
+    cfg = dataclasses.replace(CONFIG, num_layers=TRAIN_LAYERS)
+    rl = RLConfig(model_name="actor", prompt_len=PROMPT_LEN, response_len=GEN_LEN, num_prompts=4, group_size=4,
+                  seed=SEED + 50)
+    bwd = {f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}
+    routes = {f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()}
+    every = {**counters, **bwd, **routes}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in every.values():
+        c.reset()
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    def counts():
+        return {k: c.value for k, c in every.items()}
+
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    queue = []
+    trainer, init_s = timed(lambda: TrainerWorker(hub, rl, cfg, queue, datacenter="dc0", dtype=torch.bfloat16,
+                                                  keep_grads=True))
+    publish0_s = trainer.last_timings["publish_seconds"]
+    nparams = sum(t.numel() for t in trainer.params.values())
+    emit("model", config="llama3-8b", layers=cfg.num_layers, dtype="bfloat16", params=nparams, bytes=2 * nparams,
+         trainer_init_and_publish_seconds=init_s, publish_v0_seconds=publish0_s)
+    worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), queue,
+                           threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
+    reference = DecoderLM(cfg, attention=attention_plain)
+
+    def replica_equals_trainer(when):
+        for n, w in trainer.params.items():
+            check(torch.equal(worker.params[n], w), f"{when}: rollout {n} != trainer")
+
+    _, replicate_s = timed(lambda: worker.connect(timeout=600))
+    check(worker.weights_version == 0, "the rollout did not replicate v0")
+    replica_equals_trainer("v0")
+    before = counts()
+    rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
+    round0 = {k: v - before[k] for k, v in counts().items()}
+    check(round0["flash_route_tensor_core"] == cfg.num_layers and round0["flash_route_decode"] == cfg.num_layers * GEN_LEN
+          and round0["flash_route_f32"] == 0, f"round 0 flash launches {round0}")
+    mid = counts()
+    check0 = check_served_round(torch, reference, trainer.params, rec0, 0, tag="rl_serve_check")
+    check(mid == counts(), "the checks launched a kernel")
+    served_rewards = rec0["rewards"].copy()
+    # a random-weight model at vocab 128256 almost never continues the
+    # prompts' bigram chains, so every reward is 0, every advantage is 0 and
+    # the step (weight_decay 0) would change nothing: rewards from a seeded
+    # generator stand in for a scorer, so the step moves every tensor
+    rec0["rewards"] = np.random.default_rng(SEED + 51).random(rec0["rewards"].shape).astype(np.float32)
+    print(f"phase 6: round 0 rewards {served_rewards.tolist()} replaced by seeded uniform [0, 1) draws "
+          "(a random-weight model scores 0, so the GRPO advantages and step would be 0)", flush=True)
+    rollouts = trainer.wait_for_rollouts(1, timeout=60)
+    batch = trainer.batch_from(rollouts)
+
+    # the reference step's gradients on the same v0 weights and batch, with
+    # the plain attention (autograd through it; launches no kernel)
+    mid = counts()
+    (ref_grads, ref_metrics), ref_s = timed(
+        lambda: value_and_grad(make_grpo_loss_fn(reference), trainer.params, batch))
+    check(mid == counts(), "the reference step launched a flash kernel")
+
+    before = counts()
+    metrics, train_s = timed(lambda: trainer.train_on(rollouts))
+    step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
+    step_launches = {k: v - before[k] for k, v in counts().items()}
+    want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
+            "flash_attention_bwd_dkdv": cfg.num_layers, "flash_attention_bwd_dq": cfg.num_layers}
+    check({k: step_launches[k] for k in want} == want, f"GRPO step launches {step_launches}, want {want}")
+    check(metrics["version"] == 1 and trainer.version == 1, "the trainer did not publish v1")
+
+    # every tensor got a finite nonzero gradient matching the reference step's
+    grads = trainer.last_grads
+    check(set(grads) == set(trainer.params), "a parameter got no gradient")
+    grad_errs, grad_max, grad_l2 = {}, {}, {}
+    for n, g in grads.items():
+        check(g is not None and bool(torch.isfinite(g).all()), f"{n}: gradient missing or not finite")
+        grad_max[n] = float(g.float().abs().max())
+        check(grad_max[n] > 0, f"{n}: zero gradient")
+        grad_errs[n] = grad_err(torch, g, ref_grads[n])
+        grad_l2[n] = rel_l2(torch, g, ref_grads[n])
+    for name in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"):
+        check(grad_max[name] > 0, f"{name}: no gradient through the flash attention")
+    loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
+    adv_max = float(batch["advantages"].abs().max())
+    emit("train_check", loss=metrics["loss"], reference_loss=float(ref_metrics["loss"]), loss_abs_err=loss_err,
+         loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN,
+         grad_max_err_over_max=grad_errs, grad_abs_max=grad_max,
+         metrics=metrics)
+    # the loss is a mean of ratio x advantage over the response tokens, and a
+    # ratio moves with its logprob: the serving bound on mean logprob error
+    # times the largest |advantage| bounds the loss's
+    check(loss_err <= LOGIT_MEAN_ABS * adv_max, f"loss {metrics['loss']} vs reference {float(ref_metrics['loss'])}")
+    for n, e in grad_l2.items():
+        check(e <= GRAD_TOL_PLAIN, f"{n}: gradient differs from the reference step's by {e} (relative L2)")
+    del ref_grads
+
+    # every tensor moved (the rollout still holds v0), then the update
+    for n, w in trainer.params.items():
+        check(not torch.equal(worker.params[n], w), f"{n} did not change from v0 to v1")
+    updated, update_s = timed(worker.pull_latest)
+    check(updated and worker.weights_version == 1, "the rollout did not update to v1")
+    replica_equals_trainer("v1")
+    before = counts()
+    rec1, round1_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
+    round1 = {k: v - before[k] for k, v in counts().items()}
+    check(rec1["version"] == 1 and round1 == round0, f"round 1 launches {round1}, round 0 {round0}")
+    launches = counts()  # the main path's launches, read now
+    peak = torch.cuda.max_memory_allocated(dev)
+    check1 = check_served_round(torch, reference, trainer.params, rec1, 1, tag="rl_serve_check")
+    delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
+    check(delta > 10 * LOGIT_MEAN_ABS, f"round 1's first logits barely differ from round 0's ({delta})")
+    for k in ("checksum", "flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
+    del rec0, rec1, grads
+    queue.clear()
+    trainer.last_grads.clear()
+
+    # the backward kernels alone, on the v1 weights and the same batch (the
+    # launches above already read): the trainer's model against one whose
+    # attention runs the same kernel forward and the plain backward
+    class KernelForwardPlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, causal=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            return fa.attention_backward_plain(*ctx.saved_tensors, dout, causal=True)
+
+    isolated = DecoderLM(cfg, attention=lambda q, k, v, causal=True: KernelForwardPlainBackward.apply(q, k, v))
+    g_kernel, m_kernel = value_and_grad(make_grpo_loss_fn(trainer.model), trainer.params, batch)
+    g_plain_bwd, m_plain_bwd = value_and_grad(make_grpo_loss_fn(isolated), trainer.params, batch)
+    bwd_errs = {n: grad_err(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel}
+    emit("train_bwd_check", loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
+         grad_max_err_over_max=bwd_errs, grad_rel_l2={n: rel_l2(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel},
+         tol=GRAD_TOL_BWD)
+    check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), "the two steps' forwards differ")
+    for n, e in bwd_errs.items():
+        check(e <= GRAD_TOL_BWD, f"{n}: the backward kernels' gradient differs from the plain backward's by {e}")
+    del g_kernel, g_plain_bwd
+
+    # where a GRPO step's device time goes (a second step, v1 -> v2, with
+    # the launches above already read)
+    prof = device_profile(torch, lambda: trainer.train_on(rollouts))
+    tokens = batch["tokens"].numel()
+    emit("train_profile", card=smi, step=prof, profiled_step_seconds=trainer.last_timings["step_seconds"])
+    emit("rl_result", card=smi, layers=cfg.num_layers, params=nparams, replicate_seconds=replicate_s,
+         publish_v0_seconds=publish0_s, publish_v1_seconds=publish1_s, train_on_seconds=train_s,
+         train_step_seconds=step_s, reference_step_seconds=ref_s,
+         training_tokens=tokens, training_tokens_per_s=tokens / step_s,
+         update_seconds=update_s, round_seconds=[round0_s, round1_s], max_memory_allocated=peak,
+         launches_per_step=step_launches, launches=launches, checks=[check0, check1], loss_abs_err=loss_err,
+         grad_rel_l2_max=max(grad_l2.values()), grad_bwd_err_max=max(bwd_errs.values()))
+    out = {k: launches[k] for k in counters}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+    trainer.close()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1192,10 +1653,13 @@ def main() -> int:
     kernels = kernel_checks(torch, dev, bw)
     kernels.update(reshard_kernel_checks(torch, dev, bw))
     kernels.update(flash_checks(torch, dev, bw))
+    bwd = flash_backward_checks(torch, dev, bw)
+    kernels["flash_attention_bwd"] = bwd["flash_attention_bwd"]
+    kernels["flash_attention"]["routes"]["f32"]["training_shape_f32"] = bwd["f32_route_training_shape"]
     phase_s["2 kernels"] = time.perf_counter() - t0
     counters = {k: v.pop("counter") for k, v in kernels.items()}
     shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
-    transfer_counters = {k: c for k, c in counters.items() if k != "flash_attention"}
+    transfer_counters = {k: c for k, c in counters.items() if k not in ("flash_attention", "flash_attention_bwd")}
     t0 = time.perf_counter()
     phase3 = transfer(
         torch, dev, {k: counters[k] for k in ("checksum", "quantize_rows")}, shapes, DEFAULT_CHUNK_BYTES
@@ -1209,14 +1673,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["4 reshard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase5 = serving(torch, dev, counters, smi)
+    phase5 = serving(torch, dev, {k: c for k, c in counters.items() if k != "flash_attention_bwd"}, smi)
+    gc.collect()  # phase 5's 32-layer replicas go before the trainer allocates
+    torch.cuda.empty_cache()
     phase_s["5 serving"] = time.perf_counter() - t0
-    launches = {k: phase3.get(k, 0) + phase4.get(k, 0) + phase5[k] for k in counters}
+    t0 = time.perf_counter()
+    phase6 = rl_loop(torch, dev, counters, smi)
+    phase_s["6 rl loop"] = time.perf_counter() - t0
+    launches = {k: phase3.get(k, 0) + phase4.get(k, 0) + phase5.get(k, 0) + phase6[k] for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    for r, n in phase5["flash_attention_routes"].items():  # the serving path is the only one with attention
-        kernels["flash_attention"]["routes"][r]["launches"] = n
-    emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase_seconds=phase_s)
+    for r in phase5["flash_attention_routes"]:  # phases 5 and 6 are the paths with attention
+        kernels["flash_attention"]["routes"][r]["launches"] = (
+            phase5["flash_attention_routes"][r] + phase6["flash_attention_routes"][r])
+    kernels["flash_attention_bwd"]["launches_by_kernel"] = phase6["flash_attention_bwd_by_kernel"]
+    emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

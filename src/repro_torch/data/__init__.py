@@ -1,5 +1,5 @@
-"""Synthetic, seeded data: the RL prompt sets the rollout workers serve."""
+"""Synthetic, seeded data: the training stream and the RL prompt sets."""
 
-from repro_torch.data.synthetic import PromptSet
+from repro_torch.data.synthetic import BigramStream, PromptSet
 
-__all__ = ["PromptSet"]
+__all__ = ["BigramStream", "PromptSet"]

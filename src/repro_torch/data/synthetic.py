@@ -1,16 +1,49 @@
-"""Synthetic, deterministic RL prompts.
+"""Synthetic, deterministic data: the training stream and the RL prompts.
 
-The port's copy of ``PromptSet`` from the JAX package's
-``data/synthetic.py``: NumPy only, so both packages draw the same prompts
-from the same seed. ``BigramStream`` and the audio batches wait for the
-training slice.
+The port's copy of ``BigramStream`` and ``PromptSet`` from the JAX
+package's ``data/synthetic.py``: NumPy only, so both packages draw the
+same batches and prompts from the same seed (and, for the stream, the
+same offset: a trainer's checkpoint records it, so a restarted trainer
+resumes the exact stream). The audio batches wait for the audio slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class BigramStream:
+    """Token sequences drawn from a seeded random bigram chain, so a model
+    can actually reduce its loss on them."""
+
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    branching: int = 4  # successors per token (lower = easier to learn)
+    offset: int = 0  # batches already consumed (checkpoint/restore)
+
+    def __post_init__(self) -> None:
+        rng = np.random.default_rng(self.seed)
+        self._table = rng.integers(0, self.vocab, size=(self.vocab, self.branching))
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed + 1) * 1_000_003 + self.offset)
+        self.offset += 1
+        toks = np.empty((self.batch, self.seq_len), dtype=np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=self.batch)
+        choices = rng.integers(0, self.branching, size=(self.batch, self.seq_len))
+        for t in range(1, self.seq_len):
+            toks[:, t] = self._table[toks[:, t - 1], choices[:, t]]
+        return {"tokens": toks}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the weight-transfer and serving paths.
+"""Hand-written Hopper kernels of the weight-transfer, serving and training paths.
 
 * ``checksum`` — end-to-end transfer integrity (paper 4.6).
 * ``quant``    — int8 row quantization for the ``int8`` and ``delta:int8``
@@ -7,7 +7,7 @@
 * ``repack``   — the byte gather of a resharded raw pull (staging runs
   into the destination unit).
 * ``flash_attention`` — the attention of the decoder's prefill and decode
-  (the serving path).
+  (the serving path), and its backward (the training step).
 
 Each module holds the wrapper (launches the CUDA kernel on a CUDA tensor,
 runs the plain PyTorch version on a CPU tensor), the plain version, and a

@@ -49,17 +49,25 @@ SIGNATURES = {
     # (descriptors int64[P,8], P, out, blocks_x, blocks_y, stream)
     "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv,
-    #  Sq, D, causal, softcap, q_offset, kv_len, stream)
+    #  Sq, D, causal, softcap, q_offset, kv_len, lse f32[B,Hq,Sq] or null, stream)
     "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _F32, _INT, _INT, _P),
+                           _F32, _INT, _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, causal,
-    #  softcap, q_offset, kv_len, stream); bf16, D in {64, 128}
-    "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _P),
+    #  softcap, q_offset, kv_len, lse f32[B,Hq,Sq] or null, stream); bf16, D in {64, 128}
+    "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
+                              _P, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
     #  D, causal, softcap, q_offset, kv_len, keys_per_split, nsplit,
     #  f32 scratch, int32 split counters, stream)
     "th_flash_decode": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
                         _INT, _INT, _P, _P, _P),
+    # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], strides int64[24] on
+    #  the host, dtype code, B, Hq, Hkv, Sq, Sk, D, causal, softcap,
+    #  q_offset, kv_len, stream); both backward kernels take the same
+    "th_flash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                          _INT, _F32, _INT, _INT, _P),
+    "th_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                        _INT, _F32, _INT, _INT, _P),
 }
 
 

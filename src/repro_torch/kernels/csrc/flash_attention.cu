@@ -46,6 +46,10 @@
 // Inputs are strided in batch, head and sequence (unit stride in D), so
 // the wrapper hands over views without copies; each row must be aligned
 // for the 4-element vector loads. Keys past the live range load as zeros.
+//
+// For the backward (flash_attention_bwd.cu) the kernel also writes each
+// row's log-sum-exp, m + log(max(l, 1e-30)) in f32, to lse [B, Hq, Sq]
+// when the pointer is not null (the serving path passes null).
 
 #include <cmath>
 #include <cstdint>
@@ -64,6 +68,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, Hq, Sq] or null
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, sequence
   int hkv, group, sq, q_per_tile, num_q_tiles, causal, q_offset, kv_len;
   float scale, softcap;
@@ -265,6 +270,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
     if (r >= rows || i >= p.sq) continue;
     const int h = hk * p.group + r % p.group;
     const float den = fmaxf(l[a], 1e-30f);
+    // m and l are the same in the 16 threads of the row
+    if (p.lse != nullptr && tx == 0) p.lse[(static_cast<long long>(b) * p.hkv * p.group + h) * p.sq + i] = m[a] + logf(den);
     T* orow = og + b * p.os[0] + h * p.os[1] + i * p.os[2];
 #pragma unroll
     for (int g = 0; g < DC; ++g) {
@@ -300,17 +307,18 @@ int dispatch(const Params& p, int d, int blocks, cudaStream_t stream) {
 // q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each given by
 // its pointer and its (batch, head, sequence) element strides in
 // `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
-// 1 = bfloat16; D in {64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <= Sk.
-// Returns cudaGetLastError() after the launch.
+// 1 = bfloat16; D in {64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <= Sk;
+// lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError() after the launch.
 extern "C" int th_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int dtype, int batch, int hq,
                                   int hkv, int sq, int d, int causal, float softcap,
-                                  int q_offset, int kv_len, void* stream) {
+                                  int q_offset, int kv_len, float* lse, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];

@@ -61,6 +61,11 @@
 // the 128-byte swizzle and one thread stores it by TMA, which clips the
 // rows past Sq; the Q buffer is released once the store has read it.
 //
+// For the backward (flash_attention_bwd.cu) the epilogue also writes each
+// row's log-sum-exp, m + log(max(l, 1e-30)) in f32, to lse [B, Hq, Sq]
+// when the pointer is not null: m and the joined l are in registers there.
+// The serving path passes null and pays one predicated branch an item.
+//
 // Head_dim 256 is left to the f32 route (flash_attention.cu): its
 // 64 x 256 f32 accumulator alone is 128 registers a thread, beside the
 // 32 of S and the 16 of P, which leaves the consumer warpgroups without
@@ -91,6 +96,7 @@ constexpr float kNegInf = -1e30f;
 
 struct TcParams {
   __nv_bfloat16* o;
+  float* lse;  // [B, Hq, Sq] or null
   long long os[3];  // element strides of o: batch, head, sequence
   int batch, hq, group, sq, num_q_tiles, causal, q_offset, kv_len;
   float scale, softcap;
@@ -472,6 +478,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_a += __shfl_xor_sync(0xFFFFFFFFu, l_a, 2);
     l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 1);
     l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 2);
+    if (p.lse != nullptr && lane % 4 == 0) {  // m and l are the same in the row's 4 threads
+      float* lrow = p.lse + (static_cast<long long>(x.b) * p.hq + x.h) * p.sq;
+      if (row0 + ra < p.sq) lrow[row0 + ra] = m_a + logf(fmaxf(l_a, 1e-30f));
+      if (row0 + ra + 8 < p.sq) lrow[row0 + ra + 8] = m_b + logf(fmaxf(l_b, 1e-30f));
+    }
     const float den_a = 1.f / fmaxf(l_a, 1e-30f), den_b = 1.f / fmaxf(l_b, 1e-30f);  // reciprocals
     // the tile, normalised and rounded, into this warpgroup's rows of the
     // Q buffer (its Q.K^T are done) in the 128-byte swizzle, then one TMA
@@ -582,11 +593,12 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 // bf16 q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by
 // its pointer and its (batch, head, sequence) element strides in `strides`
 // (a host array of 12: q, k, v, o); D in {64, 128}; pointers and strides of
-// q, k and v 16-byte aligned; 1 <= kv_len <= Sk. Returns cudaGetLastError()
-// after the launch, or a tensor-map encoding failure negated.
+// q, k and v 16-byte aligned; 1 <= kv_len <= Sk; lse f32 [B, Hq, Sq] or
+// null. Returns cudaGetLastError() after the launch, or a tensor-map
+// encoding failure negated.
 extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                      int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
-                                     int q_offset, int kv_len, void* stream) {
+                                     int q_offset, int kv_len, float* lse, void* stream) {
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm, om;
   MapDims dims;
@@ -597,6 +609,7 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   if (err != 0) return err;
   TcParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.batch = batch;
   p.hq = hq;

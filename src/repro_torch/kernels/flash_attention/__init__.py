@@ -44,6 +44,19 @@ launches nothing. ``LAUNCHES`` counts every launch of a route,
 Every route's output lies in memory as ``[B, Sq, Hq, D]`` under the
 ``[B, Hq, Sq, D]`` view it returns, so merging the heads afterwards is a
 view, not a copy.
+
+The gradient. When autograd wants one (grad mode on and q, k or v
+requiring it), the call goes through a ``torch.autograd.Function``: the
+forward runs on the ``tensor_core`` route (bf16) or the ``f32`` route
+(f32), never on ``decode``, and also writes each row's log-sum-exp
+(``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``); the backward runs the
+two kernels of ``csrc/flash_attention_bwd.cu`` (:func:`launch_backward`:
+dK/dV one block a key tile, dQ one block a query tile; ``BWD_LAUNCHES``
+counts each), at head_dim 64 or 128. On the CPU the same ``Function``
+runs :func:`attention_plain` and :func:`attention_backward_plain`, at any
+head_dim but 256. The JAX package has no Pallas backward: it
+differentiates its jnp ``chunked_attention``. Head_dim 256 (gemma2) has
+no backward yet and raises.
 """
 
 from __future__ import annotations
@@ -69,10 +82,14 @@ TILE_KEYS = 64  # keys a tile of the decode kernel, and the unit of a split
 MAX_SPLIT_BLOCKS = 640  # decode grid: about one wave of the kernel (5 blocks an SM of 132)
 MAX_SPLITS = 64
 
+BWD_HEAD_DIMS = (64, 128)  # the backward kernels'
+
 #: launches of any route's kernel, and of each route's (bumped only where
 #: the kernel is launched)
 LAUNCHES = build.LaunchCount()
 ROUTE_LAUNCHES = {r: build.LaunchCount() for r in ROUTES}
+#: launches of the backward's two kernels
+BWD_LAUNCHES = {"dkdv": build.LaunchCount(), "dq": build.LaunchCount()}
 
 
 def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int:
@@ -117,20 +134,86 @@ def attention_plain(
     the query heads, without repeating K/V)."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len)
     b, hq, sq, d = q.shape
+    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _scores_plain(q, k, causal: bool, softcap: float, q_offset: int, kv_len: int):
+    """The f32 scores ``[B, Hkv, G, Sq, Sk]`` masked with -1e30, the mask,
+    and (with a softcap) ``tanh(s / softcap)`` of the unmasked scores."""
+    b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * (1.0 / math.sqrt(d))
+    t = None
     if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
+        t = torch.tanh(s / softcap)
+        s = softcap * t
     kpos = torch.arange(sk, device=q.device)
     mask = (kpos < kv_len)[None, :]
     if causal:
         qpos = int(q_offset) + torch.arange(sq, device=q.device)
         mask = mask & (kpos[None, :] <= qpos[:, None])
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return s.masked_fill(~mask, NEG_INF), mask, t
+
+
+def attention_lse_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Each query row's log-sum-exp of its masked scores, f32 ``[B, Hq,
+    Sq]``: what the forward kernels write for the backward."""
+    kv_len = _check(q, k, k, softcap, q_offset, kv_len)
+    b, hq, sq, _ = q.shape
+    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    return torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
+
+
+def attention_backward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash-attention backward in plain PyTorch, f32, written out
+    (the algorithm of the backward kernels): P recomputed from the scores
+    and the forward's log-sum-exp, ``P = exp(s - lse)``; ``dV = P^T dO``,
+    ``dP = dO V^T``, ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``, times
+    ``1 - (s_c / c)^2`` under a softcap c; ``dQ = dS K * scale``, ``dK =
+    dS^T Q * scale``; dK and dV summed over the G query heads of each KV
+    head (no copy of K or V). Returns ``(dq, dk, dv)`` in the inputs'
+    dtype."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    s, _, t = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
+    do = dout.float().reshape(b, hkv, g, sq, d)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.float())
+    rows = (do * out.float().reshape(b, hkv, g, sq, d)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - rows)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q.float().reshape(b, hkv, g, sq, d)) * scale
+    return dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -146,10 +229,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _route(q: torch.Tensor, k: torch.Tensor) -> str:
-    """The kernel a call goes to, from dtype and shape alone."""
+def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False) -> str:
+    """The kernel a call goes to, from dtype and shape alone. A call that
+    needs a gradient (``grad``) goes to ``tensor_core`` (bf16, head_dim
+    64/128) or ``f32``, never to ``decode``: only those two forwards write
+    the log-sum-exp the backward reads."""
     _, hq, sq, d = q.shape
-    if sq * (hq // k.shape[1]) <= DECODE_ROWS:
+    if not grad and sq * (hq // k.shape[1]) <= DECODE_ROWS:
         return "decode"
     if q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tensor_core"
@@ -229,7 +315,12 @@ def flash_attention(
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention of q ``[B, Hq, Sq, D]`` over k, v ``[B, Hkv, Sk, D]``
-    (see the module docstring); asynchronous on CUDA."""
+    (see the module docstring); asynchronous on CUDA. Differentiable: when
+    autograd wants a gradient the call goes through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+        _check_backward(q)
+        return FlashAttention.apply(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     return launch_route(_route(q, k), q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
@@ -245,10 +336,14 @@ def launch_route(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Launch ``route``'s kernel on CUDA tensors, or raise where it does
     not take the call. :func:`flash_attention` picks the route; naming one
-    here is for measurements that hold two routes side by side."""
+    here is for measurements that hold two routes side by side. With
+    ``with_lse`` (the ``tensor_core`` and ``f32`` routes) it returns
+    ``(out, lse)``, the rows' log-sum-exp f32 ``[B, Hq, Sq]`` beside the
+    output."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
@@ -264,13 +359,17 @@ def launch_route(
         raise ValueError(f"flash_attention: the decode route takes Sq * Hq/Hkv <= {DECODE_ROWS}, got {sq * g}")
     if route == "f32" and g > MAX_GROUP:
         raise ValueError(f"flash_attention: the f32 route takes Hq/Hkv <= {MAX_GROUP}, got {g}")
+    if with_lse and route == "decode":
+        raise ValueError("flash_attention: the decode route writes no log-sum-exp")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention: unsupported device {q.device}")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    lse_ptr = lse.data_ptr() if with_lse else None
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides))
     flags = (int(bool(causal)), float(softcap), int(q_offset), kv_len)
     lib = build.library()
@@ -287,12 +386,127 @@ def launch_route(
                                   part.data_ptr(), counters.data_ptr(), stream)
     elif route == "tensor_core":
         name = "th_flash_attention_tc"
-        err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, *flags, stream)
+        err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, *flags, lse_ptr, stream)
     else:
         name = "th_flash_attention"
-        err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, stream)
+        err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, lse_ptr, stream)
     build.check(name, err)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _check_backward(q: torch.Tensor) -> None:
+    """Raise where no backward takes the call: head_dim 256 anywhere (the
+    gemma2 slice brings it), and on CUDA every head_dim the backward
+    kernels lack (the plain version on the CPU takes the rest)."""
+    d = q.shape[-1]
+    if d == 256:
+        raise NotImplementedError("flash_attention: no backward at head_dim 256; it waits for the gemma2 slice")
+    if q.device.type != "cpu" and d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d}")
+
+
+def attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the attention: the backward kernels on CUDA
+    tensors (:func:`launch_backward`), :func:`attention_backward_plain`
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, out, lse, dout, causal=causal, softcap=softcap,
+                                        q_offset=q_offset, kv_len=kv_len)
+    return launch_backward(q, k, v, out, lse, dout, causal=causal, softcap=softcap, q_offset=q_offset,
+                           kv_len=kv_len)
+
+
+def launch_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the two backward kernels of ``csrc/flash_attention_bwd.cu``
+    on CUDA tensors, or raise: dK/dV (one block a batch, KV head and key
+    tile, walking the query tiles of the group's heads) and dQ (one block
+    a batch, query head and query tile, walking the live key tiles). f32
+    or bf16 with f32 accumulation, head_dim 64/128, strided q/k/v/out/dout;
+    ``lse`` is the forward's (:func:`launch_route` ``with_lse``). The
+    gradients are laid out ``[B, S, H, D]`` under their ``[B, H, S, D]``
+    views, as the forward's output."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if q.device.type != "cuda":
+        raise TypeError(f"flash_attention backward: unsupported device {q.device}")
+    _check_backward(q)
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention backward: Hq/Hkv <= {MAX_GROUP}, got {hq // hkv}")
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: lse must be float32 {(b, hq, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not (q.device == out.device == lse.device == dout.device):
+        raise ValueError("flash_attention backward: q, out, lse and dout must be on one device")
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device).transpose(1, 2)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device).transpose(1, 2)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
+    args = (*(t.data_ptr() for t in tensors), lse.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype],
+            b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len,
+            build.stream_ptr(q.device))
+    lib = build.library()
+    BWD_LAUNCHES["dkdv"].add()
+    build.check("th_flash_bwd_dkdv", lib.th_flash_bwd_dkdv(*args))
+    BWD_LAUNCHES["dq"].add()
+    build.check("th_flash_bwd_dq", lib.th_flash_bwd_dq(*args))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward on the route
+    ``_route(q, k, grad=True)`` picks, saving the rows' log-sum-exp, and
+    the backward's kernels (the plain versions of both on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softcap: float, q_offset: int, kv_len: int):
+        kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+        if q.device.type == "cpu":
+            out = attention_plain(q, k, v, **kw)
+            lse = attention_lse_plain(q, k, **kw)
+        else:
+            out, lse = launch_route(_route(q, k, grad=True), q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 _COUNTERS: dict = {}

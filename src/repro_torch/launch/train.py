@@ -1,0 +1,109 @@
+"""Training entry point: llama3-8b (reduced by default) against the synthetic
+bigram stream, with checkpointing, restart-recovery and optional
+TensorHub publishing of every step's weights (the co-located Fig. 4a
+pattern). The port's counterpart of the JAX package's
+``launch/train.py``, with its arguments.
+
+    python -m repro_torch.launch.train --steps 50
+    python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
+
+It runs on the card by default and raises without one; ``--device cpu``
+runs on the host. Only the dense decoder is ported: ``--arch`` takes
+``llama3-8b`` alone. With ``--publish`` the trainer registers its
+parameters themselves with a local TensorHub, and each step (which
+writes them in place) is published from those buffers with no copy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import checkpoint as ckpt_lib
+from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
+from repro_torch.data.synthetic import BigramStream
+from repro_torch.models.lm import DecoderLM
+from repro_torch.models.params import init_params
+from repro_torch.training import AdamW, cosine_schedule, make_train_step
+from repro_torch.transfer.engine import resolve_device
+
+ARCHS = {"llama3-8b": LLAMA3_8B}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="model config; the port has llama3-8b only (the other families wait for their slices)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--full-config", action="store_true", help="use the full published config")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--publish", action="store_true", help="publish every version into a local TensorHub")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.arch not in ARCHS:
+        ap.error(f"--arch {args.arch}: the port trains {sorted(ARCHS)} only; the other families wait for their slices")
+
+    dev = resolve_device(args.device)
+    cfg = ARCHS[args.arch]
+    if not args.full_config:
+        cfg = cfg.reduced()
+    model = DecoderLM(cfg)
+    opt = AdamW(lr=args.lr, schedule=cosine_schedule(10, args.steps), weight_decay=0.01)
+    train_step = make_train_step(model, cfg, opt, accum=args.accum)
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), torch.float32, dev)
+    opt_state = opt.init(params)
+    start_step = 0
+    stream = BigramStream(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch, seed=args.seed)
+
+    if args.resume and args.ckpt_dir:
+        latest = ckpt_lib.latest_step(args.ckpt_dir)
+        if latest is not None:
+            (saved, opt_state), start_step, meta = ckpt_lib.restore(args.ckpt_dir, (params, opt_state))
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(saved[name])  # in place: the buffers stay the ones registered below
+            stream.offset = meta.get("stream_offset", start_step)
+            print(f"resumed from step {start_step} (stream offset {stream.offset})", flush=True)
+
+    hub_handle = None
+    if args.publish:
+        from repro_torch.core import ReferenceServer, TensorHubClient
+
+        hub = TensorHubClient(ReferenceServer(), device=dev)
+        hub_handle = hub.open("train-model", "trainer-0", num_shards=1, shard_idx=0, retain="latest")
+        hub_handle.register(params)
+        hub_handle.publish(start_step)
+
+    t0 = time.time()
+    for step in range(start_step, args.steps):
+        batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.next_batch().items()}
+        if hub_handle is not None:
+            hub_handle.unpublish()  # the step writes the registered buffers
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        if hub_handle is not None:
+            hub_handle.publish(step + 1)
+        if step % 10 == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+                  f"acc {float(metrics['accuracy']):.3f} "
+                  f"({(time.time() - t0):.1f}s)", flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            path = ckpt_lib.save(
+                args.ckpt_dir, step + 1, (params, opt_state), metadata={"stream_offset": stream.offset}
+            )
+            print(f"checkpointed -> {path}", flush=True)
+    if hub_handle is not None:
+        hub_handle.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,12 @@ with the layer axis stacked first. Layer ``i`` reads the views
 tensors *are* the model and serving makes no copy of them; an ``update``
 that writes the buffers in place is seen by the next batch.
 
+``forward`` is differentiable with respect to the parameter dict (the
+training step's loss): it takes each stacked tensor apart once with
+``unbind(0)``, whose backward is a single ``stack``, where indexing
+layer by layer would give every layer's backward a zero tensor of the
+whole stack.
+
 The MoE, MLA and VLM branches, the gemma2 extras (window, softcaps, tied embeddings) and
 the encoder, hybrid and xLSTM models wait for later slices.
 """
@@ -59,8 +65,8 @@ class DecoderLM:
         ffn = {n: params[f"layers/ffn/{n}"][i] for n in _FFN}
         return attn, ffn
 
-    def _block(self, params, i, x, positions, cache=None, cache_len=None):
-        attn, ffn = self._layer(params, i)
+    def _block(self, params, i, x, positions, cache=None, cache_len=None, layer=None):
+        attn, ffn = layer or self._layer(params, i)
         x, kv = blocks.attn_apply(
             self.cfg, attn, x, positions=positions, attention=self.attention,
             cache=cache, cache_len=cache_len,
@@ -74,8 +80,11 @@ class DecoderLM:
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
+        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in _ATTN}
+        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in _FFN}
         for i in range(self.cfg.num_layers):
-            x, _ = self._block(params, i, x, positions)
+            layer = ({n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()})
+            x, _ = self._block(params, i, x, positions, layer=layer)
         return self._head(params, x)
 
     # -- caches ------------------------------------------------------------------

@@ -1,26 +1,34 @@
-"""The rollout side of the RL loop, served from TensorHub replica buffers
-(paper Fig. 4b).
+"""The RL loop wired through TensorHub (paper Fig. 4), with both sides
+serving and training from TensorHub buffers.
 
-The port's copy of ``RLConfig``, ``sample_responses`` and
-``RolloutWorker`` from the JAX package's ``rl/loop.py``. A rollout worker
-holds the model in its device memory as a TensorHub replica: it registers
-zero buffers, ``replicate("latest")`` fills them, and it serves every
-batch straight from ``handle.store.tensors()`` — the weights the worker
-already holds are the storage (ROS, the paper's reference-oriented
-storage). Between batches, on the same thread, ``update("latest")``
-writes the next version into the same buffers in place, so the JAX
-loop's per-step rebuild of the parameter tree has no counterpart here.
+The port's copy of ``RLConfig``, ``sample_responses``, ``RolloutWorker``
+and ``TrainerWorker`` from the JAX package's ``rl/loop.py``.
 
-``TrainerWorker`` waits for the training slice.
+* Rollout (Fig. 4b): a worker holds the model in its device memory as a
+  TensorHub replica: it registers zero buffers, ``replicate("latest")``
+  fills them, and it serves every batch straight from
+  ``handle.store.tensors()`` — the weights the worker already holds are
+  the storage (ROS, the paper's reference-oriented storage). Between
+  batches, on the same thread, ``update("latest")`` writes the next
+  version into the same buffers in place, so the JAX loop's per-step
+  rebuild of the parameter tree has no counterpart here.
+* Trainer (Fig. 4a): the trainer registers its parameters themselves and
+  publishes v0; a step is unpublish -> one GRPO step that writes the new
+  parameters and moments in place (``training.AdamW``) -> publish the
+  next version, which ``publish`` reads from the same buffers, so the JAX
+  trainer's copy of every parameter into its registered buffers has no
+  counterpart either.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.llama3_8b import DecoderConfig
@@ -28,7 +36,8 @@ from repro_torch.core import TensorHubClient
 from repro_torch.core.errors import StaleHandleError, TensorHubError
 from repro_torch.data.synthetic import PromptSet
 from repro_torch.models.lm import DecoderLM
-from repro_torch.models.params import decoder_shapes
+from repro_torch.models.params import decoder_shapes, init_params
+from repro_torch.training import AdamW, group_relative_advantages, make_grpo_step
 
 
 @dataclasses.dataclass
@@ -199,3 +208,111 @@ class RolloutWorker(threading.Thread):
             self.weights_version = self.handle.current_version
             return True
         return False
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class TrainerWorker:
+    """Fig. 4a trainer side, driven synchronously by the caller: on
+    ``hub``'s device (the card by default), in ``dtype``.
+
+    Its parameters are ``init_params`` of ``model_cfg`` from a generator
+    seeded with ``cfg.seed`` on that device, or ``params`` (tensors on the
+    device, e.g. carried from the JAX package); it registers them with
+    TensorHub as they are and publishes v0. With ``keep_grads`` each
+    step's gradients stay in ``last_grads``."""
+
+    def __init__(
+        self,
+        hub: TensorHubClient,
+        cfg: "RLConfig",
+        model_cfg: DecoderConfig,
+        rollout_queue: List,
+        *,
+        datacenter: str = "dc0",
+        dtype: torch.dtype = torch.float32,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        keep_grads: bool = False,
+    ) -> None:
+        self.hub = hub
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.device = hub.device
+        self.dtype = dtype
+        self.model = DecoderLM(model_cfg)
+        self.queue = rollout_queue
+        self.opt = AdamW(lr=cfg.lr, weight_decay=0.0)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            params = init_params(model_cfg, gen, dtype, self.device)
+        self.last_grads: Optional[Dict[str, torch.Tensor]] = {} if keep_grads else None
+        self.rl_step = make_grpo_step(self.model, model_cfg, self.opt, grads_out=self.last_grads)
+        self.handle = hub.open(
+            cfg.model_name, "trainer-0", num_shards=1, shard_idx=0,
+            retain="latest", datacenter=datacenter,
+        )
+        self.version = 0
+        self.metrics_log: List[Dict[str, float]] = []
+        self.handle.register(dict(params))
+        #: the registered buffers: the step writes them, publish reads them
+        self.params = self.handle.store.tensors()
+        self.opt_state = self.opt.init(self.params)
+        t0 = time.perf_counter()
+        self.handle.publish(self.version)
+        _sync(self.device)
+        #: host seconds of the last publish (and of the last ``train_on``'s
+        #: step), each ended by a device synchronize
+        self.last_timings: Dict[str, float] = {"publish_seconds": time.perf_counter() - t0}
+
+    def wait_for_rollouts(self, n: int, timeout: float = 120.0) -> List[Dict]:
+        deadline = time.monotonic() + timeout
+        while len(self.queue) < n:
+            if time.monotonic() > deadline:
+                raise TimeoutError("rollouts did not arrive in time")
+            time.sleep(0.01)
+        return [self.queue.pop(0) for _ in range(n)]
+
+    def batch_from(self, rollouts: List[Dict]) -> Dict[str, torch.Tensor]:
+        """The GRPO batch of ``rollouts``, on the trainer's device: tokens,
+        the behavior logprobs placed in the shifted ``[B, S-1]`` frame
+        (position p-1 predicts token p), group-relative advantages of the
+        rewards and the response-token mask."""
+        cfg, dev = self.cfg, self.device
+        tokens = torch.cat([torch.as_tensor(r["tokens"]).to(dev, torch.int64) for r in rollouts])
+        lps = torch.cat([torch.as_tensor(r["behavior_logprobs"]).to(dev, torch.float32) for r in rollouts])
+        rewards = np.concatenate([np.asarray(r["rewards"]) for r in rollouts])
+        adv = group_relative_advantages(torch.from_numpy(rewards).to(dev), cfg.group_size)
+        total = tokens.shape[1]
+        blp = torch.zeros((tokens.shape[0], total - 1), dtype=torch.float32, device=dev)
+        blp[:, cfg.prompt_len - 1 :] = lps
+        loss_mask = torch.zeros((tokens.shape[0], total - 1), dtype=torch.bool, device=dev)
+        loss_mask[:, cfg.prompt_len - 1 :] = True
+        return {"tokens": tokens, "behavior_logprobs": blp, "advantages": adv, "loss_mask": loss_mask}
+
+    def train_on(self, rollouts: List[Dict]) -> Dict[str, float]:
+        """One GRPO step on ``rollouts``: unpublish, step in place, publish
+        the next version; returns the JAX trainer's metric keys."""
+        batch = self.batch_from(rollouts)
+        rewards = np.concatenate([np.asarray(r["rewards"]) for r in rollouts])
+        # Fig. 4a: unpublish -> mutate -> publish the new version
+        self.handle.unpublish()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        _, self.opt_state, metrics = self.rl_step(self.params, self.opt_state, batch)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        self.version += 1
+        self.handle.publish(self.version)
+        _sync(self.device)
+        self.last_timings = {"step_seconds": t1 - t0, "publish_seconds": time.perf_counter() - t1}
+        out = {k: float(v) for k, v in metrics.items()}
+        out["mean_reward"] = float(rewards.mean())
+        out["version"] = self.version
+        self.metrics_log.append(out)
+        return out
+
+    def close(self) -> None:
+        self.handle.close()

@@ -474,3 +474,108 @@ def test_launch_route_runs_the_f32_kernel_on_bf16(dev):
     a = _routed(fa, "f32", lambda: fa.launch_route("f32", q, k, v))
     b = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v))
     _flash_close(a, b, torch.bfloat16)
+
+
+# -- flash attention's gradient: the backward kernels and the log-sum-exp ------------
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|: phase 2's norm for gradients."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+#: (b, hq, hkv, sq, sk, d, causal, softcap, q_offset, kv_len): chip_smoke.py phase 2's backward cases, cut in batch
+_BWD_CASES = [
+    (2, 32, 8, 576, 576, 128, True, 0.0, 0, None),  # the training step's shape, two sequences
+    (2, 4, 4, 77, 77, 128, True, 0.0, 0, None),  # S not a tile multiple, G = 1
+    (1, 32, 4, 130, 130, 64, True, 0.0, 0, None),  # G = 8, head_dim 64
+    (2, 8, 2, 100, 160, 128, False, 0.0, 0, 120),  # kv_len < Sk, not causal
+    (1, 8, 2, 64, 300, 128, True, 0.0, 200, 264),  # q_offset > 0, kv_len < Sk
+    (1, 8, 8, 96, 96, 64, True, 30.0, 0, None),  # softcap
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_backward_kernels_equal_autograd_of_plain(dev, case, dtype):
+    """dQ, dK, dV through the Function (forward route with the
+    log-sum-exp, then the two backward kernels) against autograd through
+    attention_plain, each within test_kernels.py's tolerance of its max
+    |value|."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal, cap, q_offset, kv_len = case
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    q, k, v = _qkv(dev, sq + d, b, hq, hkv, sq, sk, d, dtype)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    route = fa._route(q, k, grad=True)
+    out = _routed(fa, route, lambda: fa.flash_attention(*leaves, **kw))
+    got = torch.autograd.grad(out, leaves, dout)
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {"dkdv": 1, "dq": 1}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= _FLASH_TOL[dtype], (name, _rel_err(g, w))
+    if kv_len is not None:  # keys past kv_len get no gradient
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("route,dtype", [("tensor_core", torch.bfloat16), ("f32", torch.float32),
+                                         ("f32", torch.bfloat16)])
+@pytest.mark.parametrize("case", [(2, 32, 8, 576, 576, 128, True, 0.0, 0, None), (1, 8, 2, 77, 300, 64, True, 0.0, 200, 277),
+                                  (1, 8, 8, 96, 96, 128, False, 30.0, 0, 80)], ids=lambda c: "x".join(map(str, c)))
+def test_forward_writes_the_log_sum_exp(dev, route, dtype, case):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal, cap, q_offset, kv_len = case
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    q, k, v = _qkv(dev, 5, b, hq, hkv, sq, sk, d, dtype)
+    out, lse = fa.launch_route(route, q, k, v, with_lse=True, **kw)
+    _flash_close(out, fa.launch_route(route, q, k, v, **kw), dtype)  # the serving call: the same output
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, k, **kw), rtol=2e-5, atol=2e-5)
+
+
+def test_gradient_never_takes_the_decode_route(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 2, 2, 32, 8, 1, 64, 128, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = _routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves, q_offset=63))
+    assert out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="gemma2"):
+        q256, k256, v256 = (t.requires_grad_() for t in _qkv(dev, 3, 1, 2, 2, 80, 80, 256, torch.bfloat16))
+        fa.flash_attention(q256, k256, v256)
+
+
+def test_grpo_step_gradients_on_the_card(dev):
+    """A small GQA decoder (head_dim 64, f32) on the card: the GRPO loss's
+    gradients through the flash kernels and the backward kernels against
+    the same loss through attention_plain, every tensor within 1e-4 of its
+    max |value| (cuBLAS sums in other orders on the two paths)."""
+    import dataclasses
+
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.params import init_params
+    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2, d_model=512, num_heads=8, num_kv_heads=2, d_ff=1024, vocab=1024)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 90), device=dev, generator=g)
+    batch = {"tokens": tokens, "behavior_logprobs": -7 + torch.rand((4, 89), device=dev, generator=g),
+             "advantages": torch.randn(4, device=dev, generator=g),
+             "loss_mask": torch.arange(89, device=dev)[None, :].expand(4, 89) >= 60}
+    before = fa.BWD_LAUNCHES["dq"].value
+    got, m1 = value_and_grad(make_grpo_loss_fn(DecoderLM(cfg)), params, batch)
+    assert fa.BWD_LAUNCHES["dq"].value - before == cfg.num_layers
+    want, m2 = value_and_grad(make_grpo_loss_fn(DecoderLM(cfg, attention=fa.attention_plain)), params, batch)
+    torch.testing.assert_close(m1["loss"], m2["loss"], rtol=1e-4, atol=1e-6)
+    for n in want:
+        assert float(got[n].abs().max()) > 0, n
+        assert _rel_err(got[n], want[n]) <= 1e-4, (n, _rel_err(got[n], want[n]))

@@ -29,6 +29,8 @@ _FORBIDDEN = [
 
 #: every module of the port, each imported by the fresh-process probe
 _MODULES = [
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint",
     "repro_torch.core.client",
     "repro_torch.core.server",
     "repro_torch.data.synthetic",
@@ -39,6 +41,7 @@ _MODULES = [
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.blocks",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
@@ -48,6 +51,10 @@ _MODULES = [
     "repro_torch.resharding.planner",
     "repro_torch.resharding.rowgrid",
     "repro_torch.rl.loop",
+    "repro_torch.training",
+    "repro_torch.training.objectives",
+    "repro_torch.training.optimizer",
+    "repro_torch.training.steps",
     "repro_torch.transfer.codec",
     "repro_torch.transfer.engine",
 ]
@@ -109,6 +116,16 @@ from repro_torch.configs.llama3_8b import CONFIG
 from repro_torch.launch.serve import serve
 tiny = dataclasses.replace(CONFIG, num_layers=1, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, vocab=256)
 assert len(serve(tiny, requests=2, prompt_len=3, gen_len=2, rounds=1, device="cpu")) == 1
+# the training path: a GRPO step through the trainer, and launch/train.py with a checkpoint
+import tempfile
+from repro_torch.launch.train import main as train_main
+from repro_torch.rl.loop import RLConfig, TrainerWorker
+trainer = TrainerWorker(hub, RLConfig(model_name="t", prompt_len=2, group_size=2), tiny, [])
+toks = torch.randint(0, 256, (2, 5), generator=g)
+m = trainer.train_on([{"tokens": toks, "behavior_logprobs": torch.zeros(2, 3), "rewards": [0.0, 1.0]}])
+assert m["version"] == 1
+with tempfile.TemporaryDirectory() as d:
+    train_main(["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8", "--ckpt-dir", d, "--ckpt-every", "1"])
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro.")
@@ -132,7 +149,8 @@ def test_runtime_imports_in_a_fresh_process():
 @pytest.mark.parametrize("module", [
     "repro_torch.data.synthetic", "repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
     "repro_torch.models.blocks", "repro_torch.models.layers", "repro_torch.models.lm",
-    "repro_torch.models.params", "repro_torch.rl.loop",
+    "repro_torch.models.params", "repro_torch.rl.loop", "repro_torch.training", "repro_torch.checkpoint",
+    "repro_torch.launch.train",
 ])
 def test_serving_modules_import_first(module):
     """Each module of the serving path imports as the first one of a
