@@ -17,14 +17,17 @@ lines, any failure exiting non-zero:
    kernel, plain version and a device-to-device ``copy_`` of the same bytes
    (median of CUDA-event timings) beside the bytes bound. Flash
    attention's backward: dQ, dK, dV of the autograd Function (the forward
-   route writing the rows' log-sum-exp, then the two kernels of
-   ``flash_attention_bwd.cu``) against autograd through the plain
-   attention at the GRPO step's shape in bf16 and f32 and at its edges
-   (S = 77, G 1/4/8, kv_len < Sk, q_offset > 0, softcap, head_dim 64),
-   each within tests/test_kernels.py's tolerance of the gradient's max
-   |value|; the log-sum-exp against logsumexp of the plain scores; the
-   backward timed beside the plain backward and SDPA's at the training
-   shape.
+   route writing the rows' log-sum-exp, then the backward route: the
+   three tensor-core kernels of ``flash_attention_bwd_tc.cu`` in bf16, the
+   two CUDA-core kernels of ``flash_attention_bwd.cu`` in f32 and f16 and
+   at head_dim 16/32) against autograd through the plain attention at the
+   GRPO step's shape in bf16, f32 and f16 and at its edges (S = 77, G
+   1/4/8, kv_len < Sk, q_offset > 0, softcap, head_dim 64, 32, 16), each
+   within tests/test_kernels.py's tolerance of the gradient's max |value|
+   and bit-equal on a second run; the log-sum-exp against logsumexp of
+   the plain scores; both backward routes timed on the same bf16 inputs
+   beside the plain backward and SDPA's at the training shape, and the
+   CUDA-core route beside SDPA's backward at the f32 training shape.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -62,25 +65,33 @@ lines, any failure exiting non-zero:
    responses of 512 + 64 tokens; their rewards are replaced by seeded
    draws (a random-weight model scores 0, which would zero the step); the
    trainer runs one GRPO step (flash forward on the tensor-core route, the
-   backward kernels, AdamW in place) and publishes v1; the worker updates
+   tensor-core backward kernels, AdamW in place) and publishes v1; the worker updates
    in place and serves again. The replica must equal the trainer bit for
    bit at v0 and v1, every tensor must get a finite nonzero gradient
    within a bf16 bound of a reference step with the plain attention (and
    within phase 2's tolerance of a step with the same kernel forward and
    the plain backward) and change from v0 to v1, round 1's logits must match a teacher-forced
    forward on v1, and a step must launch 4 tensor-core forwards and 4 of
-   each backward kernel (none on the decode or f32 routes). A profiled
-   second step gives the step's device time by kernel.
-7. A ``kernels`` JSON line (launches over phases 3 to 6; flash
+   each tensor-core backward kernel (none on the decode or f32 routes, none
+   of the CUDA-core backward). A profiled second step gives the step's
+   device time by kernel.
+7. The training entry point at its defaults: ``python -m
+   repro_torch.launch.train`` (the reduced llama3-8b, head_dim 16, f32)
+   for two steps on the card; the losses must be finite and every layer of
+   every step must launch the f32 route and the CUDA-core backward.
+8. A ``kernels`` JSON line (launches over phases 3 to 7; flash
    attention's entry carries a ``routes`` field with each route's times,
-   bound and launches, the backward's entry its two kernels' launches),
-   then the last line ``{"ok": true, "device": {...}}``.
+   bound and launches; the backward has one entry a route,
+   ``flash_attention_bwd/tensor_core`` timed at the bf16 training shape and
+   ``flash_attention_bwd/cuda_core`` at the f32 one), then the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -831,8 +842,10 @@ def reshard_transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
 # -- phase 5: flash attention and llama3-8b serving at full width -------------
 
 #: tolerances of the flash kernel against its plain version, as
-#: tests/test_kernels.py: |got - want| <= tol + tol * |want|
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: tests/test_kernels.py: |got - want| <= tol + tol * |want|; f16 (not in
+#: test_kernels.py's sweep) at 2e-3: the kernels compute in f32 and round
+#: once, as the plain version does, and f16 rounds 8x finer than bf16
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}
 #: tests/test_kernels.py's shapes (b, hq, hkv, sq, sk, d, causal, softcap)
 KERNEL_SHAPES = [
     (2, 4, 2, 128, 128, 64, True, 0.0),
@@ -842,8 +855,16 @@ KERNEL_SHAPES = [
     (1, 16, 4, 64, 64, 128, True, 0.0),
     (1, 2, 2, 200, 200, 64, True, 0.0),
 ]
+#: head_dims the f32 route and the cuda_core backward take below 64 (the
+#: reduced configs'), and f16: (b, hq, hkv, sq, sk, d, causal, softcap)
+NARROW_SHAPES = [
+    (8, 4, 4, 64, 64, 16, True, 0.0),  # launch.train's reduced llama3-8b
+    (2, 8, 2, 77, 77, 16, True, 0.0),
+    (2, 8, 2, 100, 160, 32, False, 0.0),
+    (1, 8, 8, 96, 96, 32, True, 30.0),
+]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
-BF16_TFLOPS = 989e12  # H100 SXM dense bf16 (the tensor cores' peak)
+BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
 
 
 def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
@@ -904,8 +925,8 @@ def flash_checks(torch, dev, bw: float) -> dict:
     cases["long [1,32/8,4096,128] bf16 causal"] = (qkv(1, 32, 8, 4096, 4096, 128, bf16), dict(causal=True), "bfloat16")
     cases["offset prefill [2,32/8,64,128] at 300 vs cache 576"] = (
         qkv(2, 32, 8, 64, max_len, 128, bf16), dict(causal=True, q_offset=300, kv_len=364), "bfloat16")
-    for dtype, name in ((torch.float32, "float32"), (bf16, "bfloat16")):
-        for b, hq, hkv, sq, sk, d, causal, cap in KERNEL_SHAPES:
+    for dtype, name in ((torch.float32, "float32"), (bf16, "bfloat16"), (torch.float16, "float16")):
+        for b, hq, hkv, sq, sk, d, causal, cap in KERNEL_SHAPES + NARROW_SHAPES:
             cases[f"test_kernels [{b},{hq}/{hkv},{sq}x{sk},{d}] causal={causal} softcap={cap} {name}"] = (
                 qkv(b, hq, hkv, sq, sk, d, dtype), dict(causal=causal, softcap=cap), name)
     worst_abs, worst_ratio = 0.0, 0.0
@@ -1003,7 +1024,7 @@ def flash_checks(torch, dev, bw: float) -> dict:
 #: the GRPO step's attention at phase 6's batch: 4 prompts x 4 responses of
 #: 512 + 64 tokens, llama3-8b's 32/8 heads of 128
 TRAIN_B, TRAIN_S = 16, 576
-F32_TFLOPS = 67e12  # H100 SXM f32 on the CUDA cores
+F32_TFLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
 def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float):
@@ -1030,14 +1051,18 @@ def rel_l2(torch, got, want) -> float:
 
 
 def flash_backward_checks(torch, dev, bw: float) -> dict:
-    """The backward kernels (csrc/flash_attention_bwd.cu) through the
-    autograd Function against autograd through the plain attention, on the
-    GRPO step's shape (bf16 and f32) and at the edges (S = 77, G 1/4/8,
-    kv_len < Sk, q_offset > 0, softcap, head_dim 64); the log-sum-exp of
-    the tensor_core and f32 forwards against logsumexp of the plain
-    scores; then, at the training shape, the backward timed beside the
-    plain backward and SDPA's, and the f32 route's forward beside its
-    plain version and SDPA (row 5c)."""
+    """The backward routes through the autograd Function against autograd
+    through the plain attention: ``tensor_core`` (csrc/flash_attention_bwd_tc.cu)
+    on the bf16 cases and ``cuda_core`` (csrc/flash_attention_bwd.cu) on the
+    f32 and f16 cases and the narrow heads (head_dim 16/32), at the GRPO
+    step's shape and at the edges (S = 77, G 1/4/8, kv_len < Sk, q_offset
+    > 0, softcap, head_dim 64), every case run twice for bit-equal
+    gradients; the log-sum-exp of the tensor_core and f32 forwards against
+    logsumexp of the plain scores; then, at the training shape, both
+    routes timed on the same bf16 inputs beside the plain backward and
+    SDPA's, the cuda_core route at the f32 training shape beside SDPA's f32
+    backward, and the f32 route's forward beside its plain version and
+    SDPA (row 5c)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1050,9 +1075,9 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     def qkv(b, hq, hkv, sq, sk, d, dtype):
         return [rand(s, dtype) for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     cases = {}
-    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32"), (f16, "float16")):
         cases[f"train [16,32/8,576,128] causal {name}"] = (TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, dtype, {})
         cases[f"S 77 [2,32/8,77,128] causal {name}"] = (2, 32, 8, 77, 77, 128, dtype, {})
         for hq, hkv in ((8, 8), (16, 4), (32, 4)):
@@ -1063,37 +1088,58 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             2, 32, 8, 64, 320, 128, dtype, dict(q_offset=200, kv_len=264))
         cases[f"softcap 50 [2,16/8,256,128] causal {name}"] = (2, 16, 8, 256, 256, 128, dtype, dict(softcap=50.0))
         cases[f"head_dim 64 [2,32/8,300,64] causal {name}"] = (2, 32, 8, 300, 300, 64, dtype, {})
-    worst, worst_abs = 0.0, 0.0
+    for dtype, name in ((f32, "float32"), (bf16, "bfloat16"), (f16, "float16")):
+        for b, hq, hkv, sq, sk, d, causal, cap in NARROW_SHAPES:
+            cases[f"head_dim {d} [{b},{hq}/{hkv},{sq}x{sk}] causal={causal} softcap={cap} {name}"] = (
+                b, hq, hkv, sq, sk, d, dtype, dict(causal=causal, softcap=cap))
+        cases[f"head_dim 32 q_offset 200 [1,8/2,64x300] kv_len 264 {name}"] = (
+            1, 8, 2, 64, 300, 32, dtype, dict(q_offset=200, kv_len=264))
+    worst = {r: 0.0 for r in fa.BWD_KERNELS}
+    worst_abs = {r: 0.0 for r in fa.BWD_KERNELS}
     for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
         kw = dict(dict(causal=True), **kw)
         q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
         dout = rand(q.shape, dtype)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
-        route = fa._route(q, k, grad=True)
-        r_before = fa.ROUTE_LAUNCHES[route].value
-        got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, dout)
-        check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {"dkdv": 1, "dq": 1}
-              and fa.ROUTE_LAUNCHES[route].value == r_before + 1, f"backward kernels not launched on {label}")
+        route, bwd_route = fa._route(q, k, grad=True), fa._bwd_route(q)
+
+        def grads():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+            r_before = fa.ROUTE_LAUNCHES[route].value
+            got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, dout)
+            want = {f"{bwd_route}/{n}": 1 for n in fa.BWD_KERNELS[bwd_route]}
+            check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {n: want.get(n, 0) for n in before}
+                  and fa.ROUTE_LAUNCHES[route].value == r_before + 1, f"backward kernels not launched on {label}")
+            return got
+
+        got = grads()
+        again = grads()
         ref = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
         torch.cuda.synchronize()
         tol = FLASH_TOL[str(dtype).split(".")[1]]
         errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        worst = max(worst, max(errs.values()) / tol)
-        worst_abs = max(worst_abs, max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
-        emit("flash_bwd_check", case=label, forward_route=route, rel_err=errs, tol=tol, finite=finite)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst[bwd_route] = max(worst[bwd_route], max(errs.values()) / tol)
+        worst_abs[bwd_route] = max(worst_abs[bwd_route],
+                                   max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
+        emit("flash_bwd_check", case=label, forward_route=route, backward_route=bwd_route, rel_err=errs, tol=tol,
+             finite=finite, bit_equal_rerun=same)
         check(finite and max(errs.values()) <= tol, f"backward kernels != autograd of the plain version on {label}")
-        del q, k, v, dout, leaves, got, ref, want
+        check(same, f"two runs of the {bwd_route} backward differ on {label}")
+        del q, k, v, dout, got, again, ref, want
     torch.cuda.empty_cache()
 
     # the log-sum-exp the forwards write for the backward
     lse_worst = 0.0
-    for route, dtype in (("tensor_core", bf16), ("f32", f32), ("f32", bf16)):
+    for route, dtype in (("tensor_core", bf16), ("f32", f32), ("f32", bf16), ("f32", f16)):
         for b, hq, hkv, sq, sk, d, kw in ((TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, dict(causal=True)),
                                           (2, 32, 8, 77, 300, 64, dict(causal=True, q_offset=200, kv_len=277)),
-                                          (2, 16, 8, 256, 256, 128, dict(causal=False, softcap=50.0, kv_len=200))):
+                                          (2, 16, 8, 256, 256, 128, dict(causal=False, softcap=50.0, kv_len=200)),
+                                          (8, 4, 4, 64, 64, 16, dict(causal=True))):
+            if route == "tensor_core" and d not in fa.TC_HEAD_DIMS:
+                continue
             q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
             out, lse = fa.launch_route(route, q, k, v, with_lse=True, **kw)
             want = fa.attention_lse_plain(q, k, **kw)
@@ -1106,34 +1152,42 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     del q, k, v, out, lse, want
     torch.cuda.empty_cache()
 
-    # timings at the training shape (bf16): the backward kernels, the plain
-    # backward and SDPA's backward (autograd through
-    # scaled_dot_product_attention, its forward kept out of the timing)
+    # timings at the training shape (bf16): both backward routes on the same
+    # inputs, the plain backward and SDPA's backward (autograd through
+    # scaled_dot_product_attention, its forward kept out of the timing); then
+    # the cuda_core route and SDPA's backward at the training shape in f32
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
-    q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, bf16)
-    dout = rand(q.shape, bf16)
-    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, causal=True)
-    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True, enable_gqa=True)
-    calls = {
-        "kernel": lambda: fa.launch_backward(q, k, v, out, lse, dout, causal=True),
-        "plain": lambda: fa.attention_backward_plain(q, k, v, out, lse, dout, causal=True),
-        "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True),
-    }
-    cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
-    again = cold_ms(torch, calls["kernel"], flush)
-    warm = {n: device_ms(torch, f, reps=5 if n == "plain" else 20) for n, f in calls.items()}
-    mine = calls["kernel"]()
-    sdpa_err = max(grad_err(torch, a, w) for a, w in zip(mine, calls["sdpa"]()))
-    bound, by, flops, nbytes = bwd_bound_ms(q, k, TRAIN_S, True, 0, bw, BF16_TFLOPS)
-    ms = cold["kernel"]
-    bwd_times = dict(shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal", ms=ms, ms_again=again,
-                     plain_ms=cold["plain"], sdpa_ms=cold["sdpa"], warm_device_ms=warm, bound_ms=bound,
-                     bound_by=by, flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (ms * 1e-3) / 1e12,
-                     sdpa_over_kernel=cold["sdpa"] / ms, sdpa_rel_diff=sdpa_err)
-    emit("flash_bwd_times", **bwd_times)
-    del q, k, v, dout, out, lse, sq_, sk_, sv_, sdpa_out, mine, calls
-    torch.cuda.empty_cache()
+    times = {}
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, dtype)
+        dout = rand(q.shape, dtype)
+        out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, causal=True)
+        sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True, enable_gqa=True)
+        calls = {r: (lambda r=r: fa.launch_backward(q, k, v, out, lse, dout, causal=True, route=r))
+                 for r in fa.BWD_KERNELS if dtype == bf16 or r == "cuda_core"}
+        calls["plain"] = lambda: fa.attention_backward_plain(q, k, v, out, lse, dout, causal=True)
+        calls["sdpa"] = lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True)
+        slow = ("plain", "cuda_core")
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n in slow else 20) for n, f in calls.items()}
+        again = {n: cold_ms(torch, calls[n], flush, reps=5 if n in slow else 20) for n in fa.BWD_KERNELS if n in calls}
+        warm = {n: device_ms(torch, f, reps=5 if n in slow else 20) for n, f in calls.items()}
+        ref = calls["sdpa"]()
+        diff = {n: max(grad_err(torch, a, w) for a, w in zip(calls[n](), ref)) for n in fa.BWD_KERNELS if n in calls}
+        for r in fa.BWD_KERNELS:
+            if r not in calls:
+                continue
+            peak = F32_TFLOPS if dtype == f32 else BF16_TFLOPS  # the peak for the inputs' type, either route
+            bound, by, flops, nbytes = bwd_bound_ms(q, k, TRAIN_S, True, 0, bw, peak)
+            ms = cold[r]
+            times[f"{r} {name}"] = dict(
+                route=r, shape=f"q {list(q.shape)}, k/v {list(k.shape)} {name} causal", ms=ms, ms_again=again[r],
+                plain_ms=cold["plain"], sdpa_ms=cold["sdpa"], warm_device_ms=warm, bound_ms=bound, bound_by=by,
+                peak_TFLOPs=peak / 1e12, flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (ms * 1e-3) / 1e12,
+                sdpa_over_kernel=cold["sdpa"] / ms, sdpa_rel_diff=diff[r])
+            emit("flash_bwd_times", **times[f"{r} {name}"])
+        del q, k, v, dout, out, lse, sq_, sk_, sv_, sdpa_out, calls, ref
+        torch.cuda.empty_cache()
 
     # row 5c: the f32 route's forward at the training shape in f32
     q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, f32)
@@ -1152,21 +1206,25 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     emit("flash_f32_route_times", **f32_times)
     del q, k, v, calls, flush
     torch.cuda.empty_cache()
-    return {
-        "flash_attention_bwd": dict(
-            name="flash_attention_bwd", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    # one kernels-line entry a route, each timed where its route runs: the
+    # tensor_core route at the bf16 training shape, the cuda_core route at
+    # the f32 one (its bf16 run on the tensor_core route's inputs beside it)
+    entries = {}
+    for r, source, t in (("tensor_core", "flash_attention_bwd_tc.cu", times["tensor_core bfloat16"]),
+                         ("cuda_core", "flash_attention_bwd.cu", times["cuda_core float32"])):
+        entries[f"flash_attention_bwd/{r}"] = dict(
+            name=f"flash_attention_bwd/{r}", route="cuda", source=csrc + source,
             replaces="src/repro/kernels/flash_attention/kernel.py:96",
             replaces_note="the backward of row 5's kernel: the JAX package has no Pallas backward and "
                           "differentiates its jnp chunked_attention (src/repro/models/layers.py:81)",
-            max_abs_err=worst_abs, err_over_tol=worst, lse_err_over_tol=lse_worst,
-            ms=bwd_times["ms"], plain_ms=bwd_times["plain_ms"], bound_ms=bound, bound_by=by,
-            library_ms=bwd_times["sdpa_ms"], warm_device_ms=bwd_times["warm_device_ms"]["kernel"],
-            timed_shape=bwd_times["shape"],
-            counter=fa.BWD_LAUNCHES["dkdv"],
-        ),
-        "f32_route_training_shape": f32_times,
-    }
+            max_abs_err=worst_abs[r], err_over_tol=worst[r], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["sdpa_ms"],
+            warm_device_ms=t["warm_device_ms"][r], timed_shape=t["shape"],
+            counter=fa.BWD_LAUNCHES[f"{r}/dkdv"],  # every call launches its route's dK/dV kernel once
+        )
+    entries["flash_attention_bwd/cuda_core"]["bfloat16_on_tensor_core_inputs"] = times["cuda_core bfloat16"]
+    return dict(entries, f32_route_training_shape=f32_times, lse_err_over_tol=lse_worst)
 
 
 #: bound on |port - reference| for logits and logprobs at full width in
@@ -1428,7 +1486,7 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     TrainerWorker publishes v0 (dc0); a RolloutWorker (dc0, raw)
     replicates it and serves round 0 (16 responses: 4 prompts x 4, 512
     prompt tokens, 64 new); the trainer runs one GRPO step on the card
-    (forward on the tensor-core flash route, the hand-written backward
+    (forward on the tensor-core flash route, the tensor-core backward
     kernels, AdamW in place) and publishes v1; the worker updates in place
     and serves round 1. Returns the kernels' launches on that path."""
     import dataclasses
@@ -1514,7 +1572,7 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
     step_launches = {k: v - before[k] for k, v in counts().items()}
     want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
-            "flash_attention_bwd_dkdv": cfg.num_layers, "flash_attention_bwd_dq": cfg.num_layers}
+            **{f"flash_attention_bwd_{n}": cfg.num_layers * n.startswith("tensor_core/") for n in BWD_LAUNCHES}}
     check({k: step_launches[k] for k in want} == want, f"GRPO step launches {step_launches}, want {want}")
     check(metrics["version"] == 1 and trainer.version == 1, "the trainer did not publish v1")
 
@@ -1559,7 +1617,7 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     check1 = check_served_round(torch, reference, trainer.params, rec1, 1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"round 1's first logits barely differ from round 0's ({delta})")
-    for k in ("checksum", "flash_attention", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+    for k in ("checksum", "flash_attention", *(f"flash_attention_bwd_tensor_core/{n}" for n in ("pre", "dkdv", "dq"))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
     queue.clear()
@@ -1610,6 +1668,47 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 7: the training entry point at its defaults ---------------------------------
+
+
+def train_entry_point(torch, counters) -> dict:
+    """``python -m repro_torch.launch.train`` at its defaults (the reduced
+    llama3-8b: head_dim 16, f32, on the card), two steps: the losses must
+    be finite, and the f32 route's forward and the cuda_core backward must
+    run every layer of every step. Returns the kernels' launches on that
+    path."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.launch import train
+
+    steps, layers = 2, CONFIG.reduced().num_layers
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--steps", str(steps)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.value for k, c in every.items()}  # the path's launches, read now
+    losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
+    emit("train_entry_point", argv=["--steps", str(steps)], losses=losses, seconds=seconds, launches=launches)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"train entry point losses {losses}")
+    want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
+            **{f"flash_attention_bwd_{n}": steps * layers * n.startswith("cuda_core/") for n in BWD_LAUNCHES}}
+    check({k: launches[k] for k in want} == want, f"train entry point launches {launches}, want {want}")
+    out = {k: launches[k] for k in counters}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1654,12 +1753,13 @@ def main() -> int:
     kernels.update(reshard_kernel_checks(torch, dev, bw))
     kernels.update(flash_checks(torch, dev, bw))
     bwd = flash_backward_checks(torch, dev, bw)
-    kernels["flash_attention_bwd"] = bwd["flash_attention_bwd"]
-    kernels["flash_attention"]["routes"]["f32"]["training_shape_f32"] = bwd["f32_route_training_shape"]
+    kernels["flash_attention"]["routes"]["f32"]["training_shape_f32"] = bwd.pop("f32_route_training_shape")
+    kernels["flash_attention"]["lse_err_over_tol"] = bwd.pop("lse_err_over_tol")
+    kernels.update(bwd)
     phase_s["2 kernels"] = time.perf_counter() - t0
     counters = {k: v.pop("counter") for k, v in kernels.items()}
     shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
-    transfer_counters = {k: c for k, c in counters.items() if k not in ("flash_attention", "flash_attention_bwd")}
+    transfer_counters = {k: c for k, c in counters.items() if not k.startswith("flash_attention")}
     t0 = time.perf_counter()
     phase3 = transfer(
         torch, dev, {k: counters[k] for k in ("checksum", "quantize_rows")}, shapes, DEFAULT_CHUNK_BYTES
@@ -1673,21 +1773,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["4 reshard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase5 = serving(torch, dev, {k: c for k, c in counters.items() if k != "flash_attention_bwd"}, smi)
+    phase5 = serving(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")}, smi)
     gc.collect()  # phase 5's 32-layer replicas go before the trainer allocates
     torch.cuda.empty_cache()
     phase_s["5 serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase6 = rl_loop(torch, dev, counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_s["6 rl loop"] = time.perf_counter() - t0
-    launches = {k: phase3.get(k, 0) + phase4.get(k, 0) + phase5.get(k, 0) + phase6[k] for k in counters}
+    t0 = time.perf_counter()
+    phase7 = train_entry_point(torch, counters)
+    phase_s["7 train entry point"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7)
+    launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    for r in phase5["flash_attention_routes"]:  # phases 5 and 6 are the paths with attention
-        kernels["flash_attention"]["routes"][r]["launches"] = (
-            phase5["flash_attention_routes"][r] + phase6["flash_attention_routes"][r])
-    kernels["flash_attention_bwd"]["launches_by_kernel"] = phase6["flash_attention_bwd_by_kernel"]
-    emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase_seconds=phase_s)
+    for r in phase5["flash_attention_routes"]:  # phases 5 to 7 are the paths with attention
+        kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in phases[2:])
+    by_kernel = {n: phase6["flash_attention_bwd_by_kernel"][n] + phase7["flash_attention_bwd_by_kernel"][n]
+                 for n in phase6["flash_attention_bwd_by_kernel"]}
+    for k, entry in kernels.items():
+        if k.startswith("flash_attention_bwd/"):
+            route = k.split("/")[1]
+            entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
+    emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
+         phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -240,6 +240,12 @@ _DTYPES: Dict[str, Tuple[torch.dtype, int]] = {
     "int16": (torch.int16, 2),
     "int8": (torch.int8, 1),
     "uint8": (torch.uint8, 1),
+    "uint16": (torch.uint16, 2),
+    "uint32": (torch.uint32, 4),
+    "uint64": (torch.uint64, 8),
+    "float8_e4m3fn": (torch.float8_e4m3fn, 1),
+    "float8_e5m2": (torch.float8_e5m2, 1),
+    "complex64": (torch.complex64, 8),
     "bool": (torch.bool, 1),
 }
 _NAMES: Dict[torch.dtype, str] = {d: n for n, (d, _) in _DTYPES.items()}

@@ -42,6 +42,10 @@
 // and row sum over the 16 threads that share a row by shuffles, writes
 // P transposed to shared memory and accumulates P V into 4 x D/16 outputs
 // a thread. Causal blocks with the most key tiles are launched first.
+// f32, bf16 and f16 at head_dim 16, 32, 64, 128 and 256: the outputs'
+// columns follow RowCols (vec.cuh), 4-wide groups 64 apart from head_dim
+// 64 up and one group of D/16 columns a thread below it (the training
+// entry point's reduced config has head_dim 16), so D is never padded.
 //
 // Inputs are strided in batch, head and sequence (unit stride in D), so
 // the wrapper hands over views without copies; each row must be aligned
@@ -53,8 +57,8 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -74,33 +78,6 @@ struct Params {
   float scale, softcap;
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 template <int D, int BK>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -110,7 +87,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
   constexpr int RN = BK / 16;   // score columns a thread
-  constexpr int DC = D / 64;    // 4-wide output column groups a thread
+  using C = RowCols<D>;         // output columns a thread
   constexpr int QP = kBQ + kPad;
   constexpr int KP = BK + kPad;
   extern __shared__ float4 smem4[];
@@ -156,13 +133,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
   const int kv_end = p.causal ? min(p.kv_len, p.q_offset + i_last + 1) : p.kv_len;
   const int ntiles = (kv_end + BK - 1) / BK;
 
-  float m[4], l[4], acc[4][DC * 4];
+  float m[4], l[4], acc[4][C::kPer];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = kNegInf;
     l[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC * 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
   }
 
   for (int t = 0; t < ntiles; ++t) {
@@ -237,27 +214,25 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
       l[a] = l[a] * alpha + rsum;
       m[a] = m_cur;
 #pragma unroll
-      for (int c = 0; c < DC * 4; ++c) acc[a][c] *= alpha;
+      for (int c = 0; c < C::kPer; ++c) acc[a][c] *= alpha;
 #pragma unroll
       for (int c = 0; c < RN; ++c) pt[(tx * RN + c) * QP + ty * 4 + a] = s[a][c];
     }
     __syncthreads();
 
-    // acc[a][g*4 + e] += sum_j P[row a][j] * V[j][g*64 + tx*4 + e]
+    // acc[a][g*W + e] += sum_j P[row a][j] * V[j][C::col(g, tx) + e]
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
       const float4 pp = *reinterpret_cast<const float4*>(pt + j * QP + ty * 4);
       const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
-      for (int g = 0; g < DC; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + j * D + g * 64 + tx * 4);
+      for (int g = 0; g < C::kGroups; ++g) {
+        float vv[C::kW];
+        load_n<C::kW>(vs + j * D + C::col(g, tx), vv);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          acc[a][g * 4 + 0] = fmaf(pv[a], vv.x, acc[a][g * 4 + 0]);
-          acc[a][g * 4 + 1] = fmaf(pv[a], vv.y, acc[a][g * 4 + 1]);
-          acc[a][g * 4 + 2] = fmaf(pv[a], vv.z, acc[a][g * 4 + 2]);
-          acc[a][g * 4 + 3] = fmaf(pv[a], vv.w, acc[a][g * 4 + 3]);
-        }
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < C::kW; ++e) acc[a][g * C::kW + e] = fmaf(pv[a], vv[e], acc[a][g * C::kW + e]);
       }
     }
   }
@@ -274,10 +249,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
     if (p.lse != nullptr && tx == 0) p.lse[(static_cast<long long>(b) * p.hkv * p.group + h) * p.sq + i] = m[a] + logf(den);
     T* orow = og + b * p.os[0] + h * p.os[1] + i * p.os[2];
 #pragma unroll
-    for (int g = 0; g < DC; ++g) {
-      store4(orow + g * 64 + tx * 4,
-             make_float4(acc[a][g * 4 + 0] / den, acc[a][g * 4 + 1] / den,
-                         acc[a][g * 4 + 2] / den, acc[a][g * 4 + 3] / den));
+    for (int g = 0; g < C::kGroups; ++g) {
+      float x[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] / den;
+      store_n<C::kW>(orow + C::col(g, tx), x);
     }
   }
 }
@@ -295,6 +271,8 @@ int launch(const Params& p, int blocks, cudaStream_t stream) {
 template <typename T>
 int dispatch(const Params& p, int d, int blocks, cudaStream_t stream) {
   switch (d) {
+    case 16: return launch<T, 16, 64>(p, blocks, stream);
+    case 32: return launch<T, 32, 64>(p, blocks, stream);
     case 64: return launch<T, 64, 64>(p, blocks, stream);
     case 128: return launch<T, 128, 64>(p, blocks, stream);
     case 256: return launch<T, 256, 32>(p, blocks, stream);
@@ -307,7 +285,8 @@ int dispatch(const Params& p, int d, int blocks, cudaStream_t stream) {
 // q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each given by
 // its pointer and its (batch, head, sequence) element strides in
 // `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
-// 1 = bfloat16; D in {64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <= Sk;
+// 1 = bfloat16, 2 = float16; D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64;
+// 1 <= kv_len <= Sk;
 // lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError() after the launch.
 extern "C" int th_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int dtype, int batch, int hq,
@@ -340,6 +319,7 @@ extern "C" int th_flash_attention(const void* q, const void* k, const void* v, v
   switch (dtype) {
     case 0: return dispatch<float>(p, d, blocks, s);
     case 1: return dispatch<__nv_bfloat16>(p, d, blocks, s);
+    case 2: return dispatch<__half>(p, d, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

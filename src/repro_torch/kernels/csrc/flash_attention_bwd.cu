@@ -1,7 +1,9 @@
 // The flash-attention backward for Hopper, f32 arithmetic on the CUDA
 // cores: dQ, dK and dV of the forward kernels (flash_attention.cu,
 // flash_attention_tc.cu), which is what the training step needs from
-// every layer.
+// every layer. This is the `cuda_core` backward route: f32, f16 and bf16
+// at head_dim 16, 32, 64 and 128, every call the tensor-core backward
+// (flash_attention_bwd_tc.cu, bf16 at head_dim 64/128) does not take.
 //
 // The JAX package has no Pallas backward: it differentiates its jnp
 // chunked_attention (src/repro/models/layers.py) with jax.grad, so this
@@ -47,7 +49,9 @@
 // Tiles are row-major in shared memory with 4 floats of padding a row, so
 // a 16-byte load of 8 consecutive rows hits 8 different bank groups. A
 // thread of the 16 x 16 grid scores rows ty*4 + a against keys tx + 16c
-// (a, c < 4), and accumulates rows ty*4 + a against columns tx*4 + 64g.
+// (a, c < 4), and accumulates rows ty*4 + a against its columns of
+// RowCols (vec.cuh): tx*4 + 64g from head_dim 64 up, one group of D/16
+// below it, so head_dim 16 and 32 are not padded.
 // The longest blocks are launched first (small key tiles for dK/dV, late
 // query tiles for dQ).
 //
@@ -56,8 +60,8 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -73,29 +77,6 @@ struct BwdParams {
   int batch, hq, hkv, group, sq, sk, causal, q_offset, kv_len;
   float scale, softcap;
 };
-
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
@@ -200,7 +181,7 @@ constexpr size_t dkdv_smem() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int DP = D + 4;
-  constexpr int DC = D / 64;  // 4-wide column groups a thread
+  using C = RowCols<D>;  // accumulator columns a thread
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [64][DP]
   float* vs = ks + kT * DP;
@@ -217,11 +198,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
   const int k0 = (blockIdx.x / nbkv) * kT;  // the first key tiles (the most query rows) first
   const int b = bkv / p.hkv, hk = bkv % p.hkv;
 
-  float dk[4][DC * 4], dv[4][DC * 4];
+  float dk[4][C::kPer], dv[4][C::kPer];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < DC * 4; ++c) dk[a][c] = dv[a][c] = 0.f;
+    for (int c = 0; c < C::kPer; ++c) dk[a][c] = dv[a][c] = 0.f;
 
   const int nq = (p.sq + kT - 1) / kT;
   // query tiles whose rows can see a key of this tile (none if it starts
@@ -256,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
         }
       __syncthreads();
       // dV[j] += sum_r P[r][j] dO[r], dK[j] += sum_r dS[r][j] Q[r] for this
-      // thread's keys j = ty*4 + a and columns g*64 + tx*4 + e
+      // thread's keys j = ty*4 + a and columns C::col(g, tx) + e
 #pragma unroll 4
       for (int r = 0; r < kT; ++r) {
         const float4 pp = load4(ps + r * kTP + ty * 4);
@@ -264,20 +245,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
         const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
         const float da[4] = {dd.x, dd.y, dd.z, dd.w};
 #pragma unroll
-        for (int cg = 0; cg < DC; ++cg) {
-          const float4 o4 = load4(dos + r * DP + cg * 64 + tx * 4);
-          const float4 q4 = load4(qs + r * DP + cg * 64 + tx * 4);
+        for (int g = 0; g < C::kGroups; ++g) {
+          float o[C::kW], q[C::kW];
+          load_n<C::kW>(dos + r * DP + C::col(g, tx), o);
+          load_n<C::kW>(qs + r * DP + C::col(g, tx), q);
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            dv[a][cg * 4 + 0] = fmaf(pa[a], o4.x, dv[a][cg * 4 + 0]);
-            dv[a][cg * 4 + 1] = fmaf(pa[a], o4.y, dv[a][cg * 4 + 1]);
-            dv[a][cg * 4 + 2] = fmaf(pa[a], o4.z, dv[a][cg * 4 + 2]);
-            dv[a][cg * 4 + 3] = fmaf(pa[a], o4.w, dv[a][cg * 4 + 3]);
-            dk[a][cg * 4 + 0] = fmaf(da[a], q4.x, dk[a][cg * 4 + 0]);
-            dk[a][cg * 4 + 1] = fmaf(da[a], q4.y, dk[a][cg * 4 + 1]);
-            dk[a][cg * 4 + 2] = fmaf(da[a], q4.z, dk[a][cg * 4 + 2]);
-            dk[a][cg * 4 + 3] = fmaf(da[a], q4.w, dk[a][cg * 4 + 3]);
-          }
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int e = 0; e < C::kW; ++e) {
+              dv[a][g * C::kW + e] = fmaf(pa[a], o[e], dv[a][g * C::kW + e]);
+              dk[a][g * C::kW + e] = fmaf(da[a], q[e], dk[a][g * C::kW + e]);
+            }
         }
       }
     }
@@ -290,13 +268,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
     const int j = k0 + ty * 4 + a;
     if (j >= p.sk) continue;
 #pragma unroll
-    for (int cg = 0; cg < DC; ++cg) {
-      const int d = cg * 64 + tx * 4;
-      store4(dkg + static_cast<long long>(j) * p.dks[2] + d,
-             make_float4(dk[a][cg * 4] * p.scale, dk[a][cg * 4 + 1] * p.scale, dk[a][cg * 4 + 2] * p.scale,
-                         dk[a][cg * 4 + 3] * p.scale));
-      store4(dvg + static_cast<long long>(j) * p.dvs[2] + d,
-             make_float4(dv[a][cg * 4], dv[a][cg * 4 + 1], dv[a][cg * 4 + 2], dv[a][cg * 4 + 3]));
+    for (int g = 0; g < C::kGroups; ++g) {
+      float xk[C::kW], xv[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) {
+        xk[e] = dk[a][g * C::kW + e] * p.scale;
+        xv[e] = dv[a][g * C::kW + e];
+      }
+      store_n<C::kW>(dkg + static_cast<long long>(j) * p.dks[2] + C::col(g, tx), xk);
+      store_n<C::kW>(dvg + static_cast<long long>(j) * p.dvs[2] + C::col(g, tx), xv);
     }
   }
 }
@@ -309,7 +289,7 @@ constexpr size_t dq_smem() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int DP = D + 4;
-  constexpr int DC = D / 64;
+  using C = RowCols<D>;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
   float* vs = ks + kT * DP;
@@ -339,11 +319,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
 
-  float dq[4][DC * 4];
+  float dq[4][C::kPer];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < DC * 4; ++c) dq[a][c] = 0.f;
+    for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * kT;
@@ -359,22 +339,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
       for (int c = 0; c < 4; ++c) dss[(ty * 4 + a) * kTP + tx + 16 * c] = ds[a][c];
     __syncthreads();
     // dQ[i] += sum_j dS[i][j] K[j] for this thread's rows i = ty*4 + a and
-    // columns g*64 + tx*4 + e
+    // columns C::col(g, tx) + e
 #pragma unroll 4
     for (int j = 0; j < kT; ++j) {
       float da[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) da[a] = dss[(ty * 4 + a) * kTP + j];
 #pragma unroll
-      for (int cg = 0; cg < DC; ++cg) {
-        const float4 k4 = load4(ks + j * DP + cg * 64 + tx * 4);
+      for (int g = 0; g < C::kGroups; ++g) {
+        float kv[C::kW];
+        load_n<C::kW>(ks + j * DP + C::col(g, tx), kv);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          dq[a][cg * 4 + 0] = fmaf(da[a], k4.x, dq[a][cg * 4 + 0]);
-          dq[a][cg * 4 + 1] = fmaf(da[a], k4.y, dq[a][cg * 4 + 1]);
-          dq[a][cg * 4 + 2] = fmaf(da[a], k4.z, dq[a][cg * 4 + 2]);
-          dq[a][cg * 4 + 3] = fmaf(da[a], k4.w, dq[a][cg * 4 + 3]);
-        }
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < C::kW; ++e) dq[a][g * C::kW + e] = fmaf(da[a], kv[e], dq[a][g * C::kW + e]);
       }
     }
   }
@@ -385,10 +363,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
     const int i = i0 + ty * 4 + a;
     if (i >= p.sq) continue;
 #pragma unroll
-    for (int cg = 0; cg < DC; ++cg) {
-      store4(dqg + static_cast<long long>(i) * p.dqs[2] + cg * 64 + tx * 4,
-             make_float4(dq[a][cg * 4] * p.scale, dq[a][cg * 4 + 1] * p.scale, dq[a][cg * 4 + 2] * p.scale,
-                         dq[a][cg * 4 + 3] * p.scale));
+    for (int g = 0; g < C::kGroups; ++g) {
+      float x[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) x[e] = dq[a][g * C::kW + e] * p.scale;
+      store_n<C::kW>(dqg + static_cast<long long>(i) * p.dqs[2] + C::col(g, tx), x);
     }
   }
 }
@@ -435,6 +414,8 @@ template <typename T>
 int dispatch_dkdv(const BwdParams& p, int d, cudaStream_t s) {
   const int blocks = p.batch * p.hkv * ((p.sk + kT - 1) / kT);
   switch (d) {
+    case 16: return launch(flash_bwd_dkdv_kernel<T, 16>, dkdv_smem<16>(), blocks, p, s);
+    case 32: return launch(flash_bwd_dkdv_kernel<T, 32>, dkdv_smem<32>(), blocks, p, s);
     case 64: return launch(flash_bwd_dkdv_kernel<T, 64>, dkdv_smem<64>(), blocks, p, s);
     case 128: return launch(flash_bwd_dkdv_kernel<T, 128>, dkdv_smem<128>(), blocks, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -445,6 +426,8 @@ template <typename T>
 int dispatch_dq(const BwdParams& p, int d, cudaStream_t s) {
   const int blocks = p.batch * p.hq * ((p.sq + kT - 1) / kT);
   switch (d) {
+    case 16: return launch(flash_bwd_dq_kernel<T, 16>, dq_smem<16>(), blocks, p, s);
+    case 32: return launch(flash_bwd_dq_kernel<T, 32>, dq_smem<32>(), blocks, p, s);
     case 64: return launch(flash_bwd_dq_kernel<T, 64>, dq_smem<64>(), blocks, p, s);
     case 128: return launch(flash_bwd_dq_kernel<T, 128>, dq_smem<128>(), blocks, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -457,7 +440,8 @@ int dispatch_dq(const BwdParams& p, int d, cudaStream_t s) {
 // and their (batch, head, sequence) element strides in `strides` (a host
 // array of 24 in the order q, k, v, o, dout, dq, dk, dv); lse f32
 // [B, Hq, Sq] contiguous, from the forward; dtype 0 = float32,
-// 1 = bfloat16 (every tensor but lse); D in {64, 128}; 1 <= kv_len <= Sk.
+// 1 = bfloat16, 2 = float16 (every tensor but lse); D in {16, 32, 64,
+// 128}; 1 <= kv_len <= Sk.
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len),
 // th_flash_bwd_dq writes dq. Each returns cudaGetLastError() after its
 // launch.
@@ -471,6 +455,7 @@ extern "C" int th_flash_bwd_dkdv(const void* q, const void* k, const void* v, co
   switch (dtype) {
     case 0: return dispatch_dkdv<float>(p, d, s);
     case 1: return dispatch_dkdv<__nv_bfloat16>(p, d, s);
+    case 2: return dispatch_dkdv<__half>(p, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -485,6 +470,7 @@ extern "C" int th_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   switch (dtype) {
     case 0: return dispatch_dq<float>(p, d, s);
     case 1: return dispatch_dq<__nv_bfloat16>(p, d, s);
+    case 2: return dispatch_dq<__half>(p, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -72,16 +72,13 @@
 // room at one block of 416 threads; and two Q buffers and three K/V
 // stages of 32 KB tiles would not fit the 227 KB of shared memory.
 //
-// cuTensorMapEncodeTiled is a driver function and the library is not
-// linked against libcuda: it is fetched once through
-// cudaGetDriverEntryPoint(ByVersion).
-
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// The TMA, mbarrier and wgmma helpers and the tensor maps live in
+// hopper.cuh, shared with the backward (flash_attention_bwd_tc.cu).
 
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,8 +87,6 @@ constexpr int kBK = 64;                     // keys a tile
 constexpr int kStages = 3;                  // K/V ring depth
 constexpr int kConsumers = 384;             // three warpgroups
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
-constexpr int kBox = 64;                    // bf16 elements in a 128-byte swizzled row
-constexpr int kRowBytes = 128;
 constexpr float kNegInf = -1e30f;
 
 struct TcParams {
@@ -118,155 +113,6 @@ struct Layout {
   static constexpr uint32_t kBar = kV + kStages * kTileBytes;
   static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, const int (&dims)[3],
-                                         int d, int s, int h, int b) {
-  int c[4] = {d, 0, 0, 0};
-  // dims[] holds 1..3; written out so c stays in registers
-  c[1] = dims[0] == 1 ? s : dims[1] == 1 ? h : b;
-  c[2] = dims[0] == 2 ? s : dims[1] == 2 ? h : b;
-  c[3] = dims[0] == 3 ? s : dims[1] == 3 ? h : b;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(bar)
-      : "memory");
-}
-
-// one box from shared memory into a 4-d tensor map (bulk group)
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, const int (&dims)[3], int d, int s,
-                                          int h, int b) {
-  int c[4] = {d, 0, 0, 0};
-  c[1] = dims[0] == 1 ? s : dims[1] == 1 ? h : b;
-  c[2] = dims[0] == 2 ? s : dims[1] == 2 ? h : b;
-  c[3] = dims[0] == 3 ? s : dims[1] == 3 ? h : b;
-  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3])
-               : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), swizzle mode 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D = A.B (+ D): A and B bf16 K-major in shared memory (descriptors), D f32
-// m64n64 in registers
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64(o, a, db);
-  } else {
-    wgmma_rs_n128(o, a, db);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -465,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < kBK / 16; ++kk) {
           // V [keys][D] is the MN-major B operand: 16 keys a step (2 KB of
           // 128-byte rows), 64-element column blocks kBK rows apart
-          wgmma_pv<D>(o, pa[kk], sw128_desc(v_tile(s) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+          wgmma_rs<D>(o, pa[kk], sw128_desc(v_tile(s) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -511,66 +357,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(q_empty(qb));  // Q.K^T and the store's reads of the buffer are done
   }
   if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map of a bf16 [B, H, S, D] view (unit stride in D; `strides`
-// holds the batch, head and sequence strides in elements, in that order):
-// dimension 0 is D in boxes of 64, and the sequence,
-// head and batch dimensions follow sorted by stride, a dimension of extent
-// 1 last; `where` receives each one's place. The box is 64 x `rows` rows of
-// the sequence. Returns 0 or the driver's error, negated.
-int make_map(CUtensorMap* map, const void* ptr, int d, long long seq, long long heads, long long batch,
-             const long long* strides, int rows, int (&where)[3]) {
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidResourceHandle);
-  const long long ext[3] = {seq, heads, batch};
-  const long long est[3] = {strides[2], strides[1], strides[0]};
-  int order[3] = {0, 1, 2};
-  auto key = [&](int i) { return ext[i] == 1 ? (1ll << 62) : est[i]; };
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (key(order[j]) < key(order[i])) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
-  cuuint64_t dim[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
-  cuuint64_t stride[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kBox), 1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  long long span = static_cast<long long>(d) * 2;  // bytes the dimensions so far cover
-  for (int i = 0; i < 3; ++i) {
-    const int a = order[i];
-    where[a] = i + 1;
-    dim[i + 1] = static_cast<cuuint64_t>(ext[a]);
-    const long long st = ext[a] == 1 ? span : est[a] * 2;
-    stride[i] = static_cast<cuuint64_t>(st);
-    span = st * ext[a] > span ? st * ext[a] : span;
-    if (a == 0) box[i + 1] = static_cast<cuuint32_t>(rows);
-  }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dim, stride, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
 template <int D>

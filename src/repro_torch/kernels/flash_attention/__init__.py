@@ -23,8 +23,8 @@ the route follows from dtype and shape alone (:func:`_route`), never from
 a failure:
 
 * ``"decode"`` (``csrc/flash_decode.cu``): every call whose packed query
-  rows fit one tile, ``Sq * G <= 64`` (``G = Hq / Hkv``), f32 or bf16 at
-  head_dim 64/128/256. The key range is cut into splits
+  rows fit one tile, ``Sq * G <= 64`` (``G = Hq / Hkv``), in f32 or bf16
+  at head_dim 64/128/256. The key range is cut into splits
   (:func:`split_plan`), one block a (batch, KV head, split), and the
   block that finishes a (batch, KV head)'s last split merges the splits'
   partial softmax states (what :func:`split_kv_plain` computes in plain
@@ -32,8 +32,12 @@ a failure:
 * ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
   head_dim 64 or 128 (the prefill): TMA loads and ``wgmma`` on the tensor
   cores.
-* ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32 or bf16 at
-  head_dim 256, in f32 FMAs on the CUDA cores, ``Hq / Hkv <= 64``.
+* ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
+  f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
+  ``Hq / Hkv <= 64``.
+
+Other head_dims (80 of zamba2, 192 of deepseek-v3's MLA) are refused on
+the card until their model families are ported.
 
 On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
 (naive f32 softmax, as the JAX package's ``ref.py:attention_ref`` and
@@ -47,16 +51,25 @@ view, not a copy.
 
 The gradient. When autograd wants one (grad mode on and q, k or v
 requiring it), the call goes through a ``torch.autograd.Function``: the
-forward runs on the ``tensor_core`` route (bf16) or the ``f32`` route
-(f32), never on ``decode``, and also writes each row's log-sum-exp
-(``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``); the backward runs the
-two kernels of ``csrc/flash_attention_bwd.cu`` (:func:`launch_backward`:
-dK/dV one block a key tile, dQ one block a query tile; ``BWD_LAUNCHES``
-counts each), at head_dim 64 or 128. On the CPU the same ``Function``
-runs :func:`attention_plain` and :func:`attention_backward_plain`, at any
-head_dim but 256. The JAX package has no Pallas backward: it
-differentiates its jnp ``chunked_attention``. Head_dim 256 (gemma2) has
-no backward yet and raises.
+forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128) or the
+``f32`` route (the rest), never on ``decode``, and also writes each row's
+log-sum-exp (``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``). The
+backward (:func:`launch_backward`) takes one of two routes, again by dtype
+and shape alone (:func:`_bwd_route`):
+
+* ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at head_dim
+  64/128, the training step's path. Three kernels: ``pre`` (``D_i =
+  rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and ``dq`` (one block
+  128 query rows), with ``wgmma`` products fed by TMA.
+* ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
+  head_dim 16/32/64/128 otherwise, in f32 FMAs. Two kernels, ``dkdv`` and
+  ``dq``.
+
+``BWD_LAUNCHES["<route>/<kernel>"]`` counts each kernel's launches. On the
+CPU the same ``Function`` runs :func:`attention_plain` and
+:func:`attention_backward_plain`, at any head_dim but 256. The JAX package
+has no Pallas backward: it differentiates its jnp ``chunked_attention``.
+Head_dim 256 (gemma2) has no backward yet and raises.
 """
 
 from __future__ import annotations
@@ -71,10 +84,13 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: kernel dtype codes (csrc/flash_attention.cu, csrc/flash_decode.cu)
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
-TC_HEAD_DIMS = (64, 128)  # the tensor-core route's
+#: kernel dtype codes (csrc/flash_attention.cu, csrc/flash_decode.cu,
+#: csrc/flash_attention_bwd.cu)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (64, 128, 256)  # the decode route's
+DECODE_DTYPES = (torch.float32, torch.bfloat16)
+TC_HEAD_DIMS = (64, 128)  # the tensor-core routes', forward and backward (bf16)
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 route's (f32, bf16, f16)
 MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
 DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
 ROUTES = ("decode", "tensor_core", "f32")
@@ -82,14 +98,17 @@ TILE_KEYS = 64  # keys a tile of the decode kernel, and the unit of a split
 MAX_SPLIT_BLOCKS = 640  # decode grid: about one wave of the kernel (5 blocks an SM of 132)
 MAX_SPLITS = 64
 
-BWD_HEAD_DIMS = (64, 128)  # the backward kernels'
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # the cuda_core backward's (f32, bf16, f16)
+TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scratch comes in tiles)
+#: the backward's routes and each one's kernels, in launch order
+BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq"), "cuda_core": ("dkdv", "dq")}
 
 #: launches of any route's kernel, and of each route's (bumped only where
 #: the kernel is launched)
 LAUNCHES = build.LaunchCount()
 ROUTE_LAUNCHES = {r: build.LaunchCount() for r in ROUTES}
-#: launches of the backward's two kernels
-BWD_LAUNCHES = {"dkdv": build.LaunchCount(), "dq": build.LaunchCount()}
+#: launches of each backward kernel, by "<route>/<kernel>"
+BWD_LAUNCHES = {f"{r}/{k}": build.LaunchCount() for r, ks in BWD_KERNELS.items() for k in ks}
 
 
 def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int:
@@ -106,7 +125,8 @@ def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: Hq={hq} must be a multiple of Hkv={hkv}")
     if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: want float32 or bfloat16 throughout, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_attention: want float32, bfloat16 or float16 throughout, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must be on one device")
     kv_len = sk if kv_len is None else int(kv_len)
@@ -220,26 +240,36 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if every route can read its rows in place, else a contiguous
     copy: unit stride in D, and a 16-byte aligned base and batch, head and
     sequence strides (TMA's rule for its tensor maps, and the 16-byte
-    vector loads and ``cp.async`` of the other kernels); a dimension of
-    extent 1 may have any stride. A copy, not ``contiguous()``: a
-    contiguous view at a misaligned offset needs new storage too."""
+    vector loads and ``cp.async`` of the other kernels), none of them 0 (a
+    broadcast gradient); a dimension of extent 1 may have any stride. A
+    copy, not ``contiguous()``: a contiguous view at a misaligned offset
+    needs new storage too."""
     unit = 16 // t.element_size()
     st, n = t.stride(), t.shape
-    ok = st[3] == 1 and t.data_ptr() % 16 == 0 and all(st[i] % unit == 0 or n[i] == 1 for i in range(3))
+    ok = st[3] == 1 and t.data_ptr() % 16 == 0 and all((st[i] % unit == 0 and st[i] > 0) or n[i] == 1
+                                                         for i in range(3))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False) -> str:
-    """The kernel a call goes to, from dtype and shape alone. A call that
-    needs a gradient (``grad``) goes to ``tensor_core`` (bf16, head_dim
-    64/128) or ``f32``, never to ``decode``: only those two forwards write
-    the log-sum-exp the backward reads."""
+    """The kernel a call goes to, from dtype and shape alone: ``decode``
+    for a decode-sized call in f32 or bf16 at head_dim 64/128/256,
+    ``tensor_core`` for bf16 at head_dim 64/128, ``f32`` for the rest. A
+    call that needs a gradient (``grad``) never goes to ``decode``: only
+    the other two forwards write the log-sum-exp the backward reads."""
     _, hq, sq, d = q.shape
-    if not grad and sq * (hq // k.shape[1]) <= DECODE_ROWS:
+    small = sq * (hq // k.shape[1]) <= DECODE_ROWS
+    if not grad and small and q.dtype in DECODE_DTYPES and d in HEAD_DIMS:
         return "decode"
     if q.dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tensor_core"
     return "f32"
+
+
+def _bwd_route(q: torch.Tensor) -> str:
+    """The backward's route, from dtype and shape alone: ``tensor_core``
+    for bf16 at head_dim 64/128, ``cuda_core`` for the rest."""
+    return "tensor_core" if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS else "cuda_core"
 
 
 def live_end(sq: int, causal: bool, q_offset: int, kv_len: int) -> int:
@@ -350,11 +380,13 @@ def launch_route(
     g = hq // hkv
     if route not in ROUTES:
         raise ValueError(f"flash_attention: unknown route {route!r}")
-    if d not in (TC_HEAD_DIMS if route == "tensor_core" else HEAD_DIMS):
-        raise ValueError(f"flash_attention: the {route} route takes head_dim in "
-                         f"{TC_HEAD_DIMS if route == 'tensor_core' else HEAD_DIMS}, got head_dim {d}")
+    dims = {"decode": HEAD_DIMS, "tensor_core": TC_HEAD_DIMS, "f32": F32_HEAD_DIMS}[route]
+    if d not in dims:
+        raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
     if route == "tensor_core" and q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the tensor_core route takes bfloat16, got {q.dtype}")
+    if route == "decode" and q.dtype not in DECODE_DTYPES:
+        raise TypeError(f"flash_attention: the decode route takes float32 or bfloat16, got {q.dtype}")
     if route == "decode" and sq * g > DECODE_ROWS:
         raise ValueError(f"flash_attention: the decode route takes Sq * Hq/Hkv <= {DECODE_ROWS}, got {sq * g}")
     if route == "f32" and g > MAX_GROUP:
@@ -402,7 +434,8 @@ def _check_backward(q: torch.Tensor) -> None:
     if d == 256:
         raise NotImplementedError("flash_attention: no backward at head_dim 256; it waits for the gemma2 slice")
     if q.device.type != "cpu" and d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d}")
+        raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d} "
+                                  "(head_dim 80 and 192 wait for the zamba2 and deepseek-v3 slices)")
 
 
 def attention_backward(
@@ -440,18 +473,28 @@ def launch_backward(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the two backward kernels of ``csrc/flash_attention_bwd.cu``
-    on CUDA tensors, or raise: dK/dV (one block a batch, KV head and key
-    tile, walking the query tiles of the group's heads) and dQ (one block
-    a batch, query head and query tile, walking the live key tiles). f32
-    or bf16 with f32 accumulation, head_dim 64/128, strided q/k/v/out/dout;
+    """Launch a backward route's kernels on CUDA tensors, or raise where
+    the route does not take the call: ``route`` defaults to
+    :func:`_bwd_route`'s choice; naming one is for measurements that hold
+    the two side by side. ``tensor_core`` (bf16, head_dim 64/128): the
+    ``pre``, ``dkdv`` and ``dq`` kernels of
+    ``csrc/flash_attention_bwd_tc.cu``; ``cuda_core`` (f32, bf16 or f16,
+    head_dim 16/32/64/128): the ``dkdv`` and ``dq`` kernels of
+    ``csrc/flash_attention_bwd.cu``. Both take strided q/k/v/out/dout;
     ``lse`` is the forward's (:func:`launch_route` ``with_lse``). The
     gradients are laid out ``[B, S, H, D]`` under their ``[B, H, S, D]``
     views, as the forward's output."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    route = _bwd_route(q) if route is None else route
+    if route not in BWD_KERNELS:
+        raise ValueError(f"flash_attention backward: unknown route {route!r}")
+    if route == "tensor_core" and (q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS):
+        raise ValueError(f"flash_attention backward: the tensor_core route takes bfloat16 at head_dim "
+                         f"{TC_HEAD_DIMS}, got {q.dtype} at head_dim {d}")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention backward: unsupported device {q.device}")
     _check_backward(q)
@@ -474,14 +517,20 @@ def launch_backward(
     lse = lse.contiguous()
     tensors = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    args = (*(t.data_ptr() for t in tensors), lse.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype],
-            b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len,
+    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len,
             build.stream_ptr(q.device))
+    ptrs = tuple(t.data_ptr() for t in tensors)
     lib = build.library()
-    BWD_LAUNCHES["dkdv"].add()
-    build.check("th_flash_bwd_dkdv", lib.th_flash_bwd_dkdv(*args))
-    BWD_LAUNCHES["dq"].add()
-    build.check("th_flash_bwd_dq", lib.th_flash_bwd_dq(*args))
+    if route == "tensor_core":
+        # each 64-row query tile's lse log2 e and D_i, written by the pre kernel
+        stats = torch.empty(b * hq * -(-sq // TC_BWD_TILE) * 2 * TC_BWD_TILE, dtype=torch.float32, device=q.device)
+        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), *tail)
+    else:
+        args = (*ptrs, lse.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail)
+    for kernel in BWD_KERNELS[route]:
+        name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
+        BWD_LAUNCHES[f"{route}/{kernel}"].add()
+        build.check(name, getattr(lib, name)(*args))
     return dq, dk, dv
 
 

@@ -105,17 +105,28 @@ def init_params(
     return out
 
 
+#: numpy extension dtypes (the JAX package's bfloat16 and fp8 types),
+#: which torch cannot take from numpy
+_EXTENSION_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+}
+
+
 def from_numpy(named: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Copy the JAX package's parameters (numpy arrays, e.g.
     ``np.asarray`` of JAX arrays) into torch tensors on ``device``,
-    keeping names and order. ``bfloat16`` arrays are recognised by their
-    dtype name and cross as raw 16-bit words, so no extension dtype
-    package is needed on this side."""
+    keeping names and order. Arrays of numpy's extension dtypes
+    (``bfloat16``, the fp8 types) are recognised by their dtype name and
+    cross as raw words of their width, so no extension dtype package is
+    needed on this side."""
     out: Dict[str, torch.Tensor] = {}
     for name, arr in named.items():
         a = np.ascontiguousarray(arr)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        if a.dtype.name in _EXTENSION_DTYPES:
+            words = a.view(f"uint{8 * a.dtype.itemsize}").copy()
+            t = torch.from_numpy(words).view(_EXTENSION_DTYPES[a.dtype.name])
         else:
             t = torch.from_numpy(a.copy())
         out[name] = t.to(device)

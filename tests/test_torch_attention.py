@@ -6,7 +6,8 @@ kernel ``flash_attention`` in interpret mode at every shape of
 ``tests/test_kernels.py``, and the jnp ``chunked_attention`` of the JAX
 models with ``q_offset``/``kv_len`` at decode and offset-prefill shapes.
 Inputs come from numpy with a seed. Tolerances are ``test_kernels.py``'s:
-2e-5 in f32, 2e-2 in bf16 (relative and absolute, as ``assert_allclose``).
+2e-5 in f32, 2e-2 in bf16 (relative and absolute, as ``assert_allclose``);
+2e-3 in f16 (see ``TOL``).
 """
 
 import numpy as np
@@ -23,7 +24,10 @@ from repro.models.layers import chunked_attention  # noqa: E402
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: f16 (not in test_kernels.py's sweep): both sides compute in f32 and
+#: round once to f16 (2^-11 relative), so they differ by at most one f16
+#: ulp of the output, under 1e-3 of it
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}
 
 #: (b, hq, hkv, sq, sk, d, causal, softcap): tests/test_kernels.py's sweep
 KERNEL_SHAPES = [
@@ -45,6 +49,8 @@ def _inputs(seed, b, hq, hkv, sq, sk, d, dtype="float32"):
     ]
     if dtype == "bfloat16":
         arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    elif dtype == "float16":
+        arrs = [a.astype(np.float16) for a in arrs]
     return arrs
 
 
@@ -82,6 +88,35 @@ def test_plain_equals_pallas_interpret(shape, dtype):
     got = fa.attention_plain(_torch(q), _torch(k), _torch(v), causal=causal, softcap=cap)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, softcap=cap, interpret=True)
     _close(_np(got), want, dtype)
+
+
+#: (b, hq, hkv, sq, sk, d, causal, softcap): the head_dims the reduced
+#: configs give (16, 32) and the model's (64, 128), for f16 and the narrow
+#: heads the f32 route now takes
+NARROW_F16_SHAPES = [
+    (2, 4, 4, 64, 64, 16, True, 0.0),  # launch.train's reduced llama3-8b
+    (2, 8, 2, 77, 77, 16, True, 0.0),
+    (1, 8, 2, 40, 96, 32, False, 0.0),
+    (1, 8, 8, 96, 96, 32, True, 30.0),
+    (1, 16, 4, 64, 64, 64, True, 0.0),
+    (1, 8, 8, 130, 130, 128, True, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float32", "bfloat16"])
+@pytest.mark.parametrize("shape", NARROW_F16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_f16_and_narrow_heads_equal_jax(shape, dtype):
+    """flash_attention (the plain version on the CPU) against the Pallas
+    kernel in interpret mode and attention_ref, in the input dtype."""
+    b, hq, hkv, sq, sk, d, causal, cap = shape
+    q, k, v = _inputs(sq * 5 + d, b, hq, hkv, sq, sk, d, dtype)
+    got = fa.flash_attention(_torch(q), _torch(k), _torch(v), causal=causal, softcap=cap)
+    assert got.dtype == {"float16": torch.float16, "float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    pallas = jax_flash(jq, jk, jv, causal=causal, softcap=cap, interpret=True)
+    assert str(pallas.dtype) == dtype
+    _close(_np(got), pallas.astype(jnp.float32), dtype)
+    _close(_np(got), attention_ref(jq, jk, jv, causal=causal, softcap=cap).astype(jnp.float32), dtype)
 
 
 #: (b, hq, hkv, sq, sk, d, q_offset, kv_len): a decode step against a
@@ -150,8 +185,8 @@ def test_wrapper_refuses_bad_shapes_and_dtypes():
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q, k, v)
     q, k, v = (_torch(a) for a in _inputs(3, 1, 4, 2, 3, 8, 64))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="k = v"):
         fa.flash_attention(q, k, v[:, :, :4])
     with pytest.raises(TypeError, match="unsupported device"):

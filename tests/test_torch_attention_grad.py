@@ -7,8 +7,9 @@ autograd through ``attention_plain``, ``jax.grad`` of the jnp
 ``chunked_attention`` the JAX models train through (with ``q_offset``,
 ``kv_len`` and the softcap) and ``jax.grad`` of the oracle
 ``attention_ref``. Inputs and output cotangents come from numpy with a
-seed; f32 throughout, tolerance 2e-5 (``tests/test_kernels.py``'s f32
-tolerance) relative and absolute, as ``assert_allclose``.
+seed; f32, tolerance 2e-5 (``tests/test_kernels.py``'s f32 tolerance)
+relative and absolute, as ``assert_allclose``; and f16 through the
+Function (``F16_TOL``).
 """
 
 import numpy as np
@@ -108,6 +109,28 @@ def test_function_on_the_cpu_equals_jax_grad_of_chunked_attention(case):
     for g, w in zip(got, want):
         _close(g.numpy(), w)
     _close(out.detach().numpy(), _chunked(kw)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+
+
+#: f16 gradients against jax.grad in f32 of the same f16 values: the
+#: port computes in f32 and rounds each gradient (and the forward's
+#: output, which D_i reads) once to f16, 2^-11 relative; 2e-3 of each
+#: gradient's max |value| holds that with room
+F16_TOL = 2e-3
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_function_in_float16_equals_jax_grad_of_chunked_attention(case):
+    q, k, v, dout = (a.astype(np.float16) for a in _inputs(case, seed=3))
+    kw = _kw(case)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa.flash_attention(*leaves, **kw)
+    assert out.dtype == torch.float16
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    want = _jax_grads(_chunked(kw), *(a.astype(np.float32) for a in (q, k, v, dout)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16
+        w = np.asarray(w)
+        assert np.abs(g.float().numpy() - w).max() <= F16_TOL * np.abs(w).max()
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[8] == 0 and c[9] is None], ids=lambda c: "x".join(map(str, c)))

@@ -27,7 +27,7 @@ from repro.models.layers import chunked_attention  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 TOL = 2e-5
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 
 
 def _meta(b, hq, hkv, sq, sk, d, dtype):
@@ -239,6 +239,7 @@ def _bh(b, h, s, d, dtype=BF16):
     ("f32 rows of 72", lambda: torch.zeros(2, 4, 9, 72)[..., :64], False),
     ("one query: any sequence stride", lambda: torch.zeros(512).as_strided((2, 4, 1, 64), (256, 64, 3, 1)), False),
     ("unit stride missing in D", lambda: _bh(2, 4, 64, 9).transpose(2, 3), True),
+    ("a broadcast gradient: zero strides", lambda: torch.ones(64, dtype=BF16).expand(2, 4, 9, 64), True),
 ])
 def test_aligned_copies_only_what_tma_cannot_read(label, make, copied):
     t = make()
@@ -246,3 +247,52 @@ def test_aligned_copies_only_what_tma_cannot_read(label, make, copied):
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     assert got.data_ptr() % 16 == 0 and got.stride(3) == 1
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 192, 256])
+@pytest.mark.parametrize("sq", [1, 200])
+def test_routes_of_every_dtype_and_head_dim(dtype, d, sq):
+    """The forward's and the backward's route from dtype and shape alone,
+    and what a call on the card does with them (meta tensors take the CUDA
+    branch, so a call the kernels take stops at the device check): head_dim
+    80 and 192 are refused, head_dim 256 has no backward."""
+    q, k = _meta(2, 8, 2, sq, 200, d, dtype)
+    tc = dtype == BF16 and d in (64, 128)
+    decode = sq == 1 and dtype in (F32, BF16) and d in (64, 128, 256)
+    assert fa._route(q, k) == ("decode" if decode else "tensor_core" if tc else "f32")
+    assert fa._route(q, k, grad=True) == ("tensor_core" if tc else "f32")
+    assert fa._bwd_route(q) == ("tensor_core" if tc else "cuda_core")
+    leaves = [q.requires_grad_(), k.requires_grad_(), k.detach().clone().requires_grad_()]
+    if d in (80, 192):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(q.detach(), k.detach(), k.detach())
+        with pytest.raises(NotImplementedError, match="zamba2"):
+            fa.flash_attention(*leaves)
+        return
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.flash_attention(q.detach(), k.detach(), k.detach())
+    if d == 256:
+        with pytest.raises(NotImplementedError, match="gemma2"):
+            fa.flash_attention(*leaves)
+        return
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.flash_attention(*leaves)
+    lse = torch.empty(q.shape[:3], dtype=F32, device="meta")
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.launch_backward(q.detach(), k.detach(), k.detach(), q.detach(), lse, q.detach())
+
+
+@pytest.mark.parametrize("dtype,d", [(F32, 128), (F16, 64), (BF16, 32), (BF16, 16)])
+def test_tensor_core_backward_refuses_what_it_lacks(dtype, d):
+    q, k = _meta(1, 4, 2, 8, 8, d, dtype)
+    lse = torch.empty(q.shape[:3], dtype=F32, device="meta")
+    with pytest.raises(ValueError, match="tensor_core route takes bfloat16"):
+        fa.launch_backward(q, k, k, q, lse, q, route="tensor_core")
+    with pytest.raises(ValueError, match="unknown route"):
+        fa.launch_backward(q, k, k, q, lse, q, route="wgmma")
+
+
+def test_backward_counters_name_each_routes_kernels():
+    assert sorted(fa.BWD_LAUNCHES) == ["cuda_core/dkdv", "cuda_core/dq", "tensor_core/dkdv", "tensor_core/dq",
+                                       "tensor_core/pre"]

@@ -239,8 +239,11 @@ _FLASH_SHAPES = [
     (1, 2, 2, 200, 200, 64, True, 0.0),
     (2, 32, 8, 130, 130, 128, True, 0.0),
 ]
-#: test_kernels.py's tolerances, as assert_allclose (relative and absolute)
-_FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: test_kernels.py's tolerances, as assert_allclose (relative and absolute);
+#: f16 (which test_kernels.py does not sweep) at 2e-3: the kernels compute
+#: in f32 and round once, as the plain version does, and f16's rounding
+#: (2^-11 relative) is 8x finer than bf16's
+_FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 
 
 def _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype):
@@ -312,7 +315,7 @@ def test_flash_kernel_strided_views(dev):
 def test_flash_wrapper_refuses_shapes_the_kernel_lacks(dev):
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 32, torch.float32)
+    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 80, torch.float32)  # zamba2's head_dim waits for its slice
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v)
 
@@ -495,32 +498,104 @@ _BWD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", _BWD_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_backward_kernels_equal_autograd_of_plain(dev, case, dtype):
-    """dQ, dK, dV through the Function (forward route with the
-    log-sum-exp, then the two backward kernels) against autograd through
-    attention_plain, each within test_kernels.py's tolerance of its max
-    |value|."""
-    from repro_torch.kernels import flash_attention as fa
-
+def _backward(fa, case, dtype, dev, route=None):
+    """dQ, dK, dV of one case through the backward ``route`` (the
+    Function's own choice when None), the launches of each backward
+    kernel, and autograd's gradients through attention_plain."""
     b, hq, hkv, sq, sk, d, causal, cap, q_offset, kv_len = case
     kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
     q, k, v = _qkv(dev, sq + d, b, hq, hkv, sq, sk, d, dtype)
     dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
-    route = fa._route(q, k, grad=True)
-    out = _routed(fa, route, lambda: fa.flash_attention(*leaves, **kw))
-    got = torch.autograd.grad(out, leaves, dout)
-    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {"dkdv": 1, "dq": 1}
+    if route is None:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = _routed(fa, fa._route(q, k, grad=True), lambda: fa.flash_attention(*leaves, **kw))
+        got = torch.autograd.grad(out, leaves, dout)
+    else:
+        out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, **kw)
+        got = fa.launch_backward(q, k, v, out, lse, dout, route=route, **kw)
+    launched = {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()}
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    return got, launched, want
+
+
+def _launched_once(fa, route):
+    return {f"{r}/{k}": int(r == route) for r, ks in fa.BWD_KERNELS.items() for k in ks}
+
+
+def _check_grads(got, want, dtype, case):
+    kv_len = case[-1]
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all(), name
         assert _rel_err(g, w) <= _FLASH_TOL[dtype], (name, _rel_err(g, w))
     if kv_len is not None:  # keys past kv_len get no gradient
         assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", _BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_backward_kernels_equal_autograd_of_plain(dev, case, dtype):
+    """dQ, dK, dV through the Function (forward route with the
+    log-sum-exp, then the backward route _bwd_route picks: tensor_core
+    for bf16, cuda_core for f32 and f16) against autograd through
+    attention_plain, each within test_kernels.py's tolerance of its max
+    |value|; a second run gives the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    got, launched, want = _backward(fa, case, dtype, dev)
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert launched == _launched_once(fa, route)
+    _check_grads(got, want, dtype, case)
+    again, _, _ = _backward(fa, case, dtype, dev)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("case", _BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_core_backward_on_bf16(dev, case):
+    """The CUDA-core kernels, named on the bf16 inputs the tensor-core
+    route takes by default, within the same tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+
+    got, launched, want = _backward(fa, case, torch.bfloat16, dev, route="cuda_core")
+    assert launched == _launched_once(fa, "cuda_core")
+    _check_grads(got, want, torch.bfloat16, case)
+
+
+#: narrow heads on the f32 route and the cuda_core backward:
+#: (b, hq, hkv, sq, sk, d, causal, softcap, q_offset, kv_len)
+_NARROW_CASES = [
+    (8, 4, 4, 64, 64, 16, True, 0.0, 0, None),  # launch.train's reduced config
+    (2, 8, 2, 77, 77, 16, True, 0.0, 0, None),
+    (2, 8, 2, 100, 160, 32, False, 0.0, 0, 120),
+    (1, 8, 8, 96, 96, 32, True, 30.0, 0, None),
+    (1, 8, 2, 64, 300, 32, True, 0.0, 200, 264),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("case", _NARROW_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_narrow_head_dims_forward_and_backward(dev, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal, cap, q_offset, kv_len = case
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    q, k, v = _qkv(dev, d + sq, b, hq, hkv, sq, sk, d, dtype)
+    got = _routed(fa, "f32", lambda: fa.flash_attention(q, k, v, **kw))
+    _flash_close(got, fa.attention_plain(q, k, v, **kw), dtype)
+    got, launched, want = _backward(fa, case, dtype, dev)
+    assert launched == _launched_once(fa, "cuda_core")
+    _check_grads(got, want, dtype, case)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_f32_route_in_float16(dev, d):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, d, 2, 16, 4, 130, 130, d, torch.float16)
+    got = _routed(fa, "f32", lambda: fa.flash_attention(q, k, v, softcap=20.0))
+    assert got.dtype == torch.float16
+    _flash_close(got, fa.attention_plain(q, k, v, softcap=20.0), torch.float16)
 
 
 @pytest.mark.parametrize("route,dtype", [("tensor_core", torch.bfloat16), ("f32", torch.float32),
@@ -571,11 +646,48 @@ def test_grpo_step_gradients_on_the_card(dev):
     batch = {"tokens": tokens, "behavior_logprobs": -7 + torch.rand((4, 89), device=dev, generator=g),
              "advantages": torch.randn(4, device=dev, generator=g),
              "loss_mask": torch.arange(89, device=dev)[None, :].expand(4, 89) >= 60}
-    before = fa.BWD_LAUNCHES["dq"].value
+    before = fa.BWD_LAUNCHES["cuda_core/dq"].value
     got, m1 = value_and_grad(make_grpo_loss_fn(DecoderLM(cfg)), params, batch)
-    assert fa.BWD_LAUNCHES["dq"].value - before == cfg.num_layers
+    assert fa.BWD_LAUNCHES["cuda_core/dq"].value - before == cfg.num_layers
     want, m2 = value_and_grad(make_grpo_loss_fn(DecoderLM(cfg, attention=fa.attention_plain)), params, batch)
     torch.testing.assert_close(m1["loss"], m2["loss"], rtol=1e-4, atol=1e-6)
     for n in want:
         assert float(got[n].abs().max()) > 0, n
         assert _rel_err(got[n], want[n]) <= 1e-4, (n, _rel_err(got[n], want[n]))
+
+
+@pytest.mark.parametrize("name", ["uint16", "uint32", "uint64", "float8_e4m3fn", "float8_e5m2", "complex64"])
+def test_wire_dtypes_replicate_on_the_card(dev, name):
+    """Each of the six wire dtypes beyond a model's float and int types,
+    published and replicated raw (dc0) and over int8 (dc1, a passthrough
+    frame) on the card, bit for bit."""
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.core.meta import dtype_from_str
+
+    dt = dtype_from_str(name)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    w = {"w": torch.randint(0, 256, (1024 * dt.itemsize,), dtype=torch.uint8, generator=g, device=dev).view(dt)}
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    trainer = hub.open("m", "trainer", 1, 0, datacenter="dc0")
+    trainer.register({k: t.clone() for k, t in w.items()})
+    trainer.publish(0)
+    for i in range(2):
+        r = hub.open("m", f"rollout-{i}", 1, 0, datacenter=f"dc{i}")
+        r.register({k: torch.zeros_like(t) for k, t in w.items()})
+        assert r.replicate(0, timeout=60) == 0
+        got = r.store.get("w")
+        assert got.dtype == dt and got.device == w["w"].device
+        assert torch.equal(got.view(torch.uint8), w["w"].view(torch.uint8))
+
+
+def test_train_entry_point_at_its_defaults(dev):
+    """python -m repro_torch.launch.train at its defaults (the reduced
+    config: head_dim 16, f32, on the card) for two steps: the f32 route's
+    forward and the cuda_core backward run every layer."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    before = fa.ROUTE_LAUNCHES["f32"].value, fa.BWD_LAUNCHES["cuda_core/dkdv"].value
+    train.main(["--steps", "2"])
+    assert fa.ROUTE_LAUNCHES["f32"].value - before[0] == 2 * 4
+    assert fa.BWD_LAUNCHES["cuda_core/dkdv"].value - before[1] == 2 * 4

@@ -376,6 +376,23 @@ def test_train_entry_point_resumes_where_it_stopped(tmp_path, capsys):
     _assert_port_trees_equal(got, want)
 
 
+def test_train_entry_point_at_its_defaults_on_the_cpu(capsys):
+    """The reduced config's defaults (head_dim 16, f32) for two steps: the
+    card takes them on the f32 route and the cuda_core backward."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    train_main.main(["--device", "cpu", "--steps", "2"])
+    losses = [float(x) for x in re.findall(r"loss (\S+)", capsys.readouterr().out)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    cfg = PORT_LLAMA.reduced()
+    hd = cfg.d_model // cfg.num_heads
+    q = torch.empty((8, cfg.num_heads, 64, hd), device="meta")
+    k = torch.empty((8, cfg.num_kv_heads, 64, hd), device="meta")
+    assert hd == 16 and fa._route(q, k, grad=True) == "f32" and fa._bwd_route(q) == "cuda_core"
+
+
 def test_train_entry_point_takes_llama3_8b_only(capsys):
     with pytest.raises(SystemExit):
         train_main.main(["--arch", "gemma2-9b", "--device", "cpu"])
