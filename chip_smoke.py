@@ -19,15 +19,17 @@ lines, any failure exiting non-zero:
    attention's backward: dQ, dK, dV of the autograd Function (the forward
    route writing the rows' log-sum-exp, then the backward route: the
    three tensor-core kernels of ``flash_attention_bwd_tc.cu`` in bf16, the
-   two CUDA-core kernels of ``flash_attention_bwd.cu`` in f32 and f16 and
-   at head_dim 16/32) against autograd through the plain attention at the
-   GRPO step's shape in bf16, f32 and f16 and at its edges (S = 77, G
-   1/4/8, kv_len < Sk, q_offset > 0, softcap, head_dim 64, 32, 16), each
-   within tests/test_kernels.py's tolerance of the gradient's max |value|
-   and bit-equal on a second run; the log-sum-exp against logsumexp of
-   the plain scores; both backward routes timed on the same bf16 inputs
+   three CUDA-core kernels (pre, dK/dV, dQ) of ``flash_attention_bwd.cu``
+   in f32 and f16 and at head_dim 16/32) against autograd through the
+   plain attention at the GRPO step's shape in bf16, f32 and f16 and at
+   its edges (S = 77, G 1/4/7/8/64, kv_len < Sk with NaN in the dead K/V
+   slots, q_offset > 0, softcap, head_dim 64, 32, 16), each within
+   tests/test_kernels.py's tolerance of the gradient's max |value| and
+   bit-equal on a second run; the log-sum-exp against logsumexp of the
+   plain scores; both backward routes timed on the same bf16 inputs
    beside the plain backward and SDPA's at the training shape, and the
-   CUDA-core route beside SDPA's backward at the f32 training shape.
+   CUDA-core route beside SDPA's backward, and the f32 forward route
+   beside SDPA's forward, at the f32 training shape.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -46,7 +48,8 @@ lines, any failure exiting non-zero:
    trainer's TP-4 units resharded to TP-2; all four kernels' launch
    counters must rise on this path.
 5. Serving at full width: flash attention held against its plain version
-   on each of its three routes (phase 2 above also times each route's
+   on each of its three routes, GQA groups of 7 and 64 and NaN in the dead
+   cache slots included (phase 2 above also times each route's
    kernel at the serving path's prefill and decode shapes beside the f32 route's
    kernel, the plain version and ``scaled_dot_product_attention``); then
    llama3-8b at all 32 layers in bf16 served from a TensorHub replica: a
@@ -81,7 +84,8 @@ lines, any failure exiting non-zero:
    every step must launch the f32 route and the CUDA-core backward.
 8. A ``kernels`` JSON line (launches over phases 3 to 7; flash
    attention's entry carries a ``routes`` field with each route's times,
-   bound and launches; the backward has one entry a route,
+   bound and launches, the ``f32`` route's timed at the f32 training
+   shape at the f32 peak; the backward has one entry a route,
    ``flash_attention_bwd/tensor_core`` timed at the bf16 training shape and
    ``flash_attention_bwd/cuda_core`` at the f32 one), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -863,8 +867,38 @@ NARROW_SHAPES = [
     (2, 8, 2, 100, 160, 32, False, 0.0),
     (1, 8, 8, 96, 96, 32, True, 30.0),
 ]
+#: GQA groups of 7 (yi-34b and deepseek-coder-33b: 56 query heads on 8 KV
+#: heads) and 64 (MAX_GROUP), Sq and Sk off the tile edges:
+#: (b, hq, hkv, sq, sk, d, kw)
+GROUP_SHAPES = [
+    (1, 56, 8, 129, 129, 128, dict(causal=True)),
+    (1, 28, 4, 127, 200, 64, dict(causal=True, q_offset=60, kv_len=187)),
+    (1, 64, 1, 65, 65, 128, dict(causal=True)),
+    (1, 64, 2, 63, 63, 32, dict(causal=True, softcap=30.0)),
+]
+#: calls whose K and V hold NaN in the slots at and past kv_len (a dead
+#: cache slot): no product may read them (b, hq, hkv, sq, sk, d, kw)
+NAN_TAIL_SHAPES = [
+    (2, 32, 8, 256, 400, 128, dict(causal=False, kv_len=300)),
+    (1, 56, 8, 65, 577, 64, dict(causal=True, q_offset=500, kv_len=565)),
+    (2, 8, 2, 100, 160, 32, dict(causal=False, kv_len=120)),
+    (2, 32, 8, 1, 577, 128, dict(causal=True, q_offset=400, kv_len=401)),  # a decode step
+]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
+
+
+def nan_tail(qkv, kv_len: int):
+    """q, k, v with NaN in K and V at and past ``kv_len``, and beside them
+    k and v with zeros there: what the plain version reads (0 x NaN is NaN
+    in its products; the kernels must never read the dead slots)."""
+    q, k, v = qkv
+    kz, vz = k.clone(), v.clone()
+    kz[:, :, kv_len:] = 0
+    vz[:, :, kv_len:] = 0
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    return q, k, v, kz, vz
 
 
 def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
@@ -929,15 +963,21 @@ def flash_checks(torch, dev, bw: float) -> dict:
         for b, hq, hkv, sq, sk, d, causal, cap in KERNEL_SHAPES + NARROW_SHAPES:
             cases[f"test_kernels [{b},{hq}/{hkv},{sq}x{sk},{d}] causal={causal} softcap={cap} {name}"] = (
                 qkv(b, hq, hkv, sq, sk, d, dtype), dict(causal=causal, softcap=cap), name)
+        for b, hq, hkv, sq, sk, d, kw in GROUP_SHAPES:
+            cases[f"G {hq // hkv} [{b},{hq}/{hkv},{sq}x{sk},{d}] {kw} {name}"] = (
+                qkv(b, hq, hkv, sq, sk, d, dtype), dict(kw), name)
+        for b, hq, hkv, sq, sk, d, kw in NAN_TAIL_SHAPES:
+            cases[f"NaN past kv_len [{b},{hq}/{hkv},{sq}x{sk},{d}] {kw} {name}"] = (
+                nan_tail(qkv(b, hq, hkv, sq, sk, d, dtype), kw["kv_len"]), dict(kw), name)
     worst_abs, worst_ratio = 0.0, 0.0
     worst_route = {r: 0.0 for r in fa.ROUTES}
-    for label, ((q, k, v), kw, dname) in cases.items():
+    for label, ((q, k, v, *zeroed), kw, dname) in cases.items():
         route = fa._route(q, k)
         before = fa.LAUNCHES.value, fa.ROUTE_LAUNCHES[route].value
         got = fa.flash_attention(q, k, v, **kw).float()
         check((fa.LAUNCHES.value, fa.ROUTE_LAUNCHES[route].value) == (before[0] + 1, before[1] + 1),
               f"flash kernel not launched on its route ({route}) on {label}")
-        want = fa.attention_plain(q, k, v, **kw).float()
+        want = fa.attention_plain(q, *(zeroed or (k, v)), **kw).float()
         torch.cuda.synchronize()
         tol = FLASH_TOL[dname]
         diff = (got - want).abs()
@@ -1000,11 +1040,11 @@ def flash_checks(torch, dev, bw: float) -> dict:
         "decode": dict(source=csrc + "flash_decode.cu", timed_shape=dec["shape"] + " (decode step, kv_len 576)",
                        ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                        library_ms=dec["sdpa_ms"], err_over_tol=worst_route["decode"]),
-        "f32": dict(source=csrc + "flash_attention.cu",
-                    timed_shape="the prefill and decode inputs above",
-                    ms=pre["f32_route_ms"], decode_ms=dec["f32_route_ms"], plain_ms=pre["plain_ms"],
-                    bound_ms=pre["bound_ms"], bound_by=pre["bound_by"], library_ms=pre["sdpa_ms"],
-                    err_over_tol=worst_route["f32"]),
+        # its own times (the f32 training shape at the f32 peak) come from
+        # phase 2's backward checks (main); the bf16 serving inputs' beside
+        "f32": dict(source=csrc + "flash_attention.cu", err_over_tol=worst_route["f32"],
+                    on_bf16_serving_inputs=dict(prefill_ms=pre["f32_route_ms"], decode_ms=dec["f32_route_ms"],
+                                                prefill_bound_ms_bf16_peak=pre["bound_ms"])),
     }
     return {
         "flash_attention": dict(
@@ -1088,6 +1128,11 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             2, 32, 8, 64, 320, 128, dtype, dict(q_offset=200, kv_len=264))
         cases[f"softcap 50 [2,16/8,256,128] causal {name}"] = (2, 16, 8, 256, 256, 128, dtype, dict(softcap=50.0))
         cases[f"head_dim 64 [2,32/8,300,64] causal {name}"] = (2, 32, 8, 300, 300, 64, dtype, {})
+        for b, hq, hkv, sq, sk, d, kw in GROUP_SHAPES:
+            cases[f"G {hq // hkv} [{b},{hq}/{hkv},{sq}x{sk},{d}] {kw} {name}"] = (b, hq, hkv, sq, sk, d, dtype, kw)
+        for b, hq, hkv, sq, sk, d, kw in NAN_TAIL_SHAPES:
+            cases[f"NaN past kv_len [{b},{hq}/{hkv},{sq}x{sk},{d}] {kw} {name}"] = (
+                b, hq, hkv, sq, sk, d, dtype, dict(kw, nan_tail=True))
     for dtype, name in ((f32, "float32"), (bf16, "bfloat16"), (f16, "float16")):
         for b, hq, hkv, sq, sk, d, causal, cap in NARROW_SHAPES:
             cases[f"head_dim {d} [{b},{hq}/{hkv},{sq}x{sk}] causal={causal} softcap={cap} {name}"] = (
@@ -1099,6 +1144,9 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
         kw = dict(dict(causal=True), **kw)
         q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
+        kz, vz = k, v  # what the plain version reads
+        if kw.pop("nan_tail", False):
+            q, k, v, kz, vz = nan_tail((q, k, v), kw["kv_len"])
         dout = rand(q.shape, dtype)
         route, bwd_route = fa._route(q, k, grad=True), fa._bwd_route(q)
 
@@ -1114,7 +1162,7 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
 
         got = grads()
         again = grads()
-        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
         want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
         torch.cuda.synchronize()
         tol = FLASH_TOL[str(dtype).split(".")[1]]
@@ -1128,7 +1176,7 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
              finite=finite, bit_equal_rerun=same)
         check(finite and max(errs.values()) <= tol, f"backward kernels != autograd of the plain version on {label}")
         check(same, f"two runs of the {bwd_route} backward differ on {label}")
-        del q, k, v, dout, got, again, ref, want
+        del q, k, v, kz, vz, dout, got, again, ref, want
     torch.cuda.empty_cache()
 
     # the log-sum-exp the forwards write for the backward
@@ -1753,7 +1801,10 @@ def main() -> int:
     kernels.update(reshard_kernel_checks(torch, dev, bw))
     kernels.update(flash_checks(torch, dev, bw))
     bwd = flash_backward_checks(torch, dev, bw)
-    kernels["flash_attention"]["routes"]["f32"]["training_shape_f32"] = bwd.pop("f32_route_training_shape")
+    f32 = bwd.pop("f32_route_training_shape")
+    kernels["flash_attention"]["routes"]["f32"].update(
+        timed_shape=f32["shape"], ms=f32["ms"], warm_device_ms=f32["warm_device_ms"]["kernel"],
+        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"])
     kernels["flash_attention"]["lse_err_over_tol"] = bwd.pop("lse_err_over_tol")
     kernels.update(bwd)
     phase_s["2 kernels"] = time.perf_counter() - t0

@@ -61,13 +61,12 @@ SIGNATURES = {
     #  f32 scratch, int32 split counters, stream)
     "th_flash_decode": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
                         _INT, _INT, _P, _P, _P),
-    # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], strides int64[24] on
-    #  the host, dtype code, B, Hq, Hkv, Sq, Sk, D, causal, softcap,
-    #  q_offset, kv_len, stream); both backward kernels take the same
-    "th_flash_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                          _INT, _F32, _INT, _INT, _P),
-    "th_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                        _INT, _F32, _INT, _INT, _P),
+    # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
+    #  B*Hkv*nsub2*128, strides int64[24] on the host, dtype code, B, Hq, Hkv,
+    #  Sq, Sk, D, causal, softcap, q_offset, kv_len, stream); the three
+    #  CUDA-core backward kernels take the same
+    **{f"th_flash_bwd_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                             _INT, _F32, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, causal,
     #  softcap, q_offset, kv_len, stream); bf16, D in {64, 128}; the three

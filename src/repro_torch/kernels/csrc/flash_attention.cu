@@ -1,5 +1,7 @@
 // Flash attention (online softmax) for Hopper, f32 arithmetic on the CUDA
-// cores.
+// cores: the `f32` route, which takes every call the tensor-core and
+// decode routes do not (f32 and f16 throughout, bf16 at head_dim 16, 32
+// and 256, decode-sized calls a caller names it for).
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention/kernel.py, _flash_kernel). For query
@@ -10,46 +12,65 @@
 //   out = softmax(s) v                     online: m, l, acc in f32
 // with the TPU kernel's numerics: -1e30 (not -inf) for masked scores,
 // alpha = exp(m_prev - m_cur), l = l * alpha + sum(p), and the final
-// acc / max(l, 1e-30), rounded once to the input dtype. With q_offset = 0
+// acc / max(l, 1e-30), rounded once to the input dtype; exp is __expf
+// (ex2.approx of a prescaled argument: a few ulp where p matters, well
+// inside the route's 2e-5). With q_offset = 0
 // and kv_len = Sk it computes what the TPU kernel computes; the two
 // runtime arguments are what the model's decode step needs (one query at
 // position cache_len against a cache of which cache_len + 1 slots hold
 // keys).
 //
-// Bound: at the serving path's prefill shape (16 x 32 heads x 512 x 128,
-// bf16, causal) the work is 34.4 GFLOP of live q.k pairs against 168 MB of
-// q, k, v and o: operations, 0.035 ms at the tensor cores' 989 TFLOP/s
-// against 0.050 ms for the bytes at 3.35 TB/s, so the bytes bound it by a
-// hair; the decode step (one query a head, 37.7 MB of cache at kv_len 576)
-// is bound by bytes alone. This first version does not chase either bound:
-// it computes in f32 FMAs on the CUDA cores (67 TFLOP/s at most), so it is
-// bound by operations and by shared-memory reads, far from both bounds.
-// `wgmma` and TMA are the next version's work.
+// Bound: at the f32 training shape (q [16, 32, 576, 128], k/v
+// [16, 8, 576, 128], causal) two products of 2 D FLOPs over 85 M live
+// (query, key) pairs are 43.5 GFLOP, 0.650 ms at the CUDA cores' 67
+// TFLOP/s, against 0.151 GB of q, k, v and o, 0.045 ms at 3.35 TB/s: it
+// is bound by operations. The products stay f32 FMAs (the f32 contract is
+// 2e-5; the tensor cores take f32 only as TF32, three decimal digits).
 //
 // Design. The TPU kernel carries m, l and acc in VMEM across a sequential
-// grid axis over key tiles; Hopper blocks run in no order, so here one
-// block of 256 threads owns a tile of 64 query rows and loops over the key
-// tiles itself, with m and l in registers and each K/V tile staged through
-// shared memory as f32. The G query heads that share a KV head are packed
-// into the same tile (row r is query i0 + r / G of head hk * G + r % G), so
-// each K/V tile loaded serves all of them, and a decode step (Sq = 1) fills
-// G of the 64 rows rather than 1. A block loops only over the key tiles
-// that hold a live key: tiles at or past kv_len, and (causal) past the
-// tile's last query position, are skipped, not masked, so a decode step's
-// cost follows cache_len, not the cache's length. Within a tile a 16 x 16
-// thread grid computes the 64 x BK scores (4 x BK/16 a thread, from Q and
-// K stored transposed so both operands are vector loads), reduces row max
-// and row sum over the 16 threads that share a row by shuffles, writes
-// P transposed to shared memory and accumulates P V into 4 x D/16 outputs
-// a thread. Causal blocks with the most key tiles are launched first.
-// f32, bf16 and f16 at head_dim 16, 32, 64, 128 and 256: the outputs'
-// columns follow RowCols (vec.cuh), 4-wide groups 64 apart from head_dim
-// 64 up and one group of D/16 columns a thread below it (the training
-// entry point's reduced config has head_dim 16), so D is never padded.
+// grid axis over key tiles; Hopper blocks run in no order, so one block of
+// 256 threads owns a tile of BQ packed query rows and loops over the key
+// tiles itself:
+//  * The G query heads that share a KV head are packed into the tile
+//    (packed_row, vec.cuh: 64-row sub-tiles of 64 / G positions x G
+//    heads), so each K/V tile loaded serves all of them.
+//  * Copies are asynchronous: Q once, then K and V tiles of BK keys
+//    through a ring of two stages by 16-byte cp.async, so tile t + 1
+//    arrives while tile t computes. Keys at or past the live end are
+//    filled with zeros by the copy itself (src-size 0), so a dead cache
+//    slot's NaN never reaches a product.
+//  * Tiles are kept row-major in the 16-byte-chunk XOR swizzle (Swz,
+//    vec.cuh) and unpadded, which is what lets BQ = 128, two K/V stages,
+//    the P tile and the rows' alpha and l fit 227 KB at head_dim 128 in
+//    f32 (231,424 bytes).
+//  * 8 x 8 register micro-tiles, so each float a thread loads from shared
+//    memory feeds 4 FMAs: an SM's shared memory delivers 128 bytes a clock
+//    to its 128 FMA lanes, and a 8 x 4 tile (2.7 FMAs a float) would
+//    leave a third of them idle. A 128 x 64 score tile is 32 scores a
+//    thread, so the block's two halves each sum it over half of D (rows
+//    hx + 16a, keys tx + 8c, 8 x 8 a thread; nt_product) and trade the
+//    partial sums of each other's rows through the P tile; each half then
+//    finalizes 4 of a thread's rows: masks, the row max and sum over the 8
+//    lanes of a row by shuffles, the online-softmax update of m and l, P
+//    into the P tile transposed (P[key][slot], slot 8 hx + a; pitch BQ + 4,
+//    so a quarter warp's 16-byte stores of 8 keys fall on 8 bank groups)
+//    and the row's alpha into a vector. All 256 threads then rescale and
+//    accumulate P V, 8 rows (slots 8 ty + a) x 8 RowCols columns a thread
+//    (nn_product; 4-wide groups 64 apart from head_dim 64 up, one group of
+//    D/16 below it, so head_dim 16 and 32 are not padded). Three barriers
+//    a tile.
+//  * A block loops only over the key tiles that hold a live key: tiles at
+//    or past kv_len, and (causal) past the tile's last query position, are
+//    skipped, not masked, so a decode step's cost follows cache_len. Causal
+//    blocks with the most key tiles are launched first.
+// Tile plan (the same for f32, bf16 and f16; 16-bit tiles keep their
+// type in shared memory and convert as they are read): BQ 128 rows and BK
+// 64 keys at head_dim 16-128 (BQ 64 where the whole call is one sub-tile,
+// a decode step's size), BQ 64 and BK 32 at head_dim 256.
 //
 // Inputs are strided in batch, head and sequence (unit stride in D), so
-// the wrapper hands over views without copies; each row must be aligned
-// for the 4-element vector loads. Keys past the live range load as zeros.
+// the wrapper hands over views without copies; each row must be 16-byte
+// aligned for the copies (the wrapper's _aligned).
 //
 // For the backward (flash_attention_bwd.cu) the kernel also writes each
 // row's log-sum-exp, m + log(max(l, 1e-30)) in f32, to lse [B, Hq, Sq]
@@ -62,9 +83,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid
-constexpr int kBQ = 64;        // packed query rows a block
-constexpr int kPad = 4;        // floats of padding on transposed rows
+constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -74,208 +93,241 @@ struct Params {
   void* o;
   float* lse;  // [B, Hq, Sq] or null
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, sequence
-  int hkv, group, sq, q_per_tile, num_q_tiles, causal, q_offset, kv_len;
-  float scale, softcap;
+  int hkv, group, sq, qpt, ntiles, causal, q_offset, kv_len;
+  float inv_group, scale, softcap;
 };
 
-template <int D, int BK>
+// Q [BQ][D], K and V [2][BK][D] (T, swizzled), P^T [BK][BQ + 4] (f32),
+// and each row's alpha and l (f32, by slot)
+template <typename T, int D, int NSUB, int BK>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t(D) * (kBQ + kPad) + size_t(D) * (BK + kPad) + size_t(BK) * D + size_t(BK) * (kBQ + kPad));
+  return sizeof(T) * (size_t(kSub) * NSUB * D + 4 * size_t(BK) * D) +
+         sizeof(float) * (size_t(BK) * (kSub * NSUB + 4) + 2 * size_t(kSub) * NSUB);
 }
 
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
-  constexpr int RN = BK / 16;   // score columns a thread
-  using C = RowCols<D>;         // output columns a thread
-  constexpr int QP = kBQ + kPad;
-  constexpr int KP = BK + kPad;
+template <typename T, int D, int NSUB, int BK>
+__global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
+  constexpr int BQ = kSub * NSUB;
+  constexpr int RA = BQ / 16;  // rows a thread: hx + 16a in the scores, slots RA ty + a in P V
+  constexpr int RC = BK / 8;   // keys a thread of a half: tx + 8c
+  constexpr int FA = RA / 2;   // rows a thread finalizes: a in [FA h, FA h + FA)
+  constexpr int PP = BQ + 4;   // pitch of the P^T tile
+  using C = RowCols<D>;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][QP]  Q transposed
-  float* kt = qt + D * QP;                      // [D][KP]  K tile transposed
-  float* vs = kt + D * KP;                      // [BK][D]  V tile
-  float* pt = vs + BK * D;                      // [BK][QP] P transposed
+  T* qs = reinterpret_cast<T*>(smem4);
+  T* kbuf = qs + BQ * D;
+  T* vbuf = kbuf + 2 * BK * D;
+  float* pt = reinterpret_cast<float*>(vbuf + 2 * BK * D);  // [BK][PP]: P^T[key][slot]
+  float* alpha_s = pt + BK * PP;                            // [BQ] by slot
+  float* l_s = alpha_s + BQ;                                // [BQ] by slot
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int nbkv = gridDim.x / p.num_q_tiles;
+  const int h = tid / 128;                      // warp-uniform: the half of D this thread's scores sum
+  const int hx = (tid % 128) / 8, tx = tid % 8;  // scores: rows hx + 16a, keys tx + 8c
+  const int ty = tid / 16, cx = tid % 16;        // P V: row slots RA ty + a (rows ty + 16a), RowCols columns of cx
+  const int nbkv = gridDim.x / p.ntiles;
   const int bkv = blockIdx.x % nbkv;
-  const int qtile = p.num_q_tiles - 1 - blockIdx.x / nbkv;  // longest causal tiles first
+  const int tile = p.ntiles - 1 - blockIdx.x / nbkv;  // longest causal tiles first
   const int b = bkv / p.hkv, hk = bkv % p.hkv;
-  const int i0 = qtile * p.q_per_tile;
-  const int rows = p.q_per_tile * p.group;
+  const int sub0 = tile * NSUB;
 
-  const T* qg = static_cast<const T*>(p.q);
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
   const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
 
-  // Q tile, transposed into qt[d][r]; rows past the queries load zeros
-  for (int idx = tid; idx < kBQ * (D / 4); idx += kThreads) {
-    const int r = idx % kBQ, d = (idx / kBQ) * 4;
-    const int i = i0 + r / p.group;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && i < p.sq) {
-      const int h = hk * p.group + r % p.group;
-      x = load4(qg + b * p.qs[0] + h * p.qs[1] + i * p.qs[2] + d);
-    }
-    qt[(d + 0) * QP + r] = x.x;
-    qt[(d + 1) * QP + r] = x.y;
-    qt[(d + 2) * QP + r] = x.z;
-    qt[(d + 3) * QP + r] = x.w;
-  }
-
-  int qpos[4];  // positions of this thread's four rows
-#pragma unroll
-  for (int a = 0; a < 4; ++a) qpos[a] = p.q_offset + i0 + (ty * 4 + a) / p.group;
-
   // live keys: [0, kv_end); tiles past it are skipped (the TPU kernel's `live`)
-  const int i_last = min(p.sq, i0 + p.q_per_tile) - 1;
-  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + i_last + 1) : p.kv_len;
+  const int pos_end = min(p.sq, (sub0 + NSUB) * p.qpt);
+  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
   const int ntiles = (kv_end + BK - 1) / BK;
 
-  float m[4], l[4], acc[4][C::kPer];
+  copy_tile<T, D, BQ, kThreads>(qs, [&](int r) -> const T* {
+    int g, i;
+    if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i)) return nullptr;
+    return qg + g * p.qs[1] + i * p.qs[2];
+  }, qg);
+  auto copy_kv = [&](int t, int stage) {
+    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
+  };
+  copy_kv(0, 0);
+  cp_async_commit();
+
+  // the rows this thread finalizes, hx + 16 (FA h + i): positions (padding
+  // rows see no key), running max and sum
+  int qpos[FA];
+  float m[FA], l[FA];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
+  for (int i = 0; i < FA; ++i) {
+    const int r = hx + 16 * (FA * h + i);
+    int g, pos;
+    qpos[i] = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, pos) ? p.q_offset + pos : -1;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float acc[RA][C::kPer];
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
-  }
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the last tile's reads are done (and qt is visible)
-    for (int idx = tid; idx < BK * (D / 4); idx += kThreads) {
-      const int j = idx % BK, d = (idx / BK) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < kv_end) x = load4(kg + (k0 + j) * p.ks[2] + d);
-      kt[(d + 0) * KP + j] = x.x;
-      kt[(d + 1) * KP + j] = x.y;
-      kt[(d + 2) * KP + j] = x.z;
-      kt[(d + 3) * KP + j] = x.w;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1's stage, pt and alpha_s
+    if (t + 1 < ntiles) {
+      copy_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
     }
-    for (int idx = tid; idx < BK * (D / 4); idx += kThreads) {
-      const int j = idx / (D / 4), d = (idx % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < kv_end) x = load4(vg + (k0 + j) * p.vs[2] + d);
-      *reinterpret_cast<float4*>(vs + j * D + d) = x;
+    const T* kt = kbuf + (t & 1) * BK * D;
+    const T* vt = vbuf + (t & 1) * BK * D;
+
+    // partial scores over this half of D, 8 x 8 (RA x RC) a thread
+    float s[RA][RC];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) s[a][c] = 0.f;
+    nt_product<T, D, D / 2, RA, RC, 16, 8>(s, qs, hx, kt, tx, h * (D / 2));
+
+    // the other half's rows' partials go through pt; this half's come back
+    float f[FA][RC];
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      float o[FA];
+#pragma unroll
+      for (int i = 0; i < FA; ++i) o[i] = h ? s[i][c] : s[FA + i][c];
+      store_n<FA>(pt + (tx + 8 * c) * PP + RA * hx + FA * (1 - h), o);
     }
     __syncthreads();
-
-    // scores of rows ty*4 + a, columns tx*RN + c
-    float s[4][RN];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int c = 0; c < RC; ++c) {
+      float o[FA];
+      load_n<FA>(pt + (tx + 8 * c) * PP + RA * hx + FA * h, o);
 #pragma unroll
-      for (int c = 0; c < RN; ++c) s[a][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * QP + ty * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      float kv[RN];
-      if constexpr (RN == 4) {
-        const float4 kb = *reinterpret_cast<const float4*>(kt + d * KP + tx * 4);
-        kv[0] = kb.x; kv[1] = kb.y; kv[2] = kb.z; kv[3] = kb.w;
-      } else {
-        const float2 kb = *reinterpret_cast<const float2*>(kt + d * KP + tx * 2);
-        kv[0] = kb.x; kv[1] = kb.y;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) s[a][c] = fmaf(qv[a], kv[c], s[a][c]);
+      for (int i = 0; i < FA; ++i) f[i][c] = (h ? s[FA + i][c] : s[i][c]) + o[i];
     }
 
+    // scale and softcap (one branch a tile), then the online softmax of the
+    // finalized rows; the 8 threads of a row are lanes 8k .. 8k + 7 of a
+    // warp (they differ in tx only). exp is __expf, ex2.approx of a
+    // prescaled argument (relative error ~2^-21 where p matters)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int i = 0; i < FA; ++i)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) f[i][c] *= p.scale;
+    if (p.softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < FA; ++i)
+#pragma unroll
+        for (int c = 0; c < RC; ++c) f[i][c] = p.softcap * tanhf(f[i][c] / p.softcap);
+    }
+#pragma unroll
+    for (int i = 0; i < FA; ++i) {
       float rmax = kNegInf;
 #pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        float x = s[a][c] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        const int kpos = k0 + tx * RN + c;
-        const bool ok = kpos < p.kv_len && (!p.causal || kpos <= qpos[a]);
-        s[a][c] = ok ? x : kNegInf;
-        rmax = fmaxf(rmax, s[a][c]);
+      for (int c = 0; c < RC; ++c) {
+        const int kpos = k0 + tx + 8 * c;
+        const bool ok = kpos < p.kv_len && (p.causal ? kpos <= qpos[i] : qpos[i] >= 0);
+        f[i][c] = ok ? f[i][c] : kNegInf;
+        rmax = fmaxf(rmax, f[i][c]);
       }
-      // the 16 threads of a row are one half warp (lanes differ in tx only)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xFFFFFFFFu, rmax, off));
-      const float m_cur = fmaxf(m[a], rmax);
+      for (int off = 4; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xFFFFFFFFu, rmax, off));
+      const float m_cur = fmaxf(m[i], rmax);
       float rsum = 0.f;
 #pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        s[a][c] = expf(s[a][c] - m_cur);
-        rsum += s[a][c];
+      for (int c = 0; c < RC; ++c) {
+        f[i][c] = __expf(f[i][c] - m_cur);
+        rsum += f[i][c];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xFFFFFFFFu, rsum, off);
-      const float alpha = expf(m[a] - m_cur);
-      l[a] = l[a] * alpha + rsum;
-      m[a] = m_cur;
+      for (int off = 4; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xFFFFFFFFu, rsum, off);
+      const float alpha = __expf(m[i] - m_cur);
+      l[i] = l[i] * alpha + rsum;
+      m[i] = m_cur;
+      if (tx == 0) alpha_s[RA * hx + FA * h + i] = alpha;
+    }
 #pragma unroll
-      for (int c = 0; c < C::kPer; ++c) acc[a][c] *= alpha;
+    for (int c = 0; c < RC; ++c) {
+      float o[FA];
 #pragma unroll
-      for (int c = 0; c < RN; ++c) pt[(tx * RN + c) * QP + ty * 4 + a] = s[a][c];
+      for (int i = 0; i < FA; ++i) o[i] = f[i][c];
+      store_n<FA>(pt + (tx + 8 * c) * PP + RA * hx + FA * h, o);
     }
     __syncthreads();
 
-    // acc[a][g*W + e] += sum_j P[row a][j] * V[j][C::col(g, tx) + e]
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pp = *reinterpret_cast<const float4*>(pt + j * QP + ty * 4);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
+    // acc[a] = acc[a] * alpha + sum_j P[row a][j] * V[j][C::col(g, cx) + e]
+    float al[RA];
+    load_n<RA>(alpha_s + RA * ty, al);
 #pragma unroll
-      for (int g = 0; g < C::kGroups; ++g) {
-        float vv[C::kW];
-        load_n<C::kW>(vs + j * D + C::col(g, tx), vv);
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int e = 0; e < C::kW; ++e) acc[a][g * C::kW + e] = fmaf(pv[a], vv[e], acc[a][g * C::kW + e]);
-      }
-    }
+      for (int c = 0; c < C::kPer; ++c) acc[a][c] *= al[a];
+    nn_product<T, D, RA, PP, BK>(acc, pt, RA * ty, vt, cx);
   }
 
+  // the finalizing threads hold m and l: the lse, and l for the P V threads
+#pragma unroll
+  for (int i = 0; i < FA; ++i) {
+    const int r = hx + 16 * (FA * h + i);
+    const float den = fmaxf(l[i], 1e-30f);
+    if (tx != 0) continue;
+    l_s[RA * hx + FA * h + i] = den;
+    int g, pos;
+    if (p.lse != nullptr && packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, pos))
+      p.lse[(static_cast<long long>(b) * p.hkv * p.group + hk * p.group + g) * p.sq + pos] = m[i] + logf(den);
+  }
+  __syncthreads();
   T* og = static_cast<T*>(p.o);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty * 4 + a;
-    const int i = i0 + r / p.group;
-    if (r >= rows || i >= p.sq) continue;
-    const int h = hk * p.group + r % p.group;
-    const float den = fmaxf(l[a], 1e-30f);
-    // m and l are the same in the 16 threads of the row
-    if (p.lse != nullptr && tx == 0) p.lse[(static_cast<long long>(b) * p.hkv * p.group + h) * p.sq + i] = m[a] + logf(den);
-    T* orow = og + b * p.os[0] + h * p.os[1] + i * p.os[2];
+  for (int a = 0; a < RA; ++a) {
+    const int r = ty + 16 * a;  // slot RA ty + a
+    int g, i;
+    if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i)) continue;
+    const int hh = hk * p.group + g;
+    const float den = l_s[RA * ty + a];
+    T* orow = og + b * p.os[0] + hh * p.os[1] + i * p.os[2];
 #pragma unroll
-    for (int g = 0; g < C::kGroups; ++g) {
+    for (int gc = 0; gc < C::kGroups; ++gc) {
       float x[C::kW];
 #pragma unroll
-      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] / den;
-      store_n<C::kW>(orow + C::col(g, tx), x);
+      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][gc * C::kW + e] / den;
+      store_n<C::kW>(orow + C::col(gc, cx), x);
     }
   }
 }
 
-template <typename T, int D, int BK>
-int launch(const Params& p, int blocks, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D, BK>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, BK>,
+template <typename T, int D, int NSUB, int BK>
+int launch(Params p, int nsub, int bkv, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<T, D, NSUB, BK>();
+  static_assert(bytes <= 232448, "a block's shared memory on sm_90");
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, NSUB, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_kernel<T, D, BK><<<blocks, kThreads, bytes, stream>>>(p);
+  p.ntiles = (nsub + NSUB - 1) / NSUB;
+  flash_kernel<T, D, NSUB, BK><<<p.ntiles * bkv, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tile plan a head_dim: BQ 128 rows (64 for a call of one sub-tile)
+// and BK 64 keys up to head_dim 128, BQ 64 and BK 32 at 256
+template <typename T, int D>
+int plan(const Params& p, int nsub, int bkv, cudaStream_t stream) {
+  if constexpr (D == 256) {
+    return launch<T, D, 1, 32>(p, nsub, bkv, stream);
+  } else {
+    return nsub == 1 ? launch<T, D, 1, 64>(p, nsub, bkv, stream) : launch<T, D, 2, 64>(p, nsub, bkv, stream);
+  }
+}
+
 template <typename T>
-int dispatch(const Params& p, int d, int blocks, cudaStream_t stream) {
+int dispatch(const Params& p, int d, int nsub, int bkv, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16, 64>(p, blocks, stream);
-    case 32: return launch<T, 32, 64>(p, blocks, stream);
-    case 64: return launch<T, 64, 64>(p, blocks, stream);
-    case 128: return launch<T, 128, 64>(p, blocks, stream);
-    case 256: return launch<T, 256, 32>(p, blocks, stream);
+    case 16: return plan<T, 16>(p, nsub, bkv, stream);
+    case 32: return plan<T, 32>(p, nsub, bkv, stream);
+    case 64: return plan<T, 64>(p, nsub, bkv, stream);
+    case 128: return plan<T, 128>(p, nsub, bkv, stream);
+    case 256: return plan<T, 256>(p, nsub, bkv, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -306,20 +358,22 @@ extern "C" int th_flash_attention(const void* q, const void* k, const void* v, v
   }
   p.hkv = hkv;
   p.group = hq / hkv;
+  if (p.group < 1 || p.group > kSub) return static_cast<int>(cudaErrorInvalidValue);
   p.sq = sq;
-  p.q_per_tile = kBQ / p.group;
-  p.num_q_tiles = (sq + p.q_per_tile - 1) / p.q_per_tile;
+  p.qpt = kSub / p.group;
+  p.inv_group = 1.f / static_cast<float>(p.group);
+  const int nsub = (sq + p.qpt - 1) / p.qpt;
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
   p.softcap = softcap;
-  const int blocks = p.num_q_tiles * batch * hkv;
+  const int bkv = batch * hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch<float>(p, d, blocks, s);
-    case 1: return dispatch<__nv_bfloat16>(p, d, blocks, s);
-    case 2: return dispatch<__half>(p, d, blocks, s);
+    case 0: return dispatch<float>(p, d, nsub, bkv, s);
+    case 1: return dispatch<__nv_bfloat16>(p, d, nsub, bkv, s);
+    case 2: return dispatch<__half>(p, d, nsub, bkv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,43 +20,67 @@
 // with the forward's masks: key j is live for row i when j < kv_len and
 // (causal) j <= q_offset + i; a masked pair contributes nothing (its P is
 // 0). Keys past kv_len get zero gradients. What attention_backward_plain
-// (kernels/flash_attention/__init__.py) computes in plain PyTorch.
+// (kernels/flash_attention/__init__.py) computes in plain PyTorch; exp is
+// __expf (ex2.approx of a prescaled argument, a few ulp where P matters),
+// and under a softcap 1 - t^2 is taken from s_c as 1 - (s_c / c)^2.
 //
-// Bound: at the training step's shape (q [16, 32, 576, 128], k/v
-// [16, 8, 576, 128], bf16, causal) five products of 2 D FLOPs a live
-// (query, key) pair over 85 M live pairs are 0.109 TFLOP, 0.110 ms at the
-// tensor cores' 989 TFLOP/s; q, o, dO, dQ, k, v, dK, dV and the lse once
-// each are 379 MB, 0.113 ms at 3.35 TB/s. This first version does not
-// chase either bound: its products run as f32 FMAs on the CUDA cores
-// (67 TFLOP/s at most) and it recomputes S and dP in both kernels (seven
-// products, not five), so it is bound by operations and shared-memory
-// reads, far from both bounds. wgmma and TMA are a later version's work.
+// Bound: at the f32 training shape (q [16, 32, 576, 128], k/v
+// [16, 8, 576, 128], causal) five products of 2 D FLOPs a live (query,
+// key) pair over 85 M live pairs are 0.109 TFLOP, 1.625 ms at the CUDA
+// cores' 67 TFLOP/s; the bytes (q, o, dO, dQ, k, v, dK, dV and the lse
+// once each, 0.30 GB) take 0.09 ms: it is bound by operations. The
+// products stay f32 FMAs (the f32 contract is 2e-5; the tensor cores take
+// f32 only as TF32). This design computes seven products (S and dP in
+// both the dK/dV and the dQ kernel), a floor of 2.27 ms at peak: handing
+// dQ between key tiles would need atomics (results that depend on the
+// order blocks run in) or 1.5 GB of partials, and writing dS out for a
+// second pass needs scratch that grows with Sq x Sk.
 //
-// Design. No atomics, so the result is deterministic: two kernels, each
-// owning its outputs.
-//  * dK/dV: one block of 256 threads a (batch, KV head, 64-key tile). It
-//    holds its K and V tiles in shared memory and dK, dV in registers,
-//    and walks the 64-row query tiles of the group's G heads that can
-//    see its keys (causal: from the first tile whose last row reaches
-//    the tile's first key). Per query tile it loads Q and dO, computes
-//    D_i of its rows on the fly from dO and the forward's output O, then
-//    the score tile S and dP, P and dS into shared memory, and
-//    accumulates dV += P^T dO and dK += dS^T Q.
-//  * dQ: one block a (batch, query head, 64-row query tile). It holds Q
-//    and dO (and lse, D_i) in shared memory and dQ in registers, and
-//    walks the key tiles up to the causal / kv_len edge (tiles past it
-//    are skipped, as in the forward), accumulating dQ += dS K.
-// Tiles are row-major in shared memory with 4 floats of padding a row, so
-// a 16-byte load of 8 consecutive rows hits 8 different bank groups. A
-// thread of the 16 x 16 grid scores rows ty*4 + a against keys tx + 16c
-// (a, c < 4), and accumulates rows ty*4 + a against its columns of
-// RowCols (vec.cuh): tx*4 + 64g from head_dim 64 up, one group of D/16
-// below it, so head_dim 16 and 32 are not padded.
-// The longest blocks are launched first (small key tiles for dK/dV, late
-// query tiles for dQ).
+// Design. No atomics, so the result is deterministic (two runs give the
+// same bits): three kernels in stream order, each owning its outputs.
+//  1. pre: D_i = rowsum(dO * O) once a row (a group of up to 32 lanes a
+//     row), written with the forward's lse into a stats scratch in the
+//     packed-row order of the tiles (packed_row, vec.cuh: a 64-row
+//     sub-tile is 64 / G positions x the G heads of a KV head), 512 bytes
+//     a sub-tile (lse [64], then D_i [64]), so a tile's row statistics
+//     arrive with one copy and no block recomputes them.
+//  2. dK/dV: one block of 256 threads a (batch, KV head, 64-key tile). Its
+//     K and V tiles stay in shared memory; the sub-tiles of Q, dO and
+//     their stats that can see its keys (causal: from the one holding
+//     position k0 - q_offset) stream through a ring of two stages by
+//     16-byte cp.async, the next arriving while this one computes. Per
+//     sub-tile four quarters of 64 threads compute S^T = K Q^T and dP^T =
+//     V dO^T, each over half of D, 8 x 8 a thread (keys hx + 8a, rows tx +
+//     8c), and trade partial sums through the P^T and dS^T tiles; the S^T
+//     quarters form P^T (into its tile) and P^T (1 - t^2), the dP^T
+//     quarters put the whole dP^T into the dS^T tile, and the S^T quarters
+//     turn it into dS^T. Then half the block accumulates dV += P^T dO and
+//     the other half dK += dS^T Q, 8 keys x 8 RowCols columns a thread, in
+//     registers. Four barriers a sub-tile.
+//  3. dQ: one block a (batch, KV head, 128 packed query rows). Q, dO and
+//     their stats stay in shared memory; K and V tiles of 32 keys stream
+//     through the ring up to the causal / kv_len edge (tiles past it are
+//     skipped). The quarters compute S = Q K^T and dP = dO V^T as in dK/dV
+//     (rows hx + 16a, keys tx + 4c), dS goes into an f32 tile, and all
+//     threads accumulate dQ += dS K, 8 rows x 8 RowCols columns a thread.
+// Every product is 8 x 8 a thread, so each float a thread loads from
+// shared memory feeds 4 FMAs: what the 128 bytes a clock an SM's shared
+// memory delivers to its 128 FMA lanes need (an 8 x 4 tile, 2.7 a float,
+// would leave a third of them idle). 64 x 64 and 128 x 32 score tiles are
+// only 32 scores a thread of 128, hence the split of D and the trade.
+// Tiles are row-major and unpadded in the 16-byte-chunk XOR swizzle (Swz,
+// vec.cuh), which keeps the products' 16-byte reads free of bank conflicts
+// and fits the budget: dK/dV at head_dim 128 in f32 takes 232,448 bytes,
+// all 227 KB a block may use, dQ 231,424. The P and dS tiles have a pitch
+// of their row count + 4 floats, so a quarter warp's 16-byte stores of 8
+// rows fall on 8 bank groups (dQ's stores of 4 keys x 2 row groups are at
+// most 2-way). Rows and keys past Sq and kv_len are filled with zeros
+// by the copies themselves (src-size 0), so a dead cache slot's NaN never
+// reaches a product. The longest blocks are launched first (the first key
+// tiles for dK/dV, the last query tiles for dQ).
 //
 // Inputs are strided in batch, head and sequence (unit stride in D, rows
-// aligned for 4-element vector loads); outputs likewise.
+// 16-byte aligned for the copies); outputs likewise.
 
 #include <cmath>
 #include <cstdint>
@@ -65,324 +89,477 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid
-constexpr int kT = 64;         // rows of a query tile and keys of a key tile
-constexpr int kTP = kT + 4;    // padded row of a P / dS tile
+constexpr int kThreads = 256;
+constexpr int kHalf = 128;             // threads of a half: dV (0) or dK (1) in dK/dV
+constexpr int kKeys = 64;              // keys a dK/dV block
+constexpr int kStats = 2 * kSub;       // floats of a sub-tile's stats: lse [64], then D_i [64]
+constexpr int kPre = 256;              // threads of a pre block
 
 struct BwdParams {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  const float* lse;  // [B, Hq, Sq]
+  const float* lse;  // [B, Hq, Sq] from the forward
+  float* stats;      // [B * Hkv][nsub2][kStats], written by pre
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];  // batch, head, sequence
-  int batch, hq, hkv, group, sq, sk, causal, q_offset, kv_len;
-  float scale, softcap;
+  int batch, hq, hkv, group, sq, sk, qpt, nsub, nsub2, causal, q_offset, kv_len;
+  float inv_group, scale, softcap;
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+__device__ __forceinline__ const float* stats_of(const BwdParams& p, int bkv, int sub) {
+  return p.stats + (static_cast<long long>(bkv) * p.nsub2 + sub) * kStats;
 }
 
-// rows [row0, row0 + 64) of a [S, D] slab (sequence stride `stride`) into
-// a padded f32 tile; rows at or past `n` load as zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long stride, int row0, int n) {
-  constexpr int DP = D + 4;
-  for (int idx = threadIdx.x; idx < kT * (D / 4); idx += kThreads) {
-    const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) x = load4(src + static_cast<long long>(row0 + r) * stride + d);
-    store4(dst + r * DP + d, x);
+// whether key j is live for a row at position `pos` (-1 for a padding row)
+__device__ __forceinline__ bool live(const BwdParams& p, int pos, int j) {
+  return pos >= 0 && j < p.kv_len && (!p.causal || j <= p.q_offset + pos);
+}
+
+// raw dots s of a tile into s * scale, and under a softcap c into
+// s_c = c tanh(s * scale / c) (one branch a tile)
+template <int N, int M>
+__device__ __forceinline__ void scale_cap(const BwdParams& p, float (&f)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) f[i][j] *= p.scale;
+  if (p.softcap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) f[i][j] = p.softcap * tanhf(f[i][j] / p.softcap);
   }
 }
 
-// lse and D_i = rowsum(dO * O) of the query tile's 64 rows: four threads
-// a row (needs the dO tile in shared memory)
+// P = exp(s_c - lse) (0 where the pair is masked) and the factor of dS it
+// carries, P (1 - (s_c / c)^2) under a softcap c (inv_cap = 1 / c, else 0);
+// exp is __expf, ex2.approx of a prescaled argument (relative error ~2^-21
+// where P matters)
+__device__ __forceinline__ float2 p_and_factor(float x, float lse, float inv_cap, bool ok) {
+  const float pr = ok ? __expf(x - lse) : 0.f;
+  const float t = x * inv_cap;
+  return make_float2(pr, pr * (1.f - t * t));
+}
+
+// -- 1. D_i = rowsum(dO * O) and the stats tiles ---------------------------------
+
 template <typename T, int D>
-__device__ __forceinline__ void row_stats(const BwdParams& p, int b, int h, int i0, const float* dos,
-                                          float* lse_s, float* di_s) {
-  constexpr int DP = D + 4;
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-  const int i = i0 + r;
-  float acc = 0.f;
-  if (i < p.sq) {
+__global__ void __launch_bounds__(kPre) flash_bwd_pre_kernel(const BwdParams p) {
+  constexpr int L = D / 4 < 32 ? D / 4 : 32;  // lanes a row
+  const int row = (blockIdx.x * kPre + threadIdx.x) / L;  // of B * Hkv * nsub2 * 64
+  const int lane = threadIdx.x % L;
+  if (row >= p.batch * p.hkv * p.nsub2 * kSub) return;  // whole groups of L lanes
+  const int r = row % kSub, sub = (row / kSub) % p.nsub2, bkv = row / (kSub * p.nsub2);
+  const int b = bkv / p.hkv, hk = bkv % p.hkv;
+  int g, i;
+  float acc = 0.f, lse = 0.f;
+  if (packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, g, i)) {  // the same for the row's lanes
+    const int h = hk * p.group + g;
     const T* orow = static_cast<const T*>(p.o) + b * p.os[0] + h * p.os[1] + static_cast<long long>(i) * p.os[2];
-    for (int d = part * 4; d < D; d += 16) acc += dot4(load4(orow + d), load4(dos + r * DP + d));
+    const T* grow = static_cast<const T*>(p.dout) + b * p.dos[0] + h * p.dos[1] + static_cast<long long>(i) * p.dos[2];
+    for (int d = lane * 4; d < D; d += 4 * L) acc = fma4(load4(orow + d), load4(grow + d), acc);
+    lse = p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + i];
   }
-  acc += __shfl_xor_sync(0xFFFFFFFFu, acc, 1);
-  acc += __shfl_xor_sync(0xFFFFFFFFu, acc, 2);
-  if (part == 0) {
-    di_s[r] = acc;
-    lse_s[r] = i < p.sq ? p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + i] : 0.f;
-  }
-}
-
-// P and dS of a 64 x 64 (query rows i0.., keys k0..) tile from the Q, dO,
-// K, V tiles in shared memory: this thread's rows ty*4 + a, keys tx + 16c
-template <int D>
-__device__ __forceinline__ void score_tile(const BwdParams& p, int i0, int k0, const float* qs, const float* dos,
-                                           const float* ks, const float* vs, const float* lse_s,
-                                           const float* di_s, float (&pr)[4][4], float (&ds)[4][4]) {
-  constexpr int DP = D + 4;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qa[4], ga[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = load4(qs + (ty * 4 + a) * DP + d);
-      ga[a] = load4(dos + (ty * 4 + a) * DP + d);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float4 kc = load4(ks + (tx + 16 * c) * DP + d);
-      const float4 vc = load4(vs + (tx + 16 * c) * DP + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        s[a][c] += dot4(qa[a], kc);
-        dp[a][c] += dot4(ga[a], vc);
-      }
-    }
-  }
-  const bool capped = p.softcap > 0.f;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty * 4 + a;
-    const int i = i0 + r;
-    const float lse = lse_s[r], di = di_s[r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = k0 + tx + 16 * c;
-      const bool live = i < p.sq && j < p.kv_len && (!p.causal || j <= p.q_offset + i);
-      float x = s[a][c] * p.scale;
-      float t = 0.f;
-      if (capped) {
-        t = tanhf(x / p.softcap);
-        x = p.softcap * t;
-      }
-      const float pv = live ? expf(x - lse) : 0.f;
-      float g = pv * (dp[a][c] - di);
-      if (capped) g *= 1.f - t * t;
-      pr[a][c] = pv;
-      ds[a][c] = g;
-    }
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
+  if (lane == 0) {
+    float* st = p.stats + (static_cast<long long>(bkv) * p.nsub2 + sub) * kStats;
+    st[r] = lse;
+    st[kSub + r] = acc;
   }
 }
 
-template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * size_t(kT) * (D + 4) + 2 * size_t(kT) * kTP + 2 * kT);
-}
+// -- 2. dK and dV ----------------------------------------------------------------
+
+// The score products of dK/dV and dQ run in four quarters of 64 threads:
+// quarter q computes S (q < 2) or dP (q >= 2) over half q % 2 of D, 8 x 8
+// a thread; the two halves of a product trade the partial sums of each
+// other's rows through an f32 tile, the lower half finalizing a thread's
+// rows a < 4 and the upper a >= 4. kQuarter threads, kFin rows finalized.
+constexpr int kQuarter = 64;
+constexpr int kFin = 4;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int DP = D + 4;
-  using C = RowCols<D>;  // accumulator columns a thread
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [64][DP]
-  float* vs = ks + kT * DP;
-  float* qs = vs + kT * DP;
-  float* dos = qs + kT * DP;
-  float* ps = dos + kT * DP;  // [64 rows][kTP]
-  float* dss = ps + kT * kTP;
-  float* lse_s = dss + kT * kTP;
-  float* di_s = lse_s + kT;
+struct DkdvLayout {
+  static constexpr int kPP = kSub + 4;  // pitch of the P^T and dS^T tiles [64 rows][64 key slots]
+  static constexpr size_t kKV = size_t(kKeys) * D * sizeof(T);
+  static constexpr size_t kTile = size_t(kSub) * D * sizeof(T);
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kK + kKV;
+  static constexpr size_t kQ = kV + kKV;         // [2][64][D]
+  static constexpr size_t kDO = kQ + 2 * kTile;  // [2][64][D]
+  static constexpr size_t kSt = kDO + 2 * kTile; // [2][kStats]
+  static constexpr size_t kP = kSt + 2 * kStats * sizeof(float);
+  static constexpr size_t kDS = kP + size_t(kSub) * kPP * sizeof(float);
+  static constexpr size_t kBytes = kDS + size_t(kSub) * kPP * sizeof(float);
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdParams p) {
+  using L = DkdvLayout<T, D>;
+  constexpr int PP = L::kPP;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* ks = reinterpret_cast<T*>(smem + L::kK);
+  T* vs = reinterpret_cast<T*>(smem + L::kV);
+  T* qbuf = reinterpret_cast<T*>(smem + L::kQ);
+  T* dobuf = reinterpret_cast<T*>(smem + L::kDO);
+  float* stbuf = reinterpret_cast<float*>(smem + L::kSt);
+  float* pb = reinterpret_cast<float*>(smem + L::kP);   // P^T as [row][key slot]
+  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [row][key slot]
+
+  const int tid = threadIdx.x;
+  const int q = tid / kQuarter;                     // warp-uniform
+  const int prod = q / 2, dh = q % 2;               // S^T (0) or dP^T (1), over half dh of D
+  const int hx = (tid % kQuarter) / 8, tx = tid % 8;  // scores: keys hx + 8a, rows tx + 8c
+  const int half = tid / kHalf;                     // accumulation: dV (0) or dK (1)
+  const int ky = (tid % kHalf) / 16, cx = tid % 16;   // key slots 8 ky + a (keys ky + 8a), RowCols columns of cx
+  const int mine = kFin * dh, other = kFin * (1 - dh);
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
   const int nbkv = p.batch * p.hkv;
   const int bkv = blockIdx.x % nbkv;
-  const int k0 = (blockIdx.x / nbkv) * kT;  // the first key tiles (the most query rows) first
+  const int k0 = (blockIdx.x / nbkv) * kKeys;  // the first key tiles (the most query rows) first
   const int b = bkv / p.hkv, hk = bkv % p.hkv;
 
-  float dk[4][C::kPer], dv[4][C::kPer];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kPer; ++c) dk[a][c] = dv[a][c] = 0.f;
-
-  const int nq = (p.sq + kT - 1) / kT;
-  // query tiles whose rows can see a key of this tile (none if it starts
-  // at or past kv_len)
-  const int first = p.causal ? max(0, k0 - p.q_offset) / kT : 0;
-  const int qt_begin = k0 < p.kv_len ? first : nq;
-
-  if (qt_begin < nq) {
-    load_tile<T, D>(ks, static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1], p.ks[2], k0, p.kv_len);
-    load_tile<T, D>(vs, static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1], p.vs[2], k0, p.kv_len);
-  }
-  for (int g = 0; g < p.group; ++g) {
-    const int h = hk * p.group + g;
-    const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1];
-    const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + h * p.dos[1];
-    for (int qt = qt_begin; qt < nq; ++qt) {
-      const int i0 = qt * kT;
-      __syncthreads();  // the last tile's reads of qs, dos, ps, dss are done
-      load_tile<T, D>(qs, qg, p.qs[2], i0, p.sq);
-      load_tile<T, D>(dos, dog, p.dos[2], i0, p.sq);
-      __syncthreads();
-      row_stats<T, D>(p, b, h, i0, dos, lse_s, di_s);
-      __syncthreads();
-      float pr[4][4], ds[4][4];
-      score_tile<D>(p, i0, k0, qs, dos, ks, vs, lse_s, di_s, pr, ds);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ps[(ty * 4 + a) * kTP + tx + 16 * c] = pr[a][c];
-          dss[(ty * 4 + a) * kTP + tx + 16 * c] = ds[a][c];
-        }
-      __syncthreads();
-      // dV[j] += sum_r P[r][j] dO[r], dK[j] += sum_r dS[r][j] Q[r] for this
-      // thread's keys j = ty*4 + a and columns C::col(g, tx) + e
-#pragma unroll 4
-      for (int r = 0; r < kT; ++r) {
-        const float4 pp = load4(ps + r * kTP + ty * 4);
-        const float4 dd = load4(dss + r * kTP + ty * 4);
-        const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
-        const float da[4] = {dd.x, dd.y, dd.z, dd.w};
-#pragma unroll
-        for (int g = 0; g < C::kGroups; ++g) {
-          float o[C::kW], q[C::kW];
-          load_n<C::kW>(dos + r * DP + C::col(g, tx), o);
-          load_n<C::kW>(qs + r * DP + C::col(g, tx), q);
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int e = 0; e < C::kW; ++e) {
-              dv[a][g * C::kW + e] = fmaf(pa[a], o[e], dv[a][g * C::kW + e]);
-              dk[a][g * C::kW + e] = fmaf(da[a], q[e], dk[a][g * C::kW + e]);
-            }
-        }
-      }
-    }
-  }
-
-  T* dkg = static_cast<T*>(p.dk) + b * p.dks[0] + hk * p.dks[1];
-  T* dvg = static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty * 4 + a;
-    if (j >= p.sk) continue;
-#pragma unroll
-    for (int g = 0; g < C::kGroups; ++g) {
-      float xk[C::kW], xv[C::kW];
-#pragma unroll
-      for (int e = 0; e < C::kW; ++e) {
-        xk[e] = dk[a][g * C::kW + e] * p.scale;
-        xv[e] = dv[a][g * C::kW + e];
-      }
-      store_n<C::kW>(dkg + static_cast<long long>(j) * p.dks[2] + C::col(g, tx), xk);
-      store_n<C::kW>(dvg + static_cast<long long>(j) * p.dvs[2] + C::col(g, tx), xv);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return dkdv_smem<D>();
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int DP = D + 4;
   using C = RowCols<D>;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kT * DP;
-  float* qs = vs + kT * DP;
-  float* dos = qs + kT * DP;
-  float* dss = dos + kT * DP + kT * kTP;  // the P tile's slot stays unused here
-  float* lse_s = dss + kT * kTP;
-  float* di_s = lse_s + kT;
+  float acc[8][C::kPer];  // dV (half 0) or dK (half 1) of keys ky + 8a
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nq = (p.sq + kT - 1) / kT;
-  const int nbh = p.batch * p.hq;
-  const int bh = blockIdx.x % nbh;
-  const int qt = nq - 1 - blockIdx.x / nbh;  // the last query tiles (the most keys) first
-  const int b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
-  const int i0 = qt * kT;
+  // sub-tiles whose rows can see a key of this tile (none if it starts at
+  // or past kv_len): from the one holding position k0 - q_offset
+  const int first = p.causal ? max(0, k0 - p.q_offset) / p.qpt : 0;
+  const int s_begin = k0 < p.kv_len ? first : p.nsub;
 
-  load_tile<T, D>(qs, static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1], p.qs[2], i0, p.sq);
-  load_tile<T, D>(dos, static_cast<const T*>(p.dout) + b * p.dos[0] + h * p.dos[1], p.dos[2], i0, p.sq);
-  __syncthreads();
-  row_stats<T, D>(p, b, h, i0, dos, lse_s, di_s);
+  // a sub-tile row's position less the sub-tile's first (-1 for padding)
+  int rel[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int r = tx + 8 * c;
+    rel[c] = r < p.qpt * p.group ? r / p.group : -1;
+  }
 
-  // live keys [0, kv_end); tiles past it are skipped
-  const int i_last = min(p.sq, i0 + kT) - 1;
-  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + i_last + 1) : p.kv_len;
-  const int ntiles = (kv_end + kT - 1) / kT;
   const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
+  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
+  auto copy_sub = [&](int sub, int stage) {
+    copy_tile<T, D, kSub, kThreads>(qbuf + stage * kSub * D, [&](int r) -> const T* {
+      int g, i;
+      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, g, i) ? qg + g * p.qs[1] + i * p.qs[2] : nullptr;
+    }, qg);
+    copy_tile<T, D, kSub, kThreads>(dobuf + stage * kSub * D, [&](int r) -> const T* {
+      int g, i;
+      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, g, i) ? dog + g * p.dos[1] + i * p.dos[2] : nullptr;
+    }, dog);
+    if (tid < kStats / 4) cp_async16(stbuf + stage * kStats + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
+  };
 
-  float dq[4][C::kPer];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
+  if (s_begin < p.nsub) {
+    copy_rows<T, D, kKeys, kThreads>(ks, kg, p.ks[2], k0, p.kv_len);
+    copy_rows<T, D, kKeys, kThreads>(vs, vg, p.vs[2], k0, p.kv_len);
+    copy_sub(s_begin, 0);
+    cp_async_commit();
+  }
+  for (int sub = s_begin, it = 0; sub < p.nsub; ++sub, ++it) {
+    const int st = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // sub-tile `sub` is in; every thread is done with the other stage, pb and db
+    if (sub + 1 < p.nsub) {
+      copy_sub(sub + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const T* qt = qbuf + st * kSub * D;
+    const T* dot = dobuf + st * kSub * D;
+    const float* lse_s = stbuf + st * kStats;
+    const float* di_s = lse_s + kSub;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kT;
-    __syncthreads();  // the last tile's reads of ks and dss are done (and lse_s, di_s visible)
-    load_tile<T, D>(ks, kg, p.ks[2], k0, kv_end);
-    load_tile<T, D>(vs, vg, p.vs[2], k0, kv_end);
+    // S^T = K Q^T or dP^T = V dO^T over this quarter's half of D
+    float s[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
+    nt_product<T, D, D / 2, 8, 8, 8, 8>(s, prod ? vs : ks, hx, prod ? dot : qt, tx, dh * (D / 2));
+    float* buf = prod ? db : pb;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float o[kFin];
+#pragma unroll
+      for (int i = 0; i < kFin; ++i) o[i] = dh ? s[i][c] : s[kFin + i][c];
+      store_n<kFin>(buf + (tx + 8 * c) * PP + 8 * hx + other, o);
+    }
     __syncthreads();
-    float pr[4][4], ds[4][4];
-    score_tile<D>(p, i0, k0, qs, dos, ks, vs, lse_s, di_s, pr, ds);
+    float f[kFin][8];  // S^T or dP^T of keys hx + 8 (mine + i), rows tx + 8c
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int c = 0; c < 8; ++c) {
+      float o[kFin];
+      load_n<kFin>(buf + (tx + 8 * c) * PP + 8 * hx + mine, o);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dss[(ty * 4 + a) * kTP + tx + 16 * c] = ds[a][c];
-    __syncthreads();
-    // dQ[i] += sum_j dS[i][j] K[j] for this thread's rows i = ty*4 + a and
-    // columns C::col(g, tx) + e
-#pragma unroll 4
-    for (int j = 0; j < kT; ++j) {
-      float da[4];
+      for (int i = 0; i < kFin; ++i) f[i][c] = (dh ? s[kFin + i][c] : s[i][c]) + o[i];
+    }
+    if (prod == 0) {  // P^T into pb; P^T (1 - t^2) kept for dS^T
+      scale_cap(p, f);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = dss[(ty * 4 + a) * kTP + j];
+      for (int c = 0; c < 8; ++c) {
+        const int y = tx + 8 * c;
+        const int pos = rel[c] >= 0 && sub * p.qpt + rel[c] < p.sq ? sub * p.qpt + rel[c] : -1;
+        const float lse = lse_s[y];
+        float pr[kFin];
 #pragma unroll
-      for (int g = 0; g < C::kGroups; ++g) {
-        float kv[C::kW];
-        load_n<C::kW>(ks + j * DP + C::col(g, tx), kv);
+        for (int i = 0; i < kFin; ++i) {
+          const float2 v = p_and_factor(f[i][c], lse, inv_cap, live(p, pos, k0 + hx + 8 * (mine + i)));
+          pr[i] = v.x;
+          f[i][c] = v.y;
+        }
+        store_n<kFin>(pb + y * PP + 8 * hx + mine, pr);
+      }
+    } else {  // the whole dP^T into db
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int c = 0; c < 8; ++c) {
+        float o[kFin];
 #pragma unroll
-          for (int e = 0; e < C::kW; ++e) dq[a][g * C::kW + e] = fmaf(da[a], kv[e], dq[a][g * C::kW + e]);
+        for (int i = 0; i < kFin; ++i) o[i] = f[i][c];
+        store_n<kFin>(db + (tx + 8 * c) * PP + 8 * hx + mine, o);
       }
     }
+    __syncthreads();
+    if (prod == 0) {  // dS^T = P^T (1 - t^2) * (dP^T - D_i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int y = tx + 8 * c;
+        const float di = di_s[y];
+        float o[kFin];
+        load_n<kFin>(db + y * PP + 8 * hx + mine, o);
+#pragma unroll
+        for (int i = 0; i < kFin; ++i) o[i] = f[i][c] * (o[i] - di);
+        store_n<kFin>(db + y * PP + 8 * hx + mine, o);
+      }
+    }
+    __syncthreads();
+    // dV[key] += sum_r P^T[key][r] dO[r] (half 0), dK[key] += sum_r dS^T[key][r] Q[r] (half 1)
+    nn_product<T, D, 8, PP, kSub>(acc, half ? db : pb, 8 * ky, half ? qt : dot, cx);
   }
 
-  T* dqg = static_cast<T*>(p.dq) + b * p.dqs[0] + h * p.dqs[1];
+  T* outg = half ? static_cast<T*>(p.dk) + b * p.dks[0] + hk * p.dks[1]
+                 : static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
+  const long long ostride = half ? p.dks[2] : p.dvs[2];
+  const float scale = half ? p.scale : 1.f;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty * 4 + a;
-    if (i >= p.sq) continue;
+  for (int a = 0; a < 8; ++a) {
+    const int j = k0 + ky + 8 * a;  // slot 8 ky + a
+    if (j >= p.sk) continue;
 #pragma unroll
     for (int g = 0; g < C::kGroups; ++g) {
       float x[C::kW];
 #pragma unroll
-      for (int e = 0; e < C::kW; ++e) x[e] = dq[a][g * C::kW + e] * p.scale;
-      store_n<C::kW>(dqg + static_cast<long long>(i) * p.dqs[2] + C::col(g, tx), x);
+      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] * scale;
+      store_n<C::kW>(outg + static_cast<long long>(j) * ostride + C::col(g, cx), x);
+    }
+  }
+}
+
+// -- 3. dQ -----------------------------------------------------------------------
+
+constexpr int kRows = 2 * kSub;  // packed query rows a dQ block
+constexpr int kQKeys = 32;       // keys a K/V tile of the dQ kernel
+
+template <typename T, int D>
+struct DqLayout {
+  static constexpr int kPP = kRows + 4;  // pitch of the dS^T and dP^T tiles [32 keys][128 row slots]
+  static constexpr size_t kTile = size_t(kRows) * D * sizeof(T);
+  static constexpr size_t kKV = size_t(kQKeys) * D * sizeof(T);
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kDO = kQ + kTile;
+  static constexpr size_t kK = kDO + kTile;     // [2][32][D]
+  static constexpr size_t kV = kK + 2 * kKV;    // [2][32][D]
+  static constexpr size_t kSt = kV + 2 * kKV;   // [2 sub-tiles][kStats]
+  static constexpr size_t kDS = kSt + 2 * kStats * sizeof(float);
+  static constexpr size_t kDP = kDS + size_t(kQKeys) * kPP * sizeof(float);
+  static constexpr size_t kBytes = kDP + size_t(kQKeys) * kPP * sizeof(float);
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdParams p) {
+  using L = DqLayout<T, D>;
+  constexpr int BK = kQKeys, PP = L::kPP;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* qs = reinterpret_cast<T*>(smem + L::kQ);
+  T* dos = reinterpret_cast<T*>(smem + L::kDO);
+  T* kbuf = reinterpret_cast<T*>(smem + L::kK);
+  T* vbuf = reinterpret_cast<T*>(smem + L::kV);
+  float* sts = reinterpret_cast<float*>(smem + L::kSt);
+  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [key][row slot]
+  float* xb = reinterpret_cast<float*>(smem + L::kDP);  // dP^T as [key][row slot]
+
+  const int tid = threadIdx.x;
+  const int q = tid / kQuarter;                     // warp-uniform
+  const int prod = q / 2, dh = q % 2;               // S (0) or dP (1), over half dh of D
+  const int hx = (tid % kQuarter) / 4, tx = tid % 4;  // scores: rows hx + 16a, keys tx + 4c
+  const int ty = tid / 16, cx = tid % 16;           // accumulation: row slots 8 ty + a (rows ty + 16a), columns of cx
+  const int mine = kFin * dh, other = kFin * (1 - dh);
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+  const int ntiles_q = p.nsub2 / 2;
+  const int nbkv = p.batch * p.hkv;
+  const int bkv = blockIdx.x % nbkv;
+  const int tile = ntiles_q - 1 - blockIdx.x / nbkv;  // the last query tiles (the most keys) first
+  const int b = bkv / p.hkv, hk = bkv % p.hkv;
+  const int sub0 = 2 * tile;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
+  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
+
+  // live keys [0, kv_end); tiles past it are skipped
+  const int pos_end = min(p.sq, (sub0 + 2) * p.qpt);
+  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
+  const int ntiles = (kv_end + BK - 1) / BK;
+
+  copy_tile<T, D, kRows, kThreads>(qs, [&](int r) -> const T* {
+    int g, i;
+    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i) ? qg + g * p.qs[1] + i * p.qs[2]
+                                                                             : nullptr;
+  }, qg);
+  copy_tile<T, D, kRows, kThreads>(dos, [&](int r) -> const T* {
+    int g, i;
+    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i) ? dog + g * p.dos[1] + i * p.dos[2]
+                                                                             : nullptr;
+  }, dog);
+  if (tid < 2 * kStats / 4) cp_async16(sts + tid * 4, stats_of(p, bkv, sub0) + tid * 4, true);  // both sub-tiles
+  auto copy_kv = [&](int t, int stage) {
+    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
+  };
+  copy_kv(0, 0);
+  cp_async_commit();
+
+  // the rows this thread finalizes, hx + 16 (mine + i): positions (-1 for
+  // padding) and, once the stats are in, lse and D_i
+  int qpos[kFin];
+#pragma unroll
+  for (int i = 0; i < kFin; ++i) {
+    const int r = hx + 16 * (mine + i);
+    int g, pos;
+    qpos[i] = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, pos) ? pos : -1;
+  }
+  float lse[kFin], di[kFin];
+
+  using C = RowCols<D>;
+  float dq[8][C::kPer];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every thread is done with the other stage, db and xb
+    if (t + 1 < ntiles) {
+      copy_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < kFin; ++i) {
+        const int r = hx + 16 * (mine + i);
+        lse[i] = sts[(r / kSub) * kStats + r % kSub];
+        di[i] = sts[(r / kSub) * kStats + kSub + r % kSub];
+      }
+    }
+    const T* kt = kbuf + (t & 1) * BK * D;
+    const T* vt = vbuf + (t & 1) * BK * D;
+
+    // S = Q K^T or dP = dO V^T over this quarter's half of D
+    float s[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
+    nt_product<T, D, D / 2, 8, 8, 16, 4>(s, prod ? dos : qs, hx, prod ? vt : kt, tx, dh * (D / 2));
+    float* buf = prod ? xb : db;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float o[kFin];
+#pragma unroll
+      for (int i = 0; i < kFin; ++i) o[i] = dh ? s[i][c] : s[kFin + i][c];
+      store_n<kFin>(buf + (tx + 4 * c) * PP + 8 * hx + other, o);
+    }
+    __syncthreads();
+    float f[kFin][8];  // S or dP of rows hx + 16 (mine + i), keys tx + 4c
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float o[kFin];
+      load_n<kFin>(buf + (tx + 4 * c) * PP + 8 * hx + mine, o);
+#pragma unroll
+      for (int i = 0; i < kFin; ++i) f[i][c] = (dh ? s[kFin + i][c] : s[i][c]) + o[i];
+    }
+    if (prod == 0) {  // P (1 - t^2), kept for dS
+      scale_cap(p, f);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int i = 0; i < kFin; ++i)
+          f[i][c] = p_and_factor(f[i][c], lse[i], inv_cap, live(p, qpos[i], k0 + tx + 4 * c)).y;
+    } else {  // the whole dP into xb
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float o[kFin];
+#pragma unroll
+        for (int i = 0; i < kFin; ++i) o[i] = f[i][c];
+        store_n<kFin>(xb + (tx + 4 * c) * PP + 8 * hx + mine, o);
+      }
+    }
+    __syncthreads();
+    if (prod == 0) {  // dS = P (1 - t^2) * (dP - D_i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float o[kFin];
+        load_n<kFin>(xb + (tx + 4 * c) * PP + 8 * hx + mine, o);
+#pragma unroll
+        for (int i = 0; i < kFin; ++i) o[i] = f[i][c] * (o[i] - di[i]);
+        store_n<kFin>(db + (tx + 4 * c) * PP + 8 * hx + mine, o);
+      }
+    }
+    __syncthreads();
+    // dQ[row] += sum_j dS[row][j] K[j]
+    nn_product<T, D, 8, PP, BK>(dq, db, 8 * ty, kt, cx);
+  }
+
+  T* dqg = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int r = ty + 16 * a;  // slot 8 ty + a
+    int g, i;
+    if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i)) continue;
+    const int h = hk * p.group + g;
+    T* row = dqg + b * p.dqs[0] + h * p.dqs[1] + static_cast<long long>(i) * p.dqs[2];
+#pragma unroll
+    for (int gc = 0; gc < C::kGroups; ++gc) {
+      float x[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) x[e] = dq[a][gc * C::kW + e] * p.scale;
+      store_n<C::kW>(row + C::col(gc, cx), x);
     }
   }
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t bytes, int blocks, const BwdParams& p, cudaStream_t stream) {
+int launch(Kernel kernel, size_t bytes, int blocks, int threads, const BwdParams& p, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, bytes, stream>>>(p);
+  kernel<<<blocks, threads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                      void* dk, void* dv, const float* lse, const long long* strides, int batch, int hq, int hkv,
-                      int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len) {
+                      void* dk, void* dv, const float* lse, float* stats, const long long* strides, int batch,
+                      int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len) {
   BwdParams p;
   p.q = q;
   p.k = k;
@@ -393,6 +570,7 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
   p.dk = dk;
   p.dv = dv;
   p.lse = lse;
+  p.stats = stats;
   long long* dst[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
@@ -402,6 +580,10 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
   p.group = hq / hkv;
   p.sq = sq;
   p.sk = sk;
+  p.qpt = kSub / p.group;
+  p.inv_group = 1.f / static_cast<float>(p.group);
+  p.nsub = (sq + p.qpt - 1) / p.qpt;
+  p.nsub2 = p.nsub + p.nsub % 2;  // whole 128-row tiles of the dQ kernel
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
@@ -410,26 +592,48 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
   return p;
 }
 
-template <typename T>
-int dispatch_dkdv(const BwdParams& p, int d, cudaStream_t s) {
-  const int blocks = p.batch * p.hkv * ((p.sk + kT - 1) / kT);
-  switch (d) {
-    case 16: return launch(flash_bwd_dkdv_kernel<T, 16>, dkdv_smem<16>(), blocks, p, s);
-    case 32: return launch(flash_bwd_dkdv_kernel<T, 32>, dkdv_smem<32>(), blocks, p, s);
-    case 64: return launch(flash_bwd_dkdv_kernel<T, 64>, dkdv_smem<64>(), blocks, p, s);
-    case 128: return launch(flash_bwd_dkdv_kernel<T, 128>, dkdv_smem<128>(), blocks, p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+enum Which { kPreK, kDkdvK, kDqK };
+
+template <typename T, int D>
+int run(const BwdParams& p, Which which, cudaStream_t s) {
+  const int nbkv = p.batch * p.hkv;
+  switch (which) {
+    case kPreK: {
+      constexpr int L = D / 4 < 32 ? D / 4 : 32;
+      const long long lanes = static_cast<long long>(nbkv) * p.nsub2 * kSub * L;
+      return launch(flash_bwd_pre_kernel<T, D>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
+    }
+    case kDkdvK:
+      return launch(flash_bwd_dkdv_kernel<T, D>, DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
+                    kThreads, p, s);
+    default:
+      return launch(flash_bwd_dq_kernel<T, D>, DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
   }
 }
 
 template <typename T>
-int dispatch_dq(const BwdParams& p, int d, cudaStream_t s) {
-  const int blocks = p.batch * p.hq * ((p.sq + kT - 1) / kT);
+int dispatch(const BwdParams& p, int d, Which which, cudaStream_t s) {
   switch (d) {
-    case 16: return launch(flash_bwd_dq_kernel<T, 16>, dq_smem<16>(), blocks, p, s);
-    case 32: return launch(flash_bwd_dq_kernel<T, 32>, dq_smem<32>(), blocks, p, s);
-    case 64: return launch(flash_bwd_dq_kernel<T, 64>, dq_smem<64>(), blocks, p, s);
-    case 128: return launch(flash_bwd_dq_kernel<T, 128>, dq_smem<128>(), blocks, p, s);
+    case 16: return run<T, 16>(p, which, s);
+    case 32: return run<T, 32>(p, which, s);
+    case 64: return run<T, 64>(p, which, s);
+    case 128: return run<T, 128>(p, which, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int entry(Which which, const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+          void* dk, void* dv, const float* lse, float* stats, const long long* strides, int dtype, int batch,
+          int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len,
+          void* stream) {
+  if (hkv < 1 || hq % hkv != 0 || hq / hkv > kSub) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d,
+                                  causal, softcap, q_offset, kv_len);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch<float>(p, d, which, s);
+    case 1: return dispatch<__nv_bfloat16>(p, d, which, s);
+    case 2: return dispatch<__half>(p, d, which, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -439,38 +643,21 @@ int dispatch_dq(const BwdParams& p, int d, cudaStream_t s) {
 // q, o, dout, dq [B, Hq, Sq, D]; k, v, dk, dv [B, Hkv, Sk, D]: pointers,
 // and their (batch, head, sequence) element strides in `strides` (a host
 // array of 24 in the order q, k, v, o, dout, dq, dk, dv); lse f32
-// [B, Hq, Sq] contiguous, from the forward; dtype 0 = float32,
-// 1 = bfloat16, 2 = float16 (every tensor but lse); D in {16, 32, 64,
-// 128}; 1 <= kv_len <= Sk.
-// th_flash_bwd_dkdv writes dk and dv (zeros past kv_len),
-// th_flash_bwd_dq writes dq. Each returns cudaGetLastError() after its
-// launch.
-extern "C" int th_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                 void* dq, void* dk, void* dv, const float* lse, const long long* strides,
-                                 int dtype, int batch, int hq, int hkv, int sq, int sk, int d, int causal,
-                                 float softcap, int q_offset, int kv_len, void* stream) {
-  const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, strides, batch, hq, hkv, sq, sk, d, causal,
-                                  softcap, q_offset, kv_len);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_dkdv<float>(p, d, s);
-    case 1: return dispatch_dkdv<__nv_bfloat16>(p, d, s);
-    case 2: return dispatch_dkdv<__half>(p, d, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
+// B * Hkv * nsub2 * 128 floats (nsub2: ceil(Sq / (64 / G)) rounded up to
+// even); dtype 0 = float32, 1 = bfloat16, 2 = float16 (every tensor but
+// lse and stats); D in {16, 32, 64, 128}; Hq / Hkv <= 64; 1 <= kv_len <=
+// Sk. In this order on one stream: th_flash_bwd_pre writes stats,
+// th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
+// writes dq. Each returns cudaGetLastError() after its launch.
+#define TH_BWD_ARGS                                                                                             \
+  const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv,  \
+      const float *lse, float *stats, const long long *strides, int dtype, int batch, int hq, int hkv, int sq, \
+      int sk, int d, int causal, float softcap, int q_offset, int kv_len, void *stream
+#define TH_BWD_PASS                                                                                         \
+  q, k, v, o, dout, dq, dk, dv, lse, stats, strides, dtype, batch, hq, hkv, sq, sk, d, causal, softcap, q_offset, \
+      kv_len, stream
 
-extern "C" int th_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                               void* dq, void* dk, void* dv, const float* lse, const long long* strides, int dtype,
-                               int batch, int hq, int hkv, int sq, int sk, int d, int causal, float softcap,
-                               int q_offset, int kv_len, void* stream) {
-  const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, strides, batch, hq, hkv, sq, sk, d, causal,
-                                  softcap, q_offset, kv_len);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_dq<float>(p, d, s);
-    case 1: return dispatch_dq<__nv_bfloat16>(p, d, s);
-    case 2: return dispatch_dq<__half>(p, d, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+extern "C" int th_flash_bwd_pre(TH_BWD_ARGS) { return entry(kPreK, TH_BWD_PASS); }
+extern "C" int th_flash_bwd_dkdv(TH_BWD_ARGS) { return entry(kDkdvK, TH_BWD_PASS); }
+extern "C" int th_flash_bwd_dq(TH_BWD_ARGS) { return entry(kDqK, TH_BWD_PASS); }

@@ -34,7 +34,10 @@ a failure:
   cores.
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
   f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
-  ``Hq / Hkv <= 64``.
+  ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
+  128 packed query rows a block (:func:`packed_rows`), 8 x 8 micro-tiles
+  a thread for the scores (each half of the block over half of D) and for
+  P V.
 
 Other head_dims (80 of zamba2, 192 of deepseek-v3's MLA) are refused on
 the card until their model families are ported.
@@ -62,8 +65,11 @@ and shape alone (:func:`_bwd_route`):
   rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and ``dq`` (one block
   128 query rows), with ``wgmma`` products fed by TMA.
 * ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
-  head_dim 16/32/64/128 otherwise, in f32 FMAs. Two kernels, ``dkdv`` and
-  ``dq``.
+  head_dim 16/32/64/128 otherwise, in f32 FMAs. Three kernels: ``pre``
+  (``D_i`` and the lse into a stats scratch in packed-row order),
+  ``dkdv`` (64 keys a block, Q/dO sub-tiles through a two-stage
+  ``cp.async`` ring) and ``dq`` (128 packed query rows a block, K/V tiles
+  through the ring).
 
 ``BWD_LAUNCHES["<route>/<kernel>"]`` counts each kernel's launches. On the
 CPU the same ``Function`` runs :func:`attention_plain` and
@@ -101,7 +107,11 @@ MAX_SPLITS = 64
 BWD_HEAD_DIMS = (16, 32, 64, 128)  # the cuda_core backward's (f32, bf16, f16)
 TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scratch comes in tiles)
 #: the backward's routes and each one's kernels, in launch order
-BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq"), "cuda_core": ("dkdv", "dq")}
+BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq"), "cuda_core": ("pre", "dkdv", "dq")}
+
+#: the CUDA-core kernels' query rows come in sub-tiles of SUB_ROWS packed
+#: rows (:func:`packed_rows`; csrc/vec.cuh)
+SUB_ROWS = 64
 
 #: launches of any route's kernel, and of each route's (bumped only where
 #: the kernel is launched)
@@ -234,6 +244,22 @@ def attention_backward_plain(
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q.float().reshape(b, hkv, g, sq, d)) * scale
     return dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def packed_rows(sq: int, group: int) -> Tuple[int, int]:
+    """``(qpt, nsub)`` of the CUDA-core kernels' packed query rows: the G
+    query heads of a KV head share its K and V, so a sub-tile of
+    ``SUB_ROWS`` rows holds ``qpt = 64 // G`` positions x the G heads and
+    ``nsub`` sub-tiles cover ``Sq`` positions (csrc/vec.cuh ``packed_row``)."""
+    qpt = SUB_ROWS // group
+    return qpt, -(-sq // qpt)
+
+
+def packed_row(group: int, qpt: int, sq: int, sub: int, r: int) -> Optional[Tuple[int, int]]:
+    """``(head in group, position)`` of row ``r`` of sub-tile ``sub``, or
+    None for a padding row: what ``packed_row`` in csrc/vec.cuh computes."""
+    pos = sub * qpt + r // group
+    return (r % group, pos) if r < qpt * group and pos < sq else None
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -481,7 +507,7 @@ def launch_backward(
     the two side by side. ``tensor_core`` (bf16, head_dim 64/128): the
     ``pre``, ``dkdv`` and ``dq`` kernels of
     ``csrc/flash_attention_bwd_tc.cu``; ``cuda_core`` (f32, bf16 or f16,
-    head_dim 16/32/64/128): the ``dkdv`` and ``dq`` kernels of
+    head_dim 16/32/64/128): the ``pre``, ``dkdv`` and ``dq`` kernels of
     ``csrc/flash_attention_bwd.cu``. Both take strided q/k/v/out/dout;
     ``lse`` is the forward's (:func:`launch_route` ``with_lse``). The
     gradients are laid out ``[B, S, H, D]`` under their ``[B, H, S, D]``
@@ -526,7 +552,11 @@ def launch_backward(
         stats = torch.empty(b * hq * -(-sq // TC_BWD_TILE) * 2 * TC_BWD_TILE, dtype=torch.float32, device=q.device)
         args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), *tail)
     else:
-        args = (*ptrs, lse.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail)
+        # each packed sub-tile's lse and D_i, written by the pre kernel, in
+        # whole 128-row tiles of the dq kernel
+        _, nsub = packed_rows(sq, hq // hkv)
+        stats = torch.empty(b * hkv * (nsub + nsub % 2) * 2 * SUB_ROWS, dtype=torch.float32, device=q.device)
+        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail)
     for kernel in BWD_KERNELS[route]:
         name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
         BWD_LAUNCHES[f"{route}/{kernel}"].add()

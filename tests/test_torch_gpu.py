@@ -598,6 +598,74 @@ def test_f32_route_in_float16(dev, d):
     _flash_close(got, fa.attention_plain(q, k, v, softcap=20.0), torch.float16)
 
 
+# -- the CUDA-core kernels' tiling: GQA packing, ragged edges, dead cache slots ------
+
+#: (b, hq, hkv, sq, sk, causal, q_offset, kv_len): groups of 7 (yi-34b's
+#: 56/8 heads) and 64 (MAX_GROUP), Sq and Sk off every tile edge, decode-
+#: sized calls; with kv_len < Sk the slots past it hold NaN in K and V
+_TILE_CASES = [
+    (1, 56, 8, 129, 129, True, 0, None),  # G 7
+    (1, 64, 1, 65, 65, True, 0, None),  # G 64: one position a sub-tile
+    (2, 8, 2, 1, 577, True, 500, 501),  # a decode step on a cache of 577, NaN past 501
+    (1, 8, 2, 63, 127, False, 0, 100),  # not causal, NaN past 100
+    (1, 4, 4, 577, 577, True, 0, None),  # G 1, Sq = Sk = 577
+    (1, 28, 4, 127, 200, True, 60, 187),  # G 7, q_offset, NaN past 187
+]
+
+
+def _tile_inputs(dev, case, d, dtype):
+    """q, k, v with NaN in the dead slots, the same with zeros there (what
+    the plain versions see: 0 x NaN is NaN in any product), and the kw."""
+    b, hq, hkv, sq, sk, causal, q_offset, kv_len = case
+    q, k, v = _qkv(dev, hq + sq + d, b, hq, hkv, sq, sk, d, dtype)
+    kz, vz = k.clone(), v.clone()
+    if kv_len is not None:
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+        kz[:, :, kv_len:] = 0
+        vz[:, :, kv_len:] = 0
+    return (q, k, v), (q, kz, vz), dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("case", _TILE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_f32_route_tiling(dev, case, d, dtype):
+    """The f32 route's kernel, named, at every head_dim and dtype it takes,
+    against the plain version (with the dead slots zeroed), and its
+    log-sum-exp against logsumexp of the plain scores."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (q, kz, vz), kw = _tile_inputs(dev, case, d, dtype)
+    out, lse = _routed(fa, "f32", lambda: fa.launch_route("f32", q, k, v, with_lse=True, **kw))
+    assert torch.isfinite(out).all()
+    _flash_close(out, fa.attention_plain(q, kz, vz, **kw), dtype)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", _TILE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_cuda_core_backward_tiling(dev, case, d, dtype):
+    """The cuda_core backward's three kernels, named, at every head_dim and
+    dtype it takes, against autograd through the plain attention (dead
+    slots zeroed): finite, within test_kernels.py's tolerance of each
+    gradient's max |value|, zeros past kv_len, and the same bits on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (q, kz, vz), kw = _tile_inputs(dev, case, d, dtype)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(d), device=dev).to(dtype)
+    out, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "cuda_core")
+    again = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
+    ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    _check_grads(got, want, dtype, (kw["kv_len"],))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
 @pytest.mark.parametrize("route,dtype", [("tensor_core", torch.bfloat16), ("f32", torch.float32),
                                          ("f32", torch.bfloat16)])
 @pytest.mark.parametrize("case", [(2, 32, 8, 576, 576, 128, True, 0.0, 0, None), (1, 8, 2, 77, 300, 64, True, 0.0, 200, 277),
