@@ -82,7 +82,26 @@ lines, any failure exiting non-zero:
    repro_torch.launch.train`` (the reduced llama3-8b, head_dim 16, f32)
    for two steps on the card; the losses must be finite and every layer of
    every step must launch the f32 route and the CUDA-core backward.
-8. A ``kernels`` JSON line (launches over phases 3 to 7; flash
+8. The networked deployment on the card: llama3-8b at phase 3's widths
+   and depth, bf16. ``python -m repro_torch.net.controller`` (WAL-backed,
+   host only), a publisher process (``chip_smoke.py --publisher``, a
+   ``NetWorker`` on the card publishing phase 3's weights at TP-1 and at
+   TP-4) and this process as the reader, a ``NetWorker`` on the same card
+   whose every read crosses a localhost socket: a raw replicate (dc0)
+   bit-equal to its own regeneration of the weights, an int8 replicate
+   (dc1) bit-equal to the plain-version codec, TP-4 -> TP-2 resharded
+   replicates over int8 (``raw_wire`` frames, the fused kernel) and raw
+   (the gather kernel), a raw replicate through a SIGKILL of the
+   controller mid-pull (restarted from its WAL on a new port; the
+   reader's ``AddressWatcher`` fails it over; bit-identical), and a
+   delta:int8 update to v1 bit-equal to the plain delta codec with no
+   stale-base fallback. Each pull prints its seconds, GB/s, wire ratio,
+   remote pulls and connection counts beside phase 3/4's in-process
+   seconds; then ``python -m repro_torch.launch.networked`` at its
+   defaults, whose readers must print ``MATCH`` and the digest numpy
+   computes from rng 1234. The four byte kernels must launch on this
+   path (the reader's launches plus those the publisher reports).
+9. A ``kernels`` JSON line (launches over phases 3 to 8; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -668,7 +687,7 @@ def transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
     emit("transfer_result", launches=launches, max_memory_allocated=peak,
          rollout1_max_rel_err=worst, int8_wire_ratio=i8, delta_wire_ratio=dl,
          server_stats={k: v for k, v in server.stats.items() if v})
-    return launches
+    return dict(launches, step_seconds={label: rec["seconds"] for label, rec in steps.items()})
 
 
 # -- phase 4: resharded transfer at full width --------------------------------
@@ -840,7 +859,7 @@ def reshard_transfer(torch, dev, counters, shapes, chunk_bytes) -> dict:
          roll_int8_max_rel_err={"v0": err_v0, "v1": err_v1}, int8_wire_ratio=ratios,
          intervals_pulled={f"{h.replica}/{h.shard_idx}": h.intervals_pulled for h in roll_i8 + roll_raw},
          server_stats={k: v for k, v in server.stats.items() if v})
-    return launches
+    return dict(launches, step_seconds={label: rec["seconds"] for label, rec in steps.items()})
 
 
 # -- phase 5: flash attention and llama3-8b serving at full width -------------
@@ -1757,6 +1776,481 @@ def train_entry_point(torch, counters) -> dict:
     return out
 
 
+# -- phase 8: the networked deployment on the card ---------------------------------
+
+NET_LAYERS = NUM_LAYERS  # phase 3/4's depth: 6.46 GB a replica
+NET_THROTTLE_S = 0.5  # each remote read's stretch while the controller is killed mid-pull
+#: the publisher's models: one a pull, so that no replica of the reader is
+#: a source of another pull and every read crosses the socket (replica
+#: names are unique across models: a worker's registry and the peer
+#: directory key stores by replica and shard)
+NET_MODELS = ("m-raw", "m-int8", "m-fo")
+NET_TP_MODELS = ("m-tp-int8", "m-tp-raw")
+
+
+def net_weights(torch, dev, shapes):
+    """Phase 3's weights: seeded bf16 on ``dev``, in ``shapes`` order."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return {n: torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16).mul_(0.02) for n, s in shapes}
+
+
+def perturb_rows(torch, dev, tensors) -> None:
+    """Phase 3's v1: 1/8 of each tensor's 256-element rows, in place."""
+    gp = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for w in tensors:
+        flat = w.view(-1)
+        rows = flat[: flat.numel() // 256 * 256].view(-1, 256)[::8]
+        rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+
+
+def net_counters():
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import quant as qk
+    from repro_torch.kernels import repack as rk
+    from repro_torch.kernels.quant import fused as fk
+
+    return {"checksum": ck.LAUNCHES, "quantize_rows": qk.LAUNCHES, "gather_bytes": rk.LAUNCHES,
+            "dequant_gather": fk.LAUNCHES}
+
+
+def publisher_main(argv) -> int:
+    """Phase 8's publisher process (``chip_smoke.py --publisher``): a
+    ``NetWorker`` on the card that makes phase 3's weights, publishes v0
+    of every phase 8 model (TP-1, and TP-4 as phase 4's trainer), then
+    takes commands on stdin: ``v1`` (unpublish m-int8, perturb, publish
+    v1), ``report`` (its kernel counters and peak memory as one JSON
+    line), ``exit``."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--addr-file", required=True)
+    ap.add_argument("--device", required=True)
+    ap.add_argument("--shapes", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.net import NetWorker
+    from repro_torch.resharding import tp_shard
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.library()  # the library phase 2 built, found by its sources' hash
+    shapes = [(n, tuple(s)) for n, s in json.loads(args.shapes)]
+    weights = net_weights(torch, dev, shapes)
+    shards, lays = [{} for _ in range(SRC_TP)], [{} for _ in range(SRC_TP)]
+    for name, w in weights.items():
+        for i in range(SRC_TP):
+            part, lay = tp_shard({name: w}, i, SRC_TP)
+            shards[i][name] = part[name].clone()
+            lays[i].update(lay)
+    counters = net_counters()
+    for c in counters.values():
+        c.reset()
+    worker = NetWorker("publisher", addr_file=args.addr_file, device=dev)
+    try:
+        tp1 = {m: worker.open(m, f"trainer-{m}", 1, 0, datacenter="dc0") for m in NET_MODELS}
+        for h in tp1.values():
+            h.register(weights)  # the same buffers under each model
+            h.publish(0)
+        for m in NET_TP_MODELS:
+            group = [worker.open(m, f"trainer-{m}", SRC_TP, i, datacenter="dc0") for i in range(SRC_TP)]
+            for h in group:
+                h.register(shards[h.shard_idx], layout=lays[h.shard_idx])
+            run_group(group, lambda h: h.publish(0))
+        print("PUBLISHED", flush=True)
+        for line in sys.stdin:
+            cmd = line.strip()
+            if cmd == "v1":
+                h = tp1["m-int8"]
+                h.unpublish()
+                perturb_rows(torch, dev, h.store.tensors().values())
+                h.publish(1)
+                print("V1", flush=True)
+            elif cmd == "report":
+                peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+                print(json.dumps({"publisher": {"launches": {k: c.value for k, c in counters.items()},
+                                                "max_memory_allocated": peak,
+                                                "remote_pulls": worker.transport.remote_pulls}}), flush=True)
+            elif cmd == "exit":
+                break
+    finally:
+        worker.close()
+    return 0
+
+
+class Child:
+    """A child process whose stdout lines are read by a thread, so a wait
+    for a line has a deadline; stdin is a pipe for commands."""
+
+    def __init__(self, argv, env):
+        import queue
+
+        self.argv = argv
+        self.popen = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=env)
+        self.lines = queue.Queue()
+        self.out = []
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.popen.stdout:
+            self.out.append(line)
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def expect(self, prefix: str, timeout: float) -> str:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            check(line is not None, f"{self.argv[1:4]}: no {prefix!r} line (output: {''.join(self.out)[-2000:]})")
+            if line.startswith(prefix):
+                return line.strip()
+
+    def send(self, cmd: str) -> None:
+        self.popen.stdin.write(cmd + "\n")
+        self.popen.stdin.flush()
+
+    def stop(self) -> None:
+        if self.popen.poll() is None:
+            self.popen.kill()
+        self.popen.wait()
+
+
+def networked(torch, dev, counters, shapes, chunk_bytes, inproc) -> dict:
+    """Phase 8: controller, publisher and reader as three processes on one
+    card, the data plane over localhost sockets. Returns the four byte
+    kernels' launches over the phase (the reader's and the publisher's)."""
+    import hashlib
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels.quant import quantize_rows_plain
+    from repro_torch.net import NetWorker
+    from repro_torch.net.data import host_bytes
+    from repro_torch.resharding import tp_shard
+    from repro_torch.transfer.codec import DeltaCodec, Int8Codec
+    from repro_torch.transfer.engine import WorkerStore
+
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    run_dir = tempfile.mkdtemp(prefix="chip-smoke-net-")
+    wal, addr = os.path.join(run_dir, "controller.wal"), os.path.join(run_dir, "controller.addr")
+    ctrl_argv = [sys.executable, "-m", "repro_torch.net.controller", "--wal", wal, "--addr-file", addr]
+    children = []
+
+    def spawn(argv):
+        children.append(Child(argv, env))
+        return children[-1]
+
+    total = sum(math.prod(s) * 2 for _, s in shapes)
+    emit("networked_model", config="llama3-8b", layers=NET_LAYERS, dtype="bfloat16", bytes=total,
+         cut=f"depth {NET_LAYERS} of 32 layers (phase 3/4's), widths as published")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    reader = None
+    try:
+        ctrl = spawn(ctrl_argv)
+        ctrl_addr = ctrl.expect("READY", 120).split()[1]
+        pub = spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--publisher", "--addr-file", addr,
+                     "--device", str(dev), "--shapes", json.dumps(shapes)])
+        reader = NetWorker("reader", addr_file=addr, device=dev, chunk_bytes=chunk_bytes)
+        pub.expect("PUBLISHED", 600)
+        v0 = net_weights(torch, dev, shapes)  # the reader's own regeneration
+        oracle = WorkerStore("oracle", device=dev)
+        oracle.register(v0)
+        plain_int8 = Int8Codec(quantize=quantize_rows_plain)
+        plain_delta = DeltaCodec("int8", quantize=quantize_rows_plain)
+        tr = reader.transport
+        steps, launches = {}, {k: 0 for k in counters}
+
+        def step(label, fn, inproc_key=None, **tags):
+            sync()
+            before = {k: c.value for k, c in counters.items()}
+            conn0 = (tr.remote_pulls, tr.conn_opens, tr.conn_reuses)
+            wire0, dec0 = dict(tr.wire_bytes), dict(tr.decoded_bytes)
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            dt = time.perf_counter() - t0
+            for k, c in counters.items():
+                launches[k] += c.value - before[k]
+            wire = sum(tr.wire_bytes.values()) - sum(wire0.values())
+            dec = sum(tr.decoded_bytes.values()) - sum(dec0.values())
+            rec = dict(seconds=dt, payload_bytes=total, GBps=total / dt / 1e9, wire_bytes=wire,
+                       decoded_bytes=dec, wire_ratio=wire / dec if dec else None,
+                       remote_pulls=tr.remote_pulls - conn0[0], conn_opens=tr.conn_opens - conn0[1],
+                       conn_reuses=tr.conn_reuses - conn0[2],
+                       in_process_seconds=inproc.get(inproc_key), **tags)
+            steps[label] = rec
+            emit("networked_step", step=label, **rec)
+            check(rec["conn_opens"] + rec["conn_reuses"] > 0, f"{label}: no read crossed a socket")
+
+        def frozen(fn):
+            """Run a check, which must launch no kernel (only the steps
+            count as the path's launches)."""
+            before = {k: c.value for k, c in counters.items()}
+            fn()
+            check(before == {k: c.value for k, c in counters.items()}, f"{fn.__name__} launched a kernel")
+
+        def close(*handles):
+            for h in handles:
+                h.close()
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
+        for c in counters.values():
+            c.reset()
+        # 1. raw replicate (dc0), bit-equal to the reader's regeneration
+        r0 = reader.open("m-raw", "rollout-0", 1, 0, datacenter="dc0")
+        r0.register({n: torch.zeros_like(w) for n, w in v0.items()})
+        step("replicate raw (dc0)", lambda: r0.replicate(0, timeout=600), "replicate rollout-0 (raw)")
+
+        def raw_equal():
+            for n, w in v0.items():
+                check(torch.equal(r0.store.get(n), w), f"networked raw replica {n} != regeneration")
+        frozen(raw_equal)
+        close(r0)
+        del r0
+
+        # 2. int8 replicate (dc1), bit-equal to the plain-version codec
+        r1 = reader.open("m-int8", "rollout-1", 1, 0, datacenter="dc1")
+        r1.register({n: torch.zeros_like(w) for n, w in v0.items()})
+        step("replicate int8 (dc1)", lambda: r1.replicate(0, timeout=600), "replicate rollout-1 (int8)")
+
+        def int8_equal():
+            for u in oracle.units:
+                want = plain_int8.decode(plain_int8.encode(oracle._gather_unit(u), oracle.unit_dtype(u)))
+                check(torch.equal(r1.store._gather_unit(u), want), f"networked int8 unit {u.name} != plain codec")
+        frozen(int8_equal)
+
+        # 3-4. TP-4 -> TP-2, int8 (dc1, wire frames decoded by the fused
+        # kernel) and raw (dc0, staged, repacked by the gather kernel)
+        def tp2_group(model, replica, dc):
+            hs = [reader.open(model, replica, DST_TP, i, datacenter=dc) for i in range(DST_TP)]
+            for h in hs:
+                local, lay = tp_shard(v0, h.shard_idx, DST_TP)
+                h.register({n: torch.zeros_like(t) for n, t in local.items()}, layout=lay)
+            return hs
+
+        tp4 = []
+        for i in range(SRC_TP):
+            local, lay = tp_shard(v0, i, SRC_TP)
+            st = WorkerStore(f"oracle-tp{i}", device=dev)
+            st.register(local, layout=lay)
+            tp4.append(st)
+
+        def int8_global(name):
+            """v0 assembled from its TP-4 shards, each shard's carrying
+            unit through the plain int8 codec first (phase 4's oracle)."""
+            out = torch.empty_like(v0[name])
+            for st in tp4:
+                part = st.get(name)
+                u = st.units[st._unit_of[name]]
+                dec = plain_int8.decode(plain_int8.encode(st._gather_unit(u), st.unit_dtype(u)))
+                off = 0 if not u.is_compact else next(o for n, o, _ in u.layout if n == name)
+                part = dec[off : off + part.nbytes].view(torch.bfloat16).view(part.shape)
+                _, offset = st.layouts[name]
+                out[tuple(slice(o, o + d) for o, d in zip(offset, part.shape))] = part
+            return out
+
+        ri = tp2_group("m-tp-int8", "roll-int8", "dc1")
+        step("replicate TP-4 -> TP-2 (int8, dc1)", lambda: run_group(ri, lambda h: h.replicate(0, timeout=600)),
+             "replicate roll-int8 (TP-4 -> TP-2, int8, dc1)")
+
+        def tp_int8_equal():
+            for name in v0:
+                want = int8_global(name)
+                for h in ri:
+                    check(torch.equal(h.store.get(name), tp_shard({name: want}, h.shard_idx, DST_TP)[0][name]),
+                          f"networked roll-int8 {h.shard_idx} {name} != plain int8 round trip")
+            for h in ri:
+                check(h.intervals_pulled > 0, "networked roll-int8 pulled no interval")
+        frozen(tp_int8_equal)
+        close(*ri)
+        del ri
+        rr = tp2_group("m-tp-raw", "roll-raw", "dc0")
+        step("replicate TP-4 -> TP-2 (raw, dc0)", lambda: run_group(rr, lambda h: h.replicate(0, timeout=600)),
+             "replicate roll-raw (TP-4 -> TP-2, raw, dc0)")
+
+        def tp_raw_equal():
+            for name, w in v0.items():
+                for h in rr:
+                    check(torch.equal(h.store.get(name), tp_shard({name: w}, h.shard_idx, DST_TP)[0][name]),
+                          f"networked roll-raw {h.shard_idx} {name} != regeneration")
+            for h in rr:
+                check(h.intervals_pulled > 0, "networked roll-raw pulled no interval")
+        frozen(tp_raw_equal)
+        close(*rr)
+        del rr, tp4
+
+        # 5. the controller SIGKILLed mid-pull, restarted from its WAL
+        rf = reader.open("m-fo", "rollout-fo", 1, 0, datacenter="dc0")
+        rf.register({n: torch.zeros_like(w) for n, w in v0.items()})
+        failover = {}
+
+        def pull_through_a_kill():
+            nonlocal ctrl
+            done = []
+            tr.throttle_s = NET_THROTTLE_S
+            dec0 = sum(tr.decoded_bytes.values())
+            t = threading.Thread(target=lambda: done.append(rf.replicate(0, timeout=600)), daemon=True)
+            t.start()
+            deadline = time.monotonic() + 120
+            while sum(tr.decoded_bytes.values()) == dec0:
+                check(time.monotonic() < deadline and t.is_alive(), "the failover pull never started")
+                time.sleep(0.005)
+            ctrl.popen.send_signal(signal.SIGKILL)
+            ctrl.popen.wait()
+            t_kill = time.perf_counter()
+            failover["payload_at_kill"] = sum(tr.decoded_bytes.values()) - dec0
+            ctrl = spawn(ctrl_argv)
+            failover["new_address"] = ctrl.expect("READY", 120).split()[1]
+            failover["restart_s"] = time.perf_counter() - t_kill
+            t.join(timeout=600)
+            check(done == [0], "the pull did not complete after the controller restart")
+            sync()
+            failover["kill_to_complete_s"] = time.perf_counter() - t_kill
+            tr.throttle_s = 0.0
+
+        step("replicate raw through a controller SIGKILL (dc0)", pull_through_a_kill, None,
+             throttle_s=NET_THROTTLE_S)
+        gauges = reader.remote().service_metrics()["gauges"]
+        failover["recovery_s"] = gauges["failover_last_recovery_seconds"]
+        failover["wal_records"] = gauges.get("oplog_committed_records")
+        emit("networked_failover", old_address=ctrl_addr, **failover)
+        check(0 < failover["payload_at_kill"] < total, f"the kill did not land mid-pull: {failover}")
+        check(reader.remote().address == failover["new_address"] != ctrl_addr, "the reader did not fail over")
+
+        def failover_equal():
+            for n, w in v0.items():
+                check(torch.equal(rf.store.get(n), w), f"failover replica {n} != regeneration")
+        frozen(failover_equal)
+        close(rf)
+        del rf
+
+        # 6. v1 and the delta:int8 update of the int8 replica
+        pub.send("v1")
+        pub.expect("V1", 600)
+        step("update int8 -> delta:int8 (dc1)", lambda: check(r1.update("latest"), "rollout-1 not updated"),
+             "update rollout-1 (delta:int8)")
+        check(tr.delta_stale_fallbacks == 0, "delta fell back to int8 (stale base)")
+        v1 = net_weights(torch, dev, shapes)
+        perturb_rows(torch, dev, v1.values())
+        v1_store = WorkerStore("oracle-v1", device=dev)
+        v1_store.register(v1)
+
+        def delta_equal():
+            for u in oracle.units:
+                dtype = oracle.unit_dtype(u)
+                wire = plain_delta.encode(v1_store._gather_unit(u), dtype, base=oracle._gather_unit(u))
+                want = plain_delta.decode(wire, base=r1.store.base_unit(u))
+                check(torch.equal(r1.store._gather_unit(u), want), f"networked delta unit {u.name} != plain codec")
+        delta_equal()  # not frozen: the codec's base digest is a checksum (not a step, so not counted)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        del v1, v1_store, r1
+
+        # 7. launch.networked at its defaults, every rank holding the
+        # digest numpy computes from rng 1234
+        rng = np.random.default_rng(1234)
+        ref = {f"layer{i}": rng.standard_normal((256, 256), dtype=np.float32) for i in range(4)}
+        want_digest = hashlib.sha256(b"".join(ref[k].tobytes() for k in sorted(ref))).hexdigest()
+        t0 = time.perf_counter()
+        demo = subprocess.run([sys.executable, "-m", "repro_torch.launch.networked"], env=env,
+                              capture_output=True, text=True, timeout=300)
+        ranks = [ln for ln in demo.stdout.splitlines() if ln.startswith("rank") and "replicated" in ln]
+        emit("launch_networked", argv=[], rc=demo.returncode, seconds=time.perf_counter() - t0, ranks=ranks)
+        check(demo.returncode == 0 and len(ranks) == 2, f"launch.networked: {demo.stdout[-1500:]} {demo.stderr[-1500:]}")
+        for ln in ranks:
+            check(ln.endswith("MATCH") and f"digest={want_digest}" in ln, f"launch.networked rank: {ln}")
+
+        host_copies = host_copy_rates(torch, dev, oracle, total, steps["replicate raw (dc0)"]["seconds"])
+
+        pub.send("report")
+        pub_report = json.loads(pub.expect('{"publisher"', 120))["publisher"]
+        pub.send("exit")
+        pub.popen.wait(timeout=120)
+        digest = hashlib.sha256(b"".join(host_bytes(w) for w in v0.values())).hexdigest()
+    finally:
+        if reader is not None:
+            reader.close()
+        for c in children:
+            c.stop()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out = {k: launches[k] + pub_report["launches"][k] for k in counters}
+    emit("networked_result", seconds=time.perf_counter() - t_phase, reader_launches=launches,
+         publisher_launches=pub_report["launches"], launches=out,
+         max_memory_allocated={"reader": peak, "publisher": pub_report["max_memory_allocated"]},
+         v0_sha256=digest, failover=failover, host_copies=host_copies)
+    return out
+
+
+def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
+    """The three host stages every byte of a socketed raw pull passes, one
+    after another (a single-source pull runs one read at a time), each
+    timed alone on a 1 GiB chunk of the largest unit: off the card into
+    pageable memory (the source), through a localhost TCP socket from
+    Python (send and receive into a preallocated buffer), and from
+    pageable memory onto the card (the reader). Their sum over the
+    replica's bytes, beside the raw pull's seconds, says how much of the
+    pull the host copies explain."""
+    import socket
+
+    src = store._gather_unit(max(store.units, key=lambda u: u.nbytes))[:GIB]
+    n = src.numel()
+    host = src.cpu()
+    rbuf = bytearray(n)
+    lsock = socket.create_server(("127.0.0.1", 0))
+    cli = socket.create_connection(lsock.getsockname())
+    conn, _ = lsock.accept()
+
+    def tcp():
+        sender = threading.Thread(target=lambda: conn.sendall(memoryview(host.numpy())))
+        sender.start()
+        view, got = memoryview(rbuf), 0
+        while got < n:
+            got += cli.recv_into(view[got:])
+        sender.join()
+
+    def seconds(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    try:
+        rates = {"d2h_GBps": n / seconds(lambda: src.cpu()) / 1e9,
+                 "tcp_GBps": n / seconds(tcp) / 1e9,
+                 "h2d_GBps": n / seconds(lambda: torch.frombuffer(rbuf, dtype=torch.uint8).to(dev)) / 1e9}
+    finally:
+        for sk in (cli, conn, lsock):
+            sk.close()
+    serial_s = sum(total / (r * 1e9) for r in rates.values())
+    rec = dict(rates, chunk_bytes=n, serial_estimate_s=serial_s, raw_pull_s=raw_pull_s,
+               share_of_raw_pull=serial_s / raw_pull_s)
+    emit("networked_host_copies", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1836,12 +2330,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase7 = train_entry_point(torch, counters)
     phase_s["7 train entry point"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    net_shapes = llama3_8b_shapes(num_layers=NET_LAYERS)
+    inproc = {**phase3["step_seconds"], **phase4["step_seconds"]}
+    phase8 = networked(torch, dev, transfer_counters, net_shapes, DEFAULT_CHUNK_BYTES, inproc)
+    for k, n in phase8.items():
+        check(n > 0, f"kernel {k} was not launched on the networked path")
+    phase_s["8 networked"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     for r in phase5["flash_attention_routes"]:  # phases 5 to 7 are the paths with attention
-        kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in phases[2:])
+        kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in phases[2:5])
     by_kernel = {n: phase6["flash_attention_bwd_by_kernel"][n] + phase7["flash_attention_bwd_by_kernel"][n]
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -1849,7 +2352,7 @@ def main() -> int:
             route = k.split("/")[1]
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase_seconds=phase_s)
+         phase8=phase8, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1857,4 +2360,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--publisher"]:
+        sys.exit(publisher_main(sys.argv[2:]))
     sys.exit(main())

@@ -12,7 +12,15 @@ Public API:
     handle.publish(version=0)
     ...
 
-Controller crash recovery (``failover``) is not ported yet.
+Fault tolerance (controller crash recovery):
+
+    from repro_torch.core import OpLog, recover, take_snapshot
+
+    log = OpLog()
+    server = ReferenceServer(log=log)          # every mutation is logged
+    ...                                        # controller dies
+    standby = recover(log)                     # bit-identical replay
+    hub.failover(standby)                      # clients resume in place
 """
 
 from repro_torch.core.client import ShardHandle, TensorHubClient
@@ -26,6 +34,11 @@ from repro_torch.core.errors import (
     StaleHandleError,
     TensorHubError,
     VersionUnavailableError,
+)
+from repro_torch.core.failover import (
+    recover,
+    state_digest,
+    take_snapshot,
 )
 from repro_torch.core.meta import ShardManifest, TensorMeta, TransferUnit, WorkerInfo
 from repro_torch.core.oplog import OpLog, OpRecord, Snapshot
@@ -63,4 +76,7 @@ __all__ = [
     "VersionUnavailableError",
     "WorkerInfo",
     "offload_name",
+    "recover",
+    "state_digest",
+    "take_snapshot",
 ]

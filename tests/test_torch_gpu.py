@@ -759,3 +759,72 @@ def test_train_entry_point_at_its_defaults(dev):
     train.main(["--steps", "2"])
     assert fa.ROUTE_LAUNCHES["f32"].value - before[0] == 2 * 4
     assert fa.BWD_LAUNCHES["cuda_core/dkdv"].value - before[1] == 2 * 4
+
+
+# -- the socketed data plane on the card ------------------------------------------
+
+
+def _socket_pull(device, codec):
+    """A ``WorkerDataServer`` serving a store on ``device`` over a
+    localhost socket to a ``RemoteTransport`` pulling into a store on
+    ``device``: every unit, raw (verified against the manifest), int8,
+    delta:int8 (v1 against an int8-held v0) or as int8 wire frames
+    (``raw_wire``); returns the destination's bytes (the frames, for
+    ``raw_wire``) on the host and the transport."""
+    from repro_torch.net.data import RemoteTransport, WorkerDataServer
+    from repro_torch.transfer.engine import WorkerRegistry, WorkerStore
+
+    g = torch.Generator().manual_seed(3)
+    w = {"w": (torch.randn(3 << 20, generator=g) * 0.02).to(torch.bfloat16),
+         "f": torch.randn(70_000, generator=g), "b": torch.randn(1000, generator=g)}
+    w1 = {k: v.clone() for k, v in w.items()}
+    for t in w1.values():  # v1, made on the host: 1/8 of the 256-element rows
+        flat = t.view(-1)
+        flat[: flat.numel() // 256 * 256].view(-1, 256)[::8] += 0.01
+    src = WorkerStore("src", device=device)
+    src.register({k: v.to(device) for k, v in w.items()})
+    reg = WorkerRegistry()
+    reg.add("src", 0, src)
+    server = WorkerDataServer(reg, device=device).start()
+    dst = WorkerStore("dst", device=device)
+    dst.register({k: torch.zeros_like(v, device=device) for k, v in w.items()})
+    tr = RemoteTransport(WorkerRegistry(), lambda *_: server.address, device=device)
+    try:
+        if codec == "raw_wire":
+            return b"".join(
+                tr.read_unit_range("src", 0, u, 0, u.nbytes, codec="int8", decode=False).cpu().numpy().tobytes()
+                for u in src.units
+            ), tr
+        sums = src.build_manifest().checksums
+        if codec == "delta:int8":
+            for u in src.units:  # dst holds v0 as an int8 replica does
+                tr.pull_unit("src", 0, u, sums[u.index], dst, codec="int8")
+            src.snapshot_base(0)
+            for k, t in src.tensors().items():
+                t.copy_(w1[k].to(device))
+            sums = src.build_manifest().checksums
+        for u in src.units:
+            tr.pull_unit("src", 0, u, sums[u.index], dst, codec=codec)
+        return b"".join(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+                        for t in dst.tensors().values()), tr
+    finally:
+        tr.close_pool()
+        server.shutdown()
+
+
+@pytest.mark.parametrize("codec", ["raw", "int8", "delta:int8", "raw_wire"])
+def test_socket_pull_on_the_card_equals_cpu(dev, codec):
+    """The networked data plane with both stores on the card moves the
+    same bytes as between CPU stores, through the checksum kernel (and
+    the quant kernel for the codecs) at both ends of the socket."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import quant as qk
+
+    before = ck.LAUNCHES.value, qk.LAUNCHES.value
+    got, tr = _socket_pull(dev, codec)
+    assert ck.LAUNCHES.value > before[0]
+    assert (qk.LAUNCHES.value > before[1]) == (codec != "raw")
+    want, tr_cpu = _socket_pull(torch.device("cpu"), codec)
+    assert got == want
+    assert tr.wire_bytes == tr_cpu.wire_bytes and tr.delta_stale_fallbacks == 0
+    assert tr.conn_opens >= 1

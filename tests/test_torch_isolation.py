@@ -32,6 +32,7 @@ _MODULES = [
     "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpoint",
     "repro_torch.core.client",
+    "repro_torch.core.failover",
     "repro_torch.core.server",
     "repro_torch.data.synthetic",
     "repro_torch.kernels.build",
@@ -40,12 +41,23 @@ _MODULES = [
     "repro_torch.kernels.quant",
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
+    "repro_torch.launch.networked",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.models.blocks",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
     "repro_torch.models.params",
+    "repro_torch.net",
+    "repro_torch.net.client",
+    "repro_torch.net.controller",
+    "repro_torch.net.data",
+    "repro_torch.net.httpd",
+    "repro_torch.net.protocol",
+    "repro_torch.net.service",
+    "repro_torch.net.worker",
+    "repro_torch.obs.export",
+    "repro_torch.obs.rpc",
     "repro_torch.resharding.executor",
     "repro_torch.resharding.layout",
     "repro_torch.resharding.planner",
@@ -126,6 +138,20 @@ m = trainer.train_on([{"tokens": toks, "behavior_logprobs": torch.zeros(2, 3), "
 assert m["version"] == 1
 with tempfile.TemporaryDirectory() as d:
     train_main(["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8", "--ckpt-dir", d, "--ckpt-every", "1"])
+# the networked deployment: a controller and two workers over localhost sockets
+from repro_torch.net import ControlServer, NetWorker, ReferenceService
+ctrl = ControlServer(ReferenceService(ReferenceServer())).start()
+pub_w = NetWorker("pub", address=ctrl.address, device="cpu")
+rd_w = NetWorker("rd", address=ctrl.address, device="cpu")
+hp = pub_w.open("n", "pub", 1, 0)
+hp.register(w)
+hp.publish(0)
+hr = rd_w.open("n", "r", 1, 0, datacenter="dc1")
+hr.register({k: torch.zeros_like(v) for k, v in w.items()})
+hr.replicate(0, timeout=30)
+assert rd_w.transport.conn_opens > 0 and torch.equal(hr.store.get("b"), w["b"])
+for x in (rd_w, pub_w, ctrl):
+    (x.close if hasattr(x, "close") else x.shutdown)()
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro.")
@@ -150,7 +176,8 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.data.synthetic", "repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
     "repro_torch.models.blocks", "repro_torch.models.layers", "repro_torch.models.lm",
     "repro_torch.models.params", "repro_torch.rl.loop", "repro_torch.training", "repro_torch.checkpoint",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.core.failover", "repro_torch.net", "repro_torch.net.controller",
+    "repro_torch.net.worker", "repro_torch.launch.networked",
 ])
 def test_serving_modules_import_first(module):
     """Each module of the serving path imports as the first one of a
@@ -175,3 +202,21 @@ def test_store_refuses_tensors_on_another_device():
     store = WorkerStore("w", device="cpu")
     with pytest.raises(port_core.TensorHubError, match="holds its buffers on cpu"):
         store.register({"x": torch.zeros(4, device="meta")})
+
+
+def test_networked_entry_points_raise_without_a_card(monkeypatch):
+    """A worker process's networked stack defaults to the card and
+    raises without one, before it binds a socket or reads an address."""
+    from repro_torch.launch.networked import main as networked_main
+    from repro_torch.net import NetWorker, RemoteTransport, WorkerDataServer
+    from repro_torch.transfer.engine import WorkerRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: NetWorker("w", address="127.0.0.1:9"),
+        lambda: WorkerDataServer(WorkerRegistry()),
+        lambda: RemoteTransport(WorkerRegistry(), lambda *_: None),
+        lambda: networked_main([]),
+    ):
+        with pytest.raises(port_core.TensorHubError, match="CUDA is not available"):
+            make()
