@@ -29,7 +29,15 @@ lines, any failure exiting non-zero:
    plain scores; both backward routes timed on the same bf16 inputs
    beside the plain backward and SDPA's at the training shape, and the
    CUDA-core route beside SDPA's backward, and the f32 forward route
-   beside SDPA's forward, at the f32 training shape.
+   beside SDPA's forward, at the f32 training shape. The sliding window
+   (gemma2's local layers): every forward route that takes a call, named,
+   against the plain version with windows of less than a tile (8), 64,
+   100 and 4096, offsets, kv_len < Sk with NaN past it, softcap 50 and
+   head_dim 256 on the f32 and decode routes; the cuda_core backward with
+   a window (bit-equal on a rerun); the tensor-core backward must refuse
+   a window; gemma2's prefill attention (f32 route) and decode step
+   (decode route) timed with its window of 4096 and without, beside the
+   plain version, the bound and SDPA without the softcap.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -80,8 +88,10 @@ lines, any failure exiting non-zero:
    device time by kernel.
 7. The training entry point at its defaults: ``python -m
    repro_torch.launch.train`` (the reduced llama3-8b, head_dim 16, f32)
-   for two steps on the card; the losses must be finite and every layer of
-   every step must launch the f32 route and the CUDA-core backward.
+   for two steps on the card, then with ``--arch gemma2-2b`` (the reduced
+   gemma2: window 8, softcaps, tied embeddings); the losses must be finite
+   (llama3-8b's those of earlier runs, 6.1012 and 6.0542) and every layer
+   of every step must launch the f32 route and the CUDA-core backward.
 8. The networked deployment on the card: llama3-8b at phase 3's widths
    and depth, bf16. ``python -m repro_torch.net.controller`` (WAL-backed,
    host only), a publisher process (``chip_smoke.py --publisher``, a
@@ -101,7 +111,17 @@ lines, any failure exiting non-zero:
    defaults, whose readers must print ``MATCH`` and the digest numpy
    computes from rng 1234. The four byte kernels must launch on this
    path (the reader's launches plus those the publisher reports).
-9. A ``kernels`` JSON line (launches over phases 3 to 8; flash
+9. Dense archs from the config registry, each served from a replica and
+   updated as in phase 5 and held to its gates: gemma2-2b at its published
+   widths and all 26 layers (bf16, 5.2 GB a replica; 4 requests of 4608
+   prompt tokens + 64 new, so the window of 4096 bites on the last 512
+   prompt positions and every decode step; 26 f32-route and 26 x 64
+   decode-route launches a round), then yi-34b and deepseek-coder-33b at
+   their published widths cut to 4 layers (4 x (512 + 16); G = 7 on the
+   tensor-core and decode routes). Prefill and decode tokens/s and peak
+   memory for each.
+
+A ``kernels`` JSON line (launches over phases 3 to 9; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -112,6 +132,7 @@ lines, any failure exiting non-zero:
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -903,6 +924,21 @@ NAN_TAIL_SHAPES = [
     (2, 8, 2, 100, 160, 32, dict(causal=False, kv_len=120)),
     (2, 32, 8, 1, 577, 128, dict(causal=True, q_offset=400, kv_len=401)),  # a decode step
 ]
+#: sliding-window calls (gemma2's local layers) on every route that takes
+#: them, K/V NaN past kv_len where ``nan``: (b, hq, hkv, sq, sk, d, kw)
+WINDOW_SHAPES = [
+    (2, 8, 4, 300, 300, 256, dict(causal=True, window=8)),  # a window inside one tile, head_dim 256
+    (2, 8, 4, 300, 300, 128, dict(causal=True, window=8)),
+    (2, 8, 4, 400, 400, 128, dict(causal=True, window=100, softcap=50.0)),
+    (1, 8, 4, 700, 700, 256, dict(causal=True, window=100, softcap=50.0)),
+    (1, 8, 4, 600, 600, 128, dict(causal=True, window=4096)),  # wider than the keys
+    (1, 8, 4, 4200, 4200, 128, dict(causal=True, window=4096)),  # gemma2's window, biting past 4096
+    (1, 8, 4, 64, 800, 128, dict(causal=True, q_offset=600, kv_len=664, window=100, nan=True)),
+    (2, 8, 4, 1, 4700, 256, dict(causal=True, q_offset=4671, kv_len=4672, window=4096, softcap=50.0, nan=True)),
+    (2, 8, 4, 4, 800, 256, dict(causal=True, q_offset=700, kv_len=704, window=8, nan=True)),  # a decode chunk
+    (1, 56, 8, 129, 400, 128, dict(causal=True, q_offset=200, kv_len=329, window=64, nan=True)),  # G 7
+    (1, 8, 4, 200, 300, 64, dict(causal=False, kv_len=250, window=64, nan=True)),
+]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
 
@@ -920,21 +956,34 @@ def nan_tail(qkv, kv_len: int):
     return q, k, v, kz, vz
 
 
-def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs a call must score: what this run's data needs."""
-    if not causal:
-        return sq * kv_len
-    return sum(min(kv_len, q_offset + i + 1) for i in range(sq))
+def live_pairs(sq: int, kv_len: int, causal: bool, q_offset: int, window: int = 0) -> int:
+    """(query, key) pairs a call must score: what this run's data needs
+    (the keys row i at position q_offset + i sees: below kv_len, causal
+    up to itself, within the window)."""
+    total = 0
+    for i in range(sq):
+        pos = q_offset + i
+        hi = min(kv_len, pos + 1) if causal else kv_len
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
 
 
-def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float = BF16_TFLOPS):
+def live_keys(sq: int, kv_len: int, causal: bool, q_offset: int, window: int = 0) -> int:
+    """Keys some query row sees: the K and V rows a call must read."""
+    hi = min(kv_len, q_offset + sq) if causal else kv_len
+    return hi - (max(0, q_offset - window + 1) if window > 0 else 0)
+
+
+def flash_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float = BF16_TFLOPS,
+                   window: int = 0):
     """The larger of the FLOP time (4 D flops a live pair a query head, at
     ``peak``: the bf16 tensor-core peak unless given) and the byte time (q
     and o once, the live keys of k and v once, at the memory rate)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    flops = 4 * b * hq * d * live_pairs(sq, kv_len, causal, q_offset)
-    nbytes = 2 * q.numel() * q.element_size() + 2 * b * hkv * kv_len * d * k.element_size()
+    flops = 4 * b * hq * d * live_pairs(sq, kv_len, causal, q_offset, window)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * b * hkv * live_keys(sq, kv_len, causal, q_offset, window) * d * k.element_size()
     t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
@@ -1009,6 +1058,35 @@ def flash_checks(torch, dev, bw: float) -> dict:
     del cases, got, want, diff, decode32, long_cache
     torch.cuda.empty_cache()
 
+    # the sliding window on every route that takes the call, each named
+    for b, hq, hkv, sq, sk, d, kw in WINDOW_SHAPES:
+        kw = dict(kw)
+        nan = kw.pop("nan", False)
+        for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
+            q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
+            k_want, v_want = k, v
+            if nan:
+                q, k, v, k_want, v_want = nan_tail((q, k, v), kw["kv_len"])
+            want = fa.attention_plain(q, k_want, v_want, **kw).float()
+            takes = {"f32": True, "tensor_core": dtype == bf16 and d in fa.TC_HEAD_DIMS,
+                     "decode": sq * (hq // hkv) <= fa.DECODE_ROWS and d in fa.HEAD_DIMS}
+            for route in (r for r, ok in takes.items() if ok):
+                label = f"window [{b},{hq}/{hkv},{sq}x{sk},{d}] {kw}{' NaN past kv_len' if nan else ''} {dname}"
+                before = fa.ROUTE_LAUNCHES[route].value
+                got = fa.launch_route(route, q, k, v, **kw).float()
+                check(fa.ROUTE_LAUNCHES[route].value == before + 1, f"{route} not launched on {label}")
+                torch.cuda.synchronize()
+                tol = FLASH_TOL[dname]
+                diff = (got - want).abs()
+                ratio = float((diff / (tol + tol * want.abs())).max())
+                worst_abs = max(worst_abs, float(diff.max()))
+                worst_ratio = max(worst_ratio, ratio)
+                worst_route[route] = max(worst_route[route], ratio)
+                emit("flash_check", case=label, route=route, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio)
+                check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"{route} != plain version on {label}")
+            del q, k, v, k_want, v_want, want, got, diff
+    torch.cuda.empty_cache()
+
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     # timings at the serving path's shapes (the decode step at a full cache):
     # the route's kernel, the f32 route's kernel on the same inputs,
@@ -1049,7 +1127,10 @@ def flash_checks(torch, dev, bw: float) -> dict:
                             achieved_GBps=nbytes / (ms * 1e-3) / 1e9)
     emit("flash_times", **times)
     pre, dec = times["prefill"], times["decode"]
-    del prefill, decode, flush
+    del prefill, decode
+    torch.cuda.empty_cache()
+    gemma2 = gemma2_attention_times(torch, fa, qkv, flush, bw)
+    del flush
     torch.cuda.empty_cache()
     csrc = "src/repro_torch/kernels/csrc/"
     routes = {
@@ -1063,8 +1144,10 @@ def flash_checks(torch, dev, bw: float) -> dict:
         # phase 2's backward checks (main); the bf16 serving inputs' beside
         "f32": dict(source=csrc + "flash_attention.cu", err_over_tol=worst_route["f32"],
                     on_bf16_serving_inputs=dict(prefill_ms=pre["f32_route_ms"], decode_ms=dec["f32_route_ms"],
-                                                prefill_bound_ms_bf16_peak=pre["bound_ms"])),
+                                                prefill_bound_ms_bf16_peak=pre["bound_ms"]),
+                    gemma2_prefill=gemma2["prefill"]),
     }
+    routes["decode"]["gemma2_decode"] = gemma2["decode"]
     return {
         "flash_attention": dict(
             name="flash_attention", route="cuda",
@@ -1076,6 +1159,61 @@ def flash_checks(torch, dev, bw: float) -> dict:
             routes=routes, counter=fa.LAUNCHES,
         ),
     }
+
+
+#: gemma2-2b's attention at phase 9's serving shape: 4 requests of 4608
+#: prompt tokens (+ 64 new), 8 query and 4 KV heads of 256, bf16, softcap 50
+GEMMA2_B, GEMMA2_PROMPT, GEMMA2_GEN, GEMMA2_WINDOW = 4, 4608, 64, 4096
+
+
+def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
+    """gemma2's prefill attention on the f32 route (head_dim 256 has no
+    tensor-core forward) and a decode step on the decode route, each with
+    the window of its local layers (4096) and without (its global layers):
+    the kernel (L2 cold), the plain version and SDPA on the same shape
+    without the softcap (no PyTorch call has a tanh softcap, so SDPA
+    computes a lighter function; K/V repeated to the query heads outside
+    the timing, the window as a boolean mask), beside the bound (bf16
+    inputs: the bf16 peak, and the f32 FMA peak the route computes at)."""
+    import torch.nn.functional as F
+
+    out = {}
+    cap = 50.0
+    for label, sq, route in (("prefill", GEMMA2_PROMPT, "f32"), ("decode", 1, "decode")):
+        kv_len = GEMMA2_PROMPT + (GEMMA2_GEN if label == "decode" else 0)
+        q_offset = kv_len - sq
+        q, k, v = qkv(GEMMA2_B, 8, 4, sq, kv_len, 256, torch.bfloat16)
+        check(fa._route(q, k) == route, f"gemma2 {label} shape routed to {fa._route(q, k)}")
+        k8, v8 = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+        for window in (GEMMA2_WINDOW, 0):
+            kw = dict(causal=True, softcap=cap, q_offset=q_offset, kv_len=kv_len, window=window)
+            qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+            kpos = torch.arange(kv_len, device=q.device)[None, :]
+            mask = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+            calls = {
+                "kernel": lambda: fa.flash_attention(q, k, v, **kw),
+                "plain": lambda: fa.attention_plain(q, k, v, **kw),
+                "sdpa_no_softcap": lambda: F.scaled_dot_product_attention(q, k8, v8, attn_mask=mask),
+            }
+            cold = {n: cold_ms(torch, f, flush, reps=3 if n == "plain" else 10) for n, f in calls.items()}
+            got, want = calls["kernel"]().float(), calls["plain"]().float()
+            err = float((got - want).abs().max())
+            ratio = float(((got - want).abs() / (FLASH_TOL["bfloat16"] * (1 + want.abs()))).max())
+            bound, by, flops, nbytes = flash_bound_ms(q, k, kv_len, True, q_offset, bw, window=window)
+            f32_bound = max(flops / F32_TFLOPS * 1e3, nbytes / bw * 1e3)
+            name = f"{label} window {window}" if window else f"{label} global"
+            out.setdefault(label, {})[name] = dict(
+                route=route, shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal softcap {cap}",
+                ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa_no_softcap"],
+                library_note="SDPA without the softcap (a lighter function), K/V repeated to 8 heads",
+                bound_ms=bound, bound_by=by, bound_ms_f32_peak=f32_bound, flops=flops, bytes=nbytes,
+                max_abs_err_vs_plain=err, err_over_tol=ratio)
+            emit("flash_gemma2_times", case=name, **out[label][name])
+            check(ratio <= 1.0, f"gemma2 {name}: kernel != plain version")
+            del got, want
+        del q, k, v, k8, v8, mask
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 2: flash attention's backward --------------------------------------
@@ -1158,6 +1296,22 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
                 b, hq, hkv, sq, sk, d, dtype, dict(causal=causal, softcap=cap))
         cases[f"head_dim 32 q_offset 200 [1,8/2,64x300] kv_len 264 {name}"] = (
             1, 8, 2, 64, 300, 32, dtype, dict(q_offset=200, kv_len=264))
+        # the window on the cuda_core backward (every dtype at the narrow
+        # head_dims; f32 and f16 at the others): launch.train's reduced
+        # gemma2, a window inside a tile and across tiles, with softcap,
+        # offset, NaN past kv_len, G 7 and without causality
+        cases[f"window 8 softcap 50 [8,4/4,64x64,16] (reduced gemma2) {name}"] = (
+            8, 4, 4, 64, 64, 16, dtype, dict(window=8, softcap=50.0))
+        cases[f"window 8 [2,8/2,200x200,32] {name}"] = (2, 8, 2, 200, 200, 32, dtype, dict(window=8))
+        if dtype != bf16:
+            cases[f"window 8 [2,8/4,300x300,128] {name}"] = (2, 8, 4, 300, 300, 128, dtype, dict(window=8))
+            cases[f"window 100 softcap 50 [2,8/4,400x400,64] {name}"] = (
+                2, 8, 4, 400, 400, 64, dtype, dict(window=100, softcap=50.0))
+            cases[f"window 64 q_offset 200 kv_len 329 [1,56/8,129x400,128] {name}"] = (
+                1, 56, 8, 129, 400, 128, dtype, dict(q_offset=200, kv_len=329, window=64, nan_tail=True))
+            cases[f"window 64 not causal kv_len 250 [1,8/4,200x300,64] {name}"] = (
+                1, 8, 4, 200, 300, 64, dtype, dict(causal=False, kv_len=250, window=64, nan_tail=True))
+            cases[f"window 4096 [1,8/4,600x600,128] {name}"] = (1, 8, 4, 600, 600, 128, dtype, dict(window=4096))
     worst = {r: 0.0 for r in fa.BWD_KERNELS}
     worst_abs = {r: 0.0 for r in fa.BWD_KERNELS}
     for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
@@ -1197,6 +1351,23 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         check(same, f"two runs of the {bwd_route} backward differ on {label}")
         del q, k, v, kz, vz, dout, got, again, ref, want
     torch.cuda.empty_cache()
+
+    # the tensor-core backward takes no window yet: a windowed call it would
+    # take raises, through the Function and named, and never runs unwindowed
+    q, k, v = qkv(2, 8, 4, 128, 128, 128, bf16)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    for what, call in (
+        ("the Function", lambda: fa.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), window=8)),
+        ("launch_backward", lambda: fa.launch_backward(q, k, v, q, torch.zeros(q.shape[:3], device=dev), q,
+                                                       window=8, route="tensor_core")),
+    ):
+        try:
+            call()
+            check(False, f"{what}: a windowed tensor_core backward did not raise")
+        except NotImplementedError as e:
+            emit("flash_bwd_window_refused", via=what, error=str(e))
+    check(before == {n: c.value for n, c in fa.BWD_LAUNCHES.items()}, "a refused windowed backward launched a kernel")
+    del q, k, v
 
     # the log-sum-exp the forwards write for the backward
     lse_worst = 0.0
@@ -1301,20 +1472,20 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
 LOGIT_MAX_ABS, LOGIT_MEAN_ABS = 0.5, 0.05
 
 
-def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check") -> dict:
+def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check", chunk: int = 4) -> dict:
     """A served round's logprobs and every step's logits against a
     teacher-forced forward of the whole sequence on ``weights`` with the
-    plain attention (``reference``), four sequences at a time."""
+    plain attention (``reference``), ``chunk`` sequences at a time."""
     seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
     plen = seqs.shape[1] - steps.shape[1]
     lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
-    for c in range(0, seqs.shape[0], 4):
+    for c in range(0, seqs.shape[0], chunk):
         with torch.no_grad():
-            ref = reference.forward(weights, {"tokens": seqs[c : c + 4]})
+            ref = reference.forward(weights, {"tokens": seqs[c : c + chunk]})
         ref = ref[:, plen - 1 : -1]  # the logits each generated token was drawn from
-        lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + 4, plen:, None])[..., 0]
-        lp_err = max(lp_err, float((lps[c : c + 4] - lp_ref).abs().max()))
-        d = (steps[c : c + 4] - ref).abs()
+        lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + chunk, plen:, None])[..., 0]
+        lp_err = max(lp_err, float((lps[c : c + chunk] - lp_ref).abs().max()))
+        d = (steps[c : c + chunk] - ref).abs()
         logit_max = max(logit_max, float(d.max()))
         logit_sum += float(d.double().sum())
         del ref, lp_ref, d
@@ -1378,22 +1549,28 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def serving(torch, dev, counters, smi: str) -> dict:
-    """llama3-8b at its published widths and all 32 layers in bf16,
-    served from a TensorHub replica: a trainer (dc0) publishes v0, a
-    RolloutWorker (dc0, raw) replicates and answers round 0; the trainer
-    perturbs 1/8 of its rows and publishes v1, the worker updates and
-    answers round 1 on the same prompts. Returns the kernels' launches on
-    that path."""
-    from repro_torch.configs.llama3_8b import CONFIG
+def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, gen_len: int, want_route: dict,
+                     label: str, seed: int, ref_batch: int = 4, init=None) -> dict:
+    """``cfg`` at its published widths in bf16, served from a TensorHub
+    replica: a trainer (dc0) publishes v0, a RolloutWorker (dc0, raw)
+    replicates and answers round 0 (``batch`` requests of ``prompt_len``
+    tokens + ``gen_len`` new); the trainer perturbs 1/8 of its rows and
+    publishes v1, the worker updates in place and answers round 1 on the
+    same prompts. Each round is held to phase 5's gates: the replica
+    bit-equal to the trainer, every step's logits and the logprobs within
+    ``LOGIT_*`` of a teacher-forced forward with the plain attention on
+    the trainer's weights (``ref_batch`` sequences at a time), round 1
+    apart from round 0, and ``want_route`` flash launches by route a round.
+    ``init`` may rescale the seeded weights in place before they are
+    registered. Returns the worker, the launches (read right after the
+    rounds), the timings and the checks; then the prefill alone is timed."""
     from repro_torch.core import ReferenceServer, TensorHubClient
     from repro_torch.data.synthetic import PromptSet
-    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, _route, attention_plain, launch_route
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, attention_plain
+    from repro_torch.models import build_model
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker
 
-    cfg = CONFIG
     flash = counters["flash_attention"]
     torch.cuda.reset_peak_memory_stats(dev)
     for c in [*counters.values(), *ROUTE_LAUNCHES.values()]:
@@ -1401,18 +1578,22 @@ def serving(torch, dev, counters, smi: str) -> dict:
     hub = TensorHubClient(ReferenceServer(), device=dev)
     trainer = hub.open("actor", "trainer", 1, 0, datacenter="dc0")
     t0 = time.perf_counter()
-    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 30), torch.bfloat16, dev))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), torch.bfloat16, dev)
+    if init is not None:
+        init(params)
+    trainer.register(params)
+    del params
     weights = trainer.store.tensors()
     nparams = sum(w.numel() for w in weights.values())
-    emit("model", config="llama3-8b", layers=cfg.num_layers, dtype="bfloat16", params=nparams,
+    emit("model", config=cfg.name, layers=cfg.num_layers, dtype="bfloat16", params=nparams,
          bytes=2 * nparams, init_seconds=time.perf_counter() - t0)
     trainer.publish(0)
-    rl = RLConfig(model_name="actor", prompt_len=PROMPT_LEN, response_len=GEN_LEN,
-                  num_prompts=SERVE_BATCH, group_size=1, seed=SEED)
+    rl = RLConfig(model_name="actor", prompt_len=prompt_len, response_len=gen_len,
+                  num_prompts=batch, group_size=1, seed=SEED)
     served = []  # the worker's out_queue, emptied after each round's checks
-    worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), served,
+    worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, prompt_len, seed=SEED), served,
                            threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
-    reference = DecoderLM(cfg, attention=attention_plain)
+    reference = build_model(cfg, attention=attention_plain)
 
     def timed(fn):
         torch.cuda.synchronize(dev)
@@ -1423,11 +1604,12 @@ def serving(torch, dev, counters, smi: str) -> dict:
 
     def equal_to_trainer(when):
         for n, w in trainer.store.tensors().items():
-            check(torch.equal(worker.params[n], w), f"{when}: rollout {n} != trainer")
+            check(torch.equal(worker.params[n], w), f"{label} {when}: rollout {n} != trainer")
 
     _, replicate_s = timed(lambda: worker.connect(timeout=600))
     equal_to_trainer("after replicate")
     rounds, checks = [], []
+    per_round = sum(want_route.values())
     for step in range(2):
         if step:
             def perturb_and_publish():
@@ -1442,42 +1624,73 @@ def serving(torch, dev, counters, smi: str) -> dict:
 
             _, publish_s = timed(perturb_and_publish)
             updated, update_s = timed(worker.pull_latest)
-            check(updated and worker.weights_version == 1, "the rollout did not update to v1")
+            check(updated and worker.weights_version == 1, f"{label}: the rollout did not update to v1")
             equal_to_trainer("after update")
         before = {k: c.value for k, c in counters.items()}
         before_route = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
         rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
         n = flash.value - before["flash_attention"]
         by_route = {r: c.value - before_route[r] for r, c in ROUTE_LAUNCHES.items()}
-        want_route = {"decode": cfg.num_layers * GEN_LEN, "tensor_core": cfg.num_layers, "f32": 0}
-        check(n == cfg.num_layers * (1 + GEN_LEN), f"round {step}: {n} flash launches, want {cfg.num_layers * (1 + GEN_LEN)}")
-        check(by_route == want_route, f"round {step}: flash launches by route {by_route}, want {want_route}")
-        check(rec["version"] == step, f"round {step} served v{rec['version']}")
+        check(n == per_round, f"{label} round {step}: {n} flash launches, want {per_round}")
+        check(by_route == want_route, f"{label} round {step}: flash launches by route {by_route}, want {want_route}")
+        check(rec["version"] == step, f"{label} round {step} served v{rec['version']}")
         rounds.append(dict(round=step, version=rec["version"], seconds=round_s, flash_launches=n,
                            flash_launches_by_route=by_route,
-                           generated_tokens=SERVE_BATCH * GEN_LEN))
+                           generated_tokens=batch * gen_len))
         mid = {k: c.value for k, c in counters.items()}
-        checks.append(check_served_round(torch, reference, trainer.store.tensors(), rec, step))
-        check(mid == {k: c.value for k, c in counters.items()}, "the checks launched a kernel")
+        checks.append(check_served_round(torch, reference, trainer.store.tensors(), rec, step,
+                                         tag="serve_check" if label == "llama3-8b" else f"serve_check {label}",
+                                         chunk=ref_batch))
+        check(mid == {k: c.value for k, c in counters.items()}, f"{label}: the checks launched a kernel")
         if step == 0:
             first0 = rec["step_logits"][:, 0].clone()  # the prompts' next-token logits under v0
         else:
             delta = float((rec["step_logits"][:, 0] - first0).abs().mean())
-            emit("serve_v1_vs_v0", prompt_logits_mean_abs_diff=delta)
-            check(delta > 10 * LOGIT_MEAN_ABS, f"round 1 logits barely differ from round 0's ({delta})")
+            emit("serve_v1_vs_v0", config=cfg.name, prompt_logits_mean_abs_diff=delta)
+            check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1 logits barely differ from round 0's ({delta})")
         del rec
         served.clear()
     launches = {k: c.value for k, c in counters.items()}  # the main path's launches, read now
     launches["flash_attention_routes"] = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated(dev)
+    check(launches["flash_attention"] == 2 * per_round, f"{label}: flash launches over the two rounds")
 
     # the prefill alone at the same shapes (launches after the read above)
-    prompts = torch.from_numpy(worker.prompts.sample(SERVE_BATCH, 1)).to(dev, torch.int64)
+    prompts = torch.from_numpy(worker.prompts.sample(batch, 1)).to(dev, torch.int64)
     prefill_s = statistics.median(
-        timed(lambda: worker.model.prefill(worker.params, {"tokens": prompts}, max_len=PROMPT_LEN + GEN_LEN))[1]
+        timed(lambda: worker.model.prefill(worker.params, {"tokens": prompts}, max_len=prompt_len + gen_len))[1]
         for _ in range(3)
     )
     r1 = rounds[1]["seconds"]
+    return dict(worker=worker, prompts=prompts, launches=launches, rounds=rounds, checks=checks, peak=peak,
+                replicate_s=replicate_s, publish_s=publish_s, update_s=update_s, prefill_s=prefill_s,
+                prefill_tokens_per_s=batch * prompt_len / prefill_s,
+                decode_tokens_per_s=batch * gen_len / (r1 - prefill_s), round_tokens_per_s=batch * gen_len / r1)
+
+
+def serving(torch, dev, counters, smi: str) -> dict:
+    """llama3-8b at its published widths and all 32 layers in bf16,
+    served from a TensorHub replica: a trainer (dc0) publishes v0, a
+    RolloutWorker (dc0, raw) replicates and answers round 0; the trainer
+    perturbs 1/8 of its rows and publishes v1, the worker updates and
+    answers round 1 on the same prompts. Returns the kernels' launches on
+    that path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import _route, launch_route
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = get_config("llama3-8b")
+    want_route = {"decode": cfg.num_layers * GEN_LEN, "tensor_core": cfg.num_layers, "f32": 0}
+    res = serve_two_rounds(torch, dev, counters, cfg, batch=SERVE_BATCH, prompt_len=PROMPT_LEN, gen_len=GEN_LEN,
+                           want_route=want_route, label="llama3-8b", seed=SEED + 30)
+    worker, prompts, launches = res["worker"], res["prompts"], res["launches"]
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
 
     # where a round's time goes: the prefill, then a few decode steps, profiled
     n_dec = min(8, GEN_LEN)
@@ -1517,13 +1730,11 @@ def serving(torch, dev, counters, smi: str) -> dict:
                 "decode route again": step_ms(worker.model)}
     emit("serve_decode_step", card=smi, layers=cfg.num_layers, median_ms=steps_ms)
     del cache
-    emit("serve_result", card=smi, replicate_seconds=replicate_s, publish_v1_seconds=publish_s,
-         update_seconds=update_s, rounds=rounds,
-         prefill_seconds=prefill_s, prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN / prefill_s,
-         decode_tokens_per_s=SERVE_BATCH * GEN_LEN / (r1 - prefill_s),
-         round_tokens_per_s=SERVE_BATCH * GEN_LEN / r1,
-         max_memory_allocated=peak, launches=launches, checks=checks)
-    check(launches["flash_attention"] == 2 * cfg.num_layers * (1 + GEN_LEN), "flash launches over the two rounds")
+    emit("serve_result", card=smi, replicate_seconds=res["replicate_s"], publish_v1_seconds=res["publish_s"],
+         update_seconds=res["update_s"], rounds=res["rounds"],
+         prefill_seconds=res["prefill_s"], prefill_tokens_per_s=res["prefill_tokens_per_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"], round_tokens_per_s=res["round_tokens_per_s"],
+         max_memory_allocated=res["peak"], launches=launches, checks=res["checks"])
     return launches
 
 
@@ -1704,7 +1915,7 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
         def backward(ctx, dout):
             return fa.attention_backward_plain(*ctx.saved_tensors, dout, causal=True)
 
-    isolated = DecoderLM(cfg, attention=lambda q, k, v, causal=True: KernelForwardPlainBackward.apply(q, k, v))
+    isolated = DecoderLM(cfg, attention=lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v))
     g_kernel, m_kernel = value_and_grad(make_grpo_loss_fn(trainer.model), trainer.params, batch)
     g_plain_bwd, m_plain_bwd = value_and_grad(make_grpo_loss_fn(isolated), trainer.params, batch)
     bwd_errs = {n: grad_err(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel}
@@ -1738,38 +1949,54 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
 # -- phase 7: the training entry point at its defaults ---------------------------------
 
 
+#: phase 7's llama3-8b losses on the card before the config registry came
+#: (the reduced config, seed 0): the registry must not move them
+TRAIN_ENTRY_LOSSES = [6.1012, 6.0542]
+
+
 def train_entry_point(torch, counters) -> dict:
     """``python -m repro_torch.launch.train`` at its defaults (the reduced
-    llama3-8b: head_dim 16, f32, on the card), two steps: the losses must
-    be finite, and the f32 route's forward and the cuda_core backward must
-    run every layer of every step. Returns the kernels' launches on that
-    path."""
+    llama3-8b: head_dim 16, f32, on the card), two steps, then again with
+    ``--arch gemma2-2b`` (the reduced gemma2: head_dim 16, window 8,
+    softcaps 50 and 30, tied embeddings, f32): the losses must be finite
+    (llama3-8b's those of earlier runs), and the f32 route's forward and the
+    cuda_core backward must run every layer of every step. Returns the
+    kernels' launches on that path."""
     import contextlib
     import io
     import re
 
-    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES
     from repro_torch.launch import train
 
-    steps, layers = 2, CONFIG.reduced().num_layers
+    steps = 2
     every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
              **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
     for c in every.values():
         c.reset()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        train.main(["--steps", str(steps)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k: c.value for k, c in every.items()}  # the path's launches, read now
-    losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
-    emit("train_entry_point", argv=["--steps", str(steps)], losses=losses, seconds=seconds, launches=launches)
-    check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"train entry point losses {losses}")
-    want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
-            **{f"flash_attention_bwd_{n}": steps * layers * n.startswith("cuda_core/") for n in BWD_LAUNCHES}}
-    check({k: launches[k] for k in want} == want, f"train entry point launches {launches}, want {want}")
+    runs = {}
+    for arch in ("llama3-8b", "gemma2-2b"):
+        argv = ["--steps", str(steps)] + ([] if arch == "llama3-8b" else ["--arch", arch])
+        layers = get_config(arch).reduced().num_layers
+        before = {k: c.value for k, c in every.items()}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        run = {k: c.value - before[k] for k, c in every.items()}  # this run's launches, read now
+        losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
+        emit("train_entry_point", argv=argv, losses=losses, seconds=seconds, launches=run)
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{arch}: train entry point losses {losses}")
+        if arch == "llama3-8b":
+            check(losses == TRAIN_ENTRY_LOSSES, f"llama3-8b losses {losses}, before {TRAIN_ENTRY_LOSSES}")
+        want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
+                **{f"flash_attention_bwd_{n}": steps * layers * n.startswith("cuda_core/") for n in BWD_LAUNCHES}}
+        check({k: run[k] for k in want} == want, f"{arch}: train entry point launches {run}, want {want}")
+        runs[arch] = run
+    launches = {k: c.value for k, c in every.items()}
     out = {k: launches[k] for k in counters}
     out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
     out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
@@ -2198,6 +2425,68 @@ def networked(torch, dev, counters, shapes, chunk_bytes, inproc) -> dict:
     return out
 
 
+# -- phase 9: dense archs from the registry ------------------------------------------
+
+#: depth of yi-34b and deepseek-coder-33b here: a replica of all 60-62
+#: layers is 66-68 GB in bf16, and the trainer's and the rollout's two do
+#: not fit one 80 GB card; their widths stay as published
+DENSE_CUT_LAYERS = 4
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 512, 16
+
+
+def dense_archs(torch, dev, counters, smi: str) -> dict:
+    """The registry's dense archs served from a TensorHub replica, each
+    held to phase 5's gates (``serve_two_rounds``): gemma2-2b at its
+    published widths and all 26 layers (4 requests of 4608 prompt tokens +
+    64 new: the window of 4096 bites on the last 512 prompt positions and
+    on every decode step), then yi-34b and deepseek-coder-33b at their
+    published widths, cut to 4 layers (4 x (512 + 16)). gemma2's tied
+    embedding is drawn at std 1/sqrt(d_model), where the init rule's
+    1/sqrt(vocab) would give logits of ~0.1 and no gate a bite. Returns
+    the kernels' launches over the phase."""
+    from repro_torch.configs import get_config
+
+    total = {k: 0 for k in counters}
+    total["flash_attention_routes"] = {}
+    plan = [
+        ("gemma2-2b", None, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_GEN, 1),
+        ("yi-34b", DENSE_CUT_LAYERS, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN, 4),
+        ("deepseek-coder-33b", DENSE_CUT_LAYERS, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN, 4),
+    ]
+    for i, (arch, layers, batch, plen, glen, ref_batch) in enumerate(plan):
+        cfg = get_config(arch)
+        if layers is not None:
+            print(f"phase 9: {arch} cut from {cfg.num_layers} to {layers} layers, widths as published", flush=True)
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        n = cfg.num_layers
+        prefill_route = "f32" if cfg.resolved_head_dim == 256 else "tensor_core"
+        want_route = {"decode": n * glen, "tensor_core": 0, "f32": 0}
+        want_route[prefill_route] = n
+
+        def init(params, cfg=cfg):
+            if cfg.tie_embeddings:
+                params["embed"].mul_(math.sqrt(cfg.vocab / cfg.d_model))
+
+        t0 = time.perf_counter()
+        res = serve_two_rounds(torch, dev, counters, cfg, batch=batch, prompt_len=plen, gen_len=glen,
+                               want_route=want_route, label=arch, seed=SEED + 90 + i, ref_batch=ref_batch, init=init)
+        emit("dense_arch_result", card=smi, config=arch, layers=n, of_layers=get_config(arch).num_layers,
+             requests=batch, prompt_len=plen, gen_len=glen, window=cfg.sliding_window,
+             replicate_seconds=res["replicate_s"], update_seconds=res["update_s"], rounds=res["rounds"],
+             prefill_seconds=res["prefill_s"], prefill_tokens_per_s=res["prefill_tokens_per_s"],
+             decode_tokens_per_s=res["decode_tokens_per_s"], round_tokens_per_s=res["round_tokens_per_s"],
+             max_memory_allocated=res["peak"], launches=res["launches"], checks=res["checks"],
+             seconds=time.perf_counter() - t0)
+        for k in counters:
+            total[k] += res["launches"][k]
+        for r, c in res["launches"]["flash_attention_routes"].items():
+            total["flash_attention_routes"][r] = total["flash_attention_routes"].get(r, 0) + c
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -2251,6 +2540,24 @@ def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     return rec
 
 
+def ptxas_lines(log: str) -> list:
+    """ptxas's register and spill lines of a build log, each prefixed with
+    the kernel it describes (demangled where ``c++filt`` is on the path)."""
+    import re
+    import shutil
+
+    out, name = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            if shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{name} | {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2284,8 +2591,8 @@ def main() -> int:
     so = build.build()
     build.library()
     log = so.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit("build", seconds=time.perf_counter() - t0, library=str(so.relative_to(ROOT)), ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, library=str(so.relative_to(ROOT)),
+         ptxas=ptxas_lines(log.read_text()) if log.exists() else [])
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2339,12 +2646,16 @@ def main() -> int:
     for k, n in phase8.items():
         check(n > 0, f"kernel {k} was not launched on the networked path")
     phase_s["8 networked"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8)
+    t0 = time.perf_counter()
+    phase9 = dense_archs(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")}, smi)
+    phase_s["9 dense archs"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    for r in phase5["flash_attention_routes"]:  # phases 5 to 7 are the paths with attention
-        kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in phases[2:5])
+    attention_phases = (phase5, phase6, phase7, phase9)  # the paths with attention
+    for r in phase5["flash_attention_routes"]:
+        kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     by_kernel = {n: phase6["flash_attention_bwd_by_kernel"][n] + phase7["flash_attention_bwd_by_kernel"][n]
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -2352,7 +2663,7 @@ def main() -> int:
             route = k.split("/")[1]
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase8=phase8, phase_seconds=phase_s)
+         phase8=phase8, phase9=phase9, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

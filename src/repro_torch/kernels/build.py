@@ -49,24 +49,26 @@ SIGNATURES = {
     # (descriptors int64[P,8], P, out, blocks_x, blocks_y, stream)
     "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv,
-    #  Sq, D, causal, softcap, q_offset, kv_len, lse f32[B,Hq,Sq] or null, stream)
+    #  Sq, D, causal, softcap, q_offset, kv_len, window (0: none),
+    #  lse f32[B,Hq,Sq] or null, stream)
     "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _F32, _INT, _INT, _P, _P),
+                           _F32, _INT, _INT, _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, causal,
-    #  softcap, q_offset, kv_len, lse f32[B,Hq,Sq] or null, stream); bf16, D in {64, 128}
+    #  softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null, stream);
+    #  bf16, D in {64, 128}
     "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
-                              _P, _P),
+                              _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
-    #  D, causal, softcap, q_offset, kv_len, keys_per_split, nsplit,
+    #  D, causal, softcap, q_offset, kv_len, window, keys_per_split, nsplit,
     #  f32 scratch, int32 split counters, stream)
     "th_flash_decode": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
-                        _INT, _INT, _P, _P, _P),
+                        _INT, _INT, _INT, _P, _P, _P),
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hkv*nsub2*128, strides int64[24] on the host, dtype code, B, Hq, Hkv,
-    #  Sq, Sk, D, causal, softcap, q_offset, kv_len, stream); the three
-    #  CUDA-core backward kernels take the same
+    #  Sq, Sk, D, causal, softcap, q_offset, kv_len, window, stream); the
+    #  three CUDA-core backward kernels take the same
     **{f"th_flash_bwd_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _F32, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
+                             _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, causal,
     #  softcap, q_offset, kv_len, stream); bf16, D in {64, 128}; the three

@@ -8,7 +8,8 @@
 // head row b*Hq + h against KV row b*Hkv + h / G (G = Hq / Hkv, GQA):
 //   s   = (q . k) * (1 / sqrt(D))          f32 dot, scale after it
 //   s   = c * tanh(s / c)                  when softcap c > 0
-//   s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i
+//   s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i,
+//         or (sliding window W) j <= q_offset + i - W
 //   out = softmax(s) v                     online: m, l, acc in f32
 // with the TPU kernel's numerics: -1e30 (not -inf) for masked scores,
 // alpha = exp(m_prev - m_cur), l = l * alpha + sum(p), and the final
@@ -60,9 +61,11 @@
 //    D/16 below it, so head_dim 16 and 32 are not padded). Three barriers
 //    a tile.
 //  * A block loops only over the key tiles that hold a live key: tiles at
-//    or past kv_len, and (causal) past the tile's last query position, are
-//    skipped, not masked, so a decode step's cost follows cache_len. Causal
-//    blocks with the most key tiles are launched first.
+//    or past kv_len, (causal) past the tile's last query position and
+//    (window W) wholly at or before its first position - W, the smallest
+//    of the qpt positions a packed sub-tile spans, are skipped, not masked,
+//    so a decode step's cost follows cache_len and a windowed layer's the
+//    window. Causal blocks with the most key tiles are launched first.
 // Tile plan (the same for f32, bf16 and f16; 16-bit tiles keep their
 // type in shared memory and convert as they are read): BQ 128 rows and BK
 // 64 keys at head_dim 16-128 (BQ 64 where the whole call is one sub-tile,
@@ -94,6 +97,7 @@ struct Params {
   float* lse;  // [B, Hq, Sq] or null
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, sequence
   int hkv, group, sq, qpt, ntiles, causal, q_offset, kv_len;
+  int window;  // the sliding window, or 2^30 for none
   float inv_group, scale, softcap;
 };
 
@@ -105,7 +109,11 @@ constexpr size_t smem_bytes() {
          sizeof(float) * (size_t(BK) * (kSub * NSUB + 4) + 2 * size_t(kSub) * NSUB);
 }
 
-template <typename T, int D, int NSUB, int BK>
+// W: the call has a window. The unwindowed instances carry neither the
+// window's compare nor its first tile, so a call without a window runs
+// the code it ran before the window came (the mask loop sits at 254-255
+// registers at head_dim 128 in f32, where one more live value costs time)
+template <typename T, int D, int NSUB, int BK, bool W>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   constexpr int BQ = kSub * NSUB;
   constexpr int RA = BQ / 16;  // rows a thread: hx + 16a in the scores, slots RA ty + a in P V
@@ -135,10 +143,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
 
-  // live keys: [0, kv_end); tiles past it are skipped (the TPU kernel's `live`)
+  // live keys: [kv_start, kv_end); tiles outside are skipped (the TPU
+  // kernel's `live`), kv_start from the block's first position
   const int pos_end = min(p.sq, (sub0 + NSUB) * p.qpt);
   const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
-  const int ntiles = (kv_end + BK - 1) / BK;
+  const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
+  const int ntiles = (kv_end + BK - 1) / BK - t0;
 
   copy_tile<T, D, BQ, kThreads>(qs, [&](int r) -> const T* {
     int g, i;
@@ -149,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
     copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
   };
-  copy_kv(0, 0);
+  copy_kv(t0, 0);
   cp_async_commit();
 
   // the rows this thread finalizes, hx + 16 (FA h + i): positions (padding
@@ -171,11 +181,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
+    const int k0 = (t0 + t) * BK;
     cp_async_wait_all();
     __syncthreads();  // tile t is in; every thread is done with tile t - 1's stage, pt and alpha_s
     if (t + 1 < ntiles) {
-      copy_kv(t + 1, (t + 1) & 1);
+      copy_kv(t0 + t + 1, (t + 1) & 1);
       cp_async_commit();
     }
     const T* kt = kbuf + (t & 1) * BK * D;
@@ -227,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < RC; ++c) {
         const int kpos = k0 + tx + 8 * c;
-        const bool ok = kpos < p.kv_len && (p.causal ? kpos <= qpos[i] : qpos[i] >= 0);
+        const bool ok = kpos < p.kv_len && (p.causal ? kpos <= qpos[i] : qpos[i] >= 0) && (!W || kpos > qpos[i] - p.window);
         f[i][c] = ok ? f[i][c] : kNegInf;
         rmax = fmaxf(rmax, f[i][c]);
       }
@@ -301,11 +311,11 @@ template <typename T, int D, int NSUB, int BK>
 int launch(Params p, int nsub, int bkv, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, D, NSUB, BK>();
   static_assert(bytes <= 232448, "a block's shared memory on sm_90");
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, NSUB, BK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  const auto kernel = p.window < (1 << 30) ? flash_kernel<T, D, NSUB, BK, true> : flash_kernel<T, D, NSUB, BK, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   p.ntiles = (nsub + NSUB - 1) / NSUB;
-  flash_kernel<T, D, NSUB, BK><<<p.ntiles * bkv, kThreads, bytes, stream>>>(p);
+  kernel<<<p.ntiles * bkv, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,12 +348,12 @@ int dispatch(const Params& p, int d, int nsub, int bkv, cudaStream_t stream) {
 // its pointer and its (batch, head, sequence) element strides in
 // `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
 // 1 = bfloat16, 2 = float16; D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64;
-// 1 <= kv_len <= Sk;
+// 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none;
 // lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError() after the launch.
 extern "C" int th_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int dtype, int batch, int hq,
                                   int hkv, int sq, int d, int causal, float softcap,
-                                  int q_offset, int kv_len, float* lse, void* stream) {
+                                  int q_offset, int kv_len, int window, float* lse, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -366,6 +376,7 @@ extern "C" int th_flash_attention(const void* q, const void* k, const void* v, v
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
+  p.window = window > 0 ? window : 1 << 30;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
   p.softcap = softcap;
   const int bkv = batch * hkv;

@@ -17,9 +17,10 @@
 //   dS  = P * (dP - D_i) * (1 - (s_c / c)^2)   (the last factor only
 //                                               under a softcap)
 //   dQ  = dS K * scale,   dK = dS^T Q * scale   (dK summed over the group)
-// with the forward's masks: key j is live for row i when j < kv_len and
-// (causal) j <= q_offset + i; a masked pair contributes nothing (its P is
-// 0). Keys past kv_len get zero gradients. What attention_backward_plain
+// with the forward's masks: key j is live for row i when j < kv_len,
+// (causal) j <= q_offset + i and (sliding window W) j > q_offset + i - W; a
+// masked pair contributes nothing (its P is 0). Keys past kv_len, and keys
+// no row's window reaches, get zero gradients. What attention_backward_plain
 // (kernels/flash_attention/__init__.py) computes in plain PyTorch; exp is
 // __expf (ex2.approx of a prescaled argument, a few ulp where P matters),
 // and under a softcap 1 - t^2 is taken from s_c as 1 - (s_c / c)^2.
@@ -47,7 +48,8 @@
 //  2. dK/dV: one block of 256 threads a (batch, KV head, 64-key tile). Its
 //     K and V tiles stay in shared memory; the sub-tiles of Q, dO and
 //     their stats that can see its keys (causal: from the one holding
-//     position k0 - q_offset) stream through a ring of two stages by
+//     position k0 - q_offset; window W: up to the one holding the tile's
+//     last key + W - 1 - q_offset) stream through a ring of two stages by
 //     16-byte cp.async, the next arriving while this one computes. Per
 //     sub-tile four quarters of 64 threads compute S^T = K Q^T and dP^T =
 //     V dO^T, each over half of D, 8 x 8 a thread (keys hx + 8a, rows tx +
@@ -59,7 +61,8 @@
 //     registers. Four barriers a sub-tile.
 //  3. dQ: one block a (batch, KV head, 128 packed query rows). Q, dO and
 //     their stats stay in shared memory; K and V tiles of 32 keys stream
-//     through the ring up to the causal / kv_len edge (tiles past it are
+//     through the ring from the window's start for the block's first
+//     position up to the causal / kv_len edge (tiles outside are
 //     skipped). The quarters compute S = Q K^T and dP = dO V^T as in dK/dV
 //     (rows hx + 16a, keys tx + 4c), dS goes into an f32 tile, and all
 //     threads accumulate dQ += dS K, 8 rows x 8 RowCols columns a thread.
@@ -102,6 +105,7 @@ struct BwdParams {
   float* stats;      // [B * Hkv][nsub2][kStats], written by pre
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];  // batch, head, sequence
   int batch, hq, hkv, group, sq, sk, qpt, nsub, nsub2, causal, q_offset, kv_len;
+  int window;  // the sliding window, or 2^30 for none
   float inv_group, scale, softcap;
 };
 
@@ -109,9 +113,14 @@ __device__ __forceinline__ const float* stats_of(const BwdParams& p, int bkv, in
   return p.stats + (static_cast<long long>(bkv) * p.nsub2 + sub) * kStats;
 }
 
-// whether key j is live for a row at position `pos` (-1 for a padding row)
+// whether key j is live for a row at position `pos` (-1 for a padding row);
+// the window's compare only where W: the dK/dV and dQ kernels are
+// instantiated with and without a window, so a call without one runs the
+// code it ran before the window came (both sit at 254-255 registers at
+// head_dim 128 in f32, where one more live value spills or costs time)
+template <bool W>
 __device__ __forceinline__ bool live(const BwdParams& p, int pos, int j) {
-  return pos >= 0 && j < p.kv_len && (!p.causal || j <= p.q_offset + pos);
+  return pos >= 0 && j < p.kv_len && (!p.causal || j <= p.q_offset + pos) && (!W || j > p.q_offset + pos - p.window);
 }
 
 // raw dots s of a tile into s * scale, and under a softcap c into
@@ -194,7 +203,7 @@ struct DkdvLayout {
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
-template <typename T, int D>
+template <typename T, int D, bool W>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdParams p) {
   using L = DkdvLayout<T, D>;
   constexpr int PP = L::kPP;
@@ -229,9 +238,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
     for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
 
   // sub-tiles whose rows can see a key of this tile (none if it starts at
-  // or past kv_len): from the one holding position k0 - q_offset
+  // or past kv_len): from the one holding position k0 - q_offset, up to
+  // the one holding the last position whose window reaches the tile's last
+  // live key, k_last + window - 1 - q_offset
   const int first = p.causal ? max(0, k0 - p.q_offset) / p.qpt : 0;
-  const int s_begin = k0 < p.kv_len ? first : p.nsub;
+  const int pos_last = min(k0 + kKeys, p.kv_len) - 1 + p.window - 1 - p.q_offset;
+  const int s_end = !W ? p.nsub : pos_last < 0 ? 0 : min(p.nsub, pos_last / p.qpt + 1);
+  const int s_begin = k0 < p.kv_len ? first : s_end;
 
   // a sub-tile row's position less the sub-tile's first (-1 for padding)
   int rel[8];
@@ -257,17 +270,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
     if (tid < kStats / 4) cp_async16(stbuf + stage * kStats + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
   };
 
-  if (s_begin < p.nsub) {
+  if (s_begin < s_end) {
     copy_rows<T, D, kKeys, kThreads>(ks, kg, p.ks[2], k0, p.kv_len);
     copy_rows<T, D, kKeys, kThreads>(vs, vg, p.vs[2], k0, p.kv_len);
     copy_sub(s_begin, 0);
     cp_async_commit();
   }
-  for (int sub = s_begin, it = 0; sub < p.nsub; ++sub, ++it) {
+  for (int sub = s_begin, it = 0; sub < s_end; ++sub, ++it) {
     const int st = it & 1;
     cp_async_wait_all();
     __syncthreads();  // sub-tile `sub` is in; every thread is done with the other stage, pb and db
-    if (sub + 1 < p.nsub) {
+    if (sub + 1 < s_end) {
       copy_sub(sub + 1, st ^ 1);
       cp_async_commit();
     }
@@ -310,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
         float pr[kFin];
 #pragma unroll
         for (int i = 0; i < kFin; ++i) {
-          const float2 v = p_and_factor(f[i][c], lse, inv_cap, live(p, pos, k0 + hx + 8 * (mine + i)));
+          const float2 v = p_and_factor(f[i][c], lse, inv_cap, live<W>(p, pos, k0 + hx + 8 * (mine + i)));
           pr[i] = v.x;
           f[i][c] = v.y;
         }
@@ -382,7 +395,7 @@ struct DqLayout {
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
-template <typename T, int D>
+template <typename T, int D, bool W>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdParams p) {
   using L = DqLayout<T, D>;
   constexpr int BK = kQKeys, PP = L::kPP;
@@ -415,10 +428,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
   const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
 
-  // live keys [0, kv_end); tiles past it are skipped
+  // live keys [kv_start, kv_end), kv_start from the block's first
+  // position; tiles outside are skipped
   const int pos_end = min(p.sq, (sub0 + 2) * p.qpt);
   const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
-  const int ntiles = (kv_end + BK - 1) / BK;
+  const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
+  const int ntiles = (kv_end + BK - 1) / BK - t0;
 
   copy_tile<T, D, kRows, kThreads>(qs, [&](int r) -> const T* {
     int g, i;
@@ -435,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
     copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
     copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
   };
-  copy_kv(0, 0);
+  copy_kv(t0, 0);
   cp_async_commit();
 
   // the rows this thread finalizes, hx + 16 (mine + i): positions (-1 for
@@ -457,11 +472,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
     for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
+    const int k0 = (t0 + t) * BK;
     cp_async_wait_all();
     __syncthreads();  // tile t is in; every thread is done with the other stage, db and xb
     if (t + 1 < ntiles) {
-      copy_kv(t + 1, (t + 1) & 1);
+      copy_kv(t0 + t + 1, (t + 1) & 1);
       cp_async_commit();
     }
     if (t == 0) {
@@ -505,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
       for (int c = 0; c < 8; ++c)
 #pragma unroll
         for (int i = 0; i < kFin; ++i)
-          f[i][c] = p_and_factor(f[i][c], lse[i], inv_cap, live(p, qpos[i], k0 + tx + 4 * c)).y;
+          f[i][c] = p_and_factor(f[i][c], lse[i], inv_cap, live<W>(p, qpos[i], k0 + tx + 4 * c)).y;
     } else {  // the whole dP into xb
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
@@ -559,7 +574,8 @@ int launch(Kernel kernel, size_t bytes, int blocks, int threads, const BwdParams
 
 BwdParams make_params(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
                       void* dk, void* dv, const float* lse, float* stats, const long long* strides, int batch,
-                      int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len) {
+                      int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len,
+                      int window) {
   BwdParams p;
   p.q = q;
   p.k = k;
@@ -587,6 +603,7 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
+  p.window = window > 0 ? window : 1 << 30;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the forward's
   p.softcap = softcap;
   return p;
@@ -604,10 +621,12 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
       return launch(flash_bwd_pre_kernel<T, D>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
     }
     case kDkdvK:
-      return launch(flash_bwd_dkdv_kernel<T, D>, DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
+      return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true> : flash_bwd_dkdv_kernel<T, D, false>,
+                    DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
                     kThreads, p, s);
     default:
-      return launch(flash_bwd_dq_kernel<T, D>, DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
+      return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>,
+                    DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
   }
 }
 
@@ -625,10 +644,10 @@ int dispatch(const BwdParams& p, int d, Which which, cudaStream_t s) {
 int entry(Which which, const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
           void* dk, void* dv, const float* lse, float* stats, const long long* strides, int dtype, int batch,
           int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len,
-          void* stream) {
+          int window, void* stream) {
   if (hkv < 1 || hq % hkv != 0 || hq / hkv > kSub) return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d,
-                                  causal, softcap, q_offset, kv_len);
+                                  causal, softcap, q_offset, kv_len, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch<float>(p, d, which, s);
@@ -647,16 +666,16 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 // B * Hkv * nsub2 * 128 floats (nsub2: ceil(Sq / (64 / G)) rounded up to
 // even); dtype 0 = float32, 1 = bfloat16, 2 = float16 (every tensor but
 // lse and stats); D in {16, 32, 64, 128}; Hq / Hkv <= 64; 1 <= kv_len <=
-// Sk. In this order on one stream: th_flash_bwd_pre writes stats,
+// Sk; window > 0 a sliding window, 0 none. In this order on one stream: th_flash_bwd_pre writes stats,
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
 // writes dq. Each returns cudaGetLastError() after its launch.
 #define TH_BWD_ARGS                                                                                             \
   const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv,  \
       const float *lse, float *stats, const long long *strides, int dtype, int batch, int hq, int hkv, int sq, \
-      int sk, int d, int causal, float softcap, int q_offset, int kv_len, void *stream
+      int sk, int d, int causal, float softcap, int q_offset, int kv_len, int window, void *stream
 #define TH_BWD_PASS                                                                                         \
   q, k, v, o, dout, dq, dk, dv, lse, stats, strides, dtype, batch, hq, hkv, sq, sk, d, causal, softcap, q_offset, \
-      kv_len, stream
+      kv_len, window, stream
 
 extern "C" int th_flash_bwd_pre(TH_BWD_ARGS) { return entry(kPreK, TH_BWD_PASS); }
 extern "C" int th_flash_bwd_dkdv(TH_BWD_ARGS) { return entry(kDkdvK, TH_BWD_PASS); }

@@ -6,7 +6,8 @@
 // head h of batch b against KV head h / G (GQA, G = Hq / Hkv):
 //   s   = (q . k) * (1 / sqrt(D))          f32 accumulation, scale after it
 //   s   = c * tanh(s / c)                  when softcap c > 0
-//   s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i
+//   s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i,
+//         or (sliding window W) j <= q_offset + i - W
 //   out = softmax(s) v                     online: m, l, acc in f32
 // with the TPU kernel's numerics: -1e30 (not -inf) masks, alpha =
 // exp(m_prev - m_cur), l = l * alpha + sum(p), acc / max(l, 1e-30) rounded
@@ -50,8 +51,10 @@
 // accumulator's layout is already the A fragment's, and runs O += P.V as
 // wgmma.m64nDk16 with A from registers and V as a transposed (MN-major) B
 // operand. Key tiles past an item's last live key are not loaded at all
-// (causal skipping); a warpgroup whose own rows end earlier skips the
-// tile's math; only the diagonal tiles and the kv_len edge are masked.
+// (causal skipping), and under a window neither are the tiles wholly
+// before the item's first row's window; a warpgroup whose own rows end
+// earlier, or whose window starts later, skips the tile's math; only the
+// diagonal tiles, the window's edge tiles and the kv_len edge are masked.
 // The tensor maps are built per call from each tensor's own strides (the
 // serving path's v is a view with sequence stride Hkv * D), with the
 // sequence extent of K and V set to kv_len, so TMA fills keys past kv_len
@@ -94,6 +97,7 @@ struct TcParams {
   float* lse;  // [B, Hq, Sq] or null
   long long os[3];  // element strides of o: batch, head, sequence
   int batch, hq, group, sq, num_q_tiles, causal, q_offset, kv_len;
+  int window;  // the sliding window, or 2^30 for none
   float scale, softcap;
 };
 
@@ -114,7 +118,10 @@ struct Layout {
   static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
 };
 
-template <int D>
+// W: the call has a window. The unwindowed instances carry none of the
+// window's tile bounds, compares or all-masked-row guard, so a call
+// without a window runs the code it ran before the window came
+template <int D, bool W>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
@@ -137,20 +144,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int nbh = p.batch * p.hq;
   const int nwork = p.num_q_tiles * nbh;
-  // work item w: query tile num_q_tiles - 1 - w / nbh (the causal tiles with
-  // the most keys first) of head row w % nbh; block i takes i, i + grid, ...
+  // work item w: query tile num_q_tiles - 1 - w / nbh of head row w % nbh
+  // (the items with the most live key tiles first: the last query tiles
+  // when causal or unwindowed; without causality a window leaves the first
+  // query tiles the most, so they go first); block i takes i, i + grid, ...
+  const bool last_first = p.causal || !W;
   struct Work {
-    int q0, b, h, ntiles;
+    int q0, b, h, t0, ntiles;
   };
   auto work = [&](int w) {
     Work x;
     const int bh = w % nbh;
-    x.q0 = (p.num_q_tiles - 1 - w / nbh) * kBQ;
+    x.q0 = (last_first ? p.num_q_tiles - 1 - w / nbh : w / nbh) * kBQ;
     x.b = bh / p.hq;
     x.h = bh % p.hq;
-    const int last = min(p.sq, x.q0 + kBQ) - 1;  // live keys [0, kv_end); tiles past it are not loaded
+    // live keys [kv_start, kv_end); tiles wholly outside are not loaded
+    const int last = min(p.sq, x.q0 + kBQ) - 1;
     const int kv_end = p.causal ? min(p.kv_len, p.q_offset + last + 1) : p.kv_len;
-    x.ntiles = (kv_end + kBK - 1) / kBK;
+    const int kv_start = W ? max(0, p.q_offset + x.q0 - p.window + 1) : 0;
+    x.t0 = kv_start / kBK;
+    x.ntiles = (kv_end + kBK - 1) / kBK - x.t0;
     return x;
   };
 
@@ -180,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int nb = 0; nb < NB; ++nb)
           tma_load(q_buf(qb) + nb * kBQ * kRowBytes, &qmap, q_full(qb), dims.q, nb * kBox, x.q0, x.h, x.b);
         const int hk = x.h / p.group;
-        for (int t = 0; t < x.ntiles; ++t, ++it) {
+        for (int t = x.t0; t < x.t0 + x.ntiles; ++t, ++it) {
           const int s = it % kStages;
           mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
           mbar_expect_tx(k_full(s), L::kTileBytes);
@@ -211,6 +224,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int pos_a = p.q_offset + row0 + ra, pos_b = pos_a + 8;
     const int wg_end = p.causal ? min(p.kv_len, p.q_offset + min(p.sq, row0 + 64)) : p.kv_len;
     const int wg_kv_end = row0 < p.sq ? wg_end : 0;  // a warpgroup past Sq does no math
+    const int wg_kv_start = p.q_offset + row0 - p.window + 1;  // its first row's first key (may be < 0)
+    const int pos_last = p.q_offset + row0 + 63;               // its last row's position
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -218,12 +233,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t q_base = q_buf(qb) + wg * 64 * kRowBytes;
     mbar_wait(q_full(qb), (n >> 1) & 1);
 
-    for (int t = 0; t < x.ntiles; ++t, ++it) {
+    for (int t = x.t0; t < x.t0 + x.ntiles; ++t, ++it) {
       const int s = it % kStages;
       const uint32_t ph = (it / kStages) & 1;
       const int k0 = t * kBK;
       mbar_wait(k_full(s), ph);
-      if (k0 < wg_kv_end) {
+      if (k0 < wg_kv_end && (!W || k0 + kBK > wg_kv_start)) {
         float sc[kBK / 2];
 #pragma unroll
         for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
@@ -239,9 +254,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait_all();
         fence_regs(sc);
 
-        // s = dot * scale (then softcap); masks only on the diagonal and
-        // kv_len edge tiles
-        const bool edge = k0 + kBK > p.kv_len || (p.causal && k0 + kBK - 1 > p.q_offset + row0);
+        // s = dot * scale (then softcap); masks only on the diagonal, the
+        // window's edge and the kv_len edge tiles
+        const bool edge = k0 + kBK > p.kv_len || (p.causal && k0 + kBK - 1 > p.q_offset + row0) ||
+                          (W && k0 <= pos_last - p.window);
 #pragma unroll
         for (int i = 0; i < kBK / 2; ++i) sc[i] *= p.scale;
         if (capped) {
@@ -255,8 +271,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int c = 0; c < 2; ++c) {
               const int kpos = k0 + 8 * j + col + c;
               const bool in = kpos < p.kv_len;
-              if (!(in && (!p.causal || kpos <= pos_a))) sc[4 * j + c] = kNegInf;
-              if (!(in && (!p.causal || kpos <= pos_b))) sc[4 * j + 2 + c] = kNegInf;
+              if (!(in && (!p.causal || kpos <= pos_a) && (!W || kpos > pos_a - p.window))) sc[4 * j + c] = kNegInf;
+              if (!(in && (!p.causal || kpos <= pos_b) && (!W || kpos > pos_b - p.window))) sc[4 * j + 2 + c] = kNegInf;
             }
           }
         }
@@ -271,8 +287,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 1));
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xFFFFFFFFu, mx_b, 2));
         const float mc_a = fmaxf(m_a, mx_a), mc_b = fmaxf(m_b, mx_b);
-        // exp(x - m) as 2^(x log2 e - m log2 e): one FFMA and one MUFU a score
-        const float ml_a = mc_a * kLog2e, ml_b = mc_b * kLog2e;
+        // exp(x - m) as 2^(x log2 e - m log2 e): one FFMA and one MUFU a
+        // score. A row that has seen only masked keys so far (a window's
+        // first tiles) takes m log2 e = 0, so its masked scores give 0, not
+        // 2^(the FFMA's rounding error of -1e30 log2 e), which may be inf;
+        // the alpha of its first live tile wipes its (zero) sums as before
+        const float ml_a = W && mc_a == kNegInf ? 0.f : mc_a * kLog2e;
+        const float ml_b = W && mc_b == kNegInf ? 0.f : mc_b * kLog2e;
         const float al_a = ex2(m_a * kLog2e - ml_a), al_b = ex2(m_b * kLog2e - ml_b);
         m_a = mc_a;
         m_b = mc_b;
@@ -359,18 +380,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int D>
+template <int D, bool W>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const CUtensorMap& om, const TcParams& p,
            const MapDims& dims, int blocks, cudaStream_t stream) {
   constexpr int bytes = Layout<D>::kBytes;
   static bool sized = false;  // the attribute is set once a kernel
   if (!sized) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        cudaFuncSetAttribute(flash_tc_kernel<D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  flash_tc_kernel<D><<<blocks, kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
+  flash_tc_kernel<D, W><<<blocks, kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,12 +400,12 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 // bf16 q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by
 // its pointer and its (batch, head, sequence) element strides in `strides`
 // (a host array of 12: q, k, v, o); D in {64, 128}; pointers and strides of
-// q, k and v 16-byte aligned; 1 <= kv_len <= Sk; lse f32 [B, Hq, Sq] or
-// null. Returns cudaGetLastError() after the launch, or a tensor-map
-// encoding failure negated.
+// q, k and v 16-byte aligned; 1 <= kv_len <= Sk; window > 0 a sliding
+// window, 0 none; lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError()
+// after the launch, or a tensor-map encoding failure negated.
 extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                      int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
-                                     int q_offset, int kv_len, float* lse, void* stream) {
+                                     int q_offset, int kv_len, int window, float* lse, void* stream) {
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm, om;
   MapDims dims;
@@ -405,6 +426,7 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
+  p.window = window > 0 ? window : 1 << 30;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
   p.softcap = softcap;
   static int sms = 0;  // one persistent block an SM
@@ -412,5 +434,9 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   const int work = p.num_q_tiles * batch * hq;
   const int blocks = work < sms ? work : sms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(qm, km, vm, om, p, dims, blocks, s) : launch<128>(qm, km, vm, om, p, dims, blocks, s);
+  if (window > 0)
+    return d == 64 ? launch<64, true>(qm, km, vm, om, p, dims, blocks, s)
+                   : launch<128, true>(qm, km, vm, om, p, dims, blocks, s);
+  return d == 64 ? launch<64, false>(qm, km, vm, om, p, dims, blocks, s)
+                 : launch<128, false>(qm, km, vm, om, p, dims, blocks, s);
 }

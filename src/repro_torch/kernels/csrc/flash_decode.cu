@@ -6,15 +6,19 @@
 // the serving path's decode step (Sq = 1, G = 4) and short chunks behind
 // a cache. It computes what flash_attention.cu and the TPU kernel compute
 // (scores scaled after the f32 dot, c * tanh(s / c), -1e30 masks for keys
-// at or past kv_len and, causal, past q_offset + i, softmax in f32,
-// acc / max(l, 1e-30) rounded once), f32 or bf16, head_dim 64/128/256.
+// at or past kv_len, causal, past q_offset + i and, under a sliding window
+// W, at or before q_offset + i - W; softmax in f32, acc / max(l, 1e-30)
+// rounded once), f32 or bf16, head_dim 64/128/256.
 //
 // Bound: a decode step reads the live keys and values of every KV head
 // once (37.7 MB at the serving shape, kv_len 576) and does 4 FLOPs a key
 // a query row: bound by bytes, so the tensor cores buy nothing. What the
 // one-block-a-KV-head design lacked was parallelism: 128 blocks on 132
-// SMs, each walking its keys in series. Here the key range [0, kv_end)
-// (kv_end = kv_len, or q_offset + Sq when causal) is cut into splits of
+// SMs, each walking its keys in series. Here the key range [kv_start,
+// kv_end) (kv_end = kv_len, or q_offset + Sq when causal; kv_start =
+// q_offset - W + 1 under a window W, the first key the first row sees,
+// else 0, so keys before the window are neither loaded nor scored) is cut
+// into splits of
 // keys_per_split keys (a multiple of 64, chosen by the wrapper from kv_end
 // and the batch so that the grid is about one wave of this kernel on the
 // 132 SMs: 640 blocks of 128 keys at the serving shape, where 1152 blocks
@@ -38,8 +42,9 @@
 // 64 rows still fit the shared memory.) The merge: M = max m_i, out = sum
 // exp(m_i - M) acc_i / max(sum exp(m_i - M) l_i, 1e-30). A split in which
 // a row saw only masked keys has m_i = -1e30 and drops out exactly
-// (exp(-1e30 - M) = 0), as the TPU kernel's alpha wipes such a tile; split
-// 0 holds key 0, live for every row.
+// (exp(-1e30 - M) = 0), as the TPU kernel's alpha wipes such a tile; every
+// row sees a key of some split (the wrapper refuses a window that leaves a
+// row none).
 //
 // Numerics against the TPU kernel: the same f32 operations, summed in
 // another order (a dot product in two halves; P V in key slots; a split's
@@ -69,7 +74,7 @@ struct DecodeParams {
   float* part;    // acc [BHkv][nsplit][rows][D], then (m, l) [BHkv][nsplit][rows][2]
   int* counters;  // [BHkv] splits done, 0 between calls (the merging block resets its own)
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, sequence
-  int hkv, group, rows, causal, q_offset, kv_end, keys_per_split, nsplit;
+  int hkv, group, rows, causal, q_offset, kv_start, kv_end, window, keys_per_split, nsplit;  // window: 2^30 for none
   float scale, softcap;
 };
 
@@ -164,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
 
   const int split = blockIdx.x, bkv = blockIdx.y;
   const int b = bkv / p.hkv, hk = bkv % p.hkv;
-  const int k_begin = split * p.keys_per_split;
+  const int k_begin = p.kv_start + split * p.keys_per_split;
   const int k_end = min(k_begin + p.keys_per_split, p.kv_end);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const T* qg = static_cast<const T*>(p.q) + b * p.qs[0];
@@ -247,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
         const int kpos = t0 + lane + 32 * cc;
         float s = sc[r * TK + lane + 32 * cc] * p.scale;
         if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-        x[cc] = (kpos < k_end && (!p.causal || kpos <= qpos)) ? s : kNegInf;
+        x[cc] = (kpos < k_end && (!p.causal || kpos <= qpos) && kpos > qpos - p.window) ? s : kNegInf;
         mx = fmaxf(mx, x[cc]);
       }
       const float m_prev = ms[r];
@@ -410,15 +415,16 @@ int dispatch(const DecodeParams& p, int d, int bkv, cudaStream_t stream) {
 // pointer and its (batch, head, sequence) element strides in `strides` (a
 // host array of 12: q, k, v, o); dtype 0 = float32, 1 = bfloat16; D in
 // {64, 128, 256}; Sq * Hq / Hkv <= 64; rows 16-byte aligned; 1 <= kv_len
-// <= Sk. The key range [0, kv_end) is cut into nsplit splits of
-// keys_per_split keys (a multiple of 64; nsplit = ceil(kv_end /
-// keys_per_split) <= 64); `part` is f32 scratch of B * Hkv * nsplit *
+// <= Sk; window > 0 a sliding window, 0 none. The key range [kv_start,
+// kv_end) is cut into nsplit splits of keys_per_split keys (a multiple of
+// 64; nsplit = ceil((kv_end - kv_start) / keys_per_split) <= 64); `part`
+// is f32 scratch of B * Hkv * nsplit *
 // Sq * G * (D + 2) floats, `counters` B * Hkv int32 zeros, left zero (the
 // merging blocks reset them; calls that share them must not overlap).
 // One launch; returns cudaGetLastError() after it.
 extern "C" int th_flash_decode(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                int dtype, int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
-                               int q_offset, int kv_len, int keys_per_split, int nsplit, void* part,
+                               int q_offset, int kv_len, int window, int keys_per_split, int nsplit, void* part,
                                void* counters, void* stream) {
   DecodeParams p;
   p.q = q;
@@ -439,12 +445,14 @@ extern "C" int th_flash_decode(const void* q, const void* k, const void* v, void
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_end = causal ? (q_offset + sq < kv_len ? q_offset + sq : kv_len) : kv_len;
+  p.kv_start = window > 0 && q_offset - window + 1 > 0 ? q_offset - window + 1 : 0;
+  p.window = window > 0 ? window : 1 << 30;
   p.keys_per_split = keys_per_split;
   p.nsplit = nsplit;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
   p.softcap = softcap;
   if (p.rows > kMaxRows || keys_per_split <= 0 || keys_per_split % kTile || nsplit > kMaxSplits ||
-      nsplit != (p.kv_end + keys_per_split - 1) / keys_per_split)
+      p.kv_start >= p.kv_end || nsplit != (p.kv_end - p.kv_start + keys_per_split - 1) / keys_per_split)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

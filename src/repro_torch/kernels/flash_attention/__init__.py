@@ -1,22 +1,29 @@
 """Flash attention on the device: the attention of the decoder's prefill
 and decode.
 
-``flash_attention(q, k, v, causal=, softcap=, q_offset=, kv_len=)`` takes
-q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Sk, D]`` (the JAX wrapper's
+``flash_attention(q, k, v, causal=, softcap=, q_offset=, kv_len=, window=)``
+takes q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Sk, D]`` (the JAX wrapper's
 layout, ``repro/kernels/flash_attention/ops.py``) and returns
 ``[B, Hq, Sq, D]`` in q's dtype:
 
     s   = (q . k) / sqrt(D)               in f32
     s   = softcap * tanh(s / softcap)      when softcap > 0
-    s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i
+    s   = -1e30 where key j >= kv_len, or (causal) j > q_offset + i,
+          or (window > 0) j <= q_offset + i - window
     out = softmax(s) @ v
 
 with GQA (query head h reads KV head ``h // (Hq // Hkv)``, no copy of K or
 V). ``q_offset`` places query row 0 in the sequence and ``kv_len`` is the
 number of valid keys (default ``Sk``): a decode step passes the cache
-length and a cache of ``max_len`` slots. With the defaults it computes what
-the Pallas kernel ``flash_attention_bh``
-(``repro/kernels/flash_attention/kernel.py``) computes.
+length and a cache of ``max_len`` slots. ``window`` is the sliding window
+of gemma2's local layers, as the JAX package's ``_block_mask``
+(``repro/models/layers.py``): key j is visible to the query at position p
+only if ``j > p - window``; ``window <= 0`` is unlimited. Every query row
+must see a key, so a window that ends before ``kv_len`` for the last row
+is refused. With the defaults it computes what the Pallas kernel
+``flash_attention_bh`` (``repro/kernels/flash_attention/kernel.py``)
+computes; the TPU kernel has no window (the JAX model's windowed layers
+run the jnp ``chunked_attention``).
 
 On a CUDA tensor it launches one of three hand-written kernels or raises;
 the route follows from dtype and shape alone (:func:`_route`), never from
@@ -38,6 +45,11 @@ a failure:
   128 packed query rows a block (:func:`packed_rows`), 8 x 8 micro-tiles
   a thread for the scores (each half of the block over half of D) and for
   P V.
+
+Every forward route takes the window: a block (a split, on ``decode``)
+walks only the key tiles from its first visible key (:func:`live_start`)
+to its last, and masks the window's edge per element as it masks the
+causal one.
 
 Other head_dims (80 of zamba2, 192 of deepseek-v3's MLA) are refused on
 the card until their model families are ported.
@@ -75,7 +87,10 @@ and shape alone (:func:`_bwd_route`):
 CPU the same ``Function`` runs :func:`attention_plain` and
 :func:`attention_backward_plain`, at any head_dim but 256. The JAX package
 has no Pallas backward: it differentiates its jnp ``chunked_attention``.
-Head_dim 256 (gemma2) has no backward yet and raises.
+The ``cuda_core`` backward takes the window. Head_dim 256 (gemma2) has no
+backward yet and raises, and so does a windowed call that the
+``tensor_core`` backward would take: both wait for the gemma2 training
+slice, and no route computes an unwindowed gradient of a windowed call.
 """
 
 from __future__ import annotations
@@ -121,7 +136,7 @@ ROUTE_LAUNCHES = {r: build.LaunchCount() for r in ROUTES}
 BWD_LAUNCHES = {f"{r}/{k}": build.LaunchCount() for r, ks in BWD_KERNELS.items() for k in ks}
 
 
-def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int:
+def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int], window: int = 0) -> int:
     """Validate the call; return the effective ``kv_len``."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
@@ -146,6 +161,9 @@ def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int]) -> int
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if softcap < 0:
         raise ValueError(f"flash_attention: softcap {softcap} < 0")
+    if int(window) > 0 and int(q_offset) + q.shape[2] - int(window) >= kv_len:
+        raise ValueError(f"flash_attention: window {window} leaves the query at position "
+                         f"{int(q_offset) + q.shape[2] - 1} no key below kv_len {kv_len}")
     return kv_len
 
 
@@ -158,19 +176,34 @@ def attention_plain(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version on any device: the whole score matrix in f32,
     masked with -1e30, a softmax, and the product with v (GQA by grouping
     the query heads, without repeating K/V)."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
-    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def _scores_plain(q, k, causal: bool, softcap: float, q_offset: int, kv_len: int):
+def _mask(sq: int, kpos: torch.Tensor, causal: bool, q_offset: int, kv_len: int, window: int) -> torch.Tensor:
+    """``[Sq, len(kpos)]``: True where query row i (at position q_offset +
+    i) may see the key at position ``kpos[j]``, the JAX package's
+    ``_block_mask``."""
+    mask = (kpos < kv_len)[None, :]
+    if causal or int(window) > 0:
+        qpos = int(q_offset) + torch.arange(sq, device=kpos.device)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if int(window) > 0:
+            mask = mask & (kpos[None, :] > qpos[:, None] - int(window))
+    return mask
+
+
+def _scores_plain(q, k, causal: bool, softcap: float, q_offset: int, kv_len: int, window: int = 0):
     """The f32 scores ``[B, Hkv, G, Sq, Sk]`` masked with -1e30, the mask,
     and (with a softcap) ``tanh(s / softcap)`` of the unmasked scores."""
     b, hq, sq, d = q.shape
@@ -181,11 +214,7 @@ def _scores_plain(q, k, causal: bool, softcap: float, q_offset: int, kv_len: int
     if softcap > 0:
         t = torch.tanh(s / softcap)
         s = softcap * t
-    kpos = torch.arange(sk, device=q.device)
-    mask = (kpos < kv_len)[None, :]
-    if causal:
-        qpos = int(q_offset) + torch.arange(sq, device=q.device)
-        mask = mask & (kpos[None, :] <= qpos[:, None])
+    mask = _mask(sq, torch.arange(sk, device=q.device), causal, q_offset, kv_len, window)
     return s.masked_fill(~mask, NEG_INF), mask, t
 
 
@@ -197,12 +226,13 @@ def attention_lse_plain(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Each query row's log-sum-exp of its masked scores, f32 ``[B, Hq,
     Sq]``: what the forward kernels write for the backward."""
-    kv_len = _check(q, k, k, softcap, q_offset, kv_len)
+    kv_len = _check(q, k, k, softcap, q_offset, kv_len, window)
     b, hq, sq, _ = q.shape
-    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     return torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
 
 
@@ -218,6 +248,7 @@ def attention_backward_plain(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash-attention backward in plain PyTorch, f32, written out
     (the algorithm of the backward kernels): P recomputed from the scores
@@ -227,12 +258,12 @@ def attention_backward_plain(
     dS^T Q * scale``; dK and dV summed over the G query heads of each KV
     head (no copy of K or V). Returns ``(dq, dk, dv)`` in the inputs'
     dtype."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
-    s, _, t = _scores_plain(q, k, causal, softcap, q_offset, kv_len)
+    s, _, t = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
     do = dout.float().reshape(b, hkv, g, sq, d)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
@@ -303,12 +334,18 @@ def live_end(sq: int, causal: bool, q_offset: int, kv_len: int) -> int:
     return min(kv_len, int(q_offset) + sq) if causal else kv_len
 
 
-def split_plan(kv_end: int, batch_kv_heads: int) -> Tuple[int, int]:
-    """The decode route's ``(keys_per_split, nsplit)``: ``[0, kv_end)`` in
-    splits of whole 64-key tiles, one block a (batch x KV head, split), as
-    many as fit ``MAX_SPLIT_BLOCKS`` blocks and ``MAX_SPLITS`` splits; the
-    last split may be short, none is empty."""
-    tiles = -(-kv_end // TILE_KEYS)
+def live_start(q_offset: int, window: int) -> int:
+    """The first key any query row may see: the first row's window start
+    (0 without a window)."""
+    return max(0, int(q_offset) - int(window) + 1) if int(window) > 0 else 0
+
+
+def split_plan(kv_end: int, batch_kv_heads: int, kv_start: int = 0) -> Tuple[int, int]:
+    """The decode route's ``(keys_per_split, nsplit)``: ``[kv_start,
+    kv_end)`` in splits of whole 64-key tiles, one block a (batch x KV
+    head, split), as many as fit ``MAX_SPLIT_BLOCKS`` blocks and
+    ``MAX_SPLITS`` splits; the last split may be short, none is empty."""
+    tiles = -(-(kv_end - kv_start) // TILE_KEYS)
     per = min(tiles, max(-(-tiles * batch_kv_heads // MAX_SPLIT_BLOCKS), -(-tiles // MAX_SPLITS)))
     return per * TILE_KEYS, -(-tiles // per)
 
@@ -322,32 +359,29 @@ def split_kv_plain(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
     keys_per_split: Optional[int] = None,
 ) -> torch.Tensor:
     """The decode kernel's algorithm in plain PyTorch, f32: per split of
-    the live keys a partial ``(m, l, acc)`` over -1e30-masked scores, then
-    the log-sum-exp merge ``sum exp(m_i - M) acc_i / max(sum exp(m_i - M)
-    l_i, 1e-30)``. Splits follow :func:`split_plan` unless
-    ``keys_per_split`` is given."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    the live keys ``[live_start, live_end)`` a partial ``(m, l, acc)`` over
+    -1e30-masked scores, then the log-sum-exp merge ``sum exp(m_i - M)
+    acc_i / max(sum exp(m_i - M) l_i, 1e-30)``. Splits follow
+    :func:`split_plan` unless ``keys_per_split`` is given."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    end = live_end(sq, causal, q_offset, kv_len)
+    start, end = live_start(q_offset, window), live_end(sq, causal, q_offset, kv_len)
     if keys_per_split is None:
-        keys_per_split, _ = split_plan(end, b * hkv)
+        keys_per_split, _ = split_plan(end, b * hkv, start)
     qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
-    qpos = int(q_offset) + torch.arange(sq, device=q.device)
     ms, ls, accs = [], [], []
-    for k0 in range(0, end, keys_per_split):
+    for k0 in range(start, end, keys_per_split):
         k1 = min(k0 + keys_per_split, end)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, k0:k1].float()) * (1.0 / math.sqrt(d))
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
-        kpos = torch.arange(k0, k1, device=q.device)
-        mask = (kpos < kv_len)[None, :]
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~_mask(sq, torch.arange(k0, k1, device=q.device), causal, q_offset, kv_len, window),
+                          NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         ms.append(m)
@@ -369,17 +403,19 @@ def flash_attention(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Attention of q ``[B, Hq, Sq, D]`` over k, v ``[B, Hkv, Sk, D]``
     (see the module docstring); asynchronous on CUDA. Differentiable: when
     autograd wants a gradient the call goes through :class:`FlashAttention`."""
+    kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        kv_len = _check(q, k, v, softcap, q_offset, kv_len)
-        _check_backward(q)
-        return FlashAttention.apply(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len)
+        kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
+        _check_backward(q, window)
+        return FlashAttention.apply(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len, int(window))
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
-    return launch_route(_route(q, k), q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+        return attention_plain(q, k, v, **kw)
+    return launch_route(_route(q, k), q, k, v, **kw)
 
 
 def launch_route(
@@ -392,6 +428,7 @@ def launch_route(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
     with_lse: bool = False,
 ):
     """Launch ``route``'s kernel on CUDA tensors, or raise where it does
@@ -400,7 +437,7 @@ def launch_route(
     ``with_lse`` (the ``tensor_core`` and ``f32`` routes) it returns
     ``(out, lse)``, the rows' log-sum-exp f32 ``[B, Hq, Sq]`` beside the
     output."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -429,11 +466,11 @@ def launch_route(
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lse_ptr = lse.data_ptr() if with_lse else None
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides))
-    flags = (int(bool(causal)), float(softcap), int(q_offset), kv_len)
+    flags = (int(bool(causal)), float(softcap), int(q_offset), kv_len, max(int(window), 0))
     lib = build.library()
     stream = build.stream_ptr(q.device)
     if route == "decode":
-        keys, nsplit = split_plan(live_end(sq, causal, q_offset, kv_len), b * hkv)
+        keys, nsplit = split_plan(live_end(sq, causal, q_offset, kv_len), b * hkv, live_start(q_offset, window))
         part = torch.empty(b * hkv * nsplit * sq * g * (d + 2), dtype=torch.float32, device=q.device)
         counters = _split_counters(q.device, b * hkv)
     LAUNCHES.add()
@@ -452,16 +489,25 @@ def launch_route(
     return (out, lse) if with_lse else out
 
 
-def _check_backward(q: torch.Tensor) -> None:
-    """Raise where no backward takes the call: head_dim 256 anywhere (the
-    gemma2 slice brings it), and on CUDA every head_dim the backward
+def _check_backward(q: torch.Tensor, window: int = 0) -> None:
+    """Raise where no backward takes the call: head_dim 256 anywhere, and a
+    windowed call the ``tensor_core`` backward would take (the gemma2
+    training slice brings both); on CUDA every head_dim the backward
     kernels lack (the plain version on the CPU takes the rest)."""
     d = q.shape[-1]
     if d == 256:
-        raise NotImplementedError("flash_attention: no backward at head_dim 256; it waits for the gemma2 slice")
+        raise NotImplementedError("flash_attention: no backward at head_dim 256; it waits for the gemma2 "
+                                  "training slice")
     if q.device.type != "cpu" and d not in BWD_HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d} "
                                   "(head_dim 80 and 192 wait for the zamba2 and deepseek-v3 slices)")
+    if q.device.type != "cpu" and int(window) > 0 and _bwd_route(q) == "tensor_core":
+        _refuse_tc_window()
+
+
+def _refuse_tc_window() -> None:
+    raise NotImplementedError("flash_attention: the tensor_core backward takes no window yet; it waits for the "
+                              "gemma2 training slice")
 
 
 def attention_backward(
@@ -476,15 +522,15 @@ def attention_backward(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of the attention: the backward kernels on CUDA
     tensors (:func:`launch_backward`), :func:`attention_backward_plain`
     on CPU tensors."""
+    kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, out, lse, dout, causal=causal, softcap=softcap,
-                                        q_offset=q_offset, kv_len=kv_len)
-    return launch_backward(q, k, v, out, lse, dout, causal=causal, softcap=softcap, q_offset=q_offset,
-                           kv_len=kv_len)
+        return attention_backward_plain(q, k, v, out, lse, dout, **kw)
+    return launch_backward(q, k, v, out, lse, dout, **kw)
 
 
 def launch_backward(
@@ -499,20 +545,21 @@ def launch_backward(
     softcap: float = 0.0,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
+    window: int = 0,
     route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch a backward route's kernels on CUDA tensors, or raise where
     the route does not take the call: ``route`` defaults to
     :func:`_bwd_route`'s choice; naming one is for measurements that hold
-    the two side by side. ``tensor_core`` (bf16, head_dim 64/128): the
-    ``pre``, ``dkdv`` and ``dq`` kernels of
+    the two side by side. ``tensor_core`` (bf16, head_dim 64/128, no
+    window): the ``pre``, ``dkdv`` and ``dq`` kernels of
     ``csrc/flash_attention_bwd_tc.cu``; ``cuda_core`` (f32, bf16 or f16,
-    head_dim 16/32/64/128): the ``pre``, ``dkdv`` and ``dq`` kernels of
-    ``csrc/flash_attention_bwd.cu``. Both take strided q/k/v/out/dout;
-    ``lse`` is the forward's (:func:`launch_route` ``with_lse``). The
-    gradients are laid out ``[B, S, H, D]`` under their ``[B, H, S, D]``
-    views, as the forward's output."""
-    kv_len = _check(q, k, v, softcap, q_offset, kv_len)
+    head_dim 16/32/64/128, any window): the ``pre``, ``dkdv`` and ``dq``
+    kernels of ``csrc/flash_attention_bwd.cu``. Both take strided
+    q/k/v/out/dout; ``lse`` is the forward's (:func:`launch_route`
+    ``with_lse``). The gradients are laid out ``[B, S, H, D]`` under their
+    ``[B, H, S, D]`` views, as the forward's output."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     route = _bwd_route(q) if route is None else route
@@ -521,6 +568,8 @@ def launch_backward(
     if route == "tensor_core" and (q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS):
         raise ValueError(f"flash_attention backward: the tensor_core route takes bfloat16 at head_dim "
                          f"{TC_HEAD_DIMS}, got {q.dtype} at head_dim {d}")
+    if route == "tensor_core" and int(window) > 0:
+        _refuse_tc_window()
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention backward: unsupported device {q.device}")
     _check_backward(q)
@@ -543,20 +592,21 @@ def launch_backward(
     lse = lse.contiguous()
     tensors = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len,
-            build.stream_ptr(q.device))
+    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len)
     ptrs = tuple(t.data_ptr() for t in tensors)
     lib = build.library()
+    stream = build.stream_ptr(q.device)
     if route == "tensor_core":
         # each 64-row query tile's lse log2 e and D_i, written by the pre kernel
         stats = torch.empty(b * hq * -(-sq // TC_BWD_TILE) * 2 * TC_BWD_TILE, dtype=torch.float32, device=q.device)
-        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), *tail)
+        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), *tail, stream)
     else:
         # each packed sub-tile's lse and D_i, written by the pre kernel, in
         # whole 128-row tiles of the dq kernel
         _, nsub = packed_rows(sq, hq // hkv)
         stats = torch.empty(b * hkv * (nsub + nsub % 2) * 2 * SUB_ROWS, dtype=torch.float32, device=q.device)
-        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail)
+        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail,
+                max(int(window), 0), stream)
     for kernel in BWD_KERNELS[route]:
         name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
         BWD_LAUNCHES[f"{route}/{kernel}"].add()
@@ -570,8 +620,8 @@ class FlashAttention(torch.autograd.Function):
     the backward's kernels (the plain versions of both on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, softcap: float, q_offset: int, kv_len: int):
-        kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    def forward(ctx, q, k, v, causal: bool, softcap: float, q_offset: int, kv_len: int, window: int = 0):
+        kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
         if q.device.type == "cpu":
             out = attention_plain(q, k, v, **kw)
             lse = attention_lse_plain(q, k, **kw)
@@ -585,7 +635,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 _COUNTERS: dict = {}

@@ -1,14 +1,19 @@
-"""Serving entry point: llama3-8b answered from a TensorHub replica (Fig. 4b).
+"""Serving entry point: a dense model answered from a TensorHub replica (Fig. 4b).
 
-A publisher registers llama3-8b at its published widths (bf16, random
-weights from ``--seed``) and publishes v0; a :class:`RolloutWorker`
-replicates it into its own buffers on the same device and answers
-``--rounds`` batches of ``--requests`` prompts (prefill, then
-``--gen-len`` decode steps through the flash-attention kernel), calling
-``update("latest")`` between batches. ``--layers`` cuts the depth (two
-replicas of all 32 layers take 32 GB); the widths are never cut.
+A publisher registers the ``--arch`` model (llama3-8b by default; any id
+of the registry, ``repro_torch.configs.ARCH_IDS``) at its published widths
+(bf16, random weights from ``--seed``) and publishes v0; a
+:class:`RolloutWorker` replicates it into its own buffers on the same
+device and answers ``--rounds`` batches of ``--requests`` prompts
+(prefill, then ``--gen-len`` decode steps through the flash-attention
+kernel), calling ``update("latest")`` between batches. ``--layers`` cuts
+the depth (default: the arch's own; two replicas of llama3-8b's 32 layers
+take 32 GB); the widths are never cut. The dense family is ported
+(llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b); another arch exits
+with the slice it waits for.
 
     python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
+    python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs the plain attention on the host.
@@ -24,10 +29,10 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
-from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
 from repro_torch.core import ReferenceServer, TensorHubClient
 from repro_torch.data.synthetic import PromptSet
+from repro_torch.models import check_ported
 from repro_torch.models.params import init_params
 from repro_torch.rl.loop import RLConfig, RolloutWorker
 
@@ -38,7 +43,7 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(
-    model_cfg: DecoderConfig,
+    model_cfg: ModelConfig,
     *,
     requests: int,
     prompt_len: int,
@@ -88,15 +93,22 @@ def serve(
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="llama3-8b", choices=ARCH_IDS, help="model config (registry id)")
     ap.add_argument("--requests", type=int, default=8, help="batch of requests")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=LLAMA3_8B.num_layers, help="depth (widths stay published)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the arch's own; widths stay published)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = dataclasses.replace(LLAMA3_8B, num_layers=args.layers)
+    cfg = get_config(args.arch)
+    try:
+        check_ported(cfg)
+    except NotImplementedError as e:
+        ap.exit(2, f"{ap.prog}: {e}\n")
+    cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
     serve(cfg, requests=args.requests, prompt_len=args.prompt_len, gen_len=args.gen_len,
           rounds=args.rounds, seed=args.seed, device=args.device)
 

@@ -1,17 +1,20 @@
-"""Training entry point: llama3-8b (reduced by default) against the synthetic
+"""Training entry point: a model of the registry (``--arch``, llama3-8b by
+default; ``reduced()`` unless ``--full-config``) against the synthetic
 bigram stream, with checkpointing, restart-recovery and optional
 TensorHub publishing of every step's weights (the co-located Fig. 4a
 pattern). The port's counterpart of the JAX package's
 ``launch/train.py``, with its arguments.
 
     python -m repro_torch.launch.train --steps 50
+    python -m repro_torch.launch.train --arch gemma2-2b --steps 50
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
-runs on the host. Only the dense decoder is ported: ``--arch`` takes
-``llama3-8b`` alone. With ``--publish`` the trainer registers its
-parameters themselves with a local TensorHub, and each step (which
-writes them in place) is published from those buffers with no copy.
+runs on the host. Only the dense decoder is ported (llama3-8b, yi-34b,
+deepseek-coder-33b, gemma2-2b); another arch exits with the slice it
+waits for. With ``--publish`` the trainer registers its parameters
+themselves with a local TensorHub, and each step (which writes them in
+place) is published from those buffers with no copy.
 """
 
 from __future__ import annotations
@@ -22,20 +25,17 @@ import time
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.synthetic import BigramStream
-from repro_torch.models.lm import DecoderLM
+from repro_torch.models import build_model
 from repro_torch.models.params import init_params
 from repro_torch.training import AdamW, cosine_schedule, make_train_step
 from repro_torch.transfer.engine import resolve_device
 
-ARCHS = {"llama3-8b": LLAMA3_8B}
-
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="llama3-8b",
-                    help="model config; the port has llama3-8b only (the other families wait for their slices)")
+    ap.add_argument("--arch", default="llama3-8b", choices=ARCH_IDS, help="model config (registry id)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -49,14 +49,15 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch not in ARCHS:
-        ap.error(f"--arch {args.arch}: the port trains {sorted(ARCHS)} only; the other families wait for their slices")
-
-    dev = resolve_device(args.device)
-    cfg = ARCHS[args.arch]
+    cfg = get_config(args.arch)
     if not args.full_config:
         cfg = cfg.reduced()
-    model = DecoderLM(cfg)
+    try:
+        model = build_model(cfg)
+    except NotImplementedError as e:
+        ap.exit(2, f"{ap.prog}: {e}\n")
+
+    dev = resolve_device(args.device)
     opt = AdamW(lr=args.lr, schedule=cosine_schedule(10, args.steps), weight_decay=0.01)
     train_step = make_train_step(model, cfg, opt, accum=args.accum)
 

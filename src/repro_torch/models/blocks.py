@@ -4,7 +4,9 @@ The port's copy of the dense part of the JAX package's
 ``models/blocks.py``. Each block takes its parameters as a dict of views
 (one layer's slice of the stacked tensors a replica registers). Matmuls
 run in the activation dtype (bf16 on the serving path); norms, rotary
-angles and the attention's softmax statistics in f32.
+angles and the attention's softmax statistics in f32. A softcapped
+config (gemma2) caps the attention scores at ``cfg.attn_softcap`` and
+norms each block's output with its ``post_ln`` before the residual.
 
 Only the default path of the JAX package's ``models/optim.py`` is ported:
 ``shard_attn_heads`` (broadcast K/V to the query heads and shard on them)
@@ -17,7 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 
 Params = Dict[str, torch.Tensor]
@@ -34,12 +36,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attn_apply(
-    cfg: DecoderConfig,
+    cfg: ModelConfig,
     p: Params,
     x: torch.Tensor,  # [B, S, D]
     *,
     positions: torch.Tensor,  # [S]
     attention: Callable[..., torch.Tensor],
+    window: int = 0,  # this layer's sliding window (0: global)
     cache: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"k","v"} [B, Hkv, Smax, hd]
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -49,25 +52,33 @@ def attn_apply(
     place at ``cache_len`` (the JAX package's ``dynamic_update_slice``
     returns a new cache; writing into the preallocated one saves a copy of
     the whole cache a step) and attends over its first ``cache_len + S``
-    slots."""
+    slots. ``attention`` is called with ``causal``, ``softcap`` and
+    ``window`` (and ``q_offset``, ``kv_len`` in decode)."""
     h = rms_norm(x, p["ln"])
     q = _split_heads(h @ p["wq"], cfg.num_heads)
     k = _split_heads(h @ p["wk"], cfg.num_kv_heads)
     v = _split_heads(h @ p["wv"], cfg.num_kv_heads)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    kw = dict(causal=True, softcap=cfg.attn_softcap, window=window)
     if cache is None:
-        out = attention(q, k, v, causal=True)
+        out = attention(q, k, v, **kw)
         new_cache = {"k": k, "v": v}
     else:
         assert cache_len is not None
         s = q.shape[2]
         cache["k"][:, :, cache_len : cache_len + s] = k
         cache["v"][:, :, cache_len : cache_len + s] = v
-        out = attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len, kv_len=cache_len + s)
+        out = attention(q, cache["k"], cache["v"], q_offset=cache_len, kv_len=cache_len + s, **kw)
         new_cache = cache
-    return x + _merge_heads(out) @ p["wo"], new_cache
+    proj = _merge_heads(out) @ p["wo"]
+    if "post_ln" in p:
+        proj = rms_norm(proj, p["post_ln"])
+    return x + proj, new_cache
 
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x + swiglu(rms_norm(x, p["ln"]), p["w_gate"], p["w_up"], p["w_down"])
+    out = swiglu(rms_norm(x, p["ln"]), p["w_gate"], p["w_up"], p["w_down"])
+    if "post_ln" in p:
+        out = rms_norm(out, p["post_ln"])
+    return x + out

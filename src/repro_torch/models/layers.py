@@ -1,11 +1,12 @@
 """Transformer building blocks of the dense decoder (plain PyTorch).
 
 The port's copy of the JAX package's ``models/layers.py``: ``rms_norm``
-(its f32 path), the split-half rotary embedding and the SwiGLU MLP. The
-attention itself is :func:`repro_torch.kernels.flash_attention.flash_attention`,
-which keeps the semantics of the JAX package's jnp ``chunked_attention``
-(``q_offset`` places the queries, ``kv_len`` counts the valid cache
-slots); the sliding window waits for the gemma2 slice.
+(its f32 path), ``softcap``, the split-half rotary embedding and the
+SwiGLU MLP. The attention itself is
+:func:`repro_torch.kernels.flash_attention.flash_attention`, which keeps
+the semantics of the JAX package's jnp ``chunked_attention`` (``q_offset``
+places the queries, ``kv_len`` counts the valid cache slots, ``window`` is
+the sliding window of a local layer, ``softcap`` the attention softcap).
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.float()
     scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return ((xf * scale) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -14,26 +14,41 @@ training step's loss): it takes each stacked tensor apart once with
 layer by layer would give every layer's backward a zero tensor of the
 whole stack.
 
-The MoE, MLA and VLM branches, the gemma2 extras (window, softcaps, tied embeddings) and
-the encoder, hybrid and xLSTM models wait for later slices.
+gemma2's extras are here: even layers attend through a sliding window and
+odd layers globally (``_layer_windows``), the attention scores and the
+logits are softcapped, each block's output is normed again (``post_ln``),
+and the embedding is tied (scaled by ``sqrt(d_model)`` on the way in, its
+transpose the head). The MoE, MLA and VLM branches and the encoder,
+hybrid and xLSTM models wait for later slices
+(:func:`repro_torch.models.build_model` refuses them).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+import math
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import blocks
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, softcap
 
 Params = Mapping[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 _ATTN = ("ln", "wq", "wk", "wv", "wo")
 _FFN = ("ln", "w_gate", "w_up", "w_down")
+
+
+def _layer_windows(cfg: ModelConfig) -> List[int]:
+    """Each layer's sliding window (0 = global attention): gemma2's even
+    layers are local, its odd layers global, as the JAX package's
+    ``_layer_windows`` (its ``long_mode`` belongs to the hybrid family)."""
+    if cfg.alt_local_global:
+        return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(cfg.num_layers)]
+    return [0] * cfg.num_layers
 
 
 class DecoderLM:
@@ -43,32 +58,35 @@ class DecoderLM:
     kernel's wrapper by default; a reference computation passes
     :func:`repro_torch.kernels.flash_attention.attention_plain`."""
 
-    def __init__(self, cfg: DecoderConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
-        if cfg.tie_embeddings:
-            raise NotImplementedError("tied embeddings (gemma2) wait for the gemma2 slice")
+    def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
         self.cfg = cfg
         self.attention = attention
+        self.windows = _layer_windows(cfg)
+        post = ("post_ln",) if cfg.attn_softcap > 0 else ()
+        self._attn_names, self._ffn_names = _ATTN + post, _FFN + post
 
     # -- embedding / head ------------------------------------------------------
 
-    @staticmethod
-    def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens]
+        if self.cfg.tie_embeddings:  # gemma2 normalizes the embedding scale
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=torch.float32).to(x.dtype)
+        return x
 
-    @staticmethod
-    def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_ln"])
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return softcap((x @ w).float(), self.cfg.logit_softcap)
 
-    @staticmethod
-    def _layer(params: Params, i: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        attn = {n: params[f"layers/attn/{n}"][i] for n in _ATTN}
-        ffn = {n: params[f"layers/ffn/{n}"][i] for n in _FFN}
+    def _layer(self, params: Params, i: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        attn = {n: params[f"layers/attn/{n}"][i] for n in self._attn_names}
+        ffn = {n: params[f"layers/ffn/{n}"][i] for n in self._ffn_names}
         return attn, ffn
 
     def _block(self, params, i, x, positions, cache=None, cache_len=None, layer=None):
         attn, ffn = layer or self._layer(params, i)
         x, kv = blocks.attn_apply(
-            self.cfg, attn, x, positions=positions, attention=self.attention,
+            self.cfg, attn, x, positions=positions, attention=self.attention, window=self.windows[i],
             cache=cache, cache_len=cache_len,
         )
         return blocks.mlp_apply(ffn, x), kv
@@ -80,8 +98,8 @@ class DecoderLM:
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
-        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in _ATTN}
-        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in _FFN}
+        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
+        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in self._ffn_names}
         for i in range(self.cfg.num_layers):
             layer = ({n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()})
             x, _ = self._block(params, i, x, positions, layer=layer)

@@ -3,7 +3,10 @@
 ``decoder_shapes`` lists what the JAX package's
 ``named_tensors(DecoderLM(cfg).param_specs())`` yields for a dense model:
 the same names, the same shapes (the scanned layer axis stacked first),
-in JAX's pytree order (dict keys sorted at every level). The transfer-unit
+in JAX's pytree order (dict keys sorted at every level). As the JAX
+package's ``blocks.attn_specs`` and ``mlp_specs``, a softcapped model
+(gemma2) has a ``post_ln`` in both blocks, and a model with tied
+embeddings no ``head``. The transfer-unit
 schedule (``build_units``) follows registration order, so a replica
 registered in this order has the same units, and the same manifest, as
 the JAX package's.
@@ -21,8 +24,8 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
-from repro_torch.configs.llama3_8b import DecoderConfig
 
 # through the core package: transfer.engine and core.client import each
 # other, and only core-first resolves (engine-first is circular)
@@ -31,7 +34,7 @@ from repro_torch.core.client import resolve_device
 Shape = Tuple[int, ...]
 
 
-def _spec_tree(cfg: DecoderConfig) -> Dict[str, Any]:
+def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
     tree: Dict[str, Any] = {
         "embed": (cfg.vocab, d),
@@ -52,6 +55,9 @@ def _spec_tree(cfg: DecoderConfig) -> Dict[str, Any]:
         },
         "final_ln": (d,),
     }
+    if cfg.attn_softcap > 0:  # gemma2 also post-norms each block's output
+        tree["layers"]["attn"]["post_ln"] = (L, d)
+        tree["layers"]["ffn"]["post_ln"] = (L, d)
     if not cfg.tie_embeddings:
         tree["head"] = (d, cfg.vocab)
     return tree
@@ -68,7 +74,7 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Shape]]:
     return out
 
 
-def decoder_shapes(cfg: DecoderConfig) -> List[Tuple[str, Shape]]:
+def decoder_shapes(cfg: ModelConfig) -> List[Tuple[str, Shape]]:
     """``(name, shape)`` of every parameter, in registration order."""
     return _flatten(_spec_tree(cfg))
 
@@ -79,7 +85,7 @@ def llama3_8b_shapes(num_layers: int = 32) -> List[Tuple[str, Shape]]:
 
 
 def init_params(
-    cfg: DecoderConfig,
+    cfg: ModelConfig,
     generator: torch.Generator,
     dtype: torch.dtype = torch.float32,
     device="cuda",

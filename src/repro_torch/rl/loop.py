@@ -31,10 +31,11 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.llama3_8b import DecoderConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import TensorHubClient
 from repro_torch.core.errors import StaleHandleError, TensorHubError
 from repro_torch.data.synthetic import PromptSet
+from repro_torch.models import build_model
 from repro_torch.models.lm import DecoderLM
 from repro_torch.models.params import decoder_shapes, init_params
 from repro_torch.training import AdamW, group_relative_advantages, make_grpo_step
@@ -112,7 +113,7 @@ class RolloutWorker(threading.Thread):
         name: str,
         hub: TensorHubClient,
         cfg: RLConfig,
-        model_cfg: DecoderConfig,
+        model_cfg: ModelConfig,
         prompts: PromptSet,
         out_queue: List,
         stop: threading.Event,
@@ -125,7 +126,7 @@ class RolloutWorker(threading.Thread):
         self.hub = hub
         self.cfg = cfg
         self.model_cfg = model_cfg
-        self.model = DecoderLM(model_cfg)
+        self.model = build_model(model_cfg)
         self.prompts = prompts
         self.out_queue = out_queue
         self.stop_event = stop
@@ -229,7 +230,7 @@ class TrainerWorker:
         self,
         hub: TensorHubClient,
         cfg: "RLConfig",
-        model_cfg: DecoderConfig,
+        model_cfg: ModelConfig,
         rollout_queue: List,
         *,
         datacenter: str = "dc0",
@@ -242,7 +243,7 @@ class TrainerWorker:
         self.model_cfg = model_cfg
         self.device = hub.device
         self.dtype = dtype
-        self.model = DecoderLM(model_cfg)
+        self.model = build_model(model_cfg)
         self.queue = rollout_queue
         self.opt = AdamW(lr=cfg.lr, weight_decay=0.0)
         if params is None:

@@ -9,9 +9,9 @@ as soon as the step returns. Gradients are taken with
 ``torch.autograd.grad`` on ``detach()``ed views that share the registered
 storage: the registered tensors themselves never require a gradient.
 
-Only the dense decoder (the LM family) is ported; the audio, VLM, MoE
-and the other families raise ``NotImplementedError`` and wait for their
-slices.
+Only the dense decoder (the LM family) is ported; configs of the audio,
+VLM, MoE (MLA with it) and the other families raise
+``NotImplementedError`` and wait for their slices.
 """
 
 from __future__ import annotations
@@ -20,17 +20,11 @@ from typing import Any, Callable, Dict, Mapping, MutableMapping, Optional, Tuple
 
 import torch
 
+from repro_torch.models import check_ported
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 Tensors = Mapping[str, torch.Tensor]
-DENSE = "dense"
-
-
-def _dense_only(cfg) -> None:
-    family = getattr(cfg, "family", DENSE)
-    if family != DENSE:
-        raise NotImplementedError(f"training steps of the {family!r} family wait for its slice of the port")
 
 
 def value_and_grad(
@@ -49,7 +43,7 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    _dense_only(cfg)
+    check_ported(cfg)  # MoE, MLA, VLM and the other families are refused
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
@@ -128,7 +122,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    _dense_only(cfg)
+    check_ported(cfg)  # MoE, MLA, VLM and the other families are refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

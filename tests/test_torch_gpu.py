@@ -828,3 +828,136 @@ def test_socket_pull_on_the_card_equals_cpu(dev, codec):
     assert got == want
     assert tr.wire_bytes == tr_cpu.wire_bytes and tr.delta_stale_fallbacks == 0
     assert tr.conn_opens >= 1
+
+
+# -- the sliding window (gemma2's local layers) on every route ------------------------
+
+#: (b, hq, hkv, sq, sk, d, causal, q_offset, kv_len, window, softcap); with
+#: kv_len < Sk the slots past it hold NaN in K and V
+_WINDOW_CASES = [
+    (2, 8, 4, 300, 300, 128, True, 0, None, 8, 0.0),  # a window inside one tile
+    (2, 8, 4, 300, 300, 256, True, 0, None, 8, 0.0),  # head_dim 256 (f32 and decode routes)
+    (2, 8, 4, 400, 400, 64, True, 0, None, 100, 50.0),  # across tiles, softcap
+    (1, 8, 4, 600, 600, 128, True, 0, None, 4096, 0.0),  # wider than the keys
+    (1, 8, 4, 64, 800, 128, True, 600, 664, 100, 0.0),  # an offset chunk, NaN past kv_len
+    (2, 8, 4, 1, 900, 256, True, 799, 800, 100, 50.0),  # a decode step
+    (2, 8, 4, 4, 800, 128, True, 700, 704, 8, 0.0),  # a decode chunk
+    (1, 56, 8, 129, 400, 128, True, 200, 329, 64, 0.0),  # G 7
+    (1, 8, 4, 200, 300, 64, False, 0, 250, 64, 0.0),  # not causal
+    (1, 8, 4, 1, 70, 64, True, 69, 70, 1, 0.0),  # window 1: each query its own key
+]
+_WINDOW_IDS = ["x".join(map(str, c)) for c in _WINDOW_CASES]
+
+
+def _window_inputs(dev, case, dtype):
+    b, hq, hkv, sq, sk, d, causal, q_offset, kv_len, window, cap = case
+    q, k, v = _qkv(dev, sq + d + window, b, hq, hkv, sq, sk, d, dtype)
+    kz, vz = k.clone(), v.clone()
+    if kv_len is not None:
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+        kz[:, :, kv_len:] = 0
+        vz[:, :, kv_len:] = 0
+    return (q, k, v), (kz, vz), dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, softcap=cap)
+
+
+def _window_routes(fa, q, k, dtype):
+    sq, g, d = q.shape[2], q.shape[1] // k.shape[1], q.shape[3]
+    out = ["f32"]
+    if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS:
+        out.append("tensor_core")
+    if sq * g <= fa.DECODE_ROWS and d in fa.HEAD_DIMS:
+        out.append("decode")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _WINDOW_CASES, ids=_WINDOW_IDS)
+def test_windowed_routes_equal_plain(dev, case, dtype):
+    """Every forward route that takes the call, named, with a window,
+    against the plain version (dead slots zeroed); the f32 and
+    tensor_core routes' log-sum-exp too."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (kz, vz), kw = _window_inputs(dev, case, dtype)
+    want = fa.attention_plain(q, kz, vz, **kw)
+    for route in _window_routes(fa, q, k, dtype):
+        got = _routed(fa, route, lambda: fa.launch_route(route, q, k, v, **kw))
+        assert torch.isfinite(got).all(), route
+        _flash_close(got, want, dtype)
+        if route != "decode":
+            _, lse = fa.launch_route(route, q, k, v, with_lse=True, **kw)
+            torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [c for c in _WINDOW_CASES if c[5] <= 128 and c[9] > 1],
+                         ids=[i for c, i in zip(_WINDOW_CASES, _WINDOW_IDS) if c[5] <= 128 and c[9] > 1])
+def test_windowed_cuda_core_backward(dev, case, dtype):
+    """The cuda_core backward's three kernels with a window, against
+    autograd through the plain attention, and bit-equal on a rerun (not
+    at window 1, where a row's softmax is one key and dQ, dK vanish)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (kz, vz), kw = _window_inputs(dev, case, dtype)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev).to(dtype)
+    out, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+    got = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
+    again = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
+    ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    _check_grads(got, want, dtype, (kw["kv_len"],))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_tensor_core_backward_refuses_a_window(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 9, 2, 8, 4, 128, 128, 128, torch.bfloat16)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    with pytest.raises(NotImplementedError, match="gemma2 training slice"):
+        fa.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), window=8)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, window=8)
+    with pytest.raises(NotImplementedError, match="takes no window"):
+        fa.launch_backward(q, k, v, out, lse, q, window=8, route="tensor_core")
+    assert before == {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+
+
+def test_gemma2_serves_across_the_window_on_the_card(dev):
+    """A small gemma2 (window 8, softcaps, tied, head_dim 256 as
+    published) in bf16 on the card: prefill on the f32 route, decode on
+    the decode route, against a forward with the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), num_layers=4, d_model=512, d_ff=1024, vocab=1024,
+                              sliding_window=8)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    model, ref = build_model(cfg), build_model(cfg, attention=fa.attention_plain)
+    toks = torch.randint(0, cfg.vocab, (2, 60), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    logits, cache, n = model.prefill(params, {"tokens": toks[:, :40]}, max_len=60)  # 80 packed rows: f32
+    steps = [logits[:, -1]]
+    for t in range(40, 59):
+        logits, cache = model.decode(params, cache, toks[:, t : t + 1], n)
+        n += 1
+        steps.append(logits[:, -1])
+    launched = {r: c.value - before[r] for r, c in fa.ROUTE_LAUNCHES.items()}
+    assert launched == {"f32": 4, "decode": 4 * 19, "tensor_core": 0}
+    want = ref.forward(params, {"tokens": toks})[:, 39:59]
+    got = torch.stack(steps, 1)
+    assert torch.isfinite(got).all() and float((got - want).abs().max()) < 0.5
+
+
+def test_train_entry_point_on_the_reduced_gemma2(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    before = fa.ROUTE_LAUNCHES["f32"].value, fa.BWD_LAUNCHES["cuda_core/dkdv"].value
+    train.main(["--arch", "gemma2-2b", "--steps", "2"])
+    assert fa.ROUTE_LAUNCHES["f32"].value - before[0] == 2 * 4
+    assert fa.BWD_LAUNCHES["cuda_core/dkdv"].value - before[1] == 2 * 4

@@ -31,6 +31,9 @@ _FORBIDDEN = [
 _MODULES = [
     "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpoint",
+    "repro_torch.configs",
+    "repro_torch.configs.base",
+    "repro_torch.configs.gemma2_2b",
     "repro_torch.core.client",
     "repro_torch.core.failover",
     "repro_torch.core.server",
@@ -44,6 +47,7 @@ _MODULES = [
     "repro_torch.launch.networked",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
+    "repro_torch.models",
     "repro_torch.models.blocks",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
@@ -128,6 +132,11 @@ from repro_torch.configs.llama3_8b import CONFIG
 from repro_torch.launch.serve import serve
 tiny = dataclasses.replace(CONFIG, num_layers=1, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, vocab=256)
 assert len(serve(tiny, requests=2, prompt_len=3, gen_len=2, rounds=1, device="cpu")) == 1
+# every arch of the registry resolves; a gemma2 (window, softcaps, tied) serves too
+from repro_torch.configs import ARCH_IDS, get_config
+assert all(get_config(a).name == a for a in ARCH_IDS)
+g2 = dataclasses.replace(get_config("gemma2-2b").reduced(), d_model=64)
+assert len(serve(g2, requests=2, prompt_len=12, gen_len=2, rounds=1, device="cpu")) == 1
 # the training path: a GRPO step through the trainer, and launch/train.py with a checkpoint
 import tempfile
 from repro_torch.launch.train import main as train_main
@@ -177,7 +186,7 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.models.blocks", "repro_torch.models.layers", "repro_torch.models.lm",
     "repro_torch.models.params", "repro_torch.rl.loop", "repro_torch.training", "repro_torch.checkpoint",
     "repro_torch.launch.train", "repro_torch.core.failover", "repro_torch.net", "repro_torch.net.controller",
-    "repro_torch.net.worker", "repro_torch.launch.networked",
+    "repro_torch.net.worker", "repro_torch.launch.networked", "repro_torch.configs", "repro_torch.models",
 ])
 def test_serving_modules_import_first(module):
     """Each module of the serving path imports as the first one of a

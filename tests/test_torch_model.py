@@ -314,11 +314,6 @@ def test_entry_points_default_to_the_card(monkeypatch):
         serve(PORT_CFG, requests=1, prompt_len=2, gen_len=1, rounds=1)
 
 
-def test_tied_embeddings_wait_for_gemma2():
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        DecoderLM(dataclasses.replace(PORT_CFG, tie_embeddings=True))
-
-
 def test_serve_entry_point_on_the_cpu(capsys):
     rows = serve(PORT_CFG, requests=2, prompt_len=4, gen_len=3, rounds=2, device="cpu", dtype=torch.float32)
     assert [r["round"] for r in rows] == [0, 1] and all(r["tokens"] == 6 for r in rows)

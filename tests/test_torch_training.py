@@ -45,6 +45,7 @@ from repro.training import objectives as jobj  # noqa: E402
 from repro.training import optimizer as jopt  # noqa: E402
 from repro.training import steps as jsteps  # noqa: E402
 
+from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.configs.llama3_8b import CONFIG as PORT_LLAMA  # noqa: E402
 from repro_torch.data.synthetic import BigramStream  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
@@ -326,9 +327,9 @@ def test_train_step_matches_jax(model, accum):
 
 
 def test_steps_refuse_other_families():
-    """The port's DecoderConfig is the dense family; a config of another
-    family (the JAX package's audio encoder here) is refused."""
-    audio = get_config("hubert-xlarge")
+    """The steps take the dense family; a config of another family (the
+    port registry's audio encoder here) is refused."""
+    audio = port_get_config("hubert-xlarge")
     assert audio.family == "audio"
     with pytest.raises(NotImplementedError, match="audio"):
         psteps.make_loss_fn(DecoderLM(PORT_CFG), audio)
@@ -356,7 +357,7 @@ def test_reduced_config_matches_jax():
     for f in ("name", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff", "vocab", "rope_theta",
               "tie_embeddings", "resolved_head_dim"):
         assert getattr(got, f) == getattr(want, f), f
-    assert (want.head_dim or None) == got.head_dim
+    assert want.head_dim == got.head_dim == 0 and got.sliding_window == want.sliding_window
     # the clamps, on configs the JAX rules reach differently
     for heads, kv in ((32, 8), (3, 2), (1, 1), (6, 4)):
         g = dataclasses.replace(PORT_LLAMA, num_heads=heads, num_kv_heads=kv).reduced()
