@@ -33,11 +33,16 @@ lines, any failure exiting non-zero:
    (gemma2's local layers): every forward route that takes a call, named,
    against the plain version with windows of less than a tile (8), 64,
    100 and 4096, offsets, kv_len < Sk with NaN past it, softcap 50 and
-   head_dim 256 on the f32 and decode routes; the cuda_core backward with
-   a window (bit-equal on a rerun); the tensor-core backward must refuse
-   a window; gemma2's prefill attention (f32 route) and decode step
-   (decode route) timed with its window of 4096 and without, beside the
-   plain version, the bound and SDPA without the softcap.
+   head_dim 256 on every route; the tensor-core forward at head_dim 256
+   (G 2 and 7, with and without the log-sum-exp); both backward routes
+   with those windows at head_dim 64/128/256 and at head_dim 256 in bf16
+   (tensor_core), f32 and f16 (cuda_core), bit-equal on a rerun; gemma2's
+   prefill attention (tensor_core route, beside the f32 route that took it
+   before) and decode step (decode route) timed with its window of 4096
+   and without, and its windowed backward at [2, 8/4, 4672, 256] in bf16
+   (tensor_core, beside cuda_core) and f32 (cuda_core), each beside the
+   plain version, the bound and SDPA without the softcap (its backend
+   named).
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -89,9 +94,12 @@ lines, any failure exiting non-zero:
 7. The training entry point at its defaults: ``python -m
    repro_torch.launch.train`` (the reduced llama3-8b, head_dim 16, f32)
    for two steps on the card, then with ``--arch gemma2-2b`` (the reduced
-   gemma2: window 8, softcaps, tied embeddings); the losses must be finite
-   (llama3-8b's those of earlier runs, 6.1012 and 6.0542) and every layer
-   of every step must launch the f32 route and the CUDA-core backward.
+   gemma2: window 8, softcaps, tied embeddings), then ``--arch gemma2-2b
+   --full-config --batch 2 --seq 512`` (all 26 layers at the published
+   widths, head_dim 256, f32); the losses must be finite (llama3-8b's
+   those of earlier runs, 6.1012 and 6.0542) and every layer of every
+   step must launch the f32 route and the CUDA-core backward, and no
+   tensor-core kernel.
 8. The networked deployment on the card: llama3-8b at phase 3's widths
    and depth, bf16. ``python -m repro_torch.net.controller`` (WAL-backed,
    host only), a publisher process (``chip_smoke.py --publisher``, a
@@ -115,13 +123,19 @@ lines, any failure exiting non-zero:
    updated as in phase 5 and held to its gates: gemma2-2b at its published
    widths and all 26 layers (bf16, 5.2 GB a replica; 4 requests of 4608
    prompt tokens + 64 new, so the window of 4096 bites on the last 512
-   prompt positions and every decode step; 26 f32-route and 26 x 64
+   prompt positions and every decode step; 26 tensor-core and 26 x 64
    decode-route launches a round), then yi-34b and deepseek-coder-33b at
    their published widths cut to 4 layers (4 x (512 + 16); G = 7 on the
    tensor-core and decode routes). Prefill and decode tokens/s and peak
    memory for each.
+10. The RL loop of phase 6 at gemma2-2b's published widths and all 26
+   layers, bf16: 2 prompts x 2 responses of 512 + 64 tokens, one GRPO
+   step, publish v1, update, serve again, under phase 6's gates; the step
+   must launch 26 tensor-core forwards and 26 of each tensor-core
+   backward kernel with the window passed on the even layers, and nothing
+   on the f32, decode or CUDA-core kernels.
 
-A ``kernels`` JSON line (launches over phases 3 to 9; flash
+A ``kernels`` JSON line (launches over phases 3 to 10; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -939,8 +953,39 @@ WINDOW_SHAPES = [
     (1, 56, 8, 129, 400, 128, dict(causal=True, q_offset=200, kv_len=329, window=64, nan=True)),  # G 7
     (1, 8, 4, 200, 300, 64, dict(causal=False, kv_len=250, window=64, nan=True)),
 ]
+#: the tensor-core forward at head_dim 256 (gemma2's prefill and training
+#: forward, gemma2's 8/4 heads): windows of 8, 64, 100 and 4096, softcap 50,
+#: G 2 and 7, kv_len < Sk with NaN past it, q_offset > 0; each with and
+#: without the log-sum-exp: (b, hq, hkv, sq, sk, kw)
+TC256_SHAPES = [
+    (2, 8, 4, 300, 300, dict(causal=True, softcap=50.0)),
+    (1, 8, 4, 600, 600, dict(causal=True, window=8, softcap=50.0)),
+    (1, 8, 4, 400, 400, dict(causal=True, window=64)),
+    (1, 8, 4, 700, 700, dict(causal=True, window=100, softcap=50.0)),
+    (1, 8, 4, 4200, 4200, dict(causal=True, window=4096, softcap=50.0)),  # gemma2's window, biting past 4096
+    (1, 56, 8, 129, 400, dict(causal=True, q_offset=200, kv_len=329, window=64, nan=True)),  # G 7
+    (2, 8, 4, 130, 500, dict(causal=False, kv_len=450, nan=True)),
+    (1, 8, 4, 77, 300, dict(causal=True, q_offset=200, kv_len=277, window=100, softcap=50.0, nan=True)),
+]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
+
+
+def sdpa_backend(torch, call):
+    """The first of SDPA's backends, in PyTorch's order of preference,
+    that takes ``call`` (which runs SDPA): its name, to time it under."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call()
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise SmokeFailure("no SDPA backend takes the call")
 
 
 def nan_tail(qkv, kv_len: int):
@@ -1087,6 +1132,37 @@ def flash_checks(torch, dev, bw: float) -> dict:
             del q, k, v, k_want, v_want, want, got, diff
     torch.cuda.empty_cache()
 
+    # the tensor-core forward at head_dim 256, named, with and without the
+    # log-sum-exp (the serving and the training call)
+    for b, hq, hkv, sq, sk, kw in TC256_SHAPES:
+        kw = dict(kw)
+        nan = kw.pop("nan", False)
+        q, k, v = qkv(b, hq, hkv, sq, sk, 256, bf16)
+        k_want, v_want = k, v
+        if nan:
+            q, k, v, k_want, v_want = nan_tail((q, k, v), kw["kv_len"])
+        label = f"tensor_core head_dim 256 [{b},{hq}/{hkv},{sq}x{sk}] {kw}{' NaN past kv_len' if nan else ''}"
+        want = fa.attention_plain(q, k_want, v_want, **kw).float()
+        before = fa.ROUTE_LAUNCHES["tensor_core"].value
+        got = fa.launch_route("tensor_core", q, k, v, **kw)
+        out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+        check(fa.ROUTE_LAUNCHES["tensor_core"].value == before + 2, f"tensor_core not launched on {label}")
+        lse_want = fa.attention_lse_plain(q, k_want, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL["bfloat16"]
+        diff = (got.float() - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())
+        lse_ratio = float(((lse - lse_want).abs() / (2e-5 + 2e-5 * lse_want.abs())).max())
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_ratio = max(worst_ratio, ratio)
+        worst_route["tensor_core"] = max(worst_route["tensor_core"], ratio)
+        emit("flash_check", case=label, route="tensor_core", max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio,
+             lse_err_over_tol=lse_ratio, same_with_lse=bool(torch.equal(out, got)))
+        check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"tensor_core != plain version on {label}")
+        check(lse_ratio <= 1.0 and torch.equal(out, got), f"tensor_core lse != logsumexp of the plain scores on {label}")
+        del q, k, v, k_want, v_want, want, got, out, lse, lse_want, diff
+    torch.cuda.empty_cache()
+
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     # timings at the serving path's shapes (the decode step at a full cache):
     # the route's kernel, the f32 route's kernel on the same inputs,
@@ -1144,9 +1220,9 @@ def flash_checks(torch, dev, bw: float) -> dict:
         # phase 2's backward checks (main); the bf16 serving inputs' beside
         "f32": dict(source=csrc + "flash_attention.cu", err_over_tol=worst_route["f32"],
                     on_bf16_serving_inputs=dict(prefill_ms=pre["f32_route_ms"], decode_ms=dec["f32_route_ms"],
-                                                prefill_bound_ms_bf16_peak=pre["bound_ms"]),
-                    gemma2_prefill=gemma2["prefill"]),
+                                                prefill_bound_ms_bf16_peak=pre["bound_ms"])),
     }
+    routes["tensor_core"]["gemma2_prefill"] = gemma2["prefill"]
     routes["decode"]["gemma2_decode"] = gemma2["decode"]
     return {
         "flash_attention": dict(
@@ -1167,19 +1243,22 @@ GEMMA2_B, GEMMA2_PROMPT, GEMMA2_GEN, GEMMA2_WINDOW = 4, 4608, 64, 4096
 
 
 def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
-    """gemma2's prefill attention on the f32 route (head_dim 256 has no
+    """gemma2's prefill attention on the tensor_core route (beside it the
+    f32 route's kernel, which took it before head_dim 256 had a
     tensor-core forward) and a decode step on the decode route, each with
     the window of its local layers (4096) and without (its global layers):
     the kernel (L2 cold), the plain version and SDPA on the same shape
     without the softcap (no PyTorch call has a tanh softcap, so SDPA
     computes a lighter function; K/V repeated to the query heads outside
-    the timing, the window as a boolean mask), beside the bound (bf16
-    inputs: the bf16 peak, and the f32 FMA peak the route computes at)."""
+    the timing, the window as a boolean mask; the backend named), beside
+    the bound (bf16 inputs: the bf16 peak; and the f32 FMA peak the f32
+    route computes at)."""
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     out = {}
     cap = 50.0
-    for label, sq, route in (("prefill", GEMMA2_PROMPT, "f32"), ("decode", 1, "decode")):
+    for label, sq, route in (("prefill", GEMMA2_PROMPT, "tensor_core"), ("decode", 1, "decode")):
         kv_len = GEMMA2_PROMPT + (GEMMA2_GEN if label == "decode" else 0)
         q_offset = kv_len - sq
         q, k, v = qkv(GEMMA2_B, 8, 4, sq, kv_len, 256, torch.bfloat16)
@@ -1190,12 +1269,17 @@ def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
             qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
             kpos = torch.arange(kv_len, device=q.device)[None, :]
             mask = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k8, v8, attn_mask=mask)  # noqa: E731
+            backend = sdpa_backend(torch, sdpa)
             calls = {
                 "kernel": lambda: fa.flash_attention(q, k, v, **kw),
                 "plain": lambda: fa.attention_plain(q, k, v, **kw),
-                "sdpa_no_softcap": lambda: F.scaled_dot_product_attention(q, k8, v8, attn_mask=mask),
             }
-            cold = {n: cold_ms(torch, f, flush, reps=3 if n == "plain" else 10) for n, f in calls.items()}
+            if label == "prefill":  # the route that took it before head_dim 256 had a tensor-core forward
+                calls["f32_route"] = lambda: fa.launch_route("f32", q, k, v, **kw)
+            cold = {n: cold_ms(torch, f, flush, reps=3 if n in ("plain", "f32_route") else 10) for n, f in calls.items()}
+            with sdpa_kernel([backend]):
+                cold["sdpa_no_softcap"] = cold_ms(torch, sdpa, flush, reps=10)
             got, want = calls["kernel"]().float(), calls["plain"]().float()
             err = float((got - want).abs().max())
             ratio = float(((got - want).abs() / (FLASH_TOL["bfloat16"] * (1 + want.abs()))).max())
@@ -1205,6 +1289,7 @@ def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
             out.setdefault(label, {})[name] = dict(
                 route=route, shape=f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal softcap {cap}",
                 ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa_no_softcap"],
+                f32_route_ms=cold.get("f32_route"), library_backend=str(backend),
                 library_note="SDPA without the softcap (a lighter function), K/V repeated to 8 heads",
                 bound_ms=bound, bound_by=by, bound_ms_f32_peak=f32_bound, flops=flops, bytes=nbytes,
                 max_abs_err_vs_plain=err, err_over_tol=ratio)
@@ -1224,12 +1309,12 @@ TRAIN_B, TRAIN_S = 16, 576
 F32_TFLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
-def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float):
+def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float, window: int = 0):
     """The larger of the FLOP time (five products of 2 D flops a live pair
     a query head: S, dP, dV, dK, dQ) and the byte time (q, o, dO, dQ, k,
     v, dK, dV once each and the lse)."""
     b, hq, sq, d = q.shape
-    flops = 5 * 2 * d * b * hq * live_pairs(sq, kv_len, causal, q_offset)
+    flops = 5 * 2 * d * b * hq * live_pairs(sq, kv_len, causal, q_offset, window)
     nbytes = 4 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size() + 4 * b * hq * sq
     t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
@@ -1253,8 +1338,10 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     on the bf16 cases and ``cuda_core`` (csrc/flash_attention_bwd.cu) on the
     f32 and f16 cases and the narrow heads (head_dim 16/32), at the GRPO
     step's shape and at the edges (S = 77, G 1/4/8, kv_len < Sk, q_offset
-    > 0, softcap, head_dim 64), every case run twice for bit-equal
-    gradients; the log-sum-exp of the tensor_core and f32 forwards against
+    > 0, softcap, head_dim 64), with windows of 8, 64, 100 and 4096 at
+    head_dim 64/128/256 and at gemma2's head_dim 256, every case run twice
+    for bit-equal gradients; gemma2's windowed backward timed
+    (gemma2_backward_times); the log-sum-exp of the tensor_core and f32 forwards against
     logsumexp of the plain scores; then, at the training shape, both
     routes timed on the same bf16 inputs beside the plain backward and
     SDPA's, the cuda_core route at the f32 training shape beside SDPA's f32
@@ -1296,22 +1383,30 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
                 b, hq, hkv, sq, sk, d, dtype, dict(causal=causal, softcap=cap))
         cases[f"head_dim 32 q_offset 200 [1,8/2,64x300] kv_len 264 {name}"] = (
             1, 8, 2, 64, 300, 32, dtype, dict(q_offset=200, kv_len=264))
-        # the window on the cuda_core backward (every dtype at the narrow
-        # head_dims; f32 and f16 at the others): launch.train's reduced
-        # gemma2, a window inside a tile and across tiles, with softcap,
-        # offset, NaN past kv_len, G 7 and without causality
+        # the window on both backward routes (bf16 at head_dim 64/128/256 on
+        # tensor_core, the rest on cuda_core): launch.train's reduced gemma2,
+        # windows of 8, 64, 100 and 4096 inside a tile and across tiles, with
+        # softcap, offset, NaN past kv_len, G 7 and without causality
         cases[f"window 8 softcap 50 [8,4/4,64x64,16] (reduced gemma2) {name}"] = (
             8, 4, 4, 64, 64, 16, dtype, dict(window=8, softcap=50.0))
         cases[f"window 8 [2,8/2,200x200,32] {name}"] = (2, 8, 2, 200, 200, 32, dtype, dict(window=8))
-        if dtype != bf16:
-            cases[f"window 8 [2,8/4,300x300,128] {name}"] = (2, 8, 4, 300, 300, 128, dtype, dict(window=8))
-            cases[f"window 100 softcap 50 [2,8/4,400x400,64] {name}"] = (
-                2, 8, 4, 400, 400, 64, dtype, dict(window=100, softcap=50.0))
-            cases[f"window 64 q_offset 200 kv_len 329 [1,56/8,129x400,128] {name}"] = (
-                1, 56, 8, 129, 400, 128, dtype, dict(q_offset=200, kv_len=329, window=64, nan_tail=True))
-            cases[f"window 64 not causal kv_len 250 [1,8/4,200x300,64] {name}"] = (
-                1, 8, 4, 200, 300, 64, dtype, dict(causal=False, kv_len=250, window=64, nan_tail=True))
-            cases[f"window 4096 [1,8/4,600x600,128] {name}"] = (1, 8, 4, 600, 600, 128, dtype, dict(window=4096))
+        for d in (64, 128, 256):
+            cases[f"window 8 [2,8/4,300x300,{d}] {name}"] = (2, 8, 4, 300, 300, d, dtype, dict(window=8))
+            cases[f"window 100 softcap 50 [2,8/4,400x400,{d}] {name}"] = (
+                2, 8, 4, 400, 400, d, dtype, dict(window=100, softcap=50.0))
+            cases[f"window 64 q_offset 200 kv_len 329 [1,56/8,129x400,{d}] {name}"] = (
+                1, 56, 8, 129, 400, d, dtype, dict(q_offset=200, kv_len=329, window=64, nan_tail=True))
+            cases[f"window 64 not causal kv_len 250 [1,8/4,200x300,{d}] {name}"] = (
+                1, 8, 4, 200, 300, d, dtype, dict(causal=False, kv_len=250, window=64, nan_tail=True))
+            cases[f"window 4096 [1,8/4,600x600,{d}] {name}"] = (1, 8, 4, 600, 600, d, dtype, dict(window=4096))
+        # head_dim 256 (gemma2: 8/4 heads, softcap 50), window 4096 biting
+        # past 4096 keys
+        cases[f"head_dim 256 softcap 50 [2,8/4,300x300] {name}"] = (2, 8, 4, 300, 300, 256, dtype, dict(softcap=50.0))
+        cases[f"head_dim 256 G 7 [1,56/8,129x129] {name}"] = (1, 56, 8, 129, 129, 256, dtype, {})
+        cases[f"head_dim 256 q_offset 200 kv_len 264 [2,8/4,64x320] {name}"] = (
+            2, 8, 4, 64, 320, 256, dtype, dict(q_offset=200, kv_len=264, nan_tail=True))
+        cases[f"window 4096 softcap 50 [1,8/4,4200x4200,256] {name}"] = (
+            1, 8, 4, 4200, 4200, 256, dtype, dict(window=4096, softcap=50.0))
     worst = {r: 0.0 for r in fa.BWD_KERNELS}
     worst_abs = {r: 0.0 for r in fa.BWD_KERNELS}
     for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
@@ -1351,23 +1446,6 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         check(same, f"two runs of the {bwd_route} backward differ on {label}")
         del q, k, v, kz, vz, dout, got, again, ref, want
     torch.cuda.empty_cache()
-
-    # the tensor-core backward takes no window yet: a windowed call it would
-    # take raises, through the Function and named, and never runs unwindowed
-    q, k, v = qkv(2, 8, 4, 128, 128, 128, bf16)
-    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
-    for what, call in (
-        ("the Function", lambda: fa.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), window=8)),
-        ("launch_backward", lambda: fa.launch_backward(q, k, v, q, torch.zeros(q.shape[:3], device=dev), q,
-                                                       window=8, route="tensor_core")),
-    ):
-        try:
-            call()
-            check(False, f"{what}: a windowed tensor_core backward did not raise")
-        except NotImplementedError as e:
-            emit("flash_bwd_window_refused", via=what, error=str(e))
-    check(before == {n: c.value for n, c in fa.BWD_LAUNCHES.items()}, "a refused windowed backward launched a kernel")
-    del q, k, v
 
     # the log-sum-exp the forwards write for the backward
     lse_worst = 0.0
@@ -1427,6 +1505,8 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         del q, k, v, dout, out, lse, sq_, sk_, sv_, sdpa_out, calls, ref
         torch.cuda.empty_cache()
 
+    gemma2 = gemma2_backward_times(torch, fa, rand, flush, bw)
+
     # row 5c: the f32 route's forward at the training shape in f32
     q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, f32)
     calls = {
@@ -1462,7 +1542,65 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             counter=fa.BWD_LAUNCHES[f"{r}/dkdv"],  # every call launches its route's dK/dV kernel once
         )
     entries["flash_attention_bwd/cuda_core"]["bfloat16_on_tensor_core_inputs"] = times["cuda_core bfloat16"]
+    entries["flash_attention_bwd/tensor_core"]["gemma2_backward"] = gemma2["tensor_core bfloat16"]
+    entries["flash_attention_bwd/cuda_core"]["gemma2_backward"] = gemma2["cuda_core float32"]
     return dict(entries, f32_route_training_shape=f32_times, lse_err_over_tol=lse_worst)
+
+
+#: gemma2's windowed attention backward: 2 sequences of 4672 (phase 9's
+#: 4608 + 64), 8 query and 4 KV heads of 256, softcap 50, window 4096
+GEMMA2_BWD_B, GEMMA2_BWD_S = 2, 4672
+
+
+def gemma2_backward_times(torch, fa, rand, flush, bw) -> dict:
+    """gemma2's windowed attention backward at its widths, in bf16 (its
+    route, tensor_core, beside the cuda_core route on the same inputs) and
+    in f32 (cuda_core, the route launch.train's f32 step takes): each
+    route's three kernels (L2 cold), the plain backward and SDPA's backward
+    without the softcap (K/V repeated to the query heads, the window as a
+    boolean mask, its forward out of the timing; the backend named), beside
+    the bound at the inputs' peak."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    out = {}
+    kw = dict(causal=True, softcap=50.0, window=GEMMA2_WINDOW)
+    s = GEMMA2_BWD_S
+    pos = torch.arange(s, device=flush.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - GEMMA2_WINDOW)
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        q = rand((GEMMA2_BWD_B, 8, s, 256), dtype)
+        k, v = rand((GEMMA2_BWD_B, 4, s, 256), dtype), rand((GEMMA2_BWD_B, 4, s, 256), dtype)
+        dout = rand(q.shape, dtype)
+        o, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, **kw)
+        sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)))
+        backend = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(sq_, sk_, sv_, attn_mask=mask))
+        with sdpa_kernel([backend]):
+            sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, attn_mask=mask)
+        routes = ("tensor_core", "cuda_core") if dtype == torch.bfloat16 else ("cuda_core",)
+        calls = {r: (lambda r=r: fa.launch_backward(q, k, v, o, lse, dout, route=r, **kw)) for r in routes}
+        calls["plain"] = lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw)
+        calls["sdpa_no_softcap"] = lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True)
+        cold = {n: cold_ms(torch, f, flush, reps=3 if n in ("plain", "cuda_core") else 10) for n, f in calls.items()}
+        want = calls["plain"]()
+        peak = F32_TFLOPS if dtype == torch.float32 else BF16_TFLOPS
+        bound, by, flops, nbytes = bwd_bound_ms(q, k, s, True, 0, bw, peak, window=GEMMA2_WINDOW)
+        for r in routes:
+            got = calls[r]()
+            errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+            out[f"{r} {name}"] = dict(
+                route=r, shape=f"q {list(q.shape)}, k/v {list(k.shape)} {name} causal softcap 50 window {GEMMA2_WINDOW}",
+                ms=cold[r], plain_ms=cold["plain"], library_ms=cold["sdpa_no_softcap"], library_backend=str(backend),
+                library_note="SDPA's backward without the softcap (a lighter function), K/V repeated to 8 heads",
+                bound_ms=bound, bound_by=by, peak_TFLOPs=peak / 1e12, flops=flops, bytes=nbytes,
+                achieved_TFLOPs=flops / (cold[r] * 1e-3) / 1e12, rel_err_vs_plain=errs,
+                tol=FLASH_TOL[name])
+            emit("flash_gemma2_bwd_times", **out[f"{r} {name}"])
+            check(max(errs.values()) <= FLASH_TOL[name], f"gemma2 backward {r} {name}: kernels != plain backward")
+            del got
+        del q, k, v, dout, o, lse, sq_, sk_, sv_, sdpa_out, calls, want
+        torch.cuda.empty_cache()
+    return out
 
 
 #: bound on |port - reference| for logits and logprobs at full width in
@@ -1759,16 +1897,19 @@ GRAD_TOL_PLAIN = 5e-2
 GRAD_TOL_BWD = 2e-2
 
 
-def rl_loop(torch, dev, counters, smi: str) -> dict:
-    """Paper Fig. 4 at llama3-8b's published widths, 4 layers, bf16: a
-    TrainerWorker publishes v0 (dc0); a RolloutWorker (dc0, raw)
-    replicates it and serves round 0 (16 responses: 4 prompts x 4, 512
-    prompt tokens, 64 new); the trainer runs one GRPO step on the card
-    (forward on the tensor-core flash route, the tensor-core backward
-    kernels, AdamW in place) and publishes v1; the worker updates in place
-    and serves round 1. Returns the kernels' launches on that path."""
-    import dataclasses
-
+def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, group_size: int = 4,
+            init=None) -> dict:
+    """Paper Fig. 4 at a config's published widths in bf16 (llama3-8b cut
+    to 4 layers unless ``cfg`` is given): a TrainerWorker publishes v0
+    (dc0); a RolloutWorker (dc0, raw) replicates it and serves round 0
+    (``num_prompts`` x ``group_size`` responses of 512 prompt tokens + 64
+    new); the trainer runs one GRPO step on the card (forward on the
+    tensor-core flash route, the tensor-core backward kernels, AdamW in
+    place) and publishes v1; the worker updates in place and serves round
+    1. Every layer's attention in the step must get its window (the
+    forward and the backward are recorded as they are called). ``init``
+    may rescale the seeded weights in place before the trainer registers
+    them. Returns the kernels' launches on that path."""
     import numpy as np
 
     from repro_torch.configs.llama3_8b import CONFIG
@@ -1776,13 +1917,16 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     from repro_torch.data.synthetic import PromptSet
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _layer_windows
+    from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker, TrainerWorker
     from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
 
-    cfg = dataclasses.replace(CONFIG, num_layers=TRAIN_LAYERS)
-    rl = RLConfig(model_name="actor", prompt_len=PROMPT_LEN, response_len=GEN_LEN, num_prompts=4, group_size=4,
-                  seed=SEED + 50)
+    cfg = cfg or dataclasses.replace(CONFIG, num_layers=TRAIN_LAYERS)
+    label = cfg.name
+    rl = RLConfig(model_name="actor", prompt_len=PROMPT_LEN, response_len=GEN_LEN, num_prompts=num_prompts,
+                  group_size=group_size, seed=SEED + 50)
     bwd = {f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}
     routes = {f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()}
     every = {**counters, **bwd, **routes}
@@ -1802,38 +1946,42 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
 
     hub = TensorHubClient(ReferenceServer(), device=dev)
     queue = []
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(rl.seed), torch.bfloat16, dev)
+    if init is not None:
+        init(params)
     trainer, init_s = timed(lambda: TrainerWorker(hub, rl, cfg, queue, datacenter="dc0", dtype=torch.bfloat16,
-                                                  keep_grads=True))
+                                                  params=params, keep_grads=True))
+    del params
     publish0_s = trainer.last_timings["publish_seconds"]
     nparams = sum(t.numel() for t in trainer.params.values())
-    emit("model", config="llama3-8b", layers=cfg.num_layers, dtype="bfloat16", params=nparams, bytes=2 * nparams,
+    emit("model", config=label, layers=cfg.num_layers, dtype="bfloat16", params=nparams, bytes=2 * nparams,
          trainer_init_and_publish_seconds=init_s, publish_v0_seconds=publish0_s)
     worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), queue,
                            threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
-    reference = DecoderLM(cfg, attention=attention_plain)
+    reference = build_model(cfg, attention=attention_plain)
 
     def replica_equals_trainer(when):
         for n, w in trainer.params.items():
-            check(torch.equal(worker.params[n], w), f"{when}: rollout {n} != trainer")
+            check(torch.equal(worker.params[n], w), f"{label} {when}: rollout {n} != trainer")
 
     _, replicate_s = timed(lambda: worker.connect(timeout=600))
-    check(worker.weights_version == 0, "the rollout did not replicate v0")
+    check(worker.weights_version == 0, f"{label}: the rollout did not replicate v0")
     replica_equals_trainer("v0")
     before = counts()
     rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round0 = {k: v - before[k] for k, v in counts().items()}
     check(round0["flash_route_tensor_core"] == cfg.num_layers and round0["flash_route_decode"] == cfg.num_layers * GEN_LEN
-          and round0["flash_route_f32"] == 0, f"round 0 flash launches {round0}")
+          and round0["flash_route_f32"] == 0, f"{label} round 0 flash launches {round0}")
     mid = counts()
     check0 = check_served_round(torch, reference, trainer.params, rec0, 0, tag="rl_serve_check")
     check(mid == counts(), "the checks launched a kernel")
     served_rewards = rec0["rewards"].copy()
-    # a random-weight model at vocab 128256 almost never continues the
-    # prompts' bigram chains, so every reward is 0, every advantage is 0 and
-    # the step (weight_decay 0) would change nothing: rewards from a seeded
-    # generator stand in for a scorer, so the step moves every tensor
+    # a random-weight model almost never continues the prompts' bigram
+    # chains, so every reward is 0, every advantage is 0 and the step
+    # (weight_decay 0) would change nothing: rewards from a seeded generator
+    # stand in for a scorer, so the step moves every tensor
     rec0["rewards"] = np.random.default_rng(SEED + 51).random(rec0["rewards"].shape).astype(np.float32)
-    print(f"phase 6: round 0 rewards {served_rewards.tolist()} replaced by seeded uniform [0, 1) draws "
+    print(f"{label}: round 0 rewards {served_rewards.tolist()} replaced by seeded uniform [0, 1) draws "
           "(a random-weight model scores 0, so the GRPO advantages and step would be 0)", flush=True)
     rollouts = trainer.wait_for_rollouts(1, timeout=60)
     batch = trainer.batch_from(rollouts)
@@ -1845,56 +1993,76 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
         lambda: value_and_grad(make_grpo_loss_fn(reference), trainer.params, batch))
     check(mid == counts(), "the reference step launched a flash kernel")
 
+    # the step, with the window each layer's forward and backward get
+    # recorded where the Function calls the kernels' wrappers
+    windows = {"forward": [], "backward": []}
+    wrappers = fa.launch_route, fa.launch_backward
+
+    def launch_route(route, q, k, v, **kw):
+        windows["forward"].append(int(kw.get("window", 0)))
+        return wrappers[0](route, q, k, v, **kw)
+
+    def launch_backward(*args, **kw):
+        windows["backward"].append(int(kw.get("window", 0)))
+        return wrappers[1](*args, **kw)
+
     before = counts()
-    metrics, train_s = timed(lambda: trainer.train_on(rollouts))
+    fa.launch_route, fa.launch_backward = launch_route, launch_backward
+    try:
+        metrics, train_s = timed(lambda: trainer.train_on(rollouts))
+    finally:
+        fa.launch_route, fa.launch_backward = wrappers
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
     step_launches = {k: v - before[k] for k, v in counts().items()}
     want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
             **{f"flash_attention_bwd_{n}": cfg.num_layers * n.startswith("tensor_core/") for n in BWD_LAUNCHES}}
-    check({k: step_launches[k] for k in want} == want, f"GRPO step launches {step_launches}, want {want}")
-    check(metrics["version"] == 1 and trainer.version == 1, "the trainer did not publish v1")
+    check({k: step_launches[k] for k in want} == want, f"{label} GRPO step launches {step_launches}, want {want}")
+    layer_windows = _layer_windows(cfg)
+    check(windows["forward"] == layer_windows and windows["backward"][::-1] == layer_windows,
+          f"{label}: the step's windows {windows}, the layers' {layer_windows}")
+    check(metrics["version"] == 1 and trainer.version == 1, f"{label}: the trainer did not publish v1")
 
     # every tensor got a finite nonzero gradient matching the reference step's
     grads = trainer.last_grads
     check(set(grads) == set(trainer.params), "a parameter got no gradient")
     grad_errs, grad_max, grad_l2 = {}, {}, {}
     for n, g in grads.items():
-        check(g is not None and bool(torch.isfinite(g).all()), f"{n}: gradient missing or not finite")
+        check(g is not None and bool(torch.isfinite(g).all()), f"{label} {n}: gradient missing or not finite")
         grad_max[n] = float(g.float().abs().max())
-        check(grad_max[n] > 0, f"{n}: zero gradient")
+        check(grad_max[n] > 0, f"{label} {n}: zero gradient")
         grad_errs[n] = grad_err(torch, g, ref_grads[n])
         grad_l2[n] = rel_l2(torch, g, ref_grads[n])
     for name in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"):
-        check(grad_max[name] > 0, f"{name}: no gradient through the flash attention")
+        check(grad_max[name] > 0, f"{label} {name}: no gradient through the flash attention")
     loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
     adv_max = float(batch["advantages"].abs().max())
-    emit("train_check", loss=metrics["loss"], reference_loss=float(ref_metrics["loss"]), loss_abs_err=loss_err,
-         loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN,
-         grad_max_err_over_max=grad_errs, grad_abs_max=grad_max,
-         metrics=metrics)
+    emit("train_check", config=label, loss=metrics["loss"], reference_loss=float(ref_metrics["loss"]),
+         loss_abs_err=loss_err, loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN,
+         grad_max_err_over_max=grad_errs, grad_abs_max=grad_max, windows=windows, metrics=metrics)
     # the loss is a mean of ratio x advantage over the response tokens, and a
     # ratio moves with its logprob: the serving bound on mean logprob error
     # times the largest |advantage| bounds the loss's
-    check(loss_err <= LOGIT_MEAN_ABS * adv_max, f"loss {metrics['loss']} vs reference {float(ref_metrics['loss'])}")
+    check(loss_err <= LOGIT_MEAN_ABS * adv_max,
+          f"{label}: loss {metrics['loss']} vs reference {float(ref_metrics['loss'])}")
     for n, e in grad_l2.items():
-        check(e <= GRAD_TOL_PLAIN, f"{n}: gradient differs from the reference step's by {e} (relative L2)")
+        check(e <= GRAD_TOL_PLAIN, f"{label} {n}: gradient differs from the reference step's by {e} (relative L2)")
     del ref_grads
 
     # every tensor moved (the rollout still holds v0), then the update
     for n, w in trainer.params.items():
-        check(not torch.equal(worker.params[n], w), f"{n} did not change from v0 to v1")
+        check(not torch.equal(worker.params[n], w), f"{label} {n} did not change from v0 to v1")
     updated, update_s = timed(worker.pull_latest)
-    check(updated and worker.weights_version == 1, "the rollout did not update to v1")
+    check(updated and worker.weights_version == 1, f"{label}: the rollout did not update to v1")
     replica_equals_trainer("v1")
     before = counts()
     rec1, round1_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round1 = {k: v - before[k] for k, v in counts().items()}
-    check(rec1["version"] == 1 and round1 == round0, f"round 1 launches {round1}, round 0 {round0}")
+    check(rec1["version"] == 1 and round1 == round0, f"{label} round 1 launches {round1}, round 0 {round0}")
     launches = counts()  # the main path's launches, read now
     peak = torch.cuda.max_memory_allocated(dev)
     check1 = check_served_round(torch, reference, trainer.params, rec1, 1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
-    check(delta > 10 * LOGIT_MEAN_ABS, f"round 1's first logits barely differ from round 0's ({delta})")
+    check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
     for k in ("checksum", "flash_attention", *(f"flash_attention_bwd_tensor_core/{n}" for n in ("pre", "dkdv", "dq"))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
@@ -1906,33 +2074,44 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     # attention runs the same kernel forward and the plain backward
     class KernelForwardPlainBackward(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v):
-            out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, causal=True)
+        def forward(ctx, q, k, v, kw):
+            out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, **kw)
             ctx.save_for_backward(q, k, v, out, lse)
+            ctx.kw = kw
             return out
 
         @staticmethod
         def backward(ctx, dout):
-            return fa.attention_backward_plain(*ctx.saved_tensors, dout, causal=True)
+            return (*fa.attention_backward_plain(*ctx.saved_tensors, dout, **ctx.kw), None)
 
-    isolated = DecoderLM(cfg, attention=lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v))
-    g_kernel, m_kernel = value_and_grad(make_grpo_loss_fn(trainer.model), trainer.params, batch)
-    g_plain_bwd, m_plain_bwd = value_and_grad(make_grpo_loss_fn(isolated), trainer.params, batch)
+    isolated = build_model(cfg, attention=lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v, kw))
+    # the behavior logprobs of v1 itself, so every ratio is 1 and no clip
+    # zeroes a gradient (against the served v0 logprobs a step may leave
+    # every ratio clipped, and both gradients 0)
+    with torch.no_grad():
+        logits = trainer.model.forward(trainer.params, {"tokens": batch["tokens"]})
+        lp = torch.log_softmax(logits[:, :-1].float(), -1).gather(-1, batch["tokens"][:, 1:, None])[..., 0]
+        on_policy = dict(batch, behavior_logprobs=torch.where(batch["loss_mask"], lp, 0.0))
+        del logits, lp
+    g_kernel, m_kernel = value_and_grad(make_grpo_loss_fn(trainer.model), trainer.params, on_policy)
+    g_plain_bwd, m_plain_bwd = value_and_grad(make_grpo_loss_fn(isolated), trainer.params, on_policy)
+    for n, g in g_kernel.items():
+        check(float(g.float().abs().max()) > 0, f"{label} {n}: zero gradient in the backward kernels' check")
     bwd_errs = {n: grad_err(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel}
-    emit("train_bwd_check", loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
+    emit("train_bwd_check", config=label, loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
          grad_max_err_over_max=bwd_errs, grad_rel_l2={n: rel_l2(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel},
          tol=GRAD_TOL_BWD)
-    check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), "the two steps' forwards differ")
+    check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), f"{label}: the two steps' forwards differ")
     for n, e in bwd_errs.items():
-        check(e <= GRAD_TOL_BWD, f"{n}: the backward kernels' gradient differs from the plain backward's by {e}")
+        check(e <= GRAD_TOL_BWD, f"{label} {n}: the backward kernels' gradient differs from the plain backward's by {e}")
     del g_kernel, g_plain_bwd
 
     # where a GRPO step's device time goes (a second step, v1 -> v2, with
     # the launches above already read)
     prof = device_profile(torch, lambda: trainer.train_on(rollouts))
     tokens = batch["tokens"].numel()
-    emit("train_profile", card=smi, step=prof, profiled_step_seconds=trainer.last_timings["step_seconds"])
-    emit("rl_result", card=smi, layers=cfg.num_layers, params=nparams, replicate_seconds=replicate_s,
+    emit("train_profile", config=label, card=smi, step=prof, profiled_step_seconds=trainer.last_timings["step_seconds"])
+    emit("rl_result", config=label, card=smi, layers=cfg.num_layers, params=nparams, replicate_seconds=replicate_s,
          publish_v0_seconds=publish0_s, publish_v1_seconds=publish1_s, train_on_seconds=train_s,
          train_step_seconds=step_s, reference_step_seconds=ref_s,
          training_tokens=tokens, training_tokens_per_s=tokens / step_s,
@@ -1946,6 +2125,35 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 10: the RL loop at gemma2-2b's published widths --------------------------
+
+#: phase 10's rollouts: 2 prompts x 2 responses of 512 + 64 tokens (2304
+#: training positions). 4 prompts did not fit one 80 GB card: the trainer's
+#: 31.4 GB (bf16 parameters and gradients, f32 moments), the replica and
+#: the reference step's gradients (5.2 GB each), 26 layers' activations and
+#: the softcapped 256000-wide f32 logits of 4608 positions reached 72 GB
+#: allocated in the loss's log-softmax and asked for 4.4 GB more (PERF.md
+#: section 4); the width and depth stay as published
+GEMMA2_RL_PROMPTS, GEMMA2_RL_GROUP = 2, 2
+
+
+def gemma2_rl_loop(torch, dev, counters, smi: str) -> dict:
+    """Phase 6's RL loop and gates at gemma2-2b's published widths and all
+    26 layers, bf16 (window 4096 on the even layers, softcaps 50 and 30,
+    tied embedding drawn at std 1/sqrt(d_model) as in phase 9). At 576
+    positions the window does not bite in the step; phase 2 holds the
+    windowed backward at full width."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-2b")
+
+    def init(params):
+        params["embed"].mul_(math.sqrt(cfg.vocab / cfg.d_model))
+
+    return rl_loop(torch, dev, counters, smi, cfg=cfg, num_prompts=GEMMA2_RL_PROMPTS, group_size=GEMMA2_RL_GROUP,
+                   init=init)
+
+
 # -- phase 7: the training entry point at its defaults ---------------------------------
 
 
@@ -1954,13 +2162,22 @@ def rl_loop(torch, dev, counters, smi: str) -> dict:
 TRAIN_ENTRY_LOSSES = [6.1012, 6.0542]
 
 
+#: phase 7's gemma2-2b at its published widths and all 26 layers, f32:
+#: parameters, gradients and two AdamW moments (42 GB) beside 2 x 512
+#: positions' 256000-wide logits and their copies
+GEMMA2_FULL_ARGV = ["--arch", "gemma2-2b", "--full-config", "--batch", "2", "--seq", "512"]
+
+
 def train_entry_point(torch, counters) -> dict:
     """``python -m repro_torch.launch.train`` at its defaults (the reduced
     llama3-8b: head_dim 16, f32, on the card), two steps, then again with
     ``--arch gemma2-2b`` (the reduced gemma2: head_dim 16, window 8,
-    softcaps 50 and 30, tied embeddings, f32): the losses must be finite
+    softcaps 50 and 30, tied embeddings, f32), then with ``--arch gemma2-2b
+    --full-config`` (all 26 layers at the published widths, head_dim 256,
+    window 4096, f32; 2 x 512 tokens): the losses must be finite
     (llama3-8b's those of earlier runs), and the f32 route's forward and the
-    cuda_core backward must run every layer of every step. Returns the
+    cuda_core backward must run every layer of every step (at head_dim 256
+    for the full gemma2), the tensor-core kernels none. Returns the
     kernels' launches on that path."""
     import contextlib
     import io
@@ -1976,9 +2193,12 @@ def train_entry_point(torch, counters) -> dict:
     for c in every.values():
         c.reset()
     runs = {}
-    for arch in ("llama3-8b", "gemma2-2b"):
-        argv = ["--steps", str(steps)] + ([] if arch == "llama3-8b" else ["--arch", arch])
-        layers = get_config(arch).reduced().num_layers
+    for arch, extra in (("llama3-8b", []), ("gemma2-2b", ["--arch", "gemma2-2b"]),
+                        ("gemma2-2b full", GEMMA2_FULL_ARGV)):
+        argv = ["--steps", str(steps)] + extra
+        cfg = get_config("gemma2-2b") if "--full-config" in extra else get_config(arch).reduced()
+        layers = cfg.num_layers
+        torch.cuda.reset_peak_memory_stats()
         before = {k: c.value for k, c in every.items()}
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1988,7 +2208,10 @@ def train_entry_point(torch, counters) -> dict:
         seconds = time.perf_counter() - t0
         run = {k: c.value - before[k] for k, c in every.items()}  # this run's launches, read now
         losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
-        emit("train_entry_point", argv=argv, losses=losses, seconds=seconds, launches=run)
+        emit("train_entry_point", argv=argv, layers=layers, head_dim=cfg.resolved_head_dim, losses=losses,
+             seconds=seconds, launches=run, max_memory_allocated=torch.cuda.max_memory_allocated())
+        gc.collect()
+        torch.cuda.empty_cache()
         check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{arch}: train entry point losses {losses}")
         if arch == "llama3-8b":
             check(losses == TRAIN_ENTRY_LOSSES, f"llama3-8b losses {losses}, before {TRAIN_ENTRY_LOSSES}")
@@ -2432,6 +2655,10 @@ def networked(torch, dev, counters, shapes, chunk_bytes, inproc) -> dict:
 #: not fit one 80 GB card; their widths stay as published
 DENSE_CUT_LAYERS = 4
 DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 512, 16
+#: gemma2's phase 9 prefill tokens/s when its attention ran on the f32
+#: route, before head_dim 256 had a tensor-core forward (an NVIDIA H100
+#: 80GB HBM3 at 700 W, PERF.md section 5), printed beside this run's
+GEMMA2_F32_ROUTE_PREFILL_TOKENS_PER_S = 31.5e3
 
 
 def dense_archs(torch, dev, counters, smi: str) -> dict:
@@ -2459,9 +2686,7 @@ def dense_archs(torch, dev, counters, smi: str) -> dict:
             print(f"phase 9: {arch} cut from {cfg.num_layers} to {layers} layers, widths as published", flush=True)
             cfg = dataclasses.replace(cfg, num_layers=layers)
         n = cfg.num_layers
-        prefill_route = "f32" if cfg.resolved_head_dim == 256 else "tensor_core"
-        want_route = {"decode": n * glen, "tensor_core": 0, "f32": 0}
-        want_route[prefill_route] = n
+        want_route = {"decode": n * glen, "tensor_core": n, "f32": 0}  # bf16 prefill at 128 and 256
 
         def init(params, cfg=cfg):
             if cfg.tie_embeddings:
@@ -2476,7 +2701,9 @@ def dense_archs(torch, dev, counters, smi: str) -> dict:
              prefill_seconds=res["prefill_s"], prefill_tokens_per_s=res["prefill_tokens_per_s"],
              decode_tokens_per_s=res["decode_tokens_per_s"], round_tokens_per_s=res["round_tokens_per_s"],
              max_memory_allocated=res["peak"], launches=res["launches"], checks=res["checks"],
-             seconds=time.perf_counter() - t0)
+             seconds=time.perf_counter() - t0,
+             **({"prefill_tokens_per_s_on_the_f32_route": GEMMA2_F32_ROUTE_PREFILL_TOKENS_PER_S}
+                if arch == "gemma2-2b" else {}))
         for k in counters:
             total[k] += res["launches"][k]
         for r, c in res["launches"]["flash_attention_routes"].items():
@@ -2649,21 +2876,27 @@ def main() -> int:
     t0 = time.perf_counter()
     phase9 = dense_archs(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")}, smi)
     phase_s["9 dense archs"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase10 = gemma2_rl_loop(torch, dev, counters, smi)
+    phase_s["10 gemma2 rl loop"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9)  # the paths with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10)  # the paths with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    by_kernel = {n: phase6["flash_attention_bwd_by_kernel"][n] + phase7["flash_attention_bwd_by_kernel"][n]
+    training_phases = (phase6, phase7, phase10)  # the paths with the backward
+    by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
         if k.startswith("flash_attention_bwd/"):
             route = k.split("/")[1]
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase8=phase8, phase9=phase9, phase_seconds=phase_s)
+         phase8=phase8, phase9=phase9, phase10=phase10, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

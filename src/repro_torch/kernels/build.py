@@ -55,7 +55,7 @@ SIGNATURES = {
                            _F32, _INT, _INT, _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, causal,
     #  softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null, stream);
-    #  bf16, D in {64, 128}
+    #  bf16, D in {64, 128, 256}
     "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
                               _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
@@ -71,10 +71,10 @@ SIGNATURES = {
                              _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, causal,
-    #  softcap, q_offset, kv_len, stream); bf16, D in {64, 128}; the three
-    #  tensor-core backward kernels take the same
+    #  softcap, q_offset, kv_len, window (0: none), stream); bf16, D in
+    #  {64, 128, 256}; the three tensor-core backward kernels take the same
     **{f"th_flash_bwd_tc_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _F32, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
+                                _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
 }
 
 

@@ -2,8 +2,8 @@
 // cores: dQ, dK and dV of the forward kernels (flash_attention.cu,
 // flash_attention_tc.cu), which is what the training step needs from
 // every layer. This is the `cuda_core` backward route: f32, f16 and bf16
-// at head_dim 16, 32, 64 and 128, every call the tensor-core backward
-// (flash_attention_bwd_tc.cu, bf16 at head_dim 64/128) does not take.
+// at head_dim 16, 32, 64, 128 and 256, every call the tensor-core backward
+// (flash_attention_bwd_tc.cu, bf16 at head_dim 64/128/256) does not take.
 //
 // The JAX package has no Pallas backward: it differentiates its jnp
 // chunked_attention (src/repro/models/layers.py) with jax.grad, so this
@@ -81,6 +81,9 @@
 // by the copies themselves (src-size 0), so a dead cache slot's NaN never
 // reaches a product. The longest blocks are launched first (the first key
 // tiles for dK/dV, the last query tiles for dQ).
+//
+// Head_dim 256 (gemma2) has dK/dV and dQ kernels of its own, on the same
+// sub-tile geometry (section 4 below).
 //
 // Inputs are strided in batch, head and sequence (unit stride in D, rows
 // 16-byte aligned for the copies); outputs likewise.
@@ -564,6 +567,339 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
   }
 }
 
+// -- 4. head_dim 256 ---------------------------------------------------------------
+
+// At D = 256 the plans above do not fit: K and V of 64 keys alone are 128
+// KB in f32, a 64-row Q or dO sub-tile 64 KB, and a thread's dK or dV of 8
+// keys x 16 columns 128 registers. So D = 256 has two kernels of its own
+// on the same sub-tile geometry (kSub, packed_row and the stats of the pre
+// kernel, which takes D = 256 as it is):
+//  * dK/dV: one block of 256 threads a (batch, KV head, 32 keys). K and V
+//    stay in shared memory; the items are half sub-tiles of 32 packed rows
+//    (rows 0-31, then 32-63 of a sub-tile, with the sub-tile's stats),
+//    streamed through a two-stage cp.async ring over the sub-tiles dK/dV
+//    of 64 keys would take. Half the block computes S^T = K Q^T, the other
+//    half dP^T = V dO^T, 2 x 4 a thread (keys kx + 16a, rows ry + 8c) over
+//    all of D; dP^T goes through an f32 tile to the S^T half, which writes
+//    P^T and dS^T; then half the block accumulates dV += P^T dO and the
+//    other dK += dS^T Q, 4 keys x 16 RowCols columns a thread. 211,456
+//    bytes of shared memory in f32.
+//  * dQ: one block a (batch, KV head, sub-tile of 64 packed rows). Q, dO
+//    and their stats stay in shared memory; K and V tiles of 16 keys stream
+//    through the ring from the window's start for the sub-tile's first
+//    position up to the causal / kv_len edge. The halves compute S = Q K^T
+//    and dP = dO V^T, 4 x 2 a thread (rows hx + 16a, keys tx + 8c), dS goes
+//    into an f32 tile, and every thread accumulates dQ += dS K, 4 rows x 16
+//    RowCols columns. 205,824 bytes in f32.
+// Each thread's products are 4 x 2 or 2 x 4 (two floats a load feed an
+// FMA, half the rate of the 8 x 8 tiles above): a plan that is right first;
+// its times are in PERF.md.
+
+template <typename T>
+struct Dkdv256Layout {
+  static constexpr int kKeys = 32;      // keys a block
+  static constexpr int kRows = 32;      // packed query rows an item: half a sub-tile
+  static constexpr int kPP = kRows + 4; // pitch of the P^T, dS^T and dP^T tiles [32 rows][32 key slots]
+  static constexpr size_t kKV = size_t(kKeys) * 256 * sizeof(T);
+  static constexpr size_t kTile = size_t(kRows) * 256 * sizeof(T);
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kK + kKV;
+  static constexpr size_t kQ = kV + kKV;          // [2][32][256]
+  static constexpr size_t kDO = kQ + 2 * kTile;   // [2][32][256]
+  static constexpr size_t kSt = kDO + 2 * kTile;  // [2][kStats]
+  static constexpr size_t kP = kSt + 2 * kStats * sizeof(float);
+  static constexpr size_t kDS = kP + size_t(kRows) * kPP * sizeof(float);
+  static constexpr size_t kDP = kDS + size_t(kRows) * kPP * sizeof(float);
+  static constexpr size_t kBytes = kDP + size_t(kRows) * kPP * sizeof(float);
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+template <typename T, bool W>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv256_kernel(const BwdParams p) {
+  constexpr int D = 256;
+  using L = Dkdv256Layout<T>;
+  constexpr int KB = L::kKeys, R = L::kRows, PP = L::kPP;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* ks = reinterpret_cast<T*>(smem + L::kK);
+  T* vs = reinterpret_cast<T*>(smem + L::kV);
+  T* qbuf = reinterpret_cast<T*>(smem + L::kQ);
+  T* dobuf = reinterpret_cast<T*>(smem + L::kDO);
+  float* stbuf = reinterpret_cast<float*>(smem + L::kSt);
+  float* pb = reinterpret_cast<float*>(smem + L::kP);   // P^T as [row][key slot]
+  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [row][key slot]
+  float* xb = reinterpret_cast<float*>(smem + L::kDP);  // dP^T as [row][key slot]
+
+  const int tid = threadIdx.x;
+  const int half = tid / kHalf;                        // S^T then dV (0), dP^T then dK (1)
+  const int kx = (tid % kHalf) / 8, ry = tid % 8;      // scores: keys kx + 16a, rows ry + 8c
+  const int ky = (tid % kHalf) / 16, cx = tid % 16;    // accumulation: key slots 4 ky + a, RowCols columns of cx
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+  const int nbkv = p.batch * p.hkv;
+  const int bkv = blockIdx.x % nbkv;
+  const int k0 = (blockIdx.x / nbkv) * KB;  // the first key tiles (the most query rows) first
+  const int b = bkv / p.hkv, hk = bkv % p.hkv;
+
+  using C = RowCols<D>;
+  float acc[4][C::kPer];  // dV (half 0) or dK (half 1) of key slots 4 ky + a
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
+
+  // the sub-tiles whose rows can see a key of the block, as in dK/dV above;
+  // items are their halves
+  const int first = p.causal ? max(0, k0 - p.q_offset) / p.qpt : 0;
+  const int pos_last = min(k0 + KB, p.kv_len) - 1 + p.window - 1 - p.q_offset;
+  const int s_end = !W ? p.nsub : pos_last < 0 ? 0 : min(p.nsub, pos_last / p.qpt + 1);
+  const int s_begin = k0 < p.kv_len ? first : s_end;
+
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
+  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
+  auto copy_item = [&](int u, int stage) {
+    const int sub = u / 2, r0 = (u % 2) * R;
+    copy_tile<T, D, R, kThreads>(qbuf + stage * R * D, [&](int r) -> const T* {
+      int g, i;
+      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + r, g, i) ? qg + g * p.qs[1] + i * p.qs[2]
+                                                                               : nullptr;
+    }, qg);
+    copy_tile<T, D, R, kThreads>(dobuf + stage * R * D, [&](int r) -> const T* {
+      int g, i;
+      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + r, g, i) ? dog + g * p.dos[1] + i * p.dos[2]
+                                                                               : nullptr;
+    }, dog);
+    if (tid < kStats / 4) cp_async16(stbuf + stage * kStats + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
+  };
+
+  if (s_begin < s_end) {
+    copy_rows<T, D, KB, kThreads>(ks, kg, p.ks[2], k0, p.kv_len);
+    copy_rows<T, D, KB, kThreads>(vs, vg, p.vs[2], k0, p.kv_len);
+    copy_item(2 * s_begin, 0);
+    cp_async_commit();
+  }
+  for (int u = 2 * s_begin, it = 0; u < 2 * s_end; ++u, ++it) {
+    const int st = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item u is in; every thread is done with the other stage and the tiles
+    if (u + 1 < 2 * s_end) {
+      copy_item(u + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const T* qt = qbuf + st * R * D;
+    const T* dot = dobuf + st * R * D;
+    const int sub = u / 2, r0 = (u % 2) * R;
+    const float* lse_s = stbuf + st * kStats + r0;
+    const float* di_s = lse_s + kSub;
+
+    // S^T = K Q^T (half 0) or dP^T = V dO^T (half 1) over all of D
+    float s[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
+    nt_product<T, D, D, 2, 4, 16, 8>(s, half ? vs : ks, kx, half ? dot : qt, ry, 0);
+    if (half) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xb[(ry + 8 * c) * PP + kx + 16 * a] = s[a][c];
+    }
+    __syncthreads();
+    if (!half) {  // P^T, and dS^T = P^T (1 - t^2) * (dP^T - D_i)
+      scale_cap(p, s);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int y = ry + 8 * c;
+        int g, pos;
+        const bool ok = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + y, g, pos);
+        const float lse = lse_s[y], di = di_s[y];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int slot = y * PP + kx + 16 * a;
+          const float2 v = p_and_factor(s[a][c], lse, inv_cap, live<W>(p, ok ? pos : -1, k0 + kx + 16 * a));
+          pb[slot] = v.x;
+          db[slot] = v.y * (xb[slot] - di);
+        }
+      }
+    }
+    __syncthreads();
+    // dV[key] += sum_r P^T[key][r] dO[r] (half 0), dK[key] += sum_r dS^T[key][r] Q[r] (half 1)
+    nn_product<T, D, 4, PP, R>(acc, half ? db : pb, 4 * ky, half ? qt : dot, cx);
+  }
+
+  T* outg = half ? static_cast<T*>(p.dk) + b * p.dks[0] + hk * p.dks[1]
+                 : static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
+  const long long ostride = half ? p.dks[2] : p.dvs[2];
+  const float scale = half ? p.scale : 1.f;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = k0 + 4 * ky + a;  // slot 4 ky + a
+    if (j >= p.sk) continue;
+#pragma unroll
+    for (int g = 0; g < C::kGroups; ++g) {
+      float x[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] * scale;
+      store_n<C::kW>(outg + static_cast<long long>(j) * ostride + C::col(g, cx), x);
+    }
+  }
+}
+
+template <typename T>
+struct Dq256Layout {
+  static constexpr int kKeys = 16;       // keys a K/V tile
+  static constexpr int kPP = kSub + 4;   // pitch of the dS^T and dP^T tiles [16 keys][64 row slots]
+  static constexpr size_t kTile = size_t(kSub) * 256 * sizeof(T);
+  static constexpr size_t kKV = size_t(kKeys) * 256 * sizeof(T);
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kDO = kQ + kTile;
+  static constexpr size_t kK = kDO + kTile;    // [2][16][256]
+  static constexpr size_t kV = kK + 2 * kKV;   // [2][16][256]
+  static constexpr size_t kSt = kV + 2 * kKV;  // [kStats]
+  static constexpr size_t kDS = kSt + kStats * sizeof(float);
+  static constexpr size_t kDP = kDS + size_t(kKeys) * kPP * sizeof(float);
+  static constexpr size_t kBytes = kDP + size_t(kKeys) * kPP * sizeof(float);
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+};
+
+template <typename T, bool W>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq256_kernel(const BwdParams p) {
+  constexpr int D = 256;
+  using L = Dq256Layout<T>;
+  constexpr int BK = L::kKeys, PP = L::kPP;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* qs = reinterpret_cast<T*>(smem + L::kQ);
+  T* dos = reinterpret_cast<T*>(smem + L::kDO);
+  T* kbuf = reinterpret_cast<T*>(smem + L::kK);
+  T* vbuf = reinterpret_cast<T*>(smem + L::kV);
+  float* sts = reinterpret_cast<float*>(smem + L::kSt);
+  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [key][row slot]
+  float* xb = reinterpret_cast<float*>(smem + L::kDP);  // dP^T as [key][row slot]
+
+  const int tid = threadIdx.x;
+  const int half = tid / kHalf;                      // S (0) or dP (1)
+  const int hx = (tid % kHalf) / 8, tx = tid % 8;    // scores: rows hx + 16a, keys tx + 8c
+  const int ty = tid / 16, cx = tid % 16;            // accumulation: row slots 4 ty + a, columns of cx
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+  const int nbkv = p.batch * p.hkv;
+  const int bkv = blockIdx.x % nbkv;
+  const int sub0 = p.nsub - 1 - blockIdx.x / nbkv;  // the last sub-tiles (the most keys) first
+  const int b = bkv / p.hkv, hk = bkv % p.hkv;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
+  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
+
+  // live keys [kv_start, kv_end), kv_start from the sub-tile's first
+  // position; tiles outside are skipped
+  const int pos_end = min(p.sq, (sub0 + 1) * p.qpt);
+  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
+  const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
+  const int ntiles = (kv_end + BK - 1) / BK - t0;
+
+  copy_tile<T, D, kSub, kThreads>(qs, [&](int r) -> const T* {
+    int g, i;
+    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i) ? qg + g * p.qs[1] + i * p.qs[2] : nullptr;
+  }, qg);
+  copy_tile<T, D, kSub, kThreads>(dos, [&](int r) -> const T* {
+    int g, i;
+    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i) ? dog + g * p.dos[1] + i * p.dos[2] : nullptr;
+  }, dog);
+  if (tid < kStats / 4) cp_async16(sts + tid * 4, stats_of(p, bkv, sub0) + tid * 4, true);
+  auto copy_kv = [&](int t, int stage) {
+    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
+  };
+  copy_kv(t0, 0);
+  cp_async_commit();
+
+  // this thread's score rows hx + 16a: positions (-1 for padding), then
+  // lse and D_i once the stats are in
+  int qpos[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    int g, pos;
+    qpos[a] = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, hx + 16 * a, g, pos) ? pos : -1;
+  }
+  float lse[4], di[4];
+
+  using C = RowCols<D>;
+  float dq[4][C::kPer];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = (t0 + t) * BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every thread is done with the other stage, db and xb
+    if (t + 1 < ntiles) {
+      copy_kv(t0 + t + 1, (t + 1) & 1);
+      cp_async_commit();
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        lse[a] = sts[hx + 16 * a];
+        di[a] = sts[kSub + hx + 16 * a];
+      }
+    }
+    const T* kt = kbuf + (t & 1) * BK * D;
+    const T* vt = vbuf + (t & 1) * BK * D;
+
+    // S = Q K^T (half 0) or dP = dO V^T (half 1) over all of D
+    float s[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) s[a][c] = 0.f;
+    nt_product<T, D, D, 4, 2, 16, 8>(s, half ? dos : qs, hx, half ? vt : kt, tx, 0);
+    if (half) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) xb[(tx + 8 * c) * PP + hx + 16 * a] = s[a][c];
+    }
+    __syncthreads();
+    if (!half) {  // dS = P (1 - t^2) * (dP - D_i)
+      scale_cap(p, s);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int slot = (tx + 8 * c) * PP + hx + 16 * a;
+          const float f = p_and_factor(s[a][c], lse[a], inv_cap, live<W>(p, qpos[a], k0 + tx + 8 * c)).y;
+          db[slot] = f * (xb[slot] - di[a]);
+        }
+    }
+    __syncthreads();
+    // dQ[row] += sum_j dS[row][j] K[j]
+    nn_product<T, D, 4, PP, BK>(dq, db, 4 * ty, kt, cx);
+  }
+
+  T* dqg = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = 4 * ty + a;
+    int g, i;
+    if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i)) continue;
+    const int h = hk * p.group + g;
+    T* row = dqg + b * p.dqs[0] + h * p.dqs[1] + static_cast<long long>(i) * p.dqs[2];
+#pragma unroll
+    for (int gc = 0; gc < C::kGroups; ++gc) {
+      float x[C::kW];
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) x[e] = dq[a][gc * C::kW + e] * p.scale;
+      store_n<C::kW>(row + C::col(gc, cx), x);
+    }
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, size_t bytes, int blocks, int threads, const BwdParams& p, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -621,12 +957,23 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
       return launch(flash_bwd_pre_kernel<T, D>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
     }
     case kDkdvK:
-      return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true> : flash_bwd_dkdv_kernel<T, D, false>,
-                    DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
-                    kThreads, p, s);
+      if constexpr (D == 256) {
+        constexpr int kb = Dkdv256Layout<T>::kKeys;
+        return launch(p.window < (1 << 30) ? flash_bwd_dkdv256_kernel<T, true> : flash_bwd_dkdv256_kernel<T, false>,
+                      Dkdv256Layout<T>::kBytes, nbkv * ((p.sk + kb - 1) / kb), kThreads, p, s);
+      } else {
+        return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true> : flash_bwd_dkdv_kernel<T, D, false>,
+                      DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
+                      kThreads, p, s);
+      }
     default:
-      return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>,
-                    DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
+      if constexpr (D == 256) {
+        return launch(p.window < (1 << 30) ? flash_bwd_dq256_kernel<T, true> : flash_bwd_dq256_kernel<T, false>,
+                      Dq256Layout<T>::kBytes, nbkv * p.nsub, kThreads, p, s);
+      } else {
+        return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>,
+                      DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
+      }
   }
 }
 
@@ -637,6 +984,7 @@ int dispatch(const BwdParams& p, int d, Which which, cudaStream_t s) {
     case 32: return run<T, 32>(p, which, s);
     case 64: return run<T, 64>(p, which, s);
     case 128: return run<T, 128>(p, which, s);
+    case 256: return run<T, 256>(p, which, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -665,7 +1013,7 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
 // B * Hkv * nsub2 * 128 floats (nsub2: ceil(Sq / (64 / G)) rounded up to
 // even); dtype 0 = float32, 1 = bfloat16, 2 = float16 (every tensor but
-// lse and stats); D in {16, 32, 64, 128}; Hq / Hkv <= 64; 1 <= kv_len <=
+// lse and stats); D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <=
 // Sk; window > 0 a sliding window, 0 none. In this order on one stream: th_flash_bwd_pre writes stats,
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
 // writes dq. Each returns cudaGetLastError() after its launch.

@@ -1,5 +1,6 @@
 // Flash attention (online softmax) for Hopper on the tensor cores: bf16
-// q, k, v at head_dim 64 or 128, the prefill route of the serving path.
+// q, k, v at head_dim 64, 128 or 256, the prefill route of the serving path
+// and the training forward (gemma2's at 256).
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention/kernel.py, _flash_kernel). For query
@@ -24,8 +25,11 @@
 // Bound: at the serving path's prefill shape (16 x 32 heads x 512 x 128,
 // causal) the work is 34.4 GFLOP of live q.k pairs against 168 MB of q, k,
 // v and o: 0.035 ms at the tensor cores' 989 TFLOP/s, 0.050 ms for the
-// bytes at 3.35 TB/s. Both products run as wgmma on the tensor cores, so
-// the CUDA cores keep only the softmax.
+// bytes at 3.35 TB/s. At gemma2's prefill (4 x 8 heads x 4608 x 256,
+// causal, window 4096) 0.343 TFLOP of live pairs take 0.347 ms at the
+// tensor cores' peak, the bytes 0.068. Both products run as wgmma on the
+// tensor cores, so the CUDA cores keep only the softmax (and the softcap's
+// tanh, one a score).
 //
 // Design (the "usual shape" of a Hopper kernel). A work item is 192 query
 // rows of one query head; one persistent block an SM walks the items, the
@@ -69,11 +73,19 @@
 // when the pointer is not null: m and the joined l are in registers there.
 // The serving path passes null and pays one predicated branch an item.
 //
-// Head_dim 256 is left to the f32 route (flash_attention.cu): its
-// 64 x 256 f32 accumulator alone is 128 registers a thread, beside the
-// 32 of S and the 16 of P, which leaves the consumer warpgroups without
-// room at one block of 416 threads; and two Q buffers and three K/V
-// stages of 32 KB tiles would not fit the 227 KB of shared memory.
+// Head_dim 256 (gemma2) has a plan of its own (Plan<256>): its 64 x 256
+// f32 accumulator is 128 registers a thread beside the 32 of S and the 16
+// of P, which three consumer warpgroups and a producer warp cannot hold
+// (416 threads leave 152 a thread), and two Q buffers of 192 rows with
+// three stages of 32 KB K and V tiles would not fit 227 KB. So an item is
+// 128 query rows of two consumer warpgroups, the producer is a warpgroup
+// that gives its registers back (setmaxnreg: 24 a thread, so each consumer
+// thread has 240, as in the backward), there is one Q buffer (the next
+// item's Q loads once this item's output has left it) and the K/V ring has
+// two stages of 64 keys: 64 KB + 2 x (32 + 32) KB = 192 KB of shared
+// memory. A 256-wide row is four 64-element boxes, and O += P.V runs as two
+// m64n128k16 products on the two halves of V's columns. The plans of
+// head_dim 64 and 128 are the ones they had before.
 //
 // The TMA, mbarrier and wgmma helpers and the tensor maps live in
 // hopper.cuh, shared with the backward (flash_attention_bwd_tc.cu).
@@ -85,12 +97,37 @@
 
 namespace {
 
-constexpr int kBQ = 192;                    // query rows a work item (three warpgroups)
-constexpr int kBK = 64;                     // keys a tile
-constexpr int kStages = 3;                  // K/V ring depth
-constexpr int kConsumers = 384;             // three warpgroups
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kBK = 64;  // keys a tile
 constexpr float kNegInf = -1e30f;
+
+// The tile plan of a head_dim. D = 64, 128: items of 192 query rows (three
+// consumer warpgroups) and a producer warp, two Q buffers, three K/V stages
+template <int D>
+struct Plan {
+  static constexpr int kWarpgroups = 3;  // consumer warpgroups: 64 query rows each
+  static constexpr int kQBufs = 2;       // Q buffers: the next item's loads early
+  static constexpr int kStages = 3;      // K/V ring depth
+  static constexpr int kProducer = 32;   // a producer warp
+  static constexpr int kConsumerRegs = 0, kProducerRegs = 0;  // no setmaxnreg
+  static constexpr int kBQ = 64 * kWarpgroups;       // query rows a work item
+  static constexpr int kConsumers = 128 * kWarpgroups;
+  static constexpr int kThreads = kConsumers + kProducer;
+};
+
+// D = 256: items of 128 rows (two consumer warpgroups), a producer
+// warpgroup under setmaxnreg (2 x 128 x 240 + 128 x 24 <= 65536), one Q
+// buffer and two K/V stages (see the header)
+template <>
+struct Plan<256> {
+  static constexpr int kWarpgroups = 2;
+  static constexpr int kQBufs = 1;
+  static constexpr int kStages = 2;
+  static constexpr int kProducer = 128;
+  static constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+  static constexpr int kBQ = 64 * kWarpgroups;
+  static constexpr int kConsumers = 128 * kWarpgroups;
+  static constexpr int kThreads = kConsumers + kProducer;
+};
 
 struct TcParams {
   __nv_bfloat16* o;
@@ -109,28 +146,35 @@ struct MapDims {
 
 template <int D>
 struct Layout {
-  static constexpr uint32_t kQBytes = kBQ * D * 2;
+  using P = Plan<D>;
+  static constexpr uint32_t kQBytes = P::kBQ * D * 2;
   static constexpr uint32_t kTileBytes = kBK * D * 2;
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kQ + 2 * kQBytes;  // two Q buffers: the next item's loads early
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + kStages * kTileBytes;
-  static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr uint32_t kK = kQ + P::kQBufs * kQBytes;
+  static constexpr uint32_t kV = kK + P::kStages * kTileBytes;
+  static constexpr uint32_t kBar = kV + P::kStages * kTileBytes;
+  static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * P::kStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
 // W: the call has a window. The unwindowed instances carry none of the
 // window's tile bounds, compares or all-masked-row guard, so a call
 // without a window runs the code it ran before the window came
 template <int D, bool W>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Plan<D>::kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
                     const TcParams p, const MapDims dims) {
   using L = Layout<D>;
+  using P = Plan<D>;
+  constexpr int kBQ = P::kBQ, kStages = P::kStages, kConsumers = P::kConsumers;
   constexpr int NB = D / kBox;  // 64-element boxes a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t base = smem_u32(smem);
+  // the Q buffer of the n-th item and the parity of its use
+  auto q_of = [](int n) { return P::kQBufs == 2 ? n & 1 : 0; };
+  auto q_par = [](int n) { return P::kQBufs == 2 ? (n >> 1) & 1 : n & 1; };
   auto bar = [&](int i) { return base + L::kBar + 8 * i; };
   auto q_full = [&](int i) { return bar(i); };
   auto q_empty = [&](int i) { return bar(2 + i); };
@@ -181,13 +225,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {  // the producer warp: lane 0 issues every load
+  if (tid >= kConsumers) {  // the producer warp (warpgroup at D = 256): one thread issues every load
+    if constexpr (P::kProducerRegs > 0) regs_dec<P::kProducerRegs>();
     if (tid == kConsumers) {
       int it = 0;  // tiles loaded so far: the ring's position
       for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
         const Work x = work(w);
-        const int qb = n & 1;
-        mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);  // passes at once on a fresh buffer
+        const int qb = q_of(n);
+        mbar_wait(q_empty(qb), q_par(n) ^ 1);  // passes at once on a fresh buffer
         mbar_expect_tx(q_full(qb), L::kQBytes);
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
@@ -209,6 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     return;
   }
+  if constexpr (P::kConsumerRegs > 0) regs_inc<P::kConsumerRegs>();
 
   // consumers: warpgroup wg owns rows [row0, row0 + 64) of a tile; this
   // thread holds rows ra and ra + 8 of them, columns 8j + 2 (lane % 4) + {0, 1}
@@ -219,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0;
   for (int w = blockIdx.x, n = 0; w < nwork; w += gridDim.x, ++n) {
     const Work x = work(w);
-    const int qb = n & 1;
+    const int qb = q_of(n);
     const int row0 = x.q0 + wg * 64;
     const int pos_a = p.q_offset + row0 + ra, pos_b = pos_a + 8;
     const int wg_end = p.causal ? min(p.kv_len, p.q_offset + min(p.sq, row0 + 64)) : p.kv_len;
@@ -231,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
     const uint32_t q_base = q_buf(qb) + wg * 64 * kRowBytes;
-    mbar_wait(q_full(qb), (n >> 1) & 1);
+    mbar_wait(q_full(qb), q_par(n));
 
     for (int t = x.t0; t < x.t0 + x.ntiles; ++t, ++it) {
       const int s = it % kStages;
@@ -391,29 +437,44 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  flash_tc_kernel<D, W><<<blocks, kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
+  flash_tc_kernel<D, W><<<blocks, Plan<D>::kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the maps, the work items and the launch of head_dim D's plan
+template <int D>
+int run(const void* q, const void* k, const void* v, void* o, const long long* strides, int batch, int hq, int hkv,
+        int sq, TcParams& p, int window, cudaStream_t s) {
+  constexpr int kBQ = Plan<D>::kBQ;
+  CUtensorMap qm, km, vm, om;
+  MapDims dims;
+  int err = make_map(&qm, q, D, sq, hq, batch, strides + 0, kBQ, dims.q);
+  if (err == 0) err = make_map(&km, k, D, p.kv_len, hkv, batch, strides + 3, kBK, dims.k);
+  if (err == 0) err = make_map(&vm, v, D, p.kv_len, hkv, batch, strides + 6, kBK, dims.v);
+  if (err == 0) err = make_map(&om, o, D, sq, hq, batch, strides + 9, 64, dims.o);
+  if (err != 0) return err;
+  p.num_q_tiles = (sq + kBQ - 1) / kBQ;
+  static int sms = 0;  // one persistent block an SM
+  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
+  const int work = p.num_q_tiles * batch * hq;
+  const int blocks = work < sms ? work : sms;
+  return window > 0 ? launch<D, true>(qm, km, vm, om, p, dims, blocks, s)
+                    : launch<D, false>(qm, km, vm, om, p, dims, blocks, s);
 }
 
 }  // namespace
 
 // bf16 q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by
 // its pointer and its (batch, head, sequence) element strides in `strides`
-// (a host array of 12: q, k, v, o); D in {64, 128}; pointers and strides of
-// q, k and v 16-byte aligned; 1 <= kv_len <= Sk; window > 0 a sliding
-// window, 0 none; lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError()
-// after the launch, or a tensor-map encoding failure negated.
+// (a host array of 12: q, k, v, o); D in {64, 128, 256}; pointers and
+// strides of q, k and v 16-byte aligned; 1 <= kv_len <= Sk; window > 0 a
+// sliding window, 0 none; lse f32 [B, Hq, Sq] or null. Returns
+// cudaGetLastError() after the launch, or a tensor-map encoding failure
+// negated.
 extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                      int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
                                      int q_offset, int kv_len, int window, float* lse, void* stream) {
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap qm, km, vm, om;
-  MapDims dims;
-  int err = make_map(&qm, q, d, sq, hq, batch, strides + 0, kBQ, dims.q);
-  if (err == 0) err = make_map(&km, k, d, kv_len, hkv, batch, strides + 3, kBK, dims.k);
-  if (err == 0) err = make_map(&vm, v, d, kv_len, hkv, batch, strides + 6, kBK, dims.v);
-  if (err == 0) err = make_map(&om, o, d, sq, hq, batch, strides + 9, 64, dims.o);
-  if (err != 0) return err;
+  if (d != 64 && d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
   TcParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
@@ -422,21 +483,16 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   p.hq = hq;
   p.group = hq / hkv;
   p.sq = sq;
-  p.num_q_tiles = (sq + kBQ - 1) / kBQ;
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_len = kv_len;
   p.window = window > 0 ? window : 1 << 30;
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the TPU kernel's Python scalar
   p.softcap = softcap;
-  static int sms = 0;  // one persistent block an SM
-  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
-  const int work = p.num_q_tiles * batch * hq;
-  const int blocks = work < sms ? work : sms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window > 0)
-    return d == 64 ? launch<64, true>(qm, km, vm, om, p, dims, blocks, s)
-                   : launch<128, true>(qm, km, vm, om, p, dims, blocks, s);
-  return d == 64 ? launch<64, false>(qm, km, vm, om, p, dims, blocks, s)
-                 : launch<128, false>(qm, km, vm, om, p, dims, blocks, s);
+  switch (d) {
+    case 64: return run<64>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    case 128: return run<128>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    default: return run<256>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+  }
 }

@@ -178,13 +178,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // D += A.B with A bf16 m64k16 from registers (the accumulator's layout of
 // a 64 x 16 f32 tile, packed in pairs) and B MN-major (transposed) in
-// shared memory, N = 64 or 128
+// shared memory, N = 64, 128 or 256. N = 256 runs as two m64n128k16
+// products: columns 128-255 start two 64-column blocks (two leading byte
+// offsets, which the descriptor holds) after columns 0-127, and their
+// accumulators are the upper 64 registers of the m64n256 layout
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) {
     wgmma_rs_n64(o, a, db);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    static_assert(N == 256, "N = 64, 128 or 256");
+    wgmma_rs_n128(o, a, db);
+    wgmma_rs_n128(o + 64, a, db + 2 * ((db >> 16) & 0x3FFF));
   }
 }
 

@@ -37,8 +37,8 @@ a failure:
   partial softmax states (what :func:`split_kv_plain` computes in plain
   PyTorch).
 * ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
-  head_dim 64 or 128 (the prefill): TMA loads and ``wgmma`` on the tensor
-  cores.
+  head_dim 64, 128 or 256 (the prefill, and gemma2's at 256): TMA loads
+  and ``wgmma`` on the tensor cores.
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
   f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
   ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
@@ -66,31 +66,30 @@ view, not a copy.
 
 The gradient. When autograd wants one (grad mode on and q, k or v
 requiring it), the call goes through a ``torch.autograd.Function``: the
-forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128) or the
-``f32`` route (the rest), never on ``decode``, and also writes each row's
-log-sum-exp (``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``). The
+forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128/256) or
+the ``f32`` route (the rest), never on ``decode``, and also writes each
+row's log-sum-exp (``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``). The
 backward (:func:`launch_backward`) takes one of two routes, again by dtype
-and shape alone (:func:`_bwd_route`):
+and shape alone (:func:`_bwd_route`), both with or without a window:
 
 * ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at head_dim
-  64/128, the training step's path. Three kernels: ``pre`` (``D_i =
-  rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and ``dq`` (one block
-  128 query rows), with ``wgmma`` products fed by TMA.
+  64/128/256, the training step's path. Three kernels: ``pre`` (``D_i =
+  rowsum(dO * O)``), ``dkdv`` (one block 128 keys; 64 at head_dim 256) and
+  ``dq`` (one block 128 query rows; 64 at head_dim 256), with ``wgmma``
+  products fed by TMA.
 * ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
-  head_dim 16/32/64/128 otherwise, in f32 FMAs. Three kernels: ``pre``
+  head_dim 16/32/64/128/256 otherwise, in f32 FMAs. Three kernels: ``pre``
   (``D_i`` and the lse into a stats scratch in packed-row order),
-  ``dkdv`` (64 keys a block, Q/dO sub-tiles through a two-stage
-  ``cp.async`` ring) and ``dq`` (128 packed query rows a block, K/V tiles
-  through the ring).
+  ``dkdv`` (64 keys a block, 32 at head_dim 256; Q/dO sub-tiles through a
+  two-stage ``cp.async`` ring) and ``dq`` (128 packed query rows a block,
+  64 at head_dim 256; K/V tiles through the ring).
 
 ``BWD_LAUNCHES["<route>/<kernel>"]`` counts each kernel's launches. On the
 CPU the same ``Function`` runs :func:`attention_plain` and
-:func:`attention_backward_plain`, at any head_dim but 256. The JAX package
-has no Pallas backward: it differentiates its jnp ``chunked_attention``.
-The ``cuda_core`` backward takes the window. Head_dim 256 (gemma2) has no
-backward yet and raises, and so does a windowed call that the
-``tensor_core`` backward would take: both wait for the gemma2 training
-slice, and no route computes an unwindowed gradient of a windowed call.
+:func:`attention_backward_plain` at any head_dim. The JAX package has no
+Pallas backward: it differentiates its jnp ``chunked_attention``. On the
+card the backward refuses only the head_dims no kernel takes (80 of
+zamba2, 192 of deepseek-v3's MLA); nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -110,7 +109,7 @@ NEG_INF = -1e30
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)  # the decode route's
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128)  # the tensor-core routes', forward and backward (bf16)
+TC_HEAD_DIMS = (64, 128, 256)  # the tensor-core routes', forward and backward (bf16)
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 route's (f32, bf16, f16)
 MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
 DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
@@ -119,7 +118,7 @@ TILE_KEYS = 64  # keys a tile of the decode kernel, and the unit of a split
 MAX_SPLIT_BLOCKS = 640  # decode grid: about one wave of the kernel (5 blocks an SM of 132)
 MAX_SPLITS = 64
 
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # the cuda_core backward's (f32, bf16, f16)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # the cuda_core backward's (f32, bf16, f16)
 TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scratch comes in tiles)
 #: the backward's routes and each one's kernels, in launch order
 BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq"), "cuda_core": ("pre", "dkdv", "dq")}
@@ -311,7 +310,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False) -> str:
     """The kernel a call goes to, from dtype and shape alone: ``decode``
     for a decode-sized call in f32 or bf16 at head_dim 64/128/256,
-    ``tensor_core`` for bf16 at head_dim 64/128, ``f32`` for the rest. A
+    ``tensor_core`` for bf16 at head_dim 64/128/256, ``f32`` for the rest. A
     call that needs a gradient (``grad``) never goes to ``decode``: only
     the other two forwards write the log-sum-exp the backward reads."""
     _, hq, sq, d = q.shape
@@ -325,7 +324,7 @@ def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False) -> str:
 
 def _bwd_route(q: torch.Tensor) -> str:
     """The backward's route, from dtype and shape alone: ``tensor_core``
-    for bf16 at head_dim 64/128, ``cuda_core`` for the rest."""
+    for bf16 at head_dim 64/128/256, ``cuda_core`` for the rest."""
     return "tensor_core" if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS else "cuda_core"
 
 
@@ -411,7 +410,7 @@ def flash_attention(
     kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
-        _check_backward(q, window)
+        _check_backward(q)
         return FlashAttention.apply(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len, int(window))
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **kw)
@@ -489,25 +488,13 @@ def launch_route(
     return (out, lse) if with_lse else out
 
 
-def _check_backward(q: torch.Tensor, window: int = 0) -> None:
-    """Raise where no backward takes the call: head_dim 256 anywhere, and a
-    windowed call the ``tensor_core`` backward would take (the gemma2
-    training slice brings both); on CUDA every head_dim the backward
-    kernels lack (the plain version on the CPU takes the rest)."""
+def _check_backward(q: torch.Tensor) -> None:
+    """Raise where no backward kernel takes the call: on CUDA, a head_dim
+    outside ``BWD_HEAD_DIMS`` (the plain version on the CPU takes any)."""
     d = q.shape[-1]
-    if d == 256:
-        raise NotImplementedError("flash_attention: no backward at head_dim 256; it waits for the gemma2 "
-                                  "training slice")
     if q.device.type != "cpu" and d not in BWD_HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d} "
                                   "(head_dim 80 and 192 wait for the zamba2 and deepseek-v3 slices)")
-    if q.device.type != "cpu" and int(window) > 0 and _bwd_route(q) == "tensor_core":
-        _refuse_tc_window()
-
-
-def _refuse_tc_window() -> None:
-    raise NotImplementedError("flash_attention: the tensor_core backward takes no window yet; it waits for the "
-                              "gemma2 training slice")
 
 
 def attention_backward(
@@ -551,11 +538,11 @@ def launch_backward(
     """Launch a backward route's kernels on CUDA tensors, or raise where
     the route does not take the call: ``route`` defaults to
     :func:`_bwd_route`'s choice; naming one is for measurements that hold
-    the two side by side. ``tensor_core`` (bf16, head_dim 64/128, no
-    window): the ``pre``, ``dkdv`` and ``dq`` kernels of
+    the two side by side. ``tensor_core`` (bf16, head_dim 64/128/256): the
+    ``pre``, ``dkdv`` and ``dq`` kernels of
     ``csrc/flash_attention_bwd_tc.cu``; ``cuda_core`` (f32, bf16 or f16,
-    head_dim 16/32/64/128, any window): the ``pre``, ``dkdv`` and ``dq``
-    kernels of ``csrc/flash_attention_bwd.cu``. Both take strided
+    head_dim 16/32/64/128/256): the ``pre``, ``dkdv`` and ``dq`` kernels of
+    ``csrc/flash_attention_bwd.cu``. Both take a window and strided
     q/k/v/out/dout; ``lse`` is the forward's (:func:`launch_route`
     ``with_lse``). The gradients are laid out ``[B, S, H, D]`` under their
     ``[B, H, S, D]`` views, as the forward's output."""
@@ -568,8 +555,6 @@ def launch_backward(
     if route == "tensor_core" and (q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS):
         raise ValueError(f"flash_attention backward: the tensor_core route takes bfloat16 at head_dim "
                          f"{TC_HEAD_DIMS}, got {q.dtype} at head_dim {d}")
-    if route == "tensor_core" and int(window) > 0:
-        _refuse_tc_window()
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention backward: unsupported device {q.device}")
     _check_backward(q)
@@ -592,7 +577,7 @@ def launch_backward(
     lse = lse.contiguous()
     tensors = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len)
+    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len, max(int(window), 0))
     ptrs = tuple(t.data_ptr() for t in tensors)
     lib = build.library()
     stream = build.stream_ptr(q.device)
@@ -605,8 +590,7 @@ def launch_backward(
         # whole 128-row tiles of the dq kernel
         _, nsub = packed_rows(sq, hq // hkv)
         stats = torch.empty(b * hkv * (nsub + nsub % 2) * 2 * SUB_ROWS, dtype=torch.float32, device=q.device)
-        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail,
-                max(int(window), 0), stream)
+        args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail, stream)
     for kernel in BWD_KERNELS[route]:
         name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
         BWD_LAUNCHES[f"{route}/{kernel}"].add()

@@ -189,11 +189,20 @@ def test_serving_calls_stay_off_the_function():
 
 
 def test_head_dim_256_has_no_backward_yet():
-    q = torch.zeros((1, 2, 4, 256), requires_grad=True)
-    k = torch.zeros((1, 2, 4, 256))
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        fa.flash_attention(q, k, k)
-    fa.flash_attention(q.detach(), k, k)  # serving at head_dim 256 still runs
+    """Head_dim 256 (gemma2) has its backward now: on the CPU the Function
+    runs the plain versions, windowed and softcapped, and its gradients
+    equal autograd's through attention_plain (f32, 2e-5)."""
+    rng = np.random.default_rng(7)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                     for s in ((1, 4, 20, 256), (1, 2, 20, 256), (1, 2, 20, 256), (1, 4, 20, 256)))
+    kw = dict(causal=True, softcap=50.0, window=4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, dout)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+    fa.flash_attention(q, k, v, **kw)  # serving at head_dim 256 still runs
 
 
 def test_kernel_backward_refuses_cpu_tensors():

@@ -48,7 +48,7 @@ ROUTE_CASES = [
     ("test_kernels 8/8 256 d128 f32 softcap", (1, 8, 8, 256, 256, 128, F32), "f32"),
     ("test_kernels 4/1 96x160 d64 bf16", (2, 4, 1, 96, 160, 64, BF16), "tensor_core"),
     ("test_kernels 4/1 96x160 d64 f32", (2, 4, 1, 96, 160, 64, F32), "f32"),
-    ("test_kernels d256 bf16", (1, 2, 2, 384, 384, 256, BF16), "f32"),
+    ("test_kernels d256 bf16", (1, 2, 2, 384, 384, 256, BF16), "tensor_core"),
     ("test_kernels d256 f32", (1, 2, 2, 384, 384, 256, F32), "f32"),
     ("test_kernels 16/4 64 d128 bf16", (1, 16, 4, 64, 64, 128, BF16), "tensor_core"),
     ("test_kernels 16/4 64 d128 f32", (1, 16, 4, 64, 64, 128, F32), "f32"),
@@ -196,7 +196,7 @@ def test_split_kv_in_bf16_within_the_bf16_tolerance():
 @pytest.mark.parametrize("route,shape,err,match", [
     ("decode", (1, 16, 4, 17, 64, 128, BF16), ValueError, "decode route"),
     ("tensor_core", (1, 16, 4, 128, 128, 128, F32), TypeError, "bfloat16"),
-    ("tensor_core", (1, 2, 2, 384, 384, 256, BF16), ValueError, "head_dim"),
+    ("tensor_core", (1, 2, 2, 384, 384, 80, BF16), ValueError, "head_dim"),
     ("f32", (1, 128, 1, 64, 64, 64, F32), ValueError, "Hq/Hkv"),
     ("flash", (1, 4, 2, 8, 8, 64, F32), ValueError, "unknown route"),
     ("decode", (1, 4, 2, 1, 8, 32, F32), ValueError, "head_dim"),
@@ -256,9 +256,10 @@ def test_routes_of_every_dtype_and_head_dim(dtype, d, sq):
     """The forward's and the backward's route from dtype and shape alone,
     and what a call on the card does with them (meta tensors take the CUDA
     branch, so a call the kernels take stops at the device check): head_dim
-    80 and 192 are refused, head_dim 256 has no backward."""
+    80 and 192 are refused, every other head_dim has a forward and a
+    backward on its route."""
     q, k = _meta(2, 8, 2, sq, 200, d, dtype)
-    tc = dtype == BF16 and d in (64, 128)
+    tc = dtype == BF16 and d in (64, 128, 256)
     decode = sq == 1 and dtype in (F32, BF16) and d in (64, 128, 256)
     assert fa._route(q, k) == ("decode" if decode else "tensor_core" if tc else "f32")
     assert fa._route(q, k, grad=True) == ("tensor_core" if tc else "f32")
@@ -272,10 +273,6 @@ def test_routes_of_every_dtype_and_head_dim(dtype, d, sq):
         return
     with pytest.raises(TypeError, match="unsupported device"):
         fa.flash_attention(q.detach(), k.detach(), k.detach())
-    if d == 256:
-        with pytest.raises(NotImplementedError, match="gemma2"):
-            fa.flash_attention(*leaves)
-        return
     with pytest.raises(TypeError, match="unsupported device"):
         fa.flash_attention(*leaves)
     lse = torch.empty(q.shape[:3], dtype=F32, device="meta")

@@ -279,21 +279,18 @@ def test_a_window_that_leaves_a_row_no_key_is_refused():
 @pytest.mark.parametrize("dtype,d,route", [(torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
                                            (torch.float32, 128, "cuda_core"), (torch.bfloat16, 32, "cuda_core")])
 def test_the_tensor_core_backward_refuses_a_window(dtype, d, route):
-    """A windowed call the tensor-core backward would take raises (it
-    waits for the gemma2 training slice); the cuda_core one takes it."""
+    """Both backward routes take a window now: a windowed call passes the
+    checks on its route (meta tensors take the CUDA branch) and stops only
+    at the device check, through the Function and named."""
     q = torch.empty((2, 8, 64, d), dtype=dtype, device="meta")
     k = torch.empty((2, 2, 64, d), dtype=dtype, device="meta")
     assert fa._bwd_route(q) == route
-    if route == "tensor_core":
-        with pytest.raises(NotImplementedError, match="gemma2 training slice"):
-            fa._check_backward(q, window=8)
-        cpu = [torch.zeros(t.shape, dtype=dtype) for t in (q, k, k, q)]
-        lse = torch.zeros((2, 8, 64))
-        with pytest.raises(NotImplementedError, match="tensor_core backward takes no window"):
-            fa.launch_backward(*cpu[:3], cpu[3], lse, cpu[3], window=8, route="tensor_core")
-    else:
-        fa._check_backward(q, window=8)
-    fa._check_backward(q, window=0)  # unwindowed: every route
+    fa._check_backward(q)
+    lse = torch.empty((2, 8, 64), device="meta")
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.launch_backward(q, k, k, q, lse, q, window=8, route=route)
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.flash_attention(q.requires_grad_(), k, k, window=8)
 
 
 # -- the transfer path ---------------------------------------------------------------------

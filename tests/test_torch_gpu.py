@@ -419,11 +419,54 @@ def test_decode_route_chunks(dev, d, shape, dtype):
 
 
 def test_f32_route_still_takes_head_dim_256_in_bf16(dev):
+    """Named: flash_attention sends bf16 at head_dim 256 to tensor_core."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = _qkv(dev, 5, 1, 4, 2, 200, 200, 256, torch.bfloat16)
-    got = _routed(fa, "f32", lambda: fa.flash_attention(q, k, v))
+    assert fa._route(q, k) == "tensor_core"
+    got = _routed(fa, "f32", lambda: fa.launch_route("f32", q, k, v))
     _flash_close(got, fa.attention_plain(q, k, v), torch.bfloat16)
+
+
+#: the tensor-core forward at head_dim 256 (gemma2: 8/4 heads, softcap 50,
+#: window 4096): (b, hq, hkv, sq, sk, causal, q_offset, kv_len, window,
+#: softcap); with kv_len < Sk the slots past it hold NaN in K and V
+_TC256_CASES = [
+    (2, 8, 4, 300, 300, True, 0, None, 0, 50.0),  # G 2, unwindowed, softcap
+    (1, 8, 4, 600, 600, True, 0, None, 8, 50.0),  # a window inside one tile
+    (1, 8, 4, 400, 400, True, 0, None, 64, 0.0),
+    (1, 8, 4, 700, 700, True, 0, None, 100, 50.0),  # across tiles
+    (1, 8, 4, 4200, 4200, True, 0, None, 4096, 50.0),  # gemma2's window, biting past 4096
+    (1, 56, 8, 129, 400, True, 200, 329, 64, 0.0),  # G 7, q_offset, NaN past kv_len
+    (2, 8, 4, 130, 500, False, 0, 450, 0, 0.0),  # not causal, NaN past kv_len
+    (1, 8, 4, 77, 300, True, 200, 277, 100, 50.0),  # an offset chunk
+]
+
+
+@pytest.mark.parametrize("case", _TC256_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_tensor_core_forward_at_head_dim_256(dev, case):
+    """gemma2's prefill route: the tensor-core forward at head_dim 256,
+    with and without the log-sum-exp, against the plain version with the
+    dead slots zeroed."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, causal, q_offset, kv_len, window, cap = case
+    q, k, v = _qkv(dev, sq + window, b, hq, hkv, sq, sk, 256, torch.bfloat16)
+    kz, vz = k.clone(), v.clone()
+    if kv_len is not None:
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+        kz[:, :, kv_len:] = 0
+        vz[:, :, kv_len:] = 0
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, softcap=cap)
+    if sq * hq // hkv > fa.DECODE_ROWS:
+        assert fa._route(q, k) == "tensor_core"
+    got = _routed(fa, "tensor_core", lambda: fa.launch_route("tensor_core", q, k, v, **kw))
+    assert torch.isfinite(got).all()
+    _flash_close(got, fa.attention_plain(q, kz, vz, **kw), torch.bfloat16)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("route", ["tensor_core", "decode"])
@@ -495,6 +538,8 @@ _BWD_CASES = [
     (2, 8, 2, 100, 160, 128, False, 0.0, 0, 120),  # kv_len < Sk, not causal
     (1, 8, 2, 64, 300, 128, True, 0.0, 200, 264),  # q_offset > 0, kv_len < Sk
     (1, 8, 8, 96, 96, 64, True, 30.0, 0, None),  # softcap
+    (2, 8, 4, 300, 300, 256, True, 50.0, 0, None),  # head_dim 256 (gemma2: G 2, softcap 50)
+    (1, 8, 2, 64, 300, 256, True, 0.0, 200, 264),  # head_dim 256, q_offset > 0, kv_len < Sk
 ]
 
 
@@ -644,7 +689,7 @@ def test_f32_route_tiling(dev, case, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("case", _TILE_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_cuda_core_backward_tiling(dev, case, d, dtype):
     """The cuda_core backward's three kernels, named, at every head_dim and
@@ -689,9 +734,9 @@ def test_gradient_never_takes_the_decode_route(dev):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = _routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves, q_offset=63))
     assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        q256, k256, v256 = (t.requires_grad_() for t in _qkv(dev, 3, 1, 2, 2, 80, 80, 256, torch.bfloat16))
-        fa.flash_attention(q256, k256, v256)
+    with pytest.raises(NotImplementedError, match="zamba2"):  # head_dim 80: no backward kernel takes it
+        q80, k80, v80 = (t.requires_grad_() for t in _qkv(dev, 3, 1, 2, 2, 80, 80, 80, torch.bfloat16))
+        fa.flash_attention(q80, k80, v80)
 
 
 def test_grpo_step_gradients_on_the_card(dev):
@@ -890,9 +935,12 @@ def test_windowed_routes_equal_plain(dev, case, dtype):
             torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
 
 
+_BWD_WINDOW_CASES = [c for c in _WINDOW_CASES if c[9] > 1]
+_BWD_WINDOW_IDS = [i for c, i in zip(_WINDOW_CASES, _WINDOW_IDS) if c[9] > 1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("case", [c for c in _WINDOW_CASES if c[5] <= 128 and c[9] > 1],
-                         ids=[i for c, i in zip(_WINDOW_CASES, _WINDOW_IDS) if c[5] <= 128 and c[9] > 1])
+@pytest.mark.parametrize("case", _BWD_WINDOW_CASES, ids=_BWD_WINDOW_IDS)
 def test_windowed_cuda_core_backward(dev, case, dtype):
     """The cuda_core backward's three kernels with a window, against
     autograd through the plain attention, and bit-equal on a rerun (not
@@ -910,22 +958,38 @@ def test_windowed_cuda_core_backward(dev, case, dtype):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-def test_tensor_core_backward_refuses_a_window(dev):
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", _BWD_WINDOW_CASES, ids=_BWD_WINDOW_IDS)
+def test_windowed_tensor_core_backward(dev, case, d):
+    """The tensor_core backward's three kernels with a window, at each
+    head_dim they take, through the Function (forward on tensor_core),
+    against autograd through the plain attention, and bit-equal on a
+    rerun."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = _qkv(dev, 9, 2, 8, 4, 128, 128, 128, torch.bfloat16)
-    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
-    with pytest.raises(NotImplementedError, match="gemma2 training slice"):
-        fa.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), window=8)
-    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, window=8)
-    with pytest.raises(NotImplementedError, match="takes no window"):
-        fa.launch_backward(q, k, v, out, lse, q, window=8, route="tensor_core")
-    assert before == {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    case = case[:5] + (d,) + case[6:]
+    (q, k, v), (kz, vz), kw = _window_inputs(dev, case, torch.bfloat16)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev).to(torch.bfloat16)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+        out = _routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves, **kw))
+        got = torch.autograd.grad(out, leaves, dout)
+        assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "tensor_core")
+        return got
+
+    got = grads()
+    again = grads()
+    ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    _check_grads(got, want, torch.bfloat16, (kw["kv_len"],))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 def test_gemma2_serves_across_the_window_on_the_card(dev):
     """A small gemma2 (window 8, softcaps, tied, head_dim 256 as
-    published) in bf16 on the card: prefill on the f32 route, decode on
+    published) in bf16 on the card: prefill on the tensor_core route, decode on
     the decode route, against a forward with the plain attention."""
     import dataclasses
 
@@ -940,14 +1004,14 @@ def test_gemma2_serves_across_the_window_on_the_card(dev):
     model, ref = build_model(cfg), build_model(cfg, attention=fa.attention_plain)
     toks = torch.randint(0, cfg.vocab, (2, 60), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
-    logits, cache, n = model.prefill(params, {"tokens": toks[:, :40]}, max_len=60)  # 80 packed rows: f32
+    logits, cache, n = model.prefill(params, {"tokens": toks[:, :40]}, max_len=60)  # 80 packed rows: tensor_core
     steps = [logits[:, -1]]
     for t in range(40, 59):
         logits, cache = model.decode(params, cache, toks[:, t : t + 1], n)
         n += 1
         steps.append(logits[:, -1])
     launched = {r: c.value - before[r] for r, c in fa.ROUTE_LAUNCHES.items()}
-    assert launched == {"f32": 4, "decode": 4 * 19, "tensor_core": 0}
+    assert launched == {"f32": 0, "decode": 4 * 19, "tensor_core": 4}
     want = ref.forward(params, {"tokens": toks})[:, 39:59]
     got = torch.stack(steps, 1)
     assert torch.isfinite(got).all() and float((got - want).abs().max()) < 0.5
