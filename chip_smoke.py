@@ -42,7 +42,13 @@ lines, any failure exiting non-zero:
    and without, and its windowed backward at [2, 8/4, 4672, 256] in bf16
    (tensor_core, beside cuda_core) and f32 (cuda_core), each beside the
    plain version, the bound and SDPA without the softcap (its backend
-   named).
+   named). dbrx-132b's GQA group of 6 on the routes phase 11 takes: the
+   tensor_core forward at q [4,48,512,128], k/v [4,8,512,128], the decode
+   route at q [4,48,1,128] against 528 keys and the tensor_core backward
+   at [4,48/8,576,128], each against its plain version and timed beside
+   it and SDPA. ``checksum_words`` and ``quantize_rows`` on a bf16 tensor
+   of more than 2^31 elements (dbrx's w_gate at 4 layers, [4,16,6144,10752]),
+   bit-equal to their plain versions taken in pieces.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -135,7 +141,19 @@ lines, any failure exiting non-zero:
    backward kernel with the window passed on the even layers, and nothing
    on the f32, decode or CUDA-core kernels.
 
-A ``kernels`` JSON line (launches over phases 3 to 10; flash
+11. Routed experts: dbrx-132b at its published widths (16 experts, top-4,
+   d_expert 10752), bf16. Served as in phase 9 at 4 of its 40 layers (4 x
+   (512 + 16); 4 tensor-core and 64 decode-route launches a round), each
+   round held to phase 5's bounds against a replay of its calls with the
+   plain attention (an expert's capacity follows a call's token count:
+   the replay's calls route as many tokens as the served ones), the
+   teacher-forced check held too where neither side dropped a pair; the
+   pairs routed and dropped over capacity, and the token rows whose
+   expert set differs between the two, printed. Then phase 6's RL loop
+   at 1 layer, 2 prompts x 2 responses of 512 + 64, its gradient gates
+   taken 2.5 GB of reference gradients at a time.
+
+A ``kernels`` JSON line (launches over phases 3 to 11; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -1320,16 +1338,35 @@ def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
 
+#: elements a gradient comparison takes at a time (f32 temporaries of
+#: 512 MB: a dbrx layer's expert stack is 1.06 G elements)
+GRAD_SLICE = 1 << 27
+
+
+def _slices(got, want):
+    a, b = got.reshape(-1), want.reshape(-1)
+    for i in range(0, a.numel(), GRAD_SLICE):
+        yield a[i : i + GRAD_SLICE].float(), b[i : i + GRAD_SLICE].float()
+
+
 def grad_err(torch, got, want) -> float:
     """max |got - want| over max |want|: the norm the backward's gradients
     are held to, tests/test_kernels.py's tolerance taken relative to each
-    gradient's largest value (a gradient has no scale of its own)."""
-    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+    gradient's largest value (a gradient has no scale of its own). Taken a
+    slice at a time, so no f32 copy of a whole gradient is made."""
+    diff = scale = 0.0
+    for a, b in _slices(got, want):
+        diff, scale = max(diff, float((a - b).abs().max())), max(scale, float(b.abs().max()))
+    return diff / max(scale, 1e-30)
 
 
 def rel_l2(torch, got, want) -> float:
-    """|got - want| over |want| in the L2 norm."""
-    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+    """|got - want| over |want| in the L2 norm (sums of squares a slice at
+    a time)."""
+    num = den = 0.0
+    for a, b in _slices(got, want):
+        num, den = num + float((a - b).square().sum()), den + float(b.square().sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
 
 
 def flash_backward_checks(torch, dev, bw: float) -> dict:
@@ -1603,6 +1640,174 @@ def gemma2_backward_times(torch, fa, rand, flush, bw) -> dict:
     return out
 
 
+#: dbrx-132b's attention at phase 11's shapes: 48 query and 8 KV heads of
+#: 128 (G = 6); the GRPO step's 2 x 2 sequences of 512 + 64
+DBRX_HEADS = (48, 8)
+DBRX_TRAIN_B, DBRX_TRAIN_S = 4, 576
+
+
+def dbrx_attention_checks(torch, dev, bw: float) -> dict:
+    """dbrx's GQA group of 6 on the three routes phase 11 takes, each held
+    to its plain version at phase 2's tolerances and timed with the L2
+    cold beside the plain version and SDPA (``enable_gqa``), with the
+    bound: the tensor_core forward at the served prefill (q [4,48,512,128],
+    k/v [4,8,512,128], causal), the decode route at the last served decode
+    step (q [4,48,1,128] against 528 keys) and the tensor_core backward at
+    the GRPO step's [4,48/8,576,128] (through the autograd Function, twice
+    for bit-equal gradients, against autograd of the plain attention)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 110)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    hq, hkv = DBRX_HEADS
+    tol = FLASH_TOL["bfloat16"]
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    total = DBRX_PROMPT + DBRX_GEN
+    for label, route, sq, kw, sdpa_kw in (
+        ("prefill", "tensor_core", DBRX_PROMPT, dict(causal=True), dict(is_causal=True)),
+        ("decode", "decode", 1, dict(causal=True, q_offset=total - 1, kv_len=total), {}),
+    ):
+        sk = kw.get("kv_len", sq)
+        q, k, v = rand((DBRX_B, hq, sq, 128)), rand((DBRX_B, hkv, sk, 128)), rand((DBRX_B, hkv, sk, 128))
+        check(fa._route(q, k) == route, f"dbrx {label} routed to {fa._route(q, k)}")
+        before = fa.ROUTE_LAUNCHES[route].value
+        got = fa.flash_attention(q, k, v, **kw).float()
+        check(fa.ROUTE_LAUNCHES[route].value == before + 1, f"{route} not launched on dbrx {label}")
+        want = fa.attention_plain(q, k, v, **kw).float()
+        diff = (got - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal"
+        emit("flash_check", case=f"dbrx {label} G 6 {shape}", route=route, max_abs_err=float(diff.max()), tol=tol,
+             err_over_tol=ratio)
+        check(ratio <= 1.0 and torch.isfinite(got).all().item(), f"{route} != plain version on dbrx {label}")
+        calls = {
+            "kernel": lambda: fa.flash_attention(q, k, v, **kw),
+            "plain": lambda: fa.attention_plain(q, k, v, **kw),
+            "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa_kw),
+        }
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        bound, by, flops, nbytes = flash_bound_ms(q, k, sk, True, kw.get("q_offset", 0), bw)
+        out[label] = dict(route=route, shape=shape, ms=cold["kernel"], plain_ms=cold["plain"],
+                          library_ms=cold["sdpa"], bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                          max_abs_err=float(diff.max()), err_over_tol=ratio,
+                          sdpa_max_abs_diff=float((calls["sdpa"]().float() - got).abs().max()))
+        emit("flash_dbrx_times", case=label, **out[label])
+        del q, k, v, got, want, diff, calls
+
+    q = rand((DBRX_TRAIN_B, hq, DBRX_TRAIN_S, 128))
+    k, v = rand((DBRX_TRAIN_B, hkv, DBRX_TRAIN_S, 128)), rand((DBRX_TRAIN_B, hkv, DBRX_TRAIN_S, 128))
+    dout = rand(q.shape)
+    route, bwd_route = fa._route(q, k, grad=True), fa._bwd_route(q)
+    check((route, bwd_route) == ("tensor_core", "tensor_core"), f"dbrx's step routed to {route}/{bwd_route}")
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True), leaves, dout)
+        check(all(fa.BWD_LAUNCHES[f"tensor_core/{n}"].value == before[f"tensor_core/{n}"] + 1
+                  for n in fa.BWD_KERNELS["tensor_core"]), "tensor_core backward not launched on dbrx's step")
+        return got
+
+    got, again = grads(), grads()
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, causal=True), ref, dout)
+    errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    shape = f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal"
+    emit("flash_bwd_check", case=f"dbrx step G 6 {shape}", forward_route=route, backward_route=bwd_route,
+         rel_err=errs, tol=tol, finite=finite, bit_equal_rerun=same)
+    check(finite and max(errs.values()) <= tol and same, "tensor_core backward != autograd of the plain version "
+          "on dbrx's step, or two runs differ")
+    o, lse = fa.launch_route(route, q, k, v, with_lse=True, causal=True)
+    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True, enable_gqa=True)
+    calls = {
+        "kernel": lambda: fa.launch_backward(q, k, v, o, lse, dout, causal=True, route="tensor_core"),
+        "plain": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True),
+        "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True),
+    }
+    cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+    bound, by, flops, nbytes = bwd_bound_ms(q, k, DBRX_TRAIN_S, True, 0, bw, BF16_TFLOPS)
+    out["backward"] = dict(route="tensor_core", shape=shape, ms=cold["kernel"], plain_ms=cold["plain"],
+                           library_ms=cold["sdpa"], bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                           rel_err_vs_plain=errs, err_over_tol=max(errs.values()) / tol,
+                           max_abs_err=max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)),
+                           sdpa_rel_diff=max(grad_err(torch, a, w) for a, w in zip(got, calls["sdpa"]())))
+    emit("flash_dbrx_times", case="backward", **out["backward"])
+    del q, k, v, dout, got, again, ref, want, o, lse, sq_, sk_, sv_, sdpa_out, calls, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
+#: phase 11's 4 layers, [4, 16, 6144, 10752] in bf16 (4.23 G elements, 8.46 GB)
+BIG_SHAPE = (4, 16, 6144, 10752)
+#: bytes of the plain checksum's pieces: a multiple of 2^16 words, so every
+#: piece's words carry the weights they carry in the whole buffer and the
+#: pieces' sums add up to the whole's
+PLAIN_PIECE_BYTES = 256 << 20
+
+
+def big_tensor_checks(torch, dev, bw: float) -> dict:
+    """``checksum_words`` and ``quantize_rows`` on a bf16 tensor of more
+    than 2^31 elements (every index past 2^31 reached in 64 bits), each
+    held bit-equal to its plain version: the checksum of the whole buffer
+    against the plain version's sums over 256 MiB pieces folded mod 2^32,
+    and its last 64 MiB (a view that starts past 2^32 bytes) against the
+    plain version of the same view; every int8 row and scale against the
+    plain version a 2^27-element piece at a time, its last rows among
+    them. Each timed once on the whole tensor beside its bytes bound."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import quant as qk
+
+    n = math.prod(BIG_SHAPE)
+    check(n > 2**31, "the big tensor is not past 2^31 elements")
+    g = torch.Generator(device=dev).manual_seed(SEED + 111)
+    x = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    for i in range(0, n, GRAD_SLICE):
+        x[i : i + GRAD_SLICE].normal_(generator=g).mul_(0.0128)
+    raw = x.view(torch.uint8)
+    out = {}
+
+    got = ck.checksum_words(raw).to(torch.int64) & MASK32
+    want = torch.zeros(2, dtype=torch.int64, device=dev)
+    for i in range(0, raw.numel(), PLAIN_PIECE_BYTES):
+        want = (want + ck.checksum_words_plain(raw[i : i + PLAIN_PIECE_BYTES])) & MASK32
+    tail = raw[-(64 << 20):]
+    tail_equal = torch.equal(ck.checksum_words(tail).to(torch.int64) & MASK32, ck.checksum_words_plain(tail))
+    ms = time_ms(torch, lambda: ck.checksum_words(raw), reps=3, warmup=1)
+    out["checksum"] = dict(shape=f"bfloat16{list(BIG_SHAPE)} as uint8[{raw.numel()}]", equal=torch.equal(got, want),
+                           last_64_MiB_equal=tail_equal, ms=ms, bound_ms=raw.numel() / bw * 1e3)
+    emit("checksum_check", case="past 2^31 elements", **out["checksum"])
+    check(out["checksum"]["equal"] and tail_equal, "checksum kernel != plain version past 2^31 elements")
+
+    q, scales = qk.quantize_rows(x)
+    equal, pieces = True, 0
+    for i in range(0, n, GRAD_SLICE):
+        q2, s2 = qk.quantize_rows_plain(x[i : i + GRAD_SLICE])
+        r = i // qk.ROW_LEN
+        equal &= torch.equal(q[i : i + GRAD_SLICE], q2) and torch.equal(
+            scales[r : r + s2.numel()].view(torch.int32), s2.view(torch.int32))
+        pieces += 1
+        del q2, s2
+    ms = time_ms(torch, lambda: qk.quantize_rows(x), reps=3, warmup=1)
+    rows = n // qk.ROW_LEN
+    out["quantize_rows"] = dict(shape=f"bfloat16{list(BIG_SHAPE)}", equal=bool(equal), pieces=pieces, ms=ms,
+                                bound_ms=(2 * n + n + 4 * rows) / bw * 1e3)
+    emit("quant_check", case="past 2^31 elements", **out["quantize_rows"])
+    check(equal, "quant kernel != plain version past 2^31 elements")
+    del x, raw, q, scales
+    torch.cuda.empty_cache()
+    return out
+
+
 #: bound on |port - reference| for logits and logprobs at full width in
 #: bf16 (see PERF.md): the rollout's prefill/decode (flash kernel, decode
 #: matmuls of one token a row) against a teacher-forced forward (plain
@@ -1610,10 +1815,12 @@ def gemma2_backward_times(torch, fa, rand, flush, bw) -> dict:
 LOGIT_MAX_ABS, LOGIT_MEAN_ABS = 0.5, 0.05
 
 
-def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check", chunk: int = 4) -> dict:
+def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check", chunk: int = 4,
+                       gate: bool = True) -> dict:
     """A served round's logprobs and every step's logits against a
     teacher-forced forward of the whole sequence on ``weights`` with the
-    plain attention (``reference``), ``chunk`` sequences at a time."""
+    plain attention (``reference``), ``chunk`` sequences at a time; held
+    to the ``LOGIT_*`` bounds unless ``gate`` is off."""
     seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
     plen = seqs.shape[1] - steps.shape[1]
     lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
@@ -1631,12 +1838,169 @@ def check_served_round(torch, reference, weights, rec, version, tag: str = "serv
     res = dict(version=version, logprob_max_abs_err=lp_err, logit_max_abs_err=logit_max,
                logit_mean_abs_err=logit_mean, logit_abs_max=float(steps.abs().max()),
                all_finite=bool(torch.isfinite(steps).all()), mean_logprob=float(lps.mean()))
-    emit(tag, **res)
+    if gate:
+        emit(tag, **res)
+        check_gates(res, version)
+    return res
+
+
+def check_gates(res: dict, version: int) -> None:
     check(res["all_finite"], f"v{version}: non-finite logits")
+    lp_err, logit_max, logit_mean = res["logprob_max_abs_err"], res["logit_max_abs_err"], res["logit_mean_abs_err"]
     check(lp_err <= LOGIT_MAX_ABS, f"v{version}: logprob error {lp_err} > {LOGIT_MAX_ABS}")
     check(logit_max <= LOGIT_MAX_ABS, f"v{version}: logit error {logit_max} > {LOGIT_MAX_ABS}")
     check(logit_mean <= LOGIT_MEAN_ABS, f"v{version}: mean logit error {logit_mean} > {LOGIT_MEAN_ABS}")
+
+
+def replay_round(torch, reference, weights, rec, prompt_len: int):
+    """The served round's calls again with ``reference`` (the plain
+    attention) on ``weights``: the prefill of its prompts, then one decode
+    step a sampled token, as ``sample_responses`` made them; the logits
+    each token was drawn from, ``[B, gen, vocab]`` f32."""
+    seqs = rec["tokens"]
+    steps = []
+    with torch.no_grad():
+        logits, cache, n = reference.prefill(weights, {"tokens": seqs[:, :prompt_len]}, max_len=seqs.shape[1])
+        for t in range(prompt_len, seqs.shape[1]):
+            steps.append(logits[:, -1].float())
+            logits, cache = reference.decode(weights, cache, seqs[:, t : t + 1], n)
+            n += 1
+    return torch.stack(steps, 1)
+
+
+class RecordedRoutes:
+    """Within ``with``: every ``moe_apply`` call's experts (``top_e``) and
+    router logits (f32), in call order, recorded where ``blocks.route``
+    returns them, and the (token, slot) pairs routed and dropped over
+    capacity (``blocks.DROPPED``, set to 0 on entry). With ``pins`` (an
+    earlier record's experts, one entry a call, taken in turn) each call
+    follows the pinned experts instead of its own top-k, weighted by its
+    own probabilities."""
+
+    def __init__(self, pins=None):
+        self.pins = pins
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import blocks
+
+        self.blocks, self.route, self.calls, self.logits = blocks, blocks.route, [], []
+
+        def recording(cfg, p, flat, experts=None):
+            if self.pins is not None:
+                experts = self.pins[len(self.calls) % len(self.pins)]
+            top_p, top_e = self.route(cfg, p, flat, experts)
+            with torch.no_grad():
+                self.logits.append((flat.detach() @ p["router"].detach()).float())
+            self.calls.append(top_e)
+            return top_p, top_e
+
+        blocks.DROPPED.reset()
+        blocks.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.route = self.route
+        self.routed, self.dropped = self.blocks.DROPPED.routed, self.blocks.DROPPED.dropped
+
+    def flips(self, other: "RecordedRoutes") -> dict:
+        """This record's expert sets against ``other``'s router logits on
+        the same calls (``other`` pinned to this record, so both saw the
+        same tokens routed alike): the token rows whose experts are not
+        ``other``'s own top-k, and whether each is explained by the two
+        runs' router-logit difference: the row's margin (``other``'s k-th
+        largest logit less its least logit among this record's experts)
+        at most twice the row's largest |logit difference|, so a tie
+        within the difference decided it. Also the largest |difference|."""
+        check(len(self.calls) <= len(other.calls), f"{len(self.calls)} MoE calls against {len(other.calls)}")
+        rows = flipped = unexplained = 0
+        worst_gap, worst_margin = 0.0, 0.0
+        for top_e, mine, theirs in zip(self.calls, self.logits, other.logits):
+            k = top_e.shape[-1]
+            gap = (mine - theirs).abs().amax(-1)
+            kth = theirs.topk(k, dim=-1).values[:, -1]
+            margin = kth - theirs.gather(-1, top_e).amin(-1)
+            own = (top_e.sort(-1).values != theirs.topk(k, dim=-1).indices.sort(-1).values).any(-1)
+            rows += top_e.shape[0]
+            flipped += int(own.sum())
+            unexplained += int((own & (margin > 2 * gap + 1e-6)).sum())
+            worst_gap = max(worst_gap, float(gap.max()))
+            worst_margin = max(worst_margin, float(margin.max()))
+        return dict(token_rows=rows, flipped_rows=flipped, unexplained_rows=unexplained,
+                    router_logit_max_abs_diff=worst_gap, flip_margin_max=worst_margin)
+
+
+def check_moe_round(torch, reference, weights, rec, version, served: RecordedRoutes, *, prompt_len: int,
+                    tag: str, chunk: int = 4) -> dict:
+    """A served round of a MoE model against a replay of its calls with the
+    plain attention (``replay_round``) that follows the served routing.
+    Two discrete choices would otherwise part the runs on noise: an
+    expert's capacity follows each call's token count (a teacher-forced
+    forward of the whole sequences routes more tokens at a larger capacity
+    and drops other pairs), and a token whose router logits nearly tie
+    picks its experts by the last bits (at random weights the tokens'
+    router logits crowd together, PERF.md section 6). So the replay routes
+    as many tokens a call and takes the served experts, weighted by its
+    own probabilities: the logprobs and every step's logits are held to
+    phase 5's ``LOGIT_*`` bounds, the router logits of the two to
+    ``LOGIT_MAX_ABS``, both must drop the same number of pairs, and every
+    token row whose served experts are not the replay's own top-k must be
+    one whose margin the router-logit difference explains
+    (``RecordedRoutes.flips``). The teacher-forced check
+    (``check_served_round``) is held too where the served round and the
+    forward both dropped nothing, and printed as not held otherwise."""
+    seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
+    with RecordedRoutes(pins=served.calls) as replayed:
+        ref = replay_round(torch, reference, weights, rec, prompt_len)
+    check(len(replayed.calls) == len(served.calls), f"v{version}: the replay made {len(replayed.calls)} MoE calls, "
+          f"the served round {len(served.calls)}")
+    lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[:, prompt_len:, None])[..., 0]
+    d = (steps - ref).abs()
+    res = dict(version=version, reference="replay of the served calls and routing, plain attention",
+               logprob_max_abs_err=float((lps - lp_ref).abs().max()), logit_max_abs_err=float(d.max()),
+               logit_mean_abs_err=float(d.double().mean()), logit_abs_max=float(steps.abs().max()),
+               all_finite=bool(torch.isfinite(steps).all()), mean_logprob=float(lps.mean()),
+               moe_calls=len(served.calls), routed_pairs=served.routed, dropped_pairs_served=served.dropped,
+               dropped_pairs_replay=replayed.dropped, routing=served.flips(replayed))
+    del ref, lp_ref, d
+    with RecordedRoutes() as forward:
+        tf = check_served_round(torch, reference, weights, rec, version, tag=f"{tag} teacher-forced", chunk=chunk,
+                                gate=False)
+    res["teacher_forced"] = dict(tf, dropped_pairs=forward.dropped,
+                                 held=served.dropped == 0 and forward.dropped == 0)
+    emit(tag, **res)
+    check_gates(res, version)
+    routing = res["routing"]
+    check(routing["router_logit_max_abs_diff"] <= LOGIT_MAX_ABS,
+          f"v{version}: router logits {routing['router_logit_max_abs_diff']} apart from the replay's")
+    check(routing["unexplained_rows"] == 0, f"v{version}: {routing['unexplained_rows']} token rows took experts "
+          "the router-logit difference does not explain")
+    check(res["dropped_pairs_served"] == res["dropped_pairs_replay"],
+          f"v{version}: the replay, routed alike, dropped {res['dropped_pairs_replay']} pairs, "
+          f"the served round {res['dropped_pairs_served']}")
+    if res["teacher_forced"]["held"]:
+        check_gates(tf, version)
     return res
+
+
+def routes_of(cfg, pins=None):
+    """``RecordedRoutes`` (following ``pins``) for a MoE model, else a
+    context that records nothing."""
+    import contextlib
+
+    return RecordedRoutes(pins) if cfg.moe is not None else contextlib.nullcontext()
+
+
+def check_round(torch, cfg, reference, weights, rec, version, served, *, tag: str, chunk: int = 4) -> dict:
+    """A served round held to phase 5's gates: against a replay of its
+    calls for a MoE model (``check_moe_round``), else against a
+    teacher-forced forward (``check_served_round``)."""
+    if cfg.moe is None:
+        return check_served_round(torch, reference, weights, rec, version, tag=tag, chunk=chunk)
+    prompt_len = rec["tokens"].shape[1] - rec["step_logits"].shape[1]
+    return check_moe_round(torch, reference, weights, rec, version, served, prompt_len=prompt_len, tag=tag,
+                           chunk=chunk)
 
 
 def device_profile(torch, fn) -> dict:
@@ -1688,7 +2052,7 @@ def kernel_class(name: str) -> str:
 
 
 def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, gen_len: int, want_route: dict,
-                     label: str, seed: int, ref_batch: int = 4, init=None) -> dict:
+                     label: str, seed: int, ref_batch: int = 4, init=None, delta_base: bool = True) -> dict:
     """``cfg`` at its published widths in bf16, served from a TensorHub
     replica: a trainer (dc0) publishes v0, a RolloutWorker (dc0, raw)
     replicates and answers round 0 (``batch`` requests of ``prompt_len``
@@ -1700,8 +2064,9 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
     the trainer's weights (``ref_batch`` sequences at a time), round 1
     apart from round 0, and ``want_route`` flash launches by route a round.
     ``init`` may rescale the seeded weights in place before they are
-    registered. Returns the worker, the launches (read right after the
-    rounds), the timings and the checks; then the prefill alone is timed."""
+    registered; ``delta_base`` is the hub's (``TensorHubClient``).
+    Returns the worker, the launches (read right after the rounds), the
+    timings and the checks; then the prefill alone is timed."""
     from repro_torch.core import ReferenceServer, TensorHubClient
     from repro_torch.data.synthetic import PromptSet
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, attention_plain
@@ -1713,7 +2078,7 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
     torch.cuda.reset_peak_memory_stats(dev)
     for c in [*counters.values(), *ROUTE_LAUNCHES.values()]:
         c.reset()
-    hub = TensorHubClient(ReferenceServer(), device=dev)
+    hub = TensorHubClient(ReferenceServer(), device=dev, delta_base=delta_base)
     trainer = hub.open("actor", "trainer", 1, 0, datacenter="dc0")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), torch.bfloat16, dev)
@@ -1766,7 +2131,8 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
             equal_to_trainer("after update")
         before = {k: c.value for k, c in counters.items()}
         before_route = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
-        rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
+        with routes_of(cfg) as routing:
+            rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
         n = flash.value - before["flash_attention"]
         by_route = {r: c.value - before_route[r] for r, c in ROUTE_LAUNCHES.items()}
         check(n == per_round, f"{label} round {step}: {n} flash launches, want {per_round}")
@@ -1776,9 +2142,9 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
                            flash_launches_by_route=by_route,
                            generated_tokens=batch * gen_len))
         mid = {k: c.value for k, c in counters.items()}
-        checks.append(check_served_round(torch, reference, trainer.store.tensors(), rec, step,
-                                         tag="serve_check" if label == "llama3-8b" else f"serve_check {label}",
-                                         chunk=ref_batch))
+        checks.append(check_round(torch, cfg, reference, trainer.store.tensors(), rec, step, routing,
+                                  tag="serve_check" if label == "llama3-8b" else f"serve_check {label}",
+                                  chunk=ref_batch))
         check(mid == {k: c.value for k, c in counters.items()}, f"{label}: the checks launched a kernel")
         if step == 0:
             first0 = rec["step_logits"][:, 0].clone()  # the prompts' next-token logits under v0
@@ -1897,8 +2263,34 @@ GRAD_TOL_PLAIN = 5e-2
 GRAD_TOL_BWD = 2e-2
 
 
+def grads_in_parts(torch, loss_fn, params, batch, budget):
+    """``value_and_grad`` of ``loss_fn`` for a part of the tensors at a
+    time, in registration order: yields ``(gradients of the part,
+    metrics)``, each part's gradients at most ``budget`` bytes (a tensor
+    larger than that alone; ``None``: every tensor at once). The other
+    tensors take no gradient, so autograd computes none for them; the
+    caller compares a part and drops it before the next is made."""
+    parts, part, size = [], [], 0
+    for n, p in params.items():
+        nbytes = p.numel() * p.element_size()
+        if part and budget is not None and size + nbytes > budget:
+            parts.append(part)
+            part, size = [], 0
+        part.append(n)
+        size += nbytes
+    parts.append(part)
+    for names in parts:
+        leaves = {n: p.detach().requires_grad_(n in names) for n, p in params.items()}
+        with torch.enable_grad():
+            loss, metrics = loss_fn(leaves, batch)
+            grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
+        del loss, leaves
+        yield grads, {k: v.detach() for k, v in metrics.items()}
+        del grads
+
+
 def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, group_size: int = 4,
-            init=None) -> dict:
+            init=None, grad_budget=None, delta_base: bool = True) -> dict:
     """Paper Fig. 4 at a config's published widths in bf16 (llama3-8b cut
     to 4 layers unless ``cfg`` is given): a TrainerWorker publishes v0
     (dc0); a RolloutWorker (dc0, raw) replicates it and serves round 0
@@ -1909,7 +2301,12 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     1. Every layer's attention in the step must get its window (the
     forward and the backward are recorded as they are called). ``init``
     may rescale the seeded weights in place before the trainer registers
-    them. Returns the kernels' launches on that path."""
+    them. The gradient gates compare ``grad_budget`` bytes of reference
+    gradients at a time (``grads_in_parts``; all at once by default): the
+    reference step runs after the step, on the rollout's v0 replica, bit
+    for bit the trainer's v0. A MoE model's served rounds are held against
+    replays of their calls (``check_moe_round``); ``delta_base`` is the
+    hub's. Returns the kernels' launches on that path."""
     import numpy as np
 
     from repro_torch.configs.llama3_8b import CONFIG
@@ -1921,7 +2318,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     from repro_torch.models.lm import _layer_windows
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker, TrainerWorker
-    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+    from repro_torch.training.steps import make_grpo_loss_fn
 
     cfg = cfg or dataclasses.replace(CONFIG, num_layers=TRAIN_LAYERS)
     label = cfg.name
@@ -1944,7 +2341,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     def counts():
         return {k: c.value for k, c in every.items()}
 
-    hub = TensorHubClient(ReferenceServer(), device=dev)
+    hub = TensorHubClient(ReferenceServer(), device=dev, delta_base=delta_base)
     queue = []
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(rl.seed), torch.bfloat16, dev)
     if init is not None:
@@ -1968,12 +2365,13 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check(worker.weights_version == 0, f"{label}: the rollout did not replicate v0")
     replica_equals_trainer("v0")
     before = counts()
-    rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
+    with routes_of(cfg) as served0:
+        rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round0 = {k: v - before[k] for k, v in counts().items()}
     check(round0["flash_route_tensor_core"] == cfg.num_layers and round0["flash_route_decode"] == cfg.num_layers * GEN_LEN
           and round0["flash_route_f32"] == 0, f"{label} round 0 flash launches {round0}")
     mid = counts()
-    check0 = check_served_round(torch, reference, trainer.params, rec0, 0, tag="rl_serve_check")
+    check0 = check_round(torch, cfg, reference, trainer.params, rec0, 0, served0, tag="rl_serve_check")
     check(mid == counts(), "the checks launched a kernel")
     served_rewards = rec0["rewards"].copy()
     # a random-weight model almost never continues the prompts' bigram
@@ -1986,11 +2384,14 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     rollouts = trainer.wait_for_rollouts(1, timeout=60)
     batch = trainer.batch_from(rollouts)
 
-    # the reference step's gradients on the same v0 weights and batch, with
-    # the plain attention (autograd through it; launches no kernel)
+    # the reference's first part once before the step as well, its
+    # gradients dropped: the timed step then finds the caching allocator's
+    # blocks and cuBLAS's plans warm, as when the whole reference step ran
+    # first (the reference proper runs after the step, below)
     mid = counts()
-    (ref_grads, ref_metrics), ref_s = timed(
-        lambda: value_and_grad(make_grpo_loss_fn(reference), trainer.params, batch))
+    warm = grads_in_parts(torch, make_grpo_loss_fn(reference), trainer.params, batch, grad_budget)
+    next(warm)
+    warm.close()
     check(mid == counts(), "the reference step launched a flash kernel")
 
     # the step, with the window each layer's forward and backward get
@@ -2009,7 +2410,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     before = counts()
     fa.launch_route, fa.launch_backward = launch_route, launch_backward
     try:
-        metrics, train_s = timed(lambda: trainer.train_on(rollouts))
+        with routes_of(cfg) as step_routes:
+            metrics, train_s = timed(lambda: trainer.train_on(rollouts))
     finally:
         fa.launch_route, fa.launch_backward = wrappers
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
@@ -2022,23 +2424,42 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
           f"{label}: the step's windows {windows}, the layers' {layer_windows}")
     check(metrics["version"] == 1 and trainer.version == 1, f"{label}: the trainer did not publish v1")
 
-    # every tensor got a finite nonzero gradient matching the reference step's
+    # every tensor got a finite nonzero gradient matching the reference
+    # step's: the same batch on the same v0 weights (the rollout's replica,
+    # which has not updated yet), with the plain attention (autograd
+    # through it; launches no kernel), ``grad_budget`` bytes at a time; a
+    # MoE model's reference follows the step's routing (check_moe_round)
     grads = trainer.last_grads
     check(set(grads) == set(trainer.params), "a parameter got no gradient")
     grad_errs, grad_max, grad_l2 = {}, {}, {}
     for n, g in grads.items():
         check(g is not None and bool(torch.isfinite(g).all()), f"{label} {n}: gradient missing or not finite")
-        grad_max[n] = float(g.float().abs().max())
+        grad_max[n] = float(g.abs().max())
         check(grad_max[n] > 0, f"{label} {n}: zero gradient")
-        grad_errs[n] = grad_err(torch, g, ref_grads[n])
-        grad_l2[n] = rel_l2(torch, g, ref_grads[n])
+    mid = counts()
+    t0, parts = time.perf_counter(), 0
+    with routes_of(cfg, pins=step_routes.calls if cfg.moe is not None else None) as ref_routes:
+        for part, ref_metrics in grads_in_parts(torch, make_grpo_loss_fn(reference), worker.params, batch,
+                                                grad_budget):
+            parts += 1
+            for n, r in part.items():
+                grad_errs[n] = grad_err(torch, grads[n], r)
+                grad_l2[n] = rel_l2(torch, grads[n], r)
+            del part, r
+    torch.cuda.synchronize(dev)
+    ref_s = time.perf_counter() - t0
+    check(mid == counts(), "the reference step launched a flash kernel")
     for name in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"):
         check(grad_max[name] > 0, f"{label} {name}: no gradient through the flash attention")
     loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
     adv_max = float(batch["advantages"].abs().max())
+    moe = {} if cfg.moe is None else dict(
+        step_dropped_pairs=step_routes.dropped, step_routed_pairs=step_routes.routed,
+        reference_dropped_pairs_per_pass=ref_routes.dropped / parts, routing=step_routes.flips(ref_routes))
     emit("train_check", config=label, loss=metrics["loss"], reference_loss=float(ref_metrics["loss"]),
          loss_abs_err=loss_err, loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN,
-         grad_max_err_over_max=grad_errs, grad_abs_max=grad_max, windows=windows, metrics=metrics)
+         grad_max_err_over_max=grad_errs, grad_abs_max=grad_max, windows=windows, metrics=metrics,
+         reference_parts=parts, **moe)
     # the loss is a mean of ratio x advantage over the response tokens, and a
     # ratio moves with its logprob: the serving bound on mean logprob error
     # times the largest |advantage| bounds the loss's
@@ -2046,7 +2467,11 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
           f"{label}: loss {metrics['loss']} vs reference {float(ref_metrics['loss'])}")
     for n, e in grad_l2.items():
         check(e <= GRAD_TOL_PLAIN, f"{label} {n}: gradient differs from the reference step's by {e} (relative L2)")
-    del ref_grads
+    if moe:
+        check(moe["reference_dropped_pairs_per_pass"] == moe["step_dropped_pairs"],
+              f"{label}: the reference, routed alike, dropped other pairs than the step")
+        check(moe["routing"]["unexplained_rows"] == 0 and moe["routing"]["router_logit_max_abs_diff"] <= LOGIT_MAX_ABS,
+              f"{label}: the step's routing against the reference's router logits: {moe['routing']}")
 
     # every tensor moved (the rollout still holds v0), then the update
     for n, w in trainer.params.items():
@@ -2055,12 +2480,13 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check(updated and worker.weights_version == 1, f"{label}: the rollout did not update to v1")
     replica_equals_trainer("v1")
     before = counts()
-    rec1, round1_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
+    with routes_of(cfg) as served1:
+        rec1, round1_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round1 = {k: v - before[k] for k, v in counts().items()}
     check(rec1["version"] == 1 and round1 == round0, f"{label} round 1 launches {round1}, round 0 {round0}")
     launches = counts()  # the main path's launches, read now
     peak = torch.cuda.max_memory_allocated(dev)
-    check1 = check_served_round(torch, reference, trainer.params, rec1, 1, tag="rl_serve_check")
+    check1 = check_round(torch, cfg, reference, trainer.params, rec1, 1, served1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
     for k in ("checksum", "flash_attention", *(f"flash_attention_bwd_tensor_core/{n}" for n in ("pre", "dkdv", "dq"))):
@@ -2093,18 +2519,22 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         lp = torch.log_softmax(logits[:, :-1].float(), -1).gather(-1, batch["tokens"][:, 1:, None])[..., 0]
         on_policy = dict(batch, behavior_logprobs=torch.where(batch["loss_mask"], lp, 0.0))
         del logits, lp
-    g_kernel, m_kernel = value_and_grad(make_grpo_loss_fn(trainer.model), trainer.params, on_policy)
-    g_plain_bwd, m_plain_bwd = value_and_grad(make_grpo_loss_fn(isolated), trainer.params, on_policy)
-    for n, g in g_kernel.items():
-        check(float(g.float().abs().max()) > 0, f"{label} {n}: zero gradient in the backward kernels' check")
-    bwd_errs = {n: grad_err(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel}
+    # the two steps a part of the tensors at a time, each part compared and
+    # dropped before the next
+    bwd_errs, bwd_l2 = {}, {}
+    for (g_kernel, m_kernel), (g_plain_bwd, m_plain_bwd) in zip(
+            grads_in_parts(torch, make_grpo_loss_fn(trainer.model), trainer.params, on_policy, grad_budget),
+            grads_in_parts(torch, make_grpo_loss_fn(isolated), trainer.params, on_policy, grad_budget)):
+        check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), f"{label}: the two steps' forwards differ")
+        for n, g in g_kernel.items():
+            check(float(g.abs().max()) > 0, f"{label} {n}: zero gradient in the backward kernels' check")
+            bwd_errs[n] = grad_err(torch, g, g_plain_bwd[n])
+            bwd_l2[n] = rel_l2(torch, g, g_plain_bwd[n])
+        del g_kernel, g_plain_bwd, g
     emit("train_bwd_check", config=label, loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
-         grad_max_err_over_max=bwd_errs, grad_rel_l2={n: rel_l2(torch, g_kernel[n], g_plain_bwd[n]) for n in g_kernel},
-         tol=GRAD_TOL_BWD)
-    check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), f"{label}: the two steps' forwards differ")
+         grad_max_err_over_max=bwd_errs, grad_rel_l2=bwd_l2, tol=GRAD_TOL_BWD)
     for n, e in bwd_errs.items():
         check(e <= GRAD_TOL_BWD, f"{label} {n}: the backward kernels' gradient differs from the plain backward's by {e}")
-    del g_kernel, g_plain_bwd
 
     # where a GRPO step's device time goes (a second step, v1 -> v2, with
     # the launches above already read)
@@ -2714,6 +3144,94 @@ def dense_archs(torch, dev, counters, smi: str) -> dict:
     return total
 
 
+# -- phase 11: routed experts (dbrx-132b) at their published widths -------------------
+
+#: dbrx-132b's serving depth here: 3.26 B parameters a layer (6.5 GB in
+#: bf16), so the trainer's and the rollout's copies of 4 of its 40 layers
+#: (14.27 B parameters, 28.5 GB a copy) take 57 GB of the 80; widths as published
+DBRX_SERVE_LAYERS = 4
+DBRX_B, DBRX_PROMPT, DBRX_GEN = 4, 512, 16
+#: its training depth: at 1 layer (4.49 B parameters) the trainer's bf16
+#: parameters and gradients and f32 AdamW moments (54 GB) and the
+#: rollout's replica (9 GB) leave ~15 GB for the step's activations and
+#: the gradient gates
+DBRX_TRAIN_LAYERS = 1
+DBRX_RL_PROMPTS, DBRX_RL_GROUP = 2, 2
+#: reference gradients phase 11's gates hold at once: 2.5 GB, against 9 GB
+#: for all of them (one expert stack's 2.1 GB, or a few smaller tensors)
+DBRX_GRAD_BUDGET = 5 * GIB // 2
+#: phase 11's hubs keep no delta base: the snapshot of the retiring
+#: version a delta update reads (the trainer's at unpublish, the rollout's
+#: at update) is one more copy of the weights on the card each, 28.5 GB at
+#: 4 layers beside the two copies; every pull here is raw (dc0), so no
+#: delta is negotiated, and none is lost
+DBRX_DELTA_BASE = False
+
+
+def moe_arch(torch, dev, counters, smi: str) -> dict:
+    """dbrx-132b at its published widths (16 experts, top-4, d_expert
+    10752, 48/8 heads of 128, vocab 100352), bf16: served from a TensorHub
+    replica at 4 of its 40 layers through ``serve_two_rounds`` (4 x (512 +
+    16); a round launches 4 tensor-core and 4 x 16 decode-route flash
+    calls), each round held against a replay of its calls with the plain
+    attention (capacity follows a call's token count), the pairs dropped
+    over capacity printed; then at 1 layer through ``rl_loop`` (2 prompts x
+    2 responses of 512 + 64: one GRPO step on the tensor-core forward and
+    backward, publish v1, update, serve again), its gradient gates taken
+    ``DBRX_GRAD_BUDGET`` bytes at a time. Returns the kernels' launches on
+    both paths."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("dbrx-132b")
+    serve_cfg = dataclasses.replace(cfg, num_layers=DBRX_SERVE_LAYERS)
+    print(f"phase 11: {cfg.name} served at {DBRX_SERVE_LAYERS} and trained at {DBRX_TRAIN_LAYERS} of its "
+          f"{cfg.num_layers} layers, widths as published", flush=True)
+    want_route = {"decode": DBRX_SERVE_LAYERS * DBRX_GEN, "tensor_core": DBRX_SERVE_LAYERS, "f32": 0}
+    t0 = time.perf_counter()
+    res = serve_two_rounds(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")},
+                           serve_cfg, batch=DBRX_B, prompt_len=DBRX_PROMPT, gen_len=DBRX_GEN, want_route=want_route,
+                           label=cfg.name, seed=SEED + 110, ref_batch=DBRX_B, delta_base=DBRX_DELTA_BASE)
+    mo = cfg.moe
+    emit("moe_arch_result", card=smi, config=cfg.name, layers=DBRX_SERVE_LAYERS, of_layers=cfg.num_layers,
+         experts=mo.num_experts, top_k=mo.top_k, d_expert=mo.d_expert, capacity_factor=mo.capacity_factor,
+         requests=DBRX_B, prompt_len=DBRX_PROMPT, gen_len=DBRX_GEN,
+         replicate_seconds=res["replicate_s"], publish_v1_seconds=res["publish_s"], update_seconds=res["update_s"],
+         rounds=res["rounds"], prefill_seconds=res["prefill_s"], prefill_tokens_per_s=res["prefill_tokens_per_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"], round_tokens_per_s=res["round_tokens_per_s"],
+         max_memory_allocated=res["peak"], launches=res["launches"],
+         dropped_pairs_by_round=[c["dropped_pairs_served"] for c in res["checks"]],
+         routed_pairs_by_round=[c["routed_pairs"] for c in res["checks"]],
+         flipped_rows_by_round=[c["routing"]["flipped_rows"] for c in res["checks"]], checks=res["checks"],
+         seconds=time.perf_counter() - t0)
+    served = res["launches"]
+    # where a served round's time goes: the prefill, then a few decode steps
+    worker, prompts, cache = res["worker"], res["prompts"], {}
+    n_dec = min(8, DBRX_GEN)
+
+    def prefill():
+        cache["state"] = worker.model.prefill(worker.params, {"tokens": prompts}, max_len=DBRX_PROMPT + DBRX_GEN)
+
+    def decode_steps():
+        logits, kv, n = cache["state"]
+        for _ in range(n_dec):
+            logits, kv = worker.model.decode(worker.params, kv, logits[:, -1].argmax(-1, keepdim=True), n)
+            n += 1
+
+    emit("moe_serve_profile", card=smi, config=cfg.name, layers=DBRX_SERVE_LAYERS,
+         prefill=device_profile(torch, prefill), decode_steps=n_dec, decode=device_profile(torch, decode_steps))
+    del res, worker, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = rl_loop(torch, dev, counters, smi, cfg=dataclasses.replace(cfg, num_layers=DBRX_TRAIN_LAYERS),
+                      num_prompts=DBRX_RL_PROMPTS, group_size=DBRX_RL_GROUP, grad_budget=DBRX_GRAD_BUDGET,
+                      delta_base=DBRX_DELTA_BASE)
+    out = {k: served.get(k, 0) + trained[k] for k in counters}
+    out["flash_attention_routes"] = {r: served["flash_attention_routes"][r] + c
+                                     for r, c in trained["flash_attention_routes"].items()}
+    out["flash_attention_bwd_by_kernel"] = trained["flash_attention_bwd_by_kernel"]
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -2835,6 +3353,16 @@ def main() -> int:
         plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"])
     kernels["flash_attention"]["lse_err_over_tol"] = bwd.pop("lse_err_over_tol")
     kernels.update(bwd)
+    dbrx = dbrx_attention_checks(torch, dev, bw)
+    fwd, bwd_tc = kernels["flash_attention"], kernels["flash_attention_bwd/tensor_core"]
+    fwd["routes"]["tensor_core"]["dbrx_prefill"] = dbrx["prefill"]
+    fwd["routes"]["decode"]["dbrx_decode"] = dbrx["decode"]
+    bwd_tc["dbrx_backward"] = dbrx["backward"]
+    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"])), (bwd_tc, (dbrx["backward"],))):
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
+        entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
+    for kernel, rec in big_tensor_checks(torch, dev, bw).items():
+        kernels[kernel]["past_2_31_elements"] = rec
     phase_s["2 kernels"] = time.perf_counter() - t0
     counters = {k: v.pop("counter") for k, v in kernels.items()}
     shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
@@ -2881,14 +3409,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase10 = gemma2_rl_loop(torch, dev, counters, smi)
     phase_s["10 gemma2 rl loop"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase11 = moe_arch(torch, dev, counters, smi)
+    phase_s["11 moe arch"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9, phase10)  # the paths with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11)  # the paths with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    training_phases = (phase6, phase7, phase10)  # the paths with the backward
+    training_phases = (phase6, phase7, phase10, phase11)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -2896,7 +3429,7 @@ def main() -> int:
             route = k.split("/")[1]
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase8=phase8, phase9=phase9, phase10=phase10, phase_seconds=phase_s)
+         phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

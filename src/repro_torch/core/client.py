@@ -103,11 +103,18 @@ class TensorHubClient:
         retry_policy: Optional[RetryPolicy] = None,
         faults=None,
         device="cuda",
+        delta_base: bool = True,
     ) -> None:
         #: where every handle's registered weights live and every pull
         #: lands: the card by default; without one this raises rather
         #: than quietly running on the host (pass device="cpu" for that)
         self.device = resolve_device(device)
+        #: whether each handle keeps its retiring version as the delta
+        #: base, a second copy of its weights on ``device``: off for
+        #: replicas whose card has no room for it (a delta read from or
+        #: into one then ships a full base-codec frame, counted as a stale
+        #: fallback, as after ``WorkerStore.drop_base``)
+        self.delta_base = delta_base
         self.server = server
         self.registry = registry or WorkerRegistry()
         #: telemetry recorder shared with the transport; disabled by
@@ -370,7 +377,7 @@ class ShardHandle:
         #: and fused dequant+gather kernels on the card (the plain versions
         #: run only on the CPU), whatever this flag says
         self.device_repack = device_repack
-        self.store = WorkerStore(worker.worker_id, device=client.device)
+        self.store = WorkerStore(worker.worker_id, device=client.device, keep_base=client.delta_base)
         self.current_version: Optional[int] = None
         #: lifetime count of striped interval reads this handle completed
         #: across all reshard pulls (per-interval progress; the

@@ -1,4 +1,4 @@
-"""Serving entry point: a dense model answered from a TensorHub replica (Fig. 4b).
+"""Serving entry point: a decoder LM answered from a TensorHub replica (Fig. 4b).
 
 A publisher registers the ``--arch`` model (llama3-8b by default; any id
 of the registry, ``repro_torch.configs.ARCH_IDS``) at its published widths
@@ -8,12 +8,16 @@ device and answers ``--rounds`` batches of ``--requests`` prompts
 (prefill, then ``--gen-len`` decode steps through the flash-attention
 kernel), calling ``update("latest")`` between batches. ``--layers`` cuts
 the depth (default: the arch's own; two replicas of llama3-8b's 32 layers
-take 32 GB); the widths are never cut. The dense family is ported
-(llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b); another arch exits
-with the slice it waits for.
+take 32 GB); the widths are never cut. A depth whose two copies (the
+publisher's and the rollout's) do not fit the device's memory is refused
+before anything is allocated: dbrx-132b's 40 layers are 264 GB a copy, so
+it is served with ``--layers``. The dense family (llama3-8b, yi-34b,
+deepseek-coder-33b, gemma2-2b) and the routed experts of dbrx-132b are
+ported; another arch exits with the slice it waits for.
 
     python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
+    python -m repro_torch.launch.serve --arch dbrx-132b --layers 4 --requests 4 --prompt-len 512 --gen-len 16
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs the plain attention on the host.
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import threading
 import time
 from typing import Dict, List
@@ -31,10 +36,19 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
 from repro_torch.core import ReferenceServer, TensorHubClient
+from repro_torch.core.client import resolve_device
 from repro_torch.data.synthetic import PromptSet
 from repro_torch.models import check_ported
 from repro_torch.models.params import init_params
 from repro_torch.rl.loop import RLConfig, RolloutWorker
+
+
+def device_memory(device: torch.device) -> int:
+    """Bytes the device can hold: the card's total memory, or the host's
+    physical memory for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def _sync(device: torch.device) -> None:
@@ -109,6 +123,12 @@ def main(argv=None) -> None:
     except NotImplementedError as e:
         ap.exit(2, f"{ap.prog}: {e}\n")
     cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
+    copies = 2 * cfg.param_count() * torch.finfo(torch.bfloat16).bits // 8  # the publisher's and the rollout's
+    room = device_memory(resolve_device(args.device))
+    if copies > room:
+        ap.exit(2, f"{ap.prog}: {cfg.name} at {cfg.num_layers} layers needs {copies / 1e9:.1f} GB for the "
+                   f"publisher's and the rollout's copies, more than the {room / 1e9:.1f} GB of the device; "
+                   "cut the depth with --layers\n")
     serve(cfg, requests=args.requests, prompt_len=args.prompt_len, gen_len=args.gen_len,
           rounds=args.rounds, seed=args.seed, device=args.device)
 

@@ -7,12 +7,13 @@ pattern). The port's counterpart of the JAX package's
 
     python -m repro_torch.launch.train --steps 50
     python -m repro_torch.launch.train --arch gemma2-2b --steps 50
+    python -m repro_torch.launch.train --arch dbrx-132b --steps 50     # the reduced dbrx: 8 experts, top-2
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
-runs on the host. Only the dense decoder is ported (llama3-8b, yi-34b,
-deepseek-coder-33b, gemma2-2b); another arch exits with the slice it
-waits for. With ``--publish`` the trainer registers its parameters
+runs on the host. The dense decoder (llama3-8b, yi-34b,
+deepseek-coder-33b, gemma2-2b) and the routed experts of dbrx-132b are
+ported; another arch exits with the slice it waits for. With ``--publish`` the trainer registers its parameters
 themselves with a local TensorHub, and each step (which writes them in
 place) is published from those buffers with no copy.
 """

@@ -1,12 +1,14 @@
-"""The dense decoder LM of the serving path (``lm``, ``blocks``,
-``layers``), its parameter names and shapes, random init and weight
-carry-across from the JAX package (``params``), and ``build_model``.
+"""The decoder LM of the serving path (``lm``, ``blocks``, ``layers``):
+dense or with routed experts, its parameter names and shapes, random init
+and weight carry-across from the JAX package (``params``), and
+``build_model``.
 
 ``build_model(cfg)`` is the port's side of the JAX package's
 ``repro.models.build_model``: it returns :class:`~repro_torch.models.lm.DecoderLM`
 for the dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b)
-and raises ``NotImplementedError`` naming the slice of the port that each
-other family waits for.
+and for the MoE family without MLA (dbrx-132b), and raises
+``NotImplementedError`` naming the slice of the port that each other
+family, and MLA attention (deepseek-v3), waits for.
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ from __future__ import annotations
 from repro_torch.configs.base import AUDIO, DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models.lm import DecoderLM
 
-#: what each family that is not ported yet waits for
+#: what each family not ported yet waits for (for MoE: its configs with MLA)
 WAITING = {
-    MOE: "the MoE slice (routed experts; deepseek-v3's MLA with it)",
+    MOE: "the MLA slice (deepseek-v3's multi-head latent attention)",
     VLM: "the VLM slice (the vision frontend)",
     HYBRID: "the hybrid slice (the Mamba2 SSD blocks)",
     SSM: "the SSM slice (the xLSTM blocks)",
@@ -26,12 +28,11 @@ WAITING = {
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``: the dense
-    family without MoE or MLA."""
+    and MoE families (routed experts, a shared expert, a dense prefix)
+    without MLA."""
     if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention waits for the MoE slice of the port (deepseek-v3)")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: routed experts wait for {WAITING[MOE]}")
-    if cfg.family != DENSE:
+        raise NotImplementedError(f"{cfg.name}: MLA attention waits for {WAITING[MOE]} of the port")
+    if cfg.family not in (DENSE, MOE):
         what = WAITING.get(cfg.family, "its slice")
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family waits for {what} of the port")
 

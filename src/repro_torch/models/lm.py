@@ -18,8 +18,16 @@ gemma2's extras are here: even layers attend through a sliding window and
 odd layers globally (``_layer_windows``), the attention scores and the
 logits are softcapped, each block's output is normed again (``post_ln``),
 and the embedding is tied (scaled by ``sqrt(d_model)`` on the way in, its
-transpose the head). The MoE, MLA and VLM branches and the encoder,
-hybrid and xLSTM models wait for later slices
+transpose the head).
+
+A config with ``moe`` (dbrx) runs the routed-expert FFN
+(:func:`repro_torch.models.blocks.moe_apply`, with the always-on shared
+expert where ``moe.num_shared`` asks for one) in its stacked layers, and
+its first ``moe.first_dense`` layers as a dense ``prefix``
+(``params["prefix/<i>/..."]``, unstacked, a dense FFN of
+``moe.d_ff_dense``) before them, as the JAX package's ``prefix`` list
+(deepseek-v3's). The MLA and VLM branches and
+the encoder, hybrid and xLSTM models wait for later slices
 (:func:`repro_torch.models.build_model` refuses them).
 """
 
@@ -52,7 +60,7 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 class DecoderLM:
-    """Causal decoder: dense GQA attention x SwiGLU FFN.
+    """Causal decoder: dense GQA attention x (SwiGLU | routed MoE) FFN.
 
     ``attention`` is the attention function every layer calls, the flash
     kernel's wrapper by default; a reference computation passes
@@ -61,9 +69,17 @@ class DecoderLM:
     def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
         self.cfg = cfg
         self.attention = attention
-        self.windows = _layer_windows(cfg)
+        self.is_moe = cfg.moe is not None
+        self.n_prefix = cfg.moe.first_dense if self.is_moe else 0
+        self.n_scan = cfg.num_layers - self.n_prefix
+        #: the stacked layers' windows (the prefix layers attend globally)
+        self.windows = _layer_windows(cfg)[self.n_prefix :]
         post = ("post_ln",) if cfg.attn_softcap > 0 else ()
-        self._attn_names, self._ffn_names = _ATTN + post, _FFN + post
+        self._attn_names, self._dense_names = _ATTN + post, _FFN + post
+        if self.is_moe:
+            self._ffn_names = tuple(blocks.moe_shapes(cfg))
+        else:
+            self._ffn_names = self._dense_names
 
     # -- embedding / head ------------------------------------------------------
 
@@ -83,13 +99,45 @@ class DecoderLM:
         ffn = {n: params[f"layers/ffn/{n}"][i] for n in self._ffn_names}
         return attn, ffn
 
-    def _block(self, params, i, x, positions, cache=None, cache_len=None, layer=None):
-        attn, ffn = layer or self._layer(params, i)
+    def _prefix_layer(self, params: Params, i: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        attn = {n: params[f"prefix/{i}/attn/{n}"] for n in self._attn_names}
+        ffn = {n: params[f"prefix/{i}/ffn/{n}"] for n in self._dense_names}
+        return attn, ffn
+
+    def _block(self, layer, x, positions, *, window=0, dense=True, cache=None, cache_len=None):
+        attn, ffn = layer
         x, kv = blocks.attn_apply(
-            self.cfg, attn, x, positions=positions, attention=self.attention, window=self.windows[i],
+            self.cfg, attn, x, positions=positions, attention=self.attention, window=window,
             cache=cache, cache_len=cache_len,
         )
-        return blocks.mlp_apply(ffn, x), kv
+        if dense:
+            return blocks.mlp_apply(ffn, x), kv
+        return blocks.moe_apply(self.cfg, ffn, x), kv
+
+    def _run(self, params: Params, x, positions, *, layers=None, slots=None, cache_len=None):
+        """Every layer in order, the dense prefix first. ``layers(i)`` gives
+        stacked layer ``i``'s views where the caller took the stacks apart
+        once. ``slots`` holds one K/V cache a layer (:meth:`_slots`): in
+        decode (``cache_len`` given) each layer attends over its slot and
+        writes it in place, in prefill each layer's fresh K/V fills the
+        first positions of its slot."""
+        plan = [(self._prefix_layer(params, i), 0, True) for i in range(self.n_prefix)]
+        plan += [(layers(i) if layers is not None else self._layer(params, i), self.windows[i], not self.is_moe)
+                 for i in range(self.n_scan)]
+        for j, (layer, window, dense) in enumerate(plan):
+            cache = slots[j] if cache_len is not None else None
+            x, kv = self._block(layer, x, positions, window=window, dense=dense, cache=cache, cache_len=cache_len)
+            if slots is not None and cache_len is None:
+                s = kv["k"].shape[2]
+                for n in ("k", "v"):
+                    slots[j][n][:, :, :s] = kv[n]
+        return x
+
+    def _slots(self, cache: Cache) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's ``{"k", "v"}`` of ``cache``, in layer order (views
+        of the stacked layers' caches)."""
+        stacked = [{n: t[i] for n, t in cache["layers"].items()} for i in range(self.n_scan)]
+        return [*cache.get("prefix", []), *stacked]
 
     # -- forward (teacher-forced) ----------------------------------------------
 
@@ -100,19 +148,28 @@ class DecoderLM:
         positions = torch.arange(x.shape[1], device=x.device)
         attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
         ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in self._ffn_names}
-        for i in range(self.cfg.num_layers):
-            layer = ({n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()})
-            x, _ = self._block(params, i, x, positions, layer=layer)
-        return self._head(params, x)
+
+        def layers(i):
+            return {n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()}
+
+        return self._head(params, self._run(params, x, positions, layers=layers))
 
     # -- caches ------------------------------------------------------------------
 
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
-        """Zeroed K/V caches ``[layers, B, Hkv, max_len, hd]``, keyed as the
-        JAX package's (``{"layers": {"k", "v"}}``)."""
+        """Zeroed K/V caches, keyed as the JAX package's: ``{"layers": {"k",
+        "v"}}`` stacked ``[stacked layers, B, Hkv, max_len, hd]``, and with a
+        dense prefix ``"prefix"``, a list of one ``{"k", "v"}`` a layer."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-        return {"layers": {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}}
+        shape = (batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+
+        def zeros(*lead):
+            return {n: torch.zeros(lead + shape, dtype=dtype, device=device) for n in ("k", "v")}
+
+        cache: Cache = {"layers": zeros(self.n_scan)}
+        if self.n_prefix:
+            cache["prefix"] = [zeros() for _ in range(self.n_prefix)]
+        return cache
 
     # -- prefill -------------------------------------------------------------------
 
@@ -128,10 +185,7 @@ class DecoderLM:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)
         cache = self.init_cache(b, max_len or s, x.dtype, x.device)
-        for i in range(self.cfg.num_layers):
-            x, kv = self._block(params, i, x, positions)
-            cache["layers"]["k"][i, :, :, :s] = kv["k"]
-            cache["layers"]["v"][i, :, :, :s] = kv["v"]
+        x = self._run(params, x, positions, slots=self._slots(cache))
         return self._head(params, x[:, -1:]), cache, s
 
     # -- decode ------------------------------------------------------------------------
@@ -144,8 +198,5 @@ class DecoderLM:
         logits ``[B, 1, vocab]``."""
         x = self._embed(params, tokens)
         positions = cache_len + torch.arange(x.shape[1], device=x.device)
-        layers = cache["layers"]
-        for i in range(self.cfg.num_layers):
-            c = {"k": layers["k"][i], "v": layers["v"][i]}
-            x, _ = self._block(params, i, x, positions, cache=c, cache_len=cache_len)
+        x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)
         return self._head(params, x), cache

@@ -1,12 +1,17 @@
 """Parameter names and shapes of the decoder LM, and weight carry-across.
 
 ``decoder_shapes`` lists what the JAX package's
-``named_tensors(DecoderLM(cfg).param_specs())`` yields for a dense model:
+``named_tensors(DecoderLM(cfg).param_specs())`` yields:
 the same names, the same shapes (the scanned layer axis stacked first),
-in JAX's pytree order (dict keys sorted at every level). As the JAX
-package's ``blocks.attn_specs`` and ``mlp_specs``, a softcapped model
-(gemma2) has a ``post_ln`` in both blocks, and a model with tied
-embeddings no ``head``. The transfer-unit
+in JAX's pytree order (dict keys sorted at every level, list items in
+order). As the JAX package's ``blocks.attn_specs`` and ``mlp_specs``, a
+softcapped model (gemma2) has a ``post_ln`` in both blocks, and a model
+with tied embeddings no ``head``. A MoE model's stacked FFN is
+``moe_specs``' (``ln``, ``router``, the experts' ``w_gate``/``w_up``
+``[L, E, d, fe]`` and ``w_down`` ``[L, E, fe, d]``, the shared expert's
+``shared_*`` with ``num_shared``); its first ``first_dense`` layers are
+``prefix/<i>/{attn,ffn}/...``, unstacked, with a dense FFN of
+``d_ff_dense``, and the stack holds the rest. The transfer-unit
 schedule (``build_units``) follows registration order, so a replica
 registered in this order has the same units, and the same manifest, as
 the JAX package's.
@@ -30,47 +35,63 @@ from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 # through the core package: transfer.engine and core.client import each
 # other, and only core-first resolves (engine-first is circular)
 from repro_torch.core.client import resolve_device
+from repro_torch.models.blocks import moe_shapes
 
 Shape = Tuple[int, ...]
 
 
-def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
-    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
-    tree: Dict[str, Any] = {
-        "embed": (cfg.vocab, d),
-        "layers": {
-            "attn": {
-                "ln": (L, d),
-                "wq": (L, d, cfg.num_heads * hd),
-                "wk": (L, d, cfg.num_kv_heads * hd),
-                "wv": (L, d, cfg.num_kv_heads * hd),
-                "wo": (L, cfg.num_heads * hd, d),
-            },
-            "ffn": {
-                "ln": (L, d),
-                "w_gate": (L, d, cfg.d_ff),
-                "w_up": (L, d, cfg.d_ff),
-                "w_down": (L, cfg.d_ff, d),
-            },
-        },
-        "final_ln": (d,),
+def _attn_tree(cfg: ModelConfig) -> Dict[str, Shape]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    tree = {
+        "ln": (d,),
+        "wq": (d, cfg.num_heads * hd),
+        "wk": (d, cfg.num_kv_heads * hd),
+        "wv": (d, cfg.num_kv_heads * hd),
+        "wo": (cfg.num_heads * hd, d),
     }
     if cfg.attn_softcap > 0:  # gemma2 also post-norms each block's output
-        tree["layers"]["attn"]["post_ln"] = (L, d)
-        tree["layers"]["ffn"]["post_ln"] = (L, d)
-    if not cfg.tie_embeddings:
-        tree["head"] = (d, cfg.vocab)
+        tree["post_ln"] = (d,)
     return tree
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Shape]]:
+def _mlp_tree(cfg: ModelConfig, d_ff: int) -> Dict[str, Shape]:
+    d = cfg.d_model
+    tree = {"ln": (d,), "w_gate": (d, d_ff), "w_up": (d, d_ff), "w_down": (d_ff, d)}
+    if cfg.attn_softcap > 0:
+        tree["post_ln"] = (d,)
+    return tree
+
+
+def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    mo = cfg.moe
+    n_prefix = mo.first_dense if mo is not None else 0
+    L = cfg.num_layers - n_prefix
+    ffn = moe_shapes(cfg) if mo is not None else _mlp_tree(cfg, cfg.d_ff)
+    tree: Dict[str, Any] = {
+        "embed": (cfg.vocab, cfg.d_model),
+        "layers": {
+            "attn": {n: (L, *s) for n, s in _attn_tree(cfg).items()},
+            "ffn": {n: (L, *s) for n, s in ffn.items()},
+        },
+        "final_ln": (cfg.d_model,),
+    }
+    if n_prefix:
+        dense = {"attn": _attn_tree(cfg), "ffn": _mlp_tree(cfg, mo.d_ff_dense)}
+        tree["prefix"] = [dense] * n_prefix
+    if not cfg.tie_embeddings:
+        tree["head"] = (cfg.d_model, cfg.vocab)
+    return tree
+
+
+def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Shape]]:
+    """JAX's pytree order: dict keys sorted, list items by index."""
+    items = enumerate(tree) if isinstance(tree, list) else ((k, tree[k]) for k in sorted(tree))
     out: List[Tuple[str, Shape]] = []
-    for key in sorted(tree):
-        v = tree[key]
-        if isinstance(v, dict):
+    for key, v in items:
+        if isinstance(v, (dict, list)):
             out.extend(_flatten(v, f"{prefix}{key}/"))
         else:
-            out.append((prefix + key, tuple(v)))
+            out.append((f"{prefix}{key}", tuple(v)))
     return out
 
 
@@ -95,15 +116,16 @@ def init_params(
     on the same device). As ``init_tree``: norms (``.../ln``,
     ``final_ln``) are zeros, every other tensor normal with std
     ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
-    tensor is drawn one layer at a time, so the f32 temporary is one
-    layer's, not the whole stack's."""
+    tensor is drawn one matrix at a time (a layer's, or a layer's expert's),
+    so the f32 temporary is one matrix's, not the whole stack's: dbrx's
+    ``w_gate`` at 4 layers would be a 17 GB f32 temporary."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, shape in decoder_shapes(cfg):
         t = torch.zeros(shape, dtype=dtype, device=dev)
         if not name.endswith("ln"):
             std = 1.0 / np.sqrt(shape[-2])
-            for part in t if t.dim() == 3 else (t,):
+            for part in t.view(-1, *shape[-2:]):
                 part.copy_(
                     torch.randn(part.shape, generator=generator, dtype=torch.float32, device=dev).mul_(std)
                 )

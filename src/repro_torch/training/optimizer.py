@@ -25,6 +25,9 @@ import torch
 
 Tensors = Dict[str, torch.Tensor]
 
+#: elements ``update`` takes at a time (f32 temporaries of 512 MB)
+_SLICE = 1 << 27
+
 
 class AdamWState(NamedTuple):
     step: int
@@ -70,20 +73,25 @@ class AdamW:
             lr = lr * self.schedule(step)
         # c1, c2 and lr are 0-d f32 tensors on the host, which PyTorch
         # broadcasts into device arithmetic without a copy
-        for name, p in params.items():
-            g32 = grads[name].float()
-            if scale is not None:
-                g32 = g32 * scale
-            mu, nu = state.mu[name], state.nu[name]
-            mu_n = b1 * mu.float() + (1 - b1) * g32
-            nu_n = b2 * nu.float() + (1 - b2) * torch.square(g32)
-            del g32
-            delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + self.eps)
-            if self.weight_decay:
-                delta = delta + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * delta)
-            mu.copy_(mu_n)
-            nu.copy_(nu_n)
+        for name, param in params.items():
+            # elementwise, so a slice at a time gives the same bits with
+            # f32 temporaries of one slice (a dbrx layer's w_gate is 1.06 G
+            # elements: 4.2 GB for each whole-tensor f32 temporary)
+            flat = (param.view(-1), grads[name].reshape(-1), state.mu[name].view(-1), state.nu[name].view(-1))
+            for start in range(0, param.numel(), _SLICE):
+                p, g, mu, nu = (t[start : start + _SLICE] for t in flat)
+                g32 = g.float()
+                if scale is not None:
+                    g32 = g32 * scale
+                mu_n = b1 * mu.float() + (1 - b1) * g32
+                nu_n = b2 * nu.float() + (1 - b2) * torch.square(g32)
+                del g32
+                delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + self.eps)
+                if self.weight_decay:
+                    delta = delta + self.weight_decay * p.float()
+                p.copy_(p.float() - lr * delta)
+                mu.copy_(mu_n)
+                nu.copy_(nu_n)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 

@@ -9,9 +9,11 @@ as soon as the step returns. Gradients are taken with
 ``torch.autograd.grad`` on ``detach()``ed views that share the registered
 storage: the registered tensors themselves never require a gradient.
 
-Only the dense decoder (the LM family) is ported; configs of the audio,
-VLM, MoE (MLA with it) and the other families raise
-``NotImplementedError`` and wait for their slices.
+The decoder LM is ported, dense and with routed experts (dbrx): the
+backward of the MoE FFN's gathers, scatters and expert products is
+autograd's. Configs with MLA attention (deepseek-v3) and of the audio,
+VLM, hybrid and SSM families raise ``NotImplementedError`` and wait for
+their slices.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    check_ported(cfg)  # MoE, MLA, VLM and the other families are refused
+    check_ported(cfg)  # MLA, VLM and the other families are refused
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
@@ -122,7 +124,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    check_ported(cfg)  # MoE, MLA, VLM and the other families are refused
+    check_ported(cfg)  # MLA, VLM and the other families are refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

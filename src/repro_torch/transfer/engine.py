@@ -89,8 +89,12 @@ class WorkerStore:
     RDMA semantics.
     """
 
-    def __init__(self, worker_id: str, device="cuda") -> None:
+    def __init__(self, worker_id: str, device="cuda", keep_base: bool = True) -> None:
         self.worker_id = worker_id
+        #: whether ``snapshot_base`` keeps a delta base (a second copy of
+        #: the weights on ``device``); without one a delta read from or
+        #: into this store ships a base-codec frame, as after ``drop_base``
+        self.keep_base = keep_base
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._buffers: Dict[str, torch.Tensor] = {}
@@ -324,7 +328,10 @@ class WorkerStore:
         update) — both sides of a ``delta:<base>`` transfer encode/decode
         against these bytes. Only the most recent snapshot is kept (one
         version of history, matching the server's prior-version
-        bookkeeping)."""
+        bookkeeping). A store that keeps no base drops any it holds."""
+        if not self.keep_base:
+            self.drop_base()
+            return
         with self._lock:
             self._base_version = version
             self._base_units = {

@@ -5,8 +5,12 @@ one field for field (nested sub-configs and ``source`` included), and so
 do ``reduced()``, ``param_count()``, ``active_param_count()``,
 ``live_shapes()`` and the shape grid; for the four dense ids, full and
 reduced, the port's parameter names, shapes and order are the JAX
-``DecoderLM``'s. A family the port has no model for is refused with the
-slice it waits for, by ``build_model`` and by both entry points.
+``DecoderLM``'s, and so are dbrx-132b's (routed experts). A family the port
+has no model for, and MLA attention (deepseek-v3), is refused with the
+slice it waits for, by ``build_model`` and by both entry points; dbrx
+is built, trained by ``launch/train.py`` at its reduced config and served
+by ``serve()`` at a reduced config (``serve.main`` refuses its 40 layers,
+which do not fit a device, before allocating anything).
 """
 
 import dataclasses
@@ -28,15 +32,17 @@ from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
-OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in DENSE_IDS)
-#: what the refusal of each family that is not ported names
-WAITS_FOR = {"moe": "MoE", "vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
+OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in PORTED_IDS)
+#: what the refusal of each family that is not ported names (the MoE
+#: family's: deepseek-v3's MLA attention)
+WAITS_FOR = {"moe": "MLA", "vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
 
 
 def test_registry_ids_equal():
     assert port_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert list(port_configs.all_configs()) == list(jax_configs.all_configs())
-    assert set(DENSE_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
+    assert set(PORTED_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -83,7 +89,7 @@ def test_llama3_8b_source_copied_as_it_stands():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", DENSE_IDS)
+@pytest.mark.parametrize("arch", PORTED_IDS)
 def test_decoder_shapes_are_the_jax_param_specs(arch, reduced):
     got, want = port_configs.get_config(arch), jax_configs.get_config(arch)
     if reduced:
@@ -98,11 +104,13 @@ def test_gemma2_shapes_have_post_norms_and_no_head():
     assert "head" in llama and not any("post_ln" in n for n in llama)
 
 
-@pytest.mark.parametrize("arch", DENSE_IDS)
+@pytest.mark.parametrize("arch", PORTED_IDS)
 def test_build_model_builds_the_dense_ids(arch):
+    """The dense ids, and dbrx-132b (MoE, no MLA) beside them."""
     cfg = port_configs.get_config(arch)
     model = build_model(cfg)
     assert isinstance(model, DecoderLM) and model.cfg is cfg
+    assert model.is_moe == (cfg.moe is not None) and model.n_prefix == 0
     want = [cfg.sliding_window if (cfg.alt_local_global and i % 2 == 0) else 0 for i in range(cfg.num_layers)]
     assert model.windows == want
 
@@ -117,12 +125,20 @@ def test_build_model_refuses_the_families_not_ported(arch):
 
 
 def test_mla_and_moe_are_refused_in_a_dense_family_config():
+    """MLA is refused wherever it appears; routed experts, refused here
+    until the MoE slice, now build in a dense-family config too (with
+    deepseek-v3's shared expert and dense prefix), as the JAX
+    ``DecoderLM`` takes them by ``cfg.moe``, not by family."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="MLA"):
         check_ported(dataclasses.replace(base, mla=ds.mla))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        check_ported(dataclasses.replace(base, moe=ds.moe))
+    with pytest.raises(NotImplementedError, match="MLA"):
+        check_ported(ds)
+    cfg = dataclasses.replace(base, moe=ds.moe)
+    check_ported(cfg)
+    model = build_model(cfg)
+    assert model.is_moe and (model.n_prefix, model.n_scan) == (3, base.num_layers - 3)
 
 
 @pytest.mark.parametrize("arch", OTHER_IDS)
@@ -141,3 +157,30 @@ def test_entry_points_refuse_an_unknown_arch(entry, capsys):
     with pytest.raises(SystemExit):
         main(["--arch", "gemma2-9b", "--device", "cpu"])
     assert "gemma2-2b" in capsys.readouterr().err  # the choices are the registry's
+
+
+def test_train_entry_point_trains_the_reduced_dbrx(capsys):
+    """``--arch dbrx-132b`` trains the reduced dbrx (8 experts, top-2)."""
+    import re
+
+    train_main.main(["--arch", "dbrx-132b", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16"])
+    losses = [float(x) for x in re.findall(r"loss (\S+)", capsys.readouterr().out)]
+    assert len(losses) == 2 and all(x == x and abs(x) < 100 for x in losses)
+
+
+def test_serve_answers_a_reduced_dbrx():
+    rows = serve_main.serve(port_configs.get_config("dbrx-132b").reduced(), requests=2, prompt_len=6, gen_len=3,
+                            rounds=2, device="cpu", dtype=torch.float32)
+    assert [r["version"] for r in rows] == [0, 0] and all(r["tokens"] == 6 for r in rows)
+
+
+def test_serve_refuses_a_depth_that_does_not_fit_before_allocating(monkeypatch, capsys):
+    """dbrx's 40 layers are 263 GB a copy: refused with the depth flag named,
+    before any weight is allocated (``init_params`` would raise here)."""
+    monkeypatch.setattr(serve_main, "device_memory", lambda device: 80 * 10**9)
+    monkeypatch.setattr(serve_main, "init_params", lambda *a, **k: pytest.fail("allocated"))
+    with pytest.raises(SystemExit) as exc:
+        serve_main.main(["--arch", "dbrx-132b", "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "526.4 GB" in err and "--layers" in err

@@ -1025,3 +1025,114 @@ def test_train_entry_point_on_the_reduced_gemma2(dev):
     train.main(["--arch", "gemma2-2b", "--steps", "2"])
     assert fa.ROUTE_LAUNCHES["f32"].value - before[0] == 2 * 4
     assert fa.BWD_LAUNCHES["cuda_core/dkdv"].value - before[1] == 2 * 4
+
+
+# -- routed experts (dbrx-132b): GQA 6 on every route it takes, tensors past 2^31 elements ----------
+
+
+#: dbrx's attention at chip_smoke.py phase 11's shapes (48 query and 8 KV
+#: heads of 128): the served prefill, its last decode step (528 keys) and
+#: the GRPO step's 4 x 576
+_DBRX_FORWARD = {"tensor_core": (4, 48, 8, 512, 512, dict(causal=True)),
+                 "decode": (4, 48, 8, 1, 528, dict(causal=True, q_offset=527, kv_len=528))}
+
+
+@pytest.mark.parametrize("route", list(_DBRX_FORWARD))
+def test_dbrx_group_of_6_on_its_forward_routes(dev, route):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, kw = _DBRX_FORWARD[route]
+    q, k, v = _qkv(dev, sq, b, hq, hkv, sq, sk, 128, torch.bfloat16)
+    assert fa._route(q, k) == route
+    before = fa.ROUTE_LAUNCHES[route].value
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.ROUTE_LAUNCHES[route].value == before + 1
+    _flash_close(got, fa.attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_dbrx_group_of_6_on_the_tensor_core_backward(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    case = (4, 48, 8, 576, 576, 128, True, 0.0, 0, None)
+    got, launched, want = _backward(fa, case, torch.bfloat16, dev)
+    assert launched == _launched_once(fa, "tensor_core")
+    _check_grads(got, want, torch.bfloat16, case)
+    again, _, _ = _backward(fa, case, torch.bfloat16, dev)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_checksum_and_quantize_past_2_31_elements(dev):
+    """A bf16 tensor of 2^31 + 2^20 elements (4.3 GB): the checksum of the
+    whole against the plain version's sums over 256 MiB pieces (each starts
+    at a multiple of 2^16 words, so its weights are the whole's), and of its
+    last 64 MiB, a view past 2^32 bytes; the int8 rows and scales of its
+    last 2^26 elements against the plain version of the same view."""
+    n = (1 << 31) + (1 << 20)
+    x = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for i in range(0, n, 1 << 28):
+        x[i : i + (1 << 28)].normal_(generator=g)
+    raw = x.view(torch.uint8)
+    got = ck.checksum_words(raw).to(torch.int64) & 0xFFFFFFFF
+    want = torch.zeros(2, dtype=torch.int64, device=dev)
+    for i in range(0, raw.numel(), 256 << 20):
+        want = (want + ck.checksum_words_plain(raw[i : i + (256 << 20)])) & 0xFFFFFFFF
+    assert torch.equal(got, want)
+    tail = raw[-(64 << 20):]
+    assert torch.equal(ck.checksum_words(tail).to(torch.int64) & 0xFFFFFFFF, ck.checksum_words_plain(tail))
+    q, s = qk.quantize_rows(x)
+    assert q.numel() == n and s.numel() == n // 256
+    last = 1 << 26
+    q2, s2 = qk.quantize_rows_plain(x[-last:])
+    assert torch.equal(q[-last:], q2) and torch.equal(s[-last // 256:].view(torch.int32), s2.view(torch.int32))
+
+
+def test_moe_decoder_serves_on_the_card(dev, monkeypatch):
+    """A narrow dbrx (4 layers, 12/2 heads of 64: G = 6, 16 experts top-4)
+    in bf16: the prefill on the tensor-core route and the decode steps on
+    the decode route, each step's logits within phase 5's bounds of the
+    same calls replayed with the plain attention, the replay following the
+    served experts (at random weights near-tied router logits let the last
+    bits pick a token's experts); every call's routed pairs counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("dbrx-132b")
+    cfg = dataclasses.replace(cfg, num_layers=4, d_model=768, num_heads=12, num_kv_heads=2, vocab=1024,
+                              moe=dataclasses.replace(cfg.moe, d_expert=512))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    toks = torch.randint(0, cfg.vocab, (4, 72), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    route, calls, pins = blocks.route, [], []
+
+    def recording(cfg, p, flat, experts=None):
+        top_p, top_e = route(cfg, p, flat, pins[len(calls)] if pins else None)
+        calls.append(top_e)
+        return top_p, top_e
+
+    monkeypatch.setattr(blocks, "route", recording)
+
+    def run(model):
+        logits, cache, n = model.prefill(params, {"tokens": toks[:, :64]}, max_len=72)
+        steps = [logits[:, -1]]
+        for t in range(64, 71):
+            logits, cache = model.decode(params, cache, toks[:, t : t + 1], n)
+            n += 1
+            steps.append(logits[:, -1])
+        return torch.stack(steps, 1)
+
+    before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    blocks.DROPPED.reset()
+    got = run(build_model(cfg))
+    assert {r: c.value - before[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"f32": 0, "decode": 4 * 7,
+                                                                              "tensor_core": 4}
+    assert blocks.DROPPED.calls == 4 * 8 and blocks.DROPPED.routed == 4 * (256 + 7 * 4) * 4
+    assert 0 <= blocks.DROPPED.dropped < blocks.DROPPED.routed
+    pins.extend(calls)
+    calls.clear()
+    want = run(build_model(cfg, attention=fa.attention_plain))
+    assert len(calls) == len(pins) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 0.5 and float((got - want).abs().mean()) < 0.05
