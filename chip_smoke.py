@@ -48,7 +48,14 @@ lines, any failure exiting non-zero:
    at [4,48/8,576,128], each against its plain version and timed beside
    it and SDPA. ``checksum_words`` and ``quantize_rows`` on a bf16 tensor
    of more than 2^31 elements (dbrx's w_gate at 4 layers, [4,16,6144,10752]),
-   bit-equal to their plain versions taken in pieces.
+   bit-equal to their plain versions taken in pieces. deepseek-v3's MLA:
+   the tensor_core forward at q/k 192, v 128 (the served prefill q/k
+   [4,128,512,192], v [4,128,512,128] causal, S = 77, kv_len < Sk with
+   NaN past it, q_offset > 0, a GQA group of 4) and the ``mla_decode``
+   kernel (4 x 128 heads against 528 of 528 slots, kv_len 1, 65, 300 and
+   527 with NaN in the dead slots, B = 1, 16 heads) against their plain
+   versions, bit-equal on a rerun, each timed with the L2 cold beside the
+   plain version, the bound and SDPA (its backend named).
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -153,7 +160,18 @@ lines, any failure exiting non-zero:
    at 1 layer, 2 prompts x 2 responses of 512 + 64, its gradient gates
    taken 2.5 GB of reference gradients at a time.
 
-A ``kernels`` JSON line (launches over phases 3 to 11; flash
+12. MLA attention: deepseek-v3-671b at its published widths (d_model
+   7168, 128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v 128, 256
+   experts top-8 + 1 shared, d_expert 2048, d_ff_dense 18432, vocab
+   129280), bf16, served as phase 11 at 4 of its 61 layers (3 dense + 1
+   MoE; 15.11 B parameters, 30.2 GB a copy) before and after an update:
+   each round launches 4 tensor-core forwards at (192, 128) and 4 x 16
+   ``mla_decode`` kernels and nothing on the decode or f32 routes, and is
+   held against a replay of its calls with the plain attention and
+   ``mla_decode_plain`` that follows the served experts; a profiled
+   decode step's device time by kernel class.
+
+A ``kernels`` JSON line (launches over phases 3 to 12; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -1746,6 +1764,188 @@ def dbrx_attention_checks(torch, dev, bw: float) -> dict:
     return out
 
 
+#: deepseek-v3's expanded MLA prefill on the tensor_core route's (192, 128)
+#: plan: (b, hq, hkv, sq, sk, kw); the served shape first (phase 12: 4
+#: requests of 512 prompt tokens, 128 heads), then S = 77, kv_len < Sk with
+#: NaN past it, q_offset > 0 and a GQA group of 4
+MLA_TC_SHAPES = [
+    (4, 128, 128, 512, 512, dict(causal=True)),
+    (2, 16, 16, 77, 77, dict(causal=True)),
+    (2, 16, 16, 256, 400, dict(causal=False, kv_len=300, nan=True)),
+    (1, 16, 16, 64, 600, dict(causal=True, q_offset=500, kv_len=564, nan=True)),
+    (1, 32, 8, 130, 130, dict(causal=True)),
+]
+MLA_QK, MLA_V, MLA_R, MLA_ROPE = 192, 128, 512, 64  # deepseek-v3's widths
+#: the absorbed decode on the mla_decode kernel: (b, heads, slots, kv_len,
+#: NaN in the dead slots); the served step's last (4 x 128 heads against
+#: 528 of 528 slots) first
+MLA_DECODE_CASES = [
+    (4, 128, 528, 528, False),
+    (4, 128, 528, 1, True),
+    (4, 128, 528, 65, True),
+    (4, 128, 528, 527, True),
+    (4, 128, 528, 300, True),
+    (1, 128, 528, 528, False),
+    (4, 16, 528, 400, True),
+]
+MLA_DECODE_TOL = 2e-5  # f32, of the output's max |value|: the kernel and the reference are f32 throughout
+
+
+def mla_bound_ms(b, hq, hkv, sq, kv_len, causal, q_offset, bw):
+    """The (192, 128) forward's bound: the larger of 2 (192 + 128) flops a
+    live (query, key) pair a head at the bf16 peak, and the bytes of q and
+    o once and the live keys of k and v once at the memory rate."""
+    pairs = live_pairs(sq, kv_len, causal, q_offset)
+    flops = 2 * b * hq * pairs * (MLA_QK + MLA_V)
+    keys = live_keys(sq, kv_len, causal, q_offset)
+    nbytes = 2 * (b * hq * sq * (MLA_QK + MLA_V) + b * hkv * keys * (MLA_QK + MLA_V))
+    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, nbytes / bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+
+
+def mla_decode_bound_ms(b, heads, kv_len, bw):
+    """The absorbed decode's bound: the queries (bf16), the live latent
+    rows and rope keys (bf16) read once and the f32 output written once at
+    the memory rate, against 2 (576 + 512) operations a (head, slot) at the
+    peak of the inputs' type (bf16, 989 TFLOP/s)."""
+    w = MLA_R + MLA_ROPE
+    nbytes = 2 * b * heads * w + 2 * b * kv_len * w + 4 * b * heads * MLA_R
+    flops = 2 * b * heads * kv_len * (w + MLA_R)
+    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, nbytes / bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+
+
+def mla_attention_checks(torch, dev, bw: float) -> dict:
+    """deepseek-v3's two attention kernels against their plain versions on
+    the card, each case twice for bit-equal reruns: the tensor_core forward
+    at q/k 192 and v 128 (``MLA_TC_SHAPES``, bf16 tolerance) and the
+    absorbed-latent ``mla_decode`` kernel (``MLA_DECODE_CASES``, within 2e-5
+    of the output's max |value|). Both timed with the L2 cold at the
+    served shapes beside the plain version, the bound and SDPA (E 192, Ev
+    128, causal for the prefill; one KV head of E 576, Ev 512 with
+    ``enable_gqa`` and the scale 1/sqrt(192) for the decode), its backend
+    named, or "none ran". Returns the tensor_core route's (192, 128) record
+    and the ``mla_decode`` kernel's entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 120)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    tol = FLASH_TOL["bfloat16"]
+    worst_tc = (0.0, 0.0)
+    prefill = None
+    for b, hq, hkv, sq, sk, kw in MLA_TC_SHAPES:
+        kw = dict(kw)
+        nan = kw.pop("nan", False)
+        q, k, v = rand(b, hq, sq, MLA_QK), rand(b, hkv, sk, MLA_QK), rand(b, hkv, sk, MLA_V)
+        kz, vz = k, v
+        if nan:
+            kz, vz = k.clone(), v.clone()
+            kz[:, :, kw["kv_len"]:] = 0
+            vz[:, :, kw["kv_len"]:] = 0
+            k[:, :, kw["kv_len"]:] = float("nan")
+            v[:, :, kw["kv_len"]:] = float("nan")
+        label = f"mla tensor_core [{b},{hq}/{hkv},{sq}x{sk}] q/k 192 v 128 {kw}{' NaN past kv_len' if nan else ''}"
+        check(fa._route(q, k, v=v) == "tensor_core", f"{label} routed to {fa._route(q, k, v=v)}")
+        before = fa.ROUTE_LAUNCHES["tensor_core"].value
+        got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        check(fa.ROUTE_LAUNCHES["tensor_core"].value == before + 2, f"tensor_core not launched on {label}")
+        want = fa.attention_plain(q, kz, vz, **kw).float()
+        diff = (got.float() - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())
+        same = bool(torch.equal(got, again))
+        worst_tc = (max(worst_tc[0], float(diff.max())), max(worst_tc[1], ratio))
+        emit("flash_check", case=label, route="tensor_core", max_abs_err=float(diff.max()), tol=tol,
+             err_over_tol=ratio, bit_equal_rerun=same)
+        check(ratio <= 1.0 and same and torch.isfinite(got).all().item(),
+              f"tensor_core != plain version on {label}, or two runs differ")
+        if prefill is None:  # the served shape: timed
+            calls = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
+                     "plain": lambda: fa.attention_plain(q, k, v, **kw),
+                     "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)}
+            backend = sdpa_backend(torch, calls["sdpa"])
+            cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+            bound, by, flops, nbytes = mla_bound_ms(b, hq, hkv, sq, sk, True, 0, bw)
+            prefill = dict(route="tensor_core", shape=f"q/k [{b},{hq},{sq},192], v [{b},{hkv},{sk},128] bf16 causal",
+                           ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa"],
+                           library=f"scaled_dot_product_attention ({backend.name})", bound_ms=bound, bound_by=by,
+                           flops=flops, bytes=nbytes, achieved_TFLOPs=flops / (cold["kernel"] * 1e-3) / 1e12,
+                           sdpa_max_abs_diff=float((calls["sdpa"]().float() - got.float()).abs().max()))
+            emit("flash_mla_times", case="prefill", **prefill)
+            del calls
+        del q, k, v, kz, vz, got, again, want, diff
+    prefill.update(max_abs_err=worst_tc[0], err_over_tol=worst_tc[1])
+    torch.cuda.empty_cache()
+
+    worst, decode = (0.0, 0.0), None
+    for b, h, smax, kv_len, nan in MLA_DECODE_CASES:
+        qa, qr = rand(b, h, 1, MLA_R), rand(b, h, 1, MLA_ROPE)
+        ckv, kr = rand(b, smax, MLA_R), rand(b, smax, MLA_ROPE)
+        if nan:
+            ckv[:, kv_len:] = float("nan")
+            kr[:, kv_len:] = float("nan")
+        scale = 1.0 / math.sqrt(MLA_QK)
+        label = f"mla_decode [{b},{h}] heads vs {kv_len} of {smax} slots{' NaN past kv_len' if nan else ''}"
+        before = md.LAUNCHES.value
+        got = md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=scale)
+        again = md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=scale)
+        check(md.LAUNCHES.value == before + 2, f"mla_decode not launched on {label}")
+        want = md.mla_decode_plain(qa, qr, ckv, kr, kv_len=kv_len, scale=scale)
+        err = float((got - want).abs().max())
+        ratio = err / (MLA_DECODE_TOL * float(want.abs().max()))
+        same = bool(torch.equal(got, again))
+        worst = (max(worst[0], err), max(worst[1], ratio))
+        emit("mla_decode_check", case=label, max_abs_err=err, tol=f"{MLA_DECODE_TOL} of max |value|",
+             err_over_tol=ratio, bit_equal_rerun=same, splits=md.split_plan(kv_len, b, h))
+        check(ratio <= 1.0 and same and torch.isfinite(got).all().item(),
+              f"mla_decode != plain version on {label}, or two runs differ")
+        if decode is None:  # the served step: timed
+            q576 = torch.cat([qa, qr], -1)
+            k576, v512 = torch.cat([ckv, kr], -1)[:, None], ckv[:, None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q576, k576, v512, enable_gqa=True, scale=scale)
+
+            try:
+                backend = sdpa_backend(torch, sdpa).name
+            except SmokeFailure:
+                backend = None
+            calls = {"kernel": lambda: md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=scale),
+                     "plain": lambda: md.mla_decode_plain(qa, qr, ckv, kr, kv_len=kv_len, scale=scale)}
+            if backend is not None:
+                calls["sdpa"] = sdpa
+            cold = {n: cold_ms(torch, f, flush) for n, f in calls.items()}
+            warm = {n: device_ms(torch, f) for n, f in calls.items()}
+            bound, by, flops, nbytes = mla_decode_bound_ms(b, h, kv_len, bw)
+            decode = dict(shape=f"q_abs [{b},{h},1,512], q_rope [{b},{h},1,64], ckv [{b},{smax},512], "
+                                f"krope [{b},{smax},64] bf16, kv_len {kv_len}",
+                          ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold.get("sdpa"),
+                          library=(f"scaled_dot_product_attention ({backend}), one KV head of E 576, Ev 512"
+                                   if backend else "none ran"),
+                          warm_device_ms=warm, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                          splits=md.split_plan(kv_len, b, h),
+                          sdpa_max_abs_diff=(float((sdpa().float()[..., :MLA_R] - got).abs().max())
+                                             if backend else None))
+            emit("mla_decode_times", **decode)
+            del q576, k576, v512, calls
+        del qa, qr, ckv, kr, got, again, want
+    del flush
+    torch.cuda.empty_cache()
+    entry = dict(name="mla_decode", route="cuda", source="src/repro_torch/kernels/csrc/mla_decode.cu",
+                 replaces="src/repro/models/blocks.py:184", max_abs_err=worst[0], err_over_tol=worst[1],
+                 ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
+                 bound_by=decode["bound_by"], library_ms=decode["library_ms"], library=decode["library"],
+                 timed_shape=decode["shape"], counter=md.LAUNCHES)
+    return {"mla_prefill": prefill, "mla_decode": entry}
+
+
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
 #: phase 11's 4 layers, [4, 16, 6144, 10752] in bf16 (4.23 G elements, 8.46 GB)
 BIG_SHAPE = (4, 16, 6144, 10752)
@@ -2040,6 +2240,8 @@ def kernel_class(name: str) -> str:
         return "flash backward"
     if "flash" in n:
         return "flash forward"
+    if "mla_decode" in n:
+        return "mla decode"
     if any(k in n for k in ("checksum_kernel", "quant_kernel", "gather_runs_kernel", "dequant_gather_kernel")):
         return "transfer kernels"
     if "nvjet" in n or "gemm" in n or "xmma" in n or "cutlass" in n:
@@ -2052,7 +2254,8 @@ def kernel_class(name: str) -> str:
 
 
 def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, gen_len: int, want_route: dict,
-                     label: str, seed: int, ref_batch: int = 4, init=None, delta_base: bool = True) -> dict:
+                     label: str, seed: int, ref_batch: int = 4, init=None, delta_base: bool = True,
+                     want_latent: int = 0) -> dict:
     """``cfg`` at its published widths in bf16, served from a TensorHub
     replica: a trainer (dc0) publishes v0, a RolloutWorker (dc0, raw)
     replicates and answers round 0 (``batch`` requests of ``prompt_len``
@@ -2062,7 +2265,9 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
     bit-equal to the trainer, every step's logits and the logprobs within
     ``LOGIT_*`` of a teacher-forced forward with the plain attention on
     the trainer's weights (``ref_batch`` sequences at a time), round 1
-    apart from round 0, and ``want_route`` flash launches by route a round.
+    apart from round 0, ``want_route`` flash launches by route a round and
+    ``want_latent`` launches of the ``mla_decode`` kernel (an MLA model's
+    decode steps; the plain reference runs ``mla_decode_plain`` there).
     ``init`` may rescale the seeded weights in place before they are
     registered; ``delta_base`` is the hub's (``TensorHubClient``).
     Returns the worker, the launches (read right after the rounds), the
@@ -2070,6 +2275,8 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
     from repro_torch.core import ReferenceServer, TensorHubClient
     from repro_torch.data.synthetic import PromptSet
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, attention_plain
+    from repro_torch.kernels.mla_decode import LAUNCHES as LATENT_LAUNCHES
+    from repro_torch.kernels.mla_decode import mla_decode_plain
     from repro_torch.models import build_model
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker
@@ -2096,7 +2303,7 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
     served = []  # the worker's out_queue, emptied after each round's checks
     worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, prompt_len, seed=SEED), served,
                            threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
-    reference = build_model(cfg, attention=attention_plain)
+    reference = build_model(cfg, attention=attention_plain, latent_attention=mla_decode_plain)
 
     def timed(fn):
         torch.cuda.synchronize(dev)
@@ -2131,15 +2338,18 @@ def serve_two_rounds(torch, dev, counters, cfg, *, batch: int, prompt_len: int, 
             equal_to_trainer("after update")
         before = {k: c.value for k, c in counters.items()}
         before_route = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+        before_latent = LATENT_LAUNCHES.value
         with routes_of(cfg) as routing:
             rec, round_s = timed(lambda: worker.serve_batch(step, keep_logits=True))
         n = flash.value - before["flash_attention"]
         by_route = {r: c.value - before_route[r] for r, c in ROUTE_LAUNCHES.items()}
+        latent = LATENT_LAUNCHES.value - before_latent
         check(n == per_round, f"{label} round {step}: {n} flash launches, want {per_round}")
         check(by_route == want_route, f"{label} round {step}: flash launches by route {by_route}, want {want_route}")
+        check(latent == want_latent, f"{label} round {step}: {latent} mla_decode launches, want {want_latent}")
         check(rec["version"] == step, f"{label} round {step} served v{rec['version']}")
         rounds.append(dict(round=step, version=rec["version"], seconds=round_s, flash_launches=n,
-                           flash_launches_by_route=by_route,
+                           flash_launches_by_route=by_route, mla_decode_launches=latent,
                            generated_tokens=batch * gen_len))
         mid = {k: c.value for k, c in counters.items()}
         checks.append(check_round(torch, cfg, reference, trainer.store.tensors(), rec, step, routing,
@@ -3232,6 +3442,75 @@ def moe_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 12: MLA attention (deepseek-v3-671b) at its published widths -----------------
+
+#: deepseek-v3-671b's serving depth here: its 3 dense prefix layers and 1
+#: of routed experts, the least depth with a MoE layer (15.11 B
+#: parameters, 30.2 GB a copy in bf16, the trainer's and the rollout's
+#: 60.4 GB of the 80); widths as published
+DS_SERVE_LAYERS = 4
+DS_B, DS_PROMPT, DS_GEN = 4, 512, 16
+
+
+def mla_arch(torch, dev, counters, smi: str) -> dict:
+    """deepseek-v3-671b at its published widths (d_model 7168, 128 heads,
+    MLA with q_lora 1536, kv_lora 512, qk 128 + 64, v 128; 256 experts
+    top-8 + 1 shared of 2048, a dense FFN of 18432 in its first three
+    layers; vocab 129280), bf16, served from a TensorHub replica at 4 of
+    its 61 layers through ``serve_two_rounds`` (4 x (512 + 16); hubs
+    without delta bases, as phase 11's): each round's prefill launches 4
+    tensor-core forwards at q/k 192, v 128, its decode steps 4 x 16
+    ``mla_decode`` kernels and nothing on the decode or f32 routes, held
+    against a replay of its calls with ``attention_plain`` and
+    ``mla_decode_plain`` that follows the served experts. Then a profiled
+    decode step's device time by kernel class. Returns the kernels'
+    launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v3-671b")
+    serve_cfg = dataclasses.replace(cfg, num_layers=DS_SERVE_LAYERS)
+    print(f"phase 12: {cfg.name} served at {DS_SERVE_LAYERS} of its {cfg.num_layers} layers "
+          f"({cfg.moe.first_dense} dense, {DS_SERVE_LAYERS - cfg.moe.first_dense} of routed experts), "
+          "widths as published", flush=True)
+    want_route = {"decode": 0, "tensor_core": DS_SERVE_LAYERS, "f32": 0}
+    t0 = time.perf_counter()
+    res = serve_two_rounds(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")},
+                           serve_cfg, batch=DS_B, prompt_len=DS_PROMPT, gen_len=DS_GEN, want_route=want_route,
+                           label=cfg.name, seed=SEED + 120, ref_batch=DS_B, delta_base=False,
+                           want_latent=DS_SERVE_LAYERS * DS_GEN)
+    mo, ml = cfg.moe, cfg.mla
+    served = res["launches"]
+    worker, prompts, cache = res["worker"], res["prompts"], {}
+
+    def prefill():
+        cache["state"] = worker.model.prefill(worker.params, {"tokens": prompts}, max_len=DS_PROMPT + DS_GEN)
+
+    def decode_step():
+        logits, kv, n = cache["state"]
+        cache["state"] = worker.model.decode(worker.params, kv, logits[:, -1].argmax(-1, keepdim=True), n) + (n + 1,)
+
+    prefill()
+    decode_step()  # warm
+    profile = device_profile(torch, decode_step)
+    emit("mla_arch_result", card=smi, config=cfg.name, layers=DS_SERVE_LAYERS, of_layers=cfg.num_layers,
+         dense_prefix=mo.first_dense, experts=mo.num_experts, top_k=mo.top_k, shared=mo.num_shared,
+         mla=dataclasses.asdict(ml), requests=DS_B, prompt_len=DS_PROMPT, gen_len=DS_GEN,
+         replicate_seconds=res["replicate_s"], publish_v1_seconds=res["publish_s"], update_seconds=res["update_s"],
+         rounds=res["rounds"], prefill_seconds=res["prefill_s"], prefill_tokens_per_s=res["prefill_tokens_per_s"],
+         decode_tokens_per_s=res["decode_tokens_per_s"], round_tokens_per_s=res["round_tokens_per_s"],
+         max_memory_allocated=res["peak"], launches=served,
+         dropped_pairs_by_round=[c["dropped_pairs_served"] for c in res["checks"]],
+         routed_pairs_by_round=[c["routed_pairs"] for c in res["checks"]],
+         flipped_rows_by_round=[c["routing"]["flipped_rows"] for c in res["checks"]], checks=res["checks"],
+         seconds=time.perf_counter() - t0)
+    emit("mla_serve_profile", card=smi, config=cfg.name, layers=DS_SERVE_LAYERS, decode_step=profile)
+    check(res["peak"] < 80e9, f"{cfg.name}: peak {res['peak']} bytes")
+    del res, worker, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -3358,7 +3637,10 @@ def main() -> int:
     fwd["routes"]["tensor_core"]["dbrx_prefill"] = dbrx["prefill"]
     fwd["routes"]["decode"]["dbrx_decode"] = dbrx["decode"]
     bwd_tc["dbrx_backward"] = dbrx["backward"]
-    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"])), (bwd_tc, (dbrx["backward"],))):
+    mla = mla_attention_checks(torch, dev, bw)
+    fwd["routes"]["tensor_core"]["mla_prefill"] = mla["mla_prefill"]
+    kernels["mla_decode"] = mla["mla_decode"]
+    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"])), (bwd_tc, (dbrx["backward"],))):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
         entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
     for kernel, rec in big_tensor_checks(torch, dev, bw).items():
@@ -3366,7 +3648,7 @@ def main() -> int:
     phase_s["2 kernels"] = time.perf_counter() - t0
     counters = {k: v.pop("counter") for k, v in kernels.items()}
     shapes = llama3_8b_shapes(num_layers=NUM_LAYERS)
-    transfer_counters = {k: c for k, c in counters.items() if not k.startswith("flash_attention")}
+    transfer_counters = {k: c for k, c in counters.items() if not k.startswith(("flash_attention", "mla_decode"))}
     t0 = time.perf_counter()
     phase3 = transfer(
         torch, dev, {k: counters[k] for k in ("checksum", "quantize_rows")}, shapes, DEFAULT_CHUNK_BYTES
@@ -3414,11 +3696,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase11 = moe_arch(torch, dev, counters, smi)
     phase_s["11 moe arch"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase12 = mla_arch(torch, dev, counters, smi)
+    phase_s["12 mla arch"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11)  # the paths with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12)  # the paths with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11)  # the paths with the backward
@@ -3429,7 +3716,7 @@ def main() -> int:
             route = k.split("/")[1]
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase_seconds=phase_s)
+         phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,7 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
@@ -53,11 +54,16 @@ SIGNATURES = {
     #  lse f32[B,Hq,Sq] or null, stream)
     "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                            _F32, _INT, _INT, _INT, _P, _P),
-    # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, causal,
-    #  softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null, stream);
-    #  bf16, D in {64, 128, 256}
-    "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
+    # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, Dv,
+    #  causal, softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null,
+    #  stream); bf16, (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}
+    "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
                               _INT, _P, _P),
+    # (q_abs, q_rope, ckv, krope, out f32, B, H, ckv batch and slot strides,
+    #  krope batch and slot strides, kv_len, keys_per_split, nsplit, scale,
+    #  f32 scratch, int32 split counters, stream); bf16 in, R 512, rope 64
+    "th_mla_decode": (_P, _P, _P, _P, _P, _INT, _INT, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _F32, _P, _P,
+                      _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
     #  D, causal, softcap, q_offset, kv_len, window, keys_per_split, nsplit,
     #  f32 scratch, int32 split counters, stream)

@@ -1,6 +1,7 @@
 // Flash attention (online softmax) for Hopper on the tensor cores: bf16
 // q, k, v at head_dim 64, 128 or 256, the prefill route of the serving path
-// and the training forward (gemma2's at 256).
+// and the training forward (gemma2's at 256), and q/k at 192 with v at 128
+// (deepseek-v3's expanded MLA prefill).
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention/kernel.py, _flash_kernel). For query
@@ -87,6 +88,22 @@
 // m64n128k16 products on the two halves of V's columns. The plans of
 // head_dim 64 and 128 are the ones they had before.
 //
+// Each plan has a score width DK (Q and K) and a value width DV (V and O),
+// equal but for deepseek-v3's expanded MLA (Plan<192, 128>): q/k rows of
+// 128 + 64 (the decoupled rope part) and v rows of 128. S = Q.K^T runs over
+// 12 k-steps of 16, O += P.V as m64n128k16, the scale is 1/sqrt(192), and
+// the registers are D = 128's (o is 64 x 128). Shared memory is the catch:
+// a 192-row Q buffer 192 wide is 72 KB, a K tile 24 KB and a V tile 16 KB,
+// so D = 128's two Q buffers and three stages (264 KB) do not fit 227 KB.
+// The plan keeps three consumer warpgroups and a producer warp, with one Q
+// buffer (the next item's Q loads once this item's output has left it, as
+// at 256) and three K/V stages: 72 + 3 x (24 + 16) = 192 KB. A 192-wide row
+// is three 64-element boxes; the output (128 wide) goes out through the
+// first two boxes of the Q buffer. Bound at the served prefill (4 x 128
+// heads x 512, causal): 2 x 4 x 128 x 131,328 live pairs x (192 + 128) =
+// 43.0 GFLOP, 0.043 ms at 989 TFLOP/s, against 335.5 MB of q, k, v and o
+// (every head has its own K and V), 0.100 ms at 3.35 TB/s: bound by bytes.
+//
 // The TMA, mbarrier and wgmma helpers and the tensor maps live in
 // hopper.cuh, shared with the backward (flash_attention_bwd_tc.cu).
 
@@ -100,9 +117,10 @@ namespace {
 constexpr int kBK = 64;  // keys a tile
 constexpr float kNegInf = -1e30f;
 
-// The tile plan of a head_dim. D = 64, 128: items of 192 query rows (three
-// consumer warpgroups) and a producer warp, two Q buffers, three K/V stages
-template <int D>
+// The tile plan of a (score, value) head_dim pair. D = 64, 128: items of
+// 192 query rows (three consumer warpgroups) and a producer warp, two Q
+// buffers, three K/V stages
+template <int DK, int DV>
 struct Plan {
   static constexpr int kWarpgroups = 3;  // consumer warpgroups: 64 query rows each
   static constexpr int kQBufs = 2;       // Q buffers: the next item's loads early
@@ -118,12 +136,26 @@ struct Plan {
 // warpgroup under setmaxnreg (2 x 128 x 240 + 128 x 24 <= 65536), one Q
 // buffer and two K/V stages (see the header)
 template <>
-struct Plan<256> {
+struct Plan<256, 256> {
   static constexpr int kWarpgroups = 2;
   static constexpr int kQBufs = 1;
   static constexpr int kStages = 2;
   static constexpr int kProducer = 128;
   static constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+  static constexpr int kBQ = 64 * kWarpgroups;
+  static constexpr int kConsumers = 128 * kWarpgroups;
+  static constexpr int kThreads = kConsumers + kProducer;
+};
+
+// (192, 128), MLA: D = 128's warpgroups and producer warp, one Q buffer and
+// three K/V stages (see the header)
+template <>
+struct Plan<192, 128> {
+  static constexpr int kWarpgroups = 3;
+  static constexpr int kQBufs = 1;
+  static constexpr int kStages = 3;
+  static constexpr int kProducer = 32;
+  static constexpr int kConsumerRegs = 0, kProducerRegs = 0;
   static constexpr int kBQ = 64 * kWarpgroups;
   static constexpr int kConsumers = 128 * kWarpgroups;
   static constexpr int kThreads = kConsumers + kProducer;
@@ -144,15 +176,16 @@ struct MapDims {
   int q[3], k[3], v[3], o[3];
 };
 
-template <int D>
+template <int DK, int DV>
 struct Layout {
-  using P = Plan<D>;
-  static constexpr uint32_t kQBytes = P::kBQ * D * 2;
-  static constexpr uint32_t kTileBytes = kBK * D * 2;
+  using P = Plan<DK, DV>;
+  static constexpr uint32_t kQBytes = P::kBQ * DK * 2;
+  static constexpr uint32_t kKBytes = kBK * DK * 2;  // a K tile
+  static constexpr uint32_t kVBytes = kBK * DV * 2;  // a V tile
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + P::kQBufs * kQBytes;
-  static constexpr uint32_t kV = kK + P::kStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + P::kStages * kTileBytes;
+  static constexpr uint32_t kV = kK + P::kStages * kKBytes;
+  static constexpr uint32_t kBar = kV + P::kStages * kVBytes;
   static constexpr uint32_t kBytes = kBar + 8 * (4 + 3 * P::kStages) + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
@@ -160,15 +193,16 @@ struct Layout {
 // W: the call has a window. The unwindowed instances carry none of the
 // window's tile bounds, compares or all-masked-row guard, so a call
 // without a window runs the code it ran before the window came
-template <int D, bool W>
-__global__ void __launch_bounds__(Plan<D>::kThreads, 1)
+template <int DK, int DV, bool W>
+__global__ void __launch_bounds__(Plan<DK, DV>::kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
                     const TcParams p, const MapDims dims) {
-  using L = Layout<D>;
-  using P = Plan<D>;
+  using L = Layout<DK, DV>;
+  using P = Plan<DK, DV>;
   constexpr int kBQ = P::kBQ, kStages = P::kStages, kConsumers = P::kConsumers;
-  constexpr int NB = D / kBox;  // 64-element boxes a row
+  constexpr int NBK = DK / kBox;  // 64-element boxes a Q or K row
+  constexpr int NBV = DV / kBox;  // and a V or O row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t base = smem_u32(smem);
@@ -182,8 +216,8 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
   auto v_full = [&](int s) { return bar(4 + kStages + s); };
   auto empty = [&](int s) { return bar(4 + 2 * kStages + s); };
   auto q_buf = [&](int i) { return base + L::kQ + i * L::kQBytes; };
-  auto k_tile = [&](int s) { return base + L::kK + s * L::kTileBytes; };
-  auto v_tile = [&](int s) { return base + L::kV + s * L::kTileBytes; };
+  auto k_tile = [&](int s) { return base + L::kK + s * L::kKBytes; };
+  auto v_tile = [&](int s) { return base + L::kV + s * L::kVBytes; };
 
   const int tid = threadIdx.x;
   const int nbh = p.batch * p.hq;
@@ -235,19 +269,19 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
         mbar_wait(q_empty(qb), q_par(n) ^ 1);  // passes at once on a fresh buffer
         mbar_expect_tx(q_full(qb), L::kQBytes);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+        for (int nb = 0; nb < NBK; ++nb)
           tma_load(q_buf(qb) + nb * kBQ * kRowBytes, &qmap, q_full(qb), dims.q, nb * kBox, x.q0, x.h, x.b);
         const int hk = x.h / p.group;
         for (int t = x.t0; t < x.t0 + x.ntiles; ++t, ++it) {
           const int s = it % kStages;
           mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
-          mbar_expect_tx(k_full(s), L::kTileBytes);
+          mbar_expect_tx(k_full(s), L::kKBytes);
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
+          for (int nb = 0; nb < NBK; ++nb)
             tma_load(k_tile(s) + nb * kBK * kRowBytes, &kmap, k_full(s), dims.k, nb * kBox, t * kBK, hk, x.b);
-          mbar_expect_tx(v_full(s), L::kTileBytes);
+          mbar_expect_tx(v_full(s), L::kVBytes);
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
+          for (int nb = 0; nb < NBV; ++nb)
             tma_load(v_tile(s) + nb * kBK * kRowBytes, &vmap, v_full(s), dims.v, nb * kBox, t * kBK, hk, x.b);
         }
       }
@@ -272,9 +306,9 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
     const int wg_kv_end = row0 < p.sq ? wg_end : 0;  // a warpgroup past Sq does no math
     const int wg_kv_start = p.q_offset + row0 - p.window + 1;  // its first row's first key (may be < 0)
     const int pos_last = p.q_offset + row0 + 63;               // its last row's position
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
     const uint32_t q_base = q_buf(qb) + wg * 64 * kRowBytes;
     mbar_wait(q_full(qb), q_par(n));
@@ -290,7 +324,7 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
         for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the swizzled row
           const uint64_t da = sw128_desc(q_base + (kk / 4) * kBQ * kRowBytes + off, 16, 1024);
           const uint64_t db = sw128_desc(k_tile(s) + (kk / 4) * kBK * kRowBytes + off, 16, 1024);
@@ -357,7 +391,7 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
         l_a = l_a * al_a + sum_a;  // this thread's share of the row sums
         l_b = l_b * al_b + sum_b;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o[4 * j + 0] *= al_a;
           o[4 * j + 1] *= al_a;
           o[4 * j + 2] *= al_b;
@@ -378,7 +412,7 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
         for (int kk = 0; kk < kBK / 16; ++kk) {
           // V [keys][D] is the MN-major B operand: 16 keys a step (2 KB of
           // 128-byte rows), 64-element column blocks kBK rows apart
-          wgmma_rs<D>(o, pa[kk], sw128_desc(v_tile(s) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
+          wgmma_rs<DV>(o, pa[kk], sw128_desc(v_tile(s) + kk * 16 * kRowBytes, kBK * kRowBytes, 1024));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -403,7 +437,7 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
     const uint32_t stage = q_buf(qb) + wg * 64 * kRowBytes;
     uint8_t* stage_p = smem + (stage - base);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int nb = j / 8, jj = j % 8;
       uint8_t* box = stage_p + nb * kBQ * kRowBytes;
       const int rb = ra + 8;
@@ -416,7 +450,7 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     if (tid % 128 == 0) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) tma_store(&omap, stage + nb * kBQ * kRowBytes, dims.o, nb * kBox, row0, x.h, x.b);
+      for (int nb = 0; nb < NBV; ++nb) tma_store(&omap, stage + nb * kBQ * kRowBytes, dims.o, nb * kBox, row0, x.h, x.b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -426,55 +460,57 @@ __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
   if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int D, bool W>
+template <int DK, int DV, bool W>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const CUtensorMap& om, const TcParams& p,
            const MapDims& dims, int blocks, cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::kBytes;
+  constexpr int bytes = Layout<DK, DV>::kBytes;
   static bool sized = false;  // the attribute is set once a kernel
   if (!sized) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_tc_kernel<D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        cudaFuncSetAttribute(flash_tc_kernel<DK, DV, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  flash_tc_kernel<D, W><<<blocks, Plan<D>::kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
+  flash_tc_kernel<DK, DV, W><<<blocks, Plan<DK, DV>::kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the maps, the work items and the launch of head_dim D's plan
-template <int D>
+// the maps, the work items and the launch of the (DK, DV) plan
+template <int DK, int DV>
 int run(const void* q, const void* k, const void* v, void* o, const long long* strides, int batch, int hq, int hkv,
         int sq, TcParams& p, int window, cudaStream_t s) {
-  constexpr int kBQ = Plan<D>::kBQ;
+  constexpr int kBQ = Plan<DK, DV>::kBQ;
   CUtensorMap qm, km, vm, om;
   MapDims dims;
-  int err = make_map(&qm, q, D, sq, hq, batch, strides + 0, kBQ, dims.q);
-  if (err == 0) err = make_map(&km, k, D, p.kv_len, hkv, batch, strides + 3, kBK, dims.k);
-  if (err == 0) err = make_map(&vm, v, D, p.kv_len, hkv, batch, strides + 6, kBK, dims.v);
-  if (err == 0) err = make_map(&om, o, D, sq, hq, batch, strides + 9, 64, dims.o);
+  int err = make_map(&qm, q, DK, sq, hq, batch, strides + 0, kBQ, dims.q);
+  if (err == 0) err = make_map(&km, k, DK, p.kv_len, hkv, batch, strides + 3, kBK, dims.k);
+  if (err == 0) err = make_map(&vm, v, DV, p.kv_len, hkv, batch, strides + 6, kBK, dims.v);
+  if (err == 0) err = make_map(&om, o, DV, sq, hq, batch, strides + 9, 64, dims.o);
   if (err != 0) return err;
   p.num_q_tiles = (sq + kBQ - 1) / kBQ;
   static int sms = 0;  // one persistent block an SM
   if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
   const int work = p.num_q_tiles * batch * hq;
   const int blocks = work < sms ? work : sms;
-  return window > 0 ? launch<D, true>(qm, km, vm, om, p, dims, blocks, s)
-                    : launch<D, false>(qm, km, vm, om, p, dims, blocks, s);
+  return window > 0 ? launch<DK, DV, true>(qm, km, vm, om, p, dims, blocks, s)
+                    : launch<DK, DV, false>(qm, km, vm, om, p, dims, blocks, s);
 }
 
 }  // namespace
 
-// bf16 q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by
-// its pointer and its (batch, head, sequence) element strides in `strides`
-// (a host array of 12: q, k, v, o); D in {64, 128, 256}; pointers and
+// bf16 q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv, Sk, Dv], o [B, Hq,
+// Sq, Dv], each by its pointer and its (batch, head, sequence) element
+// strides in `strides` (a host array of 12: q, k, v, o); (D, Dv) in {(64,
+// 64), (128, 128), (256, 256), (192, 128)}; the scale 1/sqrt(D); pointers and
 // strides of q, k and v 16-byte aligned; 1 <= kv_len <= Sk; window > 0 a
 // sliding window, 0 none; lse f32 [B, Hq, Sq] or null. Returns
 // cudaGetLastError() after the launch, or a tensor-map encoding failure
 // negated.
 extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
-                                     int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
+                                     int batch, int hq, int hkv, int sq, int d, int dv, int causal, float softcap,
                                      int q_offset, int kv_len, int window, float* lse, void* stream) {
-  if (d != 64 && d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
+  const bool mla = d == 192 && dv == 128;
+  if (!mla && (dv != d || (d != 64 && d != 128 && d != 256))) return static_cast<int>(cudaErrorInvalidValue);
   TcParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
@@ -491,8 +527,9 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return run<64>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
-    case 128: return run<128>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
-    default: return run<256>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    case 64: return run<64, 64>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    case 128: return run<128, 128>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    case 192: return run<192, 128>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    default: return run<256, 256>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
   }
 }

@@ -2,9 +2,11 @@
 and decode.
 
 ``flash_attention(q, k, v, causal=, softcap=, q_offset=, kv_len=, window=)``
-takes q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Sk, D]`` (the JAX wrapper's
-layout, ``repro/kernels/flash_attention/ops.py``) and returns
-``[B, Hq, Sq, D]`` in q's dtype:
+takes q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Sk, D]`` and v ``[B, Hkv, Sk,
+Dv]`` (the JAX wrapper's layout, ``repro/kernels/flash_attention/ops.py``;
+``Dv`` is ``D`` but for MLA's expanded form, q/k 192 and v 128, as the JAX
+models' ``chunked_attention`` allows) and returns ``[B, Hq, Sq, Dv]`` in
+q's dtype:
 
     s   = (q . k) / sqrt(D)               in f32
     s   = softcap * tanh(s / softcap)      when softcap > 0
@@ -37,8 +39,9 @@ a failure:
   partial softmax states (what :func:`split_kv_plain` computes in plain
   PyTorch).
 * ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
-  head_dim 64, 128 or 256 (the prefill, and gemma2's at 256): TMA loads
-  and ``wgmma`` on the tensor cores.
+  head_dim 64, 128 or 256 (the prefill, and gemma2's at 256), and every
+  bf16 call at (D, Dv) = (192, 128) (deepseek-v3's expanded MLA prefill):
+  TMA loads and ``wgmma`` on the tensor cores (``TC_DIM_PAIRS``).
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
   f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
   ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
@@ -51,8 +54,9 @@ walks only the key tiles from its first visible key (:func:`live_start`)
 to its last, and masks the window's edge per element as it masks the
 causal one.
 
-Other head_dims (80 of zamba2, 192 of deepseek-v3's MLA) are refused on
-the card until their model families are ported.
+Other head_dims (80 of zamba2, 192 with a v of 192) are refused on the
+card, and so is every Dv != D but (192, 128), with the route and the shape
+named. The scale is ``1/sqrt(D)`` of q/k's width.
 
 On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
 (naive f32 softmax, as the JAX package's ``ref.py:attention_ref`` and
@@ -89,7 +93,8 @@ CPU the same ``Function`` runs :func:`attention_plain` and
 :func:`attention_backward_plain` at any head_dim. The JAX package has no
 Pallas backward: it differentiates its jnp ``chunked_attention``. On the
 card the backward refuses only the head_dims no kernel takes (80 of
-zamba2, 192 of deepseek-v3's MLA); nothing falls back to another route.
+zamba2, 192 of deepseek-v3's MLA, which waits for the deepseek-v3 training
+slice); nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -110,6 +115,9 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)  # the decode route's
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 128, 256)  # the tensor-core routes', forward and backward (bf16)
+#: the (q/k, v) head_dims the tensor-core forward takes: its plans
+#: (csrc/flash_attention_tc.cu), deepseek-v3's expanded MLA last
+TC_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 route's (f32, bf16, f16)
 MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
 DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
@@ -137,9 +145,9 @@ BWD_LAUNCHES = {f"{r}/{k}": build.LaunchCount() for r, ks in BWD_KERNELS.items()
 
 def _check(q, k, v, softcap: float, q_offset: int, kv_len: Optional[int], window: int = 0) -> int:
     """Validate the call; return the effective ``kv_len``."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
-            f"flash_attention: want q [B,Hq,Sq,D], k = v [B,Hkv,Sk,D], got "
+            f"flash_attention: want q [B,Hq,Sq,D], k [B,Hkv,Sk,D], v [B,Hkv,Sk,Dv] (k = v in B, Hkv, Sk), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, hq, _, d = q.shape
@@ -181,11 +189,11 @@ def attention_plain(
     masked with -1e30, a softmax, and the product with v (GQA by grouping
     the query heads, without repeating K/V)."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
-    b, hq, sq, d = q.shape
+    b, hq, sq, _ = q.shape
     s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, v.shape[3]).to(q.dtype)
 
 
 def _mask(sq: int, kpos: torch.Tensor, causal: bool, q_offset: int, kv_len: int, window: int) -> torch.Tensor:
@@ -259,15 +267,15 @@ def attention_backward_plain(
     dtype."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
-    hkv = k.shape[1]
+    hkv, vd = k.shape[1], v.shape[3]
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
     s, _, t = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
-    do = dout.float().reshape(b, hkv, g, sq, d)
+    do = dout.float().reshape(b, hkv, g, sq, vd)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.float())
-    rows = (do * out.float().reshape(b, hkv, g, sq, d)).sum(dim=-1, keepdim=True)
+    rows = (do * out.float().reshape(b, hkv, g, sq, vd)).sum(dim=-1, keepdim=True)
     ds = p * (dp - rows)
     if t is not None:
         ds = ds * (1.0 - t * t)
@@ -307,13 +315,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False) -> str:
+def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False, v: Optional[torch.Tensor] = None) -> str:
     """The kernel a call goes to, from dtype and shape alone: ``decode``
     for a decode-sized call in f32 or bf16 at head_dim 64/128/256,
-    ``tensor_core`` for bf16 at head_dim 64/128/256, ``f32`` for the rest. A
-    call that needs a gradient (``grad``) never goes to ``decode``: only
-    the other two forwards write the log-sum-exp the backward reads."""
+    ``tensor_core`` for bf16 at head_dim 64/128/256 and for every bf16 call
+    at (D, Dv) = (192, 128) (v's head_dim ``Dv`` is D unless ``v`` is
+    given), ``f32`` for the rest. A call that needs a gradient (``grad``)
+    never goes to ``decode``: only the other two forwards write the
+    log-sum-exp the backward reads. Only ``tensor_core`` takes Dv != D: any
+    other pair goes to ``f32``, which refuses it."""
     _, hq, sq, d = q.shape
+    vd = d if v is None else v.shape[3]
+    if vd != d:
+        return "tensor_core" if q.dtype == torch.bfloat16 and (d, vd) in TC_DIM_PAIRS else "f32"
     small = sq * (hq // k.shape[1]) <= DECODE_ROWS
     if not grad and small and q.dtype in DECODE_DTYPES and d in HEAD_DIMS:
         return "decode"
@@ -390,7 +404,7 @@ def split_kv_plain(
     w = torch.exp(m_all - m_all.amax(dim=0))
     den = (w * torch.stack(ls)).sum(dim=0).clamp_min(1e-30)
     out = (w * torch.stack(accs)).sum(dim=0) / den
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, v.shape[3]).to(q.dtype)
 
 
 def flash_attention(
@@ -404,17 +418,18 @@ def flash_attention(
     kv_len: Optional[int] = None,
     window: int = 0,
 ) -> torch.Tensor:
-    """Attention of q ``[B, Hq, Sq, D]`` over k, v ``[B, Hkv, Sk, D]``
-    (see the module docstring); asynchronous on CUDA. Differentiable: when
-    autograd wants a gradient the call goes through :class:`FlashAttention`."""
+    """Attention of q ``[B, Hq, Sq, D]`` over k ``[B, Hkv, Sk, D]`` and v
+    ``[B, Hkv, Sk, Dv]`` (see the module docstring); asynchronous on CUDA.
+    Differentiable: when autograd wants a gradient the call goes through
+    :class:`FlashAttention`."""
     kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
-        _check_backward(q)
+        _check_backward(q, v)
         return FlashAttention.apply(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len, int(window))
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **kw)
-    return launch_route(_route(q, k), q, k, v, **kw)
+    return launch_route(_route(q, k, v=v), q, k, v, **kw)
 
 
 def launch_route(
@@ -438,13 +453,21 @@ def launch_route(
     output."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
-    hkv = k.shape[1]
+    hkv, vd = k.shape[1], v.shape[3]
     g = hq // hkv
     if route not in ROUTES:
         raise ValueError(f"flash_attention: unknown route {route!r}")
-    dims = {"decode": HEAD_DIMS, "tensor_core": TC_HEAD_DIMS, "f32": F32_HEAD_DIMS}[route]
-    if d not in dims:
-        raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
+    if route == "tensor_core":
+        if (d, vd) not in TC_DIM_PAIRS:
+            raise ValueError(f"flash_attention: the tensor_core route takes (q/k, v) head_dim in {TC_DIM_PAIRS}, "
+                             f"got head_dim ({d}, {vd}) of q {tuple(q.shape)}, v {tuple(v.shape)}")
+    elif vd != d:
+        raise ValueError(f"flash_attention: the {route} route takes v's head_dim equal to q/k's, got head_dim "
+                         f"({d}, {vd}) of q {tuple(q.shape)}, v {tuple(v.shape)}")
+    else:
+        dims = HEAD_DIMS if route == "decode" else F32_HEAD_DIMS
+        if d not in dims:
+            raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
     if route == "tensor_core" and q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the tensor_core route takes bfloat16, got {q.dtype}")
     if route == "decode" and q.dtype not in DECODE_DTYPES:
@@ -457,7 +480,7 @@ def launch_route(
         raise ValueError("flash_attention: the decode route writes no log-sum-exp")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention: unsupported device {q.device}")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((b, sq, hq, vd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return (out, lse) if with_lse else out
@@ -480,7 +503,7 @@ def launch_route(
                                   part.data_ptr(), counters.data_ptr(), stream)
     elif route == "tensor_core":
         name = "th_flash_attention_tc"
-        err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, *flags, lse_ptr, stream)
+        err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, vd, *flags, lse_ptr, stream)
     else:
         name = "th_flash_attention"
         err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, lse_ptr, stream)
@@ -488,13 +511,19 @@ def launch_route(
     return (out, lse) if with_lse else out
 
 
-def _check_backward(q: torch.Tensor) -> None:
+def _check_backward(q: torch.Tensor, v: Optional[torch.Tensor] = None) -> None:
     """Raise where no backward kernel takes the call: on CUDA, a head_dim
-    outside ``BWD_HEAD_DIMS`` (the plain version on the CPU takes any)."""
+    outside ``BWD_HEAD_DIMS``, or v's head_dim apart from q's (the plain
+    version on the CPU takes any)."""
     d = q.shape[-1]
-    if q.device.type != "cpu" and d not in BWD_HEAD_DIMS:
+    if q.device.type == "cpu":
+        return
+    if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d} "
-                                  "(head_dim 80 and 192 wait for the zamba2 and deepseek-v3 slices)")
+                                  "(head_dim 80 waits for the zamba2 slice, 192 for the deepseek-v3 training slice)")
+    if v is not None and v.shape[-1] != d:
+        raise NotImplementedError(f"flash_attention: the backward kernels take v's head_dim equal to q/k's, got "
+                                  f"({d}, {v.shape[-1]}) (MLA's waits for the deepseek-v3 training slice)")
 
 
 def attention_backward(
@@ -557,7 +586,7 @@ def launch_backward(
                          f"{TC_HEAD_DIMS}, got {q.dtype} at head_dim {d}")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention backward: unsupported device {q.device}")
-    _check_backward(q)
+    _check_backward(q, v)
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"flash_attention backward: Hq/Hkv <= {MAX_GROUP}, got {hq // hkv}")
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -610,7 +639,7 @@ class FlashAttention(torch.autograd.Function):
             out = attention_plain(q, k, v, **kw)
             lse = attention_lse_plain(q, k, **kw)
         else:
-            out, lse = launch_route(_route(q, k, grad=True), q, k, v, with_lse=True, **kw)
+            out, lse = launch_route(_route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out

@@ -11,13 +11,18 @@ the depth (default: the arch's own; two replicas of llama3-8b's 32 layers
 take 32 GB); the widths are never cut. A depth whose two copies (the
 publisher's and the rollout's) do not fit the device's memory is refused
 before anything is allocated: dbrx-132b's 40 layers are 264 GB a copy, so
-it is served with ``--layers``. The dense family (llama3-8b, yi-34b,
-deepseek-coder-33b, gemma2-2b) and the routed experts of dbrx-132b are
-ported; another arch exits with the slice it waits for.
+it is served with ``--layers`` (deepseek-v3-671b's 61 layers are 1.3 TB a
+copy; its 4 least layers, three dense and one of routed experts, 30.2
+GB). The dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b),
+the routed experts of dbrx-132b and deepseek-v3-671b's MLA attention
+(prefill through the flash kernel at q/k 192, v 128; decode through the
+absorbed-latent ``mla_decode`` kernel) are ported; another arch exits
+with the slice it waits for.
 
     python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
     python -m repro_torch.launch.serve --arch dbrx-132b --layers 4 --requests 4 --prompt-len 512 --gen-len 16
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs the plain attention on the host.

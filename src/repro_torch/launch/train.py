@@ -13,7 +13,9 @@ pattern). The port's counterpart of the JAX package's
 It runs on the card by default and raises without one; ``--device cpu``
 runs on the host. The dense decoder (llama3-8b, yi-34b,
 deepseek-coder-33b, gemma2-2b) and the routed experts of dbrx-132b are
-ported; another arch exits with the slice it waits for. With ``--publish`` the trainer registers its parameters
+ported; another arch exits with the slice it waits for (deepseek-v3-671b
+is served but waits for its training slice: its MLA attention has no
+backward kernel yet). With ``--publish`` the trainer registers its parameters
 themselves with a local TensorHub, and each step (which writes them in
 place) is published from those buffers with no copy.
 """
@@ -28,7 +30,7 @@ import torch
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.synthetic import BigramStream
-from repro_torch.models import build_model
+from repro_torch.models import build_model, check_trainable
 from repro_torch.models.params import init_params
 from repro_torch.training import AdamW, cosine_schedule, make_train_step
 from repro_torch.transfer.engine import resolve_device
@@ -54,6 +56,7 @@ def main(argv=None) -> None:
     if not args.full_config:
         cfg = cfg.reduced()
     try:
+        check_trainable(cfg)
         model = build_model(cfg)
     except NotImplementedError as e:
         ap.exit(2, f"{ap.prog}: {e}\n")

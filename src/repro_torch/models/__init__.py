@@ -6,9 +6,10 @@ and weight carry-across from the JAX package (``params``), and
 ``build_model(cfg)`` is the port's side of the JAX package's
 ``repro.models.build_model``: it returns :class:`~repro_torch.models.lm.DecoderLM`
 for the dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b)
-and for the MoE family without MLA (dbrx-132b), and raises
-``NotImplementedError`` naming the slice of the port that each other
-family, and MLA attention (deepseek-v3), waits for.
+and for the MoE family (dbrx-132b, and deepseek-v3-671b with its MLA
+attention), and raises ``NotImplementedError`` naming the slice of the
+port that each other family waits for. ``check_trainable`` also refuses
+MLA for training: its backward waits for the deepseek-v3 training slice.
 """
 
 from __future__ import annotations
@@ -16,9 +17,8 @@ from __future__ import annotations
 from repro_torch.configs.base import AUDIO, DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models.lm import DecoderLM
 
-#: what each family not ported yet waits for (for MoE: its configs with MLA)
+#: what each family not ported yet waits for
 WAITING = {
-    MOE: "the MLA slice (deepseek-v3's multi-head latent attention)",
     VLM: "the VLM slice (the vision frontend)",
     HYBRID: "the hybrid slice (the Mamba2 SSD blocks)",
     SSM: "the SSM slice (the xLSTM blocks)",
@@ -26,15 +26,26 @@ WAITING = {
 }
 
 
+#: what training a config with MLA attention waits for
+MLA_TRAINING = ("the deepseek-v3 training slice (the tensor-core attention backward at q/k 192, v 128, "
+                "and the reduced config's head_dims 24/16 on the CUDA-core routes)")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg``: the dense
-    and MoE families (routed experts, a shared expert, a dense prefix)
-    without MLA."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention waits for {WAITING[MOE]} of the port")
+    """Raise ``NotImplementedError`` unless the port serves ``cfg``: the
+    dense and MoE families (routed experts, a shared expert, a dense
+    prefix, MLA attention)."""
     if cfg.family not in (DENSE, MOE):
         what = WAITING.get(cfg.family, "its slice")
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family waits for {what} of the port")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port trains ``cfg``: what it
+    serves (:func:`check_ported`) without MLA attention, on every device."""
+    check_ported(cfg)
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: training MLA attention waits for {MLA_TRAINING} of the port")
 
 
 def build_model(cfg: ModelConfig, **kw):

@@ -1,6 +1,7 @@
-"""Decoder blocks: GQA attention, the SwiGLU MLP and the routed MoE FFN.
+"""Decoder blocks: GQA attention, multi-head latent attention (MLA), the
+SwiGLU MLP and the routed MoE FFN.
 
-The port's copy of the JAX package's ``models/blocks.py`` without MLA.
+The port's copy of the JAX package's ``models/blocks.py``.
 Each block takes its parameters as a dict of views
 (one layer's slice of the stacked tensors a replica registers). Matmuls
 run in the activation dtype (bf16 on the serving path); norms, rotary
@@ -83,6 +84,104 @@ def attn_apply(
     if "post_ln" in p:
         proj = rms_norm(proj, p["post_ln"])
     return x + proj, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """One MLA layer's parameter shapes by name, as the JAX package's
+    ``mla_specs``: the queries through a low-rank path (``wq_a``, its norm
+    ``q_ln``, ``wq_b`` to H heads of ``qk_nope + qk_rope``), the shared KV
+    latent and the decoupled rope key (``wkv_a``, the latent's norm
+    ``kv_ln``), the latent's up-projections to each head's keys and values
+    (``wkv_b_k``, ``wkv_b_v``) and the output projection."""
+    m = cfg.mla
+    assert m is not None
+    d, H = cfg.d_model, cfg.num_heads
+    return {
+        "ln": (d,),
+        "wq_a": (d, m.q_lora_rank),
+        "q_ln": (m.q_lora_rank,),
+        "wq_b": (m.q_lora_rank, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+        "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_ln": (m.kv_lora_rank,),
+        "wkv_b_k": (m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "wkv_b_v": (m.kv_lora_rank, H * m.v_head_dim),
+        "wo": (H * m.v_head_dim, d),
+    }
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The absorbed form's softmax scale, ``1/sqrt(qk_nope + qk_rope)``
+    computed in f32 as the JAX package computes it (the expanded form's
+    flash attention takes ``1/sqrt`` of q/k's width, the same width)."""
+    m = cfg.mla
+    width = torch.tensor(float(m.qk_nope_head_dim + m.qk_rope_head_dim), dtype=torch.float32)
+    return float(1.0 / torch.sqrt(width))
+
+
+def mla_apply(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # [B, S, D]
+    *,
+    positions: torch.Tensor,  # [S]
+    attention: Callable[..., torch.Tensor],
+    latent_attention: Callable[..., torch.Tensor],
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"ckv": [B, Smax, R], "krope": [B, Smax, rd]}
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (block output incl. residual, the cache or the fresh
+    ``{"ckv", "krope"}``), as the JAX package's ``mla_apply``.
+
+    Without a cache (prefill, ``forward``) the expanded form: each head's
+    keys ``[k_nope | k_rope]`` (the rope key broadcast over the heads) and
+    values are materialised from the latent and go with the queries
+    ``[q_nope | q_rope]`` to ``attention`` (causal; q/k of ``qk_nope +
+    qk_rope`` and v of ``v_head_dim``: the flash kernel's (192, 128) plan
+    for deepseek-v3). With a cache (decode) the absorbed form: the step's
+    latent and rope key are written into the cache in place at
+    ``cache_len`` (the JAX package's ``dynamic_update_slice`` returns a new
+    cache), ``wkv_b_k`` is folded into the queries (``q_abs``, in the
+    activation dtype, as JAX's einsum of two bf16 operands), and
+    ``latent_attention`` (the ``mla_decode`` kernel's wrapper, or its plain
+    version) scores them against the latent cache and returns the latent
+    output in f32, which ``wkv_b_v`` takes to each head's values in f32
+    (with TF32 off, as the port leaves it, this product is f32 as the
+    reference's), cast to the activation dtype."""
+    m = cfg.mla
+    assert m is not None
+    b, s, _ = x.shape
+    H, rd = cfg.num_heads, m.qk_rope_head_dim
+    h = rms_norm(x, p["ln"])
+    # queries through the low-rank path
+    q_lat = rms_norm(h @ p["wq_a"], p["q_ln"])
+    q = _split_heads(q_lat @ p["wq_b"], H)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, rd], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    # the kv latent and the decoupled rope key
+    ckv, k_rope = (h @ p["wkv_a"]).split([m.kv_lora_rank, rd], dim=-1)
+    ckv = rms_norm(ckv, p["kv_ln"])  # [B, S, R]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)  # [B, S, rd]
+
+    if cache is None:
+        k_nope = _split_heads(ckv @ p["wkv_b_k"], H)
+        v = _split_heads(ckv @ p["wkv_b_v"], H)
+        k = torch.cat([k_nope, k_rope[:, None].expand(b, H, s, rd)], dim=-1)
+        out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
+        return x + _merge_heads(out) @ p["wo"], {"ckv": ckv, "krope": k_rope}
+
+    assert cache_len is not None
+    cache["ckv"][:, cache_len : cache_len + s] = ckv
+    cache["krope"][:, cache_len : cache_len + s] = k_rope
+    q_abs = torch.einsum("bhsd,rhd->bhsr", q_nope, p["wkv_b_k"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim))
+    out_lat = latent_attention(q_abs, q_rope, cache["ckv"], cache["krope"], kv_len=cache_len + s, scale=mla_scale(cfg))
+    wv = p["wkv_b_v"].reshape(m.kv_lora_rank, H, m.v_head_dim).float()
+    out = torch.einsum("bhsr,rhd->bhsd", out_lat, wv).to(x.dtype)
+    return x + _merge_heads(out) @ p["wo"], cache
 
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The dense decoder LM: forward, prefill and one-token decode.
+"""The decoder LM: forward, prefill and one-token decode.
 
-The port's copy of the dense branch of the JAX package's ``DecoderLM``
+The port's copy of the JAX package's ``DecoderLM`` (its decoder branches)
 (``models/lm.py``). Parameters are the flat dict a TensorHub replica
 registers: the names of :func:`repro_torch.models.params.decoder_shapes`,
 with the layer axis stacked first. Layer ``i`` reads the views
@@ -26,9 +26,17 @@ expert where ``moe.num_shared`` asks for one) in its stacked layers, and
 its first ``moe.first_dense`` layers as a dense ``prefix``
 (``params["prefix/<i>/..."]``, unstacked, a dense FFN of
 ``moe.d_ff_dense``) before them, as the JAX package's ``prefix`` list
-(deepseek-v3's). The MLA and VLM branches and
-the encoder, hybrid and xLSTM models wait for later slices
-(:func:`repro_torch.models.build_model` refuses them).
+(deepseek-v3's).
+
+A config with ``mla`` (deepseek-v3) attends through multi-head latent
+attention (:func:`repro_torch.models.blocks.mla_apply`): the expanded
+form in ``forward`` and ``prefill`` (through ``attention``), the absorbed
+form in ``decode`` (through ``latent_attention``, the ``mla_decode``
+kernel's wrapper by default) against a cache of one latent row and one
+rope key a slot, ``{"ckv": [.., B, Smax, R], "krope": [.., B, Smax, rd]}``
+with the sequence on axis 1, as the JAX package's ``_attn_cache_spec``.
+The VLM branch and the encoder, hybrid and xLSTM models wait for later
+slices (:func:`repro_torch.models.build_model` refuses them).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.models import blocks
 from repro_torch.models.layers import rms_norm, softcap
 
@@ -60,22 +69,34 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 class DecoderLM:
-    """Causal decoder: dense GQA attention x (SwiGLU | routed MoE) FFN.
+    """Causal decoder: (dense GQA | MLA) attention x (SwiGLU | routed MoE) FFN.
 
     ``attention`` is the attention function every layer calls, the flash
     kernel's wrapper by default; a reference computation passes
-    :func:`repro_torch.kernels.flash_attention.attention_plain`."""
+    :func:`repro_torch.kernels.flash_attention.attention_plain`.
+    ``latent_attention`` is the MLA decode's (the ``mla_decode`` kernel's
+    wrapper by default; a reference passes
+    :func:`repro_torch.kernels.mla_decode.mla_decode_plain`)."""
 
-    def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        attention: Callable[..., torch.Tensor] = flash_attention,
+        latent_attention: Callable[..., torch.Tensor] = mla_decode,
+    ):
         self.cfg = cfg
         self.attention = attention
+        self.latent_attention = latent_attention
         self.is_moe = cfg.moe is not None
+        self.is_mla = cfg.mla is not None
         self.n_prefix = cfg.moe.first_dense if self.is_moe else 0
         self.n_scan = cfg.num_layers - self.n_prefix
         #: the stacked layers' windows (the prefix layers attend globally)
         self.windows = _layer_windows(cfg)[self.n_prefix :]
         post = ("post_ln",) if cfg.attn_softcap > 0 else ()
-        self._attn_names, self._dense_names = _ATTN + post, _FFN + post
+        self._attn_names = tuple(blocks.mla_shapes(cfg)) if self.is_mla else _ATTN + post
+        self._dense_names = _FFN + post
         if self.is_moe:
             self._ffn_names = tuple(blocks.moe_shapes(cfg))
         else:
@@ -106,10 +127,16 @@ class DecoderLM:
 
     def _block(self, layer, x, positions, *, window=0, dense=True, cache=None, cache_len=None):
         attn, ffn = layer
-        x, kv = blocks.attn_apply(
-            self.cfg, attn, x, positions=positions, attention=self.attention, window=window,
-            cache=cache, cache_len=cache_len,
-        )
+        if self.is_mla:
+            x, kv = blocks.mla_apply(
+                self.cfg, attn, x, positions=positions, attention=self.attention,
+                latent_attention=self.latent_attention, cache=cache, cache_len=cache_len,
+            )
+        else:
+            x, kv = blocks.attn_apply(
+                self.cfg, attn, x, positions=positions, attention=self.attention, window=window,
+                cache=cache, cache_len=cache_len,
+            )
         if dense:
             return blocks.mlp_apply(ffn, x), kv
         return blocks.moe_apply(self.cfg, ffn, x), kv
@@ -117,10 +144,11 @@ class DecoderLM:
     def _run(self, params: Params, x, positions, *, layers=None, slots=None, cache_len=None):
         """Every layer in order, the dense prefix first. ``layers(i)`` gives
         stacked layer ``i``'s views where the caller took the stacks apart
-        once. ``slots`` holds one K/V cache a layer (:meth:`_slots`): in
+        once. ``slots`` holds one cache a layer (:meth:`_slots`): in
         decode (``cache_len`` given) each layer attends over its slot and
-        writes it in place, in prefill each layer's fresh K/V fills the
-        first positions of its slot."""
+        writes it in place, in prefill each layer's fresh entries (K/V, or
+        MLA's latent and rope key) fill the first positions of its slot,
+        along each entry's sequence axis (:attr:`seq_axis`)."""
         plan = [(self._prefix_layer(params, i), 0, True) for i in range(self.n_prefix)]
         plan += [(layers(i) if layers is not None else self._layer(params, i), self.windows[i], not self.is_moe)
                  for i in range(self.n_scan)]
@@ -128,14 +156,19 @@ class DecoderLM:
             cache = slots[j] if cache_len is not None else None
             x, kv = self._block(layer, x, positions, window=window, dense=dense, cache=cache, cache_len=cache_len)
             if slots is not None and cache_len is None:
-                s = kv["k"].shape[2]
-                for n in ("k", "v"):
-                    slots[j][n][:, :, :s] = kv[n]
+                for n, t in kv.items():
+                    slots[j][n].narrow(self.seq_axis, 0, t.shape[self.seq_axis]).copy_(t)
         return x
 
+    @property
+    def seq_axis(self) -> int:
+        """The sequence axis of a layer's cache entries: 1 of MLA's ``[B,
+        S, R]``, 2 of the K/V's ``[B, Hkv, S, hd]``."""
+        return 1 if self.is_mla else 2
+
     def _slots(self, cache: Cache) -> List[Dict[str, torch.Tensor]]:
-        """Each layer's ``{"k", "v"}`` of ``cache``, in layer order (views
-        of the stacked layers' caches)."""
+        """Each layer's entries of ``cache``, in layer order (views of the
+        stacked layers' caches)."""
         stacked = [{n: t[i] for n, t in cache["layers"].items()} for i in range(self.n_scan)]
         return [*cache.get("prefix", []), *stacked]
 
@@ -157,14 +190,21 @@ class DecoderLM:
     # -- caches ------------------------------------------------------------------
 
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
-        """Zeroed K/V caches, keyed as the JAX package's: ``{"layers": {"k",
-        "v"}}`` stacked ``[stacked layers, B, Hkv, max_len, hd]``, and with a
-        dense prefix ``"prefix"``, a list of one ``{"k", "v"}`` a layer."""
+        """Zeroed caches, keyed as the JAX package's: ``{"layers": {"k",
+        "v"}}`` stacked ``[stacked layers, B, Hkv, max_len, hd]`` (MLA:
+        ``{"ckv", "krope"}`` stacked ``[stacked layers, B, max_len, R]`` and
+        ``[.., rd]``), and with a dense prefix ``"prefix"``, a list of one
+        such dict a layer."""
         cfg = self.cfg
-        shape = (batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        if self.is_mla:
+            m = cfg.mla
+            shapes = {"ckv": (batch_size, max_len, m.kv_lora_rank), "krope": (batch_size, max_len, m.qk_rope_head_dim)}
+        else:
+            kv = (batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+            shapes = {"k": kv, "v": kv}
 
         def zeros(*lead):
-            return {n: torch.zeros(lead + shape, dtype=dtype, device=device) for n in ("k", "v")}
+            return {n: torch.zeros(lead + shape, dtype=dtype, device=device) for n, shape in shapes.items()}
 
         cache: Cache = {"layers": zeros(self.n_scan)}
         if self.n_prefix:
@@ -194,8 +234,8 @@ class DecoderLM:
         self, params: Params, cache: Cache, tokens: torch.Tensor, cache_len: int
     ) -> Tuple[torch.Tensor, Cache]:
         """One step: ``tokens [B, 1]`` at position ``cache_len``. Writes
-        the step's K/V into ``cache`` in place and returns it with the
-        logits ``[B, 1, vocab]``."""
+        the step's K/V (MLA: latent and rope key) into ``cache`` in place
+        and returns it with the logits ``[B, 1, vocab]``."""
         x = self._embed(params, tokens)
         positions = cache_len + torch.arange(x.shape[1], device=x.device)
         x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)

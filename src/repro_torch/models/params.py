@@ -11,7 +11,11 @@ with tied embeddings no ``head``. A MoE model's stacked FFN is
 ``[L, E, d, fe]`` and ``w_down`` ``[L, E, fe, d]``, the shared expert's
 ``shared_*`` with ``num_shared``); its first ``first_dense`` layers are
 ``prefix/<i>/{attn,ffn}/...``, unstacked, with a dense FFN of
-``d_ff_dense``, and the stack holds the rest. The transfer-unit
+``d_ff_dense``, and the stack holds the rest. An MLA model's attention
+(deepseek-v3's, stacked and in the prefix) is ``mla_specs``' (``ln``,
+``wq_a``, ``q_ln``, ``wq_b``, ``wkv_a``, ``kv_ln``, ``wkv_b_k``,
+``wkv_b_v``, ``wo``; the two norms end in ``ln``, so ``init_params``
+draws them as zeros, as ``init="zeros"`` does). The transfer-unit
 schedule (``build_units``) follows registration order, so a replica
 registered in this order has the same units, and the same manifest, as
 the JAX package's.
@@ -35,12 +39,14 @@ from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 # through the core package: transfer.engine and core.client import each
 # other, and only core-first resolves (engine-first is circular)
 from repro_torch.core.client import resolve_device
-from repro_torch.models.blocks import moe_shapes
+from repro_torch.models.blocks import mla_shapes, moe_shapes
 
 Shape = Tuple[int, ...]
 
 
 def _attn_tree(cfg: ModelConfig) -> Dict[str, Shape]:
+    if cfg.mla is not None:  # deepseek-v3's multi-head latent attention
+        return mla_shapes(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     tree = {
         "ln": (d,),

@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import TensorHubClient
 from repro_torch.core.errors import StaleHandleError, TensorHubError
 from repro_torch.data.synthetic import PromptSet
-from repro_torch.models import build_model
+from repro_torch.models import build_model, check_trainable
 from repro_torch.models.lm import DecoderLM
 from repro_torch.models.params import decoder_shapes, init_params
 from repro_torch.training import AdamW, group_relative_advantages, make_grpo_step
@@ -243,6 +243,7 @@ class TrainerWorker:
         self.model_cfg = model_cfg
         self.device = hub.device
         self.dtype = dtype
+        check_trainable(model_cfg)  # before any weight is allocated: MLA waits for its training slice
         self.model = build_model(model_cfg)
         self.queue = rollout_queue
         self.opt = AdamW(lr=cfg.lr, weight_decay=0.0)

@@ -11,9 +11,10 @@ storage: the registered tensors themselves never require a gradient.
 
 The decoder LM is ported, dense and with routed experts (dbrx): the
 backward of the MoE FFN's gathers, scatters and expert products is
-autograd's. Configs with MLA attention (deepseek-v3) and of the audio,
-VLM, hybrid and SSM families raise ``NotImplementedError`` and wait for
-their slices.
+autograd's. Configs with MLA attention (deepseek-v3, served but not yet
+trained) and of the audio, VLM, hybrid and SSM families raise
+``NotImplementedError`` and wait for their slices
+(:func:`repro_torch.models.check_trainable`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Callable, Dict, Mapping, MutableMapping, Optional, Tuple
 
 import torch
 
-from repro_torch.models import check_ported
+from repro_torch.models import check_trainable
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
 
@@ -45,7 +46,7 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    check_ported(cfg)  # MLA, VLM and the other families are refused
+    check_trainable(cfg)  # MLA, VLM and the other families are refused
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
@@ -124,7 +125,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    check_ported(cfg)  # MLA, VLM and the other families are refused
+    check_trainable(cfg)  # MLA, VLM and the other families are refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

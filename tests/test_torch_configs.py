@@ -5,12 +5,14 @@ one field for field (nested sub-configs and ``source`` included), and so
 do ``reduced()``, ``param_count()``, ``active_param_count()``,
 ``live_shapes()`` and the shape grid; for the four dense ids, full and
 reduced, the port's parameter names, shapes and order are the JAX
-``DecoderLM``'s, and so are dbrx-132b's (routed experts). A family the port
-has no model for, and MLA attention (deepseek-v3), is refused with the
-slice it waits for, by ``build_model`` and by both entry points; dbrx
-is built, trained by ``launch/train.py`` at its reduced config and served
-by ``serve()`` at a reduced config (``serve.main`` refuses its 40 layers,
-which do not fit a device, before allocating anything).
+``DecoderLM``'s, and so are dbrx-132b's (routed experts) and
+deepseek-v3-671b's (MLA attention). A family the port has no model for is
+refused with the slice it waits for, by ``build_model`` and by both entry
+points; dbrx is built, trained by ``launch/train.py`` at its reduced
+config and served by ``serve()`` at a reduced config (``serve.main``
+refuses its 40 layers, which do not fit a device, before allocating
+anything); deepseek-v3 is built and served, and every training entry point
+refuses it with the deepseek-v3 training slice named.
 """
 
 import dataclasses
@@ -27,22 +29,25 @@ import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.configs import base as port_base  # noqa: E402
 from repro_torch.launch import serve as serve_main  # noqa: E402
 from repro_torch.launch import train as train_main  # noqa: E402
-from repro_torch.models import build_model, check_ported  # noqa: E402
+from repro_torch.models import build_model, check_ported, check_trainable  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
 PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
-OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in PORTED_IDS)
-#: what the refusal of each family that is not ported names (the MoE
-#: family's: deepseek-v3's MLA attention)
-WAITS_FOR = {"moe": "MLA", "vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+#: served (deepseek-v3's MLA waits for its training slice)
+SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b",)
+OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS)
+#: what the refusal of each family that is not ported names
+WAITS_FOR = {"vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+#: what the training entry points' refusal of MLA names
+MLA_TRAINING = "deepseek-v3 training slice"
 
 
 def test_registry_ids_equal():
     assert port_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert list(port_configs.all_configs()) == list(jax_configs.all_configs())
-    assert set(PORTED_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
+    assert set(SERVED_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -89,7 +94,7 @@ def test_llama3_8b_source_copied_as_it_stands():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", PORTED_IDS)
+@pytest.mark.parametrize("arch", SERVED_IDS)
 def test_decoder_shapes_are_the_jax_param_specs(arch, reduced):
     got, want = port_configs.get_config(arch), jax_configs.get_config(arch)
     if reduced:
@@ -124,21 +129,69 @@ def test_build_model_refuses_the_families_not_ported(arch):
         check_ported(cfg.reduced())
 
 
-def test_mla_and_moe_are_refused_in_a_dense_family_config():
-    """MLA is refused wherever it appears; routed experts, refused here
-    until the MoE slice, now build in a dense-family config too (with
-    deepseek-v3's shared expert and dense prefix), as the JAX
-    ``DecoderLM`` takes them by ``cfg.moe``, not by family."""
-    base = port_configs.get_config("llama3-8b")
-    ds = port_configs.get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        check_ported(dataclasses.replace(base, mla=ds.mla))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        check_ported(ds)
-    cfg = dataclasses.replace(base, moe=ds.moe)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_build_model_takes_deepseek_v3s_mla(reduced):
+    """deepseek-v3 (MoE with MLA attention, full and reduced) builds: MLA
+    attention in every layer, three dense prefix layers (one reduced)."""
+    cfg = port_configs.get_config("deepseek-v3-671b")
+    cfg = cfg.reduced() if reduced else cfg
     check_ported(cfg)
     model = build_model(cfg)
-    assert model.is_moe and (model.n_prefix, model.n_scan) == (3, base.num_layers - 3)
+    assert model.is_mla and model.is_moe and model.seq_axis == 1
+    assert (model.n_prefix, model.n_scan) == (cfg.moe.first_dense, cfg.num_layers - cfg.moe.first_dense)
+    assert model.windows == [0] * model.n_scan
+
+
+def test_mla_and_moe_build_in_a_dense_family_config():
+    """MLA and routed experts build in a dense-family config too (with
+    deepseek-v3's latent attention, shared expert and dense prefix), as
+    the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
+    family; training refuses the MLA one."""
+    base = port_configs.get_config("llama3-8b")
+    ds = port_configs.get_config("deepseek-v3-671b")
+    mla = dataclasses.replace(base, mla=ds.mla)
+    assert build_model(mla).is_mla
+    with pytest.raises(NotImplementedError, match=MLA_TRAINING):
+        check_trainable(mla)
+    cfg = dataclasses.replace(base, moe=ds.moe)
+    check_trainable(cfg)
+    model = build_model(cfg)
+    assert model.is_moe and not model.is_mla and (model.n_prefix, model.n_scan) == (3, base.num_layers - 3)
+
+
+def _tiny_deepseek():
+    return port_configs.get_config("deepseek-v3-671b").reduced()
+
+
+@pytest.mark.parametrize("entry", ["make_train_step", "make_grpo_step", "TrainerWorker", "launch.train"])
+def test_training_entry_points_refuse_mla_naming_its_slice(entry, capsys, monkeypatch):
+    """Every training entry point refuses deepseek-v3 (its MLA attention
+    has no backward kernel yet) with the slice named, before allocating a
+    weight, on the host as on the card."""
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.rl import loop
+    from repro_torch.training import AdamW, make_grpo_step, make_train_step
+
+    cfg = _tiny_deepseek()
+    monkeypatch.setattr(loop, "init_params", lambda *a, **k: pytest.fail("allocated"))
+    if entry == "launch.train":
+        with pytest.raises(SystemExit) as exc:
+            train_main.main(["--arch", "deepseek-v3-671b", "--device", "cpu", "--steps", "1"])
+        assert exc.value.code == 2 and MLA_TRAINING in capsys.readouterr().err
+        return
+    with pytest.raises(NotImplementedError, match=MLA_TRAINING):
+        if entry == "TrainerWorker":
+            hub = TensorHubClient(ReferenceServer(), device="cpu")
+            loop.TrainerWorker(hub, loop.RLConfig(model_name="t"), cfg, [])
+        else:
+            {"make_train_step": make_train_step, "make_grpo_step": make_grpo_step}[entry](
+                build_model(cfg), cfg, AdamW(lr=1e-3))
+
+
+def test_serve_answers_a_reduced_deepseek_v3():
+    rows = serve_main.serve(_tiny_deepseek(), requests=2, prompt_len=6, gen_len=3, rounds=2, device="cpu",
+                            dtype=torch.float32)
+    assert [r["version"] for r in rows] == [0, 0] and all(r["tokens"] == 6 for r in rows)
 
 
 @pytest.mark.parametrize("arch", OTHER_IDS)
@@ -184,3 +237,20 @@ def test_serve_refuses_a_depth_that_does_not_fit_before_allocating(monkeypatch, 
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "526.4 GB" in err and "--layers" in err
+
+
+def test_serve_refuses_deepseek_v3s_61_layers_and_takes_4(monkeypatch, capsys):
+    """deepseek-v3's 61 layers are 1.3 TB a copy: refused with the depth
+    flag named before any weight is allocated; its 4 least layers (15.1 B
+    parameters, 60.4 GB for the two copies) pass the check."""
+    monkeypatch.setattr(serve_main, "device_memory", lambda device: 80 * 10**9)
+    monkeypatch.setattr(serve_main, "init_params", lambda *a, **k: pytest.fail("allocated"))
+    with pytest.raises(SystemExit) as exc:
+        serve_main.main(["--arch", "deepseek-v3-671b", "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "2684.1 GB" in err and "--layers" in err
+    served = []
+    monkeypatch.setattr(serve_main, "serve", lambda cfg, **kw: served.append(cfg))
+    serve_main.main(["--arch", "deepseek-v3-671b", "--layers", "4", "--device", "cpu"])
+    assert served[0].num_layers == 4 and 2 * 2 * served[0].param_count() == 60_444_114_944

@@ -293,3 +293,61 @@ def test_tensor_core_backward_refuses_what_it_lacks(dtype, d):
 def test_backward_counters_name_each_routes_kernels():
     assert sorted(fa.BWD_LAUNCHES) == ["cuda_core/dkdv", "cuda_core/dq", "cuda_core/pre", "tensor_core/dkdv",
                                        "tensor_core/dq", "tensor_core/pre"]
+
+
+#: deepseek-v3's expanded MLA attention: q/k of 128 + 64, v of 128, 128
+#: heads (Hq = Hkv: every head has its own K and V)
+MLA_ROUTE_CASES = [
+    ("served prefill", (4, 128, 128, 512, 512, 192, 128, BF16), "tensor_core"),
+    ("one query", (2, 128, 128, 1, 40, 192, 128, BF16), "tensor_core"),
+    ("S = 77", (1, 16, 16, 77, 77, 192, 128, BF16), "tensor_core"),
+    ("GQA group of 4", (1, 16, 4, 64, 64, 192, 128, BF16), "tensor_core"),
+    ("f32", (1, 16, 16, 77, 77, 192, 128, F32), "f32"),
+    ("f16", (1, 16, 16, 77, 77, 192, 128, F16), "f32"),
+    ("another pair", (1, 8, 8, 64, 64, 128, 64, BF16), "f32"),
+    ("the reduced config's 24/16", (1, 4, 4, 9, 9, 24, 16, BF16), "f32"),
+]
+
+
+def _mla_meta(b, hq, hkv, sq, sk, d, dv, dtype):
+    q, k = _meta(b, hq, hkv, sq, sk, d, dtype)
+    return q, k, torch.empty((b, hkv, sk, dv), dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("label,shape,route", MLA_ROUTE_CASES, ids=[c[0] for c in MLA_ROUTE_CASES])
+def test_mla_widths_route_only_to_the_tensor_core_forward(label, shape, route):
+    """bf16 at (D, Dv) = (192, 128) goes to the tensor-core forward at any
+    Sq (the decode route takes no Dv != D); every other pair goes to the
+    f32 route, which refuses it naming the route and the shape. The
+    backward refuses it on the card with the deepseek-v3 training slice
+    named; without v, the route is the one of Dv = D."""
+    q, k, v = _mla_meta(*shape)
+    assert fa._route(q, k, v=v) == route
+    assert fa._route(q, k, grad=True, v=v) == route
+    if route == "tensor_core":
+        with pytest.raises(TypeError, match="unsupported device"):  # every check passed
+            fa.flash_attention(q, k, v, causal=True)
+        for other in ("decode", "f32"):
+            with pytest.raises(ValueError, match=rf"the {other} route takes v's head_dim.*\(192, 128\)"):
+                fa.launch_route(other, q, k, v)
+    else:
+        with pytest.raises(ValueError, match=r"the f32 route takes v's head_dim.*\(\d+, \d+\) of q"):
+            fa.flash_attention(q, k, v, causal=True)
+        with pytest.raises((ValueError, TypeError), match=r"tensor_core route takes (\(q/k, v\) head_dim|bfloat16)"):
+            fa.launch_route("tensor_core", q, k, v)
+    with pytest.raises(NotImplementedError, match="deepseek-v3 training slice"):
+        fa.flash_attention(q.requires_grad_(), k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="deepseek-v3 training slice"):
+        fa._check_backward(q.detach(), v)  # what launch_backward checks on the card
+
+
+def test_tensor_core_dim_pairs():
+    assert fa.TC_DIM_PAIRS == ((64, 64), (128, 128), (256, 256), (192, 128))
+    assert all((d, d) in fa.TC_DIM_PAIRS for d in fa.TC_HEAD_DIMS)
+
+
+def test_v_must_share_batch_heads_and_keys_with_k():
+    q, k = _meta(1, 4, 4, 8, 8, 192, BF16)
+    for v_shape in ((1, 4, 9, 128), (1, 2, 8, 128), (2, 4, 8, 128)):
+        with pytest.raises(ValueError, match="v \\[B,Hkv,Sk,Dv\\]"):
+            fa.flash_attention(q, k, torch.empty(v_shape, dtype=BF16, device="meta"))

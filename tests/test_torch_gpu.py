@@ -1136,3 +1136,135 @@ def test_moe_decoder_serves_on_the_card(dev, monkeypatch):
     want = run(build_model(cfg, attention=fa.attention_plain))
     assert len(calls) == len(pins) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) < 0.5 and float((got - want).abs().mean()) < 0.05
+
+
+# -- MLA attention (deepseek-v3): the (192, 128) tensor-core forward, the latent decode kernel --------
+
+
+#: chip_smoke.py phase 2's (192, 128) cases, cut in batch: (b, hq, hkv, sq, sk, kw); NaN past kv_len where given
+_MLA_TC_CASES = [
+    (1, 128, 128, 512, 512, dict(causal=True)),
+    (2, 16, 16, 77, 77, dict(causal=True)),
+    (2, 16, 16, 256, 400, dict(causal=False, kv_len=300, nan=True)),
+    (1, 16, 16, 64, 600, dict(causal=True, q_offset=500, kv_len=564, nan=True)),
+    (1, 32, 8, 130, 130, dict(causal=True)),
+    (2, 8, 8, 1, 40, dict(causal=True, q_offset=39, kv_len=40)),
+]
+
+
+@pytest.mark.parametrize("case", _MLA_TC_CASES, ids=lambda c: "x".join(map(str, c[:5])) + "".join(sorted(c[5])))
+def test_tensor_core_forward_at_mla_widths_equals_plain(dev, case):
+    """q/k 192, v 128 on the tensor_core route, one launch a call, within
+    the bf16 tolerance of the plain version (which reads zeros where the
+    kernel's K/V hold NaN past kv_len), bit-equal on a rerun; the
+    log-sum-exp beside it too."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, kw = case
+    kw = dict(kw)
+    nan = kw.pop("nan", False)
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16) for s in ((b, hq, sq, 192), (b, hkv, sk, 192)))
+    v = torch.randn((b, hkv, sk, 128), generator=g, device=dev).to(torch.bfloat16)
+    kz, vz = k.clone(), v.clone()
+    if nan:
+        kz[:, :, kw["kv_len"]:] = 0
+        vz[:, :, kw["kv_len"]:] = 0
+        k[:, :, kw["kv_len"]:] = float("nan")
+        v[:, :, kw["kv_len"]:] = float("nan")
+    assert fa._route(q, k, v=v) == "tensor_core"
+    before = fa.ROUTE_LAUNCHES["tensor_core"].value
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.ROUTE_LAUNCHES["tensor_core"].value == before + 1 and got.shape == (b, hq, sq, 128)
+    _flash_close(got, fa.attention_plain(q, kz, vz, **kw), torch.bfloat16)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
+
+
+#: (b, heads, slots, kv_len, NaN in the dead slots): chip_smoke.py phase 2's
+_MLA_DECODE_CASES = [(4, 128, 528, 528, False), (4, 128, 528, 1, True), (4, 128, 528, 65, True),
+                     (4, 128, 528, 527, True), (1, 128, 528, 528, False), (4, 16, 528, 400, True),
+                     (2, 4, 100, 33, True), (3, 100, 2000, 1999, True)]
+
+
+@pytest.mark.parametrize("case", _MLA_DECODE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_mla_decode_kernel_equals_plain(dev, case):
+    """The absorbed decode's kernel against ``mla_decode_plain`` within 2e-5
+    of the output's max |value| (f32 throughout), one launch a call, NaN in
+    the dead cache slots never read, bit-equal on a rerun; the cache read
+    in place from a layer's slice of a stacked cache."""
+    from repro_torch.kernels import mla_decode as md
+
+    b, h, smax, kv_len, nan = case
+    g = torch.Generator(device=dev).manual_seed(kv_len + h)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+
+    qa, qr = rand(b, h, 1, 512), rand(b, h, 1, 64)
+    stacked = rand(2, b, smax, 512), rand(2, b, smax, 64)
+    ckv, kr = stacked[0][1], stacked[1][1]
+    if nan:
+        ckv[:, kv_len:] = float("nan")
+        kr[:, kv_len:] = float("nan")
+    before = md.LAUNCHES.value
+    got = md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=192 ** -0.5)
+    assert md.LAUNCHES.value == before + 1 and got.shape == (b, h, 1, 512) and got.dtype == torch.float32
+    want = md.mla_decode_plain(qa, qr, ckv, kr, kv_len=kv_len, scale=192 ** -0.5)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert torch.equal(md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=192 ** -0.5), got)
+    split = md.mla_decode_split_plain(qa, qr, ckv, kr, kv_len=kv_len, scale=192 ** -0.5)
+    assert float((got - split).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+def test_mla_decoder_serves_on_the_card(dev, monkeypatch):
+    """A narrow deepseek-v3 (4 layers: 3 dense, 1 of 16 experts top-4 + a
+    shared one; 16 heads at the published MLA widths, d_model 1024) in
+    bf16: the prefill on the tensor-core route at (192, 128), the decode
+    steps on the mla_decode kernel and nothing on the decode or f32 routes,
+    each step's logits within phase 5's bounds of the same calls replayed
+    with the plain attentions, the replay following the served experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, num_layers=4, d_model=1024, num_heads=16, num_kv_heads=16, vocab=1024,
+                              moe=dataclasses.replace(cfg.moe, num_experts=16, top_k=4, d_expert=256, d_ff_dense=512))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    toks = torch.randint(0, cfg.vocab, (4, 72), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    route, calls, pins = blocks.route, [], []
+
+    def recording(cfg, p, flat, experts=None):
+        top_p, top_e = route(cfg, p, flat, pins[len(calls)] if pins else None)
+        calls.append(top_e)
+        return top_p, top_e
+
+    monkeypatch.setattr(blocks, "route", recording)
+
+    def run(model):
+        logits, cache, n = model.prefill(params, {"tokens": toks[:, :64]}, max_len=72)
+        steps = [logits[:, -1]]
+        for t in range(64, 71):
+            logits, cache = model.decode(params, cache, toks[:, t : t + 1], n)
+            n += 1
+            steps.append(logits[:, -1])
+        return torch.stack(steps, 1)
+
+    before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    latent = md.LAUNCHES.value
+    got = run(build_model(cfg))
+    assert {r: c.value - before[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"f32": 0, "decode": 0, "tensor_core": 4}
+    assert md.LAUNCHES.value - latent == 4 * 7
+    pins.extend(calls)
+    calls.clear()
+    want = run(build_model(cfg, attention=fa.attention_plain, latent_attention=md.mla_decode_plain))
+    assert len(calls) == len(pins) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 0.5 and float((got - want).abs().mean()) < 0.05

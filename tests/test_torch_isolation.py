@@ -41,6 +41,7 @@ _MODULES = [
     "repro_torch.kernels.build",
     "repro_torch.kernels.checksum",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mla_decode",
     "repro_torch.kernels.quant",
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
@@ -137,6 +138,9 @@ from repro_torch.configs import ARCH_IDS, get_config
 assert all(get_config(a).name == a for a in ARCH_IDS)
 g2 = dataclasses.replace(get_config("gemma2-2b").reduced(), d_model=64)
 assert len(serve(g2, requests=2, prompt_len=12, gen_len=2, rounds=1, device="cpu")) == 1
+# and a deepseek-v3 (MLA: the expanded prefill, the absorbed decode; routed experts)
+ds = get_config("deepseek-v3-671b").reduced()
+assert len(serve(ds, requests=2, prompt_len=5, gen_len=2, rounds=1, device="cpu")) == 1
 # the training path: a GRPO step through the trainer, and launch/train.py with a checkpoint
 import tempfile
 from repro_torch.launch.train import main as train_main
@@ -186,6 +190,7 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.models.blocks", "repro_torch.models.layers", "repro_torch.models.lm",
     "repro_torch.models.params", "repro_torch.rl.loop", "repro_torch.training", "repro_torch.checkpoint",
     "repro_torch.launch.train", "repro_torch.core.failover", "repro_torch.net", "repro_torch.net.controller",
+    "repro_torch.kernels.mla_decode",
     "repro_torch.net.worker", "repro_torch.launch.networked", "repro_torch.configs", "repro_torch.models",
 ])
 def test_serving_modules_import_first(module):
