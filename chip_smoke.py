@@ -1002,6 +1002,10 @@ TC256_SHAPES = [
     (1, 56, 8, 129, 400, dict(causal=True, q_offset=200, kv_len=329, window=64, nan=True)),  # G 7
     (2, 8, 4, 130, 500, dict(causal=False, kv_len=450, nan=True)),
     (1, 8, 4, 77, 300, dict(causal=True, q_offset=200, kv_len=277, window=100, softcap=50.0, nan=True)),
+    # the wide plan's 128-row item edges, a cached prefix, NaN past kv_len
+    *((2, 8, 4, sq, sq + 70, dict(causal=True, q_offset=40, kv_len=sq + 40, softcap=50.0, nan=True))
+      for sq in (127, 128, 129, 255, 256, 257, 511, 512, 513)),
+    (2, 64, 64, 257, 257, dict(causal=True, window=100, softcap=50.0)),  # heads of their own K/V: the head-major list
 ]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
 BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
@@ -1198,6 +1202,7 @@ def flash_checks(torch, dev, bw: float) -> dict:
         check(lse_ratio <= 1.0 and torch.equal(out, got), f"tensor_core lse != logsumexp of the plain scores on {label}")
         del q, k, v, k_want, v_want, want, got, out, lse, lse_want, diff
     torch.cuda.empty_cache()
+    softcap_checks(torch, dev, fa)
 
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     # timings at the serving path's shapes (the decode step at a full cache):
@@ -1273,6 +1278,36 @@ def flash_checks(torch, dev, bw: float) -> dict:
     }
 
 
+#: the softcapped score's agreement with the backward's recomputation
+#: (tanhf), as a share of c
+SOFTCAP_TOL = 1e-6
+
+
+def softcap_checks(torch, dev, fa) -> None:
+    """The wide plans' softcap (ex2.approx, rcp.approx) on the card, read
+    from the lse of rows that meet one key each (window 1; q and k at head
+    dim 256 with one nonzero element, so the dot is exact and the scaled
+    score is a bf16 sweep through +-12 c): against c tanh(x / c) in double
+    and in f32 on the card (what the backward recomputes), at c = 50 and 30."""
+    n = 8192
+    for c in (50.0, 30.0):
+        x = torch.linspace(-12 * c, 12 * c, n, device=dev).to(torch.bfloat16)
+        q = torch.zeros((1, 1, n, 256), device=dev, dtype=torch.bfloat16)
+        k = torch.zeros_like(q)
+        q[0, 0, :, 0] = x
+        k[0, 0, :, 0] = 16.0
+        _, lse = fa.launch_route("tensor_core", q, k, k, causal=True, window=1, softcap=c, with_lse=True)
+        got, xd = lse[0, 0].double(), x.double()
+        err64 = (got - c * torch.tanh(xd / c)).abs()
+        err32 = (got - (c * torch.tanh(x.float() / c)).double()).abs()
+        worst = int(err64.argmax())
+        emit("flash_softcap_check", softcap=c, samples=n, max_err_vs_tanh_f64=float(err64.max()),
+             max_err_vs_tanh_f32_on_card=float(err32.max()), over_c_f64=float(err64.max()) / c,
+             over_c_f32=float(err32.max()) / c, worst_at_score=float(xd[worst]), tol=f"{SOFTCAP_TOL} c")
+        check(float(err64.max()) <= SOFTCAP_TOL * c and float(err32.max()) <= SOFTCAP_TOL * c,
+              f"the tensor-core softcap strays from c tanh(x / c) at c = {c}")
+
+
 #: gemma2-2b's attention at phase 9's serving shape: 4 requests of 4608
 #: prompt tokens (+ 64 new), 8 query and 4 KV heads of 256, bf16, softcap 50
 GEMMA2_B, GEMMA2_PROMPT, GEMMA2_GEN, GEMMA2_WINDOW = 4, 4608, 64, 4096
@@ -1288,7 +1323,10 @@ def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
     computes a lighter function; K/V repeated to the query heads outside
     the timing, the window as a boolean mask; the backend named), beside
     the bound (bf16 inputs: the bf16 peak; and the f32 FMA peak the f32
-    route computes at)."""
+    route computes at). Like for like at the prefill, the kernel also
+    without the softcap (``ms_softcap_0``) and, on the global case, SDPA
+    with ``is_causal`` and no mask (``library_ms_is_causal``), which lets
+    cuDNN skip the masked tiles."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -1313,9 +1351,20 @@ def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
             }
             if label == "prefill":  # the route that took it before head_dim 256 had a tensor-core forward
                 calls["f32_route"] = lambda: fa.launch_route("f32", q, k, v, **kw)
+                # like for like with SDPA: the kernel without the softcap
+                calls["kernel_softcap_0"] = lambda: fa.flash_attention(q, k, v, **dict(kw, softcap=0.0))
             cold = {n: cold_ms(torch, f, flush, reps=3 if n in ("plain", "f32_route") else 10) for n, f in calls.items()}
             with sdpa_kernel([backend]):
                 cold["sdpa_no_softcap"] = cold_ms(torch, sdpa, flush, reps=10)
+            causal_sdpa = {}
+            if label == "prefill" and not window:  # causal without a mask: cuDNN skips the masked tiles
+                def sdpa_causal():
+                    return F.scaled_dot_product_attention(q, k8, v8, is_causal=True)
+
+                causal_backend = sdpa_backend(torch, sdpa_causal)
+                with sdpa_kernel([causal_backend]):
+                    causal_sdpa = dict(library_ms_is_causal=cold_ms(torch, sdpa_causal, flush, reps=10),
+                                       library_backend_is_causal=str(causal_backend))
             got, want = calls["kernel"]().float(), calls["plain"]().float()
             err = float((got - want).abs().max())
             ratio = float(((got - want).abs() / (FLASH_TOL["bfloat16"] * (1 + want.abs()))).max())
@@ -1327,6 +1376,7 @@ def gemma2_attention_times(torch, fa, qkv, flush, bw) -> dict:
                 ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa_no_softcap"],
                 f32_route_ms=cold.get("f32_route"), library_backend=str(backend),
                 library_note="SDPA without the softcap (a lighter function), K/V repeated to 8 heads",
+                ms_softcap_0=cold.get("kernel_softcap_0"), **causal_sdpa,
                 bound_ms=bound, bound_by=by, bound_ms_f32_peak=f32_bound, flops=flops, bytes=nbytes,
                 max_abs_err_vs_plain=err, err_over_tol=ratio)
             emit("flash_gemma2_times", case=name, **out[label][name])
@@ -1774,6 +1824,9 @@ MLA_TC_SHAPES = [
     (2, 16, 16, 256, 400, dict(causal=False, kv_len=300, nan=True)),
     (1, 16, 16, 64, 600, dict(causal=True, q_offset=500, kv_len=564, nan=True)),
     (1, 32, 8, 130, 130, dict(causal=True)),
+    # the wide plan's 128-row item edges, a cached prefix, NaN past kv_len
+    *((2, 16, 16, sq, sq + 70, dict(causal=True, q_offset=40, kv_len=sq + 40, nan=True))
+      for sq in (127, 128, 129, 255, 256, 257, 511, 512, 513)),
 ]
 MLA_QK, MLA_V, MLA_R, MLA_ROPE = 192, 128, 512, 64  # deepseek-v3's widths
 #: the absorbed decode on the mla_decode kernel: (b, heads, slots, kv_len,

@@ -41,7 +41,11 @@ a failure:
 * ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
   head_dim 64, 128 or 256 (the prefill, and gemma2's at 256), and every
   bf16 call at (D, Dv) = (192, 128) (deepseek-v3's expanded MLA prefill):
-  TMA loads and ``wgmma`` on the tensor cores (``TC_DIM_PAIRS``).
+  TMA loads and ``wgmma`` on the tensor cores (``TC_DIM_PAIRS``). The two
+  wide pairs, (192, 128) and (256, 256), run a kernel of their own: 128-row
+  items in a work list whose host copy is :func:`tc_wide_order`, two
+  warpgroups taking turns at the tensor cores, and the softcap in log2
+  units (:func:`softcap_log2_plain`).
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
   f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
   ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
@@ -298,6 +302,70 @@ def packed_row(group: int, qpt: int, sq: int, sub: int, r: int) -> Optional[Tupl
     None for a padding row: what ``packed_row`` in csrc/vec.cuh computes."""
     pos = sub * qpt + r // group
     return (r % group, pos) if r < qpt * group and pos < sq else None
+
+
+#: query rows a work item of the tensor-core forward's wide plans, (192,
+#: 128) and (256, 256): two consumer warpgroups of 64 (csrc/flash_attention_tc.cu)
+TC_WIDE_ROWS = 128
+
+
+def tc_wide_order(batch: int, hq: int, hkv: int, sq: int, *, causal: bool = True, window: int = 0,
+                  sms: int = 132) -> list:
+    """The wide plans' work list, as ``flash_tc_wide_kernel`` walks it:
+    for each persistent block, its items ``(b, h, query tile)`` in order.
+    Block ``i`` takes, in round ``r``, position ``r G + i`` (``r G + G - 1
+    - i`` in odd rounds: the snake) of a list sorted heaviest first (the
+    most live key tiles: the last query tiles when causal or unwindowed)
+    within windows: the whole list (the tile-major order) when a round of it
+    puts two or more items on each K/V head it reads (``G x group >= 2 B
+    Hq``), else one round of items listed head by head, so a head's query
+    tiles run side by side in one round (``wide_work`` and ``wide_pos`` in
+    the CUDA source)."""
+    nq = -(-sq // TC_WIDE_ROWS)
+    nbh = batch * hq
+    nwork = nq * nbh
+    grid = min(nwork, sms)
+    group = hq // hkv
+    last_first = causal or window <= 0
+    head_major = grid * group < 2 * nbh
+
+    def item(u: int):
+        if not head_major:
+            bh, jj = u % nbh, u // nbh
+            j = nq - 1 - jj if last_first else jj
+        else:
+            v0 = u - u % grid
+            v1 = min(v0 + grid, nwork)
+            s = u - v0
+            for i in range(nq):
+                j = nq - 1 - i if last_first else i
+                count = (v1 + nq - 1 - j) // nq - (v0 + nq - 1 - j) // nq
+                if s < count:
+                    bh = (v0 + (j - v0 % nq) % nq) // nq + s
+                    break
+                s -= count
+        return bh // hq, bh % hq, j
+
+    rounds = -(-nwork // grid)
+    blocks = []
+    for i in range(grid):
+        pos = (r * grid + (grid - 1 - i if r % 2 else i) for r in range(rounds))
+        blocks.append([item(u) for u in pos if u < nwork])
+    return blocks
+
+
+def softcap_log2_plain(s: torch.Tensor, softcap: float, scale: float = 1.0) -> torch.Tensor:
+    """The wide plans' softcapped score in log2 units, ``log2(e) c tanh(x
+    scale / c)`` for raw dots ``s``, with their arithmetic in f32 (constants
+    folded in double, rounded once): ``c2 - 2 c2 / (2^(s k) + 1)``, ``c2 = c
+    log2 e``, ``k = 2 log2 e scale / c``. The kernel takes 2^y and the
+    reciprocal to within 2^-22 and an ulp (``ex2.approx``,
+    ``rcp.approx``) where this takes them correctly rounded."""
+    log2e = 1.4426950408889634
+    k = torch.tensor(2.0 * log2e * scale / softcap, dtype=torch.float32)
+    c2 = torch.tensor(softcap * log2e, dtype=torch.float32)
+    r = torch.reciprocal(torch.exp2(s.float() * k) + 1.0)
+    return torch.addcmul(c2, r, -2.0 * c2)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -1268,3 +1268,125 @@ def test_mla_decoder_serves_on_the_card(dev, monkeypatch):
     want = run(build_model(cfg, attention=fa.attention_plain, latent_attention=md.mla_decode_plain))
     assert len(calls) == len(pins) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) < 0.5 and float((got - want).abs().mean()) < 0.05
+
+
+# -- the tensor-core forward's wide plans: (192, 128) and (256, 256) -----------------------------------------
+
+
+def _wide_check(dev, fa, b, hq, hkv, sq, sk, d, dv, seed, *, scale=1.0, **kw):
+    """One wide-plan call against the plain version (zeros where K/V hold
+    NaN past kv_len), one tensor_core launch, the lse against
+    ``attention_lse_plain``, bit-equal on a rerun."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = ((torch.randn(s, generator=g, device=dev) * scale).to(torch.bfloat16)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d)))
+    v = torch.randn((b, hkv, sk, dv), generator=g, device=dev).to(torch.bfloat16)
+    kv_len = kw.get("kv_len") or sk
+    kz, vz = k.clone(), v.clone()
+    kz[:, :, kv_len:] = 0
+    vz[:, :, kv_len:] = 0
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    assert fa._route(q, k, v=v) == "tensor_core"
+    got = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v, **kw))
+    assert got.shape == (b, hq, sq, dv) and torch.isfinite(got).all()
+    _flash_close(got, fa.attention_plain(q, kz, vz, **kw), torch.bfloat16)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
+
+
+_WIDE_DIMS = [(192, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("sq", [127, 128, 129, 255, 256, 257, 511, 512, 513])
+@pytest.mark.parametrize("dims", _WIDE_DIMS, ids=lambda x: f"{x[0]}x{x[1]}")
+def test_wide_plans_at_item_edges(dev, dims, sq):
+    """Sq on both sides of the 128-row items, a prefix cached before the
+    rows (q_offset 40), kv_len < Sk with NaN past it; MLA's heads of their
+    own K/V (64 of them: the head-major list), gemma2's 8/4 heads with
+    softcap 50 at 256."""
+    from repro_torch.kernels import flash_attention as fa
+
+    d, dv = dims
+    b, hq, hkv, cap = (2, 64, 64, 0.0) if d == 192 else (2, 8, 4, 50.0)
+    kv_len = 40 + sq
+    _wide_check(dev, fa, b, hq, hkv, sq, kv_len + 30, d, dv, sq + d, causal=True, q_offset=40, kv_len=kv_len,
+                softcap=cap)
+
+
+@pytest.mark.parametrize("case", [(1, 8, 4, 1100, 1024), (1, 8, 4, 1100, 0), (2, 64, 64, 300, 100), (2, 64, 64, 300, 0),
+                                  (1, 8, 4, 700, 8)], ids=lambda c: "x".join(map(str, c)))
+def test_wide_head_dim_256_window_and_global(dev, case):
+    """gemma2's local (window) and global layers at head_dim 256, softcap 50,
+    on both work lists (8/4 heads: tile-major; 64 heads of their own K/V:
+    head-major)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, window = case
+    _wide_check(dev, fa, b, hq, hkv, sq, sq, 256, 256, sq + window, causal=True, window=window, softcap=50.0)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("dims", _WIDE_DIMS, ids=lambda x: f"{x[0]}x{x[1]}")
+def test_wide_plans_gqa_groups(dev, dims, group):
+    from repro_torch.kernels import flash_attention as fa
+
+    d, dv = dims
+    _wide_check(dev, fa, 2, 2 * group, 2, 200, 260, d, dv, group * 10 + d, causal=True, q_offset=60, kv_len=260,
+                softcap=30.0 if d == 256 else 0.0)
+
+
+@pytest.mark.parametrize("dims", _WIDE_DIMS, ids=lambda x: f"{x[0]}x{x[1]}")
+def test_wide_plans_not_causal_on_a_strided_cache(dev, dims):
+    """Not causal, kv_len < Sk, K and V read in place from a layer's slice
+    of a wider cache."""
+    from repro_torch.kernels import flash_attention as fa
+
+    d, dv = dims
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn((2, 16, 130, d), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((2, 3, 16, 400, d), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 3, 16, 400, dv), generator=g, device=dev).to(torch.bfloat16)
+    k, v = kc[:, 1], vc[:, 1]
+    kw = dict(causal=False, kv_len=333)
+    got = _routed(fa, "tensor_core", lambda: fa.flash_attention(q, k, v, **kw))
+    _flash_close(got, fa.attention_plain(q, k, v, **kw), torch.bfloat16)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("scale", [8.0, 64.0])
+def test_wide_softcap_saturates(dev, scale):
+    """|scores| far past the softcap (dots of q and k scaled up): the tanh
+    saturates at +-c as the plain version's does."""
+    from repro_torch.kernels import flash_attention as fa
+
+    _wide_check(dev, fa, 1, 8, 4, 300, 300, 256, 256, int(scale), scale=scale, causal=True, softcap=50.0)
+
+
+def _softcap_samples(dev, c: float, n: int = 4096):
+    """q, k at head_dim 256 whose row i meets only key i (window 1), with
+    one nonzero element each, so the dot x_i * 16 is exact in f32 and the
+    scaled score is x_i (bf16 values on a sweep through +-12 c); then the
+    forward's lse of row i is the kernel's softcapped score itself."""
+    x = torch.linspace(-12 * c, 12 * c, n, device=dev).to(torch.bfloat16)
+    q = torch.zeros((1, 1, n, 256), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros_like(q)
+    q[0, 0, :, 0] = x
+    k[0, 0, :, 0] = 16.0
+    return q, k, x.double()
+
+
+@pytest.mark.parametrize("c", [50.0, 30.0])
+def test_wide_softcap_against_tanh(dev, c):
+    """The kernel's softcap (ex2.approx and rcp.approx) against tanh in
+    double and against c * tanh(x / c) in f32 on the card (the backward's
+    recomputation): within 1e-6 c of both."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, x = _softcap_samples(dev, c)
+    _, lse = fa.launch_route("tensor_core", q, k, k, causal=True, window=1, softcap=c, with_lse=True)
+    got = lse[0, 0].double()
+    assert float((got - c * torch.tanh(x / c)).abs().max()) <= 1e-6 * c
+    assert float((got - (c * torch.tanh(x.float() / c)).double()).abs().max()) <= 1e-6 * c
