@@ -1446,7 +1446,8 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     > 0, softcap, head_dim 64), with windows of 8, 64, 100 and 4096 at
     head_dim 64/128/256 and at gemma2's head_dim 256, every case run twice
     for bit-equal gradients; gemma2's windowed backward timed
-    (gemma2_backward_times); the log-sum-exp of the tensor_core and f32 forwards against
+    (gemma2_backward_times) and the head_dim-256 kernels at the shapes the
+    main path launches them (gemma2_launch_shape_times); the log-sum-exp of the tensor_core and f32 forwards against
     logsumexp of the plain scores; then, at the training shape, both
     routes timed on the same bf16 inputs beside the plain backward and
     SDPA's, the cuda_core route at the f32 training shape beside SDPA's f32
@@ -1611,6 +1612,7 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         torch.cuda.empty_cache()
 
     gemma2 = gemma2_backward_times(torch, fa, rand, flush, bw)
+    at_launch = gemma2_launch_shape_times(torch, fa, rand, flush, bw)
 
     # row 5c: the f32 route's forward at the training shape in f32
     q, k, v = qkv(TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, f32)
@@ -1649,7 +1651,10 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
     entries["flash_attention_bwd/cuda_core"]["bfloat16_on_tensor_core_inputs"] = times["cuda_core bfloat16"]
     entries["flash_attention_bwd/tensor_core"]["gemma2_backward"] = gemma2["tensor_core bfloat16"]
     entries["flash_attention_bwd/cuda_core"]["gemma2_backward"] = gemma2["cuda_core float32"]
-    return dict(entries, f32_route_training_shape=f32_times, lse_err_over_tol=lse_worst)
+    entries["flash_attention_bwd/tensor_core"]["gemma2_phase10_backward"] = at_launch["phase 10 backward"]
+    entries["flash_attention_bwd/cuda_core"]["gemma2_phase7_backward"] = at_launch["phase 7 backward"]
+    return dict(entries, f32_route_training_shape=f32_times, lse_err_over_tol=lse_worst,
+                gemma2_phase10_forward=at_launch["phase 10 forward"])
 
 
 #: gemma2's windowed attention backward: 2 sequences of 4672 (phase 9's
@@ -1704,6 +1709,80 @@ def gemma2_backward_times(torch, fa, rand, flush, bw) -> dict:
             check(max(errs.values()) <= FLASH_TOL[name], f"gemma2 backward {r} {name}: kernels != plain backward")
             del got
         del q, k, v, dout, o, lse, sq_, sk_, sv_, sdpa_out, calls, want
+        torch.cuda.empty_cache()
+    return out
+
+
+#: where the main path launches the head_dim-256 attention: phase 10's GRPO
+#: step (2 x 2 sequences of 512 + 64, bf16) and phase 7's ``launch.train
+#: --arch gemma2-2b --full-config --batch 2 --seq 512`` (f32); gemma2's
+#: local layers (window 4096, which does not bite at these lengths), 8/4
+#: heads of 256, softcap 50
+GEMMA2_LAUNCH_SHAPES = {"phase 10": (4, 576, "bfloat16"), "phase 7": (2, 512, "float32")}
+
+
+def gemma2_launch_shape_times(torch, fa, rand, flush, bw) -> dict:
+    """gemma2's head_dim-256 attention timed where the main path launches
+    it (``GEMMA2_LAUNCH_SHAPES``): the tensor_core forward (with the lse, as
+    training calls it) and backward at phase 10's shape, the cuda_core
+    backward at phase 7's, each with the L2 cold beside the plain version,
+    the bound at the inputs' peak and SDPA on the same shape without the
+    softcap (``is_causal``, no mask: the window does not bite; K/V repeated
+    to the query heads outside the timing; its forward out of the
+    backward's timing; the backend named)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    out = {}
+    kw = dict(causal=True, softcap=50.0, window=GEMMA2_WINDOW)
+    for phase, (b, s, name) in GEMMA2_LAUNCH_SHAPES.items():
+        dtype = getattr(torch, name)
+        q = rand((b, 8, s, 256), dtype)
+        k, v = rand((b, 4, s, 256), dtype), rand((b, 4, s, 256), dtype)
+        dout = rand(q.shape, dtype)
+        route, bwd_route = fa._route(q, k, grad=True), fa._bwd_route(q)
+        o, lse = fa.launch_route(route, q, k, v, with_lse=True, **kw)
+        k8, v8 = k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)
+        peak = F32_TFLOPS if dtype == torch.float32 else BF16_TFLOPS
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} {name} causal softcap 50 window {GEMMA2_WINDOW}"
+        if route == "tensor_core":  # the forward as the step calls it
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k8, v8, is_causal=True)
+
+            backend = sdpa_backend(torch, sdpa)
+            calls = {"kernel": lambda: fa.launch_route(route, q, k, v, with_lse=True, **kw),
+                     "plain": lambda: fa.attention_plain(q, k, v, **kw)}
+            cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+            with sdpa_kernel([backend]):
+                cold["sdpa"] = cold_ms(torch, sdpa, flush, reps=20)
+            bound, by, flops, nbytes = flash_bound_ms(q, k, s, True, 0, bw, peak=peak, window=GEMMA2_WINDOW)
+            out[f"{phase} forward"] = dict(
+                route=route, shape=shape + ", with the lse", ms=cold["kernel"], plain_ms=cold["plain"],
+                library_ms=cold["sdpa"], library_backend=str(backend),
+                library_note="SDPA is_causal without the softcap (a lighter function), K/V repeated to 8 heads",
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+            emit("flash_launch_shape_times", case=f"{phase} forward", **out[f"{phase} forward"])
+        sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k8, v8))
+        backend = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True))
+        with sdpa_kernel([backend]):
+            sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True)
+        calls = {"kernel": lambda: fa.launch_backward(q, k, v, o, lse, dout, route=bwd_route, **kw),
+                 "plain": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw),
+                 "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True)}
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        want = calls["plain"]()
+        errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), calls["kernel"](), want)}
+        bound, by, flops, nbytes = bwd_bound_ms(q, k, s, True, 0, bw, peak, window=GEMMA2_WINDOW)
+        out[f"{phase} backward"] = dict(
+            route=bwd_route, shape=shape, ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa"],
+            library_backend=str(backend),
+            library_note="SDPA's backward is_causal without the softcap (a lighter function), K/V repeated to 8 heads",
+            bound_ms=bound, bound_by=by, peak_TFLOPs=peak / 1e12, flops=flops, bytes=nbytes,
+            achieved_TFLOPs=flops / (cold["kernel"] * 1e-3) / 1e12, rel_err_vs_plain=errs, tol=FLASH_TOL[name])
+        emit("flash_launch_shape_times", case=f"{phase} backward", **out[f"{phase} backward"])
+        check(max(errs.values()) <= FLASH_TOL[name],
+              f"gemma2 {phase} backward ({bwd_route}): kernels != plain backward")
+        del q, k, v, dout, o, lse, k8, v8, sq_, sk_, sv_, sdpa_out, calls, want
         torch.cuda.empty_cache()
     return out
 
@@ -1831,7 +1910,8 @@ MLA_TC_SHAPES = [
 MLA_QK, MLA_V, MLA_R, MLA_ROPE = 192, 128, 512, 64  # deepseek-v3's widths
 #: the absorbed decode on the mla_decode kernel: (b, heads, slots, kv_len,
 #: NaN in the dead slots); the served step's last (4 x 128 heads against
-#: 528 of 528 slots) first
+#: 528 of 528 slots) first, a long cache (8192 slots) last, with NaN past a
+#: kv_len off the 32-key tiles
 MLA_DECODE_CASES = [
     (4, 128, 528, 528, False),
     (4, 128, 528, 1, True),
@@ -1840,7 +1920,11 @@ MLA_DECODE_CASES = [
     (4, 128, 528, 300, True),
     (1, 128, 528, 528, False),
     (4, 16, 528, 400, True),
+    (4, 128, 8192, 8192, False),
+    (4, 128, 8192, 4099, True),
 ]
+#: the cases timed: the served step and the long cache
+MLA_DECODE_TIMED = {(4, 128, 528, 528, False): "served", (4, 128, 8192, 8192, False): "long_cache"}
 MLA_DECODE_TOL = 2e-5  # f32, of the output's max |value|: the kernel and the reference are f32 throughout
 
 
@@ -1874,11 +1958,13 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
     at q/k 192 and v 128 (``MLA_TC_SHAPES``, bf16 tolerance) and the
     absorbed-latent ``mla_decode`` kernel (``MLA_DECODE_CASES``, within 2e-5
     of the output's max |value|). Both timed with the L2 cold at the
-    served shapes beside the plain version, the bound and SDPA (E 192, Ev
-    128, causal for the prefill; one KV head of E 576, Ev 512 with
-    ``enable_gqa`` and the scale 1/sqrt(192) for the decode), its backend
-    named, or "none ran". Returns the tensor_core route's (192, 128) record
-    and the ``mla_decode`` kernel's entry."""
+    served shapes (the decode also at a long cache, ``MLA_DECODE_TIMED``)
+    beside the plain version, the bound and SDPA (E 192, Ev 128, causal for
+    the prefill; one KV head of E 576, Ev 512 with ``enable_gqa`` and the
+    scale 1/sqrt(192) for the decode), its backend named, or "none ran"
+    (its math backend expands K/V to every head: 9 GB at 8192 slots). Returns
+    the tensor_core route's (192, 128) record and the ``mla_decode``
+    kernel's entry."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1937,7 +2023,7 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
     prefill.update(max_abs_err=worst_tc[0], err_over_tol=worst_tc[1])
     torch.cuda.empty_cache()
 
-    worst, decode = (0.0, 0.0), None
+    worst, decode = (0.0, 0.0), {}
     for b, h, smax, kv_len, nan in MLA_DECODE_CASES:
         qa, qr = rand(b, h, 1, MLA_R), rand(b, h, 1, MLA_ROPE)
         ckv, kr = rand(b, smax, MLA_R), rand(b, smax, MLA_ROPE)
@@ -1959,7 +2045,8 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
              err_over_tol=ratio, bit_equal_rerun=same, splits=md.split_plan(kv_len, b, h))
         check(ratio <= 1.0 and same and torch.isfinite(got).all().item(),
               f"mla_decode != plain version on {label}, or two runs differ")
-        if decode is None:  # the served step: timed
+        timed = MLA_DECODE_TIMED.get((b, h, smax, kv_len, nan))
+        if timed:
             q576 = torch.cat([qa, qr], -1)
             k576, v512 = torch.cat([ckv, kr], -1)[:, None], ckv[:, None]
 
@@ -1968,8 +2055,9 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
 
             try:
                 backend = sdpa_backend(torch, sdpa).name
-            except SmokeFailure:
+            except SmokeFailure:  # a backend out of memory is one that does not take the call
                 backend = None
+                torch.cuda.empty_cache()
             calls = {"kernel": lambda: md.mla_decode(qa, qr, ckv, kr, kv_len=kv_len, scale=scale),
                      "plain": lambda: md.mla_decode_plain(qa, qr, ckv, kr, kv_len=kv_len, scale=scale)}
             if backend is not None:
@@ -1977,25 +2065,26 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
             cold = {n: cold_ms(torch, f, flush) for n, f in calls.items()}
             warm = {n: device_ms(torch, f) for n, f in calls.items()}
             bound, by, flops, nbytes = mla_decode_bound_ms(b, h, kv_len, bw)
-            decode = dict(shape=f"q_abs [{b},{h},1,512], q_rope [{b},{h},1,64], ckv [{b},{smax},512], "
-                                f"krope [{b},{smax},64] bf16, kv_len {kv_len}",
-                          ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold.get("sdpa"),
-                          library=(f"scaled_dot_product_attention ({backend}), one KV head of E 576, Ev 512"
-                                   if backend else "none ran"),
-                          warm_device_ms=warm, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
-                          splits=md.split_plan(kv_len, b, h),
-                          sdpa_max_abs_diff=(float((sdpa().float()[..., :MLA_R] - got).abs().max())
-                                             if backend else None))
-            emit("mla_decode_times", **decode)
+            decode[timed] = dict(
+                shape=f"q_abs [{b},{h},1,512], q_rope [{b},{h},1,64], ckv [{b},{smax},512], "
+                      f"krope [{b},{smax},64] bf16, kv_len {kv_len}",
+                ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold.get("sdpa"),
+                library=(f"scaled_dot_product_attention ({backend}), one KV head of E 576, Ev 512"
+                         if backend else "none ran"),
+                warm_device_ms=warm, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                splits=md.split_plan(kv_len, b, h),
+                sdpa_max_abs_diff=float((sdpa().float()[..., :MLA_R] - got).abs().max()) if backend else None)
+            emit("mla_decode_times", case=timed, **decode[timed])
             del q576, k576, v512, calls
         del qa, qr, ckv, kr, got, again, want
     del flush
     torch.cuda.empty_cache()
+    served = decode["served"]
     entry = dict(name="mla_decode", route="cuda", source="src/repro_torch/kernels/csrc/mla_decode.cu",
                  replaces="src/repro/models/blocks.py:184", max_abs_err=worst[0], err_over_tol=worst[1],
-                 ms=decode["ms"], plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
-                 bound_by=decode["bound_by"], library_ms=decode["library_ms"], library=decode["library"],
-                 timed_shape=decode["shape"], counter=md.LAUNCHES)
+                 ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
+                 bound_by=served["bound_by"], library_ms=served["library_ms"], library=served["library"],
+                 timed_shape=served["shape"], long_cache=decode["long_cache"], counter=md.LAUNCHES)
     return {"mla_prefill": prefill, "mla_decode": entry}
 
 
@@ -3684,6 +3773,7 @@ def main() -> int:
         timed_shape=f32["shape"], ms=f32["ms"], warm_device_ms=f32["warm_device_ms"]["kernel"],
         plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"])
     kernels["flash_attention"]["lse_err_over_tol"] = bwd.pop("lse_err_over_tol")
+    kernels["flash_attention"]["routes"]["tensor_core"]["gemma2_phase10_forward"] = bwd.pop("gemma2_phase10_forward")
     kernels.update(bwd)
     dbrx = dbrx_attention_checks(torch, dev, bw)
     fwd, bwd_tc = kernels["flash_attention"], kernels["flash_attention_bwd/tensor_core"]

@@ -61,9 +61,8 @@ SIGNATURES = {
                               _INT, _P, _P),
     # (q_abs, q_rope, ckv, krope, out f32, B, H, ckv batch and slot strides,
     #  krope batch and slot strides, kv_len, keys_per_split, nsplit, scale,
-    #  f32 scratch, int32 split counters, stream); bf16 in, R 512, rope 64
-    "th_mla_decode": (_P, _P, _P, _P, _P, _INT, _INT, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _F32, _P, _P,
-                      _P),
+    #  f32 scratch, stream); bf16 in, R 512, rope 64
+    "th_mla_decode": (_P, _P, _P, _P, _P, _INT, _INT, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _F32, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
     #  D, causal, softcap, q_offset, kv_len, window, keys_per_split, nsplit,
     #  f32 scratch, int32 split counters, stream)

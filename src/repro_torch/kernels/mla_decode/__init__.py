@@ -19,12 +19,18 @@ share one latent "KV head" of width ``R + rd``; the scale is the caller's,
 On a CUDA tensor it launches the hand-written split-KV kernel
 (``csrc/mla_decode.cu``: bf16 in, ``R = 512``, ``rd = 64``, one query a
 head) or raises; the JAX package has no Pallas kernel for this (XLA
-computes its einsums), so the kernel replaces those einsums. The slots
-``[0, kv_len)`` are cut into splits of whole 32-key tiles
-(:func:`split_plan`), one block a (split, 64 heads, batch); the block that
-finishes a (batch, head half)'s last split merges the splits' partial
-softmax states in split order (what :func:`mla_decode_split_plain`
-computes in plain PyTorch), so a rerun gives the same bits.
+computes its einsums), so the kernel replaces those einsums. Both of its
+products run on the tensor cores: S over ``[q_abs | q_rope] . [ckv |
+krope]`` (bf16 operands, exact products in f32), and P.V with each f32
+weight as two bf16 operands, ``P_hi + P_lo``, so the output stays within
+the f32 gate. The slots ``[0, kv_len)`` are cut into splits of whole
+32-key tiles (:func:`split_plan`), one block a (split, 64 heads, batch),
+each tile read once by TMA with the cache's slot extent at ``kv_len``
+(the dead slots arrive as zeros); a second small kernel merges the
+splits' partial softmax states of each (batch, head) row in split order
+(what :func:`mla_decode_split_plain` computes in plain PyTorch), so a
+rerun gives the same bits. One launch of the wrapper is the split kernel
+and, with more than one split, the merge after it on the same stream.
 
 On a CPU tensor it runs :func:`mla_decode_plain`, the reference's einsums
 in f32, and launches nothing. ``LAUNCHES`` counts the kernel's launches.
@@ -88,7 +94,10 @@ def split_plan(kv_len: int, batch: int, heads: int) -> Tuple[int, int]:
     """The kernel's ``(keys_per_split, nsplit)``: ``[0, kv_len)`` in splits
     of whole 32-key tiles, as many as fit ``MAX_BLOCKS`` blocks of
     (split, 64 heads, batch) and ``MAX_SPLITS`` splits; the last split may
-    be short, none is empty."""
+    be short, none is empty. One wave of blocks, one an SM: at the served
+    step (4 x 128 heads, 528 slots) 9 splits of two tiles, which ran
+    faster than 17 of one tile (136 blocks: a second wave and twice the
+    f32 partials)."""
     tiles = -(-kv_len // TILE_KEYS)
     groups = batch * -(-heads // HEADS_PER_BLOCK)
     per = min(tiles, max(-(-tiles * groups // MAX_BLOCKS), -(-tiles // MAX_SPLITS)))
@@ -104,34 +113,47 @@ def mla_decode_split_plain(
     kv_len: int,
     scale: float,
     keys_per_split: int = 0,
+    p_lo: bool = True,
 ) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch, f32: per split (of
     :func:`split_plan` unless ``keys_per_split`` is given) an online
-    softmax over 32-key tiles, the latent and rope scores summed apart and
-    then added, -1e30 past the split's end; then the log-sum-exp merge of
-    the splits in order, ``sum exp(m_i - M) acc_i / max(sum exp(m_i - M)
-    l_i, 1e-30)``."""
+    softmax over 32-key tiles, the scores over ``[q_abs | q_rope] . [ckv |
+    krope]`` summed in two halves of their columns (one a warpgroup of the
+    kernel) and then added, -1e30 past the
+    split's end (where the kernel's tile holds zeros); the weights as
+    ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, each against the
+    latent rows, added to the f32 sum in that order, the row sum ``l``
+    from the f32 ``p``; then the log-sum-exp merge of the splits in order,
+    ``sum exp(m_i - M) acc_i / max(sum exp(m_i - M) l_i, 1e-30)``.
+    ``p_lo=False`` drops ``P_lo`` (one bf16 operand a weight), which
+    misses the f32 gate."""
     b, h, _, _, _ = _check(q_abs, q_rope, ckv, krope, kv_len)
     if not keys_per_split:
         keys_per_split, _ = split_plan(kv_len, b, h)
-    qa, qr = q_abs.float(), q_rope.float()
+    q = torch.cat([q_abs, q_rope], dim=-1).float()
+    r = ckv.shape[2]
+    half = (r + krope.shape[2]) // 2
     ms, ls, accs = [], [], []
     for k0 in range(0, kv_len, keys_per_split):
         k1 = min(k0 + keys_per_split, kv_len)
-        m = torch.full((*qa.shape[:3], 1), NEG_INF, dtype=torch.float32, device=qa.device)
+        m = torch.full((*q.shape[:3], 1), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros_like(qa)
+        acc = torch.zeros((*q.shape[:3], r), dtype=torch.float32, device=q.device)
         for t0 in range(k0, k1, TILE_KEYS):
-            c = ckv[:, t0 : t0 + TILE_KEYS].float()
-            kr = krope[:, t0 : t0 + TILE_KEYS].float()
-            s = (torch.einsum("bhsr,btr->bhst", qa, c) + torch.einsum("bhsd,btd->bhst", qr, kr)) * scale
-            live = torch.arange(t0, t0 + c.shape[1], device=qa.device) < k1
-            s = s.masked_fill(~live, NEG_INF)
+            live = torch.arange(t0, min(t0 + TILE_KEYS, ckv.shape[1]), device=q.device) < k1
+            kv = torch.cat([ckv[:, t0 : t0 + TILE_KEYS], krope[:, t0 : t0 + TILE_KEYS]], dim=-1).float()
+            kv = kv.masked_fill(~live[:, None], 0.0)
+            s = (torch.einsum("bhsw,btw->bhst", q[..., :half], kv[..., :half])
+                 + torch.einsum("bhsw,btw->bhst", q[..., half:], kv[..., half:]))
+            s = (s * scale).masked_fill(~live, NEG_INF)
             mc = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             alpha = torch.exp(m - mc)
             p = torch.exp(s - mc)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhst,btr->bhsr", p, c.masked_fill(~live[:, None], 0.0))
+            p_hi = p.bfloat16().float()
+            acc = acc * alpha + torch.einsum("bhst,btr->bhsr", p_hi, kv[..., :r])
+            if p_lo:
+                acc = acc + torch.einsum("bhst,btr->bhsr", (p - p_hi).bfloat16().float(), kv[..., :r])
             m = mc
         ms.append(m)
         ls.append(l)
@@ -154,8 +176,9 @@ def mla_decode(
 
 
 def _slot_strides(t: torch.Tensor, name: str) -> Tuple[int, int]:
-    """A cache's batch and slot strides, where the kernel's 16-byte copies
-    can read its rows in place; else raise (a copy of the whole cache a
+    """A cache's batch and slot strides, where the kernel's tensor maps
+    (TMA: a 16-byte aligned base, strides in whole 16 bytes) can read its
+    rows in place; else raise (a copy of the whole cache a
     step is no place to fall into quietly)."""
     st = t.stride()
     if st[2] != 1 or t.data_ptr() % 16 or any(x % 8 for x in st[:2]):
@@ -183,30 +206,12 @@ def launch(
     qa, qr = q_abs.contiguous(), q_rope.contiguous()
     out = torch.empty((b, h, 1, r), dtype=torch.float32, device=q_abs.device)
     keys, nsplit = split_plan(kv_len, b, h)
-    groups = b * -(-h // HEADS_PER_BLOCK)
-    part = torch.empty(groups * nsplit * HEADS_PER_BLOCK * (r + 2) if nsplit > 1 else 1, dtype=torch.float32,
-                       device=q_abs.device)
-    counters = _split_counters(q_abs.device, groups)
+    part = torch.empty(b * h * nsplit * (r + 2) if nsplit > 1 else 1, dtype=torch.float32, device=q_abs.device)
     lib = build.library()
     LAUNCHES.add()
     err = lib.th_mla_decode(qa.data_ptr(), qr.data_ptr(), ckv.data_ptr(), krope.data_ptr(), out.data_ptr(), b, h,
-                            cb, cs, rb, rs, kv_len, keys, nsplit, float(scale), part.data_ptr(), counters.data_ptr(),
+                            cb, cs, rb, rs, kv_len, keys, nsplit, float(scale), part.data_ptr(),
                             build.stream_ptr(q_abs.device))
     build.check("th_mla_decode", err)
     return out
-
-
-_COUNTERS: dict = {}
-
-
-def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The kernel's per-(batch, head half) split counters on ``device``:
-    zeros, kept between calls (the block that merges resets its counter),
-    so a step launches one kernel and no memset; calls on one device run
-    in stream order on the serving path."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
 

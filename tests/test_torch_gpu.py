@@ -1186,7 +1186,8 @@ def test_tensor_core_forward_at_mla_widths_equals_plain(dev, case):
 #: (b, heads, slots, kv_len, NaN in the dead slots): chip_smoke.py phase 2's
 _MLA_DECODE_CASES = [(4, 128, 528, 528, False), (4, 128, 528, 1, True), (4, 128, 528, 65, True),
                      (4, 128, 528, 527, True), (1, 128, 528, 528, False), (4, 16, 528, 400, True),
-                     (2, 4, 100, 33, True), (3, 100, 2000, 1999, True)]
+                     (2, 4, 100, 33, True), (3, 100, 2000, 1999, True), (4, 128, 8192, 8192, False),
+                     (4, 128, 8192, 4099, True)]
 
 
 @pytest.mark.parametrize("case", _MLA_DECODE_CASES, ids=lambda c: "x".join(map(str, c)))

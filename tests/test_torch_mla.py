@@ -205,8 +205,9 @@ def test_mla_decode_plain_matches_jax_einsums(b, h, smax, kv_len):
 @pytest.mark.parametrize("keys_per_split", [0, 32, 64])
 @pytest.mark.parametrize("b,h,smax,kv_len", LATENT_CASES, ids=lambda c: str(c))
 def test_split_kv_emulation_matches_jax_einsums(b, h, smax, kv_len, keys_per_split):
-    """The kernel's algorithm (32-key tiles, splits, the ordered merge) at
-    the kernel's widths where it matters (R 512, rd 64) and the reduced
+    """The kernel's algorithm (32-key tiles, one product over the latent
+    and rope columns, P as bf16 hi + lo, splits, the ordered merge) at the
+    kernel's widths where it matters (R 512, rd 64) and the reduced
     ones."""
     for r, rd in ((16, 8), (512, 64)):
         ins = _latent_inputs(kv_len + r, b, min(h, 16), smax, r, rd)
@@ -214,6 +215,20 @@ def test_split_kv_emulation_matches_jax_einsums(b, h, smax, kv_len, keys_per_spl
         got = md.mla_decode_split_plain(*map(torch.from_numpy, ins), kv_len=kv_len, scale=scale,
                                         keys_per_split=keys_per_split)
         _close(got, _jax_latent(*ins, kv_len, scale))
+
+
+@pytest.mark.parametrize("b,h,smax,kv_len", [c for c in LATENT_CASES if c[3] > 1], ids=lambda c: str(c))
+def test_split_p_lo_is_what_meets_the_f32_gate(b, h, smax, kv_len):
+    """Why the kernel issues P.V twice: each f32 softmax weight as one bf16
+    operand (``P_hi``) misses 2e-5 against the JAX einsums at R 512; with
+    ``P_lo = bf16(p - P_hi)`` added into the same f32 sum it meets it."""
+    ins = _latent_inputs(kv_len + 512, b, min(h, 16), smax, 512, 64)
+    scale = 192 ** -0.5
+    want = np.asarray(_jax_latent(*ins, kv_len, scale))
+    hi_lo, hi = (md.mla_decode_split_plain(*map(torch.from_numpy, ins), kv_len=kv_len, scale=scale, p_lo=p_lo)
+                 for p_lo in (True, False))
+    _close(hi_lo, want)
+    assert not np.allclose(hi.numpy(), want, rtol=TOL, atol=TOL)
 
 
 def test_dead_slots_are_never_read():
