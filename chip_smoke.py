@@ -20,7 +20,8 @@ lines, any failure exiting non-zero:
    route writing the rows' log-sum-exp, then the backward route: the
    three tensor-core kernels of ``flash_attention_bwd_tc.cu`` in bf16, the
    three CUDA-core kernels (pre, dK/dV, dQ) of ``flash_attention_bwd.cu``
-   in f32 and f16 and at head_dim 16/32) against autograd through the
+   in f32 and f16 and at head_dim 16/32; at head_dim 256 each route's pre
+   and its one dK/dV + dQ launch, dkdv_dq) against autograd through the
    plain attention at the GRPO step's shape in bf16, f32 and f16 and at
    its edges (S = 77, G 1/4/7/8/64, kv_len < Sk with NaN in the dead K/V
    slots, q_offset > 0, softcap, head_dim 64, 32, 16), each within
@@ -314,6 +315,33 @@ def cold_ms(torch, fn, flush, reps: int = 20, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_split_ms(torch, call, flush, reps: int = 20, match: str = "flash_bwd") -> dict:
+    """Each kernel's mean device time in ms over ``reps`` calls of
+    ``call``, by its name (those holding ``match``), from profiler traces:
+    ``cold`` with the L2 filled before every call, ``warm`` with calls back
+    to back."""
+    import re
+
+    from torch.profiler import ProfilerActivity
+
+    out = {}
+    for mode in ("cold", "warm"):
+        def run():
+            for _ in range(reps):
+                if mode == "cold":
+                    flush.zero_()
+                call()
+
+        events, _ = traced(torch, run, [ProfilerActivity.CUDA])
+        sums = {}
+        for e in events:
+            if match in e.name:
+                name = re.search(rf"{match}\w*(<[^>]*>)?", e.name).group(0)
+                sums[name] = sums.get(name, 0.0) + e.time_range.elapsed_us() * 1e-3 / reps
+        out[mode] = sums
+    return out
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -1513,8 +1541,8 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             2, 8, 4, 64, 320, 256, dtype, dict(q_offset=200, kv_len=264, nan_tail=True))
         cases[f"window 4096 softcap 50 [1,8/4,4200x4200,256] {name}"] = (
             1, 8, 4, 4200, 4200, 256, dtype, dict(window=4096, softcap=50.0))
-    worst = {r: 0.0 for r in fa.BWD_KERNELS}
-    worst_abs = {r: 0.0 for r in fa.BWD_KERNELS}
+    worst = {e: 0.0 for r in fa.BWD_KERNELS for e in (r, r + "_256")}
+    worst_abs = dict(worst)
     for label, (b, hq, hkv, sq, sk, d, dtype, kw) in cases.items():
         kw = dict(dict(causal=True), **kw)
         q, k, v = qkv(b, hq, hkv, sq, sk, d, dtype)
@@ -1529,7 +1557,7 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
             r_before = fa.ROUTE_LAUNCHES[route].value
             got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, dout)
-            want = {f"{bwd_route}/{n}": 1 for n in fa.BWD_KERNELS[bwd_route]}
+            want = {f"{bwd_route}/{n}": 1 for n in fa.bwd_kernels(d)}
             check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {n: want.get(n, 0) for n in before}
                   and fa.ROUTE_LAUNCHES[route].value == r_before + 1, f"backward kernels not launched on {label}")
             return got
@@ -1543,9 +1571,9 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        worst[bwd_route] = max(worst[bwd_route], max(errs.values()) / tol)
-        worst_abs[bwd_route] = max(worst_abs[bwd_route],
-                                   max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
+        e = bwd_route + ("_256" if d == fa.BWD_ONE_LAUNCH_DIM else "")
+        worst[e] = max(worst[e], max(errs.values()) / tol)
+        worst_abs[e] = max(worst_abs[e], max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
         emit("flash_bwd_check", case=label, forward_route=route, backward_route=bwd_route, rel_err=errs, tol=tol,
              finite=finite, bit_equal_rerun=same)
         check(finite and max(errs.values()) <= tol, f"backward kernels != autograd of the plain version on {label}")
@@ -1649,10 +1677,22 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
             counter=fa.BWD_LAUNCHES[f"{r}/dkdv"],  # every call launches its route's dK/dV kernel once
         )
     entries["flash_attention_bwd/cuda_core"]["bfloat16_on_tensor_core_inputs"] = times["cuda_core bfloat16"]
-    entries["flash_attention_bwd/tensor_core"]["gemma2_backward"] = gemma2["tensor_core bfloat16"]
-    entries["flash_attention_bwd/cuda_core"]["gemma2_backward"] = gemma2["cuda_core float32"]
-    entries["flash_attention_bwd/tensor_core"]["gemma2_phase10_backward"] = at_launch["phase 10 backward"]
-    entries["flash_attention_bwd/cuda_core"]["gemma2_phase7_backward"] = at_launch["phase 7 backward"]
+    # head_dim 256: pre, then one launch of its dK/dV and dQ items (dkdv_dq),
+    # an entry a route, timed where the main path launches it (phase 10's
+    # bf16 step, phase 7's f32 gemma2) and at gemma2's 4672 rows
+    for r, source, case, g2 in (("tensor_core", "flash_attention_bwd_tc.cu", "phase 10 backward", "tensor_core bfloat16"),
+                                ("cuda_core", "flash_attention_bwd.cu", "phase 7 backward", "cuda_core float32")):
+        t = at_launch[case]
+        entries[f"flash_attention_bwd/{r}_256"] = dict(
+            name=f"flash_attention_bwd/{r}_256", route="cuda", source=csrc + source,
+            replaces="src/repro/kernels/flash_attention/kernel.py:96",
+            replaces_note="the backward of row 5's kernel at head_dim 256 (gemma2): pre, then one persistent "
+                          "launch of the dK/dV and dQ items (dkdv_dq)",
+            max_abs_err=worst_abs[r + "_256"], err_over_tol=worst[r + "_256"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library_note=t["library_note"], kernels_ms=t["kernels_ms"], timed_shape=t["shape"],
+            gemma2_backward=gemma2[g2], counter=fa.BWD_LAUNCHES[f"{r}/dkdv_dq"],  # once a call at head_dim 256
+        )
     return dict(entries, f32_route_training_shape=f32_times, lse_err_over_tol=lse_worst,
                 gemma2_phase10_forward=at_launch["phase 10 forward"])
 
@@ -1770,11 +1810,13 @@ def gemma2_launch_shape_times(torch, fa, rand, flush, bw) -> dict:
                  "plain": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw),
                  "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True)}
         cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        split = kernel_split_ms(torch, calls["kernel"], flush)  # pre, then the one dkdv_dq launch
         want = calls["plain"]()
         errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), calls["kernel"](), want)}
         bound, by, flops, nbytes = bwd_bound_ms(q, k, s, True, 0, bw, peak, window=GEMMA2_WINDOW)
         out[f"{phase} backward"] = dict(
-            route=bwd_route, shape=shape, ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["sdpa"],
+            route=bwd_route, shape=shape, ms=cold["kernel"], kernels_ms=split, plain_ms=cold["plain"],
+            library_ms=cold["sdpa"],
             library_backend=str(backend),
             library_note="SDPA's backward is_causal without the softcap (a lighter function), K/V repeated to 8 heads",
             bound_ms=bound, bound_by=by, peak_TFLOPs=peak / 1e12, flops=flops, bytes=nbytes,
@@ -1858,7 +1900,7 @@ def dbrx_attention_checks(torch, dev, bw: float) -> dict:
         before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
         got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True), leaves, dout)
         check(all(fa.BWD_LAUNCHES[f"tensor_core/{n}"].value == before[f"tensor_core/{n}"] + 1
-                  for n in fa.BWD_KERNELS["tensor_core"]), "tensor_core backward not launched on dbrx's step")
+                  for n in fa.bwd_kernels(128)), "tensor_core backward not launched on dbrx's step")
         return got
 
     got, again = grads(), grads()
@@ -2768,8 +2810,9 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         fa.launch_route, fa.launch_backward = wrappers
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
     step_launches = {k: v - before[k] for k, v in counts().items()}
+    launched = {f"tensor_core/{n}" for n in fa.bwd_kernels(cfg.resolved_head_dim)}
     want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
-            **{f"flash_attention_bwd_{n}": cfg.num_layers * n.startswith("tensor_core/") for n in BWD_LAUNCHES}}
+            **{f"flash_attention_bwd_{n}": cfg.num_layers * (n in launched) for n in BWD_LAUNCHES}}
     check({k: step_launches[k] for k in want} == want, f"{label} GRPO step launches {step_launches}, want {want}")
     layer_windows = _layer_windows(cfg)
     check(windows["forward"] == layer_windows and windows["backward"][::-1] == layer_windows,
@@ -2841,7 +2884,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check1 = check_round(torch, cfg, reference, trainer.params, rec1, 1, served1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
-    for k in ("checksum", "flash_attention", *(f"flash_attention_bwd_tensor_core/{n}" for n in ("pre", "dkdv", "dq"))):
+    for k in ("checksum", "flash_attention",
+              *(f"flash_attention_bwd_tensor_core/{n}" for n in fa.bwd_kernels(cfg.resolved_head_dim))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
     queue.clear()
@@ -2966,7 +3010,7 @@ def train_entry_point(torch, counters) -> dict:
     import re
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, bwd_kernels
     from repro_torch.launch import train
 
     steps = 2
@@ -2997,8 +3041,9 @@ def train_entry_point(torch, counters) -> dict:
         check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{arch}: train entry point losses {losses}")
         if arch == "llama3-8b":
             check(losses == TRAIN_ENTRY_LOSSES, f"llama3-8b losses {losses}, before {TRAIN_ENTRY_LOSSES}")
+        launched = {f"cuda_core/{n}" for n in bwd_kernels(cfg.resolved_head_dim)}
         want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
-                **{f"flash_attention_bwd_{n}": steps * layers * n.startswith("cuda_core/") for n in BWD_LAUNCHES}}
+                **{f"flash_attention_bwd_{n}": steps * layers * (n in launched) for n in BWD_LAUNCHES}}
         check({k: run[k] for k in want} == want, f"{arch}: train entry point launches {run}, want {want}")
         runs[arch] = run
     launches = {k: c.value for k, c in every.items()}
@@ -3706,6 +3751,30 @@ def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     return rec
 
 
+def sass_counts(so, match: str) -> dict:
+    """The HGMMA and UTMALDG instructions in the SASS of a library's
+    kernels whose (mangled) names hold ``match``, counted by kernel and by
+    their full opcode (shape and types), from ``cuobjdump -sass``."""
+    import collections
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if match in m.group(1) else None
+            continue
+        op = re.search(r"\b(HGMMA\S*|UTMALDG\S*)", line) if fn else None
+        if op:
+            counts.setdefault(fn, collections.Counter())[op.group(1)] += 1
+    return {f: dict(c) for f, c in counts.items()}
+
+
 def ptxas_lines(log: str) -> list:
     """ptxas's register and spill lines of a build log, each prefixed with
     the kernel it describes (demangled where ``c++filt`` is on the path)."""
@@ -3751,6 +3820,7 @@ def main() -> int:
 
     from repro_torch.core.meta import DEFAULT_CHUNK_BYTES
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import bwd_kernels
     from repro_torch.models.params import llama3_8b_shapes
 
     t0 = time.perf_counter()
@@ -3855,9 +3925,11 @@ def main() -> int:
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
-        if k.startswith("flash_attention_bwd/"):
+        if k.startswith("flash_attention_bwd/"):  # pre counts every call of its route, at any head_dim
             route = k.split("/")[1]
-            entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n.startswith(route + "/")}
+            base, d = (route[:-4], 256) if route.endswith("_256") else (route, 128)
+            names = {f"{base}/{n}" for n in bwd_kernels(d)}
+            entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)

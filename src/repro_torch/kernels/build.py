@@ -80,6 +80,12 @@ SIGNATURES = {
     #  {64, 128, 256}; the three tensor-core backward kernels take the same
     **{f"th_flash_bwd_tc_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                                 _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
+    # head_dim 256, one launch of dK/dV and dQ: each route's arguments with
+    # the work list (int32 on the device) and the grid before the stream
+    "th_flash_bwd_dkdv_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                             _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
+    "th_flash_bwd_tc_dkdv_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
+                                _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
 }
 
 

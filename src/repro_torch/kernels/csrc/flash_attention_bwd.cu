@@ -82,8 +82,8 @@
 // reaches a product. The longest blocks are launched first (the first key
 // tiles for dK/dV, the last query tiles for dQ).
 //
-// Head_dim 256 (gemma2) has dK/dV and dQ kernels of its own, on the same
-// sub-tile geometry (section 4 below).
+// Head_dim 256 (gemma2) has a kernel of its own, one launch of its dK/dV
+// and dQ items after pre, on the same sub-tile geometry (section 4 below).
 //
 // Inputs are strided in batch, head and sequence (unit stride in D, rows
 // 16-byte aligned for the copies); outputs likewise.
@@ -567,336 +567,432 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
   }
 }
 
-// -- 4. head_dim 256 ---------------------------------------------------------------
+// -- 4. head_dim 256: one persistent launch of the dK/dV and dQ items ---------------
 
 // At D = 256 the plans above do not fit: K and V of 64 keys alone are 128
 // KB in f32, a 64-row Q or dO sub-tile 64 KB, and a thread's dK or dV of 8
-// keys x 16 columns 128 registers. So D = 256 has two kernels of its own
-// on the same sub-tile geometry (kSub, packed_row and the stats of the pre
-// kernel, which takes D = 256 as it is):
-//  * dK/dV: one block of 256 threads a (batch, KV head, 32 keys). K and V
-//    stay in shared memory; the items are half sub-tiles of 32 packed rows
-//    (rows 0-31, then 32-63 of a sub-tile, with the sub-tile's stats),
-//    streamed through a two-stage cp.async ring over the sub-tiles dK/dV
-//    of 64 keys would take. Half the block computes S^T = K Q^T, the other
-//    half dP^T = V dO^T, 2 x 4 a thread (keys kx + 16a, rows ry + 8c) over
-//    all of D; dP^T goes through an f32 tile to the S^T half, which writes
-//    P^T and dS^T; then half the block accumulates dV += P^T dO and the
-//    other dK += dS^T Q, 4 keys x 16 RowCols columns a thread. 211,456
-//    bytes of shared memory in f32.
-//  * dQ: one block a (batch, KV head, sub-tile of 64 packed rows). Q, dO
-//    and their stats stay in shared memory; K and V tiles of 16 keys stream
-//    through the ring from the window's start for the sub-tile's first
-//    position up to the causal / kv_len edge. The halves compute S = Q K^T
-//    and dP = dO V^T, 4 x 2 a thread (rows hx + 16a, keys tx + 8c), dS goes
-//    into an f32 tile, and every thread accumulates dQ += dS K, 4 rows x 16
-//    RowCols columns. 205,824 bytes in f32.
-// Each thread's products are 4 x 2 or 2 x 4 (two floats a load feed an
-// FMA, half the rate of the 8 x 8 tiles above): a plan that is right first;
-// its times are in PERF.md.
+// keys x 16 columns 128 registers. So D = 256 has a kernel of its own,
+// flash_bwd_cc256_kernel: after pre (which takes D = 256 as it is), one
+// persistent launch for the whole call, on the sub-tile geometry above
+// (kSub, packed_row and pre's stats):
+//
+// * Items of 32 rows. A dK/dV item is 32 keys of a KV head (its K and V
+//   stay in shared memory; the Q and dO sub-tiles of 64 packed rows that
+//   see them stream through the ring); a dQ item is 32 packed rows, half a
+//   sub-tile (Q, dO and the sub-tile's stats stay; the K and V tiles of 64
+//   keys its rows see stream through). As on the tensor cores, one code
+//   serves both: the fixed pair (K, V or Q, dO; 32 rows) is A of both score
+//   products and the streamed pair (Q, dO or K, V; 64 rows) B, the scores
+//   go into f32 tiles laid out [B row][A row], and the accumulation sums
+//   over B rows: dV += P^T dO, dK += dS^T Q (B rows the packed query rows),
+//   dQ += dS K (B rows the keys). 32-key dK/dV items keep the heaviest item
+//   near the mean at phase 7's shape (2 x 8/4 heads x 512: key tile 0 of 64
+//   keys would take 66 of the mean 31 units of work a block); each item
+//   owns its outputs (a dQ item sums its two halves' partials in shared
+//   memory in a fixed order), so there are no atomics and two runs give the
+//   same bits.
+// * The work list, as the tensor-core kernel's (bwd256_order on the host,
+//   "cuda_core" geometry): min(items, SMs) persistent blocks, each walking
+//   its own items heaviest first.
+// * Slabs. The streamed pair comes in two slabs of 128 of its 256 columns
+//   by cp.async, each in a stage of its own: four steps a tile, the scores
+//   over slab 0, then slab 1, the accumulation over slab 0, then slab 1 (the
+//   slabs the scores read, still in place). Slab 1 loads while the scores
+//   run over slab 0, and the next tile's slab 0 while the accumulation runs
+//   over slab 1; each slab crosses from the L2 once a tile.
+// * Thread tiles of 4 x 8 on every product. The scores: quarters of 64
+//   threads compute S (quarters 0, 1) or dP (2, 3) over half of each slab's
+//   columns (quarter % 2), 4 A rows x 8 B rows a thread (A rows ty + 8a, B
+//   rows tx + 8c), and the two halves of a product trade partial sums once a
+//   tile through the score tiles (each finishes two of its four rows). Then
+//   the S and the dP thread of the same elements each form P and dS for one
+//   of those two rows, handing each other the other's value, so every
+//   thread takes a share of the softmax. The accumulation: half the block
+//   dV and half dK (dQ: each half over 32 of the tile's 64 keys, the
+//   halves' partial sums added at the item's end), 4 rows x 8 columns of a
+//   slab a thread. Each float a thread loads feeds 2.7 FMAs, against 2 (2 x
+//   4) and 1.3 (4 x 2) before.
+// * An item's first loads (its fixed pair once the scores are done with
+//   the last item's, its first slab beside the accumulation) go out under
+//   the last item's last tile.
+// * The arithmetic stays IEEE: tanhf and an IEEE division under a softcap
+//   (the f32 gate is 2e-5, and the fast form's 4.5e-7 c is 2.3e-5 at c =
+//   50), __expf for P, f32 FMAs for every product.
+// Shared memory in f32: the fixed pair 2 x 32 KB, two stages of 2 x 32 KB
+// slabs, the P and dS tiles 2 x 64 x 36 floats and the stats 2 x 512 B:
+// 216,064 bytes (half the pair and slabs in bf16 and f16). Registers: 64
+// accumulators (2 slabs x 4 x 8), 32 scores, 12 float4 operands.
+constexpr int kRows256 = 32;    // rows of an item's fixed pair (keys, or packed query rows)
+constexpr int kSlab = 128;      // columns of a streamed slab
+constexpr int kTP = kRows256 + 4;  // pitch of the score tiles [64 B rows][32 A rows]
 
 template <typename T>
-struct Dkdv256Layout {
-  static constexpr int kKeys = 32;      // keys a block
-  static constexpr int kRows = 32;      // packed query rows an item: half a sub-tile
-  static constexpr int kPP = kRows + 4; // pitch of the P^T, dS^T and dP^T tiles [32 rows][32 key slots]
-  static constexpr size_t kKV = size_t(kKeys) * 256 * sizeof(T);
-  static constexpr size_t kTile = size_t(kRows) * 256 * sizeof(T);
-  static constexpr size_t kK = 0;
-  static constexpr size_t kV = kK + kKV;
-  static constexpr size_t kQ = kV + kKV;          // [2][32][256]
-  static constexpr size_t kDO = kQ + 2 * kTile;   // [2][32][256]
-  static constexpr size_t kSt = kDO + 2 * kTile;  // [2][kStats]
-  static constexpr size_t kP = kSt + 2 * kStats * sizeof(float);
-  static constexpr size_t kDS = kP + size_t(kRows) * kPP * sizeof(float);
-  static constexpr size_t kDP = kDS + size_t(kRows) * kPP * sizeof(float);
-  static constexpr size_t kBytes = kDP + size_t(kRows) * kPP * sizeof(float);
+struct Cc256Layout {
+  static constexpr size_t kFixed = size_t(kRows256) * 256 * sizeof(T);  // K or Q (then V or dO)
+  static constexpr size_t kSlabBytes = size_t(kSub) * kSlab * sizeof(T);
+  static constexpr size_t kA = 0;
+  static constexpr size_t kB = kA + 2 * kFixed;               // [2 stages][2 slabs]
+  static constexpr size_t kP = kB + 4 * kSlabBytes;           // P as [B row][A row]
+  static constexpr size_t kDS = kP + size_t(kSub) * kTP * sizeof(float);
+  static constexpr size_t kSt = kDS + size_t(kSub) * kTP * sizeof(float);  // a dQ item's sub-tile, a dK/dV tile's
+  static constexpr size_t kBytes = kSt + 2 * kStats * sizeof(float);
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+  static_assert(size_t(kRows256) * 256 * sizeof(float) <= 2 * kSlabBytes, "room for dQ's partials in a stage");
 };
 
-template <typename T, bool W>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv256_kernel(const BwdParams p) {
-  constexpr int D = 256;
-  using L = Dkdv256Layout<T>;
-  constexpr int KB = L::kKeys, R = L::kRows, PP = L::kPP;
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  T* ks = reinterpret_cast<T*>(smem + L::kK);
-  T* vs = reinterpret_cast<T*>(smem + L::kV);
-  T* qbuf = reinterpret_cast<T*>(smem + L::kQ);
-  T* dobuf = reinterpret_cast<T*>(smem + L::kDO);
-  float* stbuf = reinterpret_cast<float*>(smem + L::kSt);
-  float* pb = reinterpret_cast<float*>(smem + L::kP);   // P^T as [row][key slot]
-  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [row][key slot]
-  float* xb = reinterpret_cast<float*>(smem + L::kDP);  // dP^T as [row][key slot]
+template <int K>
+struct Kind {
+  static constexpr int value = K;
+};
 
-  const int tid = threadIdx.x;
-  const int half = tid / kHalf;                        // S^T then dV (0), dP^T then dK (1)
-  const int kx = (tid % kHalf) / 8, ry = tid % 8;      // scores: keys kx + 16a, rows ry + 8c
-  const int ky = (tid % kHalf) / 16, cx = tid % 16;    // accumulation: key slots 4 ky + a, RowCols columns of cx
-  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
-  const int nbkv = p.batch * p.hkv;
-  const int bkv = blockIdx.x % nbkv;
-  const int k0 = (blockIdx.x / nbkv) * KB;  // the first key tiles (the most query rows) first
-  const int b = bkv / p.hkv, hk = bkv % p.hkv;
+// the head_dim-256 kernel's parameters: the call's and the work list
+struct Cc256Params : BwdParams {
+  const int* work;  // [grid + 1] each block's first item, then an item's kind, batch, KV head, tile
+};
 
-  using C = RowCols<D>;
-  float acc[4][C::kPer];  // dV (half 0) or dK (half 1) of key slots 4 ky + a
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kPer; ++c) acc[a][c] = 0.f;
+// an item: kind 0 dK/dV (keys from 32 t), kind 1 dQ (packed rows from 32 (t
+// % 2) of sub-tile t / 2); its first streamed tile (a sub-tile, or a key
+// tile of 64) and its live tiles n
+struct CcItem {
+  int kind, b, hk, t, first, n;
+};
 
-  // the sub-tiles whose rows can see a key of the block, as in dK/dV above;
-  // items are their halves
-  const int first = p.causal ? max(0, k0 - p.q_offset) / p.qpt : 0;
-  const int pos_last = min(k0 + KB, p.kv_len) - 1 + p.window - 1 - p.q_offset;
-  const int s_end = !W ? p.nsub : pos_last < 0 ? 0 : min(p.nsub, pos_last / p.qpt + 1);
-  const int s_begin = k0 < p.kv_len ? first : s_end;
-
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
-  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
-  auto copy_item = [&](int u, int stage) {
-    const int sub = u / 2, r0 = (u % 2) * R;
-    copy_tile<T, D, R, kThreads>(qbuf + stage * R * D, [&](int r) -> const T* {
-      int g, i;
-      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + r, g, i) ? qg + g * p.qs[1] + i * p.qs[2]
-                                                                               : nullptr;
-    }, qg);
-    copy_tile<T, D, R, kThreads>(dobuf + stage * R * D, [&](int r) -> const T* {
-      int g, i;
-      return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + r, g, i) ? dog + g * p.dos[1] + i * p.dos[2]
-                                                                               : nullptr;
-    }, dog);
-    if (tid < kStats / 4) cp_async16(stbuf + stage * kStats + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
-  };
-
-  if (s_begin < s_end) {
-    copy_rows<T, D, KB, kThreads>(ks, kg, p.ks[2], k0, p.kv_len);
-    copy_rows<T, D, KB, kThreads>(vs, vg, p.vs[2], k0, p.kv_len);
-    copy_item(2 * s_begin, 0);
-    cp_async_commit();
-  }
-  for (int u = 2 * s_begin, it = 0; u < 2 * s_end; ++u, ++it) {
-    const int st = it & 1;
-    cp_async_wait_all();
-    __syncthreads();  // item u is in; every thread is done with the other stage and the tiles
-    if (u + 1 < 2 * s_end) {
-      copy_item(u + 1, st ^ 1);
-      cp_async_commit();
-    }
-    const T* qt = qbuf + st * R * D;
-    const T* dot = dobuf + st * R * D;
-    const int sub = u / 2, r0 = (u % 2) * R;
-    const float* lse_s = stbuf + st * kStats + r0;
-    const float* di_s = lse_s + kSub;
-
-    // S^T = K Q^T (half 0) or dP^T = V dO^T (half 1) over all of D
-    float s[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-    nt_product<T, D, D, 2, 4, 16, 8>(s, half ? vs : ks, kx, half ? dot : qt, ry, 0);
-    if (half) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) xb[(ry + 8 * c) * PP + kx + 16 * a] = s[a][c];
-    }
-    __syncthreads();
-    if (!half) {  // P^T, and dS^T = P^T (1 - t^2) * (dP^T - D_i)
-      scale_cap(p, s);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int y = ry + 8 * c;
-        int g, pos;
-        const bool ok = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + y, g, pos);
-        const float lse = lse_s[y], di = di_s[y];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const int slot = y * PP + kx + 16 * a;
-          const float2 v = p_and_factor(s[a][c], lse, inv_cap, live<W>(p, ok ? pos : -1, k0 + kx + 16 * a));
-          pb[slot] = v.x;
-          db[slot] = v.y * (xb[slot] - di);
-        }
-      }
-    }
-    __syncthreads();
-    // dV[key] += sum_r P^T[key][r] dO[r] (half 0), dK[key] += sum_r dS^T[key][r] Q[r] (half 1)
-    nn_product<T, D, 4, PP, R>(acc, half ? db : pb, 4 * ky, half ? qt : dot, cx);
-  }
-
-  T* outg = half ? static_cast<T*>(p.dk) + b * p.dks[0] + hk * p.dks[1]
-                 : static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
-  const long long ostride = half ? p.dks[2] : p.dvs[2];
-  const float scale = half ? p.scale : 1.f;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + 4 * ky + a;  // slot 4 ky + a
-    if (j >= p.sk) continue;
-#pragma unroll
-    for (int g = 0; g < C::kGroups; ++g) {
-      float x[C::kW];
-#pragma unroll
-      for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] * scale;
-      store_n<C::kW>(outg + static_cast<long long>(j) * ostride + C::col(g, cx), x);
+template <bool W>
+__device__ __forceinline__ CcItem cc_item(const BwdParams& p, int kind, int b, int hk, int t) {
+  CcItem x;
+  x.kind = kind;
+  x.b = b;
+  x.hk = hk;
+  x.t = t;
+  x.n = 0;
+  if (kind == 0) {  // the sub-tiles whose rows see a key of the item, as the dK/dV kernel above
+    const int k0 = t * kRows256;
+    x.first = p.causal ? max(0, k0 - p.q_offset) / p.qpt : 0;
+    const int pos_last = min(k0 + kRows256, p.kv_len) - 1 + p.window - 1 - p.q_offset;
+    const int s_end = !W ? p.nsub : pos_last < 0 ? 0 : min(p.nsub, pos_last / p.qpt + 1);
+    if (k0 < p.kv_len) x.n = max(s_end - x.first, 0);
+  } else {  // the key tiles of 64 its rows' positions see
+    const int sub = t / 2, r0 = (t % 2) * kRows256, rows = p.qpt * p.group;
+    const int pos0 = sub * p.qpt + r0 / p.group;
+    const int pos1 = min(p.sq - 1, sub * p.qpt + (min(r0 + kRows256, rows) - 1) / p.group);
+    x.first = 0;
+    if (r0 < rows && pos0 < p.sq) {
+      const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos1 + 1) : p.kv_len;
+      x.first = W ? max(0, p.q_offset + pos0 - p.window + 1) / kSub : 0;
+      x.n = (kv_end + kSub - 1) / kSub - x.first;
     }
   }
+  return x;
 }
 
+// acc[a][c] += A[ra0 + 8a][d0 + e] . B[rb0 + 8c][b0 + e] over e < 64: A a
+// swizzled tile of rows of 256, B a swizzled slab of rows of kSlab
 template <typename T>
-struct Dq256Layout {
-  static constexpr int kKeys = 16;       // keys a K/V tile
-  static constexpr int kPP = kSub + 4;   // pitch of the dS^T and dP^T tiles [16 keys][64 row slots]
-  static constexpr size_t kTile = size_t(kSub) * 256 * sizeof(T);
-  static constexpr size_t kKV = size_t(kKeys) * 256 * sizeof(T);
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kDO = kQ + kTile;
-  static constexpr size_t kK = kDO + kTile;    // [2][16][256]
-  static constexpr size_t kV = kK + 2 * kKV;   // [2][16][256]
-  static constexpr size_t kSt = kV + 2 * kKV;  // [kStats]
-  static constexpr size_t kDS = kSt + kStats * sizeof(float);
-  static constexpr size_t kDP = kDS + size_t(kKeys) * kPP * sizeof(float);
-  static constexpr size_t kBytes = kDP + size_t(kKeys) * kPP * sizeof(float);
-  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
-};
-
-template <typename T, bool W>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq256_kernel(const BwdParams p) {
-  constexpr int D = 256;
-  using L = Dq256Layout<T>;
-  constexpr int BK = L::kKeys, PP = L::kPP;
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  T* qs = reinterpret_cast<T*>(smem + L::kQ);
-  T* dos = reinterpret_cast<T*>(smem + L::kDO);
-  T* kbuf = reinterpret_cast<T*>(smem + L::kK);
-  T* vbuf = reinterpret_cast<T*>(smem + L::kV);
-  float* sts = reinterpret_cast<float*>(smem + L::kSt);
-  float* db = reinterpret_cast<float*>(smem + L::kDS);  // dS^T as [key][row slot]
-  float* xb = reinterpret_cast<float*>(smem + L::kDP);  // dP^T as [key][row slot]
-
-  const int tid = threadIdx.x;
-  const int half = tid / kHalf;                      // S (0) or dP (1)
-  const int hx = (tid % kHalf) / 8, tx = tid % 8;    // scores: rows hx + 16a, keys tx + 8c
-  const int ty = tid / 16, cx = tid % 16;            // accumulation: row slots 4 ty + a, columns of cx
-  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
-  const int nbkv = p.batch * p.hkv;
-  const int bkv = blockIdx.x % nbkv;
-  const int sub0 = p.nsub - 1 - blockIdx.x / nbkv;  // the last sub-tiles (the most keys) first
-  const int b = bkv / p.hkv, hk = bkv % p.hkv;
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
-  const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + hk * p.ks[1];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + hk * p.vs[1];
-
-  // live keys [kv_start, kv_end), kv_start from the sub-tile's first
-  // position; tiles outside are skipped
-  const int pos_end = min(p.sq, (sub0 + 1) * p.qpt);
-  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + pos_end) : p.kv_len;
-  const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
-  const int ntiles = (kv_end + BK - 1) / BK - t0;
-
-  copy_tile<T, D, kSub, kThreads>(qs, [&](int r) -> const T* {
-    int g, i;
-    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i) ? qg + g * p.qs[1] + i * p.qs[2] : nullptr;
-  }, qg);
-  copy_tile<T, D, kSub, kThreads>(dos, [&](int r) -> const T* {
-    int g, i;
-    return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i) ? dog + g * p.dos[1] + i * p.dos[2] : nullptr;
-  }, dog);
-  if (tid < kStats / 4) cp_async16(sts + tid * 4, stats_of(p, bkv, sub0) + tid * 4, true);
-  auto copy_kv = [&](int t, int stage) {
-    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
-    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
-  };
-  copy_kv(t0, 0);
-  cp_async_commit();
-
-  // this thread's score rows hx + 16a: positions (-1 for padding), then
-  // lse and D_i once the stats are in
-  int qpos[4];
+__device__ __forceinline__ void slab_scores(float (&acc)[4][8], const T* A, int ra0, int d0, const T* B, int rb0,
+                                            int b0) {
+  using SA = Swz<T, 256>;
+  using SB = Swz<T, kSlab>;
+  const T* ar = A + ra0 * 256;
+  const T* br = B + rb0 * kSlab;
+  const int fa = SA::f(ra0), fb = SB::f(rb0);
+#pragma unroll 4
+  for (int e = 0; e < 64; e += 4) {
+    const int ea = SA::col(d0 + e, fa), eb = SB::col(b0 + e, fb);
+    float4 av[4], bv[8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    int g, pos;
-    qpos[a] = packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, hx + 16 * a, g, pos) ? pos : -1;
-  }
-  float lse[4], di[4];
-
-  using C = RowCols<D>;
-  float dq[4][C::kPer];
+    for (int a = 0; a < 4; ++a) av[a] = load4(ar + a * 8 * 256 + ea);
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C::kPer; ++c) dq[a][c] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = (t0 + t) * BK;
-    cp_async_wait_all();
-    __syncthreads();  // tile t is in; every thread is done with the other stage, db and xb
-    if (t + 1 < ntiles) {
-      copy_kv(t0 + t + 1, (t + 1) & 1);
-      cp_async_commit();
-    }
-    if (t == 0) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        lse[a] = sts[hx + 16 * a];
-        di[a] = sts[kSub + hx + 16 * a];
-      }
-    }
-    const T* kt = kbuf + (t & 1) * BK * D;
-    const T* vt = vbuf + (t & 1) * BK * D;
-
-    // S = Q K^T (half 0) or dP = dO V^T (half 1) over all of D
-    float s[4][2];
+    for (int c = 0; c < 8; ++c) bv[c] = load4(br + c * 8 * kSlab + eb);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) s[a][c] = 0.f;
-    nt_product<T, D, D, 4, 2, 16, 8>(s, half ? dos : qs, hx, half ? vt : kt, tx, 0);
-    if (half) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) xb[(tx + 8 * c) * PP + hx + 16 * a] = s[a][c];
-    }
-    __syncthreads();
-    if (!half) {  // dS = P (1 - t^2) * (dP - D_i)
-      scale_cap(p, s);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int slot = (tx + 8 * c) * PP + hx + 16 * a;
-          const float f = p_and_factor(s[a][c], lse[a], inv_cap, live<W>(p, qpos[a], k0 + tx + 8 * c)).y;
-          db[slot] = f * (xb[slot] - di[a]);
-        }
-    }
-    __syncthreads();
-    // dQ[row] += sum_j dS[row][j] K[j]
-    nn_product<T, D, 4, PP, BK>(dq, db, 4 * ty, kt, cx);
+      for (int c = 0; c < 8; ++c) acc[a][c] = fma4(av[a], bv[c], acc[a][c]);
   }
+}
 
-  T* dqg = static_cast<T*>(p.dq);
+// acc[a][c] += sum_j S[j][r0 + a] X[j][cx 4 + c % 4 + 64 (c / 4)] over j in
+// [j0, j0 + J): S a score tile of pitch kTP, X a swizzled slab
+template <typename T, int J>
+__device__ __forceinline__ void slab_accumulate(float (&acc)[4][8], const float* S, int j0, int r0, const T* X,
+                                                int cx) {
+  using SX = Swz<T, kSlab>;
+#pragma unroll 4
+  for (int j = j0; j < j0 + J; ++j) {
+    const float4 s = *reinterpret_cast<const float4*>(S + j * kTP + r0);
+    const int fj = SX::f(j);
+    const float4 x0 = load4(X + j * kSlab + SX::col(cx * 4, fj));
+    const float4 x1 = load4(X + j * kSlab + SX::col(64 + cx * 4, fj));
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = 4 * ty + a;
-    int g, i;
-    if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r, g, i)) continue;
-    const int h = hk * p.group + g;
-    T* row = dqg + b * p.dqs[0] + h * p.dqs[1] + static_cast<long long>(i) * p.dqs[2];
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int gc = 0; gc < C::kGroups; ++gc) {
-      float x[C::kW];
-#pragma unroll
-      for (int e = 0; e < C::kW; ++e) x[e] = dq[a][gc * C::kW + e] * p.scale;
-      store_n<C::kW>(row + C::col(gc, cx), x);
+      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(sv[a], xv[c], acc[a][c]);
+  }
+}
+
+template <typename T, bool W>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_cc256_kernel(const Cc256Params p) {
+  constexpr int D = 256;
+  using L = Cc256Layout<T>;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* a0 = reinterpret_cast<T*>(smem + L::kA);
+  T* a1 = reinterpret_cast<T*>(smem + L::kA + L::kFixed);
+  auto slab = [&](int stage, int m) { return reinterpret_cast<T*>(smem + L::kB + (2 * stage + m) * L::kSlabBytes); };
+  float* pt = reinterpret_cast<float*>(smem + L::kP);   // P as [B row][A row]
+  float* dst = reinterpret_cast<float*>(smem + L::kDS);  // dS as [B row][A row]
+  float* st_fixed = reinterpret_cast<float*>(smem + L::kSt);  // a dQ item's sub-tile stats
+  float* st_tile = st_fixed + kStats;                         // a dK/dV tile's
+  float* part = reinterpret_cast<float*>(smem + L::kB + 2 * L::kSlabBytes);  // dQ's second half's partials: stage 1
+  const int* items = p.work + gridDim.x + 1;
+  const int u0 = p.work[blockIdx.x], u1 = p.work[blockIdx.x + 1];
+
+  const int tid = threadIdx.x;
+  const int q = tid / kQuarter;                        // warp-uniform
+  const int prod = q / 2, dh = q % 2;                  // S (0) or dP (1), over half dh of each slab
+  const int ty = (tid % kQuarter) / 8, tx = tid % 8;   // scores: A rows ty + 8a, B rows tx + 8c
+  const int half = tid / kHalf;                        // accumulation: dV (0) or dK (1); dQ over keys 32 half..
+  const int ky = (tid % kHalf) / 16, cx = tid % 16;    // accumulation: rows 4 ky + a, columns cx 4 (+ 64) + c
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+
+  // the streamed pair's slab k (0, 1) of item y's tile i into stage k, with
+  // a dK/dV tile's stats beside slab 0; the accumulation reads the slabs
+  // the scores left there. One commit group
+  auto load_slab = [&](const CcItem& y, int i, int k) {
+    const int d0 = k * kSlab, bkv = y.b * p.hkv + y.hk;
+    if (y.kind == 0) {
+      const int sub = y.first + i;
+      auto rows = [&](const T* g, long long hs, long long ss) {
+        return [&, g, hs, ss](int r) -> const T* {
+          int gg, pos;
+          return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, gg, pos) ? g + gg * hs + pos * ss + d0 : nullptr;
+        };
+      };
+      const T* qg = static_cast<const T*>(p.q) + y.b * p.qs[0] + static_cast<long long>(y.hk) * p.group * p.qs[1];
+      const T* dog = static_cast<const T*>(p.dout) + y.b * p.dos[0] + static_cast<long long>(y.hk) * p.group * p.dos[1];
+      copy_tile<T, kSlab, kSub, kThreads>(slab(k, 0), rows(qg, p.qs[1], p.qs[2]), qg);
+      copy_tile<T, kSlab, kSub, kThreads>(slab(k, 1), rows(dog, p.dos[1], p.dos[2]), dog);
+      if (k == 0 && tid < kStats / 4) cp_async16(st_tile + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
+    } else {
+      const int key0 = (y.first + i) * kSub;
+      copy_rows<T, kSlab, kSub, kThreads>(slab(k, 0), static_cast<const T*>(p.k) + y.b * p.ks[0] + y.hk * p.ks[1] + d0,
+                                          p.ks[2], key0, p.kv_len);
+      copy_rows<T, kSlab, kSub, kThreads>(slab(k, 1), static_cast<const T*>(p.v) + y.b * p.vs[0] + y.hk * p.vs[1] + d0,
+                                          p.vs[2], key0, p.kv_len);
     }
+    cp_async_commit();
+  };
+  // item y's fixed pair, and a dQ item's stats (committed with the next slab)
+  auto load_fixed = [&](const CcItem& y) {
+    const int bkv = y.b * p.hkv + y.hk;
+    if (y.kind == 0) {
+      copy_rows<T, D, kRows256, kThreads>(a0, static_cast<const T*>(p.k) + y.b * p.ks[0] + y.hk * p.ks[1], p.ks[2],
+                                          y.t * kRows256, p.kv_len);
+      copy_rows<T, D, kRows256, kThreads>(a1, static_cast<const T*>(p.v) + y.b * p.vs[0] + y.hk * p.vs[1], p.vs[2],
+                                          y.t * kRows256, p.kv_len);
+    } else {
+      const int sub = y.t / 2, r0 = (y.t % 2) * kRows256;
+      auto rows = [&](const T* g, long long hs, long long ss) {
+        return [&, g, hs, ss](int r) -> const T* {
+          int gg, pos;
+          return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r0 + r, gg, pos) ? g + gg * hs + pos * ss : nullptr;
+        };
+      };
+      const T* qg = static_cast<const T*>(p.q) + y.b * p.qs[0] + static_cast<long long>(y.hk) * p.group * p.qs[1];
+      const T* dog = static_cast<const T*>(p.dout) + y.b * p.dos[0] + static_cast<long long>(y.hk) * p.group * p.dos[1];
+      copy_tile<T, D, kRows256, kThreads>(a0, rows(qg, p.qs[1], p.qs[2]), qg);
+      copy_tile<T, D, kRows256, kThreads>(a1, rows(dog, p.dos[1], p.dos[2]), dog);
+      if (tid < kStats / 4) cp_async16(st_fixed + tid * 4, stats_of(p, bkv, sub) + tid * 4, true);
+    }
+  };
+  auto item_at = [&](int u) {
+    const int* w = items + 4 * u;
+    return cc_item<W>(p, w[0], w[1], w[2], w[3]);
+  };
+
+  // an item's first loads go out under the last item's last tile (its
+  // fixed pair once the scores are done with the last one's, its first slab
+  // beside the accumulation), so only the first item waits for them
+  CcItem x = item_at(u0 < u1 ? u0 : 0);
+  if (u0 < u1 && x.n > 0) {
+    load_fixed(x);
+    load_slab(x, 0, 0);
+  }
+  for (int u = u0; u < u1; ++u) {
+    const bool more = u + 1 < u1;
+    const CcItem xn = more ? item_at(u + 1) : x;
+    const bool early = more && xn.n > 0;  // the next item's loads go out under this one
+    const int b = x.b, hk = x.hk;
+    const int sub0 = x.t / 2, r0 = (x.t % 2) * kRows256;  // a dQ item's sub-tile and first row
+    const int k0 = x.t * kRows256;                         // a dK/dV item's first key
+    float acc[2][4][8];  // the accumulation, slab by slab
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[j][a][c] = 0.f;
+
+    auto run = [&](auto kind) {
+      constexpr int K = decltype(kind)::value;
+      // this thread's A rows' and B rows' positions (-1 for padding) for
+      // the masks: a dQ item's rows are fixed, a dK/dV tile's change
+      int apos[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        int gg, pos;
+        apos[a] = K == 0 ? k0 + ty + 8 * a
+                         : (packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r0 + ty + 8 * a, gg, pos) ? pos : -1);
+      }
+
+      for (int i = 0; i < x.n; ++i) {
+        float s[4][8];  // S or dP of A rows ty + 8a, B rows tx + 8c (partial over half the columns)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
+        // the tile's four steps, each with its k known at compile time (the
+        // accumulators are picked by it)
+        auto step = [&](auto kc) {
+          constexpr int k = decltype(kc)::value;
+          cp_async_wait_all();
+          __syncthreads();  // step k's slabs are in; every thread is done with the other stage
+          if (k == 0)  // the scores' second slab
+            load_slab(x, i, 1);
+          else if (k == 2 && i + 1 == x.n && early)  // the scores are done with the fixed pair
+            load_fixed(xn);
+          else if (k == 3 && i + 1 < x.n)  // slab 0 is free again: the next tile's
+            load_slab(x, i + 1, 0);
+          else if (k == 3 && early)  // or the next item's
+            load_slab(xn, 0, 0);
+          if constexpr (k < 2) {  // the scores over slab k
+            slab_scores<T>(s, prod ? a1 : a0, ty, k * kSlab + dh * 64, slab(k & 1, prod), tx, dh * 64);
+          }
+          if constexpr (k == 1) {
+            // trade the halves' partial sums: this thread finishes A rows ty
+            // + mine + 8e (e < 2) and hands the other two over (registers
+            // are picked by selects, never by a runtime index, which would
+            // put the array in local memory)
+            float* tr = prod ? dst : pt;
+            const int mine = 16 * dh, other = 16 - mine;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) tr[(tx + 8 * c) * kTP + ty + other + 8 * e] = dh ? s[e][c] : s[2 + e][c];
+            __syncthreads();  // the partial sums are in
+            float f[2][8];  // the finished S or dP of A rows ty + mine + 8e
+            int fpos[2];    // their positions (keys of a dK/dV item, query positions of a dQ item)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              fpos[e] = dh ? apos[2 + e] : apos[e];
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+                f[e][c] = (dh ? s[2 + e][c] : s[e][c]) + tr[(tx + 8 * c) * kTP + ty + mine + 8 * e];
+            }
+            // the S thread and the dP thread of the same elements (quarters
+            // dh and 2 + dh, same ty and tx) each finish one of the two rows:
+            // row e = prod. Each hands the other its product's value of the
+            // other's row (S through the P tile, dP through the dS tile)
+            const int ar = ty + mine + 8 * prod;  // the A row this thread finishes
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              (prod ? dst : pt)[(tx + 8 * c) * kTP + ty + mine + 8 * (1 - prod)] = prod ? f[0][c] : f[1][c];
+            __syncthreads();  // the other's values are in
+            const int fp = prod ? fpos[1] : fpos[0];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const int br = tx + 8 * c, at = br * kTP + ar;
+              int gg, bpos = -1;
+              if (K == 0 && !packed_row(p.group, p.inv_group, p.qpt, p.sq, x.first + i, br, gg, bpos)) bpos = -1;
+              const bool ok = K == 0 ? live<W>(p, bpos, fp) : live<W>(p, fp, (x.first + i) * kSub + br);
+              const float lse = K == 0 ? st_tile[br] : st_fixed[r0 + ar];
+              const float di = K == 0 ? st_tile[kSub + br] : st_fixed[kSub + r0 + ar];
+              float sv = (prod ? pt[at] : f[0][c]) * p.scale;
+              const float dpv = prod ? f[1][c] : dst[at];
+              if (p.softcap > 0.f) sv = p.softcap * tanhf(sv / p.softcap);
+              const float2 pf = p_and_factor(sv, lse, inv_cap, ok);  // P, and P (1 - t^2)
+              pt[at] = pf.x;
+              dst[at] = pf.y * (dpv - di);  // dS = P (1 - t^2) (dP - D_i)
+            }
+          }
+          if constexpr (k >= 2) {  // the accumulation over slab k - 2 (the step's __syncthreads made dS visible)
+            if (K == 0)
+              slab_accumulate<T, kSub>(acc[k - 2], half ? dst : pt, 0, 4 * ky, slab(k & 1, half ? 0 : 1), cx);
+            else
+              slab_accumulate<T, kSub / 2>(acc[k - 2], dst, half * (kSub / 2), 4 * ky, slab(k & 1, 0), cx);
+          }
+        };
+        step(Kind<0>{});
+        step(Kind<1>{});
+        step(Kind<2>{});
+        step(Kind<3>{});
+      }
+    };
+    if (x.n > 0) {
+      if (x.kind == 0)
+        run(Kind<0>{});
+      else
+        run(Kind<1>{});
+    }
+
+    if (x.kind == 0) {  // dV (half 0) and dK (half 1); zeros for keys no row sees
+      T* outg = half ? static_cast<T*>(p.dk) + b * p.dks[0] + hk * p.dks[1]
+                     : static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
+      const long long ostride = half ? p.dks[2] : p.dvs[2];
+      const float scale = half ? p.scale : 1.f;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int j = k0 + 4 * ky + a;
+        if (j >= p.sk) continue;
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float xv[4] = {acc[sl][a][4 * h2] * scale, acc[sl][a][4 * h2 + 1] * scale,
+                                 acc[sl][a][4 * h2 + 2] * scale, acc[sl][a][4 * h2 + 3] * scale};
+            store_n<4>(outg + static_cast<long long>(j) * ostride + sl * kSlab + 64 * h2 + cx * 4, xv);
+          }
+      }
+    } else if (x.n > 0) {  // dQ: half 1's partials through stage 1, summed by half 0
+      __syncthreads();  // every read of stage 1 is done
+      if (half) {
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) part[((sl * 4 + a) * 8 + c) * kHalf + tid % kHalf] = acc[sl][a][c];
+      }
+      __syncthreads();
+      if (!half) {
+        T* dqg = static_cast<T*>(p.dq);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          int gg, i;
+          if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0, r0 + 4 * ky + a, gg, i)) continue;
+          T* row = dqg + b * p.dqs[0] + (hk * p.group + gg) * p.dqs[1] + static_cast<long long>(i) * p.dqs[2];
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              float xv[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = 4 * h2 + e;
+                xv[e] = (acc[sl][a][c] + part[((sl * 4 + a) * 8 + c) * kHalf + tid]) * p.scale;
+              }
+              store_n<4>(row + sl * kSlab + 64 * h2 + cx * 4, xv);
+            }
+        }
+      }
+    }
+    __syncthreads();  // the shared memory is free for the next item
+    if (x.n == 0 && early) {  // no tile to send them out under
+      load_fixed(xn);
+      load_slab(xn, 0, 0);
+    }
+    x = xn;
   }
 }
 
@@ -958,9 +1054,7 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
     }
     case kDkdvK:
       if constexpr (D == 256) {
-        constexpr int kb = Dkdv256Layout<T>::kKeys;
-        return launch(p.window < (1 << 30) ? flash_bwd_dkdv256_kernel<T, true> : flash_bwd_dkdv256_kernel<T, false>,
-                      Dkdv256Layout<T>::kBytes, nbkv * ((p.sk + kb - 1) / kb), kThreads, p, s);
+        return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_dkdv_dq's
       } else {
         return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true> : flash_bwd_dkdv_kernel<T, D, false>,
                       DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
@@ -968,13 +1062,26 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
       }
     default:
       if constexpr (D == 256) {
-        return launch(p.window < (1 << 30) ? flash_bwd_dq256_kernel<T, true> : flash_bwd_dq256_kernel<T, false>,
-                      Dq256Layout<T>::kBytes, nbkv * p.nsub, kThreads, p, s);
+        return static_cast<int>(cudaErrorInvalidValue);
       } else {
         return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>,
                       DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
       }
   }
+}
+
+// the head_dim-256 kernel on `grid` blocks walking `work`
+template <typename T>
+int run256(const BwdParams& bp, const int* work, int grid, cudaStream_t s) {
+  Cc256Params p;
+  static_cast<BwdParams&>(p) = bp;
+  p.work = work;
+  constexpr size_t bytes = Cc256Layout<T>::kBytes;
+  auto kernel = bp.window < (1 << 30) ? flash_bwd_cc256_kernel<T, true> : flash_bwd_cc256_kernel<T, false>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, bytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1016,7 +1123,9 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 // lse and stats); D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <=
 // Sk; window > 0 a sliding window, 0 none. In this order on one stream: th_flash_bwd_pre writes stats,
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
-// writes dq. Each returns cudaGetLastError() after its launch.
+// writes dq (D 16-128); at D 256 th_flash_bwd_dkdv_dq (a work list beside
+// the arguments) writes all three. Each returns cudaGetLastError() after
+// its launch.
 #define TH_BWD_ARGS                                                                                             \
   const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv,  \
       const float *lse, float *stats, const long long *strides, int dtype, int batch, int hq, int hkv, int sq, \
@@ -1028,3 +1137,25 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 extern "C" int th_flash_bwd_pre(TH_BWD_ARGS) { return entry(kPreK, TH_BWD_PASS); }
 extern "C" int th_flash_bwd_dkdv(TH_BWD_ARGS) { return entry(kDkdvK, TH_BWD_PASS); }
 extern "C" int th_flash_bwd_dq(TH_BWD_ARGS) { return entry(kDqK, TH_BWD_PASS); }
+
+// D = 256 only, after th_flash_bwd_pre: dk, dv and dq in one launch of
+// `grid` persistent blocks walking the work list `work` (int32 on the
+// device: grid + 1 offsets, then four ints an item; flash_attention's
+// bwd256_order)
+extern "C" int th_flash_bwd_dkdv_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                    void* dq, void* dk, void* dv, const float* lse, float* stats,
+                                    const long long* strides, int dtype, int batch, int hq, int hkv, int sq, int sk,
+                                    int d, int causal, float softcap, int q_offset, int kv_len, int window,
+                                    const int* work, int grid, void* stream) {
+  if (d != 256 || grid < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kSub)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d,
+                                  causal, softcap, q_offset, kv_len, window);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return run256<float>(p, work, grid, s);
+    case 1: return run256<__nv_bfloat16>(p, work, grid, s);
+    case 2: return run256<__half>(p, work, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -88,7 +88,7 @@
 // element as the causal ones. A masked pair's P is 0 whatever its score
 // (the lse of every row is finite: the wrapper refuses a window that
 // leaves a row no key), so a row with no live key in a tile adds nothing.
-// Head_dim 256 has kernels of its own (section 4 below).
+// Head_dim 256 has a kernel of its own, one launch after pre (section 4 below).
 // Epilogues scale dK and dQ by 1/sqrt(D) and store bf16 pairs from the
 // registers into the [B, S, H, D] layout under the [B, H, S, D] views,
 // clipped at Sq and Sk. The tensor maps' sequence extents are Sq and
@@ -185,7 +185,7 @@ __device__ __forceinline__ void gemm_ss(float (&acc)[kT / 2], uint32_t a, uint32
 
 template <int D>
 __global__ void __launch_bounds__(32 * kPreRows) flash_bwd_tc_pre_kernel(const BwdParams p) {
-  constexpr int V = D / 32;  // elements a lane: 2 or 4
+  constexpr int V = D / 32;  // elements a lane: 2, 4 or 8
   const int padded = p.nq * kT;
   const int row = blockIdx.x * kPreRows + threadIdx.x / 32;  // of B * Hq * padded rows
   const int lane = threadIdx.x % 32;
@@ -196,11 +196,22 @@ __global__ void __launch_bounds__(32 * kPreRows) flash_bwd_tc_pre_kernel(const B
     const int b = bh / p.hq, h = bh % p.hq;
     const long long ro = b * p.os[0] + h * p.os[1] + static_cast<long long>(i) * p.os[2] + lane * V;
     const long long rg = b * p.dos[0] + h * p.dos[1] + static_cast<long long>(i) * p.dos[2] + lane * V;
+    if constexpr (V == 8) {  // head_dim 256: one 16-byte load of each a lane
+      const uint4 a4 = *reinterpret_cast<const uint4*>(p.o + ro), g4 = *reinterpret_cast<const uint4*>(p.dout + rg);
+      const uint32_t aw[4] = {a4.x, a4.y, a4.z, a4.w}, gw[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
-    for (int e = 0; e < V; e += 2) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.o + ro + e));
-      const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.dout + rg + e));
-      acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[e]));
+        const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[e]));
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; e += 2) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.o + ro + e));
+        const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.dout + rg + e));
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      }
     }
     lse2 = p.lse[static_cast<long long>(bh) * p.sq + i] * kLog2e;
   }
@@ -558,97 +569,217 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- 4. head_dim 256: dK/dV and dQ with D split between the warpgroups ---------------
+// -- 4. head_dim 256: one persistent launch of the dK/dV and dQ items ----------------
 
 // At D = 256 a warpgroup holding dK and dV of 64 keys over all of D would
-// need 256 f32 registers a thread, and the dQ block's 128 rows of Q and dO
-// (128 KB) beside a ring of 32 KB tiles overflow the shared memory. So a
-// block owns 64 keys (dK/dV) or 64 query rows (dQ), and its two consumer
-// warpgroups split the work of a tile: warpgroup 0 computes S^T = K Q^T
-// (dQ: S = Q K^T) and warpgroup 1 dP^T = V dO^T (dP = dO V^T), each over
-// all of D (16 wgmma steps); warpgroup 1 hands dP^T to warpgroup 0 through
-// shared memory (f32, in its accumulator layout: thread t's i-th value at
-// [i][t], so a warp's accesses are consecutive); warpgroup 0 forms P^T and
-// dS^T, rounds them to bf16 A fragments and hands them back the same way;
-// then each warpgroup accumulates its half of D's columns (128) of dV += P^T
-// dO and dK += dS^T Q (dQ += dS K) as m64n128k16 products with the B
-// operand read from the tile's boxes 2 wg and 2 wg + 1. Two named barriers
-// a tile order the hand-overs (the second also tells warpgroup 1 that
-// warpgroup 0 has read dP^T, the first the converse for the fragments).
-// Registers: 64 + 64 f32 of dK and dV (dQ: 64) beside 32 of S or dP and
-// the 32 fragment words. Shared memory, dK/dV: K and V of the block 2 x 32
-// KB, two stages of Q, dO (2 x 32 KB) and stats (512 B), and the hand-over
-// 2 x 16 KB: 230,400 bytes, 231,464 with the barriers and the alignment
-// slack, of the 232,448 a block may use. dQ: Q and dO 2 x 32 KB, two stages
-// of K and V 2 x 2 x 32 KB, the hand-over 16 + 8 KB: 221,184 bytes (222,248).
+// need 256 f32 registers a thread, and 128 rows of Q and dO (128 KB) beside
+// a ring of 64 KB stages overflow the shared memory. So D = 256 has a kernel
+// of its own, flash_bwd_tc256_kernel: after pre, one persistent launch for
+// the whole call.
+//
+// * Items. A dK/dV item is 64 keys of a KV head: its K and V stay in shared
+//   memory, and the Q and dO tiles (64 rows) of the group's G heads whose
+//   rows see them stream through the ring, head by head. A dQ item is 64
+//   query rows of a head: Q, dO and the rows' stats stay, and the K and V
+//   tiles (64 keys) its rows see stream through. One code serves both: the
+//   item's fixed pair (K, V or Q, dO) is the A operand of both score
+//   products and the streamed pair (Q, dO or K, V) their B operand, so S^T
+//   = K Q^T and dP^T = V dO^T (dK/dV) and S = Q K^T and dP = dO V^T (dQ) are
+//   the same two products; the softmax reads its columns' (dK/dV) or its
+//   rows' (dQ) stats; dK/dV accumulates dV += P^T dO and dK += dS^T Q, dQ
+//   accumulates dQ += dS K. dQ needs only pre's stats, not dK/dV, so the
+//   items of both kinds share one grid. Each item owns its outputs: no
+//   atomics, and two runs give the same bits.
+// * The work list. The host lists the items with their work (four 64 x 64
+//   x 256 products a live tile of a dK/dV item, three of a dQ item), sorts
+//   them heaviest first and gives each to the block with the least work so
+//   far (flash_attention's bwd256_order, kept on the device by shape): each
+//   of min(items, SMs) blocks walks its own items, heaviest first, and no
+//   block ends more than one item's work after the mean. At phase 10's
+//   shape (4 x 8/4 heads x 576) that is 144 dK/dV items (up to 72
+//   products) and 288 dQ items (up to 27) on 132 blocks, where two launches
+//   left a tail of 12 dK/dV blocks behind a wave of 132 and a third dQ wave.
+// * The softmax split between the two consumer warpgroups. Each computes
+//   both score products for half of the tile's other axis (S^T and dP^T for
+//   32 of the tile's queries, S and dP for 32 of its keys) over all 256
+//   columns as m64n32k16 products, forms P and dS of its half in registers
+//   and writes them as bf16 into 64 x 64 exchange tiles in the 128-byte
+//   swizzle (stmatrix); then each accumulates its half of D's columns (128)
+//   over the whole tile as m64n128k16 products, the exchange tile the
+//   K-major A operand and the streamed tile the MN-major B operand. Neither
+//   warpgroup waits for the other's softmax, and only bf16 P and dS cross
+//   between them (the two before handed 16 KB of f32 dP over and one of
+//   them formed all 4096 scores of a tile while the other waited). Two named
+//   barriers a tile: the exchange tiles are free (both warpgroups'
+//   accumulation of the last tile is done), and they are full.
+// * Overlap. Each tile's score products are issued behind the previous
+//   tile's accumulation, as three commit groups: accumulate(i), S(i+1),
+//   dP(i+1). The accumulation's completion frees tile i's ring stage, so
+//   tile i+2's loads run under S and dP; P is formed from S while dP is in
+//   flight, then dS. The issue is straight-line code (a prologue, a steady
+//   loop, a drain: a wgmma issued under a condition serialises the
+//   pipeline), and no register a product in flight reads is written before
+//   its wait.
+// * The softcap as the wide forward forms it (flash_attention_tc.cu): in
+//   log2 units, s2 = c2 - 2 c2 r with r = 1 / (2^(dot k) + 1), c2 = c log2 e
+//   and k = 2 log2 e scale / c, by ex2.approx and rcp.approx, within 4.5e-7
+//   c of c tanh(x / c); and 1 - t^2 from the same r (t = 1 - 2 r): 4 r (1 -
+//   r). No IEEE division and no tanhf a score; the forward's lse was made
+//   with the same form.
+// * A producer warpgroup (setmaxnreg 24; the consumers 240) issues every
+//   load from one thread: an item's fixed pair (and a dQ item's stats) as
+//   soon as the last item's score products are done, and the streamed tiles
+//   (with a dK/dV tile's stats) through a ring of two stages that runs on
+//   across items.
+// Shared memory: the fixed pair 2 x 32 KB, two stages of 2 x 32 KB, the
+// exchange tiles 2 x 8 KB and the stats 3 x 512 B: 214,528 bytes, 215,600
+// with the barriers and the alignment slack. A consumer thread holds 64 +
+// 64 f32 of dV and dK (dQ: 64) of its 128 columns, 16 + 16 of the score
+// halves and 16 of the softcap's factor.
 constexpr int kD256 = 256;
 constexpr int kStages256 = 2;
 constexpr uint32_t kTile256 = kT * kD256 * 2;  // 64 rows of 256 bf16: 32 KB
-constexpr uint32_t kHand = 32 * 128 * 4;       // 32 words of each thread of a warpgroup: 16 KB
+constexpr uint32_t kXBytes = kT * kT * 2;      // a 64 x 64 bf16 exchange tile: 8 KB
+constexpr int kBarFree = 1, kBarFull = 2;      // the consumers' named barriers (0 is __syncthreads)
 
-struct Dkdv256Layout {
-  static constexpr uint32_t kK = 0;
-  static constexpr uint32_t kV = kK + kTile256;
-  static constexpr uint32_t kQ = kV + kTile256;
-  static constexpr uint32_t kDO = kQ + kStages256 * kTile256;
-  static constexpr uint32_t kStats = kDO + kStages256 * kTile256;
-  static constexpr uint32_t kDP = kStats + kStages256 * kStatsTile * 4;
-  static constexpr uint32_t kPD = kDP + kHand;  // P^T fragments (words 0-15), dS^T (16-31)
-  static constexpr uint32_t kBar = kPD + kHand;
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages256) + 1024;
+struct Bwd256Layout {
+  static constexpr uint32_t kA = 0;                          // the fixed pair: K then V, or Q then dO
+  static constexpr uint32_t kB = 2 * kTile256;               // the ring: stage s holds Q then dO, or K then V
+  static constexpr uint32_t kStage = 2 * kTile256;
+  static constexpr uint32_t kX = kB + kStages256 * kStage;   // P (P^T), then dS (dS^T)
+  static constexpr uint32_t kStats = kX + 2 * kXBytes;       // a dQ item's rows, then each stage's query tile
+  static constexpr uint32_t kBar = kStats + (1 + kStages256) * kStatsTile * 4;
+  static constexpr uint32_t kBytes = kBar + 8 * (2 + 2 * kStages256) + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
-struct Dq256Layout {
-  static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kDO = kQ + kTile256;
-  static constexpr uint32_t kK = kDO + kTile256;
-  static constexpr uint32_t kV = kK + kStages256 * kTile256;
-  static constexpr uint32_t kDP = kV + kStages256 * kTile256;
-  static constexpr uint32_t kDS = kDP + kHand;  // dS fragments (16 words)
-  static constexpr uint32_t kBar = kDS + kHand / 2;
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages256) + 1024;
-  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
+// the head_dim-256 kernel's parameters: the call's, the work list and the
+// softcap's constants (folded in double, rounded once)
+struct Bwd256Params : BwdParams {
+  const int* work;  // [grid + 1] each block's first item, then an item's kind, batch, head, tile
+  float kcap;       // 2 log2 e scale / c (0 without a softcap)
+  float c2;         // c log2 e
+  float k2;         // scale log2 e
 };
 
-// the two consumer warpgroups' named barrier `id` (0 is __syncthreads)
-__device__ __forceinline__ void consumers_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kConsumers) : "memory");
+// the two consumer warpgroups' named barrier `id`
+__device__ __forceinline__ void consumers_sync(int id) { named_sync(id, kConsumers); }
+
+// an item: kind 0 dK/dV (h the KV head, keys from 64 t), kind 1 dQ (h the
+// query head, rows from 64 t); its first streamed tile (a query tile, or a
+// key tile), a head's tiles (dK/dV: ntq of each of the G heads) and its
+// live tiles n
+struct Item256 {
+  int kind, b, h, t, first, ntq, n;
+};
+
+template <bool W>
+__device__ __forceinline__ Item256 item256(const BwdParams& p, int kind, int b, int h, int t) {
+  Item256 x;
+  x.kind = kind;
+  x.b = b;
+  x.h = h;
+  x.t = t;
+  if (kind == 0) {  // the query tiles whose rows see a key of the item, as the dK/dV kernel above
+    const int k0 = t * kT;
+    x.first = p.causal ? max(0, k0 - p.q_offset) / kT : 0;
+    x.ntq = k0 < p.kv_len ? max(q_tiles_end<W>(p, min(k0 + kT, p.kv_len) - 1) - x.first, 0) : 0;
+    x.n = p.group * x.ntq;
+  } else {  // the key tiles its rows see, as the dQ kernel above
+    const int i0 = t * kT, i_last = min(p.sq, i0 + kT) - 1;
+    const int kv_end = p.causal ? min(p.kv_len, p.q_offset + i_last + 1) : p.kv_len;
+    x.first = W ? max(0, p.q_offset + i0 - p.window + 1) / kT : 0;
+    x.ntq = 0;
+    x.n = (kv_end + kT - 1) / kT - x.first;
+  }
+  return x;
 }
+
+// P of a raw dot `s` (in place) against its row's lse log2 e, 0 where the
+// pair is masked, and the factor dS carries under a softcap, 1 - t^2
+// (1 without one)
+__device__ __forceinline__ void p_of(const Bwd256Params& p, bool capped, float& s, float& f, float lse2, bool live) {
+  float x2 = s * p.k2;
+  f = 1.f;
+  if (capped) {
+    const float r = rcp(ex2(s * p.kcap) + 1.f);
+    x2 = fmaf(-2.f * p.c2, r, p.c2);
+    f = 4.f * r * (1.f - r);
+  }
+  s = live ? ex2(x2 - lse2) : 0.f;
+}
+
+// 128 columns of one row of a 64 x 128 f32 accumulator (this thread's
+// pairs: `off` 0 for its row ra, 2 for ra + 8) times `f`, as bf16 at `row`,
+// by 16-byte stores (where `ok`): the four threads of a quad (`quad`, the
+// lane's place in it) trade their pairs, a 4 x 4 transpose of words by two
+// xor shuffles, so that each holds the 8 columns of four of the row's
+// sixteen 8-column chunks (a thread's own pairs would be 4-byte stores, 8
+// rows a warp)
+__device__ __forceinline__ void store_row128(__nv_bfloat16* row, const float (&acc)[64], int off, float f, bool ok,
+                                             int quad) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {  // chunks 4m .. 4m + 3
+    uint32_t w[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[c] = pack_bf16(acc[16 * m + 4 * c + off] * f, acc[16 * m + 4 * c + off + 1] * f);
+    uint32_t x0 = (quad & 1) ? w[0] : w[1], x1 = (quad & 1) ? w[2] : w[3];
+    x0 = __shfl_xor_sync(0xFFFFFFFFu, x0, 1);
+    x1 = __shfl_xor_sync(0xFFFFFFFFu, x1, 1);
+    if (quad & 1) {
+      w[0] = x0;
+      w[2] = x1;
+    } else {
+      w[1] = x0;
+      w[3] = x1;
+    }
+    x0 = (quad & 2) ? w[0] : w[2];
+    x1 = (quad & 2) ? w[1] : w[3];
+    x0 = __shfl_xor_sync(0xFFFFFFFFu, x0, 2);
+    x1 = __shfl_xor_sync(0xFFFFFFFFu, x1, 2);
+    if (quad & 2) {
+      w[0] = x0;
+      w[1] = x1;
+    } else {
+      w[2] = x0;
+      w[3] = x1;
+    }
+    if (ok) *reinterpret_cast<uint4*>(row + 8 * (4 * m + quad)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <int K>
+struct Kind {
+  static constexpr int value = K;
+};
 
 template <bool W>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_tc_dkdv256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-                                const BwdParams p, const BwdDims dims) {
-  using L = Dkdv256Layout;
+    flash_bwd_tc256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                           const Bwd256Params p, const BwdDims dims) {
+  using L = Bwd256Layout;
   constexpr int NB = kD256 / kBox;
   constexpr int kS = kStages256;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t base = smem_u32(smem);
-  const float* stats = reinterpret_cast<const float*>(smem + L::kStats);
-  float* dps = reinterpret_cast<float*>(smem + L::kDP);
-  uint32_t* pds = reinterpret_cast<uint32_t*>(smem + L::kPD);
+  const float* stats = reinterpret_cast<const float*>(smem + L::kStats);  // [1 + kS][kStatsTile]
   auto bar = [&](int i) { return base + L::kBar + 8 * i; };
-  auto kv_full = [&]() { return bar(0); };
-  auto full = [&](int s) { return bar(1 + s); };
-  auto empty = [&](int s) { return bar(1 + kS + s); };
-  auto q_tile = [&](int s) { return base + L::kQ + s * kTile256; };
-  auto do_tile = [&](int s) { return base + L::kDO + s * kTile256; };
+  const uint32_t fixed_full = bar(0), fixed_empty = bar(1);
+  auto full = [&](int s) { return bar(2 + s); };
+  auto empty = [&](int s) { return bar(2 + kS + s); };
+  const uint32_t a0 = base + L::kA, a1 = a0 + kTile256;
+  auto b0 = [&](int s) { return base + L::kB + s * L::kStage; };
+  auto b1 = [&](int s) { return base + L::kB + s * L::kStage + kTile256; };
+  const uint32_t xp = base + L::kX, xd = xp + kXBytes;
+  const int* items = p.work + gridDim.x + 1;
+  const int u0 = p.work[blockIdx.x], u1 = p.work[blockIdx.x + 1];
 
   const int tid = threadIdx.x;
-  const int nbkv = p.batch * p.hkv;
-  const int bkv = blockIdx.x % nbkv;
-  const int k0 = (blockIdx.x / nbkv) * kT;  // the block's 64 keys; the first keys (the most query tiles) first
-  const int b = bkv / p.hkv, hk = bkv % p.hkv;
-  const int k_last = min(k0 + kT, p.kv_len) - 1;
-  const int first = p.causal ? max(0, k0 - p.q_offset) / kT : 0;
-  const int ntiles = k0 < p.kv_len ? max(q_tiles_end<W>(p, k_last) - first, 0) : 0;
-  const int nitems = p.group * ntiles;
-
   if (tid == 0) {
-    mbar_init(kv_full(), 1);
+    mbar_init(fixed_full, 1);
+    mbar_init(fixed_empty, kConsumers);
     for (int s = 0; s < kS; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumers);
@@ -661,201 +792,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {  // the producer warpgroup: one thread issues every copy
     regs_dec<kProducerRegs>();
     if (tid == kConsumers) {
-      if (nitems > 0) {
-        mbar_expect_tx(kv_full(), 2 * kTile256);
+      int kt = 0;  // tiles streamed so far: the ring's position
+      for (int u = u0, n = 0; u < u1; ++u, ++n) {
+        const int* w = items + 4 * u;
+        const Item256 x = item256<W>(p, w[0], w[1], w[2], w[3]);
+        mbar_wait(fixed_empty, (n & 1) ^ 1);  // the last item's score products are done
+        if (x.n == 0) {
+          mbar_arrive(fixed_full);  // nothing to load: the item writes zeros
+        } else if (x.kind == 0) {
+          mbar_expect_tx(fixed_full, 2 * kTile256);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          tma_load(base + L::kK + nb * kT * kRowBytes, &kmap, kv_full(), dims.k, nb * kBox, k0, hk, b);
-          tma_load(base + L::kV + nb * kT * kRowBytes, &vmap, kv_full(), dims.v, nb * kBox, k0, hk, b);
+          for (int nb = 0; nb < NB; ++nb) {
+            tma_load(a0 + nb * kT * kRowBytes, &kmap, fixed_full, dims.k, nb * kBox, x.t * kT, x.h, x.b);
+            tma_load(a1 + nb * kT * kRowBytes, &vmap, fixed_full, dims.v, nb * kBox, x.t * kT, x.h, x.b);
+          }
+        } else {
+          mbar_expect_tx(fixed_full, 2 * kTile256 + kStatsTile * 4);
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            tma_load(a0 + nb * kT * kRowBytes, &qmap, fixed_full, dims.q, nb * kBox, x.t * kT, x.h, x.b);
+            tma_load(a1 + nb * kT * kRowBytes, &domap, fixed_full, dims.dout, nb * kBox, x.t * kT, x.h, x.b);
+          }
+          bulk_load(base + L::kStats, p.stats + (static_cast<long long>(x.b * p.hq + x.h) * p.nq + x.t) * kStatsTile,
+                    kStatsTile * 4, fixed_full);
         }
-      }
-      for (int it = 0; it < nitems; ++it) {
-        const int h = hk * p.group + it / ntiles;
-        const int qt = first + it % ntiles;
-        const int s = it % kS;
-        mbar_wait(empty(s), ((it / kS) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * kTile256 + kStatsTile * 4);
+        for (int i = 0; i < x.n; ++i, ++kt) {
+          const int s = kt % kS;
+          mbar_wait(empty(s), ((kt / kS) & 1) ^ 1);  // passes at once on a fresh stage
+          if (x.kind == 0) {
+            const int h = x.h * p.group + i / x.ntq, qt = x.first + i % x.ntq;
+            mbar_expect_tx(full(s), 2 * kTile256 + kStatsTile * 4);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          tma_load(q_tile(s) + nb * kT * kRowBytes, &qmap, full(s), dims.q, nb * kBox, qt * kT, h, b);
-          tma_load(do_tile(s) + nb * kT * kRowBytes, &domap, full(s), dims.dout, nb * kBox, qt * kT, h, b);
-        }
-        bulk_load(base + L::kStats + s * kStatsTile * 4,
-                  p.stats + (static_cast<long long>(b * p.hq + h) * p.nq + qt) * kStatsTile, kStatsTile * 4, full(s));
-      }
-    }
-    return;
-  }
-  regs_inc<kConsumerRegs>();
-
-  // consumers: both warpgroups hold the block's keys; this thread holds
-  // key rows ra and ra + 8, query columns 8j + col + {0, 1} of S^T / dP^T,
-  // and columns 128 wg + 8j + col + {0, 1} of dK and dV
-  const int t = tid % 128, warp = t / 32, lane = tid % 32;
-  const int ra = warp * 16 + lane / 4;
-  const int col = 2 * (lane % 4);
-  const int key_a = k0 + ra, key_b = key_a + 8;
-  float dk[kD256 / 4], dv[kD256 / 4];
+            for (int nb = 0; nb < NB; ++nb) {
+              tma_load(b0(s) + nb * kT * kRowBytes, &qmap, full(s), dims.q, nb * kBox, qt * kT, h, x.b);
+              tma_load(b1(s) + nb * kT * kRowBytes, &domap, full(s), dims.dout, nb * kBox, qt * kT, h, x.b);
+            }
+            bulk_load(base + L::kStats + (1 + s) * kStatsTile * 4,
+                      p.stats + (static_cast<long long>(x.b * p.hq + h) * p.nq + qt) * kStatsTile, kStatsTile * 4,
+                      full(s));
+          } else {
+            const int hk = x.h / p.group, key0 = (x.first + i) * kT;
+            mbar_expect_tx(full(s), 2 * kTile256);
 #pragma unroll
-  for (int i = 0; i < kD256 / 4; ++i) dk[i] = dv[i] = 0.f;
-  if (nitems > 0) mbar_wait(kv_full(), 0);
-
-  for (int it = 0; it < nitems; ++it) {
-    const int i0 = (first + it % ntiles) * kT;
-    const int s = it % kS;
-    mbar_wait(full(s), (it / kS) & 1);
-    const int i_last = min(p.sq, i0 + kT) - 1;
-    // the same for both warpgroups, so both pass the named barriers or neither
-    if ((!p.causal || k0 <= p.q_offset + i_last) && (!W || k_last > p.q_offset + i0 - p.window)) {
-      float acc[kT / 2];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
-#pragma unroll
-      for (int i = 0; i < kT / 2; ++i) acc[i] = 0.f;
-      wgmma_fence();
-      if (wg == 0)
-        gemm_ss<kD256>(acc, base + L::kK, kT * kRowBytes, q_tile(s), kT * kRowBytes);
-      else
-        gemm_ss<kD256>(acc, base + L::kV, kT * kRowBytes, do_tile(s), kT * kRowBytes);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
-      if (wg == 1) {
-#pragma unroll
-        for (int i = 0; i < kT / 2; ++i) dps[i * 128 + t] = acc[i];
-      }
-      consumers_sync(1);  // dP^T is in; warpgroup 1 has read the last tile's fragments
-      if (wg == 0) {
-        const float* lse2 = stats + s * kStatsTile;
-        const float* di = lse2 + kT;
-        const bool edge = k0 + kT > p.kv_len || i0 + kT > p.sq || (p.causal && k0 + kT - 1 > p.q_offset + i0) ||
-                          (W && k0 <= p.q_offset + i0 + kT - 1 - p.window);
-#pragma unroll
-        for (int kk = 0; kk < kT / 16; ++kk) {
-          float pr[8], ds[8];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int j = 2 * kk + jj;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int qc = 8 * j + col + c;
-              const bool row_ok = i0 + qc < p.sq;
-              const int qpos = p.q_offset + i0 + qc;
-              const int ea = 4 * j + c, eb = 4 * j + 2 + c;  // this thread's elements (keys a, b)
-              float sa = acc[ea], da = dps[ea * 128 + t], sb = acc[eb], db = dps[eb * 128 + t];
-              p_ds(p, sa, da, lse2[qc], di[qc], !edge || (row_ok && live<W>(p, key_a, qpos)));
-              p_ds(p, sb, db, lse2[qc], di[qc], !edge || (row_ok && live<W>(p, key_b, qpos)));
-              pr[ea - 8 * kk] = sa, ds[ea - 8 * kk] = da;
-              pr[eb - 8 * kk] = sb, ds[eb - 8 * kk] = db;
+            for (int nb = 0; nb < NB; ++nb) {
+              tma_load(b0(s) + nb * kT * kRowBytes, &kmap, full(s), dims.k, nb * kBox, key0, hk, x.b);
+              tma_load(b1(s) + nb * kT * kRowBytes, &vmap, full(s), dims.v, nb * kBox, key0, hk, x.b);
             }
           }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            pds[(4 * kk + r) * 128 + t] = pack_bf16(pr[2 * r], pr[2 * r + 1]);
-            pds[(16 + 4 * kk + r) * 128 + t] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
-          }
-        }
-      }
-      consumers_sync(2);  // the fragments are in; warpgroup 0 has read dP^T
-      uint32_t pa[kT / 16][4], da[kT / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pa[kk][r] = pds[(4 * kk + r) * 128 + t];
-          da[kk][r] = pds[(16 + 4 * kk + r) * 128 + t];
-        }
-      const uint32_t half = 2 * wg * kT * kRowBytes;  // this warpgroup's two 64-column boxes
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk)  // dO [queries][D] as the MN-major B operand, 16 queries a step
-        wgmma_rs<128>(dv, pa[kk], sw128_desc(do_tile(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
-#pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk)
-        wgmma_rs<128>(dk, da[kk], sw128_desc(q_tile(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dk);
-      fence_regs(dv);
-    }
-    mbar_arrive(empty(s));
-  }
-
-  // zeros for keys no row sees, past kv_len included
-  __nv_bfloat16* dkg = p.dk + b * p.dks[0] + hk * p.dks[1];
-  __nv_bfloat16* dvg = p.dv + b * p.dvs[0] + hk * p.dvs[1];
-#pragma unroll
-  for (int j = 0; j < kD256 / 16; ++j) {
-    const int d = 128 * wg + 8 * j + col;
-    if (key_a < p.sk) {
-      store_pair(dkg + static_cast<long long>(key_a) * p.dks[2], d, dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
-      store_pair(dvg + static_cast<long long>(key_a) * p.dvs[2], d, dv[4 * j], dv[4 * j + 1]);
-    }
-    if (key_b < p.sk) {
-      store_pair(dkg + static_cast<long long>(key_b) * p.dks[2], d, dk[4 * j + 2] * p.scale,
-                 dk[4 * j + 3] * p.scale);
-      store_pair(dvg + static_cast<long long>(key_b) * p.dvs[2], d, dv[4 * j + 2], dv[4 * j + 3]);
-    }
-  }
-}
-
-template <bool W>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_tc_dq256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-                              const BwdParams p, const BwdDims dims) {
-  using L = Dq256Layout;
-  constexpr int NB = kD256 / kBox;
-  constexpr int kS = kStages256;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t base = smem_u32(smem);
-  float* dps = reinterpret_cast<float*>(smem + L::kDP);
-  uint32_t* dss = reinterpret_cast<uint32_t*>(smem + L::kDS);
-  auto bar = [&](int i) { return base + L::kBar + 8 * i; };
-  auto q_full = [&]() { return bar(0); };
-  auto full = [&](int s) { return bar(1 + s); };
-  auto empty = [&](int s) { return bar(1 + kS + s); };
-  auto k_tile = [&](int s) { return base + L::kK + s * kTile256; };
-  auto v_tile = [&](int s) { return base + L::kV + s * kTile256; };
-
-  const int tid = threadIdx.x;
-  const int nbh = p.batch * p.hq;
-  const int bh = blockIdx.x % nbh;
-  const int i0 = (p.nq - 1 - blockIdx.x / nbh) * kT;  // the block's 64 rows; the last (the most keys) first
-  const int b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
-  const int i_last = min(p.sq, i0 + kT) - 1;
-  // live keys [kv_start, kv_end): every tile between holds a key some row sees
-  const int kv_end = p.causal ? min(p.kv_len, p.q_offset + i_last + 1) : p.kv_len;
-  const int t0 = W ? max(0, p.q_offset + i0 - p.window + 1) / kT : 0;
-  const int ntiles = (kv_end + kT - 1) / kT - t0;
-
-  if (tid == 0) {
-    mbar_init(q_full(), 1);
-    for (int s = 0; s < kS; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const int wg = warpgroup_idx();
-
-  if (wg == 2) {  // the producer warpgroup: one thread issues every copy
-    regs_dec<kProducerRegs>();
-    if (tid == kConsumers) {
-      mbar_expect_tx(q_full(), 2 * kTile256);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        tma_load(base + L::kQ + nb * kT * kRowBytes, &qmap, q_full(), dims.q, nb * kBox, i0, h, b);
-        tma_load(base + L::kDO + nb * kT * kRowBytes, &domap, q_full(), dims.dout, nb * kBox, i0, h, b);
-      }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % kS;
-        mbar_wait(empty(s), ((t / kS) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * kTile256);
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          tma_load(k_tile(s) + nb * kT * kRowBytes, &kmap, full(s), dims.k, nb * kBox, (t0 + t) * kT, hk, b);
-          tma_load(v_tile(s) + nb * kT * kRowBytes, &vmap, full(s), dims.v, nb * kBox, (t0 + t) * kT, hk, b);
         }
       }
     }
@@ -863,96 +846,220 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   regs_inc<kConsumerRegs>();
 
-  // consumers: both warpgroups hold the block's rows; this thread holds
-  // rows ra and ra + 8, key columns 8j + col + {0, 1} of S / dP, and
-  // columns 128 wg + 8j + col + {0, 1} of dQ
-  const int t = tid % 128, warp = t / 32, lane = tid % 32;
+  // consumers: this thread holds rows ra and ra + 8 of a tile (keys of a
+  // dK/dV item, query rows of a dQ item), columns 32 wg + 8j + col + {0, 1}
+  // of the score halves (j < 4) and 128 wg + 8j + col + {0, 1} of the
+  // gradients (j < 16)
+  const int warp = (tid % 128) / 32, lane = tid % 32;
   const int ra = warp * 16 + lane / 4;
   const int col = 2 * (lane % 4);
-  const int i_a = i0 + ra, i_b = i_a + 8;
-  float lse_a = 0.f, lse_b = 0.f, di_a = 0.f, di_b = 0.f;
-  if (wg == 0) {
-    const float* st = p.stats + (static_cast<long long>(bh) * p.nq + i0 / kT) * kStatsTile;
-    lse_a = st[ra];
-    lse_b = st[ra + 8];
-    di_a = st[kT + ra];
-    di_b = st[kT + ra + 8];
-  }
-  float dq[kD256 / 4];
-#pragma unroll
-  for (int i = 0; i < kD256 / 4; ++i) dq[i] = 0.f;
-  mbar_wait(q_full(), 0);
+  // the exchange tile's row this lane addresses in stmatrix
+  const int xr = warp * 16 + (lane / 8 % 2) * 8 + lane % 8;
+  auto xaddr = [&](uint32_t x, int j) {  // chunks j, j + 1 of this warpgroup's half of row xr
+    const int chunk = 4 * wg + j + lane / 16;
+    return x + xr * kRowBytes + ((chunk ^ (xr & 7)) << 4);
+  };
+  const bool capped = p.softcap > 0.f;
+  const uint32_t half = wg * 2 * kT * kRowBytes;  // this warpgroup's two 64-column boxes of a tile
+  float acc0[kD256 / 4], acc1[kD256 / 4];  // dV and dK of a dK/dV item; dQ (acc1) of a dQ item
+  float sc[kT / 4], dp[kT / 4], fac[kT / 4];  // S then P, dP then dS, 1 - t^2: this warpgroup's half
 
-  for (int tt = 0; tt < ntiles; ++tt) {
-    const int s = tt % kS;
-    const int k0 = (t0 + tt) * kT;
-    mbar_wait(full(s), (tt / kS) & 1);
-    float acc[kT / 2];  // S (warpgroup 0) or dP (warpgroup 1)
+  // S and dP of the streamed tile in stage s (this warpgroup's 32 of its
+  // rows), two commit groups; the caller zeroes sc and dp and fences
+  auto scores = [&](int s) {
+    const uint32_t rows = wg * 32 * kRowBytes;
 #pragma unroll
-    for (int i = 0; i < kT / 2; ++i) acc[i] = 0.f;
-    wgmma_fence();
-    if (wg == 0)
-      gemm_ss<kD256>(acc, base + L::kQ, kT * kRowBytes, k_tile(s), kT * kRowBytes);
-    else
-      gemm_ss<kD256>(acc, base + L::kDO, kT * kRowBytes, v_tile(s), kT * kRowBytes);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    if (wg == 1) {
-#pragma unroll
-      for (int i = 0; i < kT / 2; ++i) dps[i * 128 + t] = acc[i];
+    for (int kk = 0; kk < kD256 / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kT * kRowBytes + (kk % 4) * 32;  // box kk / 4, 16 columns
+      wgmma_ss_n32(sc, sw128_desc(a0 + off, 16, 1024), sw128_desc(b0(s) + rows + off, 16, 1024));
     }
-    consumers_sync(1);  // dP is in; warpgroup 1 has read the last tile's fragments
-    if (wg == 0) {
-      const bool edge = k0 + kT > p.kv_len || i0 + kT > p.sq || (p.causal && k0 + kT - 1 > p.q_offset + i0) ||
-                        (W && k0 <= p.q_offset + i0 + kT - 1 - p.window);
-      const bool ok_a = i_a < p.sq, ok_b = i_b < p.sq;
+    wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk) {
-        float ds[8];
+    for (int kk = 0; kk < kD256 / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kT * kRowBytes + (kk % 4) * 32;
+      wgmma_ss_n32(dp, sw128_desc(a1 + off, 16, 1024), sw128_desc(b1(s) + rows + off, 16, 1024));
+    }
+    wgmma_commit();
+  };
+  auto zero_scores = [&] {
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * kk + jj;
+    for (int i = 0; i < kT / 4; ++i) sc[i] = dp[i] = 0.f;
+  };
+
+  int kt = 0;  // tiles streamed so far
+  for (int u = u0, n = 0; u < u1; ++u, ++n) {
+    const int* w = items + 4 * u;
+    // the same for every thread: through lane 0, so branches on it are uniform
+    const Item256 x = item256<W>(p, __shfl_sync(0xFFFFFFFFu, w[0], 0), __shfl_sync(0xFFFFFFFFu, w[1], 0),
+                                 __shfl_sync(0xFFFFFFFFu, w[2], 0), __shfl_sync(0xFFFFFFFFu, w[3], 0));
+#pragma unroll
+    for (int i = 0; i < kD256 / 4; ++i) acc0[i] = acc1[i] = 0.f;
+    mbar_wait(fixed_full, n & 1);
+
+    auto run = [&](auto kind) {
+      constexpr int K = decltype(kind)::value;
+      float lse_a = 0.f, lse_b = 0.f, di_a = 0.f, di_b = 0.f;  // a dQ item's rows' stats
+      if (K == 1) {
+        lse_a = stats[ra];
+        lse_b = stats[ra + 8];
+        di_a = stats[kT + ra];
+        di_b = stats[kT + ra + 8];
+      }
+      // tile i's rows and keys: i0 its first query row, c0 its first key
+      auto tile_pos = [&](int i, int& i0, int& c0) {
+        if (K == 0) {
+          i0 = (x.first + i % x.ntq) * kT;
+          c0 = x.t * kT;
+        } else {
+          i0 = x.t * kT;
+          c0 = (x.first + i) * kT;
+        }
+      };
+      // P of tile i from S, and the softcap's factor, masked per element on
+      // the tile's causal, window and kv_len edges and past Sq
+      auto softmax_p = [&](int i, int s) {
+        int i0, c0;
+        tile_pos(i, i0, c0);
+        const float* st = stats + (1 + s) * kStatsTile;  // a dK/dV tile's query rows' stats
+        const bool edge = c0 + kT > p.kv_len || i0 + kT > p.sq || (p.causal && c0 + kT - 1 > p.q_offset + i0) ||
+                          (W && c0 <= p.q_offset + i0 + kT - 1 - p.window);
+#pragma unroll
+        for (int j = 0; j < kT / 16; ++j) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const int key = k0 + 8 * j + col + c;
-            const int ea = 4 * j + c, eb = 4 * j + 2 + c;
-            float sa = acc[ea], da = dps[ea * 128 + t], sb = acc[eb], db = dps[eb * 128 + t];
-            p_ds(p, sa, da, lse_a, di_a, !edge || (ok_a && live<W>(p, key, p.q_offset + i_a)));
-            p_ds(p, sb, db, lse_b, di_b, !edge || (ok_b && live<W>(p, key, p.q_offset + i_b)));
-            ds[ea - 8 * kk] = da;
-            ds[eb - 8 * kk] = db;
+            const int m = 32 * wg + 8 * j + col + c;  // the column: a query (dK/dV) or a key (dQ)
+            const int ea = 4 * j + c, eb = 4 * j + 2 + c;  // this thread's elements in rows ra, ra + 8
+            if (K == 0) {
+              const bool row_ok = i0 + m < p.sq;
+              const int qpos = p.q_offset + i0 + m;
+              const float lse = st[m];
+              p_of(p, capped, sc[ea], fac[ea], lse, !edge || (row_ok && live<W>(p, c0 + ra, qpos)));
+              p_of(p, capped, sc[eb], fac[eb], lse, !edge || (row_ok && live<W>(p, c0 + ra + 8, qpos)));
+            } else {
+              const int key = c0 + m, ia = i0 + ra;
+              p_of(p, capped, sc[ea], fac[ea], lse_a, !edge || (ia < p.sq && live<W>(p, key, p.q_offset + ia)));
+              p_of(p, capped, sc[eb], fac[eb], lse_b,
+                   !edge || (ia + 8 < p.sq && live<W>(p, key, p.q_offset + ia + 8)));
+            }
           }
         }
+      };
+      // dS = P (dP - D_i) (1 - t^2) of tile i, into dp
+      auto softmax_ds = [&](int s) {
+        const float* st = stats + (1 + s) * kStatsTile + kT;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) dss[(4 * kk + r) * 128 + t] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
-      }
-    }
-    consumers_sync(2);  // the fragments are in; warpgroup 0 has read dP
-    uint32_t da[kT / 16][4];
+        for (int j = 0; j < kT / 16; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk)
+          for (int c = 0; c < 2; ++c) {
+            const int ea = 4 * j + c, eb = 4 * j + 2 + c;
+            const float da = K == 0 ? st[32 * wg + 8 * j + col + c] : di_a;
+            const float db = K == 0 ? da : di_b;
+            dp[ea] = sc[ea] * (dp[ea] - da) * fac[ea];
+            dp[eb] = sc[eb] * (dp[eb] - db) * fac[eb];
+          }
+        }
+      };
+      // this warpgroup's half of P (dK/dV) and dS into the exchange tiles,
+      // once both warpgroups' last accumulation is done, then wait for the
+      // other half
+      auto exchange = [&] {
+        consumers_sync(kBarFree);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) da[kk][r] = dss[(4 * kk + r) * 128 + t];
-    const uint32_t half = 2 * wg * kT * kRowBytes;
-    wgmma_fence();
+        for (int j = 0; j < kT / 16; j += 2) {
+          if (K == 0)
+            stmatrix_x4(xaddr(xp, j), pack_bf16(sc[4 * j], sc[4 * j + 1]), pack_bf16(sc[4 * j + 2], sc[4 * j + 3]),
+                        pack_bf16(sc[4 * j + 4], sc[4 * j + 5]), pack_bf16(sc[4 * j + 6], sc[4 * j + 7]));
+          stmatrix_x4(xaddr(xd, j), pack_bf16(dp[4 * j], dp[4 * j + 1]), pack_bf16(dp[4 * j + 2], dp[4 * j + 3]),
+                      pack_bf16(dp[4 * j + 4], dp[4 * j + 5]), pack_bf16(dp[4 * j + 6], dp[4 * j + 7]));
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the wgmma that read them
+        consumers_sync(kBarFull);
+      };
+      // dV += P^T dO and dK += dS^T Q (dQ += dS K) over this warpgroup's 128
+      // columns, the streamed tile in stage s the MN-major B operand, 16 of
+      // its rows a step; one commit group
+      auto accumulate = [&](int s) {
+        if (K == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk)  // K [keys][D] as the MN-major B operand, 16 keys a step
-      wgmma_rs<128>(dq, da[kk], sw128_desc(k_tile(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dq);
-    mbar_arrive(empty(s));
-  }
+          for (int kk = 0; kk < kT / 16; ++kk)
+            wgmma_ss_tb_n128(acc0, sw128_desc(xp + kk * 32, 16, 1024),
+                             sw128_desc(b1(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < kT / 16; ++kk)
+          wgmma_ss_tb_n128(acc1, sw128_desc(xd + kk * 32, 16, 1024),
+                           sw128_desc(b0(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+        wgmma_commit();
+      };
 
-  __nv_bfloat16* dqg = p.dq + b * p.dqs[0] + h * p.dqs[1];
-#pragma unroll
-  for (int j = 0; j < kD256 / 16; ++j) {
-    const int d = 128 * wg + 8 * j + col;
-    if (i_a < p.sq)
-      store_pair(dqg + static_cast<long long>(i_a) * p.dqs[2], d, dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
-    if (i_b < p.sq)
-      store_pair(dqg + static_cast<long long>(i_b) * p.dqs[2], d, dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
+      // the prologue: tile 0's products alone
+      int s = kt % kS;
+      mbar_wait(full(s), (kt / kS) & 1);
+      zero_scores();
+      wgmma_fence();
+      scores(s);
+      wgmma_wait_one();  // S done, dP in flight
+      fence_regs(sc);
+      softmax_p(0, s);
+      wgmma_wait_all();
+      fence_regs(dp);
+      softmax_ds(s);
+      exchange();
+      // the steady loop: tile i's accumulation, then tile i + 1's products
+      for (int i = 0; i + 1 < x.n; ++i) {
+        const int s0 = (kt + i) % kS, s1 = (kt + i + 1) % kS;
+        mbar_wait(full(s1), ((kt + i + 1) / kS) & 1);
+        zero_scores();
+        wgmma_fence();
+        accumulate(s0);
+        scores(s1);
+        wgmma_wait_two();  // tile i's accumulation done: its stage is free
+        fence_regs(acc0);
+        fence_regs(acc1);
+        mbar_arrive(empty(s0));
+        wgmma_wait_one();  // S done, dP in flight
+        fence_regs(sc);
+        softmax_p(i + 1, s1);
+        wgmma_wait_all();
+        fence_regs(dp);
+        softmax_ds(s1);
+        exchange();
+      }
+      mbar_arrive(fixed_empty);  // every score product of the item is done
+      // the drain: the last tile's accumulation
+      s = (kt + x.n - 1) % kS;
+      wgmma_fence();
+      accumulate(s);
+      wgmma_wait_all();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      mbar_arrive(empty(s));
+    };
+    if (x.n == 0)
+      mbar_arrive(fixed_empty);
+    else if (x.kind == 0)
+      run(Kind<0>{});
+    else
+      run(Kind<1>{});
+    kt += x.n;
+
+    // the item's gradients, dK and dQ scaled by 1 / sqrt(D); zeros for the
+    // keys of a dK/dV item that no row sees, past kv_len included
+    const int quad = lane % 4;
+    if (x.kind == 0) {
+      const long long key_a = x.t * kT + ra, key_b = key_a + 8;
+      __nv_bfloat16* dkg = p.dk + x.b * p.dks[0] + x.h * p.dks[1] + 128 * wg;
+      __nv_bfloat16* dvg = p.dv + x.b * p.dvs[0] + x.h * p.dvs[1] + 128 * wg;
+      store_row128(dkg + key_a * p.dks[2], acc1, 0, p.scale, key_a < p.sk, quad);
+      store_row128(dvg + key_a * p.dvs[2], acc0, 0, 1.f, key_a < p.sk, quad);
+      store_row128(dkg + key_b * p.dks[2], acc1, 2, p.scale, key_b < p.sk, quad);
+      store_row128(dvg + key_b * p.dvs[2], acc0, 2, 1.f, key_b < p.sk, quad);
+    } else {
+      const long long i_a = x.t * kT + ra, i_b = i_a + 8;
+      __nv_bfloat16* dqg = p.dq + x.b * p.dqs[0] + x.h * p.dqs[1] + 128 * wg;
+      store_row128(dqg + i_a * p.dqs[2], acc1, 0, p.scale, i_a < p.sq, quad);
+      store_row128(dqg + i_b * p.dqs[2], acc1, 2, p.scale, i_b < p.sq, quad);
+    }
   }
 }
 
@@ -1020,12 +1127,14 @@ int launch(Kernel kernel, int bytes, int blocks, const Call& c, cudaStream_t str
 // dv; pointers and strides of q, k, v and dout 16-byte aligned); lse f32
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
 // B * Hq * ceil(Sq / 64) * 128 floats, 16-byte aligned; D in {64, 128,
-// 256}; 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none. Three
-// entry points with the same arguments, launched in this order on one
-// stream: th_flash_bwd_tc_pre writes stats (each query tile's lse log2 e
-// and D_i), th_flash_bwd_tc_dkdv writes dk and dv (zeros past kv_len),
-// th_flash_bwd_tc_dq writes dq. Each returns cudaGetLastError() after its
-// launch, or a tensor-map encoding failure negated.
+// 256}; 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none. Entry
+// points with the same arguments, launched in this order on one stream:
+// th_flash_bwd_tc_pre writes stats (each query tile's lse log2 e and D_i),
+// th_flash_bwd_tc_dkdv writes dk and dv (zeros past kv_len) and
+// th_flash_bwd_tc_dq writes dq at D 64 and 128; at D 256
+// th_flash_bwd_tc_dkdv_dq (below; a work list beside the arguments) writes
+// all three. Each returns cudaGetLastError() after its launch, or a
+// tensor-map encoding failure negated.
 #define TH_BWD_TC_ARGS                                                                                         \
   const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv, \
       const float *lse, float *stats, const long long *strides, int batch, int hq, int hkv, int sq, int sk,   \
@@ -1050,43 +1159,59 @@ extern "C" int th_flash_bwd_tc_pre(TH_BWD_TC_ARGS) {
 }
 
 extern "C" int th_flash_bwd_tc_dkdv(TH_BWD_TC_ARGS) {
+  if (d == kD256) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
   Call c;
-  const int keys = d == kD256 ? kT : kKeys;  // keys a block
-  const int err = prepare(c, TH_BWD_TC_PASS, kT, keys);
+  const int err = prepare(c, TH_BWD_TC_PASS, kT, kKeys);
   if (err != 0) return err;
-  const int blocks = batch * hkv * ((sk + keys - 1) / keys);
+  const int blocks = batch * hkv * ((sk + kKeys - 1) / kKeys);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = window > 0;
-  switch (d) {
-    case 64:
-      return w ? launch(flash_bwd_tc_dkdv_kernel<64, true>, DkdvLayout<64>::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dkdv_kernel<64, false>, DkdvLayout<64>::kBytes, blocks, c, s);
-    case 128:
-      return w ? launch(flash_bwd_tc_dkdv_kernel<128, true>, DkdvLayout<128>::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dkdv_kernel<128, false>, DkdvLayout<128>::kBytes, blocks, c, s);
-    default:
-      return w ? launch(flash_bwd_tc_dkdv256_kernel<true>, Dkdv256Layout::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dkdv256_kernel<false>, Dkdv256Layout::kBytes, blocks, c, s);
-  }
+  if (d == 64)
+    return w ? launch(flash_bwd_tc_dkdv_kernel<64, true>, DkdvLayout<64>::kBytes, blocks, c, s)
+             : launch(flash_bwd_tc_dkdv_kernel<64, false>, DkdvLayout<64>::kBytes, blocks, c, s);
+  return w ? launch(flash_bwd_tc_dkdv_kernel<128, true>, DkdvLayout<128>::kBytes, blocks, c, s)
+           : launch(flash_bwd_tc_dkdv_kernel<128, false>, DkdvLayout<128>::kBytes, blocks, c, s);
 }
 
 extern "C" int th_flash_bwd_tc_dq(TH_BWD_TC_ARGS) {
+  if (d == kD256) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
   Call c;
-  const int rows = d == kD256 ? kT : kRows;  // query rows a block
-  const int err = prepare(c, TH_BWD_TC_PASS, rows, kT);
+  const int err = prepare(c, TH_BWD_TC_PASS, kRows, kT);
   if (err != 0) return err;
-  const int blocks = batch * hq * ((sq + rows - 1) / rows);
+  const int blocks = batch * hq * ((sq + kRows - 1) / kRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = window > 0;
-  switch (d) {
-    case 64:
-      return w ? launch(flash_bwd_tc_dq_kernel<64, true>, DqLayout<64>::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dq_kernel<64, false>, DqLayout<64>::kBytes, blocks, c, s);
-    case 128:
-      return w ? launch(flash_bwd_tc_dq_kernel<128, true>, DqLayout<128>::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dq_kernel<128, false>, DqLayout<128>::kBytes, blocks, c, s);
-    default:
-      return w ? launch(flash_bwd_tc_dq256_kernel<true>, Dq256Layout::kBytes, blocks, c, s)
-               : launch(flash_bwd_tc_dq256_kernel<false>, Dq256Layout::kBytes, blocks, c, s);
-  }
+  if (d == 64)
+    return w ? launch(flash_bwd_tc_dq_kernel<64, true>, DqLayout<64>::kBytes, blocks, c, s)
+             : launch(flash_bwd_tc_dq_kernel<64, false>, DqLayout<64>::kBytes, blocks, c, s);
+  return w ? launch(flash_bwd_tc_dq_kernel<128, true>, DqLayout<128>::kBytes, blocks, c, s)
+           : launch(flash_bwd_tc_dq_kernel<128, false>, DqLayout<128>::kBytes, blocks, c, s);
+}
+
+// D = 256 only, after th_flash_bwd_tc_pre: dk, dv and dq in one launch of
+// `grid` persistent blocks walking the work list `work` (int32 on the
+// device: grid + 1 offsets, then four ints an item; flash_attention's
+// bwd256_order)
+extern "C" int th_flash_bwd_tc_dkdv_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                       void* dq, void* dk, void* dv, const float* lse, float* stats,
+                                       const long long* strides, int batch, int hq, int hkv, int sq, int sk, int d,
+                                       int causal, float softcap, int q_offset, int kv_len, int window,
+                                       const int* work, int grid, void* stream) {
+  if (d != kD256 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Call c;
+  const int err = prepare(c, TH_BWD_TC_PASS, kT, kT);
+  if (err != 0) return err;
+  Bwd256Params bp;
+  static_cast<BwdParams&>(bp) = c.p;
+  bp.work = work;
+  const double log2e = 1.4426950408889634, scale = 1.0 / sqrt(static_cast<double>(d));
+  bp.kcap = softcap > 0.f ? static_cast<float>(2.0 * log2e * scale / softcap) : 0.f;
+  bp.c2 = static_cast<float>(softcap * log2e);
+  bp.k2 = static_cast<float>(scale * log2e);
+  auto kernel = window > 0 ? flash_bwd_tc256_kernel<true> : flash_bwd_tc256_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd256Layout::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, Bwd256Layout::kBytes, static_cast<cudaStream_t>(stream)>>>(c.qm, c.km, c.vm, c.dom, bp,
+                                                                                        c.dims);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -81,16 +81,22 @@ backward (:func:`launch_backward`) takes one of two routes, again by dtype
 and shape alone (:func:`_bwd_route`), both with or without a window:
 
 * ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at head_dim
-  64/128/256, the training step's path. Three kernels: ``pre`` (``D_i =
-  rowsum(dO * O)``), ``dkdv`` (one block 128 keys; 64 at head_dim 256) and
-  ``dq`` (one block 128 query rows; 64 at head_dim 256), with ``wgmma``
-  products fed by TMA.
+  64/128/256, the training step's path. Three kernels at head_dim 64/128:
+  ``pre`` (``D_i = rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and
+  ``dq`` (one block 128 query rows), with ``wgmma`` products fed by TMA.
 * ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
-  head_dim 16/32/64/128/256 otherwise, in f32 FMAs. Three kernels: ``pre``
-  (``D_i`` and the lse into a stats scratch in packed-row order),
-  ``dkdv`` (64 keys a block, 32 at head_dim 256; Q/dO sub-tiles through a
-  two-stage ``cp.async`` ring) and ``dq`` (128 packed query rows a block,
-  64 at head_dim 256; K/V tiles through the ring).
+  head_dim 16/32/64/128/256 otherwise, in f32 FMAs. Three kernels at
+  head_dim 16-128: ``pre`` (``D_i`` and the lse into a stats scratch in
+  packed-row order), ``dkdv`` (64 keys a block; Q/dO sub-tiles through a
+  two-stage ``cp.async`` ring) and ``dq`` (128 packed query rows a block;
+  K/V tiles through the ring).
+
+At head_dim 256 both routes launch ``pre`` and then one persistent kernel,
+``dkdv_dq``, that walks the dK/dV items (keys of a KV head) and the dQ
+items (query rows; ``BWD256_ROWS`` a item) of the call in one work list,
+heaviest first, each block's share assigned on the host
+(:func:`bwd256_order`, cached on the device by shape): :func:`bwd_kernels`
+names what a call launches.
 
 ``BWD_LAUNCHES["<route>/<kernel>"]`` counts each kernel's launches. On the
 CPU the same ``Function`` runs :func:`attention_plain` and
@@ -132,8 +138,17 @@ MAX_SPLITS = 64
 
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # the cuda_core backward's (f32, bf16, f16)
 TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scratch comes in tiles)
-#: the backward's routes and each one's kernels, in launch order
-BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq"), "cuda_core": ("pre", "dkdv", "dq")}
+#: the backward's routes and each one's kernels (:func:`bwd_kernels` names
+#: those a call launches, in order)
+BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq", "dkdv_dq"), "cuda_core": ("pre", "dkdv", "dq", "dkdv_dq")}
+#: the head_dim whose backward walks its dK/dV and dQ items in one launch
+BWD_ONE_LAUNCH_DIM = 256
+#: the head_dim-256 backwards' item rows by route: keys a dK/dV item and
+#: query rows a dQ item (packed rows on ``cuda_core``), and the rows of the
+#: tiles an item streams (query tiles of 64 rows or sub-tiles of 64 packed
+#: rows, key tiles of 64)
+BWD256_ROWS = {"tensor_core": 64, "cuda_core": 32}
+BWD256_TILE = 64
 
 #: the CUDA-core kernels' query rows come in sub-tiles of SUB_ROWS packed
 #: rows (:func:`packed_rows`; csrc/vec.cuh)
@@ -408,6 +423,119 @@ def _bwd_route(q: torch.Tensor) -> str:
     """The backward's route, from dtype and shape alone: ``tensor_core``
     for bf16 at head_dim 64/128/256, ``cuda_core`` for the rest."""
     return "tensor_core" if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS else "cuda_core"
+
+
+def bwd_kernels(d: int) -> Tuple[str, ...]:
+    """The kernels a backward call at head_dim ``d`` launches on either
+    route, in order: ``pre``, then ``dkdv`` and ``dq``, or at head_dim 256
+    the one launch of both, ``dkdv_dq``."""
+    return ("pre", "dkdv_dq") if d == BWD_ONE_LAUNCH_DIM else ("pre", "dkdv", "dq")
+
+
+def bwd256_items(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *, causal: bool = True,
+                 q_offset: int = 0, kv_len: Optional[int] = None, window: int = 0) -> list:
+    """Every item of a head_dim-256 backward call, ``(kind, b, head, tile,
+    first, n)``, as the ``dkdv_dq`` kernels walk them: the streamed tiles
+    ``first .. first + n - 1`` (dK/dV on ``tensor_core``: ``n`` is G times
+    the query tiles, walked head by head).
+    Kind 0, dK/dV: a KV head's ``BWD256_ROWS[route]`` keys from ``tile``
+    times that, and the query tiles (``tensor_core``: 64 rows of each of the
+    G heads; ``cuda_core``: sub-tiles of 64 packed rows, :func:`packed_rows`)
+    whose rows see one of them. Kind 1, dQ: ``tensor_core``, 64 rows of a
+    query head from ``64 tile``; ``cuda_core``, 32 packed rows of a KV head,
+    half ``tile % 2`` of sub-tile ``tile // 2``; and the key tiles of 64
+    holding a key one of its rows sees. Both from the first tile's causal or
+    window edge to the last's. Every dK/dV item is listed, even one with no
+    live tile (it writes its keys' zeros), and so is every dQ item (one of
+    padding rows alone has none)."""
+    kv_len = sk if kv_len is None else int(kv_len)
+    rows, t = BWD256_ROWS[route], BWD256_TILE
+    g = hq // hkv
+    win = int(window) if window > 0 else 1 << 30
+    cc = route == "cuda_core"
+    qpt, nsub = packed_rows(sq, g) if cc else (t, -(-sq // t))  # positions a query tile, query tiles
+    items = []
+    for b in range(batch):
+        for hk in range(hkv):
+            for kt in range(-(-sk // rows)):
+                k0 = kt * rows
+                first = max(0, k0 - q_offset) // qpt if causal else 0
+                last = min(k0 + rows, kv_len) - 1 + win - 1 - q_offset  # the last position whose window reaches it
+                end = nsub if window <= 0 else (0 if last < 0 else min(nsub, last // qpt + 1))
+                n = max(end - first, 0) if k0 < kv_len else 0
+                items.append((0, b, hk, kt, first, n if cc else g * n))
+        for h in range(hkv if cc else hq):
+            for qt in range(2 * nsub if cc else nsub):
+                if cc:  # the positions of packed rows [r0, r0 + 32) of sub-tile qt // 2
+                    r0, live_rows = (qt % 2) * rows, qpt * g
+                    p0 = (qt // 2) * qpt + r0 // g
+                    p1 = min(sq - 1, (qt // 2) * qpt + (min(r0 + rows, live_rows) - 1) // g)
+                    if r0 >= live_rows or p0 >= sq:
+                        items.append((1, b, h, qt, 0, 0))
+                        continue
+                else:
+                    p0, p1 = qt * t, min(sq, (qt + 1) * t) - 1
+                kv_end = min(kv_len, q_offset + p1 + 1) if causal else kv_len
+                t0 = max(0, q_offset + p0 - win + 1) // t if window > 0 else 0
+                items.append((1, b, h, qt, t0, -(-kv_end // t) - t0))
+    return items
+
+
+def bwd256_weight(item) -> int:
+    """An item's work in products of its rows x a tile's 64 x 256: four a
+    live tile of a dK/dV item (S^T, dP^T, dV, dK) and three of a dQ item
+    (S, dP, dQ), and one or two for its epilogue."""
+    kind, n = item[0], item[5]
+    return 4 * n + 2 if kind == 0 else 3 * n + 1
+
+
+def bwd256_order(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *, causal: bool = True,
+                 q_offset: int = 0, kv_len: Optional[int] = None, window: int = 0, sms: int = 132) -> list:
+    """The head_dim-256 backward's work list, as its ``dkdv_dq`` kernel
+    walks it: for each of ``min(items, sms)`` persistent blocks, its items
+    in order. The items (:func:`bwd256_items`) go heaviest first
+    (:func:`bwd256_weight`; ties by kind, batch, head, tile), each to the
+    block with the least work so far (the lowest index among equals), so
+    every block walks its own items heaviest first and no block ends more
+    than one item's work after the mean."""
+    import heapq
+
+    items = bwd256_items(route, batch, hq, hkv, sq, sk, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                         window=window)
+    items.sort(key=lambda it: (-bwd256_weight(it), it[:4]))
+    grid = min(len(items), sms)
+    heap = [(0, i) for i in range(grid)]
+    blocks = [[] for _ in range(grid)]
+    for it in items:
+        load, i = heapq.heappop(heap)
+        blocks[i].append(it)
+        heapq.heappush(heap, (load + bwd256_weight(it), i))
+    return blocks
+
+
+#: the head_dim-256 work lists on the device, by device and call shape
+_BWD256_WORK: dict = {}
+
+
+def _bwd256_work(route: str, device: torch.device, *shape, **kw) -> Tuple[torch.Tensor, int]:
+    """:func:`bwd256_order` as the kernel reads it, int32 on ``device``:
+    the blocks' first positions (``grid + 1`` offsets), then each item's
+    (kind, batch, head, tile); and the grid. Made once a shape and device,
+    so a training step copies nothing to the device after its first
+    call."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    key = (route, str(device), shape, tuple(sorted(kw.items())), sms)
+    got = _BWD256_WORK.get(key)
+    if got is None:
+        blocks = bwd256_order(route, *shape, sms=sms, **kw)
+        offsets = [0]
+        for blk in blocks:
+            offsets.append(offsets[-1] + len(blk))
+        flat = offsets + [x for blk in blocks for it in blk for x in it[:4]]
+        if len(_BWD256_WORK) >= 256:
+            _BWD256_WORK.clear()
+        got = _BWD256_WORK[key] = (torch.tensor(flat, dtype=torch.int32, device=device), len(blocks))
+    return got
 
 
 def live_end(sq: int, causal: bool, q_offset: int, kv_len: int) -> int:
@@ -688,10 +816,20 @@ def launch_backward(
         _, nsub = packed_rows(sq, hq // hkv)
         stats = torch.empty(b * hkv * (nsub + nsub % 2) * 2 * SUB_ROWS, dtype=torch.float32, device=q.device)
         args = (*ptrs, lse.data_ptr(), stats.data_ptr(), ctypes.addressof(strides), _CODES[q.dtype], *tail, stream)
-    for kernel in BWD_KERNELS[route]:
+    # every launch's arguments first, so the card does not wait on the host
+    # between them
+    calls = []
+    for kernel in bwd_kernels(d):
+        call = args
+        if kernel == "dkdv_dq":
+            work, grid = _bwd256_work(route, q.device, b, hq, hkv, sq, sk, causal=bool(causal),
+                                      q_offset=int(q_offset), kv_len=kv_len, window=max(int(window), 0))
+            call = (*args[:-1], work.data_ptr(), grid, stream)
         name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
+        calls.append((kernel, name, getattr(lib, name), call))
+    for kernel, name, fn, call in calls:
         BWD_LAUNCHES[f"{route}/{kernel}"].add()
-        build.check(name, getattr(lib, name)(*args))
+        build.check(name, fn(*call))
     return dq, dk, dv
 
 

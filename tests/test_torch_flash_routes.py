@@ -291,8 +291,9 @@ def test_tensor_core_backward_refuses_what_it_lacks(dtype, d):
 
 
 def test_backward_counters_name_each_routes_kernels():
-    assert sorted(fa.BWD_LAUNCHES) == ["cuda_core/dkdv", "cuda_core/dq", "cuda_core/pre", "tensor_core/dkdv",
-                                       "tensor_core/dq", "tensor_core/pre"]
+    assert sorted(fa.BWD_LAUNCHES) == ["cuda_core/dkdv", "cuda_core/dkdv_dq", "cuda_core/dq", "cuda_core/pre",
+                                       "tensor_core/dkdv", "tensor_core/dkdv_dq", "tensor_core/dq",
+                                       "tensor_core/pre"]
 
 
 #: deepseek-v3's expanded MLA attention: q/k of 128 + 64, v of 128, 128

@@ -565,8 +565,11 @@ def _backward(fa, case, dtype, dev, route=None):
     return got, launched, want
 
 
-def _launched_once(fa, route):
-    return {f"{r}/{k}": int(r == route) for r, ks in fa.BWD_KERNELS.items() for k in ks}
+def _launched_once(fa, route, d):
+    """One launch of each kernel a call on ``route`` at head_dim ``d``
+    launches (at 256, ``pre`` and the one ``dkdv_dq``), none of the rest."""
+    return {f"{r}/{k}": int(r == route and k in fa.bwd_kernels(d)) for r, ks in fa.BWD_KERNELS.items()
+            for k in ks}
 
 
 def _check_grads(got, want, dtype, case):
@@ -590,7 +593,7 @@ def test_backward_kernels_equal_autograd_of_plain(dev, case, dtype):
 
     got, launched, want = _backward(fa, case, dtype, dev)
     route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-    assert launched == _launched_once(fa, route)
+    assert launched == _launched_once(fa, route, case[5])
     _check_grads(got, want, dtype, case)
     again, _, _ = _backward(fa, case, dtype, dev)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
@@ -603,7 +606,7 @@ def test_cuda_core_backward_on_bf16(dev, case):
     from repro_torch.kernels import flash_attention as fa
 
     got, launched, want = _backward(fa, case, torch.bfloat16, dev, route="cuda_core")
-    assert launched == _launched_once(fa, "cuda_core")
+    assert launched == _launched_once(fa, "cuda_core", case[5])
     _check_grads(got, want, torch.bfloat16, case)
 
 
@@ -629,7 +632,7 @@ def test_narrow_head_dims_forward_and_backward(dev, case, dtype):
     got = _routed(fa, "f32", lambda: fa.flash_attention(q, k, v, **kw))
     _flash_close(got, fa.attention_plain(q, k, v, **kw), dtype)
     got, launched, want = _backward(fa, case, dtype, dev)
-    assert launched == _launched_once(fa, "cuda_core")
+    assert launched == _launched_once(fa, "cuda_core", d)
     _check_grads(got, want, dtype, case)
 
 
@@ -703,7 +706,7 @@ def test_cuda_core_backward_tiling(dev, case, d, dtype):
     out, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
     before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
     got = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
-    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "cuda_core")
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "cuda_core", d)
     again = fa.launch_backward(q, k, v, out, lse, dout, route="cuda_core", **kw)
     ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
     want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
@@ -976,7 +979,7 @@ def test_windowed_tensor_core_backward(dev, case, d):
         before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
         out = _routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves, **kw))
         got = torch.autograd.grad(out, leaves, dout)
-        assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "tensor_core")
+        assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "tensor_core", d)
         return got
 
     got = grads()
@@ -1050,12 +1053,107 @@ def test_dbrx_group_of_6_on_its_forward_routes(dev, route):
     _flash_close(got, fa.attention_plain(q, k, v, **kw), torch.bfloat16)
 
 
+#: the head_dim-256 backwards (one launch of dK/dV and dQ after pre):
+#: (b, hq, hkv, sq, sk, causal, softcap, q_offset, kv_len, window); phase
+#: 10's and phase 7's launch shapes, 4672 rows, and the edges
+_BWD256_CASES = [
+    (4, 8, 4, 576, 576, True, 50.0, 0, None, 4096),  # phase 10's launch shape
+    (2, 8, 4, 512, 512, True, 50.0, 0, None, 4096),  # phase 7's
+    (2, 8, 4, 4672, 4672, True, 50.0, 0, None, 4096),  # gemma2's 4608 + 64, the window biting
+    (1, 4, 4, 77, 77, True, 50.0, 0, None, 0),  # G 1, Sq 77
+    (1, 8, 4, 300, 300, True, 0.0, 0, None, 0),  # G 2, Sq 300
+    (1, 16, 4, 130, 130, True, 30.0, 0, None, 0),  # G 4
+    (1, 32, 4, 100, 100, True, 0.0, 0, None, 8),  # G 8, window 8
+    (1, 56, 8, 129, 129, True, 0.0, 0, None, 0),  # G 7
+    (2, 8, 2, 100, 160, False, 0.0, 0, 120, 0),  # kv_len < Sk, not causal
+    (1, 8, 2, 64, 300, True, 0.0, 200, 264, 0),  # q_offset > 0, kv_len < Sk
+    (1, 8, 4, 300, 300, True, 50.0, 0, None, 64),  # window 64
+    (1, 8, 4, 200, 300, False, 0.0, 0, 250, 64),  # window 64, not causal, kv_len < Sk
+    (1, 8, 4, 77, 400, True, 50.0, 223, 300, 100),  # q_offset, window, kv_len < Sk
+]
+#: (route, dtype) pairs the head_dim-256 backward takes: the training
+#: step's bf16 on tensor_core, launch.train's f32 on cuda_core (and f16,
+#: and bf16 when named)
+_BWD256_ROUTES = [("tensor_core", torch.bfloat16), ("cuda_core", torch.float32), ("cuda_core", torch.float16),
+                  ("cuda_core", torch.bfloat16)]
+#: every case on every pair, but 4672 rows only on each route's own type
+_BWD256_PARAMS = [(c, r, t) for c in _BWD256_CASES for r, t in _BWD256_ROUTES if c[3] <= 1024 or r == "tensor_core"
+                  or t == torch.float32]
+
+
+def _dead_keys(case):
+    """The keys no query row sees: past kv_len, before every row's window,
+    after every row's causal edge."""
+    b, hq, hkv, sq, sk, causal, cap, q_offset, kv_len, window = case
+    kv_len = sk if kv_len is None else kv_len
+    keys = torch.arange(sk)[None, :]
+    pos = q_offset + torch.arange(sq)[:, None]
+    live = keys < kv_len
+    if causal:
+        live = live & (keys <= pos)
+    if window > 0:
+        live = live & (keys > pos - window)
+    return ~live.any(0)
+
+
+@pytest.mark.parametrize("case,route,dtype", _BWD256_PARAMS,
+                         ids=["x".join(map(str, c)) + f"-{r}-{str(t).split('.')[-1]}" for c, r, t in _BWD256_PARAMS])
+def test_bwd256_one_launch_equals_plain_backward(dev, case, route, dtype):
+    """The head_dim-256 backward of each route (pre, then the one dkdv_dq
+    launch) on the forward's own output and lse, against
+    attention_backward_plain on the same inputs, within FLASH_TOL of each
+    gradient's max |value|; NaN in K/V past kv_len never read; exactly zero
+    dK and dV for the keys no row sees; the same bits on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, causal, cap, q_offset, kv_len, window = case
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len, window=window)
+    q, k, v = _qkv(dev, sq + hq + window, b, hq, hkv, sq, sk, 256, dtype)
+    kz, vz = k.clone(), v.clone()
+    if kv_len is not None:
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+        kz[:, :, kv_len:] = 0
+        vz[:, :, kv_len:] = 0
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(sq), device=dev).to(dtype)
+    fwd = "tensor_core" if route == "tensor_core" else "f32"
+    out, lse = fa.launch_route(fwd, q, k, v, with_lse=True, **kw)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, route=route, **kw)
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, route, 256)
+    again = fa.launch_backward(q, k, v, out, lse, dout, route=route, **kw)
+    want = fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= _FLASH_TOL[dtype], (name, _rel_err(g, w))
+    dead = _dead_keys(case).to(dev)
+    assert not got[1][:, :, dead].any() and not got[2][:, :, dead].any()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_bwd256_work_list_on_the_card(dev):
+    """The work list a call hands the kernel: made once a shape (cached on
+    the device), laid out as the kernel reads it (offsets, then four ints
+    an item), one block an SM at most."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kw = dict(causal=True, q_offset=0, kv_len=576, window=4096)
+    work, grid = fa._bwd256_work("tensor_core", dev, 4, 8, 4, 576, 576, **kw)
+    assert fa._bwd256_work("tensor_core", dev, 4, 8, 4, 576, 576, **kw)[0] is work
+    blocks = fa.bwd256_order("tensor_core", 4, 8, 4, 576, 576, sms=sms, **kw)
+    flat = work.cpu().tolist()
+    assert grid == len(blocks) == min(sms, sum(map(len, blocks))) and flat[: grid + 1][-1] == sum(map(len, blocks))
+    items = [tuple(flat[grid + 1 + 4 * u : grid + 5 + 4 * u]) for u in range(flat[grid])]
+    assert items == [it[:4] for blk in blocks for it in blk]
+
+
 def test_dbrx_group_of_6_on_the_tensor_core_backward(dev):
     from repro_torch.kernels import flash_attention as fa
 
     case = (4, 48, 8, 576, 576, 128, True, 0.0, 0, None)
     got, launched, want = _backward(fa, case, torch.bfloat16, dev)
-    assert launched == _launched_once(fa, "tensor_core")
+    assert launched == _launched_once(fa, "tensor_core", 128)
     _check_grads(got, want, torch.bfloat16, case)
     again, _, _ = _backward(fa, case, torch.bfloat16, dev)
     assert all(torch.equal(a, g) for a, g in zip(again, got))

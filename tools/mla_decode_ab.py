@@ -33,13 +33,9 @@ one JSON line.
 from __future__ import annotations
 
 import argparse
-import collections
 import hashlib
 import json
 import math
-import os
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -49,24 +45,6 @@ HERE = Path(__file__).resolve().parent.parent
 #: (name, batch, heads, slots, kv_len)
 CASES = [("served", 4, 128, 528, 528), ("long_cache", 4, 128, 8192, 8192)]
 TOL = 2e-5  # of the output's max |value|, as chip_smoke.MLA_DECODE_TOL
-
-
-def sass_counts(so: Path) -> dict:
-    """Each mla kernel's HGMMA and UTMALDG instructions in the library's
-    SASS, counted by their full opcode (shape and types)."""
-    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                                                     "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1) if "mla" in m.group(1) else None
-            continue
-        op = re.search(r"\b(HGMMA\S*|UTMALDG\S*)", line) if fn else None
-        if op:
-            counts.setdefault(fn, collections.Counter())[op.group(1)] += 1
-    return {f: dict(c) for f, c in counts.items()}
 
 
 def main(argv=None) -> int:
@@ -87,7 +65,7 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(HERE))  # chip_smoke's timing helpers
     from torch.profiler import ProfilerActivity
 
-    from chip_smoke import cold_ms, device_ms, memory_rate, mla_decode_bound_ms, ptxas_lines, traced
+    from chip_smoke import cold_ms, device_ms, memory_rate, mla_decode_bound_ms, ptxas_lines, sass_counts, traced
     from repro_torch.kernels import build
     from repro_torch.kernels import mla_decode as md
 
@@ -108,7 +86,7 @@ def main(argv=None) -> int:
                     for ln in ptxas_lines(sec) if ("registers" in ln or "spill" in ln) and "(C75" not in ln)
     digest = hashlib.sha256("\n".join(others).encode()).hexdigest()
     print("ptxas_others", json.dumps(dict(lines=len(others), sha256=digest)), flush=True)
-    print("sass", json.dumps(sass_counts(so)), flush=True)
+    print("sass", json.dumps(sass_counts(so, "mla")), flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(24)
     _, bw = memory_rate(torch.cuda.get_device_name(0))
