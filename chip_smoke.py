@@ -56,7 +56,15 @@ lines, any failure exiting non-zero:
    kernel (4 x 128 heads against 528 of 528 slots, kv_len 1, 65, 300 and
    527 with NaN in the dead slots, B = 1, 16 heads) against their plain
    versions, bit-equal on a rerun, each timed with the L2 cold beside the
-   plain version, the bound and SDPA (its backend named).
+   plain version, the bound and SDPA (its backend named). deepseek-v3
+   trained: the tensor_core backward at (192, 128) (pre, then the one
+   dkdv_dq launch; phase 12's training shape q/k [4,128,576,192], v
+   [4,128,576,128] causal, G 1 and 2, S = 77, kv_len < Sk with NaN past it,
+   q_offset > 0) against the plain backward, bit-equal on a rerun, dV at
+   v's width, timed cold beside its kernels' split, the plain backward, the
+   bound and SDPA's backward; the reduced config's (24, 16) on the f32
+   forward (with the lse) and the cuda_core backward in f32, bf16 and f16
+   against the plain versions, timed at phase 7's shape.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -110,10 +118,11 @@ lines, any failure exiting non-zero:
    for two steps on the card, then with ``--arch gemma2-2b`` (the reduced
    gemma2: window 8, softcaps, tied embeddings), then ``--arch gemma2-2b
    --full-config --batch 2 --seq 512`` (all 26 layers at the published
-   widths, head_dim 256, f32); the losses must be finite (llama3-8b's
-   those of earlier runs, 6.1012 and 6.0542) and every layer of every
-   step must launch the f32 route and the CUDA-core backward, and no
-   tensor-core kernel.
+   widths, head_dim 256, f32), then ``--arch deepseek-v3-671b`` (the
+   reduced deepseek-v3, MLA at q/k 24, v 16, f32); the losses must be
+   finite (llama3-8b's those of earlier runs, 6.1012 and 6.0542) and every
+   layer of every step must launch the f32 route and the CUDA-core
+   backward, and no tensor-core kernel.
 8. The networked deployment on the card: llama3-8b at phase 3's widths
    and depth, bf16. ``python -m repro_torch.net.controller`` (WAL-backed,
    host only), a publisher process (``chip_smoke.py --publisher``, a
@@ -170,7 +179,12 @@ lines, any failure exiting non-zero:
    ``mla_decode`` kernels and nothing on the decode or f32 routes, and is
    held against a replay of its calls with the plain attention and
    ``mla_decode_plain`` that follows the served experts; a profiled
-   decode step's device time by kernel class.
+   decode step's device time by kernel class. Then phase 6's RL loop at 4
+   layers and 16 of its 256 experts (top-8), every width as published
+   (4.54 B parameters): 2 prompts x 2 responses of 512 + 64, one GRPO step
+   on the tensor-core forward and backward at (192, 128) (4 of each a
+   step), publish v1, update, round 1 on ``mla_decode``, under phase 6's
+   gates (the gradients taken 2.5 GB at a time) and a peak under 80 GB.
 
 A ``kernels`` JSON line (launches over phases 3 to 12; flash
    attention's entry carries a ``routes`` field with each route's times,
@@ -1423,13 +1437,16 @@ TRAIN_B, TRAIN_S = 16, 576
 F32_TFLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
-def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float, window: int = 0):
-    """The larger of the FLOP time (five products of 2 D flops a live pair
-    a query head: S, dP, dV, dK, dQ) and the byte time (q, o, dO, dQ, k,
-    v, dK, dV once each and the lse)."""
+def bwd_bound_ms(q, k, kv_len: int, causal: bool, q_offset: int, bw: float, peak: float, window: int = 0, v=None):
+    """The larger of the FLOP time (five products a live pair a query head:
+    S, dQ and dK of 2 D flops, dP and dV of 2 Dv, D q/k's width and Dv v's,
+    k's unless ``v`` is given) and the byte time (q, dQ, k, dK, v, dV, o,
+    dO once each and the lse)."""
     b, hq, sq, d = q.shape
-    flops = 5 * 2 * d * b * hq * live_pairs(sq, kv_len, causal, q_offset, window)
-    nbytes = 4 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size() + 4 * b * hq * sq
+    v = k if v is None else v
+    dv, es = v.shape[3], q.element_size()
+    flops = 2 * (3 * d + 2 * dv) * b * hq * live_pairs(sq, kv_len, causal, q_offset, window)
+    nbytes = 2 * es * (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) + 4 * b * hq * sq
     t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
@@ -1571,7 +1588,7 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        e = bwd_route + ("_256" if d == fa.BWD_ONE_LAUNCH_DIM else "")
+        e = bwd_route + ("_256" if "dkdv_dq" in fa.bwd_kernels(d) else "")
         worst[e] = max(worst[e], max(errs.values()) / tol)
         worst_abs[e] = max(worst_abs[e], max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)))
         emit("flash_bwd_check", case=label, forward_route=route, backward_route=bwd_route, rel_err=errs, tol=tol,
@@ -1686,7 +1703,8 @@ def flash_backward_checks(torch, dev, bw: float) -> dict:
         entries[f"flash_attention_bwd/{r}_256"] = dict(
             name=f"flash_attention_bwd/{r}_256", route="cuda", source=csrc + source,
             replaces="src/repro/kernels/flash_attention/kernel.py:96",
-            replaces_note="the backward of row 5's kernel at head_dim 256 (gemma2): pre, then one persistent "
+            replaces_note="the backward of row 5's kernel at head_dim 256 (gemma2), and on tensor_core at (q/k, v) "
+                          "(192, 128) (deepseek-v3's MLA; its record is mla_192_128): pre, then one persistent "
                           "launch of the dK/dV and dQ items (dkdv_dq)",
             max_abs_err=worst_abs[r + "_256"], err_over_tol=worst[r + "_256"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
@@ -1970,15 +1988,16 @@ MLA_DECODE_TIMED = {(4, 128, 528, 528, False): "served", (4, 128, 8192, 8192, Fa
 MLA_DECODE_TOL = 2e-5  # f32, of the output's max |value|: the kernel and the reference are f32 throughout
 
 
-def mla_bound_ms(b, hq, hkv, sq, kv_len, causal, q_offset, bw):
-    """The (192, 128) forward's bound: the larger of 2 (192 + 128) flops a
-    live (query, key) pair a head at the bf16 peak, and the bytes of q and
-    o once and the live keys of k and v once at the memory rate."""
+def mla_bound_ms(b, hq, hkv, sq, kv_len, causal, q_offset, bw, *, d=MLA_QK, dv=MLA_V, peak=BF16_TFLOPS, esize=2):
+    """The (d, dv) forward's bound, (192, 128) in bf16 unless given: the
+    larger of 2 (d + dv) flops a live (query, key) pair a head at ``peak``,
+    and the bytes (``esize`` an element) of q and o once and the live keys
+    of k and v once at the memory rate."""
     pairs = live_pairs(sq, kv_len, causal, q_offset)
-    flops = 2 * b * hq * pairs * (MLA_QK + MLA_V)
+    flops = 2 * b * hq * pairs * (d + dv)
     keys = live_keys(sq, kv_len, causal, q_offset)
-    nbytes = 2 * (b * hq * sq * (MLA_QK + MLA_V) + b * hkv * keys * (MLA_QK + MLA_V))
-    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, nbytes / bw * 1e3
+    nbytes = esize * (b * hq * sq * (d + dv) + b * hkv * keys * (d + dv))
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
 
@@ -2128,6 +2147,181 @@ def mla_attention_checks(torch, dev, bw: float) -> dict:
                  bound_by=served["bound_by"], library_ms=served["library_ms"], library=served["library"],
                  timed_shape=served["shape"], long_cache=decode["long_cache"], counter=md.LAUNCHES)
     return {"mla_prefill": prefill, "mla_decode": entry}
+
+
+#: the (192, 128) tensor-core backward's cases: phase 12's training shape
+#: (2 prompts x 2 responses of 512 + 64, 128 heads of their own K/V) first,
+#: then G 1 and 2 off the 64-row tiles, kv_len < Sk with NaN past it, a
+#: q_offset
+MLA_BWD_SHAPES = [
+    (4, 128, 128, 576, 576, dict(causal=True)),
+    (2, 16, 16, 77, 77, dict(causal=True)),
+    (2, 16, 8, 130, 130, dict(causal=True)),
+    (2, 16, 16, 256, 400, dict(causal=False, kv_len=300, nan=True)),
+    (1, 16, 8, 64, 600, dict(causal=True, q_offset=500, kv_len=564, nan=True)),
+]
+#: the reduced deepseek-v3's (q/k, v) = (16 + 8, 16) on the CUDA-core
+#: routes: phase 7's shape (launch.train's 8 x 64, 4 heads) first, then Sq
+#: off the tiles, G 4, kv_len < Sk with NaN past it, a q_offset
+MLA_NARROW_QK, MLA_NARROW_V = 24, 16
+MLA_NARROW_SHAPES = [
+    (8, 4, 4, 64, 64, dict(causal=True)),
+    (2, 4, 4, 77, 77, dict(causal=True)),
+    (1, 8, 2, 130, 130, dict(causal=True)),
+    (2, 4, 4, 100, 200, dict(causal=False, kv_len=150, nan=True)),
+    (1, 8, 2, 64, 300, dict(causal=True, q_offset=200, kv_len=264, nan=True)),
+]
+
+
+def mla_training_checks(torch, dev, bw: float) -> dict:
+    """deepseek-v3's attention gradients on their kernels, each case twice
+    for bit-equal reruns: the tensor_core backward at (192, 128) in bf16
+    (``MLA_BWD_SHAPES``, pre and the one dkdv_dq launch, dV at v's width)
+    against ``attention_backward_plain`` on the forward's own output and
+    lse, within the bf16 tolerance of each gradient's max |value|, timed
+    with the L2 cold at phase 12's training shape beside its kernels' split,
+    the plain backward, the bound and SDPA's backward (its backend named);
+    and the reduced config's (24, 16) (``MLA_NARROW_SHAPES``) in f32, bf16
+    and f16 on the f32 forward (with the lse) and the cuda_core backward
+    against the plain versions, timed at phase 7's shape in f32 beside the
+    plain versions, the bounds at the f32 peak and SDPA."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 130)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    def inputs(b, hq, hkv, sq, sk, d, dv, dtype, kw):
+        q, k, v = rand((b, hq, sq, d), dtype), rand((b, hkv, sk, d), dtype), rand((b, hkv, sk, dv), dtype)
+        kz, vz = k, v
+        if kw.pop("nan", False):
+            q, k, v, kz, vz = nan_tail((q, k, v), kw["kv_len"])
+        return q, k, v, rand((b, hq, sq, dv), dtype), kz, vz
+
+    def backward(route, label, q, k, v, out, lse, dout, kw):
+        """The call's gradients (its route's kernels launched once each) and
+        a rerun's."""
+        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+        got = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+        want = {f"{route}/{n}": 1 for n in fa.bwd_kernels(q.shape[3], v.shape[3])}
+        check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {n: want.get(n, 0) for n in before},
+              f"{route} backward kernels not launched on {label}")
+        return got, fa.launch_backward(q, k, v, out, lse, dout, **kw)
+
+    def held(label, route, got, again, want, q, k, v, tol):
+        errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        shapes = [list(t.shape) for t in got] == [list(t.shape) for t in (q, k, v)]
+        emit("flash_bwd_check", case=label, backward_route=route, rel_err=errs, tol=tol, finite=finite,
+             bit_equal_rerun=same, dv_shape=list(got[2].shape))
+        check(finite and shapes and max(errs.values()) <= tol, f"backward kernels != plain backward on {label}")
+        check(same, f"two runs of the {route} backward differ on {label}")
+        return max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)), max(errs.values()) / tol
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    tol = FLASH_TOL["bfloat16"]
+    worst, timed = (0.0, 0.0), None
+    for b, hq, hkv, sq, sk, kw in MLA_BWD_SHAPES:
+        kw = dict(kw)
+        q, k, v, dout, kz, vz = inputs(b, hq, hkv, sq, sk, MLA_QK, MLA_V, torch.bfloat16, kw)
+        label = f"mla tensor_core backward [{b},{hq}/{hkv},{sq}x{sk}] q/k 192 v 128 {kw}"
+        check(fa._bwd_route(q, v) == "tensor_core", f"{label} routed to {fa._bwd_route(q, v)}")
+        out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+        got, again = backward("tensor_core", label, q, k, v, out, lse, dout, kw)
+        want = fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw)
+        err = held(label, "tensor_core", got, again, want, q, k, v, tol)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        del got, again, want
+        if timed is None:  # phase 12's training shape
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+            def sdpa_grads():
+                return torch.autograd.grad(F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dout)
+
+            backend = sdpa_backend(torch, sdpa_grads)
+            with sdpa_kernel([backend]):
+                sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            calls = {"kernel": lambda: fa.launch_backward(q, k, v, out, lse, dout, **kw),
+                     "plain": lambda: fa.attention_backward_plain(q, k, v, out, lse, dout, **kw),
+                     "sdpa": lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)}
+            cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+            warm = device_ms(torch, calls["kernel"])
+            split = kernel_split_ms(torch, calls["kernel"], flush)
+            bound, by, flops, nbytes = bwd_bound_ms(q, k, sk, True, 0, bw, BF16_TFLOPS, v=v)
+            timed = dict(route="tensor_core", shape=f"q/k [{b},{hq},{sq},192], v [{b},{hkv},{sk},128] bf16 causal",
+                         ms=cold["kernel"], warm_device_ms=warm, kernels_ms=split, plain_ms=cold["plain"],
+                         library_ms=cold["sdpa"], library=f"scaled_dot_product_attention backward ({backend.name})",
+                         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                         achieved_TFLOPs=flops / (cold["kernel"] * 1e-3) / 1e12,
+                         sdpa_rel_diff=max(grad_err(torch, a, w) for a, w in zip(calls["kernel"](), calls["sdpa"]())))
+            emit("flash_mla_bwd_times", **timed)
+            del leaves, sdpa_out, calls
+        del q, k, v, dout, kz, vz, out, lse
+        torch.cuda.empty_cache()
+    timed.update(max_abs_err=worst[0], err_over_tol=worst[1])
+
+    # (24, 16) on the CUDA-core routes
+    fwd_worst, bwd_worst, narrow = (0.0, 0.0), (0.0, 0.0), {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        for b, hq, hkv, sq, sk, kw in MLA_NARROW_SHAPES:
+            kw = dict(kw)
+            q, k, v, dout, kz, vz = inputs(b, hq, hkv, sq, sk, MLA_NARROW_QK, MLA_NARROW_V, dtype, kw)
+            label = f"mla (24, 16) [{b},{hq}/{hkv},{sq}x{sk}] {kw} {name}"
+            check(fa._route(q, k, grad=True, v=v) == "f32" and fa._bwd_route(q, v) == "cuda_core",
+                  f"{label}: routes {fa._route(q, k, grad=True, v=v)}, {fa._bwd_route(q, v)}")
+            before = fa.ROUTE_LAUNCHES["f32"].value
+            out, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+            same = bool(torch.equal(out, fa.launch_route("f32", q, k, v, **kw)))
+            check(fa.ROUTE_LAUNCHES["f32"].value == before + 2, f"f32 route not launched on {label}")
+            want = fa.attention_plain(q, kz, vz, **kw).float()
+            diff = (out.float() - want).abs()
+            ratio = float((diff / (tol + tol * want.abs())).max())
+            lse_want = fa.attention_lse_plain(q, kz, **kw)
+            lse_ratio = float(((lse - lse_want).abs() / (2e-5 + 2e-5 * lse_want.abs())).max())
+            fwd_worst = (max(fwd_worst[0], float(diff.max())), max(fwd_worst[1], ratio, lse_ratio))
+            emit("flash_check", case=label, route="f32", max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio,
+                 lse_err_over_tol=lse_ratio, bit_equal_rerun=same)
+            check(ratio <= 1.0 and lse_ratio <= 1.0 and same and bool(torch.isfinite(out).all()),
+                  f"f32 route != plain version on {label}, or two runs differ")
+            got, again = backward("cuda_core", label, q, k, v, out, lse, dout, kw)
+            err = held(label, "cuda_core", got, again, fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw),
+                       q, k, v, tol)
+            bwd_worst = (max(bwd_worst[0], err[0]), max(bwd_worst[1], err[1]))
+            if dtype == torch.float32 and not narrow:  # phase 7's shape: timed
+                sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                calls = {"forward": lambda: fa.launch_route("f32", q, k, v, with_lse=True, **kw),
+                         "forward_plain": lambda: fa.attention_plain(q, k, v, **kw), "forward_sdpa": sdpa_fwd,
+                         "backward": lambda: fa.launch_backward(q, k, v, out, lse, dout, **kw),
+                         "backward_plain": lambda: fa.attention_backward_plain(q, k, v, out, lse, dout, **kw),
+                         "backward_sdpa": lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)}
+                cold = {n: cold_ms(torch, f, flush) for n, f in calls.items()}
+                warm = {n: device_ms(torch, calls[n]) for n in ("forward", "backward")}
+                fb = mla_bound_ms(b, hq, hkv, sq, sk, True, 0, bw, d=MLA_NARROW_QK, dv=MLA_NARROW_V, peak=F32_TFLOPS,
+                                  esize=4)
+                bb = bwd_bound_ms(q, k, sk, True, 0, bw, F32_TFLOPS, v=v)
+                shape = f"q/k [{b},{hq},{sq},24], v [{b},{hkv},{sk},16] f32 causal"
+                for part, bound in (("forward", fb), ("backward", bb)):
+                    narrow[part] = dict(shape=shape + (", with the lse" if part == "forward" else ""),
+                                        ms=cold[part], warm_device_ms=warm[part], plain_ms=cold[f"{part}_plain"],
+                                        library_ms=cold[f"{part}_sdpa"], library=f"scaled_dot_product_attention {part}",
+                                        bound_ms=bound[0], bound_by=bound[1], flops=bound[2], bytes=bound[3])
+                    emit("flash_mla_narrow_times", part=part, **narrow[part])
+                del leaves, sdpa_out, calls
+            del q, k, v, dout, kz, vz, out, lse, got, again
+    del flush
+    torch.cuda.empty_cache()
+    narrow["forward"].update(max_abs_err=fwd_worst[0], err_over_tol=fwd_worst[1])
+    narrow["backward"].update(max_abs_err=bwd_worst[0], err_over_tol=bwd_worst[1])
+    return {"mla_backward": timed, "narrow_forward": narrow["forward"], "narrow_backward": narrow["backward"]}
 
 
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
@@ -2657,6 +2851,17 @@ GRAD_TOL_PLAIN = 5e-2
 GRAD_TOL_BWD = 2e-2
 
 
+def attention_widths(cfg) -> tuple:
+    """(q/k, v) head_dims of a config's flash attention calls: MLA's
+    expanded form's (qk_nope + qk_rope, v_head_dim), else the head_dim
+    twice (``cfg.resolved_head_dim`` is d_model / heads for MLA, not the
+    attention's width)."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def grads_in_parts(torch, loss_fn, params, batch, budget):
     """``value_and_grad`` of ``loss_fn`` for a part of the tensors at a
     time, in registration order: yields ``(gradients of the part,
@@ -2700,7 +2905,11 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     reference step runs after the step, on the rollout's v0 replica, bit
     for bit the trainer's v0. A MoE model's served rounds are held against
     replays of their calls (``check_moe_round``); ``delta_base`` is the
-    hub's. Returns the kernels' launches on that path."""
+    hub's. An MLA model (deepseek-v3) serves its decode steps on the
+    ``mla_decode`` kernel (none on the decode route) and steps on the
+    tensor-core forward and backward at (192, 128); its references decode
+    with ``mla_decode_plain``. Returns the kernels' launches on that
+    path."""
     import numpy as np
 
     from repro_torch.configs.llama3_8b import CONFIG
@@ -2708,6 +2917,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     from repro_torch.data.synthetic import PromptSet
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
+    from repro_torch.kernels.mla_decode import LAUNCHES as LATENT_LAUNCHES
+    from repro_torch.kernels.mla_decode import mla_decode_plain
     from repro_torch.models import build_model
     from repro_torch.models.lm import _layer_windows
     from repro_torch.models.params import init_params
@@ -2720,7 +2931,9 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
                   group_size=group_size, seed=SEED + 50)
     bwd = {f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}
     routes = {f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()}
-    every = {**counters, **bwd, **routes}
+    every = {**counters, **bwd, **routes, "mla_decode": LATENT_LAUNCHES}
+    widths = attention_widths(cfg)
+    decode_steps = cfg.num_layers * GEN_LEN  # on the mla_decode kernel for MLA, else on the decode route
     torch.cuda.reset_peak_memory_stats(dev)
     for c in every.values():
         c.reset()
@@ -2749,7 +2962,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
          trainer_init_and_publish_seconds=init_s, publish_v0_seconds=publish0_s)
     worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), queue,
                            threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
-    reference = build_model(cfg, attention=attention_plain)
+    reference = build_model(cfg, attention=attention_plain, latent_attention=mla_decode_plain)
 
     def replica_equals_trainer(when):
         for n, w in trainer.params.items():
@@ -2762,8 +2975,10 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     with routes_of(cfg) as served0:
         rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round0 = {k: v - before[k] for k, v in counts().items()}
-    check(round0["flash_route_tensor_core"] == cfg.num_layers and round0["flash_route_decode"] == cfg.num_layers * GEN_LEN
-          and round0["flash_route_f32"] == 0, f"{label} round 0 flash launches {round0}")
+    mla = cfg.mla is not None
+    want0 = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0 if mla else decode_steps,
+             "flash_route_f32": 0, "mla_decode": decode_steps if mla else 0}
+    check({k: round0[k] for k in want0} == want0, f"{label} round 0 launches {round0}, want {want0}")
     mid = counts()
     check0 = check_round(torch, cfg, reference, trainer.params, rec0, 0, served0, tag="rl_serve_check")
     check(mid == counts(), "the checks launched a kernel")
@@ -2810,7 +3025,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         fa.launch_route, fa.launch_backward = wrappers
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
     step_launches = {k: v - before[k] for k, v in counts().items()}
-    launched = {f"tensor_core/{n}" for n in fa.bwd_kernels(cfg.resolved_head_dim)}
+    launched = {f"tensor_core/{n}" for n in fa.bwd_kernels(*widths)}
     want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
             **{f"flash_attention_bwd_{n}": cfg.num_layers * (n in launched) for n in BWD_LAUNCHES}}
     check({k: step_launches[k] for k in want} == want, f"{label} GRPO step launches {step_launches}, want {want}")
@@ -2844,7 +3059,9 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     torch.cuda.synchronize(dev)
     ref_s = time.perf_counter() - t0
     check(mid == counts(), "the reference step launched a flash kernel")
-    for name in ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"):
+    attn = (("layers/attn/wq_b", "layers/attn/wkv_a", "layers/attn/wkv_b_k", "layers/attn/wkv_b_v", "layers/attn/ln")
+            if mla else ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"))
+    for name in attn:
         check(grad_max[name] > 0, f"{label} {name}: no gradient through the flash attention")
     loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
     adv_max = float(batch["advantages"].abs().max())
@@ -2881,11 +3098,12 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check(rec1["version"] == 1 and round1 == round0, f"{label} round 1 launches {round1}, round 0 {round0}")
     launches = counts()  # the main path's launches, read now
     peak = torch.cuda.max_memory_allocated(dev)
+    check(peak < 80e9, f"{label}: peak {peak} bytes")
     check1 = check_round(torch, cfg, reference, trainer.params, rec1, 1, served1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
-    for k in ("checksum", "flash_attention",
-              *(f"flash_attention_bwd_tensor_core/{n}" for n in fa.bwd_kernels(cfg.resolved_head_dim))):
+    for k in ("checksum", "flash_attention", *(("mla_decode",) if mla else ()),
+              *(f"flash_attention_bwd_tensor_core/{n}" for n in fa.bwd_kernels(*widths))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
     queue.clear()
@@ -2897,7 +3115,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     class KernelForwardPlainBackward(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, kw):
-            out, lse = fa.launch_route(fa._route(q, k, grad=True), q, k, v, with_lse=True, **kw)
+            out, lse = fa.launch_route(fa._route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.kw = kw
             return out
@@ -3000,11 +3218,14 @@ def train_entry_point(torch, counters) -> dict:
     ``--arch gemma2-2b`` (the reduced gemma2: head_dim 16, window 8,
     softcaps 50 and 30, tied embeddings, f32), then with ``--arch gemma2-2b
     --full-config`` (all 26 layers at the published widths, head_dim 256,
-    window 4096, f32; 2 x 512 tokens): the losses must be finite
-    (llama3-8b's those of earlier runs), and the f32 route's forward and the
-    cuda_core backward must run every layer of every step (at head_dim 256
-    for the full gemma2), the tensor-core kernels none. Returns the
-    kernels' launches on that path."""
+    window 4096, f32; 2 x 512 tokens), then with ``--arch deepseek-v3-671b``
+    (the reduced deepseek-v3: MLA attention at q/k 16 + 8, v 16, 1 dense
+    and 3 MoE layers, f32): the losses must be finite (llama3-8b's those of
+    earlier runs), and the f32 route's forward and the cuda_core backward
+    must run every layer of every step (at head_dim 256 for the full gemma2,
+    at (24, 16) for deepseek-v3; each record names the attention's (q/k, v)
+    widths), the tensor-core kernels none. Returns the kernels' launches on
+    that path."""
     import contextlib
     import io
     import re
@@ -3020,10 +3241,10 @@ def train_entry_point(torch, counters) -> dict:
         c.reset()
     runs = {}
     for arch, extra in (("llama3-8b", []), ("gemma2-2b", ["--arch", "gemma2-2b"]),
-                        ("gemma2-2b full", GEMMA2_FULL_ARGV)):
+                        ("gemma2-2b full", GEMMA2_FULL_ARGV), ("deepseek-v3-671b", ["--arch", "deepseek-v3-671b"])):
         argv = ["--steps", str(steps)] + extra
         cfg = get_config("gemma2-2b") if "--full-config" in extra else get_config(arch).reduced()
-        layers = cfg.num_layers
+        layers, widths = cfg.num_layers, attention_widths(cfg)
         torch.cuda.reset_peak_memory_stats()
         before = {k: c.value for k, c in every.items()}
         buf = io.StringIO()
@@ -3034,14 +3255,14 @@ def train_entry_point(torch, counters) -> dict:
         seconds = time.perf_counter() - t0
         run = {k: c.value - before[k] for k, c in every.items()}  # this run's launches, read now
         losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
-        emit("train_entry_point", argv=argv, layers=layers, head_dim=cfg.resolved_head_dim, losses=losses,
+        emit("train_entry_point", argv=argv, layers=layers, attention_qk_v=list(widths), losses=losses,
              seconds=seconds, launches=run, max_memory_allocated=torch.cuda.max_memory_allocated())
         gc.collect()
         torch.cuda.empty_cache()
         check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{arch}: train entry point losses {losses}")
         if arch == "llama3-8b":
             check(losses == TRAIN_ENTRY_LOSSES, f"llama3-8b losses {losses}, before {TRAIN_ENTRY_LOSSES}")
-        launched = {f"cuda_core/{n}" for n in bwd_kernels(cfg.resolved_head_dim)}
+        launched = {f"cuda_core/{n}" for n in bwd_kernels(*widths)}
         want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
                 **{f"flash_attention_bwd_{n}": steps * layers * (n in launched) for n in BWD_LAUNCHES}}
         check({k: run[k] for k in want} == want, f"{arch}: train entry point launches {run}, want {want}")
@@ -3637,6 +3858,13 @@ def moe_arch(torch, dev, counters, smi: str) -> dict:
 #: 60.4 GB of the 80); widths as published
 DS_SERVE_LAYERS = 4
 DS_B, DS_PROMPT, DS_GEN = 4, 512, 16
+#: its training cut: the 3 dense prefix layers and 1 MoE layer (fewer makes
+#: ``param_count`` negative), 16 of its 256 routed experts (top-8 kept),
+#: every width as published: 4.54 B parameters, the trainer's bf16 weights
+#: and gradients and f32 AdamW moments 54.5 GB beside the rollout's 9.1 GB
+#: replica, dbrx's budget at 1 layer (phase 11)
+DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS = 4, 16
+DS_RL_PROMPTS, DS_RL_GROUP = 2, 2
 
 
 def mla_arch(torch, dev, counters, smi: str) -> dict:
@@ -3650,8 +3878,13 @@ def mla_arch(torch, dev, counters, smi: str) -> dict:
     ``mla_decode`` kernels and nothing on the decode or f32 routes, held
     against a replay of its calls with ``attention_plain`` and
     ``mla_decode_plain`` that follows the served experts. Then a profiled
-    decode step's device time by kernel class. Returns the kernels'
-    launches."""
+    decode step's device time by kernel class. Then the training half, as
+    phase 11's: ``rl_loop`` at ``DS_TRAIN_LAYERS`` layers and
+    ``DS_TRAIN_EXPERTS`` experts (2 prompts x 2 responses of 512 + 64; one
+    GRPO step on the tensor-core forward and backward at (192, 128), publish
+    v1, update, serve round 1 on ``mla_decode``), its gradient gates taken
+    ``DBRX_GRAD_BUDGET`` bytes at a time. Returns the kernels' launches on
+    both paths."""
     from repro_torch.configs import get_config
 
     cfg = get_config("deepseek-v3-671b")
@@ -3695,7 +3928,19 @@ def mla_arch(torch, dev, counters, smi: str) -> dict:
     del res, worker, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return served
+    train_cfg = dataclasses.replace(cfg, num_layers=DS_TRAIN_LAYERS,
+                                    moe=dataclasses.replace(mo, num_experts=DS_TRAIN_EXPERTS))
+    print(f"phase 12: {cfg.name} trained at {DS_TRAIN_LAYERS} layers and {DS_TRAIN_EXPERTS} of its "
+          f"{mo.num_experts} experts (top-{mo.top_k}), widths as published", flush=True)
+    trained = rl_loop(torch, dev, counters, smi, cfg=train_cfg, num_prompts=DS_RL_PROMPTS, group_size=DS_RL_GROUP,
+                      grad_budget=DBRX_GRAD_BUDGET, delta_base=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {k: served.get(k, 0) + trained[k] for k in counters}
+    out["flash_attention_routes"] = {r: served["flash_attention_routes"][r] + c
+                                     for r, c in trained["flash_attention_routes"].items()}
+    out["flash_attention_bwd_by_kernel"] = trained["flash_attention_bwd_by_kernel"]
+    return out
 
 
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
@@ -3853,7 +4098,14 @@ def main() -> int:
     mla = mla_attention_checks(torch, dev, bw)
     fwd["routes"]["tensor_core"]["mla_prefill"] = mla["mla_prefill"]
     kernels["mla_decode"] = mla["mla_decode"]
-    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"])), (bwd_tc, (dbrx["backward"],))):
+    trained = mla_training_checks(torch, dev, bw)
+    bwd_tc256, bwd_cc = kernels["flash_attention_bwd/tensor_core_256"], kernels["flash_attention_bwd/cuda_core"]
+    bwd_tc256["mla_192_128"] = trained["mla_backward"]
+    fwd["routes"]["f32"]["mla_24_16"] = trained["narrow_forward"]
+    bwd_cc["mla_24_16"] = trained["narrow_backward"]
+    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"])),
+                         (bwd_tc, (dbrx["backward"],)), (bwd_tc256, (trained["mla_backward"],)),
+                         (bwd_cc, (trained["narrow_backward"],))):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
         entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
     for kernel, rec in big_tensor_checks(torch, dev, bw).items():
@@ -3921,7 +4173,7 @@ def main() -> int:
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12)  # the paths with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    training_phases = (phase6, phase7, phase10, phase11)  # the paths with the backward
+    training_phases = (phase6, phase7, phase10, phase11, phase12)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():

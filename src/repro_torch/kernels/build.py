@@ -50,9 +50,9 @@ SIGNATURES = {
     # (descriptors int64[P,8], P, out, blocks_x, blocks_y, stream)
     "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv,
-    #  Sq, D, causal, softcap, q_offset, kv_len, window (0: none),
-    #  lse f32[B,Hq,Sq] or null, stream)
-    "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+    #  Sq, D, Dv, causal, softcap, q_offset, kv_len, window (0: none),
+    #  lse f32[B,Hq,Sq] or null, stream); Dv = D, or (D, Dv) = (24, 16)
+    "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                            _F32, _INT, _INT, _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, Dv,
     #  causal, softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null,
@@ -70,22 +70,24 @@ SIGNATURES = {
                         _INT, _INT, _INT, _P, _P, _P),
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hkv*nsub2*128, strides int64[24] on the host, dtype code, B, Hq, Hkv,
-    #  Sq, Sk, D, causal, softcap, q_offset, kv_len, window, stream); the
+    #  Sq, Sk, D, Dv, causal, softcap, q_offset, kv_len, window, stream); the
     #  three CUDA-core backward kernels take the same
     **{f"th_flash_bwd_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
+                             _INT, _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
-    #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, causal,
-    #  softcap, q_offset, kv_len, window (0: none), stream); bf16, D in
-    #  {64, 128, 256}; the three tensor-core backward kernels take the same
+    #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, Dv,
+    #  causal, softcap, q_offset, kv_len, window (0: none), stream); bf16, (D,
+    #  Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}; the three
+    #  tensor-core backward kernels take the same
     **{f"th_flash_bwd_tc_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
-    # head_dim 256, one launch of dK/dV and dQ: each route's arguments with
-    # the work list (int32 on the device) and the grid before the stream
+                                _INT, _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},
+    # one launch of dK/dV and dQ (head_dim 256; the tensor cores' (192,
+    # 128)): each route's arguments with the work list (int32 on the
+    # device) and the grid before the stream
     "th_flash_bwd_dkdv_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
+                             _INT, _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
     "th_flash_bwd_tc_dkdv_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
+                                _INT, _INT, _F32, _INT, _INT, _INT, _P, _INT, _P),
 }
 
 

@@ -78,6 +78,19 @@
 // For the backward (flash_attention_bwd.cu) the kernel also writes each
 // row's log-sum-exp, m + log(max(l, 1e-30)) in f32, to lse [B, Hq, Sq]
 // when the pointer is not null (the serving path passes null).
+//
+// q/k and v of other widths: the reduced deepseek-v3's MLA attention has
+// q/k of 24 (16 + 8 rope) and v of 16, which the 8 x 8 micro-tiles (half of
+// D a block half, RowCols) do not split. That pair runs on the head_dim-32
+// tiles (template DK, DV: the true widths, D the tiles'): Q and K rows are
+// copied at 24 columns and V rows at 16, the tiles' columns past them
+// zero-filled by the copies (src-size 0; nothing past a row's true width
+// is read), so each score is the 24-term dot plus exact zeros, in the same
+// order; the scale is 1 / sqrt(24) from the host's width, never the tiles';
+// and the output is stored at its 16 columns only (RowCols<32> gives a
+// thread 2 adjacent columns, so the clip takes whole pairs), so a strided
+// view's neighbouring columns are never written. Every other instance has
+// DK = DV = D and compiles as before.
 
 #include <cmath>
 #include <cstdint>
@@ -113,7 +126,7 @@ constexpr size_t smem_bytes() {
 // window's compare nor its first tile, so a call without a window runs
 // the code it ran before the window came (the mask loop sits at 254-255
 // registers at head_dim 128 in f32, where one more live value costs time)
-template <typename T, int D, int NSUB, int BK, bool W>
+template <typename T, int D, int NSUB, int BK, bool W, int DK = D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   constexpr int BQ = kSub * NSUB;
   constexpr int RA = BQ / 16;  // rows a thread: hx + 16a in the scores, slots RA ty + a in P V
@@ -150,14 +163,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
   const int ntiles = (kv_end + BK - 1) / BK - t0;
 
-  copy_tile<T, D, BQ, kThreads>(qs, [&](int r) -> const T* {
+  copy_tile<T, D, BQ, kThreads, DK>(qs, [&](int r) -> const T* {
     int g, i;
     if (!packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i)) return nullptr;
     return qg + g * p.qs[1] + i * p.qs[2];
   }, qg);
   auto copy_kv = [&](int t, int stage) {
-    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
-    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads, DK>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads, DV>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
   };
   copy_kv(t0, 0);
   cp_async_commit();
@@ -299,6 +312,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     T* orow = og + b * p.os[0] + hh * p.os[1] + i * p.os[2];
 #pragma unroll
     for (int gc = 0; gc < C::kGroups; ++gc) {
+      static_assert(DV % C::kW == 0, "the clip takes a thread's groups whole");
+      if (DV < D && C::col(gc, cx) >= DV) continue;
       float x[C::kW];
 #pragma unroll
       for (int e = 0; e < C::kW; ++e) x[e] = acc[a][gc * C::kW + e] / den;
@@ -307,11 +322,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, int NSUB, int BK>
+template <typename T, int D, int NSUB, int BK, int DK = D, int DV = D>
 int launch(Params p, int nsub, int bkv, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, D, NSUB, BK>();
   static_assert(bytes <= 232448, "a block's shared memory on sm_90");
-  const auto kernel = p.window < (1 << 30) ? flash_kernel<T, D, NSUB, BK, true> : flash_kernel<T, D, NSUB, BK, false>;
+  const auto kernel = p.window < (1 << 30) ? flash_kernel<T, D, NSUB, BK, true, DK, DV>
+                                           : flash_kernel<T, D, NSUB, BK, false, DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   p.ntiles = (nsub + NSUB - 1) / NSUB;
@@ -320,18 +336,22 @@ int launch(Params p, int nsub, int bkv, cudaStream_t stream) {
 }
 
 // the tile plan a head_dim: BQ 128 rows (64 for a call of one sub-tile)
-// and BK 64 keys up to head_dim 128, BQ 64 and BK 32 at 256
-template <typename T, int D>
+// and BK 64 keys up to head_dim 128, BQ 64 and BK 32 at 256; DK and DV the
+// true widths where they are narrower than the tiles' D
+template <typename T, int D, int DK = D, int DV = D>
 int plan(const Params& p, int nsub, int bkv, cudaStream_t stream) {
   if constexpr (D == 256) {
     return launch<T, D, 1, 32>(p, nsub, bkv, stream);
   } else {
-    return nsub == 1 ? launch<T, D, 1, 64>(p, nsub, bkv, stream) : launch<T, D, 2, 64>(p, nsub, bkv, stream);
+    return nsub == 1 ? launch<T, D, 1, 64, DK, DV>(p, nsub, bkv, stream)
+                     : launch<T, D, 2, 64, DK, DV>(p, nsub, bkv, stream);
   }
 }
 
 template <typename T>
-int dispatch(const Params& p, int d, int nsub, int bkv, cudaStream_t stream) {
+int dispatch(const Params& p, int d, int dv, int nsub, int bkv, cudaStream_t stream) {
+  if (d == 24 && dv == 16) return plan<T, 32, 24, 16>(p, nsub, bkv, stream);  // the reduced deepseek-v3's MLA
+  if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return plan<T, 16>(p, nsub, bkv, stream);
     case 32: return plan<T, 32>(p, nsub, bkv, stream);
@@ -344,15 +364,16 @@ int dispatch(const Params& p, int d, int nsub, int bkv, cudaStream_t stream) {
 
 }  // namespace
 
-// q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each given by
-// its pointer and its (batch, head, sequence) element strides in
-// `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
-// 1 = bfloat16, 2 = float16; D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64;
+// q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv, Sk, Dv], o [B, Hq, Sq, Dv],
+// each given by its pointer and its (batch, head, sequence) element strides
+// in `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
+// 1 = bfloat16, 2 = float16; D in {16, 32, 64, 128, 256} with Dv = D, or
+// (D, Dv) = (24, 16); Hq / Hkv <= 64;
 // 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none;
 // lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError() after the launch.
 extern "C" int th_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int dtype, int batch, int hq,
-                                  int hkv, int sq, int d, int causal, float softcap,
+                                  int hkv, int sq, int d, int dv, int causal, float softcap,
                                   int q_offset, int kv_len, int window, float* lse, void* stream) {
   Params p;
   p.q = q;
@@ -382,9 +403,9 @@ extern "C" int th_flash_attention(const void* q, const void* k, const void* v, v
   const int bkv = batch * hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch<float>(p, d, nsub, bkv, s);
-    case 1: return dispatch<__nv_bfloat16>(p, d, nsub, bkv, s);
-    case 2: return dispatch<__half>(p, d, nsub, bkv, s);
+    case 0: return dispatch<float>(p, d, dv, nsub, bkv, s);
+    case 1: return dispatch<__nv_bfloat16>(p, d, dv, nsub, bkv, s);
+    case 2: return dispatch<__half>(p, d, dv, nsub, bkv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -85,6 +85,21 @@
 // Head_dim 256 (gemma2) has a kernel of its own, one launch of its dK/dV
 // and dQ items after pre, on the same sub-tile geometry (section 4 below).
 //
+// q/k 24 and v 16 (the reduced deepseek-v3's MLA attention, whose widths
+// the 8 x 8 micro-tiles' split of D between a block's halves does not
+// take): the head_dim-32 dK/dV and dQ kernels (template DK, DV: the true
+// widths, D the tiles'). Q and K rows are copied at their 24 columns, V and
+// dO rows at 16, the tiles' columns past them zero-filled by the copies
+// (src-size 0: nothing past a row's width is read), so S and dP are the
+// true dots plus exact zeros in the same order, and the accumulations'
+// columns past the widths stay 0. pre sums dO * O over the 16 columns of v
+// (its head_dim-16 instance). The scale is 1 / sqrt(24) from the host's
+// width, never the tiles'. Stores are clipped at the true widths (dQ and
+// dK at 24, dV at 16; RowCols<32> gives a thread 2 adjacent columns, so the
+// clip takes whole pairs): nothing past them is written, so the gradients
+// of strided views leave their neighbours alone. Every other instance has
+// DK = DV = D and compiles as before.
+//
 // Inputs are strided in batch, head and sequence (unit stride in D, rows
 // 16-byte aligned for the copies); outputs likewise.
 
@@ -206,7 +221,7 @@ struct DkdvLayout {
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
-template <typename T, int D, bool W>
+template <typename T, int D, bool W, int DK = D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdParams p) {
   using L = DkdvLayout<T, D>;
   constexpr int PP = L::kPP;
@@ -262,11 +277,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
   const T* qg = static_cast<const T*>(p.q) + b * p.qs[0] + static_cast<long long>(hk) * p.group * p.qs[1];
   const T* dog = static_cast<const T*>(p.dout) + b * p.dos[0] + static_cast<long long>(hk) * p.group * p.dos[1];
   auto copy_sub = [&](int sub, int stage) {
-    copy_tile<T, D, kSub, kThreads>(qbuf + stage * kSub * D, [&](int r) -> const T* {
+    copy_tile<T, D, kSub, kThreads, DK>(qbuf + stage * kSub * D, [&](int r) -> const T* {
       int g, i;
       return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, g, i) ? qg + g * p.qs[1] + i * p.qs[2] : nullptr;
     }, qg);
-    copy_tile<T, D, kSub, kThreads>(dobuf + stage * kSub * D, [&](int r) -> const T* {
+    copy_tile<T, D, kSub, kThreads, DV>(dobuf + stage * kSub * D, [&](int r) -> const T* {
       int g, i;
       return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub, r, g, i) ? dog + g * p.dos[1] + i * p.dos[2] : nullptr;
     }, dog);
@@ -274,8 +289,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
   };
 
   if (s_begin < s_end) {
-    copy_rows<T, D, kKeys, kThreads>(ks, kg, p.ks[2], k0, p.kv_len);
-    copy_rows<T, D, kKeys, kThreads>(vs, vg, p.vs[2], k0, p.kv_len);
+    copy_rows<T, D, kKeys, kThreads, DK>(ks, kg, p.ks[2], k0, p.kv_len);
+    copy_rows<T, D, kKeys, kThreads, DV>(vs, vg, p.vs[2], k0, p.kv_len);
     copy_sub(s_begin, 0);
     cp_async_commit();
   }
@@ -363,12 +378,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
                  : static_cast<T*>(p.dv) + b * p.dvs[0] + hk * p.dvs[1];
   const long long ostride = half ? p.dks[2] : p.dvs[2];
   const float scale = half ? p.scale : 1.f;
+  static_assert(DK % C::kW == 0 && DV % C::kW == 0, "the clip takes a thread's groups whole");
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
     const int j = k0 + ky + 8 * a;  // slot 8 ky + a
     if (j >= p.sk) continue;
 #pragma unroll
     for (int g = 0; g < C::kGroups; ++g) {
+      if ((DK < D || DV < D) && C::col(g, cx) >= (half ? DK : DV)) continue;
       float x[C::kW];
 #pragma unroll
       for (int e = 0; e < C::kW; ++e) x[e] = acc[a][g * C::kW + e] * scale;
@@ -398,7 +415,7 @@ struct DqLayout {
   static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
-template <typename T, int D, bool W>
+template <typename T, int D, bool W, int DK = D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdParams p) {
   using L = DqLayout<T, D>;
   constexpr int BK = kQKeys, PP = L::kPP;
@@ -438,20 +455,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
   const int t0 = W ? max(0, p.q_offset + sub0 * p.qpt - p.window + 1) / BK : 0;
   const int ntiles = (kv_end + BK - 1) / BK - t0;
 
-  copy_tile<T, D, kRows, kThreads>(qs, [&](int r) -> const T* {
+  copy_tile<T, D, kRows, kThreads, DK>(qs, [&](int r) -> const T* {
     int g, i;
     return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i) ? qg + g * p.qs[1] + i * p.qs[2]
                                                                              : nullptr;
   }, qg);
-  copy_tile<T, D, kRows, kThreads>(dos, [&](int r) -> const T* {
+  copy_tile<T, D, kRows, kThreads, DV>(dos, [&](int r) -> const T* {
     int g, i;
     return packed_row(p.group, p.inv_group, p.qpt, p.sq, sub0 + r / kSub, r % kSub, g, i) ? dog + g * p.dos[1] + i * p.dos[2]
                                                                              : nullptr;
   }, dog);
   if (tid < 2 * kStats / 4) cp_async16(sts + tid * 4, stats_of(p, bkv, sub0) + tid * 4, true);  // both sub-tiles
   auto copy_kv = [&](int t, int stage) {
-    copy_rows<T, D, BK, kThreads>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
-    copy_rows<T, D, BK, kThreads>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads, DK>(kbuf + stage * BK * D, kg, p.ks[2], t * BK, kv_end);
+    copy_rows<T, D, BK, kThreads, DV>(vbuf + stage * BK * D, vg, p.vs[2], t * BK, kv_end);
   };
   copy_kv(t0, 0);
   cp_async_commit();
@@ -559,6 +576,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
     T* row = dqg + b * p.dqs[0] + h * p.dqs[1] + static_cast<long long>(i) * p.dqs[2];
 #pragma unroll
     for (int gc = 0; gc < C::kGroups; ++gc) {
+      static_assert(DK % C::kW == 0, "the clip takes a thread's groups whole");
+      if (DK < D && C::col(gc, cx) >= DK) continue;
       float x[C::kW];
 #pragma unroll
       for (int e = 0; e < C::kW; ++e) x[e] = dq[a][gc * C::kW + e] * p.scale;
@@ -1007,7 +1026,7 @@ int launch(Kernel kernel, size_t bytes, int blocks, int threads, const BwdParams
 BwdParams make_params(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
                       void* dk, void* dv, const float* lse, float* stats, const long long* strides, int batch,
                       int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len,
-                      int window) {
+                      int window) {  // d: q/k's width, which the scale is of
   BwdParams p;
   p.q = q;
   p.k = k;
@@ -1043,20 +1062,23 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
 
 enum Which { kPreK, kDkdvK, kDqK };
 
-template <typename T, int D>
+// D the tiles' width; DK and DV the true widths of q/k and v (pre sums
+// dO * O over DV)
+template <typename T, int D, int DK = D, int DV = D>
 int run(const BwdParams& p, Which which, cudaStream_t s) {
   const int nbkv = p.batch * p.hkv;
   switch (which) {
     case kPreK: {
-      constexpr int L = D / 4 < 32 ? D / 4 : 32;
+      constexpr int L = DV / 4 < 32 ? DV / 4 : 32;
       const long long lanes = static_cast<long long>(nbkv) * p.nsub2 * kSub * L;
-      return launch(flash_bwd_pre_kernel<T, D>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
+      return launch(flash_bwd_pre_kernel<T, DV>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
     }
     case kDkdvK:
       if constexpr (D == 256) {
         return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_dkdv_dq's
       } else {
-        return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true> : flash_bwd_dkdv_kernel<T, D, false>,
+        return launch(p.window < (1 << 30) ? flash_bwd_dkdv_kernel<T, D, true, DK, DV>
+                                           : flash_bwd_dkdv_kernel<T, D, false, DK, DV>,
                       DkdvLayout<T, D>::kBytes, nbkv * ((p.sk + kKeys - 1) / kKeys),
                       kThreads, p, s);
       }
@@ -1064,7 +1086,8 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
       if constexpr (D == 256) {
         return static_cast<int>(cudaErrorInvalidValue);
       } else {
-        return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>,
+        return launch(p.window < (1 << 30) ? flash_bwd_dq_kernel<T, D, true, DK, DV>
+                                           : flash_bwd_dq_kernel<T, D, false, DK, DV>,
                       DqLayout<T, D>::kBytes, nbkv * (p.nsub2 / 2), kThreads, p, s);
       }
   }
@@ -1085,7 +1108,9 @@ int run256(const BwdParams& bp, const int* work, int grid, cudaStream_t s) {
 }
 
 template <typename T>
-int dispatch(const BwdParams& p, int d, Which which, cudaStream_t s) {
+int dispatch(const BwdParams& p, int d, int dv, Which which, cudaStream_t s) {
+  if (d == 24 && dv == 16) return run<T, 32, 24, 16>(p, which, s);  // the reduced deepseek-v3's MLA
+  if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return run<T, 16>(p, which, s);
     case 32: return run<T, 32>(p, which, s);
@@ -1098,29 +1123,31 @@ int dispatch(const BwdParams& p, int d, Which which, cudaStream_t s) {
 
 int entry(Which which, const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
           void* dk, void* dv, const float* lse, float* stats, const long long* strides, int dtype, int batch,
-          int hq, int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len,
+          int hq, int hkv, int sq, int sk, int d, int d_v, int causal, float softcap, int q_offset, int kv_len,
           int window, void* stream) {
   if (hkv < 1 || hq % hkv != 0 || hq / hkv > kSub) return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d,
                                   causal, softcap, q_offset, kv_len, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch<float>(p, d, which, s);
-    case 1: return dispatch<__nv_bfloat16>(p, d, which, s);
-    case 2: return dispatch<__half>(p, d, which, s);
+    case 0: return dispatch<float>(p, d, d_v, which, s);
+    case 1: return dispatch<__nv_bfloat16>(p, d, d_v, which, s);
+    case 2: return dispatch<__half>(p, d, d_v, which, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, o, dout, dq [B, Hq, Sq, D]; k, v, dk, dv [B, Hkv, Sk, D]: pointers,
+// q, dq [B, Hq, Sq, D]; o, dout [B, Hq, Sq, Dv]; k, dk [B, Hkv, Sk, D];
+// v, dv [B, Hkv, Sk, Dv]: pointers,
 // and their (batch, head, sequence) element strides in `strides` (a host
 // array of 24 in the order q, k, v, o, dout, dq, dk, dv); lse f32
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
 // B * Hkv * nsub2 * 128 floats (nsub2: ceil(Sq / (64 / G)) rounded up to
 // even); dtype 0 = float32, 1 = bfloat16, 2 = float16 (every tensor but
-// lse and stats); D in {16, 32, 64, 128, 256}; Hq / Hkv <= 64; 1 <= kv_len <=
+// lse and stats); D in {16, 32, 64, 128, 256} with Dv = D, or (D, Dv) = (24,
+// 16); Hq / Hkv <= 64; 1 <= kv_len <=
 // Sk; window > 0 a sliding window, 0 none. In this order on one stream: th_flash_bwd_pre writes stats,
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
 // writes dq (D 16-128); at D 256 th_flash_bwd_dkdv_dq (a work list beside
@@ -1129,10 +1156,10 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 #define TH_BWD_ARGS                                                                                             \
   const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv,  \
       const float *lse, float *stats, const long long *strides, int dtype, int batch, int hq, int hkv, int sq, \
-      int sk, int d, int causal, float softcap, int q_offset, int kv_len, int window, void *stream
-#define TH_BWD_PASS                                                                                         \
-  q, k, v, o, dout, dq, dk, dv, lse, stats, strides, dtype, batch, hq, hkv, sq, sk, d, causal, softcap, q_offset, \
-      kv_len, window, stream
+      int sk, int d, int d_v, int causal, float softcap, int q_offset, int kv_len, int window, void *stream
+#define TH_BWD_PASS                                                                                              \
+  q, k, v, o, dout, dq, dk, dv, lse, stats, strides, dtype, batch, hq, hkv, sq, sk, d, d_v, causal, softcap,       \
+      q_offset, kv_len, window, stream
 
 extern "C" int th_flash_bwd_pre(TH_BWD_ARGS) { return entry(kPreK, TH_BWD_PASS); }
 extern "C" int th_flash_bwd_dkdv(TH_BWD_ARGS) { return entry(kDkdvK, TH_BWD_PASS); }
@@ -1145,9 +1172,9 @@ extern "C" int th_flash_bwd_dq(TH_BWD_ARGS) { return entry(kDqK, TH_BWD_PASS); }
 extern "C" int th_flash_bwd_dkdv_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                     void* dq, void* dk, void* dv, const float* lse, float* stats,
                                     const long long* strides, int dtype, int batch, int hq, int hkv, int sq, int sk,
-                                    int d, int causal, float softcap, int q_offset, int kv_len, int window,
+                                    int d, int d_v, int causal, float softcap, int q_offset, int kv_len, int window,
                                     const int* work, int grid, void* stream) {
-  if (d != 256 || grid < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kSub)
+  if (d != 256 || d_v != 256 || grid < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kSub)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p = make_params(q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d,
                                   causal, softcap, q_offset, kv_len, window);

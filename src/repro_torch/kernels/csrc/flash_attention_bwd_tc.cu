@@ -1,8 +1,9 @@
 // The flash-attention backward for Hopper on the tensor cores: dQ, dK and
-// dV in bf16 at head_dim 64, 128 or 256, with or without a sliding window,
-// the training step's path (the `tensor_core` backward route). The
-// CUDA-core kernels of flash_attention_bwd.cu take the rest (f32, f16,
-// head_dim 16/32).
+// dV in bf16 at head_dim 64, 128 or 256, and at q/k 192 with v 128
+// (deepseek-v3's expanded MLA), with or without a sliding window, the
+// training step's path (the `tensor_core` backward route). The CUDA-core
+// kernels of flash_attention_bwd.cu take the rest (f32, f16, head_dim
+// 16/32, q/k 24 with v 16).
 //
 // The JAX package has no Pallas backward: it differentiates its jnp
 // chunked_attention (src/repro/models/layers.py) with jax.grad, so this
@@ -11,9 +12,11 @@
 // replaces. For query head h of batch b against KV head h / G (GQA):
 //   s   = (q . k) * (1 / sqrt(D));  s_c = c tanh(s / c) under a softcap c
 //   P   = exp(s_c - lse)            lse written by the forward, per row
-//   D_i = rowsum(dO * O)
+//   D_i = rowsum(dO * O)            over v's width Dv
 //   dV  = P^T dO,  dP = dO V^T,  dS = P * (dP - D_i) * (1 - (s_c / c)^2)
 //   dQ  = dS K * scale,  dK = dS^T Q * scale   (dK, dV summed over the group)
+// (D is q/k's width, Dv v's: Dv = D but for (192, 128), where S, dQ and dK
+// run over 192 columns and dP, dV and D_i over 128; the scale is q/k's)
 // with the forward's masks (key j is live for row i when j < kv_len,
 // causal, j <= q_offset + i, and under a sliding window W, j > q_offset + i
 // - W); keys past kv_len, and keys no row's window reaches, get zero dK and
@@ -88,7 +91,8 @@
 // element as the causal ones. A masked pair's P is 0 whatever its score
 // (the lse of every row is finite: the wrapper refuses a window that
 // leaves a row no key), so a row with no live key in a tile adds nothing.
-// Head_dim 256 has a kernel of its own, one launch after pre (section 4 below).
+// Head_dim 256 and (192, 128) have a kernel of their own, one launch after
+// pre (section 4 below).
 // Epilogues scale dK and dQ by 1/sqrt(D) and store bf16 pairs from the
 // registers into the [B, S, H, D] layout under the [B, H, S, D] views,
 // clipped at Sq and Sk. The tensor maps' sequence extents are Sq and
@@ -569,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- 4. head_dim 256: one persistent launch of the dK/dV and dQ items ----------------
+// -- 4. head_dim 256 and (192, 128): one persistent launch of the dK/dV and dQ items ---
 
 // At D = 256 a warpgroup holding dK and dV of 64 keys over all of D would
 // need 256 f32 registers a thread, and 128 rows of Q and dO (128 KB) beside
@@ -636,16 +640,34 @@ __global__ void __launch_bounds__(kThreads, 1)
 // with the barriers and the alignment slack. A consumer thread holds 64 +
 // 64 f32 of dV and dK (dQ: 64) of its 128 columns, 16 + 16 of the score
 // halves and 16 of the softcap's factor.
+//
+// (q/k, v) = (192, 128), deepseek-v3's expanded MLA attention, runs the same
+// kernel as a <DK, DV> plan (DK = 192 for S, dQ and dK; DV = 128 for dP, dV
+// and D_i), pre then one launch. Its 64/128 three-kernel form would keep,
+// in one consumer thread, 64 keys of dK (96 f32 at 192 columns) and dV (64)
+// beside S^T and dP^T (32 + 32): 224 of the 240 registers before an
+// address. Here a thread holds its warpgroup's half of the columns: dV's
+// 64 of 128 as one m64n64 accumulator (box wg), and dK's (dQ's) 96 of 192
+// as an m64n64 (box 2 wg) and an m64n32 (columns 64 + 32 wg .. + 31, half
+// of box 1: the second warpgroup's starts 64 bytes into the swizzled rows,
+// which stay inside each 128-byte row): 32 + 32 + 16 f32, so both
+// warpgroups issue the same shapes, with no wgmma under a branch. The
+// scores run over 12 (S) and 8 (dP) steps of 16 columns; the tiles are 64
+// rows in boxes of 64 columns, three for K and Q and two for V and dO (a
+// stage 40 KB, the shared memory 137 KB); the scale is 1 / sqrt(192), q/k's
+// width, as the forward's.
 constexpr int kD256 = 256;
 constexpr int kStages256 = 2;
-constexpr uint32_t kTile256 = kT * kD256 * 2;  // 64 rows of 256 bf16: 32 KB
 constexpr uint32_t kXBytes = kT * kT * 2;      // a 64 x 64 bf16 exchange tile: 8 KB
 constexpr int kBarFree = 1, kBarFull = 2;      // the consumers' named barriers (0 is __syncthreads)
 
+template <int DK, int DV>
 struct Bwd256Layout {
+  static constexpr uint32_t kTileK = kT * DK * 2;            // 64 rows of K or Q: 32 KB at 256, 24 KB at 192
+  static constexpr uint32_t kTileV = kT * DV * 2;            // 64 rows of V or dO
   static constexpr uint32_t kA = 0;                          // the fixed pair: K then V, or Q then dO
-  static constexpr uint32_t kB = 2 * kTile256;               // the ring: stage s holds Q then dO, or K then V
-  static constexpr uint32_t kStage = 2 * kTile256;
+  static constexpr uint32_t kB = kTileK + kTileV;            // the ring: stage s holds Q then dO, or K then V
+  static constexpr uint32_t kStage = kTileK + kTileV;
   static constexpr uint32_t kX = kB + kStages256 * kStage;   // P (P^T), then dS (dS^T)
   static constexpr uint32_t kStats = kX + 2 * kXBytes;       // a dQ item's rows, then each stage's query tile
   static constexpr uint32_t kBar = kStats + (1 + kStages256) * kStatsTile * 4;
@@ -709,17 +731,18 @@ __device__ __forceinline__ void p_of(const Bwd256Params& p, bool capped, float& 
   s = live ? ex2(x2 - lse2) : 0.f;
 }
 
-// 128 columns of one row of a 64 x 128 f32 accumulator (this thread's
-// pairs: `off` 0 for its row ra, 2 for ra + 8) times `f`, as bf16 at `row`,
-// by 16-byte stores (where `ok`): the four threads of a quad (`quad`, the
-// lane's place in it) trade their pairs, a 4 x 4 transpose of words by two
-// xor shuffles, so that each holds the 8 columns of four of the row's
-// sixteen 8-column chunks (a thread's own pairs would be 4-byte stores, 8
-// rows a warp)
-__device__ __forceinline__ void store_row128(__nv_bfloat16* row, const float (&acc)[64], int off, float f, bool ok,
-                                             int quad) {
+// N columns of one row of a 64 x N f32 accumulator (N = 32, 64 or 128;
+// this thread's pairs: `off` 0 for its row ra, 2 for ra + 8) times `f`, as
+// bf16 at `row`, by 16-byte stores (where `ok`): the four threads of a quad
+// (`quad`, the lane's place in it) trade their pairs, a 4 x 4 transpose of
+// words by two xor shuffles, so that each holds the 8 columns of one of
+// each four of the row's 8-column chunks (a thread's own pairs would be
+// 4-byte stores, 8 rows a warp)
+template <int N>
+__device__ __forceinline__ void store_row(__nv_bfloat16* row, const float (&acc)[N / 2], int off, float f, bool ok,
+                                          int quad) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {  // chunks 4m .. 4m + 3
+  for (int m = 0; m < N / 32; ++m) {  // chunks 4m .. 4m + 3
     uint32_t w[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) w[c] = pack_bf16(acc[16 * m + 4 * c + off] * f, acc[16 * m + 4 * c + off + 1] * f);
@@ -753,13 +776,17 @@ struct Kind {
   static constexpr int value = K;
 };
 
-template <bool W>
+// DK, DV: (256, 256), or (192, 128)
+template <int DK, int DV, bool W>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_tc256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
                            const Bwd256Params p, const BwdDims dims) {
-  using L = Bwd256Layout;
-  constexpr int NB = kD256 / kBox;
+  using L = Bwd256Layout<DK, DV>;
+  constexpr int NBK = DK / kBox, NBV = DV / kBox;  // 64-column boxes of a K/Q row and of a V/dO row
+  constexpr int NB = NBK > NBV ? NBK : NBV;
+  constexpr bool kSplit = DK == 192;  // dK and dQ in an m64n64 and an m64n32 piece a warpgroup
+  static_assert((DK == 256 && DV == 256) || (DK == 192 && DV == 128), "the one-launch plans");
   constexpr int kS = kStages256;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -769,9 +796,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t fixed_full = bar(0), fixed_empty = bar(1);
   auto full = [&](int s) { return bar(2 + s); };
   auto empty = [&](int s) { return bar(2 + kS + s); };
-  const uint32_t a0 = base + L::kA, a1 = a0 + kTile256;
+  const uint32_t a0 = base + L::kA, a1 = a0 + L::kTileK;
   auto b0 = [&](int s) { return base + L::kB + s * L::kStage; };
-  auto b1 = [&](int s) { return base + L::kB + s * L::kStage + kTile256; };
+  auto b1 = [&](int s) { return base + L::kB + s * L::kStage + L::kTileK; };
   const uint32_t xp = base + L::kX, xd = xp + kXBytes;
   const int* items = p.work + gridDim.x + 1;
   const int u0 = p.work[blockIdx.x], u1 = p.work[blockIdx.x + 1];
@@ -800,18 +827,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (x.n == 0) {
           mbar_arrive(fixed_full);  // nothing to load: the item writes zeros
         } else if (x.kind == 0) {
-          mbar_expect_tx(fixed_full, 2 * kTile256);
+          mbar_expect_tx(fixed_full, L::kTileK + L::kTileV);
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb) {
-            tma_load(a0 + nb * kT * kRowBytes, &kmap, fixed_full, dims.k, nb * kBox, x.t * kT, x.h, x.b);
-            tma_load(a1 + nb * kT * kRowBytes, &vmap, fixed_full, dims.v, nb * kBox, x.t * kT, x.h, x.b);
+            if (nb < NBK) tma_load(a0 + nb * kT * kRowBytes, &kmap, fixed_full, dims.k, nb * kBox, x.t * kT, x.h, x.b);
+            if (nb < NBV) tma_load(a1 + nb * kT * kRowBytes, &vmap, fixed_full, dims.v, nb * kBox, x.t * kT, x.h, x.b);
           }
         } else {
-          mbar_expect_tx(fixed_full, 2 * kTile256 + kStatsTile * 4);
+          mbar_expect_tx(fixed_full, L::kTileK + L::kTileV + kStatsTile * 4);
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb) {
-            tma_load(a0 + nb * kT * kRowBytes, &qmap, fixed_full, dims.q, nb * kBox, x.t * kT, x.h, x.b);
-            tma_load(a1 + nb * kT * kRowBytes, &domap, fixed_full, dims.dout, nb * kBox, x.t * kT, x.h, x.b);
+            if (nb < NBK) tma_load(a0 + nb * kT * kRowBytes, &qmap, fixed_full, dims.q, nb * kBox, x.t * kT, x.h, x.b);
+            if (nb < NBV)
+              tma_load(a1 + nb * kT * kRowBytes, &domap, fixed_full, dims.dout, nb * kBox, x.t * kT, x.h, x.b);
           }
           bulk_load(base + L::kStats, p.stats + (static_cast<long long>(x.b * p.hq + x.h) * p.nq + x.t) * kStatsTile,
                     kStatsTile * 4, fixed_full);
@@ -821,22 +849,23 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(empty(s), ((kt / kS) & 1) ^ 1);  // passes at once on a fresh stage
           if (x.kind == 0) {
             const int h = x.h * p.group + i / x.ntq, qt = x.first + i % x.ntq;
-            mbar_expect_tx(full(s), 2 * kTile256 + kStatsTile * 4);
+            mbar_expect_tx(full(s), L::kTileK + L::kTileV + kStatsTile * 4);
 #pragma unroll
             for (int nb = 0; nb < NB; ++nb) {
-              tma_load(b0(s) + nb * kT * kRowBytes, &qmap, full(s), dims.q, nb * kBox, qt * kT, h, x.b);
-              tma_load(b1(s) + nb * kT * kRowBytes, &domap, full(s), dims.dout, nb * kBox, qt * kT, h, x.b);
+              if (nb < NBK) tma_load(b0(s) + nb * kT * kRowBytes, &qmap, full(s), dims.q, nb * kBox, qt * kT, h, x.b);
+              if (nb < NBV)
+                tma_load(b1(s) + nb * kT * kRowBytes, &domap, full(s), dims.dout, nb * kBox, qt * kT, h, x.b);
             }
             bulk_load(base + L::kStats + (1 + s) * kStatsTile * 4,
                       p.stats + (static_cast<long long>(x.b * p.hq + h) * p.nq + qt) * kStatsTile, kStatsTile * 4,
                       full(s));
           } else {
             const int hk = x.h / p.group, key0 = (x.first + i) * kT;
-            mbar_expect_tx(full(s), 2 * kTile256);
+            mbar_expect_tx(full(s), L::kTileK + L::kTileV);
 #pragma unroll
             for (int nb = 0; nb < NB; ++nb) {
-              tma_load(b0(s) + nb * kT * kRowBytes, &kmap, full(s), dims.k, nb * kBox, key0, hk, x.b);
-              tma_load(b1(s) + nb * kT * kRowBytes, &vmap, full(s), dims.v, nb * kBox, key0, hk, x.b);
+              if (nb < NBK) tma_load(b0(s) + nb * kT * kRowBytes, &kmap, full(s), dims.k, nb * kBox, key0, hk, x.b);
+              if (nb < NBV) tma_load(b1(s) + nb * kT * kRowBytes, &vmap, full(s), dims.v, nb * kBox, key0, hk, x.b);
             }
           }
         }
@@ -848,8 +877,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // consumers: this thread holds rows ra and ra + 8 of a tile (keys of a
   // dK/dV item, query rows of a dQ item), columns 32 wg + 8j + col + {0, 1}
-  // of the score halves (j < 4) and 128 wg + 8j + col + {0, 1} of the
-  // gradients (j < 16)
+  // of the score halves (j < 4) and of its warpgroup's half of the
+  // gradients' columns (at 256: 128 wg + 8j + col + {0, 1}, j < 16)
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int ra = warp * 16 + lane / 4;
   const int col = 2 * (lane % 4);
@@ -860,8 +889,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     return x + xr * kRowBytes + ((chunk ^ (xr & 7)) << 4);
   };
   const bool capped = p.softcap > 0.f;
-  const uint32_t half = wg * 2 * kT * kRowBytes;  // this warpgroup's two 64-column boxes of a tile
-  float acc0[kD256 / 4], acc1[kD256 / 4];  // dV and dK of a dK/dV item; dQ (acc1) of a dQ item
+  // this warpgroup's columns of a tile's boxes: half of V/dO's (at 256 two
+  // boxes, at 128 one); half of K/Q's (at 256 two boxes; at 192 box 2 wg
+  // and the half 32 wg of box 1)
+  const uint32_t vhalf = wg * (NBV / 2) * kT * kRowBytes;
+  const uint32_t khalf = wg * (kSplit ? 2 : NBK / 2) * kT * kRowBytes;
+  const uint32_t kquarter = kT * kRowBytes + wg * 64;  // at 192: 32 columns, 64 bytes into box 1's rows
+  constexpr int kAccV = DV / 4, kAccK = kSplit ? 32 : DK / 4, kAccK2 = kSplit ? 16 : 1;
+  // dV (acc0) and dK (acc1, and acc2 at 192) of a dK/dV item; dQ (acc1, acc2) of a dQ item
+  float acc0[kAccV], acc1[kAccK], acc2[kAccK2];
   float sc[kT / 4], dp[kT / 4], fac[kT / 4];  // S then P, dP then dS, 1 - t^2: this warpgroup's half
 
   // S and dP of the streamed tile in stage s (this warpgroup's 32 of its
@@ -869,13 +905,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto scores = [&](int s) {
     const uint32_t rows = wg * 32 * kRowBytes;
 #pragma unroll
-    for (int kk = 0; kk < kD256 / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk / 4) * kT * kRowBytes + (kk % 4) * 32;  // box kk / 4, 16 columns
       wgmma_ss_n32(sc, sw128_desc(a0 + off, 16, 1024), sw128_desc(b0(s) + rows + off, 16, 1024));
     }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < kD256 / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t off = (kk / 4) * kT * kRowBytes + (kk % 4) * 32;
       wgmma_ss_n32(dp, sw128_desc(a1 + off, 16, 1024), sw128_desc(b1(s) + rows + off, 16, 1024));
     }
@@ -893,7 +929,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Item256 x = item256<W>(p, __shfl_sync(0xFFFFFFFFu, w[0], 0), __shfl_sync(0xFFFFFFFFu, w[1], 0),
                                  __shfl_sync(0xFFFFFFFFu, w[2], 0), __shfl_sync(0xFFFFFFFFu, w[3], 0));
 #pragma unroll
-    for (int i = 0; i < kD256 / 4; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int i = 0; i < kAccV; ++i) acc0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kAccK; ++i) acc1[i] = 0.f;
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int i = 0; i < kAccK2; ++i) acc2[i] = 0.f;
+    }
     mbar_wait(fixed_full, n & 1);
 
     auto run = [&](auto kind) {
@@ -981,15 +1023,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       auto accumulate = [&](int s) {
         if (K == 0) {
 #pragma unroll
-          for (int kk = 0; kk < kT / 16; ++kk)
-            wgmma_ss_tb_n128(acc0, sw128_desc(xp + kk * 32, 16, 1024),
-                             sw128_desc(b1(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+          for (int kk = 0; kk < kT / 16; ++kk) {
+            const uint64_t pa = sw128_desc(xp + kk * 32, 16, 1024);
+            const uint64_t vb = sw128_desc(b1(s) + vhalf + kk * 16 * kRowBytes, kT * kRowBytes, 1024);
+            if constexpr (DV == 256)
+              wgmma_ss_tb_n128(acc0, pa, vb);
+            else
+              wgmma_ss_tb_n64(acc0, pa, vb);
+          }
         }
 #pragma unroll
-        for (int kk = 0; kk < kT / 16; ++kk)
-          wgmma_ss_tb_n128(acc1, sw128_desc(xd + kk * 32, 16, 1024),
-                           sw128_desc(b0(s) + half + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+        for (int kk = 0; kk < kT / 16; ++kk) {
+          const uint64_t da = sw128_desc(xd + kk * 32, 16, 1024);
+          if constexpr (kSplit) {
+            wgmma_ss_tb_n64(acc1, da, sw128_desc(b0(s) + khalf + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+            wgmma_ss_tb_n32(acc2, da, sw128_desc(b0(s) + kquarter + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+          } else {
+            wgmma_ss_tb_n128(acc1, da, sw128_desc(b0(s) + khalf + kk * 16 * kRowBytes, kT * kRowBytes, 1024));
+          }
+        }
         wgmma_commit();
+      };
+      auto fence_accs = [&] {
+        fence_regs(acc0);
+        fence_regs(acc1);
+        if constexpr (kSplit) fence_regs(acc2);
       };
 
       // the prologue: tile 0's products alone
@@ -1014,8 +1072,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         accumulate(s0);
         scores(s1);
         wgmma_wait_two();  // tile i's accumulation done: its stage is free
-        fence_regs(acc0);
-        fence_regs(acc1);
+        fence_accs();
         mbar_arrive(empty(s0));
         wgmma_wait_one();  // S done, dP in flight
         fence_regs(sc);
@@ -1031,8 +1088,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       accumulate(s);
       wgmma_wait_all();
-      fence_regs(acc0);
-      fence_regs(acc1);
+      fence_accs();
       mbar_arrive(empty(s));
     };
     if (x.n == 0)
@@ -1043,22 +1099,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       run(Kind<1>{});
     kt += x.n;
 
-    // the item's gradients, dK and dQ scaled by 1 / sqrt(D); zeros for the
-    // keys of a dK/dV item that no row sees, past kv_len included
+    // the item's gradients, dK and dQ scaled by 1 / sqrt(DK); zeros for the
+    // keys of a dK/dV item that no row sees, past kv_len included. At 192,
+    // dK's (dQ's) columns 128 wg .. + 63 from acc1 and 64 + 32 wg .. + 31
+    // from acc2
     const int quad = lane % 4;
+    // dK or dQ rows (scaled) from the row pointer at column 0
+    auto store_k = [&](__nv_bfloat16* row, int off, bool ok) {
+      if constexpr (kSplit) {
+        store_row<64>(row + 128 * wg, acc1, off, p.scale, ok, quad);
+        store_row<32>(row + 64 + 32 * wg, acc2, off, p.scale, ok, quad);
+      } else {
+        store_row<DK / 2>(row + (DK / 2) * wg, acc1, off, p.scale, ok, quad);
+      }
+    };
     if (x.kind == 0) {
       const long long key_a = x.t * kT + ra, key_b = key_a + 8;
-      __nv_bfloat16* dkg = p.dk + x.b * p.dks[0] + x.h * p.dks[1] + 128 * wg;
-      __nv_bfloat16* dvg = p.dv + x.b * p.dvs[0] + x.h * p.dvs[1] + 128 * wg;
-      store_row128(dkg + key_a * p.dks[2], acc1, 0, p.scale, key_a < p.sk, quad);
-      store_row128(dvg + key_a * p.dvs[2], acc0, 0, 1.f, key_a < p.sk, quad);
-      store_row128(dkg + key_b * p.dks[2], acc1, 2, p.scale, key_b < p.sk, quad);
-      store_row128(dvg + key_b * p.dvs[2], acc0, 2, 1.f, key_b < p.sk, quad);
+      __nv_bfloat16* dkg = p.dk + x.b * p.dks[0] + x.h * p.dks[1];
+      __nv_bfloat16* dvg = p.dv + x.b * p.dvs[0] + x.h * p.dvs[1] + (DV / 2) * wg;
+      store_k(dkg + key_a * p.dks[2], 0, key_a < p.sk);
+      store_row<DV / 2>(dvg + key_a * p.dvs[2], acc0, 0, 1.f, key_a < p.sk, quad);
+      store_k(dkg + key_b * p.dks[2], 2, key_b < p.sk);
+      store_row<DV / 2>(dvg + key_b * p.dvs[2], acc0, 2, 1.f, key_b < p.sk, quad);
     } else {
       const long long i_a = x.t * kT + ra, i_b = i_a + 8;
-      __nv_bfloat16* dqg = p.dq + x.b * p.dqs[0] + x.h * p.dqs[1] + 128 * wg;
-      store_row128(dqg + i_a * p.dqs[2], acc1, 0, p.scale, i_a < p.sq, quad);
-      store_row128(dqg + i_b * p.dqs[2], acc1, 2, p.scale, i_b < p.sq, quad);
+      __nv_bfloat16* dqg = p.dq + x.b * p.dqs[0] + x.h * p.dqs[1];
+      store_k(dqg + i_a * p.dqs[2], 0, i_a < p.sq);
+      store_k(dqg + i_b * p.dqs[2], 2, i_b < p.sq);
     }
   }
 }
@@ -1072,13 +1139,14 @@ struct Call {
 };
 
 // the parameters and tensor maps of a call (Q and dO in boxes of
-// `q_rows`, K and V of `key_rows`; no maps when both are 0); 0 or an error
-// as the entry points return it
+// `q_rows`, K and V of `key_rows`; no maps when both are 0; Q and K at q/k's
+// width d, V and dO at v's, d_v); 0 or an error as the entry points return it
 int prepare(Call& c, const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
             void* dk, void* dv, const float* lse, float* stats, const long long* strides, int batch, int hq,
-            int hkv, int sq, int sk, int d, int causal, float softcap, int q_offset, int kv_len, int window,
-            int q_rows, int key_rows) {
-  if (d != 64 && d != 128 && d != kD256) return static_cast<int>(cudaErrorInvalidValue);
+            int hkv, int sq, int sk, int d, int d_v, int causal, float softcap, int q_offset, int kv_len,
+            int window, int q_rows, int key_rows) {
+  const bool pair = (d == d_v && (d == 64 || d == 128 || d == kD256)) || (d == 192 && d_v == 128);
+  if (!pair) return static_cast<int>(cudaErrorInvalidValue);
   BwdParams& p = c.p;
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
@@ -1101,13 +1169,13 @@ int prepare(Call& c, const void* q, const void* k, const void* v, const void* o,
   p.q_offset = q_offset;
   p.kv_len = kv_len;
   p.window = window > 0 ? window : 1 << 30;
-  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // as the forward's
+  p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));  // of q/k's width, as the forward's
   p.softcap = softcap;
   if (key_rows == 0) return 0;
   int err = make_map(&c.qm, q, d, sq, hq, batch, strides + 0, q_rows, c.dims.q);
   if (err == 0) err = make_map(&c.km, k, d, kv_len, hkv, batch, strides + 3, key_rows, c.dims.k);
-  if (err == 0) err = make_map(&c.vm, v, d, kv_len, hkv, batch, strides + 6, key_rows, c.dims.v);
-  if (err == 0) err = make_map(&c.dom, dout, d, sq, hq, batch, strides + 12, q_rows, c.dims.dout);
+  if (err == 0) err = make_map(&c.vm, v, d_v, kv_len, hkv, batch, strides + 6, key_rows, c.dims.v);
+  if (err == 0) err = make_map(&c.dom, dout, d_v, sq, hq, batch, strides + 12, q_rows, c.dims.dout);
   return err;
 }
 
@@ -1121,27 +1189,29 @@ int launch(Kernel kernel, int bytes, int blocks, const Call& c, cudaStream_t str
 
 }  // namespace
 
-// bf16 q, o, dout, dq [B, Hq, Sq, D] and k, v, dk, dv [B, Hkv, Sk, D], each
+// bf16 q, dq [B, Hq, Sq, D], o, dout [B, Hq, Sq, Dv], k, dk [B, Hkv, Sk, D]
+// and v, dv [B, Hkv, Sk, Dv], each
 // by its pointer and its (batch, head, sequence) element strides in
 // `strides` (a host array of 24 in the order q, k, v, o, dout, dq, dk,
 // dv; pointers and strides of q, k, v and dout 16-byte aligned); lse f32
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
-// B * Hq * ceil(Sq / 64) * 128 floats, 16-byte aligned; D in {64, 128,
-// 256}; 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none. Entry
+// B * Hq * ceil(Sq / 64) * 128 floats, 16-byte aligned; (D, Dv) in {(64,
+// 64), (128, 128), (256, 256), (192, 128)}; 1 <= kv_len <= Sk; window > 0 a
+// sliding window, 0 none. Entry
 // points with the same arguments, launched in this order on one stream:
-// th_flash_bwd_tc_pre writes stats (each query tile's lse log2 e and D_i),
-// th_flash_bwd_tc_dkdv writes dk and dv (zeros past kv_len) and
-// th_flash_bwd_tc_dq writes dq at D 64 and 128; at D 256
+// th_flash_bwd_tc_pre writes stats (each query tile's lse log2 e and D_i
+// over Dv), th_flash_bwd_tc_dkdv writes dk and dv (zeros past kv_len) and
+// th_flash_bwd_tc_dq writes dq at D 64 and 128; at (256, 256) and (192, 128)
 // th_flash_bwd_tc_dkdv_dq (below; a work list beside the arguments) writes
 // all three. Each returns cudaGetLastError() after its launch, or a
 // tensor-map encoding failure negated.
 #define TH_BWD_TC_ARGS                                                                                         \
   const void *q, const void *k, const void *v, const void *o, const void *dout, void *dq, void *dk, void *dv, \
       const float *lse, float *stats, const long long *strides, int batch, int hq, int hkv, int sq, int sk,   \
-      int d, int causal, float softcap, int q_offset, int kv_len, int window, void *stream
-#define TH_BWD_TC_PASS                                                                                        \
-  q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d, causal, softcap, q_offset, kv_len, \
-      window
+      int d, int d_v, int causal, float softcap, int q_offset, int kv_len, int window, void *stream
+#define TH_BWD_TC_PASS                                                                                          \
+  q, k, v, o, dout, dq, dk, dv, lse, stats, strides, batch, hq, hkv, sq, sk, d, d_v, causal, softcap, q_offset, \
+      kv_len, window
 
 extern "C" int th_flash_bwd_tc_pre(TH_BWD_TC_ARGS) {
   Call c;
@@ -1149,9 +1219,9 @@ extern "C" int th_flash_bwd_tc_pre(TH_BWD_TC_ARGS) {
   if (err != 0) return err;
   const int blocks = (batch * hq * c.p.nq * kT + kPreRows - 1) / kPreRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
+  if (d_v == 64)  // D_i sums over v's width
     flash_bwd_tc_pre_kernel<64><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
-  else if (d == 128)
+  else if (d_v == 128)
     flash_bwd_tc_pre_kernel<128><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
   else
     flash_bwd_tc_pre_kernel<kD256><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
@@ -1159,7 +1229,7 @@ extern "C" int th_flash_bwd_tc_pre(TH_BWD_TC_ARGS) {
 }
 
 extern "C" int th_flash_bwd_tc_dkdv(TH_BWD_TC_ARGS) {
-  if (d == kD256) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
+  if (d == kD256 || d != d_v) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
   Call c;
   const int err = prepare(c, TH_BWD_TC_PASS, kT, kKeys);
   if (err != 0) return err;
@@ -1174,7 +1244,7 @@ extern "C" int th_flash_bwd_tc_dkdv(TH_BWD_TC_ARGS) {
 }
 
 extern "C" int th_flash_bwd_tc_dq(TH_BWD_TC_ARGS) {
-  if (d == kD256) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
+  if (d == kD256 || d != d_v) return static_cast<int>(cudaErrorInvalidValue);  // th_flash_bwd_tc_dkdv_dq's
   Call c;
   const int err = prepare(c, TH_BWD_TC_PASS, kRows, kT);
   if (err != 0) return err;
@@ -1188,16 +1258,28 @@ extern "C" int th_flash_bwd_tc_dq(TH_BWD_TC_ARGS) {
            : launch(flash_bwd_tc_dq_kernel<128, false>, DqLayout<128>::kBytes, blocks, c, s);
 }
 
-// D = 256 only, after th_flash_bwd_tc_pre: dk, dv and dq in one launch of
-// `grid` persistent blocks walking the work list `work` (int32 on the
-// device: grid + 1 offsets, then four ints an item; flash_attention's
-// bwd256_order)
+// the one-launch plan <DK, DV> on `grid` blocks
+template <int DK, int DV>
+int launch256(const Call& c, const Bwd256Params& bp, int window, int grid, cudaStream_t stream) {
+  constexpr int bytes = Bwd256Layout<DK, DV>::kBytes;
+  auto kernel = window > 0 ? flash_bwd_tc256_kernel<DK, DV, true> : flash_bwd_tc256_kernel<DK, DV, false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, bytes, stream>>>(c.qm, c.km, c.vm, c.dom, bp, c.dims);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (D, Dv) = (256, 256) or (192, 128) only, after th_flash_bwd_tc_pre: dk,
+// dv and dq in one launch of `grid` persistent blocks walking the work list
+// `work` (int32 on the device: grid + 1 offsets, then four ints an item;
+// flash_attention's bwd256_order)
 extern "C" int th_flash_bwd_tc_dkdv_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                        void* dq, void* dk, void* dv, const float* lse, float* stats,
                                        const long long* strides, int batch, int hq, int hkv, int sq, int sk, int d,
-                                       int causal, float softcap, int q_offset, int kv_len, int window,
+                                       int d_v, int causal, float softcap, int q_offset, int kv_len, int window,
                                        const int* work, int grid, void* stream) {
-  if (d != kD256 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = (d == kD256 && d_v == kD256) || (d == 192 && d_v == 128);
+  if (!wide || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   Call c;
   const int err = prepare(c, TH_BWD_TC_PASS, kT, kT);
   if (err != 0) return err;
@@ -1208,10 +1290,6 @@ extern "C" int th_flash_bwd_tc_dkdv_dq(const void* q, const void* k, const void*
   bp.kcap = softcap > 0.f ? static_cast<float>(2.0 * log2e * scale / softcap) : 0.f;
   bp.c2 = static_cast<float>(softcap * log2e);
   bp.k2 = static_cast<float>(scale * log2e);
-  auto kernel = window > 0 ? flash_bwd_tc256_kernel<true> : flash_bwd_tc256_kernel<false>;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd256Layout::kBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, Bwd256Layout::kBytes, static_cast<cudaStream_t>(stream)>>>(c.qm, c.km, c.vm, c.dom, bp,
-                                                                                        c.dims);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == kD256 ? launch256<kD256, kD256>(c, bp, window, grid, s) : launch256<192, 128>(c, bp, window, grid, s);
 }

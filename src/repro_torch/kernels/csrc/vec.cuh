@@ -136,36 +136,48 @@ struct Swz {
 };
 
 // Copy R rows into a swizzled tile: row r from `src(r)` (a row pointer, or
-// null for a row of zeros); every thread of the block (NT) issues its chunks
-template <typename T, int D, int R, int NT, typename RowPtr>
+// null for a row of zeros); every thread of the block (NT) issues its chunks.
+// A source row holds DL <= D elements (a whole number of chunks): the
+// tile's columns from DL on are zeros, and nothing past DL is read (a row
+// of the reduced deepseek-v3's q/k, 24 wide, in a tile of 32).
+template <typename T, int D, int R, int NT, int DL = D, typename RowPtr>
 __device__ __forceinline__ void copy_tile(T* dst, RowPtr src, const T* any) {
   using S = Swz<T, D>;
   static_assert(NT % S::kCh == 0, "a row's chunks within one pass");
+  static_assert(DL <= D && DL % S::kChunk == 0, "whole chunks of a row");
   const int c = threadIdx.x % S::kCh;
+  const bool col_ok = DL == D || c * S::kChunk < DL;
   for (int r = threadIdx.x / S::kCh; r < R; r += NT / S::kCh) {
     const T* row = src(r);
-    cp_async16(dst + S::at(r, c * S::kChunk), row != nullptr ? row + c * S::kChunk : any, row != nullptr);
+    const bool ok = row != nullptr && col_ok;
+    cp_async16(dst + S::at(r, c * S::kChunk), ok ? row + c * S::kChunk : any, ok);
   }
 }
 
 // Copy rows [0, R) of a swizzled tile from rows row0 + r of a source whose
 // rows are `stride` elements apart, issued by every thread of the block
-// (NT); rows at or past n are zeros. A thread's rows lie NT / kCh apart, so
-// where that is a multiple of 8 its chunk keeps one swizzle and its
-// addresses advance by constants.
-template <typename T, int D, int R, int NT>
+// (NT); rows at or past n are zeros, and so are the columns from DL on (as
+// copy_tile's). A thread's rows lie NT / kCh apart, so where that is a
+// multiple of 8 its chunk keeps one swizzle and its addresses advance by
+// constants.
+template <typename T, int D, int R, int NT, int DL = D>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src, long long stride, int row0, int n) {
   using S = Swz<T, D>;
+  static_assert(DL <= D && DL % S::kChunk == 0, "whole chunks of a row");
   constexpr int kStep = NT / S::kCh;
   const int c = threadIdx.x % S::kCh;
+  const bool col_ok = DL == D || c * S::kChunk < DL;
   int r = threadIdx.x / S::kCh;
   if constexpr (kStep % 8 == 0) {
     const T* s = src + (row0 + r) * stride + c * S::kChunk;
     T* d = dst + S::at(r, c * S::kChunk);
-    for (; r < R; r += kStep, s += kStep * stride, d += kStep * D) cp_async16(d, row0 + r < n ? s : src, row0 + r < n);
+    for (; r < R; r += kStep, s += kStep * stride, d += kStep * D) {
+      const bool ok = row0 + r < n && col_ok;
+      cp_async16(d, ok ? s : src, ok);
+    }
   } else {
     for (; r < R; r += kStep) {
-      const bool ok = row0 + r < n;
+      const bool ok = row0 + r < n && col_ok;
       cp_async16(dst + S::at(r, c * S::kChunk), ok ? src + (row0 + r) * stride + c * S::kChunk : src, ok);
     }
   }

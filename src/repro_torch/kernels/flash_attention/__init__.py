@@ -47,7 +47,9 @@ a failure:
   warpgroups taking turns at the tensor cores, and the softcap in log2
   units (:func:`softcap_log2_plain`).
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
-  f16 at head_dim 16/32/64/128/256, in f32 FMAs on the CUDA cores,
+  f16 at head_dim 16/32/64/128/256 and at (D, Dv) = (24, 16) (the reduced
+  deepseek-v3's MLA, run on the head_dim-32 tiles with the columns past
+  the true widths zero), in f32 FMAs on the CUDA cores,
   ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
   128 packed query rows a block (:func:`packed_rows`), 8 x 8 micro-tiles
   a thread for the scores (each half of the block over half of D) and for
@@ -59,8 +61,8 @@ to its last, and masks the window's edge per element as it masks the
 causal one.
 
 Other head_dims (80 of zamba2, 192 with a v of 192) are refused on the
-card, and so is every Dv != D but (192, 128), with the route and the shape
-named. The scale is ``1/sqrt(D)`` of q/k's width.
+card, and so is every Dv != D but (192, 128) and (24, 16), with the route
+and the shape named. The scale is ``1/sqrt(D)`` of q/k's width.
 
 On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
 (naive f32 softmax, as the JAX package's ``ref.py:attention_ref`` and
@@ -74,37 +76,42 @@ view, not a copy.
 
 The gradient. When autograd wants one (grad mode on and q, k or v
 requiring it), the call goes through a ``torch.autograd.Function``: the
-forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128/256) or
-the ``f32`` route (the rest), never on ``decode``, and also writes each
+forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128/256 and
+at (192, 128)) or the ``f32`` route (the rest), never on ``decode``, and
+also writes each
 row's log-sum-exp (``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``). The
 backward (:func:`launch_backward`) takes one of two routes, again by dtype
 and shape alone (:func:`_bwd_route`), both with or without a window:
 
-* ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at head_dim
-  64/128/256, the training step's path. Three kernels at head_dim 64/128:
+* ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at (D, Dv)
+  in ``TC_DIM_PAIRS`` (head_dim 64/128/256, and deepseek-v3's expanded
+  MLA at (192, 128)), the training step's path. Three kernels at head_dim
+  64/128:
   ``pre`` (``D_i = rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and
   ``dq`` (one block 128 query rows), with ``wgmma`` products fed by TMA.
 * ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
-  head_dim 16/32/64/128/256 otherwise, in f32 FMAs. Three kernels at
-  head_dim 16-128: ``pre`` (``D_i`` and the lse into a stats scratch in
+  head_dim 16/32/64/128/256 and at (24, 16) otherwise, in f32 FMAs. Three
+  kernels at head_dim 16-128 and at (24, 16) (the head_dim-32 kernels with
+  the columns past the true widths zero): ``pre`` (``D_i`` and the lse into a stats scratch in
   packed-row order), ``dkdv`` (64 keys a block; Q/dO sub-tiles through a
   two-stage ``cp.async`` ring) and ``dq`` (128 packed query rows a block;
   K/V tiles through the ring).
 
-At head_dim 256 both routes launch ``pre`` and then one persistent kernel,
-``dkdv_dq``, that walks the dK/dV items (keys of a KV head) and the dQ
-items (query rows; ``BWD256_ROWS`` a item) of the call in one work list,
-heaviest first, each block's share assigned on the host
-(:func:`bwd256_order`, cached on the device by shape): :func:`bwd_kernels`
-names what a call launches.
+At head_dim 256 both routes, and the ``tensor_core`` route at (192, 128),
+launch ``pre`` and then one persistent kernel, ``dkdv_dq``, that walks the
+dK/dV items (keys of a KV head) and the dQ items (query rows;
+``BWD256_ROWS`` a item) of the call in one work list, heaviest first, each
+block's share assigned on the host (:func:`bwd256_order`, cached on the
+device by shape): :func:`bwd_kernels` names what a call launches.
 
 ``BWD_LAUNCHES["<route>/<kernel>"]`` counts each kernel's launches. On the
 CPU the same ``Function`` runs :func:`attention_plain` and
 :func:`attention_backward_plain` at any head_dim. The JAX package has no
 Pallas backward: it differentiates its jnp ``chunked_attention``. On the
-card the backward refuses only the head_dims no kernel takes (80 of
-zamba2, 192 of deepseek-v3's MLA, which waits for the deepseek-v3 training
-slice); nothing falls back to another route.
+card the backward refuses the (q/k, v) pairs no kernel takes
+(:func:`_check_backward`: head_dim 80 of zamba2, (192, 128) in f32 or f16,
+every other Dv != D), naming the pair; nothing falls back to another
+route.
 """
 
 from __future__ import annotations
@@ -125,9 +132,14 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)  # the decode route's
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 128, 256)  # the tensor-core routes', forward and backward (bf16)
-#: the (q/k, v) head_dims the tensor-core forward takes: its plans
-#: (csrc/flash_attention_tc.cu), deepseek-v3's expanded MLA last
+#: the (q/k, v) head_dims the tensor-core forward and backward take (bf16):
+#: their plans (csrc/flash_attention_tc.cu, csrc/flash_attention_bwd_tc.cu),
+#: deepseek-v3's expanded MLA last
 TC_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
+#: the Dv != D pairs the CUDA-core routes take (the f32 forward and the
+#: cuda_core backward, f32, bf16 and f16): the reduced deepseek-v3's MLA,
+#: q/k 16 + 8 and v 16, on the head_dim-32 kernels
+CC_DIM_PAIRS = ((24, 16),)
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 route's (f32, bf16, f16)
 MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
 DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
@@ -141,8 +153,10 @@ TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scr
 #: the backward's routes and each one's kernels (:func:`bwd_kernels` names
 #: those a call launches, in order)
 BWD_KERNELS = {"tensor_core": ("pre", "dkdv", "dq", "dkdv_dq"), "cuda_core": ("pre", "dkdv", "dq", "dkdv_dq")}
-#: the head_dim whose backward walks its dK/dV and dQ items in one launch
-BWD_ONE_LAUNCH_DIM = 256
+#: the (q/k, v) pairs whose backward walks its dK/dV and dQ items in one
+#: launch (both routes at 256, the tensor-core route at deepseek-v3's (192,
+#: 128))
+BWD_ONE_LAUNCH_PAIRS = ((256, 256), (192, 128))
 #: the head_dim-256 backwards' item rows by route: keys a dK/dV item and
 #: query rows a dQ item (packed rows on ``cuda_core``), and the rows of the
 #: tiles an item streams (query tiles of 64 rows or sub-tiles of 64 packed
@@ -405,8 +419,9 @@ def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False, v: Optional[tor
     at (D, Dv) = (192, 128) (v's head_dim ``Dv`` is D unless ``v`` is
     given), ``f32`` for the rest. A call that needs a gradient (``grad``)
     never goes to ``decode``: only the other two forwards write the
-    log-sum-exp the backward reads. Only ``tensor_core`` takes Dv != D: any
-    other pair goes to ``f32``, which refuses it."""
+    log-sum-exp the backward reads. Dv != D goes to ``tensor_core`` for bf16
+    at (192, 128) and to ``f32`` otherwise, which takes (24, 16) and
+    refuses any other pair."""
     _, hq, sq, d = q.shape
     vd = d if v is None else v.shape[3]
     if vd != d:
@@ -419,17 +434,22 @@ def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False, v: Optional[tor
     return "f32"
 
 
-def _bwd_route(q: torch.Tensor) -> str:
+def _bwd_route(q: torch.Tensor, v: Optional[torch.Tensor] = None) -> str:
     """The backward's route, from dtype and shape alone: ``tensor_core``
-    for bf16 at head_dim 64/128/256, ``cuda_core`` for the rest."""
-    return "tensor_core" if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS else "cuda_core"
+    for bf16 at a (q/k, v) head_dim pair of ``TC_DIM_PAIRS`` (v's
+    head_dim is q's unless ``v`` is given), ``cuda_core`` for the rest."""
+    d = q.shape[-1]
+    pair = (d, d if v is None else v.shape[-1])
+    return "tensor_core" if q.dtype == torch.bfloat16 and pair in TC_DIM_PAIRS else "cuda_core"
 
 
-def bwd_kernels(d: int) -> Tuple[str, ...]:
-    """The kernels a backward call at head_dim ``d`` launches on either
-    route, in order: ``pre``, then ``dkdv`` and ``dq``, or at head_dim 256
-    the one launch of both, ``dkdv_dq``."""
-    return ("pre", "dkdv_dq") if d == BWD_ONE_LAUNCH_DIM else ("pre", "dkdv", "dq")
+def bwd_kernels(d: int, dv: Optional[int] = None) -> Tuple[str, ...]:
+    """The kernels a backward call at (q/k, v) head_dims ``(d, dv)`` (``dv``
+    defaults to ``d``) launches, in order: ``pre``, then ``dkdv`` and
+    ``dq``, or at a pair of ``BWD_ONE_LAUNCH_PAIRS`` the one launch of both,
+    ``dkdv_dq``."""
+    pair = (d, d if dv is None else dv)
+    return ("pre", "dkdv_dq") if pair in BWD_ONE_LAUNCH_PAIRS else ("pre", "dkdv", "dq")
 
 
 def bwd256_items(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *, causal: bool = True,
@@ -481,20 +501,25 @@ def bwd256_items(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *,
     return items
 
 
-def bwd256_weight(item) -> int:
-    """An item's work in products of its rows x a tile's 64 x 256: four a
-    live tile of a dK/dV item (S^T, dP^T, dV, dK) and three of a dQ item
-    (S, dP, dQ), and one or two for its epilogue."""
+def bwd256_weight(item, dims: Tuple[int, int] = (256, 256)) -> float:
+    """An item's work in products of its rows x a tile's 64 x 256 at the
+    (q/k, v) head_dims ``dims``: a live tile of a dK/dV item takes S^T and
+    dK over q/k's width and dP^T and dV over v's, a dQ item's S and dQ over
+    q/k's and dP over v's; and the epilogue writes dK and dV (dQ). At (256,
+    256) that is four (three) a tile and two (one) for the epilogue."""
     kind, n = item[0], item[5]
-    return 4 * n + 2 if kind == 0 else 3 * n + 1
+    d, dv = dims
+    return (2 * (d + dv) * n + d + dv) / 256 if kind == 0 else ((2 * d + dv) * n + d) / 256
 
 
 def bwd256_order(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *, causal: bool = True,
-                 q_offset: int = 0, kv_len: Optional[int] = None, window: int = 0, sms: int = 132) -> list:
-    """The head_dim-256 backward's work list, as its ``dkdv_dq`` kernel
+                 q_offset: int = 0, kv_len: Optional[int] = None, window: int = 0, sms: int = 132,
+                 dims: Tuple[int, int] = (256, 256)) -> list:
+    """The one-launch backward's work list (head_dim 256, and the
+    tensor-core route's (192, 128): ``dims``), as its ``dkdv_dq`` kernel
     walks it: for each of ``min(items, sms)`` persistent blocks, its items
     in order. The items (:func:`bwd256_items`) go heaviest first
-    (:func:`bwd256_weight`; ties by kind, batch, head, tile), each to the
+    (:func:`bwd256_weight` at ``dims``; ties by kind, batch, head, tile), each to the
     block with the least work so far (the lowest index among equals), so
     every block walks its own items heaviest first and no block ends more
     than one item's work after the mean."""
@@ -502,14 +527,14 @@ def bwd256_order(route: str, batch: int, hq: int, hkv: int, sq: int, sk: int, *,
 
     items = bwd256_items(route, batch, hq, hkv, sq, sk, causal=causal, q_offset=q_offset, kv_len=kv_len,
                          window=window)
-    items.sort(key=lambda it: (-bwd256_weight(it), it[:4]))
+    items.sort(key=lambda it: (-bwd256_weight(it, dims), it[:4]))
     grid = min(len(items), sms)
     heap = [(0, i) for i in range(grid)]
     blocks = [[] for _ in range(grid)]
     for it in items:
         load, i = heapq.heappop(heap)
         blocks[i].append(it)
-        heapq.heappush(heap, (load + bwd256_weight(it), i))
+        heapq.heappush(heap, (load + bwd256_weight(it, dims), i))
     return blocks
 
 
@@ -657,10 +682,10 @@ def launch_route(
         if (d, vd) not in TC_DIM_PAIRS:
             raise ValueError(f"flash_attention: the tensor_core route takes (q/k, v) head_dim in {TC_DIM_PAIRS}, "
                              f"got head_dim ({d}, {vd}) of q {tuple(q.shape)}, v {tuple(v.shape)}")
-    elif vd != d:
-        raise ValueError(f"flash_attention: the {route} route takes v's head_dim equal to q/k's, got head_dim "
-                         f"({d}, {vd}) of q {tuple(q.shape)}, v {tuple(v.shape)}")
-    else:
+    elif vd != d and not (route == "f32" and (d, vd) in CC_DIM_PAIRS):
+        raise ValueError(f"flash_attention: the {route} route takes v's head_dim equal to q/k's (f32: also (q/k, "
+                         f"v) in {CC_DIM_PAIRS}), got head_dim ({d}, {vd}) of q {tuple(q.shape)}, v {tuple(v.shape)}")
+    elif vd == d:
         dims = HEAD_DIMS if route == "decode" else F32_HEAD_DIMS
         if d not in dims:
             raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
@@ -702,24 +727,39 @@ def launch_route(
         err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, vd, *flags, lse_ptr, stream)
     else:
         name = "th_flash_attention"
-        err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, lse_ptr, stream)
+        err = lib.th_flash_attention(*args, _CODES[q.dtype], b, hq, hkv, sq, d, vd, *flags, lse_ptr, stream)
     build.check(name, err)
     return (out, lse) if with_lse else out
 
 
+def _bwd_takes(route: str, dtype: torch.dtype, d: int, dv: int) -> bool:
+    """Whether ``route``'s backward kernels take (q/k, v) head_dims ``(d,
+    dv)`` in ``dtype``: ``tensor_core`` bf16 at ``TC_DIM_PAIRS``,
+    ``cuda_core`` head_dim ``BWD_HEAD_DIMS`` with Dv = D and the pairs of
+    ``CC_DIM_PAIRS``, in f32, bf16 and f16."""
+    if route == "tensor_core":
+        return dtype == torch.bfloat16 and (d, dv) in TC_DIM_PAIRS
+    return (d == dv and d in BWD_HEAD_DIMS) or (d, dv) in CC_DIM_PAIRS
+
+
 def _check_backward(q: torch.Tensor, v: Optional[torch.Tensor] = None) -> None:
-    """Raise where no backward kernel takes the call: on CUDA, a head_dim
-    outside ``BWD_HEAD_DIMS``, or v's head_dim apart from q's (the plain
-    version on the CPU takes any)."""
+    """Raise where no backward kernel takes the call: on CUDA, a (q/k, v)
+    head_dim pair (v's is q's unless ``v`` is given) that neither route
+    takes in q's dtype, named with what it waits for (the plain version on
+    the CPU takes any)."""
     d = q.shape[-1]
-    if q.device.type == "cpu":
+    dv = d if v is None else v.shape[-1]
+    if q.device.type == "cpu" or any(_bwd_takes(r, q.dtype, d, dv) for r in BWD_KERNELS):
         return
-    if d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention: the backward kernels take head_dim {BWD_HEAD_DIMS}, got {d} "
-                                  "(head_dim 80 waits for the zamba2 slice, 192 for the deepseek-v3 training slice)")
-    if v is not None and v.shape[-1] != d:
-        raise NotImplementedError(f"flash_attention: the backward kernels take v's head_dim equal to q/k's, got "
-                                  f"({d}, {v.shape[-1]}) (MLA's waits for the deepseek-v3 training slice)")
+    if (d, dv) in TC_DIM_PAIRS:
+        why = f"({d}, {dv}) runs on the tensor cores in bfloat16 only; a CUDA-core backward at it is not written"
+    elif d == dv:
+        why = "head_dim 80 waits for the zamba2 slice; q/k 192 goes with a v of 128 only"
+    else:
+        why = "no other Dv != D pair has a kernel"
+    raise NotImplementedError(
+        f"flash_attention: the backward kernels take bfloat16 (q/k, v) head_dims {TC_DIM_PAIRS} (tensor_core), "
+        f"head_dim {BWD_HEAD_DIMS} and {CC_DIM_PAIRS} (cuda_core), got ({d}, {dv}) in {q.dtype} ({why})")
 
 
 def attention_backward(
@@ -763,31 +803,34 @@ def launch_backward(
     """Launch a backward route's kernels on CUDA tensors, or raise where
     the route does not take the call: ``route`` defaults to
     :func:`_bwd_route`'s choice; naming one is for measurements that hold
-    the two side by side. ``tensor_core`` (bf16, head_dim 64/128/256): the
-    ``pre``, ``dkdv`` and ``dq`` kernels of
-    ``csrc/flash_attention_bwd_tc.cu``; ``cuda_core`` (f32, bf16 or f16,
-    head_dim 16/32/64/128/256): the ``pre``, ``dkdv`` and ``dq`` kernels of
-    ``csrc/flash_attention_bwd.cu``. Both take a window and strided
+    the two side by side. ``tensor_core`` (bf16, (q/k, v) head_dims
+    ``TC_DIM_PAIRS``): the kernels of ``csrc/flash_attention_bwd_tc.cu``;
+    ``cuda_core`` (f32, bf16 or f16, head_dim 16/32/64/128/256 and (24,
+    16)): the kernels of ``csrc/flash_attention_bwd.cu`` (:func:`bwd_kernels`
+    names them). Both take a window and strided
     q/k/v/out/dout; ``lse`` is the forward's (:func:`launch_route`
     ``with_lse``). The gradients are laid out ``[B, S, H, D]`` under their
     ``[B, H, S, D]`` views, as the forward's output."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    route = _bwd_route(q) if route is None else route
+    hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
+    route = _bwd_route(q, v) if route is None else route
     if route not in BWD_KERNELS:
         raise ValueError(f"flash_attention backward: unknown route {route!r}")
-    if route == "tensor_core" and (q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS):
-        raise ValueError(f"flash_attention backward: the tensor_core route takes bfloat16 at head_dim "
-                         f"{TC_HEAD_DIMS}, got {q.dtype} at head_dim {d}")
+    _check_backward(q, v)
+    if not _bwd_takes(route, q.dtype, d, vd):
+        takes = (f"bfloat16 at (q/k, v) head_dim {TC_DIM_PAIRS}" if route == "tensor_core" else
+                 f"head_dim {BWD_HEAD_DIMS} with v's equal, and (q/k, v) {CC_DIM_PAIRS}")
+        raise ValueError(f"flash_attention backward: the {route} route takes {takes}, got {q.dtype} at "
+                         f"({d}, {vd})")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention backward: unsupported device {q.device}")
-    _check_backward(q, v)
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"flash_attention backward: Hq/Hkv <= {MAX_GROUP}, got {hq // hkv}")
-    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
+    o_shape = (b, hq, sq, vd)
+    if out.shape != o_shape or dout.shape != o_shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attention backward: out {tuple(out.shape)} {out.dtype} and dout "
-                         f"{tuple(dout.shape)} {dout.dtype} must match q {tuple(q.shape)} {q.dtype}")
+                         f"{tuple(dout.shape)} {dout.dtype} must be {o_shape} {q.dtype}")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention backward: lse must be float32 {(b, hq, sq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
@@ -795,14 +838,14 @@ def launch_backward(
         raise ValueError("flash_attention backward: q, out, lse and dout must be on one device")
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device).transpose(1, 2)
-    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device).transpose(1, 2)
+    dv = torch.empty((b, sk, hkv, vd), dtype=v.dtype, device=v.device).transpose(1, 2)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     lse = lse.contiguous()
     tensors = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    tail = (b, hq, hkv, sq, sk, d, int(bool(causal)), float(softcap), int(q_offset), kv_len, max(int(window), 0))
+    tail = (b, hq, hkv, sq, sk, d, vd, int(bool(causal)), float(softcap), int(q_offset), kv_len, max(int(window), 0))
     ptrs = tuple(t.data_ptr() for t in tensors)
     lib = build.library()
     stream = build.stream_ptr(q.device)
@@ -819,11 +862,12 @@ def launch_backward(
     # every launch's arguments first, so the card does not wait on the host
     # between them
     calls = []
-    for kernel in bwd_kernels(d):
+    for kernel in bwd_kernels(d, vd):
         call = args
         if kernel == "dkdv_dq":
             work, grid = _bwd256_work(route, q.device, b, hq, hkv, sq, sk, causal=bool(causal),
-                                      q_offset=int(q_offset), kv_len=kv_len, window=max(int(window), 0))
+                                      q_offset=int(q_offset), kv_len=kv_len, window=max(int(window), 0),
+                                      dims=(d, vd))
             call = (*args[:-1], work.data_ptr(), grid, stream)
         name = f"th_flash_bwd_{'tc_' if route == 'tensor_core' else ''}{kernel}"
         calls.append((kernel, name, getattr(lib, name), call))

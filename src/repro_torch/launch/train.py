@@ -8,14 +8,16 @@ pattern). The port's counterpart of the JAX package's
     python -m repro_torch.launch.train --steps 50
     python -m repro_torch.launch.train --arch gemma2-2b --steps 50
     python -m repro_torch.launch.train --arch dbrx-132b --steps 50     # the reduced dbrx: 8 experts, top-2
+    python -m repro_torch.launch.train --arch deepseek-v3-671b --steps 50   # MLA at q/k 16 + 8, v 16
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs on the host. The dense decoder (llama3-8b, yi-34b,
-deepseek-coder-33b, gemma2-2b) and the routed experts of dbrx-132b are
-ported; another arch exits with the slice it waits for (deepseek-v3-671b
-is served but waits for its training slice: its MLA attention has no
-backward kernel yet). With ``--publish`` the trainer registers its parameters
+deepseek-coder-33b, gemma2-2b), the routed experts of dbrx-132b and
+deepseek-v3-671b's MLA attention are ported (the reduced deepseek-v3's
+attention, q/k 24 and v 16 in f32, runs the f32 forward and the CUDA-core
+backward on the card); another arch exits with the slice it waits for.
+With ``--publish`` the trainer registers its parameters
 themselves with a local TensorHub, and each step (which writes them in
 place) is published from those buffers with no copy.
 """

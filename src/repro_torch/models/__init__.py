@@ -8,8 +8,11 @@ and weight carry-across from the JAX package (``params``), and
 for the dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b)
 and for the MoE family (dbrx-132b, and deepseek-v3-671b with its MLA
 attention), and raises ``NotImplementedError`` naming the slice of the
-port that each other family waits for. ``check_trainable`` also refuses
-MLA for training: its backward waits for the deepseek-v3 training slice.
+port that each other family waits for. ``check_trainable`` takes what
+``build_model`` takes: every ported config is trained too, deepseek-v3's
+MLA attention included (its expanded form's backward on the tensor cores
+at q/k 192, v 128 in bf16, and on the CUDA cores at the reduced config's
+24/16).
 """
 
 from __future__ import annotations
@@ -26,11 +29,6 @@ WAITING = {
 }
 
 
-#: what training a config with MLA attention waits for
-MLA_TRAINING = ("the deepseek-v3 training slice (the tensor-core attention backward at q/k 192, v 128, "
-                "and the reduced config's head_dims 24/16 on the CUDA-core routes)")
-
-
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port serves ``cfg``: the
     dense and MoE families (routed experts, a shared expert, a dense
@@ -42,10 +40,9 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port trains ``cfg``: what it
-    serves (:func:`check_ported`) without MLA attention, on every device."""
+    serves (:func:`check_ported`), MLA attention included, on every
+    device."""
     check_ported(cfg)
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: training MLA attention waits for {MLA_TRAINING} of the port")
 
 
 def build_model(cfg: ModelConfig, **kw):

@@ -142,7 +142,11 @@ def mla_apply(
     values are materialised from the latent and go with the queries
     ``[q_nope | q_rope]`` to ``attention`` (causal; q/k of ``qk_nope +
     qk_rope`` and v of ``v_head_dim``: the flash kernel's (192, 128) plan
-    for deepseek-v3). With a cache (decode) the absorbed form: the step's
+    for deepseek-v3). The expanded form is also what training
+    differentiates: autograd sums the broadcast rope key's per-head
+    gradients back into ``wkv_a``, and the attention's backward is the
+    flash kernels' at (192, 128) (bf16, tensor cores) or (24, 16) (the
+    reduced config, CUDA cores). With a cache (decode) the absorbed form: the step's
     latent and rope key are written into the cache in place at
     ``cache_len`` (the JAX package's ``dynamic_update_slice`` returns a new
     cache), ``wkv_b_k`` is folded into the queries (``q_abs``, in the

@@ -243,7 +243,7 @@ class TrainerWorker:
         self.model_cfg = model_cfg
         self.device = hub.device
         self.dtype = dtype
-        check_trainable(model_cfg)  # before any weight is allocated: MLA waits for its training slice
+        check_trainable(model_cfg)  # before any weight is allocated: a family not ported is refused
         self.model = build_model(model_cfg)
         self.queue = rollout_queue
         self.opt = AdamW(lr=cfg.lr, weight_decay=0.0)

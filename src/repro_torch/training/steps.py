@@ -9,11 +9,13 @@ as soon as the step returns. Gradients are taken with
 ``torch.autograd.grad`` on ``detach()``ed views that share the registered
 storage: the registered tensors themselves never require a gradient.
 
-The decoder LM is ported, dense and with routed experts (dbrx): the
-backward of the MoE FFN's gathers, scatters and expert products is
-autograd's. Configs with MLA attention (deepseek-v3, served but not yet
-trained) and of the audio, VLM, hybrid and SSM families raise
-``NotImplementedError`` and wait for their slices
+The decoder LM is ported, dense and with routed experts (dbrx) and with
+MLA attention (deepseek-v3): the backward of the MoE FFN's gathers,
+scatters and expert products is autograd's, and so is MLA's around its
+attention (the rope key broadcast over the heads sums each head's
+gradient back into ``wkv_a``); the attention's own backward is flash
+attention's kernels. Configs of the audio, VLM, hybrid and SSM families
+raise ``NotImplementedError`` and wait for their slices
 (:func:`repro_torch.models.check_trainable`).
 """
 
@@ -46,7 +48,7 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    check_trainable(cfg)  # MLA, VLM and the other families are refused
+    check_trainable(cfg)  # VLM and the other families not ported are refused
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
@@ -125,7 +127,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    check_trainable(cfg)  # MLA, VLM and the other families are refused
+    check_trainable(cfg)  # VLM and the other families not ported are refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

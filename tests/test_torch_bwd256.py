@@ -177,6 +177,43 @@ def test_kernels_a_call_launches():
     assert all(set(fa.bwd_kernels(d)) <= set(ks) for ks in fa.BWD_KERNELS.values() for d in (16, 64, 256))
 
 
+def test_kernels_a_call_launches_at_the_mla_pairs():
+    """deepseek-v3's (192, 128) runs the one-launch plan (on the tensor
+    cores), the reduced config's (24, 16) the three CUDA-core kernels."""
+    assert fa.bwd_kernels(192, 128) == ("pre", "dkdv_dq")
+    assert fa.bwd_kernels(24, 16) == ("pre", "dkdv", "dq")
+    assert fa.bwd_kernels(256, 256) == fa.bwd_kernels(256)
+
+
+@pytest.mark.parametrize("n", [0, 1, 9])
+def test_item_weights_at_each_plan(n):
+    """At (256, 256) the weights are four products a dK/dV tile and three a
+    dQ tile (two and one for the epilogue); at (192, 128) each product is
+    weighed by its width: 2 (192 + 128) = 640 columns a dK/dV tile, 2 x 192
+    + 128 = 512 a dQ tile, in units of 256."""
+    kv, q = (0, 0, 0, 0, 0, n), (1, 0, 0, 0, 0, n)
+    assert fa.bwd256_weight(kv) == 4 * n + 2 and fa.bwd256_weight(q) == 3 * n + 1
+    assert fa.bwd256_weight(kv, (192, 128)) == (640 * n + 320) / 256
+    assert fa.bwd256_weight(q, (192, 128)) == (512 * n + 192) / 256
+
+
+def test_mla_work_list_at_phase_12():
+    """Phase 12's training shape (4 sequences of 576, 128 heads of their own
+    K/V) at (192, 128): the same items as at 256, each block's heaviest
+    first by the (192, 128) weights, no block more than one item over the
+    mean, and the same list for the same call."""
+    shape, kw = ("tensor_core", 4, 128, 128, 576, 576), dict(causal=True, sms=132)
+    blocks = fa.bwd256_order(*shape, dims=(192, 128), **kw)
+    items = [it for blk in blocks for it in blk]
+    assert sorted(items) == sorted(it for blk in fa.bwd256_order(*shape, **kw) for it in blk)
+    weight = lambda it: fa.bwd256_weight(it, (192, 128))  # noqa: E731
+    for blk in blocks:
+        assert [weight(it) for it in blk] == sorted((weight(it) for it in blk), reverse=True)
+    loads = [sum(map(weight, blk)) for blk in blocks]
+    assert max(loads) <= sum(loads) / len(loads) + max(map(weight, items))
+    assert fa.bwd256_order(*shape, dims=(192, 128), **kw) == blocks
+
+
 #: (label, b, hq, hkv, sq, sk, causal, softcap, q_offset, kv_len, window):
 #: the edges the kernels must cover, at head_dim 256
 GRAD_CASES = [

@@ -11,8 +11,9 @@ refused with the slice it waits for, by ``build_model`` and by both entry
 points; dbrx is built, trained by ``launch/train.py`` at its reduced
 config and served by ``serve()`` at a reduced config (``serve.main``
 refuses its 40 layers, which do not fit a device, before allocating
-anything); deepseek-v3 is built and served, and every training entry point
-refuses it with the deepseek-v3 training slice named.
+anything); deepseek-v3 is built, served and, its MLA attention included,
+taken by every training entry point on the host (a step with a finite
+loss, a registered trainer, ``launch/train.py`` printing finite losses).
 """
 
 import dataclasses
@@ -35,13 +36,12 @@ from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
 PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
-#: served (deepseek-v3's MLA waits for its training slice)
+#: served and trained
 SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b",)
 OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS)
 #: what the refusal of each family that is not ported names
 WAITS_FOR = {"vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
 #: what the training entry points' refusal of MLA names
-MLA_TRAINING = "deepseek-v3 training slice"
 
 
 def test_registry_ids_equal():
@@ -146,13 +146,16 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     """MLA and routed experts build in a dense-family config too (with
     deepseek-v3's latent attention, shared expert and dense prefix), as
     the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
-    family; training refuses the MLA one."""
+    family; training takes both, and still refuses a VLM config with its
+    slice named."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     mla = dataclasses.replace(base, mla=ds.mla)
     assert build_model(mla).is_mla
-    with pytest.raises(NotImplementedError, match=MLA_TRAINING):
-        check_trainable(mla)
+    check_trainable(mla)
+    vlm = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.VLM)
+    with pytest.raises(NotImplementedError, match="VLM slice"):
+        check_trainable(dataclasses.replace(vlm, mla=ds.mla))
     cfg = dataclasses.replace(base, moe=ds.moe)
     check_trainable(cfg)
     model = build_model(cfg)
@@ -164,28 +167,49 @@ def _tiny_deepseek():
 
 
 @pytest.mark.parametrize("entry", ["make_train_step", "make_grpo_step", "TrainerWorker", "launch.train"])
-def test_training_entry_points_refuse_mla_naming_its_slice(entry, capsys, monkeypatch):
-    """Every training entry point refuses deepseek-v3 (its MLA attention
-    has no backward kernel yet) with the slice named, before allocating a
-    weight, on the host as on the card."""
+def test_training_entry_points_refuse_mla_naming_its_slice(entry, capsys):
+    """Every training entry point takes the reduced deepseek-v3 (MLA at
+    q/k 16 + 8, v 16) on the host now that its slice is in (the test kept
+    its name from when they refused it): a train step and a GRPO step with
+    a finite loss, a TrainerWorker that registers its weights, and
+    ``launch.train`` printing a finite loss a step."""
+    import math
+    import re
+
+    import numpy as np
+
     from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.models.params import init_params
     from repro_torch.rl import loop
     from repro_torch.training import AdamW, make_grpo_step, make_train_step
 
     cfg = _tiny_deepseek()
-    monkeypatch.setattr(loop, "init_params", lambda *a, **k: pytest.fail("allocated"))
     if entry == "launch.train":
-        with pytest.raises(SystemExit) as exc:
-            train_main.main(["--arch", "deepseek-v3-671b", "--device", "cpu", "--steps", "1"])
-        assert exc.value.code == 2 and MLA_TRAINING in capsys.readouterr().err
+        train_main.main(["--arch", "deepseek-v3-671b", "--device", "cpu", "--steps", "1", "--batch", "2",
+                         "--seq", "12"])
+        losses = [float(x) for x in re.findall(r"loss (\S+)", capsys.readouterr().out)]
+        assert len(losses) == 1 and math.isfinite(losses[0])
         return
-    with pytest.raises(NotImplementedError, match=MLA_TRAINING):
-        if entry == "TrainerWorker":
-            hub = TensorHubClient(ReferenceServer(), device="cpu")
-            loop.TrainerWorker(hub, loop.RLConfig(model_name="t"), cfg, [])
-        else:
-            {"make_train_step": make_train_step, "make_grpo_step": make_grpo_step}[entry](
-                build_model(cfg), cfg, AdamW(lr=1e-3))
+    if entry == "TrainerWorker":
+        hub = TensorHubClient(ReferenceServer(), device="cpu")
+        trainer = loop.TrainerWorker(hub, loop.RLConfig(model_name="t"), cfg, [])
+        assert trainer.model.is_mla and set(trainer.params) == {n for n, _ in decoder_shapes(cfg)}
+        trainer.close()
+        return
+    model, opt = build_model(cfg), AdamW(lr=1e-3)
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 12)).astype(np.int64))
+    if entry == "make_train_step":
+        _, _, metrics = make_train_step(model, cfg, opt)(params, state, {"tokens": tokens})
+    else:
+        mask = torch.zeros((2, 11), dtype=torch.bool)
+        mask[:, 5:] = True
+        batch = {"tokens": tokens, "behavior_logprobs": torch.full((2, 11), -5.0), "loss_mask": mask,
+                 "advantages": torch.tensor([0.5, -0.5])}
+        _, _, metrics = make_grpo_step(model, cfg, opt)(params, state, batch)
+    assert math.isfinite(float(metrics["loss"]))
 
 
 def test_serve_answers_a_reduced_deepseek_v3():

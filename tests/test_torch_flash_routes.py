@@ -307,7 +307,12 @@ MLA_ROUTE_CASES = [
     ("f16", (1, 16, 16, 77, 77, 192, 128, F16), "f32"),
     ("another pair", (1, 8, 8, 64, 64, 128, 64, BF16), "f32"),
     ("the reduced config's 24/16", (1, 4, 4, 9, 9, 24, 16, BF16), "f32"),
+    ("24/16 in f32", (8, 4, 4, 64, 64, 24, 16, F32), "f32"),
+    ("24/16 in f16, G 4", (1, 8, 2, 77, 77, 24, 16, F16), "f32"),
+    ("24 with v 8", (1, 4, 4, 9, 9, 24, 8, F32), "f32"),
 ]
+#: the pairs a kernel takes, forward and backward: (d, dv, dtype) -> the backward's route
+MLA_TRAINED = {(192, 128, BF16): "tensor_core", **{(24, 16, t): "cuda_core" for t in (F32, BF16, F16)}}
 
 
 def _mla_meta(b, hq, hkv, sq, sk, d, dv, dtype):
@@ -318,27 +323,52 @@ def _mla_meta(b, hq, hkv, sq, sk, d, dv, dtype):
 @pytest.mark.parametrize("label,shape,route", MLA_ROUTE_CASES, ids=[c[0] for c in MLA_ROUTE_CASES])
 def test_mla_widths_route_only_to_the_tensor_core_forward(label, shape, route):
     """bf16 at (D, Dv) = (192, 128) goes to the tensor-core forward at any
-    Sq (the decode route takes no Dv != D); every other pair goes to the
-    f32 route, which refuses it naming the route and the shape. The
-    backward refuses it on the card with the deepseek-v3 training slice
-    named; without v, the route is the one of Dv = D."""
+    Sq (the decode route takes no Dv != D) and to the tensor-core backward
+    (``bwd_kernels`` names pre and the one dkdv_dq launch); (24, 16) goes
+    to the f32 forward and the cuda_core backward (pre, dkdv, dq) in every
+    dtype; every other pair goes to the f32 route, which refuses it naming
+    the route and the shape, and so does the backward, naming the pair
+    ((192, 128) in f32 or f16 among them). A call the kernels take stops at
+    the device check (meta tensors take the CUDA branch)."""
     q, k, v = _mla_meta(*shape)
+    d, dv, dtype = q.shape[-1], v.shape[-1], q.dtype
     assert fa._route(q, k, v=v) == route
     assert fa._route(q, k, grad=True, v=v) == route
+    trained = MLA_TRAINED.get((d, dv, dtype))
+    assert fa._bwd_route(q, v) == (trained or "cuda_core")
     if route == "tensor_core":
         with pytest.raises(TypeError, match="unsupported device"):  # every check passed
             fa.flash_attention(q, k, v, causal=True)
         for other in ("decode", "f32"):
             with pytest.raises(ValueError, match=rf"the {other} route takes v's head_dim.*\(192, 128\)"):
                 fa.launch_route(other, q, k, v)
+    elif (d, dv) in fa.CC_DIM_PAIRS:
+        with pytest.raises(TypeError, match="unsupported device"):
+            fa.flash_attention(q, k, v, causal=True)
+        with pytest.raises(ValueError, match=r"the decode route takes v's head_dim.*\(24, 16\)"):
+            fa.launch_route("decode", q, k, v)
     else:
         with pytest.raises(ValueError, match=r"the f32 route takes v's head_dim.*\(\d+, \d+\) of q"):
             fa.flash_attention(q, k, v, causal=True)
+    if route != "tensor_core":
         with pytest.raises((ValueError, TypeError), match=r"tensor_core route takes (\(q/k, v\) head_dim|bfloat16)"):
             fa.launch_route("tensor_core", q, k, v)
-    with pytest.raises(NotImplementedError, match="deepseek-v3 training slice"):
+    lse = torch.empty(q.shape[:3], dtype=F32, device="meta")
+    dout = torch.empty((*q.shape[:3], dv), dtype=dtype, device="meta")
+    if trained:
+        assert fa.bwd_kernels(d, dv) == (("pre", "dkdv_dq") if trained == "tensor_core" else ("pre", "dkdv", "dq"))
+        fa._check_backward(q, v)
+        with pytest.raises(TypeError, match="unsupported device"):  # every check passed
+            fa.flash_attention(q.requires_grad_(), k, v, causal=True)
+        with pytest.raises(TypeError, match="unsupported device"):
+            fa.launch_backward(q.detach(), k, v, dout, lse, dout)
+        other = "cuda_core" if trained == "tensor_core" else "tensor_core"
+        with pytest.raises(ValueError, match=rf"the {other} route takes .*got .*\({d}, {dv}\)"):
+            fa.launch_backward(q.detach(), k, v, dout, lse, dout, route=other)
+        return
+    with pytest.raises(NotImplementedError, match=rf"got \({d}, {dv}\) in {dtype}"):
         fa.flash_attention(q.requires_grad_(), k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="deepseek-v3 training slice"):
+    with pytest.raises(NotImplementedError, match=rf"got \({d}, {dv}\)"):
         fa._check_backward(q.detach(), v)  # what launch_backward checks on the card
 
 

@@ -1489,3 +1489,274 @@ def test_wide_softcap_against_tanh(dev, c):
     got = lse[0, 0].double()
     assert float((got - c * torch.tanh(x / c)).abs().max()) <= 1e-6 * c
     assert float((got - (c * torch.tanh(x.float() / c)).double()).abs().max()) <= 1e-6 * c
+
+
+# -- deepseek-v3 trained: the (192, 128) tensor-core backward, the CUDA-core routes at (24, 16) ----------------
+
+
+#: (b, hq, hkv, sq, sk, causal, softcap, q_offset, kv_len): the (192, 128)
+#: backward at phase 12's training shape (2 x 2 sequences of 576, 128 heads
+#: of their own K/V), then G 1 and 2, Sq off the 64-row tiles, kv_len < Sk
+#: with NaN past it, a q_offset, a softcap
+_MLA_BWD_CASES = [
+    (4, 128, 128, 576, 576, True, 0.0, 0, None),
+    (2, 16, 16, 77, 77, True, 0.0, 0, None),
+    (2, 16, 8, 130, 130, True, 0.0, 0, None),
+    (2, 16, 16, 256, 400, False, 0.0, 0, 300),
+    (1, 16, 8, 64, 600, True, 0.0, 500, 564),
+    (1, 16, 16, 200, 260, True, 0.0, 40, 240),
+    (2, 8, 4, 100, 100, True, 30.0, 0, None),
+]
+
+
+def _mla_inputs(dev, seed, b, hq, hkv, sq, sk, d, dv, dtype, kv_len=None):
+    """q [b, hq, sq, d], k [b, hkv, sk, d], v [b, hkv, sk, dv] and dout, with
+    NaN in K/V past kv_len, and the copies with zeros there that the plain
+    version reads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(s, generator=g, device=dev).to(dtype) for s in ((b, hq, sq, d), (b, hkv, sk, d)))
+    v = torch.randn((b, hkv, sk, dv), generator=g, device=dev).to(dtype)
+    dout = torch.randn((b, hq, sq, dv), generator=g, device=dev).to(dtype)
+    kz, vz = k.clone(), v.clone()
+    if kv_len is not None:
+        kz[:, :, kv_len:] = 0
+        vz[:, :, kv_len:] = 0
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+    return q, k, v, dout, kz, vz
+
+
+@pytest.mark.parametrize("case", _MLA_BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_mla_backward_on_the_tensor_cores_equals_plain(dev, case):
+    """bf16 at q/k 192, v 128: the tensor_core backward (pre, then the one
+    dkdv_dq launch) on the forward's own output and lse, against
+    attention_backward_plain within the bf16 tolerance of each gradient's
+    max |value|; dV at v's width (dV's shape is v's), zeros for the keys no
+    row sees, the same bits on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, causal, cap, q_offset, kv_len = case
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    q, k, v, dout, kz, vz = _mla_inputs(dev, sq + hq, b, hq, hkv, sq, sk, 192, 128, torch.bfloat16, kv_len)
+    assert fa._route(q, k, grad=True, v=v) == "tensor_core" and fa._bwd_route(q, v) == "tensor_core"
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+    launched = {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()}
+    assert launched == {n: int(n in ("tensor_core/pre", "tensor_core/dkdv_dq")) for n in fa.BWD_LAUNCHES}
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    want = fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= _FLASH_TOL[torch.bfloat16], (name, _rel_err(g, w))
+    dead = _dead_keys((b, hq, hkv, sq, sk, causal, cap, q_offset, kv_len, 0)).to(dev)
+    assert not got[1][:, :, dead].any() and not got[2][:, :, dead].any()
+    again = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_mla_backward_through_the_function(dev):
+    """The autograd Function at (192, 128): the tensor_core forward with the
+    lse, then the tensor_core backward, against autograd through the plain
+    attention."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, dout, _, _ = _mla_inputs(dev, 5, 2, 16, 16, 200, 200, 192, 128, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.BWD_LAUNCHES["tensor_core/dkdv_dq"].value
+    got = torch.autograd.grad(_routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves)), leaves, dout)
+    assert fa.BWD_LAUNCHES["tensor_core/dkdv_dq"].value == before + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref), ref, dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and _rel_err(g, w) <= _FLASH_TOL[torch.bfloat16], (name, _rel_err(g, w))
+
+
+def test_tensor_core_pre_sums_over_v_width(dev):
+    """The tensor-core pre kernel at (192, 128), called through its C entry
+    point: each query tile's stats hold the rows' lse times log2 e and D_i =
+    rowsum(dO * O) over v's 128 columns (zeros past Sq)."""
+    import ctypes
+    import math
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk = 2, 8, 8, 100, 100
+    q, k, v, dout, _, _ = _mla_inputs(dev, 11, b, hq, hkv, sq, sk, 192, 128, torch.bfloat16)
+    out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, causal=True)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    nq = -(-sq // fa.TC_BWD_TILE)
+    stats = torch.full((b * hq * nq * 2 * fa.TC_BWD_TILE,), float("nan"), device=dev)
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
+    err = build.library().th_flash_bwd_tc_pre(*(t.data_ptr() for t in tensors), lse.data_ptr(), stats.data_ptr(),
+                                              ctypes.addressof(strides), b, hq, hkv, sq, sk, 192, 128, 1, 0.0, 0, sk,
+                                              0, build.stream_ptr(dev))
+    build.check("th_flash_bwd_tc_pre", err)
+    st = stats.view(b, hq, nq, 2, fa.TC_BWD_TILE)
+    di = st[:, :, :, 1].reshape(b, hq, -1)
+    lse2 = st[:, :, :, 0].reshape(b, hq, -1)
+    want = (dout.float() * out.float()).sum(-1)
+    torch.testing.assert_close(di[..., :sq], want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse2[..., :sq], lse * math.log2(math.e), rtol=1e-6, atol=1e-6)
+    assert not di[..., sq:].any() and not lse2[..., sq:].any()
+
+
+#: (b, hq, hkv, sq, sk, causal, q_offset, kv_len) at the reduced deepseek-v3's
+#: (24, 16): launch.train's shape (8 x 64, 4 heads), Sq off the tiles, G 4,
+#: kv_len < Sk with NaN past it and a q_offset
+_NARROW_MLA_CASES = [
+    (8, 4, 4, 64, 64, True, 0, None),
+    (2, 4, 4, 77, 77, True, 0, None),
+    (1, 8, 2, 130, 130, True, 0, None),
+    (2, 4, 4, 100, 200, False, 0, 150),
+    (1, 8, 2, 64, 300, True, 200, 264),
+]
+
+
+def _flanked(t, width, lo):
+    """``t`` as a view of columns [lo, lo + width) of a wider tensor whose
+    other columns hold NaN: a kernel that reads past the view's width
+    returns NaN."""
+    wide = torch.full((*t.shape[:3], width + 16), float("nan"), device=t.device, dtype=t.dtype)
+    view = wide[..., lo : lo + width]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", _NARROW_MLA_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_mla_pair_24_16_on_the_cuda_core_routes(dev, case, dtype):
+    """q/k 24, v 16 (the reduced deepseek-v3) on the f32 forward, its lse,
+    and the cuda_core backward, against the plain versions within the
+    dtype's tolerance; the inputs are views inside wider tensors with NaN
+    around them (no column past a view is read); each output at its own
+    width and finite; the backward's bits the same on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, causal, q_offset, kv_len = case
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    q0, k0, v0, dout0, kz, vz = _mla_inputs(dev, sq + hq, b, hq, hkv, sq, sk, 24, 16, dtype, kv_len)
+    q, k, v, dout = _flanked(q0, 24, 8), _flanked(k0, 24, 0), _flanked(v0, 16, 8), _flanked(dout0, 16, 16)
+    assert fa._route(q, k, grad=True, v=v) == "f32" and fa._bwd_route(q, v) == "cuda_core"
+    assert fa._aligned(q) is q and fa._aligned(v) is v  # read in place, not copied
+    before = fa.ROUTE_LAUNCHES["f32"].value
+    out, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+    assert fa.ROUTE_LAUNCHES["f32"].value == before + 1 and out.shape == (b, hq, sq, 16)
+    tol = _FLASH_TOL[dtype]
+    _flash_close(out, fa.attention_plain(q0, kz, vz, **kw), dtype)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q0, kz, **kw), rtol=2e-5, atol=2e-5)
+    launched = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+    assert {n: c.value - launched[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "cuda_core", 24)
+    want = fa.attention_backward_plain(q0, kz, vz, out, lse, dout0, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == dtype and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+    again = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_mla_pair_24_16_through_the_function(dev):
+    """The Function at (24, 16) in f32, as launch.train's reduced deepseek-v3
+    calls it: the f32 forward and the cuda_core backward, against autograd
+    through the plain attention."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, dout, _, _ = _mla_inputs(dev, 3, 8, 4, 4, 64, 64, 24, 16, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = torch.autograd.grad(_routed(fa, "f32", lambda: fa.flash_attention(*leaves)), leaves, dout)
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, "cuda_core", 24)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref), ref, dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and _rel_err(g, w) <= _FLASH_TOL[torch.float32], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("pair", [(192, 128, torch.float32), (192, 128, torch.float16), (24, 8, torch.float32),
+                                  (128, 64, torch.bfloat16)], ids=lambda p: str(p))
+def test_backward_refuses_other_pairs_on_the_card(dev, pair):
+    from repro_torch.kernels import flash_attention as fa
+
+    d, dv, dtype = pair
+    q, k, v, _, _, _ = _mla_inputs(dev, 1, 1, 4, 4, 16, 16, d, dv, dtype)
+    with pytest.raises(NotImplementedError, match=rf"\({d}, {dv}\)"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_mla_decoder_grpo_step_on_the_card(dev, monkeypatch):
+    """A narrow deepseek-v3 (4 layers: 3 dense, 1 of 16 experts top-4 + a
+    shared one; 16 heads at the published MLA widths, d_model 1024) in bf16
+    takes one GRPO step's gradients on the card: each layer's attention on
+    the tensor-core forward and backward at (192, 128), nothing on the
+    CUDA-core kernels; every tensor's gradient finite and nonzero, within
+    chip_smoke.py's gates of a step with the plain attention (5e-2 relative
+    L2) and of a step with the same kernel forward and the plain backward
+    (2e-2 of its max |value|), each reference routed as the step was."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+
+    cfg = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, num_layers=4, d_model=1024, num_heads=16, num_kv_heads=16, vocab=1024,
+                              moe=dataclasses.replace(cfg.moe, num_experts=16, top_k=4, d_expert=256, d_ff_dense=512))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, s, prompt = 4, 200, 64
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+    model = build_model(cfg)
+    with torch.no_grad():  # on-policy behavior logprobs: every ratio 1, no clip zeroes a gradient
+        lp = torch.log_softmax(model.forward(params, {"tokens": toks})[:, :-1].float(), -1)
+        lp = lp.gather(-1, toks[:, 1:, None])[..., 0]
+    mask = torch.zeros((b, s - 1), dtype=torch.bool, device=dev)
+    mask[:, prompt - 1 :] = True
+    batch = {"tokens": toks, "behavior_logprobs": torch.where(mask, lp, 0.0), "loss_mask": mask,
+             "advantages": torch.randn(b, generator=g, device=dev)}
+    route, calls, pins = blocks.route, [], []
+
+    def recording(cfg, p, flat, experts=None):
+        top_p, top_e = route(cfg, p, flat, pins[len(calls)] if pins else None)
+        calls.append(top_e)
+        return top_p, top_e
+
+    monkeypatch.setattr(blocks, "route", recording)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    routes = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    grads, _ = value_and_grad(make_grpo_loss_fn(model), params, batch)
+    assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"f32": 0, "decode": 0, "tensor_core": 4}
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {
+        n: 4 * (n in ("tensor_core/pre", "tensor_core/dkdv_dq")) for n in fa.BWD_LAUNCHES}
+    pins.extend(calls)
+
+    class KernelForwardPlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kw):
+            out, lse = fa.launch_route(fa._route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.kw = kw
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            return (*fa.attention_backward_plain(*ctx.saved_tensors, dout, **ctx.kw), None)
+
+    refs = {}
+    for name, attention in (("plain", fa.attention_plain),
+                            ("plain_backward", lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v, kw))):
+        calls.clear()
+        refs[name], _ = value_and_grad(make_grpo_loss_fn(build_model(cfg, attention=attention)), params, batch)
+        assert len(calls) == len(pins)
+    for n, gk in grads.items():
+        assert torch.isfinite(gk).all() and gk.abs().max() > 0, n
+        want = refs["plain"][n].float()
+        l2 = float((gk.float() - want).norm() / want.norm().clamp_min(1e-30))
+        assert l2 <= 5e-2, (n, l2)
+        assert _rel_err(gk, refs["plain_backward"][n]) <= 2e-2, (n, _rel_err(gk, refs["plain_backward"][n]))

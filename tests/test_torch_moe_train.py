@@ -1,13 +1,16 @@
 """Training the MoE decoder in the port against the JAX package, on the CPU.
 
-Reduced dbrx (8 experts, top-2) and deepseek-v3's ``reduced()`` without
-MLA (a shared expert and a dense prefix layer), f32, their JAX parameters
+Reduced dbrx (8 experts, top-2), deepseek-v3's ``reduced()`` without
+MLA (a shared expert and a dense prefix layer) and with it (MLA attention
+at q/k 16 + 8 rope, v 16: the expanded form, whose attention backward is
+the flash Function's plain version on the host), f32, their JAX parameters
 carried across with ``from_numpy``: the GRPO objective's and the LM
 objective's gradients against ``jax.grad``, the GRPO step and the LM train
 step (``accum`` 1 and 2) against the JAX steps, and ``TrainerWorker.train_on``
-against the JAX trainer, all with no MoE code in the steps or the trainer:
-the backward of the dispatch's gathers and scatters and of the expert
-products is autograd's.
+against the JAX trainer (dbrx, and deepseek-v3 with MLA), all with no MoE
+or MLA code in the steps or the trainer: the backward of the dispatch's
+gathers and scatters, of the expert products and of MLA's projections is
+autograd's.
 
 Tolerances are ``tests/test_torch_training.py``'s: losses and metrics 2e-5
 relative and absolute; each tensor's gradient within 1e-4 of its max
@@ -50,7 +53,8 @@ from repro_torch.training import steps as psteps  # noqa: E402
 
 LOSS_TOL, GRAD_TOL, OPT_TOL = 2e-5, 1e-4, 1e-6
 FLIP_FLOOR, FLIP_SHARE = 1e-5, 0.05
-CONFIGS = {"dbrx": ("dbrx-132b", {}), "shared_prefix": ("deepseek-v3-671b", dict(mla=None))}
+CONFIGS = {"dbrx": ("dbrx-132b", {}), "shared_prefix": ("deepseek-v3-671b", dict(mla=None)),
+           "mla": ("deepseek-v3-671b", {})}
 VOCAB = 256
 
 
@@ -226,7 +230,17 @@ def test_train_step_matches_jax(model, accum):
 def test_train_on_matches_the_jax_trainer_on_dbrx():
     """``TrainerWorker`` runs reduced dbrx with no MoE code of its own: its
     ``train_on`` gives the JAX trainer's metrics, gradients and v1."""
-    jcfg, pcfg = _cfgs("dbrx")
+    _train_on_matches_the_jax_trainer("dbrx")
+
+
+def test_train_on_matches_the_jax_trainer_on_deepseek_mla():
+    """The same for the reduced deepseek-v3 with its MLA attention: no MLA
+    code in the trainer either."""
+    _train_on_matches_the_jax_trainer("mla")
+
+
+def _train_on_matches_the_jax_trainer(key):
+    jcfg, pcfg = _cfgs(key)
     rl_kw = dict(prompt_len=5, response_len=7, num_prompts=2, group_size=4, lr=1e-3, seed=3)
     jt = JaxTrainer(jax_core.TensorHubClient(jax_core.ReferenceServer()), JaxRLConfig(**rl_kw), jcfg, [])
     v0 = {k: np.array(v) for k, v in named_tensors(jt.params).items()}

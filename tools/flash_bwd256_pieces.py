@@ -8,7 +8,9 @@ one piece of their head_dim-256 kernels removed, each built alone (``nvcc
 and timed in a process of its own where the main path launches them
 (``tensor_core``: phase 10's [4, 8/4, 576, 256] bf16; ``cuda_core``: phase
 7's [2, 8/4, 512, 256] f32; both causal, softcap 50, window 4096) and at
-4672 rows ([2, 8/4, 4672, 256]):
+4672 rows ([2, 8/4, 4672, 256]); ``tensor_core`` also at phase 12's
+(192, 128) plan of the same kernel (q/k [4, 128, 576, 192], v [4, 128,
+576, 128] bf16, causal):
 
     whole        the kernels as they are
     no_pds       P and dS not formed from the scores (the softcap, the
@@ -50,12 +52,15 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 #: route -> (source file, (label, batch, sq, dtype name)); 8/4 heads of
-#: 256, causal, softcap 50, window 4096
+#: 256, causal, softcap 50, window 4096, but for the MLA shape
 ROUTES = {
-    "tensor_core": ("flash_attention_bwd_tc.cu", (("phase10", 4, 576, "bfloat16"), ("rows4672", 2, 4672, "bfloat16"))),
+    "tensor_core": ("flash_attention_bwd_tc.cu", (("phase10", 4, 576, "bfloat16"), ("rows4672", 2, 4672, "bfloat16"),
+                                                  ("phase12_mla", 4, 576, "bfloat16"))),
     "cuda_core": ("flash_attention_bwd.cu", (("phase7", 2, 512, "float32"), ("rows4672", 2, 4672, "float32"))),
 }
 KW = dict(causal=True, softcap=50.0, window=4096)
+#: the MLA shape's heads (each of its own K/V), (q/k, v) widths and call
+MLA = dict(hq=128, hkv=128, d=192, dv=128, kw=dict(causal=True))
 PIECES = ("whole", "no_pds", "no_handover", "no_store", "no_products")
 
 
@@ -84,9 +89,10 @@ CUTS = {
                    ("softmax_ds(s1);", "if (p.sq < 0) softmax_ds(s1);")],
         "no_handover": [("consumers_sync(kBarFree);", "if (p.sq < 0) consumers_sync(kBarFree);"),
                         ("consumers_sync(kBarFull);", "if (p.sq < 0) consumers_sync(kBarFull);")],
-        "no_store": [("      store_row128(", "      if (p.sq < 0) store_row128(")],
+        "no_store": [("store_row<", "if (p.sq < 0) store_row<")],
         "no_products": [("wgmma_ss_n32(sc,", "skip_wgmma(sc,"), ("wgmma_ss_n32(dp,", "skip_wgmma(dp,"),
-                        ("wgmma_ss_tb_n128(", "skip_wgmma(")],
+                        ("wgmma_ss_tb_n128(", "skip_wgmma("), ("wgmma_ss_tb_n64(", "skip_wgmma("),
+                        ("wgmma_ss_tb_n32(", "skip_wgmma(")],
     },
     "cuda_core": {
         "no_pds": [("if (p.softcap > 0.f) sv = p.softcap * tanhf(sv / p.softcap);", ""),
@@ -165,14 +171,17 @@ def time_piece(tree: Path, route: str, name: str, reps: int) -> dict:
     res = {}
     for label, b, s, dname in ROUTES[route][1]:
         dtype = getattr(torch, dname)
-        q = torch.randn((b, 8, s, 256), generator=g, device=dev).to(dtype)
-        k, v = (torch.randn((b, 4, s, 256), generator=g, device=dev).to(dtype) for _ in range(2))
-        dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
-        o = fa.attention_plain(q, k, v, **KW)  # the plain forward: the piece's library holds no forward
-        lse = fa.attention_lse_plain(q, k, **KW)
+        shape = MLA if label.endswith("mla") else dict(hq=8, hkv=4, d=256, dv=256, kw=KW)
+        kw = shape["kw"]
+        q = torch.randn((b, shape["hq"], s, shape["d"]), generator=g, device=dev).to(dtype)
+        k = torch.randn((b, shape["hkv"], s, shape["d"]), generator=g, device=dev).to(dtype)
+        v = torch.randn((b, shape["hkv"], s, shape["dv"]), generator=g, device=dev).to(dtype)
+        dout = torch.randn((b, shape["hq"], s, shape["dv"]), generator=g, device=dev).to(dtype)
+        o = fa.attention_plain(q, k, v, **kw)  # the plain forward: the piece's library holds no forward
+        lse = fa.attention_lse_plain(q, k, **kw)
 
         def call():
-            return fa.launch_backward(q, k, v, o, lse, dout, route=route, **KW)
+            return fa.launch_backward(q, k, v, o, lse, dout, route=route, **kw)
 
         n = max(3, reps // 4) if s > 1024 else reps
         res[label] = dict(call_cold_ms=cold_ms(torch, call, flush, reps=n),
