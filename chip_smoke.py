@@ -64,7 +64,13 @@ lines, any failure exiting non-zero:
    v's width, timed cold beside its kernels' split, the plain backward, the
    bound and SDPA's backward; the reduced config's (24, 16) on the f32
    forward (with the lse) and the cuda_core backward in f32, bf16 and f16
-   against the plain versions, timed at phase 7's shape.
+   against the plain versions, timed at phase 7's shape. internvl2-2b's
+   GQA group of 2 at phase 14's shapes: the tensor_core forward at the
+   served prefill (q [4,16,768,128], k/v [4,8,768,128] causal), the decode
+   route against the 832 slots (kv_len 769, 800 and 832, NaN past it),
+   and at the f32 training shape [2,16/8,512,128] the f32 forward with its
+   lse and the cuda_core backward, each against its plain version,
+   bit-equal on a rerun and timed beside it and SDPA.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -186,7 +192,34 @@ lines, any failure exiting non-zero:
    step), publish v1, update, round 1 on ``mla_decode``, under phase 6's
    gates (the gradients taken 2.5 GB at a time) and a peak under 80 GB.
 
-A ``kernels`` JSON line (launches over phases 3 to 12; flash
+13. The simulator (``repro_torch.transfer.simcluster``) on the H100
+   profile, on this host's CPU, at Table 3's sizes: Fig. 9's standalone
+   publish -> replicate -> update (9B, 36B, 260B; 1T is left out, minutes
+   of host time a run), Fig. 11's elastic replicate of 260B with 1 and 6
+   spot replicas, Fig. 12's cross-DC seeding over raw, int8 and
+   delta:int8, and a cross-DC TP-4 -> TP-2 int8 pull that reaches the
+   fused decode's drain. Each runs twice with the same stalls and link
+   bytes; every reader ends at the published version, its stall parts
+   summing to its stall; the cross-DC update carries one copy's wire
+   bytes over the WAN; the resharded pull's decode part under H100 is no
+   larger than under an 819 GB/s profile. A ``sim`` line prints each
+   scenario's stalls, WAN bytes and wall seconds, and the profile's
+   modeled drain (HBM / 3) beside phase 2's measured ``dequant_gather``
+   and ``copy_`` rates.
+
+14. The VLM family: internvl2-2b at its published widths and all 24
+   layers (d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab
+   92553, 256 patches), bf16, served from a rollout replica's registered
+   buffers: 4 x (256 patches + 512 tokens) prefilled, 64 tokens decoded
+   against 832 slots, before and after an update to v1, held to phase 5's
+   gates against a teacher-forced forward with the plain attention; each
+   round launches 24 tensor-core forwards and 24 x 64 decode-route ones.
+   The prefill and decode steps are then timed on the model as
+   ``build_model`` builds it (the default attention). Then ``launch.train --arch internvl2-2b --full-config`` for two f32
+   steps of 2 x (256 stand-in patches + 256 tokens) on the f32 forward and
+   the cuda_core backward.
+
+A ``kernels`` JSON line (launches over phases 3 to 14; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -209,6 +242,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+try:  # the card's published peaks, the port's H100 profile: one source for every bound
+    from repro_torch.transfer.hardware import H100
+except ImportError:  # run from the root of a checkout: its src/ joins the path
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.transfer.hardware import H100
+    except ImportError as e:
+        sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
 SEED = 0
 NUM_LAYERS = 10  # of llama3-8b's 32: three replicas and their delta bases fit one 80 GB card
 GIB = 1 << 30
@@ -236,7 +277,7 @@ def memory_rate(name: str) -> tuple:
         return "H100 PCIe", 2.0e12
     if "NVL" in name:
         return "H100 NVL", 3.9e12
-    return "H100 SXM", 3.35e12
+    return "H100 SXM", H100.hbm_bw
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -674,7 +715,7 @@ def reshard_kernel_checks(torch, dev, bw: float) -> dict:
             source="src/repro_torch/kernels/csrc/fused.cu",
             replaces="src/repro/kernels/quant/fused.py:159",
             max_abs_err=f_worst, ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound_ms,
-            bound_by="bytes", library_ms=None, copy_ms=f_copy_ms,
+            bound_by="bytes", library_ms=None, copy_ms=f_copy_ms, output_bytes=unit8.nbytes,
             timed_shape=f"int8 -> bfloat16[{elems}] ({W_GATE} TP-2 unit, {len(placed)} placements)",
             matched=True, counter=fk.LAUNCHES,
         ),
@@ -1050,7 +1091,7 @@ TC256_SHAPES = [
     (2, 64, 64, 257, 257, dict(causal=True, window=100, softcap=50.0)),  # heads of their own K/V: the head-major list
 ]
 SERVE_BATCH, PROMPT_LEN, GEN_LEN = 16, 512, 64
-BF16_TFLOPS = 989e12  # H100 SXM dense bf16 and f16 (the tensor cores' peak)
+BF16_TFLOPS = H100.peak_flops_bf16  # dense bf16 and f16 (the tensor cores' peak)
 
 
 def sdpa_backend(torch, call):
@@ -2173,6 +2214,32 @@ MLA_NARROW_SHAPES = [
 ]
 
 
+def backward_twice(torch, fa, route, label, q, k, v, out, lse, dout, kw):
+    """The call's gradients on ``route`` (each of its kernels launched once)
+    and a rerun's."""
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, **kw)
+    want = {f"{route}/{n}": 1 for n in fa.bwd_kernels(q.shape[3], v.shape[3])}
+    check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {n: want.get(n, 0) for n in before},
+          f"{route} backward kernels not launched on {label}")
+    return got, fa.launch_backward(q, k, v, out, lse, dout, **kw)
+
+
+def held_backward(torch, label, route, got, again, want, q, k, v, tol):
+    """Gradients ``got`` against ``want`` within ``tol`` of each one's max
+    |value|, finite, of q's, k's and v's shapes, bit-equal to a rerun's
+    ``again``; returns the worst |difference| and error over ``tol``."""
+    errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    shapes = [list(t.shape) for t in got] == [list(t.shape) for t in (q, k, v)]
+    emit("flash_bwd_check", case=label, backward_route=route, rel_err=errs, tol=tol, finite=finite,
+         bit_equal_rerun=same, dv_shape=list(got[2].shape))
+    check(finite and shapes and max(errs.values()) <= tol, f"backward kernels != plain backward on {label}")
+    check(same, f"two runs of the {route} backward differ on {label}")
+    return max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)), max(errs.values()) / tol
+
+
 def mla_training_checks(torch, dev, bw: float) -> dict:
     """deepseek-v3's attention gradients on their kernels, each case twice
     for bit-equal reruns: the tensor_core backward at (192, 128) in bf16
@@ -2202,27 +2269,6 @@ def mla_training_checks(torch, dev, bw: float) -> dict:
             q, k, v, kz, vz = nan_tail((q, k, v), kw["kv_len"])
         return q, k, v, rand((b, hq, sq, dv), dtype), kz, vz
 
-    def backward(route, label, q, k, v, out, lse, dout, kw):
-        """The call's gradients (its route's kernels launched once each) and
-        a rerun's."""
-        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
-        got = fa.launch_backward(q, k, v, out, lse, dout, **kw)
-        want = {f"{route}/{n}": 1 for n in fa.bwd_kernels(q.shape[3], v.shape[3])}
-        check({n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {n: want.get(n, 0) for n in before},
-              f"{route} backward kernels not launched on {label}")
-        return got, fa.launch_backward(q, k, v, out, lse, dout, **kw)
-
-    def held(label, route, got, again, want, q, k, v, tol):
-        errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        shapes = [list(t.shape) for t in got] == [list(t.shape) for t in (q, k, v)]
-        emit("flash_bwd_check", case=label, backward_route=route, rel_err=errs, tol=tol, finite=finite,
-             bit_equal_rerun=same, dv_shape=list(got[2].shape))
-        check(finite and shapes and max(errs.values()) <= tol, f"backward kernels != plain backward on {label}")
-        check(same, f"two runs of the {route} backward differ on {label}")
-        return max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)), max(errs.values()) / tol
-
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     tol = FLASH_TOL["bfloat16"]
     worst, timed = (0.0, 0.0), None
@@ -2232,9 +2278,9 @@ def mla_training_checks(torch, dev, bw: float) -> dict:
         label = f"mla tensor_core backward [{b},{hq}/{hkv},{sq}x{sk}] q/k 192 v 128 {kw}"
         check(fa._bwd_route(q, v) == "tensor_core", f"{label} routed to {fa._bwd_route(q, v)}")
         out, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, **kw)
-        got, again = backward("tensor_core", label, q, k, v, out, lse, dout, kw)
+        got, again = backward_twice(torch, fa, "tensor_core", label, q, k, v, out, lse, dout, kw)
         want = fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw)
-        err = held(label, "tensor_core", got, again, want, q, k, v, tol)
+        err = held_backward(torch, label, "tensor_core", got, again, want, q, k, v, tol)
         worst = (max(worst[0], err[0]), max(worst[1], err[1]))
         del got, again, want
         if timed is None:  # phase 12's training shape
@@ -2290,9 +2336,9 @@ def mla_training_checks(torch, dev, bw: float) -> dict:
                  lse_err_over_tol=lse_ratio, bit_equal_rerun=same)
             check(ratio <= 1.0 and lse_ratio <= 1.0 and same and bool(torch.isfinite(out).all()),
                   f"f32 route != plain version on {label}, or two runs differ")
-            got, again = backward("cuda_core", label, q, k, v, out, lse, dout, kw)
-            err = held(label, "cuda_core", got, again, fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw),
-                       q, k, v, tol)
+            got, again = backward_twice(torch, fa, "cuda_core", label, q, k, v, out, lse, dout, kw)
+            err = held_backward(torch, label, "cuda_core", got, again,
+                                fa.attention_backward_plain(q, kz, vz, out, lse, dout, **kw), q, k, v, tol)
             bwd_worst = (max(bwd_worst[0], err[0]), max(bwd_worst[1], err[1]))
             if dtype == torch.float32 and not narrow:  # phase 7's shape: timed
                 sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
@@ -2322,6 +2368,135 @@ def mla_training_checks(torch, dev, bw: float) -> dict:
     narrow["forward"].update(max_abs_err=fwd_worst[0], err_over_tol=fwd_worst[1])
     narrow["backward"].update(max_abs_err=bwd_worst[0], err_over_tol=bwd_worst[1])
     return {"mla_backward": timed, "narrow_forward": narrow["forward"], "narrow_backward": narrow["backward"]}
+
+
+#: the decode steps of phase 14 held to the plain version: the first (the
+#: cache's first generated slot), one in the middle and the last, against
+#: its 832 slots, NaN in K and V past kv_len where it is short of them
+VLM_DECODE_KV = (769, 800, 832)
+
+
+def vlm_attention_checks(torch, dev, bw: float) -> dict:
+    """internvl2-2b's attention (16 query and 8 KV heads of 128: G 2) at
+    the shapes phase 14 launches, each held to its plain version at phase
+    2's tolerances and run twice for bit-equal results: the tensor_core
+    forward at the served prefill (q [4,16,768,128], k/v [4,8,768,128]
+    causal, bf16), the decode route at the served decode steps (q
+    [4,16,1,128] against the 832 slots, ``VLM_DECODE_KV``), and at the f32
+    training shape [2,16/8,512,128] causal the f32 forward with its lse and
+    the cuda_core backward on the forward's own output. The last decode
+    step, the prefill, the forward and the backward are each timed with the
+    L2 cold beside the plain version and SDPA (``enable_gqa``; the backward
+    with K/V repeated to 16 heads), with the bound at the inputs' peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("internvl2-2b")
+    hq, hkv, d, p = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_patches
+    g = torch.Generator(device=dev).manual_seed(SEED + 150)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    def held(label, route, got, again, want, tol):
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        same = bool(torch.equal(got, again))
+        emit("flash_check", case=label, route=route, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio,
+             bit_equal_rerun=same)
+        check(ratio <= 1.0 and bool(torch.isfinite(got).all()), f"{route} != plain version on {label}")
+        check(same, f"two runs of the {route} route differ on {label}")
+        return float(diff.max()), ratio
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    tol = FLASH_TOL["bfloat16"]
+    out = {}
+    total = p + VLM_PROMPT + VLM_GEN
+    served = [("prefill", "tensor_core", p + VLM_PROMPT, p + VLM_PROMPT, dict(causal=True), dict(is_causal=True))]
+    served += [(f"decode kv_len {n}", "decode", 1, total, dict(causal=True, q_offset=n - 1, kv_len=n), {})
+               for n in VLM_DECODE_KV]
+    worst = {"tensor_core": (0.0, 0.0), "decode": (0.0, 0.0)}
+    for label, route, sq, sk, kw, sdpa_kw in served:
+        q = rand((VLM_B, hq, sq, d), torch.bfloat16)
+        k, v = rand((VLM_B, hkv, sk, d), torch.bfloat16), rand((VLM_B, hkv, sk, d), torch.bfloat16)
+        kz, vz = k, v
+        if kw.get("kv_len", sk) < sk:
+            q, k, v, kz, vz = nan_tail((q, k, v), kw["kv_len"])
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal" + "".join(f", kv_len {n}" for n in
+                                                                             [kw.get("kv_len")] if n)
+        check(fa._route(q, k) == route, f"internvl2 {label} routed to {fa._route(q, k)}")
+        before = fa.ROUTE_LAUNCHES[route].value
+        got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
+        check(fa.ROUTE_LAUNCHES[route].value == before + 2, f"{route} not launched on internvl2 {label}")
+        err = held(f"internvl2 {label} G 2 {shape}", route, got, again, fa.attention_plain(q, kz, vz, **kw), tol)
+        worst[route] = tuple(max(a, b) for a, b in zip(worst[route], err))
+        if label in ("prefill", f"decode kv_len {total}"):  # the served prefill and the last decode step: timed
+            calls = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
+                     "plain": lambda: fa.attention_plain(q, k, v, **kw),
+                     "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa_kw)}
+            cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+            bound, by, flops, nbytes = flash_bound_ms(q, k, kw.get("kv_len", sk), True, kw.get("q_offset", 0), bw)
+            key = "prefill" if route == "tensor_core" else "decode"
+            out[key] = dict(route=route, shape=shape, ms=cold["kernel"], plain_ms=cold["plain"],
+                            library_ms=cold["sdpa"], bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                            sdpa_max_abs_diff=float((calls["sdpa"]().float() - got.float()).abs().max()))
+            emit("flash_internvl2_times", case=key, **out[key])
+            del calls
+        del q, k, v, kz, vz, got, again
+    out["prefill"].update(max_abs_err=worst["tensor_core"][0], err_over_tol=worst["tensor_core"][1])
+    out["decode"].update(max_abs_err=worst["decode"][0], err_over_tol=worst["decode"][1])
+
+    # the f32 training shape: the f32 forward with its lse, the cuda_core backward
+    f32, tol, s = torch.float32, FLASH_TOL["float32"], VLM_TRAIN_SEQ
+    q = rand((VLM_TRAIN_B, hq, s, d), f32)
+    k, v = rand((VLM_TRAIN_B, hkv, s, d), f32), rand((VLM_TRAIN_B, hkv, s, d), f32)
+    dout, kw = rand(q.shape, f32), dict(causal=True)
+    shape = f"q {list(q.shape)}, k/v {list(k.shape)} f32 causal"
+    route, bwd_route = fa._route(q, k, grad=True), fa._bwd_route(q)
+    check((route, bwd_route) == ("f32", "cuda_core"), f"internvl2's f32 step routed to {route}/{bwd_route}")
+    before = fa.ROUTE_LAUNCHES["f32"].value
+    o, lse = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+    again = fa.launch_route("f32", q, k, v, with_lse=True, **kw)
+    check(fa.ROUTE_LAUNCHES["f32"].value == before + 2, "f32 route not launched on internvl2's training shape")
+    fwd_err = held(f"internvl2 training forward G 2 {shape}, with the lse", "f32", o, again[0],
+                   fa.attention_plain(q, k, v, **kw), tol)
+    lse_want = fa.attention_lse_plain(q, k, **kw)
+    lse_ratio = float(((lse - lse_want).abs() / (2e-5 + 2e-5 * lse_want.abs())).max())
+    emit("flash_lse_check", case=f"internvl2 training forward {shape}", err_over_tol=lse_ratio,
+         bit_equal_rerun=bool(torch.equal(lse, again[1])))
+    check(lse_ratio <= 1.0 and torch.equal(lse, again[1]), "f32 route's lse != logsumexp of the plain scores on "
+          "internvl2's training shape, or two runs differ")
+    label = f"internvl2 training backward G 2 {shape}"
+    got, rerun = backward_twice(torch, fa, "cuda_core", label, q, k, v, o, lse, dout, kw)
+    bwd_err = held_backward(torch, label, "cuda_core", got, rerun,
+                            fa.attention_backward_plain(q, k, v, o, lse, dout, **kw), q, k, v, tol)
+    k16, v16 = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k16, v16)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    calls = {"forward": lambda: fa.launch_route("f32", q, k, v, with_lse=True, **kw),
+             "forward_plain": lambda: fa.attention_plain(q, k, v, **kw),
+             "forward_sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+             "backward": lambda: fa.launch_backward(q, k, v, o, lse, dout, **kw),
+             "backward_plain": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw),
+             "backward_sdpa": lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)}
+    cold = {n: cold_ms(torch, f, flush, reps=5 if n.endswith("plain") else 20) for n, f in calls.items()}
+    bounds = {"forward": flash_bound_ms(q, k, s, True, 0, bw, peak=F32_TFLOPS),
+              "backward": bwd_bound_ms(q, k, s, True, 0, bw, F32_TFLOPS)}
+    for part, (err, route_) in (("forward", (fwd_err, "f32")), ("backward", (bwd_err, "cuda_core"))):
+        bound, by, flops, nbytes = bounds[part]
+        out[f"train_{part}"] = dict(
+            route=route_, shape=shape + (", with the lse" if part == "forward" else ""), ms=cold[part],
+            plain_ms=cold[f"{part}_plain"], library_ms=cold[f"{part}_sdpa"],
+            library=f"scaled_dot_product_attention {part} f32" + (", K/V repeated to 16 heads" if part == "backward"
+                                                                  else ", enable_gqa"),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, max_abs_err=err[0], err_over_tol=err[1])
+        emit("flash_internvl2_times", case=f"train_{part}", **out[f"train_{part}"])
+    out["train_forward"]["lse_err_over_tol"] = lse_ratio
+    del q, k, v, dout, o, lse, again, got, rerun, k16, v16, leaves, sdpa_out, calls, flush
+    torch.cuda.empty_cache()
+    return out
 
 
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
@@ -2394,18 +2569,23 @@ LOGIT_MAX_ABS, LOGIT_MEAN_ABS = 0.5, 0.05
 
 
 def check_served_round(torch, reference, weights, rec, version, tag: str = "serve_check", chunk: int = 4,
-                       gate: bool = True) -> dict:
+                       gate: bool = True, patches=None) -> dict:
     """A served round's logprobs and every step's logits against a
     teacher-forced forward of the whole sequence on ``weights`` with the
     plain attention (``reference``), ``chunk`` sequences at a time; held
-    to the ``LOGIT_*`` bounds unless ``gate`` is off."""
+    to the ``LOGIT_*`` bounds unless ``gate`` is off. A VLM's requests
+    carry ``patches`` ``[B, P, d_model]``, placed before the tokens."""
     seqs, lps, steps = rec["tokens"], rec["behavior_logprobs"], rec["step_logits"]
     plen = seqs.shape[1] - steps.shape[1]
+    first = plen + (0 if patches is None else patches.shape[1])  # the first generated token's position
     lp_err, logit_max, logit_sum = 0.0, 0.0, 0.0
     for c in range(0, seqs.shape[0], chunk):
+        batch = {"tokens": seqs[c : c + chunk]}
+        if patches is not None:
+            batch["patches"] = patches[c : c + chunk]
         with torch.no_grad():
-            ref = reference.forward(weights, {"tokens": seqs[c : c + chunk]})
-        ref = ref[:, plen - 1 : -1]  # the logits each generated token was drawn from
+            ref = reference.forward(weights, batch)
+        ref = ref[:, first - 1 : -1]  # the logits each generated token was drawn from
         lp_ref = torch.log_softmax(ref, -1).gather(-1, seqs[c : c + chunk, plen:, None])[..., 0]
         lp_err = max(lp_err, float((lps[c : c + chunk] - lp_ref).abs().max()))
         d = (steps[c : c + chunk] - ref).abs()
@@ -3226,52 +3406,61 @@ def train_entry_point(torch, counters) -> dict:
     at (24, 16) for deepseek-v3; each record names the attention's (q/k, v)
     widths), the tensor-core kernels none. Returns the kernels' launches on
     that path."""
-    import contextlib
-    import io
-    import re
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, bwd_kernels
-    from repro_torch.launch import train
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES
 
     steps = 2
     every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
              **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
     for c in every.values():
         c.reset()
-    runs = {}
     for arch, extra in (("llama3-8b", []), ("gemma2-2b", ["--arch", "gemma2-2b"]),
                         ("gemma2-2b full", GEMMA2_FULL_ARGV), ("deepseek-v3-671b", ["--arch", "deepseek-v3-671b"])):
-        argv = ["--steps", str(steps)] + extra
         cfg = get_config("gemma2-2b") if "--full-config" in extra else get_config(arch).reduced()
-        layers, widths = cfg.num_layers, attention_widths(cfg)
-        torch.cuda.reset_peak_memory_stats()
-        before = {k: c.value for k, c in every.items()}
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            train.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        run = {k: c.value - before[k] for k, c in every.items()}  # this run's launches, read now
-        losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
-        emit("train_entry_point", argv=argv, layers=layers, attention_qk_v=list(widths), losses=losses,
-             seconds=seconds, launches=run, max_memory_allocated=torch.cuda.max_memory_allocated())
-        gc.collect()
-        torch.cuda.empty_cache()
-        check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{arch}: train entry point losses {losses}")
+        _, losses = train_run(torch, every, ["--steps", str(steps)] + extra, cfg, steps)
         if arch == "llama3-8b":
             check(losses == TRAIN_ENTRY_LOSSES, f"llama3-8b losses {losses}, before {TRAIN_ENTRY_LOSSES}")
-        launched = {f"cuda_core/{n}" for n in bwd_kernels(*widths)}
-        want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
-                **{f"flash_attention_bwd_{n}": steps * layers * (n in launched) for n in BWD_LAUNCHES}}
-        check({k: run[k] for k in want} == want, f"{arch}: train entry point launches {run}, want {want}")
-        runs[arch] = run
     launches = {k: c.value for k, c in every.items()}
     out = {k: launches[k] for k in counters}
     out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
     out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
     return out
+
+
+def train_run(torch, every, argv, cfg, steps: int):
+    """One ``launch.train.main(argv)`` on the card, ``cfg`` the config it
+    trains: its losses must be finite and every layer of every step must
+    launch the f32 route's forward and the cuda_core backward, and no
+    tensor-core or decode kernel. Returns the run's launches by counter of
+    ``every`` (read right after it) and its losses."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, bwd_kernels
+    from repro_torch.launch import train
+
+    layers, widths = cfg.num_layers, attention_widths(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: c.value for k, c in every.items()}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    run = {k: c.value - before[k] for k, c in every.items()}  # this run's launches, read now
+    losses = [float(x) for x in re.findall(r"loss (\S+)", buf.getvalue())]
+    emit("train_entry_point", argv=argv, layers=layers, attention_qk_v=list(widths), losses=losses,
+         seconds=seconds, launches=run, max_memory_allocated=torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{argv}: train entry point losses {losses}")
+    launched = {f"cuda_core/{n}" for n in bwd_kernels(*widths)}
+    want = {"flash_route_f32": steps * layers, "flash_route_tensor_core": 0, "flash_route_decode": 0,
+            **{f"flash_attention_bwd_{n}": steps * layers * (n in launched) for n in BWD_LAUNCHES}}
+    check({k: run[k] for k in want} == want, f"{argv}: train entry point launches {run}, want {want}")
+    return run, losses
 
 
 # -- phase 8: the networked deployment on the card ---------------------------------
@@ -3943,6 +4132,419 @@ def mla_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 13: the simulator on the H100 profile, at Table 3's sizes ---------------
+
+#: Table 3's workloads the simulator runs here; 1T (48 trainer replicas x 16
+#: shards, 16 rollout replicas) takes minutes of host time a run and is left out
+SIM_STANDALONE = ("9B", "36B", "260B")
+SIM_STEPS = 2  # Fig. 9's training steps a standalone run takes
+SIM_ELASTIC = (1, 6)  # Fig. 11's spot replicas beside the standalone one (260B)
+#: Fig. 12's cross-DC seeding (9B): the WAN codec each run negotiates; the
+#: delta's share of rows changed between versions is cross_dc.py's 1/8
+SIM_CROSS_DC = {"raw": dict(wan_codec="raw", wan_delta=False), "int8": dict(wan_codec="int8", wan_delta=False),
+                "delta:int8": dict(wan_codec="int8", wan_delta=True, delta_kept_frac=0.125)}
+SIM_RESHARD_UNITS = 16  # reshard.py's units a TP-4 shard of 36B
+#: the resharded pull's decode part is compared against a profile of this
+#: HBM rate (the fused decode drains at a third of it)
+SIM_SLOW_HBM = 819e9
+
+
+def sim_standalone(sc, w):
+    """Fig. 9 (``benchmarks/standalone.py``): co-located trainers publish
+    each step, every standalone rollout replicates v0 and updates to v1."""
+    cl = sc.SimCluster()
+    units = w.unit_bytes(64)
+    trainers = [cl.add_replica("m", f"tr{i}", w.num_shards, unit_bytes=units) for i in range(w.num_trainer_replicas)]
+    readers = [cl.add_replica("m", f"ro{i}", w.num_shards, unit_bytes=units) for i in range(w.num_standalone_replicas)]
+    for r in trainers + readers:
+        r.open()
+    cl.run()
+    for step in range(SIM_STEPS):
+        for t in trainers:
+            t.publish(step)
+        cl.run()
+        for r in readers:
+            (r.replicate if step == 0 else r.update)("latest")
+        cl.run()
+        if step < SIM_STEPS - 1:
+            for t in trainers:
+                t.unpublish()
+            cl.run()
+    return cl, readers, SIM_STEPS - 1, {}
+
+
+def sim_elastic(sc, w, n_elastic: int):
+    """Fig. 11 (``benchmarks/elastic.py``): one standalone and ``n_elastic``
+    spot replicas replicate 260B at once."""
+    cl = sc.SimCluster()
+    units = w.unit_bytes(64)
+    trainers = [cl.add_replica("m", f"tr{i}", w.num_shards, unit_bytes=units) for i in range(w.num_trainer_replicas)]
+    readers = [cl.add_replica("m", "sa0", w.num_shards, unit_bytes=units)]
+    readers += [cl.add_replica("m", f"el{i}", w.num_shards, unit_bytes=units, is_spot=True) for i in range(n_elastic)]
+    for r in trainers + readers:
+        r.open()
+    cl.run()
+    for t in trainers:
+        t.publish(0)
+    cl.run()
+    for r in readers:
+        r.replicate("latest")
+    cl.run()
+    return cl, readers, 0, {}
+
+
+def sim_cross_dc(sc, w, **kw):
+    """Fig. 12 (``benchmarks/cross_dc.py``): trainers in dc0, rollouts in
+    dc1; v0 everywhere first, then the measured warm update to v1, the
+    rollouts polling ``update("latest")``. Returns the WAN bytes of the
+    update beside one copy's wire bytes (the codec's ratio over a shard
+    manifest x shard bytes x shards)."""
+    cl = sc.SimCluster(**kw)
+    units = w.unit_bytes(64)
+    trainers = [cl.add_replica("m", f"tr{i}", w.num_shards, datacenter="dc0", unit_bytes=units)
+                for i in range(w.num_trainer_replicas)]
+    readers = [cl.add_replica("m", f"ro{i}", w.num_shards, datacenter="dc1", unit_bytes=units)
+               for i in range(w.standalone_gpus // w.num_shards)]
+    for r in trainers + readers:
+        r.open()
+    cl.run()
+    for t in trainers:
+        t.publish(0)
+    cl.run()
+    for r in readers:
+        r.replicate("latest")
+    cl.run()
+    for t in trainers:
+        t.unpublish()
+    cl.run()
+    for r in readers:  # measure only the v0 -> v1 update
+        for s in r.shards:
+            s.worker.total_stall = 0.0
+            s.worker.stall_parts.clear()
+    wan_before = cl.link_class_bytes().get("vpc_up", 0.0)
+    for t in trainers:
+        t.publish(1)
+    cl.run()
+
+    def poller(rep):
+        while True:
+            results = []
+            for s in rep.shards:
+                results.append((yield from s.g_update("latest")))
+            if results[0]:
+                return
+            yield cl.env.timeout(0.2)
+
+    for r in readers:
+        cl.env.process(poller(r))
+    cl.run(until=120.0)
+    codec = f"delta:{kw['wan_codec']}" if kw["wan_delta"] else kw["wan_codec"]
+    ratio = cl.codec_ratio(codec, readers[0].manifest_for(0))
+    wan = cl.link_class_bytes().get("vpc_up", 0.0) - wan_before
+    return cl, readers, 1, dict(codec=codec, wire_ratio=ratio, wan_update_bytes=wan,
+                                one_copy_wire_bytes=ratio * w.shard_bytes * w.num_shards)
+
+
+def sim_reshard(sc, w, **kw):
+    """``benchmarks/reshard.py``'s ``_sim_reshard``: a TP-4 publisher (dc0)
+    and a TP-2 rollout (dc1) over int8 frames, whose fused decode drains at
+    a third of the profile's HBM rate; ``kw`` go to ``SimCluster``."""
+    cl = sc.SimCluster(wan_codec="int8", **kw)
+    units = [b * w.num_shards for b in w.unit_bytes(SIM_RESHARD_UNITS)]
+    tr = cl.add_replica("m", "tr0", 4, global_unit_bytes=units)
+    ro = cl.add_replica("m", "ro0", 2, datacenter="dc1", global_unit_bytes=units)
+    tr.open()
+    ro.open()
+    cl.run()
+    tr.publish(0)
+    cl.run()
+    ro.replicate("latest")
+    cl.run()
+    return cl, [ro], 0, {}
+
+
+def sim_result(cl, readers, version: int, label: str) -> dict:
+    """A scenario's gates and figures: every reader at ``version``, each
+    reader's stall parts summing to its stall."""
+    names = [r.name for r in readers]
+    for n in names:
+        got = cl.server.replica_version("m", n)
+        check(got == version, f"{label}: reader {n} at v{got}, want v{version}")
+    for r in readers:
+        for s in r.shards:
+            w = s.worker
+            check(math.isclose(sum(w.stall_parts.values()), w.total_stall, rel_tol=1e-9, abs_tol=1e-12),
+                  f"{label}: {r.name}/{s.idx}'s stall parts {w.stall_parts} do not sum to {w.total_stall}")
+    per = cl.per_worker_stalls(names)
+    return dict(total_stall_s=sum(per), per_reader_stall_s=per, decomposition=cl.stall_decomposition(names),
+                link_class_bytes=cl.link_class_bytes(), virtual_s=cl.env.now)
+
+
+def simulator(smi: str, drain: dict) -> dict:
+    """The port's ``SimCluster`` on the H100 profile (this host's CPU; it
+    touches no tensor) at Table 3's sizes: Fig. 9's standalone stall (9B,
+    36B, 260B), Fig. 11's elastic replicate (260B at 1 and 6 spot
+    replicas), Fig. 12's cross-DC seeding (raw, int8, delta:int8) and a
+    cross-DC TP-4 -> TP-2 int8 pull. Each scenario runs twice and must give
+    the same stalls and link bytes; every reader must end at the published
+    version with its stall parts summing to its stall; the cross-DC
+    update's WAN bytes must be one copy's wire bytes; the resharded pull's
+    decode part under H100 must be no larger than under an 819 GB/s
+    profile. ``drain`` holds phase 2's measured fused decode and copy
+    rates, printed beside the profile's modeled drain."""
+    from repro_torch.configs.paper_workloads import WORKLOADS
+    from repro_torch.transfer import hardware
+    from repro_torch.transfer import simcluster as sc
+
+    check(sc.H100 is hardware.H100, "the simulator's profile is not hardware.H100")
+    plan = [(f"standalone {n}", lambda n=n: sim_standalone(sc, WORKLOADS[n])) for n in SIM_STANDALONE]
+    plan += [(f"elastic 260B x{k}", lambda k=k: sim_elastic(sc, WORKLOADS["260B"], k)) for k in SIM_ELASTIC]
+    plan += [(f"cross-DC {c}", lambda kw=kw: sim_cross_dc(sc, WORKLOADS["9B"], **kw)) for c, kw in SIM_CROSS_DC.items()]
+    plan += [("reshard TP-4 -> TP-2 int8", lambda: sim_reshard(sc, WORKLOADS["36B"]))]
+    scenarios = {}
+    for label, build in plan:
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            cl, readers, version, extra = build()
+            runs.append(dict(sim_result(cl, readers, version, label), wall_s=time.perf_counter() - t0, **extra))
+            del cl, readers
+        a, b = runs
+        check(a["per_reader_stall_s"] == b["per_reader_stall_s"] and a["link_class_bytes"] == b["link_class_bytes"],
+              f"{label}: a second run gave other stalls or link bytes")
+        if "wan_update_bytes" in a:
+            check(math.isclose(a["wan_update_bytes"], a["one_copy_wire_bytes"], rel_tol=1e-6),
+                  f"{label}: the update carried {a['wan_update_bytes']} WAN bytes, one copy is "
+                  f"{a['one_copy_wire_bytes']}")
+        rec = dict(a, wall_s=[a["wall_s"], b["wall_s"]])
+        scenarios[label] = rec
+        emit("sim_scenario", scenario=label, **rec)
+    # the one device constant: the resharded pull's decode under H100 and under a slower profile
+    label = "reshard TP-4 -> TP-2 int8"
+    fast = scenarios[label]["decomposition"]
+    saved = sc.H100
+    sc.H100 = hardware.GpuHW(hbm_bw=SIM_SLOW_HBM)
+    try:
+        cl, readers, version, _ = sim_reshard(sc, WORKLOADS["36B"])
+        slow = sim_result(cl, readers, version, label + " at 819 GB/s")["decomposition"]
+    finally:
+        sc.H100 = saved
+    check(fast["decode"] <= slow["decode"], f"decode part {fast['decode']} under H100 > {slow['decode']} at 819 GB/s")
+    check({k: v for k, v in fast.items() if k != "decode"} == {k: v for k, v in slow.items() if k != "decode"},
+          "the profile moved a stall part other than decode")
+    modeled = hardware.H100.hbm_bw / 3.0
+    rec = dict(card=smi, profile=dataclasses.asdict(hardware.H100), modeled_drain_Bps=modeled,
+               measured=drain, measured_over_modeled=drain["dequant_gather_output_Bps"] / modeled,
+               reshard_decode_s={"H100": fast["decode"], "819 GB/s": slow["decode"]},
+               scenarios={k: dict(total_stall_s=v["total_stall_s"], max_reader_stall_s=max(v["per_reader_stall_s"]),
+                                  readers=len(v["per_reader_stall_s"]),
+                                  wan_bytes=v["link_class_bytes"].get("vpc_up", 0.0), wall_s=v["wall_s"],
+                                  **({"wan_update_bytes": v["wan_update_bytes"]} if "wan_update_bytes" in v else {}))
+                          for k, v in scenarios.items()})
+    emit("sim", **rec)
+    return rec
+
+
+# -- phase 14: the VLM family (internvl2-2b) at its published widths ----------------
+
+#: 4 requests of 256 patches + 512 prompt tokens, 64 new tokens each:
+#: every decode step attends over a cache of 832 slots
+VLM_B, VLM_PROMPT, VLM_GEN = 4, 512, 64
+#: phase 7's launch.train at internvl2-2b's published widths, f32: 2 x
+#: (256 stand-in patches + 256 tokens)
+VLM_TRAIN_B, VLM_TRAIN_SEQ = 2, 512
+VLM_TRAIN_ARGV = ["--arch", "internvl2-2b", "--full-config", "--batch", str(VLM_TRAIN_B), "--seq", str(VLM_TRAIN_SEQ)]
+
+
+def vlm_arch(torch, dev, counters, smi: str) -> dict:
+    """internvl2-2b (arXiv:2404.16821) at its published widths and all 24
+    layers in bf16 (d_model 2048, 16 query and 8 KV heads of 128, d_ff
+    8192, vocab 92553, untied head, 256 patches, rope theta 1e6): a trainer
+    (dc0) publishes v0, a rollout replica (dc0, raw) replicates it, and
+    the model reads its parameters from the replica's registered buffers:
+    it prefills 4 x (256 patches + 512 tokens), the patches random bf16
+    from ``SEED`` at the embedding's scale, and decodes 64 tokens greedily;
+    the trainer perturbs 1/8 of its rows and publishes v1, the replica
+    updates in place, and the same requests are served again. The replica
+    must be bit-equal to the trainer after each pull, each round's logits
+    within phase 5's gates of a teacher-forced forward with the plain
+    attention, round 1 apart from round 0, and each round must launch 24
+    tensor-core forwards (q [4,16,768,128], k/v [4,8,768,128]), 24 x 64
+    decode-route ones and none on the f32 route. Then ``launch.train
+    --arch internvl2-2b --full-config`` for two f32 steps: finite losses,
+    the f32 forward and the cuda_core backward on every layer. Returns
+    the kernels' launches on both paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import PromptSet
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("internvl2-2b")
+    p = cfg.num_patches
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    trainer = hub.open("vlm", "trainer", 1, 0, datacenter="dc0")
+    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 140), torch.bfloat16, dev))
+    trainer.publish(0)
+    weights = trainer.store.tensors()
+    nparams = sum(w.numel() for w in weights.values())
+    rollout = hub.open("vlm", "rollout-0", 1, 0, datacenter="dc0")
+    rollout.register({n: torch.zeros_like(w) for n, w in weights.items()})
+    nbytes = rollout.store.total_bytes
+    emit("model", config=cfg.name, layers=cfg.num_layers, dtype="bfloat16", params=nparams, bytes=nbytes)
+    _, replicate_s = timed(lambda: rollout.replicate(0, timeout=600))
+
+    def equal_to_trainer(when):
+        for n, w in trainer.store.tensors().items():
+            check(torch.equal(rollout.store.get(n), w), f"{cfg.name} {when}: rollout {n} != trainer")
+
+    equal_to_trainer("after replicate")
+    params = rollout.store.tensors()  # the registered buffers: an update is seen by the next round
+    calls = set()  # each attention call's (route, q shape, k/v shape)
+
+    def attention(q, k, v, **kw):
+        calls.add((fa._route(q, k, v=v), tuple(q.shape), tuple(k.shape)))
+        return fa.flash_attention(q, k, v, **kw)
+
+    model = build_model(cfg, attention=attention)
+    reference = build_model(cfg, attention=attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    scale = 1.0 / math.sqrt(cfg.vocab)  # init_params' std of the embedding
+    patches = torch.randn((VLM_B, p, cfg.d_model), generator=gen, device=dev).mul_(scale).to(torch.bfloat16)
+    prompts = torch.from_numpy(PromptSet(cfg.vocab, VLM_PROMPT, seed=SEED).sample(VLM_B, 0)).to(dev, torch.int64)
+    max_len = p + VLM_PROMPT + VLM_GEN
+    want_route = {"tensor_core": cfg.num_layers, "decode": cfg.num_layers * VLM_GEN, "f32": 0}
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    want_calls = {("tensor_core", (VLM_B, hq, p + VLM_PROMPT, hd), (VLM_B, hkv, p + VLM_PROMPT, hd)),
+                  ("decode", (VLM_B, hq, 1, hd), (VLM_B, hkv, max_len, hd))}
+
+    def serve():
+        """Prefill, then ``VLM_GEN`` greedy decode steps (the last one's
+        logits unused, as ``sample_responses``)."""
+        logits, cache, n = model.prefill(params, {"tokens": prompts, "patches": patches}, max_len=max_len)
+        toks, lps, steps = [], [], []
+        for _ in range(VLM_GEN):
+            last = logits[:, -1].float()
+            nxt = last.argmax(-1)
+            steps.append(last)
+            lps.append(torch.log_softmax(last, -1).gather(-1, nxt[:, None])[:, 0])
+            toks.append(nxt)
+            logits, cache = model.decode(params, cache, nxt[:, None], n)
+            n += 1
+        check(n == max_len, f"{cfg.name}: the decode ended at cache length {n}, want {max_len}")
+        return dict(tokens=torch.cat([prompts, torch.stack(toks, 1)], 1), behavior_logprobs=torch.stack(lps, 1),
+                    step_logits=torch.stack(steps, 1))
+
+    rounds, checks = [], []
+    for step in range(2):
+        if step:
+            def perturb_and_publish():
+                trainer.unpublish()
+                gp = torch.Generator(device=dev).manual_seed(SEED + 31)
+                for w in trainer.store.tensors().values():
+                    flat = w.view(-1)
+                    rows = flat[: flat.numel() // 256 * 256].view(-1, 256)[::8]  # 1/8 of the rows, in place
+                    rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+                trainer.publish(1)
+
+            _, publish_s = timed(perturb_and_publish)
+            updated, update_s = timed(lambda: rollout.update("latest"))
+            check(updated and rollout.current_version == 1, f"{cfg.name}: the rollout did not update to v1")
+            equal_to_trainer("after update")
+        before = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+        calls.clear()
+        with torch.no_grad():
+            rec, round_s = timed(serve)
+        by_route = {r: c.value - before[r] for r, c in ROUTE_LAUNCHES.items()}
+        check(by_route == want_route, f"{cfg.name} round {step}: flash launches by route {by_route}, want {want_route}")
+        check(calls == want_calls, f"{cfg.name} round {step}: attention calls {calls}, want {want_calls}")
+        rounds.append(dict(round=step, version=step, seconds=round_s, flash_launches_by_route=by_route,
+                           attention_calls=sorted([r, list(q), list(k)] for r, q, k in calls),
+                           generated_tokens=VLM_B * VLM_GEN))
+        mid = {k: c.value for k, c in every.items()}
+        checks.append(check_served_round(torch, reference, trainer.store.tensors(), rec, step,
+                                         tag=f"serve_check {cfg.name}", chunk=1, patches=patches))
+        check(mid == {k: c.value for k, c in every.items()}, f"{cfg.name}: the checks launched a kernel")
+        if step == 0:
+            first0 = rec["step_logits"][:, 0].clone()
+        else:
+            delta = float((rec["step_logits"][:, 0] - first0).abs().mean())
+            check(delta > 10 * LOGIT_MEAN_ABS, f"{cfg.name}: round 1 logits barely differ from round 0's ({delta})")
+        del rec
+    served = {k: c.value for k, c in every.items()}  # the serving path's launches, read now
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    check(served["checksum"] > 0, f"{cfg.name}: the publish -> replicate -> update path launched no checksum")
+
+    # the prefill and a decode step alone, at the served shapes (after the read above), on the model as
+    # build_model builds it: its default attention, without the recording wrapper's host work
+    plain = build_model(cfg)
+    with torch.no_grad():
+        pb = {"tokens": prompts, "patches": patches}
+        prefill_s = statistics.median(timed(lambda: plain.prefill(params, pb, max_len=max_len))[1] for _ in range(3))
+        _, cache, n = plain.prefill(params, pb, max_len=max_len)
+        nxt = prompts[:, -1:]
+        steps_s = [timed(lambda: plain.decode(params, cache, nxt, n + i))[1] for i in range(min(8, VLM_GEN))]
+    decode_step_s = statistics.median(steps_s)
+    del cache, plain
+    hub_bytes = {"replicate_GBps": nbytes / replicate_s / 1e9, "update_GBps": nbytes / update_s / 1e9}
+    emit("vlm_arch_result", card=smi, config=cfg.name, layers=cfg.num_layers, params=nparams, bytes=nbytes,
+         requests=VLM_B, patches=p, prompt_len=VLM_PROMPT, gen_len=VLM_GEN, cache_slots=max_len,
+         replicate_seconds=replicate_s, publish_v1_seconds=publish_s, update_seconds=update_s, **hub_bytes,
+         rounds=rounds, timed_model="build_model(cfg), default attention", prefill_seconds=prefill_s,
+         prefill_positions_per_s=VLM_B * (p + VLM_PROMPT) / prefill_s,
+         prefill_tokens_per_s=VLM_B * VLM_PROMPT / prefill_s, decode_step_seconds=decode_step_s,
+         decode_tokens_per_s=VLM_B / decode_step_s, round_tokens_per_s=VLM_B * VLM_GEN / rounds[1]["seconds"],
+         max_memory_allocated=serve_peak, launches=served, checks=checks)
+    del model, reference, params, weights, patches, hub, trainer, rollout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.launch import train
+
+    steps, step_s = 2, []
+    make_step = train.make_train_step
+
+    def timed_steps(*a, **kw):  # each step's seconds, ended by a synchronize
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            out, seconds = timed(lambda: step(*args))
+            step_s.append(seconds)
+            return out
+
+        return run
+
+    train.make_train_step = timed_steps
+    try:
+        trained, losses = train_run(torch, every, ["--steps", str(steps)] + VLM_TRAIN_ARGV, cfg, steps)
+    finally:
+        train.make_train_step = make_step
+    emit("vlm_train_result", card=smi, config=cfg.name, layers=cfg.num_layers, dtype="float32", losses=losses,
+         batch=VLM_TRAIN_B, positions=VLM_TRAIN_SEQ, step_seconds=step_s,
+         positions_per_s=VLM_TRAIN_B * VLM_TRAIN_SEQ / step_s[-1],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=trained)
+    launches = {k: served[k] + trained[k] for k in every}  # the timed prefill and decode steps left out
+    out = {k: launches[k] for k in counters}
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -4044,13 +4646,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        import repro_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
-        return 2
-
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -4103,9 +4698,15 @@ def main() -> int:
     bwd_tc256["mla_192_128"] = trained["mla_backward"]
     fwd["routes"]["f32"]["mla_24_16"] = trained["narrow_forward"]
     bwd_cc["mla_24_16"] = trained["narrow_backward"]
-    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"])),
+    vlm = vlm_attention_checks(torch, dev, bw)
+    fwd["routes"]["tensor_core"]["internvl2_prefill"] = vlm["prefill"]
+    fwd["routes"]["decode"]["internvl2_decode"] = vlm["decode"]
+    fwd["routes"]["f32"]["internvl2_train_forward"] = vlm["train_forward"]
+    bwd_cc["internvl2_backward"] = vlm["train_backward"]
+    for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"],
+                                vlm["prefill"], vlm["decode"], vlm["train_forward"])),
                          (bwd_tc, (dbrx["backward"],)), (bwd_tc256, (trained["mla_backward"],)),
-                         (bwd_cc, (trained["narrow_backward"],))):
+                         (bwd_cc, (trained["narrow_backward"], vlm["train_backward"]))):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
         entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
     for kernel, rec in big_tensor_checks(torch, dev, bw).items():
@@ -4166,14 +4767,27 @@ def main() -> int:
     t0 = time.perf_counter()
     phase12 = mla_arch(torch, dev, counters, smi)
     phase_s["12 mla arch"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fused = kernels["dequant_gather"]
+    out_bytes = fused["output_bytes"]
+    simulator(smi, {"dequant_gather_shape": fused["timed_shape"], "dequant_gather_ms": fused["ms"],
+                    "dequant_gather_output_Bps": out_bytes / (fused["ms"] * 1e-3),
+                    "copy_ms": fused["copy_ms"], "copy_output_Bps": out_bytes / (fused["copy_ms"] * 1e-3),
+                    "copy_moved_Bps": 2 * out_bytes / (fused["copy_ms"] * 1e-3)})
+    phase_s["13 simulator"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase14 = vlm_arch(torch, dev, counters, smi)
+    phase_s["14 vlm arch"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12)  # the paths with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14)  # the paths with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    training_phases = (phase6, phase7, phase10, phase11, phase12)  # the paths with the backward
+    training_phases = (phase6, phase7, phase10, phase11, phase12, phase14)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -4183,7 +4797,8 @@ def main() -> int:
             names = {f"{base}/{n}" for n in bwd_kernels(d)}
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
-         phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase_seconds=phase_s)
+         phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
+         phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -74,9 +74,10 @@ _PullTask = collections.namedtuple("_PullTask", "unit offset nbytes owner")
 
 
 def _link_class(source: str, transport: str) -> str:
-    """Link class for byte accounting, aligned with the simulator's link
-    tags: WAN-negotiated TCP slices ride the VPC gateway, offload twins
-    the PCIe bus, everything else the RDMA fabric."""
+    """Link class for byte accounting, aligned with the link tags of the
+    simulator (:mod:`repro_torch.transfer.simcluster`): WAN-negotiated
+    TCP slices ride the VPC gateway, offload twins the PCIe bus,
+    everything else the RDMA fabric."""
     if source.endswith("@offload"):
         return "pcie"
     return "vpc_up" if transport == "tcp" else "rdma"

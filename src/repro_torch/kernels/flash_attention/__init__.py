@@ -24,7 +24,7 @@ only if ``j > p - window``; ``window <= 0`` is unlimited. Every query row
 must see a key, so a window that ends before ``kv_len`` for the last row
 is refused. With the defaults it computes what the Pallas kernel
 ``flash_attention_bh`` (``repro/kernels/flash_attention/kernel.py``)
-computes; the TPU kernel has no window (the JAX model's windowed layers
+computes; the Pallas kernel has no window (the JAX model's windowed layers
 run the jnp ``chunked_attention``).
 
 On a CUDA tensor it launches one of three hand-written kernels or raises;

@@ -8,7 +8,7 @@ are 0. On a CUDA tensor it launches the hand-written kernel
 (``csrc/repack.cu``, which replaces the Pallas kernel
 ``repro/kernels/repack/kernel.py:gather_bytes``) or raises; on a CPU
 tensor it runs :func:`repack_plain`. The kernel takes the run triples
-themselves, not the per-byte index map the TPU kernel gathered through.
+themselves, not the per-byte index map the Pallas kernel gathered through.
 """
 
 from __future__ import annotations

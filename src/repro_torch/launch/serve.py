@@ -17,7 +17,10 @@ GB). The dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b),
 the routed experts of dbrx-132b and deepseek-v3-671b's MLA attention
 (prefill through the flash kernel at q/k 192, v 128; decode through the
 absorbed-latent ``mla_decode`` kernel) are ported; another arch exits
-with the slice it waits for.
+with the slice it waits for. Requests are token prompts, as the JAX
+package's ``launch/serve.py``: a VLM (internvl2-2b), whose requests carry
+patches, is refused here and served through ``DecoderLM.prefill`` with
+``batch["patches"]``.
 
     python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
@@ -39,7 +42,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
+from repro_torch.configs import ARCH_IDS, VLM, ModelConfig, get_config
 from repro_torch.core import ReferenceServer, TensorHubClient
 from repro_torch.core.client import resolve_device
 from repro_torch.data.synthetic import PromptSet
@@ -125,6 +128,9 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     try:
         check_ported(cfg)
+        if cfg.family == VLM:
+            raise NotImplementedError(f"{cfg.name}: a VLM request carries patches, and these requests are "
+                                      "token prompts; serve it through DecoderLM.prefill with batch['patches']")
     except NotImplementedError as e:
         ap.exit(2, f"{ap.prog}: {e}\n")
     cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)

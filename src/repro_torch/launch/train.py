@@ -9,14 +9,23 @@ pattern). The port's counterpart of the JAX package's
     python -m repro_torch.launch.train --arch gemma2-2b --steps 50
     python -m repro_torch.launch.train --arch dbrx-132b --steps 50     # the reduced dbrx: 8 experts, top-2
     python -m repro_torch.launch.train --arch deepseek-v3-671b --steps 50   # MLA at q/k 16 + 8, v 16
+    python -m repro_torch.launch.train --arch internvl2-2b --full-config --batch 2 --seq 512   # 256 patches + 256 tokens
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs on the host. The dense decoder (llama3-8b, yi-34b,
-deepseek-coder-33b, gemma2-2b), the routed experts of dbrx-132b and
-deepseek-v3-671b's MLA attention are ported (the reduced deepseek-v3's
-attention, q/k 24 and v 16 in f32, runs the f32 forward and the CUDA-core
-backward on the card); another arch exits with the slice it waits for.
+deepseek-coder-33b, gemma2-2b), the routed experts of dbrx-132b,
+deepseek-v3-671b's MLA attention (the reduced deepseek-v3's attention, q/k
+24 and v 16 in f32, runs the f32 forward and the CUDA-core backward on the
+card) and internvl2-2b are ported; another arch exits with the slice it
+waits for. A VLM (internvl2-2b) trains as the JAX package's, ``num_patches``
+patch embeddings before ``--seq`` less ``num_patches`` tokens of each
+sequence, with one difference: the patches standing in for the vision
+frontend are seeded normal draws at the embedding's scale
+(:func:`stand_in_patches`) where the JAX package feeds zeros. An all-zero
+row's RMS norm passes its gradient on at 1/sqrt(eps) = 1000 times, so
+through 16 or more layers (internvl2-2b has 24) the zero rows' gradients
+overflow f32 and every weight gradient turns NaN, in both packages.
 With ``--publish`` the trainer registers its parameters
 themselves with a local TensorHub, and each step (which writes them in
 place) is published from those buffers with no copy.
@@ -27,15 +36,26 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, VLM, get_config
 from repro_torch.data.synthetic import BigramStream
 from repro_torch.models import build_model, check_trainable
 from repro_torch.models.params import init_params
 from repro_torch.training import AdamW, cosine_schedule, make_train_step
 from repro_torch.transfer.engine import resolve_device
+
+
+def stand_in_patches(cfg, batch: int, seed: int, step: int) -> np.ndarray:
+    """A VLM's patch embeddings for training step ``step``: ``[batch,
+    num_patches, d_model]`` f32, normal at the embedding's std
+    ``1/sqrt(vocab)``, from a generator seeded by ``(seed, step)`` (numpy's,
+    so the card and the host draw the same patches)."""
+    rng = np.random.default_rng([seed, step])
+    shape = (batch, cfg.num_patches, cfg.d_model)
+    return (rng.standard_normal(shape) / np.sqrt(cfg.vocab)).astype(np.float32)
 
 
 def main(argv=None) -> None:
@@ -94,6 +114,9 @@ def main(argv=None) -> None:
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.next_batch().items()}
+        if cfg.family == VLM:  # the vision frontend's stand-in, the tokens cut to fit
+            batch["patches"] = torch.from_numpy(stand_in_patches(cfg, args.batch, args.seed, step)).to(dev)
+            batch["tokens"] = batch["tokens"][:, : args.seq - cfg.num_patches]
         if hub_handle is not None:
             hub_handle.unpublish()  # the step writes the registered buffers
         params, opt_state, metrics = train_step(params, opt_state, batch)

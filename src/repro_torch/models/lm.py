@@ -35,8 +35,14 @@ form in ``decode`` (through ``latent_attention``, the ``mla_decode``
 kernel's wrapper by default) against a cache of one latent row and one
 rope key a slot, ``{"ckv": [.., B, Smax, R], "krope": [.., B, Smax, rd]}``
 with the sequence on axis 1, as the JAX package's ``_attn_cache_spec``.
-The VLM branch and the encoder, hybrid and xLSTM models wait for later
-slices (:func:`repro_torch.models.build_model` refuses them).
+
+A VLM config (internvl2-2b) takes precomputed patch embeddings,
+``batch["patches"]`` ``[B, P, d_model]``, cast to the activations' dtype
+and placed before the token embeddings in ``forward`` and ``prefill`` (the
+JAX package's ``_inputs``): positions run over patches and tokens, the
+logits cover both, and ``decode`` continues from ``P + prompt_len``. The
+encoder, hybrid and xLSTM models wait for later slices
+(:func:`repro_torch.models.build_model` refuses them).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import VLM, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.models import blocks
@@ -115,6 +121,15 @@ class DecoderLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return softcap((x @ w).float(), self.cfg.logit_softcap)
 
+    def _inputs(self, params: Params, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The embedded inputs ``[B, S, d_model]`` and their positions: the
+        tokens' embeddings, after a VLM's patches (``[B, P, d_model]``,
+        cast to the embeddings' dtype)."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == VLM:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x, torch.arange(x.shape[1], device=x.device)
+
     def _layer(self, params: Params, i: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         attn = {n: params[f"layers/attn/{n}"][i] for n in self._attn_names}
         ffn = {n: params[f"layers/ffn/{n}"][i] for n in self._ffn_names}
@@ -175,10 +190,10 @@ class DecoderLM:
     # -- forward (teacher-forced) ----------------------------------------------
 
     def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Logits ``[B, S, vocab]`` (f32) of a token batch ``{"tokens": [B, S]}``."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        positions = torch.arange(x.shape[1], device=x.device)
+        """Logits ``[B, S, vocab]`` (f32) of a token batch ``{"tokens": [B, S]}``
+        (a VLM's also ``"patches": [B, P, d_model]``, and its logits ``[B, P
+        + S, vocab]``)."""
+        x, positions = self._inputs(params, batch)
         attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
         ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in self._ffn_names}
 
@@ -219,11 +234,11 @@ class DecoderLM:
         """Forward over the prompt that also fills a KV cache of ``max_len``
         slots (default: the prompt length); returns the logits of the last
         position only (``[B, 1, vocab]``: at vocab 128256 a 16 x 512
-        batch's full logits would take 4.2 GB), the cache and its length."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        batch's full logits would take 4.2 GB), the cache and its length.
+        A VLM's patches come first: its cache length is ``P + prompt_len``,
+        and ``max_len`` counts the patches."""
+        x, positions = self._inputs(params, batch)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)
         cache = self.init_cache(b, max_len or s, x.dtype, x.device)
         x = self._run(params, x, positions, slots=self._slots(cache))
         return self._head(params, x[:, -1:]), cache, s

@@ -9,13 +9,16 @@ as soon as the step returns. Gradients are taken with
 ``torch.autograd.grad`` on ``detach()``ed views that share the registered
 storage: the registered tensors themselves never require a gradient.
 
-The decoder LM is ported, dense and with routed experts (dbrx) and with
-MLA attention (deepseek-v3): the backward of the MoE FFN's gathers,
-scatters and expert products is autograd's, and so is MLA's around its
-attention (the rope key broadcast over the heads sums each head's
-gradient back into ``wkv_a``); the attention's own backward is flash
-attention's kernels. Configs of the audio, VLM, hybrid and SSM families
-raise ``NotImplementedError`` and wait for their slices
+The decoder LM is ported, dense and with routed experts (dbrx), with
+MLA attention (deepseek-v3) and with a VLM's patches before the tokens
+(internvl2-2b, whose LM loss skips the patch positions as the JAX
+package's: ``text_offset = cfg.num_patches``): the backward of the MoE
+FFN's gathers, scatters and expert products is autograd's, and so is
+MLA's around its attention (the rope key broadcast over the heads sums
+each head's gradient back into ``wkv_a``); the attention's own backward
+is flash attention's kernels. The GRPO objective, as the JAX package's,
+feeds the model tokens only. Configs of the audio, hybrid and SSM
+families raise ``NotImplementedError`` and wait for their slices
 (:func:`repro_torch.models.check_trainable`).
 """
 
@@ -25,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, MutableMapping, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import VLM
 from repro_torch.models import check_trainable
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -48,11 +52,12 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    check_trainable(cfg)  # VLM and the other families not ported are refused
+    check_trainable(cfg)  # the families not ported are refused
+    offset = cfg.num_patches if cfg.family == VLM else 0  # a VLM's logits start with its patches
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
-        return objectives.lm_cross_entropy(logits, batch["tokens"])
+        return objectives.lm_cross_entropy(logits, batch["tokens"], text_offset=offset)
 
     return loss_fn
 
@@ -127,7 +132,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    check_trainable(cfg)  # VLM and the other families not ported are refused
+    check_trainable(cfg)  # the families not ported are refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

@@ -773,8 +773,9 @@ def wire_ratio(
     delta_kept_frac: float = 1.0,
 ) -> float:
     """Wire-bytes / payload-bytes of one shard manifest under ``codec``
-    (the simulator's fluid byte multiplier, computed from the codec's
-    actual size formula rather than a hand-set scalar).
+    (the fluid byte multiplier of :mod:`repro_torch.transfer.simcluster`,
+    computed from the codec's actual size formula rather than a hand-set
+    scalar).
 
     ``delta_kept_frac`` models how correlated successive versions are for
     a :class:`DeltaCodec`: the fraction of quantization rows that changed

@@ -434,7 +434,7 @@ class LocalTransport:
         self.faults = faults
         self.bytes_moved = 0
         # Per-link-class byte accounting, mirroring the simulator's link
-        # tags ("rdma" intra-DC, "vpc_up" WAN, "pcie" offload): wire
+        # (repro_torch.transfer.simcluster's) tags ("rdma" intra-DC, "vpc_up" WAN, "pcie" offload): wire
         # bytes are what the NIC carried (post-codec), decoded bytes the
         # payload delivered. Always on — the cross-DC benchmarks assert
         # sim-vs-threaded parity from these counters.

@@ -18,6 +18,10 @@ This module provides:
   transient errors, and the hedged-read straggler threshold.
 * :class:`ThreadedFaultInjector` — the threaded-plane arm, hooked into
   ``LocalTransport`` (``before_read`` delay/flake, payload byte-flips).
+* :class:`SimFaultInjector` — the sim-plane arm, installed via
+  ``SimCluster.install_faults``: crash/slow/hang faults become scheduled
+  link-capacity events on the fluid network; flaky/corrupt faults are
+  per-flow seeded draws.
 
 Faults address *sources*: a ``slow`` fault degrades the target replica's
 NIC links, ``flaky``/``corrupt`` afflict reads served by the target.
@@ -275,3 +279,85 @@ class ThreadedFaultInjector:
             f.start for _, f in self._by_target.get(CONTROLLER, ())
             if f.kind == "crash"
         )
+
+class SimFaultInjector:
+    """Sim-plane fault arm: schedules a :class:`FaultPlan` as virtual-time
+    events on a ``SimCluster``.
+
+    crash  -> ``cluster.kill_replica`` (controller: ``crash_and_recover``)
+    slow   -> target's up/down RDMA links scaled to ``severity`` for the
+              window, then restored (``hang`` is ``slow`` at 0.0 — the
+              max-min allocator gives flows on a zero-capacity link rate
+              zero, and they resume when capacity returns)
+    flaky  -> a seeded draw per flow creation; a hit schedules a
+              *transient* kill of that flow shortly after it starts
+    corrupt-> a seeded draw per completed flow; the sim moves no real
+              bytes, so a hit manifests as a checksum reject at delivery
+    """
+
+    def __init__(self, cluster, plan: FaultPlan) -> None:
+        self.cluster = cluster
+        self.plan = plan
+        #: schedule origin: fault windows are relative to installation
+        #: time, mirroring the threaded injector's ``arm()`` clock origin
+        #: (a plan can be armed mid-run, after a healthy warm-up phase)
+        self.origin = float(cluster.env.now)
+        self._rngs: Dict[int, random.Random] = {
+            i: plan.rng(i) for i, _ in enumerate(plan.faults)
+        }
+        self._by_target: Dict[str, List[Tuple[int, FaultSpec]]] = {}
+        for i, spec in enumerate(plan.faults):
+            self._by_target.setdefault(spec.target, []).append((i, spec))
+        self._base_capacity: Dict[str, float] = {}
+
+    def install(self) -> None:
+        env = self.cluster.env
+        for i, spec in enumerate(self.plan.faults):
+            if spec.target == CONTROLLER:
+                if spec.kind == "crash":
+                    env.schedule(spec.start, self.cluster.crash_and_recover)
+                continue
+            if spec.kind == "crash":
+                env.schedule(
+                    spec.start,
+                    lambda t=spec.target: self.cluster.kill_replica(t),
+                )
+            elif spec.kind in ("slow", "hang"):
+                factor = 0.0 if spec.kind == "hang" else spec.severity
+                env.schedule(
+                    spec.start, lambda s=spec, f=factor: self._scale(s, f)
+                )
+                if math.isfinite(spec.duration):
+                    env.schedule(
+                        spec.start + spec.duration,
+                        lambda s=spec: self._scale(s, 1.0),
+                    )
+            # flaky/corrupt are queried at flow boundaries, not scheduled
+
+    def _scale(self, spec: FaultSpec, factor: float) -> None:
+        """Scale the target replica's NIC links; 1.0 restores healthy."""
+        net = self.cluster.net
+        net._advance_to_now()
+        for (rep, _idx), w in self.cluster._workers.items():
+            if rep != spec.target:
+                continue
+            links = {"both": (w.up, w.down), "up": (w.up,), "down": (w.down,)}[
+                spec.direction
+            ]
+            for lk in links:
+                base = self._base_capacity.setdefault(lk.name, lk.capacity)
+                lk.capacity = base * factor
+        net._reallocate()
+
+    def _hit(self, kind: str, replica: str, now: float) -> bool:
+        for i, spec in self._by_target.get(replica, ()):
+            if spec.kind == kind and spec.active(now - self.origin):
+                if self._rngs[i].random() < spec.severity:
+                    return True
+        return False
+
+    def flaky_hit(self, replica: str, now: float) -> bool:
+        return self._hit("flaky", replica, now)
+
+    def corrupt_hit(self, replica: str, now: float) -> bool:
+        return self._hit("corrupt", replica, now)

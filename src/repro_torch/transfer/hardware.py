@@ -5,7 +5,14 @@ Cluster/network constants — from the paper's hardware specification
   PCIe) and its measured efficiencies (Fig 7a: TensorHub 22 GB/s, NCCL
   18.8 GB/s, UCX 18.1 GB/s of the 25 GB/s per-shard roofline; 2.3: Ray
   object store 40 GB in 32 s). The data plane's retry policy reads the
-  RDMA failure-detection timeout from here.
+  RDMA failure-detection timeout from here. These drive the event
+  simulator (:mod:`repro_torch.transfer.simcluster`).
+
+The device profile — one NVIDIA H100 SXM5 80 GB (``nvidia-smi``: "NVIDIA
+H100 80GB HBM3", power limit 700 W), from NVIDIA's data sheet: 989
+TFLOP/s dense bf16, 3.35 TB/s HBM3, 450 GB/s NVLink each way. The
+simulator drains the fused int8 decode of a resharded pull at a third of
+its HBM rate.
 """
 
 from __future__ import annotations
@@ -48,4 +55,13 @@ class ClusterHW:
     straggler_scale: float = 0.25
 
 
+@dataclasses.dataclass(frozen=True)
+class GpuHW:
+    peak_flops_bf16: float = 989e12  # dense, per card
+    hbm_bw: float = 3.35e12  # bytes/s per card
+    nvlink_bw: float = 450e9  # bytes/s per card, each direction
+
+
 CLUSTER = ClusterHW()
+#: NVIDIA H100 80GB HBM3 (SXM5) at its 700 W power limit
+H100 = GpuHW()

@@ -6,9 +6,10 @@ do ``reduced()``, ``param_count()``, ``active_param_count()``,
 ``live_shapes()`` and the shape grid; for the four dense ids, full and
 reduced, the port's parameter names, shapes and order are the JAX
 ``DecoderLM``'s, and so are dbrx-132b's (routed experts) and
-deepseek-v3-671b's (MLA attention). A family the port has no model for is
-refused with the slice it waits for, by ``build_model`` and by both entry
-points; dbrx is built, trained by ``launch/train.py`` at its reduced
+deepseek-v3-671b's (MLA attention) and internvl2-2b's (the VLM family). A
+family the port has no model for is refused with the slice it waits for,
+by ``build_model`` and by both entry points (``launch.serve`` refuses
+internvl2-2b too: its requests are token prompts); dbrx is built, trained by ``launch/train.py`` at its reduced
 config and served by ``serve()`` at a reduced config (``serve.main``
 refuses its 40 layers, which do not fit a device, before allocating
 anything); deepseek-v3 is built, served and, its MLA attention included,
@@ -36,11 +37,14 @@ from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
 PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
-#: served and trained
-SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b",)
+#: served and trained (internvl2-2b through ``DecoderLM`` with its patches)
+SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b", "internvl2-2b")
 OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS)
-#: what the refusal of each family that is not ported names
-WAITS_FOR = {"vlm": "VLM", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+#: what the refusal of each family names (the VLM's: ``launch.serve``'s)
+WAITS_FOR = {"vlm": "patches", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+#: (entry point, arch) pairs each entry point refuses, and ``train`` with
+#: internvl2-2b, which trains now (the case kept its name)
+REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + OTHER_IDS]
 #: what the training entry points' refusal of MLA names
 
 
@@ -109,9 +113,10 @@ def test_gemma2_shapes_have_post_norms_and_no_head():
     assert "head" in llama and not any("post_ln" in n for n in llama)
 
 
-@pytest.mark.parametrize("arch", PORTED_IDS)
+@pytest.mark.parametrize("arch", PORTED_IDS + ("internvl2-2b",))
 def test_build_model_builds_the_dense_ids(arch):
-    """The dense ids, and dbrx-132b (MoE, no MLA) beside them."""
+    """The dense ids, and dbrx-132b (MoE, no MLA) and internvl2-2b (the
+    dense decoder behind its patches) beside them."""
     cfg = port_configs.get_config(arch)
     model = build_model(cfg)
     assert isinstance(model, DecoderLM) and model.cfg is cfg
@@ -120,9 +125,16 @@ def test_build_model_builds_the_dense_ids(arch):
     assert model.windows == want
 
 
-@pytest.mark.parametrize("arch", OTHER_IDS)
+@pytest.mark.parametrize("arch", ("internvl2-2b",) + OTHER_IDS)
 def test_build_model_refuses_the_families_not_ported(arch):
+    """Each family the port has no model for is refused with its slice
+    named; internvl2-2b (the VLM family), refused until its slice was in,
+    now builds, full and reduced (the case kept its name)."""
     cfg = port_configs.get_config(arch)
+    if arch == "internvl2-2b":
+        check_ported(cfg.reduced())
+        assert isinstance(build_model(cfg), DecoderLM) and cfg.num_patches == 256
+        return
     with pytest.raises(NotImplementedError, match=WAITS_FOR[cfg.family]):
         build_model(cfg)
     with pytest.raises(NotImplementedError, match=WAITS_FOR[cfg.family]):
@@ -146,16 +158,19 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     """MLA and routed experts build in a dense-family config too (with
     deepseek-v3's latent attention, shared expert and dense prefix), as
     the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
-    family; training takes both, and still refuses a VLM config with its
-    slice named."""
+    family; training takes both, in a VLM config too, and still refuses
+    an audio config with its slice named."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     mla = dataclasses.replace(base, mla=ds.mla)
     assert build_model(mla).is_mla
     check_trainable(mla)
-    vlm = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.VLM)
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        check_trainable(dataclasses.replace(vlm, mla=ds.mla))
+    vlm = next(port_configs.get_config(a) for a in SERVED_IDS if port_configs.get_config(a).family == port_base.VLM)
+    check_trainable(dataclasses.replace(vlm, mla=ds.mla))
+    assert build_model(dataclasses.replace(vlm, mla=ds.mla)).is_mla
+    audio = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.AUDIO)
+    with pytest.raises(NotImplementedError, match="audio slice"):
+        check_trainable(dataclasses.replace(audio, mla=ds.mla))
     cfg = dataclasses.replace(base, moe=ds.moe)
     check_trainable(cfg)
     model = build_model(cfg)
@@ -218,10 +233,17 @@ def test_serve_answers_a_reduced_deepseek_v3():
     assert [r["version"] for r in rows] == [0, 0] and all(r["tokens"] == 6 for r in rows)
 
 
-@pytest.mark.parametrize("arch", OTHER_IDS)
-@pytest.mark.parametrize("entry", ["serve", "train"])
+@pytest.mark.parametrize("entry,arch", REFUSED, ids=[f"{e}-{a}" for e, a in REFUSED])
 def test_entry_points_exit_with_the_slice_a_family_waits_for(arch, entry, capsys):
     main = serve_main.main if entry == "serve" else train_main.main
+    if (entry, arch) == ("train", "internvl2-2b"):  # the reduced config's 4 patches before 8 tokens
+        import math
+        import re
+
+        main(["--arch", arch, "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "12"])
+        losses = [float(x) for x in re.findall(r"loss (\S+)", capsys.readouterr().out)]
+        assert len(losses) == 1 and math.isfinite(losses[0])
+        return
     with pytest.raises(SystemExit) as exc:
         main(["--arch", arch, "--device", "cpu"])
     assert exc.value.code == 2

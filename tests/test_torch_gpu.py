@@ -540,6 +540,7 @@ _BWD_CASES = [
     (1, 8, 8, 96, 96, 64, True, 30.0, 0, None),  # softcap
     (2, 8, 4, 300, 300, 256, True, 50.0, 0, None),  # head_dim 256 (gemma2: G 2, softcap 50)
     (1, 8, 2, 64, 300, 256, True, 0.0, 200, 264),  # head_dim 256, q_offset > 0, kv_len < Sk
+    (2, 16, 8, 512, 512, 128, True, 0.0, 0, None),  # internvl2-2b's f32 step (phase 14): G 2
 ]
 
 
@@ -1760,3 +1761,101 @@ def test_mla_decoder_grpo_step_on_the_card(dev, monkeypatch):
         l2 = float((gk.float() - want).norm() / want.norm().clamp_min(1e-30))
         assert l2 <= 5e-2, (n, l2)
         assert _rel_err(gk, refs["plain_backward"][n]) <= 2e-2, (n, _rel_err(gk, refs["plain_backward"][n]))
+
+
+# -- the VLM family (internvl2-2b): a GQA group of 2 at head_dim 128, the simulator beside the card -------------
+
+#: internvl2-2b's attention at chip_smoke.py phase 14's shapes (16 query and
+#: 8 KV heads of 128): the served prefill of 256 patches + 512 tokens and
+#: its last decode step against the cache of 832 slots
+_VLM_FORWARD = {"tensor_core": (4, 16, 8, 768, 768, dict(causal=True)),
+                "decode": (4, 16, 8, 1, 832, dict(causal=True, q_offset=831, kv_len=832))}
+
+
+@pytest.mark.parametrize("route", list(_VLM_FORWARD))
+def test_internvl2_group_of_2_on_its_forward_routes(dev, route):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, kw = _VLM_FORWARD[route]
+    q, k, v = _qkv(dev, sq + 2, b, hq, hkv, sq, sk, 128, torch.bfloat16)
+    assert fa._route(q, k) == route
+    before = fa.ROUTE_LAUNCHES[route].value
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.ROUTE_LAUNCHES[route].value == before + 1
+    _flash_close(got, fa.attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_internvl2_serves_its_patches_on_the_card(dev):
+    """internvl2-2b's widths (d_model 2048, 16/8 heads of 128) at 2 layers,
+    a narrow FFN and vocab, 64 patches, bf16: the prefill of patches and
+    tokens on the tensor_core route, the decode steps from ``P +
+    prompt_len`` on the decode route, against a forward with the plain
+    attention."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("internvl2-2b"), num_layers=2, d_ff=1024, vocab=1024, num_patches=64)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    model, ref = build_model(cfg), build_model(cfg, attention=fa.attention_plain)
+    g = torch.Generator(device=dev).manual_seed(1)
+    patches = (torch.randn((2, 64, cfg.d_model), generator=g, device=dev) / math.sqrt(cfg.vocab)).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 52), generator=g, device=dev)
+    before = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    logits, cache, n = model.prefill(params, {"tokens": toks[:, :40], "patches": patches}, max_len=64 + 52)
+    assert n == 64 + 40
+    steps = [logits[:, -1]]
+    for t in range(40, 51):
+        logits, cache = model.decode(params, cache, toks[:, t : t + 1], n)
+        n += 1
+        steps.append(logits[:, -1])
+    launched = {r: c.value - before[r] for r, c in fa.ROUTE_LAUNCHES.items()}
+    assert launched == {"f32": 0, "decode": 2 * 11, "tensor_core": 2}
+    want = ref.forward(params, {"tokens": toks, "patches": patches})[:, 64 + 39 : 64 + 51]
+    got = torch.stack(steps, 1)
+    assert torch.isfinite(got).all() and float((got - want).abs().max()) < 0.5
+
+
+def test_train_entry_point_on_the_reduced_internvl2(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    before = fa.ROUTE_LAUNCHES["f32"].value, fa.BWD_LAUNCHES["cuda_core/dkdv"].value
+    train.main(["--arch", "internvl2-2b", "--steps", "2"])
+    assert fa.ROUTE_LAUNCHES["f32"].value - before[0] == 2 * 4
+    assert fa.BWD_LAUNCHES["cuda_core/dkdv"].value - before[1] == 2 * 4
+
+
+def test_simcluster_beside_a_live_cuda_context(dev):
+    """The simulator on the H100 profile next to a live CUDA context: a
+    cross-DC TP-4 -> TP-2 int8 pull completes, its decode part drained at
+    a third of the profile's HBM rate, and no kernel launches and no
+    device memory moves."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.transfer import hardware
+    from repro_torch.transfer.simcluster import SimCluster
+
+    live = torch.ones(1 << 20, device=dev)
+    torch.cuda.synchronize(dev)
+    counters = (ck.LAUNCHES, qk.LAUNCHES, rk.LAUNCHES, fk.LAUNCHES, fa.LAUNCHES)
+    before = [c.value for c in counters], torch.cuda.memory_allocated(dev)
+    units = [1 << 30] * 8
+    cl = SimCluster(wan_codec="int8")
+    tr = cl.add_replica("m", "tr", 4, global_unit_bytes=units)
+    ro = cl.add_replica("m", "ro", 2, datacenter="dc1", global_unit_bytes=units)
+    tr.open()
+    ro.open()
+    cl.run()
+    tr.publish(0)
+    cl.run()
+    ev = ro.replicate("latest")
+    cl.run()
+    assert ev.triggered and ev.error is None and cl.server.replica_version("m", "ro") == 0
+    decode = cl.stall_decomposition(["ro"])["decode"]
+    assert 0 < decode <= 2 * (1 << 30) * 2 / (hardware.H100.hbm_bw / 3.0)  # at most two units' drain a shard
+    assert ([c.value for c in counters], torch.cuda.memory_allocated(dev)) == before
+    assert float(live.sum()) == float(1 << 20)

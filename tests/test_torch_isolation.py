@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch.transfer.engine import WorkerStore  # noqa: E402
+from repro_torch.transfer.simcluster import SimCluster, make_manifest  # noqa: E402  (imported beside the card checks)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -24,6 +25,7 @@ _FORBIDDEN = [
     (re.compile(r"^\s*from\s+repro(\.|\s)", re.M), "imports the JAX package"),
     (re.compile(r"^\s*import\s+repro(\.|\s|$|,)", re.M), "imports the JAX package"),
     (re.compile(r"ml_dtypes"), "mentions ml_dtypes"),
+    (re.compile(r"\bTPU\b|\bTpuHW\b"), "names the TPU profile (the port's is hardware.H100)"),
 ]
 
 
@@ -34,6 +36,7 @@ _MODULES = [
     "repro_torch.configs",
     "repro_torch.configs.base",
     "repro_torch.configs.gemma2_2b",
+    "repro_torch.configs.paper_workloads",
     "repro_torch.core.client",
     "repro_torch.core.failover",
     "repro_torch.core.server",
@@ -74,6 +77,10 @@ _MODULES = [
     "repro_torch.training.steps",
     "repro_torch.transfer.codec",
     "repro_torch.transfer.engine",
+    "repro_torch.transfer.faults",
+    "repro_torch.transfer.hardware",
+    "repro_torch.transfer.simcluster",
+    "repro_torch.transfer.simnet",
 ]
 
 
@@ -165,6 +172,47 @@ hr.replicate(0, timeout=30)
 assert rd_w.transport.conn_opens > 0 and torch.equal(hr.store.get("b"), w["b"])
 for x in (rd_w, pub_w, ctrl):
     (x.close if hasattr(x, "close") else x.shutdown)()
+# the simulator on the H100 profile: Table 3's 9B published, replicated
+# across datacenters over int8 and updated; a TP-4 -> TP-2 resharded pull
+from repro_torch.configs.paper_workloads import WORKLOADS
+from repro_torch.transfer.faults import FaultPlan, FaultSpec
+from repro_torch.transfer.simcluster import SimCluster
+w9 = WORKLOADS["9B"]
+cl = SimCluster(wan_codec="int8", telemetry=True)
+tr = cl.add_replica("m", "tr", w9.num_shards, unit_bytes=w9.unit_bytes(8))
+ro = cl.add_replica("m", "ro", w9.num_shards, datacenter="dc1", unit_bytes=w9.unit_bytes(8))
+tr.open(), ro.open()
+cl.run()
+cl.install_faults(FaultPlan(seed=1, faults=(FaultSpec("slow", "tr", severity=0.5),)))
+for v in range(2):
+    tr.publish(v)
+    cl.run()
+    ev = (ro.replicate if v == 0 else ro.update)("latest")
+    cl.run()
+    assert ev.triggered and ev.error is None
+    tr.unpublish()
+    cl.run()
+assert cl.link_class_bytes()["vpc_up"] > 0 and cl.recorder.events
+cl = SimCluster(wan_codec="int8")
+tr = cl.add_replica("m", "tr", 4, global_unit_bytes=[1 << 28] * 8)
+ro = cl.add_replica("m", "ro", 2, datacenter="dc1", global_unit_bytes=[1 << 28] * 8)
+tr.open(), ro.open()
+cl.run()
+tr.publish(0)
+cl.run()
+ev = ro.replicate("latest")
+cl.run()
+assert ev.triggered and ev.error is None and cl.stall_decomposition(["ro"])["decode"] > 0
+# the VLM family: internvl2-2b's reduced config, patches before the tokens, one LM train step
+from repro_torch.models import build_model
+from repro_torch.models.params import init_params
+from repro_torch.training import AdamW, make_train_step
+vlm = get_config("internvl2-2b").reduced()
+vp = init_params(vlm, torch.Generator().manual_seed(0), torch.float32, "cpu")
+opt = AdamW(lr=1e-3)
+vb = {"tokens": torch.randint(0, vlm.vocab, (2, 6), generator=g), "patches": torch.zeros(2, vlm.num_patches, vlm.d_model)}
+_, _, vm = make_train_step(build_model(vlm), vlm, opt)(vp, opt.init(vp), vb)
+assert torch.isfinite(vm["loss"])
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro.")
@@ -191,6 +239,8 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.models.params", "repro_torch.rl.loop", "repro_torch.training", "repro_torch.checkpoint",
     "repro_torch.launch.train", "repro_torch.core.failover", "repro_torch.net", "repro_torch.net.controller",
     "repro_torch.kernels.mla_decode",
+    "repro_torch.transfer.simnet", "repro_torch.transfer.simcluster", "repro_torch.configs.paper_workloads",
+    "repro_torch.transfer.faults", "repro_torch.transfer.hardware",
     "repro_torch.net.worker", "repro_torch.launch.networked", "repro_torch.configs", "repro_torch.models",
 ])
 def test_serving_modules_import_first(module):
@@ -210,6 +260,8 @@ def test_default_device_raises_without_a_card(monkeypatch):
         WorkerStore("w")
     hub = port_core.TensorHubClient(port_core.ReferenceServer(), device="cpu")
     assert hub.device == torch.device("cpu")
+    # the simulator needs no card: its int8 wire ratio is the codec's size formula
+    assert 0 < SimCluster(wan_codec="int8").codec_ratio("int8", make_manifest([1 << 20] * 4, "float32")) < 0.26
 
 
 def test_store_refuses_tensors_on_another_device():
