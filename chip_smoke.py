@@ -2499,6 +2499,183 @@ def vlm_attention_checks(torch, dev, bw: float) -> dict:
     return out
 
 
+#: hubert-xlarge's attention (16 query and 16 KV heads of 80) at the edges
+#: phase 2 holds its four head_dim-80 kernels to, beside phase 15's launch
+#: shapes: (b, hq, hkv, sq, sk, causal, q_offset, kv_len, window, softcap);
+#: S = 77, causal and not, G 1, 2 and 4, a softcap of 50, windows of 64 and
+#: 4096, q_offset > 0, kv_len < Sk with NaN in the slots past it
+HUBERT_EDGES = [
+    (2, 16, 16, 77, 77, False, 0, None, 0, 0.0),
+    (2, 16, 16, 77, 77, True, 0, None, 0, 0.0),
+    (1, 16, 8, 300, 300, False, 0, None, 0, 50.0),
+    (1, 16, 4, 300, 300, True, 0, None, 64, 0.0),
+    (1, 16, 16, 64, 400, True, 300, 364, 0, 0.0),
+    (1, 16, 8, 200, 260, False, 0, 230, 4096, 0.0),
+]
+
+
+def hubert_attention_checks(torch, dev, bw: float) -> dict:
+    """hubert-xlarge's attention at head_dim 80 on the four kernels phase 15
+    launches, each held to its plain version at phase 2's tolerances and
+    run twice for bit-equal results: first at phase 15's launch shapes,
+    bidirectional at G 1 (the tensor_core forward at the encode's
+    [8,16/16,1000,80] bf16 without and with the lse, the tensor_core
+    backward at the bf16 step's [4,16/16,1000,80] on its forward's output,
+    the f32 forward with its lse at ``launch.train``'s f32 step,
+    [2,16/16,1000,80], and the cuda_core backward on that output), then at
+    ``HUBERT_EDGES`` (bf16 on the tensor_core forward and backward, f32 and
+    f16 on the f32 forward and the cuda_core backward). Each launch shape is
+    timed with the L2 cold beside the plain version and SDPA (its backend
+    named), with the bound at the true width 80 and the inputs' peak; the
+    backwards also by kernel."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("hubert-xlarge")
+    hq, hkv, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, AUDIO_FRAMES
+    check(d == 80 and hq == hkv, f"hubert-xlarge's attention: {hq}/{hkv} heads of {d}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 160)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    worst = {}
+
+    def note(key, err):
+        worst[key] = tuple(max(a, b) for a, b in zip(worst.get(key, (0.0, 0.0)), err))
+
+    def forward(label, route, q, k, v, kz, vz, kw, with_lse=True):
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        before = fa.ROUTE_LAUNCHES[route].value
+        got, again = (fa.launch_route(route, q, k, v, with_lse=with_lse, **kw) for _ in range(2))
+        check(fa.ROUTE_LAUNCHES[route].value == before + 2, f"{route} not launched on {label}")
+        out, out2 = (got[0], again[0]) if with_lse else (got, again)
+        want = fa.attention_plain(q, kz, vz, **kw).float()
+        diff = (out.float() - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())
+        same = bool(torch.equal(out, out2))
+        lse_ratio = None
+        if with_lse:
+            lse_want = fa.attention_lse_plain(q, kz, **kw)
+            lse_ratio = float(((got[1] - lse_want).abs() / (2e-5 + 2e-5 * lse_want.abs())).max())
+            same = same and bool(torch.equal(got[1], again[1]))
+        emit("flash_check", case=label, route=route, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio,
+             lse_err_over_tol=lse_ratio, bit_equal_rerun=same)
+        check(ratio <= 1.0 and (lse_ratio is None or lse_ratio <= 1.0) and bool(torch.isfinite(out).all()),
+              f"{route} != plain version on {label}")
+        check(same, f"two runs of the {route} route differ on {label}")
+        note(route, (float(diff.max()), max(ratio, lse_ratio or 0.0)))
+        return got
+
+    def backward(label, route, q, k, v, kz, vz, o, lse, dout, kw):
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        check(fa._bwd_route(q) == route, f"{label}: backward routed to {fa._bwd_route(q)}")
+        got, again = backward_twice(torch, fa, route, label, q, k, v, o, lse, dout, kw)
+        want = fa.attention_backward_plain(q, kz, vz, o, lse, dout, **kw)
+        note(f"bwd/{route}", held_backward(torch, label, route, got, again, want, q, k, v, tol))
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+
+    def sdpa_ms(call):
+        backend = sdpa_backend(torch, call)
+        with sdpa_kernel([backend]):
+            return cold_ms(torch, call, flush), str(backend)
+
+    # phase 15's launch shapes: the encode, the bf16 step, launch.train's f32 step
+    bf16, f32, kw = torch.bfloat16, torch.float32, dict(causal=False)
+    q = rand((AUDIO_B, hq, s, d), bf16)
+    k, v = rand((AUDIO_B, hkv, s, d), bf16), rand((AUDIO_B, hkv, s, d), bf16)
+    shape = f"q {list(q.shape)}, k/v {list(k.shape)} bf16 bidirectional"
+    check(fa._route(q, k) == fa._route(q, k, grad=True) == "tensor_core",
+          f"hubert's encode routed to {fa._route(q, k)}")
+    forward(f"hubert encode {shape}", "tensor_core", q, k, v, k, v, kw, with_lse=False)
+    forward(f"hubert encode {shape}, with the lse", "tensor_core", q, k, v, k, v, kw)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    library_ms, backend = sdpa_ms(sdpa)
+    bound, by, flops, nbytes = flash_bound_ms(q, k, s, False, 0, bw)
+    encode = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    out["encode"] = dict(route="tensor_core", shape=shape, ms=cold_ms(torch, encode, flush),
+                         warm_device_ms=device_ms(torch, encode),
+                         plain_ms=cold_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), flush, reps=5),
+                         library_ms=library_ms, library=f"scaled_dot_product_attention ({backend})",
+                         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                         sdpa_max_abs_diff=float((sdpa().float() - encode().float()).abs().max()))
+    emit("flash_hubert_times", case="encode", **out["encode"])
+    del q, k, v
+
+    for label, dtype, b, fwd_route, bwd_route in (("train_bf16", bf16, AUDIO_TRAIN_B, "tensor_core", "tensor_core"),
+                                                  ("train_f32", f32, AUDIO_F32_B, "f32", "cuda_core")):
+        q = rand((b, hq, s, d), dtype)
+        k, v = rand((b, hkv, s, d), dtype), rand((b, hkv, s, d), dtype)
+        dout = rand(q.shape, dtype)
+        name = str(dtype).split(".")[1]
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} {name} bidirectional"
+        check((fa._route(q, k, grad=True), fa._bwd_route(q)) == (fwd_route, bwd_route),
+              f"hubert's {label} routed to {fa._route(q, k, grad=True)}/{fa._bwd_route(q)}")
+        o, lse = forward(f"hubert {label} forward {shape}, with the lse", fwd_route, q, k, v, k, v, kw)
+        backward(f"hubert {label} backward {shape}", bwd_route, q, k, v, k, v, o, lse, dout, kw)
+        peak = BF16_TFLOPS if dtype == bf16 else F32_TFLOPS
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        bwd_backend = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(*leaves))
+        with sdpa_kernel([bwd_backend]):  # the backward runs the backend its forward took
+            sdpa_out = F.scaled_dot_product_attention(*leaves)
+        calls = {"forward": lambda: fa.launch_route(fwd_route, q, k, v, with_lse=True, **kw),
+                 "backward": lambda: fa.launch_backward(q, k, v, o, lse, dout, **kw)}
+        plain = {"forward": lambda: fa.attention_plain(q, k, v, **kw),
+                 "backward": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw)}
+        sdpas = {"forward": lambda: F.scaled_dot_product_attention(q, k, v),
+                 "backward": lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)}
+        bounds = {"forward": flash_bound_ms(q, k, s, False, 0, bw, peak=peak),
+                  "backward": bwd_bound_ms(q, k, s, False, 0, bw, peak)}
+        for part, route in (("forward", fwd_route), ("backward", bwd_route)):
+            if part == "forward" and dtype == bf16:
+                continue  # the encode's kernel at twice the batch, timed above
+            if part == "forward":
+                library_ms, backend = sdpa_ms(sdpas[part])
+            else:
+                library_ms, backend = cold_ms(torch, sdpas[part], flush), str(bwd_backend)
+            bound, by, flops, nbytes = bounds[part]
+            key = f"{label}_{part}"
+            out[key] = dict(route=route, shape=shape + (", with the lse" if part == "forward" else ""),
+                            ms=cold_ms(torch, calls[part], flush), warm_device_ms=device_ms(torch, calls[part]),
+                            plain_ms=cold_ms(torch, plain[part], flush, reps=5), library_ms=library_ms,
+                            library=f"scaled_dot_product_attention {part} ({backend})", bound_ms=bound, bound_by=by,
+                            flops=flops, bytes=nbytes)
+            if part == "backward":
+                out[key]["kernels_ms"] = kernel_split_ms(torch, calls[part], flush)
+            emit("flash_hubert_times", case=key, **out[key])
+        del q, k, v, dout, o, lse, leaves, sdpa_out, calls, plain, sdpas
+        torch.cuda.empty_cache()
+
+    # the edges, on all four kernels (f16 on the CUDA-core pair)
+    for b, hq_, hkv_, sq, sk, causal, q_offset, kv_len, window, cap in HUBERT_EDGES:
+        ekw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, softcap=cap)
+        for dtype, fwd_route, bwd_route in ((bf16, "tensor_core", "tensor_core"), (f32, "f32", "cuda_core"),
+                                            (torch.float16, "f32", "cuda_core")):
+            q = rand((b, hq_, sq, d), dtype)
+            k, v = rand((b, hkv_, sk, d), dtype), rand((b, hkv_, sk, d), dtype)
+            kz, vz = k, v
+            if kv_len is not None:
+                q, k, v, kz, vz = nan_tail((q, k, v), kv_len)
+            dout = rand(q.shape, dtype)
+            label = (f"hubert edge G {hq_ // hkv_} q {list(q.shape)}, k/v {list(k.shape)} {str(dtype).split('.')[1]} "
+                     f"causal {causal} q_offset {q_offset} kv_len {kv_len} window {window} softcap {cap}")
+            check(fa._route(q, k, grad=True) == fwd_route, f"{label}: routed to {fa._route(q, k, grad=True)}")
+            o, lse = forward(label, fwd_route, q, k, v, kz, vz, ekw)
+            backward(label + " backward", bwd_route, q, k, v, kz, vz, o, lse, dout, ekw)
+            del q, k, v, kz, vz, dout, o, lse
+    del flush
+    torch.cuda.empty_cache()
+    for key, entry in (("tensor_core", out["encode"]), ("f32", out["train_f32_forward"]),
+                       ("bwd/tensor_core", out["train_bf16_backward"]), ("bwd/cuda_core", out["train_f32_backward"])):
+        entry.update(max_abs_err=worst[key][0], err_over_tol=worst[key][1])
+    return out
+
+
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
 #: phase 11's 4 layers, [4, 16, 6144, 10752] in bf16 (4.23 G elements, 8.46 GB)
 BIG_SHAPE = (4, 16, 6144, 10752)
@@ -4545,6 +4722,266 @@ def vlm_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 15: the audio family (hubert-xlarge) at its published widths --------------
+
+#: 8 clips of 20 s at HuBERT's 50 frames a second, encoded each round; the
+#: bf16 training step takes 4 of them, phase 15's launch.train f32 step 2
+AUDIO_B, AUDIO_FRAMES, AUDIO_TRAIN_B, AUDIO_F32_B = 8, 1000, 4, 2
+AUDIO_TRAIN_ARGV = ["--arch", "hubert-xlarge", "--full-config", "--batch", str(AUDIO_F32_B), "--seq",
+                    str(AUDIO_FRAMES)]
+#: sequences a reference gradient takes at a time (the plain attention
+#: keeps each layer's f32 scores and softmax, 128 MB a sequence a layer)
+AUDIO_REF_CHUNK = 1
+
+
+def audio_arch(torch, dev, counters, smi: str) -> dict:
+    """hubert-xlarge (arXiv:2106.07447) at its published widths and all 48
+    layers in bf16 (d_model 1280, 16 heads of 80, d_ff 5120, vocab 504,
+    frames of 512, rope theta 1e4): a trainer (dc0) holds seeded weights,
+    registers and publishes v0; a rollout replica (dc0, raw) replicates it,
+    and ``EncoderLM.forward`` reads the replica's registered buffers to
+    encode 8 x 1000 frames (``audio_batch`` from ``SEED``). Then one bf16
+    masked-prediction step on the trainer through ``make_train_step``, AdamW
+    in place on its registered buffers, over 4 x 1000 frames; the trainer
+    publishes v1, the replica updates in place and encodes again. Gates:
+    the replica bit-equal to the trainer after each pull; each round's
+    logits within phase 5's gates of a forward with the plain attention on
+    the trainer's weights; round 1 apart from round 0; every tensor's
+    gradient (taken on v0, beside the step) finite, nonzero and within
+    ``GRAD_TOL_PLAIN`` of the plain attention's (its reference taken
+    ``AUDIO_REF_CHUNK`` sequences at a time, each part weighted by its share
+    of the masked positions); an encode launches exactly 48 tensor_core
+    forwards at [8,16,1000,80] bidirectional and nothing else, the step 48
+    and 48 of each tensor_core backward kernel, none on cuda_core. Then
+    ``launch.train --arch hubert-xlarge --full-config`` for two f32 steps of
+    2 x 1000 frames: finite losses, the f32 forward and the cuda_core
+    backward on every layer. Times are taken on ``build_model(cfg)``'s
+    default attention; a recording wrapper only asserts routes and shapes.
+    Returns the main path's launches: the two encodes, the step and the
+    f32 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import audio_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.training.steps import make_loss_fn, value_and_grad
+
+    cfg = get_config("hubert-xlarge")
+    layers, hq, d, s = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, AUDIO_FRAMES
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    main = dict.fromkeys(every, 0)  # the main path's launches, span by span
+
+    def counts():
+        return {k: c.value for k, c in every.items()}
+
+    def span(fn):
+        """``fn()`` on the main path: its launches added to ``main``."""
+        before = counts()
+        out = fn()
+        for k, v in counts().items():
+            main[k] += v - before[k]
+        return out, {k: v - before[k] for k, v in counts().items()}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    trainer = hub.open("audio", "trainer", 1, 0, datacenter="dc0")
+    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 150), torch.bfloat16, dev))
+    span(lambda: trainer.publish(0))
+    weights = trainer.store.tensors()  # the registered buffers: the step writes them in place
+    nparams = sum(w.numel() for w in weights.values())
+    rollout = hub.open("audio", "rollout-0", 1, 0, datacenter="dc0")
+    rollout.register({n: torch.zeros_like(w) for n, w in weights.items()})
+    nbytes = rollout.store.total_bytes
+    emit("model", config=cfg.name, layers=layers, dtype="bfloat16", params=nparams, bytes=nbytes)
+    (_, pulled), replicate_s = timed(lambda: span(lambda: rollout.replicate(0, timeout=600)))
+
+    def equal_to_trainer(when):
+        for n, w in trainer.store.tensors().items():
+            check(torch.equal(rollout.store.get(n), w), f"{cfg.name} {when}: rollout {n} != trainer")
+
+    equal_to_trainer("after replicate")
+    params = rollout.store.tensors()  # the registered buffers: an update is seen by the next encode
+    calls = set()  # each attention call's (route, q shape, k/v shape, causal)
+
+    def attention(q, k, v, **kw):
+        calls.add((fa._route(q, k, grad=torch.is_grad_enabled() and q.requires_grad, v=v), tuple(q.shape),
+                   tuple(k.shape), kw["causal"]))
+        return fa.flash_attention(q, k, v, **kw)
+
+    model = build_model(cfg, attention=attention)
+    reference = build_model(cfg, attention=attention_plain)
+    plain = build_model(cfg)  # as a user builds it: the default attention, timed
+    drawn = audio_batch(AUDIO_B, s, cfg.frontend_dim, cfg.vocab, SEED)
+    frames = {"frames": torch.from_numpy(drawn["frames"]).to(dev)}
+    drawn = audio_batch(AUDIO_TRAIN_B, s, cfg.frontend_dim, cfg.vocab, SEED + 1)
+    train_batch = {k: torch.from_numpy(v).to(dev) for k, v in drawn.items()}
+    want_route = {"tensor_core": layers, "decode": 0, "f32": 0}
+
+    def encode_round(step):
+        """An encode through the recording model (routes and shapes), its
+        logits against the plain attention on the trainer's weights, and
+        the same encode timed on the default model."""
+        calls.clear()
+        with torch.no_grad():
+            logits, launched = span(lambda: model.forward(params, frames))
+        by_route = {r: launched[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+        check(by_route == want_route, f"{cfg.name} round {step}: flash launches by route {by_route}, want {want_route}")
+        check(not any(launched[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES),
+              f"{cfg.name}: an encode ran a backward")
+        want_calls = {("tensor_core", (AUDIO_B, hq, s, d), (AUDIO_B, cfg.num_kv_heads, s, d), False)}
+        check(calls == want_calls, f"{cfg.name} round {step}: attention calls {calls}, want {want_calls}")
+        mid = counts()
+        err_max, err_sum = 0.0, 0.0
+        with torch.no_grad():
+            for c in range(0, AUDIO_B, 2):
+                ref = reference.forward(trainer.store.tensors(), {"frames": frames["frames"][c : c + 2]})
+                diff = (logits[c : c + 2] - ref).abs()
+                err_max, err_sum = max(err_max, float(diff.max())), err_sum + float(diff.double().sum())
+                del ref, diff
+        check(mid == counts(), f"{cfg.name}: the reference encode launched a kernel")
+        res = dict(version=step, logit_max_abs_err=err_max, logit_mean_abs_err=err_sum / logits.numel(),
+                   logit_abs_max=float(logits.abs().max()), all_finite=bool(torch.isfinite(logits).all()),
+                   shape=list(logits.shape))
+        emit("encode_check", config=cfg.name, **res)
+        check(res["all_finite"] and logits.shape == (AUDIO_B, s, cfg.vocab), f"{cfg.name} v{step}: encode output")
+        check(err_max <= LOGIT_MAX_ABS and res["logit_mean_abs_err"] <= LOGIT_MEAN_ABS,
+              f"{cfg.name} v{step}: logits {err_max} (max), {res['logit_mean_abs_err']} (mean) from the plain forward")
+        with torch.no_grad():
+            secs = [timed(lambda: plain.forward(params, frames))[1] for _ in range(3)]
+        return logits, dict(res, encode_seconds=secs, frames_per_s=AUDIO_B * s / statistics.median(secs),
+                            launches=by_route, attention_calls=sorted([r, list(q), list(k), c] for r, q, k, c in calls))
+
+    logits0, round0 = encode_round(0)
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():  # where an encode's device time goes (off the main path's counts)
+        encode_profile = device_profile(torch, lambda: plain.forward(params, frames))
+
+    # the gradient on v0 (the replica has not updated: it holds v0 too),
+    # through the recording model, against the plain attention's
+    calls.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = counts()
+    grads, metrics = value_and_grad(make_loss_fn(model, cfg), weights, train_batch)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    bwd_names = {f"tensor_core/{n}" for n in fa.bwd_kernels(d)}
+    want = {"flash_route_tensor_core": layers, "flash_route_decode": 0, "flash_route_f32": 0,
+            **{f"flash_attention_bwd_{n}": layers * (n in bwd_names) for n in BWD_LAUNCHES}}
+    check({k: launched[k] for k in want} == want, f"{cfg.name} gradient launches {launched}, want {want}")
+    want_calls = {("tensor_core", (AUDIO_TRAIN_B, hq, s, d), (AUDIO_TRAIN_B, cfg.num_kv_heads, s, d), False)}
+    check(calls == want_calls, f"{cfg.name} step: attention calls {calls}, want {want_calls}")
+    grad_max = {}
+    for n, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"{cfg.name} {n}: gradient not finite")
+        grad_max[n] = float(g.abs().max())
+        check(grad_max[n] > 0, f"{cfg.name} {n}: zero gradient")
+    mid = counts()
+    mask = train_batch["mask"]
+    total = float(mask.sum())
+    ref = {n: torch.zeros(g.shape, dtype=torch.float32, device=dev) for n, g in grads.items()}
+    ref_loss = 0.0
+    for c in range(0, AUDIO_TRAIN_B, AUDIO_REF_CHUNK):  # each part's loss is its masked mean: weighted by its share
+        part = {k: v[c : c + AUDIO_REF_CHUNK] for k, v in train_batch.items()}
+        share = float(part["mask"].sum()) / total
+        g, m = value_and_grad(make_loss_fn(reference, cfg), params, part)
+        ref_loss += share * float(m["loss"])
+        for n in ref:
+            ref[n].add_(g[n].float(), alpha=share)
+        del g
+    check(mid == counts(), f"{cfg.name}: the reference gradient launched a kernel")
+    grad_l2 = {n: rel_l2(torch, grads[n], ref[n]) for n in grads}
+    loss_err = abs(float(metrics["loss"]) - ref_loss)
+    emit("train_check", config=cfg.name, loss=float(metrics["loss"]), reference_loss=ref_loss, loss_abs_err=loss_err,
+         grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN, grad_abs_max=grad_max,
+         reference_parts=AUDIO_TRAIN_B // AUDIO_REF_CHUNK)
+    for n, e in grad_l2.items():
+        check(e <= GRAD_TOL_PLAIN, f"{cfg.name} {n}: gradient differs from the plain attention's by {e} (relative L2)")
+    check(loss_err <= LOGIT_MEAN_ABS, f"{cfg.name}: loss {float(metrics['loss'])} vs reference {ref_loss}")
+    del grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the step, timed on the default model, AdamW in place on the trainer's registered buffers
+    opt = AdamW(lr=1e-3, weight_decay=0.01)  # launch.train's rate
+    state = opt.init(weights)
+    train_step = make_train_step(plain, cfg, opt)
+    trainer.unpublish()  # the step writes the registered buffers
+    (_, step_launches), step_s = timed(lambda: span(lambda: train_step(weights, state, train_batch)))
+    check({k: step_launches[k] for k in want} == want, f"{cfg.name} step launches {step_launches}, want {want}")
+    _, publish_s = timed(lambda: span(lambda: trainer.publish(1)))
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    # where the step's forward and backward go (the v1 weights, unchanged: no update)
+    grad_profile = device_profile(torch, lambda: value_and_grad(make_loss_fn(plain, cfg), weights, train_batch))
+    for n, w in weights.items():
+        check(not torch.equal(params[n], w), f"{cfg.name} {n} did not change from v0 to v1")
+    del state, opt, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    (updated, pulled1), update_s = timed(lambda: span(lambda: rollout.update("latest")))
+    check(updated and rollout.current_version == 1, f"{cfg.name}: the rollout did not update to v1")
+    equal_to_trainer("after update")
+    logits1, round1 = encode_round(1)
+    # the step shows above the encode's own distance from the plain forward
+    delta = float((logits1 - logits0).abs().mean())
+    noise = max(round0["logit_mean_abs_err"], round1["logit_mean_abs_err"])
+    check(delta > 2 * noise and delta > 0, f"{cfg.name}: round 1 logits barely differ from round 0's ({delta}, "
+          f"the encodes' own error {noise})")
+    check(main["checksum"] > 0, f"{cfg.name}: the publish -> replicate -> update path launched no checksum")
+    emit("audio_arch_result", card=smi, config=cfg.name, layers=layers, params=nparams, bytes=nbytes,
+         frames=[AUDIO_B, s], replicate_seconds=replicate_s, update_seconds=update_s, publish_v1_seconds=publish_s,
+         replicate_GBps=nbytes / replicate_s / 1e9, update_GBps=nbytes / update_s / 1e9,
+         timed_model="build_model(cfg), default attention", rounds=[round0, round1],
+         round1_vs_round0_mean_abs=delta, train_frames=[AUDIO_TRAIN_B, s], step_seconds=step_s,
+         step_frames_per_s=AUDIO_TRAIN_B * s / step_s, step_launches=step_launches, loss=float(metrics["loss"]),
+         serve_max_memory_allocated=serve_peak, train_max_memory_allocated=train_peak,
+         encode_profile=encode_profile, gradient_profile=grad_profile)
+    del model, reference, plain, params, weights, hub, trainer, rollout, logits0, logits1, frames, train_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.launch import train
+
+    steps, step_secs = 2, []
+    make_step = train.make_train_step
+
+    def timed_steps(*a, **kw):  # each step's seconds, ended by a synchronize
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            out, seconds = timed(lambda: step(*args))
+            step_secs.append(seconds)
+            return out
+
+        return run
+
+    train.make_train_step = timed_steps
+    try:
+        trained, losses = train_run(torch, every, ["--steps", str(steps)] + AUDIO_TRAIN_ARGV, cfg, steps)
+    finally:
+        train.make_train_step = make_step
+    for k, v in trained.items():
+        main[k] += v
+    emit("audio_train_result", card=smi, config=cfg.name, layers=layers, dtype="float32", losses=losses,
+         batch=AUDIO_F32_B, frames=s, step_seconds=step_secs, frames_per_s=AUDIO_F32_B * s / step_secs[-1],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=trained)
+    out = {k: main[k] for k in counters}
+    out["flash_attention_routes"] = {r: main[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: main[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -4703,10 +5140,17 @@ def main() -> int:
     fwd["routes"]["decode"]["internvl2_decode"] = vlm["decode"]
     fwd["routes"]["f32"]["internvl2_train_forward"] = vlm["train_forward"]
     bwd_cc["internvl2_backward"] = vlm["train_backward"]
+    hubert = hubert_attention_checks(torch, dev, bw)
+    fwd["routes"]["tensor_core"]["hubert_encode"] = hubert["encode"]
+    fwd["routes"]["f32"]["hubert_train_forward"] = hubert["train_f32_forward"]
+    bwd_tc["hubert_backward"] = hubert["train_bf16_backward"]
+    bwd_cc["hubert_backward"] = hubert["train_f32_backward"]
     for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"],
-                                vlm["prefill"], vlm["decode"], vlm["train_forward"])),
-                         (bwd_tc, (dbrx["backward"],)), (bwd_tc256, (trained["mla_backward"],)),
-                         (bwd_cc, (trained["narrow_backward"], vlm["train_backward"]))):
+                                vlm["prefill"], vlm["decode"], vlm["train_forward"], hubert["encode"],
+                                hubert["train_f32_forward"])),
+                         (bwd_tc, (dbrx["backward"], hubert["train_bf16_backward"])),
+                         (bwd_tc256, (trained["mla_backward"],)),
+                         (bwd_cc, (trained["narrow_backward"], vlm["train_backward"], hubert["train_f32_backward"]))):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
         entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
     for kernel, rec in big_tensor_checks(torch, dev, bw).items():
@@ -4780,14 +5224,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase14 = vlm_arch(torch, dev, counters, smi)
     phase_s["14 vlm arch"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase15 = audio_arch(torch, dev, counters, smi)
+    phase_s["15 audio arch"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14)  # the paths with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    training_phases = (phase6, phase7, phase10, phase11, phase12, phase14)  # the paths with the backward
+    training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -4798,7 +5247,7 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase_seconds=phase_s)
+         phase15=phase15, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,11 @@
-"""Synthetic, deterministic data: the training stream and the RL prompts.
+"""Synthetic, deterministic data: the training stream, the RL prompts and
+the audio encoder's batches.
 
-The port's copy of ``BigramStream`` and ``PromptSet`` from the JAX
-package's ``data/synthetic.py``: NumPy only, so both packages draw the
-same batches and prompts from the same seed (and, for the stream, the
-same offset: a trainer's checkpoint records it, so a restarted trainer
-resumes the exact stream). The audio batches wait for the audio slice.
+The port's copy of ``BigramStream``, ``PromptSet`` and ``audio_batch``
+from the JAX package's ``data/synthetic.py``: NumPy only, so both
+packages draw the same batches and prompts from the same seed (and, for
+the stream, the same offset: a trainer's checkpoint records it, so a
+restarted trainer resumes the exact stream).
 """
 
 from __future__ import annotations
@@ -79,3 +80,15 @@ class PromptSet:
             succ = self._table[resp[:, t]]  # [B, branching]
             valid += (succ == resp[:, t + 1][:, None]).any(axis=1)
         return (valid / max(steps, 1)).astype(np.float32)
+
+
+def audio_batch(
+    batch: int, seq: int, frame_dim: int, vocab: int, seed: int
+) -> Dict[str, np.ndarray]:
+    """Synthetic masked-prediction batch for the audio encoder."""
+    rng = np.random.default_rng(seed)
+    return {
+        "frames": rng.standard_normal((batch, seq, frame_dim)).astype(np.float32),
+        "targets": rng.integers(0, vocab, size=(batch, seq)).astype(np.int32),
+        "mask": (rng.random((batch, seq)) < 0.08),
+    }

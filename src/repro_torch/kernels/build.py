@@ -51,12 +51,13 @@ SIGNATURES = {
     "th_dequant_gather": (_P, _INT, _P, _INT, _INT, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv,
     #  Sq, D, Dv, causal, softcap, q_offset, kv_len, window (0: none),
-    #  lse f32[B,Hq,Sq] or null, stream); Dv = D, or (D, Dv) = (24, 16)
+    #  lse f32[B,Hq,Sq] or null, stream); D in {16, 32, 64, 80, 128, 256} with
+    #  Dv = D, or (D, Dv) = (24, 16)
     "th_flash_attention": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                            _F32, _INT, _INT, _INT, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, B, Hq, Hkv, Sq, D, Dv,
     #  causal, softcap, q_offset, kv_len, window, lse f32[B,Hq,Sq] or null,
-    #  stream); bf16, (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}
+    #  stream); bf16, (D, Dv) in {(64, 64), (80, 80), (128, 128), (256, 256), (192, 128)}
     "th_flash_attention_tc": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
                               _INT, _P, _P),
     # (q_abs, q_rope, ckv, krope, out f32, B, H, ckv batch and slot strides,
@@ -77,7 +78,7 @@ SIGNATURES = {
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hq*ceil(Sq/64)*128, strides int64[24] on the host, B, Hq, Hkv, Sq, Sk, D, Dv,
     #  causal, softcap, q_offset, kv_len, window (0: none), stream); bf16, (D,
-    #  Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}; the three
+    #  Dv) in {(64, 64), (80, 80), (128, 128), (256, 256), (192, 128)}; the three
     #  tensor-core backward kernels take the same
     **{f"th_flash_bwd_tc_{k}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                                 _INT, _INT, _F32, _INT, _INT, _INT, _P) for k in ("pre", "dkdv", "dq")},

@@ -89,8 +89,23 @@
 // order; the scale is 1 / sqrt(24) from the host's width, never the tiles';
 // and the output is stored at its 16 columns only (RowCols<32> gives a
 // thread 2 adjacent columns, so the clip takes whole pairs), so a strided
-// view's neighbouring columns are never written. Every other instance has
-// DK = DV = D and compiles as before.
+// view's neighbouring columns are never written.
+//
+// Head_dim 80 (hubert-xlarge's 1280 / 16 heads, zamba2's attention) runs
+// the same way on the head_dim-128 tiles (DK = DV = 80, D = 128). Native
+// 80-wide tiles do not fit this design: the XOR swizzle needs a power of
+// two of 16-byte chunks a row (80 f32 columns are 20 chunks, so a chunk
+// index XORed with up to 7 leaves the row), and RowCols<80> would give a
+// thread 5 columns, no whole group of 4. So Q, K and V rows are copied at
+// 80 columns (320 B in f32, 160 B in bf16 and f16: whole 16-byte chunks)
+// and the tiles' columns 80-127 are zeros; each half of the block sums
+// its scores over half of the true width, 40 columns (KH below, D / 2 in
+// every instance whose DK and DV differ or equal D), so Q K^T costs the
+// true width's FMAs; P V still runs over the tile's 128 columns, 48 of
+// them zeros. The forward thus does (80 + 128) / (2 x 80) = 1.3x the FMAs
+// of native tiles, and the output is stored at its 80 columns (whole
+// 4-wide groups: cx < 4 of the second group). Every instance with DK = DV
+// = D, and (24, 16), compiles as before.
 
 #include <cmath>
 #include <cstdint>
@@ -133,6 +148,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
   constexpr int RC = BK / 8;   // keys a thread of a half: tx + 8c
   constexpr int FA = RA / 2;   // rows a thread finalizes: a in [FA h, FA h + FA)
   constexpr int PP = BQ + 4;   // pitch of the P^T tile
+  constexpr int KH = DK == DV ? DK / 2 : D / 2;  // the score columns each half sums (the header: head_dim 80)
   using C = RowCols<D>;
   extern __shared__ float4 smem4[];
   T* qs = reinterpret_cast<T*>(smem4);
@@ -210,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Params p) {
     for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int c = 0; c < RC; ++c) s[a][c] = 0.f;
-    nt_product<T, D, D / 2, RA, RC, 16, 8>(s, qs, hx, kt, tx, h * (D / 2));
+    nt_product<T, D, KH, RA, RC, 16, 8>(s, qs, hx, kt, tx, h * KH);
 
     // the other half's rows' partials go through pt; this half's come back
     float f[FA][RC];
@@ -336,8 +352,9 @@ int launch(Params p, int nsub, int bkv, cudaStream_t stream) {
 }
 
 // the tile plan a head_dim: BQ 128 rows (64 for a call of one sub-tile)
-// and BK 64 keys up to head_dim 128, BQ 64 and BK 32 at 256; DK and DV the
-// true widths where they are narrower than the tiles' D
+// and BK 64 keys up to head_dim 128 (and 80, on its tiles), BQ 64 and BK
+// 32 at 256; DK and DV the true widths where they are narrower than the
+// tiles' D
 template <typename T, int D, int DK = D, int DV = D>
 int plan(const Params& p, int nsub, int bkv, cudaStream_t stream) {
   if constexpr (D == 256) {
@@ -351,6 +368,7 @@ int plan(const Params& p, int nsub, int bkv, cudaStream_t stream) {
 template <typename T>
 int dispatch(const Params& p, int d, int dv, int nsub, int bkv, cudaStream_t stream) {
   if (d == 24 && dv == 16) return plan<T, 32, 24, 16>(p, nsub, bkv, stream);  // the reduced deepseek-v3's MLA
+  if (d == 80 && dv == 80) return plan<T, 128, 80, 80>(p, nsub, bkv, stream);  // hubert-xlarge, on the 128 tiles
   if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return plan<T, 16>(p, nsub, bkv, stream);
@@ -367,8 +385,8 @@ int dispatch(const Params& p, int d, int dv, int nsub, int bkv, cudaStream_t str
 // q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv, Sk, Dv], o [B, Hq, Sq, Dv],
 // each given by its pointer and its (batch, head, sequence) element strides
 // in `strides` (a host array of 12: q, k, v, o); dtype 0 = float32,
-// 1 = bfloat16, 2 = float16; D in {16, 32, 64, 128, 256} with Dv = D, or
-// (D, Dv) = (24, 16); Hq / Hkv <= 64;
+// 1 = bfloat16, 2 = float16; D in {16, 32, 64, 80, 128, 256} with Dv = D,
+// or (D, Dv) = (24, 16); Hq / Hkv <= 64;
 // 1 <= kv_len <= Sk; window > 0 a sliding window, 0 none;
 // lse f32 [B, Hq, Sq] or null. Returns cudaGetLastError() after the launch.
 extern "C" int th_flash_attention(const void* q, const void* k, const void* v, void* o,

@@ -2,8 +2,9 @@
 // cores: dQ, dK and dV of the forward kernels (flash_attention.cu,
 // flash_attention_tc.cu), which is what the training step needs from
 // every layer. This is the `cuda_core` backward route: f32, f16 and bf16
-// at head_dim 16, 32, 64, 128 and 256, every call the tensor-core backward
-// (flash_attention_bwd_tc.cu, bf16 at head_dim 64/128/256) does not take.
+// at head_dim 16, 32, 64, 80, 128 and 256, every call the tensor-core
+// backward (flash_attention_bwd_tc.cu, bf16 at head_dim 64/80/128/256)
+// does not take.
 //
 // The JAX package has no Pallas backward: it differentiates its jnp
 // chunked_attention (src/repro/models/layers.py) with jax.grad, so this
@@ -97,8 +98,22 @@
 // width, never the tiles'. Stores are clipped at the true widths (dQ and
 // dK at 24, dV at 16; RowCols<32> gives a thread 2 adjacent columns, so the
 // clip takes whole pairs): nothing past them is written, so the gradients
-// of strided views leave their neighbours alone. Every other instance has
-// DK = DV = D and compiles as before.
+// of strided views leave their neighbours alone.
+//
+// Head_dim 80 (hubert-xlarge) runs the same way on the head_dim-128 dK/dV
+// and dQ kernels (DK = DV = 80, D = 128), as the forward does
+// (flash_attention.cu: native 80-wide tiles break the swizzle, a power of
+// two of 16-byte chunks a row, and the 8 x 8 micro-tiles' 4-wide column
+// groups). Rows are copied at 80 columns (whole 16-byte chunks in every
+// dtype), the tiles' columns 80-127 are zeros, and each quarter sums its
+// half of S or dP over 40 of the true 80 columns (KH), so the four score
+// products cost the true width's FMAs; the three accumulations (dV, dK,
+// dQ) still run over the tiles' 128 columns, 48 of them zeros: (4 x 80 + 3
+// x 128) / (7 x 80) = 1.26x the FMAs of native tiles. pre sums dO * O over
+// the 80 columns with 16 lanes a row (pre_lanes: the shuffle tree halves a
+// power of two, and 80 / 4 = 20 is none). Stores are clipped at 80 columns
+// (whole 4-wide groups). Every instance with DK = DV = D, and (24, 16),
+// compiles as before.
 //
 // Inputs are strided in batch, head and sequence (unit stride in D, rows
 // 16-byte aligned for the copies); outputs likewise.
@@ -115,6 +130,15 @@ constexpr int kHalf = 128;             // threads of a half: dV (0) or dK (1) in
 constexpr int kKeys = 64;              // keys a dK/dV block
 constexpr int kStats = 2 * kSub;       // floats of a sub-tile's stats: lse [64], then D_i [64]
 constexpr int kPre = 256;              // threads of a pre block
+
+// lanes a row of the pre kernel: D / 4 up to 32, a power of two (the
+// shuffle tree halves it): 16 at head_dim 80
+template <int D>
+__host__ __device__ constexpr int pre_lanes() {
+  int l = 1;
+  while (2 * l <= D / 4 && 2 * l <= 32) l *= 2;
+  return l;
+}
 
 struct BwdParams {
   const void *q, *k, *v, *o, *dout;
@@ -171,7 +195,7 @@ __device__ __forceinline__ float2 p_and_factor(float x, float lse, float inv_cap
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kPre) flash_bwd_pre_kernel(const BwdParams p) {
-  constexpr int L = D / 4 < 32 ? D / 4 : 32;  // lanes a row
+  constexpr int L = pre_lanes<D>();  // lanes a row
   const int row = (blockIdx.x * kPre + threadIdx.x) / L;  // of B * Hkv * nsub2 * 64
   const int lane = threadIdx.x % L;
   if (row >= p.batch * p.hkv * p.nsub2 * kSub) return;  // whole groups of L lanes
@@ -225,6 +249,7 @@ template <typename T, int D, bool W, int DK = D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdParams p) {
   using L = DkdvLayout<T, D>;
   constexpr int PP = L::kPP;
+  constexpr int KH = DK == DV ? DK / 2 : D / 2;  // the score columns a quarter sums (the header: head_dim 80)
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   T* ks = reinterpret_cast<T*>(smem + L::kK);
@@ -313,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(const BwdPa
     for (int a = 0; a < 8; ++a)
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
-    nt_product<T, D, D / 2, 8, 8, 8, 8>(s, prod ? vs : ks, hx, prod ? dot : qt, tx, dh * (D / 2));
+    nt_product<T, D, KH, 8, 8, 8, 8>(s, prod ? vs : ks, hx, prod ? dot : qt, tx, dh * KH);
     float* buf = prod ? db : pb;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -419,6 +444,7 @@ template <typename T, int D, bool W, int DK = D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdParams p) {
   using L = DqLayout<T, D>;
   constexpr int BK = kQKeys, PP = L::kPP;
+  constexpr int KH = DK == DV ? DK / 2 : D / 2;  // the score columns a quarter sums (the header: head_dim 80)
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   T* qs = reinterpret_cast<T*>(smem + L::kQ);
@@ -516,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const BwdPara
     for (int a = 0; a < 8; ++a)
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
-    nt_product<T, D, D / 2, 8, 8, 16, 4>(s, prod ? dos : qs, hx, prod ? vt : kt, tx, dh * (D / 2));
+    nt_product<T, D, KH, 8, 8, 16, 4>(s, prod ? dos : qs, hx, prod ? vt : kt, tx, dh * KH);
     float* buf = prod ? xb : db;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -1069,7 +1095,7 @@ int run(const BwdParams& p, Which which, cudaStream_t s) {
   const int nbkv = p.batch * p.hkv;
   switch (which) {
     case kPreK: {
-      constexpr int L = DV / 4 < 32 ? DV / 4 : 32;
+      constexpr int L = pre_lanes<DV>();
       const long long lanes = static_cast<long long>(nbkv) * p.nsub2 * kSub * L;
       return launch(flash_bwd_pre_kernel<T, DV>, 0, static_cast<int>((lanes + kPre - 1) / kPre), kPre, p, s);
     }
@@ -1110,6 +1136,7 @@ int run256(const BwdParams& bp, const int* work, int grid, cudaStream_t s) {
 template <typename T>
 int dispatch(const BwdParams& p, int d, int dv, Which which, cudaStream_t s) {
   if (d == 24 && dv == 16) return run<T, 32, 24, 16>(p, which, s);  // the reduced deepseek-v3's MLA
+  if (d == 80 && dv == 80) return run<T, 128, 80, 80>(p, which, s);  // hubert-xlarge, on the 128 kernels
   if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return run<T, 16>(p, which, s);
@@ -1146,8 +1173,8 @@ int entry(Which which, const void* q, const void* k, const void* v, const void* 
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
 // B * Hkv * nsub2 * 128 floats (nsub2: ceil(Sq / (64 / G)) rounded up to
 // even); dtype 0 = float32, 1 = bfloat16, 2 = float16 (every tensor but
-// lse and stats); D in {16, 32, 64, 128, 256} with Dv = D, or (D, Dv) = (24,
-// 16); Hq / Hkv <= 64; 1 <= kv_len <=
+// lse and stats); D in {16, 32, 64, 80, 128, 256} with Dv = D, or (D, Dv) =
+// (24, 16); Hq / Hkv <= 64; 1 <= kv_len <=
 // Sk; window > 0 a sliding window, 0 none. In this order on one stream: th_flash_bwd_pre writes stats,
 // th_flash_bwd_dkdv writes dk and dv (zeros past kv_len), th_flash_bwd_dq
 // writes dq (D 16-128); at D 256 th_flash_bwd_dkdv_dq (a work list beside

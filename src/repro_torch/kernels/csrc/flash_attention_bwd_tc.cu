@@ -1,5 +1,5 @@
 // The flash-attention backward for Hopper on the tensor cores: dQ, dK and
-// dV in bf16 at head_dim 64, 128 or 256, and at q/k 192 with v 128
+// dV in bf16 at head_dim 64, 80, 128 or 256, and at q/k 192 with v 128
 // (deepseek-v3's expanded MLA), with or without a sliding window, the
 // training step's path (the `tensor_core` backward route). The CUDA-core
 // kernels of flash_attention_bwd.cu take the rest (f32, f16, head_dim
@@ -93,6 +93,20 @@
 // leaves a row no key), so a row with no live key in a tile adds nothing.
 // Head_dim 256 and (192, 128) have a kernel of their own, one launch after
 // pre (section 4 below).
+// Head_dim 80 (hubert-xlarge) runs on the head_dim-128 dK/dV and dQ
+// kernels (template DT = 80, D = 128), as the forward does: every tile row
+// is two 64-column, 128-byte-swizzled TMA boxes, and the tensor maps of Q,
+// K, V and dO carry the true inner extent of 80, so TMA fills columns
+// 80-127 of the second box with zeros on every load. The score products
+// (S^T, dP^T; S, dP) run five k-steps of 16 columns, the true width (the
+// fifth is the second box's first 16 columns), and the accumulations (dV,
+// dK; dQ) run as m64n128k16 over all 128 columns, the last 48 of them
+// zeros times P or dS: (4 x 80 + 3 x 128) / (7 x 80) = 1.26x the products
+// of a native 80-wide plan (a 16-column box beside the 64-column one, five
+// k-steps and m64n80 accumulations: later work). The epilogues store 80
+// columns a row (ten bf16 pairs of 8 a thread): nothing is written into
+// the next head of a strided view. pre sums dO * O over the 80 columns
+// (lanes 0-7 take a second pair, 64 columns on).
 // Epilogues scale dK and dQ by 1/sqrt(D) and store bf16 pairs from the
 // registers into the [B, S, H, D] layout under the [B, H, S, D] views,
 // clipped at Sq and Sk. The tensor maps' sequence extents are Sq and
@@ -189,7 +203,7 @@ __device__ __forceinline__ void gemm_ss(float (&acc)[kT / 2], uint32_t a, uint32
 
 template <int D>
 __global__ void __launch_bounds__(32 * kPreRows) flash_bwd_tc_pre_kernel(const BwdParams p) {
-  constexpr int V = D / 32;  // elements a lane: 2, 4 or 8
+  constexpr int V = D / 32;  // elements a lane: 2, 4 or 8 (head_dim 80: 2, and lanes 0-7 2 more)
   const int padded = p.nq * kT;
   const int row = blockIdx.x * kPreRows + threadIdx.x / 32;  // of B * Hq * padded rows
   const int lane = threadIdx.x % 32;
@@ -207,6 +221,12 @@ __global__ void __launch_bounds__(32 * kPreRows) flash_bwd_tc_pre_kernel(const B
       for (int e = 0; e < 4; ++e) {
         const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[e]));
         const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[e]));
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      }
+    } else if constexpr (D % 32 != 0) {  // head_dim 80: the pairs at 2 lane and 2 lane + 64 (lanes 0-7)
+      for (int e = 0; 2 * lane + e < D; e += 64) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.o + ro + e));
+        const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.dout + rg + e));
         acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
       }
     } else {
@@ -244,7 +264,8 @@ struct DkdvLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-template <int D, bool W>
+// DT: the true width of q/k and v (80 on the head_dim-128 plan, else D)
+template <int D, bool W, int DT = D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
@@ -344,8 +365,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kT / 2; ++i) st[i] = dpt[i] = 0.f;
       wgmma_fence();
-      gemm_ss<D>(st, k_base, kKeys * kRowBytes, q_tile(s), kT * kRowBytes);    // S^T = K Q^T
-      gemm_ss<D>(dpt, v_base, kKeys * kRowBytes, do_tile(s), kT * kRowBytes);  // dP^T = V dO^T
+      gemm_ss<DT>(st, k_base, kKeys * kRowBytes, q_tile(s), kT * kRowBytes);    // S^T = K Q^T
+      gemm_ss<DT>(dpt, v_base, kKeys * kRowBytes, do_tile(s), kT * kRowBytes);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
@@ -393,11 +414,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(empty(s));
   }
 
-  // zeros for keys no row sees, past kv_len included
+  // zeros for keys no row sees, past kv_len included; the true width's columns only
   __nv_bfloat16* dkg = p.dk + b * p.dks[0] + hk * p.dks[1];
   __nv_bfloat16* dvg = p.dv + b * p.dvs[0] + hk * p.dvs[1];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DT / 8; ++j) {
     const int d = 8 * j + col;
     if (key_a < p.sk) {
       store_pair(dkg + static_cast<long long>(key_a) * p.dks[2], d, dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
@@ -425,7 +446,7 @@ struct DqLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D, bool W>
+template <int D, bool W, int DT = D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
@@ -524,8 +545,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kT / 2; ++i) sc[i] = dp[i] = 0.f;
       wgmma_fence();
-      gemm_ss<D>(sc, q_base, kRows * kRowBytes, k_tile(s), kT * kRowBytes);   // S = Q K^T
-      gemm_ss<D>(dp, do_base, kRows * kRowBytes, v_tile(s), kT * kRowBytes);  // dP = dO V^T
+      gemm_ss<DT>(sc, q_base, kRows * kRowBytes, k_tile(s), kT * kRowBytes);   // S = Q K^T
+      gemm_ss<DT>(dp, do_base, kRows * kRowBytes, v_tile(s), kT * kRowBytes);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -564,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   __nv_bfloat16* dqg = p.dq + b * p.dqs[0] + h * p.dqs[1];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DT / 8; ++j) {
     const int d = 8 * j + col;
     if (i_a < p.sq)
       store_pair(dqg + static_cast<long long>(i_a) * p.dqs[2], d, dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
@@ -1145,7 +1166,7 @@ int prepare(Call& c, const void* q, const void* k, const void* v, const void* o,
             void* dk, void* dv, const float* lse, float* stats, const long long* strides, int batch, int hq,
             int hkv, int sq, int sk, int d, int d_v, int causal, float softcap, int q_offset, int kv_len,
             int window, int q_rows, int key_rows) {
-  const bool pair = (d == d_v && (d == 64 || d == 128 || d == kD256)) || (d == 192 && d_v == 128);
+  const bool pair = (d == d_v && (d == 64 || d == 80 || d == 128 || d == kD256)) || (d == 192 && d_v == 128);
   if (!pair) return static_cast<int>(cudaErrorInvalidValue);
   BwdParams& p = c.p;
   p.o = static_cast<const __nv_bfloat16*>(o);
@@ -1196,12 +1217,12 @@ int launch(Kernel kernel, int bytes, int blocks, const Call& c, cudaStream_t str
 // dv; pointers and strides of q, k, v and dout 16-byte aligned); lse f32
 // [B, Hq, Sq] contiguous, from the forward; stats f32 scratch of
 // B * Hq * ceil(Sq / 64) * 128 floats, 16-byte aligned; (D, Dv) in {(64,
-// 64), (128, 128), (256, 256), (192, 128)}; 1 <= kv_len <= Sk; window > 0 a
+// 64), (80, 80), (128, 128), (256, 256), (192, 128)}; 1 <= kv_len <= Sk; window > 0 a
 // sliding window, 0 none. Entry
 // points with the same arguments, launched in this order on one stream:
 // th_flash_bwd_tc_pre writes stats (each query tile's lse log2 e and D_i
 // over Dv), th_flash_bwd_tc_dkdv writes dk and dv (zeros past kv_len) and
-// th_flash_bwd_tc_dq writes dq at D 64 and 128; at (256, 256) and (192, 128)
+// th_flash_bwd_tc_dq writes dq at D 64, 80 and 128; at (256, 256) and (192, 128)
 // th_flash_bwd_tc_dkdv_dq (below; a work list beside the arguments) writes
 // all three. Each returns cudaGetLastError() after its launch, or a
 // tensor-map encoding failure negated.
@@ -1221,6 +1242,8 @@ extern "C" int th_flash_bwd_tc_pre(TH_BWD_TC_ARGS) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_v == 64)  // D_i sums over v's width
     flash_bwd_tc_pre_kernel<64><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
+  else if (d_v == 80)
+    flash_bwd_tc_pre_kernel<80><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
   else if (d_v == 128)
     flash_bwd_tc_pre_kernel<128><<<blocks, 32 * kPreRows, 0, s>>>(c.p);
   else
@@ -1239,6 +1262,9 @@ extern "C" int th_flash_bwd_tc_dkdv(TH_BWD_TC_ARGS) {
   if (d == 64)
     return w ? launch(flash_bwd_tc_dkdv_kernel<64, true>, DkdvLayout<64>::kBytes, blocks, c, s)
              : launch(flash_bwd_tc_dkdv_kernel<64, false>, DkdvLayout<64>::kBytes, blocks, c, s);
+  if (d == 80)  // on the head_dim-128 plan
+    return w ? launch(flash_bwd_tc_dkdv_kernel<128, true, 80>, DkdvLayout<128>::kBytes, blocks, c, s)
+             : launch(flash_bwd_tc_dkdv_kernel<128, false, 80>, DkdvLayout<128>::kBytes, blocks, c, s);
   return w ? launch(flash_bwd_tc_dkdv_kernel<128, true>, DkdvLayout<128>::kBytes, blocks, c, s)
            : launch(flash_bwd_tc_dkdv_kernel<128, false>, DkdvLayout<128>::kBytes, blocks, c, s);
 }
@@ -1254,6 +1280,9 @@ extern "C" int th_flash_bwd_tc_dq(TH_BWD_TC_ARGS) {
   if (d == 64)
     return w ? launch(flash_bwd_tc_dq_kernel<64, true>, DqLayout<64>::kBytes, blocks, c, s)
              : launch(flash_bwd_tc_dq_kernel<64, false>, DqLayout<64>::kBytes, blocks, c, s);
+  if (d == 80)  // on the head_dim-128 plan
+    return w ? launch(flash_bwd_tc_dq_kernel<128, true, 80>, DqLayout<128>::kBytes, blocks, c, s)
+             : launch(flash_bwd_tc_dq_kernel<128, false, 80>, DqLayout<128>::kBytes, blocks, c, s);
   return w ? launch(flash_bwd_tc_dq_kernel<128, true>, DqLayout<128>::kBytes, blocks, c, s)
            : launch(flash_bwd_tc_dq_kernel<128, false>, DqLayout<128>::kBytes, blocks, c, s);
 }

@@ -1,7 +1,8 @@
 // Flash attention (online softmax) for Hopper on the tensor cores: bf16
-// q, k, v at head_dim 64, 128 or 256, the prefill route of the serving path
-// and the training forward (gemma2's at 256), and q/k at 192 with v at 128
-// (deepseek-v3's expanded MLA prefill).
+// q, k, v at head_dim 64, 80, 128 or 256, the prefill route of the serving
+// path and the training forward (gemma2's at 256, hubert-xlarge's encoder
+// at 80), and q/k at 192 with v at 128 (deepseek-v3's expanded MLA
+// prefill).
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention/kernel.py, _flash_kernel). For query
@@ -69,6 +70,21 @@
 // tile into its own rows of the item's Q buffer (its Q.K^T are done) in
 // the 128-byte swizzle and one thread stores it by TMA, which clips the
 // rows past Sq; the Q buffer is released once the store has read it.
+//
+// Head_dim 80 (hubert-xlarge: 1280 / 16 heads) runs the head_dim-128 plan
+// (template DT = 80): a row of 80 bf16 is 160 bytes, not a whole number of
+// the 64-element, 128-byte-swizzled boxes every tile row is made of, so
+// the tensor maps of Q, K, V and O carry the true inner extent of 80 and
+// TMA fills columns 80-127 of each row's second box with zeros on every
+// load (the transaction count is the whole box's). S = Q.K^T runs five
+// k-steps of 16 columns, the true width; O += P.V runs as m64n128k16 over
+// all 128 columns, the last 48 of them P times zeros, and the TMA store
+// clips the output at column 80 (a strided view's next head is never
+// written). Cost: (80 + 128) / (2 x 80) = 1.3x the products of a native
+// 80-wide plan (a 64-column box plus a 16-column box with a narrower
+// swizzle and m64n80 for P.V: later work). The scale is 1/sqrt(80), from
+// the host's true width. Every other instance has DT = DK and compiles as
+// before.
 //
 // For the backward (flash_attention_bwd.cu) the epilogue also writes each
 // row's log-sum-exp, m + log(max(l, 1e-30)) in f32, to lse [B, Hq, Sq]
@@ -217,8 +233,9 @@ struct Layout {
 
 // W: the call has a window. The unwindowed instances carry none of the
 // window's tile bounds, compares or all-masked-row guard, so a call
-// without a window runs the code it ran before the window came
-template <int DK, int DV, bool W>
+// without a window runs the code it ran before the window came. DT: the
+// true width of q/k, whose columns Q.K^T sums (80 on the 128 plan)
+template <int DK, int DV, bool W, int DT = DK>
 __global__ void __launch_bounds__(Plan<DK, DV>::kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
@@ -347,7 +364,7 @@ __global__ void __launch_bounds__(Plan<DK, DV>::kThreads, 1)
         for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DK / 16; ++kk) {
+        for (int kk = 0; kk < DT / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the swizzled row
           const uint64_t da = sw128_desc(q_base + (kk / 4) * kBQ * kRowBytes + off, 16, 1024);
           const uint64_t db = sw128_desc(k_tile(s) + (kk / 4) * kBK * kRowBytes + off, 16, 1024);
@@ -483,40 +500,42 @@ __global__ void __launch_bounds__(Plan<DK, DV>::kThreads, 1)
   if (tid % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int DK, int DV, bool W>
+template <int DK, int DV, bool W, int DT>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const CUtensorMap& om, const TcParams& p,
            const MapDims& dims, int blocks, cudaStream_t stream) {
   constexpr int bytes = Layout<DK, DV>::kBytes;
   static bool sized = false;  // the attribute is set once a kernel
   if (!sized) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_tc_kernel<DK, DV, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        cudaFuncSetAttribute(flash_tc_kernel<DK, DV, W, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  flash_tc_kernel<DK, DV, W><<<blocks, Plan<DK, DV>::kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
+  flash_tc_kernel<DK, DV, W, DT><<<blocks, Plan<DK, DV>::kThreads, bytes, stream>>>(qm, km, vm, om, p, dims);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the maps, the work items and the launch of the (DK, DV) plan
-template <int DK, int DV>
+// the maps, the work items and the launch of the (DK, DV) plan on tensors
+// of the true width DT (head_dim 80 on the 128 plan; else DK = DV)
+template <int DK, int DV, int DT = DK>
 int run(const void* q, const void* k, const void* v, void* o, const long long* strides, int batch, int hq, int hkv,
         int sq, TcParams& p, int window, cudaStream_t s) {
+  static_assert(DK == DV && DT <= DK, "the 64/128 plans, at their width or on a narrower one");
   constexpr int kBQ = Plan<DK, DV>::kBQ;
   CUtensorMap qm, km, vm, om;
   MapDims dims;
-  int err = make_map(&qm, q, DK, sq, hq, batch, strides + 0, kBQ, dims.q);
-  if (err == 0) err = make_map(&km, k, DK, p.kv_len, hkv, batch, strides + 3, kBK, dims.k);
-  if (err == 0) err = make_map(&vm, v, DV, p.kv_len, hkv, batch, strides + 6, kBK, dims.v);
-  if (err == 0) err = make_map(&om, o, DV, sq, hq, batch, strides + 9, 64, dims.o);
+  int err = make_map(&qm, q, DT, sq, hq, batch, strides + 0, kBQ, dims.q);
+  if (err == 0) err = make_map(&km, k, DT, p.kv_len, hkv, batch, strides + 3, kBK, dims.k);
+  if (err == 0) err = make_map(&vm, v, DT, p.kv_len, hkv, batch, strides + 6, kBK, dims.v);
+  if (err == 0) err = make_map(&om, o, DT, sq, hq, batch, strides + 9, 64, dims.o);
   if (err != 0) return err;
   p.num_q_tiles = (sq + kBQ - 1) / kBQ;
   static int sms = 0;  // one persistent block an SM
   if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
   const int work = p.num_q_tiles * batch * hq;
   const int blocks = work < sms ? work : sms;
-  return window > 0 ? launch<DK, DV, true>(qm, km, vm, om, p, dims, blocks, s)
-                    : launch<DK, DV, false>(qm, km, vm, om, p, dims, blocks, s);
+  return window > 0 ? launch<DK, DV, true, DT>(qm, km, vm, om, p, dims, blocks, s)
+                    : launch<DK, DV, false, DT>(qm, km, vm, om, p, dims, blocks, s);
 }
 
 // ---- the wide plans (see the header) ----
@@ -1004,7 +1023,7 @@ int run_wide(const void* q, const void* k, const void* v, void* o, const long lo
 // bf16 q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv, Sk, Dv], o [B, Hq,
 // Sq, Dv], each by its pointer and its (batch, head, sequence) element
 // strides in `strides` (a host array of 12: q, k, v, o); (D, Dv) in {(64,
-// 64), (128, 128), (256, 256), (192, 128)}; the scale 1/sqrt(D); pointers and
+// 64), (80, 80), (128, 128), (256, 256), (192, 128)}; the scale 1/sqrt(D); pointers and
 // strides of q, k and v 16-byte aligned; 1 <= kv_len <= Sk; window > 0 a
 // sliding window, 0 none; lse f32 [B, Hq, Sq] or null. Returns
 // cudaGetLastError() after the launch, or a tensor-map encoding failure
@@ -1013,7 +1032,7 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
                                      int batch, int hq, int hkv, int sq, int d, int dv, int causal, float softcap,
                                      int q_offset, int kv_len, int window, float* lse, void* stream) {
   const bool mla = d == 192 && dv == 128;
-  if (!mla && (dv != d || (d != 64 && d != 128 && d != 256))) return static_cast<int>(cudaErrorInvalidValue);
+  if (!mla && (dv != d || (d != 64 && d != 80 && d != 128 && d != 256))) return static_cast<int>(cudaErrorInvalidValue);
   TcParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
@@ -1031,6 +1050,7 @@ extern "C" int th_flash_attention_tc(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return run<64, 64>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
+    case 80: return run<128, 128, 80>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);  // on the 128 plan
     case 128: return run<128, 128>(q, k, v, o, strides, batch, hq, hkv, sq, p, window, s);
     case 192: return run_wide<192, 128>(q, k, v, o, strides, hkv, p, window, s);
     default: return run_wide<256, 256>(q, k, v, o, strides, hkv, p, window, s);

@@ -39,17 +39,21 @@ a failure:
   partial softmax states (what :func:`split_kv_plain` computes in plain
   PyTorch).
 * ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the rest in bf16 at
-  head_dim 64, 128 or 256 (the prefill, and gemma2's at 256), and every
-  bf16 call at (D, Dv) = (192, 128) (deepseek-v3's expanded MLA prefill):
-  TMA loads and ``wgmma`` on the tensor cores (``TC_DIM_PAIRS``). The two
+  head_dim 64, 80, 128 or 256 (the prefill, gemma2's at 256, hubert's
+  encoder at 80), and every bf16 call at (D, Dv) = (192, 128)
+  (deepseek-v3's expanded MLA prefill): TMA loads and ``wgmma`` on the
+  tensor cores (``TC_DIM_PAIRS``). Head_dim 80 runs the head_dim-128 plan,
+  its tensor maps at the true width (TMA fills columns 80-127 with zeros,
+  the output's store clips at 80). The two
   wide pairs, (192, 128) and (256, 256), run a kernel of their own: 128-row
   items in a work list whose host copy is :func:`tc_wide_order`, two
   warpgroups taking turns at the tensor cores, and the softcap in log2
   units (:func:`softcap_log2_plain`).
 * ``"f32"`` (``csrc/flash_attention.cu``): everything else, f32, bf16 or
-  f16 at head_dim 16/32/64/128/256 and at (D, Dv) = (24, 16) (the reduced
-  deepseek-v3's MLA, run on the head_dim-32 tiles with the columns past
-  the true widths zero), in f32 FMAs on the CUDA cores,
+  f16 at head_dim 16/32/64/80/128/256 and at (D, Dv) = (24, 16) (the
+  reduced deepseek-v3's MLA, run on the head_dim-32 tiles with the columns
+  past the true widths zero; head_dim 80 likewise on the head_dim-128
+  tiles), in f32 FMAs on the CUDA cores,
   ``Hq / Hkv <= 64``: K/V tiles through a two-stage ``cp.async`` ring,
   128 packed query rows a block (:func:`packed_rows`), 8 x 8 micro-tiles
   a thread for the scores (each half of the block over half of D) and for
@@ -60,9 +64,12 @@ walks only the key tiles from its first visible key (:func:`live_start`)
 to its last, and masks the window's edge per element as it masks the
 causal one.
 
-Other head_dims (80 of zamba2, 192 with a v of 192) are refused on the
-card, and so is every Dv != D but (192, 128) and (24, 16), with the route
-and the shape named. The scale is ``1/sqrt(D)`` of q/k's width.
+Other head_dims (96, 192 with a v of 192, ...) are refused on the card,
+and so is every Dv != D but (192, 128) and (24, 16), with the route and
+the shape named; the ``decode`` route refuses head_dim 80 (a decode-sized
+call at 80 goes to ``tensor_core`` or ``f32``): its split kernel at 80
+waits for the hybrid slice (zamba2's decode). The scale is ``1/sqrt(D)``
+of q/k's true width, never a tile's.
 
 On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
 (naive f32 softmax, as the JAX package's ``ref.py:attention_ref`` and
@@ -76,23 +83,24 @@ view, not a copy.
 
 The gradient. When autograd wants one (grad mode on and q, k or v
 requiring it), the call goes through a ``torch.autograd.Function``: the
-forward runs on the ``tensor_core`` route (bf16 at head_dim 64/128/256 and
-at (192, 128)) or the ``f32`` route (the rest), never on ``decode``, and
+forward runs on the ``tensor_core`` route (bf16 at head_dim 64/80/128/256
+and at (192, 128)) or the ``f32`` route (the rest), never on ``decode``, and
 also writes each
 row's log-sum-exp (``m + log(max(l, 1e-30))``, f32 ``[B, Hq, Sq]``). The
 backward (:func:`launch_backward`) takes one of two routes, again by dtype
 and shape alone (:func:`_bwd_route`), both with or without a window:
 
 * ``"tensor_core"`` (``csrc/flash_attention_bwd_tc.cu``): bf16 at (D, Dv)
-  in ``TC_DIM_PAIRS`` (head_dim 64/128/256, and deepseek-v3's expanded
+  in ``TC_DIM_PAIRS`` (head_dim 64/80/128/256, and deepseek-v3's expanded
   MLA at (192, 128)), the training step's path. Three kernels at head_dim
-  64/128:
+  64/80/128 (80 on the 128 kernels, as the forward):
   ``pre`` (``D_i = rowsum(dO * O)``), ``dkdv`` (one block 128 keys) and
   ``dq`` (one block 128 query rows), with ``wgmma`` products fed by TMA.
 * ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``): f32, f16 and bf16 at
-  head_dim 16/32/64/128/256 and at (24, 16) otherwise, in f32 FMAs. Three
-  kernels at head_dim 16-128 and at (24, 16) (the head_dim-32 kernels with
-  the columns past the true widths zero): ``pre`` (``D_i`` and the lse into a stats scratch in
+  head_dim 16/32/64/80/128/256 and at (24, 16) otherwise, in f32 FMAs.
+  Three kernels at head_dim 16-128 and at (24, 16) (the head_dim-32
+  kernels with the columns past the true widths zero; 80 likewise on the
+  head_dim-128 kernels): ``pre`` (``D_i`` and the lse into a stats scratch in
   packed-row order), ``dkdv`` (64 keys a block; Q/dO sub-tiles through a
   two-stage ``cp.async`` ring) and ``dq`` (128 packed query rows a block;
   K/V tiles through the ring).
@@ -109,9 +117,9 @@ CPU the same ``Function`` runs :func:`attention_plain` and
 :func:`attention_backward_plain` at any head_dim. The JAX package has no
 Pallas backward: it differentiates its jnp ``chunked_attention``. On the
 card the backward refuses the (q/k, v) pairs no kernel takes
-(:func:`_check_backward`: head_dim 80 of zamba2, (192, 128) in f32 or f16,
-every other Dv != D), naming the pair; nothing falls back to another
-route.
+(:func:`_check_backward`: a head_dim none of the lists holds, (192, 128)
+in f32 or f16, every other Dv != D), naming the pair; nothing falls back
+to another route.
 """
 
 from __future__ import annotations
@@ -129,18 +137,18 @@ NEG_INF = -1e30
 #: kernel dtype codes (csrc/flash_attention.cu, csrc/flash_decode.cu,
 #: csrc/flash_attention_bwd.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128, 256)  # the decode route's
+HEAD_DIMS = (64, 128, 256)  # the decode route's (head_dim 80 waits for the hybrid slice)
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128, 256)  # the tensor-core routes', forward and backward (bf16)
+TC_HEAD_DIMS = (64, 80, 128, 256)  # the tensor-core routes', forward and backward (bf16)
 #: the (q/k, v) head_dims the tensor-core forward and backward take (bf16):
-#: their plans (csrc/flash_attention_tc.cu, csrc/flash_attention_bwd_tc.cu),
-#: deepseek-v3's expanded MLA last
-TC_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
+#: their plans (csrc/flash_attention_tc.cu, csrc/flash_attention_bwd_tc.cu;
+#: 80 on the 128 plans), deepseek-v3's expanded MLA last
+TC_DIM_PAIRS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 #: the Dv != D pairs the CUDA-core routes take (the f32 forward and the
 #: cuda_core backward, f32, bf16 and f16): the reduced deepseek-v3's MLA,
 #: q/k 16 + 8 and v 16, on the head_dim-32 kernels
 CC_DIM_PAIRS = ((24, 16),)
-F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 route's (f32, bf16, f16)
+F32_HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the f32 route's (f32, bf16, f16; 80 on the 128 tiles)
 MAX_GROUP = 64  # the f32 route packs a KV group's query heads into one 64-row tile
 DECODE_ROWS = 64  # packed query rows (Sq * G) the decode route takes
 ROUTES = ("decode", "tensor_core", "f32")
@@ -148,7 +156,7 @@ TILE_KEYS = 64  # keys a tile of the decode kernel, and the unit of a split
 MAX_SPLIT_BLOCKS = 640  # decode grid: about one wave of the kernel (5 blocks an SM of 132)
 MAX_SPLITS = 64
 
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # the cuda_core backward's (f32, bf16, f16)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the cuda_core backward's (f32, bf16, f16; 80 on the 128 kernels)
 TC_BWD_TILE = 64  # query rows a tile of the tensor_core backward (its stats scratch comes in tiles)
 #: the backward's routes and each one's kernels (:func:`bwd_kernels` names
 #: those a call launches, in order)
@@ -415,7 +423,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False, v: Optional[torch.Tensor] = None) -> str:
     """The kernel a call goes to, from dtype and shape alone: ``decode``
     for a decode-sized call in f32 or bf16 at head_dim 64/128/256,
-    ``tensor_core`` for bf16 at head_dim 64/128/256 and for every bf16 call
+    ``tensor_core`` for bf16 at head_dim 64/80/128/256 and for every bf16 call
     at (D, Dv) = (192, 128) (v's head_dim ``Dv`` is D unless ``v`` is
     given), ``f32`` for the rest. A call that needs a gradient (``grad``)
     never goes to ``decode``: only the other two forwards write the
@@ -688,7 +696,8 @@ def launch_route(
     elif vd == d:
         dims = HEAD_DIMS if route == "decode" else F32_HEAD_DIMS
         if d not in dims:
-            raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
+            later = " (head_dim 80 waits for the hybrid slice)" if route == "decode" and d == 80 else ""
+            raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}{later}")
     if route == "tensor_core" and q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the tensor_core route takes bfloat16, got {q.dtype}")
     if route == "decode" and q.dtype not in DECODE_DTYPES:
@@ -754,7 +763,7 @@ def _check_backward(q: torch.Tensor, v: Optional[torch.Tensor] = None) -> None:
     if (d, dv) in TC_DIM_PAIRS:
         why = f"({d}, {dv}) runs on the tensor cores in bfloat16 only; a CUDA-core backward at it is not written"
     elif d == dv:
-        why = "head_dim 80 waits for the zamba2 slice; q/k 192 goes with a v of 128 only"
+        why = f"no kernel has head_dim {d}" + ("; q/k 192 goes with a v of 128 only" if d == 192 else "")
     else:
         why = "no other Dv != D pair has a kernel"
     raise NotImplementedError(
@@ -805,7 +814,7 @@ def launch_backward(
     :func:`_bwd_route`'s choice; naming one is for measurements that hold
     the two side by side. ``tensor_core`` (bf16, (q/k, v) head_dims
     ``TC_DIM_PAIRS``): the kernels of ``csrc/flash_attention_bwd_tc.cu``;
-    ``cuda_core`` (f32, bf16 or f16, head_dim 16/32/64/128/256 and (24,
+    ``cuda_core`` (f32, bf16 or f16, head_dim 16/32/64/80/128/256 and (24,
     16)): the kernels of ``csrc/flash_attention_bwd.cu`` (:func:`bwd_kernels`
     names them). Both take a window and strided
     q/k/v/out/dout; ``lse`` is the forward's (:func:`launch_route`

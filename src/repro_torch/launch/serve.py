@@ -20,7 +20,9 @@ absorbed-latent ``mla_decode`` kernel) are ported; another arch exits
 with the slice it waits for. Requests are token prompts, as the JAX
 package's ``launch/serve.py``: a VLM (internvl2-2b), whose requests carry
 patches, is refused here and served through ``DecoderLM.prefill`` with
-``batch["patches"]``.
+``batch["patches"]``; an encoder-only config (hubert-xlarge) exits with
+the JAX package's words, "is encoder-only: no decode path to serve",
+before anything is built.
 
     python -m repro_torch.launch.serve --requests 16 --prompt-len 512 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
@@ -126,6 +128,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if cfg.encoder_only:
+        ap.exit(2, f"{ap.prog}: {args.arch} is encoder-only: no decode path to serve\n")
     try:
         check_ported(cfg)
         if cfg.family == VLM:

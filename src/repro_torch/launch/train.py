@@ -10,6 +10,7 @@ pattern). The port's counterpart of the JAX package's
     python -m repro_torch.launch.train --arch dbrx-132b --steps 50     # the reduced dbrx: 8 experts, top-2
     python -m repro_torch.launch.train --arch deepseek-v3-671b --steps 50   # MLA at q/k 16 + 8, v 16
     python -m repro_torch.launch.train --arch internvl2-2b --full-config --batch 2 --seq 512   # 256 patches + 256 tokens
+    python -m repro_torch.launch.train --arch hubert-xlarge --full-config --batch 2 --seq 1000   # 48 layers, head_dim 80
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
@@ -17,10 +18,14 @@ runs on the host. The dense decoder (llama3-8b, yi-34b,
 deepseek-coder-33b, gemma2-2b), the routed experts of dbrx-132b,
 deepseek-v3-671b's MLA attention (the reduced deepseek-v3's attention, q/k
 24 and v 16 in f32, runs the f32 forward and the CUDA-core backward on the
-card) and internvl2-2b are ported; another arch exits with the slice it
-waits for. A VLM (internvl2-2b) trains as the JAX package's, ``num_patches``
-patch embeddings before ``--seq`` less ``num_patches`` tokens of each
-sequence, with one difference: the patches standing in for the vision
+card), internvl2-2b and hubert-xlarge are ported; another arch exits with
+the slice it waits for. The audio encoder (hubert-xlarge) trains as the
+JAX package's, by masked prediction on ``audio_batch`` draws seeded by
+``seed * 100003 + step`` (frames ``[batch, seq, frontend_dim]``, targets,
+an 8% mask); the bigram stream is not read, and the checkpoint keeps its
+``stream_offset`` as the JAX trainer's does. A VLM (internvl2-2b) trains
+as the JAX package's, ``num_patches`` patch embeddings before ``--seq``
+less ``num_patches`` tokens of each sequence, with one difference: the patches standing in for the vision
 frontend are seeded normal draws at the embedding's scale
 (:func:`stand_in_patches`) where the JAX package feeds zeros. An all-zero
 row's RMS norm passes its gradient on at 1/sqrt(eps) = 1000 times, so
@@ -40,8 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.configs import ARCH_IDS, VLM, get_config
-from repro_torch.data.synthetic import BigramStream
+from repro_torch.configs import ARCH_IDS, AUDIO, VLM, get_config
+from repro_torch.data.synthetic import BigramStream, audio_batch
 from repro_torch.models import build_model, check_trainable
 from repro_torch.models.params import init_params
 from repro_torch.training import AdamW, cosine_schedule, make_train_step
@@ -113,7 +118,11 @@ def main(argv=None) -> None:
 
     t0 = time.time()
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.next_batch().items()}
+        if cfg.family == AUDIO:  # masked prediction on seeded frames; the stream is not read
+            drawn = audio_batch(args.batch, args.seq, cfg.frontend_dim, cfg.vocab, args.seed * 100_003 + step)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in drawn.items()}
+        else:
+            batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.next_batch().items()}
         if cfg.family == VLM:  # the vision frontend's stand-in, the tokens cut to fit
             batch["patches"] = torch.from_numpy(stand_in_patches(cfg, args.batch, args.seed, step)).to(dev)
             batch["tokens"] = batch["tokens"][:, : args.seq - cfg.num_patches]

@@ -1,5 +1,5 @@
-"""Decoder blocks: GQA attention, multi-head latent attention (MLA), the
-SwiGLU MLP and the routed MoE FFN.
+"""Decoder blocks: GQA attention (bidirectional for the encoder),
+multi-head latent attention (MLA), the SwiGLU MLP and the routed MoE FFN.
 
 The port's copy of the JAX package's ``models/blocks.py``.
 Each block takes its parameters as a dict of views
@@ -51,6 +51,7 @@ def attn_apply(
     *,
     positions: torch.Tensor,  # [S]
     attention: Callable[..., torch.Tensor],
+    causal: bool = True,  # False: the encoder's bidirectional attention
     window: int = 0,  # this layer's sliding window (0: global)
     cache: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"k","v"} [B, Hkv, Smax, hd]
     cache_len: Optional[int] = None,
@@ -69,7 +70,7 @@ def attn_apply(
     v = _split_heads(h @ p["wv"], cfg.num_kv_heads)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kw = dict(causal=True, softcap=cfg.attn_softcap, window=window)
+    kw = dict(causal=causal, softcap=cfg.attn_softcap, window=window)
     if cache is None:
         out = attention(q, k, v, **kw)
         new_cache = {"k": k, "v": v}

@@ -1,8 +1,9 @@
-"""Transformer building blocks of the dense decoder (plain PyTorch).
+"""Transformer building blocks of the decoder and the encoder (plain
+PyTorch).
 
 The port's copy of the JAX package's ``models/layers.py``: ``rms_norm``
-(its f32 path), ``softcap``, the split-half rotary embedding and the
-SwiGLU MLP. The attention itself is
+(its f32 path), ``softcap``, the split-half rotary embedding, the SwiGLU
+MLP and the encoder's GELU MLP. The attention itself is
 :func:`repro_torch.kernels.flash_attention.flash_attention`, which keeps
 the semantics of the JAX package's jnp ``chunked_attention`` (``q_offset``
 places the queries, ``kv_len`` counts the valid cache slots, ``window`` is
@@ -47,3 +48,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor, w_down: torch.Tensor,
+             b_down: torch.Tensor) -> torch.Tensor:
+    """The encoder's MLP (hubert): ``gelu(x @ w_up + b_up) @ w_down +
+    b_down`` with GELU's tanh form, which ``jax.nn.gelu`` computes by
+    default (``approximate=True``); torch's default is the exact erf form,
+    up to ~1e-3 away from it."""
+    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down

@@ -1,4 +1,5 @@
-"""The decoder LM: forward, prefill and one-token decode.
+"""The decoder LM (forward, prefill and one-token decode) and the encoder
+LM (forward).
 
 The port's copy of the JAX package's ``DecoderLM`` (its decoder branches)
 (``models/lm.py``). Parameters are the flat dict a TensorHub replica
@@ -40,8 +41,11 @@ A VLM config (internvl2-2b) takes precomputed patch embeddings,
 ``batch["patches"]`` ``[B, P, d_model]``, cast to the activations' dtype
 and placed before the token embeddings in ``forward`` and ``prefill`` (the
 JAX package's ``_inputs``): positions run over patches and tokens, the
-logits cover both, and ``decode`` continues from ``P + prompt_len``. The
-encoder, hybrid and xLSTM models wait for later slices
+logits cover both, and ``decode`` continues from ``P + prompt_len``.
+
+:class:`EncoderLM` is the JAX package's encoder (hubert-xlarge): frames
+projected into the model, every layer's attention bidirectional, a GELU
+MLP with biases. The hybrid and xLSTM models wait for later slices
 (:func:`repro_torch.models.build_model` refuses them).
 """
 
@@ -56,13 +60,14 @@ from repro_torch.configs.base import VLM, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.models import blocks
-from repro_torch.models.layers import rms_norm, softcap
+from repro_torch.models.layers import gelu_mlp, rms_norm, softcap
 
 Params = Mapping[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
 _ATTN = ("ln", "wq", "wk", "wv", "wo")
 _FFN = ("ln", "w_gate", "w_up", "w_down")
+_ENC_FFN = ("ln", "w_up", "b_up", "w_down", "b_down")
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -255,3 +260,44 @@ class DecoderLM:
         positions = cache_len + torch.arange(x.shape[1], device=x.device)
         x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)
         return self._head(params, x), cache
+
+
+class EncoderLM:
+    """Bidirectional encoder over precomputed frame embeddings: the JAX
+    package's ``EncoderLM`` (hubert-xlarge; the convolutional feature
+    extractor is a stub there, ``batch["frames"]`` its output). No cache,
+    no ``prefill`` and no ``decode``: an encoder has no decode path.
+
+    ``attention`` is the attention every layer calls, with ``causal=False``
+    (the flash kernel's wrapper by default; a reference computation passes
+    :func:`repro_torch.kernels.flash_attention.attention_plain`). The
+    parameters are the flat dict a replica registers
+    (:func:`repro_torch.models.params.decoder_shapes` lists them)."""
+
+    def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
+        if not cfg.encoder_only:
+            raise ValueError(f"{cfg.name}: EncoderLM takes an encoder-only config")
+        self.cfg = cfg
+        self.attention = attention
+
+    def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Logits ``[B, S, vocab]`` (f32) of ``{"frames": [B, S,
+        frontend_dim]}``: the frames cast to ``frame_proj``'s dtype and
+        projected, rope at positions ``0 .. S - 1`` in every layer's
+        attention (``causal=False``), then ``h + gelu_mlp(rms_norm(h,
+        ln), ...)``, the final norm and the head. Differentiable with
+        respect to the parameter dict, each stack taken apart once with
+        ``unbind(0)`` (as :meth:`DecoderLM.forward`)."""
+        cfg = self.cfg
+        w = params["frame_proj"]
+        x = batch["frames"].to(w.dtype) @ w
+        positions = torch.arange(x.shape[1], device=x.device)
+        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in _ATTN}
+        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in _ENC_FFN}
+        for i in range(cfg.num_layers):
+            x, _ = blocks.attn_apply(cfg, {n: t[i] for n, t in attn.items()}, x, positions=positions,
+                                     attention=self.attention, causal=False)
+            f = {n: t[i] for n, t in ffn.items()}
+            x = x + gelu_mlp(rms_norm(x, f["ln"]), f["w_up"], f["b_up"], f["w_down"], f["b_down"])
+        x = rms_norm(x, params["final_ln"])
+        return (x @ params["head"]).float()

@@ -1,10 +1,14 @@
-"""Parameter names and shapes of the decoder LM, and weight carry-across.
+"""Parameter names and shapes of the decoder and encoder LMs, and weight
+carry-across.
 
 ``decoder_shapes`` lists what the JAX package's
 ``named_tensors(DecoderLM(cfg).param_specs())`` yields:
 the same names, the same shapes (the scanned layer axis stacked first),
 in JAX's pytree order (dict keys sorted at every level, list items in
-order). As the JAX package's ``blocks.attn_specs`` and ``mlp_specs``, a
+order); for an encoder-only config (hubert) it lists the JAX
+``EncoderLM``'s instead (``frame_proj``, the stacked ``layers/attn`` and
+the GELU MLP's ``layers/ffn/{ln,w_up,b_up,w_down,b_down}``, ``final_ln``,
+``head``). As the JAX package's ``blocks.attn_specs`` and ``mlp_specs``, a
 softcapped model (gemma2) has a ``post_ln`` in both blocks, and a model
 with tied embeddings no ``head``. A MoE model's stacked FFN is
 ``moe_specs``' (``ln``, ``router``, the experts' ``w_gate``/``w_up``
@@ -21,7 +25,7 @@ registered in this order has the same units, and the same manifest, as
 the JAX package's.
 
 ``init_params`` makes random weights by the JAX package's ``init_tree``
-rule, from a ``torch.Generator``: the numbers differ from ``jax.random``'s,
+rule (norms and the encoder's biases zeros), from a ``torch.Generator``: the numbers differ from ``jax.random``'s,
 so parity tests carry JAX weights across with ``from_numpy`` instead.
 """
 
@@ -42,6 +46,10 @@ from repro_torch.core.client import resolve_device
 from repro_torch.models.blocks import mla_shapes, moe_shapes
 
 Shape = Tuple[int, ...]
+
+#: name endings of the tensors ``init_tree`` makes zeros: the norms, and
+#: the encoder MLP's biases
+_ZEROS = ("ln", "b_up", "b_down")
 
 
 def _attn_tree(cfg: ModelConfig) -> Dict[str, Shape]:
@@ -68,7 +76,24 @@ def _mlp_tree(cfg: ModelConfig, d_ff: int) -> Dict[str, Shape]:
     return tree
 
 
+def _encoder_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX ``EncoderLM.param_specs()`` (hubert): the frame projection,
+    the stacked attention and GELU MLP, the final norm and the head."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    return {
+        "frame_proj": (cfg.frontend_dim, d),
+        "layers": {
+            "attn": {n: (L, *s) for n, s in _attn_tree(cfg).items()},
+            "ffn": {"ln": (L, d), "w_up": (L, d, f), "b_up": (L, f), "w_down": (L, f, d), "b_down": (L, d)},
+        },
+        "final_ln": (d,),
+        "head": (d, cfg.vocab),
+    }
+
+
 def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.encoder_only:
+        return _encoder_tree(cfg)
     mo = cfg.moe
     n_prefix = mo.first_dense if mo is not None else 0
     L = cfg.num_layers - n_prefix
@@ -102,7 +127,8 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Shape]]:
 
 
 def decoder_shapes(cfg: ModelConfig) -> List[Tuple[str, Shape]]:
-    """``(name, shape)`` of every parameter, in registration order."""
+    """``(name, shape)`` of every parameter of ``cfg``'s model (the
+    decoder's, or an encoder-only config's encoder), in registration order."""
     return _flatten(_spec_tree(cfg))
 
 
@@ -120,7 +146,8 @@ def init_params(
     """Random parameters of ``cfg``, in registration order, on ``device``
     (the card unless the caller asks for the CPU; ``generator`` must live
     on the same device). As ``init_tree``: norms (``.../ln``,
-    ``final_ln``) are zeros, every other tensor normal with std
+    ``final_ln``) and the encoder's biases (``b_up``, ``b_down``) are
+    zeros, every other tensor normal with std
     ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
     tensor is drawn one matrix at a time (a layer's, or a layer's expert's),
     so the f32 temporary is one matrix's, not the whole stack's: dbrx's
@@ -129,7 +156,7 @@ def init_params(
     out: Dict[str, torch.Tensor] = {}
     for name, shape in decoder_shapes(cfg):
         t = torch.zeros(shape, dtype=dtype, device=dev)
-        if not name.endswith("ln"):
+        if not name.endswith(_ZEROS):
             std = 1.0 / np.sqrt(shape[-2])
             for part in t.view(-1, *shape[-2:]):
                 part.copy_(

@@ -16,8 +16,11 @@ package's: ``text_offset = cfg.num_patches``): the backward of the MoE
 FFN's gathers, scatters and expert products is autograd's, and so is
 MLA's around its attention (the rope key broadcast over the heads sums
 each head's gradient back into ``wkv_a``); the attention's own backward
-is flash attention's kernels. The GRPO objective, as the JAX package's,
-feeds the model tokens only. Configs of the audio, hybrid and SSM
+is flash attention's kernels. The audio encoder (hubert-xlarge) is scored
+by masked prediction, ``objectives.masked_cross_entropy(logits,
+batch["targets"], batch["mask"])`` on ``{"frames", "targets", "mask"}``
+batches, as the JAX package's ``make_loss_fn``. The GRPO objective, as the
+JAX package's, feeds the model tokens only. Configs of the hybrid and SSM
 families raise ``NotImplementedError`` and wait for their slices
 (:func:`repro_torch.models.check_trainable`).
 """
@@ -28,7 +31,7 @@ from typing import Any, Callable, Dict, Mapping, MutableMapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import VLM
+from repro_torch.configs.base import AUDIO, VLM
 from repro_torch.models import check_trainable
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -57,6 +60,8 @@ def make_loss_fn(model, cfg) -> Callable:
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)
+        if cfg.family == AUDIO:
+            return objectives.masked_cross_entropy(logits, batch["targets"], batch["mask"])
         return objectives.lm_cross_entropy(logits, batch["tokens"], text_offset=offset)
 
     return loss_fn

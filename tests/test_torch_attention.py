@@ -191,3 +191,49 @@ def test_wrapper_refuses_bad_shapes_and_dtypes():
         fa.flash_attention(q, k, v[:, :, :4])
     with pytest.raises(TypeError, match="unsupported device"):
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+#: hubert-xlarge's head_dim 80 (its 16 query and 16 KV heads cut to 4):
+#: bidirectional as its encoder runs it and causal, at S = 77 (no tile
+#: multiple), a GQA group of 2 and a softcap
+HEAD_DIM_80_SHAPES = [
+    (1, 4, 4, 77, 77, 80, False, 0.0),
+    (1, 4, 4, 77, 77, 80, True, 0.0),
+    (2, 4, 2, 77, 77, 80, True, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", HEAD_DIM_80_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_head_dim_80_equals_pallas_interpret(shape, dtype):
+    """flash_attention at head_dim 80 (the plain version on the CPU, what
+    the card's kernels at 80 are held against) against the Pallas kernel
+    in interpret mode and attention_ref, scaled by 1/sqrt(80)."""
+    b, hq, hkv, sq, sk, d, causal, cap = shape
+    q, k, v = _inputs(sq * 11 + d, b, hq, hkv, sq, sk, d, dtype)
+    got = fa.flash_attention(_torch(q), _torch(k), _torch(v), causal=causal, softcap=cap)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    pallas = jax_flash(jq, jk, jv, causal=causal, softcap=cap, interpret=True)
+    _close(_np(got), pallas.astype(jnp.float32), dtype)
+    _close(_np(got), attention_ref(jq, jk, jv, causal=causal, softcap=cap).astype(jnp.float32), dtype)
+
+
+#: (b, hq, hkv, sq, sk, causal, window, q_offset, kv_len) at head_dim 80:
+#: the windows the kernels at 80 take, causal and not, with offsets
+HEAD_DIM_80_WINDOWS = [
+    (1, 4, 4, 77, 77, True, 16, 0, None),
+    (1, 4, 2, 77, 77, False, 16, 0, None),
+    (1, 4, 4, 20, 90, True, 24, 60, 80),
+]
+
+
+@pytest.mark.parametrize("shape", HEAD_DIM_80_WINDOWS, ids=lambda s: "x".join(map(str, s)))
+def test_head_dim_80_windows_equal_chunked_attention(shape):
+    b, hq, hkv, sq, sk, causal, window, q_offset, kv_len = shape
+    q, k, v = _inputs(sq * 13 + window, b, hq, hkv, sq, sk, 80)
+    got = fa.flash_attention(_torch(q), _torch(k), _torch(v), causal=causal, window=window, q_offset=q_offset,
+                             kv_len=kv_len)
+    want = chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                             window=jnp.asarray(window), q_offset=q_offset,
+                             kv_len=None if kv_len is None else jnp.asarray(kv_len), block_k=16)
+    _close(_np(got), want, "float32")

@@ -211,3 +211,41 @@ def test_kernel_backward_refuses_cpu_tensors():
     lse = fa.attention_lse_plain(q, k)
     with pytest.raises(TypeError, match="unsupported device"):
         fa.launch_backward(q, k, v, fa.attention_plain(q, k, v), lse, dout)
+
+
+#: hubert-xlarge's head_dim 80: bidirectional (its encoder), causal with a
+#: group of 2 and a softcap, and a window with q_offset and kv_len < Sk:
+#: (b, hq, hkv, sq, sk, d, causal, softcap, q_offset, kv_len, window)
+HEAD_DIM_80_CASES = [
+    (1, 4, 4, 77, 77, 80, False, 0.0, 0, None, 0),
+    (1, 4, 2, 77, 77, 80, True, 30.0, 0, None, 0),
+    (1, 4, 4, 20, 90, 80, True, 0.0, 60, 80, 24),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_80_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_backward_plain_at_head_dim_80_equals_jax_grad_of_chunked_attention(case):
+    """``attention_backward_plain`` (what the card's head_dim-80 backward
+    kernels are held against) and the Function's CPU wiring against
+    ``jax.grad`` of ``chunked_attention`` at head_dim 80."""
+    *base, window = case
+    q, k, v, dout = _inputs(tuple(base), seed=5)
+    kw = dict(_kw(tuple(base)), window=window)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out = fa.attention_plain(tq, tk, tv, **kw)
+    lse = fa.attention_lse_plain(tq, tk, **kw)
+    got = fa.attention_backward_plain(tq, tk, tv, out, lse, tdo, **kw)
+    sk_valid = kw["kv_len"]
+
+    def chunked(q, k, v):
+        return chunked_attention(q, k, v, causal=kw["causal"], window=jnp.asarray(window), q_offset=kw["q_offset"],
+                                 kv_len=None if sk_valid is None else jnp.asarray(sk_valid),
+                                 attn_softcap=kw["softcap"], block_k=8)
+
+    want = _jax_grads(chunked, q, k, v, dout)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    through = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, torch.from_numpy(dout))
+    for g, w in zip(through, want):
+        _close(g.numpy(), w)

@@ -9,7 +9,9 @@ reduced, the port's parameter names, shapes and order are the JAX
 deepseek-v3-671b's (MLA attention) and internvl2-2b's (the VLM family). A
 family the port has no model for is refused with the slice it waits for,
 by ``build_model`` and by both entry points (``launch.serve`` refuses
-internvl2-2b too: its requests are token prompts); dbrx is built, trained by ``launch/train.py`` at its reduced
+internvl2-2b too: its requests are token prompts; and hubert-xlarge, the
+audio encoder, which ``build_model`` builds and ``launch.train`` trains, as
+encoder-only); dbrx is built, trained by ``launch/train.py`` at its reduced
 config and served by ``serve()`` at a reduced config (``serve.main``
 refuses its 40 layers, which do not fit a device, before allocating
 anything); deepseek-v3 is built, served and, its MLA attention included,
@@ -32,26 +34,28 @@ from repro_torch.configs import base as port_base  # noqa: E402
 from repro_torch.launch import serve as serve_main  # noqa: E402
 from repro_torch.launch import train as train_main  # noqa: E402
 from repro_torch.models import build_model, check_ported, check_trainable  # noqa: E402
-from repro_torch.models.lm import DecoderLM  # noqa: E402
+from repro_torch.models.lm import DecoderLM, EncoderLM  # noqa: E402
 from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
 PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
 #: served and trained (internvl2-2b through ``DecoderLM`` with its patches)
 SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b", "internvl2-2b")
-OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS)
-#: what the refusal of each family names (the VLM's: ``launch.serve``'s)
-WAITS_FOR = {"vlm": "patches", "hybrid": "hybrid", "ssm": "SSM", "audio": "audio"}
+#: built and trained, not served: the audio encoder (no decode path)
+ENCODER_IDS = ("hubert-xlarge",)
+OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS + ENCODER_IDS)
+#: what the refusal of each family names (the VLM's and the encoder's: ``launch.serve``'s)
+WAITS_FOR = {"vlm": "patches", "hybrid": "hybrid", "ssm": "SSM", "audio": "encoder-only: no decode path to serve"}
 #: (entry point, arch) pairs each entry point refuses, and ``train`` with
-#: internvl2-2b, which trains now (the case kept its name)
-REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + OTHER_IDS]
+#: internvl2-2b and hubert-xlarge, which train now (the cases kept their names)
+REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + ENCODER_IDS + OTHER_IDS]
 #: what the training entry points' refusal of MLA names
 
 
 def test_registry_ids_equal():
     assert port_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert list(port_configs.all_configs()) == list(jax_configs.all_configs())
-    assert set(SERVED_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
+    assert set(SERVED_IDS) | set(ENCODER_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -125,15 +129,21 @@ def test_build_model_builds_the_dense_ids(arch):
     assert model.windows == want
 
 
-@pytest.mark.parametrize("arch", ("internvl2-2b",) + OTHER_IDS)
+@pytest.mark.parametrize("arch", ("internvl2-2b",) + ENCODER_IDS + OTHER_IDS)
 def test_build_model_refuses_the_families_not_ported(arch):
     """Each family the port has no model for is refused with its slice
-    named; internvl2-2b (the VLM family), refused until its slice was in,
-    now builds, full and reduced (the case kept its name)."""
+    named; internvl2-2b (the VLM family) and hubert-xlarge (the audio
+    family), refused until their slices were in, now build, full and
+    reduced (the cases kept their names)."""
     cfg = port_configs.get_config(arch)
     if arch == "internvl2-2b":
         check_ported(cfg.reduced())
         assert isinstance(build_model(cfg), DecoderLM) and cfg.num_patches == 256
+        return
+    if arch in ENCODER_IDS:
+        check_ported(cfg.reduced())
+        check_trainable(cfg)
+        assert isinstance(build_model(cfg), EncoderLM) and build_model(cfg.reduced()).cfg.encoder_only
         return
     with pytest.raises(NotImplementedError, match=WAITS_FOR[cfg.family]):
         build_model(cfg)
@@ -159,7 +169,7 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     deepseek-v3's latent attention, shared expert and dense prefix), as
     the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
     family; training takes both, in a VLM config too, and still refuses
-    an audio config with its slice named."""
+    a hybrid config with its slice named."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     mla = dataclasses.replace(base, mla=ds.mla)
@@ -168,9 +178,10 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     vlm = next(port_configs.get_config(a) for a in SERVED_IDS if port_configs.get_config(a).family == port_base.VLM)
     check_trainable(dataclasses.replace(vlm, mla=ds.mla))
     assert build_model(dataclasses.replace(vlm, mla=ds.mla)).is_mla
-    audio = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.AUDIO)
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        check_trainable(dataclasses.replace(audio, mla=ds.mla))
+    hybrid = next(port_configs.get_config(a) for a in OTHER_IDS
+                  if port_configs.get_config(a).family == port_base.HYBRID)
+    with pytest.raises(NotImplementedError, match="hybrid slice"):
+        check_trainable(dataclasses.replace(hybrid, mla=ds.mla))
     cfg = dataclasses.replace(base, moe=ds.moe)
     check_trainable(cfg)
     model = build_model(cfg)
@@ -236,7 +247,7 @@ def test_serve_answers_a_reduced_deepseek_v3():
 @pytest.mark.parametrize("entry,arch", REFUSED, ids=[f"{e}-{a}" for e, a in REFUSED])
 def test_entry_points_exit_with_the_slice_a_family_waits_for(arch, entry, capsys):
     main = serve_main.main if entry == "serve" else train_main.main
-    if (entry, arch) == ("train", "internvl2-2b"):  # the reduced config's 4 patches before 8 tokens
+    if entry == "train" and arch in ("internvl2-2b",) + ENCODER_IDS:  # 4 patches before 8 tokens; 12 frames
         import math
         import re
 

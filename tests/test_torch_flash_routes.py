@@ -196,7 +196,7 @@ def test_split_kv_in_bf16_within_the_bf16_tolerance():
 @pytest.mark.parametrize("route,shape,err,match", [
     ("decode", (1, 16, 4, 17, 64, 128, BF16), ValueError, "decode route"),
     ("tensor_core", (1, 16, 4, 128, 128, 128, F32), TypeError, "bfloat16"),
-    ("tensor_core", (1, 2, 2, 384, 384, 80, BF16), ValueError, "head_dim"),
+    ("tensor_core", (1, 2, 2, 384, 384, 96, BF16), ValueError, "head_dim"),
     ("f32", (1, 128, 1, 64, 64, 64, F32), ValueError, "Hq/Hkv"),
     ("flash", (1, 4, 2, 8, 8, 64, F32), ValueError, "unknown route"),
     ("decode", (1, 4, 2, 1, 8, 32, F32), ValueError, "head_dim"),
@@ -256,19 +256,20 @@ def test_routes_of_every_dtype_and_head_dim(dtype, d, sq):
     """The forward's and the backward's route from dtype and shape alone,
     and what a call on the card does with them (meta tensors take the CUDA
     branch, so a call the kernels take stops at the device check): head_dim
-    80 and 192 are refused, every other head_dim has a forward and a
-    backward on its route."""
+    192 (with a v of 192) is refused, every other head_dim has a forward and
+    a backward on its route; head_dim 80 (hubert's) goes to the tensor
+    cores in bf16 and to the CUDA cores otherwise, never to ``decode``."""
     q, k = _meta(2, 8, 2, sq, 200, d, dtype)
-    tc = dtype == BF16 and d in (64, 128, 256)
+    tc = dtype == BF16 and d in (64, 80, 128, 256)
     decode = sq == 1 and dtype in (F32, BF16) and d in (64, 128, 256)
     assert fa._route(q, k) == ("decode" if decode else "tensor_core" if tc else "f32")
     assert fa._route(q, k, grad=True) == ("tensor_core" if tc else "f32")
     assert fa._bwd_route(q) == ("tensor_core" if tc else "cuda_core")
     leaves = [q.requires_grad_(), k.requires_grad_(), k.detach().clone().requires_grad_()]
-    if d in (80, 192):
+    if d == 192:
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention(q.detach(), k.detach(), k.detach())
-        with pytest.raises(NotImplementedError, match="zamba2"):
+        with pytest.raises(NotImplementedError, match="192 goes with a v of 128 only"):
             fa.flash_attention(*leaves)
         return
     with pytest.raises(TypeError, match="unsupported device"):
@@ -373,7 +374,7 @@ def test_mla_widths_route_only_to_the_tensor_core_forward(label, shape, route):
 
 
 def test_tensor_core_dim_pairs():
-    assert fa.TC_DIM_PAIRS == ((64, 64), (128, 128), (256, 256), (192, 128))
+    assert fa.TC_DIM_PAIRS == ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
     assert all((d, d) in fa.TC_DIM_PAIRS for d in fa.TC_HEAD_DIMS)
 
 
@@ -382,3 +383,48 @@ def test_v_must_share_batch_heads_and_keys_with_k():
     for v_shape in ((1, 4, 9, 128), (1, 2, 8, 128), (2, 4, 8, 128)):
         with pytest.raises(ValueError, match="v \\[B,Hkv,Sk,Dv\\]"):
             fa.flash_attention(q, k, torch.empty(v_shape, dtype=BF16, device="meta"))
+
+
+#: hubert-xlarge's attention at head_dim 80 (16 query and 16 KV heads,
+#: bidirectional): its encode, its training shapes, a decode-sized call and
+#: small edges: (b, hq, hkv, sq, sk)
+HEAD_DIM_80_SHAPES = [(8, 16, 16, 1000, 1000), (4, 16, 16, 1000, 1000), (2, 16, 16, 1, 1000), (1, 4, 1, 16, 64),
+                      (1, 2, 2, 77, 77)]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32, F16])
+@pytest.mark.parametrize("shape", HEAD_DIM_80_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_head_dim_80_routes(dtype, shape):
+    """bf16 at head_dim 80 goes to the tensor_core forward and backward,
+    f32 and f16 to the f32 forward and the cuda_core backward, at every
+    shape, decode-sized calls included (the decode route's split kernel
+    does not take 80, and refuses it naming the hybrid slice); every check
+    of the forward and the backward passes (meta tensors stop at the
+    device check)."""
+    b, hq, hkv, sq, sk = shape
+    q, k = _meta(b, hq, hkv, sq, sk, 80, dtype)
+    fwd = "tensor_core" if dtype == BF16 else "f32"
+    assert fa._route(q, k) == fa._route(q, k, grad=True) == fwd
+    assert fa._bwd_route(q) == ("tensor_core" if dtype == BF16 else "cuda_core")
+    assert fa.bwd_kernels(80) == ("pre", "dkdv", "dq")
+    fa._check_backward(q)
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.launch_route(fwd, q, k, k, causal=False, with_lse=True)
+    lse = torch.empty(q.shape[:3], dtype=F32, device="meta")
+    with pytest.raises(TypeError, match="unsupported device"):
+        fa.launch_backward(q, k, k, q, lse, q, causal=False)
+    with pytest.raises(ValueError, match=r"decode route takes head_dim in \(64, 128, 256\), got head_dim 80 "
+                                         r"\(head_dim 80 waits for the hybrid slice\)"):
+        fa.launch_route("decode", q, k, k)
+    if dtype != BF16:
+        with pytest.raises(TypeError, match="tensor_core route takes bfloat16"):
+            fa.launch_route("tensor_core", q, k, k)
+
+
+@pytest.mark.parametrize("route", ["decode", "f32"])
+def test_routes_refuse_head_dim_96_naming_it(route):
+    q, k = _meta(1, 4, 4, 1, 64, 96, F32)
+    with pytest.raises(ValueError, match=rf"the {route} route takes head_dim in .*, got head_dim 96$"):
+        fa.launch_route(route, q, k, k)
+    with pytest.raises(NotImplementedError, match=r"got \(96, 96\) .*no kernel has head_dim 96"):
+        fa._check_backward(q)

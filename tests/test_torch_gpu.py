@@ -315,7 +315,7 @@ def test_flash_kernel_strided_views(dev):
 def test_flash_wrapper_refuses_shapes_the_kernel_lacks(dev):
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 80, torch.float32)  # zamba2's head_dim waits for its slice
+    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 96, torch.float32)  # no route has head_dim 96
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v)
 
@@ -359,7 +359,7 @@ def _routed(fa, route, fn):
     return out
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 80])
 @pytest.mark.parametrize("sq,sk,causal,cap", [(200, 200, True, 0.0), (130, 130, True, 0.0), (77, 300, False, 0.0),
                                               (256, 256, True, 50.0), (128, 128, False, 30.0), (600, 600, True, 0.0)])
 def test_tensor_core_route_equals_plain(dev, d, sq, sk, causal, cap):
@@ -637,7 +637,7 @@ def test_narrow_head_dims_forward_and_backward(dev, case, dtype):
     _check_grads(got, want, dtype, case)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 80])
 def test_f32_route_in_float16(dev, d):
     from repro_torch.kernels import flash_attention as fa
 
@@ -677,7 +677,7 @@ def _tile_inputs(dev, case, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80])
 @pytest.mark.parametrize("case", _TILE_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_f32_route_tiling(dev, case, d, dtype):
     """The f32 route's kernel, named, at every head_dim and dtype it takes,
@@ -693,7 +693,7 @@ def test_f32_route_tiling(dev, case, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 80])
 @pytest.mark.parametrize("case", _TILE_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_cuda_core_backward_tiling(dev, case, d, dtype):
     """The cuda_core backward's three kernels, named, at every head_dim and
@@ -738,9 +738,9 @@ def test_gradient_never_takes_the_decode_route(dev):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = _routed(fa, "tensor_core", lambda: fa.flash_attention(*leaves, q_offset=63))
     assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="zamba2"):  # head_dim 80: no backward kernel takes it
-        q80, k80, v80 = (t.requires_grad_() for t in _qkv(dev, 3, 1, 2, 2, 80, 80, 80, torch.bfloat16))
-        fa.flash_attention(q80, k80, v80)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):  # no backward kernel takes it
+        q96, k96, v96 = (t.requires_grad_() for t in _qkv(dev, 3, 1, 2, 2, 80, 80, 96, torch.bfloat16))
+        fa.flash_attention(q96, k96, v96)
 
 
 def test_grpo_step_gradients_on_the_card(dev):
@@ -962,7 +962,7 @@ def test_windowed_cuda_core_backward(dev, case, dtype):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 80])
 @pytest.mark.parametrize("case", _BWD_WINDOW_CASES, ids=_BWD_WINDOW_IDS)
 def test_windowed_tensor_core_backward(dev, case, d):
     """The tensor_core backward's three kernels with a window, at each
@@ -1859,3 +1859,136 @@ def test_simcluster_beside_a_live_cuda_context(dev):
     assert 0 < decode <= 2 * (1 << 30) * 2 / (hardware.H100.hbm_bw / 3.0)  # at most two units' drain a shard
     assert ([c.value for c in counters], torch.cuda.memory_allocated(dev)) == before
     assert float(live.sum()) == float(1 << 20)
+
+
+# -- the audio family (hubert-xlarge): head_dim 80 on the four kernels it launches ----------------
+
+#: (b, hq, hkv, sq, sk, d, causal, q_offset, kv_len, window, softcap) at
+#: head_dim 80, as _WINDOW_CASES (NaN in K and V past kv_len): hubert's
+#: bidirectional attention at G 1 and S 77, causal, G 2 and 4, a softcap,
+#: windows of 64 and 4096, q_offset > 0, and its 1000 frames
+_HD80_CASES = [
+    (2, 4, 4, 77, 77, 80, False, 0, None, 0, 0.0),
+    (2, 4, 4, 77, 77, 80, True, 0, None, 0, 0.0),
+    (1, 8, 4, 200, 200, 80, False, 0, None, 0, 50.0),
+    (1, 8, 2, 130, 130, 80, True, 0, None, 64, 0.0),
+    (1, 8, 2, 64, 300, 80, True, 200, 264, 0, 0.0),
+    (1, 4, 2, 100, 160, 80, False, 0, 120, 4096, 0.0),
+    (1, 4, 4, 1000, 1000, 80, False, 0, None, 0, 0.0),
+]
+_HD80_IDS = ["x".join(map(str, c)) for c in _HD80_CASES]
+
+
+@pytest.mark.parametrize("route,dtype", [("tensor_core", torch.bfloat16), ("f32", torch.float32),
+                                         ("f32", torch.float16), ("f32", torch.bfloat16)])
+@pytest.mark.parametrize("case", _HD80_CASES, ids=_HD80_IDS)
+def test_head_dim_80_forwards_equal_plain(dev, case, route, dtype):
+    """The tensor_core forward (bf16) and the f32 forward (f32, f16, bf16
+    named) at head_dim 80, with the log-sum-exp, against the plain version
+    (dead slots zeroed): within test_kernels.py's tolerance, the lse within
+    2e-5, and the same bits on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (kz, vz), kw = _window_inputs(dev, case, dtype)
+    assert fa._route(q, k, grad=True) == ("tensor_core" if dtype == torch.bfloat16 else "f32")
+    out, lse = _routed(fa, route, lambda: fa.launch_route(route, q, k, v, with_lse=True, **kw))
+    again = fa.launch_route(route, q, k, v, with_lse=True, **kw)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    _flash_close(out, fa.attention_plain(q, kz, vz, **kw), dtype)
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, kz, **kw), rtol=2e-5, atol=2e-5)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("route,dtype", [("tensor_core", torch.bfloat16), ("cuda_core", torch.float32),
+                                         ("cuda_core", torch.float16), ("cuda_core", torch.bfloat16)])
+@pytest.mark.parametrize("case", _HD80_CASES, ids=_HD80_IDS)
+def test_head_dim_80_backwards_equal_plain(dev, case, route, dtype):
+    """The tensor_core backward (bf16) and the cuda_core backward (f32,
+    f16, bf16 named) at head_dim 80 on their forward's output: pre, dkdv
+    and dq once each, against autograd through the plain attention (dead
+    slots zeroed), zeros past kv_len, and the same bits on a rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), (kz, vz), kw = _window_inputs(dev, case, dtype)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(8), device=dev).to(dtype)
+    out, lse = fa.launch_route("tensor_core" if route == "tensor_core" else "f32", q, k, v, with_lse=True, **kw)
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = fa.launch_backward(q, k, v, out, lse, dout, route=route, **kw)
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == _launched_once(fa, route, 80)
+    again = fa.launch_backward(q, k, v, out, lse, dout, route=route, **kw)
+    ref = [t.clone().requires_grad_() for t in (q, kz, vz)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, **kw), ref, dout)
+    _check_grads(got, want, dtype, (kw["kv_len"],))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 2])
+def test_head_dim_80_through_the_models_strided_views(dev, dtype, group):
+    """q, k and v as the encoder makes them (``[B, S, H * 80]`` split into
+    heads: sequence stride H * 80, head stride 80), through the Function
+    on its route and the backward, bidirectional and causal: the
+    gradients of the projections against autograd through the plain
+    attention. A kernel that stored past a head's 80 columns would write
+    into the next head's and fail this."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, hq = 2, 150, 4
+    hkv = hq // group
+    g = torch.Generator(device=dev).manual_seed(group)
+    xs = [torch.randn((b, s, h * 80), generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv)]
+    dout = torch.randn((b, hq, s, 80), generator=g, device=dev).to(dtype)
+    route = "tensor_core" if dtype == torch.bfloat16 else "f32"
+    for causal in (False, True):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        heads = [t.view(b, s, -1, 80).transpose(1, 2) for t in leaves]
+        out = _routed(fa, route, lambda: fa.flash_attention(*heads, causal=causal))
+        got = torch.autograd.grad(out, leaves, dout)
+        ref = [x.clone().requires_grad_() for x in xs]
+        want_out = fa.attention_plain(*(t.view(b, s, -1, 80).transpose(1, 2) for t in ref), causal=causal)
+        want = torch.autograd.grad(want_out, ref, dout)
+        _flash_close(out, want_out, dtype)
+        for name, gt, w in zip("qkv", got, want):
+            assert torch.isfinite(gt).all() and _rel_err(gt, w) <= _FLASH_TOL[dtype], (name, causal, _rel_err(gt, w))
+
+
+def test_hubert_encodes_and_trains_on_the_card(dev):
+    """hubert-xlarge's widths (d_model 1280, 16 heads of 80, frames of 512)
+    at 2 layers and a narrow FFN, bf16: an encode of 2 x 300 frames
+    launches one tensor_core forward a layer and nothing else, its logits
+    within phase 5's gates of a forward with the plain attention; the
+    masked-prediction gradient launches one tensor_core forward and one of
+    each tensor_core backward kernel a layer, every gradient finite and
+    nonzero and within 5e-2 (relative L2) of the plain attention's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import audio_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training.steps import make_loss_fn, value_and_grad
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), num_layers=2, d_ff=1024)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    model, ref = build_model(cfg), build_model(cfg, attention=fa.attention_plain)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in audio_batch(2, 300, cfg.frontend_dim, cfg.vocab, 0).items()}
+    routes = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    with torch.no_grad():
+        got = model.forward(params, batch)
+        want = ref.forward(params, batch)
+    assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"tensor_core": 2, "decode": 0, "f32": 0}
+    assert got.shape == (2, 300, cfg.vocab) and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    assert float(diff.max()) < 0.5 and float(diff.mean()) < 0.05
+    routes = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    grads, metrics = value_and_grad(make_loss_fn(model, cfg), params, batch)
+    assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"tensor_core": 2, "decode": 0, "f32": 0}
+    assert {n: c.value - before[n] for n, c in fa.BWD_LAUNCHES.items()} == {
+        n: 2 * (n in ("tensor_core/pre", "tensor_core/dkdv", "tensor_core/dq")) for n in fa.BWD_LAUNCHES}
+    want, _ = value_and_grad(make_loss_fn(ref, cfg), params, batch)
+    for n, gk in grads.items():
+        assert torch.isfinite(gk).all() and gk.abs().max() > 0, n
+        w = want[n].float()
+        assert float((gk.float() - w).norm() / w.norm().clamp_min(1e-30)) <= 5e-2, n

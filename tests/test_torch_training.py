@@ -327,14 +327,15 @@ def test_train_step_matches_jax(model, accum):
 
 
 def test_steps_refuse_other_families():
-    """The steps take the dense family; a config of another family (the
-    port registry's audio encoder here) is refused."""
-    audio = port_get_config("hubert-xlarge")
-    assert audio.family == "audio"
-    with pytest.raises(NotImplementedError, match="audio"):
-        psteps.make_loss_fn(DecoderLM(PORT_CFG), audio)
-    with pytest.raises(NotImplementedError, match="audio"):
-        psteps.make_grpo_step(DecoderLM(PORT_CFG), audio, popt.AdamW())
+    """The steps take the dense family; a config of a family the port has
+    no model for (the registry's hybrid here, since the audio encoder
+    trains) is refused."""
+    hybrid = port_get_config("zamba2-2.7b")
+    assert hybrid.family == "hybrid"
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        psteps.make_loss_fn(DecoderLM(PORT_CFG), hybrid)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        psteps.make_grpo_step(DecoderLM(PORT_CFG), hybrid, popt.AdamW())
 
 
 
