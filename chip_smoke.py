@@ -70,7 +70,15 @@ lines, any failure exiting non-zero:
    route against the 832 slots (kv_len 769, 800 and 832, NaN past it),
    and at the f32 training shape [2,16/8,512,128] the f32 forward with its
    lse and the cuda_core backward, each against its plain version,
-   bit-equal on a rerun and timed beside it and SDPA.
+   bit-equal on a rerun and timed beside it and SDPA. zamba2-2.7b's shared
+   block at head_dim 80 and G 1 (``hybrid_attention_checks``): the decode
+   route's split kernel at 80 in bf16 and f32 at kv_len 1, 63, 64, 65 and
+   576, over a 4096-slot ring (``causal=False``), with a softcap, a window
+   and a chunk of 4 rows, NaN past kv_len, and at phase 16's launch shapes
+   (q [8,32,1,80] against [8,32,576,80] bf16, and against an f32 ring of
+   4096 live slots), timed beside SDPA and the K/V bytes' bound; and the
+   other three head_dim-80 kernels causal at phase 16's prefill and
+   training shapes.
 3. Transfer at full width: llama3-8b at its published widths in bf16, depth
    cut from 32 to 10 layers, weights from a seeded generator on the card.
    A trainer (dc0) publishes v0; rollout-0 (dc0) replicates over raw and
@@ -219,7 +227,30 @@ lines, any failure exiting non-zero:
    steps of 2 x (256 stand-in patches + 256 tokens) on the f32 forward and
    the cuda_core backward.
 
-A ``kernels`` JSON line (launches over phases 3 to 14; flash
+15. The audio family: hubert-xlarge at its published widths and all 48
+   layers (``audio_arch``): encoded from a replica before and after an
+   update, one bf16 masked-prediction step, ``launch.train`` for two f32
+   steps.
+
+16. The hybrid family: zamba2-2.7b at its published widths and all 54
+   layers (54 Mamba2 blocks in 9 groups, one shared attention block of 32
+   heads of 80 after each), bf16, served from a rollout replica's
+   registered buffers: 8 x 512 tokens prefilled (9 tensor-core forwards),
+   64 decoded (9 x 64 decode-route launches at head_dim 80 against 576
+   slots), before and after an update to v1, every logit finite and its
+   distances to the plain attention printed (bf16 rounding alone moves
+   this model's logits past phase 5's gates, tools/hybrid_bf16_noise.py);
+   the same requests on the weights in f32 (the f32 prefill route and the
+   decode kernel in f32) held to phase 5's gates; the ring-buffer window
+   decode from ``init_cache(..., ring=True)`` on the f32 weights, its
+   window cut to 64 so that it wraps in 100 steps, then 4 steps at 4096
+   live slots, held to the plain attention; phase 6's RL loop at 2 x 2 x
+   (512 + 64) in f32; ``launch.train --arch zamba2-2.7b --full-config`` for
+   two f32 steps. Profiles of a bf16 prefill, a decode step and a GRPO
+   forward and backward by kernel class, with the Mamba2 blocks' share
+   (``ssd_share``).
+
+A ``kernels`` JSON line (launches over phases 3 to 16; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -2676,6 +2707,219 @@ def hubert_attention_checks(torch, dev, bw: float) -> dict:
     return out
 
 
+#: the decode kernel at head_dim 80 (zamba2's 32 query and 32 KV heads, G 1)
+#: at the edges phase 2 holds it to: (b, sq, sk, causal, q_offset, kv_len,
+#: window, softcap); kv_len 1, 63, 64, 65 and 576 behind the 576 slots a
+#: served decode step attends over, the 4096-slot ring (causal=False, every
+#: slot live, and a ring not yet full with a softcap), a window, and a chunk
+#: of 4 rows; K and V past kv_len hold NaN
+HYBRID_DECODE_EDGES = [
+    (8, 1, 576, True, 0, 1, 0, 0.0),
+    (8, 1, 576, True, 62, 63, 0, 0.0),
+    (8, 1, 576, True, 63, 64, 0, 0.0),
+    (8, 1, 576, True, 64, 65, 0, 0.0),
+    (8, 1, 576, True, 575, 576, 0, 0.0),
+    (8, 1, 4096, False, 0, 4096, 0, 0.0),
+    (8, 1, 4096, False, 0, 2000, 0, 30.0),
+    (4, 1, 1024, True, 899, 900, 256, 0.0),
+    (4, 4, 600, True, 500, 504, 0, 0.0),
+]
+
+
+def hybrid_attention_checks(torch, dev, bw: float) -> dict:
+    """zamba2-2.7b's shared-block attention at head_dim 80 (32 query and 32
+    KV heads) on the kernels phase 16 launches, each held to its plain
+    version at phase 2's tolerances and run twice for bit-equal results.
+    The decode route's split kernel at 80 (new here), in bf16 and f32, at
+    ``HYBRID_DECODE_EDGES`` and at phase 16's launch shapes: a served decode
+    step, q [8,32,1,80] against k/v [8,32,576,80] bf16, and a ring step at
+    the published window, q [8,32,1,80] f32 against an f32 ring of 4096
+    live slots (``causal=False``), each timed with the L2 cold beside the
+    plain version, SDPA (its backend named) and the bound (the live K/V
+    bytes over the memory rate). Then the other three head_dim-80 kernels,
+    causal (phase 2 holds them bidirectional at hubert's shapes): the tensor_core forward
+    at the served prefill, q/k/v [8,32,512,80] bf16; the tensor_core forward
+    with its lse and backward at the GRPO step's [4,32,576,80] bf16; the
+    f32 forward with its lse and the cuda_core backward at ``launch.train``'s
+    f32 step, [2,32,512,80]; each timed the same way, the backwards also by
+    kernel. Every decode-sized call must count on ``ROUTE_LAUNCHES["decode"]``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("zamba2-2.7b")
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    check(d == 80 and hq == hkv, f"zamba2's attention: {hq}/{hkv} heads of {d}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 190)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    worst = {}
+
+    def note(key, err):
+        worst[key] = tuple(max(a, b) for a, b in zip(worst.get(key, (0.0, 0.0)), err))
+
+    def forward(label, route, q, k, v, kz, vz, kw, with_lse=True):
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        before = fa.ROUTE_LAUNCHES[route].value
+        if route == "decode":  # through the wrapper, which must pick it
+            check(fa._route(q, k) == "decode", f"{label}: routed to {fa._route(q, k)}")
+            got, again = (fa.flash_attention(q, k, v, **kw) for _ in range(2))
+        else:
+            got, again = (fa.launch_route(route, q, k, v, with_lse=with_lse, **kw) for _ in range(2))
+        check(fa.ROUTE_LAUNCHES[route].value == before + 2, f"{route} not launched on {label}")
+        out, out2 = (got[0], again[0]) if with_lse and route != "decode" else (got, again)
+        want = fa.attention_plain(q, kz, vz, **kw).float()
+        diff = (out.float() - want).abs()
+        ratio = float((diff / (tol + tol * want.abs())).max())
+        same = bool(torch.equal(out, out2))
+        lse_ratio = None
+        if with_lse and route != "decode":
+            lse_want = fa.attention_lse_plain(q, kz, **kw)
+            lse_ratio = float(((got[1] - lse_want).abs() / (2e-5 + 2e-5 * lse_want.abs())).max())
+            same = same and bool(torch.equal(got[1], again[1]))
+        emit("flash_check", case=label, route=route, max_abs_err=float(diff.max()), tol=tol, err_over_tol=ratio,
+             lse_err_over_tol=lse_ratio, bit_equal_rerun=same)
+        check(ratio <= 1.0 and (lse_ratio is None or lse_ratio <= 1.0) and bool(torch.isfinite(out).all()),
+              f"{route} != plain version on {label}")
+        check(same, f"two runs of the {route} route differ on {label}")
+        note(route, (float(diff.max()), max(ratio, lse_ratio or 0.0)))
+        return got
+
+    def backward(label, route, q, k, v, o, lse, dout, kw):
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        check(fa._bwd_route(q) == route, f"{label}: backward routed to {fa._bwd_route(q)}")
+        got, again = backward_twice(torch, fa, route, label, q, k, v, o, lse, dout, kw)
+        want = fa.attention_backward_plain(q, k, v, o, lse, dout, **kw)
+        note(f"bwd/{route}", held_backward(torch, label, route, got, again, want, q, k, v, tol))
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+
+    def sdpa_ms(call):
+        backend = sdpa_backend(torch, call)
+        with sdpa_kernel([backend]):
+            return cold_ms(torch, call, flush), str(backend)
+
+    # the decode kernel at 80: the edges in both dtypes
+    decode_before = fa.ROUTE_LAUNCHES["decode"].value
+    n_decode = 0
+    for b, sq, sk, causal, q_offset, kv_len, window, cap in HYBRID_DECODE_EDGES:
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, softcap=cap)
+        for dtype in (bf16, f32):
+            q = rand((b, hq, sq, d), dtype)
+            k, v = rand((b, hkv, sk, d), dtype), rand((b, hkv, sk, d), dtype)
+            kz, vz = k, v
+            if kv_len < sk:
+                q, k, v, kz, vz = nan_tail((q, k, v), kv_len)
+            label = (f"zamba2 decode edge q {list(q.shape)}, k/v {list(k.shape)} {str(dtype).split('.')[1]} "
+                     f"causal {causal} q_offset {q_offset} kv_len {kv_len} window {window} softcap {cap}")
+            forward(label, "decode", q, k, v, kz, vz, kw, with_lse=False)
+            n_decode += 2
+            del q, k, v, kz, vz
+    counted = fa.ROUTE_LAUNCHES["decode"].value - decode_before
+    check(counted == n_decode, f"the decode route counted {counted} of the {n_decode} calls at head_dim 80")
+
+    # phase 16's decode shapes, timed: the served step (bf16, 576 slots) and the ring at 4096 (f32)
+    for key, dtype, sk, kw in (("decode", bf16, HYBRID_PROMPT + HYBRID_GEN,
+                                dict(causal=True, q_offset=HYBRID_PROMPT + HYBRID_GEN - 1)),
+                               ("ring", f32, cfg.sliding_window, dict(causal=False))):
+        q = rand((HYBRID_B, hq, 1, d), dtype)
+        k, v = rand((HYBRID_B, hkv, sk, d), dtype), rand((HYBRID_B, hkv, sk, d), dtype)
+        name = str(dtype).split(".")[1]
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} {name}" + (", ring (causal=False)" if key == "ring" else "")
+        forward(f"zamba2 {key} {shape}", "decode", q, k, v, k, v, kw, with_lse=False)
+        call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731 (every key visible: no mask)
+        library_ms, backend = sdpa_ms(sdpa)
+        bound, by, flops, nbytes = flash_bound_ms(q, k, sk, kw["causal"], kw.get("q_offset", 0), bw,
+                                                  peak=BF16_TFLOPS if dtype == bf16 else F32_TFLOPS)
+        out[key] = dict(route="decode", shape=shape, ms=cold_ms(torch, call, flush), warm_device_ms=device_ms(torch, call),
+                        plain_ms=cold_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), flush, reps=5),
+                        library_ms=library_ms, library=f"scaled_dot_product_attention ({backend})",
+                        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                        sdpa_max_abs_diff=float((sdpa().float() - call().float()).abs().max()))
+        emit("flash_zamba2_times", case=key, **out[key])
+        del q, k, v
+
+    # the prefill: the tensor_core forward, causal
+    s = HYBRID_PROMPT
+    q = rand((HYBRID_B, hq, s, d), bf16)
+    k, v = rand((HYBRID_B, hkv, s, d), bf16), rand((HYBRID_B, hkv, s, d), bf16)
+    shape = f"q {list(q.shape)}, k/v {list(k.shape)} bf16 causal"
+    kw = dict(causal=True)
+    check(fa._route(q, k) == "tensor_core", f"zamba2's prefill routed to {fa._route(q, k)}")
+    forward(f"zamba2 prefill {shape}", "tensor_core", q, k, v, k, v, kw, with_lse=False)
+    call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    library_ms, backend = sdpa_ms(sdpa)
+    bound, by, flops, nbytes = flash_bound_ms(q, k, s, True, 0, bw)
+    out["prefill"] = dict(route="tensor_core", shape=shape, ms=cold_ms(torch, call, flush),
+                          warm_device_ms=device_ms(torch, call),
+                          plain_ms=cold_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), flush, reps=5),
+                          library_ms=library_ms, library=f"scaled_dot_product_attention is_causal ({backend})",
+                          bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                          sdpa_max_abs_diff=float((sdpa().float() - call().float()).abs().max()))
+    emit("flash_zamba2_times", case="prefill", **out["prefill"])
+    del q, k, v
+
+    # the GRPO step (bf16) and launch.train's f32 step: forward with the lse, backward
+    for label, dtype, b, s, fwd_route, bwd_route in (
+            ("train_bf16", bf16, HYBRID_RL_PROMPTS * HYBRID_RL_GROUP, PROMPT_LEN + GEN_LEN, "tensor_core", "tensor_core"),
+            ("train_f32", f32, HYBRID_TRAIN_B, HYBRID_TRAIN_SEQ, "f32", "cuda_core")):
+        q = rand((b, hq, s, d), dtype)
+        k, v = rand((b, hkv, s, d), dtype), rand((b, hkv, s, d), dtype)
+        dout = rand(q.shape, dtype)
+        name = str(dtype).split(".")[1]
+        shape = f"q {list(q.shape)}, k/v {list(k.shape)} {name} causal"
+        check((fa._route(q, k, grad=True), fa._bwd_route(q)) == (fwd_route, bwd_route),
+              f"zamba2's {label} routed to {fa._route(q, k, grad=True)}/{fa._bwd_route(q)}")
+        o, lse = forward(f"zamba2 {label} forward {shape}, with the lse", fwd_route, q, k, v, k, v, kw)
+        backward(f"zamba2 {label} backward {shape}", bwd_route, q, k, v, o, lse, dout, kw)
+        peak = BF16_TFLOPS if dtype == bf16 else F32_TFLOPS
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        bwd_backend = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(*leaves, is_causal=True))
+        with sdpa_kernel([bwd_backend]):  # the backward runs the backend its forward took
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        calls = {"forward": lambda: fa.launch_route(fwd_route, q, k, v, with_lse=True, **kw),
+                 "backward": lambda: fa.launch_backward(q, k, v, o, lse, dout, **kw)}
+        plain = {"forward": lambda: fa.attention_plain(q, k, v, **kw),
+                 "backward": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, **kw)}
+        sdpas = {"forward": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                 "backward": lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)}
+        bounds = {"forward": flash_bound_ms(q, k, s, True, 0, bw, peak=peak),
+                  "backward": bwd_bound_ms(q, k, s, True, 0, bw, peak)}
+        for part, route in (("forward", fwd_route), ("backward", bwd_route)):
+            if part == "forward":
+                library_ms, backend = sdpa_ms(sdpas[part])
+            else:
+                library_ms, backend = cold_ms(torch, sdpas[part], flush), str(bwd_backend)
+            bound, by, flops, nbytes = bounds[part]
+            key = f"{label}_{part}"
+            out[key] = dict(route=route, shape=shape + (", with the lse" if part == "forward" else ""),
+                            ms=cold_ms(torch, calls[part], flush), warm_device_ms=device_ms(torch, calls[part]),
+                            plain_ms=cold_ms(torch, plain[part], flush, reps=5), library_ms=library_ms,
+                            library=f"scaled_dot_product_attention {part} is_causal ({backend})", bound_ms=bound,
+                            bound_by=by, flops=flops, bytes=nbytes)
+            if part == "backward":
+                out[key]["kernels_ms"] = kernel_split_ms(torch, calls[part], flush)
+            emit("flash_zamba2_times", case=key, **out[key])
+        del q, k, v, dout, o, lse, leaves, sdpa_out, calls, plain, sdpas
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    for key, entry in (("decode", out["decode"]), ("tensor_core", out["prefill"]), ("f32", out["train_f32_forward"]),
+                       ("bwd/tensor_core", out["train_bf16_backward"]), ("bwd/cuda_core", out["train_f32_backward"])):
+        entry.update(max_abs_err=worst[key][0], err_over_tol=worst[key][1])
+    out["ring"].update(max_abs_err=worst["decode"][0], err_over_tol=worst["decode"][1])
+    out["train_bf16_forward"].update(max_abs_err=worst["tensor_core"][0], err_over_tol=worst["tensor_core"][1])
+    return out
+
+
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
 #: phase 11's 4 layers, [4, 16, 6144, 10752] in bf16 (4.23 G elements, 8.46 GB)
 BIG_SHAPE = (4, 16, 6144, 10752)
@@ -3219,6 +3463,24 @@ def attention_widths(cfg) -> tuple:
     return cfg.resolved_head_dim, cfg.resolved_head_dim
 
 
+def attention_layers(cfg) -> int:
+    """Attention calls in one pass through a config's model: one a layer,
+    but the hybrid's one shared block after each group of
+    ``ssm.shared_block_every`` Mamba2 blocks (zamba2: 9 of 54 layers)."""
+    from repro_torch.configs.base import HYBRID
+
+    return cfg.num_layers // cfg.ssm.shared_block_every if cfg.family == HYBRID else cfg.num_layers
+
+
+def attention_windows(cfg) -> list:
+    """The window each attention call of a pass gets: ``_layer_windows``'
+    for the decoder, 0 for each of the hybrid's shared-block calls."""
+    from repro_torch.configs.base import HYBRID
+    from repro_torch.models.lm import _layer_windows
+
+    return [0] * attention_layers(cfg) if cfg.family == HYBRID else _layer_windows(cfg)
+
+
 def grads_in_parts(torch, loss_fn, params, batch, budget):
     """``value_and_grad`` of ``loss_fn`` for a part of the tensors at a
     time, in registration order: yields ``(gradients of the part,
@@ -3246,8 +3508,10 @@ def grads_in_parts(torch, loss_fn, params, batch, budget):
 
 
 def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, group_size: int = 4,
-            init=None, grad_budget=None, delta_base: bool = True) -> dict:
-    """Paper Fig. 4 at a config's published widths in bf16 (llama3-8b cut
+            init=None, grad_budget=None, delta_base: bool = True, dtype=None) -> dict:
+    """Paper Fig. 4 at a config's published widths in bf16 (``dtype``: the
+    trainer's and the rollout's; in f32 the prefill and the step's forward
+    take the ``f32`` route and the backward ``cuda_core``) (llama3-8b cut
     to 4 layers unless ``cfg`` is given): a TrainerWorker publishes v0
     (dc0); a RolloutWorker (dc0, raw) replicates it and serves round 0
     (``num_prompts`` x ``group_size`` responses of 512 prompt tokens + 64
@@ -3265,8 +3529,9 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     hub's. An MLA model (deepseek-v3) serves its decode steps on the
     ``mla_decode`` kernel (none on the decode route) and steps on the
     tensor-core forward and backward at (192, 128); its references decode
-    with ``mla_decode_plain``. Returns the kernels' launches on that
-    path."""
+    with ``mla_decode_plain``. The hybrid (zamba2) attends once a group of
+    Mamba2 blocks (``attention_layers``), through its shared block's
+    weights. Returns the kernels' launches on that path."""
     import numpy as np
 
     from repro_torch.configs.llama3_8b import CONFIG
@@ -3276,8 +3541,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
     from repro_torch.kernels.mla_decode import LAUNCHES as LATENT_LAUNCHES
     from repro_torch.kernels.mla_decode import mla_decode_plain
+    from repro_torch.configs.base import HYBRID
     from repro_torch.models import build_model
-    from repro_torch.models.lm import _layer_windows
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker, TrainerWorker
     from repro_torch.training.steps import make_grpo_loss_fn
@@ -3290,7 +3555,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     routes = {f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()}
     every = {**counters, **bwd, **routes, "mla_decode": LATENT_LAUNCHES}
     widths = attention_widths(cfg)
-    decode_steps = cfg.num_layers * GEN_LEN  # on the mla_decode kernel for MLA, else on the decode route
+    n_attn = attention_layers(cfg)  # attention calls a pass
+    decode_steps = n_attn * GEN_LEN  # on the mla_decode kernel for MLA, else on the decode route
     torch.cuda.reset_peak_memory_stats(dev)
     for c in every.values():
         c.reset()
@@ -3307,19 +3573,25 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
 
     hub = TensorHubClient(ReferenceServer(), device=dev, delta_base=delta_base)
     queue = []
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(rl.seed), torch.bfloat16, dev)
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    bwd_route = "tensor_core" if bf16 else "cuda_core"
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(rl.seed), dtype, dev)
     if init is not None:
         init(params)
-    trainer, init_s = timed(lambda: TrainerWorker(hub, rl, cfg, queue, datacenter="dc0", dtype=torch.bfloat16,
+    trainer, init_s = timed(lambda: TrainerWorker(hub, rl, cfg, queue, datacenter="dc0", dtype=dtype,
                                                   params=params, keep_grads=True))
     del params
     publish0_s = trainer.last_timings["publish_seconds"]
     nparams = sum(t.numel() for t in trainer.params.values())
-    emit("model", config=label, layers=cfg.num_layers, dtype="bfloat16", params=nparams, bytes=2 * nparams,
+    emit("model", config=label, layers=cfg.num_layers, dtype=str(dtype).split(".")[1], params=nparams,
+         bytes=torch.finfo(dtype).bits // 8 * nparams,
          trainer_init_and_publish_seconds=init_s, publish_v0_seconds=publish0_s)
     worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), queue,
-                           threading.Event(), datacenter="dc0", dtype=torch.bfloat16)
-    reference = build_model(cfg, attention=attention_plain, latent_attention=mla_decode_plain)
+                           threading.Event(), datacenter="dc0", dtype=dtype)
+    hybrid = cfg.family == HYBRID
+    reference = build_model(cfg, attention=attention_plain,
+                            **({} if hybrid else {"latent_attention": mla_decode_plain}))
 
     def replica_equals_trainer(when):
         for n, w in trainer.params.items():
@@ -3333,8 +3605,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         rec0, round0_s = timed(lambda: worker.serve_batch(0, keep_logits=True))
     round0 = {k: v - before[k] for k, v in counts().items()}
     mla = cfg.mla is not None
-    want0 = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0 if mla else decode_steps,
-             "flash_route_f32": 0, "mla_decode": decode_steps if mla else 0}
+    want0 = {"flash_route_tensor_core": n_attn * bf16, "flash_route_decode": 0 if mla else decode_steps,
+             "flash_route_f32": n_attn * (not bf16), "mla_decode": decode_steps if mla else 0}
     check({k: round0[k] for k in want0} == want0, f"{label} round 0 launches {round0}, want {want0}")
     mid = counts()
     check0 = check_round(torch, cfg, reference, trainer.params, rec0, 0, served0, tag="rl_serve_check")
@@ -3382,11 +3654,11 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         fa.launch_route, fa.launch_backward = wrappers
     step_s, publish1_s = trainer.last_timings["step_seconds"], trainer.last_timings["publish_seconds"]
     step_launches = {k: v - before[k] for k, v in counts().items()}
-    launched = {f"tensor_core/{n}" for n in fa.bwd_kernels(*widths)}
-    want = {"flash_route_tensor_core": cfg.num_layers, "flash_route_decode": 0, "flash_route_f32": 0,
-            **{f"flash_attention_bwd_{n}": cfg.num_layers * (n in launched) for n in BWD_LAUNCHES}}
+    launched = {f"{bwd_route}/{n}" for n in fa.bwd_kernels(*widths)}
+    want = {"flash_route_tensor_core": n_attn * bf16, "flash_route_decode": 0, "flash_route_f32": n_attn * (not bf16),
+            **{f"flash_attention_bwd_{n}": n_attn * (n in launched) for n in BWD_LAUNCHES}}
     check({k: step_launches[k] for k in want} == want, f"{label} GRPO step launches {step_launches}, want {want}")
-    layer_windows = _layer_windows(cfg)
+    layer_windows = attention_windows(cfg)
     check(windows["forward"] == layer_windows and windows["backward"][::-1] == layer_windows,
           f"{label}: the step's windows {windows}, the layers' {layer_windows}")
     check(metrics["version"] == 1 and trainer.version == 1, f"{label}: the trainer did not publish v1")
@@ -3417,7 +3689,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     ref_s = time.perf_counter() - t0
     check(mid == counts(), "the reference step launched a flash kernel")
     attn = (("layers/attn/wq_b", "layers/attn/wkv_a", "layers/attn/wkv_b_k", "layers/attn/wkv_b_v", "layers/attn/ln")
-            if mla else ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/ln"))
+            if mla else tuple(f"{'shared_attn' if hybrid else 'layers/attn'}/{n}" for n in ("wq", "wk", "wv", "ln")))
     for name in attn:
         check(grad_max[name] > 0, f"{label} {name}: no gradient through the flash attention")
     loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
@@ -3442,9 +3714,19 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         check(moe["routing"]["unexplained_rows"] == 0 and moe["routing"]["router_logit_max_abs_diff"] <= LOGIT_MAX_ABS,
               f"{label}: the step's routing against the reference's router logits: {moe['routing']}")
 
-    # every tensor moved (the rollout still holds v0), then the update
+    # every tensor moved (the rollout still holds v0), then the update. A
+    # tensor none of whose values AdamW's first step (|update| <= lr) can
+    # move in its dtype is listed instead: where lr is below a quarter of
+    # eps x |w| for every value, the step is below half the spacing there
+    # (zamba2's d_skip, ones in bf16: spacing 2^-7, lr 1e-3)
+    frozen = []
     for n, w in trainer.params.items():
+        if torch.equal(worker.params[n], w) and bool((torch.finfo(w.dtype).eps * w.float().abs() / 4 > rl.lr).all()):
+            frozen.append(n)
+            continue
         check(not torch.equal(worker.params[n], w), f"{label} {n} did not change from v0 to v1")
+    if frozen:
+        emit("rl_frozen_by_rounding", config=label, lr=rl.lr, tensors=frozen)
     updated, update_s = timed(worker.pull_latest)
     check(updated and worker.weights_version == 1, f"{label}: the rollout did not update to v1")
     replica_equals_trainer("v1")
@@ -3460,7 +3742,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
     for k in ("checksum", "flash_attention", *(("mla_decode",) if mla else ()),
-              *(f"flash_attention_bwd_tensor_core/{n}" for n in fa.bwd_kernels(*widths))):
+              *(f"flash_attention_bwd_{bwd_route}/{n}" for n in fa.bwd_kernels(*widths))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
     queue.clear()
@@ -3606,9 +3888,9 @@ def train_entry_point(torch, counters) -> dict:
 
 def train_run(torch, every, argv, cfg, steps: int):
     """One ``launch.train.main(argv)`` on the card, ``cfg`` the config it
-    trains: its losses must be finite and every layer of every step must
-    launch the f32 route's forward and the cuda_core backward, and no
-    tensor-core or decode kernel. Returns the run's launches by counter of
+    trains: its losses must be finite and every attention call of every
+    step (``attention_layers``) must launch the f32 route's forward and the
+    cuda_core backward, and no tensor-core or decode kernel. Returns the run's launches by counter of
     ``every`` (read right after it) and its losses."""
     import contextlib
     import io
@@ -3617,7 +3899,7 @@ def train_run(torch, every, argv, cfg, steps: int):
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, bwd_kernels
     from repro_torch.launch import train
 
-    layers, widths = cfg.num_layers, attention_widths(cfg)
+    layers, widths = attention_layers(cfg), attention_widths(cfg)
     torch.cuda.reset_peak_memory_stats()
     before = {k: c.value for k, c in every.items()}
     buf = io.StringIO()
@@ -4982,6 +5264,416 @@ def audio_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 16: the hybrid family (zamba2-2.7b) at its published widths -------------
+
+#: 8 requests of 512 prompt tokens, 64 new tokens each: every decode step's
+#: 9 shared-block calls attend over 576 slots
+HYBRID_B, HYBRID_PROMPT, HYBRID_GEN = 8, 512, 64
+#: the ring decode: the window cut to 64 slots so that the ring wraps within
+#: ``HYBRID_RING_STEPS`` steps of ``HYBRID_B`` sequences, then
+#: ``HYBRID_RING_LONG`` steps at the published 4096 slots, every slot live
+HYBRID_RING_WINDOW, HYBRID_RING_STEPS, HYBRID_RING_LONG = 64, 100, 4
+#: phase 16's GRPO step through the RL loop: 2 prompts x 2 responses of
+#: 512 + 64 tokens (phase 10's)
+HYBRID_RL_PROMPTS, HYBRID_RL_GROUP = 2, 2
+#: reference gradients phase 16's f32 RL loop holds at once (its f32
+#: trainer keeps 38.8 GB of parameters, gradients and moments); its hubs
+#: keep no delta base, whose snapshots of the retiring f32 version (9.7 GB
+#: each) left the update's 5.4 GiB staging buffer no room on an 80 GB card
+HYBRID_GRAD_BUDGET = 5 * GIB
+#: launch.train at zamba2's published widths and all 54 layers, f32: 2 x 512
+HYBRID_TRAIN_B, HYBRID_TRAIN_SEQ = 2, 512
+HYBRID_TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--full-config", "--batch", str(HYBRID_TRAIN_B), "--seq",
+                     str(HYBRID_TRAIN_SEQ)]
+
+
+def bf16_round_distances(torch, reference, weights, rec, version, name: str) -> dict:
+    """A served bf16 round's distances, not gated, to a replay of its calls
+    with the plain attention (``replay_round``: the same prefill and decode
+    ops, only the attention differs) and to the teacher-forced forward
+    (the chunked scan over the whole sequence where the round ran the
+    prefill's chunks and one-step recurrences). At 54 random-init Mamba2
+    layers bf16 rounding alone moves the logits further than phase 5's
+    gates (tools/hybrid_bf16_noise.py), so the round is held to be finite here and the
+    gates hold on the f32 round. Returns the distances."""
+    prompt_len = rec["tokens"].shape[1] - rec["step_logits"].shape[1]
+    steps = rec["step_logits"]
+    ref = replay_round(torch, reference, weights, rec, prompt_len)
+    d = (steps - ref).abs()
+    res = dict(version=version, gated=False, reference="replay of the served calls, plain attention",
+               logit_max_abs_err=float(d.max()), logit_mean_abs_err=float(d.double().mean()),
+               logit_abs_max=float(steps.abs().max()), all_finite=bool(torch.isfinite(steps).all()),
+               mean_logprob=float(rec["behavior_logprobs"].mean()))
+    del ref, d
+    res["teacher_forced"] = check_served_round(torch, reference, weights, rec, version, chunk=2, gate=False)
+    emit(f"serve_check {name} bfloat16", **res)
+    check(res["all_finite"], f"{name} v{version}: non-finite logits")
+    return res
+
+
+class SSDSpans:
+    """Within ``with``: a CUDA event pair around every Mamba2 block call
+    (``repro_torch.models.ssd.ssd_block_apply``, which ``HybridLM`` reaches
+    through its module at each call, the recompute in a backward included),
+    so ``ms()`` sums the blocks' spans on the stream: their share of a
+    call's device time, the gaps between their kernels included. A
+    recompute (``torch.utils.checkpoint``) that stops once it has the
+    tensors the backward needs is spanned up to there."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import ssd
+
+        self.ssd, self.apply, self.pairs = ssd, ssd.ssd_block_apply, []
+
+        def spanned(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:  # a backward's recompute stops early by an exception once it has what it needs
+                return self.apply(*a, **kw)
+            finally:
+                end.record()
+                self.pairs.append((start, end))
+
+        ssd.ssd_block_apply = spanned
+        return self
+
+    def __exit__(self, *exc):
+        self.ssd.ssd_block_apply = self.apply
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def ssd_share(torch, fn) -> dict:
+    """``fn()`` between two CUDA events, with ``SSDSpans``: the call's
+    device span in ms, the Mamba2 blocks' summed spans and their share."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with SSDSpans() as spans:
+        start.record()
+        fn()
+        end.record()
+        ssd_ms = spans.ms()
+    total = start.elapsed_time(end)
+    return dict(span_ms=total, ssd_ms=ssd_ms, ssd_share=ssd_ms / total, ssd_calls=len(spans.pairs))
+
+
+def hybrid_arch(torch, dev, counters, smi: str) -> dict:
+    """zamba2-2.7b (arXiv:2411.15242) at its published widths and all 54
+    layers in bf16 (d_model 2560; 54 Mamba2 blocks of 80 SSD heads of 64,
+    state 64, conv 4, chunk 256, in 9 groups of 6, each group followed by
+    the one shared attention block, 32 query and 32 KV heads of 80, and its
+    SwiGLU MLP of 10240; vocab 32000, untied head). Serving: a trainer (dc0)
+    publishes v0, a rollout replica (dc0, raw) replicates it, and the model
+    reads its parameters from the replica's registered buffers: it
+    prefills 8 x 512 tokens and decodes 64 greedily; the trainer perturbs
+    1/8 of its rows and publishes v1, the replica updates in place, and the
+    same requests are served again. The replica must be bit-equal to the
+    trainer after each pull, round 1 apart from round 0, every logit
+    finite, and each round must launch 9 tensor-core forwards (q/k/v
+    [8,32,512,80]) and 9 x 64 decode-route ones (q [8,32,1,80] against
+    [8,32,576,80]), none on f32; each bf16 round's distances to a replay
+    with the plain attention and to the teacher-forced forward are printed,
+    not gated (``bf16_round_distances``: bf16 rounding alone moves this
+    model's logits past phase 5's gates). The gated round: the same
+    requests on v1 cast to f32, 9 f32-route prefills and 9 x 64 decode
+    launches in f32, within phase 5's gates of the teacher-forced f32
+    forward with the plain attention. The ring decode, on the f32 weights:
+    from ``init_cache(..., ring=True)``, the window cut to 64 slots so that
+    it wraps, 100 steps of 8 sequences, then 4 steps at the published 4096
+    slots with every slot live (the ring filled with seeded K/V, the steps
+    at position 4196), each step's logits within phase 5's gates of the
+    same steps with the plain attention, 9 decode launches a step. The
+    prefill and a decode step are timed on ``build_model(cfg)``'s default
+    attention, and the prefill profiled (kernel classes; the Mamba2 blocks'
+    share by CUDA events, ``ssd_share``). Then phase 6's RL loop at 2 x 2 x
+    (512 + 64) in f32 (``rl_loop``: trainer -> publish -> rollout update,
+    the f32 forward and the cuda_core backward, gradients held to the plain
+    attention's and to the plain backward's, finite; bf16 gradients of
+    these 54 layers are rounding noise), a bf16 GRPO forward and backward at
+    its batch profiled the same way (the tensor_core forward and backward), and
+    ``launch.train --arch zamba2-2.7b --full-config`` for two f32 steps of
+    2 x 512 on the f32 forward and the cuda_core backward. Returns the main
+    path's launches: the served rounds, the ring decode, the RL loop and the
+    f32 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import PromptSet
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+
+    cfg = get_config("zamba2-2.7b")
+    n_attn, hq, hkv, d = attention_layers(cfg), cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    check(d == 80 and hq == hkv, f"{cfg.name}: {hq}/{hkv} heads of {d}")
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t
+
+    def routes_since(before):
+        return {r: c.value - before[r] for r, c in ROUTE_LAUNCHES.items()}
+
+    hub = TensorHubClient(ReferenceServer(), device=dev)
+    trainer = hub.open("hybrid", "trainer", 1, 0, datacenter="dc0")
+    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 200), torch.bfloat16, dev))
+    trainer.publish(0)
+    weights = trainer.store.tensors()
+    nparams = sum(w.numel() for w in weights.values())
+    rollout = hub.open("hybrid", "rollout-0", 1, 0, datacenter="dc0")
+    rollout.register({n: torch.zeros_like(w) for n, w in weights.items()})
+    nbytes = rollout.store.total_bytes
+    emit("model", config=cfg.name, layers=cfg.num_layers, attention_calls=n_attn, dtype="bfloat16", params=nparams,
+         bytes=nbytes)
+    _, replicate_s = timed(lambda: rollout.replicate(0, timeout=600))
+
+    def equal_to_trainer(when):
+        for n, w in trainer.store.tensors().items():
+            check(torch.equal(rollout.store.get(n), w), f"{cfg.name} {when}: rollout {n} != trainer")
+
+    equal_to_trainer("after replicate")
+    params = rollout.store.tensors()  # the registered buffers: an update is seen by the next round
+    calls = set()  # each attention call's (route, q shape, k/v shape, causal)
+
+    def attention(q, k, v, **kw):
+        calls.add((fa._route(q, k, v=v), tuple(q.shape), tuple(k.shape), bool(kw.get("causal", True))))
+        return fa.flash_attention(q, k, v, **kw)
+
+    model = build_model(cfg, attention=attention)
+    reference = build_model(cfg, attention=attention_plain)
+    prompts = torch.from_numpy(PromptSet(cfg.vocab, HYBRID_PROMPT, seed=SEED).sample(HYBRID_B, 0)).to(dev, torch.int64)
+    max_len = HYBRID_PROMPT + HYBRID_GEN
+    want_route = {"tensor_core": n_attn, "decode": n_attn * HYBRID_GEN, "f32": 0}
+    want_calls = {("tensor_core", (HYBRID_B, hq, HYBRID_PROMPT, d), (HYBRID_B, hkv, HYBRID_PROMPT, d), True),
+                  ("decode", (HYBRID_B, hq, 1, d), (HYBRID_B, hkv, max_len, d), True)}
+
+    def serve(params=params):
+        """Prefill, then ``HYBRID_GEN`` greedy decode steps (the last one's
+        logits unused, as ``sample_responses``)."""
+        logits, cache, n = model.prefill(params, {"tokens": prompts}, max_len=max_len)
+        toks, lps, steps = [], [], []
+        for _ in range(HYBRID_GEN):
+            last = logits[:, -1].float()
+            nxt = last.argmax(-1)
+            steps.append(last)
+            lps.append(torch.log_softmax(last, -1).gather(-1, nxt[:, None])[:, 0])
+            toks.append(nxt)
+            logits, cache = model.decode(params, cache, nxt[:, None], n)
+            n += 1
+        check(n == max_len, f"{cfg.name}: the decode ended at cache length {n}, want {max_len}")
+        return dict(tokens=torch.cat([prompts, torch.stack(toks, 1)], 1), behavior_logprobs=torch.stack(lps, 1),
+                    step_logits=torch.stack(steps, 1))
+
+    rounds, checks = [], []
+    for step in range(2):
+        if step:
+            def perturb_and_publish():
+                trainer.unpublish()
+                gp = torch.Generator(device=dev).manual_seed(SEED + 31)
+                for w in trainer.store.tensors().values():
+                    flat = w.view(-1)
+                    rows = flat[: flat.numel() // 256 * 256].view(-1, 256)[::8]  # 1/8 of the rows, in place
+                    rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+                trainer.publish(1)
+
+            _, publish_s = timed(perturb_and_publish)
+            updated, update_s = timed(lambda: rollout.update("latest"))
+            check(updated and rollout.current_version == 1, f"{cfg.name}: the rollout did not update to v1")
+            equal_to_trainer("after update")
+        before = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+        calls.clear()
+        with torch.no_grad():
+            rec, round_s = timed(serve)
+        by_route = routes_since(before)
+        check(by_route == want_route, f"{cfg.name} round {step}: flash launches by route {by_route}, want {want_route}")
+        check(calls == want_calls, f"{cfg.name} round {step}: attention calls {calls}, want {want_calls}")
+        rounds.append(dict(round=step, version=step, seconds=round_s, flash_launches_by_route=by_route,
+                           attention_calls=sorted([r, list(q), list(k), c] for r, q, k, c in calls),
+                           generated_tokens=HYBRID_B * HYBRID_GEN, tokens_per_s=HYBRID_B * HYBRID_GEN / round_s))
+        mid = {k: c.value for k, c in every.items()}
+        checks.append(bf16_round_distances(torch, reference, trainer.store.tensors(), rec, step, cfg.name))
+        check(mid == {k: c.value for k, c in every.items()}, f"{cfg.name}: the checks launched a kernel")
+        if step == 0:
+            first0 = rec["step_logits"][:, 0].clone()
+        else:
+            delta = float((rec["step_logits"][:, 0] - first0).abs().mean())
+            check(delta > 10 * LOGIT_MEAN_ABS, f"{cfg.name}: round 1 logits barely differ from round 0's ({delta})")
+        del rec
+    # the gated round: the same requests on v1 cast to f32, through the f32 kernels (the prefill on the f32
+    # route, every decode step on the decode kernel at head_dim 80 in f32), against the teacher-forced f32
+    # forward with the plain attention
+    w32 = {n: w.float() for n, w in trainer.store.tensors().items()}
+    before = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+    calls.clear()
+    with torch.no_grad():
+        rec, round_s = timed(lambda: serve(w32))
+    by_route = routes_since(before)
+    want32 = {"tensor_core": 0, "decode": n_attn * HYBRID_GEN, "f32": n_attn}
+    check(by_route == want32, f"{cfg.name} f32 round: flash launches by route {by_route}, want {want32}")
+    rounds.append(dict(round=2, version=1, dtype="float32", seconds=round_s, flash_launches_by_route=by_route,
+                       attention_calls=sorted([r, list(q), list(k), c] for r, q, k, c in calls),
+                       generated_tokens=HYBRID_B * HYBRID_GEN, tokens_per_s=HYBRID_B * HYBRID_GEN / round_s))
+    mid = {k: c.value for k, c in every.items()}
+    checks.append(check_served_round(torch, reference, w32, rec, 1, tag=f"serve_check {cfg.name} float32", chunk=2))
+    check(mid == {k: c.value for k, c in every.items()}, f"{cfg.name}: the checks launched a kernel")
+    del rec
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+
+    # the ring decode (f32 weights, the gated dtype): the window cut so that the ring wraps, then the
+    # published 4096 slots all live
+    print(f"phase 16: the ring decode's window cut from {cfg.sliding_window} to {HYBRID_RING_WINDOW} slots so that "
+          f"it wraps within {HYBRID_RING_STEPS} steps; then {HYBRID_RING_LONG} steps at {cfg.sliding_window} slots "
+          "with every slot live", flush=True)
+    ring = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 201)
+    for label, window, steps, start in (("wrapping", HYBRID_RING_WINDOW, HYBRID_RING_STEPS, 0),
+                                        ("published_window", cfg.sliding_window, HYBRID_RING_LONG,
+                                         cfg.sliding_window + 100)):
+        rcfg = dataclasses.replace(cfg, sliding_window=window)
+        rmodel, rref = build_model(rcfg), build_model(rcfg, attention=attention_plain)
+        cache = rmodel.init_cache(HYBRID_B, window, torch.float32, dev, ring=True)
+        check(cache["attn"]["k"].shape == (n_attn, HYBRID_B, hkv, window, d) and cache["attn"]["k"].dtype == torch.float32,
+              f"{cfg.name}: ring cache {tuple(cache['attn']['k'].shape)} {cache['attn']['k'].dtype}")
+        if start:  # every slot live: the ring as if ``start`` steps had filled it
+            for t in cache["attn"].values():
+                t.normal_(generator=gen)
+        ref_cache = {part: {n: t.clone() for n, t in entries.items()} for part, entries in cache.items()}
+        toks = torch.randint(0, cfg.vocab, (HYBRID_B, steps), generator=gen, device=dev)
+        before = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+        worst_max, err_sum, n_el, finite = 0.0, 0.0, 0, True
+        ring_s = []
+        with torch.no_grad():
+            for i in range(steps):
+                got, secs = timed(lambda: rmodel.decode(w32, cache, toks[:, i : i + 1], start + i, ring=True)[0])
+                ring_s.append(secs)
+                mid = {r: c.value for r, c in ROUTE_LAUNCHES.items()}
+                want, _ = rref.decode(w32, ref_cache, toks[:, i : i + 1], start + i, ring=True)
+                check(routes_since(mid) == {r: 0 for r in ROUTE_LAUNCHES}, f"{cfg.name}: the ring reference launched")
+                diff = (got - want).abs()
+                finite = finite and bool(torch.isfinite(got).all())
+                worst_max = max(worst_max, float(diff.max()))
+                err_sum += float(diff.double().sum())
+                n_el += diff.numel()
+        by_route = routes_since(before)
+        want_ring = {"tensor_core": 0, "decode": n_attn * steps, "f32": 0}
+        ring[label] = dict(window=window, steps=steps, first_position=start, batch=HYBRID_B,
+                           logit_max_abs_err=worst_max, logit_mean_abs_err=err_sum / n_el, all_finite=finite,
+                           flash_launches_by_route=by_route, step_seconds_median=statistics.median(ring_s))
+        emit("ring_check", config=cfg.name, case=label, **ring[label])
+        check(by_route == want_ring, f"{cfg.name} ring {label}: launches {by_route}, want {want_ring}")
+        check(finite and worst_max <= LOGIT_MAX_ABS and err_sum / n_el <= LOGIT_MEAN_ABS,
+              f"{cfg.name} ring {label}: logits against the plain attention's {ring[label]}")
+        del cache, ref_cache, rmodel, rref
+        torch.cuda.empty_cache()
+    served = {k: c.value for k, c in every.items()}  # the serving path's launches, read now
+    check(served["checksum"] > 0, f"{cfg.name}: the publish -> replicate -> update path launched no checksum")
+
+    # the prefill and a decode step alone, at the served shapes, on the model as build_model builds it
+    plain = build_model(cfg)
+    with torch.no_grad():
+        pb = {"tokens": prompts}
+        prefill_s = statistics.median(timed(lambda: plain.prefill(params, pb, max_len=max_len))[1] for _ in range(3))
+        _, cache, n = plain.prefill(params, pb, max_len=max_len)
+        nxt = prompts[:, -1:]
+        k = min(8, HYBRID_GEN - 2)  # timed steps; two more are traced, all within the cache's slots
+        steps_s = [timed(lambda: plain.decode(params, cache, nxt, n + i))[1] for i in range(k)]
+        prefill_ssd = ssd_share(torch, lambda: plain.prefill(params, pb, max_len=max_len))
+        decode_ssd = ssd_share(torch, lambda: plain.decode(params, cache, nxt, n + k))
+        prefill_prof = device_profile(torch, lambda: plain.prefill(params, pb, max_len=max_len))
+        decode_prof = device_profile(torch, lambda: plain.decode(params, cache, nxt, n + k + 1))
+    decode_step_s = statistics.median(steps_s)
+    del cache, plain
+    emit("hybrid_serve_profile", card=smi, config=cfg.name, prefill=prefill_prof, prefill_ssd=prefill_ssd,
+         decode_step=decode_prof, decode_ssd=decode_ssd)
+    hub_bytes = {"replicate_GBps": nbytes / replicate_s / 1e9, "update_GBps": nbytes / update_s / 1e9}
+    emit("hybrid_arch_result", card=smi, config=cfg.name, layers=cfg.num_layers, attention_calls=n_attn, params=nparams,
+         bytes=nbytes, requests=HYBRID_B, prompt_len=HYBRID_PROMPT, gen_len=HYBRID_GEN, cache_slots=max_len,
+         replicate_seconds=replicate_s, publish_v1_seconds=publish_s, update_seconds=update_s, **hub_bytes,
+         rounds=rounds, ring=ring, timed_model="build_model(cfg), default attention", prefill_seconds=prefill_s,
+         prefill_tokens_per_s=HYBRID_B * HYBRID_PROMPT / prefill_s, decode_step_seconds=decode_step_s,
+         decode_tokens_per_s=HYBRID_B / decode_step_s,
+         round_tokens_per_s=HYBRID_B * HYBRID_GEN / rounds[1]["seconds"], prefill_ssd_share=prefill_ssd["ssd_share"],
+         decode_ssd_share=decode_ssd["ssd_share"], max_memory_allocated=serve_peak, launches=served, checks=checks)
+    del model, reference, params, weights, prompts, hub, trainer, rollout, w32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6's RL loop and gates at zamba2's widths, in f32 (it resets the counters: the served launches
+    # were read above): bf16 gradients of the 54 random-init layers are rounding noise
+    # (tools/hybrid_bf16_noise.py), so
+    # the gradient gates hold in f32, on the f32 forward and the cuda_core backward at head_dim 80
+    rl = rl_loop(torch, dev, counters, smi, cfg=cfg, num_prompts=HYBRID_RL_PROMPTS, group_size=HYBRID_RL_GROUP,
+                 dtype=torch.float32, grad_budget=HYBRID_GRAD_BUDGET, delta_base=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a GRPO forward and backward at the RL loop's batch (bf16, 4 x 576), profiled: the kernel classes and the
+    # Mamba2 blocks' forward and recompute spans (their backward's kernels are not in the spans)
+    b, s = HYBRID_RL_PROMPTS * HYBRID_RL_GROUP, PROMPT_LEN + GEN_LEN
+    wts = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 202), torch.bfloat16, dev)
+    tg = torch.Generator(device=dev).manual_seed(SEED + 203)
+    mask = torch.zeros((b, s - 1), dtype=torch.bool, device=dev)
+    mask[:, PROMPT_LEN - 1 :] = True
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=tg, device=dev),
+             "behavior_logprobs": torch.where(mask, -10.5, 0.0), "loss_mask": mask,
+             "advantages": torch.randn(b, generator=tg, device=dev)}
+    loss_fn = make_grpo_loss_fn(build_model(cfg))
+    value_and_grad(loss_fn, wts, batch)  # warm
+    step_ssd = ssd_share(torch, lambda: value_and_grad(loss_fn, wts, batch))
+    step_prof = device_profile(torch, lambda: value_and_grad(loss_fn, wts, batch))
+    emit("hybrid_step_profile", card=smi, config=cfg.name, batch=[b, s], dtype="bfloat16",
+         what="GRPO loss forward and backward (value_and_grad), AdamW excluded", step=step_prof,
+         ssd_forward_and_recompute=step_ssd)
+    del wts, batch, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.launch import train
+
+    steps, step_s = 2, []
+    make_step = train.make_train_step
+
+    def timed_steps(*a, **kw):  # each step's seconds, ended by a synchronize
+        step_fn = make_step(*a, **kw)
+
+        def run(*args):
+            res, seconds = timed(lambda: step_fn(*args))
+            step_s.append(seconds)
+            return res
+
+        return run
+
+    train.make_train_step = timed_steps
+    try:
+        trained, losses = train_run(torch, every, ["--steps", str(steps)] + HYBRID_TRAIN_ARGV, cfg, steps)
+    finally:
+        train.make_train_step = make_step
+    emit("hybrid_train_result", card=smi, config=cfg.name, layers=cfg.num_layers, dtype="float32", losses=losses,
+         batch=HYBRID_TRAIN_B, positions=HYBRID_TRAIN_SEQ, step_seconds=step_s,
+         tokens_per_s=HYBRID_TRAIN_B * HYBRID_TRAIN_SEQ / step_s[-1],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=trained)
+    out = {k: served[k] + rl[k] + trained[k] for k in counters}
+    out["flash_attention_routes"] = {r: served[f"flash_route_{r}"] + rl["flash_attention_routes"][r]
+                                     + trained[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: served[f"flash_attention_bwd_{n}"] + rl["flash_attention_bwd_by_kernel"][n]
+                                            + trained[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -5145,12 +5837,22 @@ def main() -> int:
     fwd["routes"]["f32"]["hubert_train_forward"] = hubert["train_f32_forward"]
     bwd_tc["hubert_backward"] = hubert["train_bf16_backward"]
     bwd_cc["hubert_backward"] = hubert["train_f32_backward"]
+    hyb = hybrid_attention_checks(torch, dev, bw)
+    fwd["routes"]["decode"]["zamba2_decode"] = hyb["decode"]
+    fwd["routes"]["decode"]["zamba2_ring"] = hyb["ring"]
+    fwd["routes"]["tensor_core"]["zamba2_prefill"] = hyb["prefill"]
+    fwd["routes"]["tensor_core"]["zamba2_train_forward"] = hyb["train_bf16_forward"]
+    fwd["routes"]["f32"]["zamba2_train_forward"] = hyb["train_f32_forward"]
+    bwd_tc["zamba2_backward"] = hyb["train_bf16_backward"]
+    bwd_cc["zamba2_backward"] = hyb["train_f32_backward"]
     for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"],
                                 vlm["prefill"], vlm["decode"], vlm["train_forward"], hubert["encode"],
-                                hubert["train_f32_forward"])),
-                         (bwd_tc, (dbrx["backward"], hubert["train_bf16_backward"])),
+                                hubert["train_f32_forward"], hyb["decode"], hyb["ring"], hyb["prefill"],
+                                hyb["train_bf16_forward"], hyb["train_f32_forward"])),
+                         (bwd_tc, (dbrx["backward"], hubert["train_bf16_backward"], hyb["train_bf16_backward"])),
                          (bwd_tc256, (trained["mla_backward"],)),
-                         (bwd_cc, (trained["narrow_backward"], vlm["train_backward"], hubert["train_f32_backward"]))):
+                         (bwd_cc, (trained["narrow_backward"], vlm["train_backward"], hubert["train_f32_backward"],
+                                   hyb["train_f32_backward"]))):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [c["max_abs_err"] for c in cases])
         entry["err_over_tol"] = max([entry["err_over_tol"]] + [c["err_over_tol"] for c in cases])
     for kernel, rec in big_tensor_checks(torch, dev, bw).items():
@@ -5229,14 +5931,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase15 = audio_arch(torch, dev, counters, smi)
     phase_s["15 audio arch"] = time.perf_counter() - t0
-    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase16 = hybrid_arch(torch, dev, counters, smi)
+    phase_s["16 hybrid arch"] = time.perf_counter() - t0
+    phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
+              phase16)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
-    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15)  # with attention
+    attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
+                        phase16)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
-    training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15)  # the paths with the backward
+    training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
+                       phase16)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -5247,7 +5957,7 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase15=phase15, phase_seconds=phase_s)
+         phase15=phase15, phase16=phase16, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

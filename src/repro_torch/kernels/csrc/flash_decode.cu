@@ -8,7 +8,7 @@
 // (scores scaled after the f32 dot, c * tanh(s / c), -1e30 masks for keys
 // at or past kv_len, causal, past q_offset + i and, under a sliding window
 // W, at or before q_offset + i - W; softmax in f32, acc / max(l, 1e-30)
-// rounded once), f32 or bf16, head_dim 64/128/256.
+// rounded once), f32 or bf16, head_dim 64/80/128/256.
 //
 // Bound: a decode step reads the live keys and values of every KV head
 // once (37.7 MB at the serving shape, kv_len 576) and does 4 FLOPs a key
@@ -26,7 +26,8 @@
 // parallelism), one block per (batch x KV head,
 // split); splits past kv_end are not launched. A block stages each
 // 64-key K and V tile with 16-byte cp.async (zeros past its split; K rows
-// padded by 32 bytes so that threads reading different rows hit different
+// at a pitch of an odd multiple of 32 bytes, padded by 32 where the row is
+// not one already, so that threads reading different rows hit different
 // banks) and converts its packed query rows (row r is query r / G of head
 // hk * G + r % G) to f32 in shared memory while the tiles fly. Two
 // neighbouring threads score a key, each half of its 16-byte chunks
@@ -45,6 +46,18 @@
 // (exp(-1e30 - M) = 0), as the TPU kernel's alpha wipes such a tile; every
 // row sees a key of some split (the wrapper refuses a window that leaves a
 // row none).
+//
+// Head_dim 80 (zamba2's shared attention block) has instances of its own,
+// not the 128 tile zero-filled past column 80: decode is bound by the K/V
+// bytes it reads, and a native row moves 160 B (bf16) or 320 B (f32). A row
+// is then 10 (bf16) or 20 (f32) 16-byte chunks, which do not divide the 128
+// threads: in P V a thread takes chunk tid % CH of key slot tid / CH, the
+// 12 (bf16) or 6 (f32) whole slots cover threads 0-119, and threads 120-127
+// sit that product out (they still meet every barrier); the slots' partial
+// sums take at most kThreads x 16 B x kRB, as at the other widths. The bf16
+// row of 160 B is an odd multiple of 32 B, so its K rows take no padding
+// (a pitch of 192 B would put keys j and j + 2 of a quarter-warp's load on
+// the same banks); the f32 row of 320 B takes 32 B, a pitch of 352 B.
 //
 // Numerics against the TPU kernel: the same f32 operations, summed in
 // another order (a dot product in two halves; P V in key slots; a split's
@@ -127,8 +140,13 @@ __host__ __device__ constexpr int tile_keys(int d, int isz) { return isz == 4 &&
 
 constexpr int kRB = 4;  // rows a thread carries at once in registers
 
+// K row pitch in bytes: an odd multiple of 32 (the row, or the row and 32
+// bytes of padding), so the four keys a quarter-warp's 16-byte loads read in
+// the scores land on four different pairs of 16-byte bank groups
+__host__ __device__ constexpr int k_pitch_bytes(int d, int isz) { return d * isz % 64 == 32 ? d * isz : d * isz + 32; }
+
 // shared memory of a split block: q and acc [rows][D] f32, scores
-// [rows][TK] f32, m, l, alpha [rows]; then the K tile [TK][D + 32 bytes]
+// [rows][TK] f32, m, l, alpha [rows]; then the K tile [TK][pitch]
 // in T, whose space the P.V partial sums [slots][kRB][D] f32 reuse once
 // the scores are taken; then the V tile [TK][D] in T
 __host__ __device__ constexpr size_t split_floats(int rows, int d, int isz) {
@@ -136,9 +154,10 @@ __host__ __device__ constexpr size_t split_floats(int rows, int d, int isz) {
 }
 
 __host__ __device__ constexpr size_t k_region(int d, int isz) {
-  // the partial sums: (kThreads / chunks a row) slots x kRB x D f32 = kThreads x (16 / isz) x kRB f32
-  return size_t(tile_keys(d, isz)) * (size_t(d) * isz + 32) > size_t(kThreads) * 64 * kRB / isz
-             ? size_t(tile_keys(d, isz)) * (size_t(d) * isz + 32)
+  // the partial sums: (kThreads / chunks a row) slots x kRB x D f32, at most
+  // kThreads x (16 / isz) x kRB f32 (equal where the chunks divide kThreads)
+  return size_t(tile_keys(d, isz)) * k_pitch_bytes(d, isz) > size_t(kThreads) * 64 * kRB / isz
+             ? size_t(tile_keys(d, isz)) * k_pitch_bytes(d, isz)
              : size_t(kThreads) * 64 * kRB / isz;
 }
 
@@ -151,9 +170,10 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
   constexpr int VE = 16 / int(sizeof(T));            // elements a 16-byte chunk
   constexpr int CH = D / VE;                         // chunks a row
   constexpr int TK = tile_keys(D, int(sizeof(T)));   // keys a tile
-  constexpr int KP = D + 32 / int(sizeof(T));        // K row pitch: 32 bytes of padding (no bank conflicts)
+  constexpr int KP = k_pitch_bytes(D, int(sizeof(T))) / int(sizeof(T));  // K row pitch (no bank conflicts)
   constexpr int TPK = kThreads / TK;                 // threads a key in the scores (2, or 4 at TK 32)
-  constexpr int NSL = kThreads / CH;                 // key slots in P.V
+  constexpr int NSL = kThreads / CH;                 // key slots in P.V (threads NSL * CH .. kThreads - 1 idle)
+  static_assert(D % VE == 0 && CH % TPK == 0, "a row is whole chunks, shared evenly by a key's threads");
   extern __shared__ float4 smem4[];
   const int rows = p.rows;
   float* qf = reinterpret_cast<float*>(smem4);
@@ -275,34 +295,38 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
     __syncthreads();
 
     // P V: a thread a chunk of VE columns and a key slot, kRB rows at a
-    // time; the slots' sums meet in shared memory (the K tile's space)
+    // time; the slots' sums meet in shared memory (the K tile's space).
+    // Where the chunks do not divide the block (head_dim 80), the threads
+    // past the last whole slot take no part
     {
       const int c = tid % CH, ks = tid / CH;
       for (int r0 = 0; r0 < rows; r0 += kRB) {
-        float a[kRB][VE];
+        if (NSL * CH == kThreads || ks < NSL) {  // folds to true where the chunks divide the block
+          float a[kRB][VE];
 #pragma unroll
-        for (int rb = 0; rb < kRB; ++rb)
+          for (int rb = 0; rb < kRB; ++rb)
 #pragma unroll
-          for (int e = 0; e < VE; ++e) a[rb][e] = 0.f;
+            for (int e = 0; e < VE; ++e) a[rb][e] = 0.f;
 #pragma unroll 4
-        for (int j = ks; j < TK; j += NSL) {
-          float vv[VE];
-          load_row<VE>(vt + j * D + c * VE, vv);
+          for (int j = ks; j < TK; j += NSL) {
+            float vv[VE];
+            load_row<VE>(vt + j * D + c * VE, vv);
 #pragma unroll
-          for (int rb = 0; rb < kRB; ++rb) {
-            if (r0 + rb < rows) {
-              const float pj = sc[(r0 + rb) * TK + j];
+            for (int rb = 0; rb < kRB; ++rb) {
+              if (r0 + rb < rows) {
+                const float pj = sc[(r0 + rb) * TK + j];
 #pragma unroll
-              for (int e = 0; e < VE; ++e) a[rb][e] = fmaf(pj, vv[e], a[rb][e]);
+                for (int e = 0; e < VE; ++e) a[rb][e] = fmaf(pj, vv[e], a[rb][e]);
+              }
             }
           }
+#pragma unroll
+          for (int rb = 0; rb < kRB; ++rb)
+#pragma unroll
+            for (int e = 0; e < VE; e += 4)
+              *reinterpret_cast<float4*>(red + (ks * kRB + rb) * D + c * VE + e) =
+                  make_float4(a[rb][e], a[rb][e + 1], a[rb][e + 2], a[rb][e + 3]);
         }
-#pragma unroll
-        for (int rb = 0; rb < kRB; ++rb)
-#pragma unroll
-          for (int e = 0; e < VE; e += 4)
-            *reinterpret_cast<float4*>(red + (ks * kRB + rb) * D + c * VE + e) =
-                make_float4(a[rb][e], a[rb][e + 1], a[rb][e + 2], a[rb][e + 3]);
         __syncthreads();
         for (int idx = tid; idx < kRB * D; idx += kThreads) {
           const int rb = idx / D, d = idx % D, r = r0 + rb;
@@ -403,6 +427,7 @@ template <typename T>
 int dispatch(const DecodeParams& p, int d, int bkv, cudaStream_t stream) {
   switch (d) {
     case 64: return launch<T, 64>(p, bkv, stream);
+    case 80: return launch<T, 80>(p, bkv, stream);
     case 128: return launch<T, 128>(p, bkv, stream);
     case 256: return launch<T, 256>(p, bkv, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -414,7 +439,7 @@ int dispatch(const DecodeParams& p, int d, int bkv, cudaStream_t stream) {
 // q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each by its
 // pointer and its (batch, head, sequence) element strides in `strides` (a
 // host array of 12: q, k, v, o); dtype 0 = float32, 1 = bfloat16; D in
-// {64, 128, 256}; Sq * Hq / Hkv <= 64; rows 16-byte aligned; 1 <= kv_len
+// {64, 80, 128, 256}; Sq * Hq / Hkv <= 64; rows 16-byte aligned; 1 <= kv_len
 // <= Sk; window > 0 a sliding window, 0 none. The key range [kv_start,
 // kv_end) is cut into nsplit splits of keys_per_split keys (a multiple of
 // 64; nsplit = ceil((kv_end - kv_start) / keys_per_split) <= 64); `part`

@@ -33,7 +33,8 @@ a failure:
 
 * ``"decode"`` (``csrc/flash_decode.cu``): every call whose packed query
   rows fit one tile, ``Sq * G <= 64`` (``G = Hq / Hkv``), in f32 or bf16
-  at head_dim 64/128/256. The key range is cut into splits
+  at head_dim 64/80/128/256 (80 in instances of its own, zamba2's decode
+  and ring decode). The key range is cut into splits
   (:func:`split_plan`), one block a (batch, KV head, split), and the
   block that finishes a (batch, KV head)'s last split merges the splits'
   partial softmax states (what :func:`split_kv_plain` computes in plain
@@ -66,9 +67,7 @@ causal one.
 
 Other head_dims (96, 192 with a v of 192, ...) are refused on the card,
 and so is every Dv != D but (192, 128) and (24, 16), with the route and
-the shape named; the ``decode`` route refuses head_dim 80 (a decode-sized
-call at 80 goes to ``tensor_core`` or ``f32``): its split kernel at 80
-waits for the hybrid slice (zamba2's decode). The scale is ``1/sqrt(D)``
+the shape named. The scale is ``1/sqrt(D)``
 of q/k's true width, never a tile's.
 
 On a CPU tensor it runs :func:`attention_plain`, the plain PyTorch version
@@ -137,7 +136,7 @@ NEG_INF = -1e30
 #: kernel dtype codes (csrc/flash_attention.cu, csrc/flash_decode.cu,
 #: csrc/flash_attention_bwd.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128, 256)  # the decode route's (head_dim 80 waits for the hybrid slice)
+HEAD_DIMS = (64, 80, 128, 256)  # the decode route's
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 80, 128, 256)  # the tensor-core routes', forward and backward (bf16)
 #: the (q/k, v) head_dims the tensor-core forward and backward take (bf16):
@@ -422,7 +421,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _route(q: torch.Tensor, k: torch.Tensor, grad: bool = False, v: Optional[torch.Tensor] = None) -> str:
     """The kernel a call goes to, from dtype and shape alone: ``decode``
-    for a decode-sized call in f32 or bf16 at head_dim 64/128/256,
+    for a decode-sized call in f32 or bf16 at head_dim 64/80/128/256,
     ``tensor_core`` for bf16 at head_dim 64/80/128/256 and for every bf16 call
     at (D, Dv) = (192, 128) (v's head_dim ``Dv`` is D unless ``v`` is
     given), ``f32`` for the rest. A call that needs a gradient (``grad``)
@@ -696,8 +695,7 @@ def launch_route(
     elif vd == d:
         dims = HEAD_DIMS if route == "decode" else F32_HEAD_DIMS
         if d not in dims:
-            later = " (head_dim 80 waits for the hybrid slice)" if route == "decode" and d == 80 else ""
-            raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}{later}")
+            raise ValueError(f"flash_attention: the {route} route takes head_dim in {dims}, got head_dim {d}")
     if route == "tensor_core" and q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: the tensor_core route takes bfloat16, got {q.dtype}")
     if route == "decode" and q.dtype not in DECODE_DTYPES:

@@ -14,10 +14,13 @@ before anything is allocated: dbrx-132b's 40 layers are 264 GB a copy, so
 it is served with ``--layers`` (deepseek-v3-671b's 61 layers are 1.3 TB a
 copy; its 4 least layers, three dense and one of routed experts, 30.2
 GB). The dense family (llama3-8b, yi-34b, deepseek-coder-33b, gemma2-2b),
-the routed experts of dbrx-132b and deepseek-v3-671b's MLA attention
+the routed experts of dbrx-132b, deepseek-v3-671b's MLA attention
 (prefill through the flash kernel at q/k 192, v 128; decode through the
-absorbed-latent ``mla_decode`` kernel) are ported; another arch exits
-with the slice it waits for. Requests are token prompts, as the JAX
+absorbed-latent ``mla_decode`` kernel) and the hybrid zamba2-2.7b (its
+Mamba2 blocks in PyTorch ops; its shared attention block's prefill
+through the tensor-core flash kernel and its decode through the split
+decode kernel, both at head_dim 80; all 54 layers, 4.85 GB a copy) are
+ported; another arch exits with the slice it waits for. Requests are token prompts, as the JAX
 package's ``launch/serve.py``: a VLM (internvl2-2b), whose requests carry
 patches, is refused here and served through ``DecoderLM.prefill`` with
 ``batch["patches"]``; an encoder-only config (hubert-xlarge) exits with
@@ -28,6 +31,7 @@ before anything is built.
     python -m repro_torch.launch.serve --arch gemma2-2b --requests 4 --prompt-len 4608 --gen-len 64
     python -m repro_torch.launch.serve --arch dbrx-132b --layers 4 --requests 4 --prompt-len 512 --gen-len 16
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --requests 8 --prompt-len 512 --gen-len 64
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs the plain attention on the host.

@@ -1,7 +1,7 @@
-"""The decoder LM of the serving path and the audio encoder (``lm``,
-``blocks``, ``layers``): dense or with routed experts, their parameter
-names and shapes, random init and weight carry-across from the JAX package
-(``params``), and ``build_model``.
+"""The decoder LM of the serving path, the audio encoder and the hybrid
+LM (``lm``, ``blocks``, ``layers``, ``ssd``): dense or with routed
+experts, their parameter names and shapes, random init and weight
+carry-across from the JAX package (``params``), and ``build_model``.
 
 ``build_model(cfg)`` is the port's side of the JAX package's
 ``repro.models.build_model``: it returns :class:`~repro_torch.models.lm.DecoderLM`
@@ -11,22 +11,25 @@ attention) and for the VLM family (internvl2-2b: the decoder with
 precomputed patch embeddings before the tokens),
 :class:`~repro_torch.models.lm.EncoderLM` for the audio family
 (hubert-xlarge: a bidirectional encoder over precomputed frames, head_dim
-80), and raises ``NotImplementedError`` naming the slice of the port that
-each other family (hybrid, SSM) waits for. ``check_trainable`` takes what
+80), :class:`~repro_torch.models.lm.HybridLM` for the hybrid family
+(zamba2-2.7b: Mamba2 SSD blocks and a shared attention block at head_dim
+80, with a ring-buffer window cache for decode), and raises
+``NotImplementedError`` naming the slice of the port that the SSM family
+(xlstm-350m) waits for. ``check_trainable`` takes what
 ``build_model`` takes: every ported config is trained too, deepseek-v3's
 MLA attention included (its expanded form's backward on the tensor cores
 at q/k 192, v 128 in bf16, and on the CUDA cores at the reduced config's
-24/16) and hubert's masked prediction.
+24/16), hubert's masked prediction and the hybrid's LM loss (its Mamba2
+blocks recomputed in the backward).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs.base import AUDIO, DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
-from repro_torch.models.lm import DecoderLM, EncoderLM
+from repro_torch.models.lm import DecoderLM, EncoderLM, HybridLM
 
 #: what each family not ported yet waits for
 WAITING = {
-    HYBRID: "the hybrid slice (the Mamba2 SSD blocks)",
     SSM: "the SSM slice (the xLSTM blocks)",
 }
 
@@ -34,10 +37,11 @@ WAITING = {
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``: the
     dense and MoE families (routed experts, a shared expert, a dense
-    prefix, MLA attention), the VLM family (its patches before the tokens)
-    and the audio family (the encoder; it has no decode path, so
-    ``launch.serve`` refuses it as the JAX package's does)."""
-    if cfg.family not in (DENSE, MOE, VLM, AUDIO):
+    prefix, MLA attention), the VLM family (its patches before the tokens),
+    the audio family (the encoder; it has no decode path, so
+    ``launch.serve`` refuses it as the JAX package's does) and the hybrid
+    family (Mamba2 blocks and a shared attention block)."""
+    if cfg.family not in (DENSE, MOE, VLM, AUDIO, HYBRID):
         what = WAITING.get(cfg.family, "its slice")
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family waits for {what} of the port")
 
@@ -51,8 +55,12 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 def build_model(cfg: ModelConfig, **kw):
-    """The model of ``cfg`` (``kw`` go to its constructor, e.g. the
-    attention function of :class:`~repro_torch.models.lm.DecoderLM` or
-    :class:`~repro_torch.models.lm.EncoderLM`)."""
+    """The model of ``cfg`` by its family, as the JAX package's
+    ``build_model`` (``kw`` go to its constructor, e.g. the attention
+    function of :class:`~repro_torch.models.lm.DecoderLM`,
+    :class:`~repro_torch.models.lm.EncoderLM` or
+    :class:`~repro_torch.models.lm.HybridLM`)."""
     check_ported(cfg)
+    if cfg.family == HYBRID:
+        return HybridLM(cfg, **kw)
     return EncoderLM(cfg, **kw) if cfg.encoder_only else DecoderLM(cfg, **kw)

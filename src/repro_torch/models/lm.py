@@ -45,8 +45,14 @@ logits cover both, and ``decode`` continues from ``P + prompt_len``.
 
 :class:`EncoderLM` is the JAX package's encoder (hubert-xlarge): frames
 projected into the model, every layer's attention bidirectional, a GELU
-MLP with biases. The hybrid and xLSTM models wait for later slices
-(:func:`repro_torch.models.build_model` refuses them).
+MLP with biases.
+
+:class:`HybridLM` is the JAX package's hybrid (zamba2-2.7b): groups of
+Mamba2 (SSD) blocks (:mod:`repro_torch.models.ssd`), each group followed
+by one shared attention block and MLP whose weights every call reuses;
+its decode also runs over a ring-buffer window cache (``ring=True``,
+:func:`_ring_slot`). The xLSTM model waits for a later slice
+(:func:`repro_torch.models.build_model` refuses it).
 """
 
 from __future__ import annotations
@@ -55,12 +61,13 @@ import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import VLM, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode
-from repro_torch.models import blocks
-from repro_torch.models.layers import gelu_mlp, rms_norm, softcap
+from repro_torch.models import blocks, ssd
+from repro_torch.models.layers import apply_rope, gelu_mlp, rms_norm, softcap
 
 Params = Mapping[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -73,7 +80,8 @@ _ENC_FFN = ("ln", "w_up", "b_up", "w_down", "b_down")
 def _layer_windows(cfg: ModelConfig) -> List[int]:
     """Each layer's sliding window (0 = global attention): gemma2's even
     layers are local, its odd layers global, as the JAX package's
-    ``_layer_windows`` (its ``long_mode`` belongs to the hybrid family)."""
+    ``_layer_windows`` (whose ``long_mode`` no caller passes: the hybrid
+    family's window is its ring cache's size, :class:`HybridLM`)."""
     if cfg.alt_local_global:
         return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(cfg.num_layers)]
     return [0] * cfg.num_layers
@@ -301,3 +309,205 @@ class EncoderLM:
             x = x + gelu_mlp(rms_norm(x, f["ln"]), f["w_up"], f["b_up"], f["w_down"], f["b_down"])
         x = rms_norm(x, params["final_ln"])
         return (x @ params["head"]).float()
+
+
+def _ring_slot(cache_len: int, window: int) -> int:
+    """The ring cache's slot of position ``cache_len``."""
+    return cache_len % window
+
+
+def _ring_attention_step(
+    attention: Callable[..., torch.Tensor],
+    q: torch.Tensor,  # [B, Hq, 1, hd] (rope applied at cache_len)
+    k_cache: torch.Tensor,  # [B, Hkv, W, hd] (rope applied at absolute positions)
+    v_cache: torch.Tensor,
+    cache_len: int,
+    attn_softcap: float,
+) -> torch.Tensor:
+    """Attention over a ring-buffer window cache, the JAX package's
+    ``_ring_attention_step`` through ``attention``: slot s holds position
+    ``cache_len - ((cache_len - s) mod W)``, valid when it is >= 0, which
+    are exactly the slots ``0 .. min(cache_len, W - 1)``; a softmax does not
+    care about the order of its keys, so a call with ``causal=False`` and
+    ``kv_len = min(cache_len + 1, W)`` computes what the JAX einsum does."""
+    w = k_cache.shape[2]
+    return attention(q, k_cache, v_cache, causal=False, softcap=attn_softcap, kv_len=min(cache_len + 1, w))
+
+
+class HybridLM:
+    """The hybrid LM (zamba2): ``num_layers`` Mamba2 blocks in groups of
+    ``ssm.shared_block_every``, one shared attention block (global, causal)
+    and SwiGLU MLP after each group, then the final norm and an untied
+    head; the JAX package's ``HybridLM``.
+
+    ``attention`` is the shared block's attention function, the flash
+    kernel's wrapper by default; a reference computation passes
+    :func:`repro_torch.kernels.flash_attention.attention_plain`. A query in
+    the model's dtype against a cache of another (``init_cache``'s f32
+    entries under bf16 weights) is cast to the cache's dtype for the call
+    and the output back, which is what the JAX package's f32
+    ``chunked_attention`` computes. Parameters are the flat dict a replica
+    registers (:func:`repro_torch.models.params.decoder_shapes`): the
+    stacked ``groups/...`` tensors are taken apart with views, so serving
+    makes no copy of them."""
+
+    def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
+        s = cfg.ssm
+        if s is None:
+            raise ValueError(f"{cfg.name}: HybridLM takes a config with ssm")
+        self.cfg = cfg
+        self.attention = attention
+        self.every = s.shared_block_every
+        if cfg.num_layers % self.every:
+            raise ValueError("hybrid: num_layers must be a multiple of shared_block_every")
+        self.groups = cfg.num_layers // self.every
+        self._ssd_names = tuple(ssd.ssd_shapes(cfg))
+
+    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+        if q.dtype != k.dtype:
+            return self.attention(q.to(k.dtype), k, v, **kw).to(q.dtype)
+        return self.attention(q, k, v, **kw)
+
+    @staticmethod
+    def _shared(params: Params) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        return ({n: params[f"shared_attn/{n}"] for n in _ATTN}, {n: params[f"shared_mlp/{n}"] for n in _FFN})
+
+    def _ssd_layers(self, params: Params) -> List[Dict[str, torch.Tensor]]:
+        """Each Mamba2 block's parameters, in order (group-major): views of
+        the stacked ``[groups, every, ...]`` tensors, taken apart with one
+        ``unbind`` a tensor (under grad its backward is one stack)."""
+        parts = {n: params[f"groups/{n}"].flatten(0, 1).unbind(0) for n in self._ssd_names}
+        return [{n: parts[n][i] for n in self._ssd_names} for i in range(self.cfg.num_layers)]
+
+    def _shared_block(self, shared, x, positions, *, cache=None, cache_len=None, ring=False):
+        attn, mlp = shared
+        cfg = self.cfg
+        if cache is not None and ring:
+            if x.shape[1] != 1:
+                raise ValueError(f"hybrid: a ring-cache decode step takes one token, got {x.shape[1]}")
+            h = rms_norm(x, attn["ln"])
+            q = blocks._split_heads(h @ attn["wq"], cfg.num_heads)
+            k = blocks._split_heads(h @ attn["wk"], cfg.num_kv_heads)
+            v = blocks._split_heads(h @ attn["wv"], cfg.num_kv_heads)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            slot = _ring_slot(cache_len, cache["k"].shape[2])
+            cache["k"][:, :, slot : slot + 1] = k
+            cache["v"][:, :, slot : slot + 1] = v
+            out = _ring_attention_step(self._attention, q, cache["k"], cache["v"], cache_len, cfg.attn_softcap)
+            x = x + blocks._merge_heads(out) @ attn["wo"]
+            kv = cache
+        else:
+            x, kv = blocks.attn_apply(cfg, attn, x, positions=positions, attention=self._attention, cache=cache,
+                                      cache_len=cache_len)
+        return blocks.mlp_apply(mlp, x), kv
+
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+
+    # -- forward (teacher-forced) ----------------------------------------------
+
+    def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Logits ``[B, S, vocab]`` (f32) of ``{"tokens": [B, S]}``.
+        Differentiable with respect to the parameter dict: each Mamba2
+        block is recomputed in the backward (``torch.utils.checkpoint``, as
+        the JAX forward's ``jax.checkpoint``), so a step keeps one block's
+        chunk weights at a time; the shared block's calls read one set of
+        weights, so its gradient is their sum."""
+        x = params["embed"][batch["tokens"]]
+        positions = torch.arange(x.shape[1], device=x.device)
+        layers = self._ssd_layers(params)
+        shared = self._shared(params)
+        cfg = self.cfg
+        names = self._ssd_names
+
+        def block(h, *ps):
+            return ssd.ssd_block_apply(cfg, dict(zip(names, ps)), h)[0]
+
+        for i, lp in enumerate(layers):
+            if torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x, *(lp[n] for n in names), use_reentrant=False)
+            else:
+                x = block(x, *(lp[n] for n in names))
+            if (i + 1) % self.every == 0:
+                x, _ = self._shared_block(shared, x, positions)
+        return self._head(params, x)
+
+    # -- caches ------------------------------------------------------------------
+
+    def cache_shapes(self, batch_size: int, max_len: int, *, ring: bool = False) -> Dict[str, Dict[str, tuple]]:
+        """The JAX ``cache_specs``' shapes: ``{"ssd": {"conv": [groups,
+        every, B, K-1, conv_dim], "state": [groups, every, B, H, P, N]},
+        "attn": {"k", "v": [groups, B, Hkv, m, hd]}}``, ``m`` the ring's
+        ``min(max_len, sliding_window)`` with ``ring``, else ``max_len``."""
+        cfg = self.cfg
+        _, nheads, hd, n, conv_dim = ssd.ssd_dims(cfg)
+        m = min(max_len, cfg.sliding_window) if ring and cfg.sliding_window else max_len
+        lead = (self.groups, self.every, batch_size)
+        kv = (self.groups, batch_size, cfg.num_kv_heads, m, cfg.resolved_head_dim)
+        return {"ssd": {"conv": (*lead, cfg.ssm.d_conv - 1, conv_dim), "state": (*lead, nheads, hd, n)},
+                "attn": {"k": kv, "v": kv}}
+
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, ring: bool = False) -> Cache:
+        """Zeroed caches of :meth:`cache_shapes`, every entry f32 whatever
+        ``dtype`` (the SSM states and the small window caches stay f32, as
+        the JAX package's ``init_cache``)."""
+        del dtype
+        return {part: {n: torch.zeros(s, dtype=torch.float32, device=device) for n, s in shapes.items()}
+                for part, shapes in self.cache_shapes(batch_size, max_len, ring=ring).items()}
+
+    # -- prefill -------------------------------------------------------------------
+
+    def prefill(
+        self, params: Params, batch: Mapping[str, torch.Tensor], *, max_len: Optional[int] = None
+    ) -> Tuple[torch.Tensor, Cache, int]:
+        """Forward over the prompt that also fills the caches: each
+        Mamba2 block's conv rows (the activations' dtype) and final state
+        (f32), the shared block's K/V in the activations' dtype in the
+        first positions of ``max_len`` slots (default: the prompt length).
+        Returns the last position's logits ``[B, 1, vocab]``, the cache and
+        its length."""
+        x = params["embed"][batch["tokens"]]
+        b, s, _ = x.shape
+        shapes = self.cache_shapes(b, max_len or s)
+        cache = {"ssd": {"conv": torch.zeros(shapes["ssd"]["conv"], dtype=x.dtype, device=x.device),
+                         "state": torch.zeros(shapes["ssd"]["state"], dtype=torch.float32, device=x.device)},
+                 "attn": {n: torch.zeros(t, dtype=x.dtype, device=x.device) for n, t in shapes["attn"].items()}}
+        positions = torch.arange(s, device=x.device)
+        shared = self._shared(params)
+        for i, lp in enumerate(self._ssd_layers(params)):
+            g, e = divmod(i, self.every)
+            x, c = ssd.ssd_block_apply(self.cfg, lp, x)
+            for n, t in c.items():
+                cache["ssd"][n][g, e].copy_(t)
+            if e == self.every - 1:
+                x, kv = self._shared_block(shared, x, positions)
+                for n, t in kv.items():
+                    cache["attn"][n][g, :, :, :s].copy_(t)
+        return self._head(params, x[:, -1:]), cache, s
+
+    # -- decode ------------------------------------------------------------------------
+
+    def decode(
+        self, params: Params, cache: Cache, tokens: torch.Tensor, cache_len: int, *, ring: bool = False
+    ) -> Tuple[torch.Tensor, Cache]:
+        """``tokens [B, S]`` at positions ``cache_len ..``: each Mamba2
+        block continues from its cached conv rows and state (one step of
+        the recurrence for ``S == 1``), the shared block attends over its
+        cache (with ``ring``, a ring-buffer window cache of
+        ``init_cache(..., ring=True)``, one token a step). Writes the
+        caches in place and returns them with the logits ``[B, S,
+        vocab]``."""
+        x = params["embed"][tokens]
+        positions = cache_len + torch.arange(x.shape[1], device=x.device)
+        shared = self._shared(params)
+        conv, state = cache["ssd"]["conv"], cache["ssd"]["state"]
+        for i, lp in enumerate(self._ssd_layers(params)):
+            g, e = divmod(i, self.every)
+            x, c = ssd.ssd_block_apply(self.cfg, lp, x, cache={"conv": conv[g, e], "state": state[g, e]})
+            conv[g, e].copy_(c["conv"])
+            state[g, e].copy_(c["state"])
+            if e == self.every - 1:
+                kv = {n: t[g] for n, t in cache["attn"].items()}
+                x, _ = self._shared_block(shared, x, positions, cache=kv, cache_len=cache_len, ring=ring)
+        return self._head(params, x), cache

@@ -24,9 +24,18 @@ schedule (``build_units``) follows registration order, so a replica
 registered in this order has the same units, and the same manifest, as
 the JAX package's.
 
+A hybrid config (zamba2) lists the JAX ``HybridLM``'s: ``embed``,
+``final_ln``, the Mamba2 blocks' ``groups/{a_log, conv_b, conv_w, d_skip,
+dt_bias, ln, norm, w_in, w_out}`` stacked ``[groups, shared_block_every,
+...]``, ``head``, and the one shared block's ``shared_attn/{ln, wk, wo,
+wq, wv}`` and ``shared_mlp/{ln, w_down, w_gate, w_up}``.
+
 ``init_params`` makes random weights by the JAX package's ``init_tree``
-rule (norms and the encoder's biases zeros), from a ``torch.Generator``: the numbers differ from ``jax.random``'s,
-so parity tests carry JAX weights across with ``from_numpy`` instead.
+rule, each tensor drawn as its spec's ``init`` says (``INIT_KINDS``: the
+norms, the encoder's biases and the SSD's ``conv_b``, ``a_log`` and
+``dt_bias`` zeros, its ``d_skip`` ones, the rest normal), from a
+``torch.Generator``: the numbers differ from ``jax.random``'s, so parity
+tests carry JAX weights across with ``from_numpy`` instead.
 """
 
 from __future__ import annotations
@@ -37,19 +46,24 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import HYBRID, ModelConfig
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 
 # through the core package: transfer.engine and core.client import each
 # other, and only core-first resolves (engine-first is circular)
 from repro_torch.core.client import resolve_device
 from repro_torch.models.blocks import mla_shapes, moe_shapes
+from repro_torch.models.ssd import SSD_INIT, ssd_shapes
 
 Shape = Tuple[int, ...]
 
-#: name endings of the tensors ``init_tree`` makes zeros: the norms, and
-#: the encoder MLP's biases
-_ZEROS = ("ln", "b_up", "b_down")
+#: ``spec(..., init=)`` of every parameter that is not drawn normal, by the
+#: last part of its name: the norms of every block and the final one, the
+#: encoder MLP's biases, and the Mamba2 block's (``SSD_INIT``)
+INIT_KINDS = {
+    "ln": "zeros", "post_ln": "zeros", "q_ln": "zeros", "kv_ln": "zeros", "final_ln": "zeros",
+    "b_up": "zeros", "b_down": "zeros", **SSD_INIT,
+}
 
 
 def _attn_tree(cfg: ModelConfig) -> Dict[str, Shape]:
@@ -91,9 +105,27 @@ def _encoder_tree(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _hybrid_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX ``HybridLM.param_specs()`` (zamba2): the Mamba2 blocks
+    stacked ``[groups, shared_block_every, ...]`` and one shared attention
+    block and MLP, called after every group."""
+    every = cfg.ssm.shared_block_every
+    groups = cfg.num_layers // every
+    return {
+        "embed": (cfg.vocab, cfg.d_model),
+        "groups": {n: (groups, every, *s) for n, s in ssd_shapes(cfg).items()},
+        "shared_attn": _attn_tree(cfg),
+        "shared_mlp": _mlp_tree(cfg, cfg.d_ff),
+        "final_ln": (cfg.d_model,),
+        "head": (cfg.d_model, cfg.vocab),
+    }
+
+
 def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.encoder_only:
         return _encoder_tree(cfg)
+    if cfg.family == HYBRID:
+        return _hybrid_tree(cfg)
     mo = cfg.moe
     n_prefix = mo.first_dense if mo is not None else 0
     L = cfg.num_layers - n_prefix
@@ -128,7 +160,8 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Shape]]:
 
 def decoder_shapes(cfg: ModelConfig) -> List[Tuple[str, Shape]]:
     """``(name, shape)`` of every parameter of ``cfg``'s model (the
-    decoder's, or an encoder-only config's encoder), in registration order."""
+    decoder's, an encoder-only config's encoder, a hybrid config's
+    ``HybridLM``), in registration order."""
     return _flatten(_spec_tree(cfg))
 
 
@@ -145,18 +178,20 @@ def init_params(
 ) -> Dict[str, torch.Tensor]:
     """Random parameters of ``cfg``, in registration order, on ``device``
     (the card unless the caller asks for the CPU; ``generator`` must live
-    on the same device). As ``init_tree``: norms (``.../ln``,
-    ``final_ln``) and the encoder's biases (``b_up``, ``b_down``) are
-    zeros, every other tensor normal with std
-    ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
+    on the same device). As ``init_tree``: the tensors ``INIT_KINDS``
+    names by their last part are zeros or ones, every other tensor normal
+    with std ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
     tensor is drawn one matrix at a time (a layer's, or a layer's expert's),
     so the f32 temporary is one matrix's, not the whole stack's: dbrx's
     ``w_gate`` at 4 layers would be a 17 GB f32 temporary."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, shape in decoder_shapes(cfg):
+        kind = INIT_KINDS.get(name.rsplit("/", 1)[-1], "normal")
         t = torch.zeros(shape, dtype=dtype, device=dev)
-        if not name.endswith(_ZEROS):
+        if kind == "ones":
+            t.fill_(1)
+        elif kind == "normal":
             std = 1.0 / np.sqrt(shape[-2])
             for part in t.view(-1, *shape[-2:]):
                 part.copy_(

@@ -18,6 +18,10 @@ and ``TrainerWorker`` from the JAX package's ``rl/loop.py``.
   next version, which ``publish`` reads from the same buffers, so the JAX
   trainer's copy of every parameter into its registered buffers has no
   counterpart either.
+
+Both sides take every ported family that decodes: the decoder (dense, MoE,
+MLA) and the hybrid (zamba2), whose registered buffers are the
+``HybridLM``'s names (:func:`repro_torch.models.params.decoder_shapes`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import dataclasses
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -36,7 +40,7 @@ from repro_torch.core import TensorHubClient
 from repro_torch.core.errors import StaleHandleError, TensorHubError
 from repro_torch.data.synthetic import PromptSet
 from repro_torch.models import build_model, check_trainable
-from repro_torch.models.lm import DecoderLM
+from repro_torch.models.lm import DecoderLM, HybridLM
 from repro_torch.models.params import decoder_shapes, init_params
 from repro_torch.training import AdamW, group_relative_advantages, make_grpo_step
 
@@ -56,7 +60,7 @@ class RLConfig:
 
 
 def sample_responses(
-    model: DecoderLM,
+    model: Union[DecoderLM, HybridLM],
     params,
     prompts: torch.Tensor,  # [B, prompt_len] int64
     response_len: int,
@@ -65,7 +69,9 @@ def sample_responses(
     return_logits: bool = False,
 ):
     """Autoregressive sampling: prefill, then ``response_len`` decode
-    steps (the last one's logits go unused, as in the JAX loop). Returns
+    steps (the last one's logits go unused, as in the JAX loop), for the
+    decoder and for the hybrid (whose decode carries its Mamba2 blocks'
+    conv rows and states beside the shared block's K/V). Returns
     ``(sequences [B, prompt_len + response_len], logprobs [B,
     response_len])`` of the sampled tokens and, with ``return_logits``,
     the f32 logits each token was sampled from ``[B, response_len,

@@ -19,9 +19,13 @@ each head's gradient back into ``wkv_a``); the attention's own backward
 is flash attention's kernels. The audio encoder (hubert-xlarge) is scored
 by masked prediction, ``objectives.masked_cross_entropy(logits,
 batch["targets"], batch["mask"])`` on ``{"frames", "targets", "mask"}``
-batches, as the JAX package's ``make_loss_fn``. The GRPO objective, as the
-JAX package's, feeds the model tokens only. Configs of the hybrid and SSM
-families raise ``NotImplementedError`` and wait for their slices
+batches, as the JAX package's ``make_loss_fn``. The hybrid (zamba2) is
+trained by the LM loss too: the backward of its Mamba2 blocks is
+autograd's, each block recomputed from its input
+(:meth:`repro_torch.models.lm.HybridLM.forward`), and its shared block's
+attention backward is flash attention's kernels. The GRPO objective, as
+the JAX package's, feeds the model tokens only. Configs of the SSM family
+raise ``NotImplementedError`` and wait for their slice
 (:func:`repro_torch.models.check_trainable`).
 """
 
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import AUDIO, VLM
 from repro_torch.models import check_trainable
+from repro_torch.models.lm import HybridLM
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
 
@@ -105,11 +110,16 @@ def make_prefill_step(model) -> Callable:
     return prefill_step
 
 
-def make_decode_step(model) -> Callable:
-    """One serve_step: append one token to the KV cache (written in place)."""
+def make_decode_step(model, *, ring: bool = False) -> Callable:
+    """One serve_step: append one token to the KV/recurrent cache
+    (written in place). ``ring`` decodes over a ring-buffer window cache,
+    which only the hybrid model has; another model decodes as it always
+    does, as the JAX package's step (which finds that out by a
+    ``TypeError``)."""
+    kwargs = {"ring": True} if ring and isinstance(model, HybridLM) else {}
 
     def decode_step(params, cache, tokens, cache_len):
-        return model.decode(params, cache, tokens, cache_len)
+        return model.decode(params, cache, tokens, cache_len, **kwargs)
 
     return decode_step
 

@@ -6,7 +6,8 @@ do ``reduced()``, ``param_count()``, ``active_param_count()``,
 ``live_shapes()`` and the shape grid; for the four dense ids, full and
 reduced, the port's parameter names, shapes and order are the JAX
 ``DecoderLM``'s, and so are dbrx-132b's (routed experts) and
-deepseek-v3-671b's (MLA attention) and internvl2-2b's (the VLM family). A
+deepseek-v3-671b's (MLA attention) and internvl2-2b's (the VLM family), and
+zamba2-2.7b's are the JAX ``HybridLM``'s. A
 family the port has no model for is refused with the slice it waits for,
 by ``build_model`` and by both entry points (``launch.serve`` refuses
 internvl2-2b too: its requests are token prompts; and hubert-xlarge, the
@@ -16,7 +17,9 @@ config and served by ``serve()`` at a reduced config (``serve.main``
 refuses its 40 layers, which do not fit a device, before allocating
 anything); deepseek-v3 is built, served and, its MLA attention included,
 taken by every training entry point on the host (a step with a finite
-loss, a registered trainer, ``launch/train.py`` printing finite losses).
+loss, a registered trainer, ``launch/train.py`` printing finite losses);
+zamba2-2.7b (the hybrid family) is built, trained by ``launch/train.py``
+at its reduced config and admitted by ``serve.main`` at all 54 layers.
 """
 
 import dataclasses
@@ -26,7 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.configs as jax_configs  # noqa: E402
-from repro.models.lm import DecoderLM as JaxLM  # noqa: E402
+from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models.params import named_tensors  # noqa: E402
 
 import repro_torch.configs as port_configs  # noqa: E402
@@ -34,7 +37,7 @@ from repro_torch.configs import base as port_base  # noqa: E402
 from repro_torch.launch import serve as serve_main  # noqa: E402
 from repro_torch.launch import train as train_main  # noqa: E402
 from repro_torch.models import build_model, check_ported, check_trainable  # noqa: E402
-from repro_torch.models.lm import DecoderLM, EncoderLM  # noqa: E402
+from repro_torch.models.lm import DecoderLM, EncoderLM, HybridLM  # noqa: E402
 from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
@@ -43,19 +46,22 @@ PORTED_IDS = DENSE_IDS + ("dbrx-132b",)
 SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b", "internvl2-2b")
 #: built and trained, not served: the audio encoder (no decode path)
 ENCODER_IDS = ("hubert-xlarge",)
-OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS + ENCODER_IDS)
+#: built, served and trained through ``HybridLM`` (the hybrid family)
+HYBRID_IDS = ("zamba2-2.7b",)
+OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS + ENCODER_IDS + HYBRID_IDS)
 #: what the refusal of each family names (the VLM's and the encoder's: ``launch.serve``'s)
 WAITS_FOR = {"vlm": "patches", "hybrid": "hybrid", "ssm": "SSM", "audio": "encoder-only: no decode path to serve"}
-#: (entry point, arch) pairs each entry point refuses, and ``train`` with
-#: internvl2-2b and hubert-xlarge, which train now (the cases kept their names)
-REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + ENCODER_IDS + OTHER_IDS]
+#: (entry point, arch) pairs each entry point refuses, ``train`` with
+#: internvl2-2b and hubert-xlarge, which train now, and both with
+#: zamba2-2.7b, which is served and trained now (the cases kept their names)
+REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + OTHER_IDS]
 #: what the training entry points' refusal of MLA names
 
 
 def test_registry_ids_equal():
     assert port_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert list(port_configs.all_configs()) == list(jax_configs.all_configs())
-    assert set(SERVED_IDS) | set(ENCODER_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
+    assert set(SERVED_IDS) | set(ENCODER_IDS) | set(HYBRID_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -102,12 +108,13 @@ def test_llama3_8b_source_copied_as_it_stands():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", SERVED_IDS)
+@pytest.mark.parametrize("arch", SERVED_IDS + HYBRID_IDS)
 def test_decoder_shapes_are_the_jax_param_specs(arch, reduced):
     got, want = port_configs.get_config(arch), jax_configs.get_config(arch)
     if reduced:
         got, want = got.reduced(), want.reduced()
-    assert decoder_shapes(got) == [(n, tuple(s.shape)) for n, s in named_tensors(JaxLM(want).param_specs()).items()]
+    specs = named_tensors(jax_build_model(want).param_specs())
+    assert decoder_shapes(got) == [(n, tuple(s.shape)) for n, s in specs.items()]
 
 
 def test_gemma2_shapes_have_post_norms_and_no_head():
@@ -129,13 +136,21 @@ def test_build_model_builds_the_dense_ids(arch):
     assert model.windows == want
 
 
-@pytest.mark.parametrize("arch", ("internvl2-2b",) + ENCODER_IDS + OTHER_IDS)
+@pytest.mark.parametrize("arch", ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + OTHER_IDS)
 def test_build_model_refuses_the_families_not_ported(arch):
     """Each family the port has no model for is refused with its slice
-    named; internvl2-2b (the VLM family) and hubert-xlarge (the audio
-    family), refused until their slices were in, now build, full and
-    reduced (the cases kept their names)."""
+    named; internvl2-2b (the VLM family), hubert-xlarge (the audio family)
+    and zamba2-2.7b (the hybrid family), refused until their slices were
+    in, now build, full and reduced (the cases kept their names)."""
     cfg = port_configs.get_config(arch)
+    if arch in HYBRID_IDS:
+        for c in (cfg, cfg.reduced()):
+            check_ported(c)
+            check_trainable(c)
+            model = build_model(c)
+            assert isinstance(model, HybridLM) and model.cfg is c
+            assert (model.groups, model.every) == (c.num_layers // c.ssm.shared_block_every, c.ssm.shared_block_every)
+        return
     if arch == "internvl2-2b":
         check_ported(cfg.reduced())
         assert isinstance(build_model(cfg), DecoderLM) and cfg.num_patches == 256
@@ -168,8 +183,10 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     """MLA and routed experts build in a dense-family config too (with
     deepseek-v3's latent attention, shared expert and dense prefix), as
     the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
-    family; training takes both, in a VLM config too, and still refuses
-    a hybrid config with its slice named."""
+    family; training takes both, in a VLM config too; a hybrid config
+    builds its ``HybridLM`` whatever its ``mla`` (as the JAX package's
+    ``build_model`` picks the model by family), and training still refuses
+    an SSM config with its slice named."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     mla = dataclasses.replace(base, mla=ds.mla)
@@ -178,10 +195,13 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     vlm = next(port_configs.get_config(a) for a in SERVED_IDS if port_configs.get_config(a).family == port_base.VLM)
     check_trainable(dataclasses.replace(vlm, mla=ds.mla))
     assert build_model(dataclasses.replace(vlm, mla=ds.mla)).is_mla
-    hybrid = next(port_configs.get_config(a) for a in OTHER_IDS
+    hybrid = next(port_configs.get_config(a) for a in HYBRID_IDS
                   if port_configs.get_config(a).family == port_base.HYBRID)
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        check_trainable(dataclasses.replace(hybrid, mla=ds.mla))
+    check_trainable(dataclasses.replace(hybrid, mla=ds.mla))
+    assert isinstance(build_model(dataclasses.replace(hybrid, mla=ds.mla)), HybridLM)
+    ssm = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.SSM)
+    with pytest.raises(NotImplementedError, match="SSM slice"):
+        check_trainable(dataclasses.replace(ssm, mla=ds.mla))
     cfg = dataclasses.replace(base, moe=ds.moe)
     check_trainable(cfg)
     model = build_model(cfg)
@@ -245,9 +265,16 @@ def test_serve_answers_a_reduced_deepseek_v3():
 
 
 @pytest.mark.parametrize("entry,arch", REFUSED, ids=[f"{e}-{a}" for e, a in REFUSED])
-def test_entry_points_exit_with_the_slice_a_family_waits_for(arch, entry, capsys):
+def test_entry_points_exit_with_the_slice_a_family_waits_for(arch, entry, capsys, monkeypatch):
     main = serve_main.main if entry == "serve" else train_main.main
-    if entry == "train" and arch in ("internvl2-2b",) + ENCODER_IDS:  # 4 patches before 8 tokens; 12 frames
+    if entry == "serve" and arch in HYBRID_IDS:  # all 54 layers admitted on an 80 GB card, nothing allocated here
+        monkeypatch.setattr(serve_main, "device_memory", lambda device: 80 * 10**9)
+        served = []
+        monkeypatch.setattr(serve_main, "serve", lambda cfg, **kw: served.append(cfg))
+        main(["--arch", arch, "--device", "cpu"])
+        assert served[0].num_layers == 54 and served[0].family == port_base.HYBRID
+        return
+    if entry == "train" and arch in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS:  # 4 patches + 8 tokens; 12 frames
         import math
         import re
 

@@ -257,11 +257,12 @@ def test_routes_of_every_dtype_and_head_dim(dtype, d, sq):
     and what a call on the card does with them (meta tensors take the CUDA
     branch, so a call the kernels take stops at the device check): head_dim
     192 (with a v of 192) is refused, every other head_dim has a forward and
-    a backward on its route; head_dim 80 (hubert's) goes to the tensor
-    cores in bf16 and to the CUDA cores otherwise, never to ``decode``."""
+    a backward on its route; head_dim 80 (hubert's and zamba2's) goes to
+    the tensor cores in bf16 and to the CUDA cores otherwise, and a
+    decode-sized call at 80 in f32 or bf16 to ``decode``, as at 64/128/256."""
     q, k = _meta(2, 8, 2, sq, 200, d, dtype)
     tc = dtype == BF16 and d in (64, 80, 128, 256)
-    decode = sq == 1 and dtype in (F32, BF16) and d in (64, 128, 256)
+    decode = sq == 1 and dtype in (F32, BF16) and d in (64, 80, 128, 256)
     assert fa._route(q, k) == ("decode" if decode else "tensor_core" if tc else "f32")
     assert fa._route(q, k, grad=True) == ("tensor_core" if tc else "f32")
     assert fa._bwd_route(q) == ("tensor_core" if tc else "cuda_core")
@@ -397,14 +398,16 @@ HEAD_DIM_80_SHAPES = [(8, 16, 16, 1000, 1000), (4, 16, 16, 1000, 1000), (2, 16, 
 def test_head_dim_80_routes(dtype, shape):
     """bf16 at head_dim 80 goes to the tensor_core forward and backward,
     f32 and f16 to the f32 forward and the cuda_core backward, at every
-    shape, decode-sized calls included (the decode route's split kernel
-    does not take 80, and refuses it naming the hybrid slice); every check
-    of the forward and the backward passes (meta tensors stop at the
-    device check)."""
+    shape; a decode-sized call (Sq x G <= 64) in f32 or bf16 goes to the
+    decode route's split kernel at 80 (zamba2's decode), in f16 to ``f32``.
+    Every check of the forward and the backward passes (meta tensors stop
+    at the device check), the decode route's too where it takes the call."""
     b, hq, hkv, sq, sk = shape
     q, k = _meta(b, hq, hkv, sq, sk, 80, dtype)
     fwd = "tensor_core" if dtype == BF16 else "f32"
-    assert fa._route(q, k) == fa._route(q, k, grad=True) == fwd
+    small = sq * hq // hkv <= fa.DECODE_ROWS
+    assert fa._route(q, k) == ("decode" if small and dtype != F16 else fwd)
+    assert fa._route(q, k, grad=True) == fwd
     assert fa._bwd_route(q) == ("tensor_core" if dtype == BF16 else "cuda_core")
     assert fa.bwd_kernels(80) == ("pre", "dkdv", "dq")
     fa._check_backward(q)
@@ -413,9 +416,15 @@ def test_head_dim_80_routes(dtype, shape):
     lse = torch.empty(q.shape[:3], dtype=F32, device="meta")
     with pytest.raises(TypeError, match="unsupported device"):
         fa.launch_backward(q, k, k, q, lse, q, causal=False)
-    with pytest.raises(ValueError, match=r"decode route takes head_dim in \(64, 128, 256\), got head_dim 80 "
-                                         r"\(head_dim 80 waits for the hybrid slice\)"):
-        fa.launch_route("decode", q, k, k)
+    if dtype == F16:
+        with pytest.raises(TypeError, match="decode route takes float32 or bfloat16"):
+            fa.launch_route("decode", q, k, k)
+    elif not small:
+        with pytest.raises(ValueError, match=r"the decode route takes Sq \* Hq/Hkv <= 64"):
+            fa.launch_route("decode", q, k, k)
+    else:
+        with pytest.raises(TypeError, match="unsupported device"):
+            fa.launch_route("decode", q, k, k)
     if dtype != BF16:
         with pytest.raises(TypeError, match="tensor_core route takes bfloat16"):
             fa.launch_route("tensor_core", q, k, k)

@@ -1992,3 +1992,112 @@ def test_hubert_encodes_and_trains_on_the_card(dev):
         assert torch.isfinite(gk).all() and gk.abs().max() > 0, n
         w = want[n].float()
         assert float((gk.float() - w).norm() / w.norm().clamp_min(1e-30)) <= 5e-2, n
+
+
+# -- the hybrid family (zamba2-2.7b): the decode kernel at head_dim 80 --------------------------
+
+#: (b, hq, hkv, sq, sk, causal, q_offset, kv_len, window, softcap) of the
+#: decode route at head_dim 80: zamba2's G 1 decode step at kv_len 1, 63,
+#: 64, 65 and 576 behind a cache of 576 slots (its served shape), a ring
+#: call over 4096 slots (causal=False, every slot live), a softcap, a
+#: window, a short chunk at G 2 and a chunk of 16 rows at G 4; K and V past
+#: kv_len hold NaN
+_HD80_DECODE_CASES = [
+    (8, 32, 32, 1, 576, True, 0, 1, 0, 0.0),
+    (8, 32, 32, 1, 576, True, 62, 63, 0, 0.0),
+    (8, 32, 32, 1, 576, True, 63, 64, 0, 0.0),
+    (8, 32, 32, 1, 576, True, 64, 65, 0, 0.0),
+    (8, 32, 32, 1, 576, True, 575, 576, 0, 0.0),
+    (2, 32, 32, 1, 4096, False, 0, 4096, 0, 0.0),
+    (2, 8, 8, 1, 700, True, 599, 600, 0, 30.0),
+    (2, 8, 8, 1, 900, True, 799, 800, 100, 0.0),
+    (2, 8, 4, 3, 300, True, 197, 200, 0, 0.0),
+    (1, 8, 2, 16, 200, True, 150, 166, 64, 50.0),
+]
+_HD80_DECODE_IDS = ["x".join(map(str, c)) for c in _HD80_DECODE_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _HD80_DECODE_CASES, ids=_HD80_DECODE_IDS)
+def test_head_dim_80_decode_route_equals_plain(dev, case, dtype):
+    """The decode route's split kernel at head_dim 80 (its own instances:
+    10 or 20 chunks a row, threads 120-127 out of P V), through
+    ``flash_attention``: one decode launch, within test_kernels.py's
+    tolerance of the plain version and of ``split_kv_plain`` (dead slots
+    zeroed, the kernel never reads them), finite, and the same bits on a
+    rerun."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, causal, q_offset, kv_len, window, cap = case
+    q, k, v = _qkv(dev, kv_len + sq, b, hq, hkv, sq, sk, 80, dtype)
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    kz, vz = k[:, :, :kv_len].contiguous(), v[:, :, :kv_len].contiguous()
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window, softcap=cap)
+    assert fa._route(q, k) == "decode"
+    got = _routed(fa, "decode", lambda: fa.flash_attention(q, k, v, **kw))
+    again = fa.flash_attention(q, k, v, **kw)
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    _flash_close(got, fa.attention_plain(q, kz, vz, **kw), dtype)
+    _flash_close(got, fa.split_kv_plain(q, kz, vz, **kw), dtype)
+    assert torch.equal(got, again)
+
+
+def test_head_dim_80_decode_through_a_ring_cache(dev):
+    """The ring step as ``HybridLM`` calls it, over an f32 ring of 64
+    slots before and after it wraps (``kv_len = min(cache_len + 1, 64)``;
+    once wrapped every slot is live and their order is not the
+    positions'), through ``_ring_attention_step`` and the flash wrapper:
+    one decode launch a step, against the plain attention."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import _ring_attention_step
+
+    q, k, v = _qkv(dev, 7, 4, 32, 32, 1, 64, 80, torch.float32)
+    for cache_len in (10, 63, 64, 200):
+        got = _routed(fa, "decode", lambda: _ring_attention_step(fa.flash_attention, q, k, v, cache_len, 0.0))
+        want = _ring_attention_step(fa.attention_plain, q, k, v, cache_len, 0.0)
+        _flash_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_zamba2_serves_on_the_card(dev, dtype):
+    """zamba2's widths (d_model 2560, 32 heads of 80, SSD heads of 64, state
+    64, chunk 256) at one group of 6 Mamba2 blocks: a prefill of 2 x 300
+    launches one prefill attention (``tensor_core`` in bf16, ``f32`` in f32)
+    and each decode step one ``decode`` launch; a ring decode from
+    ``init_cache(..., ring=True)`` at a window of 16 launches ``decode`` in
+    f32 each step; every logit within phase 5's gates of the model with
+    the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=6, d_ff=1024, sliding_window=16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, dev)
+    model, ref = build_model(cfg), build_model(cfg, attention=fa.attention_plain)
+    toks = torch.randint(0, cfg.vocab, (2, 310), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    prefill = "tensor_core" if dtype == torch.bfloat16 else "f32"
+    with torch.no_grad():
+        routes = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+        logits, cache, n = model.prefill(params, {"tokens": toks[:, :300]}, max_len=310)
+        got, want = [logits[:, -1]], []
+        for t in range(300, 309):
+            logits, cache = model.decode(params, cache, toks[:, t : t + 1], t)
+            got.append(logits[:, -1])
+        assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {
+            "tensor_core": int(prefill == "tensor_core"), "f32": int(prefill == "f32"), "decode": 9}
+        full = ref.forward(params, {"tokens": toks[:, :310]})
+        diff = (torch.stack(got, 1) - full[:, 299:309]).abs()
+        assert torch.isfinite(diff).all() and float(diff.max()) < 0.5 and float(diff.mean()) < 0.05
+        ring, rring = (m.init_cache(2, 40, dtype, dev, ring=True) for m in (model, ref))
+        routes = {r: c.value for r, c in fa.ROUTE_LAUNCHES.items()}
+        for t in range(40):
+            a, ring = model.decode(params, ring, toks[:, t : t + 1], t, ring=True)
+            b, rring = ref.decode(params, rring, toks[:, t : t + 1], t, ring=True)
+            d = (a - b).abs()
+            assert torch.isfinite(a).all() and float(d.max()) < 0.5 and float(d.mean()) < 0.05, t
+        assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"tensor_core": 0, "f32": 0,
+                                                                                 "decode": 40}

@@ -328,14 +328,14 @@ def test_train_step_matches_jax(model, accum):
 
 def test_steps_refuse_other_families():
     """The steps take the dense family; a config of a family the port has
-    no model for (the registry's hybrid here, since the audio encoder
-    trains) is refused."""
-    hybrid = port_get_config("zamba2-2.7b")
-    assert hybrid.family == "hybrid"
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        psteps.make_loss_fn(DecoderLM(PORT_CFG), hybrid)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        psteps.make_grpo_step(DecoderLM(PORT_CFG), hybrid, popt.AdamW())
+    no model for (the registry's SSM here, since the audio encoder and the
+    hybrid train) is refused with its slice named."""
+    ssm = port_get_config("xlstm-350m")
+    assert ssm.family == "ssm"
+    with pytest.raises(NotImplementedError, match="SSM slice"):
+        psteps.make_loss_fn(DecoderLM(PORT_CFG), ssm)
+    with pytest.raises(NotImplementedError, match="SSM slice"):
+        psteps.make_grpo_step(DecoderLM(PORT_CFG), ssm, popt.AdamW())
 
 
 
