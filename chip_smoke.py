@@ -250,7 +250,26 @@ lines, any failure exiting non-zero:
    forward and backward by kernel class, with the Mamba2 blocks' share
    (``ssd_share``).
 
-A ``kernels`` JSON line (launches over phases 3 to 16; flash
+17. The SSM family: xlstm-350m at its published widths and all 24 layers
+   (``xlstm_arch``: 12 pairs of one mLSTM block, 4 heads of 512, and one
+   sLSTM block, 4 heads of 256; no attention, no kernel of its own), bf16,
+   served from a raw rollout replica's registered buffers: 8 x 512 tokens
+   prefilled, 64 decoded, before and after an update to v1, beside a dc1
+   replica pulled over int8 and updated over delta:int8 and held bit-equal
+   to the plain codec (phase 3's check); the bf16 rounds' distances to the
+   teacher-forced forward printed, an f32 round of the same requests held
+   to phase 5's gates and bit-equal on a rerun; the block forms in f32
+   (the chunked mLSTM against its parallel form, forward and input
+   gradient, at T = 512; 16 one-step recurrences against the chunked form
+   and the folded state; the sLSTM split at 5) within 2e-3; phase 6's RL
+   loop in f32 at 2 x 2 x (512 + 64), its gradients against the step with
+   the mLSTM on its parallel form within 0.25 (rel. L2: f32's floor at 24
+   random-init layers is 5-9%), and within 1e-3 at 6 layers; ``launch.train
+   --arch xlstm-350m --full-config`` for two f32 steps of 2 x 512. The
+   prefill and a decode step timed and profiled, with the mLSTM and sLSTM
+   blocks' shares of their spans (``xlstm_share``).
+
+A ``kernels`` JSON line (launches over phases 3 to 17; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -3182,15 +3201,19 @@ def check_round(torch, cfg, reference, weights, rec, version, served, *, tag: st
                            chunk=chunk)
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, *, cpu: bool = True) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device time
     of its kernels by name: busy seconds (kernels of one stream do not
     overlap), the wall seconds ended by a synchronize, the idle share, and
     the kernels that took the most time. A session that records no device
-    activity is retried (``traced``), so ``fn`` may run more than once."""
+    activity is retried (``traced``), so ``fn`` may run more than once.
+    ``cpu=False`` records the device's activity alone: the same kernels,
+    and far fewer events to read back where a call launches ~100k kernels
+    (the xLSTM's sLSTM loop)."""
     from torch.profiler import ProfilerActivity
 
-    events, wall = traced(torch, fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    events, wall = traced(torch, fn, activities)
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
@@ -3466,19 +3489,23 @@ def attention_widths(cfg) -> tuple:
 def attention_layers(cfg) -> int:
     """Attention calls in one pass through a config's model: one a layer,
     but the hybrid's one shared block after each group of
-    ``ssm.shared_block_every`` Mamba2 blocks (zamba2: 9 of 54 layers)."""
-    from repro_torch.configs.base import HYBRID
+    ``ssm.shared_block_every`` Mamba2 blocks (zamba2: 9 of 54 layers), and
+    none in the xLSTM (xlstm-350m)."""
+    from repro_torch.configs.base import HYBRID, SSM
 
+    if cfg.family == SSM:
+        return 0
     return cfg.num_layers // cfg.ssm.shared_block_every if cfg.family == HYBRID else cfg.num_layers
 
 
 def attention_windows(cfg) -> list:
     """The window each attention call of a pass gets: ``_layer_windows``'
-    for the decoder, 0 for each of the hybrid's shared-block calls."""
-    from repro_torch.configs.base import HYBRID
+    for the decoder, 0 for each of the hybrid's shared-block calls, none
+    for the xLSTM."""
+    from repro_torch.configs.base import HYBRID, SSM
     from repro_torch.models.lm import _layer_windows
 
-    return [0] * attention_layers(cfg) if cfg.family == HYBRID else _layer_windows(cfg)
+    return [0] * attention_layers(cfg) if cfg.family in (HYBRID, SSM) else _layer_windows(cfg)
 
 
 def grads_in_parts(torch, loss_fn, params, batch, budget):
@@ -3507,8 +3534,57 @@ def grads_in_parts(torch, loss_fn, params, batch, budget):
         del grads
 
 
+def backward_kernels_check(torch, fa, cfg, trainer, batch, grad_budget, label) -> dict:
+    """The backward kernels alone, on the trainer's weights and ``batch``
+    (the step's launches already read): the trainer's model against one
+    whose attention runs the same kernel forward and the plain backward,
+    each tensor's gradient within ``GRAD_TOL_BWD``. Returns the errors."""
+    from repro_torch.models import build_model
+    from repro_torch.training.steps import make_grpo_loss_fn
+
+    class KernelForwardPlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kw):
+            out, lse = fa.launch_route(fa._route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.kw = kw
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            return (*fa.attention_backward_plain(*ctx.saved_tensors, dout, **ctx.kw), None)
+
+    isolated = build_model(cfg, attention=lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v, kw))
+    # the behavior logprobs of v1 itself, so every ratio is 1 and no clip
+    # zeroes a gradient (against the served v0 logprobs a step may leave
+    # every ratio clipped, and both gradients 0)
+    with torch.no_grad():
+        logits = trainer.model.forward(trainer.params, {"tokens": batch["tokens"]})
+        lp = torch.log_softmax(logits[:, :-1].float(), -1).gather(-1, batch["tokens"][:, 1:, None])[..., 0]
+        on_policy = dict(batch, behavior_logprobs=torch.where(batch["loss_mask"], lp, 0.0))
+        del logits, lp
+    # the two steps a part of the tensors at a time, each part compared and
+    # dropped before the next
+    bwd_errs, bwd_l2 = {}, {}
+    for (g_kernel, m_kernel), (g_plain_bwd, m_plain_bwd) in zip(
+            grads_in_parts(torch, make_grpo_loss_fn(trainer.model), trainer.params, on_policy, grad_budget),
+            grads_in_parts(torch, make_grpo_loss_fn(isolated), trainer.params, on_policy, grad_budget)):
+        check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), f"{label}: the two steps' forwards differ")
+        for n, g in g_kernel.items():
+            check(float(g.abs().max()) > 0, f"{label} {n}: zero gradient in the backward kernels' check")
+            bwd_errs[n] = grad_err(torch, g, g_plain_bwd[n])
+            bwd_l2[n] = rel_l2(torch, g, g_plain_bwd[n])
+        del g_kernel, g_plain_bwd, g
+    emit("train_bwd_check", config=label, loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
+         grad_max_err_over_max=bwd_errs, grad_rel_l2=bwd_l2, tol=GRAD_TOL_BWD)
+    for n, e in bwd_errs.items():
+        check(e <= GRAD_TOL_BWD, f"{label} {n}: the backward kernels' gradient differs from the plain backward's by {e}")
+    return bwd_errs
+
+
 def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, group_size: int = 4,
-            init=None, grad_budget=None, delta_base: bool = True, dtype=None) -> dict:
+            init=None, grad_budget=None, delta_base: bool = True, dtype=None, grad_tol: float = GRAD_TOL_PLAIN,
+            profile: bool = True) -> dict:
     """Paper Fig. 4 at a config's published widths in bf16 (``dtype``: the
     trainer's and the rollout's; in f32 the prefill and the step's forward
     take the ``f32`` route and the backward ``cuda_core``) (llama3-8b cut
@@ -3531,7 +3607,13 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     tensor-core forward and backward at (192, 128); its references decode
     with ``mla_decode_plain``. The hybrid (zamba2) attends once a group of
     Mamba2 blocks (``attention_layers``), through its shared block's
-    weights. Returns the kernels' launches on that path."""
+    weights. The xLSTM (xlstm-350m) attends nowhere: its reference runs the
+    mLSTM on the quadratic parallel form (``mlstm="parallel"``) where the
+    step runs the chunked form, its gradients held within ``grad_tol``
+    (relative L2), and it launches no flash kernel (the backward kernels'
+    isolated check has nothing to hold). ``profile`` runs a second step under
+    the profiler (``train_profile``). Returns the kernels' launches on that
+    path."""
     import numpy as np
 
     from repro_torch.configs.llama3_8b import CONFIG
@@ -3541,7 +3623,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES, attention_plain
     from repro_torch.kernels.mla_decode import LAUNCHES as LATENT_LAUNCHES
     from repro_torch.kernels.mla_decode import mla_decode_plain
-    from repro_torch.configs.base import HYBRID
+    from repro_torch.configs.base import HYBRID, SSM
     from repro_torch.models import build_model
     from repro_torch.models.params import init_params
     from repro_torch.rl.loop import RLConfig, RolloutWorker, TrainerWorker
@@ -3589,9 +3671,12 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
          trainer_init_and_publish_seconds=init_s, publish_v0_seconds=publish0_s)
     worker = RolloutWorker("rollout-0", hub, rl, cfg, PromptSet(cfg.vocab, PROMPT_LEN, seed=SEED), queue,
                            threading.Event(), datacenter="dc0", dtype=dtype)
-    hybrid = cfg.family == HYBRID
-    reference = build_model(cfg, attention=attention_plain,
-                            **({} if hybrid else {"latent_attention": mla_decode_plain}))
+    hybrid, xlstm = cfg.family == HYBRID, cfg.family == SSM
+    if xlstm:
+        reference = build_model(cfg, mlstm="parallel")
+    else:
+        reference = build_model(cfg, attention=attention_plain,
+                                **({} if hybrid else {"latent_attention": mla_decode_plain}))
 
     def replica_equals_trainer(when):
         for n, w in trainer.params.items():
@@ -3689,7 +3774,8 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     ref_s = time.perf_counter() - t0
     check(mid == counts(), "the reference step launched a flash kernel")
     attn = (("layers/attn/wq_b", "layers/attn/wkv_a", "layers/attn/wkv_b_k", "layers/attn/wkv_b_v", "layers/attn/ln")
-            if mla else tuple(f"{'shared_attn' if hybrid else 'layers/attn'}/{n}" for n in ("wq", "wk", "wv", "ln")))
+            if mla else () if xlstm else
+            tuple(f"{'shared_attn' if hybrid else 'layers/attn'}/{n}" for n in ("wq", "wk", "wv", "ln")))
     for name in attn:
         check(grad_max[name] > 0, f"{label} {name}: no gradient through the flash attention")
     loss_err = abs(metrics["loss"] - float(ref_metrics["loss"]))
@@ -3698,7 +3784,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
         step_dropped_pairs=step_routes.dropped, step_routed_pairs=step_routes.routed,
         reference_dropped_pairs_per_pass=ref_routes.dropped / parts, routing=step_routes.flips(ref_routes))
     emit("train_check", config=label, loss=metrics["loss"], reference_loss=float(ref_metrics["loss"]),
-         loss_abs_err=loss_err, loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=GRAD_TOL_PLAIN,
+         loss_abs_err=loss_err, loss_bound=LOGIT_MEAN_ABS * adv_max, grad_rel_l2=grad_l2, grad_tol=grad_tol,
          grad_max_err_over_max=grad_errs, grad_abs_max=grad_max, windows=windows, metrics=metrics,
          reference_parts=parts, **moe)
     # the loss is a mean of ratio x advantage over the response tokens, and a
@@ -3707,7 +3793,7 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check(loss_err <= LOGIT_MEAN_ABS * adv_max,
           f"{label}: loss {metrics['loss']} vs reference {float(ref_metrics['loss'])}")
     for n, e in grad_l2.items():
-        check(e <= GRAD_TOL_PLAIN, f"{label} {n}: gradient differs from the reference step's by {e} (relative L2)")
+        check(e <= grad_tol, f"{label} {n}: gradient differs from the reference step's by {e} (relative L2)")
     if moe:
         check(moe["reference_dropped_pairs_per_pass"] == moe["step_dropped_pairs"],
               f"{label}: the reference, routed alike, dropped other pairs than the step")
@@ -3741,66 +3827,30 @@ def rl_loop(torch, dev, counters, smi: str, *, cfg=None, num_prompts: int = 4, g
     check1 = check_round(torch, cfg, reference, trainer.params, rec1, 1, served1, tag="rl_serve_check")
     delta = float((rec1["step_logits"][:, 0] - rec0["step_logits"][:, 0]).abs().mean())
     check(delta > 10 * LOGIT_MEAN_ABS, f"{label}: round 1's first logits barely differ from round 0's ({delta})")
-    for k in ("checksum", "flash_attention", *(("mla_decode",) if mla else ()),
-              *(f"flash_attention_bwd_{bwd_route}/{n}" for n in fa.bwd_kernels(*widths))):
+    for k in ("checksum", *(() if xlstm else ("flash_attention",)), *(("mla_decode",) if mla else ()),
+              *(() if xlstm else (f"flash_attention_bwd_{bwd_route}/{n}" for n in fa.bwd_kernels(*widths)))):
         check(launches[k] > 0, f"kernel {k} was not launched on the RL loop")
     del rec0, rec1, grads
     queue.clear()
     trainer.last_grads.clear()
-
-    # the backward kernels alone, on the v1 weights and the same batch (the
-    # launches above already read): the trainer's model against one whose
-    # attention runs the same kernel forward and the plain backward
-    class KernelForwardPlainBackward(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v, kw):
-            out, lse = fa.launch_route(fa._route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
-            ctx.save_for_backward(q, k, v, out, lse)
-            ctx.kw = kw
-            return out
-
-        @staticmethod
-        def backward(ctx, dout):
-            return (*fa.attention_backward_plain(*ctx.saved_tensors, dout, **ctx.kw), None)
-
-    isolated = build_model(cfg, attention=lambda q, k, v, **kw: KernelForwardPlainBackward.apply(q, k, v, kw))
-    # the behavior logprobs of v1 itself, so every ratio is 1 and no clip
-    # zeroes a gradient (against the served v0 logprobs a step may leave
-    # every ratio clipped, and both gradients 0)
-    with torch.no_grad():
-        logits = trainer.model.forward(trainer.params, {"tokens": batch["tokens"]})
-        lp = torch.log_softmax(logits[:, :-1].float(), -1).gather(-1, batch["tokens"][:, 1:, None])[..., 0]
-        on_policy = dict(batch, behavior_logprobs=torch.where(batch["loss_mask"], lp, 0.0))
-        del logits, lp
-    # the two steps a part of the tensors at a time, each part compared and
-    # dropped before the next
-    bwd_errs, bwd_l2 = {}, {}
-    for (g_kernel, m_kernel), (g_plain_bwd, m_plain_bwd) in zip(
-            grads_in_parts(torch, make_grpo_loss_fn(trainer.model), trainer.params, on_policy, grad_budget),
-            grads_in_parts(torch, make_grpo_loss_fn(isolated), trainer.params, on_policy, grad_budget)):
-        check(torch.equal(m_kernel["loss"], m_plain_bwd["loss"]), f"{label}: the two steps' forwards differ")
-        for n, g in g_kernel.items():
-            check(float(g.abs().max()) > 0, f"{label} {n}: zero gradient in the backward kernels' check")
-            bwd_errs[n] = grad_err(torch, g, g_plain_bwd[n])
-            bwd_l2[n] = rel_l2(torch, g, g_plain_bwd[n])
-        del g_kernel, g_plain_bwd, g
-    emit("train_bwd_check", config=label, loss=float(m_kernel["loss"]), loss_plain_backward=float(m_plain_bwd["loss"]),
-         grad_max_err_over_max=bwd_errs, grad_rel_l2=bwd_l2, tol=GRAD_TOL_BWD)
-    for n, e in bwd_errs.items():
-        check(e <= GRAD_TOL_BWD, f"{label} {n}: the backward kernels' gradient differs from the plain backward's by {e}")
+    bwd_errs = {}
+    if not xlstm:  # the backward kernels alone: a model without attention launches none
+        bwd_errs = backward_kernels_check(torch, fa, cfg, trainer, batch, grad_budget, label)
 
     # where a GRPO step's device time goes (a second step, v1 -> v2, with
     # the launches above already read)
-    prof = device_profile(torch, lambda: trainer.train_on(rollouts))
+    if profile:
+        prof = device_profile(torch, lambda: trainer.train_on(rollouts))
+        emit("train_profile", config=label, card=smi, step=prof,
+             profiled_step_seconds=trainer.last_timings["step_seconds"])
     tokens = batch["tokens"].numel()
-    emit("train_profile", config=label, card=smi, step=prof, profiled_step_seconds=trainer.last_timings["step_seconds"])
     emit("rl_result", config=label, card=smi, layers=cfg.num_layers, params=nparams, replicate_seconds=replicate_s,
          publish_v0_seconds=publish0_s, publish_v1_seconds=publish1_s, train_on_seconds=train_s,
          train_step_seconds=step_s, reference_step_seconds=ref_s,
          training_tokens=tokens, training_tokens_per_s=tokens / step_s,
          update_seconds=update_s, round_seconds=[round0_s, round1_s], max_memory_allocated=peak,
          launches_per_step=step_launches, launches=launches, checks=[check0, check1], loss_abs_err=loss_err,
-         grad_rel_l2_max=max(grad_l2.values()), grad_bwd_err_max=max(bwd_errs.values()))
+         grad_rel_l2_max=max(grad_l2.values()), grad_bwd_err_max=max(bwd_errs.values(), default=None))
     out = {k: launches[k] for k in counters}
     out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in BWD_LAUNCHES}
     out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in ROUTE_LAUNCHES}
@@ -5674,6 +5724,487 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 17: the SSM family (xlstm-350m) at its published widths ------------------
+
+#: 8 requests of 512 prompt tokens, 64 new tokens each
+XLSTM_B, XLSTM_PROMPT, XLSTM_GEN = 8, 512, 64
+#: phase 17's GRPO step through the RL loop (f32): 2 prompts x 2 responses
+#: of 512 + 64 tokens. 4 x 4 (phase 6's) took phase 17 past 120 s: the
+#: step is host-bound (autograd through 12 x 576 sLSTM steps, 11.8 s at 4 x
+#: 4), and a second step under the profiler read back ~1M events for
+#: minutes (PERF.md section 6, PR 30), so the loop is cut to 2 x 2 and
+#: profiles no step; the widths and the 24 layers are not cut
+XLSTM_RL_PROMPTS, XLSTM_RL_GROUP = 2, 2
+#: each tensor's gradient in the RL loop's step (24 layers) against the same
+#: step with the mLSTM on its quadratic parallel form, relative L2. The two
+#: forms are equal in exact arithmetic and differ in f32 by the order of
+#: their sums, and 24 random-init layers amplify that: the chunked form at
+#: chunks of 256 and of 128 give GRPO gradients 3-5% apart, the chunked and
+#: the parallel 5-9% (LM gradients 9-12%), against 1e-4 at 6 layers
+#: (tools/xlstm_grad_noise.py on the card, PERF.md section 6, PR 30). So the
+#: 24-layer step is held to 0.25, a wrong gradient's distance being ~1, and
+#: the 1e-3 bound holds at ``XLSTM_SHALLOW_LAYERS`` (``xlstm_form_gradients``)
+XLSTM_GRAD_TOL = 0.25
+#: the depth at which the GRPO gradients of the two mLSTM forms are held to
+#: ``XLSTM_SHALLOW_TOL`` (relative L2; measured 1.4e-4 apart at 6 layers)
+XLSTM_SHALLOW_LAYERS, XLSTM_SHALLOW_TOL = 6, 1e-3
+#: the block checks' bound, tests/test_blocks.py's (``allclose`` at rtol =
+#: atol = 2e-3), at T = 512 (two chunks of 256), 16 one-step recurrences
+#: after 496 positions, the sLSTM split at 5
+XLSTM_BLOCK_TOL, XLSTM_BLOCK_T, XLSTM_STEPS, XLSTM_SPLIT = 2e-3, 512, 16, 5
+#: launch.train at xlstm-350m's published widths and all 24 layers, f32: 2 x 512
+XLSTM_TRAIN_B, XLSTM_TRAIN_SEQ = 2, 512
+XLSTM_TRAIN_ARGV = ["--arch", "xlstm-350m", "--full-config", "--batch", str(XLSTM_TRAIN_B), "--seq",
+                    str(XLSTM_TRAIN_SEQ)]
+
+
+class XLSTMSpans:
+    """Within ``with``: a CUDA event pair around every mLSTM and every sLSTM
+    block call (``repro_torch.models.xlstm_blocks.mlstm_block_apply`` and
+    ``slstm_block_apply``, which ``XLSTMLM`` reaches through the module at
+    each call), so ``ms()`` sums each kind's spans on the stream: their
+    share of a call's device time, the gaps between their kernels
+    included."""
+
+    KINDS = ("mlstm_block_apply", "slstm_block_apply")
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import xlstm_blocks
+
+        self.mod, self.fns, self.pairs = xlstm_blocks, {k: getattr(xlstm_blocks, k) for k in self.KINDS}, {}
+
+        def spanned(kind):
+            fn = self.fns[kind]
+
+            def call(*a, **kw):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    end.record()
+                    self.pairs.setdefault(kind, []).append((start, end))
+
+            return call
+
+        for k in self.KINDS:
+            setattr(xlstm_blocks, k, spanned(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.fns.items():
+            setattr(self.mod, k, fn)
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in self.pairs.get(k, [])) for k in self.KINDS}
+
+
+def xlstm_share(torch, fn) -> dict:
+    """``fn()`` between two CUDA events, with ``XLSTMSpans``: the call's
+    device span in ms, the mLSTM and sLSTM blocks' summed spans and their
+    shares of it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with XLSTMSpans() as spans:
+        start.record()
+        fn()
+        end.record()
+        by_kind = spans.ms()
+    total = start.elapsed_time(end)
+    m, s = by_kind["mlstm_block_apply"], by_kind["slstm_block_apply"]
+    return dict(span_ms=total, mlstm_ms=m, slstm_ms=s, mlstm_share=m / total, slstm_share=s / total,
+                mlstm_calls=len(spans.pairs.get("mlstm_block_apply", [])),
+                slstm_calls=len(spans.pairs.get("slstm_block_apply", [])))
+
+
+def allclose_err(torch, got, want, tol: float) -> float:
+    """The largest ``|got - want| / (tol (1 + |want|))``: at most 1 where
+    ``torch.allclose(got, want, rtol=tol, atol=tol)`` holds."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (tol * (1 + w.abs()))).max())
+
+
+def xlstm_block_checks(torch, dev, cfg, weights) -> dict:
+    """The block forms at xlstm-350m's widths in f32 on the card, on pair 0's
+    blocks of ``weights`` (f32), within tests/test_blocks.py's 2e-3
+    (``allclose_err`` <= 1): one mLSTM block's chunked form at T = 512 (two
+    chunks of 256) against its quadratic parallel form, the output and the
+    input's gradient; 16 one-step recurrences after a chunked prefix of 496
+    positions against the chunked form over all 512, their final state
+    against the parallel form's folded state (under one stabiliser); the
+    sLSTM over 512 positions split at 5 against the whole sequence."""
+    from repro_torch.models import xlstm_blocks as xb
+
+    m = {n.rsplit("/", 1)[-1]: t[0, 0] for n, t in weights.items() if n.startswith("pairs/mlstm/")}
+    s = {n.rsplit("/", 1)[-1]: t[0] for n, t in weights.items() if n.startswith("pairs/slstm/")}
+    g = torch.Generator(device=dev).manual_seed(SEED + 301)
+    t, k = XLSTM_BLOCK_T, XLSTM_STEPS
+    x = torch.randn(2, t, cfg.d_model, generator=g, device=dev)
+    cot = torch.randn(2, t, cfg.d_model, generator=g, device=dev)
+    res = {}
+
+    def grad_of(form):
+        xg = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out, state = xb.mlstm_block_apply(cfg, m, xg, form=form)
+            (gx,) = torch.autograd.grad((out * cot).sum(), xg)
+        return out.detach(), {n: v.detach() for n, v in state.items()}, gx
+
+    chunked, c_state, c_grad = grad_of("chunked")
+    parallel, p_state, p_grad = grad_of("parallel")
+    res["mlstm_chunked_vs_parallel"] = dict(
+        T=t, chunks=-(-t // 256), output_err_over_tol=allclose_err(torch, chunked, parallel, XLSTM_BLOCK_TOL),
+        input_grad_err_over_tol=allclose_err(torch, c_grad, p_grad, XLSTM_BLOCK_TOL),
+        output_max_abs_err=float((chunked - parallel).abs().max()),
+        input_grad_max_abs_err=float((c_grad - p_grad).abs().max()), input_grad_abs_max=float(p_grad.abs().max()))
+    with torch.no_grad():
+        _, state = xb.mlstm_block_apply(cfg, m, x[:, : t - k])
+        outs = []
+        for i in range(t - k, t):
+            o, state = xb.mlstm_block_apply(cfg, m, x[:, i : i + 1], cache=state)
+            outs.append(o)
+        steps = torch.cat(outs, 1)
+    state_errs = {}
+    for n in ("c", "n"):  # each form's state under its own stabiliser m: brought to the steps'
+        shape = (*p_state["m"].shape, *([1] * (p_state[n].dim() - 2)))
+        folded = p_state[n] * torch.exp(p_state["m"] - state["m"]).reshape(shape)
+        state_errs[n] = allclose_err(torch, state[n], folded, XLSTM_BLOCK_TOL)
+    res["mlstm_steps_vs_chunked"] = dict(
+        prefix=t - k, steps=k, output_err_over_tol=allclose_err(torch, steps, chunked[:, t - k :], XLSTM_BLOCK_TOL),
+        folded_state_err_over_tol=state_errs, output_max_abs_err=float((steps - chunked[:, t - k :]).abs().max()))
+    with torch.no_grad():
+        whole, whole_s = xb.slstm_block_apply(cfg, s, x)
+        a, st = xb.slstm_block_apply(cfg, s, x[:, :XLSTM_SPLIT])
+        b, split_s = xb.slstm_block_apply(cfg, s, x[:, XLSTM_SPLIT:], cache=st)
+    res["slstm_split_vs_whole"] = dict(
+        T=t, split=XLSTM_SPLIT, output_err_over_tol=allclose_err(torch, torch.cat([a, b], 1), whole, XLSTM_BLOCK_TOL),
+        state_err_over_tol={n: allclose_err(torch, split_s[n], whole_s[n], XLSTM_BLOCK_TOL) for n in ("h", "c", "n")})
+    emit("xlstm_block_check", config=cfg.name, dtype="float32", tol=XLSTM_BLOCK_TOL, **res)
+    for label, r in res.items():
+        for key, v in r.items():
+            if key.endswith("err_over_tol"):
+                for part, e in (v.items() if isinstance(v, dict) else [("", v)]):
+                    check(math.isfinite(e) and e <= 1, f"{cfg.name} {label} {key} {part}: {e} over the tolerance")
+    return res
+
+
+def xlstm_form_gradients(torch, dev, cfg) -> dict:
+    """The GRPO gradients of xlstm-350m at its widths cut to
+    ``XLSTM_SHALLOW_LAYERS`` layers, f32, on a batch of the RL loop's shape
+    (``XLSTM_RL_PROMPTS`` x ``XLSTM_RL_GROUP`` sequences of ``PROMPT_LEN`` +
+    ``GEN_LEN`` seeded tokens, on-policy logprobs, advantages from seeded
+    rewards within each group, the loss over the generated positions), with
+    the mLSTM chunked and on its parallel form: each tensor's gradient
+    finite, nonzero and within ``XLSTM_SHALLOW_TOL`` (relative L2)."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training import group_relative_advantages
+    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
+
+    shallow = dataclasses.replace(cfg, num_layers=XLSTM_SHALLOW_LAYERS)
+    params = init_params(shallow, torch.Generator(device=dev).manual_seed(SEED + 303), torch.float32, dev)
+    b, s = XLSTM_RL_PROMPTS * XLSTM_RL_GROUP, PROMPT_LEN + GEN_LEN
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(device=dev).manual_seed(SEED + 304),
+                           device=dev)
+    mask = torch.zeros((b, s - 1), dtype=torch.bool, device=dev)
+    mask[:, PROMPT_LEN - 1 :] = True
+    chunked, parallel = build_model(shallow), build_model(shallow, mlstm="parallel")
+    with torch.no_grad():
+        lp = torch.log_softmax(chunked.forward(params, {"tokens": tokens})[:, :-1], -1)
+        lp = lp.gather(-1, tokens[:, 1:, None])[..., 0]
+    rewards = torch.from_numpy(np.random.default_rng(SEED + 305).random(b).astype(np.float32))
+    batch = {"tokens": tokens, "behavior_logprobs": torch.where(mask, lp, 0.0), "loss_mask": mask,
+             "advantages": group_relative_advantages(rewards, XLSTM_RL_GROUP).to(dev)}
+    del lp
+    got, m_got = value_and_grad(make_grpo_loss_fn(chunked), params, batch)
+    want, m_want = value_and_grad(make_grpo_loss_fn(parallel), params, batch)
+    errs = {n: rel_l2(torch, got[n], want[n]) for n in want}
+    finite = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in got.values())
+    res = dict(config=cfg.name, layers=XLSTM_SHALLOW_LAYERS, batch=[b, s], dtype="float32", tol=XLSTM_SHALLOW_TOL,
+               loss=float(m_got["loss"]), reference_loss=float(m_want["loss"]), all_finite=finite,
+               grad_rel_l2_max=max(errs.values()), grad_rel_l2=errs)
+    emit("xlstm_form_gradients", **res)
+    check(finite, f"{cfg.name}: a gradient at {XLSTM_SHALLOW_LAYERS} layers is zero or not finite")
+    for n, e in errs.items():
+        check(e <= XLSTM_SHALLOW_TOL, f"{cfg.name} {n}: the chunked form's gradient at {XLSTM_SHALLOW_LAYERS} layers "
+                                      f"is {e} (rel. L2) from the parallel form's")
+    return res
+
+
+def xlstm_arch(torch, dev, counters, smi: str) -> dict:
+    """xlstm-350m (arXiv:2405.04517) at its published widths and all 24
+    layers (d_model 1024, 12 pairs of one mLSTM block, d_in 2048 in 4 heads
+    of 512, and one sLSTM block, 4 heads of 256; vocab 50304, untied head).
+    No attention and no kernel of its own: its blocks are PyTorch ops.
+    Serving, bf16: a trainer (dc0) publishes v0; a rollout replica (dc0,
+    raw) replicates it and the model reads its parameters from the
+    replica's registered buffers: it prefills 8 x 512 tokens (the chunked
+    mLSTM, the sLSTM loop) and decodes 64 greedily (one step of each
+    block's recurrence a token); a second replica (dc1) replicates v0 over
+    ``int8``. The trainer perturbs 1/8 of its rows and publishes v1; the
+    raw replica updates in place and the dc1 one over ``delta:int8``, and
+    the same requests are served again. The raw replica must be bit-equal
+    to the trainer after each pull, the dc1 one bit-equal to the plain
+    codec's decode of the same bytes (phase 3's check), round 1 apart from
+    round 0, every logit finite; each bf16 round's distances to the
+    teacher-forced forward are printed, not gated (bf16 rounding alone moves
+    this model's logits past phase 5's gates). The gated round: the same
+    requests on v1 cast to f32, within phase 5's gates of the teacher-forced
+    f32 forward, and bit-equal on a rerun. The block forms in f32 at these
+    widths (``xlstm_block_checks``). The prefill and a decode step timed on
+    ``build_model(cfg)``, profiled by kernel class, and the mLSTM and sLSTM
+    blocks' shares of their spans (``xlstm_share``). The GRPO gradients of
+    the two mLSTM forms at 6 layers within 1e-3 (``xlstm_form_gradients``).
+    Then phase 6's RL loop at 2 x 2 x (512 + 64) in f32 (``rl_loop``: its
+    gradients held to the step with the mLSTM on its parallel form within
+    ``XLSTM_GRAD_TOL``), and
+    ``launch.train --arch xlstm-350m --full-config`` for two f32 steps of 2 x
+    512. An ``xlstm_phase_seconds`` line gives each part's seconds. Returns
+    the main path's launches: the served rounds and pulls, the RL loop and
+    the f32 steps (no flash kernel anywhere)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ReferenceServer, TensorHubClient
+    from repro_torch.data.synthetic import PromptSet
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.kernels.quant import quantize_rows_plain
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.transfer.codec import DeltaCodec, Int8Codec
+
+    cfg = get_config("xlstm-350m")
+    check(attention_layers(cfg) == 0, f"{cfg.name}: {attention_layers(cfg)} attention calls")
+    part_s, mark = {}, [time.perf_counter()]
+
+    def lap(part):  # the seconds since the last lap
+        now = time.perf_counter()
+        part_s[part] = now - mark[0]
+        mark[0] = now
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t
+
+    server = ReferenceServer()
+    hub = TensorHubClient(server, device=dev)
+    trainer = hub.open("xlstm", "trainer", 1, 0, datacenter="dc0")
+    trainer.register(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 300), torch.bfloat16, dev))
+    _, publish0_s = timed(lambda: trainer.publish(0))
+    weights = trainer.store.tensors()
+    nparams = sum(w.numel() for w in weights.values())
+    rollout = hub.open("xlstm", "rollout-0", 1, 0, datacenter="dc0")
+    rollout.register({n: torch.zeros_like(w) for n, w in weights.items()})
+    remote = hub.open("xlstm", "rollout-1", 1, 0, datacenter="dc1")
+    remote.register({n: torch.zeros_like(w) for n, w in weights.items()})
+    nbytes = rollout.store.total_bytes
+    emit("model", config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, attention_calls=0, dtype="bfloat16",
+         params=nparams, param_count=cfg.param_count(), bytes=nbytes, tensors=len(weights))
+    _, replicate_s = timed(lambda: rollout.replicate(0, timeout=600))
+    _, replicate_int8_s = timed(lambda: remote.replicate(0, timeout=600))
+
+    def equal_to_trainer(when):
+        for n, w in trainer.store.tensors().items():
+            check(torch.equal(rollout.store.get(n), w), f"{cfg.name} {when}: rollout {n} != trainer")
+
+    equal_to_trainer("after replicate")
+    params = rollout.store.tensors()  # the registered buffers: an update is seen by the next round
+    model = build_model(cfg)
+    prompts = torch.from_numpy(PromptSet(cfg.vocab, XLSTM_PROMPT, seed=SEED).sample(XLSTM_B, 0)).to(dev, torch.int64)
+
+    def serve(params=params):
+        """Prefill, then ``XLSTM_GEN`` greedy decode steps (the last one's
+        logits unused, as ``sample_responses``)."""
+        logits, cache, n = model.prefill(params, {"tokens": prompts})
+        toks, lps, steps = [], [], []
+        for _ in range(XLSTM_GEN):
+            last = logits[:, -1].float()
+            nxt = last.argmax(-1)
+            steps.append(last)
+            lps.append(torch.log_softmax(last, -1).gather(-1, nxt[:, None])[:, 0])
+            toks.append(nxt)
+            logits, cache = model.decode(params, cache, nxt[:, None], n)
+            n += 1
+        check(all(t.dtype == torch.float32 for part in cache.values() for t in part.values()),
+              f"{cfg.name}: the recurrent cache is not f32")
+        return dict(tokens=torch.cat([prompts, torch.stack(toks, 1)], 1), behavior_logprobs=torch.stack(lps, 1),
+                    step_logits=torch.stack(steps, 1))
+
+    rounds, checks = [], []
+    for step in range(2):
+        if step:
+            def perturb_and_publish():
+                trainer.unpublish()
+                gp = torch.Generator(device=dev).manual_seed(SEED + 302)
+                for w in trainer.store.tensors().values():
+                    flat = w.view(-1)
+                    rows = flat[: flat.numel() // 256 * 256].view(-1, 256)[::8]  # 1/8 of the rows, in place
+                    rows.add_(torch.randn(rows.shape, generator=gp, device=dev, dtype=torch.bfloat16).mul_(0.01))
+                trainer.publish(1)
+
+            _, publish_s = timed(perturb_and_publish)
+            updated, update_s = timed(lambda: rollout.update("latest"))
+            check(updated and rollout.current_version == 1, f"{cfg.name}: the rollout did not update to v1")
+            equal_to_trainer("after update")
+            updated, update_delta_s = timed(lambda: remote.update("latest"))
+            check(updated and remote.current_version == 1, f"{cfg.name}: the dc1 replica did not update to v1")
+        with torch.no_grad():
+            rec, round_s = timed(serve)
+        rounds.append(dict(round=step, version=step, dtype="bfloat16", seconds=round_s,
+                           generated_tokens=XLSTM_B * XLSTM_GEN, tokens_per_s=XLSTM_B * XLSTM_GEN / round_s))
+        mid = {k: c.value for k, c in every.items()}
+        res = check_served_round(torch, model, trainer.store.tensors(), rec, step, chunk=XLSTM_B, gate=False)
+        res["gated"] = False
+        emit(f"serve_check {cfg.name} bfloat16", **res)
+        check(res["all_finite"], f"{cfg.name} v{step}: non-finite logits")
+        checks.append(res)
+        check(mid == {k: c.value for k, c in every.items()}, f"{cfg.name}: the checks launched a kernel")
+        if step == 0:
+            first0 = rec["step_logits"][:, 0].clone()
+        else:
+            delta = float((rec["step_logits"][:, 0] - first0).abs().mean())
+            check(delta > 10 * LOGIT_MEAN_ABS, f"{cfg.name}: round 1 logits barely differ from round 0's ({delta})")
+        del rec
+    served = {k: c.value for k, c in every.items()}  # the serving path's launches, read now
+    lap("publish_replicate_serve_update_serve")
+
+    # the dc1 replica against the plain-version codec on the same bytes, unit
+    # by unit (phase 3's check): v0 as the int8 codec decodes it, v1 as the
+    # delta:int8 codec decodes it against that base
+    plain_int8 = Int8Codec(quantize=quantize_rows_plain)
+    plain_delta = DeltaCodec("int8", quantize=quantize_rows_plain)
+    check(hub.transport.delta_stale_fallbacks == 0, f"{cfg.name}: delta fell back to int8 (stale base)")
+    check(server.stats.get("delta_assignments", 0) >= 1, f"{cfg.name}: no delta assignment negotiated")
+    worst = 0.0
+    for u in trainer.store.units:
+        dtype = trainer.store.unit_dtype(u)
+        wire = plain_delta.encode(trainer.store._gather_unit(u), dtype, base=trainer.store.base_unit(u))
+        check(torch.equal(remote.store._gather_unit(u), plain_delta.decode(wire, base=remote.store.base_unit(u))),
+              f"{cfg.name}: dc1 unit {u.name} != the plain delta codec")
+        held_v0 = plain_int8.decode(plain_int8.encode(trainer.store.base_unit(u), dtype))
+        check(torch.equal(remote.store.base_unit(u), held_v0), f"{cfg.name}: dc1 v0 unit {u.name} != the plain int8 codec")
+    for n, w in trainer.store.tensors().items():
+        worst = max(worst, max_rel_err(torch, remote.store.get(n), w))
+    check(worst < 0.01, f"{cfg.name}: dc1 replica max relative error {worst} >= 1%")
+    units = trainer.store.units
+    codec = dict(units=len(units), dc1_max_rel_err=worst, int8_replicate_seconds=replicate_int8_s,
+                 delta_update_seconds=update_delta_s,
+                 wire_bytes={k: v for k, v in hub.transport.wire_bytes.items() if v},
+                 decoded_bytes={k: v for k, v in hub.transport.decoded_bytes.items() if v},
+                 r_gates_units=sorted(u.name for u in units if any("r_gates" in n for n in (u.members or (u.name,)))),
+                 server_stats={k: v for k, v in server.stats.items() if v})
+    emit("codec_check", config=cfg.name, **codec)
+    after_codec = {k: c.value for k, c in every.items()}  # the plain codecs' checksums launch the kernel
+    lap("codec_check")
+
+    # the gated round: the same requests on v1 cast to f32, against the teacher-forced f32 forward, then again
+    w32 = {n: w.float() for n, w in trainer.store.tensors().items()}
+    f32_rounds = []
+    for again in range(2):
+        with torch.no_grad():
+            rec, round_s = timed(lambda: serve(w32))
+        f32_rounds.append(rec)
+        rounds.append(dict(round=2 + again, version=1, dtype="float32", seconds=round_s,
+                           generated_tokens=XLSTM_B * XLSTM_GEN, tokens_per_s=XLSTM_B * XLSTM_GEN / round_s))
+    rerun_equal = all(torch.equal(f32_rounds[0][k], f32_rounds[1][k]) for k in f32_rounds[0])
+    check(rerun_equal, f"{cfg.name}: the f32 round's rerun is not bit-equal")
+    checks.append(check_served_round(torch, model, w32, f32_rounds[0], 1, tag=f"serve_check {cfg.name} float32",
+                                     chunk=XLSTM_B))
+    del f32_rounds, rec
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    lap("f32_rounds")
+    blocks = xlstm_block_checks(torch, dev, cfg, w32)
+    lap("block_checks")
+    forms = xlstm_form_gradients(torch, dev, cfg)
+    lap("form_gradients")
+    check({k: c.value for k, c in every.items()} == after_codec, f"{cfg.name}: the f32 rounds launched a kernel")
+
+    # the prefill and a decode step alone, at the served shapes, on the model as build_model builds it
+    plain = build_model(cfg)
+    with torch.no_grad():
+        pb = {"tokens": prompts}
+        prefill_s = statistics.median(timed(lambda: plain.prefill(params, pb))[1] for _ in range(3))
+        _, cache, n = plain.prefill(params, pb)
+        nxt = prompts[:, -1:]
+        steps_s = [timed(lambda: plain.decode(params, cache, nxt, n + i))[1] for i in range(8)]
+        prefill_share = xlstm_share(torch, lambda: plain.prefill(params, pb))
+        decode_share = xlstm_share(torch, lambda: plain.decode(params, cache, nxt, n))
+        prefill_prof = device_profile(torch, lambda: plain.prefill(params, pb), cpu=False)
+        decode_prof = device_profile(torch, lambda: plain.decode(params, cache, nxt, n), cpu=False)
+    decode_step_s = statistics.median(steps_s)
+    del cache, plain
+    lap("timed_and_profiled")
+    emit("xlstm_serve_profile", card=smi, config=cfg.name, prefill=prefill_prof, prefill_blocks=prefill_share,
+         decode_step=decode_prof, decode_blocks=decode_share)
+    emit("xlstm_arch_result", card=smi, config=cfg.name, layers=cfg.num_layers, params=nparams, bytes=nbytes,
+         requests=XLSTM_B, prompt_len=XLSTM_PROMPT, gen_len=XLSTM_GEN, publish_v0_seconds=publish0_s,
+         replicate_seconds=replicate_s, publish_v1_seconds=publish_s, update_seconds=update_s,
+         replicate_GBps=nbytes / replicate_s / 1e9, update_GBps=nbytes / update_s / 1e9, rounds=rounds,
+         f32_rerun_bit_equal=rerun_equal, timed_model="build_model(cfg)", prefill_seconds=prefill_s,
+         prefill_tokens_per_s=XLSTM_B * XLSTM_PROMPT / prefill_s, decode_step_seconds=decode_step_s,
+         decode_tokens_per_s=XLSTM_B / decode_step_s, prefill_mlstm_share=prefill_share["mlstm_share"],
+         prefill_slstm_share=prefill_share["slstm_share"], decode_mlstm_share=decode_share["mlstm_share"],
+         decode_slstm_share=decode_share["slstm_share"], max_memory_allocated=serve_peak, launches=served,
+         checks=checks, block_checks=blocks, shallow_form_grad_rel_l2_max=forms["grad_rel_l2_max"])
+    for k in ("checksum", "quantize_rows"):
+        check(served[k] > 0, f"{cfg.name}: the publish -> replicate -> update path launched no {k}")
+    check(not any(v for k, v in served.items() if k.startswith("flash")),
+          f"{cfg.name}: a flash kernel was launched ({served})")
+    del model, params, weights, prompts, hub, trainer, rollout, remote, w32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6's RL loop at xlstm-350m's widths in f32 (it resets the counters: the served launches were read
+    # above), its gradients held to the step with the mLSTM on its parallel form
+    rl = rl_loop(torch, dev, counters, smi, cfg=cfg, num_prompts=XLSTM_RL_PROMPTS, group_size=XLSTM_RL_GROUP,
+                 dtype=torch.float32, grad_tol=XLSTM_GRAD_TOL, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("rl_loop")
+
+    from repro_torch.launch import train
+
+    steps, step_s = 2, []
+    make_step = train.make_train_step
+
+    def timed_steps(*a, **kw):  # each step's seconds, ended by a synchronize
+        step_fn = make_step(*a, **kw)
+
+        def run(*args):
+            res, seconds = timed(lambda: step_fn(*args))
+            step_s.append(seconds)
+            return res
+
+        return run
+
+    train.make_train_step = timed_steps
+    try:
+        trained, losses = train_run(torch, every, ["--steps", str(steps)] + XLSTM_TRAIN_ARGV, cfg, steps)
+    finally:
+        train.make_train_step = make_step
+    lap("launch_train")
+    emit("xlstm_phase_seconds", config=cfg.name, card=smi, **part_s, total=sum(part_s.values()))
+    emit("xlstm_train_result", card=smi, config=cfg.name, layers=cfg.num_layers, dtype="float32", losses=losses,
+         batch=XLSTM_TRAIN_B, positions=XLSTM_TRAIN_SEQ, step_seconds=step_s,
+         tokens_per_s=XLSTM_TRAIN_B * XLSTM_TRAIN_SEQ / step_s[-1],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=trained)
+    out = {k: served[k] + rl[k] + trained[k] for k in counters}
+    check(not any(v for k, v in out.items() if k.startswith("flash")), f"{cfg.name}: a flash kernel was launched")
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -5936,8 +6467,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase16 = hybrid_arch(torch, dev, counters, smi)
     phase_s["16 hybrid arch"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase17 = xlstm_arch(torch, dev, counters, smi)
+    phase_s["17 xlstm arch"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16)
+              phase16, phase17)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
@@ -5957,7 +6493,7 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase15=phase15, phase16=phase16, phase_seconds=phase_s)
+         phase15=phase15, phase16=phase16, phase17=phase17, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,8 +19,10 @@ the routed experts of dbrx-132b, deepseek-v3-671b's MLA attention
 absorbed-latent ``mla_decode`` kernel) and the hybrid zamba2-2.7b (its
 Mamba2 blocks in PyTorch ops; its shared attention block's prefill
 through the tensor-core flash kernel and its decode through the split
-decode kernel, both at head_dim 80; all 54 layers, 4.85 GB a copy) are
-ported; another arch exits with the slice it waits for. Requests are token prompts, as the JAX
+decode kernel, both at head_dim 80; all 54 layers, 4.85 GB a copy) and the
+xLSTM xlstm-350m (its mLSTM and sLSTM blocks in PyTorch ops, a recurrent
+cache of their states; all 24 layers, 0.81 GB a copy) are ported: every
+arch of the registry. Requests are token prompts, as the JAX
 package's ``launch/serve.py``: a VLM (internvl2-2b), whose requests carry
 patches, is refused here and served through ``DecoderLM.prefill`` with
 ``batch["patches"]``; an encoder-only config (hubert-xlarge) exits with
@@ -32,6 +34,7 @@ before anything is built.
     python -m repro_torch.launch.serve --arch dbrx-132b --layers 4 --requests 4 --prompt-len 512 --gen-len 16
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --layers 4
     python -m repro_torch.launch.serve --arch zamba2-2.7b --requests 8 --prompt-len 512 --gen-len 64
+    python -m repro_torch.launch.serve --arch xlstm-350m --requests 8 --prompt-len 512 --gen-len 64
 
 It runs on the card by default and raises without one; ``--device cpu``
 runs the plain attention on the host.
@@ -139,7 +142,7 @@ def main(argv=None) -> None:
         if cfg.family == VLM:
             raise NotImplementedError(f"{cfg.name}: a VLM request carries patches, and these requests are "
                                       "token prompts; serve it through DecoderLM.prefill with batch['patches']")
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         ap.exit(2, f"{ap.prog}: {e}\n")
     cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
     copies = 2 * cfg.param_count() * torch.finfo(torch.bfloat16).bits // 8  # the publisher's and the rollout's

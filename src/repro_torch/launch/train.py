@@ -12,6 +12,7 @@ pattern). The port's counterpart of the JAX package's
     python -m repro_torch.launch.train --arch internvl2-2b --full-config --batch 2 --seq 512   # 256 patches + 256 tokens
     python -m repro_torch.launch.train --arch hubert-xlarge --full-config --batch 2 --seq 1000   # 48 layers, head_dim 80
     python -m repro_torch.launch.train --arch zamba2-2.7b --full-config --batch 2 --seq 512   # 54 Mamba2 blocks + 9 shared
+    python -m repro_torch.launch.train --arch xlstm-350m --full-config --batch 2 --seq 512   # 12 mLSTM + 12 sLSTM blocks
     python -m repro_torch.launch.train --steps 50 --resume --ckpt-dir ckpt   # restart from the latest checkpoint
 
 It runs on the card by default and raises without one; ``--device cpu``
@@ -19,9 +20,9 @@ runs on the host. The dense decoder (llama3-8b, yi-34b,
 deepseek-coder-33b, gemma2-2b), the routed experts of dbrx-132b,
 deepseek-v3-671b's MLA attention (the reduced deepseek-v3's attention, q/k
 24 and v 16 in f32, runs the f32 forward and the CUDA-core backward on the
-card), internvl2-2b, hubert-xlarge and the hybrid zamba2-2.7b (its Mamba2
-blocks recomputed in the backward) are ported; another arch exits with the
-slice it waits for. The audio encoder (hubert-xlarge) trains as the
+card), internvl2-2b, hubert-xlarge, the hybrid zamba2-2.7b (its Mamba2
+blocks recomputed in the backward) and the xLSTM xlstm-350m are ported:
+every arch of the registry. The audio encoder (hubert-xlarge) trains as the
 JAX package's, by masked prediction on ``audio_batch`` draws seeded by
 ``seed * 100003 + step`` (frames ``[batch, seq, frontend_dim]``, targets,
 an 8% mask); the bigram stream is not read, and the checkpoint keeps its
@@ -87,7 +88,7 @@ def main(argv=None) -> None:
     try:
         check_trainable(cfg)
         model = build_model(cfg)
-    except NotImplementedError as e:
+    except ValueError as e:
         ap.exit(2, f"{ap.prog}: {e}\n")
 
     dev = resolve_device(args.device)

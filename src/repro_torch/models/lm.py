@@ -51,8 +51,12 @@ MLP with biases.
 Mamba2 (SSD) blocks (:mod:`repro_torch.models.ssd`), each group followed
 by one shared attention block and MLP whose weights every call reuses;
 its decode also runs over a ring-buffer window cache (``ring=True``,
-:func:`_ring_slot`). The xLSTM model waits for a later slice
-(:func:`repro_torch.models.build_model` refuses it).
+:func:`_ring_slot`).
+
+:class:`XLSTMLM` is the JAX package's xLSTM (xlstm-350m): pairs of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block
+(:mod:`repro_torch.models.xlstm_blocks`), with a recurrent cache whose size
+does not depend on the sequence's length.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import VLM, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode
-from repro_torch.models import blocks, ssd
+from repro_torch.models import blocks, ssd, xlstm_blocks
 from repro_torch.models.layers import apply_rope, gelu_mlp, rms_norm, softcap
 
 Params = Mapping[str, torch.Tensor]
@@ -510,4 +514,152 @@ class HybridLM:
             if e == self.every - 1:
                 kv = {n: t[g] for n, t in cache["attn"].items()}
                 x, _ = self._shared_block(shared, x, positions, cache=kv, cache_len=cache_len, ring=ring)
+        return self._head(params, x), cache
+
+
+class XLSTMLM:
+    """The xLSTM LM (xlstm-350m): ``num_layers`` blocks in ``pairs`` of
+    ``xlstm.slstm_every``, each pair ``slstm_every - 1`` mLSTM blocks then
+    one sLSTM block, then the final norm and an untied head; the JAX
+    package's ``XLSTMLM``. No attention and no kernel of its own: its
+    blocks are PyTorch ops (cuBLAS products and elementwise kernels on the
+    card). Parameters are the flat dict a replica registers
+    (:func:`repro_torch.models.params.decoder_shapes`), taken apart with
+    views, so serving makes no copy of them.
+
+    ``mlstm`` is the form of the mLSTM in a cacheless call of more than one
+    token (``forward``, the training step's loss): ``"chunked"`` (the
+    default, the JAX package's) or ``"parallel"`` (the quadratic form, a
+    reference for it). Prefill and decode always run the chunked form and
+    the one-step recurrence, which carry the state."""
+
+    def __init__(self, cfg: ModelConfig, *, mlstm: str = "chunked"):
+        x = cfg.xlstm
+        if x is None:
+            raise ValueError(f"{cfg.name}: XLSTMLM takes a config with xlstm")
+        if mlstm not in ("chunked", "parallel"):
+            raise ValueError(f"xlstm: unknown mLSTM form {mlstm!r}")
+        self.cfg = cfg
+        self.mlstm = mlstm
+        self.every = x.slstm_every
+        if cfg.num_layers % self.every:
+            raise ValueError("xlstm: num_layers must be a multiple of slstm_every")
+        self.pairs = cfg.num_layers // self.every
+        self.n_mlstm_per_pair = self.every - 1
+        self._m_names = tuple(xlstm_blocks.mlstm_shapes(cfg))
+        self._s_names = tuple(xlstm_blocks.slstm_shapes(cfg))
+
+    def _blocks(self, params: Params) -> Tuple[List[Dict[str, torch.Tensor]], List[Dict[str, torch.Tensor]]]:
+        """Each mLSTM block's parameters (pair-major) and each sLSTM
+        block's: views of the stacked tensors, one ``unbind`` a tensor
+        (under grad its backward is one stack)."""
+        m = {n: params[f"pairs/mlstm/{n}"].flatten(0, 1).unbind(0) for n in self._m_names}
+        s = {n: params[f"pairs/slstm/{n}"].unbind(0) for n in self._s_names}
+        return ([{n: m[n][i] for n in self._m_names} for i in range(self.pairs * self.n_mlstm_per_pair)],
+                [{n: s[n][i] for n in self._s_names} for i in range(self.pairs)])
+
+    def _run(self, params: Params, x: torch.Tensor, cache: Optional[Cache] = None, *,
+             form: str = "chunked") -> Tuple[torch.Tensor, Dict[str, Dict[str, List[torch.Tensor]]]]:
+        """Every block in order from ``cache`` (zero states when None).
+        Returns the activations and each block's new state by name, in
+        block order: ``{"mlstm": {n: [each mLSTM block's, pair-major]},
+        "slstm": {n: [each pair's sLSTM block's]}}``."""
+        cfg = self.cfg
+        m_layers, s_layers = self._blocks(params)
+        new: Dict[str, Dict[str, List]] = {"mlstm": {}, "slstm": {}}
+        for p in range(self.pairs):
+            for j in range(self.n_mlstm_per_pair):
+                c = None if cache is None else {n: t[p, j] for n, t in cache["mlstm"].items()}
+                x, st = xlstm_blocks.mlstm_block_apply(cfg, m_layers[p * self.n_mlstm_per_pair + j], x, cache=c,
+                                                       form=form)
+                for n, t in st.items():
+                    new["mlstm"].setdefault(n, []).append(t)
+            c = None if cache is None else {n: t[p] for n, t in cache["slstm"].items()}
+            x, st = xlstm_blocks.slstm_block_apply(cfg, s_layers[p], x, cache=c)
+            for n, t in st.items():
+                new["slstm"].setdefault(n, []).append(t)
+        return x, new
+
+    def _store(self, cache: Cache, new) -> None:
+        """Write the states :meth:`_run` returned into ``cache`` in place."""
+        k = self.n_mlstm_per_pair
+        for n, states in new["mlstm"].items():
+            for i, t in enumerate(states):
+                cache["mlstm"][n][divmod(i, k)].copy_(t)
+        for n, states in new["slstm"].items():
+            for p, t in enumerate(states):
+                cache["slstm"][n][p].copy_(t)
+
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+
+    # -- forward (teacher-forced) ----------------------------------------------
+
+    def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Logits ``[B, S, vocab]`` (f32) of ``{"tokens": [B, S]}``, every
+        block from a zero state (the JAX forward's fresh ``init_cache``).
+        Differentiable with respect to the parameter dict; nothing is
+        recomputed in the backward (the JAX ``_run`` has no
+        ``jax.checkpoint``)."""
+        x = params["embed"][batch["tokens"]]
+        x, _ = self._run(params, x, form=self.mlstm)
+        return self._head(params, x)
+
+    # -- caches ------------------------------------------------------------------
+
+    def cache_shapes(self, batch_size: int, max_len: int = 0) -> Dict[str, Dict[str, tuple]]:
+        """The JAX ``cache_specs``' shapes, which do not depend on
+        ``max_len``: ``{"mlstm": {"c": [pairs, slstm_every - 1, B, H, dh,
+        dh], "n": [.., B, H, dh], "m": [.., B, H]}, "slstm": {"h", "c",
+        "n", "m": [pairs, B, H, d_model / H]}}``."""
+        del max_len  # the recurrent state is O(1) in the sequence's length
+        _, nh, dh = xlstm_blocks.mlstm_dims(self.cfg)
+        dhs = self.cfg.d_model // self.cfg.num_heads
+        lead = (self.pairs, self.n_mlstm_per_pair, batch_size)
+        s = (self.pairs, batch_size, nh, dhs)
+        return {"mlstm": {"c": (*lead, nh, dh, dh), "n": (*lead, nh, dh), "m": (*lead, nh)},
+                "slstm": {"h": s, "c": s, "n": s, "m": s}}
+
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
+        """The states of :meth:`cache_shapes`, all f32 whatever ``dtype``
+        (as the JAX package's ``init_cache``): zeros, but both stabilisers
+        ``m`` at -1e30."""
+        del dtype
+        cache = {part: {n: torch.zeros(s, dtype=torch.float32, device=device) for n, s in shapes.items()}
+                 for part, shapes in self.cache_shapes(batch_size, max_len).items()}
+        cache["mlstm"]["m"].fill_(xlstm_blocks.M_START)
+        cache["slstm"]["m"].fill_(xlstm_blocks.M_START)
+        return cache
+
+    # -- prefill -------------------------------------------------------------------
+
+    def prefill(
+        self, params: Params, batch: Mapping[str, torch.Tensor], *, max_len: Optional[int] = None
+    ) -> Tuple[torch.Tensor, Cache, int]:
+        """Forward over the prompt from a fresh :meth:`init_cache` that
+        leaves every block's final state in it. Returns the last position's
+        logits ``[B, 1, vocab]``, the cache and its length (``max_len`` is
+        taken for the decoder's signature; a recurrent cache has no
+        slots)."""
+        x = params["embed"][batch["tokens"]]
+        b, s, _ = x.shape
+        cache = self.init_cache(b, max_len or s, x.dtype, x.device)
+        x, new = self._run(params, x, cache)
+        self._store(cache, new)
+        return self._head(params, x[:, -1:]), cache, s
+
+    # -- decode ------------------------------------------------------------------------
+
+    def decode(
+        self, params: Params, cache: Cache, tokens: torch.Tensor, cache_len: int
+    ) -> Tuple[torch.Tensor, Cache]:
+        """``tokens [B, S]`` after the cached states: each mLSTM block runs
+        one step of its recurrence for ``S == 1`` and the chunked form from
+        its state for ``S > 1``, each sLSTM block its loop. ``cache_len`` is
+        not read (a recurrent cache has no position). Writes the cache in
+        place and returns it with the logits ``[B, S, vocab]``."""
+        del cache_len
+        x = params["embed"][tokens]
+        x, new = self._run(params, x, cache)
+        self._store(cache, new)
         return self._head(params, x), cache

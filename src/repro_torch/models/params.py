@@ -30,10 +30,18 @@ dt_bias, ln, norm, w_in, w_out}`` stacked ``[groups, shared_block_every,
 ...]``, ``head``, and the one shared block's ``shared_attn/{ln, wk, wo,
 wq, wv}`` and ``shared_mlp/{ln, w_down, w_gate, w_up}``.
 
+An SSM config (xlstm-350m) lists the JAX ``XLSTMLM``'s: ``embed``,
+``final_ln``, ``head``, the mLSTM blocks' ``pairs/mlstm/{b_if, ln, w_down,
+w_if, w_up, wk, wq, wv}`` stacked ``[pairs, slstm_every - 1, ...]`` and the
+sLSTM blocks' ``pairs/slstm/{b_gates, ln, r_gates, w_gates, w_out}``
+stacked ``[pairs, ...]``.
+
 ``init_params`` makes random weights by the JAX package's ``init_tree``
 rule, each tensor drawn as its spec's ``init`` says (``INIT_KINDS``: the
-norms, the encoder's biases and the SSD's ``conv_b``, ``a_log`` and
-``dt_bias`` zeros, its ``d_skip`` ones, the rest normal), from a
+norms, the encoder's biases, the SSD's ``conv_b``, ``a_log`` and
+``dt_bias`` and the xLSTM's gate biases zeros, the SSD's ``d_skip`` ones,
+the rest normal, at the spec's ``scale`` where ``INIT_SCALE`` names one:
+the sLSTM's ``r_gates`` at half the std), from a
 ``torch.Generator``: the numbers differ from ``jax.random``'s, so parity
 tests carry JAX weights across with ``from_numpy`` instead.
 """
@@ -46,7 +54,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import HYBRID, ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 
 # through the core package: transfer.engine and core.client import each
@@ -54,16 +62,22 @@ from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 from repro_torch.core.client import resolve_device
 from repro_torch.models.blocks import mla_shapes, moe_shapes
 from repro_torch.models.ssd import SSD_INIT, ssd_shapes
+from repro_torch.models.xlstm_blocks import XLSTM_INIT, XLSTM_SCALE, mlstm_shapes, slstm_shapes
 
 Shape = Tuple[int, ...]
 
 #: ``spec(..., init=)`` of every parameter that is not drawn normal, by the
 #: last part of its name: the norms of every block and the final one, the
-#: encoder MLP's biases, and the Mamba2 block's (``SSD_INIT``)
+#: encoder MLP's biases, the Mamba2 block's (``SSD_INIT``) and the xLSTM
+#: blocks' gate biases (``XLSTM_INIT``)
 INIT_KINDS = {
     "ln": "zeros", "post_ln": "zeros", "q_ln": "zeros", "kv_ln": "zeros", "final_ln": "zeros",
-    "b_up": "zeros", "b_down": "zeros", **SSD_INIT,
+    "b_up": "zeros", "b_down": "zeros", **SSD_INIT, **XLSTM_INIT,
 }
+#: ``spec(..., scale=)`` of every parameter drawn normal at another std than
+#: ``1/sqrt(shape[-2])``, by the last part of its name: the sLSTM's
+#: recurrent matrices (``XLSTM_SCALE``)
+INIT_SCALE = {**XLSTM_SCALE}
 
 
 def _attn_tree(cfg: ModelConfig) -> Dict[str, Shape]:
@@ -121,11 +135,30 @@ def _hybrid_tree(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _xlstm_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX ``XLSTMLM.param_specs()`` (xlstm-350m): ``slstm_every``
+    blocks a pair, the mLSTM blocks stacked ``[pairs, slstm_every - 1,
+    ...]`` and the one sLSTM block ``[pairs, ...]``."""
+    every = cfg.xlstm.slstm_every
+    pairs = cfg.num_layers // every
+    return {
+        "embed": (cfg.vocab, cfg.d_model),
+        "pairs": {
+            "mlstm": {n: (pairs, every - 1, *s) for n, s in mlstm_shapes(cfg).items()},
+            "slstm": {n: (pairs, *s) for n, s in slstm_shapes(cfg).items()},
+        },
+        "final_ln": (cfg.d_model,),
+        "head": (cfg.d_model, cfg.vocab),
+    }
+
+
 def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.encoder_only:
         return _encoder_tree(cfg)
     if cfg.family == HYBRID:
         return _hybrid_tree(cfg)
+    if cfg.family == SSM:
+        return _xlstm_tree(cfg)
     mo = cfg.moe
     n_prefix = mo.first_dense if mo is not None else 0
     L = cfg.num_layers - n_prefix
@@ -161,7 +194,7 @@ def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Shape]]:
 def decoder_shapes(cfg: ModelConfig) -> List[Tuple[str, Shape]]:
     """``(name, shape)`` of every parameter of ``cfg``'s model (the
     decoder's, an encoder-only config's encoder, a hybrid config's
-    ``HybridLM``), in registration order."""
+    ``HybridLM``, an SSM config's ``XLSTMLM``), in registration order."""
     return _flatten(_spec_tree(cfg))
 
 
@@ -180,7 +213,8 @@ def init_params(
     (the card unless the caller asks for the CPU; ``generator`` must live
     on the same device). As ``init_tree``: the tensors ``INIT_KINDS``
     names by their last part are zeros or ones, every other tensor normal
-    with std ``1/sqrt(shape[-2])``, drawn in f32 and cast to ``dtype``. A stacked
+    with std ``scale/sqrt(shape[-2])`` (``scale`` from ``INIT_SCALE``, 1
+    where it names none), drawn in f32 and cast to ``dtype``. A stacked
     tensor is drawn one matrix at a time (a layer's, or a layer's expert's),
     so the f32 temporary is one matrix's, not the whole stack's: dbrx's
     ``w_gate`` at 4 layers would be a 17 GB f32 temporary."""
@@ -192,7 +226,7 @@ def init_params(
         if kind == "ones":
             t.fill_(1)
         elif kind == "normal":
-            std = 1.0 / np.sqrt(shape[-2])
+            std = INIT_SCALE.get(name.rsplit("/", 1)[-1], 1.0) / np.sqrt(shape[-2])
             for part in t.view(-1, *shape[-2:]):
                 part.copy_(
                     torch.randn(part.shape, generator=generator, dtype=torch.float32, device=dev).mul_(std)

@@ -20,8 +20,9 @@ and ``TrainerWorker`` from the JAX package's ``rl/loop.py``.
   counterpart either.
 
 Both sides take every ported family that decodes: the decoder (dense, MoE,
-MLA) and the hybrid (zamba2), whose registered buffers are the
-``HybridLM``'s names (:func:`repro_torch.models.params.decoder_shapes`).
+MLA), the hybrid (zamba2) and the xLSTM (xlstm-350m), whose registered
+buffers are the ``HybridLM``'s and the ``XLSTMLM``'s names
+(:func:`repro_torch.models.params.decoder_shapes`).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from repro_torch.core import TensorHubClient
 from repro_torch.core.errors import StaleHandleError, TensorHubError
 from repro_torch.data.synthetic import PromptSet
 from repro_torch.models import build_model, check_trainable
-from repro_torch.models.lm import DecoderLM, HybridLM
+from repro_torch.models.lm import DecoderLM, HybridLM, XLSTMLM
 from repro_torch.models.params import decoder_shapes, init_params
 from repro_torch.training import AdamW, group_relative_advantages, make_grpo_step
 
@@ -60,7 +61,7 @@ class RLConfig:
 
 
 def sample_responses(
-    model: Union[DecoderLM, HybridLM],
+    model: Union[DecoderLM, HybridLM, XLSTMLM],
     params,
     prompts: torch.Tensor,  # [B, prompt_len] int64
     response_len: int,
@@ -70,8 +71,9 @@ def sample_responses(
 ):
     """Autoregressive sampling: prefill, then ``response_len`` decode
     steps (the last one's logits go unused, as in the JAX loop), for the
-    decoder and for the hybrid (whose decode carries its Mamba2 blocks'
-    conv rows and states beside the shared block's K/V). Returns
+    decoder, for the hybrid (whose decode carries its Mamba2 blocks'
+    conv rows and states beside the shared block's K/V) and for the xLSTM
+    (whose cache is its blocks' recurrent states). Returns
     ``(sequences [B, prompt_len + response_len], logprobs [B,
     response_len])`` of the sampled tokens and, with ``return_logits``,
     the f32 logits each token was sampled from ``[B, response_len,
@@ -249,7 +251,7 @@ class TrainerWorker:
         self.model_cfg = model_cfg
         self.device = hub.device
         self.dtype = dtype
-        check_trainable(model_cfg)  # before any weight is allocated: a family not ported is refused
+        check_trainable(model_cfg)  # before any weight is allocated: a family the port does not know is refused
         self.model = build_model(model_cfg)
         self.queue = rollout_queue
         self.opt = AdamW(lr=cfg.lr, weight_decay=0.0)

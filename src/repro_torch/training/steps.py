@@ -23,10 +23,11 @@ batches, as the JAX package's ``make_loss_fn``. The hybrid (zamba2) is
 trained by the LM loss too: the backward of its Mamba2 blocks is
 autograd's, each block recomputed from its input
 (:meth:`repro_torch.models.lm.HybridLM.forward`), and its shared block's
-attention backward is flash attention's kernels. The GRPO objective, as
-the JAX package's, feeds the model tokens only. Configs of the SSM family
-raise ``NotImplementedError`` and wait for their slice
-(:func:`repro_torch.models.check_trainable`).
+attention backward is flash attention's kernels. The xLSTM (xlstm-350m)
+is trained by the LM loss too, the backward of its mLSTM and sLSTM blocks
+autograd's with nothing recomputed. The GRPO objective, as the JAX
+package's, feeds the model tokens only. A config of a family the port does
+not know raises ``ValueError`` (:func:`repro_torch.models.check_trainable`).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def value_and_grad(
 
 
 def make_loss_fn(model, cfg) -> Callable:
-    check_trainable(cfg)  # the families not ported are refused
+    check_trainable(cfg)  # a family the port does not know is refused
     offset = cfg.num_patches if cfg.family == VLM else 0  # a VLM's logits start with its patches
 
     def loss_fn(params, batch):
@@ -113,9 +114,9 @@ def make_prefill_step(model) -> Callable:
 def make_decode_step(model, *, ring: bool = False) -> Callable:
     """One serve_step: append one token to the KV/recurrent cache
     (written in place). ``ring`` decodes over a ring-buffer window cache,
-    which only the hybrid model has; another model decodes as it always
-    does, as the JAX package's step (which finds that out by a
-    ``TypeError``)."""
+    which only the hybrid model has; another model (the xLSTM's recurrent
+    cache included) decodes as it always does, as the JAX package's step
+    (which finds that out by a ``TypeError``)."""
     kwargs = {"ring": True} if ring and isinstance(model, HybridLM) else {}
 
     def decode_step(params, cache, tokens, cache_len):
@@ -147,7 +148,7 @@ def make_grpo_step(
     """RL training step: GRPO clipped policy gradient over sampled
     rollouts; writes ``params`` in place. ``grads_out``, when given, is
     filled with each step's gradients (for checks that need them)."""
-    check_trainable(cfg)  # the families not ported are refused
+    check_trainable(cfg)  # a family the port does not know is refused
     loss_fn = make_grpo_loss_fn(model)
 
     def rl_step(params: Tensors, opt_state: AdamWState, batch):

@@ -7,19 +7,20 @@ do ``reduced()``, ``param_count()``, ``active_param_count()``,
 reduced, the port's parameter names, shapes and order are the JAX
 ``DecoderLM``'s, and so are dbrx-132b's (routed experts) and
 deepseek-v3-671b's (MLA attention) and internvl2-2b's (the VLM family), and
-zamba2-2.7b's are the JAX ``HybridLM``'s. A
-family the port has no model for is refused with the slice it waits for,
-by ``build_model`` and by both entry points (``launch.serve`` refuses
-internvl2-2b too: its requests are token prompts; and hubert-xlarge, the
-audio encoder, which ``build_model`` builds and ``launch.train`` trains, as
-encoder-only); dbrx is built, trained by ``launch/train.py`` at its reduced
+zamba2-2.7b's are the JAX ``HybridLM``'s and xlstm-350m's the JAX
+``XLSTMLM``'s. Every family of the registry is built; a family neither
+package knows raises ``ValueError`` in both packages' ``build_model``.
+``launch.serve`` refuses internvl2-2b (its requests are token prompts) and
+hubert-xlarge (the audio encoder, which ``build_model`` builds and
+``launch.train`` trains, as encoder-only); dbrx is built, trained by ``launch/train.py`` at its reduced
 config and served by ``serve()`` at a reduced config (``serve.main``
 refuses its 40 layers, which do not fit a device, before allocating
 anything); deepseek-v3 is built, served and, its MLA attention included,
 taken by every training entry point on the host (a step with a finite
 loss, a registered trainer, ``launch/train.py`` printing finite losses);
-zamba2-2.7b (the hybrid family) is built, trained by ``launch/train.py``
-at its reduced config and admitted by ``serve.main`` at all 54 layers.
+zamba2-2.7b (the hybrid family) and xlstm-350m (the SSM family) are built,
+trained by ``launch/train.py`` at their reduced configs and admitted by
+``serve.main`` at all their layers (54 and 24).
 """
 
 import dataclasses
@@ -37,7 +38,7 @@ from repro_torch.configs import base as port_base  # noqa: E402
 from repro_torch.launch import serve as serve_main  # noqa: E402
 from repro_torch.launch import train as train_main  # noqa: E402
 from repro_torch.models import build_model, check_ported, check_trainable  # noqa: E402
-from repro_torch.models.lm import DecoderLM, EncoderLM, HybridLM  # noqa: E402
+from repro_torch.models.lm import DecoderLM, EncoderLM, HybridLM, XLSTMLM  # noqa: E402
 from repro_torch.models.params import decoder_shapes  # noqa: E402
 
 DENSE_IDS = ("llama3-8b", "yi-34b", "deepseek-coder-33b", "gemma2-2b")
@@ -48,20 +49,22 @@ SERVED_IDS = PORTED_IDS + ("deepseek-v3-671b", "internvl2-2b")
 ENCODER_IDS = ("hubert-xlarge",)
 #: built, served and trained through ``HybridLM`` (the hybrid family)
 HYBRID_IDS = ("zamba2-2.7b",)
-OTHER_IDS = tuple(a for a in jax_configs.ARCH_IDS if a not in SERVED_IDS + ENCODER_IDS + HYBRID_IDS)
-#: what the refusal of each family names (the VLM's and the encoder's: ``launch.serve``'s)
-WAITS_FOR = {"vlm": "patches", "hybrid": "hybrid", "ssm": "SSM", "audio": "encoder-only: no decode path to serve"}
-#: (entry point, arch) pairs each entry point refuses, ``train`` with
-#: internvl2-2b and hubert-xlarge, which train now, and both with
-#: zamba2-2.7b, which is served and trained now (the cases kept their names)
-REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + OTHER_IDS]
+#: built, served and trained through ``XLSTMLM`` (the SSM family)
+SSM_IDS = ("xlstm-350m",)
+#: what ``launch.serve``'s refusal of each family names
+WAITS_FOR = {"vlm": "patches", "audio": "encoder-only: no decode path to serve"}
+#: (entry point, arch) pairs each entry point refused while their slices
+#: were out: ``serve`` still refuses internvl2-2b and hubert-xlarge, which
+#: ``train`` trains; zamba2-2.7b and xlstm-350m are served and trained now
+#: (the cases kept their names)
+REFUSED = [(e, a) for e in ("serve", "train") for a in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + SSM_IDS]
 #: what the training entry points' refusal of MLA names
 
 
 def test_registry_ids_equal():
     assert port_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert list(port_configs.all_configs()) == list(jax_configs.all_configs())
-    assert set(SERVED_IDS) | set(ENCODER_IDS) | set(HYBRID_IDS) | set(OTHER_IDS) == set(port_configs.ARCH_IDS)
+    assert set(SERVED_IDS) | set(ENCODER_IDS) | set(HYBRID_IDS) | set(SSM_IDS) == set(port_configs.ARCH_IDS)
 
 
 def test_unknown_arch_raises():
@@ -108,7 +111,7 @@ def test_llama3_8b_source_copied_as_it_stands():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", SERVED_IDS + HYBRID_IDS)
+@pytest.mark.parametrize("arch", SERVED_IDS + HYBRID_IDS + SSM_IDS)
 def test_decoder_shapes_are_the_jax_param_specs(arch, reduced):
     got, want = port_configs.get_config(arch), jax_configs.get_config(arch)
     if reduced:
@@ -136,13 +139,22 @@ def test_build_model_builds_the_dense_ids(arch):
     assert model.windows == want
 
 
-@pytest.mark.parametrize("arch", ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + OTHER_IDS)
+@pytest.mark.parametrize("arch", ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + SSM_IDS)
 def test_build_model_refuses_the_families_not_ported(arch):
-    """Each family the port has no model for is refused with its slice
-    named; internvl2-2b (the VLM family), hubert-xlarge (the audio family)
-    and zamba2-2.7b (the hybrid family), refused until their slices were
-    in, now build, full and reduced (the cases kept their names)."""
+    """internvl2-2b (the VLM family), hubert-xlarge (the audio family),
+    zamba2-2.7b (the hybrid family) and xlstm-350m (the SSM family), each
+    refused until its slice was in, now build, full and reduced (the cases
+    kept their names)."""
     cfg = port_configs.get_config(arch)
+    if arch in SSM_IDS:
+        for c in (cfg, cfg.reduced()):
+            check_ported(c)
+            check_trainable(c)
+            model = build_model(c)
+            assert isinstance(model, XLSTMLM) and model.cfg is c and model.mlstm == "chunked"
+            assert (model.pairs, model.every) == (c.num_layers // c.xlstm.slstm_every, c.xlstm.slstm_every)
+        assert build_model(cfg, mlstm="parallel").mlstm == "parallel"
+        return
     if arch in HYBRID_IDS:
         for c in (cfg, cfg.reduced()):
             check_ported(c)
@@ -160,10 +172,22 @@ def test_build_model_refuses_the_families_not_ported(arch):
         check_trainable(cfg)
         assert isinstance(build_model(cfg), EncoderLM) and build_model(cfg.reduced()).cfg.encoder_only
         return
-    with pytest.raises(NotImplementedError, match=WAITS_FOR[cfg.family]):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match=WAITS_FOR[cfg.family]):
-        check_ported(cfg.reduced())
+    raise AssertionError(f"{arch}: no case")
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_build_model_raises_on_an_unknown_family(package):
+    """A family neither package knows: both packages' ``build_model``
+    raise ``ValueError`` naming it, and the port's ``check_ported`` and
+    ``check_trainable`` with it."""
+    configs, build = (jax_configs, jax_build_model) if package == "jax" else (port_configs, build_model)
+    cfg = dataclasses.replace(configs.get_config("llama3-8b").reduced(), family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build(cfg)
+    if package == "port":
+        for fn in (check_ported, check_trainable):
+            with pytest.raises(ValueError, match="unknown family 'rnn'"):
+                fn(cfg)
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -184,9 +208,9 @@ def test_mla_and_moe_build_in_a_dense_family_config():
     deepseek-v3's latent attention, shared expert and dense prefix), as
     the JAX ``DecoderLM`` takes them by ``cfg.mla`` and ``cfg.moe``, not by
     family; training takes both, in a VLM config too; a hybrid config
-    builds its ``HybridLM`` whatever its ``mla`` (as the JAX package's
-    ``build_model`` picks the model by family), and training still refuses
-    an SSM config with its slice named."""
+    builds its ``HybridLM`` and an SSM config its ``XLSTMLM`` whatever
+    their ``mla`` (as the JAX package's ``build_model`` picks the model by
+    family), and training takes both."""
     base = port_configs.get_config("llama3-8b")
     ds = port_configs.get_config("deepseek-v3-671b")
     mla = dataclasses.replace(base, mla=ds.mla)
@@ -199,9 +223,9 @@ def test_mla_and_moe_build_in_a_dense_family_config():
                   if port_configs.get_config(a).family == port_base.HYBRID)
     check_trainable(dataclasses.replace(hybrid, mla=ds.mla))
     assert isinstance(build_model(dataclasses.replace(hybrid, mla=ds.mla)), HybridLM)
-    ssm = next(port_configs.get_config(a) for a in OTHER_IDS if port_configs.get_config(a).family == port_base.SSM)
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        check_trainable(dataclasses.replace(ssm, mla=ds.mla))
+    ssm = next(port_configs.get_config(a) for a in SSM_IDS if port_configs.get_config(a).family == port_base.SSM)
+    check_trainable(dataclasses.replace(ssm, mla=ds.mla))
+    assert isinstance(build_model(dataclasses.replace(ssm, mla=ds.mla)), XLSTMLM)
     cfg = dataclasses.replace(base, moe=ds.moe)
     check_trainable(cfg)
     model = build_model(cfg)
@@ -267,14 +291,15 @@ def test_serve_answers_a_reduced_deepseek_v3():
 @pytest.mark.parametrize("entry,arch", REFUSED, ids=[f"{e}-{a}" for e, a in REFUSED])
 def test_entry_points_exit_with_the_slice_a_family_waits_for(arch, entry, capsys, monkeypatch):
     main = serve_main.main if entry == "serve" else train_main.main
-    if entry == "serve" and arch in HYBRID_IDS:  # all 54 layers admitted on an 80 GB card, nothing allocated here
+    if entry == "serve" and arch in HYBRID_IDS + SSM_IDS:  # all layers admitted on an 80 GB card, nothing allocated
         monkeypatch.setattr(serve_main, "device_memory", lambda device: 80 * 10**9)
         served = []
         monkeypatch.setattr(serve_main, "serve", lambda cfg, **kw: served.append(cfg))
         main(["--arch", arch, "--device", "cpu"])
-        assert served[0].num_layers == 54 and served[0].family == port_base.HYBRID
+        want = (54, port_base.HYBRID) if arch in HYBRID_IDS else (24, port_base.SSM)
+        assert (served[0].num_layers, served[0].family) == want
         return
-    if entry == "train" and arch in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS:  # 4 patches + 8 tokens; 12 frames
+    if entry == "train" and arch in ("internvl2-2b",) + ENCODER_IDS + HYBRID_IDS + SSM_IDS:  # 4 patches + 8 tokens
         import math
         import re
 

@@ -2101,3 +2101,133 @@ def test_zamba2_serves_on_the_card(dev, dtype):
             assert torch.isfinite(a).all() and float(d.max()) < 0.5 and float(d.mean()) < 0.05, t
         assert {r: c.value - routes[r] for r, c in fa.ROUTE_LAUNCHES.items()} == {"tensor_core": 0, "f32": 0,
                                                                                  "decode": 40}
+
+
+# -- the SSM family (xlstm-350m): the xLSTM blocks in PyTorch ops on the card ----------------
+
+
+def _scaled_err(got, want) -> float:
+    """max |got - want| over max |want|, both taken to the CPU in f64."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("form", ["chunked", "parallel", "step"])
+def test_xlstm_mlstm_forms_on_the_card_equal_the_cpu(dev, form):
+    """The mLSTM at xlstm-350m's widths (4 heads of 512), B 2, T 300 (the
+    chunked form's two chunks of 256, the second padded), f32: each form on
+    the card against the same call on the CPU, the outputs and the final
+    state within 1e-4 of their max |value| (cuBLAS and the host sum in other
+    orders; the normaliser divides by small sums, tests/test_torch_xlstm.py),
+    and the form against the chunked one on the card within 2e-3
+    (tests/test_blocks.py's bound). ``step``: 16 one-step recurrences from the
+    state the chunked form left after 284 positions."""
+    from repro_torch.models import xlstm_blocks as xb
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 300, 512, generator=g) for _ in range(3))
+    i_raw = torch.randn(2, 4, 300, generator=g)
+    f_raw = torch.randn(2, 4, 300, generator=g) + 2.0
+    cpu = [q, k, v, i_raw, f_raw]
+    card = [t.to(dev) for t in cpu]
+
+    def run(args):
+        if form == "chunked":
+            return xb._mlstm_chunked(*args)
+        if form == "parallel":
+            return xb._mlstm_parallel(*args), xb._mlstm_fold_state(*args)
+        out, state = xb._mlstm_chunked(*(a[:, :, :284] for a in args))
+        outs = []
+        for t in range(284, 300):
+            o, state = xb._mlstm_step(state, *(a[:, :, t] for a in args))
+            outs.append(o)
+        return torch.stack(outs, 2), state
+
+    got, got_s = run(card)
+    want, want_s = run(cpu)
+    assert got.device == dev and torch.isfinite(got).all()
+    assert _scaled_err(got, want) <= 1e-4
+    for n in want_s:
+        assert got_s[n].dtype == torch.float32 and _scaled_err(got_s[n], want_s[n]) <= 1e-4, n
+    chunked, _ = xb._mlstm_chunked(*card)
+    ref = chunked[:, :, 284:] if form == "step" else chunked
+    assert _scaled_err(got, ref) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xlstm_blocks_at_the_published_widths_on_the_card(dev, dtype):
+    """One mLSTM and one sLSTM block of xlstm-350m (d_model 1024), B 2, T
+    40, weights drawn by ``init_params``: the card against the CPU (f32:
+    within 1e-4 of the max |value|; bf16: 2e-2 relative L2), the sLSTM split
+    at 5 against the whole sequence within 2e-3, its state f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm_blocks as xb
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=2, vocab=256)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, dev)
+    m = {n.rsplit("/", 1)[-1]: t[0, 0] for n, t in params.items() if n.startswith("pairs/mlstm/")}
+    s = {n.rsplit("/", 1)[-1]: t[0] for n, t in params.items() if n.startswith("pairs/slstm/")}
+    x = torch.randn(2, 40, 1024, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
+    for fn, p in ((xb.mlstm_block_apply, m), (xb.slstm_block_apply, s)):
+        got, st = fn(cfg, p, x)
+        want, _ = fn(cfg, {n: t.cpu() for n, t in p.items()}, x.cpu())
+        assert got.dtype == dtype and all(t.dtype == torch.float32 for t in st.values())
+        if dtype == torch.float32:
+            assert _scaled_err(got, want) <= 1e-4
+        else:
+            rel = float((got.double().cpu() - want.double()).norm() / want.double().norm())
+            assert rel <= 2e-2, rel
+    whole, _ = xb.slstm_block_apply(cfg, s, x)
+    a, st = xb.slstm_block_apply(cfg, s, x[:, :5])
+    b, _ = xb.slstm_block_apply(cfg, s, x[:, 5:], cache=st)
+    assert _scaled_err(torch.cat([a, b], 1), whole) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xlstm_serves_on_the_card_as_on_the_cpu(dev, dtype):
+    """The reduced xlstm-350m served on the card: a prefill of 2 x 300 (two
+    chunks) and 12 decode steps, against the same calls on the CPU (f32:
+    every logit within 1e-4 of the max |value|; bf16: 2e-2 relative L2 over
+    the steps), and against the teacher-forced forward on the card within
+    phase 5's gates; the cache stays f32 and the calls launch no flash
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("xlstm-350m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    for n, t in params.items():  # the norms and gate biases away from zero
+        if n.endswith(("ln", "b_if", "b_gates")):
+            t.normal_(generator=torch.Generator().manual_seed(len(n))).mul_(0.3)
+    params = {n: t.to(dtype) for n, t in params.items()}
+    on_card = {n: t.to(dev) for n, t in params.items()}
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 312), generator=torch.Generator().manual_seed(1))
+
+    def serve(p, tk):
+        logits, cache, n = model.prefill(p, {"tokens": tk[:, :300]})
+        steps = [logits[:, -1]]
+        for t in range(300, 311):
+            logits, cache = model.decode(p, cache, tk[:, t : t + 1], t)
+            steps.append(logits[:, -1])
+        assert all(c.dtype == torch.float32 for part in cache.values() for c in part.values())
+        return torch.stack(steps, 1)
+
+    before = fa.LAUNCHES.value
+    with torch.no_grad():
+        got = serve(on_card, toks.to(dev))
+        want = serve(params, toks)
+        full = model.forward(on_card, {"tokens": toks[:, :311].to(dev)})
+    assert fa.LAUNCHES.value == before and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert _scaled_err(got, want) <= 1e-4
+    else:
+        rel = float((got.double().cpu() - want.double()).norm() / want.double().norm())
+        assert rel <= 2e-2, rel
+    d = (got - full[:, 299:311]).abs()
+    assert float(d.max()) < 0.5 and float(d.mean()) < 0.05

@@ -48,6 +48,7 @@ from repro.training import steps as jsteps  # noqa: E402
 from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.configs.llama3_8b import CONFIG as PORT_LLAMA  # noqa: E402
 from repro_torch.data.synthetic import BigramStream  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.params import from_numpy  # noqa: E402
 from repro_torch.training import objectives as pobj  # noqa: E402
@@ -327,15 +328,18 @@ def test_train_step_matches_jax(model, accum):
 
 
 def test_steps_refuse_other_families():
-    """The steps take the dense family; a config of a family the port has
-    no model for (the registry's SSM here, since the audio encoder and the
-    hybrid train) is refused with its slice named."""
+    """The steps take every family of the registry (the SSM family, the
+    last one refused, since its slice); a config of a family the port does
+    not know is refused by both, naming it."""
     ssm = port_get_config("xlstm-350m")
     assert ssm.family == "ssm"
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        psteps.make_loss_fn(DecoderLM(PORT_CFG), ssm)
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        psteps.make_grpo_step(DecoderLM(PORT_CFG), ssm, popt.AdamW())
+    psteps.make_loss_fn(build_model(ssm), ssm)
+    psteps.make_grpo_step(build_model(ssm), ssm, popt.AdamW())
+    other = dataclasses.replace(PORT_CFG, family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        psteps.make_loss_fn(DecoderLM(PORT_CFG), other)
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        psteps.make_grpo_step(DecoderLM(PORT_CFG), other, popt.AdamW())
 
 
 

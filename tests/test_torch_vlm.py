@@ -18,7 +18,8 @@ internvl2-2b`` on the CPU prints the JAX trainer's losses from the same
 initial weights and patches (the port's stand-in patches, not the JAX
 trainer's zeros: with zeros both packages' gradients overflow at 16
 layers). ``check_ported`` takes the VLM family (and, since their slices,
-the audio and hybrid families) and still refuses the SSM family by name.
+the audio, hybrid and SSM families: every family of the registry) and
+refuses a family it does not know.
 """
 
 import dataclasses
@@ -265,16 +266,15 @@ def test_zero_patches_overflow_in_both_packages_at_16_layers():
 
 
 def test_check_ported_takes_the_vlm_and_refuses_the_rest():
-    for arch in (ARCH, "hubert-xlarge", "zamba2-2.7b"):
+    for arch in (ARCH, "hubert-xlarge", "zamba2-2.7b", "xlstm-350m"):
         for cfg in (get_config(arch), get_config(arch).reduced()):
             check_ported(cfg)
             check_trainable(cfg)
             assert build_model(cfg).cfg is cfg
-    for arch, family in (("xlstm-350m", "SSM"),):
-        cfg = get_config(arch)
-        for fn in (check_ported, check_trainable, build_model):
-            with pytest.raises(NotImplementedError, match=family):
-                fn(cfg)
+    cfg = dataclasses.replace(get_config(ARCH), family="rnn")
+    for fn in (check_ported, check_trainable, build_model):
+        with pytest.raises(ValueError, match="unknown family 'rnn'"):
+            fn(cfg)
 
 
 def test_serve_entry_point_refuses_a_vlm_before_allocating(monkeypatch, capsys):
