@@ -268,8 +268,22 @@ lines, any failure exiting non-zero:
    --arch xlstm-350m --full-config`` for two f32 steps of 2 x 512. The
    prefill and a decode step timed and profiled, with the mLSTM and sLSTM
    blocks' shares of their spans (``xlstm_share``).
+18. Sharding and flags: the 1x1 smoke mesh (``launch.make_smoke_mesh``,
+   NCCL at world size 1) with the serve rules' placements of every
+   llama3-8b tensor (all replicated) and a 1 GiB tensor distributed over
+   it and back bit-equal; H3 (``optimizations(mesh=, shardmap_moe=True)``)
+   on a reduced dbrx layer, from plain and placed tensors, taking the
+   reference's ``tp <= 1`` fallback bit-equal to ``moe_apply``; H2's
+   ``rms_norm`` (``lowp_norm``) at [16 x 512, 4096] bf16, off and on, each
+   within 2e-2 of the f32 norm in float64 and timed beside one bf16 read
+   and write at the memory rate; a bf16 llama3-8b prefill (16 x 512, 32
+   layers) and a bf16 hubert-xlarge encode (8 x 1000 frames, 48 layers),
+   each with H2 off and on: wall and device time, the elementwise share of
+   device time, the flash launches (32 and 48 on the tensor-core route a
+   call) and the H2 logits' distance from the H2-off logits (printed, not
+   gated).
 
-A ``kernels`` JSON line (launches over phases 3 to 17; flash
+A ``kernels`` JSON line (launches over phases 3 to 18; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -6205,6 +6219,173 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
     return out
 
 
+# -- phase 18: sharding and flags (the smoke mesh, H3's fallback, H2) --------------
+
+#: H2's norm alone: phase 5's prefill rows at llama3-8b's width
+H2_NORM_SHAPE = (SERVE_BATCH * PROMPT_LEN, 4096)
+H2_NORM_TOL = 2e-2  # bf16, of the f32 norm's max |value|
+SMOKE_MESH_BYTES = GIB
+H3_TOKENS = (4, 512)  # the reduced dbrx layer's input, batch x sequence
+H2_PASSES = 2  # each H2 setting's turns in a model
+H2_TIMED = 2  # calls a turn timed by the host clock, and then profiled
+
+
+def sharding_flags(torch, dev, counters, smi: str, bw: float) -> dict:
+    """Phase 18: the smoke mesh and its placements, H3's fallback on it,
+    H2's norm alone and in llama3-8b's prefill and hubert's encode (see the
+    module's docstring). Returns the flash launches of the two models'
+    calls with H2 off and on (the logits', the timed and the profiled ones)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import audio_batch
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch import make_smoke_mesh, mesh_num_devices
+    from repro_torch.models import blocks, build_model, optim
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.params import decoder_specs, init_params
+    from repro_torch.sharding import SERVE_RULES, placements_for, sharding_for, spec_for
+
+    # the smoke mesh: every llama3-8b tensor replicated, 1 GiB there and back
+    mesh = make_smoke_mesh(dev)
+    check(dist.get_backend() == "nccl" and mesh_num_devices(mesh) == 1, f"smoke mesh {mesh}")
+    llama = get_config("llama3-8b")
+    placed = {n: sharding_for(p, SERVE_RULES, mesh) for n, p in decoder_specs(llama)}
+    check(all(pl == (Replicate(), Replicate()) for pl in placed.values()), f"smoke mesh placements {placed}")
+    big = torch.randn(SMOKE_MESH_BYTES // 4, generator=torch.Generator(device=dev).manual_seed(SEED + 180),
+                      device=dev)
+    dt = distribute_tensor(big, mesh, placed["embed"])
+    round_trip = bool(torch.equal(dt.to_local(), big) and torch.equal(dt.full_tensor(), big))
+    check(round_trip, "a tensor distributed over the smoke mesh came back changed")
+    emit("smoke_mesh", card=smi, backend=dist.get_backend(), shape=list(mesh.shape), names=list(mesh.mesh_dim_names),
+         tensors=len(placed), placements=sorted({str(pl) for pl in placed.values()}), bytes=big.numel() * 4,
+         bit_equal=round_trip)
+    del big, dt
+
+    # H3 on one device: the reference's tp <= 1 fallback, bit-equal to moe_apply
+    dbrx = get_config("dbrx-132b").reduced()
+    params = init_params(dbrx, torch.Generator(device=dev).manual_seed(SEED + 181), torch.bfloat16, dev)
+    layer = {n: params[f"layers/ffn/{n}"][0] for n in blocks.moe_specs(dbrx)}
+    x = torch.randn(*H3_TOKENS, dbrx.d_model, generator=torch.Generator(device=dev).manual_seed(SEED + 182),
+                    device=dev).to(torch.bfloat16)
+    specs = blocks.moe_specs(dbrx)
+    with torch.no_grad():
+        want = blocks.moe_apply(dbrx, layer, x)
+        with optim.optimizations(mesh=mesh, shardmap_moe=True):
+            plain = blocks.moe_apply_shardmap(dbrx, layer, x)
+            xd = distribute_tensor(x, mesh, placements_for(spec_for(tuple(x.shape), ("batch", "seq", "act_embed"),
+                                                                    SERVE_RULES, mesh), mesh))
+            dts = blocks.moe_apply_shardmap(
+                dbrx, {n: distribute_tensor(t, mesh, sharding_for(specs[n], SERVE_RULES, mesh)) for n, t in layer.items()},
+                xd)
+    h3 = dict(plain_bit_equal=bool(torch.equal(plain, want)), dtensor=isinstance(dts, DTensor),
+              dtensor_bit_equal=bool(torch.equal(dts.full_tensor(), want)), same_placements=dts.placements == xd.placements)
+    emit("h3_fallback", card=smi, config=dbrx.name, tokens=list(H3_TOKENS), **h3)
+    check(all(h3.values()), f"H3 on the smoke mesh is not moe_apply: {h3}")
+    del params, layer
+    dist.destroy_process_group()
+
+    # H2's norm alone, off and on, against the f32 norm in float64
+    g = torch.Generator(device=dev).manual_seed(SEED + 183)
+    xn = (torch.randn(H2_NORM_SHAPE, generator=g, device=dev) * 3).to(torch.bfloat16)
+    gamma = (torch.randn(H2_NORM_SHAPE[-1], generator=g, device=dev) * 0.3).to(torch.bfloat16)
+    xd64 = xn.double()
+    exact = xd64 * torch.rsqrt(xd64.square().mean(-1, keepdim=True) + 1e-6) * (1 + gamma.double())
+    scale = float(exact.abs().max())
+    del xd64
+    norm = {label: dict(ms_by_turn=[]) for label in ("off", "on")}
+    for label, on in (("off", False), ("on", True), ("on", True), ("off", False)):  # in turns
+        with optim.optimizations(lowp_norm=on):
+            out = rms_norm(xn, gamma)
+            norm[label]["ms_by_turn"].append(time_ms(torch, lambda: rms_norm(xn, gamma), reps=20))
+        err = float((out.double() - exact).abs().max()) / scale
+        norm[label]["err_over_max"] = err
+        check(err <= H2_NORM_TOL, f"H2 {label}: rms_norm {err} of the f32 norm's max from it")
+    for r in norm.values():
+        r["ms"] = statistics.median(r["ms_by_turn"])
+    bound_ms = 2 * xn.numel() * xn.element_size() / bw * 1e3
+    emit("h2_norm", card=smi, shape=list(H2_NORM_SHAPE), dtype="bfloat16", bound_ms=bound_ms, bound_by="bytes",
+         **norm, on_over_off=norm["on"]["ms"] / norm["off"]["ms"])
+    del xn, exact
+
+    # H2 in the models: llama3-8b's prefill and hubert's encode, off and on
+    every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    hubert = get_config("hubert-xlarge")
+    cases = {
+        "llama3-8b_prefill": (llama, lambda: {"tokens": torch.randint(0, llama.vocab, (SERVE_BATCH, PROMPT_LEN),
+                                                                      generator=torch.Generator(device=dev).manual_seed(
+                                                                          SEED + 184), device=dev)},
+                              lambda m, p, b: m.prefill(p, b, max_len=PROMPT_LEN)[0], llama.num_layers),
+        "hubert_encode": (hubert, lambda: {"frames": torch.from_numpy(audio_batch(
+            AUDIO_B, AUDIO_FRAMES, hubert.frontend_dim, hubert.vocab, SEED)["frames"]).to(dev)},
+                          lambda m, p, b: m.forward(p, b), hubert.num_layers),
+    }
+    models = {}
+    for name, (cfg, make_batch, call, layers) in cases.items():
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 185), torch.bfloat16, dev)
+        model, batch = build_model(cfg), make_batch()
+        logits, calls = {}, []
+        runs = {label: dict(wall=[], busy=[], idle=[], by_class={}, flash_launches=dict.fromkeys(ROUTE_LAUNCHES, 0))
+                for label in ("off", "on")}
+
+        def run():
+            calls.append(1)
+            return call(model, params, batch)
+
+        # the settings in turns, twice (off, on, off, on): a drift of the
+        # card's clocks between them shows as a spread, not as H2's effect
+        for label, on in (("off", False), ("on", True)) * H2_PASSES:
+            r = runs[label]
+            before = {k: c.value for k, c in every.items()}
+            calls.clear()
+            with torch.no_grad(), optim.optimizations(lowp_norm=on):
+                if label not in logits:
+                    logits[label] = run()
+                    torch.cuda.synchronize(dev)
+                for _ in range(H2_TIMED):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize(dev)
+                    r["wall"].append(time.perf_counter() - t0)
+                n0 = len(calls)
+                prof = device_profile(torch, lambda: [run() for _ in range(H2_TIMED)])
+                per_call = H2_TIMED / (len(calls) - n0)  # a retried trace ran the calls again
+            r["busy"].append(prof["device_busy_seconds"] * 1e3 * per_call / H2_TIMED)
+            r["idle"].append(prof["idle_share"])
+            for c, v in prof["by_class"].items():
+                r["by_class"].setdefault(c, []).append(v["seconds"] * 1e3 * per_call / H2_TIMED)
+            launched = {k[len("flash_route_"):]: every[k].value - before[k] for k in every if k.startswith("flash_route_")}
+            want = {"tensor_core": len(calls) * layers, "decode": 0, "f32": 0}
+            check(launched == want, f"{name} H2 {label}: flash launches by route {launched}, want {want}")
+            for k, n in launched.items():
+                r["flash_launches"][k] += n
+        for label, r in runs.items():
+            busy = statistics.mean(r["busy"])
+            runs[label] = dict(
+                wall_ms=statistics.median(r["wall"]) * 1e3, device_ms=busy, device_ms_by_pass=r["busy"],
+                idle_share_by_pass=r["idle"],
+                class_ms={c: statistics.mean(v) for c, v in r["by_class"].items()},
+                elementwise_share=statistics.mean(r["by_class"].get("elementwise", [0.0])) / busy,
+                flash_launches=r["flash_launches"])
+        ok = all(bool(torch.isfinite(t).all()) for t in logits.values())
+        check(ok and logits["on"].shape == logits["off"].shape, f"{name}: H2 logits not finite or of another shape")
+        diff = (logits["on"] - logits["off"]).abs()
+        models[name] = dict(layers=layers, shape=list(logits["on"].shape), **runs,
+                            h2_logit_max_abs_diff=float(diff.max()), h2_logit_mean_abs_diff=float(diff.mean()),
+                            logit_abs_max=float(logits["off"].abs().max()),
+                            device_ms_on_over_off=runs["on"]["device_ms"] / runs["off"]["device_ms"])
+        emit("h2_model", card=smi, case=name, dtype="bfloat16", **models[name])
+        del params, model, batch, logits, diff
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {k: every[k].value for k in counters}
+    out["flash_attention_routes"] = {r: every[f"flash_route_{r}"].value for r in ROUTE_LAUNCHES}
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -6472,13 +6653,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase17 = xlstm_arch(torch, dev, counters, smi)
     phase_s["17 xlstm arch"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase18 = sharding_flags(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")},
+                             smi, bw)
+    phase_s["18 sharding and flags"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16, phase17)
+              phase16, phase17, phase18)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
-                        phase16)  # with attention
+                        phase16, phase18)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
@@ -6493,7 +6680,7 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase15=phase15, phase16=phase16, phase17=phase17, phase_seconds=phase_s)
+         phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

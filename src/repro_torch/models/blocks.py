@@ -9,19 +9,28 @@ angles and the attention's softmax statistics in f32. A softcapped
 config (gemma2) caps the attention scores at ``cfg.attn_softcap`` and
 norms each block's output with its ``post_ln`` before the residual.
 
+Each block's parameter schema is a ``<block>_specs(cfg)`` dict of
+:class:`~repro_torch.models.params.ParamSpec` (shape, logical sharding
+axes, init), as the JAX package's.
+
 The MoE FFN (``moe_apply``) is the JAX package's sort-based capacity
 dispatch: gathers, scatters and three batched expert products, in plain
 PyTorch (the JAX package computes it with XLA ops outside any Pallas
-kernel). ``moe_apply_shardmap``, its expert-parallel form, needs a mesh
-and is not ported.
+kernel). ``moe_apply_shardmap`` is its expert-parallel form (the JAX
+package's H3, :mod:`repro_torch.models.optim`) over ``torch.distributed``:
+each rank dispatches its own tokens to its own experts and one
+``all_reduce`` over the model axis combines them; it runs the forward only.
 
-Only the default path of the JAX package's ``models/optim.py`` is ported:
-``shard_attn_heads`` (broadcast K/V to the query heads and shard on them)
-and ``lowp_norm`` are off there, and one card needs neither.
+Of the JAX package's ``models/optim.py``, ``lowp_norm`` (H2, in
+:func:`~repro_torch.models.layers.rms_norm`) and ``shardmap_moe`` (H3) are
+ported; ``shard_attn_heads`` (H1: K/V broadcast to the query heads and
+sharded on them) is refused with a mesh, so attention runs as the JAX
+package runs it without one.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
@@ -29,9 +38,28 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import optim
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.params import ParamSpec, spec
 
 Params = Dict[str, torch.Tensor]
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One GQA attention layer's specs, as the JAX package's ``attn_specs``
+    (a softcapped model also post-norms the block's output)."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    out = {
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "wq": spec((d, cfg.num_heads * hd), ("embed", "q_heads")),
+        "wk": spec((d, cfg.num_kv_heads * hd), ("embed", "kv_heads")),
+        "wv": spec((d, cfg.num_kv_heads * hd), ("embed", "kv_heads")),
+        "wo": spec((cfg.num_heads * hd, d), ("q_heads", "embed")),
+    }
+    if cfg.attn_softcap > 0:  # gemma2 also post-norms the block output
+        out["post_ln"] = spec((d,), ("act_embed",), init="zeros")
+    return out
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -92,26 +120,27 @@ def attn_apply(
 # ---------------------------------------------------------------------------
 
 
-def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """One MLA layer's parameter shapes by name, as the JAX package's
-    ``mla_specs``: the queries through a low-rank path (``wq_a``, its norm
-    ``q_ln``, ``wq_b`` to H heads of ``qk_nope + qk_rope``), the shared KV
-    latent and the decoupled rope key (``wkv_a``, the latent's norm
-    ``kv_ln``), the latent's up-projections to each head's keys and values
-    (``wkv_b_k``, ``wkv_b_v``) and the output projection."""
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One MLA layer's specs by name, as the JAX package's ``mla_specs``:
+    the queries through a low-rank path (``wq_a``, its norm ``q_ln``,
+    ``wq_b`` to H heads of ``qk_nope + qk_rope``), the shared KV latent and
+    the decoupled rope key (``wkv_a``, the latent's norm ``kv_ln``), the
+    latent's up-projections to each head's keys and values (``wkv_b_k``,
+    ``wkv_b_v``) and the output projection."""
     m = cfg.mla
     assert m is not None
     d, H = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "ln": (d,),
-        "wq_a": (d, m.q_lora_rank),
-        "q_ln": (m.q_lora_rank,),
-        "wq_b": (m.q_lora_rank, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
-        "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
-        "kv_ln": (m.kv_lora_rank,),
-        "wkv_b_k": (m.kv_lora_rank, H * m.qk_nope_head_dim),
-        "wkv_b_v": (m.kv_lora_rank, H * m.v_head_dim),
-        "wo": (H * m.v_head_dim, d),
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "wq_a": spec((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_ln": spec((m.q_lora_rank,), ("q_lora",), init="zeros"),
+        "wq_b": spec((m.q_lora_rank, H * qk_head), ("q_lora", "q_heads")),
+        "wkv_a": spec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora")),
+        "kv_ln": spec((m.kv_lora_rank,), ("kv_lora",), init="zeros"),
+        "wkv_b_k": spec((m.kv_lora_rank, H * m.qk_nope_head_dim), ("kv_lora", "q_heads")),
+        "wkv_b_v": spec((m.kv_lora_rank, H * m.v_head_dim), ("kv_lora", "q_heads")),
+        "wo": spec((H * m.v_head_dim, d), ("q_heads", "embed")),
     }
 
 
@@ -189,6 +218,22 @@ def mla_apply(
     return x + _merge_heads(out) @ p["wo"], cache
 
 
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    """The SwiGLU MLP's specs (``d_ff`` the config's unless given: a MoE
+    model's dense prefix takes ``d_ff_dense``), as the JAX package's."""
+    d = cfg.d_model
+    f = cfg.d_ff if d_ff is None else d_ff
+    out = {
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "w_gate": spec((d, f), ("embed", "mlp")),
+        "w_up": spec((d, f), ("embed", "mlp")),
+        "w_down": spec((f, d), ("mlp", "embed")),
+    }
+    if cfg.attn_softcap > 0:
+        out["post_ln"] = spec((d,), ("act_embed",), init="zeros")
+    return out
+
+
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     out = swiglu(rms_norm(x, p["ln"]), p["w_gate"], p["w_up"], p["w_down"])
     if "post_ln" in p:
@@ -201,17 +246,25 @@ def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def moe_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """One MoE layer's parameter shapes by name, as the JAX package's
-    ``moe_specs``: norm, router, the experts' SwiGLU weights and, with
+def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One MoE layer's specs by name, as the JAX package's ``moe_specs``:
+    norm, router, the experts' SwiGLU weights (experts first) and, with
     ``num_shared``, the always-on shared expert's."""
     mo = cfg.moe
     assert mo is not None
     d, E, fe = cfg.d_model, mo.num_experts, mo.d_expert
-    out = {"ln": (d,), "router": (d, E), "w_gate": (E, d, fe), "w_up": (E, d, fe), "w_down": (E, fe, d)}
+    out = {
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "router": spec((d, E), ("embed", None)),
+        "w_gate": spec((E, d, fe), ("experts", "embed", "expert_mlp")),
+        "w_up": spec((E, d, fe), ("experts", "embed", "expert_mlp")),
+        "w_down": spec((E, fe, d), ("experts", "expert_mlp", "embed")),
+    }
     if mo.num_shared:
         fs = fe * mo.num_shared
-        out.update(shared_gate=(d, fs), shared_up=(d, fs), shared_down=(fs, d))
+        out["shared_gate"] = spec((d, fs), ("embed", "mlp"))
+        out["shared_up"] = spec((d, fs), ("embed", "mlp"))
+        out["shared_down"] = spec((fs, d), ("mlp", "embed"))
     return out
 
 
@@ -242,20 +295,29 @@ def route(
     return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
 
 
-def dispatch(top_e: torch.Tensor, num_experts: int, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def dispatch(
+    top_e: torch.Tensor, num_experts: int, cap: int, experts: Optional[Tuple[int, int]] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(order, dest)`` of the ``T * k`` (token, slot) pairs of ``top_e``
     (pair ``i`` is token ``i // k``'s slot ``i % k``): ``order`` sorts them
     by expert, stably (as ``jnp.argsort``: which pairs overflow depends on
     it), and ``dest[j]`` is sorted pair ``j``'s row of the ``[E * cap]``
     expert buffer, its expert's first free row, or the waste row ``E * cap``
-    once the expert holds ``cap`` pairs (dropped)."""
+    once the expert holds ``cap`` pairs (dropped). ``experts = (first,
+    count)`` keeps a buffer of those ``count`` experts only (``[count *
+    cap]``, H3's local experts): every other expert's pairs go to its waste
+    row ``count * cap``."""
     e_flat = top_e.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
     ar = torch.arange(e_flat.numel(), device=e_flat.device)
     group_start = torch.searchsorted(e_sorted, torch.arange(num_experts, device=e_flat.device, dtype=e_sorted.dtype))
     pos_in_e = ar - group_start[e_sorted]  # each pair's place in its expert's group
-    return order, torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e, num_experts * cap)
+    if experts is None:
+        return order, torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e, num_experts * cap)
+    first, count = experts
+    keep = (e_sorted >= first) & (e_sorted < first + count) & (pos_in_e < cap)
+    return order, torch.where(keep, (e_sorted - first) * cap + pos_in_e, count * cap)
 
 
 class DroppedPairs:
@@ -289,6 +351,33 @@ class DroppedPairs:
 DROPPED = DroppedPairs()
 
 
+def _experts_combined(p: Params, flat: torch.Tensor, top_p: torch.Tensor, order: torch.Tensor, dest: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+    """The dispatched pairs through the experts' SwiGLU (``p``'s ``[n_experts,
+    ...]`` weights), combined into ``[T, D]`` in f32:
+    the pairs placed into an ``[n_experts, cap, D]`` buffer (``dest`` of
+    :func:`dispatch`, the waste row dropped), three batched products over
+    all its rows, and each pair's output in pair order (token * k + slot),
+    weighted by its probability and summed over the slots in order."""
+    (t, d), k, n_experts = flat.shape, top_p.shape[1], p["w_gate"].shape[0]
+    rows = n_experts * cap
+    buf = flat.new_zeros(rows + 1, d).index_put((dest,), flat[order // k])
+    grouped = buf[:rows].view(n_experts, cap, d)
+
+    # the experts' SwiGLU over every row of every expert
+    g = torch.bmm(grouped, p["w_gate"])
+    u = torch.bmm(grouped, p["w_up"])
+    y = torch.bmm(F.silu(g) * u, p["w_down"])
+
+    y_flat = torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
+    dest_by_pair = torch.empty_like(dest).scatter_(0, order, dest)
+    contrib = (y_flat[dest_by_pair] * top_p.reshape(-1, 1).to(y.dtype)).view(t, k, d).float()
+    combined = contrib[:, 0]
+    for j in range(1, k):
+        combined = combined + contrib[:, j]
+    return combined
+
+
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Token-choice top-k with a per-expert capacity, as the JAX package's
     ``moe_apply``: the ``T * k`` (token, slot) pairs are sorted by expert
@@ -318,27 +407,81 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     order, dest = dispatch(top_e, E, cap)
     DROPPED.add(t * k, (dest == E * cap).sum())
 
-    buf = flat.new_zeros(E * cap + 1, d).index_put((dest,), flat[order // k])
-    grouped = buf[: E * cap].view(E, cap, d)
-
-    # the experts' SwiGLU over every row of every expert
-    g = torch.bmm(grouped, p["w_gate"])
-    u = torch.bmm(grouped, p["w_up"])
-    y = torch.bmm(F.silu(g) * u, p["w_down"])
-
-    # each pair's output in pair order (token * k + slot), weighted, then
-    # summed over the slots in order, in f32
-    y_flat = torch.cat([y.reshape(E * cap, d), y.new_zeros(1, d)])
-    dest_by_pair = torch.empty_like(dest).scatter_(0, order, dest)
-    contrib = (y_flat[dest_by_pair] * top_p.reshape(-1, 1).to(y.dtype)).view(t, k, d).float()
-    combined = contrib[:, 0]
-    for j in range(1, k):
-        combined = combined + contrib[:, j]
-    out = combined.to(x.dtype)
+    out = _experts_combined(p, flat, top_p, order, dest, cap).to(x.dtype)
 
     if mo.num_shared:
         out = out + swiglu(flat, p["shared_gate"], p["shared_up"], p["shared_down"])
     return x + out.view(b, s, d)
+
+
+def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """H3 (:mod:`repro_torch.models.optim`): expert parallelism over
+    ``optim.FLAGS.mesh``, the JAX package's ``moe_apply_shardmap``.
+
+    Each rank dispatches only its LOCAL tokens (x's batch sharded over the
+    flags' batch axes), runs only its ``E / tp`` LOCAL experts (sharded over
+    the model axis), sends every other pair to its drop row, combines in f32
+    and sums once over the model axis's process group (``all_reduce``). The
+    shared expert is added after the sum. Falls back to :func:`moe_apply`
+    on the whole tensors where the JAX code does (``tp <= 1``, ``E % tp``, a
+    batch that does not divide, no batch axis of more than one device).
+
+    ``x`` and ``p``'s tensors are DTensors on the mesh, placed as the rules
+    place them (each is redistributed to what its part needs), or plain
+    tensors, taken as replicated. The result has x's placements (a plain x
+    gives a plain, whole result). The forward only: with grad mode on and
+    an input that requires grad it raises ``NotImplementedError`` (the
+    backward belongs to the sharded train step)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *p.values())):
+        raise NotImplementedError("H3 (moe_apply_shardmap) has no backward yet: call it without autograd")
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.rules import mesh_axis_sizes, placements_for
+
+    f = optim.FLAGS
+    mo = cfg.moe
+    mesh = f.mesh
+    assert mo is not None and mesh is not None
+    sizes = mesh_axis_sizes(mesh)
+    tp = sizes.get(f.model_axis, 1)
+    bdims = tuple(a for a in f.batch_axes if sizes.get(a, 1) > 1)
+    E = mo.num_experts
+
+    def local(t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of ``t`` placed by ``spec``."""
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements_for(spec, mesh)).to_local()
+
+    def like_x(out: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block ``out`` (placed by ``spec``) as x is placed."""
+        dt = DTensor.from_local(out, mesh, placements_for(spec, mesh), run_check=False)
+        return dt.redistribute(mesh, x.placements) if isinstance(x, DTensor) else dt.full_tensor()
+
+    whole = (None, None, None)
+    if tp <= 1 or E % tp or x.shape[0] % math.prod(sizes[a] for a in bdims) or not bdims:
+        full = {n: local(t, (None,) * t.ndim) for n, t in p.items()}
+        return like_x(moe_apply(cfg, full, local(x, whole)), whole)
+    e_loc = E // tp
+    xspec = (bdims if len(bdims) > 1 else bdims[0], None, None)
+    experts = ("w_gate", "w_up", "w_down")
+    lp = {n: local(t, (f.model_axis, None, None) if n in experts else (None,) * t.ndim) for n, t in p.items()}
+    x_loc = local(x, xspec)
+
+    b, s, d = x_loc.shape
+    t = b * s
+    flat = rms_norm(x_loc, lp["ln"]).reshape(t, d)
+    top_p, top_e = route(cfg, lp, flat)
+    cap = capacity(cfg, t)
+    first = mesh.get_local_rank(f.model_axis) * e_loc
+    order, dest = dispatch(top_e, E, cap, experts=(first, e_loc))
+    combined = _experts_combined(lp, flat, top_p, order, dest, cap)
+    dist.all_reduce(combined, group=mesh.get_group(f.model_axis))
+    out = combined.to(x_loc.dtype)
+    if mo.num_shared:
+        out = out + swiglu(flat, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+    return like_x(x_loc + out.view(b, s, d), xspec)
 
 
 def moe_dense_ref(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

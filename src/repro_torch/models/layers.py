@@ -2,8 +2,8 @@
 PyTorch).
 
 The port's copy of the JAX package's ``models/layers.py``: ``rms_norm``
-(its f32 path), ``softcap``, the split-half rotary embedding, the SwiGLU
-MLP and the encoder's GELU MLP. The attention itself is
+(with its H2 branch, ``lowp_norm``), ``softcap``, the split-half rotary
+embedding, the SwiGLU MLP and the encoder's GELU MLP. The attention itself is
 :func:`repro_torch.kernels.flash_attention.flash_attention`, which keeps
 the semantics of the JAX package's jnp ``chunked_attention`` (``q_offset``
 places the queries, ``kv_len`` counts the valid cache slots, ``window`` is
@@ -15,15 +15,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import optim
+
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in f32 with a ``1 + gamma`` scale (zero-initialised
-    gamma is the identity scale), cast back to x's dtype. The JAX
-    package's ``lowp_norm`` variant is off on its default path and is not
-    ported."""
+    gamma is the identity scale), cast back to x's dtype. Under H2
+    (``optim.FLAGS.lowp_norm``) a non-f32 input keeps the variance in f32
+    but is scaled in its own dtype, ``x * scale * (1 + gamma)`` with both
+    factors rounded to it, as the JAX package's: no f32 copy of x is
+    scaled. An f32 input takes the f32 path either way."""
+    dt = x.dtype
     xf = x.float()
     scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return ((xf * scale) * (1.0 + gamma.float())).to(x.dtype)
+    if optim.FLAGS.lowp_norm and dt != torch.float32:
+        return x * scale.to(dt) * (1.0 + gamma.float()).to(dt)
+    return ((xf * scale) * (1.0 + gamma.float())).to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -70,8 +70,9 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import VLM, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode
-from repro_torch.models import blocks, ssd, xlstm_blocks
+from repro_torch.models import blocks, optim, ssd, xlstm_blocks
 from repro_torch.models.layers import apply_rope, gelu_mlp, rms_norm, softcap
+from repro_torch.models.params import ParamSpec, map_specs, spec, stack_layers
 
 Params = Mapping[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -118,10 +119,10 @@ class DecoderLM:
         #: the stacked layers' windows (the prefix layers attend globally)
         self.windows = _layer_windows(cfg)[self.n_prefix :]
         post = ("post_ln",) if cfg.attn_softcap > 0 else ()
-        self._attn_names = tuple(blocks.mla_shapes(cfg)) if self.is_mla else _ATTN + post
+        self._attn_names = tuple(blocks.mla_specs(cfg)) if self.is_mla else _ATTN + post
         self._dense_names = _FFN + post
         if self.is_moe:
-            self._ffn_names = tuple(blocks.moe_shapes(cfg))
+            self._ffn_names = tuple(blocks.moe_specs(cfg))
         else:
             self._ffn_names = self._dense_names
 
@@ -171,6 +172,8 @@ class DecoderLM:
             )
         if dense:
             return blocks.mlp_apply(ffn, x), kv
+        if optim.FLAGS.shardmap_moe and optim.FLAGS.mesh is not None:  # H3
+            return blocks.moe_apply_shardmap(self.cfg, ffn, x), kv
         return blocks.moe_apply(self.cfg, ffn, x), kv
 
     def _run(self, params: Params, x, positions, *, layers=None, slots=None, cache_len=None):
@@ -221,27 +224,33 @@ class DecoderLM:
 
     # -- caches ------------------------------------------------------------------
 
-    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
-        """Zeroed caches, keyed as the JAX package's: ``{"layers": {"k",
-        "v"}}`` stacked ``[stacked layers, B, Hkv, max_len, hd]`` (MLA:
-        ``{"ckv", "krope"}`` stacked ``[stacked layers, B, max_len, R]`` and
-        ``[.., rd]``), and with a dense prefix ``"prefix"``, a list of one
-        such dict a layer."""
+    def _attn_cache_spec(self, b: int, m: int) -> Dict[str, ParamSpec]:
         cfg = self.cfg
         if self.is_mla:
-            m = cfg.mla
-            shapes = {"ckv": (batch_size, max_len, m.kv_lora_rank), "krope": (batch_size, max_len, m.qk_rope_head_dim)}
-        else:
-            kv = (batch_size, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-            shapes = {"k": kv, "v": kv}
+            ml = cfg.mla
+            return {
+                "ckv": spec((b, m, ml.kv_lora_rank), ("batch", "seq", "kv_lora")),
+                "krope": spec((b, m, ml.qk_rope_head_dim), ("batch", "seq", None)),
+            }
+        kv = spec((b, cfg.num_kv_heads, m, cfg.resolved_head_dim), ("batch", "kv_heads", "seq", "head_dim"))
+        return {"k": kv, "v": kv}
 
-        def zeros(*lead):
-            return {n: torch.zeros(lead + shape, dtype=dtype, device=device) for n, shape in shapes.items()}
-
-        cache: Cache = {"layers": zeros(self.n_scan)}
+    def cache_specs(self, batch_size: int, max_len: int, *, ring: bool = False) -> Dict[str, object]:
+        """The JAX ``cache_specs``: ``{"layers": {"k", "v"}}`` stacked
+        ``[stacked layers, B, Hkv, m, hd]`` (MLA: ``{"ckv", "krope"}``
+        stacked ``[stacked layers, B, m, R]`` and ``[.., rd]``), and with a
+        dense prefix ``"prefix"``, a list of one such dict a layer; ``m`` is
+        ``min(max_len, sliding_window)`` with ``ring``, else ``max_len``."""
+        m = min(max_len, self.cfg.sliding_window) if ring and self.cfg.sliding_window else max_len
+        tree: Dict[str, object] = {"layers": stack_layers(self._attn_cache_spec(batch_size, m), self.n_scan)}
         if self.n_prefix:
-            cache["prefix"] = [zeros() for _ in range(self.n_prefix)]
-        return cache
+            tree["prefix"] = [self._attn_cache_spec(batch_size, m) for _ in range(self.n_prefix)]
+        return tree
+
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
+        """Zeroed caches of :meth:`cache_specs` in ``dtype``."""
+        return map_specs(lambda p: torch.zeros(p.shape, dtype=dtype, device=device),
+                         self.cache_specs(batch_size, max_len))
 
     # -- prefill -------------------------------------------------------------------
 
@@ -365,7 +374,7 @@ class HybridLM:
         if cfg.num_layers % self.every:
             raise ValueError("hybrid: num_layers must be a multiple of shared_block_every")
         self.groups = cfg.num_layers // self.every
-        self._ssd_names = tuple(ssd.ssd_shapes(cfg))
+        self._ssd_names = tuple(ssd.ssd_specs(cfg))
 
     def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
         if q.dtype != k.dtype:
@@ -439,26 +448,28 @@ class HybridLM:
 
     # -- caches ------------------------------------------------------------------
 
-    def cache_shapes(self, batch_size: int, max_len: int, *, ring: bool = False) -> Dict[str, Dict[str, tuple]]:
-        """The JAX ``cache_specs``' shapes: ``{"ssd": {"conv": [groups,
-        every, B, K-1, conv_dim], "state": [groups, every, B, H, P, N]},
-        "attn": {"k", "v": [groups, B, Hkv, m, hd]}}``, ``m`` the ring's
-        ``min(max_len, sliding_window)`` with ``ring``, else ``max_len``."""
+    def cache_specs(self, batch_size: int, max_len: int, *, ring: bool = False) -> Dict[str, Dict[str, ParamSpec]]:
+        """The JAX ``cache_specs``: ``{"ssd": {"conv": [groups, every, B,
+        K-1, conv_dim], "state": [groups, every, B, H, P, N]}, "attn": {"k",
+        "v": [groups, B, Hkv, m, hd]}}``, ``m`` the ring's ``min(max_len,
+        sliding_window)`` with ``ring``, else ``max_len``."""
         cfg = self.cfg
-        _, nheads, hd, n, conv_dim = ssd.ssd_dims(cfg)
+        b = batch_size
+        _, nheads, p, n, conv_dim = ssd.ssd_dims(cfg)
         m = min(max_len, cfg.sliding_window) if ring and cfg.sliding_window else max_len
-        lead = (self.groups, self.every, batch_size)
-        kv = (self.groups, batch_size, cfg.num_kv_heads, m, cfg.resolved_head_dim)
-        return {"ssd": {"conv": (*lead, cfg.ssm.d_conv - 1, conv_dim), "state": (*lead, nheads, hd, n)},
-                "attn": {"k": kv, "v": kv}}
+        ssd_c = {"conv": spec((b, cfg.ssm.d_conv - 1, conv_dim), ("batch", None, "ssm_inner")),
+                 "state": spec((b, nheads, p, n), ("batch", "ssm_heads", None, "ssm_state"))}
+        kv = spec((b, cfg.num_kv_heads, m, cfg.resolved_head_dim), ("batch", "kv_heads", "seq", "head_dim"))
+        return {"ssd": stack_layers(stack_layers(ssd_c, self.every), self.groups),
+                "attn": stack_layers({"k": kv, "v": kv}, self.groups)}
 
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, ring: bool = False) -> Cache:
-        """Zeroed caches of :meth:`cache_shapes`, every entry f32 whatever
+        """Zeroed caches of :meth:`cache_specs`, every entry f32 whatever
         ``dtype`` (the SSM states and the small window caches stay f32, as
         the JAX package's ``init_cache``)."""
         del dtype
-        return {part: {n: torch.zeros(s, dtype=torch.float32, device=device) for n, s in shapes.items()}
-                for part, shapes in self.cache_shapes(batch_size, max_len, ring=ring).items()}
+        return map_specs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
+                         self.cache_specs(batch_size, max_len, ring=ring))
 
     # -- prefill -------------------------------------------------------------------
 
@@ -473,10 +484,10 @@ class HybridLM:
         its length."""
         x = params["embed"][batch["tokens"]]
         b, s, _ = x.shape
-        shapes = self.cache_shapes(b, max_len or s)
-        cache = {"ssd": {"conv": torch.zeros(shapes["ssd"]["conv"], dtype=x.dtype, device=x.device),
-                         "state": torch.zeros(shapes["ssd"]["state"], dtype=torch.float32, device=x.device)},
-                 "attn": {n: torch.zeros(t, dtype=x.dtype, device=x.device) for n, t in shapes["attn"].items()}}
+        specs = self.cache_specs(b, max_len or s)
+        cache = {"ssd": {"conv": torch.zeros(specs["ssd"]["conv"].shape, dtype=x.dtype, device=x.device),
+                         "state": torch.zeros(specs["ssd"]["state"].shape, dtype=torch.float32, device=x.device)},
+                 "attn": {n: torch.zeros(t.shape, dtype=x.dtype, device=x.device) for n, t in specs["attn"].items()}}
         positions = torch.arange(s, device=x.device)
         shared = self._shared(params)
         for i, lp in enumerate(self._ssd_layers(params)):
@@ -546,8 +557,8 @@ class XLSTMLM:
             raise ValueError("xlstm: num_layers must be a multiple of slstm_every")
         self.pairs = cfg.num_layers // self.every
         self.n_mlstm_per_pair = self.every - 1
-        self._m_names = tuple(xlstm_blocks.mlstm_shapes(cfg))
-        self._s_names = tuple(xlstm_blocks.slstm_shapes(cfg))
+        self._m_names = tuple(xlstm_blocks.mlstm_specs(cfg))
+        self._s_names = tuple(xlstm_blocks.slstm_specs(cfg))
 
     def _blocks(self, params: Params) -> Tuple[List[Dict[str, torch.Tensor]], List[Dict[str, torch.Tensor]]]:
         """Each mLSTM block's parameters (pair-major) and each sLSTM
@@ -607,26 +618,31 @@ class XLSTMLM:
 
     # -- caches ------------------------------------------------------------------
 
-    def cache_shapes(self, batch_size: int, max_len: int = 0) -> Dict[str, Dict[str, tuple]]:
-        """The JAX ``cache_specs``' shapes, which do not depend on
-        ``max_len``: ``{"mlstm": {"c": [pairs, slstm_every - 1, B, H, dh,
-        dh], "n": [.., B, H, dh], "m": [.., B, H]}, "slstm": {"h", "c",
-        "n", "m": [pairs, B, H, d_model / H]}}``."""
-        del max_len  # the recurrent state is O(1) in the sequence's length
+    def cache_specs(self, batch_size: int, max_len: int, *, ring: bool = False) -> Dict[str, Dict[str, ParamSpec]]:
+        """The JAX ``cache_specs``, which do not depend on ``max_len`` or
+        ``ring``: ``{"mlstm": {"c": [pairs, slstm_every - 1, B, H, dh, dh],
+        "n": [.., B, H, dh], "m": [.., B, H]}, "slstm": {"h", "c", "n", "m":
+        [pairs, B, H, d_model / H]}}``."""
+        del max_len, ring  # the recurrent state is O(1) in the sequence's length
+        b = batch_size
         _, nh, dh = xlstm_blocks.mlstm_dims(self.cfg)
         dhs = self.cfg.d_model // self.cfg.num_heads
-        lead = (self.pairs, self.n_mlstm_per_pair, batch_size)
-        s = (self.pairs, batch_size, nh, dhs)
-        return {"mlstm": {"c": (*lead, nh, dh, dh), "n": (*lead, nh, dh), "m": (*lead, nh)},
-                "slstm": {"h": s, "c": s, "n": s, "m": s}}
+        m_state = {
+            "c": spec((b, nh, dh, dh), ("batch", "ssm_heads", None, None), init="zeros"),
+            "n": spec((b, nh, dh), ("batch", "ssm_heads", None), init="zeros"),
+            "m": spec((b, nh), ("batch", "ssm_heads"), init="zeros"),
+        }
+        s_state = {n: spec((b, nh, dhs), ("batch", "ssm_heads", None), init="zeros") for n in ("h", "c", "n", "m")}
+        return {"mlstm": stack_layers(stack_layers(m_state, self.n_mlstm_per_pair), self.pairs),
+                "slstm": stack_layers(s_state, self.pairs)}
 
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
-        """The states of :meth:`cache_shapes`, all f32 whatever ``dtype``
+        """The states of :meth:`cache_specs`, all f32 whatever ``dtype``
         (as the JAX package's ``init_cache``): zeros, but both stabilisers
         ``m`` at -1e30."""
         del dtype
-        cache = {part: {n: torch.zeros(s, dtype=torch.float32, device=device) for n, s in shapes.items()}
-                 for part, shapes in self.cache_shapes(batch_size, max_len).items()}
+        cache = map_specs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
+                          self.cache_specs(batch_size, max_len))
         cache["mlstm"]["m"].fill_(xlstm_blocks.M_START)
         cache["slstm"]["m"].fill_(xlstm_blocks.M_START)
         return cache

@@ -36,14 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import ParamSpec, spec
 
 Params = Dict[str, torch.Tensor]
-Shape = Tuple[int, ...]
-
-#: ``spec(..., init=)`` of the block's parameters (the JAX package's
-#: ``ssd_specs``); ``w_in``, ``conv_w`` and ``w_out`` are normal
-SSD_INIT = {"ln": "zeros", "conv_b": "zeros", "a_log": "zeros", "d_skip": "ones", "dt_bias": "zeros",
-            "norm": "zeros"}
 
 
 def ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
@@ -54,23 +49,23 @@ def ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
     return d_in, d_in // s.head_dim, s.head_dim, s.d_state, d_in + 2 * s.d_state
 
 
-def ssd_shapes(cfg: ModelConfig) -> Dict[str, Shape]:
-    """One block's parameter shapes by name, as ``ssd_specs``: ``w_in``
-    projects to ``[z (d_in), xBC (d_in + 2N), dt (heads)]``."""
+def ssd_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One block's specs by name, as the JAX package's ``ssd_specs``:
+    ``w_in`` projects to ``[z (d_in), xBC (d_in + 2N), dt (heads)]``."""
     s = cfg.ssm
     assert s is not None
     d = cfg.d_model
     d_in, nheads, _, n, conv_dim = ssd_dims(cfg)
     return {
-        "ln": (d,),
-        "w_in": (d, 2 * d_in + 2 * n + nheads),
-        "conv_w": (s.d_conv, conv_dim),
-        "conv_b": (conv_dim,),
-        "a_log": (nheads,),
-        "d_skip": (nheads,),
-        "dt_bias": (nheads,),
-        "norm": (d_in,),
-        "w_out": (d_in, d),
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "w_in": spec((d, 2 * d_in + 2 * n + nheads), ("embed", "ssm_inner")),
+        "conv_w": spec((s.d_conv, conv_dim), ("conv", "ssm_inner")),
+        "conv_b": spec((conv_dim,), ("ssm_inner",), init="zeros"),
+        "a_log": spec((nheads,), ("ssm_heads",), init="zeros"),
+        "d_skip": spec((nheads,), ("ssm_heads",), init="ones"),
+        "dt_bias": spec((nheads,), ("ssm_heads",), init="zeros"),
+        "norm": spec((d_in,), ("ssm_inner",), init="zeros"),
+        "w_out": spec((d_in, d), ("ssm_inner", "embed")),
     }
 
 

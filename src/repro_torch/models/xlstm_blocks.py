@@ -34,18 +34,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import ParamSpec, spec
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
-Shape = Tuple[int, ...]
 
 #: the stabiliser's starting value (the JAX package's "-inf-ish")
 M_START = -1e30
-#: ``spec(..., init=)`` of the blocks' parameters that are not drawn normal
-XLSTM_INIT = {"b_if": "zeros", "b_gates": "zeros"}
-#: ``spec(..., scale=)`` of the blocks' parameters drawn at another std than
-#: ``1/sqrt(fan_in)``: the sLSTM's recurrent matrices at half of it
-XLSTM_SCALE = {"r_gates": 0.5}
 
 
 def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -62,21 +57,21 @@ def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 
-def mlstm_shapes(cfg: ModelConfig) -> Dict[str, Shape]:
-    """One mLSTM block's parameter shapes by name, as ``mlstm_specs``:
-    ``w_up`` projects to ``[x (d_in), z (d_in)]``, ``w_if``'s columns are
-    ``(2, heads)``, the input gate first."""
+def mlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One mLSTM block's specs by name, as the JAX package's
+    ``mlstm_specs``: ``w_up`` projects to ``[x (d_in), z (d_in)]``,
+    ``w_if``'s columns are ``(2, heads)``, the input gate first."""
     d = cfg.d_model
     d_in, h, _ = mlstm_dims(cfg)
     return {
-        "ln": (d,),
-        "w_up": (d, 2 * d_in),
-        "wq": (d_in, d_in),
-        "wk": (d_in, d_in),
-        "wv": (d_in, d_in),
-        "w_if": (d_in, 2 * h),
-        "b_if": (2 * h,),
-        "w_down": (d_in, d),
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "w_up": spec((d, 2 * d_in), ("embed", "ssm_inner")),
+        "wq": spec((d_in, d_in), ("ssm_inner", None)),
+        "wk": spec((d_in, d_in), ("ssm_inner", None)),
+        "wv": spec((d_in, d_in), ("ssm_inner", None)),
+        "w_if": spec((d_in, 2 * h), ("ssm_inner", "ssm_heads")),
+        "b_if": spec((2 * h,), ("ssm_heads",), init="zeros"),
+        "w_down": spec((d_in, d), ("ssm_inner", "embed")),
     }
 
 
@@ -254,19 +249,20 @@ def mlstm_block_apply(
 # ---------------------------------------------------------------------------
 
 
-def slstm_shapes(cfg: ModelConfig) -> Dict[str, Shape]:
-    """One sLSTM block's parameter shapes by name, as ``slstm_specs``:
-    ``w_gates``' columns are ``(4, heads, head size)`` in z, i, f, o order;
-    ``r_gates`` ``[4, heads, dh, dh]`` is contracted over its third axis."""
+def slstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """One sLSTM block's specs by name, as the JAX package's
+    ``slstm_specs``: ``w_gates``' columns are ``(4, heads, head size)`` in
+    z, i, f, o order; ``r_gates`` ``[4, heads, dh, dh]`` is contracted over
+    its third axis and drawn at half the fan-in std."""
     d = cfg.d_model
     nh = cfg.num_heads
     dh = d // nh
     return {
-        "ln": (d,),
-        "w_gates": (d, 4 * d),
-        "b_gates": (4 * d,),
-        "r_gates": (4, nh, dh, dh),
-        "w_out": (d, d),
+        "ln": spec((d,), ("act_embed",), init="zeros"),
+        "w_gates": spec((d, 4 * d), ("embed", "ssm_inner")),  # z,i,f,o
+        "b_gates": spec((4 * d,), ("ssm_inner",), init="zeros"),
+        "r_gates": spec((4, nh, dh, dh), (None, "ssm_heads", None, None), scale=0.5),
+        "w_out": spec((d, d), ("ssm_inner", "embed")),
     }
 
 

@@ -2231,3 +2231,69 @@ def test_xlstm_serves_on_the_card_as_on_the_cpu(dev, dtype):
         assert rel <= 2e-2, rel
     d = (got - full[:, 299:311]).abs()
     assert float(d.max()) < 0.5 and float(d.mean()) < 0.05
+
+
+# -- the sharding layer: H2, the smoke mesh, H3's fallback ------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 4096), (3, 7, 1280), (2, 64)])
+def test_h2_norm_on_the_card(dev, shape):
+    """H2's ``rms_norm`` in bf16 on the card: its own arithmetic (the
+    variance in f32, the scale in bf16) as on the CPU, and within bf16's
+    2e-2 of the f32 norm computed in float64."""
+    from repro_torch.models import optim
+    from repro_torch.models.layers import rms_norm
+
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+    gamma = (torch.randn(shape[-1], generator=g, device=dev) * 0.3).to(torch.bfloat16)
+    with optim.optimizations(lowp_norm=True):
+        got = rms_norm(x, gamma)
+        on_cpu = rms_norm(x.cpu(), gamma.cpu())
+    xd = x.double()
+    exact = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6) * (1 + gamma.double())
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, rms_norm(x, gamma))
+    assert (got.double() - exact).abs().max() <= 2e-2 * exact.abs().max()
+    assert (got.cpu().float() - on_cpu.float()).abs().max() <= 2e-2 * on_cpu.float().abs().max()
+
+
+@pytest.fixture()
+def smoke_mesh(dev):
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_smoke_mesh
+
+    mesh = make_smoke_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_smoke_mesh_places_llama3_8b_replicated(smoke_mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import decoder_specs
+    from repro_torch.sharding import SERVE_RULES, sharding_for
+
+    assert smoke_mesh.device_type == "cuda" and smoke_mesh.mesh_dim_names == ("data", "model")
+    placements = {n: sharding_for(p, SERVE_RULES, smoke_mesh) for n, p in decoder_specs(get_config("llama3-8b"))}
+    assert len(placements) == 12 and all(p == (Replicate(), Replicate()) for p in placements.values())
+    x = torch.randn(1 << 20, device="cuda")
+    dt = distribute_tensor(x, smoke_mesh, placements["embed"][:1] * 2)
+    assert torch.equal(dt.to_local(), x) and torch.equal(dt.full_tensor(), x)
+
+
+def test_h3_falls_back_to_moe_apply_on_one_card(smoke_mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, optim
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("dbrx-132b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    layer = {n: params[f"layers/ffn/{n}"][0] for n in blocks.moe_specs(cfg)}
+    x = torch.randn(4, 12, cfg.d_model, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = blocks.moe_apply(cfg, layer, x)
+        with optim.optimizations(mesh=smoke_mesh, shardmap_moe=True):
+            got = blocks.moe_apply_shardmap(cfg, layer, x)
+    assert torch.equal(got, want)

@@ -48,6 +48,7 @@ _MODULES = [
     "repro_torch.kernels.quant",
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.networked",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
@@ -55,6 +56,7 @@ _MODULES = [
     "repro_torch.models.blocks",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.optim",
     "repro_torch.models.params",
     "repro_torch.net",
     "repro_torch.net.client",
@@ -71,6 +73,8 @@ _MODULES = [
     "repro_torch.resharding.planner",
     "repro_torch.resharding.rowgrid",
     "repro_torch.rl.loop",
+    "repro_torch.sharding",
+    "repro_torch.sharding.rules",
     "repro_torch.training",
     "repro_torch.training.objectives",
     "repro_torch.training.optimizer",
@@ -242,6 +246,7 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.transfer.simnet", "repro_torch.transfer.simcluster", "repro_torch.configs.paper_workloads",
     "repro_torch.transfer.faults", "repro_torch.transfer.hardware",
     "repro_torch.net.worker", "repro_torch.launch.networked", "repro_torch.configs", "repro_torch.models",
+    "repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.launch.mesh", "repro_torch.models.optim",
 ])
 def test_serving_modules_import_first(module):
     """Each module of the serving path imports as the first one of a

@@ -107,8 +107,9 @@ def _jax_apply(jcfg, layer, x, **kw):
 
 def test_mla_shapes_are_jax_mla_specs():
     jcfg, pcfg = _cfgs()
-    assert blocks.mla_shapes(pcfg) == {n: tuple(s.shape) for n, s in jax_blocks.mla_specs(jcfg).items()}
-    full = blocks.mla_shapes(get_config(ARCH))
+    got = {n: p.shape for n, p in blocks.mla_specs(pcfg).items()}
+    assert got == {n: tuple(s.shape) for n, s in jax_blocks.mla_specs(jcfg).items()}
+    full = {n: p.shape for n, p in blocks.mla_specs(get_config(ARCH)).items()}
     assert full["wq_b"] == (1536, 128 * 192) and full["wkv_a"] == (7168, 576) and full["wo"] == (128 * 128, 7168)
 
 
@@ -329,7 +330,7 @@ def test_decoder_shapes_are_jax_named_tensors(model):
     assert list(pp) == list(named)
     assert pm.is_mla and pm.is_moe and (pm.n_prefix, pm.n_scan) == (1, pcfg.num_layers - 1)
     mla = [n for n in pp if n.startswith("prefix/0/attn/")]
-    assert mla == [f"prefix/0/attn/{n}" for n in sorted(blocks.mla_shapes(pcfg))]
+    assert mla == [f"prefix/0/attn/{n}" for n in sorted(blocks.mla_specs(pcfg))]
     assert pp["layers/attn/wkv_b_k"].shape == (pm.n_scan, 16, 4 * 16)
     assert not any(n.endswith(("/wq", "/wk", "/wv")) for n in pp)
 

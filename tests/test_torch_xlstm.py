@@ -380,7 +380,7 @@ def test_mlstm_block_at_the_published_widths_matches_jax():
     pcfg = get_config(ARCH)
     rng = np.random.default_rng(12)
     lp = {}
-    for n, shape in xb.mlstm_shapes(pcfg).items():
+    for n, shape in ((n, p.shape) for n, p in xb.mlstm_specs(pcfg).items()):
         std = 1.0 / np.sqrt(shape[-2]) if len(shape) > 1 else (0.1 if n == "ln" else 1.0)
         lp[n] = (rng.standard_normal(shape) * std).astype(np.float32)
     x = rng.standard_normal((1, 300, pcfg.d_model)).astype(np.float32)
@@ -451,7 +451,8 @@ def test_prefill_matches_jax(model):
     _scaled_close(pl, jl)
     _caches_close(pc, jc)
     assert pc["mlstm"]["c"].shape == (2, 1, 2, 4, 32, 32) and pc["slstm"]["h"].shape == (2, 2, 4, 16)
-    assert {n: tuple(t.shape) for n, t in pc["mlstm"].items()} == pm.cache_shapes(2)["mlstm"]
+    assert {n: tuple(t.shape) for n, t in pc["mlstm"].items()} == {
+        n: p.shape for n, p in pm.cache_specs(2, 25)["mlstm"].items()}
 
 
 @pytest.mark.parametrize("chunk", [1, 3], ids=["one_token_steps", "three_token_steps"])
