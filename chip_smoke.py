@@ -232,14 +232,15 @@ lines, any failure exiting non-zero:
    update, one bf16 masked-prediction step, ``launch.train`` for two f32
    steps.
 
-16. The hybrid family: zamba2-2.7b at its published widths and all 54
-   layers (54 Mamba2 blocks in 9 groups, one shared attention block of 32
-   heads of 80 after each), bf16, served from a rollout replica's
-   registered buffers: 8 x 512 tokens prefilled (9 tensor-core forwards),
-   64 decoded (9 x 64 decode-route launches at head_dim 80 against 576
-   slots), before and after an update to v1, every logit finite and its
-   distances to the plain attention printed (bf16 rounding alone moves
-   this model's logits past phase 5's gates, tools/hybrid_bf16_noise.py);
+16. The hybrid family: zamba2-2.7b at its published widths cut to 18 of
+   its 54 layers (3 of its 9 groups of 6 Mamba2 blocks, one shared
+   attention block of 32 heads of 80 after each), bf16, served from a
+   rollout replica's registered buffers: 8 x 512 tokens prefilled (3
+   tensor-core forwards), 64 decoded (3 x 64 decode-route launches at
+   head_dim 80 against 576 slots), before and after an update to v1, every logit finite and
+   within phase 5's gates of a replay of the round's calls with the plain
+   attention (the teacher-forced forward's distance printed: bf16 rounding
+   alone moves it past them, tools/hybrid_bf16_noise.py);
    the same requests on the weights in f32 (the f32 prefill route and the
    decode kernel in f32) held to phase 5's gates; the ring-buffer window
    decode from ``init_cache(..., ring=True)`` on the f32 weights, its
@@ -250,9 +251,9 @@ lines, any failure exiting non-zero:
    forward and backward by kernel class, with the Mamba2 blocks' share
    (``ssd_share``).
 
-17. The SSM family: xlstm-350m at its published widths and all 24 layers
-   (``xlstm_arch``: 12 pairs of one mLSTM block, 4 heads of 512, and one
-   sLSTM block, 4 heads of 256; no attention, no kernel of its own), bf16,
+17. The SSM family: xlstm-350m at its published widths cut to 6 of its 24
+   layers (``xlstm_arch``: 3 pairs of one mLSTM block, 4 heads of 512, and
+   one sLSTM block, 4 heads of 256; no attention, no kernel of its own), bf16,
    served from a raw rollout replica's registered buffers: 8 x 512 tokens
    prefilled, 64 decoded, before and after an update to v1, beside a dc1
    replica pulled over int8 and updated over delta:int8 and held bit-equal
@@ -263,8 +264,7 @@ lines, any failure exiting non-zero:
    gradient, at T = 512; 16 one-step recurrences against the chunked form
    and the folded state; the sLSTM split at 5) within 2e-3; phase 6's RL
    loop in f32 at 2 x 2 x (512 + 64), its gradients against the step with
-   the mLSTM on its parallel form within 0.25 (rel. L2: f32's floor at 24
-   random-init layers is 5-9%), and within 1e-3 at 6 layers; ``launch.train
+   the mLSTM on its parallel form within 1e-3 (rel. L2); ``launch.train
    --arch xlstm-350m --full-config`` for two f32 steps of 2 x 512. The
    prefill and a decode step timed and profiled, with the mLSTM and sLSTM
    blocks' shares of their spans (``xlstm_share``).
@@ -282,8 +282,21 @@ lines, any failure exiting non-zero:
    device time, the flash launches (32 and 48 on the tensor-core route a
    call) and the H2 logits' distance from the H2-off logits (printed, not
    gated).
+19. The sharded train step on the smoke mesh (``sharded_step``): llama3-8b
+   at its published widths and 4 layers, bf16 with f32 moments, one LM
+   batch of 4 x 512, three ``make_train_step`` steps from the same
+   parameters and moments: (a) on plain tensors, (b) on DTensors placed by
+   ``TRAIN_RULES`` (``sharding.place_tree``), (c) the same under H1 (K/V
+   broadcast to the 32 query heads: the tensor-core forward and backward
+   at G = 1, [4,32/32,512,128]). (b)'s gradients within 1e-6 (rel. L2) of
+   (a)'s; (c)'s loss within 1e-3, gradients within 2e-2 and parameters
+   after the step within 5e-3 of (a)'s; every turn one tensor-core forward
+   and backward a layer. Each step's seconds, host return time, peak
+   memory and a profiled turn's idle share; then the G = 1 forward and
+   backward held to their plain versions and timed cold beside SDPA
+   (cuDNN where it takes the call) and their bounds.
 
-A ``kernels`` JSON line (launches over phases 3 to 18; flash
+A ``kernels`` JSON line (launches over phases 3 to 19; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -294,6 +307,7 @@ A ``kernels`` JSON line (launches over phases 3 to 18; flash
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3986,6 +4000,21 @@ def train_run(torch, every, argv, cfg, steps: int):
     return run, losses
 
 
+@contextlib.contextmanager
+def train_config(cfg):
+    """Within ``with``: ``launch.train``'s registry lookup answers ``cfg``
+    for ``cfg``'s id, so ``--arch <id> --full-config`` trains ``cfg`` (the
+    published widths at a cut depth)."""
+    from repro_torch.launch import train
+
+    lookup = train.get_config
+    train.get_config = lambda arch: cfg if arch == cfg.name else lookup(arch)
+    try:
+        yield
+    finally:
+        train.get_config = lookup
+
+
 # -- phase 8: the networked deployment on the card ---------------------------------
 
 NET_LAYERS = NUM_LAYERS  # phase 3/4's depth: 6.46 GB a replica
@@ -5330,8 +5359,12 @@ def audio_arch(torch, dev, counters, smi: str) -> dict:
 
 # -- phase 16: the hybrid family (zamba2-2.7b) at its published widths -------------
 
+#: zamba2's depth: 3 of its 9 groups of 6 Mamba2 blocks, each followed by a
+#: call of the shared block, at the published widths (all 54 layers took
+#: phase 16 149-185 s of the script's 1200 s limit)
+HYBRID_LAYERS = 18
 #: 8 requests of 512 prompt tokens, 64 new tokens each: every decode step's
-#: 9 shared-block calls attend over 576 slots
+#: 3 shared-block calls attend over 576 slots
 HYBRID_B, HYBRID_PROMPT, HYBRID_GEN = 8, 512, 64
 #: the ring decode: the window cut to 64 slots so that the ring wraps within
 #: ``HYBRID_RING_STEPS`` steps of ``HYBRID_B`` sequences, then
@@ -5345,26 +5378,27 @@ HYBRID_RL_PROMPTS, HYBRID_RL_GROUP = 2, 2
 #: keep no delta base, whose snapshots of the retiring f32 version (9.7 GB
 #: each) left the update's 5.4 GiB staging buffer no room on an 80 GB card
 HYBRID_GRAD_BUDGET = 5 * GIB
-#: launch.train at zamba2's published widths and all 54 layers, f32: 2 x 512
+#: launch.train at zamba2's published widths and ``HYBRID_LAYERS``, f32: 2 x 512
 HYBRID_TRAIN_B, HYBRID_TRAIN_SEQ = 2, 512
 HYBRID_TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--full-config", "--batch", str(HYBRID_TRAIN_B), "--seq",
                      str(HYBRID_TRAIN_SEQ)]
 
 
 def bf16_round_distances(torch, reference, weights, rec, version, name: str) -> dict:
-    """A served bf16 round's distances, not gated, to a replay of its calls
-    with the plain attention (``replay_round``: the same prefill and decode
-    ops, only the attention differs) and to the teacher-forced forward
-    (the chunked scan over the whole sequence where the round ran the
-    prefill's chunks and one-step recurrences). At 54 random-init Mamba2
-    layers bf16 rounding alone moves the logits further than phase 5's
-    gates (tools/hybrid_bf16_noise.py), so the round is held to be finite here and the
-    gates hold on the f32 round. Returns the distances."""
+    """A served bf16 round's distances to a replay of its calls with the
+    plain attention (``replay_round``: the same prefill and decode ops, only
+    the attention differs), held to phase 5's gates, and to the
+    teacher-forced forward (the chunked scan over the whole sequence where
+    the round ran the prefill's chunks and one-step recurrences), printed
+    only: bf16 rounding alone moves the teacher-forced logits past phase 5's
+    gates (0.71 max at ``HYBRID_LAYERS``; at all 54 random-init Mamba2 layers
+    the replay's too, tools/hybrid_bf16_noise.py). The round must be finite.
+    Returns the distances."""
     prompt_len = rec["tokens"].shape[1] - rec["step_logits"].shape[1]
     steps = rec["step_logits"]
     ref = replay_round(torch, reference, weights, rec, prompt_len)
     d = (steps - ref).abs()
-    res = dict(version=version, gated=False, reference="replay of the served calls, plain attention",
+    res = dict(version=version, gated=True, reference="replay of the served calls, plain attention",
                logit_max_abs_err=float(d.max()), logit_mean_abs_err=float(d.double().mean()),
                logit_abs_max=float(steps.abs().max()), all_finite=bool(torch.isfinite(steps).all()),
                mean_logprob=float(rec["behavior_logprobs"].mean()))
@@ -5372,6 +5406,8 @@ def bf16_round_distances(torch, reference, weights, rec, version, name: str) -> 
     res["teacher_forced"] = check_served_round(torch, reference, weights, rec, version, chunk=2, gate=False)
     emit(f"serve_check {name} bfloat16", **res)
     check(res["all_finite"], f"{name} v{version}: non-finite logits")
+    check(res["logit_max_abs_err"] <= LOGIT_MAX_ABS and res["logit_mean_abs_err"] <= LOGIT_MEAN_ABS,
+          f"{name} v{version}: the bf16 round's logits against a replay with the plain attention {res}")
     return res
 
 
@@ -5427,31 +5463,31 @@ def ssd_share(torch, fn) -> dict:
 
 
 def hybrid_arch(torch, dev, counters, smi: str) -> dict:
-    """zamba2-2.7b (arXiv:2411.15242) at its published widths and all 54
-    layers in bf16 (d_model 2560; 54 Mamba2 blocks of 80 SSD heads of 64,
-    state 64, conv 4, chunk 256, in 9 groups of 6, each group followed by
-    the one shared attention block, 32 query and 32 KV heads of 80, and its
-    SwiGLU MLP of 10240; vocab 32000, untied head). Serving: a trainer (dc0)
+    """zamba2-2.7b (arXiv:2411.15242) at its published widths, its depth cut
+    to ``HYBRID_LAYERS`` (18 of 54), in bf16 (d_model 2560; Mamba2 blocks of
+    80 SSD heads of 64, state 64, conv 4, chunk 256, in groups of 6, each
+    group followed by the one shared attention block, 32 query and 32 KV
+    heads of 80, and its SwiGLU MLP of 10240; vocab 32000, untied head). Serving: a trainer (dc0)
     publishes v0, a rollout replica (dc0, raw) replicates it, and the model
     reads its parameters from the replica's registered buffers: it
     prefills 8 x 512 tokens and decodes 64 greedily; the trainer perturbs
     1/8 of its rows and publishes v1, the replica updates in place, and the
     same requests are served again. The replica must be bit-equal to the
     trainer after each pull, round 1 apart from round 0, every logit
-    finite, and each round must launch 9 tensor-core forwards (q/k/v
-    [8,32,512,80]) and 9 x 64 decode-route ones (q [8,32,1,80] against
-    [8,32,576,80]), none on f32; each bf16 round's distances to a replay
-    with the plain attention and to the teacher-forced forward are printed,
-    not gated (``bf16_round_distances``: bf16 rounding alone moves this
-    model's logits past phase 5's gates). The gated round: the same
-    requests on v1 cast to f32, 9 f32-route prefills and 9 x 64 decode
-    launches in f32, within phase 5's gates of the teacher-forced f32
+    finite, and each round must launch one tensor-core forward a group (q/k/v
+    [8,32,512,80]) and 64 decode-route ones a group (q [8,32,1,80] against
+    [8,32,576,80]), none on f32; each bf16 round within phase 5's gates of
+    a replay of its calls with the plain attention, its distance to the
+    teacher-forced forward printed (``bf16_round_distances``: bf16 rounding
+    alone moves that one past the gates). The f32 round: the same
+    requests on v1 cast to f32, one f32-route prefill and 64 decode
+    launches a group in f32, within phase 5's gates of the teacher-forced f32
     forward with the plain attention. The ring decode, on the f32 weights:
     from ``init_cache(..., ring=True)``, the window cut to 64 slots so that
     it wraps, 100 steps of 8 sequences, then 4 steps at the published 4096
     slots with every slot live (the ring filled with seeded K/V, the steps
     at position 4196), each step's logits within phase 5's gates of the
-    same steps with the plain attention, 9 decode launches a step. The
+    same steps with the plain attention, one decode launch a group a step. The
     prefill and a decode step are timed on ``build_model(cfg)``'s default
     attention, and the prefill profiled (kernel classes; the Mamba2 blocks'
     share by CUDA events, ``ssd_share``). Then phase 6's RL loop at 2 x 2 x
@@ -5460,8 +5496,9 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
     attention's and to the plain backward's, finite; bf16 gradients of
     these 54 layers are rounding noise), a bf16 GRPO forward and backward at
     its batch profiled the same way (the tensor_core forward and backward), and
-    ``launch.train --arch zamba2-2.7b --full-config`` for two f32 steps of
-    2 x 512 on the f32 forward and the cuda_core backward. Returns the main
+    ``launch.train --arch zamba2-2.7b --full-config`` at the same depth
+    (``train_config``) for two f32 steps of 2 x 512 on the f32 forward and
+    the cuda_core backward. Returns the main
     path's launches: the served rounds, the ring decode, the RL loop and the
     f32 steps."""
     from repro_torch.configs import get_config
@@ -5473,7 +5510,8 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
     from repro_torch.models.params import init_params
     from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=HYBRID_LAYERS)
+    check(cfg.num_layers % cfg.ssm.shared_block_every == 0, f"{cfg.name}: {cfg.num_layers} layers are not whole groups")
     n_attn, hq, hkv, d = attention_layers(cfg), cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     check(d == 80 and hq == hkv, f"{cfg.name}: {hq}/{hkv} heads of {d}")
     every = {**counters, **{f"flash_route_{r}": c for r, c in ROUTE_LAUNCHES.items()},
@@ -5677,7 +5715,7 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # phase 6's RL loop and gates at zamba2's widths, in f32 (it resets the counters: the served launches
-    # were read above): bf16 gradients of the 54 random-init layers are rounding noise
+    # were read above): bf16 gradients of the random-init layers are rounding noise
     # (tools/hybrid_bf16_noise.py), so
     # the gradient gates hold in f32, on the f32 forward and the cuda_core backward at head_dim 80
     rl = rl_loop(torch, dev, counters, smi, cfg=cfg, num_prompts=HYBRID_RL_PROMPTS, group_size=HYBRID_RL_GROUP,
@@ -5723,7 +5761,8 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
 
     train.make_train_step = timed_steps
     try:
-        trained, losses = train_run(torch, every, ["--steps", str(steps)] + HYBRID_TRAIN_ARGV, cfg, steps)
+        with train_config(cfg):
+            trained, losses = train_run(torch, every, ["--steps", str(steps)] + HYBRID_TRAIN_ARGV, cfg, steps)
     finally:
         train.make_train_step = make_step
     emit("hybrid_train_result", card=smi, config=cfg.name, layers=cfg.num_layers, dtype="float32", losses=losses,
@@ -5742,31 +5781,26 @@ def hybrid_arch(torch, dev, counters, smi: str) -> dict:
 
 #: 8 requests of 512 prompt tokens, 64 new tokens each
 XLSTM_B, XLSTM_PROMPT, XLSTM_GEN = 8, 512, 64
+#: xlstm-350m's depth: 3 of its 12 (mLSTM, sLSTM) pairs at the published
+#: widths (all 24 layers took phase 17 98-160 s of the script's 1200 s limit)
+XLSTM_LAYERS = 6
 #: phase 17's GRPO step through the RL loop (f32): 2 prompts x 2 responses
-#: of 512 + 64 tokens. 4 x 4 (phase 6's) took phase 17 past 120 s: the
-#: step is host-bound (autograd through 12 x 576 sLSTM steps, 11.8 s at 4 x
-#: 4), and a second step under the profiler read back ~1M events for
-#: minutes (PERF.md section 6, PR 30), so the loop is cut to 2 x 2 and
-#: profiles no step; the widths and the 24 layers are not cut
+#: of 512 + 64 tokens. The step is host-bound (autograd through the sLSTM
+#: steps), and a second step under the profiler reads back ~1M events for
+#: minutes (PERF.md section 6), so the loop profiles no step
 XLSTM_RL_PROMPTS, XLSTM_RL_GROUP = 2, 2
-#: each tensor's gradient in the RL loop's step (24 layers) against the same
-#: step with the mLSTM on its quadratic parallel form, relative L2. The two
-#: forms are equal in exact arithmetic and differ in f32 by the order of
-#: their sums, and 24 random-init layers amplify that: the chunked form at
-#: chunks of 256 and of 128 give GRPO gradients 3-5% apart, the chunked and
-#: the parallel 5-9% (LM gradients 9-12%), against 1e-4 at 6 layers
-#: (tools/xlstm_grad_noise.py on the card, PERF.md section 6, PR 30). So the
-#: 24-layer step is held to 0.25, a wrong gradient's distance being ~1, and
-#: the 1e-3 bound holds at ``XLSTM_SHALLOW_LAYERS`` (``xlstm_form_gradients``)
-XLSTM_GRAD_TOL = 0.25
-#: the depth at which the GRPO gradients of the two mLSTM forms are held to
-#: ``XLSTM_SHALLOW_TOL`` (relative L2; measured 1.4e-4 apart at 6 layers)
-XLSTM_SHALLOW_LAYERS, XLSTM_SHALLOW_TOL = 6, 1e-3
+#: each tensor's gradient in the RL loop's step against the same step with
+#: the mLSTM on its quadratic parallel form, relative L2. The two forms are
+#: equal in exact arithmetic and differ in f32 by the order of their sums,
+#: which random-init layers amplify: 1.4e-4 apart at 6 layers, 5-9% at 24
+#: (tools/xlstm_grad_noise.py on the card, PERF.md section 6), a wrong
+#: gradient's distance being ~1
+XLSTM_GRAD_TOL = 1e-3
 #: the block checks' bound, tests/test_blocks.py's (``allclose`` at rtol =
 #: atol = 2e-3), at T = 512 (two chunks of 256), 16 one-step recurrences
 #: after 496 positions, the sLSTM split at 5
 XLSTM_BLOCK_TOL, XLSTM_BLOCK_T, XLSTM_STEPS, XLSTM_SPLIT = 2e-3, 512, 16, 5
-#: launch.train at xlstm-350m's published widths and all 24 layers, f32: 2 x 512
+#: launch.train at xlstm-350m's published widths and ``XLSTM_LAYERS``, f32: 2 x 512
 XLSTM_TRAIN_B, XLSTM_TRAIN_SEQ = 2, 512
 XLSTM_TRAIN_ARGV = ["--arch", "xlstm-350m", "--full-config", "--batch", str(XLSTM_TRAIN_B), "--seq",
                     str(XLSTM_TRAIN_SEQ)]
@@ -5906,55 +5940,11 @@ def xlstm_block_checks(torch, dev, cfg, weights) -> dict:
     return res
 
 
-def xlstm_form_gradients(torch, dev, cfg) -> dict:
-    """The GRPO gradients of xlstm-350m at its widths cut to
-    ``XLSTM_SHALLOW_LAYERS`` layers, f32, on a batch of the RL loop's shape
-    (``XLSTM_RL_PROMPTS`` x ``XLSTM_RL_GROUP`` sequences of ``PROMPT_LEN`` +
-    ``GEN_LEN`` seeded tokens, on-policy logprobs, advantages from seeded
-    rewards within each group, the loss over the generated positions), with
-    the mLSTM chunked and on its parallel form: each tensor's gradient
-    finite, nonzero and within ``XLSTM_SHALLOW_TOL`` (relative L2)."""
-    import numpy as np
-
-    from repro_torch.models import build_model
-    from repro_torch.models.params import init_params
-    from repro_torch.training import group_relative_advantages
-    from repro_torch.training.steps import make_grpo_loss_fn, value_and_grad
-
-    shallow = dataclasses.replace(cfg, num_layers=XLSTM_SHALLOW_LAYERS)
-    params = init_params(shallow, torch.Generator(device=dev).manual_seed(SEED + 303), torch.float32, dev)
-    b, s = XLSTM_RL_PROMPTS * XLSTM_RL_GROUP, PROMPT_LEN + GEN_LEN
-    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(device=dev).manual_seed(SEED + 304),
-                           device=dev)
-    mask = torch.zeros((b, s - 1), dtype=torch.bool, device=dev)
-    mask[:, PROMPT_LEN - 1 :] = True
-    chunked, parallel = build_model(shallow), build_model(shallow, mlstm="parallel")
-    with torch.no_grad():
-        lp = torch.log_softmax(chunked.forward(params, {"tokens": tokens})[:, :-1], -1)
-        lp = lp.gather(-1, tokens[:, 1:, None])[..., 0]
-    rewards = torch.from_numpy(np.random.default_rng(SEED + 305).random(b).astype(np.float32))
-    batch = {"tokens": tokens, "behavior_logprobs": torch.where(mask, lp, 0.0), "loss_mask": mask,
-             "advantages": group_relative_advantages(rewards, XLSTM_RL_GROUP).to(dev)}
-    del lp
-    got, m_got = value_and_grad(make_grpo_loss_fn(chunked), params, batch)
-    want, m_want = value_and_grad(make_grpo_loss_fn(parallel), params, batch)
-    errs = {n: rel_l2(torch, got[n], want[n]) for n in want}
-    finite = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in got.values())
-    res = dict(config=cfg.name, layers=XLSTM_SHALLOW_LAYERS, batch=[b, s], dtype="float32", tol=XLSTM_SHALLOW_TOL,
-               loss=float(m_got["loss"]), reference_loss=float(m_want["loss"]), all_finite=finite,
-               grad_rel_l2_max=max(errs.values()), grad_rel_l2=errs)
-    emit("xlstm_form_gradients", **res)
-    check(finite, f"{cfg.name}: a gradient at {XLSTM_SHALLOW_LAYERS} layers is zero or not finite")
-    for n, e in errs.items():
-        check(e <= XLSTM_SHALLOW_TOL, f"{cfg.name} {n}: the chunked form's gradient at {XLSTM_SHALLOW_LAYERS} layers "
-                                      f"is {e} (rel. L2) from the parallel form's")
-    return res
-
-
 def xlstm_arch(torch, dev, counters, smi: str) -> dict:
-    """xlstm-350m (arXiv:2405.04517) at its published widths and all 24
-    layers (d_model 1024, 12 pairs of one mLSTM block, d_in 2048 in 4 heads
-    of 512, and one sLSTM block, 4 heads of 256; vocab 50304, untied head).
+    """xlstm-350m (arXiv:2405.04517) at its published widths, its depth cut
+    to ``XLSTM_LAYERS`` (6 of 24) (d_model 1024, pairs of one mLSTM block,
+    d_in 2048 in 4 heads of 512, and one sLSTM block, 4 heads of 256; vocab
+    50304, untied head).
     No attention and no kernel of its own: its blocks are PyTorch ops.
     Serving, bf16: a trainer (dc0) publishes v0; a rollout replica (dc0,
     raw) replicates it and the model reads its parameters from the
@@ -5973,13 +5963,12 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
     f32 forward, and bit-equal on a rerun. The block forms in f32 at these
     widths (``xlstm_block_checks``). The prefill and a decode step timed on
     ``build_model(cfg)``, profiled by kernel class, and the mLSTM and sLSTM
-    blocks' shares of their spans (``xlstm_share``). The GRPO gradients of
-    the two mLSTM forms at 6 layers within 1e-3 (``xlstm_form_gradients``).
+    blocks' shares of their spans (``xlstm_share``).
     Then phase 6's RL loop at 2 x 2 x (512 + 64) in f32 (``rl_loop``: its
     gradients held to the step with the mLSTM on its parallel form within
     ``XLSTM_GRAD_TOL``), and
-    ``launch.train --arch xlstm-350m --full-config`` for two f32 steps of 2 x
-    512. An ``xlstm_phase_seconds`` line gives each part's seconds. Returns
+    ``launch.train --arch xlstm-350m --full-config`` at the same depth
+    (``train_config``) for two f32 steps of 2 x 512. An ``xlstm_phase_seconds`` line gives each part's seconds. Returns
     the main path's launches: the served rounds and pulls, the RL loop and
     the f32 steps (no flash kernel anywhere)."""
     from repro_torch.configs import get_config
@@ -5991,7 +5980,7 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
     from repro_torch.models.params import init_params
     from repro_torch.transfer.codec import DeltaCodec, Int8Codec
 
-    cfg = get_config("xlstm-350m")
+    cfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=XLSTM_LAYERS)
     check(attention_layers(cfg) == 0, f"{cfg.name}: {attention_layers(cfg)} attention calls")
     part_s, mark = {}, [time.perf_counter()]
 
@@ -6141,8 +6130,6 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
     lap("f32_rounds")
     blocks = xlstm_block_checks(torch, dev, cfg, w32)
     lap("block_checks")
-    forms = xlstm_form_gradients(torch, dev, cfg)
-    lap("form_gradients")
     check({k: c.value for k, c in every.items()} == after_codec, f"{cfg.name}: the f32 rounds launched a kernel")
 
     # the prefill and a decode step alone, at the served shapes, on the model as build_model builds it
@@ -6171,7 +6158,7 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
          decode_tokens_per_s=XLSTM_B / decode_step_s, prefill_mlstm_share=prefill_share["mlstm_share"],
          prefill_slstm_share=prefill_share["slstm_share"], decode_mlstm_share=decode_share["mlstm_share"],
          decode_slstm_share=decode_share["slstm_share"], max_memory_allocated=serve_peak, launches=served,
-         checks=checks, block_checks=blocks, shallow_form_grad_rel_l2_max=forms["grad_rel_l2_max"])
+         checks=checks, block_checks=blocks)
     for k in ("checksum", "quantize_rows"):
         check(served[k] > 0, f"{cfg.name}: the publish -> replicate -> update path launched no {k}")
     check(not any(v for k, v in served.items() if k.startswith("flash")),
@@ -6205,7 +6192,8 @@ def xlstm_arch(torch, dev, counters, smi: str) -> dict:
 
     train.make_train_step = timed_steps
     try:
-        trained, losses = train_run(torch, every, ["--steps", str(steps)] + XLSTM_TRAIN_ARGV, cfg, steps)
+        with train_config(cfg):
+            trained, losses = train_run(torch, every, ["--steps", str(steps)] + XLSTM_TRAIN_ARGV, cfg, steps)
     finally:
         train.make_train_step = make_step
     lap("launch_train")
@@ -6383,6 +6371,287 @@ def sharding_flags(torch, dev, counters, smi: str, bw: float) -> dict:
         torch.cuda.empty_cache()
     out = {k: every[k].value for k in counters}
     out["flash_attention_routes"] = {r: every[f"flash_route_{r}"].value for r in ROUTE_LAUNCHES}
+    return out
+
+
+# -- phase 19: the sharded train step (H1 over a DeviceMesh) on the smoke mesh ---------
+
+#: phase 19's batch: one LM batch of 4 sequences of 512 tokens, llama3-8b at
+#: ``TRAIN_LAYERS``
+SHARDED_B, SHARDED_S = 4, 512
+SHARDED_TURNS = 3  # synchronized turns of each step after its gated one, for its seconds
+#: (b), the DTensor step, against (a), the plain one: each gradient's
+#: relative L2 (bit-equal expected: on the 1x1 mesh every op runs on whole
+#: tensors)
+SHARDED_GRAD_TOL = 1e-6
+#: (c), the DTensor step under H1, against (a): the loss (relative) and the
+#: parameters after the step (max |difference|); its gradients within
+#: ``GRAD_TOL_BWD`` (relative L2): the attention runs at G = 1 on K/V
+#: broadcast to the 32 query heads, and the broadcast's backward sums each
+#: KV head's four gradients in bf16
+SHARDED_LOSS_TOL, SHARDED_PARAM_TOL = 1e-3, 5e-3
+
+
+def sharded_step(torch, dev, counters, smi: str, bw: float) -> dict:
+    """Phase 19: llama3-8b at its published widths and ``TRAIN_LAYERS`` in
+    bf16 with f32 moments, one LM batch of ``SHARDED_B`` x ``SHARDED_S``,
+    three steps of ``make_train_step`` (AdamW's defaults, its gradient clip
+    through ``global_norm``) from the same parameters and moments: (a) on
+    plain tensors; (b) on DTensors placed by ``TRAIN_RULES`` on the 1x1
+    NCCL smoke mesh (``place_tree``; the batch placed by ``("batch",
+    "seq")``); (c) the same under H1 (``shard_attn_heads``: K/V broadcast
+    to the 32 query heads, the attention on each rank's local block, here
+    the whole [4,32,512,128]). The parameters and moments are those after
+    one warm step of (a), kept as one host copy and written back into the
+    one trainer's tensors before each step. Gates: (b)'s gradients within
+    ``SHARDED_GRAD_TOL`` of (a)'s; (c)'s loss, gradients and parameters
+    after the step within ``SHARDED_LOSS_TOL``, ``GRAD_TOL_BWD`` and
+    ``SHARDED_PARAM_TOL``; every attention call of (a) and (b) at q
+    [4,32,512,128], k/v [4,8,512,128] and of (c) at k/v [4,32,512,128] (G
+    = 1), each turn launching one tensor-core forward and each tensor-core
+    backward kernel a layer. Each step's seconds (median of
+    ``SHARDED_TURNS`` synchronized turns after the gated one), the seconds
+    its call takes to return (the host's enqueue), its peak memory and one
+    profiled turn's device busy time and idle share. Then the G = 1
+    forward and backward alone (``g1_attention_times``). Returns the
+    steps' launches and the G = 1 records."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_smoke_mesh
+    from repro_torch.models import build_model, optim
+    from repro_torch.models.params import decoder_specs, init_params
+    from repro_torch.sharding import TRAIN_RULES, place_tree, placements_for, spec_for
+    from repro_torch.training import AdamW, AdamWState, make_train_step, steps
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=TRAIN_LAYERS)
+    layers, hq, hkv, d = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    every = {**counters, **{f"flash_route_{r}": c for r, c in fa.ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in fa.BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    mesh = make_smoke_mesh(dev)
+    check(dist.get_backend() == "nccl", f"smoke mesh backend {dist.get_backend()}")
+    calls = set()
+
+    def attention(q, k, v, **kw):
+        calls.add((fa._route(q, k, v=v, grad=True), tuple(q.shape), tuple(k.shape)))
+        return fa.flash_attention(q, k, v, **kw)
+
+    model = build_model(cfg, attention=attention)
+    opt = AdamW()
+    train_step = make_train_step(model, cfg, opt)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 190), torch.bfloat16, dev)
+    tokens = torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 191), device=dev)
+    batch = {"tokens": tokens}
+    state = opt.init(params)
+    _, state, _ = train_step(params, state, batch)  # the warm step: moments of a trainer under way
+    host = {k: {n: t.to("cpu", copy=True) for n, t in tree.items()} for k, tree in (("params", params), ("mu", state.mu),
+                                                                     ("nu", state.nu))}
+    warm_step = state.step
+    specs = dict(decoder_specs(cfg))
+    placed = place_tree(params, specs, TRAIN_RULES, mesh)
+    placed_state = AdamWState(warm_step, place_tree(state.mu, specs, TRAIN_RULES, mesh),
+                              place_tree(state.nu, specs, TRAIN_RULES, mesh))
+    tspec = spec_for(tuple(tokens.shape), ("batch", "seq"), TRAIN_RULES, mesh)
+    placed_batch = {"tokens": distribute_tensor(tokens, mesh, placements_for(tspec, mesh))}
+    torch.cuda.synchronize(dev)
+
+    def local(t):
+        return t.to_local() if optim.is_dtensor(t) else t
+
+    def restore(p, st):
+        for key, tree in (("params", p), ("mu", st.mu), ("nu", st.nu)):
+            for n, t in tree.items():
+                local(t).copy_(host[key][n])
+        return AdamWState(warm_step, st.mu, st.nu)
+
+    value_and_grad, seen = steps.value_and_grad, {}
+
+    def recording(*a, **kw):  # the gated turn's gradients and metrics
+        grads, metrics = value_and_grad(*a, **kw)
+        seen.update(grads={n: local(g) for n, g in grads.items()}, metrics=metrics)
+        return grads, metrics
+
+    cases = {"a_plain": (params, state, batch, {}),
+             "b_dtensor": (placed, placed_state, placed_batch, {}),
+             "c_dtensor_h1": (placed, placed_state, placed_batch, dict(mesh=mesh, shard_attn_heads=True))}
+    want_launches = {"flash_route_tensor_core": layers, "flash_route_decode": 0, "flash_route_f32": 0,
+                     **{f"flash_attention_bwd_{n}": layers * (n.startswith("tensor_core/") and n.split("/")[1]
+                                                              in fa.bwd_kernels(d)) for n in fa.BWD_LAUNCHES}}
+    results, ref = {}, {}
+    for label, (p, st, b, flags) in cases.items():
+        st = restore(p, st)
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: c.value for k, c in every.items()}
+        steps.value_and_grad = recording
+        try:
+            with optim.optimizations(**flags):
+                _, _, metrics = train_step(p, st, b)
+        finally:
+            steps.value_and_grad = value_and_grad
+        torch.cuda.synchronize(dev)
+        turn = {k: every[k].value - before[k] for k in want_launches}
+        check(turn == want_launches, f"phase 19 {label}: a step's launches {turn}, want {want_launches}")
+        kv = hq if flags else hkv
+        want_calls = {("tensor_core", (SHARDED_B, hq, SHARDED_S, d), (SHARDED_B, kv, SHARDED_S, d))}
+        check(calls == want_calls, f"phase 19 {label}: attention calls {calls}, want {want_calls}")
+        loss = float(metrics["loss"])
+        grads = seen.pop("grads")
+        after = {n: local(t) for n, t in p.items()}
+        rec = dict(loss=loss, attention_calls=sorted([r, list(q), list(k)] for r, q, k in calls),
+                   launches_per_turn=turn)
+        if label == "a_plain":
+            ref = dict(loss=loss, grads={n: g.clone() for n, g in grads.items()},
+                       params={n: t.clone() for n, t in after.items()})
+        else:
+            errs = {n: rel_l2(torch, grads[n].float(), ref["grads"][n].float()) for n in ref["grads"]}
+            rec.update(grad_rel_l2=errs, grad_rel_l2_max=max(errs.values()),
+                       grads_bit_equal=all(torch.equal(grads[n], ref["grads"][n]) for n in ref["grads"]),
+                       loss_rel_diff=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       param_max_abs_diff=max(float((after[n].float() - ref["params"][n].float()).abs().max())
+                                              for n in after))
+        del grads, after
+        wall, host_s = [], []
+        with optim.optimizations(**flags):
+            for _ in range(SHARDED_TURNS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                train_step(p, st, b)
+                host_s.append(time.perf_counter() - t0)
+                torch.cuda.synchronize(dev)
+                wall.append(time.perf_counter() - t0)
+            prof = device_profile(torch, lambda: train_step(p, st, b))
+        rec.update(step_seconds=statistics.median(wall), step_seconds_by_turn=wall,
+                   host_return_seconds=statistics.median(host_s), max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                   device_busy_seconds=prof["device_busy_seconds"], idle_share=prof["idle_share"],
+                   by_class={c: v["seconds"] for c, v in prof["by_class"].items()})
+        results[label] = rec
+        emit("sharded_step", card=smi, case=label, config=cfg.name, layers=layers, batch=[SHARDED_B, SHARDED_S],
+             dtype="bfloat16", moments="float32", **rec)
+    launches = {k: c.value for k, c in every.items()}  # the main path's, read now
+    a = results["a_plain"]
+    for label in ("b_dtensor", "c_dtensor_h1"):
+        r = results[label]
+        r.update(over_a=r["step_seconds"] / a["step_seconds"], extra_seconds=r["step_seconds"] - a["step_seconds"],
+                 extra_host_return_seconds=r["host_return_seconds"] - a["host_return_seconds"],
+                 extra_share_of_step=(r["step_seconds"] - a["step_seconds"]) / r["step_seconds"])
+    b_, c_ = results["b_dtensor"], results["c_dtensor_h1"]
+    emit("sharded_step_result", card=smi, config=cfg.name,
+         seconds={k: v["step_seconds"] for k, v in results.items()},
+         host_return_seconds={k: v["host_return_seconds"] for k, v in results.items()},
+         idle_share={k: v["idle_share"] for k, v in results.items()},
+         over_a={k: results[k]["over_a"] for k in ("b_dtensor", "c_dtensor_h1")},
+         extra_share_of_step={k: results[k]["extra_share_of_step"] for k in ("b_dtensor", "c_dtensor_h1")},
+         b_grad_rel_l2_max=b_["grad_rel_l2_max"], b_grads_bit_equal=b_["grads_bit_equal"],
+         c_loss_rel_diff=c_["loss_rel_diff"], c_grad_rel_l2_max=c_["grad_rel_l2_max"],
+         c_param_max_abs_diff=c_["param_max_abs_diff"],
+         gates=dict(b_grad=SHARDED_GRAD_TOL, c_loss=SHARDED_LOSS_TOL, c_grad=GRAD_TOL_BWD, c_param=SHARDED_PARAM_TOL))
+    worst_b = max(b_["grad_rel_l2"].items(), key=lambda kv: kv[1])
+    check(b_["grad_rel_l2_max"] <= SHARDED_GRAD_TOL, f"phase 19: the DTensor step's gradient of {worst_b[0]} is "
+                                                     f"{worst_b[1]} (rel. L2) from the plain step's")
+    check(c_["loss_rel_diff"] <= SHARDED_LOSS_TOL, f"phase 19: H1's loss {c_['loss']} against {a['loss']}")
+    check(c_["grad_rel_l2_max"] <= GRAD_TOL_BWD, f"phase 19: H1's gradients {c_['grad_rel_l2']}")
+    check(c_["param_max_abs_diff"] <= SHARDED_PARAM_TOL, f"phase 19: H1's parameters {c_['param_max_abs_diff']} away")
+    del params, state, placed, placed_state, ref, host, model, train_step, batch, placed_batch, tokens
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g1 = g1_attention_times(torch, dev, bw, (SHARDED_B, hq, SHARDED_S, d))
+    out = {k: launches[k] for k in counters}
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in fa.ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in fa.BWD_LAUNCHES}
+    out["g1"] = g1
+    return out
+
+
+def g1_attention_times(torch, dev, bw: float, shape) -> dict:
+    """Phase 19's attention alone: the tensor_core forward and backward at
+    G = 1 (q/k/v ``shape`` = [4,32,512,128] bf16 causal, H1's K/V broadcast
+    to the query heads), each held to its plain version at phase 2's
+    tolerances (the backward through the autograd Function, twice for
+    bit-equal gradients, against autograd of the plain attention) and timed
+    with the L2 cold beside the plain version and SDPA with ``is_causal``
+    (cuDNN's backend where it takes the call, named), with the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 192)
+
+    def rand():
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = rand(), rand(), rand()
+    tol = FLASH_TOL["bfloat16"]
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    label = f"q/k/v {list(shape)} bf16 causal, G 1"
+    check(fa._route(q, k) == "tensor_core", f"G 1 routed to {fa._route(q, k)}")
+    got = fa.flash_attention(q, k, v, causal=True).float()
+    want = fa.attention_plain(q, k, v, causal=True).float()
+    diff = (got - want).abs()
+    ratio = float((diff / (tol + tol * want.abs())).max())
+    emit("flash_check", case=f"phase 19 {label}", route="tensor_core", max_abs_err=float(diff.max()), tol=tol,
+         err_over_tol=ratio)
+    check(ratio <= 1.0 and bool(torch.isfinite(got).all()), "tensor_core != plain version at G 1")
+    backend = sdpa_backend(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    calls = {"kernel": lambda: fa.flash_attention(q, k, v, causal=True),
+             "plain": lambda: fa.attention_plain(q, k, v, causal=True),
+             "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)}
+    with sdpa_kernel([backend]):
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        sdpa_diff = float((calls["sdpa"]().float() - got).abs().max())
+    bound, by, flops, nbytes = flash_bound_ms(q, k, shape[2], True, 0, bw)
+    out = {"forward": dict(route="tensor_core", shape=label, ms=cold["kernel"], plain_ms=cold["plain"],
+                           library_ms=cold["sdpa"], library=str(backend), bound_ms=bound, bound_by=by, flops=flops,
+                           bytes=nbytes, max_abs_err=float(diff.max()), err_over_tol=ratio,
+                           sdpa_max_abs_diff=sdpa_diff)}
+    emit("flash_g1_times", case="forward", card_rate=bw, **out["forward"])
+    del got, want, diff
+
+    dout = rand()
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+        res = torch.autograd.grad(fa.flash_attention(*leaves, causal=True), leaves, dout)
+        check(all(fa.BWD_LAUNCHES[f"tensor_core/{n}"].value == before[f"tensor_core/{n}"] + 1
+                  for n in fa.bwd_kernels(shape[3])), "tensor_core backward not launched at G 1")
+        return res
+
+    got, again = grads(), grads()
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_plain(*ref, causal=True), ref, dout)
+    errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    emit("flash_bwd_check", case=f"phase 19 {label}", forward_route="tensor_core", backward_route=fa._bwd_route(q),
+         rel_err=errs, tol=tol, finite=finite, bit_equal_rerun=same)
+    check(finite and max(errs.values()) <= tol and same, "tensor_core backward != autograd of the plain version at "
+          "G 1, or two runs differ")
+    o, lse = fa.launch_route("tensor_core", q, k, v, with_lse=True, causal=True)
+    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([backend]):
+        sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True)
+        calls = {"kernel": lambda: fa.launch_backward(q, k, v, o, lse, dout, causal=True, route="tensor_core"),
+                 "plain": lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True),
+                 "sdpa": lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True)}
+        cold = {n: cold_ms(torch, f, flush, reps=5 if n == "plain" else 20) for n, f in calls.items()}
+        sdpa_rel = max(grad_err(torch, a, w) for a, w in zip(got, calls["sdpa"]()))
+    bound, by, flops, nbytes = bwd_bound_ms(q, k, shape[2], True, 0, bw, BF16_TFLOPS)
+    out["backward"] = dict(route="tensor_core", shape=label, ms=cold["kernel"], plain_ms=cold["plain"],
+                           library_ms=cold["sdpa"], library=str(backend), bound_ms=bound, bound_by=by, flops=flops,
+                           bytes=nbytes, rel_err_vs_plain=errs, err_over_tol=max(errs.values()) / tol,
+                           max_abs_err=max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)),
+                           sdpa_rel_diff=sdpa_rel)
+    emit("flash_g1_times", case="backward", card_rate=bw, **out["backward"])
+    del q, k, v, dout, got, again, ref, want, o, lse, sq_, sk_, sv_, sdpa_out, calls, flush
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6659,17 +6928,28 @@ def main() -> int:
     phase18 = sharding_flags(torch, dev, {k: c for k, c in counters.items() if not k.startswith("flash_attention_bwd")},
                              smi, bw)
     phase_s["18 sharding and flags"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase19 = sharded_step(torch, dev, counters, smi, bw)
+    g1 = phase19.pop("g1")
+    fwd["routes"]["tensor_core"]["llama3_8b_h1_g1"] = g1["forward"]
+    bwd_tc["llama3_8b_h1_g1_backward"] = g1["backward"]
+    for entry, case in ((fwd, g1["forward"]), (bwd_tc, g1["backward"])):
+        entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
+        entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
+    phase_s["19 sharded step"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16, phase17, phase18)
+              phase16, phase17, phase18, phase19)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
-                        phase16, phase18)  # with attention
+                        phase16, phase18, phase19)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
-                       phase16)  # the paths with the backward
+                       phase16, phase19)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -6680,7 +6960,8 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase_seconds=phase_s)
+         phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase19=phase19,
+         phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

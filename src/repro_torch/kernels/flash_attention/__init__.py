@@ -125,6 +125,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -649,7 +650,12 @@ def flash_attention(
     """Attention of q ``[B, Hq, Sq, D]`` over k ``[B, Hkv, Sk, D]`` and v
     ``[B, Hkv, Sk, Dv]`` (see the module docstring); asynchronous on CUDA.
     Differentiable: when autograd wants a gradient the call goes through
-    :class:`FlashAttention`."""
+    :class:`FlashAttention`. A DTensor is refused: on a mesh the attention
+    runs on each rank's local block (``repro_torch.models.blocks._attend``)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes plain tensors, got a DTensor: on a DeviceMesh hand it each "
+                            "rank's local block (models.blocks attends through _attend)")
     kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)

@@ -19,13 +19,18 @@ PyTorch (the JAX package computes it with XLA ops outside any Pallas
 kernel). ``moe_apply_shardmap`` is its expert-parallel form (the JAX
 package's H3, :mod:`repro_torch.models.optim`) over ``torch.distributed``:
 each rank dispatches its own tokens to its own experts and one
-``all_reduce`` over the model axis combines them; it runs the forward only.
+``all_reduce`` over the model axis combines them.
 
-Of the JAX package's ``models/optim.py``, ``lowp_norm`` (H2, in
-:func:`~repro_torch.models.layers.rms_norm`) and ``shardmap_moe`` (H3) are
-ported; ``shard_attn_heads`` (H1: K/V broadcast to the query heads and
-sharded on them) is refused with a mesh, so attention runs as the JAX
-package runs it without one.
+Of the JAX package's ``models/optim.py``, all three are ported:
+``lowp_norm`` (H2, in :func:`~repro_torch.models.layers.rms_norm`),
+``shard_attn_heads`` (H1, in :func:`attn_apply`: K/V broadcast to the
+query heads and the attention placed on them) and ``shardmap_moe`` (H3).
+
+Parameters and activations may be DTensors on a ``DeviceMesh`` (the
+sharded train step's, :func:`repro_torch.sharding.place_tree`). The
+attention then runs on each rank's local block (:func:`_attend`), so the
+attention function is handed plain tensors, and H3 on each rank's local
+tokens and experts.
 """
 
 from __future__ import annotations
@@ -64,6 +69,13 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
+    if optim.is_dtensor(x):  # a width sharded over more ranks than it has heads is gathered first
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        keep = [p if not (p.is_shard(2) and n % mesh.size(i)) else Replicate() for i, p in enumerate(x.placements)]
+        if keep != list(x.placements):
+            x = x.redistribute(mesh, keep)
     return x.reshape(b, s, n, -1).transpose(1, 2)  # [B, H, S, hd]
 
 
@@ -100,7 +112,17 @@ def attn_apply(
     k = apply_rope(k, positions, cfg.rope_theta)
     kw = dict(causal=causal, softcap=cfg.attn_softcap, window=window)
     if cache is None:
-        out = attention(q, k, v, **kw)
+        # H1 (repro_torch.models.optim): broadcast K/V to the query heads
+        # (each KV head repeated ``g`` times, the order of ``jnp.repeat``)
+        # and place everything on the query heads, which divide the model
+        # axis where the KV heads may not
+        ka, va = k, v
+        if optim.broadcast_kv_active():
+            g = cfg.num_heads // cfg.num_kv_heads
+            if g > 1:
+                ka, va = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+            q, ka, va = optim.shard_attn(q), optim.shard_attn(ka), optim.shard_attn(va)
+        out = optim.shard_attn(_attend(attention, q, ka, va, **kw))
         new_cache = {"k": k, "v": v}
     else:
         assert cache_len is not None
@@ -113,6 +135,30 @@ def attn_apply(
     if "post_ln" in p:
         proj = rms_norm(proj, p["post_ln"])
     return x + proj, new_cache
+
+
+def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            **kw) -> torch.Tensor:
+    """``attention(q, k, v, **kw)``; DTensors attend on each rank's local
+    block, ``[B/dp, H/tp, S, hd]`` under H1 (q, k and v placed on the query
+    heads by :func:`optim.shard_attn`) and ``[B/dp, H, S, hd]`` without it
+    (the heads replicated over the model axis: the whole attention on
+    every model rank, as GSPMD runs it), the batch over the flags' batch
+    axes where it divides (:func:`optim.attn_spec`). The attention function
+    sees plain tensors; the result is a DTensor placed as its inputs."""
+    if not optim.is_dtensor(q):
+        return attention(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import placements_for
+
+    mesh = q.device_mesh
+    if optim.broadcast_kv_active():
+        placements = q.placements
+    else:
+        placements = placements_for(optim.attn_spec(tuple(q.shape), mesh, heads=False), mesh)
+    q, k, v = (t.redistribute(mesh, placements).to_local() for t in (q, k, v))
+    return DTensor.from_local(attention(q, k, v, **kw), mesh, placements, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +353,11 @@ def dispatch(
     count)`` keeps a buffer of those ``count`` experts only (``[count *
     cap]``, H3's local experts): every other expert's pairs go to its waste
     row ``count * cap``."""
+    # DTensor has no searchsorted: the routing indices, whole on every rank
+    # (the gathers by them then take the tokens whole too, so with H3 off
+    # the MoE runs in full on every data rank)
+    if optim.is_dtensor(top_e):
+        top_e = top_e.full_tensor()
     e_flat = top_e.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
@@ -414,6 +465,45 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + out.view(b, s, d)
 
 
+class _ModelSum(torch.autograd.Function):
+    """The sum over the model axis's ranks (``all_reduce``) of each rank's
+    partial result. Its backward is the identity: the sum is
+    replicated, so its cotangent is every rank's, and each partial term's
+    is that cotangent (``torch.distributed.nn.functional.all_reduce``
+    reduces the cotangent again, making it ``tp`` times too large)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The identity on a tensor that every model rank holds alike and each
+    uses for its own partial result; its backward sums the ranks' partial
+    cotangents (Megatron's copy into the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """H3 (:mod:`repro_torch.models.optim`): expert parallelism over
     ``optim.FLAGS.mesh``, the JAX package's ``moe_apply_shardmap``.
@@ -429,13 +519,19 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     ``x`` and ``p``'s tensors are DTensors on the mesh, placed as the rules
     place them (each is redistributed to what its part needs), or plain
     tensors, taken as replicated. The result has x's placements (a plain x
-    gives a plain, whole result). The forward only: with grad mode on and
-    an input that requires grad it raises ``NotImplementedError`` (the
-    backward belongs to the sharded train step)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *p.values())):
-        raise NotImplementedError("H3 (moe_apply_shardmap) has no backward yet: call it without autograd")
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate
+    gives a plain, whole result; a partial x, a replicated one).
+
+    Differentiable. The redistributions in and out are DTensor's, with
+    their own backwards. Inside, the routed part's input is the normed
+    tokens through :class:`_ModelCopy` (each model rank's cotangent covers
+    its own experts' pairs; the copy's backward sums them) and its output
+    the sum :class:`_ModelSum` (identity backward); the router's, the
+    norm's and the shared expert's local gradients are declared partial
+    over the batch axes (each rank saw its own tokens), the experts' also
+    sharded over the model axis, so DTensor sums them where their
+    parameters are placed. The fallback is :func:`moe_apply`'s autograd on
+    tensors replicated on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     from repro_torch.sharding.rules import mesh_axis_sizes, placements_for
 
@@ -448,16 +544,20 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     bdims = tuple(a for a in f.batch_axes if sizes.get(a, 1) > 1)
     E = mo.num_experts
 
-    def local(t: torch.Tensor, spec) -> torch.Tensor:
-        """This rank's block of ``t`` placed by ``spec``."""
+    def local(t: torch.Tensor, spec, grad=None) -> torch.Tensor:
+        """This rank's block of ``t`` placed by ``spec`` (``grad``: the
+        placements of its gradient, the block's own by default)."""
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, placements_for(spec, mesh)).to_local()
+        return t.redistribute(mesh, placements_for(spec, mesh)).to_local(grad_placements=grad)
 
     def like_x(out: torch.Tensor, spec) -> torch.Tensor:
-        """This rank's block ``out`` (placed by ``spec``) as x is placed."""
+        """This rank's block ``out`` (placed by ``spec``) as x is placed
+        (where x is a partial sum, replicated)."""
         dt = DTensor.from_local(out, mesh, placements_for(spec, mesh), run_check=False)
-        return dt.redistribute(mesh, x.placements) if isinstance(x, DTensor) else dt.full_tensor()
+        if not isinstance(x, DTensor):
+            return dt.full_tensor()
+        return dt.redistribute(mesh, [Replicate() if q.is_partial() else q for q in x.placements])
 
     whole = (None, None, None)
     if tp <= 1 or E % tp or x.shape[0] % math.prod(sizes[a] for a in bdims) or not bdims:
@@ -465,20 +565,30 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
         return like_x(moe_apply(cfg, full, local(x, whole)), whole)
     e_loc = E // tp
     xspec = (bdims if len(bdims) > 1 else bdims[0], None, None)
+    names = tuple(mesh.mesh_dim_names)
+
+    def grad_of(n: str) -> tuple:
+        """A parameter's local gradient: partial over the batch axes, and
+        the experts' sharded over the model axis as they are."""
+        spec = placements_for((f.model_axis, None, None) if n in experts else (None,) * p[n].ndim, mesh)
+        return tuple(Partial() if a in bdims else q for a, q in zip(names, spec))
+
     experts = ("w_gate", "w_up", "w_down")
-    lp = {n: local(t, (f.model_axis, None, None) if n in experts else (None,) * t.ndim) for n, t in p.items()}
+    lp = {n: local(t, (f.model_axis, None, None) if n in experts else (None,) * t.ndim, grad_of(n))
+          for n, t in p.items()}
     x_loc = local(x, xspec)
 
     b, s, d = x_loc.shape
     t = b * s
+    group = mesh.get_group(f.model_axis)
     flat = rms_norm(x_loc, lp["ln"]).reshape(t, d)
-    top_p, top_e = route(cfg, lp, flat)
+    routed = _ModelCopy.apply(flat, group)
+    top_p, top_e = route(cfg, {"router": _ModelCopy.apply(lp["router"], group)}, routed)
     cap = capacity(cfg, t)
     first = mesh.get_local_rank(f.model_axis) * e_loc
     order, dest = dispatch(top_e, E, cap, experts=(first, e_loc))
-    combined = _experts_combined(lp, flat, top_p, order, dest, cap)
-    dist.all_reduce(combined, group=mesh.get_group(f.model_axis))
-    out = combined.to(x_loc.dtype)
+    combined = _experts_combined(lp, routed, top_p, order, dest, cap)
+    out = _ModelSum.apply(combined, group).to(x_loc.dtype)
     if mo.num_shared:
         out = out + swiglu(flat, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
     return like_x(x_loc + out.view(b, s, d), xspec)

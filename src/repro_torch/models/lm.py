@@ -61,6 +61,7 @@ does not depend on the sequence's length.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -90,6 +91,48 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
     if cfg.alt_local_global:
         return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(cfg.num_layers)]
     return [0] * cfg.num_layers
+
+
+def on_mesh(params: Params) -> bool:
+    """Whether ``params`` are DTensors on a ``DeviceMesh`` (the sharded
+    train step's, :func:`repro_torch.sharding.place_tree`)."""
+    return any(optim.is_dtensor(t) for t in params.values())
+
+
+#: how deep this process is in :func:`mesh_scope`s
+_MESH_SCOPES = 0
+
+
+@contextlib.contextmanager
+def mesh_scope(params: Params):
+    """The context a forward or a loss over DTensor parameters runs in:
+    DTensor's ``implicit_replication``, under which the plain tensors that
+    meet them (the tokens, positions and rope tables, a window's mask, the
+    softcaps' scalars, the labels, and what autograd saved of them) are
+    taken as replicated on their mesh, as GSPMD takes an unconstrained
+    constant. Nothing for plain parameters. It nests (the step's scope
+    holds the model's): ``implicit_replication`` itself switches off at
+    the end of any scope, so only the outermost one enters it."""
+    global _MESH_SCOPES
+    if _MESH_SCOPES or not on_mesh(params):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESH_SCOPES += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _MESH_SCOPES -= 1
+
+
+def refuse_mesh(cfg: ModelConfig, params: Params, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ``cfg``'s family where DTensor
+    parameters reach a model whose sharded path is not ported (``what``)."""
+    if on_mesh(params):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family} family, {what}): the sharded train step "
+                                  f"(DTensor parameters on a DeviceMesh) is not ported for it")
 
 
 class DecoderLM:
@@ -212,15 +255,23 @@ class DecoderLM:
     def forward(self, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Logits ``[B, S, vocab]`` (f32) of a token batch ``{"tokens": [B, S]}``
         (a VLM's also ``"patches": [B, P, d_model]``, and its logits ``[B, P
-        + S, vocab]``)."""
-        x, positions = self._inputs(params, batch)
-        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
-        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in self._ffn_names}
+        + S, vocab]``).
 
-        def layers(i):
-            return {n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()}
+        DTensor parameters (the sharded train step's) run the dense and
+        MoE decoders under :func:`mesh_scope`, the attention on each
+        rank's local block; MLA and the VLM's patches are refused there
+        (:func:`refuse_mesh`)."""
+        if self.is_mla or self.cfg.family == VLM:
+            refuse_mesh(self.cfg, params, "MLA attention" if self.is_mla else "the patch prefix")
+        with mesh_scope(params):
+            x, positions = self._inputs(params, batch)
+            attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
+            ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in self._ffn_names}
 
-        return self._head(params, self._run(params, x, positions, layers=layers))
+            def layers(i):
+                return {n: t[i] for n, t in attn.items()}, {n: t[i] for n, t in ffn.items()}
+
+            return self._head(params, self._run(params, x, positions, layers=layers))
 
     # -- caches ------------------------------------------------------------------
 
@@ -310,6 +361,7 @@ class EncoderLM:
         respect to the parameter dict, each stack taken apart once with
         ``unbind(0)`` (as :meth:`DecoderLM.forward`)."""
         cfg = self.cfg
+        refuse_mesh(cfg, params, "the encoder")
         w = params["frame_proj"]
         x = batch["frames"].to(w.dtype) @ w
         positions = torch.arange(x.shape[1], device=x.device)
@@ -427,6 +479,7 @@ class HybridLM:
         the JAX forward's ``jax.checkpoint``), so a step keeps one block's
         chunk weights at a time; the shared block's calls read one set of
         weights, so its gradient is their sum."""
+        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
         x = params["embed"][batch["tokens"]]
         positions = torch.arange(x.shape[1], device=x.device)
         layers = self._ssd_layers(params)
@@ -612,6 +665,7 @@ class XLSTMLM:
         Differentiable with respect to the parameter dict; nothing is
         recomputed in the backward (the JAX ``_run`` has no
         ``jax.checkpoint``)."""
+        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
         x = params["embed"][batch["tokens"]]
         x, _ = self._run(params, x, form=self.mlstm)
         return self._head(params, x)

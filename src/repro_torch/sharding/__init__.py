@@ -6,6 +6,7 @@ from repro_torch.sharding.rules import (
     SERVE_RULES,
     TRAIN_RULES,
     constrain,
+    place_tree,
     placements_for,
     rules_for,
     sharding_for,
@@ -19,6 +20,7 @@ __all__ = [
     "SERVE_RULES",
     "TRAIN_RULES",
     "constrain",
+    "place_tree",
     "placements_for",
     "rules_for",
     "sharding_for",

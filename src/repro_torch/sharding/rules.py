@@ -117,6 +117,23 @@ def tree_shardings(tree: Any, rules: Rules, mesh: Any) -> Any:
     return map_specs(lambda p: sharding_for(p, rules, mesh), tree)
 
 
+def place_tree(tensors: Any, specs: Any, rules: Rules, mesh: Any) -> Any:
+    """The port's counterpart of jit's ``in_shardings=tree_shardings(specs,
+    rules, mesh)``: each tensor of ``tensors`` (a tree of dicts and lists
+    shaped as its :class:`ParamSpec` tree ``specs``, e.g. a model's flat
+    parameter dict beside ``dict(decoder_specs(cfg))``) as a DTensor on the
+    ``DeviceMesh`` ``mesh``, placed by :func:`tree_shardings`
+    (``distribute_tensor``: every rank passes the same whole tensor, and
+    keeps its block). ``full_tensor()`` brings each back whole."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(specs, ParamSpec):
+        return distribute_tensor(tensors, mesh, sharding_for(specs, rules, mesh))
+    if isinstance(specs, list):
+        return [place_tree(t, s, rules, mesh) for t, s in zip(tensors, specs)]
+    return {k: place_tree(t, specs[k], rules, mesh) for k, t in tensors.items()}
+
+
 def constrain(x: Any, axes: Tuple[Optional[str], ...], rules: Rules, mesh: Any) -> Any:
     """The rules' placements for an activation: a DTensor is redistributed
     to them, a plain tensor is returned as it is."""

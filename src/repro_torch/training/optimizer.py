@@ -13,6 +13,11 @@ returns new arrays. A trainer's parameters are the buffers it registered
 with TensorHub, so ``publish`` reads the new bytes with no copy (the
 reference-oriented storage of paper 4.2, as the rollout side already
 serves from its replica's buffers). The step count is a host integer.
+
+Parameters may be DTensors on a ``DeviceMesh`` (the sharded train step's):
+``init`` places the moments like their parameters, ``update`` takes
+gradients placed like them too and writes each rank's local block in
+place, and :func:`global_norm` counts each element once.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import math
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.models.optim import is_dtensor
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -49,7 +56,7 @@ class AdamW:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
         def zeros():
-            return {n: torch.zeros(p.shape, dtype=self.state_dtype, device=p.device) for n, p in params.items()}
+            return {n: torch.zeros_like(p, dtype=self.state_dtype) for n, p in params.items()}
 
         return AdamWState(step=0, mu=zeros(), nu=zeros())
 
@@ -58,7 +65,9 @@ class AdamW:
         self, grads: Mapping[str, torch.Tensor], state: AdamWState, params: Mapping[str, torch.Tensor]
     ) -> Tuple[Mapping[str, torch.Tensor], AdamWState]:
         """One step: writes ``params`` and the moments in place and returns
-        them with the state's step advanced."""
+        them with the state's step advanced. A DTensor parameter's gradient
+        and moments are placed as it is, and each rank updates its local
+        block (the arithmetic is elementwise, so it is the same)."""
         step = state.step + 1
         scale = None
         if self.grad_clip > 0:
@@ -74,11 +83,17 @@ class AdamW:
         # c1, c2 and lr are 0-d f32 tensors on the host, which PyTorch
         # broadcasts into device arithmetic without a copy
         for name, param in params.items():
+            blocks = (param, grads[name], state.mu[name], state.nu[name])
+            if is_dtensor(param):
+                if any(t.placements != param.placements for t in blocks[1:]):
+                    raise ValueError(f"AdamW: {name}'s gradient and moments must be placed as it is "
+                                     f"({param.placements})")
+                blocks = tuple(t.to_local() for t in blocks)
             # elementwise, so a slice at a time gives the same bits with
             # f32 temporaries of one slice (a dbrx layer's w_gate is 1.06 G
             # elements: 4.2 GB for each whole-tensor f32 temporary)
-            flat = (param.view(-1), grads[name].reshape(-1), state.mu[name].view(-1), state.nu[name].view(-1))
-            for start in range(0, param.numel(), _SLICE):
+            flat = (blocks[0].view(-1), blocks[1].reshape(-1), blocks[2].view(-1), blocks[3].view(-1))
+            for start in range(0, flat[0].numel(), _SLICE):
                 p, g, mu, nu = (t[start : start + _SLICE] for t in flat)
                 g32 = g.float()
                 if scale is not None:
@@ -97,8 +112,36 @@ class AdamW:
 
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32 (a 0-d tensor on
-    the tensors' device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors.values()))
+    the tensors' device).
+
+    Plain tensors are summed in their order. DTensors (not partial) count
+    each element once: each rank sums the squares of its local block, the
+    blocks' sums are added by the mesh dimensions they are sharded over
+    (one group of tensors for each such set), each group's sum is
+    all-reduced over those dimensions only (a block replicated over the
+    model axis is not counted ``tp`` times), and the groups' sums are added
+    in a fixed order, so every rank holds the same plain 0-d tensor."""
+    import torch.distributed as dist
+
+    groups: Dict[tuple, torch.Tensor] = {}
+    meshes: Dict[tuple, object] = {}
+    for name, t in tensors.items():
+        dims: tuple = ()
+        if is_dtensor(t):
+            if any(p.is_partial() for p in t.placements):
+                raise ValueError(f"global_norm: {name} is partial ({t.placements}); redistribute it first")
+            dims = tuple(i for i, p in enumerate(t.placements) if p.is_shard())
+            meshes[dims] = t.device_mesh
+            t = t.to_local()
+        part = torch.sum(torch.square(t.float()))
+        groups[dims] = groups[dims] + part if dims in groups else part
+    total = None
+    for dims in sorted(groups):
+        part = groups[dims]
+        for d in dims:
+            dist.all_reduce(part, group=meshes[dims].get_group(d))
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def cosine_schedule(warmup: int, total: int) -> Callable[[int], torch.Tensor]:

@@ -28,6 +28,19 @@ is trained by the LM loss too, the backward of its mLSTM and sLSTM blocks
 autograd's with nothing recomputed. The GRPO objective, as the JAX
 package's, feeds the model tokens only. A config of a family the port does
 not know raises ``ValueError`` (:func:`repro_torch.models.check_trainable`).
+
+The sharded train step is the same call on DTensors: parameters and
+moments placed on a ``DeviceMesh`` by a rule table
+(:func:`repro_torch.sharding.place_tree`, the port's counterpart of jit's
+``in_shardings``), the batch plain or placed likewise. The forward and the
+loss run under :func:`repro_torch.models.lm.mesh_scope`, autograd returns
+gradients placed as DTensor's propagation leaves them (partial over the
+data axes where the batch is sharded), and :func:`value_and_grad`
+redistributes each to its parameter's placements (the data-parallel
+all-reduce, or FSDP's reduce-scatter) before :class:`AdamW` updates each
+rank's block. Metrics come back as plain replicated tensors. The dense
+and MoE decoders take it (H1 and H3 on or off); the other families refuse
+DTensor parameters by name.
 """
 
 from __future__ import annotations
@@ -38,7 +51,8 @@ import torch
 
 from repro_torch.configs.base import AUDIO, VLM
 from repro_torch.models import check_trainable
-from repro_torch.models.lm import HybridLM
+from repro_torch.models.optim import is_dtensor
+from repro_torch.models.lm import HybridLM, mesh_scope
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
 
@@ -52,12 +66,28 @@ def value_and_grad(
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``(grads, metrics)`` of ``loss_fn(params, batch)``: the loss is
     taken on leaves that share ``params``' storage (``detach()``), so the
-    caller's tensors never carry ``requires_grad``."""
+    caller's tensors never carry ``requires_grad``. DTensor parameters get
+    gradients placed as they are, and plain replicated metrics."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_scope(params):
         loss, metrics = loss_fn(leaves, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-    return dict(zip(leaves, grads)), {k: v.detach() for k, v in metrics.items()}
+    grads = {n: _placed_like(g, params[n]) for n, g in zip(leaves, grads)}
+    return grads, {k: _whole(v.detach()) for k, v in metrics.items()}
+
+
+def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """``grad`` redistributed to ``param``'s placements where both are
+    DTensors (a partial sum becomes the all-reduce or reduce-scatter of
+    data parallelism); a plain gradient as it is."""
+    if not is_dtensor(param) or grad.placements == param.placements:
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor metric as a plain tensor every rank holds."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_loss_fn(model, cfg) -> Callable:
@@ -89,7 +119,7 @@ def make_train_step(model, cfg, opt: AdamW, *, accum: int = 1) -> Callable:
             if n % accum:
                 raise ValueError(f"batch of {n} does not split into {accum} microbatches")
             mb = n // accum
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for name, p in params.items()}
+            grads = {name: torch.zeros_like(p, dtype=torch.float32) for name, p in params.items()}
             for i in range(accum):
                 micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
                 g, metrics = value_and_grad(loss_fn, params, micro)

@@ -2297,3 +2297,67 @@ def test_h3_falls_back_to_moe_apply_on_one_card(smoke_mesh):
         with optim.optimizations(mesh=smoke_mesh, shardmap_moe=True):
             got = blocks.moe_apply_shardmap(cfg, layer, x)
     assert torch.equal(got, want)
+
+
+def test_sharded_step_on_the_smoke_mesh(smoke_mesh, monkeypatch):
+    """``chip_smoke.py`` phase 19 at 2 layers: llama3-8b's train step on
+    DTensors placed by ``TRAIN_RULES`` (b) and under H1 (c) against the
+    plain step (a), from the same bf16 parameters, within phase 19's gates;
+    each step launches one tensor-core forward and backward a layer, at G =
+    1 under H1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, optim
+    from repro_torch.models.params import decoder_specs, init_params
+    from repro_torch.sharding import TRAIN_RULES, place_tree
+    from repro_torch.training import AdamW, make_train_step, steps
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2)
+    init = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 512), generator=torch.Generator(device="cuda").manual_seed(2),
+                                     device="cuda")}
+    opt = AdamW()
+    seen, kv_heads = {}, []
+    value_and_grad = steps.value_and_grad
+
+    def recording(*a, **kw):
+        grads, metrics = value_and_grad(*a, **kw)
+        seen.update(grads=grads, loss=float(metrics["loss"]))
+        return grads, metrics
+
+    def attention(q, k, v, **kw):
+        kv_heads.append(k.shape[1])
+        return fa.flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(steps, "value_and_grad", recording)
+    step = make_train_step(build_model(cfg, attention=attention), cfg, opt)
+
+    def run(params, **flags):
+        kv_heads.clear()
+        before = [fa.ROUTE_LAUNCHES["tensor_core"].value] + [fa.BWD_LAUNCHES[f"tensor_core/{n}"].value
+                                                             for n in fa.bwd_kernels(128)]
+        with optim.optimizations(**flags):
+            step(params, opt.init(params), batch)
+        after = [fa.ROUTE_LAUNCHES["tensor_core"].value] + [fa.BWD_LAUNCHES[f"tensor_core/{n}"].value
+                                                            for n in fa.bwd_kernels(128)]
+        assert [b - a for a, b in zip(before, after)] == [cfg.num_layers] * len(after)
+        local = {n: (t.to_local() if optim.is_dtensor(t) else t) for n, t in params.items()}
+        grads = {n: (g.to_local() if optim.is_dtensor(g) else g).float() for n, g in seen["grads"].items()}
+        return seen["loss"], grads, local, list(kv_heads)
+
+    def placed():
+        return place_tree({n: t.clone() for n, t in init.items()}, dict(decoder_specs(cfg)), TRAIN_RULES, smoke_mesh)
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    loss_a, grads_a, params_a, heads_a = run({n: t.clone() for n, t in init.items()})
+    loss_b, grads_b, _, heads_b = run(placed())
+    loss_c, grads_c, params_c, heads_c = run(placed(), mesh=smoke_mesh, shard_attn_heads=True)
+    assert heads_a == heads_b == [cfg.num_kv_heads] * cfg.num_layers and heads_c == [cfg.num_heads] * cfg.num_layers
+    assert max(rel_l2(grads_b[n], grads_a[n]) for n in grads_a) <= 1e-6
+    assert abs(loss_c - loss_a) <= 1e-3 * abs(loss_a)
+    assert max(rel_l2(grads_c[n], grads_a[n]) for n in grads_a) <= 2e-2
+    assert max(float((params_c[n].float() - params_a[n].float()).abs().max()) for n in params_a) <= 5e-3

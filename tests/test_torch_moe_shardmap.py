@@ -17,10 +17,10 @@ output tails on failure. The checks:
   ``moe_dense_ref`` on the same numpy inputs, and keeps x's placements;
 * where the JAX code falls back (``E % tp``, a batch that does not divide,
   no batch axis, ``tp <= 1``), H3 is bit-equal to ``moe_apply``;
-* H3 refuses autograd;
 * a reduced dbrx forward with H3 on equals the one with it off.
 
-The 1x1 gloo mesh's fallback and refusal run in this process.
+The 1x1 gloo mesh's fallback runs in this process. H3's backward is held in
+``tests/test_torch_sharded_step.py``.
 """
 
 import dataclasses
@@ -175,11 +175,6 @@ def test_h3_falls_back_where_the_jax_code_does(gloo_run, case):
         assert np.array_equal(outs[rank][f"fallback/{case}"], outs[0][f"fallback/{case}"])
 
 
-def test_h3_refuses_autograd_on_every_rank(gloo_run):
-    _, _, infos = gloo_run
-    assert all(info["refused_autograd"] is True for info in infos)
-
-
 def test_decoder_takes_h3_under_the_flag(gloo_run):
     _, outs, _ = gloo_run
     for rank in range(WORLD):
@@ -223,15 +218,3 @@ def test_h3_on_one_device_is_moe_apply(smoke_mesh):
             gd = blocks.moe_apply_shardmap(cfg, placed, xd)
     assert not isinstance(got, DTensor) and torch.equal(got, want)
     assert isinstance(gd, DTensor) and gd.placements == xd.placements and torch.equal(gd.full_tensor(), want)
-
-
-def test_h3_refuses_autograd(smoke_mesh):
-    cfg = get_config("dbrx-132b").reduced()
-    p, x = _torch_layer(cfg)
-    with optim.optimizations(mesh=smoke_mesh, shardmap_moe=True):
-        with pytest.raises(NotImplementedError, match="backward"):
-            blocks.moe_apply_shardmap(cfg, p, x.requires_grad_())
-        with pytest.raises(NotImplementedError, match="backward"):
-            blocks.moe_apply_shardmap(cfg, {**p, "router": p["router"].requires_grad_()}, x.detach())
-        with torch.no_grad():  # grad mode off: nothing to record
-            assert torch.equal(blocks.moe_apply_shardmap(cfg, p, x), blocks.moe_apply(cfg, p, x))

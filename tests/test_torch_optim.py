@@ -13,9 +13,11 @@ carried across with ``from_numpy``. A MoE arch's port forward follows the
 JAX forward's experts (``route(..., experts=)``, as ``chip_smoke.py``'s
 replays do): at random init a few tokens' router probabilities tie to
 within bf16's rounding, and the two packages' roundings send them to other
-experts (ROADMAP's hazards). The flags nest and restore; H1 with a mesh is
-refused.
+experts (ROADMAP's hazards). The flags nest and restore; H1 runs with a
+mesh description (K/V broadcast to the query heads).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -35,7 +37,8 @@ import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.launch import MeshShape  # noqa: E402
 from repro_torch.models import blocks, build_model, optim  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
-from repro_torch.models.params import from_numpy  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_plain  # noqa: E402
+from repro_torch.models.params import from_numpy, init_params  # noqa: E402
 
 BF16_TOL = 2e-2
 H2_ARCHS = ("llama3-8b", "dbrx-132b", "deepseek-v3-671b", "hubert-xlarge", "zamba2-2.7b", "xlstm-350m")
@@ -101,12 +104,30 @@ def test_flags_nest_and_restore():
 
 
 def test_h1_with_a_mesh_is_refused():
+    """H1 with a mesh description (``MeshShape``) runs: K/V are broadcast to
+    the query heads (the attention sees 8 KV heads where the config has 2),
+    plain tensors are not moved by ``shard_attn``, and the logits equal the
+    flag-off forward's. Without a mesh H1 is the JAX package's identity."""
     x = torch.ones(2, 4, 3, 8)
     with optim.optimizations(shard_attn_heads=True):  # no mesh: the JAX package's identity
         assert optim.shard_attn(x) is x and not optim.broadcast_kv_active()
-    with pytest.raises(NotImplementedError, match="H1"):
+    cfg = dataclasses.replace(port_configs.get_config("llama3-8b").reduced(), num_heads=8, num_kv_heads=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 16)))
+    heads = []
+
+    def attention(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1], v.shape[1]))
+        return attention_plain(q, k, v, **kw)
+
+    model = build_model(cfg, attention=attention)
+    with torch.no_grad():
+        off = model.forward(params, {"tokens": tokens})
         with optim.optimizations(shard_attn_heads=True, mesh=MeshShape((2, 4), ("data", "model"))):
-            pass
+            assert optim.broadcast_kv_active() and optim.shard_attn(x) is x
+            on = model.forward(params, {"tokens": tokens})
+    assert heads == [(8, 2, 2)] * cfg.num_layers + [(8, 8, 8)] * cfg.num_layers
+    torch.testing.assert_close(on, off, rtol=1e-5, atol=1e-5)
     assert optim.FLAGS == optim.OptFlags()
 
 

@@ -15,8 +15,8 @@ the inputs (``inputs.npz``: a reduced dbrx MoE layer and its input;
 * ``fallback/<case>``: H3 and ``moe_apply`` where the JAX code falls back;
 * ``model/<form>``: a reduced dbrx forward with H3 on and off;
 
-and ``rank<r>.json``: each case's spec and placements, which fallback cases
-were bit-equal, and whether H3 refused autograd.
+and ``rank<r>.json``: each case's spec and placements, and which fallback
+cases were bit-equal.
 """
 
 from __future__ import annotations
@@ -96,14 +96,6 @@ def main(rank: int, world: int, workdir: str) -> None:
                 got = blocks.moe_apply_shardmap(c, pp, xx)
             out[f"fallback/{case}"] = got.numpy()
             info["fallback_equal"][case] = bool(torch.equal(got, want))
-
-    # autograd through H3 is refused
-    with optim.optimizations(mesh=mesh, shardmap_moe=True):
-        try:
-            blocks.moe_apply_shardmap(cfg, p, x.clone().requires_grad_())
-            info["refused_autograd"] = False
-        except NotImplementedError:
-            info["refused_autograd"] = True
 
     # DecoderLM's switch: a reduced dbrx forward with H3 on and off
     params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
