@@ -296,7 +296,22 @@ lines, any failure exiting non-zero:
    backward held to their plain versions and timed cold beside SDPA
    (cuDNN where it takes the call) and their bounds.
 
-A ``kernels`` JSON line (launches over phases 3 to 19; flash
+20. The dry run and its cost model (``cost_model``): (a) the dry run
+   (``launch.dryrun.run_cell``) of llama3-8b's three cells and dbrx-132b's
+   ``train_4k`` on the faked 16x16 mesh, in a process of its own on the
+   host's CPU started with the script (``--dryrun``), each cell's counts,
+   three terms and fractions printed, a cell that does not trace failing
+   the run; (b) llama3-8b's ``prefill_32k`` (1 sequence, 32 layers),
+   ``decode_32k`` (8 sequences, 32768 slots) and ``train_4k`` (2 x 4096, 4
+   layers) on the 1x1 NCCL smoke mesh through the cells' step functions
+   and the kernel operators (bit-equal to the default path at one layer),
+   timed with CUDA events, counted by ``launch.op_costs`` on the real
+   tensors and held equal in dot FLOPs and collectives to the same cell
+   traced on fake tensors at world 1; the tensor-core forward at 32768
+   query rows, the decode route at 32768 slots and the training shape's
+   forward and backward held to their plain versions and timed.
+
+A ``kernels`` JSON line (launches over phases 3 to 20; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -6655,6 +6670,433 @@ def g1_attention_times(torch, dev, bw: float, shape) -> dict:
     return out
 
 
+# -- phase 20: the dry run and its cost model -------------------------------------------
+
+#: (a): the cells the dry run traces on the faked 16x16 mesh, in a process of
+#: its own on the host's CPU, started with the script and read in phase 20
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
+                ("dbrx-132b", "train_4k"))
+DRYRUN_TIMEOUT = 900.0  # seconds the script waits for the dry run at phase 20 (it runs beside phases 2-19)
+DRYRUN_THREADS = 2  # its intra-op threads: the phases beside it keep the host's other cores
+#: (b): llama3-8b's three cells on the card, cut to it: shape -> (batch, layers).
+#: prefill_32k at 1 of its 32 sequences (16.1 GB of weights, 4.3 GB of
+#: cache), decode_32k at 8 of 128 (one data rank's share on 16; 34.4 GB of
+#: cache of 32768 slots), train_4k at 2 x 4096 and 4 layers (f32 moments
+#: and the 4.2 GB of f32 logits beside the weights)
+CARD_CELLS = {"prefill_32k": (1, 32), "decode_32k": (8, 32), "train_4k": (2, 4)}
+CARD_TURNS = 3  # timed calls of each cell after its warm-up and its counted call
+
+
+def dryrun_child_main(argv) -> int:
+    """``chip_smoke.py --dryrun``: phase 20 (a) in a process of its own,
+    started with the script and the card hidden from it: the fake process
+    group of 256 ranks (``launch.dryrun.start_fake_world``) and
+    ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell`` (nothing
+    allocated, no card touched), one ``dryrun_cell`` JSON line a cell
+    (``"ok": false`` with the error where a cell does not trace)."""
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell, start_fake_world
+
+    del argv
+    torch.set_num_threads(DRYRUN_THREADS)
+    start_fake_world(256)
+    ok = True
+    for arch, shape in DRYRUN_CELLS:
+        try:
+            rec = run_cell(arch, shape, multi_pod=False, verbose=False)
+        except Exception as e:  # noqa: BLE001 - reported, and the parent fails the run on it
+            rec = {"arch": arch, "shape": shape, "ok": False, "error": f"{type(e).__name__}: {e}"}
+            ok = False
+        emit("dryrun_cell", **rec)
+    return 0 if ok else 1
+
+
+def start_dryrun():
+    """The dry run's process (:func:`dryrun_child_main`), the card hidden,
+    its output into a temporary file: ``(process, file)``."""
+    import os
+    import tempfile
+
+    log = tempfile.TemporaryFile(mode="w+")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun"], stdout=log,
+                            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT), text=True)
+    return proc, log
+
+
+def finish_dryrun(child) -> list:
+    """Phase 20 (a)'s records: wait for the dry run (``DRYRUN_TIMEOUT``),
+    kill it past that, and fail the run unless every cell traced."""
+    proc, log = child
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"phase 20: the dry run took over {DRYRUN_TIMEOUT} s")
+    log.seek(0)
+    lines = log.read().splitlines()
+    log.close()
+    recs = []
+    for ln in lines:
+        if ln.startswith('{"phase": "dryrun_cell"'):
+            recs.append(json.loads(ln))
+    if rc != 0 or len(recs) != len(DRYRUN_CELLS) or not all(r["ok"] for r in recs):
+        print("\n".join(lines[-40:]), flush=True)
+        raise SmokeFailure(f"phase 20: the dry run exited {rc} with {[(r['arch'], r['shape'], r.get('error')) for r in recs]}")
+    for r in recs:
+        print(json.dumps(r), flush=True)
+    return recs
+
+
+def cost_model_kernels(torch, dev, bw: float) -> dict:
+    """The kernels at the shapes phase 20 gives them that no earlier phase
+    does, each held to its plain version at phase 2's tolerance and timed
+    with the L2 cold beside the plain version and SDPA (its backend named)
+    and its bound: the tensor-core forward at llama3-8b's prefill of one
+    32768-token sequence (q [1,32,32768,128], k/v [1,8,...]; the plain
+    version, whose f32 scores of 32 heads at once would take 137 GB, runs a
+    query head at a time against its KV head, every head held and the whole
+    loop timed), the
+    decode route at 32768 slots and batch 8 (q [8,32,1,128], the split plan
+    of ``split_plan``), and the tensor-core forward (with the lse) and
+    backward at the training shape [2,32/8,4096,128]."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 200)
+    tol = FLASH_TOL["bfloat16"]
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(bf16)
+
+    def held(label, route, got, want):
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        emit("flash_check", case=f"phase 20 {label}", route=route, max_abs_err=float(diff.max()), tol=tol,
+             err_over_tol=ratio)
+        check(ratio <= 1.0 and bool(torch.isfinite(got).all()), f"phase 20: {route} != plain version on {label}")
+        return float(diff.max()), ratio
+
+    out = {}
+    # the prefill of one 32768-token sequence
+    s = 32768
+    q, k, v = rand(1, 32, s, 128), rand(1, 8, s, 128), rand(1, 8, s, 128)
+    label = f"q [1,32,{s},128], k/v [1,8,{s},128] bf16 causal"
+    check(fa._route(q, k) == "tensor_core", f"phase 20: the long prefill routed to {fa._route(q, k)}")
+    group = q.shape[1] // k.shape[1]
+
+    def plain_by_head():
+        return torch.cat([fa.attention_plain(q[:, h:h + 1], k[:, h // group:h // group + 1],
+                                             v[:, h // group:h // group + 1], causal=True)
+                          for h in range(q.shape[1])], dim=1)
+
+    err, ratio = held(label + " (every query head)", "tensor_core", fa.launch_route("tensor_core", q, k, v, causal=True),
+                      plain_by_head())
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_route("tensor_core", q, k, v, causal=True), flush, reps=5),
+                "plain": cold_ms(torch, plain_by_head, flush, reps=1, warmup=0),
+                "sdpa": cold_ms(torch, sdpa, flush, reps=5)}
+    bound, by, flops, nbytes = flash_bound_ms(q, k, s, True, 0, bw)
+    out["prefill_32k"] = dict(route="tensor_core", shape=label, ms=cold["kernel"], plain_ms=cold["plain"],
+                              library_ms=cold["sdpa"], library=str(backend), bound_ms=bound, bound_by=by,
+                              flops=flops, bytes=nbytes, max_abs_err=err, err_over_tol=ratio)
+    emit("cost_model_kernel", case="prefill_32k", card_rate=bw, **out["prefill_32k"])
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # a decode step at 32768 slots, batch 8
+    q, k, v = rand(8, 32, 1, 128), rand(8, 8, s, 128), rand(8, 8, s, 128)
+    kw = dict(causal=True, q_offset=s - 1, kv_len=s)
+    label = f"q [8,32,1,128] vs k/v [8,8,{s},128] bf16, kv_len {s}"
+    check(fa._route(q, k) == "decode", f"phase 20: the decode step routed to {fa._route(q, k)}")
+    keys, nsplit = fa.split_plan(s, 8 * 8)
+    err, ratio = held(label, "decode", fa.launch_route("decode", q, k, v, **kw), fa.attention_plain(q, k, v, **kw))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)  # noqa: E731
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_route("decode", q, k, v, **kw), flush),
+                "plain": cold_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), flush, reps=5),
+                "sdpa": cold_ms(torch, sdpa, flush)}
+    bound, by, flops, nbytes = flash_bound_ms(q, k, s, True, s - 1, bw)
+    out["decode_32k"] = dict(route="decode", shape=label, split_plan=[keys, nsplit], ms=cold["kernel"],
+                             plain_ms=cold["plain"], library_ms=cold["sdpa"], library=str(backend), bound_ms=bound,
+                             bound_by=by, flops=flops, bytes=nbytes, max_abs_err=err, err_over_tol=ratio)
+    emit("cost_model_kernel", case="decode_32k", card_rate=bw, **out["decode_32k"])
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # the training shape: the forward with the lse, and the backward
+    b, s = 2, 4096
+    q, k, v, dout = rand(b, 32, s, 128), rand(b, 8, s, 128), rand(b, 8, s, 128), rand(b, 32, s, 128)
+    label = f"q [{b},32,{s},128], k/v [{b},8,{s},128] bf16 causal"
+    o, lse = fa.launch_route("tensor_core", q, k, v, causal=True, with_lse=True)
+    err, ratio = held(label + " with the lse", "tensor_core", o, fa.attention_plain(q, k, v, causal=True))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_route("tensor_core", q, k, v, causal=True, with_lse=True),
+                                  flush),
+                "plain": cold_ms(torch, lambda: fa.attention_plain(q, k, v, causal=True), flush, reps=3, warmup=1),
+                "sdpa": cold_ms(torch, sdpa, flush)}
+    bound, by, flops, nbytes = flash_bound_ms(q, k, s, True, 0, bw)
+    out["train_4k_forward"] = dict(route="tensor_core", shape=label + ", with the lse", ms=cold["kernel"],
+                                   plain_ms=cold["plain"], library_ms=cold["sdpa"], library=str(backend),
+                                   bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, max_abs_err=err,
+                                   err_over_tol=ratio)
+    emit("cost_model_kernel", case="train_4k_forward", card_rate=bw, **out["train_4k_forward"])
+    got = fa.launch_backward(q, k, v, o, lse, dout, causal=True, route="tensor_core")
+    want = fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True)
+    errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    emit("flash_bwd_check", case=f"phase 20 {label}", backward_route="tensor_core", rel_err=errs, tol=tol)
+    check(max(errs.values()) <= tol and all(bool(torch.isfinite(a).all()) for a in got),
+          f"phase 20: the tensor_core backward != its plain version on {label}: {errs}")
+    max_abs = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+    del got, want
+    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([backend]):
+        sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True, enable_gqa=True)
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_backward(q, k, v, o, lse, dout, causal=True,
+                                                                    route="tensor_core"), flush),
+                "plain": cold_ms(torch, lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True), flush,
+                                 reps=3, warmup=1),
+                "sdpa": cold_ms(torch, lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True),
+                                flush)}
+    bound, by, flops, nbytes = bwd_bound_ms(q, k, s, True, 0, bw, BF16_TFLOPS)
+    out["train_4k_backward"] = dict(route="tensor_core", shape=label, ms=cold["kernel"], plain_ms=cold["plain"],
+                                    library_ms=cold["sdpa"], library=str(backend), bound_ms=bound, bound_by=by,
+                                    flops=flops, bytes=nbytes, rel_err_vs_plain=errs, max_abs_err=max_abs,
+                                    err_over_tol=max(errs.values()) / tol)
+    emit("cost_model_kernel", case="train_4k_backward", card_rate=bw, **out["train_4k_backward"])
+    del q, k, v, dout, o, lse, sq_, sk_, sv_, sdpa_out, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_cell_inputs(torch, dev, mesh, cfg, case, params):
+    """A cut cell's inputs on the card, placed on the smoke mesh as the
+    dry run's cell places them (``cells.build_cell``'s rules and specs):
+    the batch, a decode's cache (random, drawn a layer at a time) and its
+    tokens; a train step's AdamW state."""
+    from repro_torch.launch.cells import input_specs
+    from repro_torch.models.params import decoder_specs
+    from repro_torch.sharding import place_tree, rules_for
+    from repro_torch.training import AdamW
+
+    rules = rules_for(case.kind, global_batch=case.global_batch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 201)
+    placed = place_tree(params, dict(decoder_specs(cfg)), rules, mesh)
+    if case.kind == "train":
+        tokens = torch.randint(0, cfg.vocab, (case.global_batch, case.seq_len), generator=g, device=dev)
+        (spec_, _), = input_specs(cfg, case).values()
+        opt = AdamW()
+        return (placed, opt.init(placed), {"tokens": place_tree(tokens, spec_, rules, mesh)})
+    if case.kind == "prefill":
+        tokens = torch.randint(0, cfg.vocab, (case.global_batch, case.seq_len), generator=g, device=dev)
+        (spec_, _), = input_specs(cfg, case).values()
+        return (placed, {"tokens": place_tree(tokens, spec_, rules, mesh)})
+    from repro_torch.models import build_model
+    from repro_torch.models.params import spec
+
+    model = build_model(cfg)
+    cache = model.init_cache(case.global_batch, case.seq_len, torch.bfloat16, dev, mesh=mesh)
+    for tree in cache["layers"].values():
+        for layer in tree.to_local():
+            layer.normal_(generator=g)
+    tokens = torch.randint(0, cfg.vocab, (case.global_batch, 1), generator=g, device=dev)
+    return (placed, cache, place_tree(tokens, spec((case.global_batch, 1), ("batch", None)), rules, mesh),
+            case.seq_len - 1)
+
+
+def cost_model(torch, dev, counters, smi: str, bw: float, child) -> dict:
+    """Phase 20: the dry run and its cost model on the card. (a) The dry
+    run's records of ``DRYRUN_CELLS`` on the faked 16x16 mesh (its process
+    started with the script, :func:`finish_dryrun`): each cell's counts,
+    three terms, dominant term and fractions printed; a cell that does not
+    trace fails the run. (b) llama3-8b's three cells at its published
+    widths, cut to the card (``CARD_CELLS``), on the 1x1 NCCL smoke mesh
+    through the cells' model (the attention through the kernel operators)
+    and step functions: first each cell's step at one layer with the
+    operators and with the default ``flash_attention`` path, logits (and a
+    train step's loss and gradients) bit-equal, else the run fails; then,
+    with every count at 0, each cell's warm-up call, one call under the
+    counting mode of ``launch.op_costs`` on the real tensors and
+    ``CARD_TURNS`` calls timed with CUDA events; the launch counts read
+    (each call of the prefill 32 tensor-core forwards, of the decode 32
+    decode-route launches, of the train step 4 tensor-core forwards and 4
+    of each tensor-core backward kernel), and the real run's dot FLOPs and
+    collective counts held equal to those of the same cell traced on fake
+    tensors at world 1 (``op_costs.analyze_cell``: cut depths extended,
+    so the extension is held to a full-depth run too). Each cell's
+    measured seconds beside the trace's bound, their ratio and the model
+    FLOPs' share of the card's peak, and ``max_memory_allocated`` beside
+    the trace's argument + output bytes. The kernels at the shapes new to
+    them first (:func:`cost_model_kernels`). Returns the launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_smoke_mesh
+    from repro_torch.launch.cells import _model, local_bytes
+    from repro_torch.launch.op_costs import analyze_cell, count
+    from repro_torch.launch.roofline import model_flops, roofline_from_costs
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.training import AdamW, make_decode_step, make_prefill_step, make_train_step
+
+    t_phase = time.perf_counter()
+    dry = finish_dryrun(child)
+    for r in dry:
+        emit("cost_model_dryrun", card=smi, torch=r["torch"], arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+             trace_s=r["trace_s"],
+             depths=r["depths"], flops_per_device=r["flops_per_device"], hbm_bytes_per_device=r["hbm_bytes_per_device"],
+             collective_counts=r["collective_counts"], collective_bytes=r["collective_bytes"],
+             collective_bytes_by_link=r["collective_bytes_by_link"], compute_s=r["compute_s"],
+             memory_s=r["memory_s"], collective_s=r["collective_s"], dominant=r["dominant"],
+             model_flops=r["model_flops"], model_flops_fraction=r["model_flops_fraction"],
+             roofline_fraction=r["roofline_fraction"], memory_analysis=r["memory_analysis"])
+    kernels = cost_model_kernels(torch, dev, bw)
+    mesh = make_smoke_mesh(dev)
+    check(dist.get_backend() == "nccl", f"smoke mesh backend {dist.get_backend()}")
+    base = get_config("llama3-8b")
+
+    def cut(shape):
+        b, layers = CARD_CELLS[shape]
+        c = SHAPES[shape]
+        return dataclasses.replace(base, num_layers=layers), ShapeCase(c.name, c.seq_len, b, c.kind)
+
+    def step_of(model, cfg, kind):
+        if kind == "train":
+            return make_train_step(model, cfg, AdamW())
+        return make_prefill_step(model) if kind == "prefill" else make_decode_step(model)
+
+    # the operators against the default path, one layer of each cell, bit for bit
+    for shape in CARD_CELLS:
+        cfg, case = cut(shape)
+        cfg = dataclasses.replace(cfg, num_layers=1)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 202), torch.bfloat16, dev)
+        outs = {}
+        for label, model in (("operator", _model(cfg)), ("default", build_model(cfg))):
+            args = card_cell_inputs(torch, dev, mesh, cfg, case, {n: t.clone() for n, t in params.items()})
+            if case.kind == "train":
+                from repro_torch.training import steps
+
+                loss_fn = steps.make_loss_fn(model, cfg)
+                grads, metrics = steps.value_and_grad(loss_fn, args[0], args[2])
+                with torch.no_grad():
+                    logits = model.forward(args[0], args[2])
+                outs[label] = [logits.to_local(), metrics["loss"], *(g.to_local() for g in grads.values())]
+            else:
+                with torch.no_grad():
+                    res = step_of(model, cfg, case.kind)(*args)
+                outs[label] = [res[0].to_local()] + [t.to_local() for t in res[1]["layers"].values()]
+            del args
+        same = all(torch.equal(a, b) for a, b in zip(outs["operator"], outs["default"]))
+        emit("cost_model_operator_check", case=shape, layers=1, tensors=len(outs["operator"]), bit_equal=same)
+        check(same, f"phase 20 {shape}: the kernel operators' results differ from the default path's")
+        del outs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    every = {**counters, **{f"flash_route_{r}": c for r, c in fa.ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in fa.BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    results, params = {}, None
+    calls = 2 + CARD_TURNS  # the warm-up, the counted call, the timed ones
+    for shape in ("prefill_32k", "decode_32k", "train_4k"):
+        cfg, case = cut(shape)
+        if params is None or shape == "train_4k":
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 203), torch.bfloat16, dev)
+        args = card_cell_inputs(torch, dev, mesh, cfg, case, params)
+        step = step_of(_model(cfg), cfg, case.kind)
+        before = {k: c.value for k, c in every.items()}
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = step(*args)  # the warm-up
+        del out
+        costs, out = count(step, *args)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        head = out[2]["loss"] if case.kind == "train" else out[0]
+        head = head.full_tensor() if hasattr(head, "full_tensor") else head
+        want_shape = () if case.kind == "train" else (case.global_batch, 1, cfg.vocab)
+        check(tuple(head.shape) == want_shape and bool(torch.isfinite(head).all()),
+              f"phase 20 {shape}: output {tuple(head.shape)} (want {want_shape}), finite {bool(torch.isfinite(head).all())}")
+        del out, head
+        times = []
+        for _ in range(CARD_TURNS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) * 1e-3)
+        turn = {k: every[k].value - before[k] for k in every}
+        layers = cfg.num_layers
+        want = {"flash_route_tensor_core": 0, "flash_route_decode": 0, "flash_route_f32": 0}
+        want["flash_route_decode" if case.kind == "decode" else "flash_route_tensor_core"] = calls * layers
+        for n in fa.BWD_LAUNCHES:
+            route, kernel = n.split("/")
+            want[f"flash_attention_bwd_{n}"] = (calls * layers if case.kind == "train" and route == "tensor_core"
+                                                 and kernel in fa.bwd_kernels(cfg.resolved_head_dim) else 0)
+        got = {k: turn[k] for k in want}
+        check(got == want, f"phase 20 {shape}: launches {got}, want {want}")
+        t0 = time.perf_counter()
+        traced = analyze_cell("llama3-8b", shape, mesh, cfg=cfg, case=case)
+        trace_s = time.perf_counter() - t0
+        fake = traced["costs"]
+        same = fake.dot_flops == costs.dot_flops and fake.collective_counts == costs.collective_counts
+        roof = roofline_from_costs(fake, 1)
+        mf = model_flops(cfg, case)
+        measured = statistics.median(times)
+        rec = dict(torch=torch.__version__, config=cfg.name, layers=layers, batch=case.global_batch, seq_len=case.seq_len, kind=case.kind,
+                   seconds=measured, seconds_by_turn=times, bound_s=roof.bound_s, over_bound=measured / roof.bound_s,
+                   dominant=roof.dominant, compute_s=roof.compute_s, memory_s=roof.memory_s,
+                   collective_s=roof.collective_s, model_flops=mf,
+                   model_flops_share_of_peak=mf / (measured * H100.peak_flops_bf16),
+                   traced=dict(dot_flops=fake.dot_flops, hbm_bytes=fake.hbm_bytes,
+                               collective_counts=fake.collective_counts, depths=traced["depths"], trace_s=trace_s,
+                               argument_bytes=traced["argument_bytes"], output_bytes=traced["output_bytes"]),
+                   real=dict(dot_flops=costs.dot_flops, hbm_bytes=costs.hbm_bytes,
+                             collective_counts=costs.collective_counts),
+                   counts_equal=same, max_memory_allocated=peak,
+                   traced_argument_plus_output_bytes=traced["argument_bytes"] + traced["output_bytes"],
+                   input_bytes=local_bytes(args), launches_per_call={k: v // calls for k, v in want.items() if v})
+        results[shape] = rec
+        emit("cost_model_cell", card=smi, case=shape, **rec)
+        check(same, f"phase 20 {shape}: the real run counted {costs.dot_flops} FLOPs, {costs.collective_counts}, the "
+                    f"fake trace {fake.dot_flops}, {fake.collective_counts}")
+        del args, step, costs, traced
+    launches = {k: c.value for k, c in every.items()}
+    del params
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("cost_model_result", card=smi, seconds=time.perf_counter() - t_phase,
+         cells={k: dict(seconds=v["seconds"], bound_s=v["bound_s"], over_bound=v["over_bound"],
+                        dominant=v["dominant"], model_flops_share_of_peak=v["model_flops_share_of_peak"])
+                for k, v in results.items()},
+         dryrun={f"{r['arch']} {r['shape']}": dict(dominant=r["dominant"], roofline_fraction=r["roofline_fraction"],
+                                                   model_flops_fraction=r["model_flops_fraction"]) for r in dry})
+    out = {k: launches[k] for k in counters}
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in fa.ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in fa.BWD_LAUNCHES}
+    out["kernels"] = kernels
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -6767,6 +7209,16 @@ def main() -> int:
     emit("card", torch=torch.__version__, cuda=torch.version.cuda, name=name,
          bound_rate=f"{part} {bw / 1e12} TB/s")
     print(smi, flush=True)
+    child = start_dryrun()  # phase 20 (a), on the host's CPU beside the card's phases
+    try:
+        return run_phases(torch, dev, name, smi, bw, child)
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+
+
+def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
 
     from repro_torch.core.meta import DEFAULT_CHUNK_BYTES
     from repro_torch.kernels import build
@@ -6939,17 +7391,31 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
         entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
     phase_s["19 sharded step"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase20 = cost_model(torch, dev, counters, smi, bw, child)
+    ck = phase20.pop("kernels")
+    fwd["routes"]["tensor_core"]["llama3_8b_prefill_32k"] = ck["prefill_32k"]
+    fwd["routes"]["decode"]["llama3_8b_decode_32k"] = ck["decode_32k"]
+    fwd["routes"]["tensor_core"]["llama3_8b_train_4k"] = ck["train_4k_forward"]
+    bwd_tc["llama3_8b_train_4k_backward"] = ck["train_4k_backward"]
+    for entry, case in ((fwd, ck["prefill_32k"]), (fwd, ck["decode_32k"]), (fwd, ck["train_4k_forward"]),
+                        (bwd_tc, ck["train_4k_backward"])):
+        entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
+        entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
+    phase_s["20 cost model"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16, phase17, phase18, phase19)
+              phase16, phase17, phase18, phase19, phase20)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
-                        phase16, phase18, phase19)  # with attention
+                        phase16, phase18, phase19, phase20)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
-                       phase16, phase19)  # the paths with the backward
+                       phase16, phase19, phase20)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -6960,7 +7426,7 @@ def main() -> int:
             entry["launches_by_kernel"] = {n: c for n, c in by_kernel.items() if n in names}
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
-         phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase19=phase19,
+         phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase19=phase19, phase20=phase20,
          phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -6971,4 +7437,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--publisher"]:
         sys.exit(publisher_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_child_main(sys.argv[2:]))
     sys.exit(main())

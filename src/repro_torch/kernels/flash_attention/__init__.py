@@ -928,3 +928,170 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf
+
+
+# ---------------------------------------------------------------------------
+# The operator: the same routes as a torch.library op, with its fake, its
+# autograd and its work
+# ---------------------------------------------------------------------------
+
+
+def live_pairs(sq: int, kv_len: int, causal: bool = True, q_offset: int = 0, window: int = 0) -> int:
+    """The (query row, key) pairs of one query head that the masks leave
+    live: key j is live for row i when ``j < kv_len``, (causal) ``j <=
+    q_offset + i`` and (window) ``j > q_offset + i - window``, the mask of
+    :func:`_mask`. Summed in closed form over the runs of rows on which the
+    live count is one linear function of the row."""
+    q_offset, kv_len, window = int(q_offset), int(kv_len), int(window)
+
+    def hi(p: int) -> int:
+        return min(kv_len, p + 1) if causal else kv_len
+
+    def lo(p: int) -> int:
+        return max(0, p - window + 1) if window > 0 else 0
+
+    # rows where hi or lo changes slope: between two of them the live count
+    # is f0 + slope * t at row a + t, slope -1, 0 or 1; summed where positive
+    cuts = {kv_len - 1, window - 1}
+    edges = sorted({q_offset, q_offset + sq} | {p for p in cuts if q_offset < p < q_offset + sq})
+    total = 0
+    for a, b in zip(edges, edges[1:]):
+        n = b - a
+        f0 = hi(a) - lo(a)
+        slope = (hi(b - 1) - lo(b - 1) - f0) // (n - 1) if n > 1 else 0
+        if slope == 0:
+            total += n * max(f0, 0)
+        elif slope > 0:
+            t0 = max(0, 1 - f0)  # the first row with a live key
+            m = n - t0
+            if m > 0:
+                total += m * (f0 + t0) + m * (m - 1) // 2
+        else:
+            m = min(n, max(0, f0))  # the rows before the count reaches 0
+            total += m * f0 - m * (m - 1) // 2
+    return total
+
+
+def forward_flops(b: int, hq: int, sq: int, d: int, dv: int, *, kv_len: int, causal: bool = True, q_offset: int = 0,
+                  window: int = 0) -> int:
+    """The products a forward route computes: S (``2 D``) and P V (``2
+    Dv``) a live pair, each query head, each batch row."""
+    return 2 * (d + dv) * b * hq * live_pairs(sq, kv_len, causal, q_offset, window)
+
+
+def backward_flops(b: int, hq: int, sq: int, d: int, dv: int, *, kv_len: int, causal: bool = True, q_offset: int = 0,
+                   window: int = 0) -> int:
+    """The products either backward route computes a live pair: seven
+    (``csrc/flash_attention_bwd_tc.cu`` and ``flash_attention_bwd.cu``,
+    their headers: S and dP in the dK/dV kernel and again in the dQ
+    kernel, or in the dK/dV and dQ items of the one-launch kernel, then
+    dV, dK and dQ): S, dK and dQ of ``2 D`` each, twice S's, and dP, dV of
+    ``2 Dv``, twice dP's: ``2 (4 D + 3 Dv)``."""
+    return 2 * (4 * d + 3 * dv) * b * hq * live_pairs(sq, kv_len, causal, q_offset, window)
+
+
+def _empty_like_out(q: torch.Tensor, b: int, s: int, h: int, d: int) -> torch.Tensor:
+    """An output ``[B, H, S, D]`` as the call lays it out on ``q``'s
+    device: on the card a view of a ``[B, S, H, D]`` tensor, the layout in
+    which every route writes; on the CPU contiguous, as the plain versions
+    return it."""
+    if q.device.type == "cpu":
+        return q.new_empty((b, h, s, d))
+    return q.new_empty((b, s, h, d)).transpose(1, 2)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, softcap: float,
+                        q_offset: int, kv_len: int, window: int, with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
+    none = q.new_empty((0,), dtype=torch.float32)
+    if q.device.type == "cpu":
+        out = attention_plain(q, k, v, **kw)
+        return out, (attention_lse_plain(q, k, **kw) if with_lse else none)
+    if with_lse:
+        return launch_route(_route(q, k, grad=True, v=v), q, k, v, with_lse=True, **kw)
+    return launch_route(_route(q, k, v=v), q, k, v, **kw), none
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, softcap, q_offset, kv_len, window, with_lse):
+    b, hq, sq, _ = q.shape
+    lse = q.new_empty((b, hq, sq) if with_lse else (0,), dtype=torch.float32)
+    return _empty_like_out(q, b, sq, hq, v.shape[3]), lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor, causal: bool, softcap: float, q_offset: int,
+                                 kv_len: int, window: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return attention_backward(q, k, v, out, lse, dout, causal=causal, softcap=softcap, q_offset=q_offset,
+                              kv_len=kv_len, window=window)
+
+
+@_flash_attention_backward_op.register_fake
+def _(q, k, v, out, lse, dout, causal, softcap, q_offset, kv_len, window):
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    return _empty_like_out(q, b, sq, hq, d), _empty_like_out(k, b, sk, hkv, d), _empty_like_out(v, b, sk, hkv, dv)
+
+
+def _op_setup(ctx, inputs, output):
+    q, k, v, causal, softcap, q_offset, kv_len, window, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.flags = (causal, softcap, q_offset, kv_len, window)
+
+
+def _op_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(q, k, v, out, lse, dout, *ctx.flags)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_flash_attention_op.register_autograd(_op_backward, setup_context=_op_setup)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q, k, v, causal, softcap, q_offset, kv_len, window, with_lse, *args, out_shape=None, **kw) -> int:
+        b, hq, sq, d = q
+        return forward_flops(b, hq, sq, d, v[3], kv_len=kv_len, causal=causal, q_offset=q_offset, window=window)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+    def _(q, k, v, out, lse, dout, causal, softcap, q_offset, kv_len, window, *args, out_shape=None, **kw) -> int:
+        b, hq, sq, d = q
+        return backward_flops(b, hq, sq, d, v[3], kv_len=kv_len, causal=causal, q_offset=q_offset, window=window)
+
+
+_register_flop_formulas()
+
+
+def flash_attention_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """:func:`flash_attention` through the operator
+    ``torch.ops.repro_torch.flash_attention``: the same route and kernels
+    (the plain versions on the CPU), the same bits, and, where autograd
+    wants a gradient, the same forward with the lse and the backward
+    ``torch.ops.repro_torch.flash_attention_backward``. What the op adds is
+    for tracing: a fake (shapes, dtypes and the layout of the device's
+    outputs, no data), so a trace of fake tensors runs no attention, and a
+    FLOP formula
+    (``torch.utils.flop_counter``: :func:`forward_flops`,
+    :func:`backward_flops`) that counts the live pairs the kernels compute,
+    where a trace would otherwise see whatever the call decomposes into."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if grad:
+        _check_backward(q, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len,
+                                                 int(window), grad)[0]

@@ -215,3 +215,54 @@ def launch(
     build.check("th_mla_decode", err)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# The operator: the same call as a torch.library op, with its fake and its
+# work
+# ---------------------------------------------------------------------------
+
+
+def decode_flops(b: int, h: int, s: int, r: int, rd: int, *, kv_len: int) -> int:
+    """The products the kernel computes a (batch row, head, query, live
+    slot): S over ``[q_abs | q_rope] . [ckv | krope]`` (``2 (R + rd)``) and
+    P.V twice, ``P_hi`` and ``P_lo`` against the same latent rows (``2 x 2
+    R``)."""
+    return 2 * (r + rd + 2 * r) * b * h * s * int(kv_len)
+
+
+@torch.library.custom_op("repro_torch::mla_decode", mutates_args=())
+def _mla_decode_op(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor, krope: torch.Tensor, kv_len: int,
+                   scale: float) -> torch.Tensor:
+    if q_abs.device.type == "cpu":  # the plain version, laid out as the kernel writes
+        out = q_abs.new_empty(q_abs.shape, dtype=torch.float32)
+        return out.copy_(mla_decode_plain(q_abs, q_rope, ckv, krope, kv_len=kv_len, scale=scale))
+    return launch(q_abs, q_rope, ckv, krope, kv_len=kv_len, scale=scale)
+
+
+@_mla_decode_op.register_fake
+def _(q_abs, q_rope, ckv, krope, kv_len, scale):
+    return q_abs.new_empty(q_abs.shape, dtype=torch.float32)
+
+
+def _register_flop_formula() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.mla_decode)
+    def _(q_abs, q_rope, ckv, krope, kv_len, scale, *args, out_shape=None, **kw) -> int:
+        b, h, s, r = q_abs
+        return decode_flops(b, h, s, r, q_rope[3], kv_len=kv_len)
+
+
+_register_flop_formula()
+
+
+def mla_decode_op(
+    q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor, krope: torch.Tensor, *, kv_len: int, scale: float
+) -> torch.Tensor:
+    """:func:`mla_decode` through the operator
+    ``torch.ops.repro_torch.mla_decode``: the same kernel (the plain
+    version on the CPU) and the same bits, with a fake (shape and dtype, no
+    data) and a FLOP formula (:func:`decode_flops`) for a trace."""
+    _check(q_abs, q_rope, ckv, krope, kv_len)
+    return torch.ops.repro_torch.mla_decode(q_abs, q_rope, ckv, krope, int(kv_len), float(scale))

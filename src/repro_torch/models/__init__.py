@@ -2,7 +2,8 @@
 and the xLSTM LM (``lm``, ``blocks``, ``layers``, ``ssd``,
 ``xlstm_blocks``): dense or with routed experts, their parameter names and
 shapes, random init and weight carry-across from the JAX package
-(``params``), and ``build_model``.
+(``params``), ``build_model``, and the parameter counts the cost model reads
+(``param_count``, ``active_param_count``).
 
 ``build_model(cfg)`` is the port's side of the JAX package's
 ``repro.models.build_model``: it returns :class:`~repro_torch.models.lm.DecoderLM`
@@ -51,6 +52,33 @@ def check_trainable(cfg: ModelConfig) -> None:
     (:func:`check_ported`), MLA attention, the VLM's patch offset in the
     loss and the encoder's masked prediction included, on every device."""
     check_ported(cfg)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Every parameter's elements, from the tree of specs
+    (:func:`repro_torch.models.params.param_specs`), as the JAX package's
+    ``param_count``."""
+    from repro_torch.models.params import param_specs, tree_size
+
+    return tree_size(param_specs(cfg))
+
+
+def active_param_count(cfg: ModelConfig, model=None) -> int:
+    """The parameters a token passes through, the JAX package's
+    ``active_param_count``: every parameter of the tree of specs but the
+    routed experts that top-k routing leaves idle (``1 - top_k /
+    num_experts`` of each MoE layer's three expert matrices). Read off the
+    parameter tree, not the config's formula (``ModelConfig.param_count``,
+    which counts an xLSTM's blocks otherwise). ``model`` (its ``cfg``) is
+    taken for the JAX signature; the tree comes from ``cfg``."""
+    if model is not None:
+        cfg = model.cfg
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    mo = cfg.moe
+    expert_elems = 3 * cfg.d_model * mo.d_expert * mo.num_experts * (cfg.num_layers - mo.first_dense)
+    return int(total - expert_elems * (1.0 - mo.top_k / mo.num_experts))
 
 
 def build_model(cfg: ModelConfig, **kw):

@@ -27,10 +27,11 @@ Of the JAX package's ``models/optim.py``, all three are ported:
 query heads and the attention placed on them) and ``shardmap_moe`` (H3).
 
 Parameters and activations may be DTensors on a ``DeviceMesh`` (the
-sharded train step's, :func:`repro_torch.sharding.place_tree`). The
-attention then runs on each rank's local block (:func:`_attend`), so the
-attention function is handed plain tensors, and H3 on each rank's local
-tokens and experts.
+sharded train and serving steps', :func:`repro_torch.sharding.place_tree`).
+The attention then runs on each rank's local block (:func:`_attend`), so
+the attention function is handed plain tensors, a decode step's cache
+included (written in place on the local blocks, :func:`write_at`), and H3
+on each rank's local tokens and experts.
 """
 
 from __future__ import annotations
@@ -81,7 +82,32 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, hd = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * hd)
+    out = x.transpose(1, 2).reshape(b, s, h * hd)
+    if optim.is_dtensor(out):  # the reshape's backward takes the cotangent as the reshape left its output
+        out = _GradPlacedLike.apply(out)
+    return out
+
+
+class _GradPlacedLike(torch.autograd.Function):
+    """The identity on a DTensor whose backward redistributes the
+    cotangent to the placements the forward's tensor had. After
+    :func:`_merge_heads`' reshape: the output projection's backward may
+    hand back a cotangent sharded along the merged heads, over more ranks
+    than there are heads (deepseek-coder-33b's and yi-34b's 56 on a 16-way
+    model axis), which the reshape's backward cannot split into heads;
+    the forward kept that width whole (:func:`_split_heads`), and so does
+    its cotangent then."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        if optim.is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
 
 
 def attn_apply(
@@ -127,9 +153,9 @@ def attn_apply(
     else:
         assert cache_len is not None
         s = q.shape[2]
-        cache["k"][:, :, cache_len : cache_len + s] = k
-        cache["v"][:, :, cache_len : cache_len + s] = v
-        out = attention(q, cache["k"], cache["v"], q_offset=cache_len, kv_len=cache_len + s, **kw)
+        write_at(cache["k"], k, 2, cache_len)
+        write_at(cache["v"], v, 2, cache_len)
+        out = _attend(attention, q, cache["k"], cache["v"], q_offset=cache_len, kv_len=cache_len + s, h1=False, **kw)
         new_cache = cache
     proj = _merge_heads(out) @ p["wo"]
     if "post_ln" in p:
@@ -137,15 +163,20 @@ def attn_apply(
     return x + proj, new_cache
 
 
-def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            **kw) -> torch.Tensor:
+def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            h1: bool = True, **kw) -> torch.Tensor:
     """``attention(q, k, v, **kw)``; DTensors attend on each rank's local
     block, ``[B/dp, H/tp, S, hd]`` under H1 (q, k and v placed on the query
     heads by :func:`optim.shard_attn`) and ``[B/dp, H, S, hd]`` without it
     (the heads replicated over the model axis: the whole attention on
     every model rank, as GSPMD runs it), the batch over the flags' batch
     axes where it divides (:func:`optim.attn_spec`). The attention function
-    sees plain tensors; the result is a DTensor placed as its inputs."""
+    sees plain tensors; the result is a DTensor placed as its inputs.
+    ``h1=False`` (a decode step: a cache's KV heads, never broadcast) takes
+    the second placement whatever the flags say. A decode step's cache is
+    redistributed to it: a cache whose head_dim the rules shard (KV heads
+    that do not divide the model axis) is gathered over that axis, every
+    step, layer by layer."""
     if not optim.is_dtensor(q):
         return attention(q, k, v, **kw)
     from torch.distributed.tensor import DTensor
@@ -153,12 +184,34 @@ def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Te
     from repro_torch.sharding.rules import placements_for
 
     mesh = q.device_mesh
-    if optim.broadcast_kv_active():
+    if h1 and optim.broadcast_kv_active():
         placements = q.placements
     else:
         placements = placements_for(optim.attn_spec(tuple(q.shape), mesh, heads=False), mesh)
     q, k, v = (t.redistribute(mesh, placements).to_local() for t in (q, k, v))
     return DTensor.from_local(attention(q, k, v, **kw), mesh, placements, run_check=False)
+
+
+def write_at(dst: torch.Tensor, src: torch.Tensor, axis: int, start: int) -> None:
+    """``dst``'s positions ``[start, start + n)`` along ``axis`` set to
+    ``src`` (``n`` its length there), in place: a cache's slots. A DTensor
+    ``dst`` (a cache placed on a mesh) is written on each rank's local
+    block, ``src`` redistributed to ``dst``'s placements first (a plain
+    ``src`` taken as replicated). A cache whose ``axis`` is sharded (the
+    sequence-parallel cache of ``LONG_SERVE_RULES``) is refused: a rank's
+    block would not hold the positions its block of ``src`` holds."""
+    if optim.is_dtensor(dst):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = dst.device_mesh
+        if any(p.is_shard(axis) for p in dst.placements):
+            raise NotImplementedError(f"a cache sharded along its sequence axis ({dst.placements}, LONG_SERVE_RULES) "
+                                      f"is not written by the sharded serving step")
+        if not optim.is_dtensor(src):
+            src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        src = src.redistribute(mesh, dst.placements).to_local()
+        dst = dst.to_local()
+    dst.narrow(axis, start, src.shape[axis]).copy_(src)
 
 
 # ---------------------------------------------------------------------------

@@ -131,8 +131,50 @@ def refuse_mesh(cfg: ModelConfig, params: Params, what: str) -> None:
     """Raise ``NotImplementedError`` naming ``cfg``'s family where DTensor
     parameters reach a model whose sharded path is not ported (``what``)."""
     if on_mesh(params):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family} family, {what}): the sharded train step "
-                                  f"(DTensor parameters on a DeviceMesh) is not ported for it")
+        raise NotImplementedError(f"{cfg.name} ({cfg.family} family, {what}): the sharded serving and train steps "
+                                  f"(DTensor parameters on a DeviceMesh) are not ported for it")
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[tokens]`` of a table placed on a mesh (a DTensor), with the
+    gradient a data-parallel step takes: the cotangent placed as the
+    tokens are (its partial sums over the model axis added), each rank's
+    rows scatter-added into a whole table of its own, that table's sum
+    over the ranks that held other tokens (partial over the tokens' mesh
+    dimensions) reduced to the table's placements. DTensor's own backward
+    of the lookup (an ``index_put`` of the partial cotangent) is refused by
+    some PyTorch releases' sharding propagation."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(tokens)
+        ctx.table = (table.device_mesh, tuple(table.placements), tuple(table.shape), table.dtype)
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        (tokens,) = ctx.saved_tensors
+        mesh, placements, shape, dtype = ctx.table
+        if optim.is_dtensor(tokens):
+            tok_pl = tuple(tokens.placements)
+            tokens = tokens.to_local()
+        else:
+            tok_pl = (Replicate(),) * mesh.ndim
+        local = grad.redistribute(mesh, tok_pl).to_local() if optim.is_dtensor(grad) else grad
+        rows = local.new_zeros(shape, dtype=dtype).index_put_((tokens,), local.to(dtype), accumulate=True)
+        partial = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
+        whole = DTensor.from_local(rows, mesh, partial, run_check=False)
+        return whole.redistribute(mesh, placements), None
+
+
+def mesh_of(params: Params):
+    """The ``DeviceMesh`` of DTensor parameters, or None for plain ones."""
+    for t in params.values():
+        if optim.is_dtensor(t):
+            return t.device_mesh
+    return None
 
 
 class DecoderLM:
@@ -172,7 +214,8 @@ class DecoderLM:
     # -- embedding / head ------------------------------------------------------
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens]
+        table = params["embed"]
+        x = _EmbedRows.apply(table, tokens) if optim.is_dtensor(table) else table[tokens]
         if self.cfg.tie_embeddings:  # gemma2 normalizes the embedding scale
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=torch.float32).to(x.dtype)
         return x
@@ -235,7 +278,7 @@ class DecoderLM:
             x, kv = self._block(layer, x, positions, window=window, dense=dense, cache=cache, cache_len=cache_len)
             if slots is not None and cache_len is None:
                 for n, t in kv.items():
-                    slots[j][n].narrow(self.seq_axis, 0, t.shape[self.seq_axis]).copy_(t)
+                    blocks.write_at(slots[j][n], t, self.seq_axis, 0)
         return x
 
     @property
@@ -261,8 +304,7 @@ class DecoderLM:
         MoE decoders under :func:`mesh_scope`, the attention on each
         rank's local block; MLA and the VLM's patches are refused there
         (:func:`refuse_mesh`)."""
-        if self.is_mla or self.cfg.family == VLM:
-            refuse_mesh(self.cfg, params, "MLA attention" if self.is_mla else "the patch prefix")
+        self._refuse_mesh(params)
         with mesh_scope(params):
             x, positions = self._inputs(params, batch)
             attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
@@ -298,10 +340,26 @@ class DecoderLM:
             tree["prefix"] = [self._attn_cache_spec(batch_size, m) for _ in range(self.n_prefix)]
         return tree
 
-    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
-        """Zeroed caches of :meth:`cache_specs` in ``dtype``."""
-        return map_specs(lambda p: torch.zeros(p.shape, dtype=dtype, device=device),
-                         self.cache_specs(batch_size, max_len))
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, mesh=None,
+                   like: Optional[torch.Tensor] = None) -> Cache:
+        """Zeroed caches of :meth:`cache_specs` in ``dtype``. With a
+        ``DeviceMesh`` ``mesh``, DTensors placed by the serve rules
+        (``rules_for("decode", global_batch=batch_size)``), each rank
+        zeroing its own block (:func:`repro_torch.sharding.place_new`):
+        no rank builds a whole cache. The blocks are ``like.new_zeros`` where
+        ``like`` is given (a prefill's local activations: fake in a dry run's
+        trace), else zeros on the mesh's device."""
+        specs = self.cache_specs(batch_size, max_len)
+        if mesh is None:
+            return map_specs(lambda p: torch.zeros(p.shape, dtype=dtype, device=device), specs)
+        from repro_torch.sharding import place_new, rules_for
+
+        def zeros(shape):
+            if like is not None:
+                return like.new_zeros(shape, dtype=dtype)
+            return torch.zeros(shape, dtype=dtype, device=mesh.device_type)
+
+        return place_new(specs, rules_for("decode", global_batch=batch_size), mesh, zeros)
 
     # -- prefill -------------------------------------------------------------------
 
@@ -313,12 +371,23 @@ class DecoderLM:
         position only (``[B, 1, vocab]``: at vocab 128256 a 16 x 512
         batch's full logits would take 4.2 GB), the cache and its length.
         A VLM's patches come first: its cache length is ``P + prompt_len``,
-        and ``max_len`` counts the patches."""
-        x, positions = self._inputs(params, batch)
-        b, s, _ = x.shape
-        cache = self.init_cache(b, max_len or s, x.dtype, x.device)
-        x = self._run(params, x, positions, slots=self._slots(cache))
-        return self._head(params, x[:, -1:]), cache, s
+        and ``max_len`` counts the patches.
+
+        DTensor parameters (the sharded serving step's, placed by
+        ``SERVE_RULES``) run the dense and MoE decoders under
+        :func:`mesh_scope`; the cache is made placed by the serve rules
+        (:meth:`init_cache` with the parameters' mesh) and each layer's
+        K/V written into each rank's block of it. MLA and the VLM are
+        refused there (:func:`refuse_mesh`)."""
+        self._refuse_mesh(params)
+        with mesh_scope(params):
+            x, positions = self._inputs(params, batch)
+            b, s, _ = x.shape
+            mesh = mesh_of(params)
+            like = x.to_local() if mesh is not None else None
+            cache = self.init_cache(b, max_len or s, x.dtype, x.device, mesh=mesh, like=like)
+            x = self._run(params, x, positions, slots=self._slots(cache))
+            return self._head(params, x[:, -1:]), cache, s
 
     # -- decode ------------------------------------------------------------------------
 
@@ -327,11 +396,21 @@ class DecoderLM:
     ) -> Tuple[torch.Tensor, Cache]:
         """One step: ``tokens [B, 1]`` at position ``cache_len``. Writes
         the step's K/V (MLA: latent and rope key) into ``cache`` in place
-        and returns it with the logits ``[B, 1, vocab]``."""
-        x = self._embed(params, tokens)
-        positions = cache_len + torch.arange(x.shape[1], device=x.device)
-        x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)
-        return self._head(params, x), cache
+        and returns it with the logits ``[B, 1, vocab]``. DTensor
+        parameters and a cache placed as :meth:`init_cache` places it run
+        under :func:`mesh_scope`: each layer writes its step's K/V into each
+        rank's block of the cache and attends on its local blocks
+        (``blocks._attend``)."""
+        self._refuse_mesh(params)
+        with mesh_scope(params):
+            x = self._embed(params, tokens)
+            positions = cache_len + torch.arange(x.shape[1], device=x.device)
+            x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)
+            return self._head(params, x), cache
+
+    def _refuse_mesh(self, params: Params) -> None:
+        if self.is_mla or self.cfg.family == VLM:
+            refuse_mesh(self.cfg, params, "MLA attention" if self.is_mla else "the patch prefix")
 
 
 class EncoderLM:
@@ -535,6 +614,7 @@ class HybridLM:
         first positions of ``max_len`` slots (default: the prompt length).
         Returns the last position's logits ``[B, 1, vocab]``, the cache and
         its length."""
+        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
         x = params["embed"][batch["tokens"]]
         b, s, _ = x.shape
         specs = self.cache_specs(b, max_len or s)
@@ -566,6 +646,7 @@ class HybridLM:
         ``init_cache(..., ring=True)``, one token a step). Writes the
         caches in place and returns them with the logits ``[B, S,
         vocab]``."""
+        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
         x = params["embed"][tokens]
         positions = cache_len + torch.arange(x.shape[1], device=x.device)
         shared = self._shared(params)
@@ -711,6 +792,7 @@ class XLSTMLM:
         logits ``[B, 1, vocab]``, the cache and its length (``max_len`` is
         taken for the decoder's signature; a recurrent cache has no
         slots)."""
+        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
         x = params["embed"][batch["tokens"]]
         b, s, _ = x.shape
         cache = self.init_cache(b, max_len or s, x.dtype, x.device)
@@ -729,6 +811,7 @@ class XLSTMLM:
         not read (a recurrent cache has no position). Writes the cache in
         place and returns it with the logits ``[B, S, vocab]``."""
         del cache_len
+        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
         x = params["embed"][tokens]
         x, new = self._run(params, x, cache)
         self._store(cache, new)

@@ -6,6 +6,7 @@ from repro_torch.sharding.rules import (
     SERVE_RULES,
     TRAIN_RULES,
     constrain,
+    place_new,
     place_tree,
     placements_for,
     rules_for,
@@ -20,6 +21,7 @@ __all__ = [
     "SERVE_RULES",
     "TRAIN_RULES",
     "constrain",
+    "place_new",
     "place_tree",
     "placements_for",
     "rules_for",

@@ -19,13 +19,14 @@ name, or a tuple of them: the entries of the JAX package's
 The mesh is read as a mapping of axis sizes, a
 :class:`repro_torch.launch.mesh.MeshShape` or a ``DeviceMesh`` (its
 ``mesh_dim_names`` and ``shape``). :func:`placements_for` translates a spec
-into DTensor placements on a ``DeviceMesh``.
+into DTensor placements on a ``DeviceMesh``; :func:`place_tree` places
+whole tensors, :func:`place_new` builds fresh ones from each rank's block.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 from repro_torch.models.params import ParamSpec, map_specs
 
@@ -132,6 +133,29 @@ def place_tree(tensors: Any, specs: Any, rules: Rules, mesh: Any) -> Any:
     if isinstance(specs, list):
         return [place_tree(t, s, rules, mesh) for t, s in zip(tensors, specs)]
     return {k: place_tree(t, specs[k], rules, mesh) for k, t in tensors.items()}
+
+
+def place_new(specs: Any, rules: Rules, mesh: Any, make: Callable[[Tuple[int, ...]], Any]) -> Any:
+    """A tree of DTensors on the ``DeviceMesh`` ``mesh`` shaped as the
+    :class:`ParamSpec` tree ``specs`` and placed by :func:`tree_shardings`,
+    each built from this rank's block alone: ``make(local_shape)`` makes
+    the block (zeros on the mesh's device for a cache, an empty fake
+    tensor for a trace). Unlike :func:`place_tree`, no rank ever holds or
+    sends a whole tensor: the counterpart of a jit's ``out_shardings`` on a
+    fresh buffer."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def one(p: ParamSpec) -> Any:
+        placements = sharding_for(p, rules, mesh)
+        local, _ = compute_local_shape_and_global_offset(p.shape, mesh, placements)
+        stride = [1] * len(p.shape)
+        for d in range(len(p.shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * p.shape[d + 1]
+        return DTensor.from_local(make(tuple(local)), mesh, placements, run_check=False, shape=p.shape,
+                                  stride=tuple(stride))
+
+    return map_specs(one, specs)
 
 
 def constrain(x: Any, axes: Tuple[Optional[str], ...], rules: Rules, mesh: Any) -> Any:

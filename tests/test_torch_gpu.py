@@ -2361,3 +2361,86 @@ def test_sharded_step_on_the_smoke_mesh(smoke_mesh, monkeypatch):
     assert abs(loss_c - loss_a) <= 1e-3 * abs(loss_a)
     assert max(rel_l2(grads_c[n], grads_a[n]) for n in grads_a) <= 2e-2
     assert max(float((params_c[n].float() - params_a[n].float()).abs().max()) for n in params_a) <= 5e-3
+
+
+# -- the kernel operators (repro_torch::flash_attention, ::mla_decode) ---------------------
+
+#: (b, hq, hkv, sq, sk, d, dtype, kw): a call of each route the operator takes
+_OP_CASES = [
+    (2, 8, 2, 256, 256, 128, torch.bfloat16, dict(causal=True)),  # tensor_core
+    (2, 8, 2, 1, 700, 128, torch.bfloat16, dict(causal=True, q_offset=699, kv_len=700)),  # decode
+    (2, 4, 4, 96, 96, 64, torch.float32, dict(causal=True, window=40)),  # f32
+]
+_OP_IDS = ["tensor_core", "decode", "f32"]
+
+
+@pytest.mark.parametrize("case", _OP_CASES, ids=_OP_IDS)
+def test_flash_operator_equals_launch_route(dev, case):
+    """The operator's forward launches the route ``flash_attention``
+    takes, with the same bits, once; its fake gives the card's shape,
+    dtype and layout."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, dtype, kw = case
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    route = fa._route(q, k, v=v)
+    before = fa.ROUTE_LAUNCHES[route].value
+    got = fa.flash_attention_op(q, k, v, **kw)
+    assert fa.ROUTE_LAUNCHES[route].value == before + 1
+    assert torch.equal(got, fa.launch_route(route, q, k, v, **kw))
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    want = fa.attention_plain(q, k, v, **kw).float()
+    assert float(((got.float() - want).abs() / (tol + tol * want.abs())).max()) <= 1.0
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fake = fa.flash_attention_op(fq, fk, fv, **kw)
+    assert (fake.shape, fake.dtype, fake.stride()) == (got.shape, got.dtype, got.stride())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_operator_gradients_equal_the_function(dev, dtype):
+    """Through the operator, the forward with the lse and the backward
+    kernels give the gradients the autograd Function gives, bit for bit,
+    and within phase 2's tolerance of the plain backward."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = ((2, 8, 192, 128), (2, 2, 192, 128), (2, 2, 192, 128))
+    base = [torch.randn(s, generator=g, device=dev, dtype=torch.float32).to(dtype) for s in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in base]
+        return torch.autograd.grad(fn(*leaves, causal=True), leaves, dout)
+
+    route = fa._bwd_route(base[0])
+    before = {n: c.value for n, c in fa.BWD_LAUNCHES.items()}
+    got = grads(fa.flash_attention_op)
+    assert all(fa.BWD_LAUNCHES[f"{route}/{n}"].value == before[f"{route}/{n}"] + 1 for n in fa.bwd_kernels(128))
+    want = grads(fa.flash_attention)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    ref = grads(fa.attention_plain)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for a, w in zip(got, ref):
+        assert float((a.float() - w.float()).norm() / w.float().norm()) <= tol
+
+
+def test_mla_operator_equals_the_kernel(dev):
+    """The MLA operator launches the kernel once, with its bits."""
+    from repro_torch.kernels import mla_decode as md
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, h, kv = 2, 128, 700
+    qa, qr = (torch.randn(b, h, 1, w, generator=g, device=dev).bfloat16() for w in (512, 64))
+    ckv, kr = (torch.randn(b, 1024, w, generator=g, device=dev).bfloat16() for w in (512, 64))
+    before = md.LAUNCHES.value
+    got = md.mla_decode_op(qa, qr, ckv, kr, kv_len=kv, scale=0.07)
+    assert md.LAUNCHES.value == before + 1
+    assert torch.equal(got, md.launch(qa, qr, ckv, kr, kv_len=kv, scale=0.07))
+    want = md.mla_decode_plain(qa, qr, ckv, kr, kv_len=kv, scale=0.07)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())

@@ -48,8 +48,12 @@ _MODULES = [
     "repro_torch.kernels.quant",
     "repro_torch.kernels.quant.fused",
     "repro_torch.kernels.repack",
+    "repro_torch.launch.cells",
+    "repro_torch.launch.dryrun",
     "repro_torch.launch.mesh",
     "repro_torch.launch.networked",
+    "repro_torch.launch.op_costs",
+    "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.models",
@@ -247,6 +251,8 @@ def test_runtime_imports_in_a_fresh_process():
     "repro_torch.transfer.faults", "repro_torch.transfer.hardware",
     "repro_torch.net.worker", "repro_torch.launch.networked", "repro_torch.configs", "repro_torch.models",
     "repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.launch.mesh", "repro_torch.models.optim",
+    "repro_torch.launch.roofline", "repro_torch.launch.op_costs", "repro_torch.launch.cells",
+    "repro_torch.launch.dryrun",
 ])
 def test_serving_modules_import_first(module):
     """Each module of the serving path imports as the first one of a

@@ -103,7 +103,7 @@ def test_flags_nest_and_restore():
     assert optim.FLAGS == optim.OptFlags()
 
 
-def test_h1_with_a_mesh_is_refused():
+def test_h1_with_a_mesh_description_broadcasts_kv():
     """H1 with a mesh description (``MeshShape``) runs: K/V are broadcast to
     the query heads (the attention sees 8 KV heads where the config has 2),
     plain tensors are not moved by ``shard_attn``, and the logits equal the

@@ -419,9 +419,9 @@ def test_other_families_refuse_dtensor_parameters_by_name(smoke_mesh, arch, fami
         if cfg.num_patches:
             batch["patches"] = torch.randn(2, cfg.num_patches, cfg.d_model)
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match=rf"{cfg.name} \({family} family.*the sharded train step"):
+    with pytest.raises(NotImplementedError, match=rf"{cfg.name} \({family} family.*the sharded serving and train steps"):
         model.forward(placed, batch)
-    with pytest.raises(NotImplementedError, match="the sharded train step"):
+    with pytest.raises(NotImplementedError, match="the sharded serving and train steps"):
         opt = AdamW()
         make_train_step(model, cfg, opt)(placed, opt.init(placed), batch)
     assert torch.isfinite(model.forward(params, batch)).all()
