@@ -6675,7 +6675,8 @@ def g1_attention_times(torch, dev, bw: float, shape) -> dict:
 #: (a): the cells the dry run traces on the faked 16x16 mesh, in a process of
 #: its own on the host's CPU, started with the script and read in phase 20
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
-                ("dbrx-132b", "train_4k"))
+                ("dbrx-132b", "train_4k"), ("deepseek-v3-671b", "decode_32k"), ("internvl2-2b", "decode_32k"),
+                ("hubert-xlarge", "prefill_32k"))
 DRYRUN_TIMEOUT = 900.0  # seconds the script waits for the dry run at phase 20 (it runs beside phases 2-19)
 DRYRUN_THREADS = 2  # its intra-op threads: the phases beside it keep the host's other cores
 #: (b): llama3-8b's three cells on the card, cut to it: shape -> (batch, layers).
@@ -7097,6 +7098,483 @@ def cost_model(torch, dev, counters, smi: str, bw: float, child) -> dict:
     return out
 
 
+# -- phase 21: the attention families' sharded steps on the smoke mesh ------------------
+
+#: decode steps of each served run of phase 21 (a) and (c): DTensor's host
+#: dispatch makes a step of internvl2-2b's 24 layers cost a few hundred ms
+FAMILY_GEN = 4
+FAMILY_TURNS = 2  # timed calls of each step after its gated one
+#: (c) internvl2-2b's train step: 2 x (256 patches + 256 tokens), bf16, f32 moments
+FAMILY_VLM_TRAIN_B, FAMILY_VLM_TRAIN_TOKENS = 2, 256
+#: the latent decode at the local block one rank of a 16x16 mesh gives it
+#: in deepseek-v3's decode_32k cell: 128 / 16 sequences, 128 / 16 heads
+#: (8 of a block's 64 rows live), 32768 slots
+MLA_LOCAL_B, MLA_LOCAL_H, MLA_LOCAL_SLOTS = 8, 8, 32768
+#: the (192, 128) forward and backward at 8 of deepseek-v3's 128 heads (16-way
+#: model axis), phase 21 (b)'s batch of 4 sequences of PROMPT_LEN + GEN_LEN
+MLA_LOCAL_TC = (4, 8, PROMPT_LEN + GEN_LEN)
+
+
+def _local(t):
+    """A DTensor's local block (at world 1, the whole tensor); anything else as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _synced_s(torch, dev, fn) -> float:
+    """Seconds of one call of ``fn`` between two synchronizes."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: dict, settings: dict, smi: str) -> dict:
+    """Phase 21's serving half for one model: ``prefill`` of ``batch`` and
+    ``len(steps)`` ``decode`` steps of the given tokens, on the plain
+    parameters and then, under each of ``settings`` (flag dicts: H3 off and
+    on), on the same parameters placed by ``SERVE_RULES`` on the smoke mesh
+    (``place_tree``: at world 1 the blocks are the tensors themselves), the
+    batch and tokens placed by their logical axes and the cache made placed
+    (``init_cache(mesh=)``). Gates: every logit and the cache after the
+    last step bit-equal to the plain run's; each run's launches ``want``.
+    Each run's prefill and decode-step seconds (medians of ``FAMILY_TURNS``
+    timed runs after the gated one) and one profiled prefill's and decode
+    step's idle share. Returns the records by run."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch.cells import _INPUT_AXES
+    from repro_torch.models import build_model, optim
+    from repro_torch.models.params import decoder_specs, spec
+    from repro_torch.sharding import SERVE_RULES, place_tree
+
+    model = build_model(cfg)
+    max_len = cfg.num_patches + batch["tokens"].shape[1] + len(steps)
+    placed = place_tree(params, dict(decoder_specs(cfg)), SERVE_RULES, mesh)
+    shared = all(_local(placed[n]).data_ptr() == t.data_ptr() for n, t in params.items())
+    pbatch = {k: place_tree(t, spec(tuple(t.shape), _INPUT_AXES[k][: t.ndim]), SERVE_RULES, mesh)
+              for k, t in batch.items()}
+    psteps = [place_tree(t, spec(tuple(t.shape), ("batch", None)), SERVE_RULES, mesh) for t in steps]
+    runs = {"plain": (params, batch, steps, {})}
+    runs.update({f"dtensor_{k}": (placed, pbatch, psteps, dict(mesh=mesh, **f)) for k, f in settings.items()})
+    results, ref = {}, None
+    for label, (p, b, toks, flags) in runs.items():
+        state = {}
+
+        def prefill():
+            state["c"] = model.prefill(p, b, max_len=max_len)
+
+        def decode(i):
+            logits, cache, n = state["c"]
+            logits, cache = model.decode(p, cache, toks[i], n)
+            state["c"] = (logits, cache, n + 1)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad(), optim.optimizations(**flags):
+            before = {k: c.value for k, c in every.items()}
+            prefill()
+            outs = [_local(state["c"][0]).clone()]
+            for i in range(len(toks)):
+                decode(i)
+                outs.append(_local(state["c"][0]).clone())
+            torch.cuda.synchronize(dev)
+            got = {k: every[k].value - before[k] for k in want}
+            check(got == want, f"phase 21 {cfg.name} {label}: launches {got}, want {want}")
+            cache = [_local(t) for t in tree_leaves(state["c"][1])]
+            rec = dict(launches=got)
+            if ref is None:
+                ref = (outs, cache)
+            else:
+                same = [torch.equal(a, w) for a, w in zip(outs, ref[0])]
+                same_cache = all(torch.equal(a, w) for a, w in zip(cache, ref[1]))
+                rec.update(logits_bit_equal=all(same), cache_bit_equal=same_cache,
+                           max_abs_logit_diff=max(float((a - w).abs().max()) for a, w in zip(outs, ref[0])))
+                check(all(same) and same_cache and len(cache) == len(ref[1]),
+                      f"phase 21 {cfg.name} {label}: logits {same} and cache {same_cache} against the plain run's")
+            del outs, cache
+            pre_s, step_s = [], []
+            for _ in range(FAMILY_TURNS):
+                pre_s.append(_synced_s(torch, dev, prefill))
+                step_s.extend(_synced_s(torch, dev, lambda: decode(i)) for i in range(len(toks)))
+            prof_pre = device_profile(torch, prefill)
+            prof_step = device_profile(torch, lambda: decode(0))
+        rec.update(prefill_seconds=statistics.median(pre_s), decode_step_seconds=statistics.median(step_s),
+                   prefill_idle_share=prof_pre["idle_share"], decode_idle_share=prof_step["idle_share"],
+                   prefill_busy_seconds=prof_pre["device_busy_seconds"],
+                   decode_busy_seconds=prof_step["device_busy_seconds"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        results[label] = rec
+        emit("sharded_family_serve", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+             batch={k: list(t.shape) for k, t in batch.items()}, decode_steps=len(steps),
+             blocks_share_storage=shared, **rec)
+        del state
+    return results
+
+
+def family_encode(torch, dev, every, mesh, cfg, params, frames, *, want: dict, smi: str) -> dict:
+    """Phase 21 (d)'s serving half: the encoder's encode (its serving
+    step, ``EncoderLM.forward``) of ``frames`` on the plain parameters and
+    on the same parameters placed by ``SERVE_RULES``, the frames by
+    ``("batch", "seq", None)``. Gates: the logits bit-equal, each run's
+    launches ``want``. Each run's seconds (median of ``FAMILY_TURNS`` timed
+    encodes after the gated one) and one profiled encode's idle share."""
+    from repro_torch.launch.cells import _INPUT_AXES
+    from repro_torch.models import build_model
+    from repro_torch.models.params import decoder_specs, spec
+    from repro_torch.sharding import SERVE_RULES, place_tree
+
+    model = build_model(cfg)
+    placed = place_tree(params, dict(decoder_specs(cfg)), SERVE_RULES, mesh)
+    pframes = place_tree(frames, spec(tuple(frames.shape), _INPUT_AXES["frames"]), SERVE_RULES, mesh)
+    results, ref = {}, None
+    for label, (p, f) in {"plain": (params, frames), "dtensor": (placed, pframes)}.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            before = {k: c.value for k, c in every.items()}
+            logits = _local(model.forward(p, {"frames": f}))
+            torch.cuda.synchronize(dev)
+            got = {k: every[k].value - before[k] for k in want}
+            check(got == want, f"phase 21 {cfg.name} {label} encode: launches {got}, want {want}")
+            rec = dict(launches=got, logits_shape=list(logits.shape), finite=bool(torch.isfinite(logits).all()))
+            if ref is None:
+                ref = logits
+            else:
+                same = torch.equal(logits, ref)
+                rec.update(logits_bit_equal=same, max_abs_logit_diff=float((logits - ref).abs().max()))
+                check(same and rec["finite"], f"phase 21 {cfg.name}: the DTensor encode's logits differ from the plain")
+            del logits
+            times = [_synced_s(torch, dev, lambda: model.forward(p, {"frames": f})) for _ in range(FAMILY_TURNS)]
+            prof = device_profile(torch, lambda: model.forward(p, {"frames": f}))
+        rec.update(encode_seconds=statistics.median(times), idle_share=prof["idle_share"],
+                   device_busy_seconds=prof["device_busy_seconds"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        results[label] = rec
+        emit("sharded_family_encode", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+             frames=list(frames.shape), **rec)
+    return results
+
+
+class DigestingAdamW:
+    """AdamW that first records each gradient it is handed by its local
+    block's 64-bit digest (``transfer.checksum``, the ``checksum_words``
+    kernel's fold) and its f32 norm, one tensor at a time: two steps'
+    gradients compared without holding two gradient trees."""
+
+    def __init__(self, opt):
+        self.opt, self.digests = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        from repro_torch.transfer.checksum import checksum
+
+        if self.digests is None:
+            self.digests = {n: (checksum(_local(g)), float(_local(g).float().norm())) for n, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict, smi: str) -> dict:
+    """Phase 21's training half for one model: one ``make_train_step``
+    (bf16 parameters, f32 AdamW moments from zero) on the plain parameters
+    ``make_params()``, then on a second draw of them (the same seed: the
+    same bits) placed by ``TRAIN_RULES`` on the smoke mesh with the batch
+    placed by its logical axes. Gates: the loss, every gradient's digest
+    and norm (:class:`DigestingAdamW`) and every parameter's digest after
+    the step bit-equal; each step's launches ``want``. Each step's seconds
+    (median of ``FAMILY_TURNS`` timed steps after the gated one; the
+    parameters move on), one profiled step's idle share and the peak
+    memory. Returns the records by run."""
+    from repro_torch.launch.cells import _INPUT_AXES
+    from repro_torch.models import build_model
+    from repro_torch.models.params import decoder_specs, spec
+    from repro_torch.sharding import TRAIN_RULES, place_tree
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.transfer.checksum import checksum
+
+    model = build_model(cfg)
+    results, ref = {}, None
+    for label in ("plain", "dtensor"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = make_params()
+        b = batch
+        if label == "dtensor":
+            params = place_tree(params, dict(decoder_specs(cfg)), TRAIN_RULES, mesh)
+            b = {k: place_tree(t, spec(tuple(t.shape), _INPUT_AXES[k][: t.ndim]), TRAIN_RULES, mesh)
+                 for k, t in batch.items()}
+        opt = DigestingAdamW(AdamW())
+        state = opt.init(params)
+        step = make_train_step(model, cfg, opt)
+        before = {k: c.value for k, c in every.items()}
+        _, state, metrics = step(params, state, b)
+        torch.cuda.synchronize(dev)
+        got = {k: every[k].value - before[k] for k in want}
+        check(got == want, f"phase 21 {cfg.name} {label} step: launches {got}, want {want}")
+        loss = float(metrics["loss"])
+        after = {n: checksum(_local(t)) for n, t in params.items()}
+        rec = dict(loss=loss, launches=got)
+        if ref is None:
+            ref = dict(loss=loss, grads=opt.digests, params=after)
+        else:
+            grads_same = opt.digests == ref["grads"]
+            params_same = after == ref["params"]
+            rec.update(loss_bit_equal=loss == ref["loss"], grads_bit_equal=grads_same, params_bit_equal=params_same,
+                       gradients=len(opt.digests))
+            bad = [n for n in ref["grads"] if opt.digests.get(n) != ref["grads"][n]]
+            check(loss == ref["loss"] and grads_same and params_same,
+                  f"phase 21 {cfg.name}: the DTensor step's loss {loss} (plain {ref['loss']}), gradients "
+                  f"{bad[:4]} differ, parameters equal {params_same}")
+        times = [_synced_s(torch, dev, lambda: step(params, state, b)) for _ in range(FAMILY_TURNS)]
+        prof = device_profile(torch, lambda: step(params, state, b))
+        rec.update(step_seconds=statistics.median(times), step_seconds_by_turn=times,
+                   idle_share=prof["idle_share"], device_busy_seconds=prof["device_busy_seconds"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        results[label] = rec
+        emit("sharded_family_train", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+             batch={k: list(t.shape) for k, t in batch.items()}, dtype="bfloat16", moments="float32", **rec)
+        del params, state, step, opt, b, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def mla_local_block_times(torch, dev, bw: float) -> dict:
+    """The MLA kernels at the local blocks one rank of a 16x16 mesh gives
+    them: ``mla_decode`` at ``MLA_LOCAL_*`` (q_abs [8,8,1,512] against 32768
+    slots of [8,32768,512]: 8 of a block's 64 ``wgmma`` rows live) and the
+    (192, 128) ``tensor_core`` forward (with the lse) and backward at 8
+    heads (``MLA_LOCAL_TC``), each held to its plain version (the decode
+    within ``MLA_DECODE_TOL`` of its max |value|, the attention within
+    phase 2's bf16 tolerance) and timed with the L2 cold beside the plain
+    version, SDPA (its backend named, or "none ran") and the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 210)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    b, h, s = MLA_LOCAL_B, MLA_LOCAL_H, MLA_LOCAL_SLOTS
+    qa, qr, ckv, kr = rand(b, h, 1, MLA_R), rand(b, h, 1, MLA_ROPE), rand(b, s, MLA_R), rand(b, s, MLA_ROPE)
+    scale = 1.0 / math.sqrt(MLA_QK)
+    got = md.mla_decode(qa, qr, ckv, kr, kv_len=s, scale=scale)
+    want = md.mla_decode_plain(qa, qr, ckv, kr, kv_len=s, scale=scale)
+    err = float((got - want).abs().max())
+    ratio = err / (MLA_DECODE_TOL * float(want.abs().max()))
+    label = f"q_abs [{b},{h},1,512], q_rope [{b},{h},1,64], ckv [{b},{s},512], krope [{b},{s},64] bf16, kv_len {s}"
+    emit("mla_decode_check", case=f"phase 21 {label}", max_abs_err=err, tol=f"{MLA_DECODE_TOL} of max |value|",
+         err_over_tol=ratio, splits=md.split_plan(s, b, h))
+    check(ratio <= 1.0 and bool(torch.isfinite(got).all()), f"phase 21: mla_decode != plain version on {label}")
+    q576, k576, v512 = torch.cat([qa, qr], -1), torch.cat([ckv, kr], -1)[:, None], ckv[:, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q576, k576, v512, enable_gqa=True, scale=scale)
+
+    try:
+        backend = sdpa_backend(torch, sdpa).name
+    except (SmokeFailure, torch.OutOfMemoryError):  # a backend out of memory is one that does not take the call
+        backend = None
+        torch.cuda.empty_cache()
+    calls = {"kernel": lambda: md.mla_decode(qa, qr, ckv, kr, kv_len=s, scale=scale),
+             "plain": lambda: md.mla_decode_plain(qa, qr, ckv, kr, kv_len=s, scale=scale)}
+    if backend is not None:
+        calls["sdpa"] = sdpa
+    cold = {n: cold_ms(torch, f, flush, reps=5 if n != "kernel" else 20) for n, f in calls.items()}
+    bound, by, flops, nbytes = mla_decode_bound_ms(b, h, s, bw)
+    out["mla_decode"] = dict(shape=label, ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold.get("sdpa"),
+                             library=(f"scaled_dot_product_attention ({backend}), one KV head of E 576, Ev 512"
+                                      if backend else "none ran"),
+                             bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, live_rows_of_block=f"{h} of 64",
+                             splits=md.split_plan(s, b, h), max_abs_err=err, err_over_tol=ratio)
+    emit("mla_local_times", case="mla_decode", card_rate=bw, **out["mla_decode"])
+    del qa, qr, ckv, kr, got, want, q576, k576, v512, calls
+    torch.cuda.empty_cache()
+
+    b, h, s = MLA_LOCAL_TC
+    tol = FLASH_TOL["bfloat16"]
+    q, k, v, dout = rand(b, h, s, MLA_QK), rand(b, h, s, MLA_QK), rand(b, h, s, MLA_V), rand(b, h, s, MLA_V)
+    label = f"q/k [{b},{h},{s},192], v [{b},{h},{s},128] bf16 causal"
+    check(fa._route(q, k, v=v) == "tensor_core", f"phase 21: {label} routed to {fa._route(q, k, v=v)}")
+    o, lse = fa.launch_route("tensor_core", q, k, v, causal=True, with_lse=True)
+    want = fa.attention_plain(q, k, v, causal=True).float()
+    diff = (o.float() - want).abs()
+    ratio = float((diff / (tol + tol * want.abs())).max())
+    emit("flash_check", case=f"phase 21 {label}", route="tensor_core", max_abs_err=float(diff.max()), tol=tol,
+         err_over_tol=ratio)
+    check(ratio <= 1.0 and bool(torch.isfinite(o).all()), f"phase 21: tensor_core != plain version on {label}")
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_route("tensor_core", q, k, v, causal=True, with_lse=True),
+                                  flush),
+                "plain": cold_ms(torch, lambda: fa.attention_plain(q, k, v, causal=True), flush, reps=5),
+                "sdpa": cold_ms(torch, sdpa, flush)}
+    bound, by, flops, nbytes = mla_bound_ms(b, h, h, s, s, True, 0, bw)
+    out["forward"] = dict(route="tensor_core", shape=label + ", with the lse", ms=cold["kernel"],
+                          plain_ms=cold["plain"], library_ms=cold["sdpa"], library=str(backend), bound_ms=bound,
+                          bound_by=by, flops=flops, bytes=nbytes, max_abs_err=float(diff.max()), err_over_tol=ratio)
+    emit("mla_local_times", case="tensor_core_forward", card_rate=bw, **out["forward"])
+    got = fa.launch_backward(q, k, v, o, lse, dout, causal=True, route="tensor_core")
+    want = fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True)
+    errs = {n: grad_err(torch, a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    emit("flash_bwd_check", case=f"phase 21 {label}", backward_route="tensor_core", rel_err=errs, tol=tol)
+    check(max(errs.values()) <= tol and all(bool(torch.isfinite(a).all()) for a in got),
+          f"phase 21: the tensor_core backward != its plain version on {label}: {errs}")
+    max_abs = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+    del got, want
+    sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([backend]):
+        sdpa_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True)
+        cold = {"kernel": cold_ms(torch, lambda: fa.launch_backward(q, k, v, o, lse, dout, causal=True,
+                                                                    route="tensor_core"), flush),
+                "plain": cold_ms(torch, lambda: fa.attention_backward_plain(q, k, v, o, lse, dout, causal=True), flush,
+                                 reps=5),
+                "sdpa": cold_ms(torch, lambda: torch.autograd.grad(sdpa_out, (sq_, sk_, sv_), dout, retain_graph=True),
+                                flush)}
+    bound, by, flops, nbytes = bwd_bound_ms(q, k, s, True, 0, bw, BF16_TFLOPS, v=v)
+    out["backward"] = dict(route="tensor_core", shape=label, ms=cold["kernel"], plain_ms=cold["plain"],
+                           library_ms=cold["sdpa"], library=str(backend), bound_ms=bound, bound_by=by, flops=flops,
+                           bytes=nbytes, rel_err_vs_plain=errs, max_abs_err=max_abs,
+                           err_over_tol=max(errs.values()) / tol)
+    emit("mla_local_times", case="tensor_core_backward", card_rate=bw, **out["backward"])
+    del q, k, v, dout, o, lse, sq_, sk_, sv_, sdpa_out, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_families(torch, dev, counters, smi: str, bw: float) -> dict:
+    """Phase 21: the attention families' sharded serving and train steps on
+    the 1x1 NCCL smoke mesh, each against its plain run, bit for bit (at
+    world 1 the same kernels run on the whole tensors). (a) deepseek-v3-671b
+    at its published widths, bf16, phase 12's serving depth (3 dense prefix
+    layers and 1 of 256 routed experts) and batch (``DS_B`` x
+    ``DS_PROMPT``), ``FAMILY_GEN`` decode steps, on DTensors placed by
+    ``SERVE_RULES`` with H3 off and on (MLA's expanded prefill on the
+    (192, 128) ``tensor_core`` forward, its absorbed decode on
+    ``mla_decode``). (b) Its train step at phase 12's training cut (4
+    layers, 16 experts) and step shape (``DS_RL_PROMPTS`` x ``DS_RL_GROUP``
+    sequences of ``PROMPT_LEN + GEN_LEN``, one LM batch), on DTensors
+    placed by ``TRAIN_RULES``. (c) internvl2-2b at 24 layers: phase 14's
+    serving batch (``VLM_B`` x (256 patches + ``VLM_PROMPT``)) and a train
+    step of ``FAMILY_VLM_TRAIN_B`` x (256 + ``FAMILY_VLM_TRAIN_TOKENS``).
+    (d) hubert-xlarge at 48 layers: phase 15's encode (``AUDIO_B`` x
+    ``AUDIO_FRAMES``) and its bf16 masked-prediction step
+    (``AUDIO_TRAIN_B``). Then the MLA kernels at the 16-way local blocks
+    (:func:`mla_local_block_times`), after the launches are read. Returns
+    the launches and those records."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_smoke_mesh
+    from repro_torch.launch.train import stand_in_patches
+    from repro_torch.models.params import init_params
+
+    t_phase = time.perf_counter()
+    every = {**counters, **{f"flash_route_{r}": c for r, c in fa.ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in fa.BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    mesh = make_smoke_mesh(dev)
+    check(dist.get_backend() == "nccl", f"smoke mesh backend {dist.get_backend()}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 211)
+    bf16 = torch.bfloat16
+
+    def tokens(cfg, *shape):
+        return torch.randint(0, cfg.vocab, shape, generator=g, device=dev)
+
+    def none(**kw):
+        want = {"flash_route_tensor_core": 0, "flash_route_decode": 0, "flash_route_f32": 0, "mla_decode": 0}
+        want.update({f"flash_attention_bwd_{n}": 0 for n in fa.BWD_LAUNCHES})
+        want.update(kw)
+        return want
+
+    def bwd(layers, d, dv=None):  # the tensor-core backward kernels a step launches, one each a layer
+        return {f"flash_attention_bwd_tensor_core/{n}": layers for n in fa.bwd_kernels(d, dv)}
+
+    serve, train = {}, {}
+    # (a) deepseek-v3 served
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=DS_SERVE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 212), bf16, dev)
+    layers = cfg.num_layers
+    want = none(flash_route_tensor_core=layers, mla_decode=layers * FAMILY_GEN)
+    serve[cfg.name] = family_serve(torch, dev, every, mesh, cfg, params, {"tokens": tokens(cfg, DS_B, DS_PROMPT)},
+                                   [tokens(cfg, DS_B, 1) for _ in range(FAMILY_GEN)], want=want,
+                                   settings={"h3_off": {}, "h3_on": dict(shardmap_moe=True)}, smi=smi)
+    del params
+    # (b) its train step
+    mo = cfg.moe
+    cfg = dataclasses.replace(cfg, num_layers=DS_TRAIN_LAYERS, moe=dataclasses.replace(mo, num_experts=DS_TRAIN_EXPERTS))
+    seed = SEED + 213
+    want = none(flash_route_tensor_core=cfg.num_layers, **bwd(cfg.num_layers, MLA_QK, MLA_V))
+    train[cfg.name] = family_train(
+        torch, dev, every, mesh, cfg, lambda: init_params(cfg, torch.Generator(device=dev).manual_seed(seed), bf16, dev),
+        {"tokens": tokens(cfg, DS_RL_PROMPTS * DS_RL_GROUP, PROMPT_LEN + GEN_LEN)}, want=want, smi=smi)
+    # (c) internvl2-2b
+    cfg = get_config("internvl2-2b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 214), bf16, dev)
+    layers, d = cfg.num_layers, cfg.resolved_head_dim
+    patches = torch.from_numpy(stand_in_patches(cfg, VLM_B, SEED, 214)).to(dev, bf16)
+    want = none(flash_route_tensor_core=layers, flash_route_decode=layers * FAMILY_GEN)
+    serve[cfg.name] = family_serve(torch, dev, every, mesh, cfg, params,
+                                   {"tokens": tokens(cfg, VLM_B, VLM_PROMPT), "patches": patches},
+                                   [tokens(cfg, VLM_B, 1) for _ in range(FAMILY_GEN)], want=want,
+                                   settings={"h3_off": {}}, smi=smi)
+    del params, patches
+    seed = SEED + 215
+    patches = torch.from_numpy(stand_in_patches(cfg, FAMILY_VLM_TRAIN_B, SEED, 215)).to(dev, bf16)
+    want = none(flash_route_tensor_core=layers, **bwd(layers, d))
+    train[cfg.name] = family_train(
+        torch, dev, every, mesh, cfg, lambda: init_params(cfg, torch.Generator(device=dev).manual_seed(seed), bf16, dev),
+        {"tokens": tokens(cfg, FAMILY_VLM_TRAIN_B, FAMILY_VLM_TRAIN_TOKENS), "patches": patches}, want=want, smi=smi)
+    del patches
+    # (d) hubert-xlarge: the encode, then the masked-prediction step
+    cfg = get_config("hubert-xlarge")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 216), bf16, dev)
+    layers, d = cfg.num_layers, cfg.resolved_head_dim
+    frames = torch.randn(AUDIO_B, AUDIO_FRAMES, cfg.frontend_dim, generator=g, device=dev).to(bf16)
+    serve[cfg.name] = family_encode(torch, dev, every, mesh, cfg, params, frames,
+                                    want=none(flash_route_tensor_core=layers), smi=smi)
+    del params, frames
+    seed = SEED + 217
+    batch = {"frames": torch.randn(AUDIO_TRAIN_B, AUDIO_FRAMES, cfg.frontend_dim, generator=g, device=dev).to(bf16),
+             "targets": tokens(cfg, AUDIO_TRAIN_B, AUDIO_FRAMES),
+             "mask": torch.rand(AUDIO_TRAIN_B, AUDIO_FRAMES, generator=g, device=dev) < 0.5}
+    want = none(flash_route_tensor_core=layers, **bwd(layers, d))
+    train[cfg.name] = family_train(
+        torch, dev, every, mesh, cfg, lambda: init_params(cfg, torch.Generator(device=dev).manual_seed(seed), bf16, dev),
+        batch, want=want, smi=smi)
+    del batch
+    launches = {k: c.value for k, c in every.items()}  # the main path's, read now
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = mla_local_block_times(torch, dev, bw)
+    emit("sharded_families_result", card=smi, seconds=time.perf_counter() - t_phase,
+         serve={m: {k: dict(prefill_seconds=r.get("prefill_seconds"), decode_step_seconds=r.get("decode_step_seconds"),
+                            encode_seconds=r.get("encode_seconds"), idle_share=r.get("decode_idle_share",
+                                                                                      r.get("idle_share")))
+                    for k, r in runs.items()} for m, runs in serve.items()},
+         train={m: {k: dict(step_seconds=r["step_seconds"], idle_share=r["idle_share"],
+                            max_memory_allocated=r["max_memory_allocated"]) for k, r in runs.items()}
+                for m, runs in train.items()},
+         local_kernels={k: dict(ms=v["ms"], plain_ms=v["plain_ms"], library_ms=v["library_ms"], bound_ms=v["bound_ms"])
+                        for k, v in local.items()})
+    out = {k: launches[k] for k in counters if k != "checksum"}  # the digests check the steps: not the path
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in fa.ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in fa.BWD_LAUNCHES}
+    out["local"] = local
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -7405,17 +7883,29 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
         entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
     phase_s["20 cost model"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase21 = sharded_families(torch, dev, counters, smi, bw)
+    loc = phase21.pop("local")
+    kernels["mla_decode"]["local_16way"] = loc["mla_decode"]
+    fwd["routes"]["tensor_core"]["mla_local_16way"] = loc["forward"]
+    bwd_tc256["mla_local_16way_backward"] = loc["backward"]
+    for entry, case in ((kernels["mla_decode"], loc["mla_decode"]), (fwd, loc["forward"]), (bwd_tc256, loc["backward"])):
+        entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
+        entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
+    phase_s["21 sharded families"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16, phase17, phase18, phase19, phase20)
+              phase16, phase17, phase18, phase19, phase20, phase21)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
-                        phase16, phase18, phase19, phase20)  # with attention
+                        phase16, phase18, phase19, phase20, phase21)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
-                       phase16, phase19, phase20)  # the paths with the backward
+                       phase16, phase19, phase20, phase21)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -7427,7 +7917,7 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
          phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase19=phase19, phase20=phase20,
-         phase_seconds=phase_s)
+         phase21=phase21, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,10 +11,11 @@ one starts a ``torch.distributed`` process group of the ``"fake"`` backend
 process group it has (the smoke mesh's at world 1). Each cell's counts
 come from :func:`repro_torch.launch.op_costs.analyze_cell` (cut depths,
 extended to the config's), its three terms from
-:mod:`repro_torch.launch.roofline`. A cell the port refuses (a family
-whose sharded steps are not ported: ``NotImplementedError``) is written
-with ``"ok": false`` and the refusal's text, and ``--all`` exits 1 while
-any is refused, as the JAX one exits 1 on any failure.
+:mod:`repro_torch.launch.roofline`. A cell the port refuses (the
+hybrid's and the xLSTM's, whose sharded steps are not ported:
+``NotImplementedError``) is written with ``"ok": false`` and the
+refusal's text, and ``--all`` exits 1 while any is refused, as the JAX
+one exits 1 on any failure.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k

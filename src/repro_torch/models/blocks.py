@@ -28,7 +28,8 @@ query heads and the attention placed on them) and ``shardmap_moe`` (H3).
 
 Parameters and activations may be DTensors on a ``DeviceMesh`` (the
 sharded train and serving steps', :func:`repro_torch.sharding.place_tree`).
-The attention then runs on each rank's local block (:func:`_attend`), so
+The attention then runs on each rank's local block (:func:`_attend`; MLA's
+on its block of the batch and the query heads, :class:`_HeadBlocks`), so
 the attention function is handed plain tensors, a decode step's cache
 included (written in place on the local blocks, :func:`write_at`), and H3
 on each rank's local tokens and experts.
@@ -192,6 +193,19 @@ def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Te
     return DTensor.from_local(attention(q, k, v, **kw), mesh, placements, run_check=False)
 
 
+def batch_placed(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation ``[B, ...]`` with its batch over the flags'
+    batch axes where it divides them and every other dimension whole on
+    every rank (the rules' ``("batch", "seq", "act_embed")``); a plain
+    tensor as it is."""
+    if not optim.is_dtensor(x):
+        return x
+    from repro_torch.sharding.rules import placements_for
+
+    return x.redistribute(x.device_mesh, placements_for(optim.attn_spec(tuple(x.shape), x.device_mesh, heads=False),
+                                                        x.device_mesh))
+
+
 def write_at(dst: torch.Tensor, src: torch.Tensor, axis: int, start: int) -> None:
     """``dst``'s positions ``[start, start + n)`` along ``axis`` set to
     ``src`` (``n`` its length there), in place: a cache's slots. A DTensor
@@ -284,7 +298,16 @@ def mla_apply(
     version) scores them against the latent cache and returns the latent
     output in f32, which ``wkv_b_v`` takes to each head's values in f32
     (with TF32 off, as the port leaves it, this product is f32 as the
-    reference's), cast to the activation dtype."""
+    reference's), cast to the activation dtype.
+
+    On DTensors both forms run on each rank's block of the batch and of
+    the query heads (:class:`_HeadBlocks`): the expanded form broadcasts
+    the rope key over that rank's heads only (its gradient summed over the
+    model axis), the absorbed form folds that rank's columns of
+    ``wkv_b_k`` and ``wkv_b_v`` and scores against its batch block of the
+    latent cache (placed ``("batch", "seq", "kv_lora")``, whole on every
+    model rank): no collective that grows with the cache, only the output
+    projection's partial sum."""
     m = cfg.mla
     assert m is not None
     b, s, _ = x.shape
@@ -300,21 +323,81 @@ def mla_apply(
     ckv = rms_norm(ckv, p["kv_ln"])  # [B, S, R]
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)  # [B, S, rd]
 
+    blk = _HeadBlocks(q)
     if cache is None:
         k_nope = _split_heads(ckv @ p["wkv_b_k"], H)
         v = _split_heads(ckv @ p["wkv_b_v"], H)
-        k = torch.cat([k_nope, k_rope[:, None].expand(b, H, s, rd)], dim=-1)
-        out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
+        qk, k_nope, v = (blk.local(t) for t in (torch.cat([q_nope, q_rope], dim=-1), k_nope, v))
+        kr = blk.local_rows(k_rope, summed=True)
+        bl, hl = qk.shape[:2]
+        k = torch.cat([k_nope, kr[:, None].expand(bl, hl, s, rd)], dim=-1)
+        out = blk.placed(attention(qk, k, v, causal=True))
         return x + _merge_heads(out) @ p["wo"], {"ckv": ckv, "krope": k_rope}
 
     assert cache_len is not None
-    cache["ckv"][:, cache_len : cache_len + s] = ckv
-    cache["krope"][:, cache_len : cache_len + s] = k_rope
-    q_abs = torch.einsum("bhsd,rhd->bhsr", q_nope, p["wkv_b_k"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim))
-    out_lat = latent_attention(q_abs, q_rope, cache["ckv"], cache["krope"], kv_len=cache_len + s, scale=mla_scale(cfg))
-    wv = p["wkv_b_v"].reshape(m.kv_lora_rank, H, m.v_head_dim).float()
-    out = torch.einsum("bhsr,rhd->bhsd", out_lat, wv).to(x.dtype)
+    write_at(cache["ckv"], ckv, 1, cache_len)
+    write_at(cache["krope"], k_rope, 1, cache_len)
+    q_nope, q_rope = blk.local(q_nope), blk.local(q_rope)
+    hl = q_nope.shape[1]
+    wk = blk.local_cols(p["wkv_b_k"]).reshape(m.kv_lora_rank, hl, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bhsd,rhd->bhsr", q_nope, wk)
+    out_lat = latent_attention(q_abs, q_rope, blk.local_rows(cache["ckv"]), blk.local_rows(cache["krope"]),
+                               kv_len=cache_len + s, scale=mla_scale(cfg))
+    wv = blk.local_cols(p["wkv_b_v"]).reshape(m.kv_lora_rank, hl, m.v_head_dim).float()
+    out = blk.placed(torch.einsum("bhsr,rhd->bhsd", out_lat, wv).to(x.dtype))
     return x + _merge_heads(out) @ p["wo"], cache
+
+
+class _HeadBlocks:
+    """MLA's attention on each rank's block of the batch and of the query
+    heads, where its tensors are DTensors: the heads stay where its
+    projections put them (``wq_b``, ``wkv_b_k`` and ``wkv_b_v`` are
+    ``q_heads`` columns), over the model axis where they divide it, and the
+    batch over the flags' batch axes (:func:`optim.attn_spec`). Unlike a
+    dense GQA layer's (:func:`_attend` without H1, as GSPMD runs it), the
+    heads are not gathered: MLA's K and V are per head and the latent and
+    rope key whole on every model rank, so each rank builds its heads' keys
+    from them. On plain tensors every method is the identity."""
+
+    def __init__(self, q: torch.Tensor):
+        self.mesh = q.device_mesh if optim.is_dtensor(q) else None
+        if self.mesh is None:
+            return
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        from repro_torch.sharding.rules import placements_for
+
+        self.heads = placements_for(optim.attn_spec(tuple(q.shape), self.mesh), self.mesh)
+        #: a latent [B, S, *]'s: the batch as the heads' block, whole over the model axis
+        self.rows = tuple(pl if pl.is_shard(0) else Replicate() for pl in self.heads)
+        #: the gradient of a latent each rank broadcast over its own heads: partial where the heads are split
+        self.rows_summed = tuple(Partial() if h.is_shard(1) else r for h, r in zip(self.heads, self.rows))
+        #: an up-projection [R, H * w]'s: each rank's heads' columns
+        self.cols = tuple(Shard(1) if h.is_shard(1) else Replicate() for h in self.heads)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """``[B, H, S, *]``'s block of this rank's batch and heads."""
+        return t if self.mesh is None else t.redistribute(self.mesh, self.heads).to_local()
+
+    def local_rows(self, t: torch.Tensor, *, summed: bool = False) -> torch.Tensor:
+        """``[B, S, *]``'s block of this rank's batch (a cache's, in place:
+        the serve rules place it so). ``summed``: the block's gradient is
+        this rank's heads' part of the whole, summed over the model axis."""
+        if self.mesh is None:
+            return t
+        return t.redistribute(self.mesh, self.rows).to_local(grad_placements=self.rows_summed if summed else None)
+
+    def local_cols(self, w: torch.Tensor) -> torch.Tensor:
+        """An up-projection's columns of this rank's heads."""
+        return w if self.mesh is None else w.redistribute(self.mesh, self.cols).to_local()
+
+    def placed(self, out: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``[B, H, S, *]`` as a DTensor."""
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(out, self.mesh, self.heads, run_check=False)
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
@@ -511,11 +594,11 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     order, dest = dispatch(top_e, E, cap)
     DROPPED.add(t * k, (dest == E * cap).sum())
 
-    out = _experts_combined(p, flat, top_p, order, dest, cap).to(x.dtype)
+    out = _experts_combined(p, flat, top_p, order, dest, cap).to(x.dtype).view(b, s, d)
 
-    if mo.num_shared:
-        out = out + swiglu(flat, p["shared_gate"], p["shared_up"], p["shared_down"])
-    return x + out.view(b, s, d)
+    if mo.num_shared:  # on [B, S, D], not the flat tokens: DTensor may split those over more ranks than B divides
+        out = out + swiglu(h, p["shared_gate"], p["shared_up"], p["shared_down"])
+    return x + out
 
 
 class _ModelSum(torch.autograd.Function):

@@ -300,11 +300,9 @@ class DecoderLM:
         (a VLM's also ``"patches": [B, P, d_model]``, and its logits ``[B, P
         + S, vocab]``).
 
-        DTensor parameters (the sharded train step's) run the dense and
-        MoE decoders under :func:`mesh_scope`, the attention on each
-        rank's local block; MLA and the VLM's patches are refused there
-        (:func:`refuse_mesh`)."""
-        self._refuse_mesh(params)
+        DTensor parameters (the sharded train step's) run under
+        :func:`mesh_scope`, the attention on each rank's local block (MLA's
+        on its block of the query heads, ``blocks._HeadBlocks``)."""
         with mesh_scope(params):
             x, positions = self._inputs(params, batch)
             attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in self._attn_names}
@@ -374,12 +372,10 @@ class DecoderLM:
         and ``max_len`` counts the patches.
 
         DTensor parameters (the sharded serving step's, placed by
-        ``SERVE_RULES``) run the dense and MoE decoders under
-        :func:`mesh_scope`; the cache is made placed by the serve rules
-        (:meth:`init_cache` with the parameters' mesh) and each layer's
-        K/V written into each rank's block of it. MLA and the VLM are
-        refused there (:func:`refuse_mesh`)."""
-        self._refuse_mesh(params)
+        ``SERVE_RULES``) run under :func:`mesh_scope`; the cache is made
+        placed by the serve rules (:meth:`init_cache` with the parameters'
+        mesh) and each layer's K/V (MLA: latent and rope key) written into
+        each rank's block of it."""
         with mesh_scope(params):
             x, positions = self._inputs(params, batch)
             b, s, _ = x.shape
@@ -400,17 +396,13 @@ class DecoderLM:
         parameters and a cache placed as :meth:`init_cache` places it run
         under :func:`mesh_scope`: each layer writes its step's K/V into each
         rank's block of the cache and attends on its local blocks
-        (``blocks._attend``)."""
-        self._refuse_mesh(params)
+        (``blocks._attend``; MLA's absorbed form on its block of the batch
+        and the query heads against its batch block of the latent cache)."""
         with mesh_scope(params):
             x = self._embed(params, tokens)
             positions = cache_len + torch.arange(x.shape[1], device=x.device)
             x = self._run(params, x, positions, slots=self._slots(cache), cache_len=cache_len)
             return self._head(params, x), cache
-
-    def _refuse_mesh(self, params: Params) -> None:
-        if self.is_mla or self.cfg.family == VLM:
-            refuse_mesh(self.cfg, params, "MLA attention" if self.is_mla else "the patch prefix")
 
 
 class EncoderLM:
@@ -418,6 +410,8 @@ class EncoderLM:
     package's ``EncoderLM`` (hubert-xlarge; the convolutional feature
     extractor is a stub there, ``batch["frames"]`` its output). No cache,
     no ``prefill`` and no ``decode``: an encoder has no decode path.
+    DTensor parameters (the sharded train step's and the encode's) run
+    under :func:`mesh_scope`, the attention on each rank's local block.
 
     ``attention`` is the attention every layer calls, with ``causal=False``
     (the flash kernel's wrapper by default; a reference computation passes
@@ -440,19 +434,22 @@ class EncoderLM:
         respect to the parameter dict, each stack taken apart once with
         ``unbind(0)`` (as :meth:`DecoderLM.forward`)."""
         cfg = self.cfg
-        refuse_mesh(cfg, params, "the encoder")
-        w = params["frame_proj"]
-        x = batch["frames"].to(w.dtype) @ w
-        positions = torch.arange(x.shape[1], device=x.device)
-        attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in _ATTN}
-        ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in _ENC_FFN}
-        for i in range(cfg.num_layers):
-            x, _ = blocks.attn_apply(cfg, {n: t[i] for n, t in attn.items()}, x, positions=positions,
-                                     attention=self.attention, causal=False)
-            f = {n: t[i] for n, t in ffn.items()}
-            x = x + gelu_mlp(rms_norm(x, f["ln"]), f["w_up"], f["b_up"], f["w_down"], f["b_down"])
-        x = rms_norm(x, params["final_ln"])
-        return (x @ params["head"]).float()
+        with mesh_scope(params):
+            w = params["frame_proj"]
+            x = batch["frames"].to(w.dtype) @ w
+            positions = torch.arange(x.shape[1], device=x.device)
+            attn = {n: params[f"layers/attn/{n}"].unbind(0) for n in _ATTN}
+            ffn = {n: params[f"layers/ffn/{n}"].unbind(0) for n in _ENC_FFN}
+            for i in range(cfg.num_layers):
+                x, _ = blocks.attn_apply(cfg, {n: t[i] for n, t in attn.items()}, x, positions=positions,
+                                         attention=self.attention, causal=False)
+                f = {n: t[i] for n, t in ffn.items()}
+                # the MLP's input placed by the batch alone: left partial over the model axis, PyTorch 2.11's
+                # DTensor asks the product for a batch-sharded block as a partial sum, which it cannot make
+                h = blocks.batch_placed(rms_norm(x, f["ln"]))
+                x = x + gelu_mlp(h, f["w_up"], f["b_up"], f["w_down"], f["b_down"])
+            x = rms_norm(x, params["final_ln"])
+            return (x @ params["head"]).float()
 
 
 def _ring_slot(cache_len: int, window: int) -> int:

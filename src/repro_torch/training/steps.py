@@ -39,8 +39,9 @@ data axes where the batch is sharded), and :func:`value_and_grad`
 redistributes each to its parameter's placements (the data-parallel
 all-reduce, or FSDP's reduce-scatter) before :class:`AdamW` updates each
 rank's block. Metrics come back as plain replicated tensors. The dense
-and MoE decoders take it (H1 and H3 on or off); the other families refuse
-DTensor parameters by name.
+and MoE decoders (H1 and H3 on or off), MLA (deepseek-v3), the VLM and the
+encoder take it; the hybrid and the xLSTM refuse DTensor parameters by
+name.
 """
 
 from __future__ import annotations

@@ -20,8 +20,12 @@ across with the port's ``from_numpy``. The checks:
   relative distance of 1 or more), for reduced
   llama3-8b, gemma2-2b (window, softcaps, tied head) and dbrx with H3 off
   and on (``capacity_factor = num_experts``, so that H3's per-rank
-  capacity drops nothing either); and reduced llama3-8b's step over two
-  microbatches (``accum=2``) and its GRPO step (``make_grpo_step``);
+  capacity drops nothing either); reduced llama3-8b's step over two
+  microbatches (``accum=2``) and its GRPO step (``make_grpo_step``); and
+  reduced deepseek-v3 (MLA on each rank's block of the query heads, its
+  dense prefix layer and shared expert) with H3 off and on, internvl2-2b
+  (its patches placed before the tokens, the loss past them) and
+  hubert-xlarge (frames, targets and mask placed; masked prediction);
 * (2) under H1 (``shard_attn_heads``), the forward of a reduced llama3-8b
   with 8 query and 2 KV heads (K/V do not divide the 4-way model axis, so
   they are broadcast) equals the port's plain forward, the JAX plain
@@ -36,8 +40,8 @@ across with the port's ``from_numpy``. The checks:
   bit for bit on every rank (the gradients are multiples of 1/8, so every
   order of their squares' sums is exact).
 
-In this process, on the 1x1 gloo smoke mesh: MLA, the VLM, the encoder,
-the hybrid and the xLSTM refuse DTensor parameters by name.
+In this process, on the 1x1 gloo smoke mesh: the hybrid and the xLSTM
+refuse DTensor parameters by name.
 """
 
 import dataclasses
@@ -90,6 +94,10 @@ STEP_CASES = [
     dict(name="dbrx-132b_h3_on", arch="dbrx-132b", placed=True, h3=True),
     dict(name="llama3-8b_accum2", arch="llama3-8b", placed=True, h3=False, accum=2),
     dict(name="llama3-8b_grpo", arch="llama3-8b", placed=True, h3=False, grpo=True),
+    dict(name="deepseek-v3-671b_h3_off", arch="deepseek-v3-671b", placed=True, h3=False),
+    dict(name="deepseek-v3-671b_h3_on", arch="deepseek-v3-671b", placed=True, h3=True),
+    dict(name="internvl2-2b_placed", arch="internvl2-2b", placed=True, h3=False),
+    dict(name="hubert-xlarge_placed", arch="hubert-xlarge", placed=True, h3=False),
 ]
 CASES = {c["name"]: c for c in STEP_CASES}
 H1_CASE = dict(arch="llama3-8b", heads=[8, 2])
@@ -123,10 +131,28 @@ def _tokens(seed, vocab):
     return np.random.default_rng(seed).integers(0, vocab, size=(8, 16)).astype(np.int32)
 
 
+def _model_inputs(arch, seed):
+    """A batch of 8 of a reduced ``arch``'s model inputs as numpy: 16
+    tokens (a VLM's after its patches, drawn from ``seed + 3``), or an
+    encoder's 16 frames with their targets and a mask of about half the
+    positions."""
+    cfg = get_config(arch).reduced()
+    if cfg.encoder_only:
+        rng = np.random.default_rng(seed + 4)
+        return {"frames": rng.standard_normal((8, 16, cfg.frontend_dim)).astype(np.float32),
+                "targets": rng.integers(0, cfg.vocab, size=(8, 16)).astype(np.int32),
+                "mask": rng.random((8, 16)) < 0.5}
+    out = {"tokens": _tokens(seed, cfg.vocab)}
+    if cfg.num_patches:
+        out["patches"] = np.random.default_rng(seed + 3).standard_normal((8, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
 def _batch(case):
-    """A step case's batch as numpy: its tokens, and a GRPO case's
+    """A step case's batch as numpy: its model inputs, and a GRPO case's
     behaviour logprobs, advantages and loss mask (the last 10 positions)."""
-    batch = {"tokens": _tokens(1, get_config(case["arch"]).reduced().vocab)}
+    batch = _model_inputs(case["arch"], 1)
     if case.get("grpo"):
         rng = np.random.default_rng(3)
         mask = np.zeros((8, 15), dtype=bool)
@@ -268,7 +294,8 @@ def _one_device_step(name, reference):
         model = build_model(cfg)
         step = (make_grpo_step(model, cfg, opt) if case.get("grpo")
                 else make_train_step(model, cfg, opt, accum=case.get("accum", 1)))
-        tb = {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v) for k, v in batch.items()}
+        tb = {k: torch.from_numpy(v).long() if k in ("tokens", "targets") else torch.from_numpy(v)
+              for k, v in batch.items()}
         _, _, metrics = step(params, opt.init(params), tb)
         return (float(metrics["loss"]), {n: t.numpy() for n, t in params.items()},
                 {n: g.numpy() for n, g in opt.grads.items()})
@@ -399,25 +426,17 @@ def smoke_mesh():
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch,family", [("deepseek-v3-671b", "moe"), ("internvl2-2b", "vlm"),
-                                         ("hubert-xlarge", "audio"), ("zamba2-2.7b", "hybrid"),
-                                         ("xlstm-350m", "ssm")])
+@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"), ("xlstm-350m", "ssm")])
 def test_other_families_refuse_dtensor_parameters_by_name(smoke_mesh, arch, family):
-    """MLA (deepseek-v3), the VLM, the encoder, the hybrid and the xLSTM
-    refuse DTensor parameters by name, in the forward and so in the step;
-    with plain parameters they run as before."""
+    """The hybrid and the xLSTM refuse DTensor parameters by name, in the
+    forward and so in the step; with plain parameters they run as before."""
     from repro_torch.models.params import init_params
     from repro_torch.sharding import TRAIN_RULES, place_tree
 
     cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     placed = place_tree(params, dict(decoder_specs(cfg)), TRAIN_RULES, smoke_mesh)
-    if cfg.encoder_only:
-        batch = {"frames": torch.randn(2, 8, cfg.frontend_dim)}
-    else:
-        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8))}
-        if cfg.num_patches:
-            batch["patches"] = torch.randn(2, cfg.num_patches, cfg.d_model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8))}
     model = build_model(cfg)
     with pytest.raises(NotImplementedError, match=rf"{cfg.name} \({family} family.*the sharded serving and train steps"):
         model.forward(placed, batch)

@@ -4,16 +4,20 @@ Run as ``python tests/torch_dryrun_worker.py <workdir> <part>``: a process
 group of 256 fake ranks (``launch.dryrun.start_fake_world``) lives in this
 process only, never in a pytest worker. The test starts the three parts
 side by side; each writes ``<workdir>/<part>.json``. Part ``dense``
-(llama3-8b's trips, the hand counts, the analytic prefill and the
-leaves), part ``gated`` (gemma2-2b's and dbrx's trips) and part ``all``:
+(llama3-8b's trips, the hand counts, the analytic prefill, the MLA decode
+layer and the leaves), part ``gated`` (gemma2-2b's, dbrx's and
+deepseek-v3's trips) and part ``all``:
 
 * ``hand``: ``op_costs.analyze`` of three DTensor products and gathers on
   the 2x4 mesh of ranks 0-7 (fake tensors), for the hand counts;
-* ``trips``: narrowed llama3-8b, gemma2-2b and dbrx in each kind, counted
+* ``trips``: narrowed llama3-8b, gemma2-2b, dbrx and deepseek-v3 (its
+  dense prefix layer before the MoE stack) in each kind, counted
   by ``analyze_cell`` (cut depths, extended) and by one trace at full
   depth, on the 2x4 mesh, the full depth past the deepest cut one;
 * ``dense``: a narrowed dense prefill's per-device dot FLOPs on the 2x4
   mesh, beside its config, for the analytic formula;
+* ``mla_decode``: one MLA decode layer's counts on the 2x4 mesh against a
+  placed latent cache of 64 and of 256 slots;
 * ``leaves``: every leaf of every live cell on the 16x16 mesh (built, not
   traced): its name, global shape and placements;
 * ``all``: ``launch.dryrun.main(["--all", ...])`` over the registry's
@@ -41,9 +45,10 @@ def main(workdir: str, part: str) -> None:
     dryrun.start_fake_world(256)
     mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
     if part == "dense":
-        out = {"hand": _hand(mesh), "trips": _trips(mesh, ("llama3-8b",)), "dense": _dense(mesh), "leaves": _leaves()}
+        out = {"hand": _hand(mesh), "trips": _trips(mesh, ("llama3-8b",)), "dense": _dense(mesh), "leaves": _leaves(),
+               "mla_decode": _mla_decode_layer(mesh)}
     elif part == "gated":
-        out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b"))}
+        out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b", "deepseek-v3-671b"))}
     else:
         out = {"all": _all(workdir)}
     with open(os.path.join(workdir, f"{part}.json"), "w") as fh:
@@ -75,7 +80,7 @@ def _hand(mesh) -> dict:
 
 #: the narrowed configs of the trips: each deeper than its deepest cut trace
 NARROW = {"llama3-8b": dict(num_layers=6), "gemma2-2b": dict(num_layers=8, sliding_window=16),
-          "dbrx-132b": dict(num_layers=5)}
+          "dbrx-132b": dict(num_layers=5), "deepseek-v3-671b": dict(num_layers=7)}
 
 
 def _trips(mesh, archs) -> dict:
@@ -110,6 +115,66 @@ def _dense(mesh) -> dict:
     rec = cells.build_cell("llama3-8b", "prefill_32k", mesh, cfg=cfg, case=case).trace(mesh)
     return {"costs": rec["costs"].as_dict(), "cfg": dataclasses.asdict(cfg), "batch": case.global_batch,
             "seq": case.seq_len}
+
+
+#: the latent cache's slots of the MLA decode layer, two lengths
+MLA_SLOTS = (64, 256)
+#: its batch (over the 2-way data axis)
+MLA_BATCH = 8
+
+
+def _mla_decode_layer(mesh) -> dict:
+    """``op_costs.analyze`` of one MLA decode layer (``blocks.mla_apply``
+    with a cache, reduced deepseek-v3: 4 heads over the 4-way model axis)
+    on fake bf16 blocks placed by ``SERVE_RULES`` on the 2x4 mesh: the
+    layer's parameters, the step's input ``[B, 1, d_model]`` and the latent
+    cache of ``MLA_SLOTS`` slots, the step at the last slot, its output
+    placed as its input (DTensor leaves the output projection's sum
+    partial until an op needs it); the latent attention through the
+    kernel operator (its fake). By cache length:
+    the counts, and the shapes the operator saw."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.kernels.mla_decode import mla_decode_op
+    from repro_torch.launch import op_costs
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import DecoderLM, mesh_scope
+    from repro_torch.models.params import spec
+    from repro_torch.sharding import SERVE_RULES, place_new
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def block(shape):
+        with fake:
+            return torch.empty(shape, dtype=torch.bfloat16)
+
+    out = {}
+    for slots in MLA_SLOTS:
+        params = place_new(blocks.mla_specs(cfg), SERVE_RULES, mesh, block)
+        x = place_new(spec((MLA_BATCH, 1, cfg.d_model), ("batch", None, "act_embed")), SERVE_RULES, mesh, block)
+        cache = place_new(DecoderLM(cfg)._attn_cache_spec(MLA_BATCH, slots), SERVE_RULES, mesh, block)
+        seen = []
+
+        def latent(q_abs, q_rope, ckv, krope, **kw):
+            seen.append([list(q_abs.shape), list(ckv.shape)])
+            return mla_decode_op(q_abs, q_rope, ckv, krope, **kw)
+
+        def step(p, x, c):
+            with mesh_scope(p):
+                positions = slots - 1 + torch.arange(1, device=x.device)
+                y, _ = blocks.mla_apply(cfg, p, x, positions=positions, attention=flash_attention_op,
+                                        latent_attention=latent, cache=c, cache_len=slots - 1)
+                return y.redistribute(mesh, x.placements)  # the residual stream as it came in
+
+        costs = op_costs.analyze(step, params, x, cache)
+        out[str(slots)] = {"costs": costs.as_dict(), "latent_calls": seen,
+                           "cfg": {"d_model": cfg.d_model, "num_heads": cfg.num_heads,
+                                   "kv_lora_rank": cfg.mla.kv_lora_rank}, "batch": MLA_BATCH}
+    return out
 
 
 def _leaves() -> dict:

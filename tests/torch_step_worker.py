@@ -5,7 +5,8 @@ process a rank; ``tests/test_torch_sharded_step.py`` starts the eight. The
 ranks meet through a ``FileStore`` in ``workdir``, which also holds the
 inputs: ``steps.json`` (the step cases: arch, head and capacity overrides,
 whether the batch is placed, whether H3 is on, ``accum``, GRPO) with
-``step_<case>.npz`` (the JAX init's weights by name and the batch), ``h1.npz`` (a reduced
+``step_<case>.npz`` (the JAX init's weights by name and the batch: tokens,
+a VLM's patches too, an encoder's frames, targets and mask), ``h1.npz`` (a reduced
 llama3-8b of 8 query and 2 KV heads and its tokens), ``moe.npz`` (a
 reduced dbrx MoE layer and its input) and ``optim.npz`` (tensors,
 gradients and moments for AdamW). Each rank builds the ``("data",
@@ -14,8 +15,8 @@ gradients and moments for AdamW). Each rank builds the ``("data",
 * ``step/<case>/loss``, ``step/<case>/g/<name>`` and (rank 0)
   ``step/<case>/p/<name>``: one ``make_train_step`` (or
   ``make_grpo_step``) on parameters and moments placed by ``TRAIN_RULES``
-  (``place_tree``), the batch replicated or placed by ``("batch",
-  "seq")``: its loss, the gradients it hands the optimizer (placed like
+  (``place_tree``), the batch replicated or placed by its logical axes
+  (``launch.cells._INPUT_AXES``): its loss, the gradients it hands the optimizer (placed like
   their parameters, gathered whole with ``full_tensor``) and the
   parameters after it;
 * ``h1/logits``: the H1 forward (``shard_attn_heads``) on the placed
@@ -77,6 +78,7 @@ def main(rank: int, world: int, workdir: str) -> None:
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.cells import _INPUT_AXES
     from repro_torch.models import blocks, build_model, optim
     from repro_torch.models.params import decoder_specs, from_numpy
     from repro_torch.sharding import TRAIN_RULES, place_tree, placements_for, spec_for
@@ -93,14 +95,21 @@ def main(rank: int, world: int, workdir: str) -> None:
         return {n[len("p/"):]: data[n] for n in data.files if n.startswith("p/")}, data
 
     def batch_of(data, placed: bool):
-        """The case's batch: its tokens (placed by ``("batch", "seq")``
-        where ``placed``) and a GRPO batch's other fields, plain."""
+        """The case's batch: its model inputs (tokens; a VLM's patches; an
+        encoder's frames, targets and mask), each placed by its
+        ``_INPUT_AXES`` where ``placed``, and a GRPO batch's other fields,
+        plain."""
         batch = {k: torch.from_numpy(data[k]) for k in GRPO_FIELDS if k in data.files}
-        t = torch.from_numpy(data["tokens"]).long()
-        if placed:
-            spec = spec_for(tuple(t.shape), ("batch", "seq"), TRAIN_RULES, mesh)
-            t = distribute_tensor(t, mesh, placements_for(spec, mesh))
-        return {"tokens": t, **batch}
+        for k, axes in _INPUT_AXES.items():
+            if k not in data.files:
+                continue
+            t = torch.from_numpy(data[k])
+            t = t.long() if k in ("tokens", "targets") else t
+            if placed:
+                spec = spec_for(tuple(t.shape), axes[: t.ndim], TRAIN_RULES, mesh)
+                t = distribute_tensor(t, mesh, placements_for(spec, mesh))
+            batch[k] = t
+        return batch
 
     # the sharded step, one a case
     with open(os.path.join(workdir, "steps.json")) as fh:
