@@ -311,7 +311,23 @@ lines, any failure exiting non-zero:
    query rows, the decode route at 32768 slots and the training shape's
    forward and backward held to their plain versions and timed.
 
-A ``kernels`` JSON line (launches over phases 3 to 20; flash
+21. The attention families' sharded steps (``sharded_families``):
+   deepseek-v3, internvl2-2b and hubert-xlarge served and trained on
+   DTensors on the 1x1 NCCL smoke mesh, bit-equal to their plain runs.
+
+22. The hybrid and the xLSTM on the smoke mesh
+   (``sharded_recurrent_families``): zamba2-2.7b at 12 layers (a served
+   batch of 4 x 512 and 4 decode steps by ``SERVE_RULES``, its train step
+   at 2 x 576 by ``TRAIN_RULES``), its ring decode at batch 1 by
+   ``LONG_SERVE_RULES`` (4096 f32 slots filled from a seed, past the
+   ring's first turn, through the decode kernel with its log-sum-exp and
+   the merge), xlstm-350m at 6 layers (the same batch, a step at 2 x 256),
+   each DTensor run bit-equal to its plain run; then the ring's 4096 slots
+   in 16 blocks of 256 through the decode kernel with its lse and merged,
+   held to the whole-ring call and the plain version and timed. Phase 2
+   holds and times the decode route's lse at one such block.
+
+A ``kernels`` JSON line (launches over phases 3 to 22; flash
    attention's entry carries a ``routes`` field with each route's times,
    bound and launches, the ``f32`` route's timed at the f32 training
    shape at the f32 peak; the backward has one entry a route,
@@ -2972,6 +2988,7 @@ def hybrid_attention_checks(torch, dev, bw: float) -> dict:
             emit("flash_zamba2_times", case=key, **out[key])
         del q, k, v, dout, o, lse, leaves, sdpa_out, calls, plain, sdpas
         torch.cuda.empty_cache()
+    out["ring_block_lse"] = ring_block_lse_times(torch, fa, rand, flush, bw, note)
     del flush
     torch.cuda.empty_cache()
     for key, entry in (("decode", out["decode"]), ("tensor_core", out["prefill"]), ("f32", out["train_f32_forward"]),
@@ -2980,6 +2997,70 @@ def hybrid_attention_checks(torch, dev, bw: float) -> dict:
     out["ring"].update(max_abs_err=worst["decode"][0], err_over_tol=worst["decode"][1])
     out["train_bf16_forward"].update(max_abs_err=worst["tensor_core"][0], err_over_tol=worst["tensor_core"][1])
     return out
+
+
+#: the slots of one block of zamba2's ring in its long_500k cell: 4096 slots
+#: over the 16-way data axis of the 16x16 mesh (``LONG_SERVE_RULES``)
+RING_BLOCK_SLOTS = 256
+LSE_TOL = 2e-5  # f32, relative to 1 + |lse|: the tensor_core and f32 routes' lse checks'
+
+
+def ring_block_lse_times(torch, fa, rand, flush, bw: float, note) -> dict:
+    """Phase 2: the decode route with its log-sum-exp at the block one rank
+    of zamba2's long_500k ring attends over, q [1,32,1,80] f32 against
+    ``RING_BLOCK_SLOTS`` f32 slots (``causal=False``): the output bit-equal
+    to the same call's without the lse, both within phase 2's f32
+    tolerance of the plain version and the lse within ``LSE_TOL`` of
+    ``attention_lse_plain``; timed with the L2 cold beside the plain version
+    (output and lse), SDPA in f32 (its backend named) and the bound (q, o
+    and the lse once, the K/V bytes, over the memory rate)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-2.7b")
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = rand((1, hq, 1, d), torch.float32)
+    k, v = rand((1, hkv, RING_BLOCK_SLOTS, d), torch.float32), rand((1, hkv, RING_BLOCK_SLOTS, d), torch.float32)
+    kw = dict(causal=False)
+    shape = f"q {list(q.shape)}, k/v {list(k.shape)} float32 (causal=False), with the lse [1,{hq},1]"
+    check(fa._route(q, k) == "decode", f"zamba2's ring block routed to {fa._route(q, k)}")
+    before = fa.ROUTE_LAUNCHES["decode"].value
+    (o, lse), (o2, lse2) = (fa.launch_route("decode", q, k, v, with_lse=True, **kw) for _ in range(2))
+    bare = fa.launch_route("decode", q, k, v, **kw)
+    check(fa.ROUTE_LAUNCHES["decode"].value == before + 3, "the decode route was not launched on the ring block")
+    want, lse_want = fa.attention_plain(q, k, v, **kw), fa.attention_lse_plain(q, k, **kw)
+    tol = FLASH_TOL["float32"]
+    diff = (o - want).abs()
+    ratio = float((diff / (tol + tol * want.abs())).max())
+    lse_ratio = float(((lse - lse_want).abs() / (LSE_TOL + LSE_TOL * lse_want.abs())).max())
+    same = bool(torch.equal(o, bare))
+    rerun = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+    emit("flash_check", case=f"zamba2 ring block {shape}", route="decode", max_abs_err=float(diff.max()), tol=tol,
+         err_over_tol=ratio, lse_err_over_tol=lse_ratio, output_equal_without_lse=same, bit_equal_rerun=rerun)
+    check(ratio <= 1.0 and lse_ratio <= 1.0 and bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()),
+          f"the decode route's output or lse != the plain versions on {shape}")
+    check(same and rerun, f"the decode route's output with its lse differs from without it, or between runs, on {shape}")
+    note("decode", (float(diff.max()), max(ratio, lse_ratio)))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731 (every key visible)
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        library_ms = cold_ms(torch, sdpa, flush)
+    _, _, flops, nbytes = flash_bound_ms(q, k, RING_BLOCK_SLOTS, False, 0, bw, peak=F32_TFLOPS)
+    nbytes += lse.numel() * lse.element_size()  # the lse written once too
+    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, nbytes / bw * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+    rec = dict(route="decode", shape=shape,
+               ms=cold_ms(torch, lambda: fa.launch_route("decode", q, k, v, with_lse=True, **kw), flush),
+               ms_without_lse=cold_ms(torch, lambda: fa.launch_route("decode", q, k, v, **kw), flush),
+               plain_ms=cold_ms(torch, lambda: (fa.attention_plain(q, k, v, **kw), fa.attention_lse_plain(q, k, **kw)),
+                                flush, reps=5),
+               library_ms=library_ms, library=f"scaled_dot_product_attention, f32, no lse ({backend})",
+               bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, max_abs_err=float(diff.max()),
+               err_over_tol=max(ratio, lse_ratio), output_equal_without_lse=same)
+    emit("flash_zamba2_times", case="ring_block_lse", **rec)
+    return rec
 
 
 #: phase 2's tensor of more than 2^31 elements: dbrx's stacked w_gate at
@@ -6676,7 +6757,7 @@ def g1_attention_times(torch, dev, bw: float, shape) -> dict:
 #: its own on the host's CPU, started with the script and read in phase 20
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
                 ("dbrx-132b", "train_4k"), ("deepseek-v3-671b", "decode_32k"), ("internvl2-2b", "decode_32k"),
-                ("hubert-xlarge", "prefill_32k"))
+                ("hubert-xlarge", "prefill_32k"), ("zamba2-2.7b", "long_500k"), ("xlstm-350m", "decode_32k"))
 DRYRUN_TIMEOUT = 900.0  # seconds the script waits for the dry run at phase 20 (it runs beside phases 2-19)
 DRYRUN_THREADS = 2  # its intra-op threads: the phases beside it keep the host's other cores
 #: (b): llama3-8b's three cells on the card, cut to it: shape -> (batch, layers).
@@ -7129,7 +7210,8 @@ def _synced_s(torch, dev, fn) -> float:
     return time.perf_counter() - t0
 
 
-def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: dict, settings: dict, smi: str) -> dict:
+def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: dict, settings: dict, smi: str,
+                 phase: int = 21, profile_cpu: bool = True) -> dict:
     """Phase 21's serving half for one model: ``prefill`` of ``batch`` and
     ``len(steps)`` ``decode`` steps of the given tokens, on the plain
     parameters and then, under each of ``settings`` (flag dicts: H3 off and
@@ -7179,7 +7261,7 @@ def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: di
                 outs.append(_local(state["c"][0]).clone())
             torch.cuda.synchronize(dev)
             got = {k: every[k].value - before[k] for k in want}
-            check(got == want, f"phase 21 {cfg.name} {label}: launches {got}, want {want}")
+            check(got == want, f"phase {phase} {cfg.name} {label}: launches {got}, want {want}")
             cache = [_local(t) for t in tree_leaves(state["c"][1])]
             rec = dict(launches=got)
             if ref is None:
@@ -7190,21 +7272,21 @@ def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: di
                 rec.update(logits_bit_equal=all(same), cache_bit_equal=same_cache,
                            max_abs_logit_diff=max(float((a - w).abs().max()) for a, w in zip(outs, ref[0])))
                 check(all(same) and same_cache and len(cache) == len(ref[1]),
-                      f"phase 21 {cfg.name} {label}: logits {same} and cache {same_cache} against the plain run's")
+                      f"phase {phase} {cfg.name} {label}: logits {same} and cache {same_cache} against the plain run's")
             del outs, cache
             pre_s, step_s = [], []
             for _ in range(FAMILY_TURNS):
                 pre_s.append(_synced_s(torch, dev, prefill))
                 step_s.extend(_synced_s(torch, dev, lambda: decode(i)) for i in range(len(toks)))
-            prof_pre = device_profile(torch, prefill)
-            prof_step = device_profile(torch, lambda: decode(0))
+            prof_pre = device_profile(torch, prefill, cpu=profile_cpu)
+            prof_step = device_profile(torch, lambda: decode(0), cpu=profile_cpu)
         rec.update(prefill_seconds=statistics.median(pre_s), decode_step_seconds=statistics.median(step_s),
                    prefill_idle_share=prof_pre["idle_share"], decode_idle_share=prof_step["idle_share"],
                    prefill_busy_seconds=prof_pre["device_busy_seconds"],
                    decode_busy_seconds=prof_step["device_busy_seconds"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(dev))
         results[label] = rec
-        emit("sharded_family_serve", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+        emit("sharded_family_serve", phase=phase, card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
              batch={k: list(t.shape) for k, t in batch.items()}, decode_steps=len(steps),
              blocks_share_storage=shared, **rec)
         del state
@@ -7274,7 +7356,8 @@ class DigestingAdamW:
         return self.opt.update(grads, state, params)
 
 
-def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict, smi: str) -> dict:
+def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict, smi: str, phase: int = 21,
+                 profile_cpu: bool = True) -> dict:
     """Phase 21's training half for one model: one ``make_train_step``
     (bf16 parameters, f32 AdamW moments from zero) on the plain parameters
     ``make_params()``, then on a second draw of them (the same seed: the
@@ -7311,7 +7394,7 @@ def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict
         _, state, metrics = step(params, state, b)
         torch.cuda.synchronize(dev)
         got = {k: every[k].value - before[k] for k in want}
-        check(got == want, f"phase 21 {cfg.name} {label} step: launches {got}, want {want}")
+        check(got == want, f"phase {phase} {cfg.name} {label} step: launches {got}, want {want}")
         loss = float(metrics["loss"])
         after = {n: checksum(_local(t)) for n, t in params.items()}
         rec = dict(loss=loss, launches=got)
@@ -7324,15 +7407,15 @@ def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict
                        gradients=len(opt.digests))
             bad = [n for n in ref["grads"] if opt.digests.get(n) != ref["grads"][n]]
             check(loss == ref["loss"] and grads_same and params_same,
-                  f"phase 21 {cfg.name}: the DTensor step's loss {loss} (plain {ref['loss']}), gradients "
+                  f"phase {phase} {cfg.name}: the DTensor step's loss {loss} (plain {ref['loss']}), gradients "
                   f"{bad[:4]} differ, parameters equal {params_same}")
         times = [_synced_s(torch, dev, lambda: step(params, state, b)) for _ in range(FAMILY_TURNS)]
-        prof = device_profile(torch, lambda: step(params, state, b))
+        prof = device_profile(torch, lambda: step(params, state, b), cpu=profile_cpu)
         rec.update(step_seconds=statistics.median(times), step_seconds_by_turn=times,
                    idle_share=prof["idle_share"], device_busy_seconds=prof["device_busy_seconds"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(dev))
         results[label] = rec
-        emit("sharded_family_train", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+        emit("sharded_family_train", phase=phase, card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
              batch={k: list(t.shape) for k, t in batch.items()}, dtype="bfloat16", moments="float32", **rec)
         del params, state, step, opt, b, metrics
     gc.collect()
@@ -7575,6 +7658,262 @@ def sharded_families(torch, dev, counters, smi: str, bw: float) -> dict:
     return out
 
 
+# -- phase 22: the hybrid and the xLSTM on the smoke mesh ---------------------------------
+
+#: (a) zamba2-2.7b at 12 of its 54 layers (2 shared-block groups): a served
+#: batch of 4 x 512, FAMILY_GEN decode steps, and its train step at 2 x 576
+MESH_HYBRID_LAYERS = 12
+MESH_B, MESH_PROMPT = 4, 512
+MESH_HYBRID_TRAIN = (2, 576)
+#: (b) its ring decode at batch 1 under LONG_SERVE_RULES: the published
+#: window's 4096 f32 slots filled from a seed, past the ring's first turn
+MESH_RING_PAST = 4096 + 517
+#: (c) xlstm-350m at 6 of its 24 layers: the same served batch, and its
+#: train step at 2 x 256
+MESH_XLSTM_LAYERS = 6
+MESH_XLSTM_TRAIN = (2, 256)
+#: (d) the ring's 4096 slots split as long_500k's 16-way data axis splits them
+RING_BLOCKS = 16
+RING_MERGE_TOL = 2e-5  # f32, relative to 1 + |value|
+
+
+def family_ring(torch, dev, every, mesh, cfg, params, tokens, *, want: dict, smi: str) -> dict:
+    """Phase 22 (b): the hybrid's ring decode at batch 1, ``len(tokens)``
+    steps from ``MESH_RING_PAST`` on a ring of the published window's
+    slots, every cache entry filled from a seed (f32), on the plain
+    parameters and then on the same parameters placed by
+    ``LONG_SERVE_RULES`` with the ring cache made placed by them
+    (``init_cache(..., mesh=)``, its blocks given the same values): the
+    DTensor run attends through the decode kernel with its log-sum-exp and
+    the merge (one partial on one device). Gates: every step's logits and
+    the cache after the last step bit-equal to the plain run's; each run's
+    launches ``want``. Each run's step seconds (median of ``FAMILY_TURNS``
+    timed rounds after the gated one, the steps rewriting their slots),
+    one profiled step's idle share and the peak memory."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.models import build_model, optim
+    from repro_torch.models.params import decoder_specs
+    from repro_torch.sharding import LONG_SERVE_RULES, place_tree
+
+    model = build_model(cfg)
+    window = cfg.sliding_window
+    g = torch.Generator(device=dev).manual_seed(SEED + 222)
+    filled = [torch.randn(t.shape, generator=g, device=dev)
+              for t in tree_leaves(model.init_cache(1, window, torch.float32, "meta", ring=True))]
+    placed = place_tree(params, dict(decoder_specs(cfg)), LONG_SERVE_RULES, mesh)
+    results, ref = {}, None
+    for label, (p, m) in {"plain": (params, None), "dtensor": (placed, mesh)}.items():
+        cache = model.init_cache(1, window, torch.float32, dev, ring=True, mesh=m)
+        for dst, src in zip(tree_leaves(cache), filled):
+            _local(dst).copy_(src)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def step(i):
+            return model.decode(p, cache, tokens[i], MESH_RING_PAST + i, ring=True)[0]
+
+        with torch.no_grad(), optim.optimizations(mesh=m):
+            before = {k: c.value for k, c in every.items()}
+            outs = [_local(step(i)).clone() for i in range(len(tokens))]
+            torch.cuda.synchronize(dev)
+            got = {k: every[k].value - before[k] for k in want}
+            check(got == want, f"phase 22 {cfg.name} ring {label}: launches {got}, want {want}")
+            leaves = [_local(t).clone() for t in tree_leaves(cache)]
+            rec = dict(launches=got, finite=all(bool(torch.isfinite(o).all()) for o in outs))
+            if ref is None:
+                ref = (outs, leaves)
+            else:
+                same = [torch.equal(a, w) for a, w in zip(outs, ref[0])]
+                same_cache = all(torch.equal(a, w) for a, w in zip(leaves, ref[1]))
+                rec.update(logits_bit_equal=all(same), cache_bit_equal=same_cache,
+                           max_abs_logit_diff=max(float((a - w).abs().max()) for a, w in zip(outs, ref[0])))
+                check(all(same) and same_cache and rec["finite"],
+                      f"phase 22 {cfg.name} ring: logits {same} and cache {same_cache} against the plain run's")
+            del outs, leaves
+            step_s = [_synced_s(torch, dev, lambda: step(i)) for _ in range(FAMILY_TURNS) for i in range(len(tokens))]
+            prof = device_profile(torch, lambda: step(0))
+        rec.update(decode_step_seconds=statistics.median(step_s), decode_idle_share=prof["idle_share"],
+                   decode_busy_seconds=prof["device_busy_seconds"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        results[label] = rec
+        emit("sharded_family_ring", card=smi, config=cfg.name, layers=cfg.num_layers, case=label,
+             ring_slots=window, cache_len=MESH_RING_PAST, decode_steps=len(tokens),
+             rules="LONG_SERVE_RULES" if m is not None else None, **rec)
+        del cache
+    return results
+
+
+def ring_merge_times(torch, dev, bw: float) -> dict:
+    """Phase 22 (d): the ring's merge on the card. zamba2's ring of
+    4096 f32 slots (q [1,32,1,80], ``causal=False``) split into the
+    ``RING_BLOCKS`` blocks of 256 slots that long_500k's data axis gives a
+    device: each block through the decode kernel with its log-sum-exp, the
+    partials merged by ``merge_attention``; the merged output and lse held
+    to the one call over the whole ring (the same kernel) and to the plain
+    versions within ``RING_MERGE_TOL``. Timed with the L2 cold: the 16
+    block calls and the merge, the whole-ring call, the plain version, SDPA
+    in f32 over the whole ring, and the bound of the 16 calls (their q, o,
+    lse and K/V bytes once)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("zamba2-2.7b")
+    hq, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
+    g = torch.Generator(device=dev).manual_seed(SEED + 223)
+    q = torch.randn(1, hq, 1, d, generator=g, device=dev)
+    k, v = torch.randn(1, hkv, w, d, generator=g, device=dev), torch.randn(1, hkv, w, d, generator=g, device=dev)
+    n = w // RING_BLOCKS
+    kw = dict(causal=False)
+
+    def merged():
+        parts = [fa.launch_route("decode", q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n], with_lse=True,
+                                 **kw) for i in range(RING_BLOCKS)]
+        return fa.merge_attention(torch.stack([o for o, _ in parts]), torch.stack([lse for _, lse in parts]))
+
+    out, lse = merged()
+    whole, whole_lse = fa.launch_route("decode", q, k, v, with_lse=True, **kw)
+    plain, plain_lse = fa.attention_plain(q, k, v, **kw), fa.attention_lse_plain(q, k, **kw)
+
+    def ratio(got, want):
+        return float(((got - want).abs() / (RING_MERGE_TOL + RING_MERGE_TOL * want.abs())).max())
+
+    errs = dict(vs_whole=ratio(out, whole), vs_plain=ratio(out, plain), lse_vs_whole=ratio(lse, whole_lse),
+                lse_vs_plain=ratio(lse, plain_lse))
+    label = f"q [1,{hq},1,{d}], ring [1,{hkv},{w},{d}] f32 in {RING_BLOCKS} blocks of {n} slots"
+    emit("ring_merge_check", case=f"phase 22 {label}", err_over_tol=errs, tol=RING_MERGE_TOL,
+         max_abs_err=float((out - plain).abs().max()))
+    check(max(errs.values()) <= 1.0 and bool(torch.isfinite(out).all()),
+          f"phase 22: the merged ring differs from the whole call or the plain version: {errs}")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel([backend]):
+        library_ms = cold_ms(torch, sdpa, flush)
+    flops = 4 * hq * d * w
+    nbytes = RING_BLOCKS * (2 * q.numel() * 4 + hq * 4) + 2 * hkv * w * d * 4  # each call's q, o and lse; the ring
+    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, nbytes / bw * 1e3
+    rec = dict(route="decode", shape=label, ms=cold_ms(torch, merged, flush),
+               whole_ring_ms=cold_ms(torch, lambda: fa.launch_route("decode", q, k, v, with_lse=True, **kw), flush),
+               plain_ms=cold_ms(torch, lambda: fa.attention_plain(q, k, v, **kw), flush, reps=5),
+               library_ms=library_ms, library=f"scaled_dot_product_attention over the whole ring, f32 ({backend})",
+               bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes", flops=flops,
+               bytes=nbytes, err_over_tol=max(errs.values()), max_abs_err=float((out - plain).abs().max()))
+    emit("ring_merge_times", card_rate=bw, **rec)
+    del q, k, v, flush
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_recurrent_families(torch, dev, counters, smi: str, bw: float) -> dict:
+    """Phase 22: the hybrid's and the xLSTM's sharded serving and train
+    steps on the 1x1 NCCL smoke mesh at their published widths, each
+    against its plain run, bit for bit (at world 1 the same kernels and
+    ops run on the whole tensors; the recurrences on the ranks' local
+    blocks, here the whole). (a) zamba2-2.7b at ``MESH_HYBRID_LAYERS``,
+    bf16: ``MESH_B`` x ``MESH_PROMPT`` served for ``FAMILY_GEN`` decode
+    steps on DTensors placed by ``SERVE_RULES`` (the shared block's prefill
+    on the ``tensor_core`` forward, its decode steps on ``decode``), and its
+    train step at ``MESH_HYBRID_TRAIN`` by ``TRAIN_RULES``. (b) Its ring
+    decode at batch 1 by ``LONG_SERVE_RULES`` (:func:`family_ring`). (c)
+    xlstm-350m at ``MESH_XLSTM_LAYERS``: the same serving batch and its
+    step at ``MESH_XLSTM_TRAIN`` (no attention, no kernel of its own). Then,
+    after the launches are read, the ring's merge over 16 blocks on the
+    card (:func:`ring_merge_times`). Returns the launches and that record."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_smoke_mesh
+    from repro_torch.models.params import init_params
+
+    t_phase = time.perf_counter()
+    every = {**counters, **{f"flash_route_{r}": c for r, c in fa.ROUTE_LAUNCHES.items()},
+             **{f"flash_attention_bwd_{n}": c for n, c in fa.BWD_LAUNCHES.items()}}
+    for c in every.values():
+        c.reset()
+    mesh = make_smoke_mesh(dev)
+    check(dist.get_backend() == "nccl", f"smoke mesh backend {dist.get_backend()}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 220)
+    bf16 = torch.bfloat16
+
+    def tokens(cfg, *shape):
+        return torch.randint(0, cfg.vocab, shape, generator=g, device=dev)
+
+    def none(**kw):
+        want = {"flash_route_tensor_core": 0, "flash_route_decode": 0, "flash_route_f32": 0, "mla_decode": 0}
+        want.update({f"flash_attention_bwd_{n}": 0 for n in fa.BWD_LAUNCHES})
+        want.update(kw)
+        return want
+
+    serve, train, part_s = {}, {}, {}
+    t0 = time.perf_counter()
+    # (a) zamba2 served, then its train step
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=MESH_HYBRID_LAYERS)
+    groups, d = cfg.num_layers // cfg.ssm.shared_block_every, cfg.resolved_head_dim
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 224), bf16, dev)
+    want = none(flash_route_tensor_core=groups, flash_route_decode=groups * FAMILY_GEN)
+    serve[cfg.name] = family_serve(torch, dev, every, mesh, cfg, params, {"tokens": tokens(cfg, MESH_B, MESH_PROMPT)},
+                                   [tokens(cfg, MESH_B, 1) for _ in range(FAMILY_GEN)], want=want,
+                                   settings={"h3_off": {}}, smi=smi, phase=22)
+    part_s["zamba2 serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # (b) its ring decode at batch 1
+    ring = family_ring(torch, dev, every, mesh, cfg, params, [tokens(cfg, 1, 1) for _ in range(FAMILY_GEN)],
+                       want=none(flash_route_decode=groups * FAMILY_GEN), smi=smi)
+    part_s["zamba2 ring"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del params
+    seed = SEED + 225
+    want = none(flash_route_tensor_core=groups, **{f"flash_attention_bwd_tensor_core/{n}": groups
+                                                   for n in fa.bwd_kernels(d)})
+    train[cfg.name] = family_train(
+        torch, dev, every, mesh, cfg, lambda: init_params(cfg, torch.Generator(device=dev).manual_seed(seed), bf16, dev),
+        {"tokens": tokens(cfg, *MESH_HYBRID_TRAIN)}, want=want, smi=smi, phase=22)
+    part_s["zamba2 step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # (c) xlstm-350m: its profiles record the device alone (~40k kernels a call, the sLSTM's loop)
+    cfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=MESH_XLSTM_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 226), bf16, dev)
+    serve[cfg.name] = family_serve(torch, dev, every, mesh, cfg, params, {"tokens": tokens(cfg, MESH_B, MESH_PROMPT)},
+                                   [tokens(cfg, MESH_B, 1) for _ in range(FAMILY_GEN)], want=none(),
+                                   settings={"h3_off": {}}, smi=smi, phase=22, profile_cpu=False)
+    part_s["xlstm serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del params
+    seed = SEED + 227
+    train[cfg.name] = family_train(
+        torch, dev, every, mesh, cfg, lambda: init_params(cfg, torch.Generator(device=dev).manual_seed(seed), bf16, dev),
+        {"tokens": tokens(cfg, *MESH_XLSTM_TRAIN)}, want=none(), smi=smi, phase=22, profile_cpu=False)
+    part_s["xlstm step"] = time.perf_counter() - t0
+    launches = {k: c.value for k, c in every.items()}  # the main path's, read now
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    merge = ring_merge_times(torch, dev, bw)
+    part_s["ring merge"] = time.perf_counter() - t0
+    emit("sharded_recurrent_result", card=smi, seconds=time.perf_counter() - t_phase, seconds_by_part=part_s,
+         serve={m: {k: dict(prefill_seconds=r["prefill_seconds"], decode_step_seconds=r["decode_step_seconds"],
+                            prefill_idle_share=r["prefill_idle_share"], decode_idle_share=r["decode_idle_share"],
+                            max_memory_allocated=r["max_memory_allocated"]) for k, r in runs.items()}
+                for m, runs in serve.items()},
+         ring={k: dict(decode_step_seconds=r["decode_step_seconds"], idle_share=r["decode_idle_share"],
+                       max_memory_allocated=r["max_memory_allocated"]) for k, r in ring.items()},
+         train={m: {k: dict(step_seconds=r["step_seconds"], idle_share=r["idle_share"],
+                            max_memory_allocated=r["max_memory_allocated"]) for k, r in runs.items()}
+                for m, runs in train.items()},
+         ring_merge=dict(ms=merge["ms"], whole_ring_ms=merge["whole_ring_ms"], plain_ms=merge["plain_ms"],
+                         library_ms=merge["library_ms"], bound_ms=merge["bound_ms"]))
+    out = {k: launches[k] for k in counters if k != "checksum"}  # the digests check the steps: not the path
+    out["flash_attention_routes"] = {r: launches[f"flash_route_{r}"] for r in fa.ROUTE_LAUNCHES}
+    out["flash_attention_bwd_by_kernel"] = {n: launches[f"flash_attention_bwd_{n}"] for n in fa.BWD_LAUNCHES}
+    out["ring_merge"] = merge
+    return out
+
+
 def host_copy_rates(torch, dev, store, total: int, raw_pull_s: float) -> dict:
     """The three host stages every byte of a socketed raw pull passes, one
     after another (a single-source pull runs one read at a time), each
@@ -7751,6 +8090,7 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
     hyb = hybrid_attention_checks(torch, dev, bw)
     fwd["routes"]["decode"]["zamba2_decode"] = hyb["decode"]
     fwd["routes"]["decode"]["zamba2_ring"] = hyb["ring"]
+    fwd["routes"]["decode"]["zamba2_ring_block_lse"] = hyb["ring_block_lse"]
     fwd["routes"]["tensor_core"]["zamba2_prefill"] = hyb["prefill"]
     fwd["routes"]["tensor_core"]["zamba2_train_forward"] = hyb["train_bf16_forward"]
     fwd["routes"]["f32"]["zamba2_train_forward"] = hyb["train_f32_forward"]
@@ -7758,7 +8098,8 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
     bwd_cc["zamba2_backward"] = hyb["train_f32_backward"]
     for entry, cases in ((fwd, (dbrx["prefill"], dbrx["decode"], mla["mla_prefill"], trained["narrow_forward"],
                                 vlm["prefill"], vlm["decode"], vlm["train_forward"], hubert["encode"],
-                                hubert["train_f32_forward"], hyb["decode"], hyb["ring"], hyb["prefill"],
+                                hubert["train_f32_forward"], hyb["decode"], hyb["ring"], hyb["ring_block_lse"],
+                                hyb["prefill"],
                                 hyb["train_bf16_forward"], hyb["train_f32_forward"])),
                          (bwd_tc, (dbrx["backward"], hubert["train_bf16_backward"], hyb["train_bf16_backward"])),
                          (bwd_tc256, (trained["mla_backward"],)),
@@ -7895,17 +8236,26 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
         entry["err_over_tol"] = max(entry["err_over_tol"], case["err_over_tol"])
     phase_s["21 sharded families"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase22 = sharded_recurrent_families(torch, dev, counters, smi, bw)
+    merge = phase22.pop("ring_merge")
+    fwd["routes"]["decode"]["zamba2_ring_16_blocks_merged"] = merge
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], merge["max_abs_err"])
+    fwd["err_over_tol"] = max(fwd["err_over_tol"], merge["err_over_tol"])
+    phase_s["22 sharded hybrid and xlstm"] = time.perf_counter() - t0
     phases = (phase3, phase4, phase5, phase6, phase7, phase8, phase9, phase10, phase11, phase12, phase14, phase15,
-              phase16, phase17, phase18, phase19, phase20, phase21)
+              phase16, phase17, phase18, phase19, phase20, phase21, phase22)
     launches = {k: sum(ph.get(k, 0) for ph in phases) for k in counters}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was launched on no main path")
     attention_phases = (phase5, phase6, phase7, phase9, phase10, phase11, phase12, phase14, phase15,
-                        phase16, phase18, phase19, phase20, phase21)  # with attention
+                        phase16, phase18, phase19, phase20, phase21, phase22)  # with attention
     for r in phase5["flash_attention_routes"]:
         kernels["flash_attention"]["routes"][r]["launches"] = sum(ph["flash_attention_routes"][r] for ph in attention_phases)
     training_phases = (phase6, phase7, phase10, phase11, phase12, phase14, phase15,
-                       phase16, phase19, phase20, phase21)  # the paths with the backward
+                       phase16, phase19, phase20, phase21, phase22)  # the paths with the backward
     by_kernel = {n: sum(ph["flash_attention_bwd_by_kernel"][n] for ph in training_phases)
                  for n in phase6["flash_attention_bwd_by_kernel"]}
     for k, entry in kernels.items():
@@ -7917,7 +8267,7 @@ def run_phases(torch, dev, name: str, smi: str, bw: float, child) -> int:
     emit("launches", phase3=phase3, phase4=phase4, phase5=phase5, phase6=phase6, phase7=phase7,
          phase8=phase8, phase9=phase9, phase10=phase10, phase11=phase11, phase12=phase12, phase14=phase14,
          phase15=phase15, phase16=phase16, phase17=phase17, phase18=phase18, phase19=phase19, phase20=phase20,
-         phase21=phase21, phase_seconds=phase_s)
+         phase21=phase21, phase22=phase22, phase_seconds=phase_s)
     print(json.dumps({"kernels": [dict(v, launches=launches[k]) for k, v in kernels.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

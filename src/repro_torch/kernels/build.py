@@ -66,9 +66,9 @@ SIGNATURES = {
     "th_mla_decode": (_P, _P, _P, _P, _P, _INT, _INT, _I64, _I64, _I64, _I64, _INT, _INT, _INT, _F32, _P, _P),
     # (q, k, v, o, strides int64[12] on the host, dtype code, B, Hq, Hkv, Sq,
     #  D, causal, softcap, q_offset, kv_len, window, keys_per_split, nsplit,
-    #  f32 scratch, int32 split counters, stream)
+    #  f32 scratch, int32 split counters, lse f32[B,Hq,Sq] or null, stream)
     "th_flash_decode": (_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
-                        _INT, _INT, _INT, _P, _P, _P),
+                        _INT, _INT, _INT, _P, _P, _P, _P),
     # (q, k, v, o, do, dq, dk, dv, lse f32[B,Hq,Sq], stats f32 scratch of
     #  B*Hkv*nsub2*128, strides int64[24] on the host, dtype code, B, Hq, Hkv,
     #  Sq, Sk, D, Dv, causal, softcap, q_offset, kv_len, window, stream); the

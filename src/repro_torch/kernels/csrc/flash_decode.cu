@@ -45,7 +45,11 @@
 // a row saw only masked keys has m_i = -1e30 and drops out exactly
 // (exp(-1e30 - M) = 0), as the TPU kernel's alpha wipes such a tile; every
 // row sees a key of some split (the wrapper refuses a window that leaves a
-// row none).
+// row none). Where the caller asks for it, the merging block also writes
+// each row's log-sum-exp, M + log(max(sum exp(m_i - M) l_i, 1e-30)), in the
+// units of the scores after the scale and the softcap: what a caller needs
+// to merge this call's output with another call's over other keys (the
+// hybrid's ring cache sharded along its slots, one call a rank).
 //
 // Head_dim 80 (zamba2's shared attention block) has instances of its own,
 // not the 128 tile zero-filled past column 80: decode is bound by the K/V
@@ -85,9 +89,10 @@ struct DecodeParams {
   const void* v;
   void* o;
   float* part;    // acc [BHkv][nsplit][rows][D], then (m, l) [BHkv][nsplit][rows][2]
+  float* lse;     // [B][Hq][Sq] f32 (element strides Hq * Sq, Sq, 1), or null: no log-sum-exp written
   int* counters;  // [BHkv] splits done, 0 between calls (the merging block resets its own)
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, sequence
-  int hkv, group, rows, causal, q_offset, kv_start, kv_end, window, keys_per_split, nsplit;  // window: 2^30 for none
+  int hkv, group, rows, sq, causal, q_offset, kv_start, kv_end, window, keys_per_split, nsplit;  // window: 2^30 for none
   float scale, softcap;
 };
 
@@ -385,6 +390,10 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
       l = fmaf(wi, lv[i * rows + r], l);
     }
     al[r] = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr) {  // the row's log-sum-exp of its scaled scores, in the units of the other routes'
+      const int h = hk * p.group + r % p.group, i = r / p.group;
+      p.lse[(size_t(b) * p.hkv * p.group + h) * p.sq + i] = m + logf(al[r]);
+    }
   }
   __syncthreads();
   const float* accs = p.part + size_t(bkv) * ns * rows * D;
@@ -446,17 +455,23 @@ int dispatch(const DecodeParams& p, int d, int bkv, cudaStream_t stream) {
 // is f32 scratch of B * Hkv * nsplit *
 // Sq * G * (D + 2) floats, `counters` B * Hkv int32 zeros, left zero (the
 // merging blocks reset them; calls that share them must not overlap).
+// `lse`, unless null, is a contiguous f32 [B, Hq, Sq] that takes each row's
+// log-sum-exp, M + log(max(sum_i exp(m_i - M) l_i, 1e-30)), of its scores
+// after the scale and the softcap (the tensor_core and f32 routes' lse);
+// the output is the same with it or without it.
 // One launch; returns cudaGetLastError() after it.
 extern "C" int th_flash_decode(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                int dtype, int batch, int hq, int hkv, int sq, int d, int causal, float softcap,
                                int q_offset, int kv_len, int window, int keys_per_split, int nsplit, void* part,
-                               void* counters, void* stream) {
+                               void* counters, void* lse, void* stream) {
   DecodeParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
   p.part = static_cast<float*>(part);
+  p.lse = static_cast<float*>(lse);
+  p.sq = sq;
   p.counters = static_cast<int*>(counters);
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];

@@ -225,16 +225,19 @@ def attention_plain(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
     window: int = 0,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Plain PyTorch version on any device: the whole score matrix in f32,
     masked with -1e30, a softmax, and the product with v (GQA by grouping
-    the query heads, without repeating K/V)."""
+    the query heads, without repeating K/V). With ``with_lse`` it returns
+    ``(out, lse)``, the lse :func:`attention_lse_plain`'s."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, _ = q.shape
     s, _, _ = _scores_plain(q, k, causal, softcap, q_offset, kv_len, window)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, v.shape[3]).to(q.dtype)
+    out = out.reshape(b, hq, sq, v.shape[3]).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1).reshape(b, hq, sq)) if with_lse else out
 
 
 def _mask(sq: int, kpos: torch.Tensor, causal: bool, q_offset: int, kv_len: int, window: int) -> torch.Tensor:
@@ -646,17 +649,22 @@ def flash_attention(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
     window: int = 0,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Attention of q ``[B, Hq, Sq, D]`` over k ``[B, Hkv, Sk, D]`` and v
     ``[B, Hkv, Sk, Dv]`` (see the module docstring); asynchronous on CUDA.
     Differentiable: when autograd wants a gradient the call goes through
-    :class:`FlashAttention`. A DTensor is refused: on a mesh the attention
-    runs on each rank's local block (``repro_torch.models.blocks._attend``)."""
+    :class:`FlashAttention`. With ``with_lse`` it returns
+    :func:`flash_attention_lse`'s ``(out, lse)`` (no gradient). A DTensor
+    is refused: on a mesh the attention runs on each rank's local block
+    (``repro_torch.models.blocks._attend``)."""
     dtensor = sys.modules.get("torch.distributed.tensor")
     if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes plain tensors, got a DTensor: on a DeviceMesh hand it each "
                             "rank's local block (models.blocks attends through _attend)")
     kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
+    if with_lse:
+        return flash_attention_lse(q, k, v, **kw)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
         _check_backward(q, v)
@@ -664,6 +672,56 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **kw)
     return launch_route(_route(q, k, v=v), q, k, v, **kw)
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: :func:`flash_attention`'s output and each query
+    row's log-sum-exp of its masked scores, f32 ``[B, Hq, Sq]`` (what
+    :func:`attention_lse_plain` computes), for a caller that merges the
+    outputs of calls over disjoint key blocks (:func:`merge_attention`;
+    the hybrid's ring cache sharded along its slots). On the card the
+    route :func:`flash_attention` takes (a decode step's is ``decode``,
+    whose output is the same with the lse as without it); on the CPU the
+    plain versions. No gradient: a serving step's call. A DTensor is
+    refused, as by :func:`flash_attention`."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention_lse takes plain tensors, got a DTensor: hand it each rank's local block")
+    kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len, window=window)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, **kw), attention_lse_plain(q, k, **kw)
+    return launch_route(_route(q, k, v=v), q, k, v, with_lse=True, **kw)
+
+
+def merge_attention(outs: torch.Tensor, lses: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention over the union of ``n`` disjoint key blocks from each
+    block's ``(out, lse)``, stacked: ``outs [n, B, Hq, Sq, Dv]``, ``lses
+    [n, B, Hq, Sq]`` f32. In f32, ``M = max_i lse_i``, ``w_i = exp(lse_i -
+    M)``, ``out = sum_i w_i out_i / sum_i w_i`` in ``outs``' dtype and
+    ``lse = M + log(sum_i w_i)``, summed in block order. A block with no
+    key of a row gives ``lse = -inf`` and ``out = 0`` there, and drops out
+    exactly; a row no block has a key of is empty in the result too (``out
+    = 0``, ``lse = -inf``), so that merges over parts of the blocks (one
+    mesh dimension at a time) compose. One block is returned as it is, bit
+    for bit. Plain PyTorch, the same on the CPU and the card."""
+    if outs.shape[0] == 1:
+        return outs[0], lses[0]
+    m = lses.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # an empty row: every w_i 0, not NaN
+    w = torch.exp(lses - m)
+    den = w.sum(dim=0)
+    out = (w[..., None] * outs.float()).sum(dim=0) / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    return out.to(outs.dtype), m + torch.log(den)
 
 
 def launch_route(
@@ -682,9 +740,9 @@ def launch_route(
     """Launch ``route``'s kernel on CUDA tensors, or raise where it does
     not take the call. :func:`flash_attention` picks the route; naming one
     here is for measurements that hold two routes side by side. With
-    ``with_lse`` (the ``tensor_core`` and ``f32`` routes) it returns
-    ``(out, lse)``, the rows' log-sum-exp f32 ``[B, Hq, Sq]`` beside the
-    output."""
+    ``with_lse`` (every route) it returns ``(out, lse)``, the rows'
+    log-sum-exp f32 ``[B, Hq, Sq]`` beside the output, which is the same
+    output as without it."""
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     b, hq, sq, d = q.shape
     hkv, vd = k.shape[1], v.shape[3]
@@ -710,8 +768,6 @@ def launch_route(
         raise ValueError(f"flash_attention: the decode route takes Sq * Hq/Hkv <= {DECODE_ROWS}, got {sq * g}")
     if route == "f32" and g > MAX_GROUP:
         raise ValueError(f"flash_attention: the f32 route takes Hq/Hkv <= {MAX_GROUP}, got {g}")
-    if with_lse and route == "decode":
-        raise ValueError("flash_attention: the decode route writes no log-sum-exp")
     if q.device.type != "cuda":
         raise TypeError(f"flash_attention: unsupported device {q.device}")
     out = torch.empty((b, sq, hq, vd), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -734,7 +790,7 @@ def launch_route(
     if route == "decode":
         name = "th_flash_decode"
         err = lib.th_flash_decode(*args, _CODES[q.dtype], b, hq, hkv, sq, d, *flags, keys, nsplit,
-                                  part.data_ptr(), counters.data_ptr(), stream)
+                                  part.data_ptr(), counters.data_ptr(), lse_ptr, stream)
     elif route == "tensor_core":
         name = "th_flash_attention_tc"
         err = lib.th_flash_attention_tc(*args, b, hq, hkv, sq, d, vd, *flags, lse_ptr, stream)
@@ -1050,11 +1106,29 @@ def _op_backward(ctx, dout, _dlse):
 _flash_attention_op.register_autograd(_op_backward, setup_context=_op_setup)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, softcap: float,
+                            q_offset: int, kv_len: int, window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_lse(q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                               window=window)
+
+
+@_flash_attention_lse_op.register_fake
+def _(q, k, v, causal, softcap, q_offset, kv_len, window):
+    b, hq, sq, _ = q.shape
+    return _empty_like_out(q, b, sq, hq, v.shape[3]), q.new_empty((b, hq, sq), dtype=torch.float32)
+
+
 def _register_flop_formulas() -> None:
     from torch.utils.flop_counter import register_flop_formula
 
     @register_flop_formula(torch.ops.repro_torch.flash_attention)
     def _(q, k, v, causal, softcap, q_offset, kv_len, window, with_lse, *args, out_shape=None, **kw) -> int:
+        b, hq, sq, d = q
+        return forward_flops(b, hq, sq, d, v[3], kv_len=kv_len, causal=causal, q_offset=q_offset, window=window)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_lse)
+    def _(q, k, v, causal, softcap, q_offset, kv_len, window, *args, out_shape=None, **kw) -> int:
         b, hq, sq, d = q
         return forward_flops(b, hq, sq, d, v[3], kv_len=kv_len, causal=causal, q_offset=q_offset, window=window)
 
@@ -1067,6 +1141,26 @@ def _register_flop_formulas() -> None:
 _register_flop_formulas()
 
 
+def flash_attention_lse_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_lse` through the operator
+    ``torch.ops.repro_torch.flash_attention_lse``: the same bits, with a
+    fake and the forward's FLOP formula for a trace (as
+    :func:`flash_attention_op`)."""
+    kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
+    return torch.ops.repro_torch.flash_attention_lse(q, k, v, bool(causal), float(softcap), int(q_offset), kv_len,
+                                                     int(window))
+
+
 def flash_attention_op(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -1077,18 +1171,23 @@ def flash_attention_op(
     q_offset: int = 0,
     kv_len: Optional[int] = None,
     window: int = 0,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """:func:`flash_attention` through the operator
     ``torch.ops.repro_torch.flash_attention``: the same route and kernels
     (the plain versions on the CPU), the same bits, and, where autograd
     wants a gradient, the same forward with the lse and the backward
-    ``torch.ops.repro_torch.flash_attention_backward``. What the op adds is
+    ``torch.ops.repro_torch.flash_attention_backward``; with ``with_lse``
+    :func:`flash_attention_lse_op`'s ``(out, lse)``. What the op adds is
     for tracing: a fake (shapes, dtypes and the layout of the device's
     outputs, no data), so a trace of fake tensors runs no attention, and a
     FLOP formula
     (``torch.utils.flop_counter``: :func:`forward_flops`,
     :func:`backward_flops`) that counts the live pairs the kernels compute,
     where a trace would otherwise see whatever the call decomposes into."""
+    if with_lse:
+        return flash_attention_lse_op(q, k, v, causal=causal, softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                                      window=window)
     kv_len = _check(q, k, v, softcap, q_offset, kv_len, window)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     if grad:

@@ -172,6 +172,15 @@ def _model(cfg: ModelConfig):
     return build_model(cfg, attention=flash_attention_op, latent_attention=mla_decode_op)
 
 
+def seq_period(cfg: ModelConfig, case: ShapeCase) -> Optional[int]:
+    """The tokens of one repeat of the cell's work along its sequence,
+    where its counts grow exactly linearly with the length (the model's
+    ``seq_period``: an xLSTM's train and prefill steps, one mLSTM chunk),
+    else None."""
+    period = getattr(_model(cfg), "seq_period", None)
+    return None if period is None else period(case.kind)
+
+
 def build_cell(
     arch: str,
     shape: str,

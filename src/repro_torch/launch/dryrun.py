@@ -10,22 +10,23 @@ one starts a ``torch.distributed`` process group of the ``"fake"`` backend
 :func:`main` only, never on import: a test or a benchmark keeps the
 process group it has (the smoke mesh's at world 1). Each cell's counts
 come from :func:`repro_torch.launch.op_costs.analyze_cell` (cut depths,
-extended to the config's), its three terms from
-:mod:`repro_torch.launch.roofline`. A cell the port refuses (the
-hybrid's and the xLSTM's, whose sharded steps are not ported:
-``NotImplementedError``) is written with ``"ok": false`` and the
-refusal's text, and ``--all`` exits 1 while any is refused, as the JAX
-one exits 1 on any failure.
+extended to the config's; the xLSTM's train and prefill also cut
+lengths, extended to the shape's), its three terms from
+:mod:`repro_torch.launch.roofline`. Every live cell traces, the hybrid's
+and the xLSTM's too; a cell that fails is written with ``"ok": false``
+and the error's text, and ``--all`` exits 1 on any failure, as the JAX
+one does.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch --jobs 4
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -80,7 +81,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, verbose: bool = True,
     this rank's argument and output bytes and the peak the step allocates
     beside them (``temp_bytes``, from ``mem_tracker``, extended over depth
     as the counts), on the production mesh's ``DeviceMesh`` over the fake
-    ranks (:func:`start_fake_world` first)."""
+    ranks (:func:`start_fake_world` first); ``seq_lens``, the lengths
+    traced, where the counts were extended over the sequence."""
     from repro_torch.launch.op_costs import analyze_cell
 
     mesh = device_mesh(make_production_mesh(multi_pod=multi_pod))
@@ -103,6 +105,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, verbose: bool = True,
         "ok": True,
         "trace_s": round(t_trace, 1),
         "depths": rec["depths"],
+        **({"seq_lens": rec["seq_lens"]} if "seq_lens" in rec else {}),
         "flops_per_device": roof.flops_per_device,
         "hbm_bytes_per_device": roof.hbm_bytes_per_device,
         "collective_bytes_per_device": roof.collective_bytes_per_device,
@@ -136,6 +139,22 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, verbose: bool = True,
     return result
 
 
+def _traced(arch: str, shape: str, multi: bool, opt: dict) -> Dict[str, Any]:
+    """One cell's record, or a failed cell's (``"ok": false`` and the
+    error's text)."""
+    try:
+        return run_cell(arch, shape, multi_pod=multi, opt=opt)
+    except Exception as e:  # noqa: BLE001 - report and continue
+        traceback.print_exc()
+        print(f"[{'2x16x16' if multi else '16x16'}] {arch} x {shape}: {type(e).__name__}: {e}", flush=True)
+        return {"arch": arch, "shape": shape, "mesh": "2x16x16" if multi else "16x16", "torch": torch.__version__,
+                "ok": False, "error": f"{type(e).__name__}: {e}"}
+
+
+#: the order the cells are handed out in: the longest traces first
+_KIND_ORDER = ("train", "prefill", "decode")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -146,6 +165,9 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--opt", action="append", default=[],
                     help="optimization flags, e.g. --opt shardmap_moe")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once (each cell is traced in a process forked from this one, "
+                         "train cells first)")
     args = ap.parse_args(argv)
     opt = {name: True for name in args.opt}
 
@@ -157,12 +179,10 @@ def main(argv=None) -> int:
         shapes = [args.shape] if args.shape else live_shapes(get_config(args.arch))
         cells = tuple((args.arch, s) for s in shapes)
 
-    import torch
-
     torch.set_num_threads(min(4, os.cpu_count() or 1))
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     start_fake_world(256 if args.mesh == "single" else 512)
-    failures = []
+    tasks = []
     for arch, shape in cells:
         for multi in meshes:
             tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
@@ -172,22 +192,18 @@ def main(argv=None) -> int:
             if out_path and args.skip_existing and os.path.exists(out_path):
                 print(f"skip {tag} (exists)")
                 continue
-            try:
-                result = run_cell(arch, shape, multi_pod=multi, opt=opt)
-            except Exception as e:  # noqa: BLE001 - report and continue
-                if not isinstance(e, NotImplementedError):
-                    traceback.print_exc()
-                print(f"[{'2x16x16' if multi else '16x16'}] {arch} x {shape}: {type(e).__name__}: {e}", flush=True)
-                result = {
-                    "arch": arch, "shape": shape,
-                    "mesh": "2x16x16" if multi else "16x16",
-                    "torch": torch.__version__, "ok": False, "error": f"{type(e).__name__}: {e}",
-                }
-                failures.append(tag)
-            if out_path:
-                os.makedirs(args.out, exist_ok=True)
-                with open(out_path, "w") as f:
-                    json.dump(result, f, indent=1)
+            tasks.append((tag, out_path, (arch, shape, multi, opt)))
+    tasks.sort(key=lambda t: _KIND_ORDER.index(SHAPES[t[2][1]].kind))
+    with multiprocessing.get_context("fork").Pool(args.jobs) as pool:
+        results = pool.starmap(_traced, [t[2] for t in tasks], chunksize=1)
+    failures = []
+    for (tag, out_path, _), result in zip(tasks, results):
+        if not result["ok"]:
+            failures.append(tag)
+        if out_path:
+            os.makedirs(args.out, exist_ok=True)
+            with open(out_path, "w") as f:
+                json.dump(result, f, indent=1)
     if failures:
         print(f"\nFAILED cells: {failures}")
         return 1

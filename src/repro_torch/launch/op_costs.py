@@ -180,7 +180,8 @@ class OpCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor desugars it into local ops and collectives, which come back here
         out = func(*args, **kwargs)
-        if not isinstance(func, torch._ops.OpOverload) or (self.fake_mode is not None and FakeTensor not in types):
+        if (not isinstance(func, torch._ops.OpOverload) or func.namespace == "prim"  # a tensor's metadata: free
+                or (self.fake_mode is not None and FakeTensor not in types)):
             return out
         tensors = [t for t in tree_leaves((args, kwargs, out)) if isinstance(t, torch.Tensor)]
         if not tensors or not self._counts(tensors):
@@ -265,36 +266,87 @@ def first_depth(cfg) -> int:
 
 def analyze_cell(arch: str, shape: str, mesh: Any, *, cfg=None, memory: bool = False, **kw) -> Dict[str, Any]:
     """A dry-run cell's per-device counts at its config's full depth, from
-    traces of cut depths (the module docstring).
+    traces of cut depths (the module docstring), and, for a step whose
+    counts grow linearly with the sequence
+    (:func:`repro_torch.launch.cells.seq_period`: the xLSTM's, whose sLSTM
+    loop would otherwise be traced step by step over 32768 positions), at
+    its full length from traces of cut lengths.
 
-    The placements DTensor gives the residual stream may change over the
-    first layers (each layer's ops take the placements the last one left:
-    nothing pins them, where XLA's scan runs every layer as one body), and
-    with them the collectives a layer issues. So the cell is traced at
-    :func:`first_depth` and then one layer pattern deeper at a time until
-    two successive patterns add the same counts, every field exactly; the
-    last of those increments is then extended to the config's depth
-    (:meth:`OpCosts.extended`). A config no deeper than the traces is
-    traced at its own depth. ``cfg`` overrides the registry's config (a
-    narrowed one, in tests); ``memory`` and ``kw`` go to
+    Depth: the placements DTensor gives the residual stream may change
+    over the first layers (each layer's ops take the placements the last
+    one left: nothing pins them, where XLA's scan runs every layer as one
+    body), and with them the collectives a layer issues. So the cell is
+    traced at :func:`first_depth` and then one layer pattern deeper at a
+    time until two successive patterns add the same counts, every field
+    exactly; the last of those increments is then extended to the
+    config's depth (:meth:`OpCosts.extended`). A config no deeper than the
+    traces is traced at its own depth.
+
+    Length: the depth procedure runs at 1, 2, 3, ... periods until two
+    successive increments are equal, every field exactly (DTensor picks
+    its strategies by the tensors' sizes, so a short sequence may take
+    other collectives than a long one), and the last increment is
+    extended to the case's length, a whole number of periods. A case no
+    longer than 3 periods is traced at its own length. The extension
+    takes DTensor to keep, up to the case's length, the strategies it
+    picked at the last lengths traced: a test holds it to a whole-length
+    trace at a short length; at the registry's lengths it is not traced
+    whole.
+
+    ``cfg`` overrides the registry's config (a narrowed one, in tests) and
+    ``case`` (in ``kw``) the shape's; ``memory`` and ``kw`` go to
     :meth:`repro_torch.launch.cells.Cell.trace` and
     :func:`repro_torch.launch.cells.build_cell`. Returns ``{"costs",
     "depths", "times", "trace_s"}``, the counts, the depths traced, the
     patterns the last two were extended by and the traces' seconds, beside
     the traces' byte records (``argument_bytes``, ``output_bytes``, with
-    ``memory`` ``temp_bytes``) extended the same way."""
-    import time
+    ``memory`` ``temp_bytes``) extended the same way; a length-extended
+    cell also ``"seq_lens"`` (the lengths traced) and ``"seq_times"``."""
+    import dataclasses
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch.cells import build_cell
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.cells import seq_period
 
     cfg = cfg or get_config(arch)
+    case = kw.pop("case", None) or SHAPES[shape]
+    period = seq_period(cfg, case)
+    if period is None or case.seq_len <= 3 * period:
+        return _analyze_depths(arch, shape, mesh, cfg, case, memory, kw)
+    if case.seq_len % period:
+        raise ValueError(f"{arch} x {shape}: {case.seq_len} tokens are not a whole number of {period}")
+    lens, recs = [], []
+    while True:
+        n = (len(lens) + 1) * period
+        if n >= case.seq_len:  # no shorter: the case's own length
+            return _analyze_depths(arch, shape, mesh, cfg, case, memory, kw)
+        if len(lens) > MAX_PATTERNS:
+            raise RuntimeError(f"{arch} x {shape}: no two equal increments in {lens} tokens")
+        recs.append(_analyze_depths(arch, shape, mesh, cfg, dataclasses.replace(case, seq_len=n), memory, kw))
+        lens.append(n)
+        if len(recs) >= 3 and _increment(recs[-3]["costs"], recs[-2]["costs"]) == _increment(recs[-2]["costs"],
+                                                                                          recs[-1]["costs"]):
+            break
+    times = (case.seq_len - lens[-2]) // period
+    lo, hi = recs[-2], recs[-1]
+    out = {k: (lo[k].extended(hi[k], times) if k == "costs" else lo[k] + times * (hi[k] - lo[k]))
+           for k in ("costs", "argument_bytes", "output_bytes", "temp_bytes") if k in lo}
+    return dict(out, depths=hi["depths"], times=hi["times"], trace_s=[t for r in recs for t in r["trace_s"]],
+                seq_lens=lens, seq_times=times)
+
+
+def _analyze_depths(arch: str, shape: str, mesh: Any, cfg, case, memory: bool, kw: Dict[str, Any]) -> Dict[str, Any]:
+    """:func:`analyze_cell`'s depth procedure at the case's own length."""
+    import time
+
+    from repro_torch.launch.cells import build_cell
+
     _, period = layer_pattern(cfg)
     depths, traced, seconds = [], [], []
 
     def trace(depth: int) -> None:
         t0 = time.perf_counter()
-        traced.append(build_cell(arch, shape, mesh, cfg=cfg, layers=depth, **kw).trace(mesh, memory=memory))
+        traced.append(build_cell(arch, shape, mesh, cfg=cfg, case=case, layers=depth, **kw).trace(mesh,
+                                                                                                   memory=memory))
         seconds.append(time.perf_counter() - t0)
         depths.append(depth)
 
@@ -309,6 +361,8 @@ def analyze_cell(arch: str, shape: str, mesh: Any, *, cfg=None, memory: bool = F
     depth = first_depth(cfg)
     if (cfg.num_layers - depth) % period:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not {depth} + a whole number of {period}")
+    if depth + period >= cfg.num_layers:  # the second trace would be the whole depth: no use in a first
+        depth = cfg.num_layers
     while True:
         if depth >= cfg.num_layers or len(depths) > MAX_PATTERNS:
             if depth < cfg.num_layers:

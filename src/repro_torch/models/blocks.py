@@ -32,7 +32,9 @@ The attention then runs on each rank's local block (:func:`_attend`; MLA's
 on its block of the batch and the query heads, :class:`_HeadBlocks`), so
 the attention function is handed plain tensors, a decode step's cache
 included (written in place on the local blocks, :func:`write_at`), and H3
-on each rank's local tokens and experts.
+on each rank's local tokens and experts. The recurrences of the hybrid and
+the xLSTM run on each rank's block of the batch and the heads likewise
+(:class:`LocalHeads`).
 """
 
 from __future__ import annotations
@@ -193,6 +195,90 @@ def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Te
     return DTensor.from_local(attention(q, k, v, **kw), mesh, placements, run_check=False)
 
 
+class LocalHeads:
+    """A recurrence on each rank's block where its tensors are DTensors
+    (the SSD scan, the mLSTM and the sLSTM): the batch over the flags'
+    batch axes where it divides them, the heads over the model axis where
+    they divide it (:func:`optim.attn_spec`, as the attention's blocks),
+    every other dimension whole. The recurrence runs on those blocks as
+    plain tensors, never op by op through DTensor's dispatch, and its
+    results are placed back as DTensors. On plain tensors every method is
+    the identity and :attr:`heads` the whole range."""
+
+    def __init__(self, like: torch.Tensor, batch: int, heads: int):
+        self.mesh = like.device_mesh if optim.is_dtensor(like) else None
+        #: this rank's heads, ``[first, end)``
+        self.heads = (0, heads)
+        if self.mesh is None:
+            return
+        self._batch, self._head = optim.attn_spec((batch, heads), self.mesh)
+        if self._head is not None:
+            n, r = self.mesh.size(self._dim(self._head)), self.mesh.get_local_rank(self._head)
+            self.heads = (r * heads // n, (r + 1) * heads // n)
+
+    def _dim(self, name: str) -> int:
+        return tuple(self.mesh.mesh_dim_names).index(name)
+
+    def _placements(self, ndim: int, batch_dim: Optional[int], head_dim: Optional[int]) -> tuple:
+        from repro_torch.sharding.rules import placements_for
+
+        spec: list = [None] * ndim
+        if batch_dim is not None:
+            spec[batch_dim] = self._batch
+        if head_dim is not None:
+            spec[head_dim] = self._head
+        return placements_for(tuple(spec), self.mesh)
+
+    def local(self, t: torch.Tensor, *, batch_dim: Optional[int] = 0, head_dim: Optional[int] = None,
+              shared: bool = False) -> torch.Tensor:
+        """``t``'s block of this rank's batch (along ``batch_dim``) and heads
+        (along ``head_dim``) as a plain tensor (a plain ``t`` taken as
+        replicated). ``shared``: a tensor that every head reads (the SSD's
+        B and C, its packed projection, its conv weights) and each rank
+        reads for its own heads only: its block's gradient is this rank's
+        part, summed over the model axis where the heads are split. A
+        tensor without a batch dimension (``batch_dim=None``: a parameter)
+        is read by each rank for its own batch block: its gradient is
+        summed over the batch axes where the batch is split."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        if not optim.is_dtensor(t):
+            t = DTensor.from_local(t, self.mesh, [Replicate()] * self.mesh.ndim, run_check=False)
+        placements = self._placements(t.ndim, batch_dim, head_dim)
+        summed = set()
+        if shared and self._head is not None:
+            summed.add(self._dim(self._head))
+        if batch_dim is None and self._batch is not None:
+            summed.update(self._dim(a) for a in ((self._batch,) if isinstance(self._batch, str) else self._batch))
+        grad = tuple(Partial() if i in summed else p for i, p in enumerate(placements)) if summed else None
+        return t.redistribute(self.mesh, placements).to_local(grad_placements=grad)
+
+    def placed(self, t: torch.Tensor, *, batch_dim: Optional[int] = 0, head_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's block ``t`` as a DTensor placed as :meth:`local`
+        takes it."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.mesh, self._placements(t.ndim, batch_dim, head_dim), run_check=False)
+
+
+def store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst`` set to ``src`` in place (a cache entry to a block's new
+    state); a DTensor ``dst`` on each rank's block, ``src`` redistributed to
+    its placements first (a plain ``src`` taken as replicated)."""
+    if optim.is_dtensor(dst):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = dst.device_mesh
+        if not optim.is_dtensor(src):
+            src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        src, dst = src.redistribute(mesh, dst.placements).to_local(), dst.to_local()
+    dst.copy_(src)
+
+
 def batch_placed(x: torch.Tensor) -> torch.Tensor:
     """A DTensor activation ``[B, ...]`` with its batch over the flags'
     batch axes where it divides them and every other dimension whole on
@@ -211,20 +297,27 @@ def write_at(dst: torch.Tensor, src: torch.Tensor, axis: int, start: int) -> Non
     ``src`` (``n`` its length there), in place: a cache's slots. A DTensor
     ``dst`` (a cache placed on a mesh) is written on each rank's local
     block, ``src`` redistributed to ``dst``'s placements first (a plain
-    ``src`` taken as replicated). A cache whose ``axis`` is sharded (the
-    sequence-parallel cache of ``LONG_SERVE_RULES``) is refused: a rank's
-    block would not hold the positions its block of ``src`` holds."""
+    ``src`` taken as replicated), but whole along ``axis``. A cache sharded
+    along ``axis`` (the sequence-parallel cache of ``LONG_SERVE_RULES``, a
+    block of slots a rank) is written by each rank where its block meets
+    ``[start, start + n)``, and by no rank elsewhere: a prefill's first
+    slots, a ring's one slot."""
     if optim.is_dtensor(dst):
         from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
         mesh = dst.device_mesh
-        if any(p.is_shard(axis) for p in dst.placements):
-            raise NotImplementedError(f"a cache sharded along its sequence axis ({dst.placements}, LONG_SERVE_RULES) "
-                                      f"is not written by the sharded serving step")
         if not optim.is_dtensor(src):
             src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        src = src.redistribute(mesh, dst.placements).to_local()
+        whole = [Replicate() if p.is_shard(axis) else p for p in dst.placements]
+        src = src.redistribute(mesh, whole).to_local()
+        local, offset = compute_local_shape_and_global_offset(dst.shape, mesh, dst.placements)
         dst = dst.to_local()
+        lo, hi = max(start, offset[axis]), min(start + src.shape[axis], offset[axis] + local[axis])
+        if lo >= hi:  # this rank's block of slots misses the range
+            return
+        src = src.narrow(axis, lo - start, hi - lo)
+        start = lo - offset[axis]
     dst.narrow(axis, start, src.shape[axis]).copy_(src)
 
 

@@ -127,14 +127,6 @@ def mesh_scope(params: Params):
         _MESH_SCOPES -= 1
 
 
-def refuse_mesh(cfg: ModelConfig, params: Params, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ``cfg``'s family where DTensor
-    parameters reach a model whose sharded path is not ported (``what``)."""
-    if on_mesh(params):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family} family, {what}): the sharded serving and train steps "
-                                  f"(DTensor parameters on a DeviceMesh) are not ported for it")
-
-
 class _EmbedRows(torch.autograd.Function):
     """``table[tokens]`` of a table placed on a mesh (a DTensor), with the
     gradient a data-parallel step takes: the cotangent placed as the
@@ -167,6 +159,41 @@ class _EmbedRows(torch.autograd.Function):
         partial = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
         whole = DTensor.from_local(rows, mesh, partial, run_check=False)
         return whole.redistribute(mesh, placements), None
+
+
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a table placed on a mesh through :class:`_EmbedRows`."""
+    return _EmbedRows.apply(table, tokens) if optim.is_dtensor(table) else table[tokens]
+
+
+def _new_cache(specs, dtype_of: Callable[[str], torch.dtype], device, mesh=None, like=None, *,
+               batch_size: int = 0) -> Cache:
+    """Zeroed caches of the :class:`ParamSpec` tree ``specs``, entry ``n``
+    in ``dtype_of(n)``. With a ``DeviceMesh`` ``mesh``, DTensors placed by
+    the serve rules (``rules_for("decode", global_batch=batch_size)``:
+    ``LONG_SERVE_RULES`` at batch 1, whose caches lie sharded along their
+    sequence), each rank zeroing its own block
+    (:func:`repro_torch.sharding.place_new`): ``like.new_zeros`` where
+    ``like`` is given (a prefill's local activations: fake in a dry run's
+    trace), else zeros on the mesh's device."""
+    def tree(make):
+        return {group: {n: make(sp, n) for n, sp in entries.items()} for group, entries in specs.items()}
+
+    if mesh is None:
+        return tree(lambda sp, n: torch.zeros(sp.shape, dtype=dtype_of(n), device=device))
+    from repro_torch.sharding import place_new, rules_for
+
+    rules = rules_for("decode", global_batch=batch_size)
+
+    def placed(sp, n):
+        def zeros(shape):
+            if like is not None:
+                return like.new_zeros(shape, dtype=dtype_of(n))
+            return torch.zeros(shape, dtype=dtype_of(n), device=mesh.device_type)
+
+        return place_new(sp, rules, mesh, zeros)
+
+    return tree(placed)
 
 
 def mesh_of(params: Params):
@@ -214,8 +241,7 @@ class DecoderLM:
     # -- embedding / head ------------------------------------------------------
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        table = params["embed"]
-        x = _EmbedRows.apply(table, tokens) if optim.is_dtensor(table) else table[tokens]
+        x = _embed_rows(params["embed"], tokens)
         if self.cfg.tie_embeddings:  # gemma2 normalizes the embedding scale
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=torch.float32).to(x.dtype)
         return x
@@ -470,9 +496,68 @@ def _ring_attention_step(
     ``cache_len - ((cache_len - s) mod W)``, valid when it is >= 0, which
     are exactly the slots ``0 .. min(cache_len, W - 1)``; a softmax does not
     care about the order of its keys, so a call with ``causal=False`` and
-    ``kv_len = min(cache_len + 1, W)`` computes what the JAX einsum does."""
+    ``kv_len = min(cache_len + 1, W)`` computes what the JAX einsum does.
+    The query is cast to the cache's dtype for the call and the output
+    back.
+
+    A cache placed on a mesh (DTensors; ``LONG_SERVE_RULES``' sharded along
+    its slots, a block of slots a rank, the query placed as the cache's
+    batch and heads) is the same computation in blocks: each rank attends
+    over the valid slots of its own block, ``0 .. min(cache_len, W - 1)``
+    clipped to it, through ``attention(..., with_lse=True)`` (the output
+    and the rows' log-sum-exp), and the ranks' partial outputs are merged
+    by their log-sum-exp (:func:`merge_attention`) over each mesh
+    dimension that splits the slots, one at a time: ``[B, Hq/tp, 1, hd]``
+    outputs and ``[B, Hq/tp, 1]`` log-sum-exps cross the ranks (one
+    all-gather a dimension), never the cache. A rank whose block holds no
+    valid slot yet (early in the ring) launches nothing and contributes
+    ``out = 0``, ``lse = -inf``. A plain cache, or one no mesh dimension
+    splits along its slots, is one block: the one call, its output as it
+    is. A head_dim the rules shard (KV heads that do not divide the model
+    axis) is gathered first. On a mesh it returns a DTensor placed as the
+    query's block."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import merge_attention
+
+    dtype, q = q.dtype, q.to(k_cache.dtype)
     w = k_cache.shape[2]
-    return attention(q, k_cache, v_cache, causal=False, softcap=attn_softcap, kv_len=min(cache_len + 1, w))
+    placed = optim.is_dtensor(k_cache)
+    if placed:
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh = k_cache.device_mesh
+        kv_pl = tuple(Replicate() if p.is_shard(3) else p for p in k_cache.placements)
+        q_pl = tuple(Replicate() if p.is_shard(2) else p for p in kv_pl)
+        start = compute_local_shape_and_global_offset(k_cache.shape, mesh, kv_pl)[1][2]
+        dims = [i for i, p in enumerate(kv_pl) if p.is_shard(2)]
+        q = q.redistribute(mesh, q_pl).to_local()
+        k_cache, v_cache = (t.redistribute(mesh, kv_pl).to_local() for t in (k_cache, v_cache))
+    else:
+        start, dims = 0, []
+    valid = min(min(cache_len + 1, w) - start, k_cache.shape[2])
+    kw = dict(causal=False, softcap=attn_softcap, kv_len=valid)
+    if not dims:  # one block: the call is the result
+        out = attention(q, k_cache, v_cache, **kw)
+    elif valid > 0:
+        out, lse = attention(q, k_cache, v_cache, with_lse=True, **kw)
+    else:  # no valid slot in this rank's block: nothing to attend to, nothing to add
+        b, hq, sq, _ = q.shape
+        out = q.new_zeros((b, hq, sq, v_cache.shape[3]))
+        lse = q.new_full((b, hq, sq), float("-inf"), dtype=torch.float32)
+    for dim in dims:
+        group = mesh.get_group(dim)
+        n = dist.get_world_size(group)
+        packed = torch.cat([out.float().reshape(-1), lse.reshape(-1)])
+        parts = packed.new_empty(n * packed.numel())
+        dist.all_gather_into_tensor(parts, packed, group=group)
+        outs, lses = parts.view(n, -1).split([out.numel(), lse.numel()], dim=1)
+        merged, lse = merge_attention(outs.reshape(n, *out.shape), lses.reshape(n, *lse.shape))
+        out = merged.to(out.dtype)
+    if placed:
+        out = DTensor.from_local(out, mesh, q_pl, run_check=False)
+    return out.to(dtype)
 
 
 class HybridLM:
@@ -483,14 +568,25 @@ class HybridLM:
 
     ``attention`` is the shared block's attention function, the flash
     kernel's wrapper by default; a reference computation passes
-    :func:`repro_torch.kernels.flash_attention.attention_plain`. A query in
-    the model's dtype against a cache of another (``init_cache``'s f32
-    entries under bf16 weights) is cast to the cache's dtype for the call
-    and the output back, which is what the JAX package's f32
-    ``chunked_attention`` computes. Parameters are the flat dict a replica
-    registers (:func:`repro_torch.models.params.decoder_shapes`): the
-    stacked ``groups/...`` tensors are taken apart with views, so serving
-    makes no copy of them."""
+    :func:`repro_torch.kernels.flash_attention.attention_plain`. The ring
+    decode's step on a mesh asks it for the rows' log-sum-exp too
+    (``with_lse=True``, which every attention function of
+    :mod:`repro_torch.kernels.flash_attention` takes). A query in the
+    model's dtype against a cache of another (``init_cache``'s f32 entries
+    under bf16 weights) is cast to the cache's dtype for the call and the
+    output back, which is what the JAX package's f32 ``chunked_attention``
+    computes. Parameters are the flat dict a replica registers
+    (:func:`repro_torch.models.params.decoder_shapes`): the stacked
+    ``groups/...`` tensors are taken apart with views, so serving makes no
+    copy of them.
+
+    DTensor parameters (the sharded train and serving steps') run under
+    :func:`mesh_scope`: the Mamba2 blocks' scans on each rank's block of
+    the batch and the heads (:func:`repro_torch.models.ssd.ssd_block_apply`),
+    the shared block's attention on each rank's local block as the
+    decoders' (``blocks.attn_apply``), and the ring decode over a ring
+    cache sharded along its slots (``LONG_SERVE_RULES``) by each rank's
+    block and a log-sum-exp merge (:func:`_ring_attention_step`)."""
 
     def __init__(self, cfg: ModelConfig, *, attention: Callable[..., torch.Tensor] = flash_attention):
         s = cfg.ssm
@@ -533,9 +629,9 @@ class HybridLM:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
             slot = _ring_slot(cache_len, cache["k"].shape[2])
-            cache["k"][:, :, slot : slot + 1] = k
-            cache["v"][:, :, slot : slot + 1] = v
-            out = _ring_attention_step(self._attention, q, cache["k"], cache["v"], cache_len, cfg.attn_softcap)
+            blocks.write_at(cache["k"], k, 2, slot)
+            blocks.write_at(cache["v"], v, 2, slot)
+            out = _ring_attention_step(self.attention, q, cache["k"], cache["v"], cache_len, cfg.attn_softcap)
             x = x + blocks._merge_heads(out) @ attn["wo"]
             kv = cache
         else:
@@ -552,28 +648,29 @@ class HybridLM:
         """Logits ``[B, S, vocab]`` (f32) of ``{"tokens": [B, S]}``.
         Differentiable with respect to the parameter dict: each Mamba2
         block is recomputed in the backward (``torch.utils.checkpoint``, as
-        the JAX forward's ``jax.checkpoint``), so a step keeps one block's
-        chunk weights at a time; the shared block's calls read one set of
+        the JAX forward's ``jax.checkpoint``; on DTensors the recomputation
+        runs the same local scans), so a step keeps one block's chunk
+        weights at a time; the shared block's calls read one set of
         weights, so its gradient is their sum."""
-        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
-        x = params["embed"][batch["tokens"]]
-        positions = torch.arange(x.shape[1], device=x.device)
-        layers = self._ssd_layers(params)
-        shared = self._shared(params)
-        cfg = self.cfg
-        names = self._ssd_names
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], batch["tokens"])
+            positions = torch.arange(x.shape[1], device=x.device)
+            layers = self._ssd_layers(params)
+            shared = self._shared(params)
+            cfg = self.cfg
+            names = self._ssd_names
 
-        def block(h, *ps):
-            return ssd.ssd_block_apply(cfg, dict(zip(names, ps)), h)[0]
+            def block(h, *ps):
+                return ssd.ssd_block_apply(cfg, dict(zip(names, ps)), h)[0]
 
-        for i, lp in enumerate(layers):
-            if torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x, *(lp[n] for n in names), use_reentrant=False)
-            else:
-                x = block(x, *(lp[n] for n in names))
-            if (i + 1) % self.every == 0:
-                x, _ = self._shared_block(shared, x, positions)
-        return self._head(params, x)
+            for i, lp in enumerate(layers):
+                if torch.is_grad_enabled():
+                    x = torch.utils.checkpoint.checkpoint(block, x, *(lp[n] for n in names), use_reentrant=False)
+                else:
+                    x = block(x, *(lp[n] for n in names))
+                if (i + 1) % self.every == 0:
+                    x, _ = self._shared_block(shared, x, positions)
+            return self._head(params, x)
 
     # -- caches ------------------------------------------------------------------
 
@@ -592,13 +689,17 @@ class HybridLM:
         return {"ssd": stack_layers(stack_layers(ssd_c, self.every), self.groups),
                 "attn": stack_layers({"k": kv, "v": kv}, self.groups)}
 
-    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, ring: bool = False) -> Cache:
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, ring: bool = False,
+                   mesh=None, like: Optional[torch.Tensor] = None) -> Cache:
         """Zeroed caches of :meth:`cache_specs`, every entry f32 whatever
         ``dtype`` (the SSM states and the small window caches stay f32, as
-        the JAX package's ``init_cache``)."""
+        the JAX package's ``init_cache``). With a ``DeviceMesh`` ``mesh``,
+        DTensors placed by the serve rules, each rank zeroing its own block
+        (:func:`_new_cache`): at batch 1 ``LONG_SERVE_RULES``, whose window
+        cache lies sharded along its slots."""
         del dtype
-        return map_specs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
-                         self.cache_specs(batch_size, max_len, ring=ring))
+        return _new_cache(self.cache_specs(batch_size, max_len, ring=ring), lambda n: torch.float32, device, mesh,
+                          like, batch_size=batch_size)
 
     # -- prefill -------------------------------------------------------------------
 
@@ -610,26 +711,29 @@ class HybridLM:
         (f32), the shared block's K/V in the activations' dtype in the
         first positions of ``max_len`` slots (default: the prompt length).
         Returns the last position's logits ``[B, 1, vocab]``, the cache and
-        its length."""
-        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
-        x = params["embed"][batch["tokens"]]
-        b, s, _ = x.shape
-        specs = self.cache_specs(b, max_len or s)
-        cache = {"ssd": {"conv": torch.zeros(specs["ssd"]["conv"].shape, dtype=x.dtype, device=x.device),
-                         "state": torch.zeros(specs["ssd"]["state"].shape, dtype=torch.float32, device=x.device)},
-                 "attn": {n: torch.zeros(t.shape, dtype=x.dtype, device=x.device) for n, t in specs["attn"].items()}}
-        positions = torch.arange(s, device=x.device)
-        shared = self._shared(params)
-        for i, lp in enumerate(self._ssd_layers(params)):
-            g, e = divmod(i, self.every)
-            x, c = ssd.ssd_block_apply(self.cfg, lp, x)
-            for n, t in c.items():
-                cache["ssd"][n][g, e].copy_(t)
-            if e == self.every - 1:
-                x, kv = self._shared_block(shared, x, positions)
-                for n, t in kv.items():
-                    cache["attn"][n][g, :, :, :s].copy_(t)
-        return self._head(params, x[:, -1:]), cache, s
+        its length. DTensor parameters (placed by ``SERVE_RULES``) run
+        under :func:`mesh_scope`, the cache made placed by the serve rules
+        (:func:`_new_cache`) and each entry written into each rank's block
+        (``blocks.store``, ``blocks.write_at``)."""
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], batch["tokens"])
+            b, s, _ = x.shape
+            mesh = mesh_of(params)
+            like = x.to_local() if mesh is not None else None
+            cache = _new_cache(self.cache_specs(b, max_len or s), lambda n: torch.float32 if n == "state" else x.dtype,
+                               x.device, mesh, like, batch_size=b)
+            positions = torch.arange(s, device=x.device)
+            shared = self._shared(params)
+            for i, lp in enumerate(self._ssd_layers(params)):
+                g, e = divmod(i, self.every)
+                x, c = ssd.ssd_block_apply(self.cfg, lp, x)
+                for n, t in c.items():
+                    blocks.store(cache["ssd"][n][g, e], t)
+                if e == self.every - 1:
+                    x, kv = self._shared_block(shared, x, positions)
+                    for n, t in kv.items():
+                        blocks.write_at(cache["attn"][n][g], t, 2, 0)
+            return self._head(params, x[:, -1:]), cache, s
 
     # -- decode ------------------------------------------------------------------------
 
@@ -642,21 +746,22 @@ class HybridLM:
         cache (with ``ring``, a ring-buffer window cache of
         ``init_cache(..., ring=True)``, one token a step). Writes the
         caches in place and returns them with the logits ``[B, S,
-        vocab]``."""
-        refuse_mesh(self.cfg, params, "Mamba2 blocks and the shared attention block")
-        x = params["embed"][tokens]
-        positions = cache_len + torch.arange(x.shape[1], device=x.device)
-        shared = self._shared(params)
-        conv, state = cache["ssd"]["conv"], cache["ssd"]["state"]
-        for i, lp in enumerate(self._ssd_layers(params)):
-            g, e = divmod(i, self.every)
-            x, c = ssd.ssd_block_apply(self.cfg, lp, x, cache={"conv": conv[g, e], "state": state[g, e]})
-            conv[g, e].copy_(c["conv"])
-            state[g, e].copy_(c["state"])
-            if e == self.every - 1:
-                kv = {n: t[g] for n, t in cache["attn"].items()}
-                x, _ = self._shared_block(shared, x, positions, cache=kv, cache_len=cache_len, ring=ring)
-        return self._head(params, x), cache
+        vocab]``. DTensor parameters and a cache placed as :meth:`init_cache`
+        places it run under :func:`mesh_scope` (see the class docstring)."""
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], tokens)
+            positions = cache_len + torch.arange(x.shape[1], device=x.device)
+            shared = self._shared(params)
+            conv, state = cache["ssd"]["conv"], cache["ssd"]["state"]
+            for i, lp in enumerate(self._ssd_layers(params)):
+                g, e = divmod(i, self.every)
+                x, c = ssd.ssd_block_apply(self.cfg, lp, x, cache={"conv": conv[g, e], "state": state[g, e]})
+                blocks.store(conv[g, e], c["conv"])
+                blocks.store(state[g, e], c["state"])
+                if e == self.every - 1:
+                    kv = {n: t[g] for n, t in cache["attn"].items()}
+                    x, _ = self._shared_block(shared, x, positions, cache=kv, cache_len=cache_len, ring=ring)
+            return self._head(params, x), cache
 
 
 class XLSTMLM:
@@ -673,9 +778,16 @@ class XLSTMLM:
     token (``forward``, the training step's loss): ``"chunked"`` (the
     default, the JAX package's) or ``"parallel"`` (the quadratic form, a
     reference for it). Prefill and decode always run the chunked form and
-    the one-step recurrence, which carry the state."""
+    the one-step recurrence, which carry the state. ``chunk`` is the
+    chunked form's steps a chunk (the JAX package's 256).
 
-    def __init__(self, cfg: ModelConfig, *, mlstm: str = "chunked"):
+    DTensor parameters (the sharded train and serving steps') run under
+    :func:`mesh_scope`: the projections on DTensors, each block's
+    recurrence on each rank's block of the batch and the heads
+    (:mod:`repro_torch.models.xlstm_blocks`), the states placed as
+    :meth:`init_cache` places them."""
+
+    def __init__(self, cfg: ModelConfig, *, mlstm: str = "chunked", chunk: int = xlstm_blocks.MLSTM_CHUNK):
         x = cfg.xlstm
         if x is None:
             raise ValueError(f"{cfg.name}: XLSTMLM takes a config with xlstm")
@@ -683,6 +795,7 @@ class XLSTMLM:
             raise ValueError(f"xlstm: unknown mLSTM form {mlstm!r}")
         self.cfg = cfg
         self.mlstm = mlstm
+        self.chunk = chunk
         self.every = x.slstm_every
         if cfg.num_layers % self.every:
             raise ValueError("xlstm: num_layers must be a multiple of slstm_every")
@@ -690,6 +803,18 @@ class XLSTMLM:
         self.n_mlstm_per_pair = self.every - 1
         self._m_names = tuple(xlstm_blocks.mlstm_specs(cfg))
         self._s_names = tuple(xlstm_blocks.slstm_specs(cfg))
+
+    def seq_period(self, kind: str) -> Optional[int]:
+        """The tokens of one repeat of a ``kind`` step's work along the
+        sequence, where its counts grow exactly linearly with the length:
+        one mLSTM chunk for a train or prefill step (per-token projections,
+        the sLSTM's loop, the chunked mLSTM; nothing quadratic, the parallel
+        form aside), else None (a decode step's work does not depend on
+        it). The dry run extends a cell's counts over the sequence by it
+        (:func:`repro_torch.launch.op_costs.analyze_cell`)."""
+        if kind == "prefill" or (kind == "train" and self.mlstm == "chunked"):
+            return self.chunk
+        return None
 
     def _blocks(self, params: Params) -> Tuple[List[Dict[str, torch.Tensor]], List[Dict[str, torch.Tensor]]]:
         """Each mLSTM block's parameters (pair-major) and each sLSTM
@@ -713,7 +838,7 @@ class XLSTMLM:
             for j in range(self.n_mlstm_per_pair):
                 c = None if cache is None else {n: t[p, j] for n, t in cache["mlstm"].items()}
                 x, st = xlstm_blocks.mlstm_block_apply(cfg, m_layers[p * self.n_mlstm_per_pair + j], x, cache=c,
-                                                       form=form)
+                                                       form=form, chunk=self.chunk)
                 for n, t in st.items():
                     new["mlstm"].setdefault(n, []).append(t)
             c = None if cache is None else {n: t[p] for n, t in cache["slstm"].items()}
@@ -727,10 +852,10 @@ class XLSTMLM:
         k = self.n_mlstm_per_pair
         for n, states in new["mlstm"].items():
             for i, t in enumerate(states):
-                cache["mlstm"][n][divmod(i, k)].copy_(t)
+                blocks.store(cache["mlstm"][n][divmod(i, k)], t)
         for n, states in new["slstm"].items():
             for p, t in enumerate(states):
-                cache["slstm"][n][p].copy_(t)
+                blocks.store(cache["slstm"][n][p], t)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
@@ -743,10 +868,10 @@ class XLSTMLM:
         Differentiable with respect to the parameter dict; nothing is
         recomputed in the backward (the JAX ``_run`` has no
         ``jax.checkpoint``)."""
-        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
-        x = params["embed"][batch["tokens"]]
-        x, _ = self._run(params, x, form=self.mlstm)
-        return self._head(params, x)
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], batch["tokens"])
+            x, _ = self._run(params, x, form=self.mlstm)
+            return self._head(params, x)
 
     # -- caches ------------------------------------------------------------------
 
@@ -768,15 +893,18 @@ class XLSTMLM:
         return {"mlstm": stack_layers(stack_layers(m_state, self.n_mlstm_per_pair), self.pairs),
                 "slstm": stack_layers(s_state, self.pairs)}
 
-    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device) -> Cache:
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype, device, *, mesh=None,
+                   like: Optional[torch.Tensor] = None) -> Cache:
         """The states of :meth:`cache_specs`, all f32 whatever ``dtype``
         (as the JAX package's ``init_cache``): zeros, but both stabilisers
-        ``m`` at -1e30."""
+        ``m`` at -1e30. With a ``DeviceMesh`` ``mesh``, DTensors placed by
+        the serve rules, each rank filling its own block (:func:`_new_cache`)."""
         del dtype
-        cache = map_specs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device),
-                          self.cache_specs(batch_size, max_len))
-        cache["mlstm"]["m"].fill_(xlstm_blocks.M_START)
-        cache["slstm"]["m"].fill_(xlstm_blocks.M_START)
+        cache = _new_cache(self.cache_specs(batch_size, max_len), lambda n: torch.float32, device, mesh, like,
+                           batch_size=batch_size)
+        for group in ("mlstm", "slstm"):
+            m = cache[group]["m"]
+            (m.to_local() if optim.is_dtensor(m) else m).fill_(xlstm_blocks.M_START)
         return cache
 
     # -- prefill -------------------------------------------------------------------
@@ -788,14 +916,17 @@ class XLSTMLM:
         leaves every block's final state in it. Returns the last position's
         logits ``[B, 1, vocab]``, the cache and its length (``max_len`` is
         taken for the decoder's signature; a recurrent cache has no
-        slots)."""
-        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
-        x = params["embed"][batch["tokens"]]
-        b, s, _ = x.shape
-        cache = self.init_cache(b, max_len or s, x.dtype, x.device)
-        x, new = self._run(params, x, cache)
-        self._store(cache, new)
-        return self._head(params, x[:, -1:]), cache, s
+        slots). DTensor parameters (placed by ``SERVE_RULES``) fill a cache
+        made placed by the serve rules."""
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], batch["tokens"])
+            b, s, _ = x.shape
+            mesh = mesh_of(params)
+            cache = self.init_cache(b, max_len or s, x.dtype, x.device, mesh=mesh,
+                                    like=x.to_local() if mesh is not None else None)
+            x, new = self._run(params, x, cache)
+            self._store(cache, new)
+            return self._head(params, x[:, -1:]), cache, s
 
     # -- decode ------------------------------------------------------------------------
 
@@ -808,8 +939,8 @@ class XLSTMLM:
         not read (a recurrent cache has no position). Writes the cache in
         place and returns it with the logits ``[B, S, vocab]``."""
         del cache_len
-        refuse_mesh(self.cfg, params, "mLSTM and sLSTM blocks")
-        x = params["embed"][tokens]
-        x, new = self._run(params, x, cache)
-        self._store(cache, new)
-        return self._head(params, x), cache
+        with mesh_scope(params):
+            x = _embed_rows(params["embed"], tokens)
+            x, new = self._run(params, x, cache)
+            self._store(cache, new)
+            return self._head(params, x), cache

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import LocalHeads
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec, spec
 
@@ -121,9 +122,10 @@ def _ssd_chunked(
     # carried across chunks: S_prev_{c+1} = exp(total_c) S_prev_c + S_c
     s = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) if init_state is None else init_state.float()
     prevs = []
-    for c in range(nc):
+    # the chunks taken apart once (a chunk's slice would give every chunk's backward a zero tensor of all of them)
+    for decay_c, s_c in zip(torch.exp(total)[..., None, None].unbind(1), s_chunk.unbind(1)):
         prevs.append(s)
-        s = torch.exp(total[:, c])[:, :, None, None] * s + s_chunk[:, c]
+        s = decay_c * s + s_c
     s_prevs = torch.stack(prevs, dim=1)  # [B, nc, H, P, N]
 
     # from the chunks before: y_inter[i] = exp(cum_i) * C_i . S_prev
@@ -177,7 +179,20 @@ def ssd_block_apply(
     conv over the cached rows and this call's (an f32 cache promotes the
     window to f32, as JAX's type promotion does), then the one-step
     recurrence for ``S == 1`` or the chunked scan from the cached state.
-    The cache given is not written; the caller stores the new one."""
+    The cache given is not written; the caller stores the new one.
+
+    On DTensors (the sharded steps) the projections and the gated norm run
+    on DTensors and the rest on each rank's block
+    (:class:`~repro_torch.models.blocks.LocalHeads`: its batch, its heads).
+    ``w_in``'s packed columns ``[z | xBC | dt]`` are sharded evenly over
+    the model axis, across the boundaries of the three and of the heads,
+    so the projection is gathered whole over the model axis (one all-gather
+    of ``[B, S, 2 d_in + 2N + H]`` a rank's batch) and each rank takes its
+    heads' columns of z, x and dt and all of B and C, which every head
+    reads (their gradient summed over the model axis); the conv runs on
+    those channels only, the cached conv rows gathered whole likewise. The
+    scan runs on ``[B/dp, T, H/tp, P]``; the gated norm's mean over
+    ``d_in`` is DTensor's reduction across the ranks' heads."""
     s = cfg.ssm
     assert s is not None
     d_in, nheads, hd, n, conv_dim = ssd_dims(cfg)
@@ -186,34 +201,49 @@ def ssd_block_apply(
 
     h = rms_norm(x, p["ln"])
     proj = h @ p["w_in"]
+    blk = LocalHeads(proj, bsz, nheads)
+    h0, h1 = blk.heads
+    whole = (h0, h1) == (0, nheads)
+    proj = blk.local(proj, shared=True)  # this rank's batch, every column
     z, xbc_raw, dt_raw = torch.split(proj, [d_in, conv_dim, nheads], dim=-1)
 
+    def mine(t: torch.Tensor) -> torch.Tensor:
+        """The channels this rank's heads read: its heads' x and all of B and C."""
+        return t if whole else torch.cat([t[..., h0 * hd : h1 * hd], t[..., d_in:]], dim=-1)
+
+    conv_w = mine(blk.local(p["conv_w"], batch_dim=None, shared=True))
+    conv_b = mine(blk.local(p["conv_b"], batch_dim=None, shared=True))
     if cache is None:
-        xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+        xbc = _causal_conv(mine(xbc_raw), conv_w, conv_b)
         if seq >= k - 1:
             new_conv = xbc_raw[:, seq - (k - 1) :]
         else:
             new_conv = F.pad(xbc_raw, (0, 0, k - 1 - seq, 0))
     else:
-        wide = torch.promote_types(cache["conv"].dtype, xbc_raw.dtype)
-        window = torch.cat([cache["conv"].to(wide), xbc_raw.to(wide)], dim=1)  # [B, K-1+S, C]
-        xbc = _conv_sum(window, p["conv_w"], p["conv_b"], seq, x.dtype)
+        cached = blk.local(cache["conv"])
+        wide = torch.promote_types(cached.dtype, xbc_raw.dtype)
+        window = torch.cat([cached.to(wide), xbc_raw.to(wide)], dim=1)  # [B, K-1+S, C]
+        xbc = _conv_sum(mine(window), conv_w, conv_b, seq, x.dtype)
         new_conv = window[:, -(k - 1) :]
 
-    xs, bmat, cmat = torch.split(xbc, [d_in, n, n], dim=-1)
-    xs = xs.reshape(bsz, seq, nheads, hd)
-    dt = softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())
+    xs, bmat, cmat = torch.split(xbc, [(h1 - h0) * hd, n, n], dim=-1)
+    xs = xs.reshape(proj.shape[0], seq, h1 - h0, hd)
+    dt = softplus(dt_raw[..., h0:h1].float() + blk.local(p["dt_bias"], batch_dim=None, head_dim=0).float())
+    a = -torch.exp(blk.local(p["a_log"], batch_dim=None, head_dim=0).float())
 
     if cache is None or seq > 1:
-        y, state = _ssd_chunked(xs, dt, a, bmat, cmat, s.chunk, None if cache is None else cache["state"])
+        init = None if cache is None else blk.local(cache["state"], head_dim=1)
+        y, state = _ssd_chunked(xs, dt, a, bmat, cmat, s.chunk, init)
     else:  # one step of the recurrence
         decay = torch.exp(dt[:, 0] * a)  # [B, H]
         dx = dt[:, 0, :, None] * xs[:, 0].float()
-        state = decay[:, :, None, None] * cache["state"].float() + torch.einsum("bhp,bn->bhpn", dx, bmat[:, 0].float())
+        state = decay[:, :, None, None] * blk.local(cache["state"], head_dim=1).float() + torch.einsum(
+            "bhp,bn->bhpn", dx, bmat[:, 0].float())
         y = torch.einsum("bhpn,bn->bhp", state, cmat[:, 0].float())[:, None].to(x.dtype)
 
-    y = y.float() + p["d_skip"].float()[None, None, :, None] * xs.float()
-    y = y.reshape(bsz, seq, d_in)
-    y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"])
-    return x + y @ p["w_out"], {"conv": new_conv, "state": state.float()}
+    d_skip = blk.local(p["d_skip"], batch_dim=None, head_dim=0)
+    y = y.float() + d_skip.float()[None, None, :, None] * xs.float()
+    y = y.reshape(xs.shape[0], seq, (h1 - h0) * hd)
+    gated = blk.placed((y * F.silu(z[..., h0 * hd : h1 * hd].float())).to(x.dtype), head_dim=2)
+    y = rms_norm(gated, p["norm"])
+    return x + y @ p["w_out"], {"conv": blk.placed(new_conv), "state": blk.placed(state.float(), head_dim=1)}

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import LocalHeads
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec, spec
 
@@ -41,6 +42,8 @@ State = Dict[str, torch.Tensor]
 
 #: the stabiliser's starting value (the JAX package's "-inf-ish")
 M_START = -1e30
+#: the chunked mLSTM's steps a chunk (the JAX package's)
+MLSTM_CHUNK = 256
 
 
 def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -106,7 +109,8 @@ def _mlstm_zero_state(b: int, h: int, dh: int, device) -> State:
     }
 
 
-def _mlstm_chunked(q, k, v, i_raw, f_raw, *, chunk: int = 256, init: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+def _mlstm_chunked(q, k, v, i_raw, f_raw, *, chunk: int = MLSTM_CHUNK,
+                   init: Optional[State] = None) -> Tuple[torch.Tensor, State]:
     """The chunked mLSTM: within a chunk the parallel form, across chunks
     the recurrent matrix state, tracked stabilised (``C_hat = C exp(-m)``,
     ``n_hat = n exp(-m)``). Returns ``(out [B, H, T, Dh] in q's dtype,
@@ -137,8 +141,8 @@ def _mlstm_chunked(q, k, v, i_raw, f_raw, *, chunk: int = 256, init: Optional[St
         state = {n: init[n].float() for n in ("c", "n", "m")}
     c_hat, n_hat, m_prev = state["c"], state["n"], state["m"]
     outs: List[torch.Tensor] = []
-    for c in range(nc):
-        qq, kk, vv, ii, ff = qc[:, :, c], kc[:, :, c], vc[:, :, c], ic[:, :, c], fc[:, :, c]  # [B, H, L, (Dh)]
+    # the chunks taken apart once (a chunk's slice would give every chunk's backward a zero tensor of all of them)
+    for qq, kk, vv, ii, ff in zip(*(t.unbind(2) for t in (qc, kc, vc, ic, fc))):  # [B, H, L, (Dh)]
         log_f = F.logsigmoid(ff)
         cum = torch.cumsum(log_f, dim=-1)  # F_t within the chunk
         # the local pairwise weights d[t, s] = F_t - F_s + i_s (s <= t)
@@ -208,25 +212,39 @@ def mlstm_block_apply(
     *,
     cache: Optional[State] = None,
     form: str = "chunked",
+    chunk: int = MLSTM_CHUNK,
 ) -> Tuple[torch.Tensor, State]:
     """Returns (block output incl. residual, the new state). ``S > 1`` runs
-    the chunked form from ``cache`` (a zero state when None), ``S == 1``
+    the chunked form (``chunk`` steps a chunk) from ``cache`` (a zero state
+    when None), ``S == 1``
     one step of the recurrence. ``form="parallel"`` runs a cacheless call
     of ``S > 1`` on the quadratic form instead, its state folded by
     :func:`_mlstm_fold_state` (a reference for the chunked form). The cache
-    given is not written; the caller stores the new state."""
+    given is not written; the caller stores the new state.
+
+    On DTensors (the sharded steps) the projections run on DTensors (``w_up``'s
+    ``[x | z]`` split where DTensor places it) and the recurrence on each
+    rank's block of the batch and the heads
+    (:class:`~repro_torch.models.blocks.LocalHeads`), its state too."""
     d_in, nh, dh = mlstm_dims(cfg)
     bsz, seq, _ = x.shape
     h = rms_norm(x, p["ln"])
     up = h @ p["w_up"]
     xm, z = up.split(d_in, dim=-1)
 
-    def heads(t: torch.Tensor) -> torch.Tensor:
-        return t.reshape(bsz, seq, nh, dh).transpose(1, 2)
+    blk = LocalHeads(xm, bsz, nh)
+    h0, h1 = blk.heads
+
+    def heads(t: torch.Tensor) -> torch.Tensor:  # [B, S, H * dh] -> this rank's [B, H, S, dh]
+        t = blk.local(t, head_dim=2)
+        return t.reshape(t.shape[0], seq, h1 - h0, dh).transpose(1, 2)
 
     q, k, v = heads(xm @ p["wq"]), heads(xm @ p["wk"]), heads(xm @ p["wv"])
-    gates = xm @ p["w_if"] + p["b_if"]
-    i_raw, f_raw = gates.reshape(bsz, seq, 2, nh).permute(0, 3, 1, 2).unbind(-1)  # [B, H, T] each
+    # w_if's columns are gate-major (2, heads): whole, then this rank's heads
+    gates = blk.local(xm @ p["w_if"] + p["b_if"], shared=True).reshape(-1, seq, 2, nh)[..., h0:h1]
+    i_raw, f_raw = gates.permute(0, 3, 1, 2).unbind(-1)  # [B, H, T] each
+    if cache is not None:
+        cache = {n: blk.local(t, head_dim=1) for n, t in cache.items()}
 
     if seq > 1 and form == "parallel":
         if cache is not None:
@@ -234,14 +252,14 @@ def mlstm_block_apply(
         out, state = _mlstm_parallel(q, k, v, i_raw, f_raw), _mlstm_fold_state(q, k, v, i_raw, f_raw)
     elif seq > 1:
         # chunked: O(T) memory, the form that scales to long context
-        out, state = _mlstm_chunked(q, k, v, i_raw, f_raw, init=cache)
+        out, state = _mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk, init=cache)
     else:
-        state = cache if cache is not None else _mlstm_zero_state(bsz, nh, dh, x.device)
+        state = cache if cache is not None else _mlstm_zero_state(q.shape[0], q.shape[1], dh, q.device)
         o, state = _mlstm_step(state, q[:, :, 0], k[:, :, 0], v[:, :, 0], i_raw[:, :, 0], f_raw[:, :, 0])
         out = o[:, :, None]
-    merged = out.transpose(1, 2).reshape(bsz, seq, d_in)
+    merged = blk.placed(out.transpose(1, 2).reshape(out.shape[0], seq, (h1 - h0) * dh), head_dim=2)
     y = merged * F.silu(z.float()).to(x.dtype)
-    return x + y @ p["w_down"], state
+    return x + y @ p["w_down"], {n: blk.placed(t, head_dim=1) for n, t in state.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -285,21 +303,34 @@ def slstm_block_apply(
     "n", "m"}`` f32). One step a position, each step's recurrent products
     of the four gates one batched product over the heads (``r_gates``
     regrouped once to ``[H, dh, 4 dh]``); the hidden outputs are collected
-    in a list and stacked. The cache given is not written."""
+    in a list and stacked. The cache given is not written. On DTensors the
+    projections run on DTensors and the loop on each rank's block of the
+    batch and the heads (:class:`~repro_torch.models.blocks.LocalHeads`):
+    plain tensors, each step's ops never dispatched through DTensor."""
     d = cfg.d_model
     nh = cfg.num_heads
     dh = d // nh
     bsz, seq, _ = x.shape
     inp = rms_norm(x, p["ln"])
-    gates_x = (inp @ p["w_gates"] + p["b_gates"]).reshape(bsz, seq, 4, nh, dh).float()
-    state = cache if cache is not None else slstm_zero_state(bsz, nh, dh, x.device)
+    gates_x = inp @ p["w_gates"] + p["b_gates"]
+    blk = LocalHeads(gates_x, bsz, nh)
+    h0, h1 = blk.heads
+    # the columns are gate-major (4, heads, dh): whole, then this rank's heads
+    gates_x = blk.local(gates_x, shared=True).reshape(-1, seq, 4, nh, dh)[:, :, :, h0:h1].float()
+    b_loc, nh_loc = gates_x.shape[0], h1 - h0
+    if cache is not None:
+        state = {n: blk.local(t, head_dim=1) for n, t in cache.items()}
+    else:
+        state = slstm_zero_state(b_loc, nh_loc, dh, x.device)
     # rec[g, b, h, e] = sum_d r[g, h, d, e] h_prev[b, h, d], as one [H, B, dh] @ [H, dh, 4 dh]
-    r = p["r_gates"].float().permute(1, 2, 0, 3).reshape(nh, dh, 4 * dh)
+    r = blk.local(p["r_gates"], batch_dim=None, head_dim=1).float().permute(1, 2, 0, 3).reshape(nh_loc, dh, 4 * dh)
     h_prev, c_prev, n_prev, m_prev = (state[n].float() for n in ("h", "c", "n", "m"))
     hs: List[torch.Tensor] = []
-    for t in range(seq):
-        rec = (h_prev.transpose(0, 1) @ r).view(nh, bsz, 4, dh).permute(1, 2, 0, 3)  # [B, 4, H, dh]
-        gz, gi, gf, go = (gates_x[:, t] + rec).unbind(1)
+    # each step's gates taken apart once (a step's slice would give every step's backward a zero tensor of
+    # all the steps' gates)
+    for gx in gates_x.unbind(1):
+        rec = (h_prev.transpose(0, 1) @ r).view(nh_loc, b_loc, 4, dh).permute(1, 2, 0, 3)  # [B, 4, H, dh]
+        gz, gi, gf, go = (gx + rec).unbind(1)
         z = torch.tanh(gz)
         log_f = F.logsigmoid(gf)
         m_new = torch.maximum(log_f + m_prev, gi)
@@ -310,5 +341,6 @@ def slstm_block_apply(
         h_prev = torch.sigmoid(go) * (c_prev / torch.clamp(n_prev, min=1e-6))
         m_prev = m_new
         hs.append(h_prev)
-    out = torch.stack(hs, dim=1).reshape(bsz, seq, d).to(x.dtype)
-    return x + out @ p["w_out"], {"h": h_prev, "c": c_prev, "n": n_prev, "m": m_prev}
+    out = blk.placed(torch.stack(hs, dim=1).reshape(b_loc, seq, nh_loc * dh), head_dim=2).to(x.dtype)
+    new = {"h": h_prev, "c": c_prev, "n": n_prev, "m": m_prev}
+    return x + out @ p["w_out"], {n: blk.placed(t, head_dim=1) for n, t in new.items()}

@@ -38,10 +38,9 @@ gradients placed as DTensor's propagation leaves them (partial over the
 data axes where the batch is sharded), and :func:`value_and_grad`
 redistributes each to its parameter's placements (the data-parallel
 all-reduce, or FSDP's reduce-scatter) before :class:`AdamW` updates each
-rank's block. Metrics come back as plain replicated tensors. The dense
-and MoE decoders (H1 and H3 on or off), MLA (deepseek-v3), the VLM and the
-encoder take it; the hybrid and the xLSTM refuse DTensor parameters by
-name.
+rank's block. Metrics come back as plain replicated tensors. Every
+family takes it: the dense and MoE decoders (H1 and H3 on or off), MLA
+(deepseek-v3), the VLM, the encoder, the hybrid and the xLSTM.
 """
 
 from __future__ import annotations

@@ -14,13 +14,15 @@ Every trace on a fake process group runs in ``tests/torch_dryrun_worker.py``
 worker: ``analyze`` of DTensor products on the fake 2x4 mesh against hand
 counts; the trip-count extension of ``analyze_cell`` equal, every field,
 to a full-depth trace for narrowed llama3-8b, gemma2-2b, dbrx and
-deepseek-v3 (a dense prefix before its MoE stack) in each kind; a narrowed
-dense prefill's per-device dot FLOPs equal to the formula; one MLA decode
-layer's collectives, one all-reduce of its output projection whatever the
-cache's length; every leaf of every live cell placed as the JAX
-``spec_for`` places it; and the ``--all`` run refusing exactly the 8 cells
-of the two families whose sharded steps are not ported (the hybrid and the
-xLSTM).
+deepseek-v3 (a dense prefix before its MoE stack) in each kind; the
+length extension of ``analyze_cell`` equal, every field, to a
+whole-length trace for a narrowed xlstm-350m's train and prefill steps; a
+narrowed dense prefill's per-device dot FLOPs equal to the formula; one
+MLA decode layer's collectives, one all-reduce of its output projection
+whatever the cache's length; one shared block of zamba2's ring decode,
+its collectives the same whatever the ring's length; every leaf of every
+live cell placed as the JAX ``spec_for`` places it; and the ``--all`` run
+tracing all 31 live cells and exiting 0.
 """
 
 import dataclasses
@@ -57,8 +59,6 @@ WORKER = os.path.join(os.path.dirname(__file__), "torch_dryrun_worker.py")
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 DEADLINE = 420.0
 LIVE = jax_cells.live_cells()
-#: the families whose sharded steps the port refuses, by arch
-REFUSING = ("zamba2-2.7b", "xlstm-350m")
 
 
 # -- arithmetic: model FLOPs, the cells, the roofline ------------------------------------------
@@ -320,6 +320,43 @@ def test_mla_decode_layer_moves_no_collective_that_grows_with_the_cache(worker, 
     assert costs["hbm_bytes"] > b // 2 * slots * r * 2  # the cache block is read
 
 
+@pytest.mark.parametrize("slots", [64, 256])
+def test_ring_decode_layer_moves_no_collective_that_grows_with_the_ring(worker, slots):
+    """One shared attention block of zamba2's ring decode on the fake 2x4
+    mesh under ``LONG_SERVE_RULES`` (reduced zamba2, batch 1, a ring of 64
+    or 256 f32 slots placed ``("batch", "kv_heads", "seq", "head_dim")``:
+    its slots over the 2-way data axis, its 4 KV heads over the 4-way
+    model axis): each rank attends over its own block of slots, every slot
+    valid past the ring's first turn, and the ranks' outputs and
+    log-sum-exps are merged by one all-gather over the data axis, so the
+    collectives are the same at both lengths, kind for kind and byte for
+    byte: the merge's gather moves each rank's ``hd + 1`` f32 a query row,
+    not the ring. The attention saw [1, H/4, 1, hd] against [1, Hkv/4,
+    slots/2, hd]."""
+    rec = worker["ring_decode"][str(slots)]
+    cfg = rec["cfg"]
+    costs = rec["costs"]
+    assert costs["collective_counts"] == worker["ring_decode"]["64"]["costs"]["collective_counts"]
+    assert costs["collective_bytes"] == worker["ring_decode"]["64"]["costs"]["collective_bytes"]
+    assert costs["collective_counts"]["all-gather"] >= 1
+    h, hkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    assert rec["calls"] == [[[1, h // 4, 1, hd], [1, hkv // 4, slots // 2, hd], slots // 2]]
+    assert costs["hbm_bytes"] > 2 * slots // 2 * hkv // 4 * hd * 4  # the K and V blocks are read
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_length_extension_equals_a_whole_length_trace(worker, shape):
+    """A narrowed xlstm-350m (one mLSTM and one sLSTM block) at 10 chunks
+    of the mLSTM (the worker cuts its chunk to 16 tokens) on the fake 2x4
+    mesh: ``analyze_cell`` traces it at whole numbers of chunks until two
+    increments repeat exactly and extends the last to 10 chunks; every
+    field equals one trace at the whole length."""
+    rec = worker["seq_trips"][shape]
+    assert rec["seq_lens"] and max(rec["seq_lens"]) < rec["tokens"] and rec["seq_times"] >= 1
+    assert rec["extended"] == rec["full"]
+    assert rec["full"]["dot_flops"] > 0
+
+
 def _jax_leaves(arch, shape):
     """``{leaf name: (shape, axes)}`` of the JAX cell of ``arch`` x
     ``shape``, named as the worker names the port's, its kind and rules."""
@@ -372,22 +409,20 @@ def test_cell_leaves_are_placed_as_the_jax_cell(worker, arch, shape):
 
 
 def test_dryrun_all_refuses_exactly_the_two_recurrent_families(worker):
-    """``--all`` (every config cut by ``reduced()``) exits 1, writes a
-    record a cell, and refuses exactly the 8 cells of the hybrid and the
-    xLSTM by name; the other 23 carry the JAX record's keys, and every
-    record names the PyTorch release."""
+    """``--all`` (every config cut by ``reduced()``) exits 0 and writes a
+    record a cell, all 31 traced, the hybrid's and the xLSTM's 8 among
+    them: the two families it once refused are refused no more, so the
+    set refused is empty. Every record carries the JAX record's keys and
+    names the PyTorch release; the xLSTM's train and prefill cells are
+    counted over cut lengths, extended."""
     rec = worker["all"]
-    assert rec["rc"] == 1
+    assert rec["rc"] == 0
     by_cell = {(r["arch"], r["shape"]): r for r in rec["cells"].values()}
-    assert set(by_cell) == set(LIVE)
-    refused = {c for c, r in by_cell.items() if not r["ok"]}
-    assert refused == {(a, s) for a, s in LIVE if a in REFUSING}
-    assert len(refused) == 8
-    for (arch, _), r in by_cell.items():
+    assert set(by_cell) == set(LIVE) and len(by_cell) == 31
+    for (arch, shape), r in by_cell.items():
         assert r["torch"] == torch.__version__, arch
-        if not r["ok"]:
-            assert r["error"].startswith("NotImplementedError") and "the sharded serving and train steps" in r["error"]
-            continue
+        assert r["ok"], (arch, shape, r.get("error"))
+        assert ("seq_lens" in r) == (arch == "xlstm-350m" and shape in ("train_4k", "prefill_32k")), (arch, shape)
         for key in ("flops_per_device", "hbm_bytes_per_device", "collective_bytes_per_device", "collective_counts",
                     "collective_bytes", "compute_s", "memory_s", "collective_s", "dominant", "model_flops",
                     "model_flops_fraction", "roofline_fraction", "memory_analysis", "trace_s", "chips"):

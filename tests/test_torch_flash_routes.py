@@ -437,3 +437,86 @@ def test_routes_refuse_head_dim_96_naming_it(route):
         fa.launch_route(route, q, k, k)
     with pytest.raises(NotImplementedError, match=r"got \(96, 96\) .*no kernel has head_dim 96"):
         fa._check_backward(q)
+
+
+#: a ring's valid slots cut into blocks: (batch, hq, hkv, slots, head_dim, blocks, kv_len, softcap)
+MERGE_CASES = [
+    (1, 4, 4, 8, 16, 2, 8, 0.0),  # every slot valid, two blocks (the reduced zamba2's ring on 2 data ranks)
+    (1, 4, 4, 8, 16, 2, 3, 0.0),  # kv_len < W: the second block has no valid slot
+    (2, 8, 2, 64, 32, 4, 37, 0.0),  # GQA, kv_len in the third block, the fourth empty
+    (1, 32, 32, 256, 80, 16, 256, 0.0),  # zamba2's widths, 16 blocks
+    (2, 4, 4, 48, 64, 3, 48, 20.0),  # a softcap
+    (1, 4, 2, 40, 16, 1, 25, 0.0),  # one block: the call itself
+]
+
+
+@pytest.mark.parametrize("case", MERGE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_merge_of_blocks_equals_the_whole_cache(case):
+    """``merge_attention`` of each key block's ``(out, lse)`` (an empty
+    block: out 0, lse -inf, as a ring's rank with no valid slot
+    contributes) equals ``attention_plain`` over the whole cache, and its
+    lse ``attention_lse_plain``'s, within 2e-5 (f32); one block returns
+    that block's call bit for bit."""
+    b, hq, hkv, w, d, nb, kv_len, cap = case
+    q, k, v = (_t(a) for a in _inputs(5 + w, b, hq, hkv, 1, w, d))
+    kw = dict(causal=False, softcap=cap)
+    n = w // nb
+    outs, lses = [], []
+    for i in range(nb):
+        valid = min(kv_len - i * n, n)
+        if valid > 0:
+            o, lse = fa.flash_attention_lse(q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n], kv_len=valid,
+                                            **kw)
+        else:
+            o, lse = torch.zeros_like(q), torch.full((b, hq, 1), float("-inf"))
+        outs.append(o)
+        lses.append(lse)
+    out, lse = fa.merge_attention(torch.stack(outs), torch.stack(lses))
+    if nb == 1:
+        assert torch.equal(out, outs[0]) and torch.equal(lse, lses[0])
+    np.testing.assert_allclose(out.numpy(), fa.attention_plain(q, k, v, kv_len=kv_len, **kw).numpy(), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), fa.attention_lse_plain(q, k, kv_len=kv_len, **kw).numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("kv_len", [1, 2, 3, 5, 8])
+def test_merge_one_mesh_dimension_at_a_time_equals_the_whole_cache(kv_len):
+    """A ring of 8 slots in 4 blocks of 2, the blocks a (pod, data) 2x2
+    mesh splits the slots into (block ``2 * pod + data``), merged as the
+    sharded ring step merges them: over the pod dimension first (blocks
+    ``{d, 2 + d}``), then over the data one. Early in the ring a whole
+    first merge sees no valid slot (``kv_len`` 1 and 2: blocks 1 and 3);
+    its result is empty (out 0, lse -inf, no NaN) and drops out of the
+    second. The result equals ``attention_plain`` over the whole ring and
+    its lse ``attention_lse_plain``'s, within 2e-5 (f32)."""
+    q, k, v = (_t(a) for a in _inputs(41, 1, 4, 2, 1, 8, 16))
+    kw = dict(causal=False)
+    parts = []
+    for blk in range(4):
+        valid = min(kv_len - 2 * blk, 2)
+        if valid > 0:
+            parts.append(fa.flash_attention_lse(q, k[:, :, 2 * blk:2 * blk + 2], v[:, :, 2 * blk:2 * blk + 2],
+                                                kv_len=valid, **kw))
+        else:
+            parts.append((torch.zeros_like(q), torch.full((1, 4, 1), float("-inf"))))
+    firsts = [fa.merge_attention(torch.stack([parts[d][0], parts[2 + d][0]]),
+                                 torch.stack([parts[d][1], parts[2 + d][1]])) for d in range(2)]
+    if kv_len <= 2:
+        assert torch.equal(firsts[1][0], torch.zeros_like(q))
+        assert torch.equal(firsts[1][1], torch.full((1, 4, 1), float("-inf")))
+    out, lse = fa.merge_attention(torch.stack([o for o, _ in firsts]), torch.stack([s for _, s in firsts]))
+    np.testing.assert_allclose(out.numpy(), fa.attention_plain(q, k, v, kv_len=kv_len, **kw).numpy(), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), fa.attention_lse_plain(q, k, kv_len=kv_len, **kw).numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+def test_flash_attention_lse_on_the_cpu_is_the_plain_pair():
+    """On the CPU the wrapper and its operator return ``attention_plain``'s
+    output and ``attention_lse_plain``'s lse, bit for bit."""
+    q, k, v = (_t(a) for a in _inputs(3, 2, 8, 2, 1, 40, 64))
+    kw = dict(causal=True, q_offset=30, kv_len=31)
+    want = (fa.attention_plain(q, k, v, **kw), fa.attention_lse_plain(q, k, **kw))
+    for got in (fa.flash_attention_lse(q, k, v, **kw), fa.flash_attention_lse_op(q, k, v, **kw)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -731,6 +731,53 @@ def test_forward_writes_the_log_sum_exp(dev, route, dtype, case):
     torch.testing.assert_close(lse, fa.attention_lse_plain(q, k, **kw), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 32, 32, 256, 80, False, 0.0, 0, None, 0), (1, 32, 32, 4096, 80, False, 0.0, 0, 3000, 0),
+                                  (4, 32, 8, 576, 128, True, 0.0, 575, None, 0), (2, 8, 4, 700, 64, True, 30.0, 650, 690, 0),
+                                  (2, 16, 8, 300, 256, True, 0.0, 299, 300, 128), (3, 8, 8, 64, 80, False, 0.0, 0, 5, 0)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_route_writes_the_log_sum_exp(dev, dtype, case):
+    """The decode route with its lse: the output bit-equal to the same
+    call's without it, within the route's tolerance of the plain version,
+    and the lse within 2e-5 of ``attention_lse_plain`` (split plans of one
+    and of many splits, GQA, a softcap, a window, kv_len < Sk)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sk, d, causal, cap, q_offset, kv_len, window = case
+    q, k, v = _qkv(dev, 9 + sk, b, hq, hkv, 1, sk, d, dtype)
+    kw = dict(causal=causal, softcap=cap, q_offset=q_offset, kv_len=kv_len, window=window)
+    assert fa._route(q, k) == "decode"
+    out, lse = fa.launch_route("decode", q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, fa.launch_route("decode", q, k, v, **kw))
+    _flash_close(out, fa.attention_plain(q, k, v, **kw), dtype)
+    assert lse.shape == (b, hq, 1) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, fa.attention_lse_plain(q, k, **kw), rtol=2e-5, atol=2e-5)
+    got, got_lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(got, out) and torch.equal(got_lse, lse)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 16])
+def test_ring_blocks_merged_on_the_card_equal_the_whole_ring(dev, blocks):
+    """zamba2's ring (q [1,32,1,80] f32, 4096 slots, ``causal=False``) in
+    ``blocks`` blocks through the decode kernel with the lse, merged by
+    ``merge_attention``: within 2e-5 of the one call over the whole ring and
+    of the plain version; one block is the call itself, bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(dev, 31, 1, 32, 32, 1, 4096, 80, torch.float32)
+    n = 4096 // blocks
+    parts = [fa.launch_route("decode", q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n], causal=False,
+                             with_lse=True) for i in range(blocks)]
+    out, lse = fa.merge_attention(torch.stack([o for o, _ in parts]), torch.stack([s for _, s in parts]))
+    whole, whole_lse = fa.launch_route("decode", q, k, v, causal=False, with_lse=True)
+    if blocks == 1:
+        assert torch.equal(out, whole) and torch.equal(lse, whole_lse)
+    for want, want_lse in ((whole, whole_lse), (fa.attention_plain(q, k, v, causal=False),
+                                                 fa.attention_lse_plain(q, k, causal=False))):
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
 def test_gradient_never_takes_the_decode_route(dev):
     from repro_torch.kernels import flash_attention as fa
 

@@ -10,25 +10,35 @@ steps, for reduced llama3-8b, gemma2-2b (window, softcaps, tied head),
 dbrx and deepseek-v3 (MLA against its latent cache, a dense prefix layer,
 the shared expert) with H3 off and on (``capacity_factor =
 num_experts``, so that H3's per-rank capacity drops nothing) and
-internvl2-2b (its patches placed before the prompt); and hubert-xlarge's
-encode (its serving step: the logits of frames placed by ``("batch",
-"seq", None)``). Inputs are drawn with numpy from a seed;
+internvl2-2b (its patches placed before the prompt), zamba2-2.7b (the
+hybrid: Mamba2 scans on each rank's batch and heads, the shared block's
+attention) and xlstm-350m (mLSTM and sLSTM recurrences on each rank's
+batch and heads); and hubert-xlarge's encode (its serving step: the logits
+of frames placed by ``("batch", "seq", None)``). Two ``long`` cases run
+at batch 1 under ``LONG_SERVE_RULES`` from an empty placed cache:
+zamba2-2.7b's ring decode, 12 steps over the reduced window of 8 slots
+sharded along its slots over the 2-way data axis (4 a data rank: the
+second rank's block holds no valid slot for the first 4 steps, every rank
+writes, and the ring wraps), its steps merged by the ranks' log-sum-exp,
+and the same on a 2x2x2 ``("pod", "data", "model")`` mesh (the slots over
+pod and data, 2 a rank, merged one mesh dimension at a time: for the
+first 2 steps both blocks of a pod merge are empty); and xlstm-350m's 4
+steps. Inputs are drawn with numpy from a seed;
 weights are the JAX init's, carried across with the port's ``from_numpy``.
 The prefill's logits and cache and each step's logits and cache (the
 encode's logits) are held to the one-device port's (f32, 1e-5 relative
-L2 a tensor) and to the JAX ``DecoderLM.prefill``/``decode`` on the same
-parameters (the parity contract's 2e-5 for f32, relative L2); the cache
-lies placed on every rank (each holds its block, never the whole), and
-the decode's attention saw each rank's local block.
-
-In this process, on the 1x1 gloo smoke mesh: the hybrid and the xLSTM
-refuse DTensor parameters in their prefill and decode by name ("the
-sharded serving and train steps").
+L2 a tensor) and to the JAX package's ``prefill``/``decode`` (the ring's
+``decode(..., ring=True)``) on the same parameters (the parity contract's
+2e-5 for f32, relative L2); the cache lies placed on every rank (each
+holds its block, never the whole), the decode's attention saw each rank's
+local block, and the ring decode's collectives are the same at a window
+of 8 and of 64 slots: none gathers the ring.
 """
 
 import functools
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -43,7 +53,7 @@ from procs import ProcSet  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.params import decoder_specs, from_numpy  # noqa: E402
+from repro_torch.models.params import from_numpy  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_sharded_step import _jax_cfg, _jax_tree, _rel_l2, _weights  # noqa: E402
@@ -67,6 +77,11 @@ CASES = [
     dict(name="deepseek-v3-671b_h3_on", arch="deepseek-v3-671b", h3=True),
     dict(name="internvl2-2b", arch="internvl2-2b", h3=False),
     dict(name="hubert-xlarge", arch="hubert-xlarge", h3=False),
+    dict(name="zamba2-2.7b", arch="zamba2-2.7b", h3=False),
+    dict(name="xlstm-350m", arch="xlstm-350m", h3=False),
+    dict(name="zamba2-2.7b_long", arch="zamba2-2.7b", h3=False, long=True, steps=12),
+    dict(name="zamba2-2.7b_long_pods", arch="zamba2-2.7b", h3=False, long=True, steps=12, mesh="2x2x2"),
+    dict(name="xlstm-350m_long", arch="xlstm-350m", h3=False, long=True, steps=4),
 ]
 BY_NAME = {c["name"]: c for c in CASES}
 WORKER = os.path.join(os.path.dirname(__file__), "torch_serve_worker.py")
@@ -75,9 +90,11 @@ WORKER = os.path.join(os.path.dirname(__file__), "torch_serve_worker.py")
 def _inputs(case):
     """The prompt [B, PROMPT] (a VLM's after its patches [B, P, d_model])
     and two decode steps' tokens [B, 1]; an encoder's frames [B, PROMPT,
-    frontend_dim]."""
+    frontend_dim]; a ``long`` case's steps' tokens [1, 1]."""
     rng = np.random.default_rng(11)
     cfg = get_config(case["arch"]).reduced()
+    if case.get("long"):
+        return {f"step{i}": rng.integers(0, cfg.vocab, size=(1, 1)).astype(np.int32) for i in range(case["steps"])}
     if cfg.encoder_only:
         return {"frames": rng.standard_normal((B, PROMPT, cfg.frontend_dim)).astype(np.float32)}
     draw = lambda shape: rng.integers(0, cfg.vocab, size=shape).astype(np.int32)  # noqa: E731
@@ -117,6 +134,8 @@ def _reference(name, package):
     out = {}
     cfg = _cfg(case)
     max_len = MAX_LEN + cfg.num_patches
+    if case.get("long"):
+        return _long_reference(case, cfg, named, inp, package)
     if package == "port":
         model = build_model(cfg)
         params = from_numpy(named, "cpu")
@@ -149,6 +168,33 @@ def _reference(name, package):
     return out
 
 
+def _long_reference(case, cfg, named, inp, package):
+    """A ``long`` case's steps from an empty cache on one device (the
+    hybrid's over its ring cache), by the port or the JAX package."""
+    ring = cfg.family == "hybrid"
+    kw = dict(ring=True) if ring else {}
+    out = {}
+    if package == "port":
+        model = build_model(cfg)
+        params = from_numpy(named, "cpu")
+        with torch.no_grad():
+            cache = model.init_cache(1, MAX_LEN, torch.float32, "cpu", **kw)
+            for i in range(case["steps"]):
+                logits, cache = model.decode(params, cache, torch.from_numpy(inp[f"step{i}"]).long(), i, **kw)
+                out[f"step{i}/logits"] = logits.numpy()
+                out.update({f"step{i}/{k}": t.numpy().copy() for k, t in cache_entries(cache).items()})
+        return out
+    jm = jax_build_model(_jax_cfg(case))
+    tree = _jax_tree(jm, named)
+    cache = jm.init_cache(1, MAX_LEN, jnp.float32, **kw)
+    decode = jax.jit(functools.partial(jm.decode, **kw))
+    for i in range(case["steps"]):
+        logits, cache = decode(tree, cache, jnp.asarray(inp[f"step{i}"]), jnp.asarray(i))
+        out[f"step{i}/logits"] = np.asarray(logits)
+        out.update({f"step{i}/{k}": np.asarray(t) for k, t in cache_entries(cache).items()})
+    return out
+
+
 @pytest.mark.parametrize("package", ["port", "jax"])
 @pytest.mark.parametrize("name", list(BY_NAME))
 def test_sharded_prefill_and_decode_equal_one_device(gloo_serve, name, package):
@@ -163,7 +209,8 @@ def test_sharded_prefill_and_decode_equal_one_device(gloo_serve, name, package):
         assert _rel_l2(g, w) <= tol, (key, _rel_l2(g, w))
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in CASES if not get_config(c["arch"]).encoder_only])
+@pytest.mark.parametrize("name", [c["name"] for c in CASES if not get_config(c["arch"]).encoder_only
+                                  and not c.get("long")])
 def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
     """Each rank holds its block of the cache, never the whole cache: a
     GQA cache's batch over the 2-way data axis and its KV heads or
@@ -177,6 +224,17 @@ def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
     layers = cfg.num_layers - (cfg.moe.first_dense if cfg.moe else 0)
     for info in infos:
         entries = info[f"{name}/cache"]
+        if cfg.family in ("hybrid", "ssm"):
+            # the recurrent states' batch over the data axis, their heads (the conv rows' channels) over the model
+            # axis; the hybrid's shared block decoded on each rank's batch block, every slot
+            for key, entry in entries.items():
+                assert entry["local"][0] == entry["global"][0], key  # the stacked layers whole
+                assert np.prod(entry["local"]) * WORLD == np.prod(entry["global"]), (key, entry)
+            calls = info[f"{name}/decode_attention"]
+            assert len(calls) == (2 * cfg.num_layers // cfg.ssm.shared_block_every if cfg.ssm else 0)
+            for q, k in calls:
+                assert q[0] == B // 2 and k[0] == B // 2 and k[2] == MAX_LEN
+            continue
         if cfg.mla is None:
             assert set(entries) == {"k", "v"}
             for entry in entries.values():
@@ -217,39 +275,81 @@ def test_the_encode_attends_on_each_ranks_batch_block(gloo_serve):
             assert q == [B // 2, cfg.num_heads, PROMPT, cfg.resolved_head_dim] and k == q
 
 
-# -- the families without a sharded path ----------------------------------------------------
+# -- batch 1 under LONG_SERVE_RULES ------------------------------------------------------------
 
 
-@pytest.fixture()
-def smoke_mesh():
-    import torch.distributed as dist
-
-    from repro_torch.launch import make_smoke_mesh
-
-    mesh = make_smoke_mesh("cpu")
-    yield mesh
-    dist.destroy_process_group()
+def _sharded_dims(placements):
+    """The tensor dimension each mesh dimension shards (None: replicated),
+    from the placements' text (``Shard(dim=3)`` or ``S(3)`` by the
+    release)."""
+    return [int(re.search(r"\d+", p).group()) if p.startswith("S") else None for p in placements]
 
 
-@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"), ("xlstm-350m", "ssm")])
-def test_other_families_refuse_sharded_serving_by_name(smoke_mesh, arch, family):
-    """Prefill and decode of DTensor parameters raise
-    ``NotImplementedError`` naming the family and "the sharded serving and
-    train steps"; with plain parameters they serve as before."""
-    from repro_torch.models.params import init_params
-    from repro_torch.sharding import SERVE_RULES, place_tree
+def test_the_ring_lies_sharded_along_its_slots_and_merges_by_log_sum_exp(gloo_serve):
+    """zamba2's ring cache [groups, 1, Hkv, 8, hd] lies sharded along its
+    slots over the data axis (4 slots a rank) and its KV heads over the
+    model axis, on every rank. Each rank attended over the valid slots of
+    its own block only: the first data rank (slots 0-3) at every step,
+    ``min(step + 1, 4)`` of them; the second (slots 4-7) from step 4 on,
+    ``min(step - 3, 4)``, and not at all before (its block held no valid
+    slot: no launch, an lse of -inf in the merge). One more step counted at
+    a window of 8 and of 64 slots issues the same collectives, kind for
+    kind and byte for byte: nothing that grows with the ring crosses the
+    ranks."""
+    _, infos = gloo_serve
+    cfg = _cfg(BY_NAME["zamba2-2.7b_long"])
+    hkv, hd, groups = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers // cfg.ssm.shared_block_every
+    for rank, info in enumerate(infos):
+        rec = info["zamba2-2.7b_long"]
+        for key in ("attn/k", "attn/v"):
+            entry = rec["cache"][key]
+            assert entry["global"] == [groups, 1, hkv, 8, hd]
+            assert _sharded_dims(entry["placements"]) == [3, 2], entry  # slots over data, KV heads over model
+            assert entry["local"] == [groups, 1, hkv // 4, 4, hd]
+        first = rank // 4 * 4  # the data rank's first slot
+        want = [[i, min(i + 1 - first, 4), [1, hkv // 4, 4, hd]] for i in range(12) for _ in range(groups)
+                if i + 1 > first]
+        assert rec["ring_calls"] == want, (rank, rec["ring_calls"])
+        counted = rec["ring_collectives"]
+        assert counted["8"] == counted["64"], counted
+        assert counted["8"]["counts"]["all-gather"] >= groups  # the merges' gathers of (out, lse)
 
-    cfg = get_config(arch).reduced()
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    placed = place_tree(params, dict(decoder_specs(cfg)), SERVE_RULES, smoke_mesh)
-    model = build_model(cfg)
-    match = rf"{cfg.name} \({family} family.*the sharded serving and train steps"
-    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8))}
-    with torch.no_grad():
-        with pytest.raises(NotImplementedError, match=match):
-            model.prefill(placed, batch)
-        logits, cache, n = model.prefill(params, batch, max_len=8 + 1)
-        with pytest.raises(NotImplementedError, match=match):
-            model.decode(placed, cache, torch.randint(0, cfg.vocab, (2, 1)), n)
-        logits, _ = model.decode(params, cache, torch.randint(0, cfg.vocab, (2, 1)), n)
-    assert torch.isfinite(logits).all()
+
+def test_the_xlstm_long_states_lie_placed_by_their_heads(gloo_serve):
+    """xlstm-350m at batch 1: each recurrent state's heads over the 4-way
+    model axis (the batch of 1 whole), on every rank."""
+    _, infos = gloo_serve
+    for info in infos:
+        entries = info["xlstm-350m_long"]["cache"]
+        assert set(entries) == {"mlstm/c", "mlstm/n", "mlstm/m", "slstm/h", "slstm/c", "slstm/n", "slstm/m"}
+        for key, entry in entries.items():
+            assert np.prod(entry["local"]) * 4 == np.prod(entry["global"]), (key, entry)
+            heads = {"mlstm": 3, "slstm": 2}[key.split("/")[0]]  # past the stacked layers and the batch
+            assert _sharded_dims(entry["placements"]) == [None, heads], (key, entry)
+
+
+def test_the_ring_over_pod_and_data_merges_one_mesh_dimension_at_a_time(gloo_serve):
+    """On the 2x2x2 ``("pod", "data", "model")`` mesh zamba2's ring cache
+    [groups, 1, Hkv, 8, hd] lies sharded along its slots over the pod and
+    the data axes (block ``2 * pod + data`` of 2 slots on each rank) and
+    its KV heads over the model axis. Each rank attended over the valid
+    slots of its own block only, none before the ring reached it. For the
+    first 2 steps the pod merge of blocks 1 and 3 sees no valid slot at
+    all, and the steps' logits still equal the one-device port's
+    (``test_sharded_prefill_and_decode_equal_one_device``)."""
+    _, infos = gloo_serve
+    cfg = _cfg(BY_NAME["zamba2-2.7b_long_pods"])
+    hkv, hd, groups = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers // cfg.ssm.shared_block_every
+    for rank, info in enumerate(infos):
+        rec = info["zamba2-2.7b_long_pods"]
+        for key in ("attn/k", "attn/v"):
+            entry = rec["cache"][key]
+            assert entry["global"] == [groups, 1, hkv, 8, hd]
+            assert _sharded_dims(entry["placements"]) == [3, 3, 2], entry  # slots over pod and data
+            assert entry["local"] == [groups, 1, hkv // 2, 2, hd]
+        first = 2 * (2 * (rank // 4) + rank // 2 % 2)  # the block's first slot
+        want = [[i, min(i + 1 - first, 2), [1, hkv // 2, 2, hd]] for i in range(12) for _ in range(groups)
+                if i + 1 > first]
+        assert rec["ring_calls"] == want, (rank, rec["ring_calls"])
+        counted = rec["ring_collectives"]
+        assert counted["8"] == counted["64"], counted

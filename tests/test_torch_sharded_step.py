@@ -24,8 +24,12 @@ across with the port's ``from_numpy``. The checks:
   microbatches (``accum=2``) and its GRPO step (``make_grpo_step``); and
   reduced deepseek-v3 (MLA on each rank's block of the query heads, its
   dense prefix layer and shared expert) with H3 off and on, internvl2-2b
-  (its patches placed before the tokens, the loss past them) and
-  hubert-xlarge (frames, targets and mask placed; masked prediction);
+  (its patches placed before the tokens, the loss past them),
+  hubert-xlarge (frames, targets and mask placed; masked prediction),
+  zamba2-2.7b (the hybrid: its Mamba2 scans on each rank's batch and
+  heads, recomputed in the backward, its shared block's attention) and
+  xlstm-350m (its mLSTM and sLSTM recurrences on each rank's batch and
+  heads);
 * (2) under H1 (``shard_attn_heads``), the forward of a reduced llama3-8b
   with 8 query and 2 KV heads (K/V do not divide the 4-way model axis, so
   they are broadcast) equals the port's plain forward, the JAX plain
@@ -39,9 +43,6 @@ across with the port's ``from_numpy``. The checks:
 * (4) ``global_norm`` and ``AdamW.update`` on DTensors equal the plain ones
   bit for bit on every rank (the gradients are multiples of 1/8, so every
   order of their squares' sums is exact).
-
-In this process, on the 1x1 gloo smoke mesh: the hybrid and the xLSTM
-refuse DTensor parameters by name.
 """
 
 import dataclasses
@@ -98,6 +99,8 @@ STEP_CASES = [
     dict(name="deepseek-v3-671b_h3_on", arch="deepseek-v3-671b", placed=True, h3=True),
     dict(name="internvl2-2b_placed", arch="internvl2-2b", placed=True, h3=False),
     dict(name="hubert-xlarge_placed", arch="hubert-xlarge", placed=True, h3=False),
+    dict(name="zamba2-2.7b_placed", arch="zamba2-2.7b", placed=True, h3=False),
+    dict(name="xlstm-350m_placed", arch="xlstm-350m", placed=True, h3=False),
 ]
 CASES = {c["name"]: c for c in STEP_CASES}
 H1_CASE = dict(arch="llama3-8b", heads=[8, 2])
@@ -410,37 +413,3 @@ def test_optimizer_on_dtensors_is_bit_equal(gloo_run, what):
             label = what[len("adamw_"):]
             assert infos[rank][f"optim_{label}_bit_equal"] is True
             assert infos[rank][f"optim_{label}_steps"] == [1, 1]
-
-
-# -- the families without a sharded path ---------------------------------------------------
-
-
-@pytest.fixture()
-def smoke_mesh():
-    import torch.distributed as dist
-
-    from repro_torch.launch import make_smoke_mesh
-
-    mesh = make_smoke_mesh("cpu")
-    yield mesh
-    dist.destroy_process_group()
-
-
-@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"), ("xlstm-350m", "ssm")])
-def test_other_families_refuse_dtensor_parameters_by_name(smoke_mesh, arch, family):
-    """The hybrid and the xLSTM refuse DTensor parameters by name, in the
-    forward and so in the step; with plain parameters they run as before."""
-    from repro_torch.models.params import init_params
-    from repro_torch.sharding import TRAIN_RULES, place_tree
-
-    cfg = get_config(arch).reduced()
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    placed = place_tree(params, dict(decoder_specs(cfg)), TRAIN_RULES, smoke_mesh)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8))}
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match=rf"{cfg.name} \({family} family.*the sharded serving and train steps"):
-        model.forward(placed, batch)
-    with pytest.raises(NotImplementedError, match="the sharded serving and train steps"):
-        opt = AdamW()
-        make_train_step(model, cfg, opt)(placed, opt.init(placed), batch)
-    assert torch.isfinite(model.forward(params, batch)).all()

@@ -2,11 +2,15 @@
 
 Run as ``python tests/torch_dryrun_worker.py <workdir> <part>``: a process
 group of 256 fake ranks (``launch.dryrun.start_fake_world``) lives in this
-process only, never in a pytest worker. The test starts the three parts
+process only, never in a pytest worker, and the xLSTM models this process
+builds take an mLSTM chunk of ``MLSTM_CHUNK`` (``XLSTMLM``'s ``chunk``,
+given by ``_cut_mlstm_chunk``, as ``reduced()`` cuts the hybrid's SSD
+chunk), so that the xLSTM's length extension traces short lengths. The test starts the three parts
 side by side; each writes ``<workdir>/<part>.json``. Part ``dense``
 (llama3-8b's trips, the hand counts, the analytic prefill, the MLA decode
-layer and the leaves), part ``gated`` (gemma2-2b's, dbrx's and
-deepseek-v3's trips) and part ``all``:
+layer, the hybrid's ring decode layer, the xLSTM's length extension and
+the leaves), part ``gated`` (gemma2-2b's, dbrx's and deepseek-v3's trips)
+and part ``all``:
 
 * ``hand``: ``op_costs.analyze`` of three DTensor products and gathers on
   the 2x4 mesh of ranks 0-7 (fake tensors), for the hand counts;
@@ -18,12 +22,19 @@ deepseek-v3's trips) and part ``all``:
   mesh, beside its config, for the analytic formula;
 * ``mla_decode``: one MLA decode layer's counts on the 2x4 mesh against a
   placed latent cache of 64 and of 256 slots;
+* ``ring_decode``: one shared attention block of zamba2's ring decode on
+  the 2x4 mesh under ``LONG_SERVE_RULES`` (batch 1, the ring sharded along
+  its slots over the data axis) with rings of 64 and of 256 slots;
+* ``seq_trips``: a narrowed xlstm-350m's train and prefill steps at
+  ``SEQ_TRIP_TOKENS`` tokens on the 2x4 mesh, counted by ``analyze_cell``
+  (traced at cut lengths, extended) and by one trace at the whole length;
 * ``leaves``: every leaf of every live cell on the 16x16 mesh (built, not
   traced): its name, global shape and placements;
-* ``all``: ``launch.dryrun.main(["--all", ...])`` over the registry's
-  configs cut by ``reduced()`` (the families, their refusals and the
-  shapes as the registry's, the widths small): its exit code and each
-  cell's JSON record.
+* ``all``: ``launch.dryrun.main(["--all", ...])`` (``ALL_JOBS`` cells at
+  once) over the registry's
+  configs cut by ``reduced()`` (the families and the shapes as the
+  registry's, the widths small): its exit code and each cell's JSON
+  record.
 """
 
 from __future__ import annotations
@@ -42,11 +53,13 @@ def main(workdir: str, part: str) -> None:
     from repro_torch.launch import dryrun
 
     torch.set_num_threads(1)
+    _cut_mlstm_chunk()
     dryrun.start_fake_world(256)
     mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
     if part == "dense":
         out = {"hand": _hand(mesh), "trips": _trips(mesh, ("llama3-8b",)), "dense": _dense(mesh), "leaves": _leaves(),
-               "mla_decode": _mla_decode_layer(mesh)}
+               "mla_decode": _mla_decode_layer(mesh), "ring_decode": _ring_decode_layer(mesh),
+               "seq_trips": _seq_trips(mesh)}
     elif part == "gated":
         out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b", "deepseek-v3-671b"))}
     else:
@@ -177,6 +190,113 @@ def _mla_decode_layer(mesh) -> dict:
     return out
 
 
+#: the ring's slots of the hybrid's ring decode layer, two lengths
+RING_SLOTS = (64, 256)
+
+
+def _ring_decode_layer(mesh) -> dict:
+    """``op_costs.analyze`` of one shared attention block of zamba2's ring
+    decode (``HybridLM._shared_block(..., ring=True)``, reduced zamba2: 4
+    query and 4 KV heads of 16) on fake f32 blocks placed by
+    ``LONG_SERVE_RULES`` on the 2x4 mesh: the block's parameters, the step's
+    input ``[1, 1, d_model]`` and a ring of ``RING_SLOTS`` slots (its slots
+    over the 2-way data axis, its KV heads over the 4-way model axis), the
+    step past the ring's first turn, its output placed as its input; the
+    attention through the kernel operator with the log-sum-exp (its fake).
+    By ring length: the counts, and the calls the operator saw."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.launch import op_costs
+    from repro_torch.models.lm import HybridLM, mesh_scope
+    from repro_torch.models.params import decoder_specs, spec
+    from repro_torch.sharding import LONG_SERVE_RULES, place_new
+
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def block(shape):
+        with fake:
+            return torch.empty(shape, dtype=torch.float32)
+
+    out = {}
+    for slots in RING_SLOTS:
+        cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(), sliding_window=slots)
+        seen = []
+
+        def attention(q, k, v, **kw):
+            if kw.get("with_lse"):
+                seen.append([list(q.shape), list(k.shape), kw["kv_len"]])
+            return flash_attention_op(q, k, v, **kw)
+
+        model = HybridLM(cfg, attention=attention)
+        specs = {n: sp for n, sp in decoder_specs(cfg) if n.startswith(("shared_attn/", "shared_mlp/"))}
+        params = place_new(specs, LONG_SERVE_RULES, mesh, block)
+        x = place_new(spec((1, 1, cfg.d_model), ("batch", None, "act_embed")), LONG_SERVE_RULES, mesh, block)
+        kv = spec((1, cfg.num_kv_heads, slots, cfg.resolved_head_dim), ("batch", "kv_heads", "seq", "head_dim"))
+        cache = place_new({"k": kv, "v": kv}, LONG_SERVE_RULES, mesh, block)
+        cache_len = 3 * slots + 5
+
+        def step(p, x, c):
+            with mesh_scope(p):
+                positions = cache_len + torch.arange(1, device=x.device)
+                y, _ = model._shared_block(model._shared(p), x, positions, cache=c, cache_len=cache_len, ring=True)
+                return y.redistribute(mesh, x.placements)
+
+        costs = op_costs.analyze(step, params, x, cache)
+        out[str(slots)] = {"costs": costs.as_dict(), "calls": seen,
+                           "placements": [str(p) for p in cache["k"].placements],
+                           "cfg": {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+                                   "head_dim": cfg.resolved_head_dim}}
+    return out
+
+
+#: the mLSTM's chunk of the xLSTM models this process builds (the JAX
+#: package's is 256): the period of the xLSTM's length extension, so the
+#: lengths traced stay short
+MLSTM_CHUNK = 16
+
+
+def _cut_mlstm_chunk() -> None:
+    """Every xLSTM model this process builds (``models.build_model``, as
+    ``launch.cells`` builds a cell's model) takes ``chunk=MLSTM_CHUNK``."""
+    from repro_torch import models
+    from repro_torch.configs.base import SSM
+
+    build = models.build_model
+
+    def cut(cfg, **kw):
+        return build(cfg, **({"chunk": MLSTM_CHUNK, **kw} if cfg.family == SSM else kw))
+
+    models.build_model = cut
+#: the narrowed xlstm-350m of the length extension's trips, and its cases
+SEQ_TRIP_LAYERS = 2
+SEQ_TRIP_TOKENS = 10 * MLSTM_CHUNK
+
+
+def _seq_trips(mesh) -> dict:
+    """A narrowed xlstm-350m (one mLSTM and one sLSTM block) at
+    ``SEQ_TRIP_TOKENS`` tokens, train and prefill, on the 2x4 mesh:
+    ``analyze_cell``'s counts (cut lengths, extended) beside one trace at
+    the whole length."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import cells, op_costs
+
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(), num_layers=SEQ_TRIP_LAYERS)
+    out = {}
+    for shape, case in (("prefill_32k", ShapeCase("prefill_32k", SEQ_TRIP_TOKENS, 4, "prefill")),
+                        ("train_4k", ShapeCase("train_4k", SEQ_TRIP_TOKENS, 8, "train"))):
+        t0 = time.perf_counter()
+        ext = op_costs.analyze_cell("xlstm-350m", shape, mesh, cfg=cfg, case=case)
+        full = cells.build_cell("xlstm-350m", shape, mesh, cfg=cfg, case=case).trace(mesh)
+        out[shape] = {"extended": ext["costs"].as_dict(), "full": full["costs"].as_dict(),
+                      "seq_lens": ext.get("seq_lens"), "seq_times": ext.get("seq_times"), "tokens": case.seq_len,
+                      "seconds": time.perf_counter() - t0}
+    return out
+
+
 def _leaves() -> dict:
     """Every leaf of every live cell on the 16x16 mesh (built, not traced)."""
     from repro_torch.launch import cells, dryrun
@@ -202,8 +322,13 @@ def _leaves() -> dict:
     return out
 
 
+#: the cells ``--all`` traces at once (forked processes)
+ALL_JOBS = 2
+
+
 def _all(workdir: str) -> dict:
-    """``dryrun.main(["--all", ...])`` with every config cut by ``reduced()``."""
+    """``dryrun.main(["--all", ..., "--jobs", ALL_JOBS])`` with every config
+    cut by ``reduced()``."""
     from repro_torch import configs
     from repro_torch.launch import cells, dryrun
 
@@ -215,7 +340,7 @@ def _all(workdir: str) -> dict:
     for mod in (configs, dryrun, cells):
         mod.get_config = reduced
     out_dir = os.path.join(workdir, "all")
-    rc = dryrun.main(["--all", "--mesh", "single", "--out", out_dir])
+    rc = dryrun.main(["--all", "--mesh", "single", "--out", out_dir, "--jobs", str(ALL_JOBS)])
     recs = {}
     for fn in sorted(os.listdir(out_dir)):
         with open(os.path.join(out_dir, fn)) as fh:
