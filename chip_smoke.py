@@ -297,11 +297,15 @@ lines, any failure exiting non-zero:
    (cuDNN where it takes the call) and their bounds.
 
 20. The dry run and its cost model (``cost_model``): (a) the dry run
-   (``launch.dryrun.run_cell``) of llama3-8b's three cells and dbrx-132b's
-   ``train_4k`` on the faked 16x16 mesh, in a process of its own on the
-   host's CPU started with the script (``--dryrun``), each cell's counts,
-   three terms and fractions printed, a cell that does not trace failing
-   the run; (b) llama3-8b's ``prefill_32k`` (1 sequence, 32 layers),
+   (``launch.dryrun.run_cell``) of ``DRYRUN_CELLS`` (llama3-8b's three
+   cells, dbrx-132b's ``train_4k`` and a decode or prefill of each other
+   family) on the faked 16x16 mesh, in a process of its own on the host's
+   CPU started with the script (``--dryrun``), each cell's counts, three
+   terms and fractions printed, a cell that does not trace failing the
+   run, and zamba2-2.7b's ``decode_32k`` and deepseek-v3-671b's under H3
+   held to the JAX package's own collective bytes
+   (``REFERENCE_COLLECTIVE_BYTES``, ``dryrun_gate_bytes``:
+   ``cost_model_parity`` lines); (b) llama3-8b's ``prefill_32k`` (1 sequence, 32 layers),
    ``decode_32k`` (8 sequences, 32768 slots) and ``train_4k`` (2 x 4096, 4
    layers) on the 1x1 NCCL smoke mesh through the cells' step functions
    and the kernel operators (bit-equal to the default path at one layer),
@@ -6754,10 +6758,30 @@ def g1_attention_times(torch, dev, bw: float, shape) -> dict:
 # -- phase 20: the dry run and its cost model -------------------------------------------
 
 #: (a): the cells the dry run traces on the faked 16x16 mesh, in a process of
-#: its own on the host's CPU, started with the script and read in phase 20
-DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
-                ("dbrx-132b", "train_4k"), ("deepseek-v3-671b", "decode_32k"), ("internvl2-2b", "decode_32k"),
-                ("hubert-xlarge", "prefill_32k"), ("zamba2-2.7b", "long_500k"), ("xlstm-350m", "decode_32k"))
+#: its own on the host's CPU, started with the script and read in phase 20:
+#: (arch, shape, the ``--opt`` flags)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", ()), ("llama3-8b", "prefill_32k", ()), ("llama3-8b", "decode_32k", ()),
+                ("dbrx-132b", "train_4k", ()), ("deepseek-v3-671b", "decode_32k", ()),
+                ("internvl2-2b", "decode_32k", ()), ("hubert-xlarge", "prefill_32k", ()),
+                ("zamba2-2.7b", "long_500k", ()), ("xlstm-350m", "decode_32k", ()),
+                ("zamba2-2.7b", "decode_32k", ()), ("deepseek-v3-671b", "decode_32k", ("shardmap_moe",)))
+#: collective bytes a device a step that the JAX package's own dry run
+#: (``python -m repro.launch.dryrun``, XLA's cost analysis of the compiled
+#: program, JAX 0.9.0 on a CPU host) counts for two of those cells on the
+#: 16x16 mesh. The machine with the card has no JAX, so they are constants
+#: here; ``tests/test_torch_dryrun_reference.py`` computes them afresh
+REFERENCE_COLLECTIVE_BYTES = {("zamba2-2.7b", "decode_32k", ()): 9_866_432,
+                              ("deepseek-v3-671b", "decode_32k", ("shardmap_moe",)): 177_442_750_464}
+
+
+def dryrun_gate_bytes(cell: tuple) -> float:
+    """The most collective bytes a device a step that phase 20 lets the
+    port's dry run count for ``cell``: the parity bound, 3 x the JAX
+    package's figure + 64 MB (the slack covers counting eager ops against
+    a fused HLO, not layouts), and under H3 the JAX package's figure
+    itself (each rank gathers its 16 experts of a layer, the JAX H3 more)."""
+    ref = REFERENCE_COLLECTIVE_BYTES[cell]
+    return float(ref) if "shardmap_moe" in cell[2] else 3.0 * ref + 64e6
 DRYRUN_TIMEOUT = 900.0  # seconds the script waits for the dry run at phase 20 (it runs beside phases 2-19)
 DRYRUN_THREADS = 2  # its intra-op threads: the phases beside it keep the host's other cores
 #: (b): llama3-8b's three cells on the card, cut to it: shape -> (batch, layers).
@@ -6784,11 +6808,12 @@ def dryrun_child_main(argv) -> int:
     torch.set_num_threads(DRYRUN_THREADS)
     start_fake_world(256)
     ok = True
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, opts in DRYRUN_CELLS:
         try:
-            rec = run_cell(arch, shape, multi_pod=False, verbose=False)
+            rec = run_cell(arch, shape, multi_pod=False, verbose=False, opt={o: True for o in opts})
         except Exception as e:  # noqa: BLE001 - reported, and the parent fails the run on it
-            rec = {"arch": arch, "shape": shape, "ok": False, "error": f"{type(e).__name__}: {e}"}
+            rec = {"arch": arch, "shape": shape, "opt": {o: True for o in opts}, "ok": False,
+                   "error": f"{type(e).__name__}: {e}"}
             ok = False
         emit("dryrun_cell", **rec)
     return 0 if ok else 1
@@ -7002,7 +7027,9 @@ def cost_model(torch, dev, counters, smi: str, bw: float, child) -> dict:
     run's records of ``DRYRUN_CELLS`` on the faked 16x16 mesh (its process
     started with the script, :func:`finish_dryrun`): each cell's counts,
     three terms, dominant term and fractions printed; a cell that does not
-    trace fails the run. (b) llama3-8b's three cells at its published
+    trace fails the run, and so does a cell of
+    ``REFERENCE_COLLECTIVE_BYTES`` whose collective bytes pass its gate
+    (:func:`dryrun_gate_bytes`). (b) llama3-8b's three cells at its published
     widths, cut to the card (``CARD_CELLS``), on the 1x1 NCCL smoke mesh
     through the cells' model (the attention through the kernel operators)
     and step functions: first each cell's step at one layer with the
@@ -7037,8 +7064,17 @@ def cost_model(torch, dev, counters, smi: str, bw: float, child) -> dict:
     t_phase = time.perf_counter()
     dry = finish_dryrun(child)
     for r in dry:
+        cell = (r["arch"], r["shape"], tuple(sorted(r["opt"])))
+        if cell in REFERENCE_COLLECTIVE_BYTES:
+            gate = dryrun_gate_bytes(cell)
+            emit("cost_model_parity", arch=r["arch"], shape=r["shape"], opt=r["opt"], torch=r["torch"],
+                 collective_bytes_per_device=r["collective_bytes_per_device"],
+                 reference_collective_bytes=REFERENCE_COLLECTIVE_BYTES[cell], gate_bytes=gate,
+                 ratio=r["collective_bytes_per_device"] / REFERENCE_COLLECTIVE_BYTES[cell])
+            check(r["collective_bytes_per_device"] <= gate,
+                  f"phase 20 {cell}: {r['collective_bytes_per_device']:.4g} collective bytes a device, gate {gate:.4g}")
         emit("cost_model_dryrun", card=smi, torch=r["torch"], arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
-             trace_s=r["trace_s"],
+             opt=r["opt"], trace_s=r["trace_s"],
              depths=r["depths"], flops_per_device=r["flops_per_device"], hbm_bytes_per_device=r["hbm_bytes_per_device"],
              collective_counts=r["collective_counts"], collective_bytes=r["collective_bytes"],
              collective_bytes_by_link=r["collective_bytes_by_link"], compute_s=r["compute_s"],

@@ -151,6 +151,12 @@ def _traced(arch: str, shape: str, multi: bool, opt: dict) -> Dict[str, Any]:
                 "ok": False, "error": f"{type(e).__name__}: {e}"}
 
 
+def _indexed(task) -> tuple:
+    """``(i, _traced(*args))`` of ``task = (i, args)``."""
+    i, args = task
+    return i, _traced(*args)
+
+
 #: the order the cells are handed out in: the longest traces first
 _KIND_ORDER = ("train", "prefill", "decode")
 
@@ -194,16 +200,17 @@ def main(argv=None) -> int:
                 continue
             tasks.append((tag, out_path, (arch, shape, multi, opt)))
     tasks.sort(key=lambda t: _KIND_ORDER.index(SHAPES[t[2][1]].kind))
-    with multiprocessing.get_context("fork").Pool(args.jobs) as pool:
-        results = pool.starmap(_traced, [t[2] for t in tasks], chunksize=1)
     failures = []
-    for (tag, out_path, _), result in zip(tasks, results):
-        if not result["ok"]:
-            failures.append(tag)
-        if out_path:
-            os.makedirs(args.out, exist_ok=True)
-            with open(out_path, "w") as f:
-                json.dump(result, f, indent=1)
+    with multiprocessing.get_context("fork").Pool(args.jobs) as pool:
+        # each record written as its cell finishes: a run cut short keeps what it traced
+        for i, result in pool.imap_unordered(_indexed, list(enumerate(t[2] for t in tasks)), chunksize=1):
+            tag, out_path, _ = tasks[i]
+            if not result["ok"]:
+                failures.append(tag)
+            if out_path:
+                os.makedirs(args.out, exist_ok=True)
+                with open(out_path, "w") as f:
+                    json.dump(result, f, indent=1)
     if failures:
         print(f"\nFAILED cells: {failures}")
         return 1

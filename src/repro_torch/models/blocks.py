@@ -169,30 +169,51 @@ def attn_apply(
 def _attend(attention: Callable[..., torch.Tensor], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             h1: bool = True, **kw) -> torch.Tensor:
     """``attention(q, k, v, **kw)``; DTensors attend on each rank's local
-    block, ``[B/dp, H/tp, S, hd]`` under H1 (q, k and v placed on the query
-    heads by :func:`optim.shard_attn`) and ``[B/dp, H, S, hd]`` without it
-    (the heads replicated over the model axis: the whole attention on
-    every model rank, as GSPMD runs it), the batch over the flags' batch
-    axes where it divides (:func:`optim.attn_spec`). The attention function
-    sees plain tensors; the result is a DTensor placed as its inputs.
+    block. Under H1 that is ``[B/dp, H/tp, S, hd]``: q, k and v placed on
+    the query heads by :func:`optim.shard_attn`. Without it the attention
+    runs on k's own blocks (:func:`_kv_blocks`): k's batch as k lies, its
+    KV heads over the model axis where they divide it, and the query heads
+    in the same contiguous blocks, so a rank's ``G * Hkv / tp`` query
+    heads are those of its ``Hkv / tp`` KV heads.
     ``h1=False`` (a decode step: a cache's KV heads, never broadcast) takes
-    the second placement whatever the flags say. A decode step's cache is
-    redistributed to it: a cache whose head_dim the rules shard (KV heads
-    that do not divide the model axis) is gathered over that axis, every
-    step, layer by layer."""
+    the second placement whatever the flags say. A decode step's cache
+    then stays where it lies wherever the rules put its KV heads over the
+    model axis. Where they put its head_dim there (KV heads that do not
+    divide the model axis: llama3-8b's 8 on 16 ranks), the cache is
+    gathered over that axis every step, layer by layer, as the JAX
+    package's partitioner also gathers it. The attention function sees
+    plain tensors; the result is a DTensor placed as its inputs."""
     if not optim.is_dtensor(q):
         return attention(q, k, v, **kw)
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.sharding.rules import placements_for
-
     mesh = q.device_mesh
-    if h1 and optim.broadcast_kv_active():
-        placements = q.placements
-    else:
-        placements = placements_for(optim.attn_spec(tuple(q.shape), mesh, heads=False), mesh)
+    placements = q.placements if h1 and optim.broadcast_kv_active() else _kv_blocks(k)
     q, k, v = (t.redistribute(mesh, placements).to_local() for t in (q, k, v))
     return DTensor.from_local(attention(q, k, v, **kw), mesh, placements, run_check=False)
+
+
+def _kv_blocks(k: torch.Tensor) -> tuple:
+    """The placements of attention without H1, from k ``[B, Hkv, S, hd]``
+    (a DTensor): its KV heads over the model axis where they divide it
+    (:func:`optim.attn_spec`), its batch as k lies where k's batch is split
+    evenly (a cache's, by the rules: over the data axis alone where the
+    batch does not divide pod x data), else over the flags' batch axes
+    where it divides them; every other dimension whole (a sharded slot or
+    head_dim gathered, a partial sum reduced). Applied to q ``[B, G * Hkv,
+    S, hd]`` too, whose heads then fall in the same contiguous blocks as
+    their KV heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.rules import placements_for
+
+    mesh = k.device_mesh
+    placements = placements_for(optim.attn_spec(tuple(k.shape), mesh), mesh)
+    lies = [i for i, p in enumerate(k.placements) if p.is_shard(0)]
+    if lies and k.shape[0] % math.prod(mesh.size(i) for i in lies) == 0:
+        placements = tuple(Shard(0) if i in lies else Replicate() if p.is_shard(0) else p
+                           for i, p in enumerate(placements))
+    return placements
 
 
 class LocalHeads:
@@ -447,10 +468,11 @@ class _HeadBlocks:
     projections put them (``wq_b``, ``wkv_b_k`` and ``wkv_b_v`` are
     ``q_heads`` columns), over the model axis where they divide it, and the
     batch over the flags' batch axes (:func:`optim.attn_spec`). Unlike a
-    dense GQA layer's (:func:`_attend` without H1, as GSPMD runs it), the
-    heads are not gathered: MLA's K and V are per head and the latent and
-    rope key whole on every model rank, so each rank builds its heads' keys
-    from them. On plain tensors every method is the identity."""
+    dense GQA layer whose KV heads do not divide the model axis
+    (:func:`_attend` without H1), nothing is gathered: MLA's K and V are
+    per head and the latent and rope key whole on every model rank, so
+    each rank builds its heads' keys from them. On plain tensors every
+    method is the identity."""
 
     def __init__(self, q: torch.Tensor):
         self.mesh = q.device_mesh if optim.is_dtensor(q) else None
@@ -571,17 +593,17 @@ def route(
 
 
 def dispatch(
-    top_e: torch.Tensor, num_experts: int, cap: int, experts: Optional[Tuple[int, int]] = None
+    top_e: torch.Tensor, num_experts: int, cap: int, experts: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(order, dest)`` of the ``T * k`` (token, slot) pairs of ``top_e``
     (pair ``i`` is token ``i // k``'s slot ``i % k``): ``order`` sorts them
     by expert, stably (as ``jnp.argsort``: which pairs overflow depends on
     it), and ``dest[j]`` is sorted pair ``j``'s row of the ``[E * cap]``
     expert buffer, its expert's first free row, or the waste row ``E * cap``
-    once the expert holds ``cap`` pairs (dropped). ``experts = (first,
-    count)`` keeps a buffer of those ``count`` experts only (``[count *
-    cap]``, H3's local experts): every other expert's pairs go to its waste
-    row ``count * cap``."""
+    once the expert holds ``cap`` pairs (dropped). ``experts``, a 1-D
+    tensor of ``count`` expert ids, keeps a buffer of those experts only,
+    in that order (``[count * cap]``, H3's local experts): every other
+    expert's pairs go to its waste row ``count * cap``."""
     # DTensor has no searchsorted: the routing indices, whole on every rank
     # (the gathers by them then take the tokens whole too, so with H3 off
     # the MoE runs in full on every data rank)
@@ -595,9 +617,12 @@ def dispatch(
     pos_in_e = ar - group_start[e_sorted]  # each pair's place in its expert's group
     if experts is None:
         return order, torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e, num_experts * cap)
-    first, count = experts
-    keep = (e_sorted >= first) & (e_sorted < first + count) & (pos_in_e < cap)
-    return order, torch.where(keep, (e_sorted - first) * cap + pos_in_e, count * cap)
+    count = experts.numel()
+    local_of = torch.full((num_experts,), -1, dtype=e_sorted.dtype, device=e_sorted.device)
+    local_of[experts.to(e_sorted.device)] = torch.arange(count, dtype=e_sorted.dtype, device=e_sorted.device)
+    slot = local_of[e_sorted]
+    keep = (slot >= 0) & (pos_in_e < cap)
+    return order, torch.where(keep, slot * cap + pos_in_e, count * cap)
 
 
 class DroppedPairs:
@@ -738,8 +763,11 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     ``optim.FLAGS.mesh``, the JAX package's ``moe_apply_shardmap``.
 
     Each rank dispatches only its LOCAL tokens (x's batch sharded over the
-    flags' batch axes), runs only its ``E / tp`` LOCAL experts (sharded over
-    the model axis), sends every other pair to its drop row, combines in f32
+    flags' batch axes), runs only its ``E / tp`` LOCAL experts (the model
+    rank's contiguous block; where the rules split the experts over other
+    mesh axes too, as ``SERVE_RULES`` do, the strided set that one
+    all-gather over those axes delivers), sends every other pair to its
+    drop row, combines in f32
     and sums once over the model axis's process group (``all_reduce``). The
     shared expert is added after the sum. Falls back to :func:`moe_apply`
     on the whole tensors where the JAX code does (``tp <= 1``, ``E % tp``, a
@@ -760,7 +788,7 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     sharded over the model axis, so DTensor sums them where their
     parameters are placed. The fallback is :func:`moe_apply`'s autograd on
     tensors replicated on every rank."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.sharding.rules import mesh_axis_sizes, placements_for
 
@@ -803,8 +831,38 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
         return tuple(Partial() if a in bdims else q for a, q in zip(names, spec))
 
     experts = ("w_gate", "w_up", "w_down")
-    lp = {n: local(t, (f.model_axis, None, None) if n in experts else (None,) * t.ndim, grad_of(n))
-          for n, t in p.items()}
+    mi, m = names.index(f.model_axis), mesh.get_local_rank(f.model_axis)
+    w = p["w_gate"]
+    split = [i for i, q in enumerate(w.placements) if q.is_shard(0)] if isinstance(w, DTensor) else []
+    if mi in split and len(split) > 1:  # the experts over the model axis and others: a strided set
+        ways = [mesh.size(i) for i in split]
+        ids = torch.arange(E).view(*ways, E // math.prod(ways)).select(split.index(mi), m).reshape(-1)
+    else:
+        ids, split = torch.arange(m * e_loc, (m + 1) * e_loc), []
+
+    def local_experts(n: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's experts ``ids`` of the expert weight ``n``, ``t``
+        ``[E, ...]``. Where the rules split the experts over the model axis
+        and other mesh axes too (``SERVE_RULES``' ``("data", "model")``:
+        expert ``e`` on data rank ``e // (E / dp)`` and model rank ``e // c
+        % tp``, ``c`` experts a device), the experts are viewed ``[n_1, ..,
+        n_k, c, ...]``, one view dimension a splitting mesh axis, and
+        gathered over every mesh axis but the model axis: this model rank's
+        experts on each of them, one all-gather, never the layer's ``E``.
+        Else the model rank's contiguous block of ``E / tp``."""
+        if not split:
+            return local(t, (f.model_axis, None, None), grad_of(n))
+        k, block = len(split), t.to_local()
+        shape = (*ways, E // math.prod(ways), *t.shape[1:])
+        viewed = [Shard(split.index(i)) if i in split else Shard(q.dim + k) if q.is_shard() else q
+                  for i, q in enumerate(t.placements)]
+        dt = DTensor.from_local(block.view(*([1] * k), *block.shape), mesh, viewed, run_check=False, shape=shape,
+                                stride=tuple(math.prod(shape[j + 1:]) for j in range(len(shape))))
+        target = [Shard(split.index(mi)) if i == mi else Replicate() for i in range(mesh.ndim)]
+        grad = [Partial() if a in bdims else q for a, q in zip(names, target)]
+        return dt.redistribute(mesh, target).to_local(grad_placements=grad).reshape(-1, *t.shape[1:])
+
+    lp = {n: local_experts(n, t) if n in experts else local(t, (None,) * t.ndim, grad_of(n)) for n, t in p.items()}
     x_loc = local(x, xspec)
 
     b, s, d = x_loc.shape
@@ -814,8 +872,7 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     routed = _ModelCopy.apply(flat, group)
     top_p, top_e = route(cfg, {"router": _ModelCopy.apply(lp["router"], group)}, routed)
     cap = capacity(cfg, t)
-    first = mesh.get_local_rank(f.model_axis) * e_loc
-    order, dest = dispatch(top_e, E, cap, experts=(first, e_loc))
+    order, dest = dispatch(top_e, E, cap, experts=ids)
     combined = _experts_combined(lp, routed, top_p, order, dest, cap)
     out = _ModelSum.apply(combined, group).to(x_loc.dtype)
     if mo.num_shared:

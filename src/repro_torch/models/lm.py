@@ -128,37 +128,102 @@ def mesh_scope(params: Params):
 
 
 class _EmbedRows(torch.autograd.Function):
-    """``table[tokens]`` of a table placed on a mesh (a DTensor), with the
-    gradient a data-parallel step takes: the cotangent placed as the
-    tokens are (its partial sums over the model axis added), each rank's
-    rows scatter-added into a whole table of its own, that table's sum
-    over the ranks that held other tokens (partial over the tokens' mesh
-    dimensions) reduced to the table's placements. DTensor's own backward
-    of the lookup (an ``index_put`` of the partial cotangent) is refused by
-    some PyTorch releases' sharding propagation."""
+    """``table[tokens]`` of a table placed on a mesh (a DTensor), looked up
+    by vocab block, as the JAX package's partitioner runs a gather on a
+    sharded operand. The table's rows stay where they lie along the vocab
+    (its other dimensions gathered: a training table's FSDP shards); each
+    rank looks up the tokens of its own block of the batch (as the tokens
+    lie) that fall in its own rows, ids outside them giving zero rows, so
+    the lookup is a partial sum over the mesh dimensions that split the
+    vocab, reduced to the placements DTensor's own lookup gives its result
+    (:func:`_lookup_placements`; at the published widths its width split
+    over the model axis), so every op after it meets the residual stream
+    as before: a reduce-scatter or an all-reduce of ``[B/dp, S, d]``,
+    never the table. A table whose vocab no mesh dimension splits is
+    looked up whole on each rank's tokens.
+
+    The backward is the data-parallel step's gradient: the cotangent
+    placed as the tokens are, each rank's rows of its own block
+    scatter-added into a buffer of that block alone, that buffer partial
+    over the mesh dimensions that split the tokens and reduced to the
+    table's placements. DTensor's own backward of the lookup (an
+    ``index_put`` of the partial cotangent) is refused by some PyTorch
+    releases' sharding propagation."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(tokens)
-        ctx.table = (table.device_mesh, tuple(table.placements), tuple(table.shape), table.dtype)
-        return table[tokens]
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh, given = table.device_mesh, tokens
+        rows_pl = tuple(p if p.is_shard(0) else Replicate() for p in table.placements)
+        if optim.is_dtensor(tokens):
+            tok_pl = tuple(p if p.is_shard() and not r.is_shard() else Replicate()
+                           for p, r in zip(tokens.placements, rows_pl))
+            tokens = tokens.redistribute(mesh, tok_pl).to_local()
+        else:
+            tok_pl = (Replicate(),) * mesh.ndim
+        block = table.redistribute(mesh, rows_pl).to_local()
+        ids, inside = tokens, None
+        if any(r.is_shard() for r in rows_pl):  # the ids of this rank's rows, the others at row 0, masked
+            ids = tokens - compute_local_shape_and_global_offset(table.shape, mesh, rows_pl)[1][0]
+            inside = (ids >= 0) & (ids < block.shape[0])
+            ids = torch.where(inside, ids, torch.zeros_like(ids))
+        ctx.save_for_backward(ids, inside)
+        ctx.table = (mesh, tuple(table.placements), rows_pl, tok_pl, tuple(table.shape), block.shape[0], table.dtype)
+        local = block[ids]
+        if inside is not None:
+            local = torch.where(inside.unsqueeze(-1), local, torch.zeros_like(local))
+        out_shape = (*given.shape, table.shape[1])
+        out_pl = tuple(Partial() if r.is_shard() else t for r, t in zip(rows_pl, tok_pl))
+        out = DTensor.from_local(local, mesh, out_pl, run_check=False, shape=out_shape,
+                                 stride=tuple(math.prod(out_shape[i + 1:]) for i in range(len(out_shape))))
+        if inside is None:
+            return out
+        return out.redistribute(mesh, _lookup_placements(table, given))
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.distributed.tensor import DTensor, Partial
 
-        (tokens,) = ctx.saved_tensors
-        mesh, placements, shape, dtype = ctx.table
-        if optim.is_dtensor(tokens):
-            tok_pl = tuple(tokens.placements)
-            tokens = tokens.to_local()
-        else:
-            tok_pl = (Replicate(),) * mesh.ndim
+        ids, inside = ctx.saved_tensors
+        mesh, placements, rows_pl, tok_pl, table_shape, n_rows, dtype = ctx.table
         local = grad.redistribute(mesh, tok_pl).to_local() if optim.is_dtensor(grad) else grad
-        rows = local.new_zeros(shape, dtype=dtype).index_put_((tokens,), local.to(dtype), accumulate=True)
-        partial = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
-        whole = DTensor.from_local(rows, mesh, partial, run_check=False)
-        return whole.redistribute(mesh, placements), None
+        local = local.to(dtype)
+        if inside is not None:
+            local = torch.where(inside.unsqueeze(-1), local, torch.zeros_like(local))
+        rows = local.new_zeros((n_rows, table_shape[1])).index_put_((ids,), local, accumulate=True)
+        grad_pl = tuple(Partial() if t.is_shard() else r for r, t in zip(rows_pl, tok_pl))
+        block = DTensor.from_local(rows, mesh, grad_pl, run_check=False, shape=table_shape,
+                                   stride=(table_shape[1], 1))
+        return block.redistribute(mesh, placements), None
+
+
+def _lookup_placements(table: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """The placements DTensor's own ``table[tokens]`` gives its result,
+    from its sharding propagation run on ``meta`` blocks of the same
+    global shapes and placements: nothing is computed and nothing moves.
+    Which placements DTensor picks depends on the sizes (its cost model),
+    and the ops after the lookup pick theirs from the residual stream's.
+    Where the release cannot propagate the lookup (PyTorch 2.11, tokens
+    split over two mesh dimensions), the placements it picks at the
+    published widths where it can: the width split over every mesh
+    dimension that splits the table, the tokens' placement on the
+    others."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = table.device_mesh
+
+    def meta(t: torch.Tensor, placements) -> torch.Tensor:
+        local = t.to_local() if optim.is_dtensor(t) else t
+        return DTensor.from_local(torch.empty(local.shape, dtype=local.dtype, device="meta"), mesh, placements,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+    tok_pl = tokens.placements if optim.is_dtensor(tokens) else (Replicate(),) * mesh.ndim
+    try:
+        return tuple(meta(table, table.placements)[meta(tokens, tok_pl)].placements)
+    except RuntimeError:  # "Sharding propagation failed on op aten.index.Tensor"
+        return tuple(Shard(tokens.ndim) if p.is_shard() else t for p, t in zip(table.placements, tok_pl))
 
 
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

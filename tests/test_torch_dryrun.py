@@ -20,9 +20,13 @@ whole-length trace for a narrowed xlstm-350m's train and prefill steps; a
 narrowed dense prefill's per-device dot FLOPs equal to the formula; one
 MLA decode layer's collectives, one all-reduce of its output projection
 whatever the cache's length; one shared block of zamba2's ring decode,
-its collectives the same whatever the ring's length; every leaf of every
-live cell placed as the JAX ``spec_for`` places it; and the ``--all`` run
-tracing all 31 live cells and exiting 0.
+its collectives the same whatever the ring's length; one shared block
+of zamba2's decode over a plain cache, attending where the cache lies,
+its collectives the same whatever the cache's length; the embedding
+lookup by vocab block, its collectives the same whatever the vocabulary;
+every leaf of every live cell placed as the JAX ``spec_for`` places it,
+on the 16x16 and the 2x16x16 meshes; and the ``--all`` run tracing all
+31 live cells and exiting 0.
 """
 
 import dataclasses
@@ -230,7 +234,7 @@ def worker(tmp_path_factory):
             with open(os.path.join(work, f"{part}.json")) as fh:
                 rec = json.load(fh)
             for k, v in rec.items():
-                if k == "trips":
+                if k in ("trips", "leaves"):
                     out.setdefault(k, {}).update(v)
                 else:
                     out[k] = v
@@ -285,15 +289,16 @@ def test_dense_prefill_dot_flops_equal_the_formula(worker):
     """A dense prefill on the 2x4 mesh under ``SERVE_RULES``, every width
     dividing the 4-way model axis: each data rank's b = B / 2 sequences;
     the q, k, v, o and MLP products on each model rank's quarter of their
-    output (or input) features; the attention on every query head (heads
-    replicated over the model axis without H1), causal; the head on the
-    last position's quarter of the vocabulary."""
+    output (or input) features; the attention on each model rank's
+    quarter of the query heads, beside their KV heads (the KV heads divide
+    the model axis, so the attention runs where they lie), causal; the
+    head on the last position's quarter of the vocabulary."""
     rec = worker["dense"]
     cfg, b, s = rec["cfg"], rec["batch"] // 2, rec["seq"]
     d, hq, hkv, hd, ff, vocab = (cfg[k] for k in ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab"))
     t = b * s
     proj = 2 * t * (d * hq * hd // 4 + 2 * d * hkv * hd // 4 + hq * hd // 4 * d + 3 * d * ff // 4)
-    attn = 2 * (hd + hd) * b * hq * (s * (s + 1) // 2)
+    attn = 2 * (hd + hd) * b * hq // 4 * (s * (s + 1) // 2)
     head = 2 * b * 1 * d * vocab // 4
     assert rec["costs"]["dot_flops"] == cfg["num_layers"] * (proj + attn) + head
 
@@ -344,6 +349,61 @@ def test_ring_decode_layer_moves_no_collective_that_grows_with_the_ring(worker, 
     assert costs["hbm_bytes"] > 2 * slots // 2 * hkv // 4 * hd * 4  # the K and V blocks are read
 
 
+@pytest.mark.parametrize("slots", [64, 256])
+def test_shared_decode_layer_attends_where_the_cache_lies(worker, slots):
+    """One shared attention block of zamba2's decode over a plain cache on
+    the fake 2x4 mesh under ``SERVE_RULES`` (reduced zamba2, batch 8, a
+    bf16 cache of 64 or 256 slots placed ``("batch", "kv_heads", "seq",
+    "head_dim")``: its batch over the 2-way data axis, its 4 KV heads over
+    the 4-way model axis): each rank attends on its own block of the batch
+    and the KV heads, beside their query heads, so no all-gather moves the
+    cache and the collectives are the same at both lengths, kind for kind
+    and byte for byte (what remains is the MLP's and the output
+    projection's, which DTensor places by the layer's widths). The
+    attention saw [B/2, H/4, 1, hd] against [B/2, Hkv/4, slots, hd]."""
+    rec = worker["shared_decode"][str(slots)]
+    cfg, b = rec["cfg"], rec["batch"]
+    costs = rec["costs"]
+    assert costs["collective_counts"] == worker["shared_decode"]["64"]["costs"]["collective_counts"]
+    assert costs["collective_bytes"] == worker["shared_decode"]["64"]["costs"]["collective_bytes"]
+    h, hkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    assert rec["calls"] == [[[b // 2, h // 4, 1, hd], [b // 2, hkv // 4, slots, hd]]]
+    assert costs["hbm_bytes"] > 2 * b // 2 * hkv // 4 * slots * hd * 2  # the K and V blocks are read
+
+
+def test_embedding_lookup_moves_no_collective_that_grows_with_the_vocab(worker):
+    """The embedding lookup of a bf16 table [vocab, 64] whose vocab lies
+    over the 4-way model axis of the fake 2x4 mesh (``SERVE_RULES``), for
+    tokens [8, 4] placed by ``("batch", "seq")``: each rank looks up the
+    tokens of its batch block that fall in its own rows, and one
+    reduce-scatter of its [B/2, S, 64] partial rows over the model axis
+    (bf16) sums them into the placement DTensor's own lookup gives its
+    result, the width split over the model axis: [B/2, S, 64/4] a rank.
+    The same at a vocabulary of 1024 and of 8192; nothing gathers the
+    table."""
+    small, large = (worker["embed_lookup"][v] for v in ("1024", "8192"))
+    assert small["placements"] == large["placements"]
+    assert [p[0] for p in small["placements"]] == ["R", "S"] and "0" in small["placements"][1]  # vocab over model
+    assert small["costs"]["collective_counts"] == large["costs"]["collective_counts"]
+    assert small["costs"]["collective_bytes"] == large["costs"]["collective_bytes"]
+    assert small["costs"]["collective_counts"] == dict(_zero(), **{"reduce-scatter": 1})
+    assert small["costs"]["collective_bytes"] == dict(_zero(), **{"reduce-scatter": 8 // 2 * 4 * 64 // 4 * 2})
+
+
+def test_lookup_fallback_gives_the_placements_dtensor_picks_at_full_size(worker):
+    """Where a PyTorch release cannot propagate DTensor's own lookup (2.11
+    refuses tokens split over pod and data), the vocab-block lookup leaves
+    its result where DTensor picks at the published widths: the width
+    split over every mesh dimension that splits the table, the tokens'
+    placement on the others. Five full-size cells (serving and training
+    tables, batch 1, the xLSTM) on both production meshes, each the same
+    both ways."""
+    got = worker["lookup_fallback"]
+    assert len(got) == 10
+    for cell, (probed, fallback) in got.items():
+        assert probed == fallback, cell
+
+
 @pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
 def test_length_extension_equals_a_whole_length_trace(worker, shape):
     """A narrowed xlstm-350m (one mLSTM and one sLSTM block) at 10 chunks
@@ -391,14 +451,18 @@ def _jax_leaves(arch, shape):
     return kind, leaves, jax_rules.rules_for(case.kind, global_batch=case.global_batch)
 
 
+MESHES = {"single": ((16, 16), ("data", "model")), "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch,shape", LIVE, ids=[f"{a}-{s}" for a, s in LIVE])
-def test_cell_leaves_are_placed_as_the_jax_cell(worker, arch, shape):
-    got = worker["leaves"][f"{arch}/{shape}"]
+def test_cell_leaves_are_placed_as_the_jax_cell(worker, arch, shape, mesh):
+    got = worker["leaves"][mesh][f"{arch}/{shape}"]
     kind, want, rules = _jax_leaves(arch, shape)
     assert got["kind"] == kind
     assert set(got["leaves"]) == set(want)
-    names = ("data", "model")
-    jax_mesh, port_mesh = make_abstract_mesh((16, 16), names), MeshShape((16, 16), names)
+    dims, names = MESHES[mesh]
+    jax_mesh, port_mesh = make_abstract_mesh(dims, names), MeshShape(dims, names)
     for name, (shp, axes) in want.items():
         leaf = got["leaves"][name]
         assert tuple(leaf["shape"]) == tuple(shp), name

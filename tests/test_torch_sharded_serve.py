@@ -23,7 +23,9 @@ writes, and the ring wraps), its steps merged by the ranks' log-sum-exp,
 and the same on a 2x2x2 ``("pod", "data", "model")`` mesh (the slots over
 pod and data, 2 a rank, merged one mesh dimension at a time: for the
 first 2 steps both blocks of a pod merge are empty); and xlstm-350m's 4
-steps. Inputs are drawn with numpy from a seed;
+steps. One more case serves llama3-8b at batch 2 on the 2x2x2 mesh: a
+batch that divides the data axis but not pod x data, its cache's batch
+over the data axis alone. Inputs are drawn with numpy from a seed;
 weights are the JAX init's, carried across with the port's ``from_numpy``.
 The prefill's logits and cache and each step's logits and cache (the
 encode's logits) are held to the one-device port's (f32, 1e-5 relative
@@ -81,6 +83,7 @@ CASES = [
     dict(name="xlstm-350m", arch="xlstm-350m", h3=False),
     dict(name="zamba2-2.7b_long", arch="zamba2-2.7b", h3=False, long=True, steps=12),
     dict(name="zamba2-2.7b_long_pods", arch="zamba2-2.7b", h3=False, long=True, steps=12, mesh="2x2x2"),
+    dict(name="llama3-8b_pods", arch="llama3-8b", h3=False, mesh="2x2x2", batch=2),
     dict(name="xlstm-350m_long", arch="xlstm-350m", h3=False, long=True, steps=4),
 ]
 BY_NAME = {c["name"]: c for c in CASES}
@@ -95,12 +98,13 @@ def _inputs(case):
     cfg = get_config(case["arch"]).reduced()
     if case.get("long"):
         return {f"step{i}": rng.integers(0, cfg.vocab, size=(1, 1)).astype(np.int32) for i in range(case["steps"])}
+    b = case.get("batch", B)
     if cfg.encoder_only:
-        return {"frames": rng.standard_normal((B, PROMPT, cfg.frontend_dim)).astype(np.float32)}
+        return {"frames": rng.standard_normal((b, PROMPT, cfg.frontend_dim)).astype(np.float32)}
     draw = lambda shape: rng.integers(0, cfg.vocab, size=shape).astype(np.int32)  # noqa: E731
-    out = {"tokens": draw((B, PROMPT)), "step0": draw((B, 1)), "step1": draw((B, 1))}
+    out = {"tokens": draw((b, PROMPT)), "step0": draw((b, 1)), "step1": draw((b, 1))}
     if cfg.num_patches:
-        out["patches"] = rng.standard_normal((B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        out["patches"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -210,15 +214,17 @@ def test_sharded_prefill_and_decode_equal_one_device(gloo_serve, name, package):
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in CASES if not get_config(c["arch"]).encoder_only
-                                  and not c.get("long")])
+                                  and not c.get("long") and "mesh" not in c])
 def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
     """Each rank holds its block of the cache, never the whole cache: a
     GQA cache's batch over the 2-way data axis and its KV heads or
     head_dim over the 4-way model axis; MLA's latent cache ([B, Smax, R]
     and [B, Smax, rd]: ``("batch", "seq", "kv_lora")``) its batch over the
     data axis, whole on every model rank. Each decode step's attention saw
-    a rank's batch block and all of its slots; MLA's latent attention its
-    block of the query heads (H / 4) beside it."""
+    a rank's batch block and all of its slots, on the cache's own KV heads
+    (the reduced configs' 4 over the 4-way model axis: one a rank, beside
+    its query heads, H / 4); MLA's latent attention its block of the query
+    heads (H / 4) beside it."""
     _, infos = gloo_serve
     cfg = _cfg(BY_NAME[name])
     layers = cfg.num_layers - (cfg.moe.first_dense if cfg.moe else 0)
@@ -233,7 +239,7 @@ def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
             calls = info[f"{name}/decode_attention"]
             assert len(calls) == (2 * cfg.num_layers // cfg.ssm.shared_block_every if cfg.ssm else 0)
             for q, k in calls:
-                assert q[0] == B // 2 and k[0] == B // 2 and k[2] == MAX_LEN
+                assert q[:3] == [B // 2, cfg.num_heads // 4, 1] and k[:3] == [B // 2, cfg.num_kv_heads // 4, MAX_LEN]
             continue
         if cfg.mla is None:
             assert set(entries) == {"k", "v"}
@@ -244,7 +250,8 @@ def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
             calls = info[f"{name}/decode_attention"]
             assert len(calls) == 2 * cfg.num_layers
             for q, k in calls:
-                assert q[0] == B // 2 and k[0] == B // 2 and k[2] == MAX_LEN + cfg.num_patches
+                assert q[:3] == [B // 2, cfg.num_heads // 4, 1]
+                assert k[:3] == [B // 2, cfg.num_kv_heads // 4, MAX_LEN + cfg.num_patches]
             continue
         m = cfg.mla
         prefix = [f"prefix{i}/{n}" for i in range(cfg.moe.first_dense) for n in ("ckv", "krope")]
@@ -263,16 +270,16 @@ def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
 
 def test_the_encode_attends_on_each_ranks_batch_block(gloo_serve):
     """hubert's encode (its serving step) attends bidirectionally on each
-    rank's block of the batch, every head of it (the heads replicated over
-    the model axis, as GSPMD runs a dense layer without H1), over every
-    frame."""
+    rank's block of the batch and of the heads (its 4 KV heads lie over the
+    4-way model axis, one a rank, and the attention runs where they lie,
+    as the JAX package's partitioner runs it), over every frame."""
     _, infos = gloo_serve
     cfg = _cfg(BY_NAME["hubert-xlarge"])
     for info in infos:
         calls = info["hubert-xlarge/encode_attention"]
         assert len(calls) == cfg.num_layers
         for q, k in calls:
-            assert q == [B // 2, cfg.num_heads, PROMPT, cfg.resolved_head_dim] and k == q
+            assert q == [B // 2, cfg.num_heads // 4, PROMPT, cfg.resolved_head_dim] and k == q
 
 
 # -- batch 1 under LONG_SERVE_RULES ------------------------------------------------------------
@@ -353,3 +360,27 @@ def test_the_ring_over_pod_and_data_merges_one_mesh_dimension_at_a_time(gloo_ser
         assert rec["ring_calls"] == want, (rank, rec["ring_calls"])
         counted = rec["ring_collectives"]
         assert counted["8"] == counted["64"], counted
+
+
+def test_a_batch_that_divides_data_but_not_pod_and_data_stays_where_it_lies(gloo_serve):
+    """llama3-8b at batch 2 on the 2x2x2 ``("pod", "data", "model")`` mesh:
+    the batch divides the 2-way data axis but not pod x data, so the rules
+    put the cache's batch over the data axis alone (the JAX ``spec_for``'s
+    fallback to the trailing axes) and its 4 KV heads over the 2-way model
+    axis, each pod holding a copy. Each decode step's attention runs where
+    the cache lies, on a rank's batch block of 1 and its 2 KV heads with
+    their query heads, over every slot, and the steps' logits equal the
+    one-device port's and the JAX package's
+    (``test_sharded_prefill_and_decode_equal_one_device``)."""
+    _, infos = gloo_serve
+    cfg = _cfg(BY_NAME["llama3-8b_pods"])
+    for info in infos:
+        for key, entry in info["llama3-8b_pods/cache"].items():
+            assert entry["global"] == [cfg.num_layers, 2, cfg.num_kv_heads, MAX_LEN, cfg.resolved_head_dim], key
+            assert entry["local"] == [cfg.num_layers, 1, cfg.num_kv_heads // 2, MAX_LEN, cfg.resolved_head_dim], key
+            assert _sharded_dims(entry["placements"]) == [None, 1, 2], entry  # pod replicated, batch over data
+        calls = info["llama3-8b_pods/decode_attention"]
+        assert len(calls) == 2 * cfg.num_layers
+        for q, k in calls:
+            assert q == [1, cfg.num_heads // 2, 1, cfg.resolved_head_dim]
+            assert k == [1, cfg.num_kv_heads // 2, MAX_LEN, cfg.resolved_head_dim]

@@ -1,7 +1,7 @@
 """The dry run's traces on a fake process group, for ``tests/test_torch_dryrun.py``.
 
 Run as ``python tests/torch_dryrun_worker.py <workdir> <part>``: a process
-group of 256 fake ranks (``launch.dryrun.start_fake_world``) lives in this
+group of 512 fake ranks (``launch.dryrun.start_fake_world``) lives in this
 process only, never in a pytest worker, and the xLSTM models this process
 builds take an mLSTM chunk of ``MLSTM_CHUNK`` (``XLSTMLM``'s ``chunk``,
 given by ``_cut_mlstm_chunk``, as ``reduced()`` cuts the hybrid's SSD
@@ -9,8 +9,9 @@ chunk), so that the xLSTM's length extension traces short lengths. The test star
 side by side; each writes ``<workdir>/<part>.json``. Part ``dense``
 (llama3-8b's trips, the hand counts, the analytic prefill, the MLA decode
 layer, the hybrid's ring decode layer, the xLSTM's length extension and
-the leaves), part ``gated`` (gemma2-2b's, dbrx's and deepseek-v3's trips)
-and part ``all``:
+the leaves on the 16x16 mesh), part ``gated`` (gemma2-2b's, dbrx's and
+deepseek-v3's trips, the leaves on the 2x16x16 mesh, the hybrid's shared
+decode layer, the embedding lookup and its fallback) and part ``all``:
 
 * ``hand``: ``op_costs.analyze`` of three DTensor products and gathers on
   the 2x4 mesh of ranks 0-7 (fake tensors), for the hand counts;
@@ -28,8 +29,16 @@ and part ``all``:
 * ``seq_trips``: a narrowed xlstm-350m's train and prefill steps at
   ``SEQ_TRIP_TOKENS`` tokens on the 2x4 mesh, counted by ``analyze_cell``
   (traced at cut lengths, extended) and by one trace at the whole length;
-* ``leaves``: every leaf of every live cell on the 16x16 mesh (built, not
-  traced): its name, global shape and placements;
+* ``shared_decode``: one shared attention block of zamba2's decode over a
+  plain cache on the 2x4 mesh under ``SERVE_RULES`` (its KV heads over the
+  model axis), caches of 64 and of 256 slots;
+* ``embed_lookup``: the embedding lookup of a table whose vocab lies over
+  the model axis of the 2x4 mesh, at two vocabularies;
+* ``lookup_fallback``: the placements of the lookup's result in five
+  full-size cells on both production meshes, from DTensor's propagation
+  and from the fallback taken where a release cannot propagate it;
+* ``leaves``: every leaf of every live cell on the 16x16 and the 2x16x16
+  meshes (built, not traced): its name, global shape and placements;
 * ``all``: ``launch.dryrun.main(["--all", ...])`` (``ALL_JOBS`` cells at
   once) over the registry's
   configs cut by ``reduced()`` (the families and the shapes as the
@@ -54,14 +63,16 @@ def main(workdir: str, part: str) -> None:
 
     torch.set_num_threads(1)
     _cut_mlstm_chunk()
-    dryrun.start_fake_world(256)
+    dryrun.start_fake_world(512)
     mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4), mesh_dim_names=("data", "model"))
     if part == "dense":
-        out = {"hand": _hand(mesh), "trips": _trips(mesh, ("llama3-8b",)), "dense": _dense(mesh), "leaves": _leaves(),
-               "mla_decode": _mla_decode_layer(mesh), "ring_decode": _ring_decode_layer(mesh),
-               "seq_trips": _seq_trips(mesh)}
+        out = {"hand": _hand(mesh), "trips": _trips(mesh, ("llama3-8b",)), "dense": _dense(mesh),
+               "leaves": {"single": _leaves(False)}, "mla_decode": _mla_decode_layer(mesh),
+               "ring_decode": _ring_decode_layer(mesh), "seq_trips": _seq_trips(mesh)}
     elif part == "gated":
-        out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b", "deepseek-v3-671b"))}
+        out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b", "deepseek-v3-671b")),
+               "leaves": {"multi": _leaves(True)}, "shared_decode": _shared_decode_layer(mesh),
+               "embed_lookup": _embed_lookup(mesh), "lookup_fallback": _lookup_fallback()}
     else:
         out = {"all": _all(workdir)}
     with open(os.path.join(workdir, f"{part}.json"), "w") as fh:
@@ -252,6 +263,145 @@ def _ring_decode_layer(mesh) -> dict:
     return out
 
 
+#: the cache's slots of the hybrid's shared decode layer, two lengths
+SHARED_SLOTS = (64, 256)
+#: its batch (over the 2-way data axis)
+SHARED_BATCH = 8
+
+
+def _shared_decode_layer(mesh) -> dict:
+    """``op_costs.analyze`` of one shared attention block of zamba2's
+    decode over a plain cache (``HybridLM._shared_block(..., ring=False)``,
+    reduced zamba2: 4 query and 4 KV heads of 16) on fake bf16 blocks
+    placed by ``SERVE_RULES`` on the 2x4 mesh: the block's parameters, the
+    step's input ``[B, 1, d_model]`` and a cache of ``SHARED_SLOTS`` slots
+    (its batch over the 2-way data axis, its KV heads over the 4-way model
+    axis), the step at the last slot, its output placed as its input; the
+    attention through the kernel operator (its fake). By cache length: the
+    counts and the calls the operator saw."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.launch import op_costs
+    from repro_torch.models.lm import HybridLM, mesh_scope
+    from repro_torch.models.params import decoder_specs, spec
+    from repro_torch.sharding import SERVE_RULES, place_new
+
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def block(shape):
+        with fake:
+            return torch.empty(shape, dtype=torch.bfloat16)
+
+    cfg = get_config("zamba2-2.7b").reduced()
+    out = {}
+    for slots in SHARED_SLOTS:
+        seen = []
+
+        def attention(q, k, v, **kw):
+            seen.append([list(q.shape), list(k.shape)])
+            return flash_attention_op(q, k, v, **kw)
+
+        model = HybridLM(cfg, attention=attention)
+        specs = {n: sp for n, sp in decoder_specs(cfg) if n.startswith(("shared_attn/", "shared_mlp/"))}
+        params = place_new(specs, SERVE_RULES, mesh, block)
+        x = place_new(spec((SHARED_BATCH, 1, cfg.d_model), ("batch", None, "act_embed")), SERVE_RULES, mesh, block)
+        kv = spec((SHARED_BATCH, cfg.num_kv_heads, slots, cfg.resolved_head_dim),
+                  ("batch", "kv_heads", "seq", "head_dim"))
+        cache = place_new({"k": kv, "v": kv}, SERVE_RULES, mesh, block)
+
+        def step(p, x, c):
+            with mesh_scope(p):
+                positions = slots - 1 + torch.arange(1, device=x.device)
+                y, _ = model._shared_block(model._shared(p), x, positions, cache=c, cache_len=slots - 1)
+                return y.redistribute(mesh, x.placements)
+
+        costs = op_costs.analyze(step, params, x, cache)
+        out[str(slots)] = {"costs": costs.as_dict(), "calls": seen,
+                           "cfg": {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+                                   "head_dim": cfg.resolved_head_dim, "d_model": cfg.d_model},
+                           "batch": SHARED_BATCH}
+    return out
+
+
+#: the vocabularies of the embedding lookup, two sizes, and its tokens' batch and length
+EMBED_VOCABS = (1024, 8192)
+EMBED_TOKENS = (8, 4)
+
+
+def _embed_lookup(mesh) -> dict:
+    """``op_costs.analyze`` of the embedding lookup (``lm._embed_rows``) of
+    a bf16 table ``[vocab, 64]`` placed by ``SERVE_RULES`` (its vocab over
+    the 4-way model axis) on the 2x4 mesh, for tokens ``[8, 4]`` placed by
+    ``("batch", "seq")``, at the vocabularies of ``EMBED_VOCABS``: the
+    counts by vocabulary."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import op_costs
+    from repro_torch.models.lm import _embed_rows, mesh_scope
+    from repro_torch.models.params import spec
+    from repro_torch.sharding import SERVE_RULES, place_new
+
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def made(dtype):
+        def block(shape):
+            with fake:
+                return torch.empty(shape, dtype=dtype)
+
+        return block
+
+    out = {}
+    for vocab in EMBED_VOCABS:
+        table = place_new(spec((vocab, 64), ("vocab", "embed")), SERVE_RULES, mesh, made(torch.bfloat16))
+        tokens = place_new(spec(EMBED_TOKENS, ("batch", "seq")), SERVE_RULES, mesh, made(torch.int64))
+
+        def lookup(t, tok):
+            with mesh_scope({"embed": t}):
+                return _embed_rows(t, tok)
+
+        costs = op_costs.analyze(lookup, table, tokens)
+        out[str(vocab)] = {"costs": costs.as_dict(), "placements": [str(p) for p in table.placements]}
+    return out
+
+
+#: full-size cells whose embedding lookup's placements are compared, both meshes
+FALLBACK_CELLS = (("llama3-8b", "decode_32k"), ("llama3-8b", "train_4k"), ("gemma2-2b", "train_4k"),
+                  ("zamba2-2.7b", "long_500k"), ("xlstm-350m", "prefill_32k"))
+
+
+def _lookup_fallback() -> dict:
+    """For each of ``FALLBACK_CELLS`` on the 16x16 and the 2x16x16 meshes
+    (built at a cut depth, not traced): the placements
+    ``lm._lookup_placements`` gives the lookup's result from DTensor's
+    propagation, and those of its fallback (the propagation made to
+    raise, as PyTorch 2.11's does on tokens split over two mesh
+    dimensions)."""
+    from unittest import mock
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.models import lm
+
+    out = {}
+    for multi in (False, True):
+        prod = dryrun.device_mesh(dryrun.make_production_mesh(multi_pod=multi))
+        for arch, shape in FALLBACK_CELLS:
+            cell = cells.build_cell(arch, shape, prod, layers={"zamba2-2.7b": 6, "xlstm-350m": 2}.get(arch, 1))
+            table = cell.in_structs[0]["embed"]
+            tokens = cell.in_structs[2] if cell.kind == "decode" else cell.in_structs[-1]["tokens"]
+            probed = lm._lookup_placements(table, tokens)
+            with mock.patch.object(DTensor, "__getitem__", side_effect=RuntimeError("propagation failed")):
+                fallback = lm._lookup_placements(table, tokens)
+            out[f"{arch}/{shape}/{'multi' if multi else 'single'}"] = [[str(p) for p in probed],
+                                                                       [str(p) for p in fallback]]
+    return out
+
+
 #: the mLSTM's chunk of the xLSTM models this process builds (the JAX
 #: package's is 256): the period of the xLSTM's length extension, so the
 #: lengths traced stay short
@@ -297,11 +447,12 @@ def _seq_trips(mesh) -> dict:
     return out
 
 
-def _leaves() -> dict:
-    """Every leaf of every live cell on the 16x16 mesh (built, not traced)."""
+def _leaves(multi_pod: bool) -> dict:
+    """Every leaf of every live cell on the 16x16 or the 2x16x16 mesh
+    (built, not traced)."""
     from repro_torch.launch import cells, dryrun
 
-    prod = dryrun.device_mesh(dryrun.make_production_mesh())
+    prod = dryrun.device_mesh(dryrun.make_production_mesh(multi_pod=multi_pod))
     out = {}
     for arch, shape in cells.live_cells():
         cell = cells.build_cell(arch, shape, prod)
