@@ -302,8 +302,9 @@ lines, any failure exiting non-zero:
    family) on the faked 16x16 mesh, in a process of its own on the host's
    CPU started with the script (``--dryrun``), each cell's counts, three
    terms and fractions printed, a cell that does not trace failing the
-   run, and zamba2-2.7b's ``decode_32k`` and deepseek-v3-671b's under H3
-   held to the JAX package's own collective bytes
+   run, and zamba2-2.7b's ``decode_32k``, deepseek-v3-671b's under H3 and
+   dbrx-132b's ``train_4k`` (H3 off: the placed dispatch) held to the JAX
+   package's own collective bytes
    (``REFERENCE_COLLECTIVE_BYTES``, ``dryrun_gate_bytes``:
    ``cost_model_parity`` lines); (b) llama3-8b's ``prefill_32k`` (1 sequence, 32 layers),
    ``decode_32k`` (8 sequences, 32768 slots) and ``train_4k`` (2 x 4096, 4
@@ -317,7 +318,9 @@ lines, any failure exiting non-zero:
 
 21. The attention families' sharded steps (``sharded_families``):
    deepseek-v3, internvl2-2b and hubert-xlarge served and trained on
-   DTensors on the 1x1 NCCL smoke mesh, bit-equal to their plain runs.
+   DTensors on the 1x1 NCCL smoke mesh, bit-equal to their plain runs;
+   deepseek-v3's MoE layers with H3 off through the placed dispatch
+   (``blocks.DROPPED.placed_calls``, one a MoE layer a call).
 
 22. The hybrid and the xLSTM on the smoke mesh
    (``sharded_recurrent_families``): zamba2-2.7b at 12 layers (a served
@@ -6767,11 +6770,13 @@ DRYRUN_CELLS = (("llama3-8b", "train_4k", ()), ("llama3-8b", "prefill_32k", ()),
                 ("zamba2-2.7b", "decode_32k", ()), ("deepseek-v3-671b", "decode_32k", ("shardmap_moe",)))
 #: collective bytes a device a step that the JAX package's own dry run
 #: (``python -m repro.launch.dryrun``, XLA's cost analysis of the compiled
-#: program, JAX 0.9.0 on a CPU host) counts for two of those cells on the
+#: program, JAX 0.9.0 on a CPU host) counts for three of those cells on the
 #: 16x16 mesh. The machine with the card has no JAX, so they are constants
-#: here; ``tests/test_torch_dryrun_reference.py`` computes them afresh
+#: here; ``tests/test_torch_dryrun_reference.py`` computes the first two
+#: afresh (dbrx-132b's train_4k takes its port side minutes to trace here)
 REFERENCE_COLLECTIVE_BYTES = {("zamba2-2.7b", "decode_32k", ()): 9_866_432,
-                              ("deepseek-v3-671b", "decode_32k", ("shardmap_moe",)): 177_442_750_464}
+                              ("deepseek-v3-671b", "decode_32k", ("shardmap_moe",)): 177_442_750_464,
+                              ("dbrx-132b", "train_4k", ()): 4_834_401_559_392}
 
 
 def dryrun_gate_bytes(cell: tuple) -> float:
@@ -7255,14 +7260,17 @@ def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: di
     (``place_tree``: at world 1 the blocks are the tensors themselves), the
     batch and tokens placed by their logical axes and the cache made placed
     (``init_cache(mesh=)``). Gates: every logit and the cache after the
-    last step bit-equal to the plain run's; each run's launches ``want``.
+    last step bit-equal to the plain run's; each run's launches ``want``;
+    a MoE model's layers on DTensors with H3 off through the placed
+    dispatch (``blocks.DROPPED.placed_calls``: one call a MoE layer a
+    prefill and a step, each rank its own tokens), and no other run's.
     Each run's prefill and decode-step seconds (medians of ``FAMILY_TURNS``
     timed runs after the gated one) and one profiled prefill's and decode
     step's idle share. Returns the records by run."""
     from torch.utils._pytree import tree_leaves
 
     from repro_torch.launch.cells import _INPUT_AXES
-    from repro_torch.models import build_model, optim
+    from repro_torch.models import blocks, build_model, optim
     from repro_torch.models.params import decoder_specs, spec
     from repro_torch.sharding import SERVE_RULES, place_tree
 
@@ -7290,6 +7298,7 @@ def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: di
         torch.cuda.reset_peak_memory_stats(dev)
         with torch.no_grad(), optim.optimizations(**flags):
             before = {k: c.value for k, c in every.items()}
+            placed_before = blocks.DROPPED.placed_calls
             prefill()
             outs = [_local(state["c"][0]).clone()]
             for i in range(len(toks)):
@@ -7298,8 +7307,13 @@ def family_serve(torch, dev, every, mesh, cfg, params, batch, steps, *, want: di
             torch.cuda.synchronize(dev)
             got = {k: every[k].value - before[k] for k in want}
             check(got == want, f"phase {phase} {cfg.name} {label}: launches {got}, want {want}")
+            placed_calls = blocks.DROPPED.placed_calls - placed_before
+            want_placed = (_moe_layers(cfg) * (1 + len(toks)) if label != "plain" and not flags.get("shardmap_moe")
+                           else 0)
+            check(placed_calls == want_placed,
+                  f"phase {phase} {cfg.name} {label}: {placed_calls} placed MoE dispatches, want {want_placed}")
             cache = [_local(t) for t in tree_leaves(state["c"][1])]
-            rec = dict(launches=got)
+            rec = dict(launches=got, placed_moe_calls=placed_calls)
             if ref is None:
                 ref = (outs, cache)
             else:
@@ -7392,6 +7406,11 @@ class DigestingAdamW:
         return self.opt.update(grads, state, params)
 
 
+def _moe_layers(cfg) -> int:
+    """The routed-expert layers of ``cfg`` (past a dense prefix)."""
+    return cfg.num_layers - cfg.moe.first_dense if cfg.moe is not None else 0
+
+
 def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict, smi: str, phase: int = 21,
                  profile_cpu: bool = True) -> dict:
     """Phase 21's training half for one model: one ``make_train_step``
@@ -7400,12 +7419,14 @@ def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict
     same bits) placed by ``TRAIN_RULES`` on the smoke mesh with the batch
     placed by its logical axes. Gates: the loss, every gradient's digest
     and norm (:class:`DigestingAdamW`) and every parameter's digest after
-    the step bit-equal; each step's launches ``want``. Each step's seconds
-    (median of ``FAMILY_TURNS`` timed steps after the gated one; the
-    parameters move on), one profiled step's idle share and the peak
-    memory. Returns the records by run."""
+    the step bit-equal; each step's launches ``want``; a MoE model's
+    DTensor step through the placed dispatch (one
+    ``blocks.DROPPED.placed_calls`` a MoE layer), the plain one not. Each
+    step's seconds (median of ``FAMILY_TURNS`` timed steps after the gated
+    one; the parameters move on), one profiled step's idle share and the
+    peak memory. Returns the records by run."""
     from repro_torch.launch.cells import _INPUT_AXES
-    from repro_torch.models import build_model
+    from repro_torch.models import blocks, build_model
     from repro_torch.models.params import decoder_specs, spec
     from repro_torch.sharding import TRAIN_RULES, place_tree
     from repro_torch.training import AdamW, make_train_step
@@ -7427,13 +7448,18 @@ def family_train(torch, dev, every, mesh, cfg, make_params, batch, *, want: dict
         state = opt.init(params)
         step = make_train_step(model, cfg, opt)
         before = {k: c.value for k, c in every.items()}
+        placed_before = blocks.DROPPED.placed_calls
         _, state, metrics = step(params, state, b)
         torch.cuda.synchronize(dev)
         got = {k: every[k].value - before[k] for k in want}
         check(got == want, f"phase {phase} {cfg.name} {label} step: launches {got}, want {want}")
+        placed_calls = blocks.DROPPED.placed_calls - placed_before
+        want_placed = _moe_layers(cfg) if label == "dtensor" else 0
+        check(placed_calls == want_placed,
+              f"phase {phase} {cfg.name} {label} step: {placed_calls} placed MoE dispatches, want {want_placed}")
         loss = float(metrics["loss"])
         after = {n: checksum(_local(t)) for n, t in params.items()}
-        rec = dict(loss=loss, launches=got)
+        rec = dict(loss=loss, launches=got, placed_moe_calls=placed_calls)
         if ref is None:
             ref = dict(loss=loss, grads=opt.digests, params=after)
         else:

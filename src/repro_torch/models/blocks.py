@@ -16,10 +16,15 @@ axes, init), as the JAX package's.
 The MoE FFN (``moe_apply``) is the JAX package's sort-based capacity
 dispatch: gathers, scatters and three batched expert products, in plain
 PyTorch (the JAX package computes it with XLA ops outside any Pallas
-kernel). ``moe_apply_shardmap`` is its expert-parallel form (the JAX
-package's H3, :mod:`repro_torch.models.optim`) over ``torch.distributed``:
-each rank dispatches its own tokens to its own experts and one
-``all_reduce`` over the model axis combines them.
+kernel). On DTensors (H3 off) its dispatch is placed (:func:`_moe_placed`):
+each rank sorts its own tokens' pairs, the JAX package's global capacity
+and dropped pairs kept by one all-gather of per-expert counts, and the
+expert buffer is summed over the batch axes where the expert weights lie;
+the tokens are never gathered whole. ``moe_apply_shardmap`` is its
+expert-parallel form (the JAX package's H3, :mod:`repro_torch.models.optim`)
+over ``torch.distributed``: each rank dispatches its own tokens to its own
+experts with a capacity of its own, and one ``all_reduce`` over the model
+axis combines them.
 
 Of the JAX package's ``models/optim.py``, all three are ported:
 ``lowp_norm`` (H2, in :func:`~repro_torch.models.layers.rms_norm`),
@@ -593,7 +598,8 @@ def route(
 
 
 def dispatch(
-    top_e: torch.Tensor, num_experts: int, cap: int, experts: Optional[torch.Tensor] = None
+    top_e: torch.Tensor, num_experts: int, cap: int, experts: Optional[torch.Tensor] = None,
+    before: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(order, dest)`` of the ``T * k`` (token, slot) pairs of ``top_e``
     (pair ``i`` is token ``i // k``'s slot ``i % k``): ``order`` sorts them
@@ -602,19 +608,20 @@ def dispatch(
     expert buffer, its expert's first free row, or the waste row ``E * cap``
     once the expert holds ``cap`` pairs (dropped). ``experts``, a 1-D
     tensor of ``count`` expert ids, keeps a buffer of those experts only,
-    in that order (``[count * cap]``, H3's local experts): every other
-    expert's pairs go to its waste row ``count * cap``."""
-    # DTensor has no searchsorted: the routing indices, whole on every rank
-    # (the gathers by them then take the tokens whole too, so with H3 off
-    # the MoE runs in full on every data rank)
-    if optim.is_dtensor(top_e):
-        top_e = top_e.full_tensor()
+    in that order (``[count * cap]``, a rank's local experts): every other
+    expert's pairs go to its waste row ``count * cap``. ``before`` ``[E]``
+    counts the pairs of each expert that come ahead of these in a stable
+    sort of a whole batch of which ``top_e`` is one block (the placed
+    dispatch's other ranks' blocks before this one): each pair's place in
+    its expert's group starts past them."""
     e_flat = top_e.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
     ar = torch.arange(e_flat.numel(), device=e_flat.device)
     group_start = torch.searchsorted(e_sorted, torch.arange(num_experts, device=e_flat.device, dtype=e_sorted.dtype))
     pos_in_e = ar - group_start[e_sorted]  # each pair's place in its expert's group
+    if before is not None:
+        pos_in_e = pos_in_e + before.to(pos_in_e.dtype)[e_sorted]
     if experts is None:
         return order, torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e, num_experts * cap)
     count = experts.numel()
@@ -635,16 +642,19 @@ class DroppedPairs:
         self._lock = threading.Lock()
         self.reset()
 
-    def add(self, routed: int, dropped: torch.Tensor) -> None:
+    def add(self, routed: int, dropped: torch.Tensor, *, placed: bool = False) -> None:
+        """One call's pairs; ``placed``: a call of the placed dispatch
+        (:func:`_moe_placed`), counted in ``placed_calls`` too."""
         with self._lock:
             self.calls += 1
+            self.placed_calls += placed
             self.routed += routed
             key = dropped.device
             self._dropped[key] = self._dropped[key] + dropped if key in self._dropped else dropped
 
     def reset(self) -> None:
         with self._lock:
-            self.calls, self.routed, self._dropped = 0, 0, {}
+            self.calls, self.placed_calls, self.routed, self._dropped = 0, 0, 0, {}
 
     @property
     def dropped(self) -> int:
@@ -656,6 +666,35 @@ class DroppedPairs:
 DROPPED = DroppedPairs()
 
 
+def _to_buffer(flat: torch.Tensor, order: torch.Tensor, dest: torch.Tensor, rows: int, k: int) -> torch.Tensor:
+    """The dispatched pairs' tokens placed into ``[rows, D]`` (``dest`` of
+    :func:`dispatch`, the waste row dropped)."""
+    return flat.new_zeros(rows + 1, flat.shape[1]).index_put((dest,), flat[order // k])[:rows]
+
+
+def _expert_swiglu(p: Params, grouped: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU (``p``'s ``[n_experts, ...]`` weights) over every
+    row of every expert of ``grouped`` ``[n_experts, cap, D]``: three batched
+    products."""
+    g = torch.bmm(grouped, p["w_gate"])
+    u = torch.bmm(grouped, p["w_up"])
+    return torch.bmm(F.silu(g) * u, p["w_down"])
+
+
+def _from_buffer(y_rows: torch.Tensor, top_p: torch.Tensor, order: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """Each pair's output row of ``y_rows`` ``[rows, D]`` (the waste row
+    zero) in pair order (token * k + slot), weighted by its probability
+    and summed over the slots in order: ``[T, D]`` in f32."""
+    (t, k), d = top_p.shape, y_rows.shape[1]
+    y_flat = torch.cat([y_rows, y_rows.new_zeros(1, d)])
+    dest_by_pair = torch.empty_like(dest).scatter_(0, order, dest)
+    contrib = (y_flat[dest_by_pair] * top_p.reshape(-1, 1).to(y_rows.dtype)).view(t, k, d).float()
+    combined = contrib[:, 0]
+    for j in range(1, k):
+        combined = combined + contrib[:, j]
+    return combined
+
+
 def _experts_combined(p: Params, flat: torch.Tensor, top_p: torch.Tensor, order: torch.Tensor, dest: torch.Tensor,
                       cap: int) -> torch.Tensor:
     """The dispatched pairs through the experts' SwiGLU (``p``'s ``[n_experts,
@@ -664,23 +703,10 @@ def _experts_combined(p: Params, flat: torch.Tensor, top_p: torch.Tensor, order:
     :func:`dispatch`, the waste row dropped), three batched products over
     all its rows, and each pair's output in pair order (token * k + slot),
     weighted by its probability and summed over the slots in order."""
-    (t, d), k, n_experts = flat.shape, top_p.shape[1], p["w_gate"].shape[0]
+    n_experts, d = p["w_gate"].shape[0], flat.shape[1]
     rows = n_experts * cap
-    buf = flat.new_zeros(rows + 1, d).index_put((dest,), flat[order // k])
-    grouped = buf[:rows].view(n_experts, cap, d)
-
-    # the experts' SwiGLU over every row of every expert
-    g = torch.bmm(grouped, p["w_gate"])
-    u = torch.bmm(grouped, p["w_up"])
-    y = torch.bmm(F.silu(g) * u, p["w_down"])
-
-    y_flat = torch.cat([y.reshape(rows, d), y.new_zeros(1, d)])
-    dest_by_pair = torch.empty_like(dest).scatter_(0, order, dest)
-    contrib = (y_flat[dest_by_pair] * top_p.reshape(-1, 1).to(y.dtype)).view(t, k, d).float()
-    combined = contrib[:, 0]
-    for j in range(1, k):
-        combined = combined + contrib[:, j]
-    return combined
+    y = _expert_swiglu(p, _to_buffer(flat, order, dest, rows, top_p.shape[1]).view(n_experts, cap, d))
+    return _from_buffer(y.reshape(rows, d), top_p, order, dest)
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -698,7 +724,10 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     in pair order, viewed ``[T, k, D]`` and summed over the slots in slot
     order. The k terms are the JAX package's; with k = 2 the sums are its
     bits, with larger k they may differ in the last bit (it adds in
-    expert order)."""
+    expert order).
+
+    On DTensors the dispatch is placed (:func:`_moe_placed`): each rank
+    dispatches its own tokens, and the tokens are never gathered whole."""
     mo = cfg.moe
     assert mo is not None
     b, s, d = x.shape
@@ -706,33 +735,225 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     cap = capacity(cfg, t)
 
     h = rms_norm(x, p["ln"])
-    flat = h.reshape(t, d)
-    top_p, top_e = route(cfg, p, flat)
-
-    order, dest = dispatch(top_e, E, cap)
-    DROPPED.add(t * k, (dest == E * cap).sum())
-
-    out = _experts_combined(p, flat, top_p, order, dest, cap).to(x.dtype).view(b, s, d)
+    if optim.is_dtensor(h):
+        out = _moe_placed(cfg, p, h, cap)
+    else:
+        flat = h.reshape(t, d)
+        top_p, top_e = route(cfg, p, flat)
+        order, dest = dispatch(top_e, E, cap)
+        DROPPED.add(t * k, (dest == E * cap).sum())
+        out = _experts_combined(p, flat, top_p, order, dest, cap).to(x.dtype).view(b, s, d)
 
     if mo.num_shared:  # on [B, S, D], not the flat tokens: DTensor may split those over more ranks than B divides
         out = out + swiglu(h, p["shared_gate"], p["shared_up"], p["shared_down"])
     return x + out
 
 
+def _all_reduce(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """A copy of ``x`` summed over each of ``groups`` (``all_reduce``)."""
+    import torch.distributed as dist
+
+    x = x.clone()
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
+
+
+class _BatchSum(torch.autograd.Function):
+    """The sum over ``groups`` (the batch dimensions') of each rank's
+    partial buffer, which every rank then holds alike and uses for its own
+    part of the loss: the backward sums the ranks' cotangents the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, groups: tuple) -> torch.Tensor:
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _all_reduce(grad, ctx.groups), None
+
+
+def _scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``'s ranks of each rank's ``[n * m, ...]`` rows,
+    each rank keeping its own ``m`` (``reduce_scatter``: chunk ``i`` to
+    rank ``i``)."""
+    import torch.distributed as dist
+
+    out = x.new_empty(x.shape[0] // dist.get_world_size(group), *x.shape[1:])
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank of ``group``'s ``[m, ...]`` rows in rank order
+    (``all_gather``)."""
+    import torch.distributed as dist
+
+    out = x.new_empty(x.shape[0] * dist.get_world_size(group), *x.shape[1:])
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+class _ScatterRows(torch.autograd.Function):
+    """:func:`_scatter_rows`; its backward gathers the cotangents' blocks
+    back."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _scatter_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _gather_rows(grad, ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`_gather_rows`; its backward sums the cotangents over the
+    group and keeps each rank's own block."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _scatter_rows(grad, ctx.group), None
+
+
+def _moe_placed(cfg: ModelConfig, p: Params, h: torch.Tensor, cap: int) -> torch.Tensor:
+    """The routed part of :func:`moe_apply` on DTensors (H3 off): ``[B, S,
+    D]`` placed as ``h`` (the normed tokens) is placed by the batch alone,
+    the JAX package's global capacity ``cap`` kept and the same pairs
+    dropped, and no rank ever holding the tokens, the routing indices or
+    the pairs' rows of the whole batch.
+
+    Each rank routes the tokens of its own block of the batch (the batch
+    over the flags' batch axes where it divides them, as
+    :func:`batch_placed`), sorts its own pairs stably by expert and counts
+    them an expert; one all-gather of those ``[E]`` counts over the batch
+    dimensions gives each rank the pairs of each expert on the ranks
+    before it, in the order of the global token index, so each pair's
+    place in its expert's group is the one the JAX package's global stable
+    ``argsort`` gives it (:func:`dispatch`'s ``before``), and the dropped
+    pairs (``DROPPED``) are counted from the counts' totals, as one device
+    counts them. Each rank writes the rows of its own kept pairs into the
+    buffer of the experts placed where its weights' blocks lie (the
+    experts the weights split over the mesh dimensions that do not carry
+    the batch: this rank's block of them), and one reduction over the batch
+    dimensions assembles it where those blocks need it: a sum over those
+    that do not split the experts (``all_reduce``) and, over those that do
+    (``SERVE_RULES``' experts over ``("data", "model")``), each rank's own
+    experts' rows (``reduce_scatter``, their outputs gathered back after
+    the products). The expert weights are gathered to their experts'
+    blocks (a training step's FSDP gather), their hidden width split over
+    the batch dimensions the buffer was summed over where it divides them,
+    so no two ranks compute the same product: each rank's partial outputs
+    are summed over those dimensions (``all_reduce``) before each rank
+    reads its own pairs' rows. Each rank combines the rows of its own pairs
+    only, a partial sum over the dimensions that split the experts beside
+    the batch (the model axis), summed (``all_reduce`` of ``[tokens of the
+    block, D]``).
+
+    The backward moves the same kinds of bytes: the sums' cotangents summed
+    over the same dimensions, the combine's over the model axis, the
+    weights' gradients reduced to their placements. On a mesh of one device
+    this is :func:`moe_apply`'s plain path, bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding.rules import placements_for
+
+    mo = cfg.moe
+    E, k = mo.num_experts, mo.top_k
+    mesh = h.device_mesh
+    nd = mesh.ndim
+    b, s, d = h.shape
+    xpl = placements_for(optim.attn_spec((b, s, d), mesh, heads=False), mesh)
+    bdims = [i for i, q in enumerate(xpl) if q.is_shard()]
+    w = p["w_gate"]
+    edims = [i for i, q in enumerate(w.placements) if q.is_shard(0)] if optim.is_dtensor(w) else []
+    split_b = [i for i in edims if i in bdims]  # the batch dimensions that split the experts too
+    split_o = [i for i in edims if i not in bdims]  # the others that split them (the model axis)
+    sums = [i for i in bdims if i not in edims]  # the batch dimensions the buffer is summed over
+
+    def local(t: torch.Tensor, placements, grad=None) -> torch.Tensor:
+        """This rank's block of ``t`` placed by ``placements`` (``grad``: the
+        placements of its gradient, the block's own by default)."""
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * nd, run_check=False)
+        return t.redistribute(mesh, placements).to_local(grad_placements=grad)
+
+    whole = [Replicate()] * nd
+    partial = tuple(Partial() if i in bdims else Replicate() for i in range(nd))  # read on a batch block
+    h_loc = local(h, xpl)
+    bl, t = h_loc.shape[0], h_loc.shape[0] * s
+    copies = tuple(mesh.get_group(i) for i in split_o)
+    groups = tuple(mesh.get_group(i) for i in sums)
+    flat = h_loc.reshape(t, d)
+    routed = _ModelCopy.apply(flat, copies) if copies else flat
+    router = local(p["router"], whole, partial)
+    top_p, top_e = route(cfg, {"router": _ModelCopy.apply(router, copies) if copies else router}, routed)
+
+    # the pairs of each expert on every rank of the batch dimensions, in the global token order
+    e_flat = top_e.reshape(-1)
+    counts = e_flat.new_zeros(E).index_add_(0, e_flat, torch.ones_like(e_flat))
+    ranks = math.prod(mesh.size(i) for i in bdims)
+    pl = [Shard(0) if i in bdims else Replicate() for i in range(nd)]
+    every = DTensor.from_local(counts[None], mesh, pl, run_check=False, shape=(ranks, E), stride=(E, 1)).full_tensor()
+    me = 0
+    for i in bdims:  # this rank's place in the batch, the outer mesh dimension first
+        me = me * mesh.size(i) + mesh.get_local_rank(i)
+    before = every[:me].sum(0)
+    DROPPED.add(b * s * k, (every.sum(0) - cap).clamp_min(0).sum(), placed=True)
+
+    # the experts whose rows this rank writes: the weights' expert blocks at its own place on split_o
+    ways = [mesh.size(i) for i in edims]
+    grid = torch.arange(E).view(*ways, E // math.prod(ways))
+    ids = grid[tuple(mesh.get_local_rank(i) if i in split_o else slice(None) for i in edims)].reshape(-1)
+    order, dest = dispatch(top_e, E, cap, experts=ids, before=before)
+    rows = _to_buffer(routed, order, dest, ids.numel() * cap, k)
+    for i in split_b:  # the outer mesh dimension first: its rank i keeps the i-th chunk
+        rows = _ScatterRows.apply(rows, mesh.get_group(i))
+    if sums:
+        rows = _BatchSum.apply(rows, groups)
+
+    # the experts' hidden width split over the dimensions the buffer was summed over, where it divides them:
+    # each rank its slice of every row (else each computes every row, and reads its own pairs' only)
+    width = sums if p["w_gate"].shape[2] % math.prod(mesh.size(i) for i in sums) == 0 else []
+
+    def expert(n: str, hidden: int) -> torch.Tensor:
+        """This rank's block of the expert weight ``n`` (its hidden width on
+        dimension ``hidden``), gathered from its FSDP shards."""
+        pl = [Shard(0) if i in edims else Shard(hidden) if i in width else Replicate() for i in range(nd)]
+        return local(p[n], pl, [Partial() if i in sums and i not in width else q for i, q in enumerate(pl)])
+
+    lw = {"w_gate": expert("w_gate", 2), "w_up": expert("w_up", 2), "w_down": expert("w_down", 1)}
+    y = _expert_swiglu(lw, rows.view(-1, cap, d)).reshape(-1, d)
+    if width:
+        y = _BatchSum.apply(y, groups)
+    for i in reversed(split_b):
+        y = _GatherRows.apply(y, mesh.get_group(i))
+    combined = _from_buffer(y, top_p, order, dest)
+    if copies:
+        combined = _ModelSum.apply(combined, copies)
+    out = combined.to(h_loc.dtype).view(bl, s, d)
+    return DTensor.from_local(out, mesh, xpl, run_check=False, shape=h.shape, stride=h.stride())
+
+
 class _ModelSum(torch.autograd.Function):
-    """The sum over the model axis's ranks (``all_reduce``) of each rank's
-    partial result. Its backward is the identity: the sum is
+    """The sum over the model axis's ranks (``all_reduce`` over each of a
+    tuple of groups) of each rank's partial result. Its backward is the
+    identity: the sum is
     replicated, so its cotangent is every rank's, and each partial term's
     is that cotangent (``torch.distributed.nn.functional.all_reduce``
     reduces the cotangent again, making it ``tp`` times too large)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        import torch.distributed as dist
-
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
+    def forward(ctx, x: torch.Tensor, groups: tuple) -> torch.Tensor:
+        return _all_reduce(x, groups)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -742,20 +963,17 @@ class _ModelSum(torch.autograd.Function):
 class _ModelCopy(torch.autograd.Function):
     """The identity on a tensor that every model rank holds alike and each
     uses for its own partial result; its backward sums the ranks' partial
-    cotangents (Megatron's copy into the model-parallel region)."""
+    cotangents over each of a tuple of groups (Megatron's copy into the
+    model-parallel region)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, groups: tuple) -> torch.Tensor:
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        import torch.distributed as dist
-
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _all_reduce(grad, ctx.groups), None
 
 
 def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -869,12 +1087,12 @@ def moe_apply_shardmap(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     t = b * s
     group = mesh.get_group(f.model_axis)
     flat = rms_norm(x_loc, lp["ln"]).reshape(t, d)
-    routed = _ModelCopy.apply(flat, group)
-    top_p, top_e = route(cfg, {"router": _ModelCopy.apply(lp["router"], group)}, routed)
+    routed = _ModelCopy.apply(flat, (group,))
+    top_p, top_e = route(cfg, {"router": _ModelCopy.apply(lp["router"], (group,))}, routed)
     cap = capacity(cfg, t)
     order, dest = dispatch(top_e, E, cap, experts=ids)
     combined = _experts_combined(lp, routed, top_p, order, dest, cap)
-    out = _ModelSum.apply(combined, group).to(x_loc.dtype)
+    out = _ModelSum.apply(combined, (group,)).to(x_loc.dtype)
     if mo.num_shared:
         out = out + swiglu(flat, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
     return like_x(x_loc + out.view(b, s, d), xspec)

@@ -226,6 +226,30 @@ def _lookup_placements(table: torch.Tensor, tokens: torch.Tensor) -> tuple:
         return tuple(Shard(tokens.ndim) if p.is_shard() else t for p, t in zip(table.placements, tok_pl))
 
 
+def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: the final hidden states ``[B, S, d]`` through the head's
+    weight ``[d, V]``. Where the rules shard the weight's ``d`` over mesh
+    dimensions that carry the batch (a training step's FSDP), the weight is
+    gathered over them and ``x`` placed by its batch alone
+    (:func:`blocks.batch_placed`), so the product is each rank's own and the
+    logits lie by batch and by vocab block. DTensor's own choice there
+    varies with the mesh's sizes: on a 32-way data axis it contracted ``d``
+    over it instead, leaving the whole batch's logits a partial sum for
+    the loss to all-reduce."""
+    if not (optim.is_dtensor(x) and optim.is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding.rules import placements_for
+
+    mesh = w.device_mesh
+    batch = [p.is_shard() for p in placements_for(optim.attn_spec(tuple(x.shape), mesh, heads=False), mesh)]
+    if not any(b and p.is_shard(0) for b, p in zip(batch, w.placements)):
+        return x @ w
+    gathered = [Replicate() if b and p.is_shard(0) else p for b, p in zip(batch, w.placements)]
+    return blocks.batch_placed(x) @ w.redistribute(mesh, gathered)
+
+
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; a table placed on a mesh through :class:`_EmbedRows`."""
     return _EmbedRows.apply(table, tokens) if optim.is_dtensor(table) else table[tokens]
@@ -314,7 +338,7 @@ class DecoderLM:
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_ln"])
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return softcap((x @ w).float(), self.cfg.logit_softcap)
+        return softcap(_logits(x, w).float(), self.cfg.logit_softcap)
 
     def _inputs(self, params: Params, batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """The embedded inputs ``[B, S, d_model]`` and their positions: the
@@ -540,7 +564,7 @@ class EncoderLM:
                 h = blocks.batch_placed(rms_norm(x, f["ln"]))
                 x = x + gelu_mlp(h, f["w_up"], f["b_up"], f["w_down"], f["b_down"])
             x = rms_norm(x, params["final_ln"])
-            return (x @ params["head"]).float()
+            return _logits(x, params["head"]).float()
 
 
 def _ring_slot(cache_len: int, window: int) -> int:
@@ -705,7 +729,7 @@ class HybridLM:
         return blocks.mlp_apply(mlp, x), kv
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+        return _logits(rms_norm(x, params["final_ln"]), params["head"]).float()
 
     # -- forward (teacher-forced) ----------------------------------------------
 
@@ -923,7 +947,7 @@ class XLSTMLM:
                 blocks.store(cache["slstm"][n][p], t)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return (rms_norm(x, params["final_ln"]) @ params["head"]).float()
+        return _logits(rms_norm(x, params["final_ln"]), params["head"]).float()
 
     # -- forward (teacher-forced) ----------------------------------------------
 

@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import LocalHeads
+from repro_torch.models.blocks import LocalHeads, batch_placed
+from repro_torch.models.optim import is_dtensor
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec, spec
 
@@ -312,6 +313,10 @@ def slstm_block_apply(
     dh = d // nh
     bsz, seq, _ = x.shape
     inp = rms_norm(x, p["ln"])
+    if is_dtensor(inp) and sum(q.is_shard(0) for q in inp.placements) > 1:
+        # a batch split over two mesh dimensions (a multi-pod prefill), placed by the batch alone: PyTorch 2.11's
+        # DTensor cannot take it into this product as it lies ("redistribute from S(0) to P(sum)")
+        inp = batch_placed(inp)
     gates_x = inp @ p["w_gates"] + p["b_gates"]
     blk = LocalHeads(gates_x, bsz, nh)
     h0, h1 = blk.heads

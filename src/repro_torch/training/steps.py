@@ -41,6 +41,16 @@ all-reduce, or FSDP's reduce-scatter) before :class:`AdamW` updates each
 rank's block. Metrics come back as plain replicated tensors. Every
 family takes it: the dense and MoE decoders (H1 and H3 on or off), MLA
 (deepseek-v3), the VLM, the encoder, the hybrid and the xLSTM.
+
+On a multi-pod mesh ``("pod", "data", ...)`` the rules shard the batch and
+the FSDP dimensions over pod and data together. DTensor resolves each
+such placement one mesh dimension at a time, and picks its strategies for
+the two dimensions apart (all-reduces where one flat dimension has
+reduce-scatters). So :func:`value_and_grad` runs the step on the mesh
+with pod and data flattened into one dimension (:func:`flat_batch_mesh`),
+the same ranks in the same order, each parameter and input on its own
+local block: the 2x16x16 step is the 32x16 step. The gradients come back
+on the caller's mesh.
 """
 
 from __future__ import annotations
@@ -50,13 +60,60 @@ from typing import Any, Callable, Dict, Mapping, MutableMapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import AUDIO, VLM
-from repro_torch.models import check_trainable
+from repro_torch.models import check_trainable, optim
 from repro_torch.models.optim import is_dtensor
 from repro_torch.models.lm import HybridLM, mesh_scope
 from repro_torch.training import objectives
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 Tensors = Mapping[str, torch.Tensor]
+
+
+#: the flattened mesh of each multi-pod mesh (:func:`flat_batch_mesh`)
+_FLAT_MESHES: Dict[Any, Any] = {}
+
+
+def flat_batch_mesh(mesh: Any) -> Any:
+    """``mesh`` (a ``DeviceMesh`` with ``"pod"`` right before ``"data"``)
+    with those two dimensions flattened into one named ``"data"``, pod
+    outer, so the ranks keep their order (made once a mesh: it makes its
+    process groups); None for any other mesh."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "pod" not in names or names.index("pod") + 1 >= len(names) or names[names.index("pod") + 1] != "data":
+        return None
+    if mesh not in _FLAT_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        i = names.index("pod")
+        shape = list(mesh.mesh.shape)
+        shape[i: i + 2] = [shape[i] * shape[i + 1]]
+        _FLAT_MESHES[mesh] = DeviceMesh(mesh.device_type, mesh.mesh.reshape(shape),
+                                        mesh_dim_names=names[:i] + names[i + 1:])
+    return _FLAT_MESHES[mesh]
+
+
+def _moved(t: Any, mesh: Any, placements: tuple) -> Any:
+    """The DTensor ``t``'s local block as a DTensor on ``mesh`` placed by
+    ``placements`` (nothing moves)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t.to_local(), mesh, placements, run_check=False, shape=t.shape, stride=t.stride())
+
+
+def _on_flat(tree: Dict[str, Any], flat: Any) -> Optional[Dict[str, Any]]:
+    """Each DTensor of ``tree`` on the flattened mesh ``flat``, where its
+    placements over pod and data are one placement, both replicated or
+    both splitting one dimension; None if one is not."""
+    out = {}
+    for n, t in tree.items():
+        if is_dtensor(t):
+            pl = list(t.placements)
+            i = t.device_mesh.mesh_dim_names.index("pod")
+            if pl[i] != pl[i + 1] or pl[i].is_partial():
+                return None
+            t = _moved(t, flat, tuple(pl[:i] + pl[i + 1:]))
+        out[n] = t
+    return out
 
 
 def value_and_grad(
@@ -67,7 +124,21 @@ def value_and_grad(
     """``(grads, metrics)`` of ``loss_fn(params, batch)``: the loss is
     taken on leaves that share ``params``' storage (``detach()``), so the
     caller's tensors never carry ``requires_grad``. DTensor parameters get
-    gradients placed as they are, and plain replicated metrics."""
+    gradients placed as they are, and plain replicated metrics. On a
+    multi-pod mesh the step runs with pod and data flattened into one mesh
+    dimension (the module docstring), where every parameter and input can
+    be placed there."""
+    mesh = next((p.device_mesh for p in params.values() if is_dtensor(p)), None)
+    flat = flat_batch_mesh(mesh) if mesh is not None else None
+    if flat is not None and isinstance(batch, Mapping):
+        fp, fb = _on_flat(params, flat), _on_flat(dict(batch), flat)
+        if fp is not None and fb is not None:
+            with optim.optimizations(mesh=flat):
+                grads, metrics = value_and_grad(loss_fn, fp, fb)
+            i = mesh.mesh_dim_names.index("pod")
+            back = {n: _moved(g, mesh, (*g.placements[:i + 1], *g.placements[i:])) if is_dtensor(g) else g
+                    for n, g in grads.items()}
+            return back, metrics
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
     with torch.enable_grad(), mesh_scope(params):
         loss, metrics = loss_fn(leaves, batch)

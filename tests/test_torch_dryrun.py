@@ -10,8 +10,9 @@ real shapes and dtypes, and their FLOP formulas against a brute count of
 the live pairs of the attention's mask.
 
 Every trace on a fake process group runs in ``tests/torch_dryrun_worker.py``
-(three processes side by side, each with a deadline), never in a pytest
-worker: ``analyze`` of DTensor products on the fake 2x4 mesh against hand
+(three processes started side by side, each part under its own deadline
+from its own start, and read by the tests of its own records only: a part
+that fails errors its own tests), never in a pytest worker: ``analyze`` of DTensor products on the fake 2x4 mesh against hand
 counts; the trip-count extension of ``analyze_cell`` equal, every field,
 to a full-depth trace for narrowed llama3-8b, gemma2-2b, dbrx and
 deepseek-v3 (a dense prefix before its MoE stack) in each kind; the
@@ -34,6 +35,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -57,11 +59,14 @@ from repro_torch.models import active_param_count  # noqa: E402
 from repro_torch.sharding import placements_for  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_sharded_step import once  # noqa: E402
 from test_training_checkpoint import make_abstract_mesh  # noqa: E402
 
 WORKER = os.path.join(os.path.dirname(__file__), "torch_dryrun_worker.py")
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
-DEADLINE = 420.0
+#: each worker part's deadline, seconds from its start: about 3x its time alone on an idle 8-core CPU (dense 92 s,
+#: gated 79 s, all 93 s) would be under the 420 s all three shared before, which each keeps
+DEADLINES = {"dense": 420.0, "gated": 420.0, "all": 420.0}
 LIVE = jax_cells.live_cells()
 
 
@@ -220,30 +225,35 @@ def test_mla_formula_against_hand_count():
 
 @pytest.fixture(scope="module")
 def worker(tmp_path_factory):
-    """The worker's three parts, run side by side: their records merged."""
+    """``records(part)``: one worker part's records, the three parts started
+    side by side at the first call and each read when a test first asks for
+    it, under its own deadline from its start."""
     work = str(tmp_path_factory.mktemp("dryrun"))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = {part: subprocess.Popen([sys.executable, WORKER, work, part], stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True, env=env)
-             for part in ("dense", "gated", "all")}
-    out = {}
-    try:
-        for part, proc in procs.items():
-            log, _ = proc.communicate(timeout=DEADLINE)
-            assert proc.returncode == 0 and "DRYRUN_WORKER_OK" in log, (part, log[-3000:])
-            with open(os.path.join(work, f"{part}.json")) as fh:
-                rec = json.load(fh)
-            for k, v in rec.items():
-                if k in ("trips", "leaves"):
-                    out.setdefault(k, {}).update(v)
-                else:
-                    out[k] = v
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return out
+    procs = {}
+
+    @once
+    def records(part):
+        if not procs:
+            for name in DEADLINES:
+                procs[name] = (subprocess.Popen([sys.executable, WORKER, work, name], stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True, env=env), time.monotonic())
+        proc, start = procs[part]
+        try:
+            log, _ = proc.communicate(timeout=max(DEADLINES[part] - (time.monotonic() - start), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            raise AssertionError(f"dry-run worker part {part} still running after {DEADLINES[part]} s: {log[-3000:]}")
+        assert proc.returncode == 0 and "DRYRUN_WORKER_OK" in log, (part, log[-3000:])
+        with open(os.path.join(work, f"{part}.json")) as fh:
+            return json.load(fh)
+
+    yield records
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _zero():
@@ -257,7 +267,7 @@ def test_analyze_dtensor_products_against_hand_counts(worker):
     local [8, 4] x [4, 12] product whose partial sum is all-reduced into
     the replicated [8, 12] (384 bytes over NVLink). Rows over data
     gathered whole: one all-gather of [8, 16] (512 bytes)."""
-    hand = worker["hand"]
+    hand = worker("dense")["hand"]
     mm = hand["mm_sharded"]
     assert mm["dot_flops"] == 2 * 4 * 3 * 16 and mm["hbm_bytes"] == 4 * (4 * 16 + 16 * 3 + 4 * 3)
     assert mm["collective_counts"] == _zero()
@@ -279,7 +289,7 @@ TRIPS = [f"{a}/{s}" for a in ("llama3-8b", "gemma2-2b", "dbrx-132b", "deepseek-v
 
 @pytest.mark.parametrize("cell", TRIPS)
 def test_trip_count_extension_equals_a_full_depth_trace(worker, cell):
-    rec = worker["trips"][cell]
+    rec = worker("dense" if cell.startswith("llama3-8b/") else "gated")["trips"][cell]
     assert rec["layers"] > max(rec["depths"])  # extended, not traced at full depth
     assert rec["extended"] == rec["full"]
     assert rec["full"]["dot_flops"] > 0
@@ -293,7 +303,7 @@ def test_dense_prefill_dot_flops_equal_the_formula(worker):
     quarter of the query heads, beside their KV heads (the KV heads divide
     the model axis, so the attention runs where they lie), causal; the
     head on the last position's quarter of the vocabulary."""
-    rec = worker["dense"]
+    rec = worker("dense")["dense"]
     cfg, b, s = rec["cfg"], rec["batch"] // 2, rec["seq"]
     d, hq, hkv, hd, ff, vocab = (cfg[k] for k in ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab"))
     t = b * s
@@ -313,13 +323,13 @@ def test_mla_decode_layer_moves_no_collective_that_grows_with_the_cache(worker, 
     all-reduce of the output projection's partial sum, ``B/dp x 1 x d x
     2`` bytes (bf16), the same at both lengths, and no all-gather. The
     latent attention saw [B/2, H/4, 1, R] against [B/2, slots, R]."""
-    rec = worker["mla_decode"][str(slots)]
+    rec = worker("dense")["mla_decode"][str(slots)]
     cfg, b = rec["cfg"], rec["batch"]
     wo_partial = b // 2 * 1 * cfg["d_model"] * 2
     costs = rec["costs"]
     assert costs["collective_counts"] == dict(_zero(), **{"all-reduce": 1})
     assert costs["collective_bytes"] == dict(_zero(), **{"all-reduce": wo_partial})
-    assert costs["collective_bytes"] == worker["mla_decode"]["64"]["costs"]["collective_bytes"]
+    assert costs["collective_bytes"] == worker("dense")["mla_decode"]["64"]["costs"]["collective_bytes"]
     r = cfg["kv_lora_rank"]
     assert rec["latent_calls"] == [[[b // 2, cfg["num_heads"] // 4, 1, r], [b // 2, slots, r]]]
     assert costs["hbm_bytes"] > b // 2 * slots * r * 2  # the cache block is read
@@ -338,11 +348,11 @@ def test_ring_decode_layer_moves_no_collective_that_grows_with_the_ring(worker, 
     byte: the merge's gather moves each rank's ``hd + 1`` f32 a query row,
     not the ring. The attention saw [1, H/4, 1, hd] against [1, Hkv/4,
     slots/2, hd]."""
-    rec = worker["ring_decode"][str(slots)]
+    rec = worker("dense")["ring_decode"][str(slots)]
     cfg = rec["cfg"]
     costs = rec["costs"]
-    assert costs["collective_counts"] == worker["ring_decode"]["64"]["costs"]["collective_counts"]
-    assert costs["collective_bytes"] == worker["ring_decode"]["64"]["costs"]["collective_bytes"]
+    assert costs["collective_counts"] == worker("dense")["ring_decode"]["64"]["costs"]["collective_counts"]
+    assert costs["collective_bytes"] == worker("dense")["ring_decode"]["64"]["costs"]["collective_bytes"]
     assert costs["collective_counts"]["all-gather"] >= 1
     h, hkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
     assert rec["calls"] == [[[1, h // 4, 1, hd], [1, hkv // 4, slots // 2, hd], slots // 2]]
@@ -361,11 +371,11 @@ def test_shared_decode_layer_attends_where_the_cache_lies(worker, slots):
     and byte for byte (what remains is the MLP's and the output
     projection's, which DTensor places by the layer's widths). The
     attention saw [B/2, H/4, 1, hd] against [B/2, Hkv/4, slots, hd]."""
-    rec = worker["shared_decode"][str(slots)]
+    rec = worker("gated")["shared_decode"][str(slots)]
     cfg, b = rec["cfg"], rec["batch"]
     costs = rec["costs"]
-    assert costs["collective_counts"] == worker["shared_decode"]["64"]["costs"]["collective_counts"]
-    assert costs["collective_bytes"] == worker["shared_decode"]["64"]["costs"]["collective_bytes"]
+    assert costs["collective_counts"] == worker("gated")["shared_decode"]["64"]["costs"]["collective_counts"]
+    assert costs["collective_bytes"] == worker("gated")["shared_decode"]["64"]["costs"]["collective_bytes"]
     h, hkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
     assert rec["calls"] == [[[b // 2, h // 4, 1, hd], [b // 2, hkv // 4, slots, hd]]]
     assert costs["hbm_bytes"] > 2 * b // 2 * hkv // 4 * slots * hd * 2  # the K and V blocks are read
@@ -381,7 +391,7 @@ def test_embedding_lookup_moves_no_collective_that_grows_with_the_vocab(worker):
     result, the width split over the model axis: [B/2, S, 64/4] a rank.
     The same at a vocabulary of 1024 and of 8192; nothing gathers the
     table."""
-    small, large = (worker["embed_lookup"][v] for v in ("1024", "8192"))
+    small, large = (worker("gated")["embed_lookup"][v] for v in ("1024", "8192"))
     assert small["placements"] == large["placements"]
     assert [p[0] for p in small["placements"]] == ["R", "S"] and "0" in small["placements"][1]  # vocab over model
     assert small["costs"]["collective_counts"] == large["costs"]["collective_counts"]
@@ -398,7 +408,7 @@ def test_lookup_fallback_gives_the_placements_dtensor_picks_at_full_size(worker)
     placement on the others. Five full-size cells (serving and training
     tables, batch 1, the xLSTM) on both production meshes, each the same
     both ways."""
-    got = worker["lookup_fallback"]
+    got = worker("gated")["lookup_fallback"]
     assert len(got) == 10
     for cell, (probed, fallback) in got.items():
         assert probed == fallback, cell
@@ -411,7 +421,7 @@ def test_length_extension_equals_a_whole_length_trace(worker, shape):
     mesh: ``analyze_cell`` traces it at whole numbers of chunks until two
     increments repeat exactly and extends the last to 10 chunks; every
     field equals one trace at the whole length."""
-    rec = worker["seq_trips"][shape]
+    rec = worker("dense")["seq_trips"][shape]
     assert rec["seq_lens"] and max(rec["seq_lens"]) < rec["tokens"] and rec["seq_times"] >= 1
     assert rec["extended"] == rec["full"]
     assert rec["full"]["dot_flops"] > 0
@@ -457,7 +467,7 @@ MESHES = {"single": ((16, 16), ("data", "model")), "multi": ((2, 16, 16), ("pod"
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch,shape", LIVE, ids=[f"{a}-{s}" for a, s in LIVE])
 def test_cell_leaves_are_placed_as_the_jax_cell(worker, arch, shape, mesh):
-    got = worker["leaves"][mesh][f"{arch}/{shape}"]
+    got = worker("dense" if mesh == "single" else "gated")["leaves"][mesh][f"{arch}/{shape}"]
     kind, want, rules = _jax_leaves(arch, shape)
     assert got["kind"] == kind
     assert set(got["leaves"]) == set(want)
@@ -479,7 +489,7 @@ def test_dryrun_all_refuses_exactly_the_two_recurrent_families(worker):
     set refused is empty. Every record carries the JAX record's keys and
     names the PyTorch release; the xLSTM's train and prefill cells are
     counted over cut lengths, extended."""
-    rec = worker["all"]
+    rec = worker("all")["all"]
     assert rec["rc"] == 0
     by_cell = {(r["arch"], r["shape"]): r for r in rec["cells"].values()}
     assert set(by_cell) == set(LIVE) and len(by_cell) == 31

@@ -1,9 +1,11 @@
 """The port's sharded serving steps on a 2x4 mesh of eight gloo processes,
 on the CPU.
 
-One run of eight processes (``tests/torch_serve_worker.py``, meeting
-through a ``FileStore`` under the module's tmp dir, each at one thread)
-serves every case: ``DecoderLM.prefill`` over parameters placed by
+The cases run in four groups (``GROUPS``), each in its own run of eight
+processes (``tests/torch_serve_worker.py``, meeting through a ``FileStore``
+in the group's own tmp dir, each at one thread) under its own deadline,
+started the first time a test asks for one of the group's cases: a group
+that fails errors its own tests only. Each case: ``DecoderLM.prefill`` over parameters placed by
 ``SERVE_RULES`` (``place_tree``) and a prompt placed by ``("batch",
 "seq")``, the cache made placed by the serve rules, then two ``decode``
 steps, for reduced llama3-8b, gemma2-2b (window, softcaps, tied head),
@@ -42,6 +44,7 @@ import json
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -58,14 +61,13 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.params import from_numpy  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_sharded_step import _jax_cfg, _jax_tree, _rel_l2, _weights  # noqa: E402
+from test_torch_sharded_step import _jax_cfg, _jax_tree, _rel_l2, _weights, once  # noqa: E402
 from torch_serve_worker import MAX_LEN, cache_entries  # noqa: E402
 from torch_step_worker import _cfg  # noqa: E402
 
 from repro.models import build_model as jax_build_model  # noqa: E402
 
 WORLD = 8
-DEADLINE = 300.0
 PORT_TOL = 1e-5  # relative L2 a tensor, against the one-device port
 JAX_TOL = 2e-5  # the parity contract's f32 tolerance, relative L2, against the JAX package
 B, PROMPT = 8, 12
@@ -87,6 +89,19 @@ CASES = [
     dict(name="xlstm-350m_long", arch="xlstm-350m", h3=False, long=True, steps=4),
 ]
 BY_NAME = {c["name"]: c for c in CASES}
+#: the cases by group, each group's eight ranks run apart under the group's
+#: own deadline, seconds: at least 300 s, about 6x the group's time alone on
+#: an idle 8-core CPU (dense 83 s, with the 2x2x2 case; moe 19 s;
+#: vlm_encoder_xlstm 14 s; hybrid_long 18 s). Under the full suite's 6
+#: pytest workers the groups ran 2.4-3.1x their time alone (dense 233 s)
+GROUPS = {
+    "dense": (["llama3-8b", "gemma2-2b", "llama3-8b_pods"], 510.0),
+    "moe": (["dbrx-132b_h3_off", "dbrx-132b_h3_on", "deepseek-v3-671b_h3_off", "deepseek-v3-671b_h3_on"], 300.0),
+    "vlm_encoder_xlstm": (["internvl2-2b", "hubert-xlarge", "xlstm-350m"], 300.0),
+    "hybrid_long": (["zamba2-2.7b", "zamba2-2.7b_long", "zamba2-2.7b_long_pods", "xlstm-350m_long"], 300.0),
+}
+GROUP_OF = {name: group for group, (names, _) in GROUPS.items() for name in names}
+assert sorted(GROUP_OF) == sorted(BY_NAME)
 WORKER = os.path.join(os.path.dirname(__file__), "torch_serve_worker.py")
 
 
@@ -110,17 +125,32 @@ def _inputs(case):
 
 @pytest.fixture(scope="module")
 def gloo_serve(tmp_path_factory):
-    """The eight ranks' outputs: ``(rank 0's tensors, every rank's info)``."""
-    work = tmp_path_factory.mktemp("gloo_serve")
-    for case in CASES:
+    """``serve(name)``: the outputs of the eight ranks that ran case
+    ``name``'s group, ``(rank 0's tensors, every rank's info)``; each group
+    runs once, when a test first asks for one of its cases."""
+
+    @once
+    def run(group):
+        names, deadline = GROUPS[group]
+        return run_group(tmp_path_factory.mktemp(f"gloo_serve_{group}"), [BY_NAME[n] for n in names], deadline)
+
+    return lambda name: run(GROUP_OF[name])
+
+
+def run_group(work, cases, deadline):
+    """One group's eight ranks serving ``cases`` (their weights and inputs
+    written to ``work``): ``(rank 0's tensors, every rank's info)``."""
+    for case in cases:
         named = _weights(case["arch"])
         np.savez(work / f"serve_{case['name']}.npz", **_inputs(case), **{f"p/{n}": v for n, v in named.items()})
     with open(work / "serve.json", "w") as fh:
-        json.dump(CASES, fh)
+        json.dump(cases, fh)
     with ProcSet(str(work / "logs")) as procs:
-        ranks = [procs.spawn(f"rank{r}", [sys.executable, WORKER, str(r), str(WORLD), str(work)]) for r in range(WORLD)]
+        ranks = [procs.spawn(f"rank{r}", [sys.executable, WORKER, str(r), str(WORLD), str(work)])
+                 for r in range(WORLD)]
+        end = time.monotonic() + deadline
         for rank in ranks:
-            assert rank.wait(deadline=DEADLINE) == 0, procs.failure_report()
+            assert rank.wait(deadline=max(end - time.monotonic(), 1.0)) == 0, procs.failure_report()
     infos = []
     for r in range(WORLD):
         with open(work / f"rank{r}.json") as fh:
@@ -128,11 +158,16 @@ def gloo_serve(tmp_path_factory):
     return dict(np.load(work / "serve.npz")), infos
 
 
-@functools.lru_cache(maxsize=None)
 def _reference(name, package):
+    return reference(json.dumps(BY_NAME[name], sort_keys=True), package)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(case_json, package):
     """``{"prefill/logits", "prefill/k", ..., "step1/v"}`` of one device: the
-    port's or the JAX package's, from the case's weights and tokens."""
-    case = BY_NAME[name]
+    port's or the JAX package's, from the case's (a serve case as JSON)
+    weights and tokens."""
+    case = json.loads(case_json)
     named = _weights(case["arch"])
     inp = _inputs(case)
     out = {}
@@ -202,7 +237,7 @@ def _long_reference(case, cfg, named, inp, package):
 @pytest.mark.parametrize("package", ["port", "jax"])
 @pytest.mark.parametrize("name", list(BY_NAME))
 def test_sharded_prefill_and_decode_equal_one_device(gloo_serve, name, package):
-    got, _ = gloo_serve
+    got, _ = gloo_serve(name)
     want = _reference(name, package)
     tol = PORT_TOL if package == "port" else JAX_TOL
     assert set(want) == {k[len(name) + 1:] for k in got if k.startswith(name + "/")}
@@ -225,7 +260,7 @@ def test_the_cache_lies_placed_on_every_rank(gloo_serve, name):
     (the reduced configs' 4 over the 4-way model axis: one a rank, beside
     its query heads, H / 4); MLA's latent attention its block of the query
     heads (H / 4) beside it."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve(name)
     cfg = _cfg(BY_NAME[name])
     layers = cfg.num_layers - (cfg.moe.first_dense if cfg.moe else 0)
     for info in infos:
@@ -273,7 +308,7 @@ def test_the_encode_attends_on_each_ranks_batch_block(gloo_serve):
     rank's block of the batch and of the heads (its 4 KV heads lie over the
     4-way model axis, one a rank, and the attention runs where they lie,
     as the JAX package's partitioner runs it), over every frame."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve("hubert-xlarge")
     cfg = _cfg(BY_NAME["hubert-xlarge"])
     for info in infos:
         calls = info["hubert-xlarge/encode_attention"]
@@ -303,7 +338,7 @@ def test_the_ring_lies_sharded_along_its_slots_and_merges_by_log_sum_exp(gloo_se
     a window of 8 and of 64 slots issues the same collectives, kind for
     kind and byte for byte: nothing that grows with the ring crosses the
     ranks."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve("zamba2-2.7b_long")
     cfg = _cfg(BY_NAME["zamba2-2.7b_long"])
     hkv, hd, groups = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers // cfg.ssm.shared_block_every
     for rank, info in enumerate(infos):
@@ -325,7 +360,7 @@ def test_the_ring_lies_sharded_along_its_slots_and_merges_by_log_sum_exp(gloo_se
 def test_the_xlstm_long_states_lie_placed_by_their_heads(gloo_serve):
     """xlstm-350m at batch 1: each recurrent state's heads over the 4-way
     model axis (the batch of 1 whole), on every rank."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve("xlstm-350m_long")
     for info in infos:
         entries = info["xlstm-350m_long"]["cache"]
         assert set(entries) == {"mlstm/c", "mlstm/n", "mlstm/m", "slstm/h", "slstm/c", "slstm/n", "slstm/m"}
@@ -344,7 +379,7 @@ def test_the_ring_over_pod_and_data_merges_one_mesh_dimension_at_a_time(gloo_ser
     first 2 steps the pod merge of blocks 1 and 3 sees no valid slot at
     all, and the steps' logits still equal the one-device port's
     (``test_sharded_prefill_and_decode_equal_one_device``)."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve("zamba2-2.7b_long_pods")
     cfg = _cfg(BY_NAME["zamba2-2.7b_long_pods"])
     hkv, hd, groups = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers // cfg.ssm.shared_block_every
     for rank, info in enumerate(infos):
@@ -372,7 +407,7 @@ def test_a_batch_that_divides_data_but_not_pod_and_data_stays_where_it_lies(gloo
     their query heads, over every slot, and the steps' logits equal the
     one-device port's and the JAX package's
     (``test_sharded_prefill_and_decode_equal_one_device``)."""
-    _, infos = gloo_serve
+    _, infos = gloo_serve("llama3-8b_pods")
     cfg = _cfg(BY_NAME["llama3-8b_pods"])
     for info in infos:
         for key, entry in info["llama3-8b_pods/cache"].items():

@@ -1,10 +1,13 @@
 """The port's sharded train step on a 2x4 mesh of eight gloo processes,
 H1 over a ``DeviceMesh`` and H3's backward, on the CPU.
 
-One run of eight processes (``tests/torch_step_worker.py``, meeting through
-a ``FileStore`` under the module's tmp dir, each at one thread) serves
-every 2x4 check, and one JAX subprocess of eight faked CPU devices
-(``tests/procs.run_py``) computes the JAX side that needs a mesh. Inputs
+The checks run in groups (``GROUPS``), each in its own run of eight
+processes (``tests/torch_step_worker.py``, meeting through a ``FileStore``
+in the group's own tmp dir, each at one thread) under its own deadline,
+started the first time a test asks for the group: a group that fails
+errors its own tests only. One JAX subprocess of eight faked CPU devices
+(``tests/procs.run_py``), a fixture of its own, computes the JAX side that
+needs a mesh. Inputs
 are drawn with numpy from a seed; weights are the JAX init's, carried
 across with the port's ``from_numpy``. The checks:
 
@@ -50,6 +53,7 @@ import functools
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -74,7 +78,8 @@ from repro_torch.models.params import decoder_specs, from_numpy  # noqa: E402
 from repro_torch.training import AdamW, make_grpo_step, make_train_step  # noqa: E402
 
 WORLD = 8
-DEADLINE = 300.0
+#: the JAX mesh subprocess's deadline, seconds (8 s alone on an idle 8-core CPU; see ``GROUPS``)
+JAX_MESH_DEADLINE = 300.0
 LOSS_RTOL, PARAM_TOL = 1e-4, 5e-3
 LR = 1e-3  # the steps' learning rate (the worker's too)
 H1_TOL = 2e-4
@@ -103,6 +108,22 @@ STEP_CASES = [
     dict(name="xlstm-350m_placed", arch="xlstm-350m", placed=True, h3=False),
 ]
 CASES = {c["name"]: c for c in STEP_CASES}
+#: the groups of checks: the step cases and the other checks (``h1``,
+#: ``h3``, ``optim``) each group's eight ranks run apart, under the group's
+#: own deadline, seconds: at least 300 s, over 10x the group's time alone on
+#: an idle 8-core CPU (llama 26 s, gemma_vlm_encoder 19 s, moe 30 s,
+#: recurrent 19 s, h1_h3_optim 12 s): under the full suite's 6 pytest workers
+#: the groups ran 2.3-4.6x their time alone, the moe group 112-124 s
+GROUPS = {
+    "llama": (["llama3-8b_replicated", "llama3-8b_placed", "llama3-8b_accum2", "llama3-8b_grpo"], [], 300.0),
+    "gemma_vlm_encoder": (["gemma2-2b_replicated", "gemma2-2b_placed", "internvl2-2b_placed", "hubert-xlarge_placed"],
+                          [], 300.0),
+    "moe": (["dbrx-132b_h3_off", "dbrx-132b_h3_on", "deepseek-v3-671b_h3_off", "deepseek-v3-671b_h3_on"], [], 300.0),
+    "recurrent": (["zamba2-2.7b_placed", "xlstm-350m_placed"], [], 300.0),
+    "h1_h3_optim": ([], ["h1", "h3", "optim"], 300.0),
+}
+GROUP_OF = {name: group for group, (names, _, _) in GROUPS.items() for name in names}
+assert sorted(GROUP_OF) == sorted(CASES)
 H1_CASE = dict(arch="llama3-8b", heads=[8, 2])
 H1_VOCAB = get_config("llama3-8b").reduced().vocab
 
@@ -113,7 +134,8 @@ def _jax_cfg(case):
     if case.get("heads"):
         cfg = dataclasses.replace(cfg, num_heads=case["heads"][0], num_kv_heads=case["heads"][1])
     if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        factor = case.get("capacity_factor", float(cfg.moe.num_experts))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
     return cfg
 
 
@@ -229,35 +251,83 @@ print("JAX_MESH_OK")
 """
 
 
-@pytest.fixture(scope="module")
-def gloo_run(tmp_path_factory):
-    """The inputs, the eight ranks and the JAX mesh subprocess side by
-    side: ``(outputs, infos, jax_mesh)``, one output and one info dict a
-    rank."""
-    work = tmp_path_factory.mktemp("gloo_step")
-    for case in STEP_CASES:
+def once(fn):
+    """``fn`` called once for each argument: its result, or the error it
+    raised, given again to every later call (a group that failed is not
+    run again for each of its tests)."""
+    done = {}
+
+    def call(arg):
+        if arg not in done:
+            try:
+                done[arg] = (fn(arg), None)
+            except Exception as e:  # noqa: BLE001 - raised again below, for every test that asks
+                done[arg] = (None, e)
+        result, error = done[arg]
+        if error is not None:
+            raise error
+        return result
+
+    return call
+
+
+def run_group(work, cases, checks, deadline):
+    """One group's eight ranks on its inputs in ``work``: ``(outputs,
+    infos)``, one output and one info dict a rank. ``cases`` are step cases
+    (their weights and batches written here); ``checks`` the others the
+    group runs, their inputs written here too."""
+    for case in cases:
         named = _weights(case["arch"])
         np.savez(work / f"step_{case['name']}.npz", **_batch(case), **{f"p/{n}": v for n, v in named.items()})
     with open(work / "steps.json", "w") as fh:
-        json.dump(STEP_CASES, fh)
-    named = _weights("llama3-8b", (8, 2))
-    np.savez(work / "h1.npz", tokens=_tokens(2, H1_VOCAB),
-             **{f"p/{n}": v for n, v in named.items()})
-    p, x = _moe_inputs()
-    np.savez(work / "moe.npz", x=x, **{f"p/{n}": v for n, v in p.items()})
-    np.savez(work / "optim.npz", **_optim_inputs())
+        json.dump({"cases": cases, "checks": checks}, fh)
+    if "h1" in checks:
+        named = _weights("llama3-8b", (8, 2))
+        np.savez(work / "h1.npz", tokens=_tokens(2, H1_VOCAB), **{f"p/{n}": v for n, v in named.items()})
+    if {"h3", "moe_gathers"} & set(checks):
+        p, x = _moe_inputs()
+        np.savez(work / "moe.npz", x=x, **{f"p/{n}": v for n, v in p.items()})
+    if "optim" in checks:
+        np.savez(work / "optim.npz", **_optim_inputs())
     with ProcSet(str(work / "logs")) as procs:
         ranks = [procs.spawn(f"rank{r}", [sys.executable, WORKER, str(r), str(WORLD), str(work)])
                  for r in range(WORLD)]
-        assert "JAX_MESH_OK" in run_py(f"WORK = {str(work)!r}\n" + _JAX_MESH_SIDE, devices=WORLD, deadline=DEADLINE)
+        end = time.monotonic() + deadline
         for rank in ranks:
-            assert rank.wait(deadline=DEADLINE) == 0, procs.failure_report()
+            assert rank.wait(deadline=max(end - time.monotonic(), 1.0)) == 0, procs.failure_report()
     outs = [dict(np.load(work / f"rank{r}.npz")) for r in range(WORLD)]
     infos = []
     for r in range(WORLD):
         with open(work / f"rank{r}.json") as fh:
             infos.append(json.load(fh))
-    return outs, infos, dict(np.load(work / "jax_mesh.npz"))
+    return outs, infos
+
+
+@pytest.fixture(scope="module")
+def gloo_run(tmp_path_factory):
+    """``run(group)``: the eight ranks' ``(outputs, infos)`` of a group of
+    ``GROUPS``, run once, when a test first asks for it."""
+
+    @once
+    def run(group):
+        names, checks, deadline = GROUPS[group]
+        return run_group(tmp_path_factory.mktemp(f"gloo_step_{group}"), [CASES[n] for n in names], checks, deadline)
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def jax_mesh(tmp_path_factory):
+    """The JAX side that needs a mesh (H1's forward, H3's gradients), from
+    one subprocess of eight faked CPU devices."""
+    work = tmp_path_factory.mktemp("jax_mesh")
+    named = _weights("llama3-8b", (8, 2))
+    np.savez(work / "h1.npz", tokens=_tokens(2, H1_VOCAB), **{f"p/{n}": v for n, v in named.items()})
+    p, x = _moe_inputs()
+    np.savez(work / "moe.npz", x=x, **{f"p/{n}": v for n, v in p.items()})
+    assert "JAX_MESH_OK" in run_py(f"WORK = {str(work)!r}\n" + _JAX_MESH_SIDE, devices=WORLD,
+                                   deadline=JAX_MESH_DEADLINE)
+    return dict(np.load(work / "jax_mesh.npz"))
 
 
 # -- (1) the sharded step against the one-device steps ----------------------------------
@@ -282,12 +352,16 @@ class _JaxGradsToo:
         return (new, grads), state
 
 
-@functools.lru_cache(maxsize=None)
 def _one_device_step(name, reference):
+    return one_device_step(json.dumps(CASES[name], sort_keys=True), reference)
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_step(case_json, reference):
     """``(loss, params by name, grads by name)`` of one step on one
-    device: the port's or the JAX package's, from the case's weights and
-    tokens."""
-    case = CASES[name]
+    device: the port's or the JAX package's, from the case's (a step case
+    as JSON) weights and tokens."""
+    case = json.loads(case_json)
     named = _weights(case["arch"])
     batch = _batch(case)
     if reference == "port":
@@ -316,7 +390,7 @@ def _one_device_step(name, reference):
 @pytest.mark.parametrize("reference", ["port", "jax"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_step_equals_the_one_device_step(gloo_run, name, reference):
-    outs, infos, _ = gloo_run
+    outs, infos = gloo_run(GROUP_OF[name])
     loss, want, _ = _one_device_step(name, reference)
     for rank in range(WORLD):
         np.testing.assert_allclose(outs[rank][f"step/{name}/loss"], loss, rtol=LOSS_RTOL)
@@ -335,7 +409,7 @@ def test_sharded_step_gradients_equal_the_one_device_gradients(gloo_run, name, r
     parameters, gathered whole) equal the one-device step's, a tensor at a
     time, on every rank: the check the parameters after AdamW's first step
     cannot make."""
-    outs, _, _ = gloo_run
+    outs, _ = gloo_run(GROUP_OF[name])
     *_, want = _one_device_step(name, reference)
     for rank in range(WORLD):
         got = {n[len(f"step/{name}/g/"):]: v for n, v in outs[rank].items() if n.startswith(f"step/{name}/g/")}
@@ -361,8 +435,8 @@ def _h1_references(jax_mesh):
 
 
 @pytest.mark.parametrize("reference", ["port_plain", "jax_plain", "jax_h1"])
-def test_h1_forward_matches(gloo_run, reference):
-    outs, infos, jax_mesh = gloo_run
+def test_h1_forward_matches(gloo_run, jax_mesh, reference):
+    outs, infos = gloo_run("h1_h3_optim")
     want = _h1_references(jax_mesh)[reference]
     cfg = _cfg(H1_CASE)
     hd = cfg.resolved_head_dim
@@ -386,8 +460,8 @@ def _dense_ref_grads():
 
 @pytest.mark.parametrize("reference", ["dense_ref", "jax_h3"])
 @pytest.mark.parametrize("form", ["plain", "train"])
-def test_h3_gradients_match(gloo_run, form, reference):
-    outs, infos, jax_mesh = gloo_run
+def test_h3_gradients_match(gloo_run, jax_mesh, form, reference):
+    outs, infos = gloo_run("h1_h3_optim")
     want = _dense_ref_grads() if reference == "dense_ref" else {n[3:]: v for n, v in jax_mesh.items()
                                                                   if n.startswith("h3/")}
     assert set(want) == {"ln", "router", "w_gate", "w_up", "w_down", "x"}
@@ -403,7 +477,7 @@ def test_h3_gradients_match(gloo_run, form, reference):
 
 @pytest.mark.parametrize("what", ["global_norm", "adamw_clip", "adamw_no_clip"])
 def test_optimizer_on_dtensors_is_bit_equal(gloo_run, what):
-    outs, infos, _ = gloo_run
+    outs, infos = gloo_run("h1_h3_optim")
     for rank in range(WORLD):
         if what == "global_norm":
             assert outs[rank]["optim/norm_dtensor"] == outs[rank]["optim/norm_plain"]

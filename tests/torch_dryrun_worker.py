@@ -11,7 +11,8 @@ side by side; each writes ``<workdir>/<part>.json``. Part ``dense``
 layer, the hybrid's ring decode layer, the xLSTM's length extension and
 the leaves on the 16x16 mesh), part ``gated`` (gemma2-2b's, dbrx's and
 deepseek-v3's trips, the leaves on the 2x16x16 mesh, the hybrid's shared
-decode layer, the embedding lookup and its fallback) and part ``all``:
+decode layer, the embedding lookup and its fallback), part ``pods`` (for
+``tests/test_torch_train_pods.py``) and part ``all``:
 
 * ``hand``: ``op_costs.analyze`` of three DTensor products and gathers on
   the 2x4 mesh of ranks 0-7 (fake tensors), for the hand counts;
@@ -39,6 +40,8 @@ decode layer, the embedding lookup and its fallback) and part ``all``:
   and from the fallback taken where a release cannot propagate it;
 * ``leaves``: every leaf of every live cell on the 16x16 and the 2x16x16
   meshes (built, not traced): its name, global shape and placements;
+* ``pods``: a reduced zamba2-2.7b train step on ranks 0-7 as a 2x2x2
+  ``("pod", "data", "model")`` mesh and as a 4x2 one, each one's counts;
 * ``all``: ``launch.dryrun.main(["--all", ...])`` (``ALL_JOBS`` cells at
   once) over the registry's
   configs cut by ``reduced()`` (the families and the shapes as the
@@ -73,6 +76,8 @@ def main(workdir: str, part: str) -> None:
         out = {"trips": _trips(mesh, ("gemma2-2b", "dbrx-132b", "deepseek-v3-671b")),
                "leaves": {"multi": _leaves(True)}, "shared_decode": _shared_decode_layer(mesh),
                "embed_lookup": _embed_lookup(mesh), "lookup_fallback": _lookup_fallback()}
+    elif part == "pods":
+        out = {"pods": _pods()}
     else:
         out = {"all": _all(workdir)}
     with open(os.path.join(workdir, f"{part}.json"), "w") as fh:
@@ -470,6 +475,32 @@ def _leaves(multi_pod: bool) -> dict:
                 leaves[f"{tname}/{name}"] = {"shape": list(t.shape), "placements": [str(p) for p in t.placements],
                                              "dtype": str(t.dtype)}
         out[f"{arch}/{shape}"] = {"kind": cell.kind, "leaves": leaves}
+    return out
+
+
+#: the multi-pod check's reduced arch and train step (batch, tokens)
+PODS_ARCH, PODS_BATCH, PODS_SEQ = "zamba2-2.7b", 8, 32
+
+
+def _pods() -> dict:
+    """A reduced ``PODS_ARCH`` train step on fake ranks 0-7 laid out as a
+    2x2x2 ``("pod", "data", "model")`` mesh and as a 4x2 ``("data",
+    "model")`` one: each mesh's counts and trace seconds."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import cells
+
+    meshes = {"2x2x2": DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2), mesh_dim_names=("pod", "data", "model")),
+              "4x2": DeviceMesh("cpu", torch.arange(8).reshape(4, 2), mesh_dim_names=("data", "model"))}
+    case = ShapeCase("train_4k", PODS_SEQ, PODS_BATCH, "train")
+    out = {}
+    for name, mesh in meshes.items():
+        t0 = time.perf_counter()
+        rec = cells.build_cell(PODS_ARCH, "train_4k", mesh, cfg=get_config(PODS_ARCH).reduced(), case=case).trace(mesh)
+        out[name] = {"costs": rec["costs"].as_dict(), "seconds": time.perf_counter() - t0}
     return out
 
 

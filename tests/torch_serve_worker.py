@@ -10,7 +10,8 @@ frames). Each rank builds the ``("data", "model")`` 2x4 ``DeviceMesh``,
 places the parameters by ``SERVE_RULES`` (``place_tree``) and the inputs
 by their logical axes (``launch.cells._INPUT_AXES``), and runs the model's
 ``prefill`` (a cache of ``MAX_LEN`` slots after a VLM's patches, made
-placed by the serve rules) and two ``decode`` steps, or an encoder's
+placed by the serve rules) and two ``decode`` steps (a MoE case's
+``capacity_factor`` as the case gives it), or an encoder's
 encode (``EncoderLM.forward``), under ``optimizations(mesh=...,
 shardmap_moe=H3)``. A ``long`` case (batch 1) places the parameters by
 ``LONG_SERVE_RULES`` and decodes its steps one token at a time from
@@ -26,7 +27,9 @@ gathered whole (``full_tensor``); every rank writes ``rank<r>.json``: the
 placements and local block shapes of its cache, the shapes of the local
 blocks the decode's attention (MLA: its latent attention; the ring: its
 attention with the log-sum-exp, with its ``kv_len`` and step) and the
-encode's attention saw, and the counted ring steps' collectives.
+encode's attention saw, the counted ring steps' collectives, and the
+pairs the MoE layers routed and dropped (``blocks.DROPPED``) and their
+calls through the placed dispatch.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def main(rank: int, world: int, workdir: str) -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mla_decode import mla_decode
     from repro_torch.launch.cells import _INPUT_AXES
-    from repro_torch.models import build_model, optim
+    from repro_torch.models import blocks, build_model, optim
     from repro_torch.models.params import decoder_specs, from_numpy, spec
     from repro_torch.sharding import LONG_SERVE_RULES, SERVE_RULES, place_tree
 
@@ -111,6 +114,7 @@ def main(rank: int, world: int, workdir: str) -> None:
 
         kw = {} if cfg.encoder_only or cfg.family == HYBRID else dict(latent_attention=latent_attention)
         model = build_model(cfg) if cfg.family == SSM else build_model(cfg, attention=attention, **kw)
+        blocks.DROPPED.reset()
         with torch.no_grad(), optim.optimizations(mesh=mesh, shardmap_moe=case["h3"]):
             if cfg.encoder_only:  # the encoder's serving step: its encode
                 rec = {f"{name}/encode/logits": model.forward(params, batch).full_tensor()}
@@ -132,6 +136,7 @@ def main(rank: int, world: int, workdir: str) -> None:
                 rec.update({f"{name}/step{step}/{k}": t.full_tensor() for k, t in cache_entries(cache).items()})
         info[f"{name}/decode_attention"] = seen
         info[f"{name}/decode_latent_attention"] = latent
+        info[f"{name}/dropped"] = [blocks.DROPPED.routed, blocks.DROPPED.dropped, blocks.DROPPED.placed_calls]
         if rank == 0:
             out.update({k: v.numpy() for k, v in rec.items()})
     if rank == 0:

@@ -1,16 +1,21 @@
 """One rank of the port's sharded train step checks over gloo (CPU processes).
 
 Run as ``python tests/torch_step_worker.py <rank> <world> <workdir>``, one
-process a rank; ``tests/test_torch_sharded_step.py`` starts the eight. The
-ranks meet through a ``FileStore`` in ``workdir``, which also holds the
-inputs: ``steps.json`` (the step cases: arch, head and capacity overrides,
-whether the batch is placed, whether H3 is on, ``accum``, GRPO) with
+process a rank; ``tests/test_torch_sharded_step.py`` starts eight for each
+group of its checks. The ranks meet through a ``FileStore`` in
+``workdir``, which also holds the inputs: ``steps.json`` (``{"cases":
+[...], "checks": [...]}``: the group's step cases, each its arch, head and
+capacity overrides, whether the batch is placed, whether H3 is on,
+``accum``, GRPO and its mesh, ``"2x4"`` by default or ``"2x2x2"``; and
+which of the checks ``h1``, ``h3``, ``optim`` and ``moe_gathers`` the
+group runs) with
 ``step_<case>.npz`` (the JAX init's weights by name and the batch: tokens,
 a VLM's patches too, an encoder's frames, targets and mask), ``h1.npz`` (a reduced
 llama3-8b of 8 query and 2 KV heads and its tokens), ``moe.npz`` (a
 reduced dbrx MoE layer and its input) and ``optim.npz`` (tensors,
 gradients and moments for AdamW). Each rank builds the ``("data",
-"model")`` 2x4 ``DeviceMesh`` and writes ``rank<r>.npz``:
+"model")`` 2x4 ``DeviceMesh`` (and the ``("pod", "data", "model")`` 2x2x2
+one) and writes ``rank<r>.npz``:
 
 * ``step/<case>/loss``, ``step/<case>/g/<name>`` and (rank 0)
   ``step/<case>/p/<name>``: one ``make_train_step`` (or
@@ -26,8 +31,12 @@ gradients and moments for AdamW). Each rank builds the ``("data",
   from plain tensors and from DTensors placed by ``TRAIN_RULES``;
 * ``optim/<what>``: ``global_norm`` and ``AdamW.update`` on DTensors and
   on the same plain tensors;
+* (``moe_gathers``, in the json) one reduced dbrx MoE layer's counted
+  collectives, forward and backward, at two batches;
 
-and ``rank<r>.json``: the H1 blocks' shapes and the gradients' placements.
+and ``rank<r>.json``: the H1 blocks' shapes, the gradients' placements
+and each step's MoE pairs routed and dropped (``blocks.DROPPED``) and its
+calls through the placed dispatch.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ def _cfg(case: dict):
     if case.get("heads"):
         cfg = dataclasses.replace(cfg, num_heads=case["heads"][0], num_kv_heads=case["heads"][1])
     if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        factor = case.get("capacity_factor", float(cfg.moe.num_experts))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
     return cfg
 
 
@@ -77,24 +87,25 @@ def main(rank: int, world: int, workdir: str) -> None:
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
 
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.cells import _INPUT_AXES
     from repro_torch.models import blocks, build_model, optim
     from repro_torch.models.params import decoder_specs, from_numpy
     from repro_torch.sharding import TRAIN_RULES, place_tree, placements_for, spec_for
-    from repro_torch.training import AdamW, AdamWState, global_norm, make_grpo_step, make_train_step
+    from repro_torch.training import AdamW, make_grpo_step, make_train_step
 
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(workdir, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
-    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    meshes = {"2x4": init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model")),
+              "2x2x2": init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))}
+    mesh = meshes["2x4"]
     out, info = {}, {}
 
     def load(name):
         data = np.load(os.path.join(workdir, name))
         return {n[len("p/"):]: data[n] for n in data.files if n.startswith("p/")}, data
 
-    def batch_of(data, placed: bool):
+    def batch_of(data, placed: bool, mesh=mesh):
         """The case's batch: its model inputs (tokens; a VLM's patches; an
         encoder's frames, targets and mask), each placed by its
         ``_INPUT_AXES`` where ``placed``, and a GRPO batch's other fields,
@@ -113,17 +124,21 @@ def main(rank: int, world: int, workdir: str) -> None:
 
     # the sharded step, one a case
     with open(os.path.join(workdir, "steps.json")) as fh:
-        cases = json.load(fh)
-    for case in cases:
+        group = json.load(fh)
+    for case in group["cases"]:
         cfg = _cfg(case)
+        cmesh = meshes[case.get("mesh", "2x4")]
         named, data = load(f"step_{case['name']}.npz")
-        params = place_tree(from_numpy(named, "cpu"), dict(decoder_specs(cfg)), TRAIN_RULES, mesh)
+        params = place_tree(from_numpy(named, "cpu"), dict(decoder_specs(cfg)), TRAIN_RULES, cmesh)
         opt = Recording(AdamW(lr=1e-3, weight_decay=0.0))
         model = build_model(cfg)
         step = (make_grpo_step(model, cfg, opt) if case.get("grpo")
                 else make_train_step(model, cfg, opt, accum=case.get("accum", 1)))
-        with optim.optimizations(mesh=mesh, shardmap_moe=case["h3"]):
-            _, state, metrics = step(params, opt.init(params), batch_of(data, case["placed"]))
+        blocks.DROPPED.reset()
+        with optim.optimizations(mesh=cmesh, shardmap_moe=case["h3"]):
+            _, state, metrics = step(params, opt.init(params), batch_of(data, case["placed"], cmesh))
+        info[f"step/{case['name']}/dropped"] = [blocks.DROPPED.routed, blocks.DROPPED.dropped,
+                                                blocks.DROPPED.placed_calls]
         out[f"step/{case['name']}/loss"] = metrics["loss"].numpy()
         for n, g in opt.grads.items():
             out[f"step/{case['name']}/g/{n}"] = g.numpy()
@@ -135,7 +150,32 @@ def main(rank: int, world: int, workdir: str) -> None:
             if rank == 0:
                 out[f"step/{case['name']}/p/{n}"] = full.numpy()
 
-    # H1: K/V broadcast to the query heads, the attention on each rank's heads
+    if "h1" in group["checks"]:
+        h1_check(mesh, load, batch_of, out, info)
+    if "h3" in group["checks"]:
+        h3_check(mesh, load, out, info)
+    if "optim" in group["checks"]:
+        optim_check(mesh, load, out, info)
+    if "moe_gathers" in group["checks"]:
+        moe_gathers_check(mesh, load, info)
+
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(info, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    print("RANK_OK", rank, flush=True)
+
+
+def h1_check(mesh, load, batch_of, out, info):
+    """H1: K/V broadcast to the query heads, the attention on each rank's heads."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model, optim
+    from repro_torch.models.params import decoder_specs, from_numpy
+    from repro_torch.sharding import TRAIN_RULES, place_tree
+
     cfg = _cfg({"arch": "llama3-8b", "heads": [8, 2]})
     named, data = load("h1.npz")
     params = place_tree(from_numpy(named, "cpu"), dict(decoder_specs(cfg)), TRAIN_RULES, mesh)
@@ -150,7 +190,16 @@ def main(rank: int, world: int, workdir: str) -> None:
     out["h1/logits"] = logits.full_tensor().numpy()
     info["h1_local_shapes"] = sorted(list(map(list, s)) for s in seen)
 
-    # H3's gradients, from plain tensors and from DTensors placed by TRAIN_RULES
+
+def h3_check(mesh, load, out, info):
+    """H3's gradients, from plain tensors and from DTensors placed by TRAIN_RULES."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import blocks, optim
+    from repro_torch.models.params import from_numpy
+    from repro_torch.sharding import TRAIN_RULES, place_tree, placements_for, spec_for
+
     cfg = _cfg({"arch": "dbrx-132b"})
     named, data = load("moe.npz")
     specs = blocks.moe_specs(cfg)
@@ -169,7 +218,15 @@ def main(rank: int, world: int, workdir: str) -> None:
             out[f"h3/{form}/{n}"] = (g.full_tensor() if optim.is_dtensor(g) else g).numpy()
         info[f"h3_{form}_grad_placements"] = [str(g.placements) if optim.is_dtensor(g) else "plain" for g in grads]
 
-    # global_norm and AdamW on DTensors against the same plain tensors
+
+def optim_check(mesh, load, out, info):
+    """``global_norm`` and AdamW on DTensors against the same plain tensors."""
+    import torch
+
+    from repro_torch.models.params import decoder_specs, from_numpy
+    from repro_torch.sharding import TRAIN_RULES, place_tree
+    from repro_torch.training import AdamW, AdamWState, global_norm
+
     named, data = load("optim.npz")
     cfg = _cfg({"arch": "llama3-8b"})
     specs = dict(decoder_specs(cfg))
@@ -191,12 +248,41 @@ def main(rank: int, world: int, workdir: str) -> None:
             and torch.equal(state_d.nu[n].full_tensor(), state_p.nu[n]) for n in named)
         info[f"optim_{label}_steps"] = [state_p.step, state_d.step]
 
-    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
-        json.dump(info, fh)
-    dist.barrier()
-    dist.destroy_process_group()
-    print("RANK_OK", rank, flush=True)
+
+
+def moe_gathers_check(mesh, load, info):
+    """One reduced dbrx MoE layer (H3 off) on DTensors placed by
+    ``TRAIN_RULES``, its forward and backward (of ``sum(y**2)``) counted
+    (``op_costs.count``) at batches of 4 and of 8 (the layer's input twice
+    over): each batch's collectives by kind, counts and bytes."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import op_costs
+    from repro_torch.models import blocks, optim
+    from repro_torch.models.lm import mesh_scope
+    from repro_torch.models.params import from_numpy
+    from repro_torch.sharding import TRAIN_RULES, place_tree, placements_for, spec_for
+
+    cfg = _cfg({"arch": "dbrx-132b"})
+    named, data = load("moe.npz")
+    p = place_tree(from_numpy(named, "cpu"), blocks.moe_specs(cfg), TRAIN_RULES, mesh)
+    info["moe_gathers"] = {}
+    for b in (4, 8):
+        x = torch.from_numpy(np.concatenate([data["x"]] * (b // data["x"].shape[0])))
+        x = distribute_tensor(x, mesh, placements_for(spec_for(tuple(x.shape), ("batch", "seq", "act_embed"),
+                                                                TRAIN_RULES, mesh), mesh))
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        xl = x.detach().requires_grad_()
+
+        def layer():
+            y = blocks.moe_apply(cfg, leaves, xl)
+            return torch.autograd.grad((y * y).sum(), [*leaves.values(), xl])
+
+        with optim.optimizations(mesh=mesh), mesh_scope(leaves):  # as the model runs it
+            costs, _ = op_costs.count(layer)
+        info["moe_gathers"][str(b)] = {"counts": costs.collective_counts, "bytes": costs.collective_bytes}
 
 
 if __name__ == "__main__":

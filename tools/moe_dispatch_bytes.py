@@ -1,21 +1,25 @@
 """What dbrx-132b's routed-expert FFN moves between ranks on the faked 16x16
 mesh, with H3 off and on, from the dry run's counts (``launch.op_costs``).
 
-With H3 off, ``blocks.dispatch`` takes the routing indices whole on every
-rank (``full_tensor()``: DTensor has no ``searchsorted``), and the gathers
-by those plain indices in ``blocks._experts_combined`` then take the
-batch-sharded tokens whole too. With H3 on (``shardmap_moe``), each rank
-dispatches its own tokens to its own experts and one ``all_reduce`` over
-the model axis combines them. For each forward-only cell (prefill_32k,
-decode_32k) and each setting the script traces the cell at two depths one
-layer apart, past the first layers' settling (``--depth``), and prints one
-JSON line a setting: the step's counts at full depth
-(``op_costs.analyze_cell``) and one MoE layer's collectives by kind and
-bytes, split into the dispatch (``blocks.dispatch``), the rest of the
-routed part (``blocks._experts_combined``) and, with H3 on, the whole of
-``blocks.moe_apply_shardmap``. A forward's collectives all happen inside
-these calls' extent; a train step's backward ones do not, so train_4k is
-given as the whole step's counts only (``--train``).
+With H3 off, the dispatch is placed (``blocks._moe_placed``): each rank
+routes and sorts its own tokens' pairs, one all-gather of the ``[E]``
+counts over the batch axes places them in the global order, the buffer
+of the rank's experts is summed over the batch axes (reduce-scattered
+over a batch axis that also splits the experts, their outputs gathered
+back) and the combine is summed over the model axis. With H3 on
+(``shardmap_moe``), each rank dispatches its own tokens to its own experts
+and one ``all_reduce`` over the model axis combines them. For each
+forward-only cell (prefill_32k, decode_32k) and each setting the script
+traces the cell at two depths one layer apart, past the first layers'
+settling (``--depth``), and prints one JSON line a setting: the step's
+counts at full depth (``op_costs.analyze_cell``) and one MoE layer's
+collectives by kind and bytes within each of ``SCOPES`` it ran: the
+placed dispatch (``blocks._moe_placed``, H3 off), or H3's
+(``blocks.moe_apply_shardmap``). A forward's collectives all happen
+inside these calls' extent; a train step's backward ones do not, so
+train_4k is given as the whole step's counts only (``--train``). A tree
+older than the placed dispatch reports its ``blocks.dispatch`` and
+``blocks._experts_combined`` instead.
 
 Nothing is allocated and no card is used: a process group of 256 fake
 ranks lives in this process.
@@ -32,7 +36,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
 
-SCOPES = ("dispatch", "_experts_combined", "moe_apply_shardmap")
+SCOPES = ("_moe_placed", "dispatch", "_experts_combined", "moe_apply_shardmap")
 
 
 def main(argv=None) -> int:
@@ -78,7 +82,8 @@ def main(argv=None) -> int:
         setattr(blocks, name, run)
 
     for name in SCOPES:
-        wrap(name)
+        if hasattr(blocks, name):
+            wrap(name)
 
     for shape in ("prefill_32k", "decode_32k"):
         for h3 in (False, True):
